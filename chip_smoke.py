@@ -9,22 +9,40 @@ tpuh264_torch/csrc, then:
 
   1. prints the card (nvidia-smi name and power limit) and the build time;
   2. holds K1 (stage-A SAD table), K2 (CAVLC block pack) and K3 (chunk
-     merge) against their plain PyTorch versions on the card at the
-     main path's 1920x1080 x 4 shapes (exact equality), with the winner
-     selection's first-index ties on the card, and times each kernel
-     beside its plain version (CUDA events, after a warm-up);
-  3. encodes 64x48 x 2 streams at QP 28 for 3 dispatches on the GPU and on
-     the CPU (plain versions): identical bytes; the golden decoder's
-     decode of those bytes equals the GPU decoder DPB;
+     merge) against their plain PyTorch versions on the card (exact
+     equality) at the main path's 1920x1080 x 4 shapes, with the winner
+     selection's first-index ties on the card, and K2/K3 again on
+     intra-in-P P symbols at 854x480 x 8 (skip, inter and intra MBs);
+     times each kernel beside its plain version (CUDA events, after a
+     warm-up);
+  3. at 64x48 x 2 the GPU emits the CPU's bytes (plain versions) on every
+     path: the RTC preset, intra-in-P, two references, host ingest with
+     fan-out 2 and a drop_frames, and the I-only DevicePipeline; the
+     golden decoder's decode of the GPU bytes equals the GPU decoder DPB;
   4. drives the main path -- GOPDevicePipeline, 1920x1080 x 4 streams, CBR
-     4 Mbps, RTC preset, gop 32, "rigid" source -- for 9 dispatches
+     4 Mbps, RTC preset, gop 16, "rigid" source -- for 5 dispatches
      (crossing an IDR): after every dispatch the decode-from-bits DPB
      equals the encoder DPB bit for bit;
   5. runs `run()` briefly at that configuration and at 854x480 x 8 streams
      at 1 Mbps and prints aggregate fps, the stage split, PSNR and QP;
-  6. checks that the main-path run of phase 4 launched every kernel.
+  6. the reference's operating point with the default CodecConfig
+     (intra-in-P): 854x480 x 8, CBR 1 Mbps, gop 8, 3 dispatches, decoder
+     DPB == encoder DPB after each; the share of intra MBs in P frames;
+     the fenced time of one P-frame encode with intra-in-P on and off;
+  7. two references at that shape: decoder DPB == encoder DPB after each
+     dispatch, K1 launched once per active reference per P frame, the
+     share of MBs that chose reference 1;
+  8. host ingest -> fan-out 8: one 854x480 stream of camera-like host
+     frames at QP 32, decoded eight times, with a drop_frames: all eight
+     decode streams equal the encoder DPB; the upload ms per dispatch;
+  9. the I-only DevicePipeline at 854x480, decoded 8 times from symbols;
+ 10. the live App (impl "tpu_gop") with the defaults at 854x480 x 8 for
+     about 10 s: its stats, capture drops included, then stop().
 
-Any failure exits non-zero.  The last two lines are the kernel table and
+Every path of phases 4 and 6-10 is driven with the kernels' launch
+counts set to 0 just before it and read just after; each must have
+launched every kernel it runs.  Any failure exits non-zero.  The last
+two lines are the kernel table (launches summed over those paths) and
 {"ok": true, "device": {...}}.  Nothing here imports JAX.
 """
 
@@ -33,6 +51,8 @@ import os
 import subprocess
 import sys
 import time
+
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -66,15 +86,89 @@ def timed(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
+def fenced_ms(fn) -> float:
+    """Host wall ms of one call, synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def max_abs_err(x, y) -> int:
     return int((x.long() - y.long()).abs().max().item()) if x.numel() else 0
 
 
+class Launches:
+    """The three wrappers' launch counts, zeroed before and read after each
+    path the smoke drives; summed over those paths for the kernel table."""
+
+    def __init__(self):
+        from tpuh264_torch.kernels import cavlc_cuda, me_cuda
+
+        self.fns = (me_cuda.sad_field, cavlc_cuda.pack_blocks,
+                    cavlc_cuda.merge_tree)
+        self.total = [0, 0, 0]
+
+    def path(self, name, fn, needs=(0, 1, 2)):
+        for f in self.fns:
+            f.launches = 0
+        out = fn()
+        counts = [f.launches for f in self.fns]
+        for i, n in enumerate(counts):
+            self.total[i] += n
+        print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
+              f"K3 {counts[2]}")
+        if any(counts[i] <= 0 for i in needs):
+            fail(f"{name}: a kernel of the path was never launched: {counts}")
+        return out, counts
+
+
+def k23_rows(sym, torch):
+    """K2 and K3 against their plain versions on the P symbols `sym`
+    (rows for the kernel table)."""
+    from tpuh264_torch.kernels import cavlc_cuda, entropy_gpu
+
+    args, code_res, present, _ = entropy_gpu.pframe_pack_inputs(sym)
+    kw, kb = cavlc_cuda.pack_blocks(*args, 20, 6, code_residual=code_res)
+    pw, pb = cavlc_cuda._pack_blocks_plain(*args, 20, code_res)
+    torch.cuda.synchronize()
+    if not (torch.equal(kb, pb) and torch.equal(kw, pw)):
+        fail("K2 pack_blocks differs from its plain version")
+    k2 = dict(
+        name="K2 pack_blocks (CAVLC block symbolise + pack)", route="cuda",
+        source="tpuh264_torch/csrc/cavlc_pack.cu",
+        replaces="tpuh264/kernels/cavlc_pallas.py:114",
+        max_abs_err=max(max_abs_err(kw, pw), max_abs_err(kb, pb)),
+        ms=timed(lambda: cavlc_cuda.pack_blocks(*args, 20, 6,
+                                                code_residual=code_res), 10),
+        plain_ms=timed(lambda: cavlc_cuda._pack_blocks_plain(
+            *args, 20, code_res), 2))
+    del pw, pb, args
+    cb = torch.where(present, kb, 0).contiguous()
+    cw = torch.where(present[..., None], kw, 0).contiguous()
+    ko, kbits = cavlc_cuda.merge_tree(cw, cb, 128)
+    po, pbits = cavlc_cuda.tree_merge(cw, cb, 128)
+    torch.cuda.synchronize()
+    if not (torch.equal(kbits, pbits) and torch.equal(ko, po)):
+        fail("K3 merge_tree differs from its plain version")
+    k3 = dict(
+        name="K3 merge_tree (chunk -> MB bit-string merge)", route="cuda",
+        source="tpuh264_torch/csrc/cavlc_merge.cu",
+        replaces="tpuh264/kernels/cavlc_pallas.py:486",
+        max_abs_err=max(max_abs_err(ko, po), max_abs_err(kbits, pbits)),
+        ms=timed(lambda: cavlc_cuda.merge_tree(cw, cb, 128), 10),
+        plain_ms=timed(lambda: cavlc_cuda.tree_merge(cw, cb, 128), 3))
+    return [k2, k3]
+
+
 def phase_kernels(dev, torch, np):
-    """Phase 2: K1/K2/K3 against their plain versions at 1080p x 4."""
+    """Phase 2: K1/K2/K3 against their plain versions at 1080p x 4, and
+    K2/K3 on intra-in-P symbols at 480p x 8."""
     from tpuh264_torch.engine.sources import device_source_gop
-    from tpuh264_torch.kernels import (cavlc_cuda, entropy_gpu, me_cuda,
-                                       pframe)
+    from tpuh264_torch.kernels import me_cuda, pframe
 
     w, h, s = 1920, 1088, 4
     y, u, v = device_source_gop(w, h, 2, s, "rigid", 100, dev)
@@ -112,98 +206,150 @@ def phase_kernels(dev, torch, np):
         y[1], u[1], v[1], *refs, 30, intra_in_p=False)
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
-    args, code_res, present, _ = entropy_gpu.pframe_pack_inputs(sym4)
-    kw, kb = cavlc_cuda.pack_blocks(*args, 20, 6, code_residual=code_res)
-    pw, pb = cavlc_cuda._pack_blocks_plain(*args, 20, code_res)
-    torch.cuda.synchronize()
-    if not (torch.equal(kb, pb) and torch.equal(kw, pw)):
-        fail("K2 pack_blocks differs from its plain version")
-    rows.append(dict(
-        name="K2 pack_blocks (CAVLC block symbolise + pack)", route="cuda",
-        source="tpuh264_torch/csrc/cavlc_pack.cu",
-        replaces="tpuh264/kernels/cavlc_pallas.py:114",
-        max_abs_err=max(max_abs_err(kw, pw), max_abs_err(kb, pb)),
-        ms=timed(lambda: cavlc_cuda.pack_blocks(*args, 20, 6,
-                                                code_residual=code_res), 10),
-        plain_ms=timed(lambda: cavlc_cuda._pack_blocks_plain(
-            *args, 20, code_res), 2)))
-    del pw, pb, args
-    cb = torch.where(present, kb, 0).contiguous()
-    cw = torch.where(present[..., None], kw, 0).contiguous()
-    ko, kbits = cavlc_cuda.merge_tree(cw, cb, 128)
-    po, pbits = cavlc_cuda.tree_merge(cw, cb, 128)
-    torch.cuda.synchronize()
-    if not (torch.equal(kbits, pbits) and torch.equal(ko, po)):
-        fail("K3 merge_tree differs from its plain version")
-    rows.append(dict(
-        name="K3 merge_tree (chunk -> MB bit-string merge)", route="cuda",
-        source="tpuh264_torch/csrc/cavlc_merge.cu",
-        replaces="tpuh264/kernels/cavlc_pallas.py:486",
-        max_abs_err=max(max_abs_err(ko, po), max_abs_err(kbits, pbits)),
-        ms=timed(lambda: cavlc_cuda.merge_tree(cw, cb, 128), 10),
-        plain_ms=timed(lambda: cavlc_cuda.tree_merge(cw, cb, 128), 3)))
+    rows += k23_rows(sym4, torch)
     for r in rows:
         print(f"phase 2: {r['name']}: equal to plain (max_abs_err "
               f"{r['max_abs_err']}); kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms at 1080p x 4 shapes")
+    del sym, sym4, k1, p1
+
+    # intra-in-P P symbols at 854x480 x 8: a band copied from the
+    # reference (skips), the moving field (inter) and a flat patch no
+    # reference holds (intra), four P frames' worth (32 frame-streams)
+    w, h, s = 864, 480, 8
+    y, u, v = device_source_gop(w, h, 2, s, "rigid", 40, dev)
+    cur = [p[1].clone() for p in (y, u, v)]
+    for i, p in enumerate((y, u, v)):
+        sh = 1 + (i == 0)
+        cur[i][:, :64 // sh] = p[0][:, :64 // sh]
+        cur[i][:, 160 // sh:288 // sh, 96 // sh:480 // sh] = 30 + 40 * i
+    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    sym, _, _ = pframe.encode_pframe_rows_multi(*cur, *refs, 30,
+                                                intra_in_p=True)
+    kinds = torch.bincount(sym.kind.reshape(-1), minlength=3).tolist()
+    if min(kinds) == 0:
+        fail(f"intra-in-P symbols lack an MB kind (skip/inter/intra): {kinds}")
+    sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
+                               for f in sym])
+    for r in k23_rows(sym4, torch):
+        print(f"phase 2: {r['name']}: equal to plain (max_abs_err "
+              f"{r['max_abs_err']}); kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms on intra-in-P P symbols at 854x480 x "
+              f"8 x 4 frames (MB kinds skip/inter/intra {kinds} per frame)")
     return rows
 
 
 def phase_small(dev, np):
-    """Phase 3: GPU bytes == CPU bytes at 64x48; golden decode == GPU DPB."""
+    """Phase 3: at 64x48 x 2 the GPU emits the CPU's bytes on every path."""
     from tpuh264.golden import codec as gcodec
     from tpuh264_torch.engine import CodecConfig
-    from tpuh264_torch.engine.devpipe import GOPDevicePipeline
+    from tpuh264_torch.engine.devpipe import DevicePipeline, GOPDevicePipeline
+    from tpuh264_torch.engine.sources import clip_frames
 
+    clips = [clip_frames(60, 44, 12, "meeting", seed=si) for si in range(2)]
+
+    def host_batch(d):
+        return [np.stack([[clips[si][4 * d + f][p] for si in range(2)]
+                          for f in range(4)]).astype(np.uint8)
+                for p in range(3)]
+
+    def host_drive(p):
+        for d in range(3):
+            p.pump_host_frames(*host_batch(d))
+            if d == 0:
+                p.drop_frames(3)
+
+    cases = [
+        ("RTC preset, QP 28", dict(qp=28, intra_in_p=False), {}, None),
+        ("intra-in-P, QP 28", dict(qp=28), {}, None),
+        ("2 references, CBR", dict(qp=None, bitrate=200_000,
+                                   num_ref_frames=2), {}, None),
+        ("host ingest 60x44, fan-out 2, drop_frames(3)",
+         dict(width=60, height=44, qp=None, bitrate=150_000),
+         dict(source_kind="host", fanout=2), host_drive),
+    ]
+    for name, kw, pkw, drive in cases:
+        cfg = dict(dict(width=64, height=48, streams=2), **kw)
+        pipes = []
+        for d in (dev, "cpu"):
+            p = GOPDevicePipeline(CodecConfig(**cfg), gop_size=8,
+                                  **dict(dict(source_kind="noise"), **pkw),
+                                  device=d)
+            if drive is None:
+                for _ in range(3):
+                    p.pump_frame()
+            else:
+                drive(p)
+            pipes.append(p)
+        gpu, cpu = pipes
+        hh, ww = cfg["height"], cfg["width"]
+        dec = gpu.decoded_planes()
+        for a, b in zip(dec, cpu.decoded_planes()):
+            if not np.array_equal(a, b):
+                fail(f"64x48 {name}: GPU decoder DPB differs from the CPU's")
+        for si in range(2):
+            if gpu.stream_bytes(si) != cpu.stream_bytes(si):
+                fail(f"64x48 {name}: GPU bytes differ from CPU bytes ({si})")
+            frames = gcodec.decode_annexb_seq(gpu.stream_bytes(si))
+            shapes = ((hh, ww), (hh // 2, ww // 2), (hh // 2, ww // 2))
+            if len(frames) != 12 or not all(
+                    np.array_equal(frames[-1][p], dec[p][si * gpu.fanout]
+                                   [:shapes[p][0], :shapes[p][1]])
+                    for p in range(3)):
+                fail(f"64x48 {name}: golden decode differs from the GPU "
+                     f"decoder DPB ({si})")
+        print(f"phase 3: 64x48 x 2, {name}, 3 dispatches: GPU bytes == CPU "
+              f"bytes ({sum(len(gpu.stream_bytes(i)) for i in range(2))} B), "
+              f"golden decode == GPU decoder DPB "
+              f"({dec[0].shape[0]} decode streams)")
     pipes = []
     for d in (dev, "cpu"):
-        p = GOPDevicePipeline(CodecConfig(width=64, height=48, qp=28,
-                                          streams=2, intra_in_p=False),
-                              gop_size=8, source_kind="noise", device=d)
-        for _ in range(3):
-            p.pump_frame()
+        p = DevicePipeline(CodecConfig(width=64, height=48, qp=30, streams=2),
+                           source_kind="noise", device=d)
+        p.pump_frame()
+        p.pump_frame()
         pipes.append(p)
-    gpu, cpu = pipes
-    for si in range(2):
-        if gpu.stream_bytes(si) != cpu.stream_bytes(si):
-            fail(f"64x48: GPU bytes differ from CPU bytes (stream {si})")
-        frames = gcodec.decode_annexb_seq(gpu.stream_bytes(si))
-        dec = gpu.decoded_planes()
-        if len(frames) != 12 or not all(
-                np.array_equal(frames[-1][p], dec[p][si]) for p in range(3)):
-            fail(f"64x48: golden decode differs from the GPU DPB ({si})")
-    print("phase 3: 64x48 x 2, QP 28, 3 dispatches: GPU bytes == CPU bytes "
-          f"({sum(len(gpu.stream_bytes(i)) for i in range(2))} B), golden "
-          "decode == GPU decoder DPB")
+    if pipes[0].frame_streams != pipes[1].frame_streams:
+        fail("64x48 DevicePipeline: GPU bytes differ from CPU bytes")
+    print("phase 3: 64x48 x 2, DevicePipeline QP 30, 2 dispatches: GPU bytes "
+          f"== CPU bytes ({sum(map(len, pipes[0].frame_streams))} B in the "
+          "last dispatch)")
+
+
+def check_dpbs(pipe, np, what, i):
+    """Every decode stream equals its encoded stream's encoder DPB head."""
+    fan = pipe.fanout
+    for e, d in zip(pipe.encoder_planes(), pipe.decoded_planes()):
+        if not np.array_equal(np.repeat(e, fan, axis=0), d):
+            fail(f"{what}: decoder DPB != encoder DPB after dispatch {i}")
+    # (host frames: the caller measures quality, the SSE is against zeros)
+    if pipe.source_kind != "host" and (not np.isfinite(pipe.last_psnr_y)
+                                       or pipe.last_psnr_y < 25):
+        fail(f"{what}: implausible PSNR {pipe.last_psnr_y}")
+    if pipe.qp_mismatches or pipe.fallback_packs:
+        fail(f"{what}: QP mismatch or host repack")
 
 
 def phase_main(dev, np, card):
-    """Phase 4: the main path, 9 dispatches, enc DPB == dec DPB each time."""
+    """Phase 4: the main path, 5 dispatches, enc DPB == dec DPB each time."""
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
 
     cfg = CodecConfig(width=1920, height=1080, streams=4, qp=None,
                       bitrate=4_000_000, intra_in_p=False)
-    pipe = GOPDevicePipeline(cfg, gop_size=32, source_kind="rigid",
+    pipe = GOPDevicePipeline(cfg, gop_size=16, source_kind="rigid",
                              device=dev)
     qps, times = [], []
-    for i in range(9):
+    for i in range(5):
         qps.append(pipe.rc.current_qp())
         t0 = time.perf_counter()
         pipe.pump_frame()
         times.append(time.perf_counter() - t0)
-        for e, d in zip(pipe.encoder_planes(), pipe.decoded_planes()):
-            if not np.array_equal(e, d):
-                fail(f"1080p: decoder DPB != encoder DPB after dispatch {i}")
-        if not np.isfinite(pipe.last_psnr_y) or pipe.last_psnr_y < 25:
-            fail(f"1080p: implausible PSNR {pipe.last_psnr_y}")
-    if pipe.qp_mismatches or pipe.fallback_packs:
-        fail("1080p: QP mismatch or host repack on the main path")
-    print(f"phase 4: 1920x1080 x 4, CBR 4 Mbps, gop 32, rigid: 9 dispatches "
-          f"(36 frames, IDR at dispatch 0 and 8), decoder DPB == encoder DPB "
+        check_dpbs(pipe, np, "1080p", i)
+    print(f"phase 4: 1920x1080 x 4, CBR 4 Mbps, gop 16, rigid: 5 dispatches "
+          f"(20 frames, IDR at dispatch 0 and 4), decoder DPB == encoder DPB "
           f"after each; QP {qps}; PSNR {pipe.last_psnr_y:.2f} dB; pump_frame "
           f"s {[round(t, 2) for t in times]} [{card}]")
-    return pipe
 
 
 def phase_runs(dev, card):
@@ -211,19 +357,239 @@ def phase_runs(dev, card):
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
 
-    for w, h, s, rate, dur in ((1920, 1080, 4, 4_000_000, 20.0),
-                               (854, 480, 8, 1_000_000, 15.0)):
+    for w, h, s, rate, dur in ((1920, 1080, 4, 4_000_000, 15.0),
+                               (854, 480, 8, 1_000_000, 12.0)):
         cfg = CodecConfig(width=w, height=h, streams=s, qp=None,
                           bitrate=rate, intra_in_p=False)
         pipe = GOPDevicePipeline(cfg, gop_size=32, source_kind="rigid",
                                  device=dev)
-        snap = pipe.run(duration_s=dur, warmup=2)
+        snap = pipe.run(duration_s=dur, warmup=1)
         stages = {k: round(v, 1) for k, v in snap.items()
                   if k.startswith("ms_")}
         print(f"phase 5: run() {w}x{h} x {s} CBR {rate // 1000} kbps: "
               f"{snap['frames_per_s_aggregate']:.2f} aggregate fps "
               f"({snap['frames']} frames), stages/dispatch ms {stages}, "
               f"PSNR {snap['psnr_y']:.2f} dB, QP {snap['qp']} [{card}]")
+
+
+class SymbolSpy:
+    """Counts the P symbols' MB kinds and reference indices per dispatch,
+    on the device (read once at the end)."""
+
+    def __init__(self, pipe, torch):
+        self.kind, self.ref1, self.mbs, self.starts = [], [], 0, []
+        enc = pipe._encode
+
+        def spy(start, *a, **kw):
+            out = enc(start, *a, **kw)
+            self.starts.append(bool(start))
+            sp = out[1]
+            self.kind.append(torch.bincount(sp.kind.reshape(-1),
+                                            minlength=3))
+            self.ref1.append((sp.refidx > 0).sum())
+            self.mbs += sp.kind.numel()
+            return out
+
+        pipe._encode = spy
+
+    def shares(self):
+        kinds = sum(k.cpu() for k in self.kind).tolist()
+        return kinds, sum(int(r) for r in self.ref1) / self.mbs
+
+
+def phase_intra_in_p(dev, torch, np, card, launches):
+    """Phase 6: the reference's operating point with CodecConfig defaults."""
+    from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.engine.devpipe import GOPDevicePipeline
+    from tpuh264_torch.kernels import pframe
+
+    cfg = CodecConfig(width=854, height=480, streams=8)
+    if not (cfg.intra_in_p and cfg.qp is None and cfg.bitrate == 1_000_000):
+        fail("CodecConfig defaults are not intra-in-P CBR 1 Mbps")
+    pipe = GOPDevicePipeline(cfg, gop_size=8, source_kind="rigid",
+                             device=dev)
+    spy = SymbolSpy(pipe, torch)
+    qps, times = [], []
+
+    def drive():
+        for i in range(3):
+            qps.append(pipe.rc.current_qp())
+            t0 = time.perf_counter()
+            pipe.pump_frame()
+            times.append(time.perf_counter() - t0)
+            check_dpbs(pipe, np, "480p intra-in-P", i)
+
+    launches.path("480p x 8 intra-in-P", drive)
+    kinds, _ = spy.shares()
+    n_p = sum(kinds)
+    print(f"phase 6: 854x480 x 8, CodecConfig defaults (intra-in-P, CBR 1 "
+          f"Mbps), gop 8, rigid: 3 dispatches, decoder DPB == encoder DPB "
+          f"after each; QP {qps}; PSNR {pipe.last_psnr_y:.2f} dB; P-frame MB "
+          f"kinds skip/inter/intra {kinds}, intra share "
+          f"{kinds[2] / n_p:.4f}; pump_frame s "
+          f"{[round(t, 2) for t in times]} [{card}]")
+    # the cost of the intra-in-P column loop: one P-frame encode of the
+    # next source frame against the current DPB, fenced, on and off
+    from tpuh264_torch.engine.sources import device_source_gop
+
+    y, u, v = device_source_gop(pipe.w16, pipe.h16, 1, 8, "rigid", 100, dev)
+    refs = tuple(p[:1] for p in pipe._dpb_enc)
+    qp = pipe.rc.current_qp()
+    ms = {True: [], False: []}
+    for iip in (False, True, True, False, False, True):
+        ms[iip].append(round(fenced_ms(
+            lambda: pframe.encode_pframe_rows_multi(
+                y[0], u[0], v[0], *refs, qp, intra_in_p=iip)), 1))
+    print(f"phase 6: one P-frame encode at 854x480 x 8, QP {qp}, fenced: "
+          f"intra-in-P {ms[True]} ms, RTC preset {ms[False]} ms "
+          f"(mean {sum(ms[True]) / 3:.1f} vs {sum(ms[False]) / 3:.1f}) "
+          f"[{card}]")
+
+
+def phase_multiref(dev, torch, np, card, launches):
+    """Phase 7: two references at 854x480 x 8, CBR 1 Mbps."""
+    from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.engine.devpipe import GOPDevicePipeline
+
+    cfg = CodecConfig(width=854, height=480, streams=8, num_ref_frames=2)
+    pipe = GOPDevicePipeline(cfg, gop_size=32, source_kind="rigid",
+                             device=dev)
+    spy = SymbolSpy(pipe, torch)
+    qps = []
+
+    def drive():
+        for i in range(3):
+            qps.append(pipe.rc.current_qp())
+            pipe.pump_frame()
+            check_dpbs(pipe, np, "480p 2 refs", i)
+
+    _, counts = launches.path("480p x 8, 2 references", drive)
+    # one K1 launch per active reference per P frame: the 3 P frames of a
+    # GOP-start dispatch have one (only the IDR is in a decoder's DPB),
+    # the 4 of an interior dispatch have both
+    expect = sum(3 * 1 if st else 4 * 2 for st in spy.starts)
+    if counts[0] != expect:
+        fail(f"2 references: K1 launched {counts[0]} times, expected {expect}")
+    kinds, ref1 = spy.shares()
+    if ref1 <= 0:
+        fail("2 references: no MB chose reference 1")
+    print(f"phase 7: 854x480 x 8, 2 references, CBR 1 Mbps, intra-in-P, "
+          f"gop 32: 3 dispatches (GOP starts {spy.starts}), decoder DPB == "
+          f"encoder DPB after each; K1 launches {counts[0]} == active "
+          f"references x P frames ({expect}); P-frame MB kinds "
+          f"skip/inter/intra {kinds}, MBs with refidx > 0: {ref1:.4f}; QP "
+          f"{qps}; PSNR "
+          f"{pipe.last_psnr_y:.2f} dB [{card}]")
+
+
+def phase_ingest_fanout(dev, np, card, launches):
+    """Phase 8: host ingest -> fan-out 8 (one camera stream decoded 8x)."""
+    from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.engine.devpipe import GOPDevicePipeline
+    from tpuh264_torch.engine.sources import clip_frames
+
+    w, h = 854, 480
+    t0 = time.perf_counter()
+    clip = clip_frames(w, h, 16, "meeting")
+    t_clip = time.perf_counter() - t0
+    pipe = GOPDevicePipeline(CodecConfig(width=w, height=h, streams=1, qp=32),
+                             gop_size=32, source_kind="host", fanout=8,
+                             device=dev)
+    copy_ms = []
+
+    def batch(f0):
+        return [np.stack([clip[f0 + f][p] for f in range(4)])[:, None]
+                .astype(np.uint8) for p in range(3)]
+
+    def drive():
+        f0 = 0
+        for i in range(3):
+            pipe.pump_host_frames(*batch(f0))
+            copy_ms.append(round(pipe.last_copy_ms, 3))
+            check_dpbs(pipe, np, "ingest fan-out 8", i)
+            f0 += 4
+            if i == 0:  # capture backpressure: the encoder skips 4 frames
+                pipe.drop_frames(4)
+                f0 += 4
+
+    launches.path("host ingest -> fan-out 8", drive)
+    if pipe.decoded_planes()[0].shape[0] != 8:
+        fail("fan-out 8: the decoder DPB is not 8 streams wide")
+    print(f"phase 8: host ingest 854x480 (clip 'meeting', made in "
+          f"{t_clip:.1f} s) -> 1 stream, QP 32, fan-out 8: 3 dispatches with "
+          f"drop_frames(4) after the first; all 8 decode streams == encoder "
+          f"DPB after each; copy ms per dispatch {copy_ms}; time_offset "
+          f"{pipe.time_offset} [{card}]")
+
+
+def phase_device_pipeline(dev, np, card, launches):
+    """Phase 9: the I-only DevicePipeline, 854x480, decoded 8x."""
+    from tpuh264.golden import codec as gcodec
+    from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.engine.devpipe import DevicePipeline
+    from tpuh264_torch.engine.sources import device_source_frames
+
+    pipe = DevicePipeline(CodecConfig(width=854, height=480, qp=30,
+                                      streams=8), device=dev)
+
+    def drive():
+        for _ in range(2):
+            pipe.pump_frame()
+
+    launches.path("DevicePipeline 480p x 8", drive, needs=(1, 2))
+    if pipe.fallback_packs:
+        fail("DevicePipeline: host repack")
+    # the golden decoder's decode of frame 0's bytes, against its source
+    # (cropped to 854x480; the device decode's PSNR is over the MB grid)
+    y = device_source_frames(pipe.w16, pipe.h16, 1, "moving_gradient",
+                             pipe.frame_index - 4, dev)[0][0].cpu().numpy()
+    g = gcodec.decode_annexb(pipe.frame_streams[0])[0].astype(np.float64)
+    psnr_g = 10 * np.log10(255.0 ** 2 / ((g - y[:480, :854]) ** 2).mean())
+    for p in (pipe.last_psnr_y, psnr_g):
+        if not np.isfinite(p) or p < 30:
+            fail(f"DevicePipeline: implausible PSNR {p}")
+    print(f"phase 9: DevicePipeline 854x480, QP 30, decoded 8x from device "
+          f"symbols: 2 dispatches, device-decode PSNR "
+          f"{pipe.last_psnr_y:.2f} dB (coded {pipe.w16}x{pipe.h16}), golden "
+          f"decode of the bytes {psnr_g:.2f} dB (cropped 854x480); "
+          f"{sum(map(len, pipe.frame_streams))} B per dispatch [{card}]")
+
+
+def phase_app(dev, card, launches):
+    """Phase 10: the live App at 854x480 x 8 for ~10 s."""
+    from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.engine.app import App
+
+    app = App(CodecConfig(width=854, height=480, streams=8), impl="tpu_gop",
+              device=dev)
+    box = {}
+
+    def drive():
+        app.start()
+        pipe = app.pipeline
+        time.sleep(10.0)
+        box["stats"] = app.get_stats()
+        t0 = time.perf_counter()
+        app.stop()
+        box["stop_s"] = time.perf_counter() - t0
+        box["pipe"] = pipe
+
+    launches.path("App tpu_gop 480p x 8", drive)
+    stats, pipe = box["stats"], box["pipe"]
+    if app.error is not None:
+        fail(f"App: the pump thread failed: {app.error!r}")
+    if app.is_processing() or app.pipeline is not None:
+        fail("App: stop() left the pipeline running")
+    app.stop()
+    frames = pipe.dispatch_index * pipe.FRAMES_PER_DISPATCH
+    if frames <= 0 or stats["dropped_capture"] <= 0:
+        fail(f"App: no frames or no capture drops: {stats}")
+    shown = {k: (round(v, 3) if isinstance(v, float) else v)
+             for k, v in stats.items()}
+    print(f"phase 10: App(impl='tpu_gop') 854x480 x 8, defaults, ~10 s: "
+          f"{frames} frames per stream encoded, time_offset "
+          f"{pipe.time_offset}; get_stats() {shown}; stop() took "
+          f"{box['stop_s']:.1f} s [{card}]")
 
 
 def main() -> None:
@@ -241,7 +607,7 @@ def main() -> None:
     card = card_line()
     print(card)
 
-    from tpuh264_torch.kernels import cavlc_cuda, cuda_lib, me_cuda
+    from tpuh264_torch.kernels import cuda_lib
 
     t0 = time.perf_counter()
     cuda_lib.load()
@@ -251,28 +617,29 @@ def main() -> None:
     rows = phase_kernels(dev, torch, np)
     phase_small(dev, np)
 
-    wrappers = (me_cuda.sad_field, cavlc_cuda.pack_blocks,
-                cavlc_cuda.merge_tree)
-    for fn in wrappers:
-        fn.launches = 0
-    phase_main(dev, np, card)
-    counts = [fn.launches for fn in wrappers]
-    for r, n in zip(rows, counts):
-        r["launches"] = n
-    print(f"phase 6: main-path launches K1 {counts[0]}, K2 {counts[1]}, "
-          f"K3 {counts[2]}")
-    if min(counts) <= 0:
-        fail(f"a kernel of the main path was never launched: {counts}")
-
+    launches = Launches()
+    launches.path("main path 1080p x 4", lambda: phase_main(dev, np, card))
     phase_runs(dev, card)
+    phase_intra_in_p(dev, torch, np, card, launches)
+    phase_multiref(dev, torch, np, card, launches)
+    phase_ingest_fanout(dev, np, card, launches)
+    phase_device_pipeline(dev, np, card, launches)
+    phase_app(dev, card, launches)
+
+    for r, n in zip(rows, launches.total):
+        r["launches"] = n
+    print(f"launches summed over the driven paths: K1 {launches.total[0]}, "
+          f"K2 {launches.total[1]}, K3 {launches.total[2]}")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("JAX was imported")
+    print(f"chip_smoke: total wall {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms")} for r in rows]}))
+    # the run used one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
 
 
 if __name__ == "__main__":

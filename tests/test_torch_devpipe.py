@@ -136,7 +136,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(tpuh264_torch.__path__, "
         "'tpuh264_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import tpuh264_torch.engine.devpipe\n"
+        "import tpuh264_torch.engine.devpipe, tpuh264_torch.engine.app\n"
+        "import tpuh264_torch.engine.sources\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
         "if m.startswith('jax'))\n"
         "print('ok')\n"
@@ -150,10 +151,22 @@ def test_port_imports_no_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        GOPDevicePipeline(CodecConfig(**dict(CFG, qp=28, intra_in_p=True)),
-                          gop_size=8, device="cpu")
-    for kw in (dict(source_kind="host"), dict(fanout=2)):
+    """What is still unported raises: the DPB halo and the 8x8 transform
+    of the P path, Intra_4x4 in the I scan, and the App implementations
+    other than "tpu_gop"."""
+    import torch
+
+    from tpuh264_torch.engine.app import App
+    from tpuh264_torch.kernels import iframe, pframe
+
+    y = torch.zeros((1, 16, 16), dtype=torch.uint8)
+    c = torch.zeros((1, 8, 8), dtype=torch.uint8)
+    refs = (y[None].int(), c[None].int(), c[None].int())
+    for kw in (dict(halo=True), dict(t8=True)):
         with pytest.raises(NotImplementedError):
-            GOPDevicePipeline(CodecConfig(**dict(CFG, qp=28)), gop_size=8,
-                              device="cpu", **kw)
+            pframe.encode_pframe_rows_multi(y, c, c, *refs, 28, **kw)
+    with pytest.raises(NotImplementedError):
+        iframe.encode_iframe_scan(y, c, c, 28, intra44=True)
+    for impl in ("tpu", "libav"):
+        with pytest.raises(NotImplementedError):
+            App(CodecConfig(**dict(CFG, qp=28)), impl=impl, device="cpu")

@@ -1,26 +1,33 @@
-"""IPPP multi-stream GOP pipeline on a PyTorch device, decode from bits.
+"""Device-resident multi-stream pipelines on a PyTorch device.
 
-Port of tpuh264/engine/devpipe.py `GOPDevicePipeline`.  S streams ride
-the leading batch axis of every kernel; each dispatch advances all of
-them by FRAMES_PER_DISPATCH GOP positions (an IDR at GOP start, P frames
-otherwise: quarter-pel ME/MC against the previous deblocked
-reconstruction).  Per dispatch:
+Port of tpuh264/engine/devpipe.py: `GOPDevicePipeline` (IPPP, decode
+from bits) and `DevicePipeline` (I-only, fan-out decode from device
+symbols).
 
-  device  source -> I encode (GOP start) -> P encode chain -> deblock ->
-          CAVLC slice payloads (K2 + K3) -> wire metadata
+`GOPDevicePipeline`: S streams ride the leading batch axis of every
+kernel; each dispatch advances all of them by FRAMES_PER_DISPATCH GOP
+positions (an IDR at GOP start, P frames otherwise: quarter-pel ME/MC
+against 1..4 previous deblocked reconstructions, with or without
+intra-in-P).  Per dispatch:
+
+  device  source (or the upload of host frames) -> I encode (GOP start)
+          -> P encode chain -> deblock -> CAVLC slice payloads (K2 + K3)
+          -> wire metadata
   host    one metadata download, payload compaction on the device at
           the exact size, one payload download, NAL framing
   host    native CAVLC parse of the annex-B bytes (th264_parse_dispatch_
-          compact, shared with tpuh264)
+          compact, shared with tpuh264); with `fanout` N every parsed
+          record is replicated to N decode streams
   device  record scatter -> P decode (intra records for the I frame) ->
-          deblock on an independent decoder DPB -> SSE
+          deblock on an independent decoder DPB (S * N streams) -> SSE
 
 Both DPBs ([N, S, H, W] newest first) stay on the device across
 dispatches.  Eager PyTorch compiles nothing per shape, so the JAX
-version's sticky payload budgets, record-cap buckets and
-`freeze_shapes` are gone: the payload is compacted to its exact size
-once the byte counts are known, and the decode scatter takes the exact
-records.
+version's sticky payload budgets, record-cap buckets, `freeze_shapes`
+and DevicePipeline's fixed-size wire bucket (`BUCKET_W`, with its
+full-slab fallback) are gone: every payload is compacted to its exact
+size once the byte counts are known, and the decode scatter takes the
+exact records.
 
 On a CUDA device the wire downloads run on a side stream behind an event
 recorded after the dispatch's encode, so in `run()` they overlap the
@@ -49,19 +56,266 @@ from ..kernels import entropy_gpu, iframe, pframe
 from .config import CodecConfig
 from .metrics import StatsWindow
 from .ratecontrol import RateController
-from .sources import device_source_gop
+from .sources import device_source_frames, device_source_gop
 
 I32 = torch.int32
+
+
+def _compact(hw: torch.Tensor, nbytes: np.ndarray) -> torch.Tensor:
+    """The used words of every slice, contiguous in slice order: the wire
+    carries the content's size, not L x SLICE_W slabs."""
+    flat = hw.reshape(-1, hw.shape[-1])
+    wc = (nbytes.reshape(-1).astype(np.int64) + 3) // 4
+    total = int(wc.sum())
+    dev = hw.device
+    wc_t = torch.from_numpy(wc).to(dev)
+    sl = torch.repeat_interleave(torch.arange(len(wc), device=dev), wc_t,
+                                 output_size=total)
+    offs = torch.cumsum(wc_t, 0) - wc_t
+    col = torch.arange(total, device=dev) - offs[sl]
+    return flat[sl, col]
+
+
+def _slices(pay_words: np.ndarray, nbytes: np.ndarray) -> list:
+    """Per-slice RBSP byte strings from a contiguous compacted payload."""
+    blob = pay_words.view(np.uint32).astype(">u4").tobytes()
+    nbytes = nbytes.reshape(-1)
+    wc = (nbytes.astype(np.int64) + 3) // 4
+    offs = np.zeros(len(wc) + 1, np.int64)
+    np.cumsum(wc, out=offs[1:])
+    return [blob[4 * offs[i]:4 * offs[i] + int(nbytes[i])]
+            for i in range(len(wc))]
+
+
+def _fetch(side, done, meta_dev: torch.Tensor, payloads):
+    """Download one dispatch's metadata vector, then the device tensors
+    `payloads(meta)` returns, as numpy.  On a CUDA device the copies run
+    on the `side` stream behind `done` (the event recorded after that
+    dispatch's encode): they wait for that dispatch, not for work queued
+    after it."""
+    ctx = (torch.cuda.stream(side) if side is not None
+           else contextlib.nullcontext())
+    with ctx:
+        if done is not None:
+            side.wait_event(done)
+        meta = meta_dev.cpu().numpy()
+        return meta, [p.cpu().numpy() for p in payloads(meta)]
+
+
+def _param_sets(sps: SPS, pps: PPS) -> bytes:
+    """SPS + PPS NAL units."""
+    w = BitWriter()
+    sps.write(w)
+    ps = bytes(nal.wrap_nal(nal.NAL_SPS, w.get_bytes()))
+    w = BitWriter()
+    pps.write(w)
+    return ps + nal.wrap_nal(nal.NAL_PPS, w.get_bytes())
+
+
+def _psnr(sse: float, npix: int) -> float:
+    mse = sse / npix
+    return 99.0 if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+
+
+class DevicePipeline:
+    """I-only multi-frame pipeline: encode -> wire bitstream, and an
+    N-stream fan-out decode from the device symbols, in one dispatch.
+
+    Each dispatch encodes FRAMES_PER_DISPATCH consecutive frames of one
+    device source as IDR access units (the frames ride the batch axis)
+    and decodes every frame `streams` times.  `device` is required."""
+
+    # frames encoded per device dispatch
+    FRAMES_PER_DISPATCH = 4
+
+    def __init__(self, config: Optional[CodecConfig] = None,
+                 source_kind: str = "moving_gradient", *, device, **kw):
+        if config is None:
+            config = CodecConfig(**kw)
+        self.config = config
+        self.source_kind = source_kind
+        self.device = torch.device(device)
+        self.w16 = (config.width + 15) // 16 * 16
+        self.h16 = (config.height + 15) // 16 * 16
+        self.sps = SPS.for_size(config.width, config.height)
+        self.pps = PPS()
+        self.stats = StatsWindow()
+        self.frame_index = 0
+        self.last_stream: bytes = b""
+        self.frame_streams: list = []
+        self.last_psnr_y: float = 0.0
+        self.fallback_packs = 0  # dispatches repacked on host (overflow)
+        self._hdr = None
+        self._cuda = self.device.type == "cuda"
+        self._side = torch.cuda.Stream(self.device) if self._cuda else None
+
+    def _step(self, t: int, qp: int):
+        """The dispatch's device work: (symbols, slice words, meta), meta =
+        [entropy overflow | slice bytes (K*R) | SSE float32 bits
+        (K*streams)] int32."""
+        k = self.FRAMES_PER_DISPATCH
+        streams = self.config.streams
+        y, u, v = device_source_frames(self.w16, self.h16, k,
+                                       self.source_kind, t, self.device)
+        symbols, _ = iframe.encode_iframe_rows(y, u, v, qp)
+        slice_hw, slice_bytes, ovf = entropy_gpu.encode_bits_iframe(
+            symbols, qp, *self._hdr)
+        tiled = iframe.MBSymbols(*(x.repeat_interleave(streams, 0)
+                                   for x in symbols))
+        dy, _, _ = iframe.decode_iframe_rows(tiled, qp)
+        d = (dy.to(torch.float32)
+             - y.to(torch.float32).repeat_interleave(streams, 0))
+        sse = (d * d).reshape(k * streams, -1).sum(-1)  # [K*streams]
+        meta = torch.cat([ovf.to(I32).reshape(1), slice_bytes.reshape(-1),
+                          sse.contiguous().view(I32)])
+        return symbols, slice_hw, meta
+
+    def _dispatch(self, qp: int, count_input: bool = True):
+        """Issue one dispatch's device work without synchronizing."""
+        if self._hdr is None:
+            self._hdr = slice_headers_device(
+                self.sps, self.pps, qp, 0, True, self.FRAMES_PER_DISPATCH,
+                device=self.device)
+        symbols, slice_hw, meta = self._step(self.frame_index, qp)
+        done = None
+        if self._cuda:
+            done = torch.cuda.Event()
+            done.record()
+        self.frame_index += self.FRAMES_PER_DISPATCH
+        if count_input:
+            self.stats.on_input(self.FRAMES_PER_DISPATCH)
+        return symbols, slice_hw, meta, done
+
+    def _sse(self, meta: np.ndarray) -> np.ndarray:
+        k = self.FRAMES_PER_DISPATCH
+        off = 1 + k * (self.h16 // 16)
+        return meta[off:off + k * self.config.streams].view(np.float32)
+
+    def pump_frame(self, emit_bitstream: bool = True) -> None:
+        """Encode/decode one dispatch (FRAMES_PER_DISPATCH frames)."""
+        cfg = self.config
+        qp = cfg.qp if cfg.qp is not None else 32
+        k = self.FRAMES_PER_DISPATCH
+        t_in = time.perf_counter()
+        self.stats.on_input(k)
+        handles = self._dispatch(qp, count_input=False)
+        t_dev = time.perf_counter()
+        nbytes = 0
+        if emit_bitstream:
+            sse = self._consume(handles, qp)
+            nbytes = len(self.last_stream)
+        else:
+            sse = self._sse(_fetch(self._side, handles[3], handles[2],
+                                   lambda m: [])[0])
+        t_done = time.perf_counter()
+        self.last_psnr_y = _psnr(float(sse[0]), self.w16 * self.h16)
+        self.stats.on_encode(k, (t_dev - t_in) * 1e3, 0.0,
+                             (t_done - t_dev) * 1e3, nbytes)
+        self.stats.on_decode(k * cfg.streams, (t_dev - t_in) * 1e3)
+
+    def _consume(self, handles, qp: int) -> np.ndarray:
+        """Retire one dispatch (K frames): the metadata download, then the
+        exact-size payload download and NAL framing.  Device-entropy
+        overflow (MB / slice bit caps, e.g. QP-0 noise) repacks on the
+        host from the symbol tensors.  Returns the [K*streams] SSE."""
+        symbols, slice_hw, meta_dev, done = handles
+        k = self.FRAMES_PER_DISPATCH
+        r = self.h16 // 16
+        meta, pays = _fetch(
+            self._side, done, meta_dev,
+            lambda m: [] if m[0] else [_compact(slice_hw, m[1:1 + k * r])])
+        sse = self._sse(meta)
+        if meta[0]:  # device entropy overflow: repack on host
+            self._host_pack_i(symbols, qp)
+            return sse
+        rbsp = _slices(pays[0], meta[1:1 + k * r])
+        self.frame_streams = []
+        for f in range(k):
+            self._frame_nals(rbsp[f * r:(f + 1) * r])
+            self.frame_streams.append(self.last_stream)
+        return sse
+
+    def _frame_nals(self, rbsps) -> None:
+        """SPS/PPS + per-slice NAL framing of raw RBSP payloads."""
+        out = bytearray(_param_sets(self.sps, self.pps))
+        hdr_byte = bytes([(3 << 5) | nal.NAL_SLICE_IDR])
+        for rbsp in rbsps:
+            out += nal.START_CODE + hdr_byte + entropy_native.escape_rbsp(rbsp)
+        self.last_stream = bytes(out)
+
+    def _host_pack_i(self, symbols, qp: int) -> None:
+        """Device-entropy overflow fallback: the host CAVLC packer on the
+        downloaded symbol tensors (a conformant stream for any content)."""
+        self.fallback_packs += 1
+        k = self.FRAMES_PER_DISPATCH
+        n = (self.h16 // 16) * (self.w16 // 16)
+        npy = lambda x, *sh: x.cpu().numpy().reshape(k, n, *sh)
+        mode, cmode = npy(symbols.mode), npy(symbols.cmode)
+        cbp_l, cbp_c = npy(symbols.cbp_luma), npy(symbols.cbp_chroma)
+        luma_dc, luma_ac = npy(symbols.luma_dc, 16), npy(symbols.luma_ac,
+                                                          16, 16)
+        chroma_dc = npy(symbols.chroma_dc, 2, 4)
+        chroma_ac = npy(symbols.chroma_ac, 2, 4, 15)
+        self.frame_streams = []
+        for f in range(k):
+            mb_info = np.ascontiguousarray(np.stack(
+                [mode[f], cmode[f], cbp_l[f], cbp_c[f]], axis=1), np.int32)
+            self.last_stream = entropy_native.pack_iframe(
+                mb_info, luma_dc[f], luma_ac[f], chroma_dc[f], chroma_ac[f],
+                self.sps, self.pps, qp, slice_mode="rows", frame_num=0,
+                idr=True, include_ps=True, deblock_idc=1)
+            self.frame_streams.append(self.last_stream)
+
+    def _retire(self, handles, qp: int) -> None:
+        """Consume one dispatch (K frames) and update stats."""
+        k = self.FRAMES_PER_DISPATCH
+        sse = self._consume(handles, qp)
+        self.last_psnr_y = _psnr(float(sse[0]), self.w16 * self.h16)
+        self.stats.on_encode(k, 0.0, 0.0, 0.0, len(self.last_stream))
+        self.stats.on_decode(k * self.config.streams, 0.0)
+
+    def run(self, duration_s: float = 5.0, warmup: int = 3
+            ) -> Dict[str, float]:
+        """Measurement loop with one-dispatch-deep software pipelining: the
+        host retires dispatch t (metadata, payload download, escaping, NAL
+        framing) while the device executes dispatch t+1."""
+        qp = self.config.qp if self.config.qp is not None else 32
+        for _ in range(warmup):
+            self.pump_frame()
+        self.stats.snapshot(self.config.streams)
+        n = 0
+        t0 = time.perf_counter()
+        deadline = t0 + duration_s
+        pending = None
+        while time.perf_counter() < deadline:
+            handles = self._dispatch(qp)
+            if pending is not None:
+                self._retire(pending, qp)
+                n += self.FRAMES_PER_DISPATCH
+            pending = handles
+        if pending is not None:
+            self._retire(pending, qp)
+            n += self.FRAMES_PER_DISPATCH
+        wall = time.perf_counter() - t0
+        snap = self.stats.snapshot(self.config.streams)
+        snap["frames"] = n
+        snap["pipeline_fps"] = n / wall
+        snap["frames_per_s_aggregate"] = n * self.config.streams / wall
+        snap["psnr_y"] = self.last_psnr_y
+        snap["stream_bytes"] = len(self.last_stream)
+        return snap
 
 
 class GOPDevicePipeline:
     """IPPP multi-stream RTC pipeline with decode-from-bits, on `device`.
 
-    Covers the configuration the benchmark runs: device sources
-    ("rigid", "noise", "moving_gradient"), fixed QP or CBR, the RTC preset
-    (`intra_in_p=False`), `fanout=1`, no DPB halo.  Host-fed frames,
-    decode fan-out and intra-in-P raise NotImplementedError.  `device`
-    is required: the pipeline never picks one itself."""
+    Sources: device ("rigid", "noise", "moving_gradient") or "host",
+    where `pump_host_frames` feeds each dispatch's frames and the upload
+    is timed (`last_copy_ms`, stage "copy").  Fixed QP or CBR; intra-in-P
+    or the RTC preset; 1..4 references; `fanout` N decodes every encoded
+    stream N times (decode stream ss*N+fi carries encoded stream ss), on
+    a decoder DPB S*N streams wide.  The DPB halo (row sharding) is not
+    ported.  `device` is required: the pipeline never picks one itself."""
 
     FRAMES_PER_DISPATCH = 4
     MB_SLOTS = entropy_native.MB_SLOTS  # coefficient slots per parsed MB
@@ -71,16 +325,10 @@ class GOPDevicePipeline:
                  fanout: int = 1, *, device, **kw):
         if config is None:
             config = CodecConfig(**kw)
-        if source_kind == "host":
-            raise NotImplementedError("source_kind='host' is not ported yet")
-        if fanout != 1:
-            raise NotImplementedError("decode fan-out is not ported yet")
-        if config.intra_in_p:
-            raise NotImplementedError(
-                "intra_in_p=True is not ported yet: use the RTC preset "
-                "(CodecConfig(intra_in_p=False))")
         self.config = config
         self.source_kind = source_kind
+        self.fanout = max(1, fanout)
+        self.s_dec = config.streams * self.fanout
         self.device = torch.device(device)
         k = self.FRAMES_PER_DISPATCH
         if gop_size % k:
@@ -102,24 +350,26 @@ class GOPDevicePipeline:
         self.stats = StatsWindow()
         self.dispatch_index = 0
         # GOP phase decoupled from the time axis: _gop_pos drives
-        # frame_num/IDR cadence, dispatch_index the source clock
+        # frame_num/IDR cadence, dispatch_index + time_offset the source
+        # clock (drop_frames advances time_offset past dropped frames)
         self._gop_pos = 0
+        self.time_offset = 0
         self.last_stream: bytes = b""
         self.frame_streams: list = []
         self.last_psnr_y: float = 0.0
         self.fallback_packs = 0  # dispatches repacked on host (overflow)
         self.qp_mismatches = 0   # slice-header QP != pipeline QP (stats)
-        s = config.streams
-        self._dpb_enc = self._zero_dpb(s)
-        self._dpb_dec = self._zero_dpb(s)
-        self._sse_dev = None  # decode-side SSE [k, S] (device)
-        self._dec_frames = 0
+        self._dpb_enc = self._zero_dpb(config.streams)
+        self._dpb_dec = self._zero_dpb(self.s_dec)
+        self._host_frames = None  # pending host YUV (source_kind "host")
+        self.last_copy_ms = 0.0
+        self._sse_dev = None  # decode-side SSE [k, S*fanout] (device)
         self.rc = RateController(config)
         self._cuda = self.device.type == "cuda"
         self._side = torch.cuda.Stream(self.device) if self._cuda else None
         self.stage_ms = {"wire": 0.0, "dev_wait": 0.0, "d2h": 0.0,
                          "parse": 0.0, "dec_dispatch": 0.0,
-                         "enc_dispatch": 0.0, "n": 0}
+                         "enc_dispatch": 0.0, "copy": 0.0, "n": 0}
 
     def _zero_dpb(self, s: int):
         z = lambda h, w: torch.zeros((self.n_refs, s, h, w), dtype=I32,
@@ -150,14 +400,19 @@ class GOPDevicePipeline:
 
     # -- encode ----------------------------------------------------------
 
-    def _encode(self, start: bool, t: int, qp: int, hdr_i, hdr_p):
-        """The dispatch's device work: returns (sym_i, syms_p, hw_i, hw_p,
-        meta, new encoder DPB).  meta = [entropy overflow | I slice bytes
-        (S*R, GOP start only) | P slice bytes (P*S*R)] int32."""
+    def _encode(self, start: bool, t: int, qp: int, hdr_i, hdr_p,
+                frames=None):
+        """The dispatch's device work on `frames` (the uploaded host
+        frames, or None for the device source at time t): returns
+        (sym_i, syms_p, hw_i, hw_p, meta, new encoder DPB).  meta =
+        [entropy overflow | I slice bytes (S*R, GOP start only) | P slice
+        bytes (P*S*R)] int32."""
         k = self.FRAMES_PER_DISPATCH
-        streams = self.config.streams
-        y, u, v = device_source_gop(self.w16, self.h16, k, streams,
-                                    self.source_kind, t, self.device)
+        if frames is None:
+            frames = device_source_gop(self.w16, self.h16, k,
+                                       self.config.streams, self.source_kind,
+                                       t, self.device)
+        y, u, v = frames
         n_refs = self.n_refs
         cur = self._dpb_enc
         sym_i = hw_i = bytes_i = None
@@ -179,7 +434,7 @@ class GOPDevicePipeline:
         for f in range(1 if start else 0, k):
             sym, recon, motion = pframe.encode_pframe_rows_multi(
                 y[f], u[f], v[f], cur[0][:nra], cur[1][:nra], cur[2][:nra],
-                qp, intra_in_p=False)
+                qp, intra_in_p=self.config.intra_in_p)
             db = tuple(x.to(I32)
                        for x in kdeblock.deblock_p(recon, sym, motion, qp))
             cur = tuple(torch.cat([db[i][None], cur[i][:-1]], 0)
@@ -198,22 +453,18 @@ class GOPDevicePipeline:
         parts.append(bytes_p.reshape(-1))
         return sym_i, syms_p, hw_i, hw_p, torch.cat(parts), cur
 
-    @staticmethod
-    def _compact(hw: torch.Tensor, nbytes: np.ndarray) -> torch.Tensor:
-        """The used words of every slice, contiguous in slice order: the
-        wire carries the content's size, not L x SLICE_W slabs."""
-        flat = hw.reshape(-1, hw.shape[-1])
-        wc = (nbytes.reshape(-1).astype(np.int64) + 3) // 4
-        total = int(wc.sum())
-        dev = hw.device
-        wc_t = torch.from_numpy(wc).to(dev)
-        sl = torch.repeat_interleave(torch.arange(len(wc), device=dev), wc_t,
-                                     output_size=total)
-        offs = torch.cumsum(wc_t, 0) - wc_t
-        col = torch.arange(total, device=dev) - offs[sl]
-        return flat[sl, col]
-
     # -- decode-from-bits -------------------------------------------------
+
+    def _fan_out(self, pos: np.ndarray, unit: int) -> np.ndarray:
+        """Record positions [k, S, unit] -> [k, S*fanout, unit]: each
+        record once per decode stream, stream ss*fanout+fi carrying
+        encoded stream ss (int64 throughout)."""
+        fan, se = self.fanout, self.config.streams
+        kk, rest = np.divmod(pos.astype(np.int64), se * unit)
+        ss, pp = np.divmod(rest, unit)
+        fi = np.arange(fan, dtype=np.int64)
+        return ((kk[:, None] * self.s_dec + ss[:, None] * fan + fi) * unit
+                + pp[:, None]).reshape(-1)
 
     def _decode_dispatch(self, frames_k, t: int, qp: int,
                          start: bool = False) -> None:
@@ -231,10 +482,16 @@ class GOPDevicePipeline:
             # slice headers carry; the counter keeps a mismatch visible
             self.qp_mismatches += 1
             qp = pqp
-        t1 = time.perf_counter()
         k = self.FRAMES_PER_DISPATCH
-        s = self.config.streams
+        s = self.s_dec
         n = r * c
+        fan = self.fanout
+        if fan > 1:
+            mb_pos = self._fan_out(mb_pos, n)
+            mb_fields = np.repeat(mb_fields, fan, axis=0)
+            cpos = self._fan_out(cpos, n * self.MB_SLOTS)
+            cval = np.repeat(cval, fan, axis=0)
+        t1 = time.perf_counter()
         dev = self.device
         up = self._upload
         # record scatter onto buffers with one dead trailing slot (the
@@ -250,8 +507,17 @@ class GOPDevicePipeline:
         coef[cp] = up(cval)
         coef = coef[:-1].reshape(k, s, r, c, self.MB_SLOTS)
 
-        y = device_source_gop(self.w16, self.h16, k, self.config.streams,
-                              self.source_kind, t, dev)[0]
+        if self.source_kind == "host":
+            # host-fed frames: quality is measured host-side by the
+            # caller; the SSE is taken against zeros, as in tpuh264
+            y = torch.zeros((k, s, self.h16, self.w16), dtype=torch.uint8,
+                            device=dev)
+        else:
+            y = device_source_gop(self.w16, self.h16, k, self.config.streams,
+                                  self.source_kind, t, dev)[0]
+            if fan > 1:
+                # each decode stream's source is its encoded stream's
+                y = y.repeat_interleave(fan, dim=1)
         cur = self._dpb_dec
         sse = []
         for f in range(k):
@@ -282,7 +548,6 @@ class GOPDevicePipeline:
         self.stage_ms["dec_dispatch"] += (time.perf_counter() - t1) * 1e3
         self._dpb_dec = cur
         self._sse_dev = torch.stack(sse)
-        self._dec_frames += k * s
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
@@ -292,15 +557,36 @@ class GOPDevicePipeline:
 
     # -- host loop -------------------------------------------------------
 
+    def _take_host_frames(self):
+        """Upload the pending host frames (the reference's timed pixel copy
+        into codec memory): `last_copy_ms` and stage "copy" time the
+        pinned host-to-device copy up to its completion on the device."""
+        if self._host_frames is None:
+            raise RuntimeError(
+                "host source: feed frames via pump_host_frames()")
+        stream = torch.cuda.current_stream(self.device) if self._cuda else None
+        if stream is not None:
+            stream.synchronize()  # earlier queued work is not the copy's
+        tc = time.perf_counter()
+        frames = tuple(self._upload(a) for a in self._host_frames)
+        if stream is not None:
+            stream.synchronize()
+        self.last_copy_ms = (time.perf_counter() - tc) * 1e3
+        self.stage_ms["copy"] += self.last_copy_ms
+        self._host_frames = None
+        return frames
+
     def _dispatch(self):
         qp = (self.config.qp if self.config.qp is not None
               else self.rc.current_qp())
         pos = self._gop_pos % self.gop_dispatches
         start = pos == 0
-        t = self.dispatch_index * self.FRAMES_PER_DISPATCH
+        t = self.dispatch_index * self.FRAMES_PER_DISPATCH + self.time_offset
         hdr_i, hdr_p = self._headers(pos, qp)
+        frames = (self._take_host_frames() if self.source_kind == "host"
+                  else None)
         sym_i, syms_p, hw_i, hw_p, meta, self._dpb_enc = self._encode(
-            start, t, qp, hdr_i, hdr_p)
+            start, t, qp, hdr_i, hdr_p, frames)
         done = None
         if self._cuda:
             done = torch.cuda.Event()
@@ -314,6 +600,13 @@ class GOPDevicePipeline:
         """Restart the GOP at the next dispatch (ForceIntraFrame analog)."""
         self._gop_pos = 0
 
+    def drop_frames(self, n: int) -> None:
+        """Skip n source frames (capture backpressure): the encoder never
+        sees them; the next encoded frame still references the last
+        encoded reconstruction."""
+        self.time_offset += n
+        self.stats.on_drop("capture", n)
+
     def _download(self, handles):
         """Wait for the dispatch's encode, then download its metadata and
         its exact-size compacted payload.  Returns (meta, payload_i,
@@ -323,23 +616,21 @@ class GOPDevicePipeline:
         if done is not None:
             done.synchronize()  # this dispatch's encode (not later work)
         t1 = time.perf_counter()
-        s, r = self.config.streams, self.h16 // 16
-        n_i = s * r if start else 0
-        ctx = (torch.cuda.stream(self._side) if self._cuda
-               else contextlib.nullcontext())
-        with ctx:
-            if done is not None:
-                self._side.wait_event(done)
-            meta = meta_dev.cpu().numpy()
-            pay_i = pay_p = None
-            if not meta[0]:
-                if start:
-                    pay_i = self._compact(hw_i, meta[1:1 + n_i]).cpu().numpy()
-                pay_p = self._compact(hw_p, meta[1 + n_i:]).cpu().numpy()
+        n_i = self.config.streams * (self.h16 // 16) if start else 0
+
+        def payloads(meta):
+            if meta[0]:
+                return []
+            pay = [_compact(hw_i, meta[1:1 + n_i])] if start else []
+            return pay + [_compact(hw_p, meta[1 + n_i:])]
+
+        meta, pays = _fetch(self._side, done, meta_dev, payloads)
         t2 = time.perf_counter()
         self.stage_ms["dev_wait"] += (t1 - t0) * 1e3
         self.stage_ms["d2h"] += (t2 - t1) * 1e3
-        return meta, pay_i, pay_p
+        if meta[0]:
+            return meta, None, None
+        return (meta, pays[0] if start else None, pays[-1])
 
     def _consume(self, handles) -> list:
         """Retire one dispatch: wire download + NAL framing.
@@ -364,25 +655,11 @@ class GOPDevicePipeline:
             off += s * r
         bytes_p = meta[off:off + n_p * s * r]
 
-        def slices(pay_words, nbytes):
-            """Per-slice RBSP byte strings from a contiguous payload."""
-            blob = pay_words.view(np.uint32).astype(">u4").tobytes()
-            wc = (nbytes.astype(np.int64) + 3) // 4
-            offs = np.zeros(len(wc) + 1, np.int64)
-            np.cumsum(wc, out=offs[1:])
-            return [blob[4 * offs[i]:4 * offs[i] + int(nbytes[i])]
-                    for i in range(len(wc))]
-
         esc = entropy_native.escape_rbsp
         if start:
-            rbsp_i = slices(pay_i, bytes_i)
+            rbsp_i = _slices(pay_i, bytes_i)
             idr_hdr = bytes([(3 << 5) | nal.NAL_SLICE_IDR])
-            w = BitWriter()
-            self.sps.write(w)
-            ps = bytes(nal.wrap_nal(nal.NAL_SPS, w.get_bytes()))
-            w = BitWriter()
-            self.pps.write(w)
-            ps += nal.wrap_nal(nal.NAL_PPS, w.get_bytes())
+            ps = _param_sets(self.sps, self.pps)
             frame = []
             for si in range(s):
                 out = bytearray(ps)
@@ -390,7 +667,7 @@ class GOPDevicePipeline:
                     out += nal.START_CODE + idr_hdr + esc(rbsp_i[si * r + ri])
                 frame.append(bytes(out))
             self.frame_streams.append(tuple(frame))
-        rbsp_p = slices(pay_p, bytes_p)
+        rbsp_p = _slices(pay_p, bytes_p)
         p_hdr = bytes([(2 << 5) | nal.NAL_SLICE_NON_IDR])
         for pi in range(n_p):
             frame = []
@@ -471,6 +748,27 @@ class GOPDevicePipeline:
             self.frame_streams.append(tuple(frame))
         self.last_stream = self.frame_streams[-1][0]
 
+    def pump_host_frames(self, y, u, v) -> None:
+        """Feed one dispatch of HOST frames (source_kind="host") and run
+        it synchronously: y [K, S, H, W] uint8 (u/v half-size), padded
+        here to the MB grid by edge replication.  The upload is timed as
+        last_copy_ms / stage "copy"."""
+        k = self.FRAMES_PER_DISPATCH
+        s = self.config.streams
+
+        def padded(p, hh, ww):
+            p = np.asarray(p, np.uint8).reshape(k, s, *np.shape(p)[-2:])
+            ph, pw = hh - p.shape[-2], ww - p.shape[-1]
+            if ph or pw:
+                p = np.pad(p, ((0, 0), (0, 0), (0, ph), (0, pw)),
+                           mode="edge")
+            return p
+
+        self._host_frames = (padded(y, self.h16, self.w16),
+                             padded(u, self.h16 // 2, self.w16 // 2),
+                             padded(v, self.h16 // 2, self.w16 // 2))
+        self.pump_frame()
+
     def pump_frame(self) -> None:
         """Encode + parse + decode one dispatch synchronously."""
         k = self.FRAMES_PER_DISPATCH
@@ -481,22 +779,19 @@ class GOPDevicePipeline:
                               start=handles[0])
         sse = self._sse_dev.cpu().numpy()
         dt = (time.perf_counter() - t0) * 1e3
-        self.last_psnr_y = self._psnr(sse)
+        self.last_psnr_y = _psnr(float(sse[-1, 0]), self.w16 * self.h16)
         total = sum(len(b) for fr in frames_k for b in fr)
         self.stats.on_encode(k * self.config.streams, dt, 0.0, 0.0, total)
         self.stats.on_decode(k * self.config.streams, dt)
 
-    def _psnr(self, sse: np.ndarray) -> float:
-        mse = float(sse[-1, 0]) / (self.w16 * self.h16)
-        return 99.0 if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
-
     def decoded_planes(self):
         """The decoder chain's current reconstruction as numpy (post-
-        deblock planes of the last decoded frame, all S streams)."""
+        deblock planes of the last decoded frame, all S*fanout streams)."""
         return tuple(p[0].cpu().numpy() for p in self._dpb_dec)
 
     def encoder_planes(self):
-        """The encoder DPB head as numpy (what decoded_planes must equal)."""
+        """The encoder DPB head as numpy, S streams (decoded_planes of
+        decode stream ss*fanout+fi must equal its stream ss)."""
         return tuple(p[0].cpu().numpy() for p in self._dpb_enc)
 
     def stream_bytes(self, stream_index: int = 0) -> bytes:
@@ -511,7 +806,8 @@ class GOPDevicePipeline:
         reconstruction behind encode t.  Every counted frame has been
         encoded, packed to annex-B, parsed back and reconstructed.
         Eager PyTorch compiles nothing, so `warmup` dispatches only warm
-        the allocator, the rate controller and the native library."""
+        the allocator, the rate controller and the native library.
+        Device sources only (host frames come through pump_host_frames)."""
         k = self.FRAMES_PER_DISPATCH
         for _ in range(warmup):
             self.pump_frame()
@@ -540,7 +836,8 @@ class GOPDevicePipeline:
                                   start=pending[0])
             n += k
         if self._sse_dev is not None:
-            self.last_psnr_y = self._psnr(self._sse_dev.cpu().numpy())
+            self.last_psnr_y = _psnr(float(self._sse_dev[-1, 0]),
+                                     self.w16 * self.h16)
         wall = time.perf_counter() - t0
         snap = self.stats.snapshot(self.config.streams)
         snap["frames"] = n * self.config.streams

@@ -1,4 +1,4 @@
-"""I-frame encoder core in PyTorch: row-slice parallel macroblock scan.
+"""I-frame encoder/decoder core in PyTorch: row-slice parallel MB scans.
 
 Port of tpuh264/kernels/iframe.py (Intra_16x16 path, `intra44=False`).
 Each MB row is its own slice, so the only causal chain is the left
@@ -7,9 +7,14 @@ becomes a Python loop over the C MB columns, every step batched over
 all (stream, MB row) pairs.  The first column is a Python-level branch
 (no left neighbour: DC prediction at 128 only).
 
-Bit-exact with the JAX version (tests/test_torch_transform_iframe_deblock.py).
-On the card this loop is launch-bound at 1080p (120 columns of small
-kernels); a fused column kernel or a CUDA graph is later work.
+`_intra16_mb` (one column's Intra_16x16 encode) is shared with the
+intra-in-P scan of pframe.py, and `_intra_residuals` /
+`_intra_recon_scan` (the decode) with the P decoder's intra MBs.
+
+Bit-exact with the JAX version (tests/test_torch_transform_iframe_deblock.py,
+tests/test_torch_devicepipe_app.py).  On the card these loops are
+launch-bound (120 columns of small kernels at 1080p); a fused column
+kernel or a CUDA graph is later work.
 """
 
 from __future__ import annotations
@@ -155,12 +160,67 @@ def _chroma_cbp(dcu, acu, dcv, acv):
     return torch.where(any_ac, 2, torch.where(any_dc, 1, 0)).to(I32)
 
 
-def _choose(first: bool, src, pred_dc, pred_h):
-    """DC-vs-H decision (DC wins ties): returns (use_dc bool [.], pred)."""
+class Intra16(NamedTuple):
+    """One column of Intra_16x16 MBs [S, R, ...] (see `_intra16_mb`)."""
+
+    mode: torch.Tensor        # [S, R] 2 = DC, 1 = H
+    cmode: torch.Tensor       # [S, R] 0 = DC, 1 = H
+    sad: torch.Tensor         # [S, R] luma SAD of the chosen prediction
+    dc_zz: torch.Tensor       # [S, R, 16]
+    ac_zz: torch.Tensor       # [S, R, 4, 4, 16] (slot 0 = 0)
+    cbp_luma: torch.Tensor    # [S, R] 0/1
+    chroma_dc: torch.Tensor   # [S, R, 2, 4] (Cb, Cr)
+    chroma_ac: torch.Tensor   # [S, R, 2, 4, 15]
+    cbp_chroma: torch.Tensor  # [S, R] 0..2
+    rec: Tuple[torch.Tensor, ...]  # [S, R, 16, 16], [S, R, 8, 8] x 2
+
+
+def _intra16_mb(ymb, umb, vmb, left, first: bool, qp: int, qpc: int
+                ) -> Intra16:
+    """Encode one MB column as Intra_16x16 against the left neighbours'
+    reconstructed edge columns `left` (y [S,R,16], u/v [S,R,8]; unused on
+    the first column, which has DC at 128 only).  Luma and chroma each
+    choose DC or H by SAD, ties to DC."""
+    s, r = ymb.shape[:2]
+    lead, dev = (s, r), ymb.device
+    pred_dc, pred_h = _pred_luma(left[0], first, lead, dev)
+    cost_dc = _sad(ymb, pred_dc)
+    pu_dc, pu_h = _pred_chroma(left[1], first, lead, dev)
+    pv_dc, pv_h = _pred_chroma(left[2], first, lead, dev)
     if first:
-        return None, pred_dc
-    use_dc = _sad(src, pred_dc) <= _sad(src, pred_h)
-    return use_dc, torch.where(use_dc[..., None, None], pred_dc, pred_h)
+        mode = torch.full(lead, 2, dtype=I32, device=dev)
+        cmode = torch.zeros(lead, dtype=I32, device=dev)
+        pred, predu, predv, sad = pred_dc, pu_dc, pv_dc, cost_dc
+    else:
+        cost_h = _sad(ymb, pred_h)
+        use_dc = cost_dc <= cost_h
+        mode = torch.where(use_dc, 2, 1).to(I32)
+        pred = torch.where(use_dc[..., None, None], pred_dc, pred_h)
+        sad = torch.minimum(cost_dc, cost_h)
+        use_cdc = (_sad(umb, pu_dc) + _sad(vmb, pv_dc)
+                   <= _sad(umb, pu_h) + _sad(vmb, pv_h))
+        cmode = torch.where(use_cdc, 0, 1).to(I32)
+        sel = use_cdc[..., None, None]
+        predu = torch.where(sel, pu_dc, pu_h)
+        predv = torch.where(sel, pv_dc, pv_h)
+    dc_zz, ac_zz, cbp_luma, rec_y = _encode_luma(ymb, pred, qp)
+    dcu, acu, qu = _encode_chroma(umb, predu, qpc)
+    dcv, acv, qv = _encode_chroma(vmb, predv, qpc)
+    cbp_chroma = _chroma_cbp(dcu, acu, dcv, acv)
+    rec_u = _recon_chroma(predu, dcu, qu, cbp_chroma, qpc)
+    rec_v = _recon_chroma(predv, dcv, qv, cbp_chroma, qpc)
+    return Intra16(
+        mode, cmode, sad, dc_zz, ac_zz, cbp_luma.to(I32),
+        torch.stack([dcu.reshape(s, r, 4), dcv.reshape(s, r, 4)], dim=-2),
+        torch.stack([acu.reshape(s, r, 4, 15), acv.reshape(s, r, 4, 15)],
+                    dim=-3),
+        cbp_chroma, (rec_y, rec_u, rec_v))
+
+
+def _left_edges(rec):
+    """The last sample column of each reconstructed MB plane: the next
+    column's left neighbours."""
+    return rec[0][..., :, 15], rec[1][..., :, 7], rec[2][..., :, 7]
 
 
 def encode_iframe_scan(y, u, v, qp: int, intra44: bool = False
@@ -173,53 +233,21 @@ def encode_iframe_scan(y, u, v, qp: int, intra44: bool = False
     qpc = T.chroma_qp_from_luma(qp)
     s, h, w = y.shape
     r, c = h // 16, w // 16
-    lead = (s, r)
     y_mbs = _mb_view(y.to(I32), 16)  # [C, S, R, 16, 16]
     u_mbs = _mb_view(u.to(I32), 8)
     v_mbs = _mb_view(v.to(I32), 8)
 
-    left_y = left_u = left_v = None
+    left = (None, None, None)
     outs = []
     for col in range(c):
-        first = col == 0
-        ymb, umb, vmb = y_mbs[col], u_mbs[col], v_mbs[col]
-
-        pred_dc, pred_h = _pred_luma(left_y, first, lead, y.device)
-        use_dc, pred = _choose(first, ymb, pred_dc, pred_h)
-        mode = (torch.full(lead, 2, dtype=I32, device=y.device) if first
-                else torch.where(use_dc, 2, 1).to(I32))
-        dc_zz, ac_zz, cbp_luma, rec_y = _encode_luma(ymb, pred, qp)
-
-        pu_dc, pu_h = _pred_chroma(left_u, first, lead, y.device)
-        pv_dc, pv_h = _pred_chroma(left_v, first, lead, y.device)
-        if first:
-            cmode = torch.zeros(lead, dtype=I32, device=y.device)
-            predu, predv = pu_dc, pv_dc
-        else:
-            use_cdc = (_sad(umb, pu_dc) + _sad(vmb, pv_dc)
-                       <= _sad(umb, pu_h) + _sad(vmb, pv_h))
-            cmode = torch.where(use_cdc, 0, 1).to(I32)
-            sel = use_cdc[..., None, None]
-            predu = torch.where(sel, pu_dc, pu_h)
-            predv = torch.where(sel, pv_dc, pv_h)
-        dcu, acu, qu = _encode_chroma(umb, predu, qpc)
-        dcv, acv, qv = _encode_chroma(vmb, predv, qpc)
-        cbp_chroma = _chroma_cbp(dcu, acu, dcv, acv)
-        rec_u = _recon_chroma(predu, dcu, qu, cbp_chroma, qpc)
-        rec_v = _recon_chroma(predv, dcv, qv, cbp_chroma, qpc)
-
-        left_y, left_u, left_v = (rec_y[..., :, 15], rec_u[..., :, 7],
-                                  rec_v[..., :, 7])
+        m = _intra16_mb(y_mbs[col], u_mbs[col], v_mbs[col], left, col == 0,
+                        qp, qpc)
+        left = _left_edges(m.rec)
+        i16 = torch.int16
         outs.append((
-            mode, cmode, cbp_luma.to(I32), cbp_chroma,
-            dc_zz.to(torch.int16),
-            ac_zz.reshape(s, r, 16, 16).to(torch.int16),
-            torch.stack([dcu.reshape(s, r, 4), dcv.reshape(s, r, 4)],
-                        dim=-2).to(torch.int16),
-            torch.stack([acu.reshape(s, r, 4, 15), acv.reshape(s, r, 4, 15)],
-                        dim=-3).to(torch.int16),
-            rec_y.to(torch.uint8), rec_u.to(torch.uint8), rec_v.to(torch.uint8),
-        ))
+            m.mode, m.cmode, m.cbp_luma, m.cbp_chroma, m.dc_zz.to(i16),
+            m.ac_zz.reshape(s, r, 16, 16).to(i16), m.chroma_dc.to(i16),
+            m.chroma_ac.to(i16), *(x.to(torch.uint8) for x in m.rec)))
 
     cols = [torch.stack(f, dim=2) for f in zip(*outs)]  # [S, R, C, ...]
     symbols = MBSymbols(
@@ -234,3 +262,91 @@ def encode_iframe_scan(y, u, v, qp: int, intra44: bool = False
 def encode_iframe_rows(y, u, v, qp: int):
     """I16-only encode scan (the devpipe fast path)."""
     return encode_iframe_scan(y, u, v, qp, intra44=False)
+
+
+def _intra_residuals(symbols, qp: int, qpc: int):
+    """The prediction-independent half of Intra_16x16 reconstruction,
+    batched over [S, R, C]: the inverse-transformed residuals (luma
+    [S,R,C,4,4,4,4], chroma [S,R,C,2,2,4,4] each) from parsed symbols
+    (MBSymbols or MBSymbolsP layout)."""
+    s, r, c = symbols.cbp_luma.shape
+    cbp_l = symbols.cbp_luma.to(I32)
+    cbp_c = symbols.cbp_chroma.to(I32)
+    ac4 = symbols.luma_ac.to(I32).reshape(s, r, c, 4, 4, 16)
+    dc_deq = T.dequant_luma_dc(T.inverse_zigzag(symbols.luma_dc.to(I32)), qp)
+    iq = torch.where((cbp_l == 1)[..., None, None, None], ac4, 0)
+    iq_flat = T.inverse_zigzag(iq).reshape(s, r, c, 4, 4, 16)
+    res_y = (T.inverse4x4(_subst_dc(T.dequant_flat(iq_flat, qp), dc_deq))
+             + 32) >> 6
+    cdc = symbols.chroma_dc.to(I32)
+    cac = symbols.chroma_ac.to(I32)
+
+    def chroma(i):
+        dcq = cdc[..., i, :].reshape(s, r, c, 2, 2)
+        ac = torch.nn.functional.pad(cac[..., i, :, :], (1, 0))
+        q_flat = T.inverse_zigzag(ac).reshape(s, r, c, 2, 2, 16)
+        dc_d = torch.where((cbp_c >= 1)[..., None, None],
+                           T.dequant_chroma_dc(dcq, qpc), 0)
+        dq = torch.where((cbp_c == 2)[..., None, None, None], q_flat, 0)
+        return (T.inverse4x4(_subst_dc(T.dequant_flat(dq, qpc), dc_d))
+                + 32) >> 6
+
+    return res_y, chroma(0), chroma(1)
+
+
+def _intra_recon_scan(mode, cmode, res, other=None, is_intra=None):
+    """Left-neighbour prediction of Intra_16x16 MBs, column by column,
+    plus the residuals `res` of `_intra_residuals`.  Where `is_intra` is
+    False an MB takes its reconstruction from `other` ([S,R,C,16,16],
+    [S,R,C,8,8] x 2) instead, and serves as the next MB's left neighbour.
+    Returns int32 [S,R,C,16,16], [S,R,C,8,8] x 2."""
+    s, r, c = mode.shape
+    lead, dev = (s, r), mode.device
+    left = (None, None, None)
+    outs = []
+    for col in range(c):
+        first = col == 0
+        pred_dc, pred_h = _pred_luma(left[0], first, lead, dev)
+        pu_dc, pu_h = _pred_chroma(left[1], first, lead, dev)
+        pv_dc, pv_h = _pred_chroma(left[2], first, lead, dev)
+        if first:
+            pred, predu, predv = pred_dc, pu_dc, pv_dc
+        else:
+            lsel = (mode[:, :, col] == 2)[..., None, None]
+            csel = (cmode[:, :, col] == 0)[..., None, None]
+            pred = torch.where(lsel, pred_dc, pred_h)
+            predu = torch.where(csel, pu_dc, pu_h)
+            predv = torch.where(csel, pv_dc, pv_h)
+        rec = (
+            _blocks_to_mb(torch.clamp(_luma_blocks(pred) + res[0][:, :, col],
+                                      0, 255)),
+            _cblocks_to_mb(torch.clamp(_chroma_blocks(predu)
+                                       + res[1][:, :, col], 0, 255)),
+            _cblocks_to_mb(torch.clamp(_chroma_blocks(predv)
+                                       + res[2][:, :, col], 0, 255)),
+        )
+        if other is not None:
+            sel = is_intra[:, :, col][..., None, None]
+            rec = tuple(torch.where(sel, a, b[:, :, col])
+                        for a, b in zip(rec, other))
+        left = _left_edges(rec)
+        outs.append(rec)
+    return tuple(torch.stack(o, dim=2) for o in zip(*outs))
+
+
+def decode_iframe_scan(symbols: MBSymbols, qp: int, intra44: bool = False
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Reconstruct I frames from parsed symbols (the inverse of the
+    encode scan): uint8 (recon_y, recon_u, recon_v), exactly as
+    tpuh264.kernels.iframe.decode_iframe_scan."""
+    if intra44:
+        raise NotImplementedError("intra44 is not ported yet (ROADMAP)")
+    qpc = T.chroma_qp_from_luma(qp)
+    rec = _intra_recon_scan(symbols.mode.to(I32), symbols.cmode.to(I32),
+                            _intra_residuals(symbols, qp, qpc))
+    return tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
+
+
+def decode_iframe_rows(symbols: MBSymbols, qp: int):
+    """I16-only decode scan (the DevicePipeline path)."""
+    return decode_iframe_scan(symbols, qp, intra44=False)

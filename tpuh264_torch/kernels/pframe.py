@@ -1,10 +1,10 @@
 """P-frame encoder/decoder core in PyTorch (row-slice parallel, rate-biased ME).
 
-Port of tpuh264/kernels/pframe.py for the path the GOP pipeline runs:
-`encode_pframe_rows_multi` with `intra_in_p=False` (the batched branch,
-no column scan), `halo=False`, `t8=False`, and `decode_pframe_rows_multi`
-with `halo=False`, `t8=False`.  Decisions are bit-identical to the JAX
-version (tests/test_torch_pframe.py):
+Port of tpuh264/kernels/pframe.py for the paths the GOP pipeline runs:
+`encode_pframe_rows_multi` (1..4 references; `intra_in_p` True or
+False) and `decode_pframe_rows_multi`, both with `halo=False`,
+`t8=False`.  Decisions are bit-identical to the JAX version
+(tests/test_torch_pframe.py, tests/test_torch_intra_in_p.py):
 
   1. stage A: the exact SAD table over the +-8 grid on the stride-2
      subsample -- K1, `me_cuda.sad_field` (CUDA kernel on the card, its
@@ -15,7 +15,10 @@ version (tests/test_torch_pframe.py):
      slices of an 18x18 four-plane window, then the normative
      half -> quarter selection;
   4. motion compensation, transforms, quant and reconstruction batched
-     over [S, R, C].
+     over [S, R, C];
+  5. with `intra_in_p`, a Python loop over the MB columns (the JAX
+     column `lax.scan`; its TPU unroll factor is not carried over)
+     tries Intra_16x16 against each MB's left reconstruction.
 
 Per-MB windows and the motion-compensated predictions are gathers from
 the padded planes at per-MB origins (the JAX version's masked sums over
@@ -31,7 +34,7 @@ dispatches decode the I frame as all-intra P records).
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,18 +54,18 @@ from tpuh264.golden.inter import (
 from . import me_cuda, tables
 from . import transform as T
 from .iframe import (
+    Intra16,
     _blocks_to_mb,
-    _cblocks_to_mb,
-    _chroma_blocks,
     _chroma_cbp,
     _encode_chroma,
+    _intra16_mb,
+    _intra_recon_scan,
+    _intra_residuals,
+    _left_edges,
     _luma_blocks,
     _mbs_to_plane,
     _plane_to_mbs,
-    _pred_chroma,
-    _pred_luma,
     _recon_chroma,
-    _subst_dc,
 )
 
 I32 = torch.int32
@@ -437,20 +440,48 @@ def _recon_inter_luma(pred, q_flat, nzmask8, qp: int):
     return _blocks_to_mb(T.idct_add(_luma_blocks(pred), d))
 
 
+def _intra_in_p_scan(src_mbs, u_mbs, v_mbs, inter_sad, rec_inter, qp: int,
+                     qpc: int):
+    """The intra-in-P column scan: left to right along each MB row, the
+    Intra_16x16 candidate of every MB (predicted from the left MB's
+    final reconstruction, intra or inter) replaces the inter choice when
+    its luma SAD is strictly below the inter SAD.  Only the decision and
+    the reconstruction chain are sequential; the symbols are assembled
+    batched afterwards.  Returns (use_intra [S,R,C], the stacked
+    `iframe.Intra16` fields [S,R,C,...], final recon [S,R,C,...] x 3)."""
+    c = inter_sad.shape[2]
+    left = (None, None, None)
+    outs = []
+    for col in range(c):
+        m = _intra16_mb(src_mbs[:, :, col], u_mbs[:, :, col],
+                        v_mbs[:, :, col], left, col == 0, qp, qpc)
+        use = m.sad < inter_sad[:, :, col]  # inter wins a tie
+        sel = use[..., None, None]
+        rec = tuple(torch.where(sel, a, b[:, :, col])
+                    for a, b in zip(m.rec, rec_inter))
+        left = _left_edges(rec)
+        outs.append((use, m._replace(rec=None), rec))
+    use_intra = torch.stack([o[0] for o in outs], dim=2)
+    intra = Intra16(*[
+        None if f[0] is None else torch.stack(f, dim=2)
+        for f in zip(*[tuple(o[1]) for o in outs])])
+    rec = tuple(torch.stack(f, dim=2) for f in zip(*[o[2] for o in outs]))
+    return use_intra, intra, rec
+
+
 def encode_pframe_rows_multi(
     y, u, v, refs_y, refs_u, refs_v, qp: int, ref_base: int = 0,
     halo: bool = False, t8: bool = False, intra_in_p: bool = True,
 ) -> Tuple[MBSymbolsP, Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
     """Encode P frames [S, H, W] against a DPB refs_* [N, S, H, W]
     (newest first).  Per MB every reference is searched; the lowest
-    rate-biased cost wins, ties to the smaller index.  Returns
-    (symbols, uint8 recon planes, (mvx, mvy)).
-
-    Only the RTC preset is ported (`intra_in_p=False`; no intra
-    candidates in P slices); `halo`, `t8` and intra-in-P raise."""
-    if intra_in_p or halo or t8:
-        raise NotImplementedError(
-            "port covers intra_in_p=False, halo=False, t8=False only")
+    rate-biased cost wins, ties to the smaller index.  With `intra_in_p`
+    each MB also tries Intra_16x16 (`_intra_in_p_scan`); without it (the
+    RTC preset) the frame stays batched.  Returns (symbols, uint8 recon
+    planes, (mvx, mvy) with zero motion for intra MBs).  `halo` and `t8`
+    are not ported and raise."""
+    if halo or t8:
+        raise NotImplementedError("port covers halo=False, t8=False only")
     qpc = T.chroma_qp_from_luma(qp)
     n_refs = refs_y.shape[0]
     s, h, w = y.shape
@@ -464,7 +495,7 @@ def encode_pframe_rows_multi(
     v_mbs = _plane_to_mbs(v.to(I32), 8)
 
     # ---- motion search per reference, batched over all MBs ----
-    mvx = mvy = inter_cost = refsel = None
+    mvx = mvy = inter_sad = inter_cost = refsel = None
     for n in range(n_refs):
         sads = me_cuda.sad_field(y32, planes_l[n][0])
         iy0, ix0, gy, gx = _int_winner(sads, lam)
@@ -473,17 +504,18 @@ def encode_pframe_rows_multi(
         gqy = (4 * gy)[:, None, None]
         iy, ix = _int_refine(planes_l[n][0], src_mbs, iy0, ix0, lam, gqx, gqy)
         w2 = _extract_w2(planes_l[n], iy, ix)
-        mvx_n, mvy_n, _, cost_n = _subpel_refine(w2, src_mbs, iy, ix, lam,
-                                                 gqx, gqy)
+        mvx_n, mvy_n, sad_n, cost_n = _subpel_refine(w2, src_mbs, iy, ix,
+                                                     lam, gqx, gqy)
         # reference signalling rate bias (golden ref_idx_bits)
         cost_n = cost_n + lam * ref_idx_bits(n + ref_base, ref_base + n_refs)
         if n == 0:
-            mvx, mvy, inter_cost = mvx_n, mvy_n, cost_n
+            mvx, mvy, inter_sad, inter_cost = mvx_n, mvy_n, sad_n, cost_n
             refsel = torch.zeros_like(cost_n)
         else:
             better = cost_n < inter_cost
             mvx = torch.where(better, mvx_n, mvx)
             mvy = torch.where(better, mvy_n, mvy)
+            inter_sad = torch.where(better, sad_n, inter_sad)
             inter_cost = torch.where(better, cost_n, inter_cost)
             refsel = torch.where(better, n, refsel)
 
@@ -501,28 +533,56 @@ def encode_pframe_rows_multi(
 
     skip = ((cbp4 == 0) & (cbp_c == 0) & (mvx == 0) & (mvy == 0)
             & (refsel + ref_base == 0))
-    # the MV predictor is the left MB's MV (row-slice 8.4.1.3 form): a
-    # shift of the batched MV field, so the whole frame stays batched
+    cdc = torch.stack([dcu.reshape(s, r, c, 4), dcv.reshape(s, r, c, 4)], -2)
+    cac = torch.stack([acu.reshape(s, r, c, 4, 15),
+                       acv.reshape(s, r, c, 4, 15)], -3)
+    zero = torch.zeros_like(mvx)
+    fields = dict(kind=torch.where(skip, KIND_SKIP, KIND_INTER), mode=zero,
+                  cmode=zero, cbp_luma=cbp4, cbp_chroma=cbp_c,
+                  luma_dc=torch.zeros((s, r, c, 16), dtype=I32,
+                                      device=y.device),
+                  luma_ac=l_zz, chroma_dc=cdc, chroma_ac=cac,
+                  refidx=torch.where(skip, 0, refsel + ref_base))
+    rec = (rec_y, rec_u, rec_v)
+    if intra_in_p:
+        use, intra, rec = _intra_in_p_scan(src_mbs, u_mbs, v_mbs, inter_sad,
+                                           rec, qp, qpc)
+        sel = {0: use}
+        for d in range(1, 4):
+            sel[d] = sel[d - 1][..., None]
+        for name, val in (("mode", intra.mode), ("cmode", intra.cmode),
+                          ("cbp_luma", intra.cbp_luma),
+                          ("cbp_chroma", intra.cbp_chroma),
+                          ("luma_dc", intra.dc_zz), ("luma_ac", intra.ac_zz),
+                          ("chroma_dc", intra.chroma_dc),
+                          ("chroma_ac", intra.chroma_ac),
+                          ("kind", KIND_INTRA), ("refidx", 0)):
+            old = fields[name]
+            fields[name] = torch.where(sel[old.dim() - 3], val, old)
+        mvx = torch.where(use, 0, mvx)
+        mvy = torch.where(use, 0, mvy)
+    # the MV predictor is the left MB's MV (row-slice 8.4.1.3 form; zero
+    # left of column 0 and for an intra left MB): a shift of the batched
+    # MV field, so the symbols assemble without a column scan
     pmvx = torch.nn.functional.pad(mvx, (1, 0))[..., :-1]
     pmvy = torch.nn.functional.pad(mvy, (1, 0))[..., :-1]
-    zero = torch.zeros_like(mvx)
+    is_intra = fields["kind"] == KIND_INTRA
     i16 = torch.int16
     symbols = MBSymbolsP(
-        kind=torch.where(skip, KIND_SKIP, KIND_INTER).to(I32),
-        mode=zero, cmode=zero,
-        cbp_luma=cbp4.to(I32), cbp_chroma=cbp_c,
-        mvdx=(mvx - pmvx).to(I32), mvdy=(mvy - pmvy).to(I32),
-        luma_dc=torch.zeros((s, r, c, 16), dtype=i16, device=y.device),
-        luma_ac=l_zz.reshape(s, r, c, 16, 16).to(i16),
-        chroma_dc=torch.stack([dcu.reshape(s, r, c, 4),
-                               dcv.reshape(s, r, c, 4)], -2).to(i16),
-        chroma_ac=torch.stack([acu.reshape(s, r, c, 4, 15),
-                               acv.reshape(s, r, c, 4, 15)], -3).to(i16),
-        refidx=torch.where(skip, 0, refsel + ref_base).to(I32),
+        kind=fields["kind"].to(I32),
+        mode=fields["mode"].to(I32), cmode=fields["cmode"].to(I32),
+        cbp_luma=fields["cbp_luma"].to(I32),
+        cbp_chroma=fields["cbp_chroma"].to(I32),
+        mvdx=torch.where(is_intra, 0, mvx - pmvx).to(I32),
+        mvdy=torch.where(is_intra, 0, mvy - pmvy).to(I32),
+        luma_dc=fields["luma_dc"].to(i16),
+        luma_ac=fields["luma_ac"].reshape(s, r, c, 16, 16).to(i16),
+        chroma_dc=fields["chroma_dc"].to(i16),
+        chroma_ac=fields["chroma_ac"].to(i16),
+        refidx=fields["refidx"].to(I32),
         t8=zero,
     )
-    recon = tuple(_mbs_to_plane(x.to(torch.uint8))
-                  for x in (rec_y, rec_u, rec_v))
+    recon = tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
     return symbols, recon, (mvx.to(I32), mvy.to(I32))
 
 
@@ -545,7 +605,6 @@ def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
         raise NotImplementedError("port covers halo=False, t8=False only")
     qpc = T.chroma_qp_from_luma(qp)
     s, r, c = symbols.kind.shape
-    dev = symbols.kind.device
     planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v)
 
     kind = symbols.kind.to(I32)
@@ -582,56 +641,10 @@ def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
     rec_u_inter = _recon_chroma(predcu, dcu, qu, ccbp, qpc)
     rec_v_inter = _recon_chroma(predcv, dcv, qv, ccbp, qpc)
 
-    # ---- intra residuals, batched (prediction-independent part) ----
-    cbp_l = symbols.cbp_luma.to(I32)
-    dc_deq = T.dequant_luma_dc(T.inverse_zigzag(symbols.luma_dc.to(I32)), qp)
-    iq = torch.where((cbp_l == 1)[..., None, None, None], ac4, 0)
-    iq_flat = T.inverse_zigzag(iq).reshape(s, r, c, 4, 4, 16)
-    d_luma = _subst_dc(T.dequant_flat(iq_flat, qp), dc_deq)
-    res_y = (T.inverse4x4(d_luma) + 32) >> 6  # [S,R,C,4,4,4,4]
-
-    def chroma_res(dcq, q_flatc):
-        dc_d = torch.where((cbp_c >= 1)[..., None, None],
-                           T.dequant_chroma_dc(dcq, qpc), 0)
-        dq = torch.where((cbp_c == 2)[..., None, None, None], q_flatc, 0)
-        return (T.inverse4x4(_subst_dc(T.dequant_flat(dq, qpc), dc_d))
-                + 32) >> 6
-
-    res_u = chroma_res(dcu, qu)
-    res_v = chroma_res(dcv, qv)
-
-    # ---- intra MBs: left-neighbour prediction, column by column ----
-    mode = symbols.mode.to(I32)
-    cmode = symbols.cmode.to(I32)
-    left = (None, None, None)
-    outs: List[Tuple[torch.Tensor, ...]] = []
-    lead = (s, r)
-    for col in range(c):
-        first = col == 0
-        pred_dc, pred_h = _pred_luma(left[0], first, lead, dev)
-        pu_dc, pu_h = _pred_chroma(left[1], first, lead, dev)
-        pv_dc, pv_h = _pred_chroma(left[2], first, lead, dev)
-        if first:
-            ipred, ipredu, ipredv = pred_dc, pu_dc, pv_dc
-        else:
-            lsel = (mode[:, :, col] == 2)[..., None, None]
-            csel = (cmode[:, :, col] == 0)[..., None, None]
-            ipred = torch.where(lsel, pred_dc, pred_h)
-            ipredu = torch.where(csel, pu_dc, pu_h)
-            ipredv = torch.where(csel, pv_dc, pv_h)
-        rec_i = (
-            _blocks_to_mb(torch.clamp(_luma_blocks(ipred)
-                                      + res_y[:, :, col], 0, 255)),
-            _cblocks_to_mb(torch.clamp(_chroma_blocks(ipredu)
-                                       + res_u[:, :, col], 0, 255)),
-            _cblocks_to_mb(torch.clamp(_chroma_blocks(ipredv)
-                                       + res_v[:, :, col], 0, 255)),
-        )
-        sel = is_intra[:, :, col][..., None, None]
-        rec = tuple(torch.where(sel, a, b[:, :, col]) for a, b in
-                    zip(rec_i, (rec_y_inter, rec_u_inter, rec_v_inter)))
-        left = (rec[0][..., :, 15], rec[1][..., :, 7], rec[2][..., :, 7])
-        outs.append(rec)
-    recon = tuple(_mbs_to_plane(torch.stack(o, dim=2).to(torch.uint8))
-                  for o in zip(*outs))
+    # ---- intra MBs: batched residuals, then left-neighbour prediction
+    # column by column (inter MBs pass through as left neighbours) ----
+    rec = _intra_recon_scan(symbols.mode.to(I32), symbols.cmode.to(I32),
+                            _intra_residuals(symbols, qp, qpc),
+                            (rec_y_inter, rec_u_inter, rec_v_inter), is_intra)
+    recon = tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
     return recon, (torch.where(is_intra, 0, mvx), torch.where(is_intra, 0, mvy))

@@ -2,7 +2,8 @@
 
 The codec has no learned weights; what a `GOPDevicePipeline` carries
 from one dispatch to the next is its state: both DPBs, the GOP position,
-the source clock and the rate controller.  `load_jax_state` takes that
+the source clock (dispatch index and dropped frames) and the rate
+controller.  `load_jax_state` takes that
 state as numpy arrays and scalars -- read off a tpuh264 (JAX)
 `GOPDevicePipeline`, for example -- and puts it into a port pipeline on
 its device, so both can continue from the same mid-GOP point.
@@ -26,12 +27,16 @@ def rc_state_of(rc) -> dict:
 
 def load_jax_state(port_pipe, dpb_enc: Sequence[np.ndarray],
                    dpb_dec: Sequence[np.ndarray], gop_pos: int,
-                   dispatch_index: int, rc_state: Mapping) -> None:
+                   dispatch_index: int, rc_state: Mapping,
+                   time_offset: int = 0) -> None:
     """Load pipeline state into `port_pipe` (tpuh264_torch GOPDevicePipeline).
 
-    dpb_enc / dpb_dec: (y, u, v) arrays [N, S, H, W] newest first (N =
-    num_ref_frames); gop_pos / dispatch_index: the JAX pipeline's
-    `_gop_pos` / `dispatch_index`; rc_state: `rc_state_of(jax_pipe.rc)`."""
+    dpb_enc / dpb_dec: (y, u, v) arrays [N, S, H, W] and [N, S*fanout,
+    H, W], newest first (N = num_ref_frames; a fan-out pipeline's decoder
+    DPB is S*fanout streams wide); gop_pos / dispatch_index /
+    time_offset: the JAX pipeline's `_gop_pos` / `dispatch_index` /
+    `time_offset` (frames dropped so far); rc_state:
+    `rc_state_of(jax_pipe.rc)`."""
     dev = port_pipe.device
 
     def planes(dpb, ref):
@@ -47,6 +52,7 @@ def load_jax_state(port_pipe, dpb_enc: Sequence[np.ndarray],
     port_pipe._dpb_dec = planes(dpb_dec, port_pipe._dpb_dec)
     port_pipe._gop_pos = int(gop_pos)
     port_pipe.dispatch_index = int(dispatch_index)
+    port_pipe.time_offset = int(time_offset)
     for f in _RC_FIELDS:
         v = rc_state[f]
         setattr(port_pipe.rc, f, list(v) if f == "_window" else v)
