@@ -19,6 +19,7 @@ tpuh264_torch/csrc, then:
      path: the RTC preset, intra-in-P, two references, host ingest with
      fan-out 2 and a drop_frames, and the I-only DevicePipeline; the
      golden decoder's decode of the GPU bytes equals the GPU decoder DPB;
+     the intra-in-P and two-reference cases code intra MBs in P frames;
   4. drives the main path -- GOPDevicePipeline, 1920x1080 x 4 streams, CBR
      4 Mbps, RTC preset, gop 16, "rigid" source -- for 5 dispatches
      (crossing an IDR): after every dispatch the decode-from-bits DPB
@@ -34,10 +35,12 @@ tpuh264_torch/csrc, then:
      share of MBs that chose reference 1;
   8. host ingest -> fan-out 8: one 854x480 stream of camera-like host
      frames at QP 32, decoded eight times, with a drop_frames: all eight
-     decode streams equal the encoder DPB; the upload ms per dispatch;
+     decode streams equal the encoder DPB; intra MBs coded in P frames;
+     the upload ms per dispatch;
   9. the I-only DevicePipeline at 854x480, decoded 8 times from symbols;
  10. the live App (impl "tpu_gop") with the defaults at 854x480 x 8 for
-     about 10 s: its stats, capture drops included, then stop().
+     10 s, or longer until its first dispatch has retired: its stats,
+     capture drops included, then stop().
 
 Every path of phases 4 and 6-10 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
@@ -239,8 +242,9 @@ def phase_kernels(dev, torch, np):
     return rows
 
 
-def phase_small(dev, np):
-    """Phase 3: at 64x48 x 2 the GPU emits the CPU's bytes on every path."""
+def phase_small(dev, torch, np):
+    """Phase 3: at 64x48 x 2 the GPU emits the CPU's bytes on every path;
+    the intra-in-P cases on "noise" code intra MBs in their P frames."""
     from tpuh264.golden import codec as gcodec
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import DevicePipeline, GOPDevicePipeline
@@ -259,22 +263,25 @@ def phase_small(dev, np):
             if d == 0:
                 p.drop_frames(3)
 
+    # (name, config, pipeline arguments, driver, intra MBs required)
     cases = [
-        ("RTC preset, QP 28", dict(qp=28, intra_in_p=False), {}, None),
-        ("intra-in-P, QP 28", dict(qp=28), {}, None),
+        ("RTC preset, QP 28", dict(qp=28, intra_in_p=False), {}, None, False),
+        ("intra-in-P, QP 28", dict(qp=28), {}, None, True),
         ("2 references, CBR", dict(qp=None, bitrate=200_000,
-                                   num_ref_frames=2), {}, None),
+                                   num_ref_frames=2), {}, None, True),
         ("host ingest 60x44, fan-out 2, drop_frames(3)",
          dict(width=60, height=44, qp=None, bitrate=150_000),
-         dict(source_kind="host", fanout=2), host_drive),
+         dict(source_kind="host", fanout=2), host_drive, False),
     ]
-    for name, kw, pkw, drive in cases:
+    for name, kw, pkw, drive, need_intra in cases:
         cfg = dict(dict(width=64, height=48, streams=2), **kw)
         pipes = []
         for d in (dev, "cpu"):
             p = GOPDevicePipeline(CodecConfig(**cfg), gop_size=8,
                                   **dict(dict(source_kind="noise"), **pkw),
                                   device=d)
+            if d == dev:
+                spy = SymbolSpy(p, torch)
             if drive is None:
                 for _ in range(3):
                     p.pump_frame()
@@ -282,6 +289,9 @@ def phase_small(dev, np):
                 drive(p)
             pipes.append(p)
         gpu, cpu = pipes
+        kinds, _ = spy.shares()
+        if need_intra and kinds[2] == 0:
+            fail(f"64x48 {name}: no intra MB in the P frames: {kinds}")
         hh, ww = cfg["height"], cfg["width"]
         dec = gpu.decoded_planes()
         for a, b in zip(dec, cpu.decoded_planes()):
@@ -301,7 +311,8 @@ def phase_small(dev, np):
         print(f"phase 3: 64x48 x 2, {name}, 3 dispatches: GPU bytes == CPU "
               f"bytes ({sum(len(gpu.stream_bytes(i)) for i in range(2))} B), "
               f"golden decode == GPU decoder DPB "
-              f"({dec[0].shape[0]} decode streams)")
+              f"({dec[0].shape[0]} decode streams); P-frame MB kinds "
+              f"skip/inter/intra {kinds}")
     pipes = []
     for d in (dev, "cpu"):
         p = DevicePipeline(CodecConfig(width=64, height=48, qp=30, streams=2),
@@ -482,8 +493,9 @@ def phase_multiref(dev, torch, np, card, launches):
           f"{pipe.last_psnr_y:.2f} dB [{card}]")
 
 
-def phase_ingest_fanout(dev, np, card, launches):
-    """Phase 8: host ingest -> fan-out 8 (one camera stream decoded 8x)."""
+def phase_ingest_fanout(dev, torch, np, card, launches):
+    """Phase 8: host ingest -> fan-out 8 (one camera stream decoded 8x),
+    intra-in-P (the CodecConfig default): intra MBs must be coded."""
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
     from tpuh264_torch.engine.sources import clip_frames
@@ -495,6 +507,7 @@ def phase_ingest_fanout(dev, np, card, launches):
     pipe = GOPDevicePipeline(CodecConfig(width=w, height=h, streams=1, qp=32),
                              gop_size=32, source_kind="host", fanout=8,
                              device=dev)
+    spy = SymbolSpy(pipe, torch)
     copy_ms = []
 
     def batch(f0):
@@ -515,11 +528,15 @@ def phase_ingest_fanout(dev, np, card, launches):
     launches.path("host ingest -> fan-out 8", drive)
     if pipe.decoded_planes()[0].shape[0] != 8:
         fail("fan-out 8: the decoder DPB is not 8 streams wide")
+    kinds, _ = spy.shares()
+    if kinds[2] == 0:
+        fail(f"ingest fan-out 8: no intra MB in the P frames: {kinds}")
     print(f"phase 8: host ingest 854x480 (clip 'meeting', made in "
           f"{t_clip:.1f} s) -> 1 stream, QP 32, fan-out 8: 3 dispatches with "
           f"drop_frames(4) after the first; all 8 decode streams == encoder "
-          f"DPB after each; copy ms per dispatch {copy_ms}; time_offset "
-          f"{pipe.time_offset} [{card}]")
+          f"DPB after each; P-frame MB kinds skip/inter/intra {kinds}; copy "
+          f"ms per dispatch (memcpy into reused pinned staging + upload) "
+          f"{copy_ms}; time_offset {pipe.time_offset} [{card}]")
 
 
 def phase_device_pipeline(dev, np, card, launches):
@@ -567,7 +584,15 @@ def phase_app(dev, card, launches):
     def drive():
         app.start()
         pipe = app.pipeline
+        t0 = time.perf_counter()
         time.sleep(10.0)
+        # the stats show output and drops only once the first dispatch
+        # (an IDR and 3 intra-in-P P frames, 7-10 s) has retired and the
+        # pump has dropped the frames it fell behind by (time_offset > 0)
+        while (pipe.time_offset == 0 and app.is_processing()
+               and time.perf_counter() - t0 < 120.0):
+            time.sleep(0.1)
+        box["wait_s"] = time.perf_counter() - t0
         box["stats"] = app.get_stats()
         t0 = time.perf_counter()
         app.stop()
@@ -586,8 +611,9 @@ def phase_app(dev, card, launches):
         fail(f"App: no frames or no capture drops: {stats}")
     shown = {k: (round(v, 3) if isinstance(v, float) else v)
              for k, v in stats.items()}
-    print(f"phase 10: App(impl='tpu_gop') 854x480 x 8, defaults, ~10 s: "
-          f"{frames} frames per stream encoded, time_offset "
+    print(f"phase 10: App(impl='tpu_gop') 854x480 x 8, defaults, "
+          f"{box['wait_s']:.1f} s: {frames} frames per stream encoded, "
+          f"time_offset "
           f"{pipe.time_offset}; get_stats() {shown}; stop() took "
           f"{box['stop_s']:.1f} s [{card}]")
 
@@ -615,14 +641,14 @@ def main() -> None:
           f"(load {time.perf_counter() - t0:.1f} s) with nvcc for sm_90a")
 
     rows = phase_kernels(dev, torch, np)
-    phase_small(dev, np)
+    phase_small(dev, torch, np)
 
     launches = Launches()
     launches.path("main path 1080p x 4", lambda: phase_main(dev, np, card))
     phase_runs(dev, card)
     phase_intra_in_p(dev, torch, np, card, launches)
     phase_multiref(dev, torch, np, card, launches)
-    phase_ingest_fanout(dev, np, card, launches)
+    phase_ingest_fanout(dev, torch, np, card, launches)
     phase_device_pipeline(dev, np, card, launches)
     phase_app(dev, card, launches)
 

@@ -24,7 +24,7 @@ from tpuh264.golden import codec as gcodec
 from tpuh264.kernels import iframe as jif
 from tpuh264_torch.engine import CodecConfig
 from tpuh264_torch.engine.app import App
-from tpuh264_torch.engine.devpipe import DevicePipeline
+from tpuh264_torch.engine.devpipe import DevicePipeline, GOPDevicePipeline
 from tpuh264_torch.kernels import iframe as tif
 
 
@@ -134,6 +134,24 @@ def test_app_lifecycle_drops_and_decodes():
         assert len(ours) == n
         for p in range(3):
             np.testing.assert_array_equal(ours[-1][p], dec[p][si])
+
+
+def test_app_pump_failure_raises_from_stop(monkeypatch):
+    """A failure in the pump thread is kept in `error` and raised by
+    stop() after the teardown; it is never silent."""
+    def boom(self):
+        raise RuntimeError("boom")
+
+    monkeypatch.setattr(GOPDevicePipeline, "pump_frame", boom)
+    app = App(CodecConfig(width=64, height=48, streams=1, gop_size=8,
+                          qp=30), device="cpu")
+    app.start()
+    app._thread.join(timeout=60)
+    assert not app.is_processing() and isinstance(app.error, RuntimeError)
+    with pytest.raises(RuntimeError, match="boom"):
+        app.stop()
+    assert app.pipeline is None
+    app.stop()  # idempotent: the failure was raised once
 
 
 def test_app_reconfigure_restarts():

@@ -127,6 +127,23 @@ def test_decode_intra_in_p_matches_encoder(encoded):
 
 CFG = dict(width=64, height=48, streams=S, intra_in_p=True)
 MODES = {"qp28": dict(qp=28), "cbr": dict(qp=None, bitrate=200_000)}
+# the smooth "moving_gradient" codes no intra MB; on "noise" intra wins
+SOURCE = "noise"
+
+
+def _intra_counts(pipe):
+    """Spy on the port pipeline's encode: the number of KIND_INTRA MBs in
+    each dispatch's P frames, appended to the returned list."""
+    counts = []
+    enc = pipe._encode
+
+    def spy(*a, **kw):
+        out = enc(*a, **kw)
+        counts.append(int((out[1].kind == TP.KIND_INTRA).sum()))
+        return out
+
+    pipe._encode = spy
+    return counts
 
 
 def _drive(pipe, n):
@@ -141,16 +158,18 @@ def _drive(pipe, n):
 @pytest.fixture(scope="module", params=sorted(MODES))
 def runs(request):
     kw = dict(CFG, **MODES[request.param])
-    jax_pipe = JaxPipe(JaxConfig(**kw), gop_size=8,
-                       source_kind="moving_gradient")
+    jax_pipe = JaxPipe(JaxConfig(**kw), gop_size=8, source_kind=SOURCE)
     port = GOPDevicePipeline(CodecConfig(**kw), gop_size=8,
-                             source_kind="moving_gradient", device="cpu")
-    return request.param, jax_pipe, port, _drive(jax_pipe, 3), _drive(port, 3)
+                             source_kind=SOURCE, device="cpu")
+    intra = _intra_counts(port)
+    return (request.param, jax_pipe, port, _drive(jax_pipe, 3),
+            _drive(port, 3), intra)
 
 
 def test_pipeline_intra_in_p_matches_jax(runs):
-    mode, jax_pipe, port, jq, pq = runs
+    mode, jax_pipe, port, jq, pq, intra = runs
     assert pq == jq
+    assert len(intra) == 3 and all(intra), intra  # intra MBs were coded
     assert len(port.frame_streams) == 12
     for si in range(S):
         assert port.stream_bytes(si) == jax_pipe.stream_bytes(si), si
@@ -161,7 +180,7 @@ def test_pipeline_intra_in_p_matches_jax(runs):
 
 
 def test_pipeline_intra_in_p_golden_decode(runs):
-    _, _, port, _, _ = runs
+    _, _, port, _, _, _ = runs
     dec = port.decoded_planes()
     for d, e in zip(dec, port.encoder_planes()):
         np.testing.assert_array_equal(d, e)
@@ -203,17 +222,18 @@ def _drive_fan(pipe):
 
 @pytest.fixture(scope="module")
 def fan_runs():
-    jax_pipe = JaxPipe(JaxConfig(**FAN_CFG), gop_size=8,
-                       source_kind="moving_gradient", fanout=2)
+    jax_pipe = JaxPipe(JaxConfig(**FAN_CFG), gop_size=8, source_kind=SOURCE,
+                       fanout=2)
     port = GOPDevicePipeline(CodecConfig(**FAN_CFG), gop_size=8,
-                             source_kind="moving_gradient", fanout=2,
-                             device="cpu")
-    return jax_pipe, port, _drive_fan(jax_pipe), _drive_fan(port)
+                             source_kind=SOURCE, fanout=2, device="cpu")
+    intra = _intra_counts(port)
+    return jax_pipe, port, _drive_fan(jax_pipe), _drive_fan(port), intra
 
 
 def test_fanout_matches_jax(fan_runs):
-    jax_pipe, port, jq, pq = fan_runs
+    jax_pipe, port, jq, pq, intra = fan_runs
     assert pq == jq
+    assert all(intra), intra  # the replicated records carry intra MBs
     for si in range(S):
         assert port.stream_bytes(si) == jax_pipe.stream_bytes(si), si
     jdec, pdec = jax_pipe.decoded_planes(), port.decoded_planes()
@@ -226,7 +246,7 @@ def test_fanout_matches_jax(fan_runs):
 
 
 def test_fanout_decode_streams_equal_encoder(fan_runs):
-    _, port, _, _ = fan_runs
+    _, port, _, _, _ = fan_runs
     for e, d in zip(port.encoder_planes(), port.decoded_planes()):
         for ss in range(S):
             for fi in range(2):
@@ -237,9 +257,9 @@ def test_drop_frames_moves_source_clock(fan_runs):
     """After drop_frames(3) the encoder sees frames 7.. of the source:
     stream bytes differ from a run without the drop, from dispatch 1 on,
     and the drop is counted."""
-    _, port, _, _ = fan_runs
+    _, port, _, _, _ = fan_runs
     ref = GOPDevicePipeline(CodecConfig(**FAN_CFG), gop_size=8,
-                            source_kind="moving_gradient", device="cpu")
+                            source_kind=SOURCE, device="cpu")
     ref.pump_frame()
     ref.pump_frame()
     assert ref.frame_streams[:K] == port.frame_streams[:K]
@@ -253,10 +273,9 @@ def test_load_jax_state_fanout(fan_runs):
     continue identically."""
     from tpuh264_torch.state import load_jax_state, rc_state_of
 
-    jax_pipe, _, _, _ = fan_runs
+    jax_pipe, _, _, _, _ = fan_runs
     port = GOPDevicePipeline(CodecConfig(**FAN_CFG), gop_size=8,
-                             source_kind="moving_gradient", fanout=2,
-                             device="cpu")
+                             source_kind=SOURCE, fanout=2, device="cpu")
     load_jax_state(
         port, [np.asarray(p) for p in jax_pipe._dpb_enc],
         [np.asarray(p) for p in jax_pipe._dpb_dec], jax_pipe._gop_pos,

@@ -1,6 +1,6 @@
 """Multi-reference (num_ref_frames 2 and 4) GOP pipeline: the port
-against the JAX GOPDevicePipeline, with intra-in-P on (N=2) and off
-(N=4).
+against the JAX GOPDevicePipeline, with intra-in-P on (N=2, on the
+"noise" source, where intra MBs win) and off (N=4).
 
 64x48 x 2 streams, gop 8, three dispatches (IDR+3P | 4P | IDR+3P: the
 dispatch after each IDR signals one active reference, the interior one
@@ -17,11 +17,14 @@ from tpuh264.engine.devpipe import GOPDevicePipeline as JaxPipe
 from tpuh264.golden import codec as gcodec
 from tpuh264_torch.engine import CodecConfig
 from tpuh264_torch.engine.devpipe import GOPDevicePipeline
+from tpuh264_torch.kernels import pframe as TP
 from tpuh264_torch.state import load_jax_state, rc_state_of
 
 # each depth once, each intra-in-P setting once: every JAX configuration
-# costs a compile of its own
+# costs a compile of its own.  The smooth "moving_gradient" codes no
+# intra MB, so the intra-in-P case runs on "noise"
 CASES = [(2, True), (4, False)]
+SOURCE = {True: "noise", False: "moving_gradient"}
 
 
 def _cfg(n, iip):
@@ -30,15 +33,17 @@ def _cfg(n, iip):
 
 
 class _RefIdx:
-    """Records the encoder's P symbols' ref indices per dispatch."""
+    """Records the encoder's P symbols' ref indices and MB kinds per
+    dispatch."""
 
     def __init__(self, pipe):
-        self.seen = []
+        self.seen, self.kinds = [], []
         enc = pipe._encode
 
         def spy(*a, **kw):
             out = enc(*a, **kw)
             self.seen.append(out[1].refidx.cpu().numpy())
+            self.kinds.append(out[1].kind.cpu().numpy())
             return out
 
         pipe._encode = spy
@@ -57,16 +62,17 @@ def _drive(pipe, n):
 def runs(request):
     n, iip = request.param
     jax_pipe = JaxPipe(JaxConfig(**_cfg(n, iip)), gop_size=8,
-                       source_kind="moving_gradient")
+                       source_kind=SOURCE[iip])
     port = GOPDevicePipeline(CodecConfig(**_cfg(n, iip)), gop_size=8,
-                             source_kind="moving_gradient", device="cpu")
+                             source_kind=SOURCE[iip], device="cpu")
     spy = _RefIdx(port)
     jq, pq = _drive(jax_pipe, 3), _drive(port, 3)
-    return n, iip, jax_pipe, port, jq, pq, spy.seen
+    return n, iip, jax_pipe, port, jq, pq, spy
 
 
 def test_multiref_pipeline_matches_jax(runs):
-    n, _, jax_pipe, port, jq, pq, seen = runs
+    n, iip, jax_pipe, port, jq, pq, spy = runs
+    seen = spy.seen
     assert pq == jq
     assert port.sps.max_num_ref_frames == jax_pipe.sps.max_num_ref_frames == n
     for si in range(2):
@@ -76,6 +82,9 @@ def test_multiref_pipeline_matches_jax(runs):
     # after an IDR only ref 0 exists; the interior dispatch uses up to n
     assert seen[0].max() == 0 and seen[2].max() == 0
     assert 0 < seen[1].max() < n, "no MB chose an older reference"
+    # with intra-in-P, intra MBs are coded in every dispatch's P frames
+    intra = [int((k == TP.KIND_INTRA).sum()) for k in spy.kinds]
+    assert all(intra) if iip else not any(intra), intra
 
 
 def test_multiref_stream_decodes_to_decoder_dpb(runs):
@@ -94,7 +103,7 @@ def test_load_jax_state_mid_gop_multiref(runs):
     references deep in both DPBs) continues exactly as the JAX one."""
     n, iip, jax_pipe, _, _, _, _ = runs
     port = GOPDevicePipeline(CodecConfig(**_cfg(n, iip)), gop_size=8,
-                             source_kind="moving_gradient", device="cpu")
+                             source_kind=SOURCE[iip], device="cpu")
     # after three dispatches the JAX pipeline is mid-GOP (position 1 of 2)
     load_jax_state(
         port, [np.asarray(p) for p in jax_pipe._dpb_enc],

@@ -27,6 +27,7 @@ impl strings are the JAX App's API values.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from typing import Dict, Optional
@@ -34,6 +35,8 @@ from typing import Dict, Optional
 import torch
 
 from .config import RESOLUTIONS, CodecConfig
+
+_log = logging.getLogger(__name__)
 
 IMPLEMENTATIONS = ("tpu_gop", "tpu", "libav")
 _NOT_PORTED = {
@@ -99,7 +102,9 @@ class App:
             self._thread.start()
 
     def stop(self) -> None:
-        """Two-phase teardown; a no-op when not running."""
+        """Two-phase teardown; a no-op when not running.  If the pump
+        thread failed, its exception is raised here after the teardown
+        (it stays in `error` until the next start)."""
         with self._lock:
             thread = self._thread
             if thread is None:
@@ -111,6 +116,8 @@ class App:
             self.processing = False
             # phase 2: release the pipeline and its device state
             self.pipeline = None
+            if self.error is not None:
+                raise self.error
 
     def is_processing(self) -> bool:
         return self.processing
@@ -141,7 +148,8 @@ class App:
                     produced += ndrop
                 elif behind < 0:
                     time.sleep(min(-behind * frame_dt, 0.25))
-        except Exception as e:  # the thread's boundary: kept for the owner
+        except Exception as e:  # the thread's boundary: stop() re-raises
+            _log.exception("pump thread failed")
             self.error = e
             self.processing = False
 

@@ -170,7 +170,7 @@ class DevicePipeline:
                           sse.contiguous().view(I32)])
         return symbols, slice_hw, meta
 
-    def _dispatch(self, qp: int, count_input: bool = True):
+    def _dispatch(self, qp: int):
         """Issue one dispatch's device work without synchronizing."""
         if self._hdr is None:
             self._hdr = slice_headers_device(
@@ -182,8 +182,7 @@ class DevicePipeline:
             done = torch.cuda.Event()
             done.record()
         self.frame_index += self.FRAMES_PER_DISPATCH
-        if count_input:
-            self.stats.on_input(self.FRAMES_PER_DISPATCH)
+        self.stats.on_input(self.FRAMES_PER_DISPATCH)
         return symbols, slice_hw, meta, done
 
     def _sse(self, meta: np.ndarray) -> np.ndarray:
@@ -191,26 +190,19 @@ class DevicePipeline:
         off = 1 + k * (self.h16 // 16)
         return meta[off:off + k * self.config.streams].view(np.float32)
 
-    def pump_frame(self, emit_bitstream: bool = True) -> None:
+    def pump_frame(self) -> None:
         """Encode/decode one dispatch (FRAMES_PER_DISPATCH frames)."""
         cfg = self.config
         qp = cfg.qp if cfg.qp is not None else 32
         k = self.FRAMES_PER_DISPATCH
         t_in = time.perf_counter()
-        self.stats.on_input(k)
-        handles = self._dispatch(qp, count_input=False)
+        handles = self._dispatch(qp)
         t_dev = time.perf_counter()
-        nbytes = 0
-        if emit_bitstream:
-            sse = self._consume(handles, qp)
-            nbytes = len(self.last_stream)
-        else:
-            sse = self._sse(_fetch(self._side, handles[3], handles[2],
-                                   lambda m: [])[0])
+        sse = self._consume(handles, qp)
         t_done = time.perf_counter()
         self.last_psnr_y = _psnr(float(sse[0]), self.w16 * self.h16)
         self.stats.on_encode(k, (t_dev - t_in) * 1e3, 0.0,
-                             (t_done - t_dev) * 1e3, nbytes)
+                             (t_done - t_dev) * 1e3, len(self.last_stream))
         self.stats.on_decode(k * cfg.streams, (t_dev - t_in) * 1e3)
 
     def _consume(self, handles, qp: int) -> np.ndarray:
@@ -362,6 +354,7 @@ class GOPDevicePipeline:
         self._dpb_enc = self._zero_dpb(config.streams)
         self._dpb_dec = self._zero_dpb(self.s_dec)
         self._host_frames = None  # pending host YUV (source_kind "host")
+        self._staging: Dict[int, torch.Tensor] = {}  # pinned, per plane
         self.last_copy_ms = 0.0
         self._sse_dev = None  # decode-side SSE [k, S*fanout] (device)
         self.rc = RateController(config)
@@ -559,22 +552,39 @@ class GOPDevicePipeline:
 
     def _take_host_frames(self):
         """Upload the pending host frames (the reference's timed pixel copy
-        into codec memory): `last_copy_ms` and stage "copy" time the
-        pinned host-to-device copy up to its completion on the device."""
+        into codec memory).  On CUDA each plane goes through a page-locked
+        staging buffer that is allocated once per shape and reused, so
+        `last_copy_ms` and stage "copy" time the host memcpy into that
+        buffer plus the host-to-device copy up to its completion on the
+        device, and no page-locked allocation."""
         if self._host_frames is None:
             raise RuntimeError(
                 "host source: feed frames via pump_host_frames()")
-        stream = torch.cuda.current_stream(self.device) if self._cuda else None
-        if stream is not None:
+        stream = None
+        if self._cuda:
+            for i, a in enumerate(self._host_frames):
+                buf = self._staging.get(i)
+                if buf is None or tuple(buf.shape) != a.shape:
+                    self._staging[i] = torch.empty(
+                        a.shape, dtype=torch.uint8, pin_memory=True)
+            stream = torch.cuda.current_stream(self.device)
             stream.synchronize()  # earlier queued work is not the copy's
         tc = time.perf_counter()
-        frames = tuple(self._upload(a) for a in self._host_frames)
+        frames = []
+        for i, a in enumerate(self._host_frames):
+            if stream is None:
+                frames.append(torch.from_numpy(a.copy()))
+                continue
+            buf = self._staging[i]
+            np.copyto(buf.numpy(), a)
+            frames.append(buf.to(self.device, non_blocking=True))
         if stream is not None:
+            # the staging buffers are free again once this returns
             stream.synchronize()
         self.last_copy_ms = (time.perf_counter() - tc) * 1e3
         self.stage_ms["copy"] += self.last_copy_ms
         self._host_frames = None
-        return frames
+        return tuple(frames)
 
     def _dispatch(self):
         qp = (self.config.qp if self.config.qp is not None
