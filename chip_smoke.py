@@ -7,19 +7,26 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc
 (/usr/local/cuda or CUDA_HOME).  It builds the port's CUDA kernels from
 tpuh264_torch/csrc, then:
 
-  1. prints the card (nvidia-smi name and power limit) and the build time;
+  1. prints the card (nvidia-smi name and power limit) and builds the
+     port's two libraries: the CUDA kernels (nvcc) and the host CAVLC
+     engine (g++, a copy of native/cavlc.cpp);
   2. holds K1 (stage-A SAD table), K2 (CAVLC block pack) and K3 (chunk
      merge) against their plain PyTorch versions on the card (exact
      equality) at the main path's 1920x1080 x 4 shapes, with the winner
-     selection's first-index ties on the card, and K2/K3 again on
+     selection's first-index ties on the card; K1 and K2 again on seeded
+     edge cases (K1: samples 0 and 255, the maximum SAD, ragged tiles,
+     S = 1 and 4; K2: escape levels, 16 nonzeros, chroma DC, nh 0..8,
+     n_w 1 / 6 / 20 / 32 with truncation, code_residual 0), and K2/K3 on
      intra-in-P P symbols at 854x480 x 8 (skip, inter and intra MBs);
      times each kernel beside its plain version (CUDA events, after a
-     warm-up);
-  3. at 64x48 x 2 the GPU emits the CPU's bytes (plain versions) on every
-     path: the RTC preset, intra-in-P, two references, host ingest with
-     fan-out 2 and a drop_frames, and the I-only DevicePipeline; the
-     golden decoder's decode of the GPU bytes equals the GPU decoder DPB;
-     the intra-in-P and two-reference cases code intra MBs in P frames;
+     warm-up) and against its bound (the bytes it must move over the
+     card's 3.35 TB/s);
+  3. at 64x48 x 2 the GPU emits the CPU's bytes (plain versions) and
+     decoder DPB on every path: the RTC preset, intra-in-P, two
+     references, host ingest with fan-out 2 and a drop_frames, and the
+     I-only DevicePipeline; the intra-in-P and two-reference cases code
+     intra MBs in P frames (the CPU tests decode the same CPU bytes in
+     the JAX package's golden decoder);
   4. drives the main path -- GOPDevicePipeline, 1920x1080 x 4 streams, CBR
      4 Mbps, RTC preset, gop 16, "rigid" source -- for 5 dispatches
      (crossing an IDR): after every dispatch the decode-from-bits DPB
@@ -38,6 +45,8 @@ tpuh264_torch/csrc, then:
      decode streams equal the encoder DPB; intra MBs coded in P frames;
      the upload ms per dispatch;
   9. the I-only DevicePipeline at 854x480, decoded 8 times from symbols;
+     the port's own decode of a frame's bytes (native parse + I scan)
+     equals the encoder's reconstruction;
  10. the live App (impl "tpu_gop") with the defaults at 854x480 x 8 for
      10 s, or longer until its first dispatch has retired: its stats,
      capture drops included, then stop().
@@ -46,7 +55,8 @@ Every path of phases 4 and 6-10 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
 launched every kernel it runs.  Any failure exits non-zero.  The last
 two lines are the kernel table (launches summed over those paths) and
-{"ok": true, "device": {...}}.  Nothing here imports JAX.
+{"ok": true, "device": {...}}.  Nothing here imports JAX or the JAX
+package tpuh264; the run fails if either was loaded.
 """
 
 import json
@@ -129,6 +139,49 @@ class Launches:
         return out, counts
 
 
+HBM_BPS = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+NO_LIBRARY = {
+    "K1": "no single PyTorch call: torch.cdist(p=1) would first need the "
+          "289 candidate patches of every MB unfolded, and that is the work",
+    "K2": "no PyTorch call encodes CAVLC",
+    "K3": "no PyTorch call concatenates variable-length bit strings",
+}
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least ms to move `nbytes` through device memory (each input read
+    once, each output written once); every kernel here is bound by bytes:
+    its arithmetic is small integer work, far under the card's peaks."""
+    return nbytes / HBM_BPS * 1e3
+
+
+def kernel_row(key, name, source, replaces, err, ms, plain_ms, nbytes):
+    return dict(name=f"{key} {name}", route="cuda", source=source,
+                replaces=replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+                bound_by="bytes", library_ms=None, key=key)
+
+
+def show(r, where):
+    print(f"phase 2: {r['name']}: equal to plain (max_abs_err "
+          f"{r['max_abs_err']}); kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}): {100 * r['bound_ms'] / r['ms']:.1f}% of the "
+          f"bound, {where}; library call: none ({NO_LIBRARY[r['key']]})")
+
+
+def k1_bytes(s, h, w) -> int:
+    """The even source samples, the G plane and the table, int32."""
+    return 4 * s * ((h // 2) * (w // 2) + (h + 26) * (w + 26)
+                    + (h // 16) * (w // 16) * 289)
+
+
+def k2_bytes(n, nh, n_w) -> int:
+    """levels, nc / maxc / code_residual, nh header slots (len + value)
+    in; n_w words + the bit length out; int32."""
+    return 4 * n * (16 + 3 + 2 * nh + n_w + 1)
+
+
 def k23_rows(sym, torch):
     """K2 and K3 against their plain versions on the P symbols `sym`
     (rows for the kernel table)."""
@@ -140,15 +193,15 @@ def k23_rows(sym, torch):
     torch.cuda.synchronize()
     if not (torch.equal(kb, pb) and torch.equal(kw, pw)):
         fail("K2 pack_blocks differs from its plain version")
-    k2 = dict(
-        name="K2 pack_blocks (CAVLC block symbolise + pack)", route="cuda",
-        source="tpuh264_torch/csrc/cavlc_pack.cu",
-        replaces="tpuh264/kernels/cavlc_pallas.py:114",
-        max_abs_err=max(max_abs_err(kw, pw), max_abs_err(kb, pb)),
-        ms=timed(lambda: cavlc_cuda.pack_blocks(*args, 20, 6,
-                                                code_residual=code_res), 10),
-        plain_ms=timed(lambda: cavlc_cuda._pack_blocks_plain(
-            *args, 20, code_res), 2))
+    k2 = kernel_row(
+        "K2", "pack_blocks (CAVLC block symbolise + pack)",
+        "tpuh264_torch/csrc/cavlc_pack.cu",
+        "tpuh264/kernels/cavlc_pallas.py:114",
+        max(max_abs_err(kw, pw), max_abs_err(kb, pb)),
+        timed(lambda: cavlc_cuda.pack_blocks(*args, 20, 6,
+                                             code_residual=code_res), 20),
+        timed(lambda: cavlc_cuda._pack_blocks_plain(*args, 20, code_res), 2),
+        k2_bytes(kb.numel(), 6, 20))
     del pw, pb, args
     cb = torch.where(present, kb, 0).contiguous()
     cw = torch.where(present[..., None], kw, 0).contiguous()
@@ -157,19 +210,106 @@ def k23_rows(sym, torch):
     torch.cuda.synchronize()
     if not (torch.equal(kbits, pbits) and torch.equal(ko, po)):
         fail("K3 merge_tree differs from its plain version")
-    k3 = dict(
-        name="K3 merge_tree (chunk -> MB bit-string merge)", route="cuda",
-        source="tpuh264_torch/csrc/cavlc_merge.cu",
-        replaces="tpuh264/kernels/cavlc_pallas.py:486",
-        max_abs_err=max(max_abs_err(ko, po), max_abs_err(kbits, pbits)),
-        ms=timed(lambda: cavlc_cuda.merge_tree(cw, cb, 128), 10),
-        plain_ms=timed(lambda: cavlc_cuda.tree_merge(cw, cb, 128), 3))
+    # the bit lengths, the words the strings use, and the merged strings
+    used = int(((cb.long() + 31) // 32).clamp(max=cw.shape[-1]).sum())
+    k3 = kernel_row(
+        "K3", "merge_tree (chunk -> MB bit-string merge)",
+        "tpuh264_torch/csrc/cavlc_merge.cu",
+        "tpuh264/kernels/cavlc_pallas.py:486",
+        max(max_abs_err(ko, po), max_abs_err(kbits, pbits)),
+        timed(lambda: cavlc_cuda.merge_tree(cw, cb, 128), 20),
+        timed(lambda: cavlc_cuda.tree_merge(cw, cb, 128), 3),
+        4 * (cb.numel() + used + kbits.numel() * (128 + 1)))
     return [k2, k3]
 
 
+def k1_edges(dev, torch, np):
+    """K1 on seeded edge cases: samples only 0 and 255, the maximum SAD
+    (16,320 everywhere), ragged tiles (864 and 80 wide), S = 1 and 4."""
+    from tpuh264_torch.kernels import me_cuda, pframe
+
+    rng = np.random.default_rng(11)
+    for s, h, w, kind in ((4, 1088, 1920, "0/255"), (1, 480, 864, "0/255"),
+                          (1, 480, 864, "uniform"), (4, 48, 80, "max"),
+                          (1, 48, 80, "0/255")):
+        if kind == "max":
+            y = np.full((s, h, w), 255, np.int32)
+            ref = np.zeros((s, h, w), np.int32)
+        elif kind == "0/255":
+            y, ref = (rng.integers(0, 2, (2, s, h, w)) * 255).astype(np.int32)
+        else:
+            y, ref = rng.integers(0, 256, (2, s, h, w)).astype(np.int32)
+        yd = torch.from_numpy(y).to(dev)
+        g = pframe.build_halfpel_planes(torch.from_numpy(ref).to(dev))[0]
+        k = me_cuda.sad_field(yd, g)
+        p = me_cuda._sad_field(yd[:, ::2, ::2], g, h, w)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            fail(f"K1 differs from plain on {kind} samples, S={s}, {w}x{h}")
+        if kind == "max" and not (k == 16320).all():
+            fail("K1: the maximum SAD is not 16,320 everywhere")
+        print(f"phase 2: K1 edge case S={s} {w}x{h} ({w // 16} MB columns), "
+              f"{kind} samples: equal to plain, SAD range "
+              f"{int(k.min())}..{int(k.max())}")
+
+
+def k2_case(rng, np, n, nh):
+    """Seeded K2 inputs: a quarter each of sparse small levels, 16 nonzero
+    coefficients up to escape size, one or two escape-size levels, and
+    all-zero blocks; maxc 16 / 15 / 4 (chroma DC: nc -1); 30% of rows
+    with code_residual 0; header slots of 0..32 bits."""
+    kind = rng.integers(0, 4, n)
+    maxc = rng.choice(np.array([16, 15, 4], np.int32), n)
+    maxc[kind == 1] = 16
+    sign = rng.choice(np.array([-1, 1]), (n, 16))
+    lv = rng.integers(-3, 4, (n, 16))
+    lv[rng.random((n, 16)) < 0.6] = 0
+    big = sign * rng.integers(1, 30001, (n, 16))
+    lv[kind == 1] = big[kind == 1]
+    esc = (kind == 2)[:, None] & (rng.random((n, 16)) < 0.12)
+    lv[kind == 2] = 0
+    lv[esc] = big[esc]
+    lv[kind == 3] = 0
+    lv[np.arange(16)[None, :] >= maxc[:, None]] = 0
+    nc = rng.integers(0, 17, n).astype(np.int32)
+    nc[maxc == 4] = -1
+    cr = (rng.random(n) >= 0.3).astype(np.int32)
+    hl = rng.integers(0, 33, (n, nh))
+    hv = rng.integers(0, 1 << 32, (n, nh), dtype=np.uint64)
+    hv &= np.where(hl > 0, (np.uint64(1) << hl.astype(np.uint64))
+                   - np.uint64(1), np.uint64(0xFFFFFFFF))
+    return (lv.astype(np.int32), nc, maxc.astype(np.int32), cr,
+            hl.astype(np.int32), hv.astype(np.uint32).view(np.int32))
+
+
+def k2_edges(dev, torch, np):
+    """K2 on seeded edge cases: nh 0..8 x n_w 1, 6, 20, 32 (truncating)."""
+    from tpuh264_torch.kernels import cavlc_cuda
+
+    rng = np.random.default_rng(12)
+    n = 4096 + 77  # a ragged last block
+    trunc = 0
+    for nh in range(9):
+        for n_w in (1, 6, 20, 32):
+            lv, nc, mc, cr, hl, hv = [torch.from_numpy(a).to(dev)
+                                      for a in k2_case(rng, np, n, nh)]
+            kw, kb = cavlc_cuda.pack_blocks(lv, nc, mc, hl, hv, n_w, nh,
+                                            code_residual=cr)
+            pw, pb = cavlc_cuda._pack_blocks_plain(lv, nc, mc, hl, hv, n_w,
+                                                   cr)
+            torch.cuda.synchronize()
+            if not (torch.equal(kb, pb) and torch.equal(kw, pw)):
+                fail(f"K2 differs from plain on edge cases nh={nh} "
+                     f"n_w={n_w}")
+            trunc += int((kb > 32 * n_w).sum())
+    print(f"phase 2: K2 edge cases nh 0..8 x n_w 1/6/20/32, {n} rows each "
+          f"(escape levels, 16 nonzeros, chroma DC, code_residual 0): equal "
+          f"to plain; {trunc} rows truncated at n_w words")
+
+
 def phase_kernels(dev, torch, np):
-    """Phase 2: K1/K2/K3 against their plain versions at 1080p x 4, and
-    K2/K3 on intra-in-P symbols at 480p x 8."""
+    """Phase 2: K1/K2/K3 against their plain versions at 1080p x 4 and on
+    edge cases, and K2/K3 on intra-in-P symbols at 480p x 8."""
     from tpuh264_torch.engine.sources import device_source_gop
     from tpuh264_torch.kernels import me_cuda, pframe
 
@@ -184,14 +324,15 @@ def phase_kernels(dev, torch, np):
     torch.cuda.synchronize()
     if k1.shape != (s, h // 16, w // 16, 289) or not torch.equal(k1, p1):
         fail("K1 sad_field differs from its plain version")
-    rows.append(dict(
-        name="K1 sad_field (stage-A motion search)", route="cuda",
-        source="tpuh264_torch/csrc/me_sad.cu",
-        replaces="tpuh264/kernels/me_pallas.py:53",
-        max_abs_err=max_abs_err(k1, p1),
-        ms=timed(lambda: me_cuda.sad_field(y1, gplane), 20),
-        plain_ms=timed(lambda: me_cuda._sad_field(y1[:, ::2, ::2], gplane,
-                                                  h, w), 3)))
+    rows.append(kernel_row(
+        "K1", "sad_field (stage-A motion search)",
+        "tpuh264_torch/csrc/me_sad.cu", "tpuh264/kernels/me_pallas.py:53",
+        max_abs_err(k1, p1),
+        timed(lambda: me_cuda.sad_field(y1, gplane), 50),
+        timed(lambda: me_cuda._sad_field(y1[:, ::2, ::2], gplane, h, w), 3),
+        k1_bytes(s, h, w)))
+    del k1, p1
+    k1_edges(dev, torch, np)
     # first-index ties of the winner selection, on the card vs the CPU
     rng = np.random.default_rng(3)
     tied = torch.from_numpy(
@@ -211,10 +352,9 @@ def phase_kernels(dev, torch, np):
                                for f in sym])
     rows += k23_rows(sym4, torch)
     for r in rows:
-        print(f"phase 2: {r['name']}: equal to plain (max_abs_err "
-              f"{r['max_abs_err']}); kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms at 1080p x 4 shapes")
-    del sym, sym4, k1, p1
+        show(r, "1080p x 4 shapes")
+    del sym, sym4
+    k2_edges(dev, torch, np)
 
     # intra-in-P P symbols at 854x480 x 8: a band copied from the
     # reference (skips), the moving field (inter) and a flat patch no
@@ -235,19 +375,18 @@ def phase_kernels(dev, torch, np):
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
     for r in k23_rows(sym4, torch):
-        print(f"phase 2: {r['name']}: equal to plain (max_abs_err "
-              f"{r['max_abs_err']}); kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms on intra-in-P P symbols at 854x480 x "
-              f"8 x 4 frames (MB kinds skip/inter/intra {kinds} per frame)")
+        show(r, f"intra-in-P P symbols at 854x480 x 8 x 4 frames (MB kinds "
+                f"skip/inter/intra {kinds} per frame)")
     return rows
 
 
-def phase_small(dev, torch, np):
-    """Phase 3: at 64x48 x 2 the GPU emits the CPU's bytes on every path;
-    the intra-in-P cases on "noise" code intra MBs in their P frames."""
-    from tpuh264.golden import codec as gcodec
-    from tpuh264_torch.engine import CodecConfig
-    from tpuh264_torch.engine.devpipe import DevicePipeline, GOPDevicePipeline
+def small_cases():
+    """Phase 3's cases: (name, CodecConfig arguments over 64x48 x 2,
+    GOPDevicePipeline arguments over gop 8 / "noise", driver or None for 3
+    pump_frame()s, intra MBs required in the P frames).  The CPU tests
+    decode the CPU's bytes of each in the JAX package's golden decoder."""
+    import numpy as np
+
     from tpuh264_torch.engine.sources import clip_frames
 
     clips = [clip_frames(60, 44, 12, "meeting", seed=si) for si in range(2)]
@@ -263,8 +402,7 @@ def phase_small(dev, torch, np):
             if d == 0:
                 p.drop_frames(3)
 
-    # (name, config, pipeline arguments, driver, intra MBs required)
-    cases = [
+    return [
         ("RTC preset, QP 28", dict(qp=28, intra_in_p=False), {}, None, False),
         ("intra-in-P, QP 28", dict(qp=28), {}, None, True),
         ("2 references, CBR", dict(qp=None, bitrate=200_000,
@@ -273,26 +411,46 @@ def phase_small(dev, torch, np):
          dict(width=60, height=44, qp=None, bitrate=150_000),
          dict(source_kind="host", fanout=2), host_drive, False),
     ]
+
+
+def small_pipe(kw, pkw, device):
+    """One phase-3 case's GOPDevicePipeline on `device`, before driving."""
+    from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.engine.devpipe import GOPDevicePipeline
+
+    cfg = dict(dict(width=64, height=48, streams=2), **kw)
+    return GOPDevicePipeline(CodecConfig(**cfg), gop_size=8,
+                             **dict(dict(source_kind="noise"), **pkw),
+                             device=device)
+
+
+def drive_small(p, drive):
+    if drive is None:
+        for _ in range(3):
+            p.pump_frame()
+    else:
+        drive(p)
+
+
+def phase_small(dev, torch, np):
+    """Phase 3: at 64x48 x 2 the GPU emits the CPU's bytes on every path;
+    the intra-in-P cases on "noise" code intra MBs in their P frames."""
+    from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.engine.devpipe import DevicePipeline
+
+    cases = small_cases()
     for name, kw, pkw, drive, need_intra in cases:
-        cfg = dict(dict(width=64, height=48, streams=2), **kw)
         pipes = []
         for d in (dev, "cpu"):
-            p = GOPDevicePipeline(CodecConfig(**cfg), gop_size=8,
-                                  **dict(dict(source_kind="noise"), **pkw),
-                                  device=d)
+            p = small_pipe(kw, pkw, d)
             if d == dev:
                 spy = SymbolSpy(p, torch)
-            if drive is None:
-                for _ in range(3):
-                    p.pump_frame()
-            else:
-                drive(p)
+            drive_small(p, drive)
             pipes.append(p)
         gpu, cpu = pipes
         kinds, _ = spy.shares()
         if need_intra and kinds[2] == 0:
             fail(f"64x48 {name}: no intra MB in the P frames: {kinds}")
-        hh, ww = cfg["height"], cfg["width"]
         dec = gpu.decoded_planes()
         for a, b in zip(dec, cpu.decoded_planes()):
             if not np.array_equal(a, b):
@@ -300,17 +458,11 @@ def phase_small(dev, torch, np):
         for si in range(2):
             if gpu.stream_bytes(si) != cpu.stream_bytes(si):
                 fail(f"64x48 {name}: GPU bytes differ from CPU bytes ({si})")
-            frames = gcodec.decode_annexb_seq(gpu.stream_bytes(si))
-            shapes = ((hh, ww), (hh // 2, ww // 2), (hh // 2, ww // 2))
-            if len(frames) != 12 or not all(
-                    np.array_equal(frames[-1][p], dec[p][si * gpu.fanout]
-                                   [:shapes[p][0], :shapes[p][1]])
-                    for p in range(3)):
-                fail(f"64x48 {name}: golden decode differs from the GPU "
-                     f"decoder DPB ({si})")
+        # (the CPU tests decode these same CPU bytes in the JAX package's
+        # golden decoder: tests/test_torch_smoke_cases.py)
         print(f"phase 3: 64x48 x 2, {name}, 3 dispatches: GPU bytes == CPU "
               f"bytes ({sum(len(gpu.stream_bytes(i)) for i in range(2))} B), "
-              f"golden decode == GPU decoder DPB "
+              f"GPU decoder DPB == CPU decoder DPB "
               f"({dec[0].shape[0]} decode streams); P-frame MB kinds "
               f"skip/inter/intra {kinds}")
     pipes = []
@@ -539,12 +691,39 @@ def phase_ingest_fanout(dev, torch, np, card, launches):
           f"{copy_ms}; time_offset {pipe.time_offset} [{card}]")
 
 
-def phase_device_pipeline(dev, np, card, launches):
+def decode_i_bytes(stream, pipe, torch):
+    """The port's own decode of one annex-B IDR access unit: its native
+    CAVLC parse, then the I reconstruction scan (uint8 planes, MB grid)."""
+    import numpy as np
+
+    from tpuh264_torch.entropy import native
+    from tpuh264_torch.kernels import iframe
+
+    r, c = pipe.h16 // 16, pipe.w16 // 16
+    qp, mb_pos, mb_fields, cpos, cval = native.parse_dispatch_compact(
+        [stream], c, r, pipe.sps, pipe.pps)
+    mbf = np.zeros((r * c, 9), np.int32)
+    mbf[mb_pos] = mb_fields
+    coef = np.zeros(r * c * native.MB_SLOTS, np.int16)
+    coef[cpos] = cval
+    dev = pipe.device
+    m = torch.from_numpy(mbf.reshape(1, r, c, 9)).to(dev)
+    cf = torch.from_numpy(coef.reshape(1, r, c, -1)).to(dev)
+    sym = iframe.MBSymbols(
+        mode=m[..., 1], cmode=m[..., 2], cbp_luma=m[..., 3],
+        cbp_chroma=m[..., 4], luma_dc=cf[..., :16],
+        luma_ac=cf[..., 16:272].reshape(1, r, c, 16, 16),
+        chroma_dc=cf[..., 272:280].reshape(1, r, c, 2, 4),
+        chroma_ac=cf[..., 280:400].reshape(1, r, c, 2, 4, 15))
+    return qp, iframe.decode_iframe_scan(sym, qp)
+
+
+def phase_device_pipeline(dev, torch, np, card, launches):
     """Phase 9: the I-only DevicePipeline, 854x480, decoded 8x."""
-    from tpuh264.golden import codec as gcodec
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import DevicePipeline
     from tpuh264_torch.engine.sources import device_source_frames
+    from tpuh264_torch.kernels import iframe
 
     pipe = DevicePipeline(CodecConfig(width=854, height=480, qp=30,
                                       streams=8), device=dev)
@@ -556,19 +735,28 @@ def phase_device_pipeline(dev, np, card, launches):
     launches.path("DevicePipeline 480p x 8", drive, needs=(1, 2))
     if pipe.fallback_packs:
         fail("DevicePipeline: host repack")
-    # the golden decoder's decode of frame 0's bytes, against its source
-    # (cropped to 854x480; the device decode's PSNR is over the MB grid)
-    y = device_source_frames(pipe.w16, pipe.h16, 1, "moving_gradient",
-                             pipe.frame_index - 4, dev)[0][0].cpu().numpy()
-    g = gcodec.decode_annexb(pipe.frame_streams[0])[0].astype(np.float64)
-    psnr_g = 10 * np.log10(255.0 ** 2 / ((g - y[:480, :854]) ** 2).mean())
-    for p in (pipe.last_psnr_y, psnr_g):
+    # the port's own decode of frame 0's bytes (native parse + I scan):
+    # equal to the encoder's reconstruction of that frame, and against its
+    # source (cropped to 854x480; the device decode's PSNR is over the MB
+    # grid)
+    src = device_source_frames(pipe.w16, pipe.h16, 1, "moving_gradient",
+                               pipe.frame_index - 4, dev)
+    qp, dec = decode_i_bytes(pipe.frame_streams[0], pipe, torch)
+    _, rec = iframe.encode_iframe_rows(*src, 30)
+    if qp != 30 or not all(torch.equal(a.to(torch.uint8), b)
+                           for a, b in zip(rec, dec)):
+        fail("DevicePipeline: the decode of the bytes differs from the "
+             "encoder's reconstruction")
+    d = (dec[0][0, :480, :854].double() - src[0][0, :480, :854].double())
+    psnr_b = float(10 * torch.log10(255.0 ** 2 / (d * d).mean()))
+    for p in (pipe.last_psnr_y, psnr_b):
         if not np.isfinite(p) or p < 30:
             fail(f"DevicePipeline: implausible PSNR {p}")
     print(f"phase 9: DevicePipeline 854x480, QP 30, decoded 8x from device "
           f"symbols: 2 dispatches, device-decode PSNR "
-          f"{pipe.last_psnr_y:.2f} dB (coded {pipe.w16}x{pipe.h16}), golden "
-          f"decode of the bytes {psnr_g:.2f} dB (cropped 854x480); "
+          f"{pipe.last_psnr_y:.2f} dB (coded {pipe.w16}x{pipe.h16}); the "
+          f"port's decode of frame 0's bytes (native parse + I scan) == the "
+          f"encoder's reconstruction, {psnr_b:.2f} dB (cropped 854x480); "
           f"{sum(map(len, pipe.frame_streams))} B per dispatch [{card}]")
 
 
@@ -633,12 +821,16 @@ def main() -> None:
     card = card_line()
     print(card)
 
+    from tpuh264_torch.entropy import native
     from tpuh264_torch.kernels import cuda_lib
 
     t0 = time.perf_counter()
     cuda_lib.load()
+    t1 = time.perf_counter()
+    native.load()
     print(f"phase 1: kernels built in {cuda_lib.build_seconds:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s) with nvcc for sm_90a")
+          f"(load {t1 - t0:.1f} s) with nvcc for sm_90a; host CAVLC engine "
+          f"built and loaded in {time.perf_counter() - t1:.1f} s with g++")
 
     rows = phase_kernels(dev, torch, np)
     phase_small(dev, torch, np)
@@ -649,23 +841,25 @@ def main() -> None:
     phase_intra_in_p(dev, torch, np, card, launches)
     phase_multiref(dev, torch, np, card, launches)
     phase_ingest_fanout(dev, torch, np, card, launches)
-    phase_device_pipeline(dev, np, card, launches)
+    phase_device_pipeline(dev, torch, np, card, launches)
     phase_app(dev, card, launches)
 
     for r, n in zip(rows, launches.total):
         r["launches"] = n
     print(f"launches summed over the driven paths: K1 {launches.total[0]}, "
           f"K2 {launches.total[1]}, K3 {launches.total[2]}")
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        fail("JAX was imported")
+    banned = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "tpuh264"))
+    if banned:
+        fail(f"JAX or the JAX package was imported: {banned[:8]}")
     print(f"chip_smoke: total wall {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")} for r in rows]}))
-    # the run used one card, whatever the machine holds
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -106,6 +106,69 @@ def test_cavlc_kernels_match_plain_on_card(dev, n_w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,h,w,kind", [
+    (4, 1088, 1920, "0/255"), (1, 480, 864, "0/255"), (1, 480, 864, "uniform"),
+    (4, 48, 80, "max"), (1, 48, 80, "0/255")])
+def test_sad_field_edge_cases_on_card(dev, s, h, w, kind):
+    """Samples only 0 and 255, the maximum SAD (16,320 everywhere), ragged
+    tiles (54 and 5 MB columns), S = 1 and 4 (chip_smoke phase 2)."""
+    rng = np.random.default_rng(h * w + s)
+    if kind == "max":
+        y = np.full((s, h, w), 255, np.int32)
+        ref = np.zeros((s, h, w), np.int32)
+    elif kind == "0/255":
+        y, ref = (rng.integers(0, 2, (2, s, h, w)) * 255).astype(np.int32)
+    else:
+        y, ref = rng.integers(0, 256, (2, s, h, w)).astype(np.int32)
+    yd = torch.from_numpy(y).to(dev)
+    g = TP.build_halfpel_planes(torch.from_numpy(ref).to(dev))[0]
+    got = me_cuda.sad_field(yd, g)
+    plain = me_cuda._sad_field(yd[:, ::2, ::2], g, h, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    if kind == "max":
+        assert bool((got == 16320).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh", range(9))
+def test_pack_blocks_edge_cases_on_card(dev, nh):
+    """Escape-size levels, 16 nonzeros, chroma DC, code_residual 0, header
+    slots of 0..32 bits, n_w 1 / 6 / 20 / 32 (truncating), a ragged last
+    block (chip_smoke phase 2's generator)."""
+    from chip_smoke import k2_case
+
+    rng = np.random.default_rng(100 + nh)
+    for n_w in (1, 6, 20, 32):
+        lv, nc, mc, cr, hl, hv = [torch.from_numpy(a).to(dev)
+                                  for a in k2_case(rng, np, 4096 + 77, nh)]
+        kw, kb = cavlc_cuda.pack_blocks(lv, nc, mc, hl, hv, n_w, nh,
+                                        code_residual=cr)
+        pw, pb = cavlc_cuda._pack_blocks_plain(lv, nc, mc, hl, hv, n_w, cr)
+        torch.cuda.synchronize()
+        assert torch.equal(kb, pb) and torch.equal(kw, pw), n_w
+
+
+def test_pack_blocks_edge_inputs_on_cpu():
+    """The edge-case generator covers what it claims, and the plain
+    version packs it (the CPU side of the card test above)."""
+    from chip_smoke import k2_case
+
+    rng = np.random.default_rng(7)
+    lv, nc, mc, cr, hl, hv = k2_case(rng, np, 4096 + 77, 8)
+    nz = (lv != 0).sum(-1)
+    assert (nz == 16).any() and (nz == 0).any()
+    assert np.abs(lv).max() > 20000          # escape-size levels
+    assert ((mc == 4) & (nc == -1)).any() and (nc[mc == 4] == -1).all()
+    assert (cr == 0).any() and (hl == 32).any() and (hl == 0).any()
+    assert (lv[:, 4:][mc == 4] == 0).all()
+    args = [torch.from_numpy(a) for a in (lv, nc, mc, hl, hv)]
+    w, b = cavlc_cuda.pack_blocks(*args, 6, 8,
+                                  code_residual=torch.from_numpy(cr))
+    assert w.shape == (4096 + 77, 6) and bool((b > 32 * 6).any())
+
+
+@pytest.mark.cuda
 def test_wrappers_check_inputs_on_card(dev):
     y = torch.zeros((1, 32, 32), dtype=torch.int32, device=dev)
     g = torch.zeros((1, 58, 58), dtype=torch.int32, device=dev)
@@ -121,6 +184,10 @@ def test_wrappers_check_inputs_on_card(dev):
         cavlc_cuda.merge_tree(words, bits.cpu(), 8)
     with pytest.raises(RuntimeError):  # past the kernel's output buffer
         cavlc_cuda.merge_tree(words, bits, 1024)
+    z = lambda *sh: torch.zeros(sh, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # levels not 16-byte aligned
+        cavlc_cuda.pack_blocks(z(9 * 16)[1:129].reshape(8, 16), z(8), z(8),
+                               z(8, 2), z(8, 2), 20, 2)
 
 
 def test_wrappers_raise_off_cpu_without_fallback():

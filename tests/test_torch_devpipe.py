@@ -140,6 +140,9 @@ def test_port_imports_no_jax():
         "import tpuh264_torch.engine.sources\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
         "if m.startswith('jax'))\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m == 'tpuh264' or m.startswith('tpuh264.'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ)

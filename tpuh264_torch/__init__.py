@@ -7,8 +7,10 @@ package writes in Pallas are CUDA C++ for sm_90a under `csrc/`, each
 with a plain PyTorch version beside its wrapper (`kernels/me_cuda.py`,
 `kernels/cavlc_cuda.py`).
 
-JAX-free shared layers are imported from `tpuh264` as they stand:
-`tpuh264.core`, `tpuh264.golden`, `tpuh264.conformance` and the host
-entropy coders (`tpuh264.entropy.{native,pack,packp,cavlc,cavlc_tables}`).
-Nothing here imports `jax`.
+The port imports nothing of `tpuh264` and nothing of `jax`.  What it
+needs of the JAX package's JAX-free layers it holds as copies, each
+naming its original: `core/` (bitstream, NAL, SPS/PPS, slice headers),
+`entropy/cavlc_tables.py`, the constants of `golden/` that the kernels
+read, and the host CAVLC engine (`native/cavlc.cpp`, bound by
+`entropy/native.py` and built with g++ into `build/` at first use).
 """

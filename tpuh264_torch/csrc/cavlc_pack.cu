@@ -1,28 +1,42 @@
-// K2: fused CAVLC symbolise + pack of one 4x4 residual block per thread.
+// K2: fused CAVLC symbolise + pack of 4x4 residual blocks.
 //
 // Replaces: tpuh264/kernels/cavlc_pallas.py `_cavlc_kernel` (pallas_call
 // at cavlc_pallas.py:425 in `_pack_blocks_dev`, entry `pack_blocks`
 // :329).  Plain version: `cavlc_cuda.block_slots` + `pack_slots`.
 //
-// What it computes, per block: up to `nh` MB-header slots, then (unless
-// code_residual is 0) coeff_token, trailing-one signs, the level
+// What it computes, per block (row): up to `nh` MB-header slots, then
+// (unless code_residual is 0) coeff_token, trailing-one signs, the level
 // prefix/suffix chain with escapes, total_zeros (chroma DC included)
 // and run_before (H.264 9.2), written MSB-first into n_w 32-bit words
 // plus the total bit length.  Bits past n_w words are dropped (the
 // caller's overflow flags route such dispatches to the host packer).
 //
-// What bounds it on the H100: the per-lane level chain is sequential
-// (the suffix length carries across the 16 positions) and branchy, so
-// it is latency- and divergence-bound, not bandwidth-bound: at 1080p x 4
-// a P dispatch is ~3.5 M blocks, ~100 B read and ~84 B written each.
+// What bounds it on the H100: device memory.  A row reads 64 B of levels,
+// 12 B of nc / maxc / code_residual and 8 * nh B of header slots and
+// writes 4 * (n_w + 1) B: at the 1080p x 4 P dispatch (3.5 M rows, nh 6,
+// n_w 20) 733 MB, ~219 us at 3.35 TB/s.  The VLC work is small per row
+// but sequential and branchy, and most rows of a P dispatch are empty.
 //
-// Design: one thread per block, the whole VLC pipeline in registers and
-// a 32-word local bit buffer; the emission arithmetic (shift clips at 0
-// and 31, two-word spill) is the plain version's exactly, so the words
-// are identical in every case.  The VLC tables are __constant__ arrays
-// generated from tpuh264.entropy.cavlc_tables at build time
-// (cavlc_tables.cuh), indexed directly -- the Pallas kernel's one-hot
-// select chains were a TPU workaround.
+// Design: one block of 128 threads per 128 consecutive rows.
+//  1. The block's contiguous inputs are staged in shared memory with
+//     coalesced loads (levels as 16-byte vectors into rows padded to 20
+//     words, so a thread's 4 vector reads of its row are conflict-free).
+//  2. Thread t emits row t's header slots, derives the row's nonzero
+//     mask, and finishes the rows that need no level chain (no residual,
+//     or an all-zero block: one coeff_token).  Rows with coefficients go
+//     on a block-local work list (warp ballot, one shared atomic a warp).
+//  3. The threads take the work list densely, so the level chain runs in
+//     full warps, and walk only the nonzero positions (a bit mask, clz):
+//     a warp's loop count is its largest total_coeff, not 16.
+//  4. Strings are assembled in a zeroed shared tile (row stride n_w | 1,
+//     odd: conflict-free), never in per-thread arrays, and the block's
+//     contiguous [rows, n_w] output and bit lengths leave coalesced.
+// The emission arithmetic is the plain version's exactly (shift clips at
+// [0, 31] and [1, 31], zero-length slots ignored, the long prefix's zero
+// high part skipped, truncation at n_w words with the bit length still
+// counting every bit), so the words are identical in every case.  The
+// VLC tables are __constant__ arrays generated from the port's
+// entropy/cavlc_tables.py at build time (cavlc_tables.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,21 +45,23 @@
 
 namespace {
 
-constexpr int kMaxW = 32;
+constexpr int kRowsPB = 128;  // rows (and threads) per block
+constexpr int kLvW = 20;      // shared words per levels row (16 used)
 
 __device__ __forceinline__ int clip(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// MSB-first writer into one row of the shared tile (zeroed beforehand)
 struct BitOut {
-  uint32_t w[kMaxW];
+  uint32_t* w;
   int n_w;
-  int64_t off;
+  int off;
 
   __device__ void put(uint32_t val, int len) {
     if (len <= 0) return;  // dead slot: value ignored
-    const int end = (int)(off & 31) + len;
-    const int64_t h0 = off >> 5;
+    const int end = (off & 31) + len;
+    const int h0 = off >> 5;
     const uint32_t c_hi = end <= 32 ? val << clip(32 - end, 0, 31)
                                     : val >> clip(end - 32, 0, 31);
     const uint32_t c_lo = end > 32 ? val << clip(64 - end, 1, 31) : 0u;
@@ -58,122 +74,203 @@ struct BitOut {
   }
 };
 
-__global__ void pack_blocks_kernel(
+__device__ __forceinline__ int ct_ctx(int nc) {
+  return nc < 0 ? 4 : nc < 2 ? 0 : nc < 4 ? 1 : nc < 8 ? 2 : 3;
+}
+
+// coeff_token .. run_before of one block with total_coeff > 0
+__device__ void pack_levels(BitOut& o, const int32_t* lv, uint32_t nz,
+                            uint32_t big, int nc, int maxc) {
+  const int total = __popc(nz);
+  const int last_big = big ? 31 - __clz(big) : -1;
+  const int t1 = min(3, __popc(last_big >= 0 ? nz >> (last_big + 1) : nz));
+  const int tok = kCT[(ct_ctx(nc) * 17 + total) * 4 + t1];
+  o.put((uint32_t)(tok & 0xFFFF), tok >> 16);
+
+  // level chain over the nonzeros, descending: the suffix length carries
+  int sl = (total > 10 && t1 < 3) ? 1 : 0;
+  int above = 0;  // nonzeros at higher positions
+  for (uint32_t m = nz; m; ++above) {
+    const int j = 31 - __clz(m);
+    m ^= 1u << j;
+    const int l = lv[j];
+    if (j > last_big && above < t1) {
+      o.put(l < 0 ? 1u : 0u, 1);  // trailing-one sign
+      continue;
+    }
+    const int a = abs(l);
+    int lc = 2 * a - 2 + (l < 0);
+    if (above == t1 && t1 < 3) lc -= 2;
+    lc = max(lc, 0);
+    const int base0 = sl == 0 ? 30 : (15 << sl);
+    const bool small0 = sl == 0 && lc < 14;
+    const bool mid0 = sl == 0 && lc >= 14 && lc < 30;
+    const bool smallp = sl > 0 && lc < (15 << sl);
+    const int rem0 = max(lc - base0, 0);
+    const int p = max(15, 3 + (31 - __clz(rem0 + 4096)));
+    const int plen = small0 ? lc + 1
+                     : mid0 ? 15
+                     : smallp ? (lc >> sl) + 1
+                              : p + 1;
+    const int sufl = small0 ? 0 : mid0 ? 4 : smallp ? sl : p - 3;
+    const int sufv =
+        small0 ? 0
+        : mid0 ? lc - 14
+        : smallp ? (lc & ((1 << sl) - 1))
+                 : rem0 - ((int)(1u << (p - 3)) - 4096);
+    const int zhi = max(plen - 16, 0);
+    o.skip(zhi);  // the all-zero high part of a long prefix
+    o.put((1u << sufl) | (uint32_t)sufv, plen - zhi + sufl);
+    int new_sl = max(sl, 1);
+    if (a > (3 << (new_sl - 1)) && new_sl < 6) ++new_sl;
+    sl = new_sl;
+  }
+
+  if (total < maxc) {
+    const int tz = (31 - __clz(nz)) + 1 - total;
+    const int e = maxc == 4
+        ? kTZC[clip(total - 1, 0, 2) * 4 + clip(tz, 0, 3)]
+        : kTZ[clip(total - 1, 0, 14) * 16 + clip(tz, 0, 15)];
+    o.put((uint32_t)(e & 0xFFFF), e >> 16);
+  }
+
+  // run_before, nonzero positions 15..1 descending
+  above = 0;
+  for (uint32_t m = nz; m; ++above) {
+    const int j = 31 - __clz(m);
+    m ^= 1u << j;
+    const int zeros_below = j - (total - above - 1);
+    if (j >= 1 && above < total - 1 && zeros_below > 0) {
+      const int run = j - (m ? 31 - __clz(m) : -1) - 1;
+      const int e = kRB[(clip(zeros_below, 1, 7) - 1) * 15 + clip(run, 0, 14)];
+      o.put((uint32_t)(e & 0xFFFF), e >> 16);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kRowsPB) pack_blocks_kernel(
     const int32_t* __restrict__ levels, const int32_t* __restrict__ nc_a,
     const int32_t* __restrict__ maxc_a, const int32_t* __restrict__ cr_a,
     const int32_t* __restrict__ hl, const int32_t* __restrict__ hv,
     int32_t* __restrict__ words, int32_t* __restrict__ bitlen, int64_t n,
     int nh, int n_w) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  BitOut o;
-  o.n_w = n_w;
-  o.off = 0;
-  for (int k = 0; k < kMaxW; ++k) o.w[k] = 0u;
-  for (int k = 0; k < nh; ++k) o.put((uint32_t)hv[i * nh + k], hl[i * nh + k]);
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* s_lv = smem;                      // [kRowsPB][kLvW]
+  int32_t* s_nc = s_lv + kRowsPB * kLvW;     // [kRowsPB]
+  int32_t* s_mc = s_nc + kRowsPB;
+  int32_t* s_cr = s_mc + kRowsPB;
+  int32_t* s_off = s_cr + kRowsPB;           // bits written per row
+  int32_t* s_work = s_off + kRowsPB;         // rows with coefficients
+  int32_t* s_cnt = s_work + kRowsPB;         // [4]: work list length
+  uint32_t* s_out = reinterpret_cast<uint32_t*>(s_cnt + 4);  // [rows][ws]
+  int32_t* s_hl = reinterpret_cast<int32_t*>(s_out) + kRowsPB * (n_w | 1);
+  int32_t* s_hv = s_hl + kRowsPB * nh;
+  const int ws = n_w | 1;
 
-  if (cr_a[i] != 0) {
-    int lv[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) lv[j] = levels[i * 16 + j];
-    int total = 0, last_big = -1, idx_hi = -1;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (lv[j] != 0) {
-        ++total;
-        idx_hi = j;
-        if (abs(lv[j]) > 1) last_big = j;
-      }
-    }
-    int above[16];  // nonzeros at positions > j
-    int acc = 0;
-#pragma unroll
-    for (int j = 15; j >= 0; --j) {
-      above[j] = acc;
-      acc += lv[j] != 0;
-    }
-    int t1cnt = 0;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) t1cnt += (lv[j] != 0) && j > last_big;
-    const int t1 = min(3, t1cnt);
+  const int64_t row0 = (int64_t)blockIdx.x * kRowsPB;
+  const int rows = (int)min((int64_t)kRowsPB, n - row0);
+  const int t = threadIdx.x;
 
-    const int nc = nc_a[i];
-    const int ctx = nc < 0 ? 4 : nc < 2 ? 0 : nc < 4 ? 1 : nc < 8 ? 2 : 3;
-    const int tok = kCT[(ctx * 17 + total) * 4 + t1];
-    o.put((uint32_t)(tok & 0xFFFF), tok >> 16);
-
-    // level chain, descending positions: the suffix length carries
-    int sl = (total > 10 && t1 < 3) ? 1 : 0;
+  // 1. coalesced staging of the block's rows: every load is issued
+  // before the first shared store, so the block waits on memory once
+  const int4* lv4 = reinterpret_cast<const int4*>(levels + row0 * 16);
+  int4 lvv[4];
+  int32_t hlv[8], hvv[8];
 #pragma unroll
-    for (int j = 15; j >= 0; --j) {
-      const int l = lv[j];
-      if (l == 0) continue;
-      const bool is_t1 = j > last_big && above[j] < t1;
-      if (is_t1) {
-        o.put(l < 0 ? 1u : 0u, 1);  // trailing-one sign
-        continue;
-      }
-      const int a = abs(l);
-      const bool first = above[j] == t1;
-      int lc = 2 * a - 2 + (l < 0);
-      if (first && t1 < 3) lc -= 2;
-      lc = max(lc, 0);
-      const int base0 = sl == 0 ? 30 : (15 << sl);
-      const bool small0 = sl == 0 && lc < 14;
-      const bool mid0 = sl == 0 && lc >= 14 && lc < 30;
-      const bool smallp = sl > 0 && lc < (15 << sl);
-      const int rem0 = max(lc - base0, 0);
-      const int p = max(15, 3 + (31 - __clz(rem0 + 4096)));
-      const int plen = small0 ? lc + 1
-                       : mid0 ? 15
-                       : smallp ? (lc >> sl) + 1
-                                : p + 1;
-      const int sufl = small0 ? 0 : mid0 ? 4 : smallp ? sl : p - 3;
-      const int sufv =
-          small0 ? 0
-          : mid0 ? lc - 14
-          : smallp ? (lc & ((1 << sl) - 1))
-                   : rem0 - ((int)(1u << (p - 3)) - 4096);
-      const int zhi = max(plen - 16, 0);
-      o.skip(zhi);  // the all-zero high part of a long prefix
-      o.put((1u << sufl) | (uint32_t)sufv, plen - zhi + sufl);
-      int new_sl = max(sl, 1);
-      if (a > (3 << (new_sl - 1)) && new_sl < 6) ++new_sl;
-      sl = new_sl;
-    }
-
-    const int maxc = maxc_a[i];
-    if (total > 0 && total < maxc) {
-      const int tz = idx_hi + 1 - total;
-      const int e = maxc == 4
-          ? kTZC[clip(total - 1, 0, 2) * 4 + clip(tz, 0, 3)]
-          : kTZ[clip(total - 1, 0, 14) * 16 + clip(tz, 0, 15)];
-      o.put((uint32_t)(e & 0xFFFF), e >> 16);
-    }
-
-    // run_before, positions 15..1 descending
-    int pnb[16];  // previous nonzero strictly below j
-    int m = -1;
+  for (int k = 0; k < 4; ++k)
+    if (t + k * kRowsPB < rows * 4) lvv[k] = lv4[t + k * kRowsPB];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      pnb[j] = m;
-      if (lv[j] != 0) m = j;
-    }
-#pragma unroll
-    for (int j = 15; j >= 1; --j) {
-      if (lv[j] == 0) continue;
-      const int zeros_below = j - (total - above[j] - 1);
-      if (above[j] < total - 1 && zeros_below > 0) {
-        const int run = j - pnb[j] - 1;
-        const int e = kRB[(clip(zeros_below, 1, 7) - 1) * 15 + clip(run, 0, 14)];
-        o.put((uint32_t)(e & 0xFFFF), e >> 16);
-      }
+  for (int k = 0; k < 8; ++k) {
+    const int i = t + k * kRowsPB;
+    if (i < rows * nh) {
+      hlv[k] = hl[row0 * nh + i];
+      hvv[k] = hv[row0 * nh + i];
     }
   }
+  int32_t ncv = 0, mcv = 0, crv = 0;
+  if (t < rows) {
+    ncv = nc_a[row0 + t];
+    mcv = maxc_a[row0 + t];
+    crv = cr_a[row0 + t];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = t + k * kRowsPB;
+    if (i < rows * 4)
+      *reinterpret_cast<int4*>(s_lv + (i >> 2) * kLvW + 4 * (i & 3)) = lvv[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = t + k * kRowsPB;
+    if (i < rows * nh) {
+      s_hl[i] = hlv[k];
+      s_hv[i] = hvv[k];
+    }
+  }
+  s_nc[t] = ncv;
+  s_mc[t] = mcv;
+  s_cr[t] = crv;
+  for (int i = t; i < rows * ws; i += kRowsPB) s_out[i] = 0u;
+  if (t == 0) s_cnt[0] = 0;
+  __syncthreads();
 
-  int32_t* wo = words + i * n_w;
-  for (int k = 0; k < n_w; ++k) wo[k] = (int32_t)o.w[k];
-  bitlen[i] = (int32_t)o.off;
+  // 2. header slots, the nonzero mask, and the rows without a level chain
+  bool chain = false;
+  if (t < rows) {
+    BitOut o{s_out + t * ws, n_w, 0};
+    for (int k = 0; k < nh; ++k)
+      o.put((uint32_t)s_hv[t * nh + k], s_hl[t * nh + k]);
+    if (s_cr[t] != 0) {
+      uint32_t nz = 0u;
+      const int4* r4 = reinterpret_cast<const int4*>(s_lv + t * kLvW);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int4 v = r4[q];
+        nz |= (v.x != 0 ? 1u : 0u) << (4 * q);
+        nz |= (v.y != 0 ? 2u : 0u) << (4 * q);
+        nz |= (v.z != 0 ? 4u : 0u) << (4 * q);
+        nz |= (v.w != 0 ? 8u : 0u) << (4 * q);
+      }
+      if (nz == 0u) {  // coeff_token of an empty block
+        const int tok = kCT[ct_ctx(s_nc[t]) * 17 * 4];
+        o.put((uint32_t)(tok & 0xFFFF), tok >> 16);
+      }
+      chain = nz != 0u;
+    }
+    s_off[t] = o.off;
+  }
+  const unsigned vote = __ballot_sync(0xFFFFFFFFu, chain);
+  const int lane = t & 31;
+  int base = 0;
+  if (lane == 0 && vote) base = atomicAdd(s_cnt, __popc(vote));
+  base = __shfl_sync(0xFFFFFFFFu, base, 0);
+  if (chain) s_work[base + __popc(vote & ((1u << lane) - 1u))] = t;
+  __syncthreads();
+
+  // 3. the level chains, one work-list row per thread
+  if (t < s_cnt[0]) {
+    const int row = s_work[t];
+    const int32_t* lv = s_lv + row * kLvW;
+    uint32_t nz = 0u, big = 0u;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      nz |= (lv[j] != 0 ? 1u : 0u) << j;
+      big |= (abs(lv[j]) > 1 ? 1u : 0u) << j;
+    }
+    BitOut o{s_out + row * ws, n_w, s_off[row]};
+    pack_levels(o, lv, nz, big, s_nc[row], s_mc[row]);
+    s_off[row] = o.off;
+  }
+  __syncthreads();
+
+  // 4. coalesced write-back of the contiguous [rows, n_w] words
+  int32_t* wo = words + row0 * n_w;
+  const unsigned inv = ((1u << 20) + n_w - 1) / n_w;  // i / n_w, i < 2^14
+  for (int i = t; i < rows * n_w; i += kRowsPB) {
+    const int r = (int)(((unsigned)i * inv) >> 20);
+    wo[i] = (int32_t)s_out[r * ws + i - r * n_w];
+  }
+  if (t < rows) bitlen[row0 + t] = s_off[t];
 }
 
 }  // namespace
@@ -185,9 +282,11 @@ extern "C" int th264_pack_blocks(const int32_t* levels, const int32_t* nc,
                                  int32_t* bitlen, int64_t n, int nh, int n_w,
                                  void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const int64_t blocks = (n + threads - 1) / threads;
-  pack_blocks_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (n_w < 1 || n_w > 32 || nh < 0 || nh > 8) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(int32_t) * (kRowsPB * (kLvW + 5 + (n_w | 1) + 2 * nh) + 4);
+  const int64_t blocks = (n + kRowsPB - 1) / kRowsPB;
+  pack_blocks_kernel<<<(unsigned)blocks, kRowsPB, smem, (cudaStream_t)stream>>>(
       levels, nc, maxc, code_res, hdr_len, hdr_val, words, bitlen, n, nh,
       n_w);
   return (int)cudaGetLastError();

@@ -32,8 +32,6 @@ import threading
 import time
 from typing import Dict, Optional
 
-import torch
-
 from .config import RESOLUTIONS, CodecConfig
 
 _log = logging.getLogger(__name__)
@@ -55,18 +53,21 @@ def _check_impl(impl: str) -> None:
 
 
 class App:
-    """Lifecycle owner for one running pipeline on `device`.
+    """Lifecycle owner for one running pipeline on `device` (the card
+    unless the caller asks for another; no card there raises).
 
     impl "tpu_gop": the device IPPP pipeline with decode-from-bits."""
 
     def __init__(self, config: Optional[CodecConfig] = None,
                  impl: str = "tpu_gop", source_kind: str = "moving_gradient",
-                 *, device, **kw):
+                 *, device="cuda", **kw):
+        from .devpipe import resolve_device
+
         self.config = config if config is not None else CodecConfig(**kw)
         _check_impl(impl)
         self.impl = impl
         self.source_kind = source_kind
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.pipeline = None
         self.error: Optional[BaseException] = None  # pump thread failure
         self._thread: Optional[threading.Thread] = None

@@ -44,12 +44,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from tpuh264.core import nal
-from tpuh264.core.bitstream import BitWriter
-from tpuh264.core.params import PPS, SPS
-from tpuh264.core.sliceheader import SLICE_P
-from tpuh264.entropy import native as entropy_native
-
+from ..core import nal
+from ..core.params import PPS, SPS
+from ..core.sliceheader import SLICE_P
+from ..entropy import native as entropy_native
 from ..entropy.device_pack import slice_headers_device
 from ..kernels import deblock as kdeblock
 from ..kernels import entropy_gpu, iframe, pframe
@@ -102,14 +100,17 @@ def _fetch(side, done, meta_dev: torch.Tensor, payloads):
         return meta, [p.cpu().numpy() for p in payloads(meta)]
 
 
-def _param_sets(sps: SPS, pps: PPS) -> bytes:
-    """SPS + PPS NAL units."""
-    w = BitWriter()
-    sps.write(w)
-    ps = bytes(nal.wrap_nal(nal.NAL_SPS, w.get_bytes()))
-    w = BitWriter()
-    pps.write(w)
-    return ps + nal.wrap_nal(nal.NAL_PPS, w.get_bytes())
+def resolve_device(device) -> torch.device:
+    """The pipelines' device: the card unless the caller names another.
+    A CUDA device on a machine without one raises; nothing falls back to
+    the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested (the default) but "
+            "torch.cuda.is_available() is False: pass device='cpu' to run "
+            "on the CPU")
+    return device
 
 
 def _psnr(sse: float, npix: int) -> float:
@@ -123,18 +124,20 @@ class DevicePipeline:
 
     Each dispatch encodes FRAMES_PER_DISPATCH consecutive frames of one
     device source as IDR access units (the frames ride the batch axis)
-    and decodes every frame `streams` times.  `device` is required."""
+    and decodes every frame `streams` times, on `device` (the card by
+    default)."""
 
     # frames encoded per device dispatch
     FRAMES_PER_DISPATCH = 4
 
     def __init__(self, config: Optional[CodecConfig] = None,
-                 source_kind: str = "moving_gradient", *, device, **kw):
+                 source_kind: str = "moving_gradient", *,
+                 device="cuda", **kw):
         if config is None:
             config = CodecConfig(**kw)
         self.config = config
         self.source_kind = source_kind
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.w16 = (config.width + 15) // 16 * 16
         self.h16 = (config.height + 15) // 16 * 16
         self.sps = SPS.for_size(config.width, config.height)
@@ -229,7 +232,7 @@ class DevicePipeline:
 
     def _frame_nals(self, rbsps) -> None:
         """SPS/PPS + per-slice NAL framing of raw RBSP payloads."""
-        out = bytearray(_param_sets(self.sps, self.pps))
+        out = bytearray(entropy_native.param_sets(self.sps, self.pps))
         hdr_byte = bytes([(3 << 5) | nal.NAL_SLICE_IDR])
         for rbsp in rbsps:
             out += nal.START_CODE + hdr_byte + entropy_native.escape_rbsp(rbsp)
@@ -254,8 +257,7 @@ class DevicePipeline:
                 [mode[f], cmode[f], cbp_l[f], cbp_c[f]], axis=1), np.int32)
             self.last_stream = entropy_native.pack_iframe(
                 mb_info, luma_dc[f], luma_ac[f], chroma_dc[f], chroma_ac[f],
-                self.sps, self.pps, qp, slice_mode="rows", frame_num=0,
-                idr=True, include_ps=True, deblock_idc=1)
+                self.sps, self.pps, qp, frame_num=0, deblock_idc=1)
             self.frame_streams.append(self.last_stream)
 
     def _retire(self, handles, qp: int) -> None:
@@ -307,21 +309,21 @@ class GOPDevicePipeline:
     or the RTC preset; 1..4 references; `fanout` N decodes every encoded
     stream N times (decode stream ss*N+fi carries encoded stream ss), on
     a decoder DPB S*N streams wide.  The DPB halo (row sharding) is not
-    ported.  `device` is required: the pipeline never picks one itself."""
+    ported.  `device` is the card unless the caller asks for another."""
 
     FRAMES_PER_DISPATCH = 4
     MB_SLOTS = entropy_native.MB_SLOTS  # coefficient slots per parsed MB
 
     def __init__(self, config: Optional[CodecConfig] = None,
                  gop_size: int = 16, source_kind: str = "moving_gradient",
-                 fanout: int = 1, *, device, **kw):
+                 fanout: int = 1, *, device="cuda", **kw):
         if config is None:
             config = CodecConfig(**kw)
         self.config = config
         self.source_kind = source_kind
         self.fanout = max(1, fanout)
         self.s_dec = config.streams * self.fanout
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         k = self.FRAMES_PER_DISPATCH
         if gop_size % k:
             raise ValueError("gop_size must be a multiple of "
@@ -669,7 +671,7 @@ class GOPDevicePipeline:
         if start:
             rbsp_i = _slices(pay_i, bytes_i)
             idr_hdr = bytes([(3 << 5) | nal.NAL_SLICE_IDR])
-            ps = _param_sets(self.sps, self.pps)
+            ps = entropy_native.param_sets(self.sps, self.pps)
             frame = []
             for si in range(s):
                 out = bytearray(ps)
@@ -733,8 +735,7 @@ class GOPDevicePipeline:
                     np.int32)
                 frame.append(entropy_native.pack_iframe(
                     mb_info, ldc[si], lac[si], cdc[si], cac[si], self.sps,
-                    self.pps, qp, slice_mode="rows", frame_num=0, idr=True,
-                    include_ps=True, deblock_idc=2))
+                    self.pps, qp, frame_num=0, deblock_idc=2))
             self.frame_streams.append(tuple(frame))
         fields = [npy(getattr(syms_p, f), n_p, s, n) for f in (
             "kind", "mode", "cmode", "cbp_luma", "cbp_chroma", "mvdx",
@@ -752,8 +753,8 @@ class GOPDevicePipeline:
                     np.stack([f[pi, si] for f in fields], axis=1), np.int32)
                 frame.append(entropy_native.pack_pframe(
                     mb_info, ldc[pi, si], lac[pi, si], cdc[pi, si],
-                    cac[pi, si], self.sps, self.pps, qp, slice_mode="rows",
-                    frame_num=first + pi, deblock_idc=2, ref=True,
+                    cac[pi, si], self.sps, self.pps, qp,
+                    frame_num=first + pi, deblock_idc=2,
                     num_ref_active=nra))
             self.frame_streams.append(tuple(frame))
         self.last_stream = self.frame_streams[-1][0]

@@ -13,9 +13,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tpuh264.core.bitstream import BitWriter
-from tpuh264.core.params import PPS, SPS
-from tpuh264.core.sliceheader import SLICE_I, SliceHeader
+from ..core.bitstream import BitWriter
+from ..core.params import PPS, SPS
+from ..core.sliceheader import SLICE_I, SliceHeader
 
 _HDR_CACHE = {}
 

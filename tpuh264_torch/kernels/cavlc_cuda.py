@@ -34,8 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from tpuh264.entropy import cavlc_tables as tbl
-
+from ..entropy import cavlc_tables as tbl
 from . import cuda_lib, tables
 
 I32 = torch.int32
@@ -260,6 +259,9 @@ def pack_blocks(levels: torch.Tensor, nc: torch.Tensor, maxc: torch.Tensor,
         (code_residual, lead), (hdr_len, (*lead, nh)), (hdr_val, (*lead, nh))])
     if not 1 <= n_w <= 32 or not 0 <= nh <= 8:
         raise ValueError("pack_blocks: kernel takes n_w <= 32, nh <= 8")
+    if levels.data_ptr() % 16:
+        raise ValueError("pack_blocks: levels must be 16-byte aligned "
+                         "(the kernel reads rows as 16-byte vectors)")
     n = int(np.prod(lead)) if lead else 1
     words = torch.empty((*lead, n_w), dtype=I32, device=levels.device)
     bitlen = torch.empty(lead, dtype=I32, device=levels.device)

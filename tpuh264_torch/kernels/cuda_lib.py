@@ -6,8 +6,8 @@ The sources are compiled at first use, on the machine with the card:
          -Xcompiler -fPIC -I build -o build/libtpuh264_cuda.so csrc/*.cu
 
 into `tpuh264_torch/build/` (git-ignored), together with the generated
-header `cavlc_tables.cuh` (the CAVLC VLC tables of
-tpuh264.entropy.cavlc_tables as __constant__ arrays).  The library has a
+header `cavlc_tables.cuh` (the CAVLC VLC tables of the port's
+entropy/cavlc_tables.py as __constant__ arrays).  The library has a
 plain C interface and is loaded with ctypes: every entry takes device
 pointers and the CUDA stream as void*, launches on that stream and
 returns cudaGetLastError().  A missing nvcc or a failed build raises.
@@ -47,8 +47,7 @@ def _nvcc() -> str:
 
 
 def _tables_header() -> str:
-    from tpuh264.entropy import cavlc_tables as tbl
-
+    from ..entropy import cavlc_tables as tbl
     from .cavlc_cuda import _tzc_dense
 
     arrays = {
@@ -58,7 +57,8 @@ def _tables_header() -> str:
         "kRB": tbl.run_before_dense().reshape(-1),
     }
     lines = ["// generated by tpuh264_torch/kernels/cuda_lib.py from",
-             "// tpuh264.entropy.cavlc_tables: (len << 16) | bits entries",
+             "// tpuh264_torch.entropy.cavlc_tables: (len << 16) | bits "
+             "entries",
              "#pragma once"]
     for name, arr in arrays.items():
         vals = ", ".join(str(int(v)) for v in arr)
@@ -72,7 +72,7 @@ def _sources():
 
 def _stale(header_text: str) -> bool:
     """True when LIB is missing, older than a source, or was built against
-    other VLC tables than the ones tpuh264.entropy.cavlc_tables gives now."""
+    other VLC tables than the ones entropy/cavlc_tables.py gives now."""
     if not os.path.exists(LIB) or not os.path.exists(HEADER):
         return True
     with open(HEADER) as f:

@@ -23,8 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tpuh264.golden.deblock import ALPHA, BETA, TC0
-
+from ..golden.deblock import ALPHA, BETA, TC0
 from . import tables
 from . import transform as T
 from .iframe import _mb_view, _mbs_to_plane

@@ -23,8 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuh264.entropy import cavlc_tables as tbl
-
+from ..entropy import cavlc_tables as tbl
 from . import tables
 from .cavlc_cuda import (
     M32,

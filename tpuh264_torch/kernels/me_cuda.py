@@ -19,8 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from tpuh264.golden.inter import SEARCH_PAD, SEARCH_RANGE
-
+from ..golden.inter import SEARCH_PAD, SEARCH_RANGE
 from . import cuda_lib
 
 PE = SEARCH_PAD + 1            # half-pel plane pad (13)
@@ -49,7 +48,13 @@ def sad_field(y: torch.Tensor, gplane: torch.Tensor) -> torch.Tensor:
     """Stage-A SAD table [S, R, C, 289] int32.
 
     y [S, h, w] int32, the full-resolution source (even rows and columns
-    are read); gplane [S, h+26, w+26] int32, the G half-pel plane."""
+    are read); gplane [S, h+26, w+26] int32, the G half-pel plane.
+
+    Precondition of the kernel: every sample of y and gplane lies in
+    [0, 255] -- true of every plane the P path builds (uint8 sources,
+    half-pel planes clamped in `pframe.build_halfpel_planes`); the kernel
+    packs samples four to a 32-bit word (csrc/me_sad.cu).  The plain
+    version takes any int32."""
     s, h, w = y.shape
     if y.device.type == "cpu":
         return _sad_field(y[:, ::2, ::2], gplane, h, w)

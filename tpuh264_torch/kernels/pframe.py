@@ -39,7 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from tpuh264.golden.inter import (
+from ..golden.inter import (
     LAMBDA_ME,
     OFFSETS_HALF,
     OFFSETS_QUARTER,
@@ -50,7 +50,6 @@ from tpuh264.golden.inter import (
     mv_rate_bits,
     ref_idx_bits,
 )
-
 from . import me_cuda, tables
 from . import transform as T
 from .iframe import (

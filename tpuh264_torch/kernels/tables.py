@@ -1,7 +1,7 @@
 """Constant tables as device tensors, built once per (table, device).
 
-The tables themselves come from the JAX-free shared layers as numpy
-(`tpuh264.golden`, `tpuh264.entropy.cavlc_tables`); this module only
+The tables themselves come from the port's copies of the reference's
+constants as numpy (`golden/`, `entropy/cavlc_tables.py`); this module only
 uploads them.  Indexing a cached tensor with a Python int is a view, so
 per-QP rows cost no host-device transfer.
 """

@@ -1,7 +1,8 @@
 """H.264 4x4 integer transform / quant in PyTorch (int32, any device).
 
 Port of tpuh264/kernels/transform.py, bit-exact with it and with the
-numpy oracle tpuh264.golden.transform.  Every value fits int32 (worst
+numpy oracle tpuh264.golden.transform (its tables are copied into
+golden/transform.py).  Every value fits int32 (worst
 case |W|*MF ~ 2.1e8 < 2^31).  Batched over arbitrary leading axes.
 
 `qp` is a Python int: eager PyTorch has no trace to keep stable, so the
@@ -14,13 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuh264.golden.transform import (
+from ..golden.transform import (
     CHROMA_QP_TABLE,
     MF_TABLE,
     V_TABLE,
     ZIGZAG4,
 )
-
 from . import tables
 
 tables.register("mf", lambda: MF_TABLE.astype(np.int32))          # [6,4,4]
