@@ -45,8 +45,8 @@ tpuh264_torch/csrc, then:
      decode streams equal the encoder DPB; intra MBs coded in P frames;
      the upload ms per dispatch;
   9. the I-only DevicePipeline at 854x480, decoded 8 times from symbols;
-     the port's own decode of a frame's bytes (native parse + I scan)
-     equals the encoder's reconstruction;
+     the port's own decode of a frame's bytes (`decode_bytes`: native
+     parse + I scan) equals the encoder's reconstruction;
  10. the live App (impl "tpu_gop") with the defaults at 854x480 x 8 for
      10 s, or longer until its first dispatch has retired: its stats,
      capture drops included, then stop().
@@ -73,9 +73,10 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_line() -> str:
+def card_line(card: str) -> str:
+    """nvidia-smi's name and power limit of `card` (an index or UUID)."""
     res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", "-i", card, "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     if res.returncode != 0:
         fail(f"nvidia-smi failed: {res.stderr.strip()}")
@@ -171,9 +172,13 @@ def show(r, where):
 
 
 def k1_bytes(s, h, w) -> int:
-    """The even source samples, the G plane and the table, int32."""
-    return 4 * s * ((h // 2) * (w // 2) + (h + 26) * (w + 26)
-                    + (h // 16) * (w // 16) * 289)
+    """The even source samples, the window of the G plane that the +-R
+    candidates reach ((h + 2R - 1) x (w + 2R - 1) samples, not the whole
+    padded plane), and the table, int32."""
+    from tpuh264_torch.golden.inter import SEARCH_RANGE as R
+
+    return 4 * s * ((h // 2) * (w // 2) + (h + 2 * R - 1) * (w + 2 * R - 1)
+                    + (h // 16) * (w // 16) * (2 * R + 1) ** 2)
 
 
 def k2_bytes(n, nh, n_w) -> int:
@@ -691,33 +696,6 @@ def phase_ingest_fanout(dev, torch, np, card, launches):
           f"{copy_ms}; time_offset {pipe.time_offset} [{card}]")
 
 
-def decode_i_bytes(stream, pipe, torch):
-    """The port's own decode of one annex-B IDR access unit: its native
-    CAVLC parse, then the I reconstruction scan (uint8 planes, MB grid)."""
-    import numpy as np
-
-    from tpuh264_torch.entropy import native
-    from tpuh264_torch.kernels import iframe
-
-    r, c = pipe.h16 // 16, pipe.w16 // 16
-    qp, mb_pos, mb_fields, cpos, cval = native.parse_dispatch_compact(
-        [stream], c, r, pipe.sps, pipe.pps)
-    mbf = np.zeros((r * c, 9), np.int32)
-    mbf[mb_pos] = mb_fields
-    coef = np.zeros(r * c * native.MB_SLOTS, np.int16)
-    coef[cpos] = cval
-    dev = pipe.device
-    m = torch.from_numpy(mbf.reshape(1, r, c, 9)).to(dev)
-    cf = torch.from_numpy(coef.reshape(1, r, c, -1)).to(dev)
-    sym = iframe.MBSymbols(
-        mode=m[..., 1], cmode=m[..., 2], cbp_luma=m[..., 3],
-        cbp_chroma=m[..., 4], luma_dc=cf[..., :16],
-        luma_ac=cf[..., 16:272].reshape(1, r, c, 16, 16),
-        chroma_dc=cf[..., 272:280].reshape(1, r, c, 2, 4),
-        chroma_ac=cf[..., 280:400].reshape(1, r, c, 2, 4, 15))
-    return qp, iframe.decode_iframe_scan(sym, qp)
-
-
 def phase_device_pipeline(dev, torch, np, card, launches):
     """Phase 9: the I-only DevicePipeline, 854x480, decoded 8x."""
     from tpuh264_torch.engine import CodecConfig
@@ -741,7 +719,7 @@ def phase_device_pipeline(dev, torch, np, card, launches):
     # grid)
     src = device_source_frames(pipe.w16, pipe.h16, 1, "moving_gradient",
                                pipe.frame_index - 4, dev)
-    qp, dec = decode_i_bytes(pipe.frame_streams[0], pipe, torch)
+    qp, dec = pipe.decode_bytes(pipe.frame_streams[0])
     _, rec = iframe.encode_iframe_rows(*src, 30)
     if qp != 30 or not all(torch.equal(a.to(torch.uint8), b)
                            for a, b in zip(rec, dec)):
@@ -812,13 +790,21 @@ def main() -> None:
         fail("tpuh264_torch/ not found next to chip_smoke.py: run from a "
              "checkout of the repository")
     sys.path.insert(0, here)
+    # the run uses one card: the process sees only the first visible one
+    # (in nvidia-smi's PCI order), so device_count() counts the cards used
+    os.environ.setdefault("CUDA_DEVICE_ORDER", "PCI_BUS_ID")
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = (
+        "0" if visible is None else visible.split(",")[0].strip())
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    if torch.cuda.device_count() != 1:
+        fail(f"{torch.cuda.device_count()} cards visible, expected 1")
     dev = torch.device("cuda", 0)
-    card = card_line()
+    card = card_line(os.environ["CUDA_VISIBLE_DEVICES"])
     print(card)
 
     from tpuh264_torch.entropy import native
@@ -859,7 +845,7 @@ def main() -> None:
                            "bound_by", "library_ms")} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}))  # 1: the one card it used
 
 
 if __name__ == "__main__":

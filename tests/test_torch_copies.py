@@ -60,6 +60,18 @@ def test_parameter_sets_match(w, h):
             j_params.PPS.parse(j_bs.BitReader(tb[1])))
 
 
+@pytest.mark.parametrize("w,h", SIZES)
+def test_param_sets_frame_the_originals_parameter_sets(w, h):
+    """The port's param_sets: the original SPS and PPS, each framed as the
+    JAX package frames them (start code, nal_ref_idc 3, escaped)."""
+    for nrf in (1, 2, 4):
+        js, jb = _ps_bytes(j_params, j_bs, w, h, nrf, 66)
+        ts, _ = _ps_bytes(t_params, t_bs, w, h, nrf, 66)
+        assert t_params.param_sets(ts, t_params.PPS()) == (
+            j_nal.wrap_nal(j_nal.NAL_SPS, jb[0])
+            + j_nal.wrap_nal(j_nal.NAL_PPS, jb[1]))
+
+
 def _slice_bytes(m_params, m_bs, m_sh, w, h, qp, fn, nra, idr, ref, idc):
     sps = m_params.SPS.for_size(w, h)
     sps.max_num_ref_frames = max(nra, 1)

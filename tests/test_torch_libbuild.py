@@ -1,0 +1,93 @@
+"""The one build-at-first-use helper behind both of the port's libraries
+(the CUDA kernels and the host CAVLC engine): built once, reused while
+fresh, rebuilt when the generated header or a source changes, one
+builder at a time across processes, and a failed build raises and
+leaves no library behind."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+from tpuh264_torch import libbuild
+from tpuh264_torch.entropy import native
+from tpuh264_torch.kernels import cuda_lib
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# a stand-in compiler: python -c COMPILE src out log appends a line to
+# `log` and copies `src` to `out`
+COMPILE = ("import shutil, sys, time; time.sleep(0.2); "
+           "open(sys.argv[3], 'a').write('built\\n'); "
+           "shutil.copy(sys.argv[1], sys.argv[2])")
+
+
+def _copy_command(src, log):
+    return lambda out: [sys.executable, "-c", COMPILE, str(src), out,
+                        str(log)]
+
+
+def _paths(tmp_path):
+    src = tmp_path / "lib.c"
+    src.write_text("source v1")
+    return (src, str(tmp_path / "out" / "lib.so"),
+            str(tmp_path / "out" / "tables.h"), tmp_path / "log")
+
+
+def test_built_once_then_reused_then_rebuilt(tmp_path):
+    src, lib, header, log = _paths(tmp_path)
+    cmd = _copy_command(src, log)
+    assert libbuild.ensure(lib, header, "tables 1", [str(src)], cmd) > 0
+    assert open(lib).read() == "source v1"
+    assert open(header).read() == "tables 1"
+    assert libbuild.ensure(lib, header, "tables 1", [str(src)], cmd) == 0.0
+    assert log.read_text().count("built") == 1
+    # other tables rebuild
+    assert libbuild.ensure(lib, header, "tables 2", [str(src)], cmd) > 0
+    assert open(header).read() == "tables 2"
+    # a source newer than the library rebuilds
+    src.write_text("source v2")
+    t = os.path.getmtime(lib)
+    os.utime(src, (t + 10, t + 10))
+    assert libbuild.ensure(lib, header, "tables 2", [str(src)], cmd) > 0
+    assert open(lib).read() == "source v2"
+    assert log.read_text().count("built") == 3
+    assert not [f for f in os.listdir(os.path.dirname(lib))
+                if f.endswith(".tmp")]
+
+
+def test_concurrent_processes_build_once(tmp_path):
+    """Three processes race to build one library: one builds, the others
+    wait on the lock and then find it fresh."""
+    src, lib, header, log = _paths(tmp_path)
+    code = ("import sys; a = sys.argv; sys.path.insert(0, a[1]); "
+            "from tpuh264_torch import libbuild; "
+            "print(libbuild.ensure(a[3], a[4], 'tables', [a[2]], "
+            "lambda out: [sys.executable, '-c', a[6], a[2], out, a[5]]))")
+    procs = [subprocess.Popen([sys.executable, "-c", code, REPO, str(src),
+                               lib, header, str(log), COMPILE],
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(3)]
+    times = [float(p.communicate(timeout=60)[0]) for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    assert sum(t > 0 for t in times) == 1
+    assert log.read_text().count("built") == 1
+    assert open(lib).read() == "source v1"
+
+
+def test_failed_build_raises_and_leaves_no_library(tmp_path):
+    src, lib, header, _ = _paths(tmp_path)
+    fail = lambda out: [sys.executable, "-c", "raise SystemExit(3)"]
+    with pytest.raises(RuntimeError, match="failed"):
+        libbuild.ensure(lib, header, "tables", [str(src)], fail)
+    assert not os.path.exists(lib)
+    assert libbuild.stale(lib, header, "tables", [str(src)])
+
+
+@pytest.mark.parametrize("mod", [cuda_lib, native], ids=["cuda", "native"])
+def test_both_libraries_build_into_the_port_build_dir(mod):
+    """Both libraries go through the helper into tpuh264_torch/build/."""
+    assert os.path.dirname(mod.LIB) == libbuild.BUILD
+    assert libbuild.BUILD.endswith(os.path.join("tpuh264_torch", "build"))

@@ -4,8 +4,9 @@ On the card, phase 3 holds the GPU's bytes and decoder DPB equal to the
 CPU's for every case.  Here the CPU's bytes of the same cases (taken
 from chip_smoke.py itself) decode in the JAX package's golden decoder to
 the port's decoder DPB, which closes the chain GPU == CPU == golden.
-Phase 9's own decode of DevicePipeline bytes (native parse + I scan) is
-held to the golden decoder and to the encoder's reconstruction too."""
+Phase 9's own decode of DevicePipeline bytes (`decode_bytes`: native
+parse + I scan) is held to the golden decoder and to the encoder's
+reconstruction too."""
 
 import numpy as np
 import pytest
@@ -50,7 +51,7 @@ def test_phase9_own_decode_of_device_pipeline_bytes():
     src = device_source_frames(pipe.w16, pipe.h16, 4, "moving_gradient",
                                pipe.frame_index - 4, "cpu")
     for f, stream in enumerate(pipe.frame_streams):
-        qp, dec = chip_smoke.decode_i_bytes(stream, pipe, torch)
+        qp, dec = pipe.decode_bytes(stream)
         assert qp == 30
         _, rec = iframe.encode_iframe_rows(*(x[f:f + 1] for x in src), 30)
         gold = gcodec.decode_annexb(stream)

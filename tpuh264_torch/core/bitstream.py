@@ -4,7 +4,7 @@
 This is the host-side bit substrate that replaces the reference's reliance
 on libopenh264's internal bitstream writer (the reference only ever moves
 opaque NAL bytes around, e.g. copy_encoded_data at
-/root/reference/openh264_wrapper.cpp:282-311).  A C++ fast path with the
+reference/openh264_wrapper.cpp:282-311).  A C++ fast path with the
 same semantics lives in native/; this module is the canonical
 specification and test oracle.
 

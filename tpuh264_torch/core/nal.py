@@ -3,7 +3,7 @@
 """Annex-B NAL unit framing (H.264 7.3.1, 7.4.1, B.1).
 
 The reference treats NAL bytes as opaque (its copy_encoded_data at
-/root/reference/openh264_wrapper.cpp:282-311 just concatenates whatever
+reference/openh264_wrapper.cpp:282-311 just concatenates whatever
 libopenh264 emitted); here we own the framing: start codes, NAL headers,
 and emulation-prevention (0x000003) insertion/removal.
 """

@@ -1,9 +1,10 @@
-# Copy of tpuh264/core/params.py, so that the port imports nothing of tpuh264.
+# Copy of tpuh264/core/params.py, so that the port imports nothing of tpuh264,
+# plus `param_sets` (the SPS + PPS NAL units every IDR access unit opens with).
 """SPS / PPS syntax (H.264 7.3.2.1, 7.3.2.2).
 
 Scope: progressive 4:2:0 8-bit streams as produced by this encoder --
 baseline-profile CAVLC first (the reference encoder's operating point:
-OpenH264 CAMERA_VIDEO_REAL_TIME at /root/reference/openh264_wrapper.cpp:206-227
+OpenH264 CAMERA_VIDEO_REAL_TIME at reference/openh264_wrapper.cpp:206-227
 emits constrained-baseline), with fields needed for later main/high
 (CABAC, 8x8 transform) already modeled.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from . import nal
 from .bitstream import BitReader, BitWriter
 
 PROFILE_BASELINE = 66
@@ -21,7 +23,7 @@ PROFILE_HIGH = 100
 
 def level_for(width: int, height: int, fps: int = 30) -> int:
     """Pick level_idc by resolution, mirroring the reference's WebCodecs
-    ladder (/root/reference/scripts/app.js:617-626): L3.0 <=480p,
+    ladder (reference/scripts/app.js:617-626): L3.0 <=480p,
     L3.1 <=720p, L4.1 <=1080p, L5.1 above."""
     pixels = width * height
     if pixels <= 854 * 480:
@@ -227,3 +229,13 @@ class PPS:
                 raise NotImplementedError("pic_scaling_matrix")
             r.se()  # second_chroma_qp_index_offset
         return pps
+
+
+def param_sets(sps: SPS, pps: PPS) -> bytes:
+    """SPS + PPS NAL units."""
+    w = BitWriter()
+    sps.write(w)
+    out = nal.wrap_nal(nal.NAL_SPS, w.get_bytes())
+    w = BitWriter()
+    pps.write(w)
+    return out + nal.wrap_nal(nal.NAL_PPS, w.get_bytes())

@@ -4,7 +4,7 @@
 Each MB row can be its own slice (`slice_mode='rows'` in the engine): that
 is what makes the TPU encode scan parallel over rows -- the moral
 equivalent of the reference's independent-stream parallelism
-(/root/reference/scripts/app.js:351,521), applied *within* a frame, and
+(reference/scripts/app.js:351,521), applied *within* a frame, and
 of config 4's multi-slice parallel encode in BASELINE.json.
 """
 

@@ -12,8 +12,9 @@
 // sources, clamped half-pel planes): they are packed four to a word.
 //
 // What bounds it on the H100: device memory.  At 1080p x 4 it reads the
-// even source samples (8.4 MB as int32) and the G plane (34.7 MB) and
-// writes the 37.7 MB table: ~81 MB, ~24 us at 3.35 TB/s.  The arithmetic
+// even source samples (8.4 MB as int32) and the window of the G plane
+// that the candidates reach (1103 x 1935 a stream, 34.1 MB) and writes
+// the 37.7 MB table: 80.2 MB, 24.0 us at 3.35 TB/s.  The arithmetic
 // is 0.60 G absolute differences, 150 M four-byte SIMD sums.
 //
 // Design: one block per (stream, pair of MB rows, tile of 8 MBs), 288

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..core import nal
-from ..core.params import PPS, SPS
+from ..core.params import PPS, SPS, param_sets
 from ..core.sliceheader import SLICE_P
 from ..entropy import native as entropy_native
 from ..entropy.device_pack import slice_headers_device
@@ -111,6 +111,40 @@ def resolve_device(device) -> torch.device:
             "torch.cuda.is_available() is False: pass device='cpu' to run "
             "on the CPU")
     return device
+
+
+def scatter_records(mb_pos, mb_fields, cpos, cval, lead, r: int, c: int,
+                    upload, device):
+    """`parse_dispatch_compact`'s records as dense tensors on `device`:
+    MB fields [*lead, r, c, 9] int32 and coefficient slots [*lead, r, c,
+    MB_SLOTS] int16 (`upload` moves a numpy array there).  The records
+    scatter onto buffers with one dead trailing slot (the JAX version's
+    mode="drop"): an out-of-range record lands there."""
+    lim_m = int(np.prod(lead)) * r * c
+    pos = upload(mb_pos.astype(np.int64)).clamp(max=lim_m)
+    mbf = torch.zeros((lim_m + 1, 9), dtype=I32, device=device)
+    mbf[pos] = upload(mb_fields).to(I32)
+    lim_c = lim_m * entropy_native.MB_SLOTS
+    cp = upload(cpos.astype(np.int64)).clamp(max=lim_c)
+    coef = torch.zeros(lim_c + 1, dtype=torch.int16, device=device)
+    coef[cp] = upload(cval)
+    return (mbf[:-1].reshape(*lead, r, c, 9),
+            coef[:-1].reshape(*lead, r, c, entropy_native.MB_SLOTS))
+
+
+def record_symbols(m: torch.Tensor, cf: torch.Tensor) -> pframe.MBSymbolsP:
+    """One frame's symbols from its dense records: MB fields m [..., 9] =
+    (kind, mode, cmode, cbp_luma, cbp_chroma, mvdx, mvdy, refidx, -) and
+    coefficient slots cf [..., 400] = [luma DC 16 | luma AC 16x16 |
+    chroma DC 2x4 | chroma AC 2x4x15]."""
+    lead = m.shape[:-1]
+    return pframe.MBSymbolsP(
+        kind=m[..., 0], mode=m[..., 1], cmode=m[..., 2], cbp_luma=m[..., 3],
+        cbp_chroma=m[..., 4], mvdx=m[..., 5], mvdy=m[..., 6],
+        luma_dc=cf[..., :16], luma_ac=cf[..., 16:272].reshape(*lead, 16, 16),
+        chroma_dc=cf[..., 272:280].reshape(*lead, 2, 4),
+        chroma_ac=cf[..., 280:400].reshape(*lead, 2, 4, 15),
+        refidx=m[..., 7], t8=torch.zeros_like(m[..., 0]))
 
 
 def _psnr(sse: float, npix: int) -> float:
@@ -232,7 +266,7 @@ class DevicePipeline:
 
     def _frame_nals(self, rbsps) -> None:
         """SPS/PPS + per-slice NAL framing of raw RBSP payloads."""
-        out = bytearray(entropy_native.param_sets(self.sps, self.pps))
+        out = bytearray(param_sets(self.sps, self.pps))
         hdr_byte = bytes([(3 << 5) | nal.NAL_SLICE_IDR])
         for rbsp in rbsps:
             out += nal.START_CODE + hdr_byte + entropy_native.escape_rbsp(rbsp)
@@ -259,6 +293,20 @@ class DevicePipeline:
                 mb_info, luma_dc[f], luma_ac[f], chroma_dc[f], chroma_ac[f],
                 self.sps, self.pps, qp, frame_num=0, deblock_idc=1)
             self.frame_streams.append(self.last_stream)
+
+    def decode_bytes(self, stream: bytes):
+        """The port's own decode of one of `frame_streams` (an IDR access
+        unit): the native CAVLC parse, then the I reconstruction scan.
+        Returns (the slice QP, (y, u, v) uint8 [1, H16, W16 (/2)])."""
+        r, c = self.h16 // 16, self.w16 // 16
+        qp, *recs = entropy_native.parse_dispatch_compact(
+            [stream], c, r, self.sps, self.pps, threads=self.config.threads)
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device)
+        sym = record_symbols(*scatter_records(*recs, (1,), r, c, up,
+                                              self.device))
+        return qp, iframe.decode_iframe_scan(iframe.MBSymbols(
+            *(getattr(sym, f) for f in iframe.MBSymbols._fields[:8])), qp)
 
     def _retire(self, handles, qp: int) -> None:
         """Consume one dispatch (K frames) and update stats."""
@@ -488,19 +536,8 @@ class GOPDevicePipeline:
             cval = np.repeat(cval, fan, axis=0)
         t1 = time.perf_counter()
         dev = self.device
-        up = self._upload
-        # record scatter onto buffers with one dead trailing slot (the
-        # JAX version's mode="drop"): an out-of-range record lands there
-        lim_m = k * s * n
-        pos = up(mb_pos.astype(np.int64)).clamp(max=lim_m)
-        mbf = torch.zeros((lim_m + 1, 9), dtype=I32, device=dev)
-        mbf[pos] = up(mb_fields).to(I32)
-        mbf = mbf[:-1].reshape(k, s, r, c, 9)
-        lim_c = lim_m * self.MB_SLOTS
-        cp = up(cpos.astype(np.int64)).clamp(max=lim_c)
-        coef = torch.zeros(lim_c + 1, dtype=torch.int16, device=dev)
-        coef[cp] = up(cval)
-        coef = coef[:-1].reshape(k, s, r, c, self.MB_SLOTS)
+        mbf, coef = scatter_records(mb_pos, mb_fields, cpos, cval, (k, s),
+                                    r, c, self._upload, dev)
 
         if self.source_kind == "host":
             # host-fed frames: quality is measured host-side by the
@@ -516,15 +553,7 @@ class GOPDevicePipeline:
         cur = self._dpb_dec
         sse = []
         for f in range(k):
-            m, cf = mbf[f], coef[f]
-            sym = pframe.MBSymbolsP(
-                kind=m[..., 0], mode=m[..., 1], cmode=m[..., 2],
-                cbp_luma=m[..., 3], cbp_chroma=m[..., 4], mvdx=m[..., 5],
-                mvdy=m[..., 6], luma_dc=cf[..., :16],
-                luma_ac=cf[..., 16:272].reshape(s, r, c, 16, 16),
-                chroma_dc=cf[..., 272:280].reshape(s, r, c, 2, 4),
-                chroma_ac=cf[..., 280:400].reshape(s, r, c, 2, 4, 15),
-                refidx=m[..., 7], t8=torch.zeros_like(m[..., 0]))
+            sym = record_symbols(mbf[f], coef[f])
             recon, motion = pframe.decode_pframe_rows_multi(
                 sym, cur[0], cur[1], cur[2], qp)
             db = tuple(x.to(I32)
@@ -671,7 +700,7 @@ class GOPDevicePipeline:
         if start:
             rbsp_i = _slices(pay_i, bytes_i)
             idr_hdr = bytes([(3 << 5) | nal.NAL_SLICE_IDR])
-            ps = entropy_native.param_sets(self.sps, self.pps)
+            ps = param_sets(self.sps, self.pps)
             frame = []
             for si in range(s):
                 out = bytearray(ps)

@@ -7,32 +7,28 @@ Mirrors tpuh264/entropy/native.py for the functions the port calls:
 `escape_rbsp` / `unescape_rbsp`, and `MB_SLOTS`.
 
 The library is built with g++ at first use into `tpuh264_torch/build/`
-(git-ignored), against `cavlc_tables.inc` generated there from the
-port's own `entropy/cavlc_tables.py` (as native/gen_tables.py does for
-the original).  Builds are serialised by a file lock and written to a
-temporary name before the rename, so concurrent processes never load a
-half-written library.  A failed build raises.
+(git-ignored, see libbuild.py), against `cavlc_tables.inc` generated
+there from the port's own `entropy/cavlc_tables.py` (as
+native/gen_tables.py does for the original).  A failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import os
-import subprocess
 import threading
 
 import numpy as np
 
+from .. import libbuild
 from ..core import nal
 from ..core.bitstream import BitWriter
-from ..core.params import PPS, SPS
+from ..core.params import PPS, SPS, param_sets
 from ..core.sliceheader import SLICE_I, SLICE_P, SliceHeader
 from . import cavlc_tables as tbl
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "native", "cavlc.cpp")
-BUILD = os.path.join(_PKG, "build")
+SRC = os.path.join(os.path.dirname(libbuild.BUILD), "native", "cavlc.cpp")
+BUILD = libbuild.BUILD
 LIB = os.path.join(BUILD, "libtpuh264_native.so")
 INC = os.path.join(BUILD, "cavlc_tables.inc")
 
@@ -85,29 +81,12 @@ def _tables_inc() -> str:
 def _stale(inc_text: str) -> bool:
     """True when LIB is missing, older than the source, or was built
     against other tables than cavlc_tables gives now."""
-    if not os.path.exists(LIB) or not os.path.exists(INC):
-        return True
-    with open(INC) as f:
-        if f.read() != inc_text:
-            return True
-    return os.path.getmtime(SRC) > os.path.getmtime(LIB)
+    return libbuild.stale(LIB, INC, inc_text, [SRC])
 
 
-def build(inc_text: str) -> None:
-    """g++ the engine into LIB against the generated tables."""
-    os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{INC}.{os.getpid()}.tmp"
-    with open(tmp, "w") as f:
-        f.write(inc_text)
-    os.replace(tmp, INC)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17",
-           "-pthread", "-shared", "-I", BUILD, "-o", tmp, SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("g++ failed:\n" + " ".join(cmd) + "\n"
-                           + res.stdout + res.stderr)
-    os.replace(tmp, LIB)
+def _command(out: str) -> list:
+    return [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17",
+            "-pthread", "-shared", "-I", BUILD, "-o", out, SRC]
 
 
 def load() -> ctypes.CDLL:
@@ -116,12 +95,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        inc_text = _tables_inc()
-        os.makedirs(BUILD, exist_ok=True)
-        with open(os.path.join(BUILD, "native.lock"), "w") as lk:
-            fcntl.flock(lk, fcntl.LOCK_EX)  # one builder across processes
-            if _stale(inc_text):
-                build(inc_text)
+        libbuild.ensure(LIB, INC, _tables_inc(), [SRC], _command)
         lib = ctypes.CDLL(LIB)
         for fn in (lib.th264_escape, lib.th264_unescape):
             fn.restype = ctypes.c_int64
@@ -177,16 +151,6 @@ def unescape_rbsp(ebsp: bytes) -> bytes:
     if n < 0:
         raise RuntimeError("th264_unescape failed")
     return out[:n].tobytes()
-
-
-def param_sets(sps: SPS, pps: PPS) -> bytes:
-    """SPS + PPS NAL units."""
-    w = BitWriter()
-    sps.write(w)
-    out = nal.wrap_nal(nal.NAL_SPS, w.get_bytes())
-    w = BitWriter()
-    pps.write(w)
-    return out + nal.wrap_nal(nal.NAL_PPS, w.get_bytes())
 
 
 def _mb_arrays(n_mb: int, n_info: int, mb_info, luma_dc, luma_ac,

@@ -5,12 +5,12 @@ The sources are compiled at first use, on the machine with the card:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -I build -o build/libtpuh264_cuda.so csrc/*.cu
 
-into `tpuh264_torch/build/` (git-ignored), together with the generated
-header `cavlc_tables.cuh` (the CAVLC VLC tables of the port's
-entropy/cavlc_tables.py as __constant__ arrays).  The library has a
-plain C interface and is loaded with ctypes: every entry takes device
-pointers and the CUDA stream as void*, launches on that stream and
-returns cudaGetLastError().  A missing nvcc or a failed build raises.
+into `tpuh264_torch/build/` (git-ignored, see libbuild.py), together
+with the generated header `cavlc_tables.cuh` (the CAVLC VLC tables of
+the port's entropy/cavlc_tables.py as __constant__ arrays).  The
+library has a plain C interface and is loaded with ctypes: every entry
+takes device pointers and the CUDA stream as void*, launches on that
+stream and returns cudaGetLastError().  A missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -19,15 +19,14 @@ import ctypes
 import glob
 import os
 import shutil
-import subprocess
 import threading
-import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD = os.path.join(_PKG, "build")
+from .. import libbuild
+
+CSRC = os.path.join(os.path.dirname(libbuild.BUILD), "csrc")
+BUILD = libbuild.BUILD
 LIB = os.path.join(BUILD, "libtpuh264_cuda.so")
 HEADER = os.path.join(BUILD, "cavlc_tables.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -73,33 +72,12 @@ def _sources():
 def _stale(header_text: str) -> bool:
     """True when LIB is missing, older than a source, or was built against
     other VLC tables than the ones entropy/cavlc_tables.py gives now."""
-    if not os.path.exists(LIB) or not os.path.exists(HEADER):
-        return True
-    with open(HEADER) as f:
-        if f.read() != header_text:
-            return True
-    t = os.path.getmtime(LIB)
-    return any(os.path.getmtime(p) > t for p in _sources())
+    return libbuild.stale(LIB, HEADER, header_text, _sources())
 
 
-def build(header_text: str) -> float:
-    """Compile csrc/*.cu into LIB against the generated table header;
-    returns the build's wall seconds."""
-    t0 = time.perf_counter()
-    os.makedirs(BUILD, exist_ok=True)
-    # written whole, then renamed: a concurrent build never reads half
-    with open(f"{HEADER}.{os.getpid()}.tmp", "w") as f:
-        f.write(header_text)
-    os.replace(f"{HEADER}.{os.getpid()}.tmp", HEADER)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-I", BUILD, "-o", tmp, *_sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + res.stdout + res.stderr)
-    os.replace(tmp, LIB)
-    return time.perf_counter() - t0
+def _command(out: str) -> list:
+    return [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-I", BUILD, "-o", out, *_sources()]
 
 
 def load() -> ctypes.CDLL:
@@ -108,9 +86,8 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        header_text = _tables_header()
-        if _stale(header_text):
-            build_seconds = build(header_text)
+        build_seconds = libbuild.ensure(LIB, HEADER, _tables_header(),
+                                        _sources(), _command)
         lib = ctypes.CDLL(LIB)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.th264_sad_field.argtypes = [p, p, p, i, i, i, p]

@@ -781,7 +781,7 @@ int64_t th264_unescape(const uint8_t* in, int64_t n, uint8_t* out, int64_t cap) 
 // With row-slices, every slice owns a disjoint band of the nnz grids and
 // its bitstream is independent -- the same independence the TPU scan
 // exploits (kernels/iframe.py).  This thread pool is the native analog of
-// the reference's decoder worker pool (/root/reference/scripts/app.js:430-501),
+// the reference's decoder worker pool (reference/scripts/app.js:430-501),
 // sized by the same "threads" config axis.
 // ---------------------------------------------------------------------------
 
@@ -1193,8 +1193,8 @@ int64_t th264_parse_slice_p(
 //
 // Role analog in the reference: the entropy-decode half of
 // DecodeFrameNoDelay inside each decoder worker's wasm instance
-// (/root/reference/scripts/decoder_worker.js:154-189,
-//  /root/reference/openh264_wrapper.cpp:391-422).
+// (reference/scripts/decoder_worker.js:154-189,
+//  reference/openh264_wrapper.cpp:391-422).
 // ---------------------------------------------------------------------------
 
 namespace {
