@@ -10,17 +10,21 @@ tpuh264_torch/csrc, then:
   1. prints the card (nvidia-smi name and power limit) and builds the
      port's two libraries: the CUDA kernels (nvcc) and the host CAVLC
      engine (g++, a copy of native/cavlc.cpp);
-  2. holds K1 (stage-A SAD table), K2 (CAVLC block pack) and K3 (chunk
-     merge) against their plain PyTorch versions on the card (exact
-     equality) at the main path's 1920x1080 x 4 shapes, with the winner
-     selection's first-index ties on the card; K1 and K2 again on seeded
-     edge cases (K1: samples 0 and 255, the maximum SAD, ragged tiles,
-     S = 1 and 4; K2: escape levels, 16 nonzeros, chroma DC, nh 0..8,
-     n_w 1 / 6 / 20 / 32 with truncation, code_residual 0), and K2/K3 on
-     intra-in-P P symbols at 854x480 x 8 (skip, inter and intra MBs);
-     times each kernel beside its plain version (CUDA events, after a
-     warm-up) and against its bound (the bytes it must move over the
-     card's 3.35 TB/s);
+  2. holds K1 (stage-A SAD table), K2 (CAVLC block pack) and K3 (bit-
+     string merge) against their plain PyTorch versions on the card
+     (exact equality) at the main path's 1920x1080 x 4 shapes, K3 at its
+     MB level (27 chunks -> 128 words) and its slice level (K = 123
+     strings -> 8192 words), with the winner selection's first-index ties
+     on the card; all three again on seeded edge cases (K1: samples 0 and
+     255, the maximum SAD, ragged tiles, S = 1 and 4; K2: escape levels,
+     16 nonzeros, chroma DC, nh 0..8, n_w 1 / 6 / 20 / 32 with
+     truncation, code_residual 0; K3: all-ones strings of 0, 1, 31, 32,
+     33 and 32*W bits, empty lanes, K 1 / 27 / 123 x W 1 / 20 / 128 x
+     n_out 1 / 16 / 128 / 8192 with truncation), and K2/K3 on intra-in-P
+     P symbols at 854x480 x 8 (skip, inter and intra MBs; slice level
+     K = 57); times each kernel beside its plain version (CUDA events,
+     after a warm-up) and against its bound (the bytes it must move over
+     the card's 3.35 TB/s), and one fenced `encode_bits_pframe` call;
   3. at 64x48 x 2 the GPU emits the CPU's bytes (plain versions) and
      decoder DPB on every path: the RTC preset, intra-in-P, two
      references, host ingest with fan-out 2 and a drop_frames, and the
@@ -30,7 +34,9 @@ tpuh264_torch/csrc, then:
   4. drives the main path -- GOPDevicePipeline, 1920x1080 x 4 streams, CBR
      4 Mbps, RTC preset, gop 16, "rigid" source -- for 5 dispatches
      (crossing an IDR): after every dispatch the decode-from-bits DPB
-     equals the encoder DPB bit for bit;
+     equals the encoder DPB bit for bit, and K3 launched twice (MB and
+     slice level) per entropy call: 4 times per IDR dispatch, 2 per
+     interior one;
   5. runs `run()` briefly at that configuration and at 854x480 x 8 streams
      at 1 Mbps and prints aggregate fps, the stage split, PSNR and QP;
   6. the reference's operating point with the default CodecConfig
@@ -53,8 +59,9 @@ tpuh264_torch/csrc, then:
 
 Every path of phases 4 and 6-10 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
-launched every kernel it runs.  Any failure exits non-zero.  The last
-two lines are the kernel table (launches summed over those paths) and
+launched every kernel it runs, and none may reach K3's plain version.
+Any failure exits non-zero.  The last two lines are the kernel table
+(launches summed over those paths) and
 {"ok": true, "device": {...}}.  Nothing here imports JAX or the JAX
 package tpuh264; the run fails if either was loaded.
 """
@@ -85,13 +92,18 @@ def card_line(card: str) -> str:
 
 def timed(fn, iters: int) -> float:
     """Mean ms per call on the card: one warm-up call, then CUDA events
-    around `iters` calls."""
+    around `iters` calls queued behind a ~20 ms device sleep, so that the
+    events time the card and not the host's launch rate (a wrapper's
+    Python takes tens of us, as long as K3 itself).  Where the host takes
+    longer than the sleep to queue the calls, as for the plain versions'
+    thousands of eager ops, its time shows."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at the H100's clocks
     a.record()
     for _ in range(iters):
         fn()
@@ -117,7 +129,8 @@ def max_abs_err(x, y) -> int:
 
 class Launches:
     """The three wrappers' launch counts, zeroed before and read after each
-    path the smoke drives; summed over those paths for the kernel table."""
+    path the smoke drives; summed over those paths for the kernel table.
+    K3's plain version (`tree_merge`) is counted too: it must not run."""
 
     def __init__(self):
         from tpuh264_torch.kernels import cavlc_cuda, me_cuda
@@ -127,16 +140,25 @@ class Launches:
         self.total = [0, 0, 0]
 
     def path(self, name, fn, needs=(0, 1, 2)):
+        from tpuh264_torch.kernels import cavlc_cuda
+
         for f in self.fns:
             f.launches = 0
-        out = fn()
+        plain, calls = cavlc_cuda.tree_merge, []
+        cavlc_cuda.tree_merge = lambda *a: calls.append(a) or plain(*a)
+        try:
+            out = fn()
+        finally:
+            cavlc_cuda.tree_merge = plain
         counts = [f.launches for f in self.fns]
         for i, n in enumerate(counts):
             self.total[i] += n
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
-              f"K3 {counts[2]}")
+              f"K3 {counts[2]}; plain K3 calls {len(calls)}")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
+        if calls:
+            fail(f"{name}: K3's plain version ran {len(calls)} times")
         return out, counts
 
 
@@ -187,9 +209,33 @@ def k2_bytes(n, nh, n_w) -> int:
     return 4 * n * (16 + 3 + 2 * nh + n_w + 1)
 
 
-def k23_rows(sym, torch):
-    """K2 and K3 against their plain versions on the P symbols `sym`
-    (rows for the kernel table)."""
+def k3_bytes(bits, w, n_out) -> int:
+    """The bit lengths, the words the strings use (<= w each), and n_out
+    words + the total bit length out per lane; int32."""
+    used = int(((bits.long() + 31) // 32).clamp(0, w).sum())
+    return 4 * (bits.numel() + used + (bits.numel() // bits.shape[-1])
+                * (n_out + 1))
+
+
+def k3_equal(words, bits, n_out, torch, what) -> int:
+    """K3 against tree_merge on one input; fails unless equal."""
+    from tpuh264_torch.kernels import cavlc_cuda
+
+    ko, kb = cavlc_cuda.merge_tree(words, bits, n_out)
+    po, pb = cavlc_cuda.tree_merge(words, bits, n_out)
+    torch.cuda.synchronize()
+    if not (torch.equal(kb, pb) and torch.equal(ko, po)):
+        fail(f"K3 merge_tree differs from its plain version ({what})")
+    return max(max_abs_err(ko, po), max_abs_err(kb, pb))
+
+
+def k23_rows(sym, torch, what):
+    """K2 and K3 (MB level) against their plain versions on the P symbols
+    `sym` (rows for the kernel table); K3's slice level on the strings
+    `encode_bits_pframe` builds from them, and that call fenced."""
+    from tpuh264_torch.core.params import PPS, SPS
+    from tpuh264_torch.core.sliceheader import SLICE_P
+    from tpuh264_torch.entropy.device_pack import slice_headers_device
     from tpuh264_torch.kernels import cavlc_cuda, entropy_gpu
 
     args, code_res, present, _ = entropy_gpu.pframe_pack_inputs(sym)
@@ -210,21 +256,36 @@ def k23_rows(sym, torch):
     del pw, pb, args
     cb = torch.where(present, kb, 0).contiguous()
     cw = torch.where(present[..., None], kw, 0).contiguous()
-    ko, kbits = cavlc_cuda.merge_tree(cw, cb, 128)
-    po, pbits = cavlc_cuda.tree_merge(cw, cb, 128)
-    torch.cuda.synchronize()
-    if not (torch.equal(kbits, pbits) and torch.equal(ko, po)):
-        fail("K3 merge_tree differs from its plain version")
-    # the bit lengths, the words the strings use, and the merged strings
-    used = int(((cb.long() + 31) // 32).clamp(max=cw.shape[-1]).sum())
     k3 = kernel_row(
-        "K3", "merge_tree (chunk -> MB bit-string merge)",
+        "K3", "merge_tree (chunk -> MB and MB -> slice bit-string merge)",
         "tpuh264_torch/csrc/cavlc_merge.cu",
         "tpuh264/kernels/cavlc_pallas.py:486",
-        max(max_abs_err(ko, po), max_abs_err(kbits, pbits)),
+        k3_equal(cw, cb, 128, torch, f"MB level, {what}"),
         timed(lambda: cavlc_cuda.merge_tree(cw, cb, 128), 20),
         timed(lambda: cavlc_cuda.tree_merge(cw, cb, 128), 3),
-        4 * (cb.numel() + used + kbits.numel() * (128 + 1)))
+        k3_bytes(cb, cw.shape[-1], 128))
+    del kw, kb, cw, cb
+
+    s, r, c = sym.kind.shape
+    hdr = slice_headers_device(SPS.for_size(16 * c, 16 * r), PPS(), 30, 1,
+                               False, s, slice_type=SLICE_P, deblock_idc=2,
+                               device=sym.kind.device)
+    parts = entropy_gpu.pframe_slice_parts(sym, *hdr)[:2]
+    sw, sb, _ = entropy_gpu.slice_strings(*parts)
+    del parts
+    n_out = entropy_gpu.SLICE_W
+    err = k3_equal(sw, sb, n_out, torch, f"slice level, {what}")
+    ms = timed(lambda: cavlc_cuda.merge_tree(sw, sb, n_out), 20)
+    plain = timed(lambda: cavlc_cuda.tree_merge(sw, sb, n_out), 2)
+    bound = bound_ms(k3_bytes(sb, sw.shape[-1], n_out))
+    print(f"phase 2: K3 slice level, {what}: {list(sw.shape)} -> "
+          f"{n_out} words: equal to plain (max_abs_err {err}); kernel "
+          f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms (bytes): "
+          f"{100 * bound / ms:.1f}% of the bound")
+    del sw, sb
+    enc = [round(fenced_ms(lambda: entropy_gpu.encode_bits_pframe(
+        sym, 30, *hdr)), 3) for _ in range(3)]
+    print(f"phase 2: encode_bits_pframe, {what}, one call fenced: {enc} ms")
     return [k2, k3]
 
 
@@ -312,9 +373,57 @@ def k2_edges(dev, torch, np):
           f"to plain; {trunc} rows truncated at n_w words")
 
 
+K3_LANES = 32 * 16 + 5  # ragged: merge_warp takes 4 lanes a warp, 32 a block
+
+
+def k3_case(rng, np, n, k, w):
+    """Seeded K3 inputs: n lanes of k MSB-first strings of w words, each
+    zero past its bit length and within its budget (<= 32*w bits).  Lanes
+    cycle through four kinds: random lengths and words; lengths 0, 1, 31,
+    32, 33 and 32*w in turn (those <= 32*w), words all ones up to the
+    length, so a wrong shift shows; every string empty; strings all ones
+    within 40 bits of 32*w (lane totals past 32*n_out at narrow outputs)."""
+    cap = 32 * w
+    kind = np.arange(n) % 4
+    bits = rng.integers(0, cap + 1, (n, k))
+    edge = np.array([b for b in (0, 1, 31, 32, 33, cap) if b <= cap])
+    n1 = int((kind == 1).sum())
+    bits[kind == 1] = edge[np.arange(n1 * k).reshape(n1, k) % len(edge)]
+    bits[kind == 2] = 0
+    bits[kind == 3] = cap - rng.integers(0, min(cap, 40) + 1,
+                                         (int((kind == 3).sum()), k))
+    raw = rng.integers(0, 1 << 32, (n, k, w), dtype=np.uint64)
+    raw[kind != 0] = 0xFFFFFFFF
+    keep = np.clip(bits[..., None] - 32 * np.arange(w), 0, 32)
+    low = (np.uint64(1) << (32 - keep).astype(np.uint64)) - np.uint64(1)
+    words = raw & (np.uint64(0xFFFFFFFF) ^ low)
+    return words.astype(np.uint32).view(np.int32), bits.astype(np.int32)
+
+
+def k3_edges(dev, torch, np):
+    """K3 on seeded edge cases: K 1 / 27 / 123 x W 1 / 20 / 128 x n_out 1
+    / 16 / 128 / 8192, K3_LANES lanes each."""
+    rng = np.random.default_rng(13)
+    trunc = 0
+    for k in (1, 27, 123):
+        for w in (1, 20, 128):
+            words, bits = [torch.from_numpy(a).to(dev)
+                           for a in k3_case(rng, np, K3_LANES, k, w)]
+            total = bits.long().sum(-1)
+            for n_out in (1, 16, 128, 8192):
+                k3_equal(words, bits, n_out, torch,
+                         f"edge cases K={k} W={w} n_out={n_out}")
+                trunc += int((total > 32 * n_out).sum())
+    print(f"phase 2: K3 edge cases K 1/27/123 x W 1/20/128 x n_out "
+          f"1/16/128/8192, {K3_LANES} lanes each (all-ones strings of 0, 1, "
+          f"31, 32, 33 and 32*W bits, empty lanes): equal to plain; {trunc} "
+          f"lanes truncated at n_out words")
+
+
 def phase_kernels(dev, torch, np):
     """Phase 2: K1/K2/K3 against their plain versions at 1080p x 4 and on
-    edge cases, and K2/K3 on intra-in-P symbols at 480p x 8."""
+    edge cases, and K2/K3 on intra-in-P symbols at 480p x 8; K3 at its MB
+    and slice levels."""
     from tpuh264_torch.engine.sources import device_source_gop
     from tpuh264_torch.kernels import me_cuda, pframe
 
@@ -355,11 +464,12 @@ def phase_kernels(dev, torch, np):
         y[1], u[1], v[1], *refs, 30, intra_in_p=False)
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
-    rows += k23_rows(sym4, torch)
+    rows += k23_rows(sym4, torch, "1080p x 4 P symbols x 4 frames")
     for r in rows:
         show(r, "1080p x 4 shapes")
     del sym, sym4
     k2_edges(dev, torch, np)
+    k3_edges(dev, torch, np)
 
     # intra-in-P P symbols at 854x480 x 8: a band copied from the
     # reference (skips), the moving field (inter) and a flat patch no
@@ -379,7 +489,7 @@ def phase_kernels(dev, torch, np):
         fail(f"intra-in-P symbols lack an MB kind (skip/inter/intra): {kinds}")
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
-    for r in k23_rows(sym4, torch):
+    for r in k23_rows(sym4, torch, "intra-in-P 854x480 x 8 x 4 frames"):
         show(r, f"intra-in-P P symbols at 854x480 x 8 x 4 frames (MB kinds "
                 f"skip/inter/intra {kinds} per frame)")
     return rows
@@ -498,26 +608,36 @@ def check_dpbs(pipe, np, what, i):
         fail(f"{what}: QP mismatch or host repack")
 
 
-def phase_main(dev, np, card):
-    """Phase 4: the main path, 5 dispatches, enc DPB == dec DPB each time."""
+def phase_main(dev, torch, np, card):
+    """Phase 4: the main path, 5 dispatches, enc DPB == dec DPB each time;
+    K3 launched twice per entropy call (MB and slice level)."""
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
+    from tpuh264_torch.kernels import cavlc_cuda
 
     cfg = CodecConfig(width=1920, height=1080, streams=4, qp=None,
                       bitrate=4_000_000, intra_in_p=False)
     pipe = GOPDevicePipeline(cfg, gop_size=16, source_kind="rigid",
                              device=dev)
-    qps, times = [], []
+    spy = SymbolSpy(pipe, torch)
+    qps, times, k3 = [], [], []
     for i in range(5):
         qps.append(pipe.rc.current_qp())
+        n0 = cavlc_cuda.merge_tree.launches
         t0 = time.perf_counter()
         pipe.pump_frame()
         times.append(time.perf_counter() - t0)
+        k3.append(cavlc_cuda.merge_tree.launches - n0)
         check_dpbs(pipe, np, "1080p", i)
+    expect = [4 if st else 2 for st in spy.starts]
+    if k3 != expect:
+        fail(f"1080p: K3 launches per dispatch {k3}, expected {expect} "
+             f"(GOP starts {spy.starts})")
     print(f"phase 4: 1920x1080 x 4, CBR 4 Mbps, gop 16, rigid: 5 dispatches "
-          f"(20 frames, IDR at dispatch 0 and 4), decoder DPB == encoder DPB "
-          f"after each; QP {qps}; PSNR {pipe.last_psnr_y:.2f} dB; pump_frame "
-          f"s {[round(t, 2) for t in times]} [{card}]")
+          f"(20 frames, GOP starts {spy.starts}), decoder DPB == encoder DPB "
+          f"after each; K3 launches per dispatch {k3} (MB + slice level per "
+          f"entropy call); QP {qps}; PSNR {pipe.last_psnr_y:.2f} dB; "
+          f"pump_frame s {[round(t, 2) for t in times]} [{card}]")
 
 
 def phase_runs(dev, card):
@@ -822,7 +942,8 @@ def main() -> None:
     phase_small(dev, torch, np)
 
     launches = Launches()
-    launches.path("main path 1080p x 4", lambda: phase_main(dev, np, card))
+    launches.path("main path 1080p x 4",
+                  lambda: phase_main(dev, torch, np, card))
     phase_runs(dev, card)
     phase_intra_in_p(dev, torch, np, card, launches)
     phase_multiref(dev, torch, np, card, launches)

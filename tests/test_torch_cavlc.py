@@ -168,7 +168,8 @@ def test_encode_bits_iframe_matches_jax(qp):
     sym, _ = jif.encode_iframe_rows(y, u, v, qp)
     sps, pps = SPS.for_size(w, h), PPS()
     jh = jdp.slice_headers_device(sps, pps, qp, 0, True, s, deblock_idc=2)
-    th = tdp.slice_headers_device(sps, pps, qp, 0, True, s, deblock_idc=2)
+    th = tdp.slice_headers_device(sps, pps, qp, 0, True, s, deblock_idc=2,
+                                  device="cpu")
     np.testing.assert_array_equal(np.asarray(jh[0]), th[0].numpy())
     np.testing.assert_array_equal(np.asarray(jh[1]), th[1].numpy())
     ref = entropy_tpu.encode_bits_iframe(sym, qp, *jh)
@@ -200,7 +201,8 @@ def test_encode_bits_pframe_matches_jax(qp, nra):
     sps, pps = SPS.for_size(w, h), PPS()
     kw = dict(slice_type=SLICE_P, deblock_idc=2, num_ref_active=nra)
     jh = jdp.slice_headers_device(sps, pps, qp, 1, False, s, **kw)
-    th = tdp.slice_headers_device(sps, pps, qp, 1, False, s, **kw)
+    th = tdp.slice_headers_device(sps, pps, qp, 1, False, s, **kw,
+                                  device="cpu")
     ref = entropy_tpu.encode_bits_pframe(sym, qp, *jh, nra=nra)
     got = entropy_gpu.encode_bits_pframe(_torch_sym(TP.MBSymbolsP, sym),
                                          qp, *th, nra=nra)

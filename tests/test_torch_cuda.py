@@ -169,6 +169,98 @@ def test_pack_blocks_edge_inputs_on_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 27, 123])
+@pytest.mark.parametrize("n_out", [1, 16, 128, 8192])
+def test_merge_tree_edge_cases_on_card(dev, k, n_out):
+    """All-ones strings of 0, 1, 31, 32, 33 and 32*W bits, empty lanes,
+    lanes truncated at n_out, W 1 / 20 / 128, a ragged last block
+    (chip_smoke phase 2's generator)."""
+    from chip_smoke import K3_LANES, k3_case
+
+    rng = np.random.default_rng(1000 * k + n_out)
+    for w in (1, 20, 128):
+        wd, bd = [torch.from_numpy(a).to(dev)
+                  for a in k3_case(rng, np, K3_LANES, k, w)]
+        ko, kbits = cavlc_cuda.merge_tree(wd, bd, n_out)
+        po, pbits = cavlc_cuda.tree_merge(wd, bd, n_out)
+        torch.cuda.synchronize()
+        assert torch.equal(kbits, pbits) and torch.equal(ko, po), w
+
+
+def test_merge_tree_edge_inputs_on_cpu():
+    """The K3 edge-case generator covers what it claims (the CPU side of
+    the card test above; tests/test_torch_merge.py holds the plain version
+    to the JAX package's on the same inputs)."""
+    from chip_smoke import K3_LANES, k3_case
+
+    assert K3_LANES % 4 != 0  # a ragged last warp (4 lanes) and block (32)
+    rng = np.random.default_rng(9)
+    words, bits = k3_case(rng, np, K3_LANES, 27, 20)
+    assert words.shape == (K3_LANES, 27, 20) and bits.shape == (K3_LANES, 27)
+    assert bits.min() >= 0 and bits.max() <= 32 * 20  # within the budget
+    for b in (0, 1, 31, 32, 33, 640):
+        assert (bits == b).any(), b
+    u = words.view(np.uint32).astype(np.uint64)
+    keep = np.clip(bits[..., None] - 32 * np.arange(20), 0, 32)
+    full = (((np.uint64(1) << keep.astype(np.uint64)) - np.uint64(1))
+            << (32 - keep).astype(np.uint64))
+    assert not (u & ~full & np.uint64(0xFFFFFFFF)).any()  # zero past bits
+    all_ones = (u == full).all((-2, -1))
+    assert all_ones.sum() >= K3_LANES // 2           # edge + near-full lanes
+    assert ((bits == 0).all(-1)).any()               # every string empty
+    assert (bits.sum(-1) > 32 * 128).any()           # past 32*n_out at 128
+    _, b1 = k3_case(rng, np, 24, 1, 1)  # W = 1: the edge lengths <= 32
+    assert b1.max() <= 32 and set(np.unique(b1[1::4])) == {0, 1, 31, 32}
+
+
+def _sequential_merge(words, bits, n_out):
+    """Bit-level reference: each lane's strings appended in order as one
+    integer, cut at n_out words -> ([n, n_out] int32, [n] total bits)."""
+    w = words.shape[-1]
+    u = words.view(np.uint32)
+    out = np.zeros((len(bits), n_out), np.uint32)
+    for i in range(len(bits)):
+        acc, total = 0, 0
+        for k, lb in enumerate(bits[i].tolist()):
+            v = int.from_bytes(u[i, k].astype(">u4").tobytes(), "big")
+            acc = (acc << lb) | (v >> (32 * w - lb))
+            total += lb
+        acc = acc << (32 * n_out) >> total if total <= 32 * n_out \
+            else acc >> (total - 32 * n_out)
+        out[i] = np.frombuffer(acc.to_bytes(4 * n_out, "big"), ">u4")
+    return out.view(np.int32), bits.sum(-1)
+
+
+@pytest.mark.parametrize("k,w,n_out", [
+    (1, 20, 16), (1, 1, 1), (27, 20, 16), (27, 20, 128), (27, 1, 1),
+    (123, 128, 8192), (123, 20, 128), (123, 1, 16)])
+def test_merge_tree_plain_matches_sequential_reference(k, w, n_out):
+    """The plain version equals plain concatenation on every lane of the
+    K3 edge cases, lanes cut at n_out words included -- what the kernel
+    computes, so the card test above may demand equality everywhere."""
+    from chip_smoke import k3_case
+
+    words, bits = k3_case(np.random.default_rng(k + w + n_out), np, 13, k, w)
+    got_w, got_b = cavlc_cuda.merge_tree(torch.from_numpy(words),
+                                         torch.from_numpy(bits), n_out)
+    ref_w, ref_b = _sequential_merge(words, bits, n_out)
+    np.testing.assert_array_equal(got_b.numpy(), ref_b)
+    np.testing.assert_array_equal(got_w.numpy(), ref_w)
+
+
+def test_merge_tree_rejects_n_out_outside_range():
+    """n_out outside 1..8192 raises before the plain version or a launch,
+    on every device."""
+    words = torch.zeros((4, 3, 2), dtype=torch.int32)
+    bits = torch.zeros((4, 3), dtype=torch.int32)
+    for n_out in (0, -1, 8193):
+        with pytest.raises(ValueError):
+            cavlc_cuda.merge_tree(words, bits, n_out)
+    out, total = cavlc_cuda.merge_tree(words, bits, 1)
+    assert out.shape == (4, 1) and total.shape == (4,)
+
+
+@pytest.mark.cuda
 def test_wrappers_check_inputs_on_card(dev):
     y = torch.zeros((1, 32, 32), dtype=torch.int32, device=dev)
     g = torch.zeros((1, 58, 58), dtype=torch.int32, device=dev)
@@ -182,8 +274,15 @@ def test_wrappers_check_inputs_on_card(dev):
     bits = torch.zeros((4, 3), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         cavlc_cuda.merge_tree(words, bits.cpu(), 8)
-    with pytest.raises(RuntimeError):  # past the kernel's output buffer
-        cavlc_cuda.merge_tree(words, bits, 1024)
+    before = cavlc_cuda.merge_tree.launches
+    for n_out in (0, 8193):  # outside the kernel's 1..8192 words
+        with pytest.raises(ValueError):
+            cavlc_cuda.merge_tree(words, bits, n_out)
+    assert cavlc_cuda.merge_tree.launches == before
+    out, total = cavlc_cuda.merge_tree(words, bits, 8192)
+    torch.cuda.synchronize()
+    assert out.shape == (4, 8192) and not bool(out.any())
+    assert not bool(total.any())
     z = lambda *sh: torch.zeros(sh, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # levels not 16-byte aligned
         cavlc_cuda.pack_blocks(z(9 * 16)[1:129].reshape(8, 16), z(8), z(8),

@@ -6,58 +6,239 @@
 //
 // What it computes: for each lane, strings words[k] (W words each, all-
 // zero past their bit length bits[k]) appended in order, truncated at
-// n_out words, plus the total bit length.  In the pipeline a lane is one
-// MB and K = 27 chunk strings (MB header + luma DC, 16 luma AC, 2 chroma
-// DC, 8 chroma AC).
+// n_out words (1 <= n_out <= 8192), plus the total bit length.  In the
+// pipeline it runs at two levels: a lane is one MB with K = 27 chunk
+// strings of W = 20 words merged into 128 (MB_W), or one slice with
+// K = C + 2 or C + 3 strings of W = 128 words (slice header, the C MBs,
+// the P trailing skip_run, the rbsp trailing bits) merged into 8192
+// (SLICE_W).
 //
-// What bounds it on the H100: memory traffic -- every lane reads K x W
-// words (2160 B at K=27, W=20) and writes n_out words (512 B); the
-// shift/OR work per word is two instructions.  130,560 lanes per 1080p x 4
-// P dispatch.
+// Precondition: every string fits its budget, 0 <= bits[k] <= 32 * W.
+// Then the result equals the plain version's pairwise tree (whose
+// intermediate truncation at min(2w, n_out) words drops only bits that
+// land past n_out anyway) bit for bit, truncated lanes included.  A
+// longer string is already truncated by its producer, and the pipeline
+// flags it as an overflow (entropy_gpu.py `_merge_mbs`), so its dispatch
+// goes to the host packer.
 //
-// Design: one thread per lane appends the strings sequentially into a
-// local n_out-word buffer (word offset pos>>5, bit shift pos&31, one
-// spill word), reading only the words each string actually uses.  The
-// TPU kernel's binary tree of barrel shifts existed to keep the merge
-// vectorised across lanes without per-lane control flow; a GPU thread
-// has its own control flow, so the sequential append is both simpler
-// and does less work.  Truncation at n_out matches the plain version.
+// What bounds it on the H100: device memory.  A lane reads its K bit
+// lengths and only the words its strings use (a P dispatch's strings are
+// mostly empty: ~1 MB of 68 MB at the MB level of a 1080p x 4 dispatch)
+// and writes n_out + 1 words: 82.5 MB at that MB level (0.025 ms at
+// 3.35 TB/s), ~37 MB at its slice level (1,088 lanes of 32 KB).
+//
+// Design: every lane is merged into a zeroed tile of n_out words in
+// shared memory.  Each word of a string is shifted by the string's start
+// bit & 31 and ORed into at most two tile words with shared atomicOr:
+// only neighbouring strings share a word and OR commutes, so the result
+// does not depend on order.  Pieces at word >= n_out are dropped; a zero
+// shift writes one word (v << 32 is undefined in C++).  The tile leaves
+// with coalesced 16-byte stores (scalar head and tail where a row does
+// not start or end on a 16-byte boundary).  Two kernels:
+//  - merge_warp (K <= 32, n_out <= 256: the MB level): thread k of a warp
+//    holds string k of 4 lanes at once.  The 4 lanes' bit lengths load
+//    together, their start bits come from register shuffle scans, then
+//    the first words of the 4 lanes' strings load together: two rounds
+//    of device-memory latency for 4 lanes, not for one.  8 warps a block.
+//  - merge_block (any other shape: the slice level): a block of 256
+//    threads a lane.  The threads stage the K bit lengths in shared
+//    memory in one round, the first warp scans them 32 at a time with a
+//    carry (each string's start bit and its first index in the lane's
+//    list of used words: string k uses min(ceil(bits/32), W) words), and
+//    the threads then take the used words densely (thread j: used word j,
+//    its string by binary search), so a lane reads its used words, not
+//    K x W.  The tile (32 KB at 8192 words) and the two sums fit 48 KB of
+//    shared memory for K <= 1024.
+// There is no per-thread array indexed at run time and no cap below
+// n_out = 8192.  What still holds it back: a warp still waits through
+// two rounds of latency for its 4 lanes, and a string's words past its
+// first load one at a time (IDR and intra MBs); at the slice level the
+// 1,088 blocks of a 1080p x 4 dispatch run in ~1.65 waves (5 blocks an
+// SM, by registers), so the last one runs part full.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxOut = 256;
+constexpr int kMaxOut = 8192;      // SLICE_W: a 32 KB tile
+constexpr int kMaxK = 1024;        // strings a lane
+constexpr int kWarpK = 32;         // merge_warp: a thread a string
+constexpr int kWarpOut = 256;      // merge_warp: widest output
+constexpr int kWarpLanes = 4;      // merge_warp: lanes a warp
+constexpr int kBlockWarps = 8;     // merge_warp: warps a block
+constexpr int kBlockThreads = 256; // merge_block: threads a lane
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void merge_tree_kernel(const int32_t* __restrict__ words,
-                                  const int32_t* __restrict__ bits,
-                                  int32_t* __restrict__ out,
-                                  int32_t* __restrict__ out_bits, int64_t n,
-                                  int K, int W, int n_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t acc[kMaxOut];
-  for (int q = 0; q < n_out; ++q) acc[q] = 0u;
-  int64_t pos = 0;
-  for (int k = 0; k < K; ++k) {
-    const int lb = bits[i * K + k];
-    if (lb <= 0) continue;
-    const int nw = min((lb + 31) / 32, W);
-    const int64_t q0 = pos >> 5;
-    const int sh = (int)(pos & 31);
-    const int32_t* src = words + (i * K + k) * W;
-    for (int t = 0; t < nw; ++t) {
-      const uint32_t v = (uint32_t)src[t];
-      const int64_t q = q0 + t;
-      if (q < n_out) acc[q] |= v >> sh;
-      if (sh != 0 && q + 1 < n_out) acc[q + 1] |= v << (32 - sh);
+__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+
+// ORs word v of a string, its first bit at bit pos of the lane, into the
+// lane's tile of n_out words.
+__device__ __forceinline__ void put(uint32_t* tile, uint32_t v, int pos,
+                                    int n_out) {
+  if (v == 0u) return;
+  const int q = pos >> 5;
+  const int sh = pos & 31;
+  if ((unsigned)q < (unsigned)n_out) atomicOr(&tile[q], v >> sh);
+  if (sh != 0 && (unsigned)(q + 1) < (unsigned)n_out)
+    atomicOr(&tile[q + 1], v << (32 - sh));
+}
+
+// Copies count words of a shared tile to o, thread tid of G: a scalar
+// head up to o's next 16-byte boundary, 16-byte stores, a scalar tail.
+__device__ __forceinline__ void write_span(int32_t* o, const uint32_t* tile,
+                                           int count, int tid, int G) {
+  const int head =
+      min((int)(((16 - ((uintptr_t)o & 15)) & 15) >> 2), count);
+  const int n_vec = (count - head) >> 2;
+  for (int q = tid; q < head; q += G) o[q] = (int32_t)tile[q];
+  uint4* o4 = reinterpret_cast<uint4*>(o + head);
+  if (head == 0) {
+    const uint4* t4 = reinterpret_cast<const uint4*>(tile);
+    for (int q = tid; q < n_vec; q += G) o4[q] = t4[q];
+  } else {
+    for (int q = tid; q < n_vec; q += G) {
+      const uint32_t* s4 = tile + head + 4 * q;
+      o4[q] = make_uint4(s4[0], s4[1], s4[2], s4[3]);
     }
-    pos += lb;
   }
-  int32_t* o = out + i * n_out;
-  for (int q = 0; q < n_out; ++q) o[q] = (int32_t)acc[q];
-  out_bits[i] = (int32_t)pos;
+  for (int q = head + 4 * n_vec + tid; q < count; q += G)
+    o[q] = (int32_t)tile[q];
+}
+
+// K <= 32, n_out <= 256: a warp merges kWarpLanes consecutive lanes, whose
+// tiles lie back to back in shared memory as their rows do in out.
+__global__ void merge_warp(const int32_t* __restrict__ words,
+                           const int32_t* __restrict__ bits,
+                           int32_t* __restrict__ out,
+                           int32_t* __restrict__ out_bits, int64_t n, int K,
+                           int W, int n_out) {
+  constexpr int L = kWarpLanes;
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x & 31;
+  const int64_t i0 = ((int64_t)blockIdx.x * kBlockWarps + warp) * L;
+  if (i0 >= n) return;  // a whole warp
+  const int rows = (int)min((int64_t)L, n - i0);
+  const int span = round4(L * n_out);
+  uint32_t* tile = smem + warp * span;
+
+  int lb[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+    lb[l] = (l < rows && tid < K) ? __ldg(bits + (i0 + l) * K + tid) : 0;
+  uint4* tile4 = reinterpret_cast<uint4*>(tile);
+  for (int q = tid; q < span / 4; q += 32)
+    tile4[q] = make_uint4(0u, 0u, 0u, 0u);
+
+  int start[L], nw[L], total[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    int s = lb[l];  // inclusive sum over the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(kFull, s, d);
+      if (tid >= d) s += u;
+    }
+    start[l] = s - lb[l];
+    total[l] = __shfl_sync(kFull, s, 31);
+    nw[l] = lb[l] > 0 ? min((lb[l] + 31) >> 5, W) : 0;
+  }
+  // string tid of lane i0 + l starts at src + l * K * W
+  const int32_t* src = words + (i0 * K + tid) * W;
+  uint32_t v[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+    v[l] = nw[l] > 0 ? (uint32_t)__ldg(src + (int64_t)l * K * W) : 0u;
+  __syncwarp();
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    uint32_t* row = tile + l * n_out;
+    const int32_t* s = src + (int64_t)l * K * W;
+    put(row, v[l], start[l], n_out);
+    for (int t = 1; t < nw[l]; ++t)
+      put(row, (uint32_t)__ldg(s + t), start[l] + 32 * t, n_out);
+  }
+  __syncwarp();
+  write_span(out + i0 * n_out, tile, rows * n_out, tid, 32);
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+    if (tid == l && l < rows) out_bits[i0 + l] = total[l];
+}
+
+// Any K <= 1024, n_out <= 8192: a block of kBlockThreads threads a lane.
+__global__ void merge_block(const int32_t* __restrict__ words,
+                            const int32_t* __restrict__ bits,
+                            int32_t* __restrict__ out,
+                            int32_t* __restrict__ out_bits, int K, int W,
+                            int n_out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int tid = threadIdx.x;
+  const int64_t i = blockIdx.x;
+  uint32_t* tile = smem;
+  int* start = reinterpret_cast<int*>(smem + round4(n_out));
+  int* used = start + K + 1;
+
+  // 1. zero the tile and stage the bit lengths (in start); then the
+  // first warp turns them into the two exclusive prefix sums
+  uint4* tile4 = reinterpret_cast<uint4*>(tile);
+  for (int q = tid; q < round4(n_out) / 4; q += kBlockThreads)
+    tile4[q] = make_uint4(0u, 0u, 0u, 0u);
+  for (int k = tid; k < K; k += kBlockThreads)
+    start[k] = __ldg(bits + i * K + k);
+  __syncthreads();
+  if (tid < 32) {
+    int carry_bits = 0, carry_used = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + tid;
+      const int lb = k < K ? start[k] : 0;
+      const int nw = lb > 0 ? min((lb + 31) >> 5, W) : 0;
+      int sb = lb, su = nw;  // inclusive sums over the warp
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int ub = __shfl_up_sync(kFull, sb, d);
+        const int uu = __shfl_up_sync(kFull, su, d);
+        if (tid >= d) {
+          sb += ub;
+          su += uu;
+        }
+      }
+      if (k < K) {
+        start[k] = carry_bits + sb - lb;
+        used[k] = carry_used + su - nw;
+      }
+      carry_bits += __shfl_sync(kFull, sb, 31);
+      carry_used += __shfl_sync(kFull, su, 31);
+    }
+    if (tid == 0) {
+      start[K] = carry_bits;
+      used[K] = carry_used;
+    }
+  }
+  __syncthreads();
+
+  // 2. scatter the used words into the tile
+  const int n_used = used[K];
+  const int32_t* src = words + i * K * W;
+  for (int j = tid; j < n_used; j += kBlockThreads) {
+    int lo = 0, hi = K - 1;  // the last string k with used[k] <= j
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (used[mid] <= j) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    const int t = j - used[lo];
+    put(tile, (uint32_t)__ldg(src + (int64_t)lo * W + t), start[lo] + 32 * t,
+        n_out);
+  }
+  __syncthreads();
+
+  // 3. write the row, then the total
+  write_span(out + i * n_out, tile, n_out, tid, kBlockThreads);
+  if (tid == 0) out_bits[i] = start[K];
 }
 
 }  // namespace
@@ -66,10 +247,22 @@ extern "C" int th264_merge_tree(const int32_t* words, const int32_t* bits,
                                 int32_t* out, int32_t* out_bits, int64_t n,
                                 int K, int W, int n_out, void* stream) {
   if (n <= 0) return 0;
-  if (n_out > kMaxOut || n_out <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int64_t blocks = (n + threads - 1) / threads;
-  merge_tree_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      words, bits, out, out_bits, n, K, W, n_out);
+  if (n_out < 1 || n_out > kMaxOut || K < 1 || K > kMaxK || W < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (K <= kWarpK && n_out <= kWarpOut) {
+    const int64_t lanes = (int64_t)kBlockWarps * kWarpLanes;
+    const int64_t blocks = (n + lanes - 1) / lanes;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)kBlockWarps * round4(kWarpLanes * n_out) * 4;
+    merge_warp<<<(unsigned)blocks, 32 * kBlockWarps, smem, st>>>(
+        words, bits, out, out_bits, n, K, W, n_out);
+  } else {
+    if (n > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        (size_t)(round4(n_out) + round4(2 * (K + 1))) * 4;
+    merge_block<<<(unsigned)n, kBlockThreads, smem, st>>>(
+        words, bits, out, out_bits, K, W, n_out);
+  }
   return (int)cudaGetLastError();
 }

@@ -23,10 +23,11 @@ _HDR_CACHE = {}
 def slice_headers_device(
     sps: SPS, pps: PPS, qp: int, frame_num: int, idr: bool, s: int,
     slice_type: int = SLICE_I, ref: bool = True, deblock_idc: int = 1,
-    num_ref_active: int = 1, device="cpu",
+    num_ref_active: int = 1, *, device,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(stream, row) slice headers: (words [s, R, 4] int32 MSB-first,
-    bit lengths [s, R] int32) on `device`, cached per configuration."""
+    bit lengths [s, R] int32) on `device` (required: the port's entry
+    points name theirs), cached per configuration."""
     device = torch.device(device)
     key = (sps.mb_width, sps.mb_height, qp, frame_num, idr, s,
            pps.pic_init_qp_minus26, slice_type, ref, deblock_idc,

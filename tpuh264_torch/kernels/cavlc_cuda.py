@@ -11,8 +11,9 @@ plain version is `block_slots` + `pack_slots` (tpuh264 entropy_tpu.py
 
 K3 replaces cavlc_pallas.py `_merge_kernel` (pallas_call at :570 in
 `_merge_tree_dev`, entry `merge_tree` :508): K variable-length MSB-first
-strings per lane concatenated into one string of `n_out` words.  Its
-plain version is `tree_merge` (entropy_tpu.py :389).
+strings per lane concatenated into one string of `n_out` words, at the
+MB level (27 chunks -> MB_W) and the slice level (header, MBs, tails ->
+SLICE_W).  Its plain version is `tree_merge` (entropy_tpu.py :389).
 
 Word strings are int32 tensors holding the two's-complement view of
 MSB-first uint32 words.  The plain versions compute in int64 holding
@@ -306,7 +307,8 @@ def merge_strings(a, la, b, lb, n_out: int):
 def tree_merge(strings: torch.Tensor, lens: torch.Tensor, n_out: int):
     """Pairwise-merge [..., K, W] strings (lens [..., K]) into one
     ([..., n_out] int32 words, [...] int32 bits); K is padded to a power
-    of two with empty strings."""
+    of two with empty strings.  (The JAX version returns a lone string
+    untruncated; here K = 1 is cut at n_out words like any K.)"""
     k = strings.shape[-2]
     kp = 1 << (k - 1).bit_length()
     s = _u32(strings)
@@ -321,22 +323,38 @@ def tree_merge(strings: torch.Tensor, lens: torch.Tensor, n_out: int):
         s, ln = merge_strings(s[..., 0::2, :], ln[..., 0::2],
                               s[..., 1::2, :], ln[..., 1::2], w2)
         w = w2
-    out = s[..., 0, :]
+    out = s[..., 0, :n_out]
     if out.shape[-1] < n_out:
         out = torch.nn.functional.pad(out, (0, n_out - out.shape[-1]))
     return _i32(out), ln[..., 0].to(I32)
 
 
+MERGE_MAX_OUT = 8192  # K3's widest output (SLICE_W): a 32 KB shared tile
+MERGE_MAX_K = 1024    # strings a lane (their prefix sums share the 48 KB)
+
+
 def merge_tree(words: torch.Tensor, bits: torch.Tensor, n_out: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: words [..., K, W] int32 MSB-first strings (zero past their bit
-    length), bits [..., K] -> ([..., n_out] int32, [...] int32)."""
+    length), bits [..., K] -> ([..., n_out] int32, [...] int32 total bits),
+    for 1 <= n_out <= 8192.
+
+    The kernel equals the plain `tree_merge` where every string fits its
+    budget (bits <= 32 * W), lanes truncated at n_out words included; a
+    longer string is truncated by its producer and flagged as an overflow
+    by the pipeline, whose dispatch then goes to the host packer."""
+    if not 1 <= n_out <= MERGE_MAX_OUT:
+        raise ValueError(f"merge_tree: n_out {n_out} outside 1.."
+                         f"{MERGE_MAX_OUT}")
     if words.device.type == "cpu":
         return tree_merge(words, bits, n_out)
     lead = words.shape[:-2]
     k, w = words.shape[-2:]
     cuda_lib.check_inputs("merge_tree", words.device, [
         (words, (*lead, k, w)), (bits, (*lead, k))])
+    if not 1 <= k <= MERGE_MAX_K or w < 1:
+        raise ValueError(f"merge_tree: kernel takes 1 <= K <= {MERGE_MAX_K} "
+                         f"strings of W >= 1 words, got K={k}, W={w}")
     n = int(np.prod(lead)) if lead else 1
     out = torch.empty((*lead, n_out), dtype=I32, device=words.device)
     out_bits = torch.empty(lead, dtype=I32, device=words.device)
@@ -349,4 +367,3 @@ def merge_tree(words: torch.Tensor, bits: torch.Tensor, n_out: int
 
 
 merge_tree.launches = 0  # launches of the K3 kernel
-

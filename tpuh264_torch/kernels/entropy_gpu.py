@@ -9,8 +9,8 @@ Port of tpuh264/kernels/entropy_tpu.py (its counterpart on the TPU):
      (`cavlc_cuda.pack_blocks`);
   3. the 27 chunk strings of every MB merged into one by K3
      (`cavlc_cuda.merge_tree`);
-  4. per slice (one MB row), header + MBs (+ the trailing P skip_run)
-     merged by the plain `tree_merge`, then rbsp trailing bits.
+  4. per slice (one MB row), header + MBs (+ the trailing P skip_run) +
+     the rbsp trailing bits merged by K3 again, in one call.
 
 Byte-identical to the JAX version and to the host packers
 (tests/test_torch_cavlc.py).  Capacity caps (BLOCK_W / MB_W / SLICE_W
@@ -24,17 +24,8 @@ import numpy as np
 import torch
 
 from ..entropy import cavlc_tables as tbl
-from . import tables
-from .cavlc_cuda import (
-    M32,
-    _bit_length,
-    _i32,
-    _u32,
-    merge_strings,
-    merge_tree,
-    pack_blocks,
-    tree_merge,
-)
+from . import cavlc_cuda, tables
+from .cavlc_cuda import M32, _bit_length, _i32, pack_blocks
 
 I32 = torch.int32
 BLOCK_W = 20    # 640 bits per residual block (incl. MB header slots)
@@ -108,20 +99,29 @@ def _chunk_headers(slots_len, slots_val, s, r, c):
             torch.cat([hv[..., None, :], z], -2).contiguous())
 
 
-def _finish_slices(slice_chunks, slice_bits_in):
-    """Merge per-slice chunk lists [S,R,K,MB_W] (bits [S,R,K]) and append
-    rbsp trailing bits -> (slice words [S,R,SLICE_W] int32 MSB-first,
-    slice_bytes [S,R] int32, overflow bool tensor)."""
-    body_w, body_bits = tree_merge(slice_chunks, slice_bits_in, SLICE_W)
+def slice_strings(parts_w, parts_b):
+    """K3's slice-level inputs: the per-slice string parts ([S,R,k,MB_W]
+    int32 words, [S,R,k] bits, in slice order) joined along k, then the
+    rbsp trailing string -- a stop bit and zeros up to the byte boundary,
+    its length from the body's bit total -> (words [S,R,K,MB_W], bits
+    [S,R,K], overflow bool tensor)."""
+    body_bits = sum(b.sum(-1, dtype=I32) for b in parts_b)
     overflow = (body_bits > 32 * SLICE_W - 64).any()
-    # rbsp trailing: a stop bit, then zeros up to the byte boundary
     tl = 1 + ((8 - ((body_bits + 1) % 8)) % 8)
-    t_w = torch.zeros((*body_bits.shape, 1), dtype=torch.int64,
+    t_w = torch.zeros((*body_bits.shape, 1, MB_W), dtype=I32,
                       device=body_bits.device)
-    t_w[..., 0] = 1 << 31
-    slice_w, slice_bits = merge_strings(_u32(body_w), body_bits.long(), t_w,
-                                        tl.long(), SLICE_W)
-    return _i32(slice_w), (slice_bits // 8).to(I32), overflow
+    t_w[..., 0, 0] = -(1 << 31)  # word 0 = 1 << 31 (int32 view)
+    return (torch.cat([*parts_w, t_w], -2),
+            torch.cat([*parts_b, tl.to(I32)[..., None]], -1), overflow)
+
+
+def _finish_slices(parts_w, parts_b):
+    """One K3 call per dispatch: each slice's parts and its rbsp trailing
+    bits -> (slice words [S,R,SLICE_W] int32 MSB-first, slice_bytes [S,R]
+    int32, overflow bool tensor)."""
+    words, bits, overflow = slice_strings(parts_w, parts_b)
+    slice_w, slice_bits = cavlc_cuda.merge_tree(words, bits, SLICE_W)
+    return slice_w, (slice_bits // 8).to(I32), overflow
 
 
 def _merge_mbs(chunks_hw, chunks_bits, present):
@@ -130,13 +130,15 @@ def _merge_mbs(chunks_hw, chunks_bits, present):
     string was truncated by K2)."""
     chunks_bits = torch.where(present, chunks_bits, 0).contiguous()
     chunks_hw = torch.where(present[..., None], chunks_hw, 0).contiguous()
-    mb_hw, mb_bits = merge_tree(chunks_hw, chunks_bits, MB_W)
+    mb_hw, mb_bits = cavlc_cuda.merge_tree(chunks_hw, chunks_bits, MB_W)
     overflow = ((mb_bits > 32 * MB_W).any()
                 | (chunks_bits > 32 * BLOCK_W).any())
     return mb_hw, mb_bits, overflow
 
 
-def _slices(mb_hw, mb_bits, hdr_hw, hdr_len, tail=None):
+def _slice_parts(mb_hw, mb_bits, hdr_hw, hdr_len, tail=None):
+    """Each slice's parts in order: its header, its MBs, and (P) the
+    trailing skip_run string."""
     hdr_pad = torch.nn.functional.pad(hdr_hw.to(I32),
                                       (0, MB_W - hdr_hw.shape[-1]))
     parts_w = [hdr_pad[..., None, :], mb_hw]
@@ -144,7 +146,7 @@ def _slices(mb_hw, mb_bits, hdr_hw, hdr_len, tail=None):
     if tail is not None:
         parts_w.append(tail[0][..., None, :])
         parts_b.append(tail[1][..., None])
-    return _finish_slices(torch.cat(parts_w, -2), torch.cat(parts_b, -1))
+    return parts_w, parts_b
 
 
 def encode_bits_iframe(symbols, qp: int, hdr_hw, hdr_len):
@@ -190,7 +192,8 @@ def encode_bits_iframe(symbols, qp: int, hdr_hw, hdr_len):
         (cbp_c == 2)[..., None].expand(s, r, c, 8),
     ], -1)
     mb_hw, mb_bits, overflow = _merge_mbs(chunks_hw, chunks_bits, present)
-    slice_hw, slice_bytes, ovf2 = _slices(mb_hw, mb_bits, hdr_hw, hdr_len)
+    slice_hw, slice_bytes, ovf2 = _finish_slices(
+        *_slice_parts(mb_hw, mb_bits, hdr_hw, hdr_len))
     return slice_hw, slice_bytes, overflow | ovf2
 
 
@@ -289,14 +292,10 @@ def pframe_pack_inputs(symbols, nra: int = 1):
     return (levels27, nc27, maxc27, hdr_l, hdr_v), code_res, present, marked
 
 
-def encode_bits_pframe(symbols, qp: int, hdr_hw, hdr_len, nra: int = 1):
-    """P-slice payload bits on the device (rows slice mode), bit for bit
-    the entropy/packp.py emission: per coded MB a skip_run, then
-    Intra_16x16-in-P or P_L0_16x16 syntax (ref_idx_l0 as te(v) when
-    nra > 1), plus each slice's trailing skip_run.  The skip runs -- the
-    only cross-MB sequential syntax -- come from a running maximum of
-    each row's coded-MB indices."""
-    del qp
+def pframe_slice_parts(symbols, hdr_hw, hdr_len, nra: int = 1):
+    """K2 and the MB-level K3 on P symbols, then each slice's parts
+    (`_slice_parts`, with the trailing skip_run) -> (parts_w, parts_b,
+    overflow bool tensor)."""
     s, r, c = symbols.kind.shape
     dev = symbols.kind.device
     args, code_res, present, marked = pframe_pack_inputs(symbols, nra)
@@ -315,6 +314,20 @@ def encode_bits_pframe(symbols, qp: int, hdr_hw, hdr_len, nra: int = 1):
     t_hw[..., 0] = torch.where(
         trail > 0, (tlv.long() << torch.clamp(32 - tll, 0, 31).long()) & M32,
         0)
-    slice_hw, slice_bytes, ovf2 = _slices(mb_hw, mb_bits, hdr_hw, hdr_len,
-                                          tail=(_i32(t_hw), tll))
+    parts_w, parts_b = _slice_parts(mb_hw, mb_bits, hdr_hw, hdr_len,
+                                    tail=(_i32(t_hw), tll))
+    return parts_w, parts_b, overflow
+
+
+def encode_bits_pframe(symbols, qp: int, hdr_hw, hdr_len, nra: int = 1):
+    """P-slice payload bits on the device (rows slice mode), bit for bit
+    the entropy/packp.py emission: per coded MB a skip_run, then
+    Intra_16x16-in-P or P_L0_16x16 syntax (ref_idx_l0 as te(v) when
+    nra > 1), plus each slice's trailing skip_run.  The skip runs -- the
+    only cross-MB sequential syntax -- come from a running maximum of
+    each row's coded-MB indices."""
+    del qp
+    parts_w, parts_b, overflow = pframe_slice_parts(symbols, hdr_hw, hdr_len,
+                                                    nra)
+    slice_hw, slice_bytes, ovf2 = _finish_slices(parts_w, parts_b)
     return slice_hw, slice_bytes, overflow | ovf2
