@@ -29,8 +29,12 @@ tpuh264_torch/csrc, then:
      decoder DPB on every path: the RTC preset, intra-in-P, two
      references, host ingest with fan-out 2 and a drop_frames, and the
      I-only DevicePipeline; the intra-in-P and two-reference cases code
-     intra MBs in P frames (the CPU tests decode the same CPU bytes in
-     the JAX package's golden decoder);
+     intra MBs in P frames; and on the session path (EncoderSession,
+     DecoderPool), 6 frames across an IDR: intra44 with deblock (Intra_4x4
+     MBs required), two references, three temporal layers, single slice
+     with gop 1 -- GPU bytes and recon == CPU's, GPU decoders == recon
+     (the CPU tests decode the same CPU bytes in the JAX package's
+     golden decoder);
   4. drives the main path -- GOPDevicePipeline, 1920x1080 x 4 streams, CBR
      4 Mbps, RTC preset, gop 16, "rigid" source -- for 5 dispatches
      (crossing an IDR): after every dispatch the decode-from-bits DPB
@@ -55,11 +59,23 @@ tpuh264_torch/csrc, then:
      parse + I scan) equals the encoder's reconstruction;
  10. the live App (impl "tpu_gop") with the defaults at 854x480 x 8 for
      10 s, or longer until its first dispatch has retired: its stats,
-     capture drops included, then stop().
+     capture drops included, then stop();
+ 11. EncoderSession at the reference's operating point, 854x480 x 8 from
+     RGBA (a different "meeting" clip frame per stream), intra44 +
+     deblock, gop 8, CBR 1 Mbps, 10 frames across an IDR: every frame's 8
+     access units through DecoderPool.decode_batch == the recon; Intra_4x4
+     MBs coded in the IDR frames; K1 launched once per P frame; per-frame
+     copy / encode / entropy / decode ms;
+ 12. single-slice I frames (the wavefront) at 854x480 x 8, gop 1, 2
+     frames, each stream decoded by its own DecoderSession == the recon;
+ 13. the live App with impl "tpu" (the session Pipeline: 1 encoder ->
+     ring -> 8 decoders) at 854x480 for 10 s: its stats, then stop();
+     every decoder == the encoder recon at the last frame.
 
-Every path of phases 4 and 6-10 is driven with the kernels' launch
+Every path of phases 4 and 6-13 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
-launched every kernel it runs, and none may reach K3's plain version.
+launched every kernel it runs (phase 12 has no P frame, so none), and
+none may reach the plain version of K1 or K3.
 Any failure exits non-zero.  The last two lines are the kernel table
 (launches summed over those paths) and
 {"ok": true, "device": {...}}.  Nothing here imports JAX or the JAX
@@ -130,7 +146,8 @@ def max_abs_err(x, y) -> int:
 class Launches:
     """The three wrappers' launch counts, zeroed before and read after each
     path the smoke drives; summed over those paths for the kernel table.
-    K3's plain version (`tree_merge`) is counted too: it must not run."""
+    The plain versions of K1 (`_sad_field`) and K3 (`tree_merge`) are
+    counted too: neither may run on a path."""
 
     def __init__(self):
         from tpuh264_torch.kernels import cavlc_cuda, me_cuda
@@ -140,25 +157,31 @@ class Launches:
         self.total = [0, 0, 0]
 
     def path(self, name, fn, needs=(0, 1, 2)):
-        from tpuh264_torch.kernels import cavlc_cuda
+        from tpuh264_torch.kernels import cavlc_cuda, me_cuda
 
         for f in self.fns:
             f.launches = 0
-        plain, calls = cavlc_cuda.tree_merge, []
-        cavlc_cuda.tree_merge = lambda *a: calls.append(a) or plain(*a)
+        plains = [(me_cuda, "_sad_field"), (cavlc_cuda, "tree_merge")]
+        saved = [getattr(m, a) for m, a in plains]
+        calls = [[], []]
+        for (m, a), f, c in zip(plains, saved, calls):
+            setattr(m, a, lambda *x, f=f, c=c: c.append(1) or f(*x))
         try:
             out = fn()
         finally:
-            cavlc_cuda.tree_merge = plain
+            for (m, a), f in zip(plains, saved):
+                setattr(m, a, f)
         counts = [f.launches for f in self.fns]
         for i, n in enumerate(counts):
             self.total[i] += n
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
-              f"K3 {counts[2]}; plain K3 calls {len(calls)}")
+              f"K3 {counts[2]}; plain K1 calls {len(calls[0])}, plain K3 "
+              f"calls {len(calls[1])}")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
-        if calls:
-            fail(f"{name}: K3's plain version ran {len(calls)} times")
+        if calls[0] or calls[1]:
+            fail(f"{name}: a plain version ran (K1 {len(calls[0])}, K3 "
+                 f"{len(calls[1])} times)")
         return out, counts
 
 
@@ -594,6 +617,107 @@ def phase_small(dev, torch, np):
           "last dispatch)")
 
 
+def session_cases():
+    """Phase 3's session cases over 64x48 x 2 at QP 28, 6 frames: (name,
+    CodecConfig arguments, I4x4 MBs required in the IDR frames).  The CPU
+    tests decode the CPU's bytes of each in the JAX package's golden
+    decoder."""
+    return [
+        ("intra44 + deblock, IPPP across an IDR",
+         dict(intra44=True, deblock=True, gop_size=4), True),
+        ("2 references", dict(num_ref_frames=2, gop_size=4), False),
+        ("3 temporal layers", dict(temporal_layers=3, gop_size=5), False),
+        ("single slice, gop 1", dict(slice_mode="single", gop_size=1), False),
+    ]
+
+
+def session_frames(n):
+    """n I420 frames [2, 48, 64] (+ chroma): stream 0 the "meeting" clip
+    with moving diagonal stripes on its left half (Intra_4x4 wins there),
+    stream 1 noise (intra MBs in P frames)."""
+    import numpy as np
+
+    from tpuh264_torch.engine.sources import clip_frames, yuv_frame
+
+    clip = clip_frames(64, 48, n, "meeting")
+    yy, xx = np.mgrid[0:48, 0:32]
+    out = []
+    for t in range(n):
+        y0 = clip[t][0].copy()
+        y0[:, :32] = np.where(((2 * xx + yy + t) // 5) % 2, 60, 180)
+        noise = yuv_frame(64, 48, t, "noise", seed=1)
+        out.append([np.stack([a, b]).astype(np.uint8)
+                    for a, b in zip((y0, *clip[t][1:]), noise)])
+    return out
+
+
+def run_session_case(kw, device, frames, decode: bool):
+    """One session case on `device`: the EncoderSession's access units per
+    frame and stream, its recon per frame (numpy), a DecoderPool's batched
+    decode of every frame (where `decode`), and the IDR frames."""
+    import numpy as np
+
+    from tpuh264_torch.engine import CodecConfig, DecoderPool, EncoderSession
+
+    enc = EncoderSession(CodecConfig(width=64, height=48, streams=2, qp=28,
+                                     **kw), device=device)
+    pool = None
+    if decode:
+        pool = DecoderPool(device=device)
+        for i in range(2):
+            pool.init_decoder(i)
+    data, recon, dec, idr = [], [], [], []
+    for t, f in enumerate(frames):
+        encoded = enc.encode_frame_yuv(*f)
+        aus = [x.data for x in encoded]
+        data.append(aus)
+        if encoded[0].is_idr:
+            idr.append(t)
+        recon.append([np.asarray(p.cpu()) for p in enc.recon])
+        if pool is not None:
+            out = pool.decode_batch(list(enumerate(aus)))
+            dec.append([out[i] for i in range(2)])
+    return data, recon, dec, idr
+
+
+def phase_small_sessions(dev, np):
+    """Phase 3, sessions: at 64x48 x 2 the session path on the GPU emits
+    the CPU's bytes (plain versions) and recon, and the GPU decoders equal
+    the encoder recon after every frame."""
+    from tpuh264_torch.entropy import native
+
+    frames = session_frames(6)
+    for name, kw, need_i4 in session_cases():
+        g_data, g_rec, g_dec, idr = run_session_case(kw, dev, frames, True)
+        c_data, c_rec, _, c_idr = run_session_case(kw, "cpu", frames, False)
+        if idr != c_idr or len(idr) < 2:
+            fail(f"64x48 session, {name}: IDR frames {idr} / {c_idr}")
+        for t in range(len(frames)):
+            if g_data[t] != c_data[t]:
+                fail(f"64x48 session, {name}: GPU bytes differ from CPU "
+                     f"bytes at frame {t}")
+            for a, b in zip(g_rec[t], c_rec[t]):
+                if not np.array_equal(a, b):
+                    fail(f"64x48 session, {name}: GPU recon differs from "
+                         f"CPU recon at frame {t}")
+            for i in range(2):
+                out = g_dec[t][i]
+                if out is None or not all(
+                        np.array_equal(p, r[i]) for p, r in zip(out,
+                                                                g_rec[t])):
+                    fail(f"64x48 session, {name}: decoder {i} != encoder "
+                         f"recon at frame {t}")
+        i4 = sum(int((native.parse_iframe(c_data[t][0])[3][:, 0] == 4).sum())
+                 for t in idr)
+        if need_i4 and i4 == 0:
+            fail(f"64x48 session, {name}: no Intra_4x4 MB coded")
+        print(f"phase 3: 64x48 x 2 session, {name}, {len(frames)} frames "
+              f"(IDR at {idr}): GPU bytes == CPU bytes "
+              f"({sum(len(b) for d in g_data for b in d)} B), GPU recon == "
+              f"CPU recon, GPU DecoderPool == encoder recon after every "
+              f"frame; Intra_4x4 MBs in stream 0's IDR frames: {i4}")
+
+
 def check_dpbs(pipe, np, what, i):
     """Every decode stream equals its encoded stream's encoder DPB head."""
     fan = pipe.fanout
@@ -904,6 +1028,204 @@ def phase_app(dev, card, launches):
           f"{box['stop_s']:.1f} s [{card}]")
 
 
+def clip_streams(w, h, n, streams):
+    """n I420 frames [streams, h, w] (+ chroma) uint8 of the "meeting"
+    clip, stream s starting at clip frame s: a different camera-like frame
+    per stream."""
+    import numpy as np
+
+    from tpuh264_torch.engine.sources import clip_frames
+
+    clip = clip_frames(w, h, n + streams - 1, "meeting")
+    return [[np.stack([clip[t + i][p] for i in range(streams)])
+             .astype(np.uint8) for p in range(3)] for t in range(n)]
+
+
+def clip_rgba(dev, w, h, n, streams):
+    """`clip_streams` as RGBA input [streams, h, w, 4] uint8, converted on
+    the card by the port's yuv420_to_rgba."""
+    import torch
+
+    from tpuh264_torch.kernels import color
+
+    return [color.yuv420_to_rgba(*(torch.from_numpy(p).to(dev) for p in f))
+            .cpu().numpy() for f in clip_streams(w, h, n, streams)]
+
+
+def phase_sessions(dev, np, card, launches):
+    """Phase 11: EncoderSession at 854x480 x 8 from RGBA (intra44, deblock,
+    gop 8, CBR 1 Mbps, 10 frames across an IDR), every frame's 8 access
+    units decoded by DecoderPool.decode_batch == the recon."""
+    from tpuh264_torch.engine import CodecConfig, DecoderPool, EncoderSession
+    from tpuh264_torch.entropy import native
+    from tpuh264_torch.kernels import me_cuda
+
+    w, h, s, n = 854, 480, 8, 10
+    t0 = time.perf_counter()
+    frames = clip_rgba(dev, w, h, n, s)
+    t_src = time.perf_counter() - t0
+    cfg = CodecConfig(width=w, height=h, streams=s, intra44=True,
+                      deblock=True, gop_size=8, bitrate=1_000_000)
+    enc = EncoderSession(cfg, device=dev)
+    pool = DecoderPool(device=dev)
+    for i in range(s):
+        pool.init_decoder(i)
+    rows, i4 = [], []
+
+    def drive():
+        for t, rgba in enumerate(frames):
+            k0 = me_cuda.sad_field.launches
+            out = enc.encode_frame(rgba)
+            k1 = me_cuda.sad_field.launches - k0
+            t0 = time.perf_counter()
+            dec = pool.decode_batch([(i, f.data) for i, f in enumerate(out)])
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            recon = [p.cpu().numpy() for p in enc.recon]
+            for i in range(s):
+                if dec[i] is None or not all(
+                        np.array_equal(a, r[i][:a.shape[0], :a.shape[1]])
+                        for a, r in zip(dec[i], recon)):
+                    fail(f"480p sessions: decoder {i} != encoder recon at "
+                         f"frame {t}")
+                if dec[i][0].shape != (h, w):
+                    fail(f"480p sessions: decoder output {dec[i][0].shape}")
+            if k1 != (0 if out[0].is_idr else 1):
+                fail(f"480p sessions: K1 launched {k1} times for frame {t} "
+                     f"(IDR {out[0].is_idr}); one per P frame expected")
+            if out[0].is_idr:
+                mb = [native.parse_iframe(f.data)[3][:, 0] for f in out]
+                i4.append(sum(int((m == 4).sum()) for m in mb)
+                          / sum(m.size for m in mb))
+            tm = out[0].timings
+            rows.append(dict(frame=t, idr=out[0].is_idr, qp=out[0].qp,
+                             bytes=sum(len(f.data) for f in out), k1=k1,
+                             copy_ms=round(tm["copy_ms"], 1),
+                             encode_ms=round(tm["encode_ms"], 1),
+                             entropy_ms=round(tm["entropy_ms"], 1),
+                             decode_ms=round(dec_ms, 1)))
+
+    launches.path("EncoderSession + DecoderPool 480p x 8", drive, needs=(0,))
+    if len(i4) != 2 or min(i4) <= 0:
+        fail(f"480p sessions: Intra_4x4 share of the IDR frames {i4}")
+    # what the Intra_4x4 trial adds to the I scan: frame 0, off / on in turns
+    import torch
+
+    from tpuh264_torch.engine.encoder import _pad_multiple
+    from tpuh264_torch.kernels import color, iframe
+
+    yuv = color.rgba_to_yuv420(torch.from_numpy(
+        _pad_multiple(frames[0], 16, axes=(1, 2))).to(dev))
+    scan_ms = {False: [], True: []}
+    for on in (False, True, True, False):
+        scan_ms[on].append(round(fenced_ms(lambda: iframe.encode_iframe_scan(
+            *yuv, 34, intra44=on)), 1))
+    for r in rows:
+        print(f"phase 11: frame {r}")
+    mean = lambda k, idr: sum(r[k] for r in rows if r["idr"] == idr) / max(
+        1, sum(r["idr"] == idr for r in rows))
+    print(f"phase 11: EncoderSession 854x480 x 8 from RGBA (clip 'meeting' "
+          f"made and converted in {t_src:.1f} s), intra44 + deblock, gop 8, "
+          f"CBR 1 Mbps, 10 frames: DecoderPool.decode_batch == encoder "
+          f"recon after every frame; Intra_4x4 MB share of the IDR frames "
+          f"{[round(x, 4) for x in i4]}; K1 once per P frame; mean ms IDR / "
+          f"P: copy {mean('copy_ms', True):.1f} / {mean('copy_ms', False):.1f}"
+          f", encode {mean('encode_ms', True):.1f} / "
+          f"{mean('encode_ms', False):.1f}, entropy "
+          f"{mean('entropy_ms', True):.1f} / {mean('entropy_ms', False):.1f}"
+          f", decode {mean('decode_ms', True):.1f} / "
+          f"{mean('decode_ms', False):.1f}; one I scan (QP 34, fenced) "
+          f"without / with the Intra_4x4 trial {scan_ms[False]} / "
+          f"{scan_ms[True]} ms [{card}]")
+
+
+def phase_wavefront(dev, np, card, launches):
+    """Phase 12: single-slice I frames (the wavefront) at 854x480 x 8, gop
+    1, 2 frames, each stream decoded by its own DecoderSession == recon.
+    No P frame: K1 is not on this path."""
+    from tpuh264_torch.engine import CodecConfig, DecoderSession, EncoderSession
+
+    w, h, s = 854, 480, 8
+    frames = clip_streams(w, h, 2, s)
+    enc = EncoderSession(CodecConfig(width=w, height=h, streams=s,
+                                     slice_mode="single", gop_size=1),
+                         device=dev)
+    decs = [DecoderSession(device=dev) for _ in range(s)]
+    ms = []
+
+    def drive():
+        for t, planes in enumerate(frames):
+            out = enc.encode_frame_yuv(*planes)
+            if not all(f.is_idr for f in out):
+                fail("wavefront: a frame that is not an IDR")
+            recon = [p.cpu().numpy() for p in enc.recon]
+            t0 = time.perf_counter()
+            for i, d in enumerate(decs):
+                got = d.decode(out[i].data)
+                if got is None or not all(
+                        np.array_equal(a, r[i][:a.shape[0], :a.shape[1]])
+                        for a, r in zip(got, recon)):
+                    fail(f"wavefront: decoder {i} != encoder recon, frame {t}")
+            ms.append((round(out[0].timings["encode_ms"], 1),
+                       round(out[0].timings["entropy_ms"], 1),
+                       round((time.perf_counter() - t0) * 1e3, 1)))
+
+    _, counts = launches.path("wavefront 480p x 8", drive, needs=())
+    if counts[0]:
+        fail(f"wavefront: K1 launched {counts[0]} times on an I-only path")
+    waves = 2 * ((h + 15) // 16 - 1) + (w + 15) // 16
+    print(f"phase 12: single-slice I frames (wavefront, {waves} waves) "
+          f"854x480 x 8, gop 1, 2 frames: each stream's DecoderSession == "
+          f"encoder recon; (encode, entropy, 8 decodes) ms per frame {ms} "
+          f"[{card}]")
+
+
+def phase_app_tpu(dev, np, card, launches):
+    """Phase 13: the live App with impl "tpu" (the session Pipeline: one
+    encoder -> ring -> 8 decoders) at 854x480 for ~10 s."""
+    from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.engine.app import App
+
+    app = App(CodecConfig(width=854, height=480, streams=8), impl="tpu",
+              device=dev)
+    box = {}
+
+    def drive():
+        app.start()
+        pipe = app.pipeline
+        t0 = time.perf_counter()
+        time.sleep(10.0)
+        while (pipe.frame_index < 2 and app.is_processing()
+               and time.perf_counter() - t0 < 120.0):
+            time.sleep(0.1)
+        box["wait_s"] = time.perf_counter() - t0
+        box["stats"] = app.get_stats()
+        app.stop()
+        box["pipe"] = pipe
+
+    launches.path("App tpu 480p fan-out 8", drive, needs=(0,))
+    stats, pipe = box["stats"], box["pipe"]
+    if app.error is not None:
+        fail(f"App tpu: the pump thread failed: {app.error!r}")
+    if app.is_processing() or app.pipeline is not None:
+        fail("App tpu: stop() left the pipeline running")
+    if pipe.ring.produced < 2 or len(pipe.last_outputs) != 8:
+        fail(f"App tpu: {pipe.ring.produced} frames, "
+             f"{len(pipe.last_outputs)} decoder outputs")
+    recon = [p.cpu().numpy() for p in pipe.encoder.recon]
+    for i, out in pipe.last_outputs.items():
+        if out is None or not all(
+                np.array_equal(a, r[0][:a.shape[0], :a.shape[1]])
+                for a, r in zip(out, recon)):
+            fail(f"App tpu: decoder {i} != the encoder recon")
+    shown = {k: (round(v, 3) if isinstance(v, float) else v)
+             for k, v in stats.items()}
+    print(f"phase 13: App(impl='tpu') 854x480, fan-out 8, defaults, "
+          f"{box['wait_s']:.1f} s: {pipe.ring.produced} frames encoded and "
+          f"each decoded 8x (frame_index {pipe.frame_index}); every decoder "
+          f"== the encoder recon at the last frame; get_stats() {shown} "
+          f"[{card}]")
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpuh264_torch", "csrc")):
@@ -940,6 +1262,7 @@ def main() -> None:
 
     rows = phase_kernels(dev, torch, np)
     phase_small(dev, torch, np)
+    phase_small_sessions(dev, np)
 
     launches = Launches()
     launches.path("main path 1080p x 4",
@@ -950,6 +1273,9 @@ def main() -> None:
     phase_ingest_fanout(dev, torch, np, card, launches)
     phase_device_pipeline(dev, torch, np, card, launches)
     phase_app(dev, card, launches)
+    phase_sessions(dev, np, card, launches)
+    phase_wavefront(dev, np, card, launches)
+    phase_app_tpu(dev, np, card, launches)
 
     for r, n in zip(rows, launches.total):
         r["launches"] = n

@@ -231,3 +231,56 @@ def test_pipelines_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="is_available"):
             cls(cfg, device="cuda:0")
     assert GOPDevicePipeline(cfg, device="cpu").device.type == "cpu"
+
+
+def _ring_trace(mod):
+    """The same publish / read / release sequence on a FrameRing of
+    `mod`: every result, every refusal, the counters."""
+    ring = mod.FrameRing(pool_size=3, max_frame_size=64)
+    out, claims = [], []
+    for step in range(14):
+        try:
+            if step % 3 == 2 and claims:
+                slot, gen = claims.pop(0)
+                out.append(("read", ring.read(slot, gen)))
+                for _ in range(2):
+                    ring.release(slot, gen)
+                ring.release(slot, gen)  # a third release: refused
+            else:
+                c = ring.try_publish(bytes([step]) * (step + 1), fanout=2)
+                out.append(("publish", c))
+                if c is not None:
+                    claims.append(c)
+        except (RuntimeError, ValueError) as e:
+            out.append((type(e).__name__, str(e)))
+    for data in (bytes(65), b""):
+        try:
+            out.append(ring.try_publish(data, fanout=1))
+        except ValueError as e:
+            out.append(str(e))
+    out.append([ring.refcount(i) for i in range(3)])
+    return out + [ring.produced, ring.dropped, ring.released]
+
+
+def test_ring_copy_behaves_as_the_original():
+    from tpuh264.engine import ring as j_ring
+    from tpuh264_torch.engine import ring as t_ring
+
+    assert _ring_trace(t_ring) == _ring_trace(j_ring)
+    assert any(o[0] == "RuntimeError" for o in _ring_trace(t_ring)[:14])
+
+
+def test_intra_tables_match():
+    """The Intra_4x4 tables (weights, rounding, shifts, block scan) and the
+    I16-vs-I4x4 lambda table equal the JAX package's."""
+    from tpuh264.kernels import iframe as j_iframe
+    from tpuh264.kernels import intra44 as j_i44
+    from tpuh264_torch.kernels import iframe as t_iframe
+    from tpuh264_torch.kernels import intra44 as t_i44
+
+    for a, b in zip((t_i44._W_NP, t_i44._R_NP, t_i44._S_NP),
+                    (j_i44._W_NP, j_i44._R_NP, j_i44._S_NP)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    assert t_i44.BLK_SCAN == j_i44.BLK_SCAN
+    assert t_iframe._LAMBDA8 == np.asarray(j_iframe._LAMBDA8).tolist()

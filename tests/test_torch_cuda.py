@@ -369,3 +369,65 @@ def test_float_sources_card_vs_cpu_within_one_level(dev, kind):
     for a, b in zip(device_source_gop(96, 64, 4, 3, "noise", 5, dev),
                     device_source_gop(96, 64, 4, 3, "noise", 5, "cpu")):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_intra44_pred_directional_on_card(dev):
+    """Integer matmul/einsum is not implemented for CUDA int tensors; the
+    port's broadcast-and-sum form runs there and equals the CPU, as do
+    the tie-breaking argmin and the causal MB encode / decode."""
+    from tpuh264_torch.kernels import intra44 as I44
+
+    rng = np.random.default_rng(11)
+    n = torch.from_numpy(rng.integers(0, 256, (3, 50, 13)).astype(np.int32))
+    got = I44.pred_directional(n.to(dev))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(),
+                                                    I44.pred_directional(n))
+    ties = torch.from_numpy(rng.integers(0, 3, (500, 9)).astype(np.int32))
+    assert torch.equal(I44.argmin_first(ties.to(dev)).cpu(),
+                       I44.argmin_first(ties))
+    src = torch.from_numpy(rng.integers(0, 256, (2, 6, 16, 16)).astype(
+        np.int32))
+    left = torch.from_numpy(rng.integers(0, 256, (2, 6, 16)).astype(np.int32))
+    l_ok = torch.from_numpy(rng.random((2, 6)) < 0.6)
+    for qp in (12, 30, 45):
+        a = I44.encode_mb(src.to(dev), left.to(dev), l_ok.to(dev), qp)
+        b = I44.encode_mb(src, left, l_ok, qp)
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)
+        rec = I44.decode_mb(a[2], a[1], left.to(dev), l_ok.to(dev), qp)
+        assert torch.equal(rec.cpu(), b[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["intra44 deblock", "2 refs", "temporal 3",
+                                  "single slice"])
+def test_session_on_card_equals_cpu(dev, case):
+    """64x48 x 2 streams, 5 frames across an IDR: the session on the card
+    (K1 in every P frame) emits the CPU session's bytes, and a pool on the
+    card decodes them to the encoder's recon."""
+    from tpuh264_torch.engine import CodecConfig, DecoderPool, EncoderSession
+    from tpuh264_torch.engine import sources
+
+    kw = {"intra44 deblock": dict(intra44=True, deblock=True, gop_size=3),
+          "2 refs": dict(num_ref_frames=2, gop_size=4),
+          "temporal 3": dict(temporal_layers=3, gop_size=4),
+          "single slice": dict(slice_mode="single", gop_size=1)}[case]
+    cfg = CodecConfig(width=64, height=48, streams=2, qp=28, **kw)
+    encs = [EncoderSession(cfg, device=d) for d in (dev, "cpu")]
+    pool = DecoderPool(device=dev)
+    for i in range(2):
+        pool.init_decoder(i)
+    before = me_cuda.sad_field.launches
+    for t in range(5):
+        y, u, v = zip(*(sources.yuv_frame(64, 48, t, "noise", seed=s)
+                        for s in range(2)))
+        frame = [np.stack(p).astype(np.uint8) for p in (y, u, v)]
+        gpu, cpu = (e.encode_frame_yuv(*frame) for e in encs)
+        assert [f.data for f in gpu] == [f.data for f in cpu], t
+        out = pool.decode_batch([(i, f.data) for i, f in enumerate(gpu)])
+        for i in range(2):
+            for p, r in zip(out[i], encs[0].recon):
+                np.testing.assert_array_equal(p, r[i].cpu().numpy())
+    assert (me_cuda.sad_field.launches > before) == (case != "single slice")

@@ -155,12 +155,13 @@ def test_port_imports_no_jax():
 
 def test_unported_options_raise():
     """What is still unported raises: the DPB halo and the 8x8 transform
-    of the P path, Intra_4x4 in the I scan, and the App implementations
-    other than "tpu_gop"."""
+    of the P encode and decode, and the "libav" implementation of the App
+    and of the session Pipeline."""
     import torch
 
+    from tpuh264_torch.engine import Pipeline
     from tpuh264_torch.engine.app import App
-    from tpuh264_torch.kernels import iframe, pframe
+    from tpuh264_torch.kernels import pframe
 
     y = torch.zeros((1, 16, 16), dtype=torch.uint8)
     c = torch.zeros((1, 8, 8), dtype=torch.uint8)
@@ -168,8 +169,11 @@ def test_unported_options_raise():
     for kw in (dict(halo=True), dict(t8=True)):
         with pytest.raises(NotImplementedError):
             pframe.encode_pframe_rows_multi(y, c, c, *refs, 28, **kw)
+    sym, _, _ = pframe.encode_pframe_rows_multi(y, c, c, *refs, 28)
     with pytest.raises(NotImplementedError):
-        iframe.encode_iframe_scan(y, c, c, 28, intra44=True)
-    for impl in ("tpu", "libav"):
-        with pytest.raises(NotImplementedError):
-            App(CodecConfig(**dict(CFG, qp=28)), impl=impl, device="cpu")
+        pframe.decode_pframe_rows_multi(sym, *refs, 28, t8=True)
+    cfg = CodecConfig(**dict(CFG, qp=28))
+    with pytest.raises(NotImplementedError):
+        App(cfg, impl="libav", device="cpu")
+    with pytest.raises(NotImplementedError):
+        Pipeline(cfg, impl="libav", device="cpu")

@@ -199,3 +199,105 @@ def test_port_engine_is_its_own_library():
     assert os.path.dirname(t_native.LIB).endswith(
         os.path.join("tpuh264_torch", "build"))
     assert os.path.isfile(t_native.SRC)
+
+
+def _i44_symbols(pipe, qp=26):
+    """Intra_4x4 I symbols of a gradient frame (64x48 x 1) from the port's
+    I scan, as the packer's per-MB arrays; Intra_4x4 is chosen in some
+    MBs."""
+    import torch
+
+    from tpuh264_torch.kernels import iframe
+
+    yy, xx = np.mgrid[0:pipe.h16, 0:pipe.w16]
+    y = np.where(((2 * xx + yy) // 5) % 2, 60, 180)[None].astype(np.uint8)
+    u = np.full((1, pipe.h16 // 2, pipe.w16 // 2), 100, np.uint8)
+    sym, _ = iframe.encode_iframe_scan(*(torch.from_numpy(p)
+                                         for p in (y, u, u + 30)), qp,
+                                       intra44=True)
+    n = (pipe.h16 // 16) * (pipe.w16 // 16)
+    npy = lambda x, *sh: x.numpy().reshape(n, *sh)
+    info = np.stack([npy(sym.mode), npy(sym.cmode), npy(sym.cbp_luma),
+                     npy(sym.cbp_chroma)], -1).astype(np.int32)
+    assert (info[:, 0] == 4).any() and (info[:, 0] != 4).any()
+    return info, (npy(sym.luma_dc, 16), npy(sym.luma_ac, 16, 16),
+                  npy(sym.chroma_dc, 2, 4), npy(sym.chroma_ac, 2, 4, 15),
+                  npy(sym.i4modes, 16))
+
+
+def _slices_of(data, sps, pps):
+    """The P slices of an access unit as (rbsp, header bits, first MB)."""
+    from tpuh264_torch.core import nal
+    from tpuh264_torch.core.bitstream import BitReader
+    from tpuh264_torch.core.sliceheader import SliceHeader
+
+    out = []
+    for ridc, ntype, rbsp in nal.split_annexb(data):
+        r = BitReader(rbsp)
+        h = SliceHeader.parse(r, sps, pps, False, ref=ridc != 0)
+        out.append((rbsp, r.bit_position, h.first_mb_in_slice))
+    return out
+
+
+def test_widened_pack_iframe_and_parse_iframe_match(gop):
+    """pack_iframe with Intra_4x4 MBs, a single slice, a non-IDR I frame,
+    no parameter sets, one thread: the JAX bytes; parse_iframe of each
+    (with its parameter sets): the JAX arrays, the packed symbols back."""
+    pipe, _ = gop
+    info, (ldc, lac, cdc, cac, i4m) = _i44_symbols(pipe)
+    args = (info, ldc, lac, cdc, cac, pipe.sps, pipe.pps, 26)
+    for kw in (dict(i4modes=i4m), dict(i4modes=i4m, slice_mode="single",
+                                        threads=1),
+               dict(i4modes=i4m, idr=False, frame_num=5, include_ps=False,
+                    deblock_idc=2)):
+        a = t_native.pack_iframe(*args, **kw)
+        assert a == j_native.pack_iframe(*args, **kw), kw
+        if not kw.get("include_ps", True):
+            a = t_native.pack_iframe(*args, **dict(kw, include_ps=True))
+        for threads in (0, 1):
+            pa = t_native.parse_iframe(a, threads=threads)
+            pb = j_native.parse_iframe(a, threads=threads)
+            assert vars(pa[0]) == vars(pb[0]) and vars(pa[1]) == vars(pb[1])
+            assert pa[2] == pb[2] == 26
+            for x, y in zip(pa[3:], pb[3:]):
+                assert x.dtype == y.dtype
+                np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(pa[3], info)
+        np.testing.assert_array_equal(pa[8][info[:, 0] == 4],
+                                      i4m[info[:, 0] == 4])
+    with pytest.raises(RuntimeError):
+        t_native.parse_iframe(b"\x00\x00\x01\x65garbage")
+
+
+def test_widened_pack_pframe_and_parse_pframe_slices_match(gop):
+    """pack_pframe as one slice, and as a non-reference picture: the JAX
+    bytes; parse_pframe_slices of each: the JAX arrays, and the symbols
+    of the coded (not skipped) MBs."""
+    pipe, seen = gop
+    s = pipe.config.streams
+    n = (pipe.h16 // 16) * (pipe.w16 // 16)
+    _, qp, _, sym = seen[-1]
+    npy = lambda x, *sh: x.numpy().reshape(-1, s, n, *sh)[0, 0]
+    info = np.stack([npy(getattr(sym, f)) for f in (
+        "kind", "mode", "cmode", "cbp_luma", "cbp_chroma", "mvdx", "mvdy",
+        "refidx")], -1).astype(np.int32)
+    arrs = (npy(sym.luma_dc, 16), npy(sym.luma_ac, 16, 16),
+            npy(sym.chroma_dc, 2, 4), npy(sym.chroma_ac, 2, 4, 15))
+    nra = pipe.n_refs
+    args = (info, *arrs, pipe.sps, pipe.pps, qp)
+    for kw in (dict(slice_mode="single", num_ref_active=nra),
+               dict(ref=False, frame_num=3, num_ref_active=nra),
+               dict(slice_mode="single", ref=False, deblock_idc=2)):
+        a = t_native.pack_pframe(*args, **kw)
+        assert a == j_native.pack_pframe(*args, **kw), kw
+        sl = _slices_of(a, pipe.sps, pipe.pps)
+        assert len(sl) == (1 if kw.get("slice_mode") else pipe.h16 // 16)
+        k = kw.get("num_ref_active", 1)
+        pa = t_native.parse_pframe_slices(sl, pipe.sps, pipe.pps, k)
+        pb = j_native.parse_pframe_slices(sl, pipe.sps, pipe.pps, k)
+        for x, y, want in zip(pa, pb, (info, *arrs)):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+            if k == nra:
+                coded = info[:, 0] != 0
+                np.testing.assert_array_equal(x[coded], want[coded])

@@ -3,8 +3,9 @@
 On the card, phase 3 holds the GPU's bytes and decoder DPB equal to the
 CPU's for every case.  Here the CPU's bytes of the same cases (taken
 from chip_smoke.py itself) decode in the JAX package's golden decoder to
-the port's decoder DPB, which closes the chain GPU == CPU == golden.
-Phase 9's own decode of DevicePipeline bytes (`decode_bytes`: native
+the port's decoder DPB, which closes the chain GPU == CPU == golden; the
+same for phase 3's session cases, to the EncoderSession's recon of every
+frame.  Phase 9's own decode of DevicePipeline bytes (`decode_bytes`: native
 parse + I scan) is held to the golden decoder and to the encoder's
 reconstruction too."""
 
@@ -59,3 +60,23 @@ def test_phase9_own_decode_of_device_pipeline_bytes():
             assert torch.equal(rec[p].to(torch.uint8), dec[p])
             hh, ww = gold[p].shape
             np.testing.assert_array_equal(gold[p], dec[p][0, :hh, :ww])
+
+
+SESSION_CASES = chip_smoke.session_cases()
+
+
+@pytest.mark.parametrize("case", range(len(SESSION_CASES)),
+                         ids=[c[0] for c in SESSION_CASES])
+def test_phase3_session_cpu_bytes_decode_in_golden_to_recon(case):
+    name, kw, need_i4 = SESSION_CASES[case]
+    data, recon, _, idr = chip_smoke.run_session_case(
+        kw, "cpu", chip_smoke.session_frames(6), decode=False)
+    assert len(idr) >= 2
+    for si in range(2):
+        frames = gcodec.decode_annexb_seq(b"".join(d[si] for d in data))
+        assert len(frames) == 6
+        for t, f in enumerate(frames):
+            for p in range(3):
+                hh, ww = f[p].shape
+                np.testing.assert_array_equal(f[p], recon[t][p][si][:hh, :ww],
+                                              err_msg=f"{name} s{si} f{t}")

@@ -15,13 +15,13 @@ for the live controls.  Same surface here:
   a control while running restarts the pipeline with the new config.
 * Capture backpressure: when the pump falls behind the capture clock by
   more than the frame-pool budget, source frames are DROPPED and counted
-  (`dropped_capture`) through the pipeline's `drop_frames`.
+  (`dropped_capture`).
 * `request_keyframe()` routes to the encoder owner (a forced IDR).
 
 Of the implementations, "tpu_gop" (the device IPPP pipeline,
-`devpipe.GOPDevicePipeline`) is ported; "tpu" (the per-frame session
-`Pipeline`) and "libav" (host sessions) raise NotImplementedError.  The
-impl strings are the JAX App's API values.
+`devpipe.GOPDevicePipeline`) and "tpu" (the per-frame session `Pipeline`
+of engine/pipeline.py) are ported; "libav" (host sessions) raises
+NotImplementedError.  The impl strings are the JAX App's API values.
 """
 
 from __future__ import annotations
@@ -38,8 +38,6 @@ _log = logging.getLogger(__name__)
 
 IMPLEMENTATIONS = ("tpu_gop", "tpu", "libav")
 _NOT_PORTED = {
-    "tpu": "the session Pipeline (ROADMAP 'What waits': M7 sessions, M8 "
-           "runtime)",
     "libav": "the libav host sessions (ROADMAP 'What waits': M8 runtime)",
 }
 
@@ -56,7 +54,9 @@ class App:
     """Lifecycle owner for one running pipeline on `device` (the card
     unless the caller asks for another; no card there raises).
 
-    impl "tpu_gop": the device IPPP pipeline with decode-from-bits."""
+    impl "tpu_gop": the device IPPP pipeline with decode-from-bits;
+    "tpu": the per-frame session pipeline (EncoderSession -> ring ->
+    DecoderPool)."""
 
     def __init__(self, config: Optional[CodecConfig] = None,
                  impl: str = "tpu_gop", source_kind: str = "moving_gradient",
@@ -80,9 +80,13 @@ class App:
     # -- lifecycle -------------------------------------------------------
 
     def _build(self):
+        cfg = dataclasses.replace(self.config)  # pipeline owns its copy
+        if self.impl == "tpu":
+            from .pipeline import Pipeline
+
+            return Pipeline(cfg, impl="tpu", device=self.device)
         from .devpipe import GOPDevicePipeline
 
-        cfg = dataclasses.replace(self.config)  # pipeline owns its copy
         k = GOPDevicePipeline.FRAMES_PER_DISPATCH
         gop = max(k, cfg.gop_size // k * k)
         return GOPDevicePipeline(cfg, gop_size=gop,
@@ -129,14 +133,18 @@ class App:
         cfg = self.config
         frame_dt = 1.0 / max(cfg.fps, 1)
         pool_budget = cfg.pool_size  # frames of backlog before dropping
-        step = pipe.FRAMES_PER_DISPATCH
+        is_gop = hasattr(pipe, "FRAMES_PER_DISPATCH")
+        step = pipe.FRAMES_PER_DISPATCH if is_gop else 1
         produced = 0
         t0 = time.monotonic()
         try:
             while not self._stop_evt.is_set():
                 if self._force_keyframe:
                     self._force_keyframe = False
-                    pipe.force_idr()
+                    if is_gop:
+                        pipe.force_idr()
+                    else:
+                        pipe.encoder.force_key_frame()
                 pipe.pump_frame()
                 produced += step
                 # capture-clock pacing + busy-drop backpressure: if the
@@ -145,7 +153,11 @@ class App:
                 behind = (time.monotonic() - t0) / frame_dt - produced
                 if behind > pool_budget:
                     ndrop = int(behind - pool_budget) + 1
-                    pipe.drop_frames(ndrop)
+                    if is_gop:
+                        pipe.drop_frames(ndrop)
+                    else:
+                        pipe.stats.on_drop("capture", ndrop)
+                        pipe.frame_index += ndrop
                     produced += ndrop
                 elif behind < 0:
                     time.sleep(min(-behind * frame_dt, 0.25))
@@ -165,7 +177,8 @@ class App:
         snap["resolution"] = self.config.resolution_name
         snap["streams"] = self.config.streams
         snap["threads"] = self.config.effective_threads()
-        snap["psnr_y"] = pipe.last_psnr_y
+        if hasattr(pipe, "last_psnr_y"):
+            snap["psnr_y"] = pipe.last_psnr_y
         self.last_stats = snap
         return snap
 

@@ -1,40 +1,58 @@
 """I-frame encoder/decoder core in PyTorch: row-slice parallel MB scans.
 
-Port of tpuh264/kernels/iframe.py (Intra_16x16 path, `intra44=False`).
-Each MB row is its own slice, so the only causal chain is the left
-neighbour within a row: the column `lax.scan` of the JAX version
-becomes a Python loop over the C MB columns, every step batched over
-all (stream, MB row) pairs.  The first column is a Python-level branch
-(no left neighbour: DC prediction at 128 only).
+Port of tpuh264/kernels/iframe.py.  Each MB row is its own slice, so the
+only causal chain is the left neighbour within a row: the column
+`lax.scan` of the JAX version becomes a Python loop over the C MB
+columns, every step batched over all (stream, MB row) pairs.  The first
+column is a Python-level branch (no left neighbour: DC prediction at 128
+only).
+
+With `intra44` every column also runs the causal Intra_4x4 trial
+(intra44.py) and keeps, per MB, whichever of Intra_16x16 and Intra_4x4
+has the lower Lagrangian cost J = 8*SSD + lam8[qp]*rate, with the JAX
+module's integer `_LAMBDA8` table and rate proxy `_rate_bits`.
 
 `_intra16_mb` (one column's Intra_16x16 encode) is shared with the
 intra-in-P scan of pframe.py, and `_intra_residuals` /
 `_intra_recon_scan` (the decode) with the P decoder's intra MBs.
 
 Bit-exact with the JAX version (tests/test_torch_transform_iframe_deblock.py,
-tests/test_torch_devicepipe_app.py).  On the card these loops are
-launch-bound (120 columns of small kernels at 1080p); a fused column
-kernel or a CUDA graph is later work.
+tests/test_torch_intra44.py).  On the card these loops are launch-bound
+(120 columns of small kernels at 1080p); a fused column kernel or a CUDA
+graph is later work.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from . import intra44 as I44
+from . import tables
 from . import transform as T
 
 I32 = torch.int32
 
+# mode-decision lambda table and rate proxy of the I16-vs-I4x4 decision:
+# the integer values of tpuh264/kernels/iframe.py `_LAMBDA8` (the golden
+# codec's LAMBDA8_MODE), computed by the same Python float expression
+_LAMBDA8 = [int(0.85 * 2.0 ** ((qp - 12) / 3.0) * 8) for qp in range(52)]
+tables.register("pow2_16", lambda: np.asarray([1 << k for k in range(16)],
+                                               np.int32))
+
 
 class MBSymbols(NamedTuple):
     """Per-MB entropy symbols, layouts shared with native/cavlc.cpp and
-    tpuh264.kernels.iframe.MBSymbols."""
+    tpuh264.kernels.iframe.MBSymbols.  `mode` 4 marks an Intra_4x4 MB:
+    then `i4modes` holds its block modes, `cbp_luma` its 4-bit per-8x8
+    pattern, `luma_ac` full 16-coefficient zigzag blocks, and `luma_dc`
+    is unused."""
 
-    mode: torch.Tensor        # [S, R, C] int32 luma pred mode
+    mode: torch.Tensor        # [S, R, C] int32 luma pred mode (4 = I4x4)
     cmode: torch.Tensor       # [S, R, C] int32 chroma pred mode
-    cbp_luma: torch.Tensor    # [S, R, C] int32 0/1
+    cbp_luma: torch.Tensor    # [S, R, C] int32 0/1 (I16) or 0..15 (I4x4)
     cbp_chroma: torch.Tensor  # [S, R, C] int32 0..2
     luma_dc: torch.Tensor     # [S, R, C, 16] int16 zigzag levels
     luma_ac: torch.Tensor     # [S, R, C, 16, 16] int16 zigzag (slot 0 unused)
@@ -223,39 +241,76 @@ def _left_edges(rec):
     return rec[0][..., :, 15], rec[1][..., :, 7], rec[2][..., :, 7]
 
 
+def _rate_bits(coeffs: torch.Tensor, dims) -> torch.Tensor:
+    """Sum of 2*bit_length(|c|)+1 over the nonzero levels along `dims`
+    (the JAX module's rate proxy, integer only)."""
+    a = coeffs.to(I32).abs()
+    bl = (a[..., None] >= tables.get("pow2_16", a.device)).sum(-1, dtype=I32)
+    return torch.where(a > 0, 2 * bl + 1, 0).sum(dims, dtype=I32)
+
+
+def _intra44_choice(m: Intra16, ymb, left_y, first: bool, qp: int):
+    """The Intra_4x4 trial of one MB column [S, R] against the Intra_16x16
+    result `m`: per MB the lower J = 8*SSD + lam8[qp]*rate wins, Intra_16x16
+    on ties.  Returns (m with the I4x4 MBs' luma fields and recon
+    substituted, i4modes [S, R, 16] int16 (-1 for Intra_16x16 MBs))."""
+    s, r = ymb.shape[:2]
+    if first:  # no left MB: zeros stand in, and no mode reads them
+        left_y = torch.zeros((s, r, 16), dtype=I32, device=ymb.device)
+    l_ok = torch.full((s, r), not first, dtype=torch.bool, device=ymb.device)
+    _, m44, coef44, cbp44, rec44 = I44.encode_mb(ymb, left_y, l_ok, qp)
+    rec_y = m.rec[0]
+    d16 = rec_y - ymb
+    d44 = rec44 - ymb
+    ssd16 = (d16 * d16).sum((-1, -2), dtype=I32)
+    ssd44 = (d44 * d44).sum((-1, -2), dtype=I32)
+    r16 = 8 + _rate_bits(m.dc_zz, (-1,)) + _rate_bits(m.ac_zz, (-1, -2, -3))
+    r44 = 96 + _rate_bits(coef44, (-1, -2))
+    lam8 = _LAMBDA8[min(max(qp, 0), 51)]
+    use = 8 * ssd44 + lam8 * r44 < 8 * ssd16 + lam8 * r16
+    u1, u2 = use[..., None], use[..., None, None]
+    m = m._replace(
+        mode=torch.where(use, 4, m.mode).to(I32),
+        cbp_luma=torch.where(use, cbp44, m.cbp_luma).to(I32),
+        dc_zz=torch.where(u1, 0, m.dc_zz),
+        ac_zz=torch.where(u2[..., None], coef44.reshape(s, r, 4, 4, 16),
+                          m.ac_zz),
+        rec=(torch.where(u2, rec44, rec_y), *m.rec[1:]))
+    return m, torch.where(u1, m44, -1).to(torch.int16)
+
+
 def encode_iframe_scan(y, u, v, qp: int, intra44: bool = False
                        ) -> Tuple[MBSymbols, Tuple[torch.Tensor, ...]]:
     """Encode [S, H, W] frames (u, v [S, H/2, W/2]) as I frames with one
-    slice per MB row.  Returns (symbols, (recon_y, recon_u, recon_v))
-    with uint8 recon, exactly as tpuh264.kernels.iframe.encode_iframe_scan."""
-    if intra44:
-        raise NotImplementedError("intra44 is not ported yet (ROADMAP)")
+    slice per MB row, with the Intra_4x4 trial where `intra44`.  Returns
+    (symbols, (recon_y, recon_u, recon_v)) with uint8 recon, exactly as
+    tpuh264.kernels.iframe.encode_iframe_scan."""
     qpc = T.chroma_qp_from_luma(qp)
     s, h, w = y.shape
     r, c = h // 16, w // 16
     y_mbs = _mb_view(y.to(I32), 16)  # [C, S, R, 16, 16]
     u_mbs = _mb_view(u.to(I32), 8)
     v_mbs = _mb_view(v.to(I32), 8)
+    i16 = torch.int16
+    no_i4 = torch.full((s, r, 16), -1, dtype=i16, device=y.device)
 
     left = (None, None, None)
     outs = []
     for col in range(c):
         m = _intra16_mb(y_mbs[col], u_mbs[col], v_mbs[col], left, col == 0,
                         qp, qpc)
+        i4m = no_i4
+        if intra44:
+            m, i4m = _intra44_choice(m, y_mbs[col], left[0], col == 0, qp)
         left = _left_edges(m.rec)
-        i16 = torch.int16
         outs.append((
             m.mode, m.cmode, m.cbp_luma, m.cbp_chroma, m.dc_zz.to(i16),
             m.ac_zz.reshape(s, r, 16, 16).to(i16), m.chroma_dc.to(i16),
-            m.chroma_ac.to(i16), *(x.to(torch.uint8) for x in m.rec)))
+            m.chroma_ac.to(i16), i4m, *(x.to(torch.uint8) for x in m.rec)))
 
     cols = [torch.stack(f, dim=2) for f in zip(*outs)]  # [S, R, C, ...]
-    symbols = MBSymbols(
-        *cols[:8],
-        i4modes=torch.full((s, r, c, 16), -1, dtype=torch.int16,
-                           device=y.device),
-    )
-    recon = tuple(_mbs_to_plane(x) for x in cols[8:])
+    symbols = MBSymbols(*cols[:9])
+    recon = tuple(_mbs_to_plane(x) for x in cols[9:])
     return symbols, recon
 
 
@@ -294,12 +349,15 @@ def _intra_residuals(symbols, qp: int, qpc: int):
     return res_y, chroma(0), chroma(1)
 
 
-def _intra_recon_scan(mode, cmode, res, other=None, is_intra=None):
-    """Left-neighbour prediction of Intra_16x16 MBs, column by column,
-    plus the residuals `res` of `_intra_residuals`.  Where `is_intra` is
-    False an MB takes its reconstruction from `other` ([S,R,C,16,16],
-    [S,R,C,8,8] x 2) instead, and serves as the next MB's left neighbour.
-    Returns int32 [S,R,C,16,16], [S,R,C,8,8] x 2."""
+def _intra_recon_scan(mode, cmode, res, other=None, is_intra=None,
+                      i44=None):
+    """Left-neighbour prediction of intra MBs, column by column, plus the
+    residuals `res` of `_intra_residuals`.  Where `is_intra` is False an
+    MB takes its reconstruction from `other` ([S,R,C,16,16], [S,R,C,8,8]
+    x 2) instead, and serves as the next MB's left neighbour.  With `i44`
+    = (luma_ac [S,R,C,16,16], i4modes [S,R,C,16], qp) the MBs of mode 4
+    take the causal Intra_4x4 reconstruction.  Returns int32
+    [S,R,C,16,16], [S,R,C,8,8] x 2."""
     s, r, c = mode.shape
     lead, dev = (s, r), mode.device
     left = (None, None, None)
@@ -325,6 +383,15 @@ def _intra_recon_scan(mode, cmode, res, other=None, is_intra=None):
             _cblocks_to_mb(torch.clamp(_chroma_blocks(predv)
                                        + res[2][:, :, col], 0, 255)),
         )
+        if i44 is not None:
+            coef, i4m, qp = i44
+            left_y = (torch.zeros((s, r, 16), dtype=I32, device=dev) if first
+                      else left[0])
+            l_ok = torch.full(lead, not first, dtype=torch.bool, device=dev)
+            rec44 = I44.decode_mb(coef[:, :, col], i4m[:, :, col], left_y,
+                                  l_ok, qp)
+            rec = (torch.where((mode[:, :, col] == 4)[..., None, None],
+                               rec44, rec[0]), *rec[1:])
         if other is not None:
             sel = is_intra[:, :, col][..., None, None]
             rec = tuple(torch.where(sel, a, b[:, :, col])
@@ -337,16 +404,58 @@ def _intra_recon_scan(mode, cmode, res, other=None, is_intra=None):
 def decode_iframe_scan(symbols: MBSymbols, qp: int, intra44: bool = False
                        ) -> Tuple[torch.Tensor, ...]:
     """Reconstruct I frames from parsed symbols (the inverse of the
-    encode scan): uint8 (recon_y, recon_u, recon_v), exactly as
-    tpuh264.kernels.iframe.decode_iframe_scan."""
-    if intra44:
-        raise NotImplementedError("intra44 is not ported yet (ROADMAP)")
+    encode scan; `intra44`: some MBs may be Intra_4x4): uint8 (recon_y,
+    recon_u, recon_v), exactly as tpuh264.kernels.iframe.decode_iframe_scan."""
     qpc = T.chroma_qp_from_luma(qp)
+    i44 = ((symbols.luma_ac, symbols.i4modes.to(I32), qp) if intra44
+           else None)
     rec = _intra_recon_scan(symbols.mode.to(I32), symbols.cmode.to(I32),
-                            _intra_residuals(symbols, qp, qpc))
+                            _intra_residuals(symbols, qp, qpc), i44=i44)
     return tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
 
 
 def decode_iframe_rows(symbols: MBSymbols, qp: int):
     """I16-only decode scan (the DevicePipeline path)."""
     return decode_iframe_scan(symbols, qp, intra44=False)
+
+
+# ---------------------------------------------------------------------------
+# Fused symbol transport: the symbol tensors travel to the host as ONE flat
+# int16 buffer (one device-to-host copy instead of nine).
+# ---------------------------------------------------------------------------
+
+
+def symbol_sizes(s: int, r: int, c: int, i4: bool = False):
+    """(field, shape, size) table of the flat layout (as the JAX module's)."""
+    n = s * r * c
+    sizes = [
+        ("mode", (s, r, c), n),
+        ("cmode", (s, r, c), n),
+        ("cbp_luma", (s, r, c), n),
+        ("cbp_chroma", (s, r, c), n),
+        ("luma_dc", (s, r, c, 16), n * 16),
+        ("luma_ac", (s, r, c, 16, 16), n * 256),
+        ("chroma_dc", (s, r, c, 2, 4), n * 8),
+        ("chroma_ac", (s, r, c, 2, 4, 15), n * 120),
+    ]
+    if i4:
+        sizes.append(("i4modes", (s, r, c, 16), n * 16))
+    return sizes
+
+
+def flatten_symbols(symbols: MBSymbols, i4: bool = False) -> torch.Tensor:
+    """All symbol tensors in one flat int16 tensor, `i4modes` last where
+    `i4` (the layout of `symbol_sizes`)."""
+    names = [f for f, _, _ in symbol_sizes(1, 1, 1, i4)]
+    return torch.cat([getattr(symbols, f).to(torch.int16).reshape(-1)
+                      for f in names])
+
+
+def unflatten_symbols_np(flat: np.ndarray, s: int, r: int, c: int,
+                         i4: bool = False) -> dict:
+    """Host-side inverse of flatten_symbols: a dict of numpy views."""
+    out, off = {}, 0
+    for name, shape, size in symbol_sizes(s, r, c, i4):
+        out[name] = flat[off:off + size].reshape(shape)
+        off += size
+    return out
