@@ -36,7 +36,7 @@ tpuh264_torch/csrc, then:
      (the CPU tests decode the same CPU bytes in the JAX package's
      golden decoder);
   4. drives the main path -- GOPDevicePipeline, 1920x1080 x 4 streams, CBR
-     4 Mbps, RTC preset, gop 16, "rigid" source -- for 5 dispatches
+     4 Mbps, RTC preset, gop 8, "rigid" source -- for 3 dispatches
      (crossing an IDR): after every dispatch the decode-from-bits DPB
      equals the encoder DPB bit for bit, and K3 launched twice (MB and
      slice level) per entropy call: 4 times per IDR dispatch, 2 per
@@ -70,12 +70,25 @@ tpuh264_torch/csrc, then:
      frames, each stream decoded by its own DecoderSession == the recon;
  13. the live App with impl "tpu" (the session Pipeline: 1 encoder ->
      ring -> 8 decoders) at 854x480 for 10 s: its stats, then stop();
-     every decoder == the encoder recon at the last frame.
+     every decoder == the encoder recon at the last frame;
+ 14. the conformance gate (`tpuh264_torch.conformance.gate`): `run_gate`
+     at every GATE_SHAPES shape (64x48 x 2 and 854x480 x 8 intra-in-P,
+     1920x1080 x 4 RTC; 2 dispatches of "rigid" at QP 33) and
+     `run_gate_extended` (128x96 x 2, CBR with a scene cut, host ingest,
+     fan-out 2, 4 dispatches), every decoded picture it checks equal to
+     the oracle's decode of the card's bytes -- libavcodec where it
+     loads, else the golden decoder -- and the oracle, pictures and
+     seconds printed; then a crafted general stream (a 20-pel MV)
+     through DecoderSession on the card: the I frame on the fast path,
+     the P frame on the golden one, both equal to the golden decode (and
+     to libavcodec's where it loads).
 
-Every path of phases 4 and 6-13 is driven with the kernels' launch
+Every path of phases 4 and 6-14 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
-launched every kernel it runs (phase 12 has no P frame, so none), and
-none may reach the plain version of K1 or K3.
+launched every kernel it runs (phase 12 and the general stream have no
+P frame on the fast path, so none), and none may reach the plain
+version of K1 or K3.  No session of the engine's own streams (phases
+11-13) may leave the fast path for the golden decoder.
 Any failure exits non-zero.  The last two lines are the kernel table
 (launches summed over those paths) and
 {"ok": true, "device": {...}}.  Nothing here imports JAX or the JAX
@@ -733,7 +746,7 @@ def check_dpbs(pipe, np, what, i):
 
 
 def phase_main(dev, torch, np, card):
-    """Phase 4: the main path, 5 dispatches, enc DPB == dec DPB each time;
+    """Phase 4: the main path, 3 dispatches, enc DPB == dec DPB each time;
     K3 launched twice per entropy call (MB and slice level)."""
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
@@ -741,11 +754,11 @@ def phase_main(dev, torch, np, card):
 
     cfg = CodecConfig(width=1920, height=1080, streams=4, qp=None,
                       bitrate=4_000_000, intra_in_p=False)
-    pipe = GOPDevicePipeline(cfg, gop_size=16, source_kind="rigid",
+    pipe = GOPDevicePipeline(cfg, gop_size=8, source_kind="rigid",
                              device=dev)
     spy = SymbolSpy(pipe, torch)
     qps, times, k3 = [], [], []
-    for i in range(5):
+    for i in range(3):
         qps.append(pipe.rc.current_qp())
         n0 = cavlc_cuda.merge_tree.launches
         t0 = time.perf_counter()
@@ -757,8 +770,8 @@ def phase_main(dev, torch, np, card):
     if k3 != expect:
         fail(f"1080p: K3 launches per dispatch {k3}, expected {expect} "
              f"(GOP starts {spy.starts})")
-    print(f"phase 4: 1920x1080 x 4, CBR 4 Mbps, gop 16, rigid: 5 dispatches "
-          f"(20 frames, GOP starts {spy.starts}), decoder DPB == encoder DPB "
+    print(f"phase 4: 1920x1080 x 4, CBR 4 Mbps, gop 8, rigid: 3 dispatches "
+          f"(12 frames, GOP starts {spy.starts}), decoder DPB == encoder DPB "
           f"after each; K3 launches per dispatch {k3} (MB + slice level per "
           f"entropy call); QP {qps}; PSNR {pipe.last_psnr_y:.2f} dB; "
           f"pump_frame s {[round(t, 2) for t in times]} [{card}]")
@@ -1052,6 +1065,15 @@ def clip_rgba(dev, w, h, n, streams):
             .cpu().numpy() for f in clip_streams(w, h, n, streams)]
 
 
+def stay_fast(sessions, what):
+    """The engine's own streams never leave the fast path: no session may
+    have switched to the golden decoder, nor concealed a frame."""
+    bad = [i for i, d in enumerate(sessions)
+           if d._general or d.frames_concealed]
+    if bad:
+        fail(f"{what}: decoders {bad} left the fast path or concealed")
+
+
 def phase_sessions(dev, np, card, launches):
     """Phase 11: EncoderSession at 854x480 x 8 from RGBA (intra44, deblock,
     gop 8, CBR 1 Mbps, 10 frames across an IDR), every frame's 8 access
@@ -1105,6 +1127,7 @@ def phase_sessions(dev, np, card, launches):
                              decode_ms=round(dec_ms, 1)))
 
     launches.path("EncoderSession + DecoderPool 480p x 8", drive, needs=(0,))
+    stay_fast([pool[i] for i in range(s)], "480p sessions")
     if len(i4) != 2 or min(i4) <= 0:
         fail(f"480p sessions: Intra_4x4 share of the IDR frames {i4}")
     # what the Intra_4x4 trial adds to the I scan: frame 0, off / on in turns
@@ -1170,6 +1193,7 @@ def phase_wavefront(dev, np, card, launches):
                        round((time.perf_counter() - t0) * 1e3, 1)))
 
     _, counts = launches.path("wavefront 480p x 8", drive, needs=())
+    stay_fast(decs, "wavefront")
     if counts[0]:
         fail(f"wavefront: K1 launched {counts[0]} times on an I-only path")
     waves = 2 * ((h + 15) // 16 - 1) + (w + 15) // 16
@@ -1211,6 +1235,7 @@ def phase_app_tpu(dev, np, card, launches):
     if pipe.ring.produced < 2 or len(pipe.last_outputs) != 8:
         fail(f"App tpu: {pipe.ring.produced} frames, "
              f"{len(pipe.last_outputs)} decoder outputs")
+    stay_fast([pipe.decoders[i] for i in range(8)], "App tpu")
     recon = [p.cpu().numpy() for p in pipe.encoder.recon]
     for i, out in pipe.last_outputs.items():
         if out is None or not all(
@@ -1223,6 +1248,91 @@ def phase_app_tpu(dev, np, card, launches):
           f"{box['wait_s']:.1f} s: {pipe.ring.produced} frames encoded and "
           f"each decoded 8x (frame_index {pipe.frame_index}); every decoder "
           f"== the encoder recon at the last frame; get_stats() {shown} "
+          f"[{card}]")
+
+
+def general_stream(np):
+    """A stream the fast path hands to the general path: the golden
+    `encode_iframe` of a 96x64 frame, then a P frame of inter MBs whose
+    first MV is 20 pels, past the fast path's window (as the JAX package's
+    engine test builds it).  -> (I access unit, P access unit)."""
+    from tpuh264_torch.core.params import PPS, SPS
+    from tpuh264_torch.engine import sources
+    from tpuh264_torch.entropy import packp
+    from tpuh264_torch.golden import codec as gcodec
+
+    w, h = 96, 64
+    y, u, v = sources.yuv_frame(w, h, 0)
+    i_bytes, _ = gcodec.encode_iframe(
+        np.asarray(y, np.int32), np.asarray(u, np.int32),
+        np.asarray(v, np.int32), qp=28)
+    sps, pps = SPS.for_size(w, h), PPS()
+    n = sps.mb_height * sps.mb_width
+    mb_info = np.zeros((n, 8), np.int32)
+    mb_info[:, 0] = 1  # every MB inter
+    mb_info[0, 5] = 4 * 20  # a 20-pel MV: past the +-10 pel window
+    p_bytes = packp.pack_pframe(
+        mb_info, np.zeros((n, 16), np.int32), np.zeros((n, 16, 16), np.int32),
+        np.zeros((n, 2, 4), np.int32), np.zeros((n, 2, 4, 15), np.int32),
+        sps, pps, 28, slice_mode="rows", frame_num=1, deblock_idc=1)
+    return i_bytes, p_bytes
+
+
+def phase_gate(dev, np, card, launches):
+    """Phase 14: the conformance gate on the card -- `run_gate` at every
+    GATE_SHAPES shape, then `run_gate_extended` (CBR with a scene cut,
+    host ingest, fan-out 2, every dispatch), each decoded picture held
+    against the oracle (libavcodec where it loads, else the golden
+    decoder); then a general stream through DecoderSession on the card."""
+    from tpuh264_torch.conformance import gate
+    from tpuh264_torch.engine import DecoderSession
+    from tpuh264_torch.golden import codec as gcodec
+
+    box = {}
+
+    def drive():
+        box["shapes"] = gate.run_gate(device=dev)
+        box["extended"] = gate.run_gate_extended(device=dev)
+
+    launches.path("conformance gate", drive)
+    a, b = box["shapes"], box["extended"]
+    print(f"phase 14: conformance gate, oracle {a['oracle']}: GATE_SHAPES "
+          f"{[s[:3] for s in gate.GATE_SHAPES]} x 2 dispatches, "
+          f"{a['compared']} final pictures equal ({a['decoded']} frames "
+          f"decoded by the oracle) in {a['seconds']:.1f} s; extended "
+          f"128x96 x 2 CBR + scene cut + host ingest + fan-out 2, 4 "
+          f"dispatches: {b['compared']} pictures equal after every "
+          f"dispatch ({b['decoded']} frames decoded by the oracle) in "
+          f"{b['seconds']:.1f} s; the oracle's decodes "
+          f"{a['oracle_seconds']:.1f} + {b['oracle_seconds']:.1f} s, "
+          f"{1e3 * a['oracle_seconds'] / a['decoded_mbs']:.3f} ms an MB at "
+          f"the shapes [{card}]")
+
+    i_bytes, p_bytes = general_stream(np)
+    sess = DecoderSession(device=dev)
+
+    def decode():
+        return [sess.decode(i_bytes), sess.decode(p_bytes)]
+
+    outs, _ = launches.path("general stream", decode, needs=())
+    if not sess._general or sess.frames_concealed:
+        fail(f"general stream: the session did not switch to the golden "
+             f"path (general {sess._general}, concealed "
+             f"{sess.frames_concealed})")
+    refs = {"golden": gcodec.decode_annexb_seq(i_bytes + p_bytes)}
+    if gate.oracle_name() == "libavcodec":
+        from tpuh264_torch.conformance.ffdec import decode_with_libav
+
+        refs["libavcodec"] = decode_with_libav(i_bytes + p_bytes)
+    for name, frames in refs.items():
+        for t, (got, ref) in enumerate(zip(outs, frames)):
+            if got is None or not all(
+                    g.dtype == np.uint8 and np.array_equal(g, r)
+                    for g, r in zip(got, ref)):
+                fail(f"general stream: frame {t} != {name}")
+    print(f"phase 14: a general stream (20-pel MV) through "
+          f"DecoderSession on the card: I frame on the fast path, P frame "
+          f"on the golden path, both equal to {' and '.join(refs)} "
           f"[{card}]")
 
 
@@ -1276,6 +1386,7 @@ def main() -> None:
     phase_sessions(dev, np, card, launches)
     phase_wavefront(dev, np, card, launches)
     phase_app_tpu(dev, np, card, launches)
+    phase_gate(dev, np, card, launches)
 
     for r, n in zip(rows, launches.total):
         r["launches"] = n

@@ -7,6 +7,7 @@ chip_smoke.py, imports the JAX package."""
 import ast
 import itertools
 import os
+import re
 
 import numpy as np
 import pytest
@@ -214,23 +215,63 @@ def test_port_sources_import_nothing_of_the_jax_package():
 
 
 def test_pipelines_default_to_the_card(monkeypatch):
-    """Without `device`, GOPDevicePipeline, DevicePipeline and App take the
+    """Without `device`, GOPDevicePipeline, DevicePipeline, App, the session
+    Pipeline, DecoderSession, DecoderPool and the conformance gate take the
     card; where there is none they raise instead of running on the CPU."""
     import inspect
 
-    from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.conformance import gate
+    from tpuh264_torch.engine import (CodecConfig, DecoderPool,
+                                      DecoderSession, Pipeline)
     from tpuh264_torch.engine.app import App
     from tpuh264_torch.engine.devpipe import DevicePipeline, GOPDevicePipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = CodecConfig(width=64, height=48, streams=1, qp=28)
-    for cls in (GOPDevicePipeline, DevicePipeline, App):
-        assert inspect.signature(cls).parameters["device"].default == "cuda"
+    makers = {GOPDevicePipeline: lambda **kw: GOPDevicePipeline(cfg, **kw),
+              DevicePipeline: lambda **kw: DevicePipeline(cfg, **kw),
+              App: lambda **kw: App(cfg, **kw),
+              Pipeline: lambda **kw: Pipeline(cfg, **kw),
+              DecoderSession: lambda **kw: DecoderSession(**kw),
+              DecoderPool: lambda **kw: DecoderPool(4, **kw),
+              gate.run_gate: lambda **kw: gate.run_gate(
+                  ((64, 48, 1, False),), verbose=False, **kw),
+              gate.run_gate_extended: lambda **kw: gate.run_gate_extended(
+                  verbose=False, **kw)}
+    for fn, make in makers.items():
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
         with pytest.raises(RuntimeError, match="is_available"):
-            cls(cfg)
+            make()
         with pytest.raises(RuntimeError, match="is_available"):
-            cls(cfg, device="cuda:0")
+            make(device="cuda:0")
     assert GOPDevicePipeline(cfg, device="cpu").device.type == "cpu"
+    assert DecoderSession(device="cpu").device.type == "cpu"
+
+
+# the port's verbatim copies of the JAX package's numpy and ctypes modules
+COPIES = [
+    "conformance/__init__.py", "conformance/ffdec.py", "conformance/ffenc.py",
+    "entropy/cavlc.py", "entropy/cabac_tables.py", "entropy/cabac_arith.py",
+    "entropy/pack.py", "entropy/packp.py", "entropy/cabac_pack.py",
+    "golden/__init__.py", "golden/transform.py", "golden/inter.py",
+    "golden/deblock.py", "golden/intra.py", "golden/intra44.py",
+    "golden/intra8.py", "golden/transform8.py", "golden/codec.py",
+    "golden/cabac_slice.py", "engine/libav_backend.py",
+]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_is_its_original(rel):
+    """Each copy opens with a note naming its original; below the note it
+    is the original, with the reference's source paths made relative."""
+    lines = open(os.path.join(REPO, "tpuh264_torch", rel)).read().splitlines(
+        keepends=True)
+    assert lines[0].startswith(f"# Copy of tpuh264/{rel}, "), lines[0]
+    body = lines[1:]
+    while body[0].startswith("# "):
+        body = body[1:]
+    orig = open(os.path.join(REPO, "tpuh264", rel)).read()
+    assert "".join(body) == re.sub(r"/\w+/reference/", "reference/", orig)
 
 
 def _ring_trace(mod):

@@ -431,3 +431,39 @@ def test_session_on_card_equals_cpu(dev, case):
             for p, r in zip(out[i], encs[0].recon):
                 np.testing.assert_array_equal(p, r[i].cpu().numpy())
     assert (me_cuda.sad_field.launches > before) == (case != "single slice")
+
+
+@pytest.mark.cuda
+def test_general_stream_decodes_on_card(dev):
+    """A stream whose P frame carries a 20-pel MV: on the card the session
+    decodes the I frame on its fast path, then switches to the golden
+    decoder, seeded from the card's DPB; both pictures equal the golden
+    decode of the bytes, as uint8."""
+    import chip_smoke
+    from tpuh264_torch.engine import DecoderSession
+    from tpuh264_torch.golden import codec as gcodec
+
+    i_bytes, p_bytes = chip_smoke.general_stream(np)
+    sess = DecoderSession(device=dev)
+    outs = [sess.decode(i_bytes)]
+    assert not sess._general
+    outs.append(sess.decode(p_bytes))
+    assert sess._general and sess.frames_concealed == 0
+    for got, ref in zip(outs, gcodec.decode_annexb_seq(i_bytes + p_bytes)):
+        for g, r in zip(got, ref):
+            assert g.dtype == np.uint8
+            np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.cuda
+def test_gate_small_on_card(dev):
+    """The conformance gate at its smallest shape and its extended paths,
+    on the card, against whichever oracle loads there."""
+    from tpuh264_torch.conformance import gate
+
+    before = _launches()
+    a = gate.run_gate(((64, 48, 2, True),), device=dev, workers=2,
+                      verbose=False)
+    b = gate.run_gate_extended(device=dev, workers=2, verbose=False)
+    assert (a["compared"], b["compared"]) == (2, 16)
+    assert all(n > m for n, m in zip(_launches(), before))

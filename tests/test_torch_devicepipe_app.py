@@ -164,7 +164,14 @@ def test_app_reconfigure_restarts():
     app.set_resolution("48x32")
     assert app.pipeline is not first and app.is_processing()
     assert (app.pipeline.config.width, app.pipeline.config.height) == (48, 32)
-    with pytest.raises(NotImplementedError):
+    from tpuh264_torch.engine import libav_backend
+
+    if libav_backend.available():  # restarts on libx264 / libavcodec
         app.set_implementation("libav")
+        assert app.is_processing() and app.pipeline.impl == "libav"
+        assert isinstance(app.pipeline.encoder,
+                          libav_backend.LibavEncoderSession)
+    with pytest.raises(ValueError):
+        app.set_implementation("vaapi")
     app.stop()
     assert app.error is None and app.pipeline is None

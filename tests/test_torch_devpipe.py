@@ -155,8 +155,8 @@ def test_port_imports_no_jax():
 
 def test_unported_options_raise():
     """What is still unported raises: the DPB halo and the 8x8 transform
-    of the P encode and decode, and the "libav" implementation of the App
-    and of the session Pipeline."""
+    of the P encode and decode.  The "libav" implementation of the App and
+    of the session Pipeline is ported: both build it."""
     import torch
 
     from tpuh264_torch.engine import Pipeline
@@ -172,8 +172,12 @@ def test_unported_options_raise():
     sym, _, _ = pframe.encode_pframe_rows_multi(y, c, c, *refs, 28)
     with pytest.raises(NotImplementedError):
         pframe.decode_pframe_rows_multi(sym, *refs, 28, t8=True)
+    from tpuh264_torch.engine import libav_backend
+
     cfg = CodecConfig(**dict(CFG, qp=28))
-    with pytest.raises(NotImplementedError):
-        App(cfg, impl="libav", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Pipeline(cfg, impl="libav", device="cpu")
+    app = App(cfg, impl="libav", device="cpu")
+    assert app.impl == "libav" and app.pipeline is None
+    if libav_backend.available():
+        for pipe in (app._build(), Pipeline(cfg, impl="libav", device="cpu")):
+            assert pipe.impl == "libav"
+            assert isinstance(pipe.decoders, libav_backend.LibavDecoderPool)

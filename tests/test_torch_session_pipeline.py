@@ -5,7 +5,8 @@ exactly.
 64x48, one encoded stream fanned out to 3 decoders, QP 30, GOP 3: four
 ticks (IDR, P, P, IDR) of `Pipeline.pump_frame` give the JAX pipeline's
 decoder outputs and encoder recon; the App builds that pipeline for impl
-"tpu" and runs it live.  An EncoderSession and a DecoderSession loaded
+"tpu" and runs it live.  impl "libav" (libx264 / libavcodec host
+sessions) gives the JAX "libav" pipeline's bytes and pictures.  An EncoderSession and a DecoderSession loaded
 with a JAX session's state mid-GOP (two references, CBR) emit and
 decode the JAX sessions' next frames."""
 
@@ -62,10 +63,58 @@ def test_pipeline_matches_jax_over_four_ticks():
     for k in ("dropped_capture", "dropped_ring", "dropped_decode"):
         assert ts[k] == js[k] == 0
     assert ts["bitrate_bps"] > 0
-    with pytest.raises(NotImplementedError):
-        Pipeline(CodecConfig(**PIPE_CFG), impl="libav", device="cpu")
+    from tpuh264_torch.engine import libav_backend
+
+    if libav_backend.available():
+        lp = Pipeline(CodecConfig(**PIPE_CFG), impl="libav", device="cpu")
+        assert isinstance(lp.encoder, libav_backend.LibavEncoderSession)
+        assert isinstance(lp.decoders, libav_backend.LibavDecoderPool)
     with pytest.raises(ValueError):
         Pipeline(CodecConfig(**PIPE_CFG), impl="gpu", device="cpu")
+
+
+def test_pipeline_libav_matches_jax():
+    """impl "libav": 128x96 x 2 streams, QP 30, four ticks through the
+    port's copy of the libx264 / libavcodec backend and through the JAX
+    package's; the same bytes a tick, the same decoder pictures, the
+    decoders' counters; the App builds and runs it."""
+    from tpuh264.engine import libav_backend as j_libav
+    from tpuh264_torch.engine import libav_backend
+
+    if not (libav_backend.available() and j_libav.available()):
+        pytest.skip("libx264 / libavcodec unavailable")
+    cfg = dict(width=128, height=96, streams=2, qp=30)
+    pipes = [JPipe(JCfg(**cfg), impl="libav"),
+             Pipeline(CodecConfig(**cfg), impl="libav", device="cpu")]
+    sent = [[], []]
+    for k, pipe in enumerate(pipes):
+        real = pipe.ring.try_publish
+        pipe.ring.try_publish = (
+            lambda data, fanout, real=real, box=sent[k]:
+            box.append(data) or real(data, fanout=fanout))
+    for tick in range(4):
+        for pipe in pipes:
+            assert pipe.pump_frame()
+        assert sent[1][tick] == sent[0][tick], f"tick {tick}: bytes differ"
+        jo, to = (p.last_outputs for p in pipes)
+        assert sorted(to) == sorted(jo) == [0, 1]
+        for i in jo:
+            assert to[i][0].shape == (96, 128)
+            for a, b in zip(jo[i], to[i]):
+                assert b.dtype == a.dtype
+                np.testing.assert_array_equal(a, b)
+    for i in range(2):
+        assert pipes[1].decoders[i].frames_decoded == 4
+        assert pipes[1].decoders[i].frames_concealed == 0
+    assert pipes[1].stats.snapshot(2)["bitrate_bps"] > 0
+    app = App(CodecConfig(**dict(cfg, fps=60)), impl="libav", device="cpu")
+    app.start()
+    deadline = time.monotonic() + 30
+    while app.pipeline.frame_index < 2 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    stats = app.get_stats()
+    app.stop()
+    assert app.error is None and stats["impl"] == "libav"
 
 
 def test_app_tpu_builds_and_runs_the_session_pipeline():

@@ -10,9 +10,10 @@ frames: identical annex-B bytes per frame and stream, identical encoder
 recon, QPs and frame numbers (the same configs from RGBA:
 tests/test_torch_sessions_rgba.py).  The decoders (`decode` per session
 and `decode_batch`) return the JAX pool's planes, dtypes and flags, and
-the encoder's recon.  Garbage conceals as in JAX; CABAC, the 8x8
-transform and P slices with ref_pic_list_modification raise
-NotImplementedError."""
+the encoder's recon.  Garbage conceals as in JAX; CABAC and the 8x8
+transform raise NotImplementedError in the encoder, and streams with
+them, or with ref_pic_list_modification, decode through the golden
+decoder to libavcodec's pictures."""
 
 import numpy as np
 import pytest
@@ -235,32 +236,6 @@ def test_concealment_matches_jax():
     assert res[1][1] and not res[1][2] and res[1][-1]
 
 
-def _p_slice_with_list_modification(sps, pps):
-    """A P access unit whose one slice header sets
-    ref_pic_list_modification_flag_l0 (reorder to ref 1)."""
-    from tpuh264_torch.core import nal
-    from tpuh264_torch.core.bitstream import BitWriter
-
-    w = BitWriter()
-    w.ue(0)                                   # first_mb_in_slice
-    w.ue(5)                                   # slice_type P (all P)
-    w.ue(0)                                   # pic_parameter_set_id
-    w.u(sps.log2_max_frame_num_minus4 + 4, 1)  # frame_num
-    w.u(1, 1)                                 # num_ref_idx_override
-    w.ue(1)                                   # 2 active references
-    w.u(1, 1)                                 # ref_pic_list_modification
-    w.ue(0)                                   # abs_diff_pic_num_minus1 -
-    w.ue(0)                                   # (subtract 1)
-    w.ue(3)                                   # end of the list
-    w.u(1, 0)                                 # adaptive_ref_pic_marking
-    w.se(0)                                   # slice_qp_delta
-    if pps.deblocking_filter_control_present_flag:
-        w.ue(1)
-    w.ue(0)                                   # mb_skip_run 0 ... (ignored)
-    w.rbsp_trailing_bits()
-    return nal.wrap_nal(nal.NAL_SLICE_NON_IDR, w.get_bytes(), 2)
-
-
 def test_unported_syntax_raises():
     from tpuh264_torch.engine import DecoderSession
 
@@ -276,30 +251,39 @@ def test_unported_syntax_raises():
         with pytest.raises(NotImplementedError):
             EncoderSession(CodecConfig(width=W, height=H, **kw),
                            device="cpu")
-    # a P slice with ref_pic_list_modification: the JAX fast path decodes
-    # it in the default order (wrong pixels); the port refuses it
+    # the decoder side takes what the encoder refuses: a P slice with
+    # ref_pic_list_modification (which the JAX fast path decodes in the
+    # default order), CABAC and the 8x8 transform decode to libavcodec's
+    # pictures (or the golden decoder's, where libavcodec is missing)
+    from test_torch_general_decode import (list_mod_aus, split_aus,
+                                           x264_stream)
+    from tpuh264_torch.conformance import ffdec, ffenc
+    from tpuh264_torch.engine import DecoderSession
+    from tpuh264_torch.golden import codec as gcodec
+
+    oracle = (ffdec.decode_with_libav if ffdec.libav_available()
+              else gcodec.decode_annexb_seq)
     enc = EncoderSession(CodecConfig(width=W, height=H, qp=30,
                                      num_ref_frames=2), device="cpu")
-    dec = DecoderSession(device="cpu")
-    pool = DecoderPool(device="cpu")
-    pool.init_decoder(0)
-    for t in range(3):
-        data = enc.encode_frame_yuv(*[p[0] for p in yuv_frames(t)])[0].data
-        assert dec.decode(data) is not None
-        pool.decode_batch([(0, data)])
-    bad = _p_slice_with_list_modification(enc.sps, enc.pps)
-    with pytest.raises(NotImplementedError, match="modification"):
-        dec.decode(bad)
-    with pytest.raises(NotImplementedError, match="modification"):
-        pool.decode_batch([(0, bad)])
-    # CABAC and 8x8-transform streams: their PPS flags
-    from tpuh264_torch.core.params import PPS, param_sets
-
-    for flag, what in (("entropy_coding_mode_flag", "CABAC"),
-                       ("transform_8x8_mode_flag", "8x8")):
-        ps = param_sets(enc.sps, PPS(**{flag: 1}))
-        with pytest.raises(NotImplementedError, match=what):
-            DecoderSession(device="cpu").decode(ps + data)
+    aus = [enc.encode_frame_yuv(*[p[0] for p in yuv_frames(t)])[0].data
+           for t in range(4)]
+    aus[2] = list_mod_aus(aus[2], enc.sps, enc.pps)
+    streams = {"list modification": aus}
+    if ffenc.encoder_available():
+        for name in ("main CABAC", "high CAVLC Intra_8x8"):
+            streams[name] = split_aus(x264_stream(name))
+    for name, units in streams.items():
+        ref = oracle(b"".join(units))
+        dec = DecoderSession(device="cpu")
+        pool = DecoderPool(device="cpu")
+        pool.init_decoder(0)
+        for t, data in enumerate(units):
+            for out in (dec.decode(data), pool.decode_batch([(0, data)])[0]):
+                assert out is not None and out[0].dtype == np.uint8
+                for a, b in zip(out, ref[t]):
+                    np.testing.assert_array_equal(a, b, err_msg=name)
+        assert dec._general and pool[0]._general, name
+        assert dec.frames_concealed == pool[0].frames_concealed == 0
 
 
 def test_sessions_default_to_the_card(monkeypatch):

@@ -18,10 +18,10 @@ for the live controls.  Same surface here:
   (`dropped_capture`).
 * `request_keyframe()` routes to the encoder owner (a forced IDR).
 
-Of the implementations, "tpu_gop" (the device IPPP pipeline,
-`devpipe.GOPDevicePipeline`) and "tpu" (the per-frame session `Pipeline`
-of engine/pipeline.py) are ported; "libav" (host sessions) raises
-NotImplementedError.  The impl strings are the JAX App's API values.
+The implementations: "tpu_gop" (the device IPPP pipeline,
+`devpipe.GOPDevicePipeline`), "tpu" (the per-frame session `Pipeline` of
+engine/pipeline.py) and "libav" (that `Pipeline` on libx264 / libavcodec
+host sessions).  The impl strings are the JAX App's API values.
 """
 
 from __future__ import annotations
@@ -37,17 +37,11 @@ from .config import RESOLUTIONS, CodecConfig
 _log = logging.getLogger(__name__)
 
 IMPLEMENTATIONS = ("tpu_gop", "tpu", "libav")
-_NOT_PORTED = {
-    "libav": "the libav host sessions (ROADMAP 'What waits': M8 runtime)",
-}
 
 
 def _check_impl(impl: str) -> None:
     if impl not in IMPLEMENTATIONS:
         raise ValueError(f"unknown impl {impl!r}")
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(
-            f"impl {impl!r} is not ported yet: {_NOT_PORTED[impl]}")
 
 
 class App:
@@ -56,7 +50,7 @@ class App:
 
     impl "tpu_gop": the device IPPP pipeline with decode-from-bits;
     "tpu": the per-frame session pipeline (EncoderSession -> ring ->
-    DecoderPool)."""
+    DecoderPool); "libav": the same pipeline on libx264 / libavcodec."""
 
     def __init__(self, config: Optional[CodecConfig] = None,
                  impl: str = "tpu_gop", source_kind: str = "moving_gradient",
@@ -81,10 +75,10 @@ class App:
 
     def _build(self):
         cfg = dataclasses.replace(self.config)  # pipeline owns its copy
-        if self.impl == "tpu":
+        if self.impl in ("tpu", "libav"):
             from .pipeline import Pipeline
 
-            return Pipeline(cfg, impl="tpu", device=self.device)
+            return Pipeline(cfg, impl=self.impl, device=self.device)
         from .devpipe import GOPDevicePipeline
 
         k = GOPDevicePipeline.FRAMES_PER_DISPATCH

@@ -5,25 +5,34 @@ decoder C ABI (a pool of MAX_DECODERS = 32 slots, init_decoder /
 deinit_decoder per stream, per-frame decode entry points): host CAVLC
 parse by the native engine, reconstruction on the device.
 
-Streams of the engine's own syntax subset decode here: CAVLC, I frames
-with one slice per MB row (Intra_16x16 and Intra_4x4) or one slice
-(the wavefront), P frames with one slice per MB row, 1..16 references,
-the in-loop deblock.  Where the JAX session switches to its golden
-`StreamDecoder` on `NotImplementedError` (CABAC, the 8x8 transform,
-other slice layouts, MVs beyond the fast path's window, and -- unlike
-the JAX session, which decodes them in the default order, a known fault
--- P slices with ref_pic_list_modification), this port lets the
-`NotImplementedError` out: the general decoder is the next slice.
+Streams of the engine's own syntax subset take this fast path: CAVLC, I
+frames with one slice per MB row (Intra_16x16 and Intra_4x4) or one
+slice (the wavefront), P frames with one slice per MB row, 1..16
+references, the in-loop deblock.  Everything else goes to the golden
+`StreamDecoder` (golden/codec.py), as in the JAX session: CABAC, the
+8x8 transform, other slice layouts, MVs beyond the fast path's window,
+third-party syntax, and P slices with ref_pic_list_modification (the JAX
+fast path decodes those in the default list order, with wrong pixels;
+here they divert).  A `NotImplementedError` of the host stage switches
+the session to the golden path for good; a `RuntimeError` of the host
+stage (the native parse refusing general syntax, or a corrupt access
+unit) gets one golden try, and only a successful one switches it.  The
+golden decoder starts from the session's SPS, PPS and DPB, so a switch
+mid-stream keeps decoding the true pictures.
 
-Error concealment: any other failure (a corrupt or undecodable access
-unit) returns the session's previous frame (or None) and raises its
-`needs_keyframe` flag, as the JAX session does when its golden retry
-fails too.
+Unlike the JAX session, only the host stage (classify, parse, the slice,
+MV and reference checks) routes to the golden decoder.  Once device work
+starts, whatever it raises propagates: PyTorch raises a CUDA fault as a
+`RuntimeError`, and a kernel failure must not turn into a quiet golden
+decode.
+
+Error concealment: any other host-stage failure, or a golden decode
+that fails, returns the session's previous frame (or None) and raises
+its `needs_keyframe` flag.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -80,25 +89,39 @@ class DecoderSession:
         self._sps: Optional[SPS] = None
         self._pps: Optional[PPS] = None
         self._dpb: List = []  # device planes [1, H, W] uint8, newest first
+        self._fnums: List[int] = []  # frame_num of each DPB picture
+        self._frame_num = 0
         self._idc = 1
         self._is_ref_frame = True
         self._nra = 1
+        self._general = False  # syntax outside the fast path seen
+        self._gold = None  # the golden StreamDecoder of the general path
 
     def decode(self, data: bytes) -> Optional[Planes]:
         """Decode one access unit -> (Y, U, V) uint8 planes (cropped).
 
-        NotImplementedError (syntax outside the ported subset) goes to the
-        caller.  Any other failure conceals: the previous frame (or None)
-        comes back and `needs_keyframe` is set."""
+        The host stage routes what the fast path cannot take to the
+        golden decoder (see the module's note); the device stage's
+        errors propagate.  Returns the previous frame (or None) and sets
+        `needs_keyframe` where the access unit cannot be decoded."""
+        if self._general:
+            return self._decode_golden(data)
         try:
-            is_p = self._classify(data)
-            out = self._decode_p(data) if is_p else self._decode_i(data)
+            device_stage = self._host_stage(data)
         except NotImplementedError:
-            raise
+            self._general = True
+            self._gold = None  # start from the fast path's state
+            return self._decode_golden(data)
+        except RuntimeError:
+            # general syntax or a corrupt access unit: one golden try;
+            # only a decode that succeeds leaves the fast path
+            self._gold = None
+            out = self._decode_golden(data)
+            self._general = not self.needs_keyframe
+            return out
         except Exception:
-            self.needs_keyframe = True
-            self.frames_concealed += 1
-            return self.last_frame
+            return self._conceal()
+        out = device_stage()
         self._decoded(out)
         return out
 
@@ -107,9 +130,43 @@ class DecoderSession:
         self.needs_keyframe = False
         self.frames_decoded += 1
 
+    def _conceal(self) -> Optional[Planes]:
+        self.needs_keyframe = True
+        self.frames_concealed += 1
+        return self.last_frame
+
+    def _decode_golden(self, data: bytes) -> Optional[Planes]:
+        """The general path: the golden StreamDecoder, built at the first
+        call from the session's SPS, PPS and DPB (device planes brought
+        to host int32, with their half-pel planes).  Only the golden
+        decode conceals: a fault of the DPB's copy from the device
+        propagates."""
+        from ..golden import codec as gcodec
+        from ..golden import inter as ginter
+
+        if self._gold is None:
+            gold = gcodec.StreamDecoder()
+            gold.sps, gold.pps = self._sps, self._pps
+            for planes in self._dpb:
+                y, u, v = (p[0].cpu().numpy().astype(np.int32)
+                           for p in planes)
+                gold.dpb.append((y, u, v, ginter.build_halfpel_planes(y)))
+            gold.dpb_fnums = list(self._fnums)
+            self._gold = gold
+        try:
+            out = self._gold.decode_au(data)
+            if out is None:
+                raise RuntimeError("no frame in the access unit")
+        except Exception:
+            return self._conceal()
+        out = tuple(np.asarray(p).astype(np.uint8) for p in out)
+        self._decoded(out)
+        return out
+
     def _classify(self, data: bytes) -> bool:
         """Parse SPS / PPS and the slice headers' state; True for a P
-        access unit.  Refuses what the fast path cannot decode right."""
+        access unit.  Raises NotImplementedError for what the fast path
+        cannot decode right."""
         is_p = False
         for ridc, ntype, rbsp in nal.split_annexb(data):
             if ntype == nal.NAL_SPS:
@@ -117,57 +174,71 @@ class DecoderSession:
             elif ntype == nal.NAL_PPS:
                 self._pps = PPS.parse(BitReader(rbsp))
                 if self._pps.entropy_coding_mode_flag:
-                    raise NotImplementedError(
-                        "CABAC streams decode in the next slice")
+                    raise NotImplementedError("CABAC: the general path")
                 if self._pps.transform_8x8_mode_flag:
-                    raise NotImplementedError(
-                        "8x8-transform streams decode in the next slice")
+                    raise NotImplementedError("8x8 transform: the general "
+                                              "path")
             elif ntype == nal.NAL_SLICE_NON_IDR:
                 h = SliceHeader.parse(BitReader(rbsp), self._sps, self._pps,
                                       False, ref=ridc != 0)
                 if h.ref_list_mods:
-                    # the JAX fast path ignores them and decodes with the
-                    # default list order: wrong pixels, so refuse
                     raise NotImplementedError(
-                        "ref_pic_list_modification: the general decoder "
-                        "(next slice) takes such streams")
+                        "ref_pic_list_modification: the general path")
                 self._idc = h.disable_deblocking_filter_idc
                 self._is_ref_frame = ridc != 0
                 self._nra = h.num_ref_idx_l0_active_minus1 + 1
+                self._frame_num = h.frame_num
                 if h.slice_type == SLICE_P:
                     is_p = True
             elif ntype == nal.NAL_SLICE_IDR and self._sps is not None:
                 h = SliceHeader.parse(BitReader(rbsp), self._sps, self._pps,
                                       True)
                 self._idc = h.disable_deblocking_filter_idc
+                self._frame_num = h.frame_num
         return is_p
 
-    def _decode_i(self, data: bytes) -> Planes:
+    def _host_stage(self, data: bytes):
+        """Classify, parse and check one access unit on the host; returns
+        the device stage, a function of no argument -> the planes."""
+        if self._classify(data):
+            symbols, qp = self._parse_p_symbols(data)
+            return lambda: self._decode_p(symbols, qp)
         parsed = entropy_native.parse_iframe(data)
-        sps, pps, qp = parsed[:3]
-        self._sps, self._pps = sps, pps
+        sps = parsed[0]
+        self._sps, self._pps = sps, parsed[1]
         r = sps.mb_height
-        symbols = _i_symbols([parsed], self.device)
-        has_i4 = bool((parsed[3][:, 0] == 4).any())
         n_slices = _count_slices(data)
         if n_slices == 1 and r > 1:
-            # single-slice stream: cross-row prediction -> wavefront
-            if has_i4:
+            # single-slice stream: cross-row prediction -> the wavefront
+            if (parsed[3][:, 0] == 4).any():
                 raise NotImplementedError("I_NxN in single-slice streams")
-            planes = wavefront.decode_iframe_single(symbols, qp)
-        elif n_slices in (r, 1):
-            planes = iframe.decode_iframe_scan(symbols, qp, intra44=has_i4)
-        else:
+            return lambda: self._decode_i(parsed, wave=True)
+        if n_slices != r:
             raise NotImplementedError(f"{n_slices} slices for {r} MB rows")
+        return lambda: self._decode_i(parsed, wave=False)
+
+    def _decode_i(self, parsed, wave: bool) -> Planes:
+        sps, _, qp = parsed[:3]
+        symbols = _i_symbols([parsed], self.device)
+        if wave:
+            planes = wavefront.decode_iframe_single(symbols, qp)
+        else:
+            has_i4 = bool((parsed[3][:, 0] == 4).any())
+            planes = iframe.decode_iframe_scan(symbols, qp, intra44=has_i4)
         if self._idc != 1:
             planes = kdeblock.deblock_i(planes, qp)
-        self._dpb = [planes]
+        self._set_dpb([planes])
         return _crop(planes, 0, sps)
 
     def _parse_p_symbols(self, data: bytes):
-        """Entropy-parse a P access unit -> (symbols [1, R, C, ...] as
-        numpy, qp)."""
+        """Entropy-parse and check a P access unit -> (symbols [1, R, C,
+        ...] as numpy, qp)."""
         sps, pps = self._sps, self._pps
+        rr, cc = sps.mb_height, sps.mb_width
+        if not self._dpb:
+            raise RuntimeError("P frame before any reference")
+        if tuple(self._dpb[0][0].shape[1:]) != (16 * rr, 16 * cc):
+            raise RuntimeError("P frame of another size than its reference")
         qp = 26 + pps.pic_init_qp_minus26
         slices = []
         for ridc, ntype, rbsp in nal.split_annexb(data):
@@ -178,12 +249,13 @@ class DecoderSession:
                 slices.append((rbsp, r.bit_position, h.first_mb_in_slice))
         mb_info, ldc, lac, cdc, cac = entropy_native.parse_pframe_slices(
             slices, sps, pps, self._nra)
-        rr, cc = sps.mb_height, sps.mb_width
         # the row-slice decode assumes one slice per MB row (the left-only
         # MV predictor)
         if len(slices) != rr and rr != 1:
             raise NotImplementedError(f"{len(slices)} P slices for {rr} MB "
                                       "rows")
+        if mb_info[:, 7].max() >= min(len(self._dpb), max(self._nra, 1)):
+            raise RuntimeError("ref_idx beyond the reference pictures")
         # resolve the row-chain MVs and bound-check them against the JAX
         # fast path's window range (its `_extract_w2` offsets), which the
         # engine's own streams never leave
@@ -211,10 +283,7 @@ class DecoderSession:
             t8=np.zeros((1, rr, cc), np.int32))
         return symbols, qp
 
-    def _decode_p(self, data: bytes) -> Planes:
-        if not self._dpb:
-            raise RuntimeError("P frame before any reference")
-        symbols, qp = self._parse_p_symbols(data)
+    def _decode_p(self, symbols, qp: int) -> Planes:
         dev = self.device
         sym = pframe.MBSymbolsP(*(torch.from_numpy(np.ascontiguousarray(x))
                                   .to(dev) for x in symbols))
@@ -227,10 +296,17 @@ class DecoderSession:
             self._push(planes)
         return _crop(planes, 0, self._sps)
 
+    def _set_dpb(self, dpb) -> None:
+        """An I access unit: its picture is the only reference."""
+        self._dpb = dpb
+        self._fnums = [self._frame_num]
+
     def _push(self, planes) -> None:
         """A reference picture enters the DPB (newest first)."""
         self._dpb.insert(0, planes)
-        del self._dpb[max(1, self._sps.max_num_ref_frames):]
+        self._fnums.insert(0, self._frame_num)
+        keep = max(1, self._sps.max_num_ref_frames)
+        del self._dpb[keep:], self._fnums[keep:]
 
     def decode_to_rgba(self, data: bytes) -> Optional[np.ndarray]:
         """decode_frame_optimized analog: decode, then YUV -> RGBA."""
@@ -274,26 +350,29 @@ class DecoderPool:
         Row-sliced I frames, and P frames with one active reference, of
         the same size, QP and deblock mode are stacked into one
         reconstruction (+ deblock) each, the sessions' DPB heads on the
-        stream axis; anything else decodes per session.  (The JAX pool
+        stream axis; sessions on the golden path, and access units the
+        fast path does not take, decode per session.  (The JAX pool
         decodes deblocked I frames per session: the same planes, one
         column loop per stream.)"""
         results: Dict[int, Optional[Planes]] = {}
         i_items, p_items = [], []
         for idx, data in items:
             sess = self._slots[idx]
-            try:
-                is_p = sess._classify(data)
-                if is_p and sess._dpb and sess._nra == 1:
-                    p_items.append((idx, sess, *sess._parse_p_symbols(data)))
-                    continue
-                if not is_p:
-                    p = entropy_native.parse_iframe(data)
-                    if _count_slices(data) == p[0].mb_height or \
-                            p[0].mb_height == 1:
-                        i_items.append((idx, sess, p))
+            if not sess._general:
+                try:
+                    is_p = sess._classify(data)
+                    if is_p and sess._dpb and sess._nra == 1:
+                        p_items.append((idx, sess,
+                                        *sess._parse_p_symbols(data)))
                         continue
-            except Exception:
-                pass  # the session's own decode conceals or raises
+                    if not is_p:
+                        p = entropy_native.parse_iframe(data)
+                        if _count_slices(data) == p[0].mb_height or \
+                                p[0].mb_height == 1:
+                            i_items.append((idx, sess, p))
+                            continue
+                except Exception:
+                    pass  # the session's own decode routes or conceals
             results[idx] = sess.decode(data)
         self._decode_batch_i(i_items, results)
         self._decode_batch_p(p_items, results)
@@ -318,7 +397,7 @@ class DecoderPool:
                 sess._decoded(out)
                 # a following P frame references this reconstruction
                 sess._sps, sess._pps = p[0], p[1]
-                sess._dpb = [tuple(x[i:i + 1] for x in planes)]
+                sess._set_dpb([tuple(x[i:i + 1] for x in planes)])
                 results[idx] = out
 
     def _decode_batch_p(self, p_items, results) -> None:

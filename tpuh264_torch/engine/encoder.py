@@ -92,8 +92,8 @@ class EncoderSession:
                 "the golden codec; the engine packers are CABAC-first)")
         if config.cabac or config.transform8x8:
             raise NotImplementedError(
-                "CABAC and transform8x8 sessions are not ported yet (the "
-                "next slice, ROADMAP 'What waits' 1)")
+                "CABAC and transform8x8 sessions are not ported yet "
+                "(ROADMAP queue 1 item 2)")
         self.device = resolve_device(device)
         self._num_ref = max(config.num_ref_frames,
                             2 if config.temporal_layers == 3 else 1)

@@ -8,8 +8,10 @@ and releases its claim exactly once.  The decoders run as ONE batched
 reconstruction per tick (`DecoderPool.decode_batch`).  A decoder that
 raises `needs_keyframe` makes the encoder code an IDR next tick.
 
-Of the implementations, "tpu" (the port's sessions) is ported; "libav"
-(libx264 / libavcodec host sessions) raises NotImplementedError.
+impl "tpu" runs the port's sessions; impl "libav" runs the same loop on
+libx264 / libavcodec host sessions (engine/libav_backend.py, a copy of
+the JAX package's), the reference's selectable-backend axis, so that
+both implementations can be compared end to end.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from .ring import FrameRing
 
 class Pipeline:
     """The session pipeline on `device` (the card unless the caller asks
-    for another; no card there raises)."""
+    for another; no card there raises).  impl "libav" codes on the host
+    and uses no device."""
 
     def __init__(self, config: Optional[CodecConfig] = None,
                  impl: str = "tpu", *, device="cuda", **kw):
@@ -39,16 +42,21 @@ class Pipeline:
         if config.streams > config.max_decoders:
             raise ValueError(
                 f"streams {config.streams} > MAX_DECODERS {config.max_decoders}")
-        if impl == "libav":
-            raise NotImplementedError(
-                "impl 'libav' is not ported yet (ROADMAP 'What waits': M8)")
-        if impl != "tpu":
+        if impl not in ("tpu", "libav"):
             raise ValueError(f"unknown impl {impl!r}")
         self.config = config
         self.impl = impl
         self.device = resolve_device(device)
-        self.encoder = EncoderSession(config, device=self.device)
-        self.decoders = DecoderPool(config.max_decoders, device=self.device)
+        if impl == "libav":
+            from . import libav_backend
+
+            self.encoder = libav_backend.LibavEncoderSession(config)
+            self.decoders = libav_backend.LibavDecoderPool(
+                config.max_decoders)
+        else:
+            self.encoder = EncoderSession(config, device=self.device)
+            self.decoders = DecoderPool(config.max_decoders,
+                                        device=self.device)
         for i in range(config.streams):
             self.decoders.init_decoder(i)
         self.ring = FrameRing(config.pool_size, config.max_frame_size)

@@ -106,6 +106,7 @@ def load_jax_decoder_state(port_dec, dpb: Sequence, sps_fields: Mapping,
     as their fields (`vars(session._sps)`); the JAX session's `_nra`,
     `_idc` and `_is_ref_frame`."""
     port_dec._dpb = _session_dpb(dpb, port_dec.device, 1)
+    port_dec._fnums = []  # the JAX session keeps no frame numbers
     port_dec._sps = SPS(**sps_fields)
     port_dec._pps = PPS(**pps_fields)
     port_dec._nra = int(nra)
