@@ -32,9 +32,11 @@ tpuh264_torch/csrc, then:
      intra MBs in P frames; and on the session path (EncoderSession,
      DecoderPool), 6 frames across an IDR: intra44 with deblock (Intra_4x4
      MBs required), two references, three temporal layers, single slice
-     with gop 1 -- GPU bytes and recon == CPU's, GPU decoders == recon
-     (the CPU tests decode the same CPU bytes in the JAX package's
-     golden decoder);
+     with gop 1, and with CABAC: the 8x8 transform + deblock + two
+     references, three temporal layers + deblock, intra44 at gop 4
+     (Intra_4x4 MBs required) -- GPU bytes and recon == CPU's, GPU
+     decoders == recon (the CPU tests decode the same CPU bytes in the
+     JAX package's golden decoder);
   4. drives the main path -- GOPDevicePipeline, 1920x1080 x 4 streams, CBR
      4 Mbps, RTC preset, gop 8, "rigid" source -- for 3 dispatches
      (crossing an IDR): after every dispatch the decode-from-bits DPB
@@ -81,14 +83,27 @@ tpuh264_torch/csrc, then:
      seconds printed; then a crafted general stream (a 20-pel MV)
      through DecoderSession on the card: the I frame on the fast path,
      the P frame on the golden one, both equal to the golden decode (and
-     to libavcodec's where it loads).
+     to libavcodec's where it loads);
+ 15. BASELINE config 3 on the card (tools/bench_config3.py's session):
+     EncoderSession 1920x1080, CABAC + 8x8 transform, 2 references, CBR
+     4 Mbps, intra-in-P, gop 6, 6 frames of "rigid" (IDR + 5 P), each
+     access unit through a DecoderSession == the recon; MBs coded with
+     the 8x8 transform and with reference 1 required; K1 launched once
+     per P frame and searched reference (1 + 2 x 4 = 9); the whole
+     stream decoded by the golden decoder in a spawned worker == the
+     recon of every frame, beside part B: 854x480 x 8 from RGBA, CABAC +
+     8x8 transform + deblock, 2 references, CBR 1 Mbps, gop 8, 4 frames
+     through DecoderPool.decode_batch (per session: CABAC does not
+     batch) == the recon; per-frame copy / encode / entropy / decode
+     ms, kbps at 30 fps, PSNR-Y, QP, and the t8 / reference-1 / intra
+     shares of the P MBs.
 
-Every path of phases 4 and 6-14 is driven with the kernels' launch
+Every path of phases 4 and 6-15 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
 launched every kernel it runs (phase 12 and the general stream have no
 P frame on the fast path, so none), and none may reach the plain
 version of K1 or K3.  No session of the engine's own streams (phases
-11-13) may leave the fast path for the golden decoder.
+11-13 and 15) may leave the fast path for the golden decoder.
 Any failure exits non-zero.  The last two lines are the kernel table
 (launches summed over those paths) and
 {"ok": true, "device": {...}}.  Nothing here imports JAX or the JAX
@@ -641,6 +656,14 @@ def session_cases():
         ("2 references", dict(num_ref_frames=2, gop_size=4), False),
         ("3 temporal layers", dict(temporal_layers=3, gop_size=5), False),
         ("single slice, gop 1", dict(slice_mode="single", gop_size=1), False),
+        ("cabac + transform8x8 + deblock + 2 references",
+         dict(cabac=True, transform8x8=True, deblock=True, num_ref_frames=2,
+              gop_size=4), False),
+        ("cabac + 3 temporal layers + deblock",
+         dict(cabac=True, temporal_layers=3, deblock=True, gop_size=5),
+         False),
+        ("cabac + intra44, gop 4", dict(cabac=True, intra44=True,
+                                        gop_size=4), True),
     ]
 
 
@@ -697,7 +720,7 @@ def phase_small_sessions(dev, np):
     """Phase 3, sessions: at 64x48 x 2 the session path on the GPU emits
     the CPU's bytes (plain versions) and recon, and the GPU decoders equal
     the encoder recon after every frame."""
-    from tpuh264_torch.entropy import native
+    from tpuh264_torch.entropy import cabac_pack, native
 
     frames = session_frames(6)
     for name, kw, need_i4 in session_cases():
@@ -720,8 +743,9 @@ def phase_small_sessions(dev, np):
                                                                 g_rec[t])):
                     fail(f"64x48 session, {name}: decoder {i} != encoder "
                          f"recon at frame {t}")
-        i4 = sum(int((native.parse_iframe(c_data[t][0])[3][:, 0] == 4).sum())
-                 for t in idr)
+        parse = cabac_pack.parse_iframe if kw.get("cabac") else \
+            native.parse_iframe
+        i4 = sum(int((parse(c_data[t][0])[3][:, 0] == 4).sum()) for t in idr)
         if need_i4 and i4 == 0:
             fail(f"64x48 session, {name}: no Intra_4x4 MB coded")
         print(f"phase 3: 64x48 x 2 session, {name}, {len(frames)} frames "
@@ -1336,6 +1360,181 @@ def phase_gate(dev, np, card, launches):
           f"[{card}]")
 
 
+class PSymbols:
+    """Spies on an EncoderSession's P encode: per P frame, the reference
+    pictures it searched (every DPB picture: no temporal layers here) and,
+    on the device, the counts of intra MBs, of inter MBs that chose the
+    8x8 transform and of those that chose reference 1 (read at the end)."""
+
+    def __init__(self, enc, torch):
+        self.searched, self.counts, self.mbs = [], [], 0
+        real = enc._encode_p
+
+        def spy(*a):
+            self.searched.append(len(enc._dpb))
+            out = real(*a)
+            sym = out[0]
+            inter = sym.kind == 1
+            self.counts.append(torch.stack([
+                (sym.kind == 2).sum(), (inter & (sym.t8 == 1)).sum(),
+                (inter & (sym.refidx == 1)).sum()]))
+            self.mbs += sym.kind.numel()
+            return out
+
+        enc._encode_p = spy
+
+    def shares(self):
+        """(intra, t8, reference 1) shares of the P frames' MBs."""
+        tot = sum(c.cpu() for c in self.counts).tolist()
+        return [x / max(self.mbs, 1) for x in tot]
+
+
+def phase_config3(dev, np, card, launches):
+    """Phase 15: BASELINE config 3 on the card (tools/bench_config3.py's
+    session: 1080p, CABAC + 8x8 transform, 2 references, CBR 4 Mbps,
+    intra-in-P), 6 frames, decoded by a DecoderSession on the fast path
+    == the recon after every frame and == the golden decode of the whole
+    stream (in a spawned worker, beside part B); then part B, the
+    reference lab's operating point (854x480 x 8 from RGBA) with CABAC,
+    the 8x8 transform and its deblock, through DecoderPool.decode_batch."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from tpuh264_torch.conformance import gate
+    from tpuh264_torch.engine import (CodecConfig, DecoderPool,
+                                      DecoderSession, EncoderSession, sources)
+
+    # ---- part A: config 3 at 1920x1080, IDR + 5 P ----
+    w, h, n = 1920, 1080, 6
+    cfg = CodecConfig(width=w, height=h, qp=None, bitrate=4_000_000,
+                      cabac=True, transform8x8=True, num_ref_frames=2,
+                      gop_size=6, intra_in_p=True)
+    enc = EncoderSession(cfg, device=dev)
+    dec = DecoderSession(device=dev)
+    spy = PSymbols(enc, torch)
+    src = [sources.yuv_frame(w, h, t, kind="rigid") for t in range(n)]
+    rows, aus, recons = [], [], []
+
+    def drive():
+        for t, planes in enumerate(src):
+            out = enc.encode_frame_yuv(*planes)[0]
+            t0 = time.perf_counter()
+            got = dec.decode(out.data)
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            recon = [p[0].cpu().numpy() for p in enc.recon]
+            recon = [r[:a.shape[0], :a.shape[1]] for r, a in zip(recon,
+                                                                  planes)]
+            if got is None or not all(np.array_equal(a, r)
+                                      for a, r in zip(got, recon)):
+                fail(f"config 3: decoder != encoder recon at frame {t}")
+            if dec._general or dec.frames_concealed:
+                fail(f"config 3: the decoder left the fast path (general "
+                     f"{dec._general}) or concealed at frame {t}")
+            d = recon[0].astype(np.float64) - planes[0]
+            tm = out.timings
+            aus.append(out.data)
+            recons.append(recon)
+            rows.append(dict(
+                frame=t, idr=out.is_idr, qp=out.qp,
+                kbps_at_30fps=round(len(out.data) * 8 * 30 / 1e3, 1),
+                psnr_y=round(float(10 * np.log10(255.0 ** 2
+                                                 / (d * d).mean())), 2),
+                copy_ms=round(tm["copy_ms"], 1),
+                encode_ms=round(tm["encode_ms"], 1),
+                entropy_ms=round(tm["entropy_ms"], 1),
+                decode_ms=round(dec_ms, 1)))
+
+    _, counts = launches.path("config 3 1080p", drive, needs=(0,))
+    intra, t8, ref1 = spy.shares()
+    if spy.searched != [1, 2, 2, 2, 2] or counts[0] != sum(spy.searched):
+        fail(f"config 3: K1 launched {counts[0]} times for the references "
+             f"searched {spy.searched} (1 + 2 x 4 = 9 expected)")
+    if t8 <= 0 or ref1 <= 0:
+        fail(f"config 3: P-frame MB shares t8 {t8}, reference 1 {ref1}")
+    for r in rows:
+        print(f"phase 15: config 3 frame {r} [{card}]")
+    # the independent oracle: the golden decoder, in a spawned worker
+    oracle = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        gold = oracle.submit(gate._timed_decode, b"".join(aus), "golden")
+        part_b(dev, np, card, launches, torch)
+        frames, gold_s = gold.result()
+    finally:
+        oracle.shutdown(wait=True, cancel_futures=True)
+    if len(frames) != n:
+        fail(f"config 3: the golden decoder decoded {len(frames)} frames")
+    for t, (f, r) in enumerate(zip(frames, recons)):
+        if not all(np.array_equal(np.asarray(a), b) for a, b in zip(f, r)):
+            fail(f"config 3: golden decode != encoder recon at frame {t}")
+    mean = lambda k: sum(r[k] for r in rows[1:]) / (n - 1)
+    print(f"phase 15: BASELINE config 3 (1920x1080, CABAC + 8x8 transform, "
+          f"2 references, CBR 4 Mbps, intra-in-P, gop 6), 'rigid', {n} "
+          f"frames: DecoderSession on the fast path == encoder recon after "
+          f"every frame, golden decode (worker, {gold_s:.1f} s) == recon; "
+          f"K1 {counts[0]} launches for the references searched "
+          f"{spy.searched}; P-frame MB shares: t8 {t8:.4f}, reference 1 "
+          f"{ref1:.4f}, intra {intra:.4f}; mean P ms: encode "
+          f"{mean('encode_ms'):.1f}, entropy {mean('entropy_ms'):.1f}, "
+          f"decode {mean('decode_ms'):.1f}; stream "
+          f"{sum(map(len, aus)) * 8 * 30 / n / 1e3:.1f} kbps at 30 fps "
+          f"[{card}]")
+
+
+def part_b(dev, np, card, launches, torch):
+    """Phase 15 part B: 854x480 x 8 from RGBA (the "meeting" clip), CABAC +
+    8x8 transform + deblock, 2 references, CBR 1 Mbps, gop 8, 4 frames;
+    every frame's access units through DecoderPool.decode_batch (per
+    session: CABAC does not batch) == the recon."""
+    from tpuh264_torch.engine import CodecConfig, DecoderPool, EncoderSession
+
+    w, h, s, n = 854, 480, 8, 4
+    frames = clip_rgba(dev, w, h, n, s)
+    enc = EncoderSession(CodecConfig(
+        width=w, height=h, streams=s, cabac=True, transform8x8=True,
+        deblock=True, num_ref_frames=2, gop_size=8, bitrate=1_000_000),
+        device=dev)
+    pool = DecoderPool(device=dev)
+    for i in range(s):
+        pool.init_decoder(i)
+    spy = PSymbols(enc, torch)
+    rows = []
+
+    def drive():
+        for t, rgba in enumerate(frames):
+            out = enc.encode_frame(rgba)
+            t0 = time.perf_counter()
+            got = pool.decode_batch([(i, f.data) for i, f in enumerate(out)])
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            recon = [p.cpu().numpy() for p in enc.recon]
+            for i in range(s):
+                if got[i] is None or not all(
+                        np.array_equal(a, r[i][:a.shape[0], :a.shape[1]])
+                        for a, r in zip(got[i], recon)):
+                    fail(f"config 3 part B: decoder {i} != encoder recon at "
+                         f"frame {t}")
+            tm = out[0].timings
+            rows.append((t, out[0].qp, sum(len(f.data) for f in out),
+                         round(tm["encode_ms"], 1),
+                         round(tm["entropy_ms"], 1), round(dec_ms, 1)))
+
+    _, counts = launches.path("config 3 part B 480p x 8", drive, needs=(0,))
+    stay_fast([pool[i] for i in range(s)], "config 3 part B")
+    intra, t8, ref1 = spy.shares()
+    if counts[0] != sum(spy.searched) or t8 <= 0:
+        fail(f"config 3 part B: K1 {counts[0]} launches for the references "
+             f"searched {spy.searched}; t8 share {t8}")
+    print(f"phase 15: part B, 854x480 x 8 from RGBA (clip 'meeting'), CABAC "
+          f"+ 8x8 transform + deblock, 2 references, CBR 1 Mbps, gop 8, "
+          f"{n} frames: DecoderPool.decode_batch == encoder recon after "
+          f"every frame, no session left the fast path; K1 {counts[0]} "
+          f"launches ({spy.searched}); P-frame MB shares t8 {t8:.4f}, "
+          f"reference 1 {ref1:.4f}, intra {intra:.4f}; (frame, QP, bytes, "
+          f"encode, entropy, decode ms) {rows} [{card}]")
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpuh264_torch", "csrc")):
@@ -1387,6 +1586,7 @@ def main() -> None:
     phase_wavefront(dev, np, card, launches)
     phase_app_tpu(dev, np, card, launches)
     phase_gate(dev, np, card, launches)
+    phase_config3(dev, np, card, launches)
 
     for r, n in zip(rows, launches.total):
         r["launches"] = n

@@ -154,9 +154,10 @@ def test_port_imports_no_jax():
 
 
 def test_unported_options_raise():
-    """What is still unported raises: the DPB halo and the 8x8 transform
-    of the P encode and decode.  The "libav" implementation of the App and
-    of the session Pipeline is ported: both build it."""
+    """What is still unported raises: the DPB halo of the P encode and
+    decode.  The 8x8 transform of both is ported (tests/test_torch_t8.py)
+    and runs.  The "libav" implementation of the App and of the session
+    Pipeline is ported: both build it."""
     import torch
 
     from tpuh264_torch.engine import Pipeline
@@ -166,12 +167,14 @@ def test_unported_options_raise():
     y = torch.zeros((1, 16, 16), dtype=torch.uint8)
     c = torch.zeros((1, 8, 8), dtype=torch.uint8)
     refs = (y[None].int(), c[None].int(), c[None].int())
-    for kw in (dict(halo=True), dict(t8=True)):
-        with pytest.raises(NotImplementedError):
-            pframe.encode_pframe_rows_multi(y, c, c, *refs, 28, **kw)
-    sym, _, _ = pframe.encode_pframe_rows_multi(y, c, c, *refs, 28)
     with pytest.raises(NotImplementedError):
-        pframe.decode_pframe_rows_multi(sym, *refs, 28, t8=True)
+        pframe.encode_pframe_rows_multi(y, c, c, *refs, 28, halo=True)
+    sym, rec, _ = pframe.encode_pframe_rows_multi(y, c, c, *refs, 28,
+                                                  t8=True)
+    with pytest.raises(NotImplementedError):
+        pframe.decode_pframe_rows_multi(sym, *refs, 28, halo=True)
+    dec, _ = pframe.decode_pframe_rows_multi(sym, *refs, 28, t8=True)
+    assert all(torch.equal(a, b) for a, b in zip(dec, rec))
     from tpuh264_torch.engine import libav_backend
 
     cfg = CodecConfig(**dict(CFG, qp=28))

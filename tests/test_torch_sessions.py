@@ -10,10 +10,11 @@ frames: identical annex-B bytes per frame and stream, identical encoder
 recon, QPs and frame numbers (the same configs from RGBA:
 tests/test_torch_sessions_rgba.py).  The decoders (`decode` per session
 and `decode_batch`) return the JAX pool's planes, dtypes and flags, and
-the encoder's recon.  Garbage conceals as in JAX; CABAC and the 8x8
-transform raise NotImplementedError in the encoder, and streams with
-them, or with ref_pic_list_modification, decode through the golden
-decoder to libavcodec's pictures."""
+the encoder's recon.  Garbage conceals as in JAX; the 8x8 transform
+without CABAC raises NotImplementedError in the encoder, and x264's
+CABAC and CAVLC 8x8 streams, and streams with ref_pic_list_modification,
+decode through the golden decoder to libavcodec's pictures (the engine's
+own CABAC sessions: tests/test_torch_sessions_cabac*.py)."""
 
 import numpy as np
 import pytest
@@ -237,24 +238,29 @@ def test_concealment_matches_jax():
 
 
 def test_unported_syntax_raises():
+    """The encoder refuses what the JAX session refuses (the 8x8 transform
+    without CABAC among them) and nothing more: CABAC, with and without
+    the 8x8 transform, builds.  Syntax the fast path does not take goes
+    to the golden decoder."""
     from tpuh264_torch.engine import DecoderSession
 
-    for kw in (dict(cabac=True), dict(cabac=True, transform8x8=True),
-               dict(transform8x8=True)):
-        with pytest.raises(NotImplementedError):
-            EncoderSession(CodecConfig(width=W, height=H, **kw),
-                           device="cpu")
-    # the JAX session's refusals stay
-    for kw in (dict(slice_mode="single", deblock=True, gop_size=1),
+    for kw in (dict(cabac=True), dict(cabac=True, transform8x8=True)):
+        enc = EncoderSession(CodecConfig(width=W, height=H, **kw),
+                             device="cpu")
+        assert enc.pps.entropy_coding_mode_flag == 1
+        assert enc.pps.transform_8x8_mode_flag == kw.get("transform8x8", 0)
+    for kw in (dict(transform8x8=True),
+               dict(slice_mode="single", deblock=True, gop_size=1),
                dict(slice_mode="single", gop_size=4),
                dict(slice_mode="single", intra44=True, gop_size=1)):
         with pytest.raises(NotImplementedError):
             EncoderSession(CodecConfig(width=W, height=H, **kw),
                            device="cpu")
-    # the decoder side takes what the encoder refuses: a P slice with
+    # the decoder side takes what the encoder never emits: a P slice with
     # ref_pic_list_modification (which the JAX fast path decodes in the
-    # default order), CABAC and the 8x8 transform decode to libavcodec's
-    # pictures (or the golden decoder's, where libavcodec is missing)
+    # default order), x264's single-slice CABAC with mb_qp_delta and its
+    # CAVLC 8x8 transform decode to libavcodec's pictures (or the golden
+    # decoder's, where libavcodec is missing) through the golden path
     from test_torch_general_decode import (list_mod_aus, split_aus,
                                            x264_stream)
     from tpuh264_torch.conformance import ffdec, ffenc

@@ -2,19 +2,23 @@
 
 Port of tpuh264/engine/decoder.py, the counterpart of the reference's
 decoder C ABI (a pool of MAX_DECODERS = 32 slots, init_decoder /
-deinit_decoder per stream, per-frame decode entry points): host CAVLC
-parse by the native engine, reconstruction on the device.
+deinit_decoder per stream, per-frame decode entry points): host entropy
+parse (CAVLC by the native engine, CABAC by entropy/cabac_pack.py),
+reconstruction on the device.
 
-Streams of the engine's own syntax subset take this fast path: CAVLC, I
-frames with one slice per MB row (Intra_16x16 and Intra_4x4) or one
-slice (the wavefront), P frames with one slice per MB row, 1..16
-references, the in-loop deblock.  Everything else goes to the golden
-`StreamDecoder` (golden/codec.py), as in the JAX session: CABAC, the
-8x8 transform, other slice layouts, MVs beyond the fast path's window,
-third-party syntax, and P slices with ref_pic_list_modification (the JAX
-fast path decodes those in the default list order, with wrong pixels;
-here they divert).  A `NotImplementedError` of the host stage switches
-the session to the golden path for good; a `RuntimeError` of the host
+Streams of the engine's own syntax subset take this fast path: CAVLC or
+CABAC, I frames with one slice per MB row (Intra_16x16 and Intra_4x4) or
+one slice (the wavefront), P frames with one slice per MB row, 1..16
+references, with CABAC the 8x8 transform of inter MBs, the in-loop
+deblock.  Everything else goes to the golden `StreamDecoder`
+(golden/codec.py), as in the JAX session: what the CABAC parser refuses
+(I_PCM, Intra_8x8, a nonzero mb_qp_delta, P partitions), other slice
+layouts, MVs beyond the fast path's window, third-party syntax, CAVLC
+with the 8x8 transform (which the engine never emits), and P slices with
+ref_pic_list_modification (the JAX fast path decodes those in the
+default list order, with wrong pixels; here they divert).  A
+`NotImplementedError` of the host stage switches the session to the
+golden path for good; a `RuntimeError` of the host
 stage (the native parse refusing general syntax, or a corrupt access
 unit) gets one golden try, and only a successful one switches it.  The
 golden decoder starts from the session's SPS, PPS and DPB, so a switch
@@ -42,6 +46,7 @@ from ..core import nal
 from ..core.bitstream import BitReader
 from ..core.params import PPS, SPS
 from ..core.sliceheader import SLICE_P, SliceHeader
+from ..entropy import cabac_pack
 from ..entropy import native as entropy_native
 from ..kernels import color, iframe, pframe, wavefront
 from ..kernels import deblock as kdeblock
@@ -173,11 +178,10 @@ class DecoderSession:
                 self._sps = SPS.parse(BitReader(rbsp))
             elif ntype == nal.NAL_PPS:
                 self._pps = PPS.parse(BitReader(rbsp))
-                if self._pps.entropy_coding_mode_flag:
-                    raise NotImplementedError("CABAC: the general path")
-                if self._pps.transform_8x8_mode_flag:
-                    raise NotImplementedError("8x8 transform: the general "
-                                              "path")
+                if (self._pps.transform_8x8_mode_flag
+                        and not self._pps.entropy_coding_mode_flag):
+                    raise NotImplementedError("CAVLC with the 8x8 "
+                                              "transform: the general path")
             elif ntype == nal.NAL_SLICE_NON_IDR:
                 h = SliceHeader.parse(BitReader(rbsp), self._sps, self._pps,
                                       False, ref=ridc != 0)
@@ -203,7 +207,8 @@ class DecoderSession:
         if self._classify(data):
             symbols, qp = self._parse_p_symbols(data)
             return lambda: self._decode_p(symbols, qp)
-        parsed = entropy_native.parse_iframe(data)
+        parsed = (cabac_pack.parse_iframe(data) if self._cabac()
+                  else entropy_native.parse_iframe(data))
         sps = parsed[0]
         self._sps, self._pps = sps, parsed[1]
         r = sps.mb_height
@@ -216,6 +221,14 @@ class DecoderSession:
         if n_slices != r:
             raise NotImplementedError(f"{n_slices} slices for {r} MB rows")
         return lambda: self._decode_i(parsed, wave=False)
+
+    def _cabac(self) -> bool:
+        return bool(self._pps is not None
+                    and self._pps.entropy_coding_mode_flag)
+
+    def _t8(self) -> bool:
+        return bool(self._pps is not None
+                    and self._pps.transform_8x8_mode_flag)
 
     def _decode_i(self, parsed, wave: bool) -> Planes:
         sps, _, qp = parsed[:3]
@@ -247,8 +260,13 @@ class DecoderSession:
                 h = SliceHeader.parse(r, sps, pps, False, ref=ridc != 0)
                 qp = 26 + pps.pic_init_qp_minus26 + h.slice_qp_delta
                 slices.append((rbsp, r.bit_position, h.first_mb_in_slice))
-        mb_info, ldc, lac, cdc, cac = entropy_native.parse_pframe_slices(
-            slices, sps, pps, self._nra)
+        if self._cabac():
+            mb_info, ldc, lac, cdc, cac, t8 = cabac_pack.parse_pframe_slices(
+                slices, sps, pps, qp=qp, nra=self._nra)
+        else:
+            mb_info, ldc, lac, cdc, cac = entropy_native.parse_pframe_slices(
+                slices, sps, pps, self._nra)
+            t8 = np.zeros(rr * cc, np.int32)
         # the row-slice decode assumes one slice per MB row (the left-only
         # MV predictor)
         if len(slices) != rr and rr != 1:
@@ -280,7 +298,7 @@ class DecoderSession:
             luma_ac=lac.reshape(1, rr, cc, 16, 16),
             chroma_dc=cdc.reshape(1, rr, cc, 2, 4),
             chroma_ac=cac.reshape(1, rr, cc, 2, 4, 15), refidx=f(7),
-            t8=np.zeros((1, rr, cc), np.int32))
+            t8=t8.reshape(1, rr, cc))
         return symbols, qp
 
     def _decode_p(self, symbols, qp: int) -> Planes:
@@ -289,9 +307,11 @@ class DecoderSession:
                                   .to(dev) for x in symbols))
         dpb = self._dpb[:max(self._nra, 1)]
         refs = [torch.stack([d[i] for d in dpb]) for i in range(3)]
-        planes, motion = pframe.decode_pframe_rows_multi(sym, *refs, qp)
+        t8 = self._t8()
+        planes, motion = pframe.decode_pframe_rows_multi(sym, *refs, qp,
+                                                         t8=t8)
         if self._idc != 1:
-            planes = kdeblock.deblock_p(planes, sym, motion, qp)
+            planes = kdeblock.deblock_p(planes, sym, motion, qp, t8=t8)
         if self._is_ref_frame:
             self._push(planes)
         return _crop(planes, 0, self._sps)
@@ -350,10 +370,11 @@ class DecoderPool:
         Row-sliced I frames, and P frames with one active reference, of
         the same size, QP and deblock mode are stacked into one
         reconstruction (+ deblock) each, the sessions' DPB heads on the
-        stream axis; sessions on the golden path, and access units the
-        fast path does not take, decode per session.  (The JAX pool
-        decodes deblocked I frames per session: the same planes, one
-        column loop per stream.)"""
+        stream axis; sessions on the golden path, CABAC access units, P
+        frames with the 8x8 transform enabled, and access units the fast
+        path does not take, decode per session, as in the JAX pool.  (The
+        JAX pool decodes deblocked I frames per session: the same planes,
+        one column loop per stream.)"""
         results: Dict[int, Optional[Planes]] = {}
         i_items, p_items = [], []
         for idx, data in items:
@@ -361,11 +382,13 @@ class DecoderPool:
             if not sess._general:
                 try:
                     is_p = sess._classify(data)
-                    if is_p and sess._dpb and sess._nra == 1:
+                    cavlc = not sess._cabac()  # CABAC: per session
+                    if (cavlc and is_p and sess._dpb and sess._nra == 1
+                            and not sess._t8()):
                         p_items.append((idx, sess,
                                         *sess._parse_p_symbols(data)))
                         continue
-                    if not is_p:
+                    if cavlc and not is_p:
                         p = entropy_native.parse_iframe(data)
                         if _count_slices(data) == p[0].mb_height or \
                                 p[0].mb_height == 1:

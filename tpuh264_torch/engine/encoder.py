@@ -2,21 +2,25 @@
 encoder C ABI (init_encoder / force_key_frame / encode_frame /
 encode_frame_yuv_i420), batched over `streams` independent inputs.
 
-Port of tpuh264/engine/encoder.py (CAVLC).  Per encode call:
+Port of tpuh264/engine/encoder.py.  Per encode call:
 
   [host  ] RGBA or I420 copy-in, edge-padded to the MB grid   ("copy")
   [device] colour convert, then the I scan (row slices, with or without
            Intra_4x4, or the single-slice wavefront) or the P encode
-           (quarter-pel ME with K1 in stage A, intra-in-P), the deblock
+           (quarter-pel ME with K1 in stage A, the 8x8-vs-4x4 transform
+           choice with `transform8x8`, intra-in-P), the deblock
                                                              ("encode")
-  [host  ] symbols down, CAVLC pack by the native engine -> annex-B
-                                                            ("entropy")
+  [host  ] symbols down, then the CAVLC pack by the native engine, or
+           with `cabac` the CABAC pack (numpy, entropy/cabac_pack.py)
+           -> annex-B                                       ("entropy")
 
 The P route follows the JAX session: with temporal layers the reference
 is forced (T0 frames of 3 layers reference the previous T0, others the
 newest picture), otherwise every DPB picture is searched per MB; only
 reference pictures enter the DPB, and frame_num counts reference
-pictures.  CABAC and the 8x8 transform are not ported and raise.
+pictures.  `cabac` streams are Main profile; `transform8x8` (which needs
+`cabac`, as in the JAX session) makes them High profile with the 8x8
+transform enabled in the PPS.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core.params import PPS, SPS
+from ..core.params import (PPS, PROFILE_BASELINE, PROFILE_HIGH, PROFILE_MAIN,
+                           SPS)
+from ..entropy import cabac_pack
 from ..entropy import native as entropy_native
 from ..kernels import color, iframe, pframe, wavefront
 from ..kernels import deblock as kdeblock
@@ -90,16 +96,16 @@ class EncoderSession:
             raise NotImplementedError(
                 "transform8x8 requires cabac=True (CAVLC 8x8 exists in "
                 "the golden codec; the engine packers are CABAC-first)")
-        if config.cabac or config.transform8x8:
-            raise NotImplementedError(
-                "CABAC and transform8x8 sessions are not ported yet "
-                "(ROADMAP queue 1 item 2)")
         self.device = resolve_device(device)
         self._num_ref = max(config.num_ref_frames,
                             2 if config.temporal_layers == 3 else 1)
+        profile = (PROFILE_HIGH if config.transform8x8 else
+                   PROFILE_MAIN if config.cabac else PROFILE_BASELINE)
         self.sps = SPS.for_size(config.width, config.height,
+                                profile_idc=profile,
                                 max_num_ref_frames=self._num_ref)
-        self.pps = PPS()
+        self.pps = PPS(entropy_coding_mode_flag=int(config.cabac),
+                       transform_8x8_mode_flag=int(config.transform8x8))
         self.frame_num = 0
         self.idr_pic_id = 0
         self._force_idr = True
@@ -161,7 +167,8 @@ class EncoderSession:
         else:
             symbols, recon, motion = self._encode_p(y, u, v, qp)
             if cfg.deblock:
-                recon = kdeblock.deblock_p(recon, symbols, motion, qp)
+                recon = kdeblock.deblock_p(recon, symbols, motion, qp,
+                                           t8=cfg.transform8x8)
         sync(self.device)
         t1 = time.perf_counter()
 
@@ -203,16 +210,17 @@ class EncoderSession:
             force = 0
         else:
             force = -1  # free per-MB reference search
+        t8 = cfg.transform8x8
         if force >= 0:
             refs = [p[None] for p in self._dpb[force]]
             return pframe.encode_pframe_rows_multi(y, u, v, *refs, qp,
-                                                   ref_base=force)
+                                                   ref_base=force, t8=t8)
         refs = [torch.stack([d[i] for d in self._dpb]) for i in range(3)]
-        return pframe.encode_pframe_rows_multi(y, u, v, *refs, qp)
+        return pframe.encode_pframe_rows_multi(y, u, v, *refs, qp, t8=t8)
 
     def _pack_i(self, symbols, s: int, n: int, qp: int, deblock_idc: int):
         """IDR access units: the symbols down in one flat copy, then the
-        native CAVLC pack per stream."""
+        native CAVLC pack (or the CABAC pack) per stream."""
         i4 = self.config.intra44
         r, c = self.sps.mb_height, self.sps.mb_width
         sym = iframe.unflatten_symbols_np(
@@ -223,7 +231,9 @@ class EncoderSession:
         arrs = (per("luma_dc", 16), per("luma_ac", 16, 16),
                 per("chroma_dc", 2, 4), per("chroma_ac", 2, 4, 15))
         i4m = per("i4modes", 16) if i4 else None
-        return [EncodedFrame(entropy_native.pack_iframe(
+        pack = (cabac_pack.pack_iframe if self.config.cabac
+                else entropy_native.pack_iframe)
+        return [EncodedFrame(pack(
             info[i], *(a[i] for a in arrs), self.sps, self.pps, qp,
             slice_mode=self.config.slice_mode, frame_num=0, idr=True,
             include_ps=True, deblock_idc=deblock_idc,
@@ -233,7 +243,8 @@ class EncoderSession:
     def _pack_p(self, symbols, s: int, n: int, qp: int, deblock_idc: int,
                 is_ref: bool):
         """P access units; frame_num counts reference pictures (with
-        temporal layers every other frame is a non-reference one)."""
+        temporal layers every other frame is a non-reference one).  The
+        CABAC pack also takes the MBs' 8x8-transform flags."""
         cfg = self.config
         npy = lambda x, *sh: x.cpu().numpy().reshape(s, n, *sh)
         info = np.stack([npy(getattr(symbols, f)) for f in (
@@ -244,9 +255,13 @@ class EncoderSession:
         k = self._frame_in_gop
         fnum = (k if cfg.temporal_layers == 1 else (k + 1) // 2) % (
             1 << (self.sps.log2_max_frame_num_minus4 + 4))
-        return [EncodedFrame(entropy_native.pack_pframe(
+        pack = cabac_pack.pack_pframe if cfg.cabac else \
+            entropy_native.pack_pframe
+        t8f = npy(symbols.t8) if cfg.transform8x8 else None
+        extra = lambda i: {} if t8f is None else {"t8flags": t8f[i]}
+        return [EncodedFrame(pack(
             info[i], *(a[i] for a in arrs), self.sps, self.pps, qp,
             slice_mode=cfg.slice_mode, frame_num=fnum,
             deblock_idc=deblock_idc, ref=is_ref,
-            num_ref_active=len(self._dpb)),
+            num_ref_active=len(self._dpb), **extra(i)),
             False, self.frame_num, qp, {}) for i in range(s)]

@@ -8,7 +8,9 @@ internal horizontal edges.  With idc=2 and row slices the horizontal
 MB-boundary edges sit on slice boundaries and are not filtered, which
 keeps rows independent.  tc0 is a table gather by bS (the JAX version's
 select chain was a TPU workaround).  The first column's left edge has
-bS 0 everywhere (no left MB in the slice) and is skipped outright.
+bS 0 everywhere (no left MB in the slice) and is skipped outright.  For
+MBs coded with the 8x8 transform (`t8`) the 4-aligned internal luma
+edges get bS 0; the chroma internal edge keeps the bS of luma edge 2.
 
 Also home of `deblock_nnz` (was engine/encoder.py `_deblock_nnz`) and of
 the pipeline's two call shapes `deblock_i` / `deblock_p`.
@@ -115,22 +117,26 @@ def _edge(left_cols, right_cols, bs4, qp: int, chroma: bool):
 
 
 def _internal(mb: torch.Tensor, intra, qp: int, chroma: bool,
-              edges) -> torch.Tensor:
+              edges, t8=None) -> torch.Tensor:
     """Filter the internal vertical edges of [S,R,n,n] MBs; `edges` lists
-    (sample column, (nnz of the block column left, right))."""
+    (sample column, (nnz of the block column left, right)).  Where `t8`
+    [S,R] is given, its MBs skip the 4-aligned edges (columns 4 and 12)."""
     for xe, (nl, nr) in edges:
         bs4 = torch.where(intra[..., None], 3,
                           torch.where((nl > 0) | (nr > 0), 2, 0))
+        if t8 is not None and xe in (4, 12):
+            bs4 = torch.where(t8[..., None], 0, bs4)
         lc, rc = _edge(mb[..., xe - 4:xe], mb[..., xe:xe + 4], bs4, qp, chroma)
         mb = torch.cat([mb[..., :xe - 4], lc, rc, mb[..., xe + 4:]], dim=-1)
     return mb
 
 
 def deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp: int,
-                       refidx=None) -> Tuple[torch.Tensor, ...]:
+                       refidx=None, t8=None) -> Tuple[torch.Tensor, ...]:
     """Filter [S, H, W] frames in row-slice (idc=2) mode; returns uint8
-    planes.  kind/mvx/mvy/refidx [S, R, C]; nnz [S, R, C, 4, 4] per-4x4
-    luma coded-coefficient counts (by, bx)."""
+    planes.  kind/mvx/mvy/refidx/t8 [S, R, C]; nnz [S, R, C, 4, 4] per-4x4
+    luma coded-coefficient counts (by, bx), 8x8-effective for t8 MBs
+    (`deblock_nnz`)."""
     qpc = T.chroma_qp_from_luma(qp)
     s, h, w = y.shape
     r, c = h // 16, w // 16
@@ -144,12 +150,14 @@ def deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp: int,
     mvy_c = torch.movedim(mvy.to(I32), 2, 0)
     ref_c = torch.movedim(refidx.to(I32), 2, 0)
     nnz_c = torch.movedim(nnz.to(I32), 2, 0)  # [C, S, R, 4, 4]
+    t8_c = None if t8 is None else torch.movedim(t8 == 1, 2, 0)
 
     out_y, out_u, out_v = [], [], []
     prev = None
     for col in range(c):
         ymb, umb, vmb = y_mbs[col], u_mbs[col], v_mbs[col]
         k, nz = kind_c[col], nnz_c[col]
+        tf = None if t8_c is None else t8_c[col]
         intra = k == 2
         if prev is not None:
             # ---- vertical MB-boundary edge (prev | cur) ----
@@ -175,7 +183,7 @@ def deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp: int,
         cols = [(4 * bx, (nz[..., :, bx - 1], nz[..., :, bx]))
                 for bx in (1, 2, 3)]
         ccols = [(4, cols[1][1])]  # chroma edge x=4 shares luma x=8's bS
-        ymb = _internal(ymb, intra, qp, False, cols)
+        ymb = _internal(ymb, intra, qp, False, cols, tf)
         umb = _internal(umb, intra, qpc, True, ccols)
         vmb = _internal(vmb, intra, qpc, True, ccols)
         # ---- internal horizontal edges y = 4, 8, 12 (transposed) ----
@@ -183,7 +191,7 @@ def deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp: int,
                 for by in (1, 2, 3)]
         crows = [(4, rows[1][1])]
         ymb = _internal(ymb.transpose(-1, -2), intra, qp, False,
-                        rows).transpose(-1, -2)
+                        rows, tf).transpose(-1, -2)
         umb = _internal(umb.transpose(-1, -2), intra, qpc, True,
                         crows).transpose(-1, -2)
         vmb = _internal(vmb.transpose(-1, -2), intra, qpc, True,
@@ -199,12 +207,19 @@ def deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp: int,
     )
 
 
-def deblock_nnz(symbols) -> torch.Tensor:
+def deblock_nnz(symbols, t8_enabled: bool = False) -> torch.Tensor:
     """Per-4x4 coded-coefficient grid [S, R, C, 4, 4] for the bS
-    derivation (4x4 transform only; port of engine/encoder.py
-    `_deblock_nnz` with t8 off)."""
+    derivation (port of engine/encoder.py `_deblock_nnz`).  With
+    `t8_enabled`, a 4x4 cell of an 8x8-transform MB counts as coded iff
+    its covering 8x8 block has any coefficient (8.7.2.1)."""
     sh = symbols.kind.shape
-    return symbols.luma_ac.ne(0).sum(-1, dtype=I32).reshape(*sh, 4, 4)
+    lac = symbols.luma_ac
+    nnz4 = lac.ne(0).sum(-1, dtype=I32).reshape(*sh, 4, 4)
+    if not t8_enabled or symbols.t8 is None:
+        return nnz4
+    any8 = lac.reshape(*sh, 4, 64).ne(0).any(-1).to(I32).reshape(*sh, 2, 2)
+    cells8 = any8.repeat_interleave(2, dim=-1).repeat_interleave(2, dim=-2)
+    return torch.where((symbols.t8 == 1)[..., None, None], cells8, nnz4)
 
 
 def deblock_i(recon, qp: int):
@@ -218,8 +233,10 @@ def deblock_i(recon, qp: int):
         torch.zeros((*sh, 4, 4), dtype=I32, device=y.device), qp)
 
 
-def deblock_p(recon, sym, motion, qp: int):
-    """In-loop deblock of a P frame from its symbols and motion field."""
+def deblock_p(recon, sym, motion, qp: int, t8: bool = False):
+    """In-loop deblock of a P frame from its symbols and motion field;
+    `t8` where the stream enables the 8x8 transform."""
     return deblock_frame_rows(
         recon[0], recon[1], recon[2], sym.kind, motion[0], motion[1],
-        deblock_nnz(sym), qp, refidx=sym.refidx)
+        deblock_nnz(sym, t8), qp, refidx=sym.refidx,
+        t8=sym.t8 if t8 else None)

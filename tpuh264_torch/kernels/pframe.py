@@ -1,10 +1,11 @@
 """P-frame encoder/decoder core in PyTorch (row-slice parallel, rate-biased ME).
 
-Port of tpuh264/kernels/pframe.py for the paths the GOP pipeline runs:
-`encode_pframe_rows_multi` (1..4 references; `intra_in_p` True or
-False) and `decode_pframe_rows_multi`, both with `halo=False`,
-`t8=False`.  Decisions are bit-identical to the JAX version
-(tests/test_torch_pframe.py, tests/test_torch_intra_in_p.py):
+Port of tpuh264/kernels/pframe.py for the paths the GOP pipeline and
+the sessions run: `encode_pframe_rows_multi` (1..4 references;
+`intra_in_p` True or False; `t8` True or False) and
+`decode_pframe_rows_multi`, both with `halo=False` only.  Decisions are
+bit-identical to the JAX version (tests/test_torch_pframe.py,
+tests/test_torch_intra_in_p.py, tests/test_torch_t8.py):
 
   1. stage A: the exact SAD table over the +-8 grid on the stride-2
      subsample -- K1, `me_cuda.sad_field` (CUDA kernel on the card, its
@@ -16,7 +17,10 @@ False) and `decode_pframe_rows_multi`, both with `halo=False`,
      half -> quarter selection;
   4. motion compensation, transforms, quant and reconstruction batched
      over [S, R, C];
-  5. with `intra_in_p`, a Python loop over the MB columns (the JAX
+  5. with `t8`, the 8x8 transform of every inter MB beside the 4x4 one:
+     the lower J = 8*SSD + lambda8*rate wins (`_t8_choice`), and P_Skip,
+     the symbols and the recon follow the chosen transform;
+  6. with `intra_in_p`, a Python loop over the MB columns (the JAX
      column `lax.scan`; its TPU unroll factor is not carried over)
      tries Intra_16x16 against each MB's left reconstruction.
 
@@ -52,7 +56,9 @@ from ..golden.inter import (
 )
 from . import me_cuda, tables
 from . import transform as T
+from . import transform8 as T8
 from .iframe import (
+    _LAMBDA8,
     Intra16,
     _blocks_to_mb,
     _chroma_cbp,
@@ -64,6 +70,7 @@ from .iframe import (
     _luma_blocks,
     _mbs_to_plane,
     _plane_to_mbs,
+    _rate_bits,
     _recon_chroma,
 )
 
@@ -122,7 +129,7 @@ class MBSymbolsP(NamedTuple):
     chroma_dc: torch.Tensor   # [S, R, C, 2, 4] int16
     chroma_ac: torch.Tensor   # [S, R, C, 2, 4, 15] int16
     refidx: Optional[torch.Tensor] = None  # [S, R, C] int32
-    t8: Optional[torch.Tensor] = None      # [S, R, C] (always 0 here)
+    t8: Optional[torch.Tensor] = None      # [S, R, C] int32 8x8 transform
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +446,43 @@ def _recon_inter_luma(pred, q_flat, nzmask8, qp: int):
     return _blocks_to_mb(T.idct_add(_luma_blocks(pred), d))
 
 
+def _to8(x: torch.Tensor) -> torch.Tensor:
+    """[..., 16, 16] MBs -> [..., 2 (by), 2 (bx), 8, 8] 8x8 blocks."""
+    return x.reshape(*x.shape[:-2], 2, 8, 2, 8).transpose(-3, -2)
+
+
+def _from8(x: torch.Tensor) -> torch.Tensor:
+    """[..., 2, 2, 8, 8] 8x8 blocks -> [..., 16, 16] MBs."""
+    return x.transpose(-3, -2).reshape(*x.shape[:-4], 16, 16)
+
+
+def _t8_choice(src_mbs, predl, qp: int, l_zz, cbp4, rec4):
+    """The 8x8-vs-4x4 choice of every inter MB: J = 8*SSD + lambda8*rate
+    (the 8x8 one pays one more bit for its flag); the 8x8 transform wins
+    when strictly cheaper and it codes a coefficient.  Returns (use_t8,
+    chosen 4-bit luma cbp, chosen luma recon, chosen luma levels in the
+    [., 4, 4, 16] layout: the 8x8 blocks' 64 zigzag levels in raster
+    block order)."""
+    z8 = T8.quant8x8(T8.forward8x8(_to8(src_mbs - predl)), qp, intra=False)
+    zz8 = T8.zigzag8(z8)  # [., 2, 2, 64]
+    nz8 = (zz8 != 0).any(-1).to(I32)
+    cbp8 = (nz8[..., 0, 0] | (nz8[..., 0, 1] << 1) | (nz8[..., 1, 0] << 2)
+            | (nz8[..., 1, 1] << 3))
+    rec8 = _from8(T8.idct8_add(_to8(predl), T8.dequant8x8(z8, qp)))
+    lam8 = _LAMBDA8[min(max(qp, 0), 51)]
+    d4 = rec4 - src_mbs
+    d8 = rec8 - src_mbs
+    j4 = (8 * (d4 * d4).sum((-1, -2), dtype=I32)
+          + lam8 * _rate_bits(l_zz, (-1, -2, -3)))
+    j8 = (8 * (d8 * d8).sum((-1, -2), dtype=I32)
+          + lam8 * (_rate_bits(zz8, (-1, -2, -3)) + 1))
+    use = (j8 < j4) & (cbp8 > 0)
+    return (use, torch.where(use, cbp8, cbp4),
+            torch.where(use[..., None, None], rec8, rec4),
+            torch.where(use[..., None, None, None],
+                        zz8.reshape(l_zz.shape), l_zz))
+
+
 def _intra_in_p_scan(src_mbs, u_mbs, v_mbs, inter_sad, rec_inter, qp: int,
                      qpc: int):
     """The intra-in-P column scan: left to right along each MB row, the
@@ -474,13 +518,14 @@ def encode_pframe_rows_multi(
 ) -> Tuple[MBSymbolsP, Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
     """Encode P frames [S, H, W] against a DPB refs_* [N, S, H, W]
     (newest first).  Per MB every reference is searched; the lowest
-    rate-biased cost wins, ties to the smaller index.  With `intra_in_p`
-    each MB also tries Intra_16x16 (`_intra_in_p_scan`); without it (the
-    RTC preset) the frame stays batched.  Returns (symbols, uint8 recon
-    planes, (mvx, mvy) with zero motion for intra MBs).  `halo` and `t8`
-    are not ported and raise."""
-    if halo or t8:
-        raise NotImplementedError("port covers halo=False, t8=False only")
+    rate-biased cost wins, ties to the smaller index.  With `t8` each
+    inter MB also tries the 8x8 transform (`_t8_choice`).  With
+    `intra_in_p` each MB also tries Intra_16x16 (`_intra_in_p_scan`);
+    without it (the RTC preset) the frame stays batched.  Returns
+    (symbols, uint8 recon planes, (mvx, mvy) with zero motion for intra
+    MBs).  `halo` is not ported and raises."""
+    if halo:
+        raise NotImplementedError("port covers halo=False only")
     qpc = T.chroma_qp_from_luma(qp)
     n_refs = refs_y.shape[0]
     s, h, w = y.shape
@@ -523,6 +568,11 @@ def encode_pframe_rows_multi(
                                     refsel)
     l_zz, ql_flat, cbp4 = _transform_inter_luma(src_mbs, predl, qp)
     rec_y = _recon_inter_luma(predl, ql_flat, _nzmask8(cbp4), qp)
+    if t8:
+        use_t8, cbp_l, rec_y, l_zz = _t8_choice(src_mbs, predl, qp, l_zz,
+                                                cbp4, rec_y)
+    else:
+        use_t8, cbp_l = torch.zeros_like(cbp4, dtype=torch.bool), cbp4
 
     dcu, acu, qu = _encode_chroma(u_mbs, predcu, qpc, intra=False)
     dcv, acv, qv = _encode_chroma(v_mbs, predcv, qpc, intra=False)
@@ -530,18 +580,19 @@ def encode_pframe_rows_multi(
     rec_u = _recon_chroma(predcu, dcu, qu, cbp_c, qpc)
     rec_v = _recon_chroma(predcv, dcv, qv, cbp_c, qpc)
 
-    skip = ((cbp4 == 0) & (cbp_c == 0) & (mvx == 0) & (mvy == 0)
+    skip = ((cbp_l == 0) & (cbp_c == 0) & (mvx == 0) & (mvy == 0)
             & (refsel + ref_base == 0))
     cdc = torch.stack([dcu.reshape(s, r, c, 4), dcv.reshape(s, r, c, 4)], -2)
     cac = torch.stack([acu.reshape(s, r, c, 4, 15),
                        acv.reshape(s, r, c, 4, 15)], -3)
     zero = torch.zeros_like(mvx)
     fields = dict(kind=torch.where(skip, KIND_SKIP, KIND_INTER), mode=zero,
-                  cmode=zero, cbp_luma=cbp4, cbp_chroma=cbp_c,
+                  cmode=zero, cbp_luma=cbp_l, cbp_chroma=cbp_c,
                   luma_dc=torch.zeros((s, r, c, 16), dtype=I32,
                                       device=y.device),
                   luma_ac=l_zz, chroma_dc=cdc, chroma_ac=cac,
-                  refidx=torch.where(skip, 0, refsel + ref_base))
+                  refidx=torch.where(skip, 0, refsel + ref_base),
+                  t8=torch.where(skip, 0, use_t8.to(I32)))
     rec = (rec_y, rec_u, rec_v)
     if intra_in_p:
         use, intra, rec = _intra_in_p_scan(src_mbs, u_mbs, v_mbs, inter_sad,
@@ -555,7 +606,8 @@ def encode_pframe_rows_multi(
                           ("luma_dc", intra.dc_zz), ("luma_ac", intra.ac_zz),
                           ("chroma_dc", intra.chroma_dc),
                           ("chroma_ac", intra.chroma_ac),
-                          ("kind", KIND_INTRA), ("refidx", 0)):
+                          ("kind", KIND_INTRA), ("refidx", 0),
+                          ("t8", 0)):
             old = fields[name]
             fields[name] = torch.where(sel[old.dim() - 3], val, old)
         mvx = torch.where(use, 0, mvx)
@@ -579,7 +631,7 @@ def encode_pframe_rows_multi(
         chroma_dc=fields["chroma_dc"].to(i16),
         chroma_ac=fields["chroma_ac"].to(i16),
         refidx=fields["refidx"].to(I32),
-        t8=zero,
+        t8=fields["t8"].to(I32),
     )
     recon = tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
     return symbols, recon, (mvx.to(I32), mvy.to(I32))
@@ -598,10 +650,12 @@ def _mv_chain(g: torch.Tensor, mvd: torch.Tensor) -> torch.Tensor:
 def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
                              qp: int, halo: bool = False, t8: bool = False):
     """Reconstruct P frames from parsed symbols and a DPB refs_*
-    [N, S, H, W] (newest first; per-MB symbols.refidx).  Returns
-    (uint8 recon planes, (mvx, mvy))."""
-    if halo or t8:
-        raise NotImplementedError("port covers halo=False, t8=False only")
+    [N, S, H, W] (newest first; per-MB symbols.refidx; with `t8`, the
+    MBs whose symbols.t8 is 1 reconstruct through the 8x8 transform).
+    Returns (uint8 recon planes, (mvx, mvy)).  `halo` is not ported and
+    raises."""
+    if halo:
+        raise NotImplementedError("port covers halo=False only")
     qpc = T.chroma_qp_from_luma(qp)
     s, r, c = symbols.kind.shape
     planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v)
@@ -623,6 +677,12 @@ def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
     q_flat = T.inverse_zigzag(ac4).reshape(s, r, c, 4, 4, 16)
     inter_cbp = torch.where(is_skip, 0, symbols.cbp_luma.to(I32))
     rec_y_inter = _recon_inter_luma(predl, q_flat, _nzmask8(inter_cbp), qp)
+    if t8 and symbols.t8 is not None:
+        zz8 = symbols.luma_ac.to(I32).reshape(s, r, c, 2, 2, 64)
+        rec8 = _from8(T8.idct8_add(
+            _to8(predl), T8.dequant8x8(T8.inverse_zigzag8(zz8), qp)))
+        rec_y_inter = torch.where((symbols.t8 == 1)[..., None, None], rec8,
+                                  rec_y_inter)
 
     cbp_c = symbols.cbp_chroma.to(I32)
     ccbp = torch.where(is_skip, 0, cbp_c)
