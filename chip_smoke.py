@@ -96,16 +96,32 @@ tpuh264_torch/csrc, then:
      through DecoderPool.decode_batch (per session: CABAC does not
      batch) == the recon; per-frame copy / encode / entropy / decode
      ms, kbps at 30 fps, PSNR-Y, QP, and the t8 / reference-1 / intra
-     shares of the P MBs.
+     shares of the P MBs;
+ 16. the distribution layer, device_pack and the bench harness: (a)
+     BASELINE config 5 cut to one card -- 4 ranks (processes) sharing it
+     under gloo, mesh (streams 2, rows 2), 16 x 1920x1080 "rigid", I + 2
+     P at QP 30 through `dist.mesh.sharded_gop_step` with the fused halo:
+     every frame's gathered symbols, recon and motion == the unsharded
+     encode on the card, MVs across the band edge, each rank's halo
+     decode == its band, K1 once per rank per P frame (8), its plain
+     version never; (b) `python -m tpuh264_torch.dist.multihost`, 2
+     processes, both layouts at 832x480: bitexact; (c) a 1-rank NCCL
+     group at 854x480 x 8 == the unsharded encode; (d)
+     `device_pack.assemble_iframe` / `assemble_pframe` at 854x480 x 8:
+     card bytes == CPU bytes, the golden decode == recon; (e)
+     `bench.harness.run_matrix` at 480p x 8 ("tpu_gop", "tpu"), its
+     table and charts.  Every spawned process has a timeout; on a failure
+     all are killed and the run fails.
 
-Every path of phases 4 and 6-15 is driven with the kernels' launch
+Every path of phases 4 and 6-16 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
 launched every kernel it runs (phase 12 and the general stream have no
 P frame on the fast path, so none), and none may reach the plain
 version of K1 or K3.  No session of the engine's own streams (phases
 11-13 and 15) may leave the fast path for the golden decoder.
 Any failure exits non-zero.  The last two lines are the kernel table
-(launches summed over those paths) and
+(launches summed over those paths; phase 16's worker processes report
+theirs in their result lines and the sums include them) and
 {"ok": true, "device": {...}}.  Nothing here imports JAX or the JAX
 package tpuh264; the run fails if either was loaded.
 """
@@ -1535,6 +1551,434 @@ def part_b(dev, np, card, launches, torch):
           f"encode, entropy, decode ms) {rows} [{card}]")
 
 
+# ---- phase 16: the distribution layer, device_pack and the bench ----------
+
+SHARD_QP = 30
+SHARD_STREAMS, SHARD_W, SHARD_H = 16, 1920, 1080
+SHARD_MESH = (2, 2)
+
+
+def rigid_frame(args):
+    """One "rigid" I420 frame (w, h, time t) edge-padded to whole MBs, as
+    uint8 (numpy only: a worker of the frame pool runs it)."""
+    import numpy as np
+
+    from tpuh264_torch.engine.sources import yuv_frame
+
+    w, h, t = args
+    pad_h, pad_w = -h % 16, -w % 16
+    return [np.pad(p, ((0, pad_h // k), (0, pad_w // k)), mode="edge")
+            .astype(np.uint8)
+            for k, p in zip((1, 2, 2), yuv_frame(w, h, t, kind="rigid"))]
+
+
+def shard_frames(tmp, n_frames):
+    """The phase's content as .npy files every rank maps: frame t of
+    stream s is "rigid" at time t + 3 s (numpy on the host, so every rank
+    and the oracle see the same samples), made by a pool of processes."""
+    import multiprocessing
+
+    import numpy as np
+
+    jobs = [(SHARD_W, SHARD_H, t + 3 * s) for t in range(n_frames)
+            for s in range(SHARD_STREAMS)]
+    with multiprocessing.get_context("spawn").Pool(
+            min(8, os.cpu_count() or 1)) as pool:
+        frames = pool.map(rigid_frame, jobs)
+    for t in range(n_frames):
+        for p, name in enumerate("yuv"):
+            np.save(os.path.join(tmp, f"{name}{t}.npy"), np.stack(
+                [frames[t * SHARD_STREAMS + s][p]
+                 for s in range(SHARD_STREAMS)]))
+
+
+def _sym_fields(sym):
+    return [(n, getattr(sym, n)) for n in sym._fields
+            if getattr(sym, n) is not None]
+
+
+def shard_rank(rank: int, tmp: str) -> None:
+    """Phase 16(a), one rank (a process of its own, on the card): the I + P
+    frames of its band of the (streams, rows) mesh, the DPB halo crossing
+    processes through gloo; the halo decode of its own P symbols == its
+    reconstruction band; then every frame's symbols, recon and motion
+    gathered, and on rank 0 held to the unsharded encode of the same frames
+    on the same device.  The job (mesh, frames, QP, device) is tmp's
+    job.json, the frames its .npy files.  Prints SHARD_RESULT {json};
+    exits non-zero on a difference."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpuh264_torch.dist import mesh as dm
+    from tpuh264_torch.dist import multihost
+    from tpuh264_torch.kernels import iframe, me_cuda, pframe
+
+    with open(os.path.join(tmp, "job.json")) as f:
+        job = json.load(f)
+    dev, qp, n = torch.device(job["device"]), job["qp"], job["frames"]
+    sync = torch.cuda.synchronize
+    multihost.initialize(f"file://{tmp}/rendezvous", job["world"], rank,
+                         "gloo", dev)
+    try:
+        mesh = dm.make_codec_mesh(*job["mesh"], device=dev)
+        frames = [[np.load(os.path.join(tmp, f"{p}{t}.npy"), mmap_mode="r")
+                   for p in "yuv"] for t in range(n)]
+        i_fn, p_fn = dm.sharded_gop_step(mesh, fused_halo=True)
+        plain = []
+        sad = me_cuda._sad_field
+        me_cuda._sad_field = lambda *a: plain.append(1) or sad(*a)
+        k1 = me_cuda.sad_field.launches
+        sync()
+        t0 = time.perf_counter()
+        sym, rec = i_fn(*dm.shard_inputs(mesh, *frames[0]), qp)
+        sync()
+        i_ms = (time.perf_counter() - t0) * 1e3
+        syms, recs, mots, p_ms = [sym], [rec], [], []
+        for t in range(1, n):
+            t0 = time.perf_counter()
+            sym, rec, mot = p_fn(*dm.shard_inputs(mesh, *frames[t]),
+                                 *recs[-1], qp)
+            sync()
+            p_ms.append(round((time.perf_counter() - t0) * 1e3, 1))
+            syms.append(sym)
+            recs.append(rec)
+            mots.append(mot)
+        k1 = me_cuda.sad_field.launches - k1
+        me_cuda._sad_field = sad
+        # each rank decodes its own P symbols against its halo-extended DPB
+        halo_ok = True
+        for t in range(1, n):
+            ext = dm._halo_extend_yuv(*recs[t - 1], pframe.HALO_Y,
+                                      pframe.HALO_C, mesh)
+            dec, _ = pframe.decode_pframe_rows_multi(
+                syms[t], *(e[None] for e in ext), qp, halo=True)
+            halo_ok &= all(torch.equal(a, b) for a, b in zip(dec, recs[t]))
+        got = [([(f, dm.gather(mesh, x)) for f, x in _sym_fields(syms[t])],
+                [dm.gather(mesh, x) for x in recs[t]],
+                [dm.gather(mesh, x) for x in mots[t - 1]] if t else [])
+               for t in range(n)]
+        ok = halo_ok and k1 == n - 1 and not plain
+        result = dict(rank=rank, band=[mesh.stream_index, mesh.row_index],
+                      shape=list(recs[0][0].shape), k1_launches=k1,
+                      plain_k1_calls=len(plain), i_ms=round(i_ms, 1),
+                      p_step_ms=p_ms, halo_decode_equal=bool(halo_ok))
+        if rank == 0:
+            # the unsharded encode of the same frames on the same device
+            t0 = time.perf_counter()
+            up = lambda t: [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                            for a in frames[t]]
+            sym, rec = iframe.encode_iframe_rows(*up(0), qp)
+            ref = [(sym, rec, ())]
+            for t in range(1, n):
+                sym, rec, mot = pframe.encode_pframe_rows_multi(
+                    *up(t), *(r[None] for r in rec), qp)
+                ref.append((sym, rec, mot))
+            sync()
+            result["unsharded_ms"] = round((time.perf_counter() - t0) * 1e3,
+                                           1)
+            same = []
+            for (gs, gr, gm), (rs, rr, rm) in zip(got, ref):
+                same += [torch.equal(x, getattr(rs, f).cpu()) for f, x in gs]
+                same += [torch.equal(a, b.cpu()) for a, b in zip(gr, rr)]
+                same += [torch.equal(a, b.cpu()) for a, b in zip(gm, rm)]
+            # vertical MVs across the mesh's band edge: the bottom MB row of
+            # the top band pointing down, the top row of the next pointing up
+            edge = recs[0][0].shape[1] // 16
+            cross = sum(int((m[1][:, edge - 1] > 0).sum()
+                            + (m[1][:, edge] < 0).sum())
+                        for _, _, m in got[1:])
+            result.update(equal_unsharded=all(same), compared=len(same),
+                          crossing_mbs=cross)
+            ok = ok and all(same) and cross > 0
+        print("SHARD_RESULT " + json.dumps(result), flush=True)
+    finally:
+        dist.destroy_process_group()
+    if not ok:
+        sys.exit(1)
+
+
+def nccl_rank(tmp: str, device: str) -> None:
+    """Phase 16(c): a 1-rank NCCL group (mesh 1x1) runs sharded_gop_step
+    at 854x480 x 8 (padded to whole MBs) -- its collectives on NCCL's
+    route, device tensors -- and equals the unsharded encode.  Prints
+    NCCL_RESULT {json}; exits non-zero on a difference."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpuh264_torch.dist import mesh as dm
+    from tpuh264_torch.dist import multihost
+    from tpuh264_torch.kernels import iframe, me_cuda, pframe
+
+    dev = torch.device(device)
+    multihost.initialize(f"file://{tmp}/nccl_rendezvous", 1, 0, "nccl", dev)
+    try:
+        mesh = dm.make_codec_mesh(1, 1, device=dev)
+        frames = [[np.stack(p) for p in zip(*[
+            rigid_frame((854, 480, t + 3 * s)) for s in range(8)])]
+            for t in range(3)]
+        i_fn, p_fn = dm.sharded_gop_step(mesh, fused_halo=False)
+        k1 = me_cuda.sad_field.launches
+        _, rec = i_fn(*dm.shard_inputs(mesh, *frames[0]), SHARD_QP)
+        for t in (1, 2):
+            sym, rec, _ = p_fn(*dm.shard_inputs(mesh, *frames[t]), *rec,
+                               SHARD_QP)
+        k1 = me_cuda.sad_field.launches - k1
+        got = [dm.gather(mesh, x) for x in rec] + [
+            dm.gather(mesh, x) for _, x in _sym_fields(sym)]
+        up = lambda t: [torch.from_numpy(a).to(dev) for a in frames[t]]
+        _, ref = iframe.encode_iframe_rows(*up(0), SHARD_QP)
+        for t in (1, 2):
+            rsym, ref, _ = pframe.encode_pframe_rows_multi(
+                *up(t), *(r[None] for r in ref), SHARD_QP)
+        exp = [r.cpu() for r in ref] + [x.cpu() for _, x in _sym_fields(rsym)]
+        ok = all(torch.equal(a, b) for a, b in zip(got, exp))
+        print("NCCL_RESULT " + json.dumps(dict(
+            backend=dist.get_backend(), shape=list(rec[0].shape),
+            equal_unsharded=ok, k1_launches=k1)), flush=True)
+    finally:
+        dist.destroy_process_group()
+    if not ok:
+        sys.exit(1)
+
+
+def start_procs(cmds, tmp, tag, env_extra=None):
+    """Start one process a command (cwd: the checkout), each writing its
+    output to a file under `tmp` (no pipe can fill and stall a rank)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), **(env_extra or {}))
+    procs = []
+    for i, cmd in enumerate(cmds):
+        log = open(os.path.join(tmp, f"{tag}{i}.log"), "w+")
+        procs.append((subprocess.Popen(cmd, cwd=here, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_procs(procs, timeout_s: float, tag: str, marker: str):
+    """Each process's `marker` result line as a dict.  A process that
+    fails, prints no result or outlives `timeout_s` fails the smoke, and
+    every process of the group is killed first."""
+    deadline = time.perf_counter() + timeout_s
+    results = []
+    try:
+        for p, log in procs:
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                fail(f"{tag}: a process ran past {timeout_s:.0f} s")
+            log.seek(0)
+            out = log.read()
+            lines = [l for l in out.splitlines() if l.startswith(marker)]
+            if rc != 0 or not lines:
+                fail(f"{tag}: a process exited {rc}"
+                     f"{'' if lines else ' without a result'}:\n"
+                     f"{out[-3000:]}")
+            results.append(json.loads(lines[-1].split(" ", 1)[1]))
+    finally:
+        kill_procs(procs)
+    return results
+
+
+def kill_procs(procs) -> None:
+    for p, log in procs:
+        p.kill()
+        p.wait()
+        log.close()
+
+
+def phase_dist(dev, np, card, launches):
+    """Phase 16: the distribution layer, device_pack and the bench harness.
+
+    (a) BASELINE config 5 ("16x 1080p30 streams, GOP/slice-row sharded",
+    BASELINE.json:11) on the one card: 4 ranks (processes), gloo with a
+    file:// rendezvous, mesh (streams 2, rows 2), so each rank holds 8
+    streams x 34 of the 68 MB rows and the rows groups cross processes;
+    16 streams of "rigid" 1920x1080 (vertical motion, so MVs cross the
+    band edge), I + 2 P at QP 30 through sharded_gop_step with the fused
+    halo.  Checked: every frame's gathered symbols, recon and motion ==
+    the unsharded encode on the card (rank 0); MVs across the band edge;
+    each rank's halo decode == its band; K1 once per rank per P frame (8)
+    and its plain version never.  The depth is cut to 3 frames (a GOP's
+    first I and two P, which already exercise the I step, the halo and the
+    reference chain) and the ranks to 4 on one card (the smoke must run on
+    one card: the four processes share it, as gloo allows) for the
+    smoke's wall.
+    (b) `python -m tpuh264_torch.dist.multihost`, 2 processes on the card
+    with gloo, rows across processes and not ("dcn-halo",
+    "stream-parallel"), 832x480: both bitexact.
+    (c) a 1-rank NCCL group (mesh 1x1): sharded_gop_step at 854x480 x 8 ==
+    the unsharded encode, so the NCCL route initialises and runs on the
+    card (NCCL between cards is not checked: one card is visible).
+    (d) device_pack.assemble_iframe / assemble_pframe at 854x480 x 8: the
+    card's bytes == the CPU's (plain K2 / K3) on the same symbols; the
+    golden decoder decodes stream 0 to the encoder's recon.
+    (e) bench.harness.run_matrix at 480p x 8, impls "tpu_gop" and "tpu",
+    5 s each, its table and charts, machine_info naming the card.
+    (quality.py needs libx264 and libavcodec, which the card machine
+    lacks: the CPU tests hold it.)"""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    n_frames = 3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        shard_frames(tmp, n_frames)
+        t_made = time.perf_counter()
+        world = SHARD_MESH[0] * SHARD_MESH[1]
+        with open(os.path.join(tmp, "job.json"), "w") as f:
+            json.dump(dict(world=world, mesh=SHARD_MESH, frames=n_frames,
+                           qp=SHARD_QP, device=str(dev)), f)
+        code = ("import sys, chip_smoke; "
+                "chip_smoke.shard_rank(int(sys.argv[1]), sys.argv[2])")
+        ranks = wait_procs(start_procs(
+            [[sys.executable, "-c", code, str(r), tmp] for r in range(world)],
+            tmp, "rank"), 600, "phase 16(a)", "SHARD_RESULT ")
+        t_a = time.perf_counter()
+        k1 = sum(r["k1_launches"] for r in ranks)
+        if k1 != world * (n_frames - 1) or any(r["plain_k1_calls"]
+                                               for r in ranks):
+            fail(f"phase 16(a): K1 launched {k1} times (expected "
+                 f"{world * (n_frames - 1)}); plain K1 "
+                 f"{[r['plain_k1_calls'] for r in ranks]}")
+        r0 = ranks[0]
+        for r in ranks:
+            print(f"phase 16(a): rank {r['rank']} band {r['band']} "
+                  f"{r['shape']}: I {r['i_ms']} ms, P steps {r['p_step_ms']}"
+                  f" ms (fenced, halo exchange included), halo decode == "
+                  f"band {r['halo_decode_equal']}, K1 {r['k1_launches']} "
+                  f"[{card}]")
+        print(f"phase 16(a): BASELINE config 5 cut to one card: "
+              f"{SHARD_STREAMS} x {SHARD_W}x{SHARD_H} 'rigid', I + "
+              f"{n_frames - 1} P at QP {SHARD_QP} (GOP depth cut to "
+              f"{n_frames} frames), mesh {SHARD_MESH} over {world} gloo "
+              f"ranks on one card, fused halo: gathered symbols, recon and "
+              f"motion == the unsharded encode ({r0['compared']} tensors, "
+              f"unsharded {r0['unsharded_ms']} ms on rank 0); "
+              f"{r0['crossing_mbs']} MBs with a vertical MV across the "
+              f"band edge; K1 {k1} launches, plain K1 none; frames made in "
+              f"{t_made - t_phase:.1f} s, ranks {t_a - t_made:.1f} s "
+              f"[{card}]")
+
+        # (b) and (c) in their own processes while (d) runs here
+        mh = [[sys.executable, "-m", "tpuh264_torch.dist.multihost",
+               "--coordinator", f"file://{tmp}/mh{int(rows)}",
+               "--num-processes", "2", "--process-id", str(pid),
+               "--width", "832", "--height", "480", "--bench-reps", "2",
+               "--device", str(dev)] + (["--rows-across-hosts"] if rows
+                                      else [])
+              for rows in (True, False) for pid in (0, 1)]
+        mh_procs = start_procs(mh, tmp, "multihost")
+        # the 1-rank group's bootstrap stays on the loopback: one host
+        nccl_procs = start_procs(
+            [[sys.executable, "-c", "import sys, chip_smoke; "
+              "chip_smoke.nccl_rank(*sys.argv[1:])", tmp, str(dev)]], tmp,
+            "nccl", {"NCCL_SOCKET_IFNAME": "lo"})
+        try:
+            phase_device_pack(dev, np, card, launches, torch)
+        except BaseException:
+            kill_procs(mh_procs + nccl_procs)
+            raise
+        mh_res = wait_procs(mh_procs, 300, "phase 16(b)",
+                            "MULTIHOST_RESULT ")
+        nccl_res = wait_procs(nccl_procs, 300, "phase 16(c)",
+                              "NCCL_RESULT ")[0]
+    for r in mh_res:
+        if not r["bitexact"] or r["k1_launches"] != 2:
+            fail(f"phase 16(b): multihost worker {r}")
+    for rows in (True, False):
+        rs = [r for r in mh_res if r["rows_across_hosts"] == rows]
+        print(f"phase 16(b): python -m tpuh264_torch.dist.multihost, 2 gloo "
+              f"processes on the card, 832x480, "
+              f"{'dcn-halo' if rows else 'stream-parallel'} mesh "
+              f"{rs[0]['mesh']}, fused halo {rs[0]['fused_halo']}: bitexact "
+              f"in both; P step {[round(r['p_step_ms'], 1) for r in rs]} ms "
+              f"[{card}]")
+    if (not nccl_res["equal_unsharded"] or nccl_res["backend"] != "nccl"
+            or nccl_res["k1_launches"] != 2):
+        fail(f"phase 16(c): {nccl_res}")
+    print(f"phase 16(c): a 1-rank NCCL group, mesh 1x1, sharded_gop_step "
+          f"854x480 x 8 ({nccl_res['shape']}), I + 2 P: == the unsharded "
+          f"encode (NCCL between cards not checked: one card) [{card}]")
+    launches.total[0] += k1 + sum(r["k1_launches"] for r in mh_res) + \
+        nccl_res["k1_launches"]
+    phase_bench(dev, card, launches)
+    print(f"phase 16: wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+def phase_device_pack(dev, np, card, launches, torch):
+    """Phase 16(d): assemble_iframe / assemble_pframe at 854x480 x 8 on the
+    card == on the CPU (plain K2 / K3) for the same symbols; the golden
+    decoder decodes stream 0 (SPS, PPS, I, P) to the encoder's recon."""
+    from tpuh264_torch.core.params import PPS, SPS
+    from tpuh264_torch.entropy import device_pack
+    from tpuh264_torch.golden import codec
+    from tpuh264_torch.kernels import iframe, pframe
+
+    w, h, s, qp = 854, 480, 8, 30
+    f0, f1 = ([torch.from_numpy(np.stack(p)).to(dev) for p in zip(*[
+        rigid_frame((w, h, t + 3 * i)) for i in range(s)])] for t in (0, 1))
+    sps, pps = SPS.for_size(w, h), PPS()
+    sym_i, rec_i = iframe.encode_iframe_rows(*f0, qp)
+    sym_p, rec_p, _ = pframe.encode_pframe_rows_multi(
+        *f1, *(r[None] for r in rec_i), qp)
+
+    def pack(dv):
+        on = lambda sym: type(sym)(*(None if x is None else x.to(dv)
+                                     for x in sym))
+        a, ovf_a = device_pack.assemble_iframe(on(sym_i), sps, pps, qp)
+        b, ovf_b = device_pack.assemble_pframe(on(sym_p), sps, pps, qp)
+        if ovf_a or ovf_b:
+            fail(f"phase 16(d): device entropy overflow on {dv}")
+        return a, b
+
+    gpu, counts = launches.path("device_pack 480p x 8", lambda: pack(dev),
+                                needs=(1, 2))
+    cpu = pack("cpu")
+    if gpu != cpu:
+        fail("phase 16(d): the card's assembled bytes differ from the CPU's")
+    frames = codec.decode_annexb_seq(gpu[0][0] + gpu[1][0])
+    for t, rec in enumerate((rec_i, rec_p)):
+        if not all(np.array_equal(np.asarray(a), r[0, :a.shape[0],
+                                                    :a.shape[1]].cpu().numpy())
+                   for a, r in zip(frames[t], rec)):
+            fail(f"phase 16(d): golden decode != encoder recon, frame {t}")
+    print(f"phase 16(d): device_pack.assemble_iframe / assemble_pframe "
+          f"854x480 x 8, QP {qp}: card bytes == CPU bytes "
+          f"({sum(map(len, gpu[0]))} + {sum(map(len, gpu[1]))} B), stream 0 "
+          f"decoded by the golden decoder == encoder recon; K2 {counts[1]}, "
+          f"K3 {counts[2]} launches [{card}]")
+
+
+def phase_bench(dev, card, launches):
+    """Phase 16(e): the port's bench harness at 480p x 8, impls "tpu_gop"
+    and "tpu", 5 s each; its table, charts and machine_info."""
+    import tempfile
+
+    from tpuh264_torch.bench import charts, harness
+
+    rows, counts = launches.path(
+        "bench harness 480p x 8", lambda: harness.run_matrix(
+            resolutions=("480p",), streams=(8,), impls=("tpu_gop", "tpu"),
+            duration_s=5, device=dev))
+    if any(r["frames"] <= 0 for r in rows):
+        fail(f"phase 16(e): a harness run counted no frame: {rows}")
+    info = harness.machine_info()
+    if info.get("device_kind") is None or "card" not in info:
+        fail(f"phase 16(e): machine_info names no card: {info}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_charts_") as tmp:
+        paths = charts.render_charts(rows, os.path.join(tmp, "bench"))
+        if not paths or not all(os.path.getsize(p) > 0 for p in paths):
+            fail(f"phase 16(e): render_charts wrote {paths}")
+    print(f"phase 16(e): bench.harness.run_matrix 480p x 8, tpu_gop + tpu, "
+          f"5 s each; machine_info {info}; {len(paths)} charts rendered")
+    for line in harness.render_table(rows).splitlines():
+        print(f"phase 16(e): {line} [{card}]")
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpuh264_torch", "csrc")):
@@ -1587,6 +2031,7 @@ def main() -> None:
     phase_app_tpu(dev, np, card, launches)
     phase_gate(dev, np, card, launches)
     phase_config3(dev, np, card, launches)
+    phase_dist(dev, np, card, launches)
 
     for r, n in zip(rows, launches.total):
         r["launches"] = n

@@ -202,12 +202,18 @@ def _imported_modules(path):
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
-    """An ast scan of chip_smoke.py and of every module of the port: no
-    `import tpuh264...` / `from tpuh264... import`, and no jax."""
+    """An ast scan of chip_smoke.py and of every module of the port (the
+    distribution layer and the bench among them): no `import tpuh264...` /
+    `from tpuh264... import`, and no jax."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "tpuh264_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 20
+    rel = {os.path.relpath(p, REPO) for p in paths}
+    for sub in ("dist/__init__", "dist/collectives", "dist/mesh",
+                "dist/multihost", "bench/__init__", "bench/harness",
+                "bench/quality", "bench/charts", "entropy/device_pack"):
+        assert f"tpuh264_torch/{sub}.py" in rel
     for p in paths:
         for m in _imported_modules(p):
             top = m.split(".")[0]
@@ -216,9 +222,13 @@ def test_port_sources_import_nothing_of_the_jax_package():
 
 def test_pipelines_default_to_the_card(monkeypatch):
     """Without `device`, GOPDevicePipeline, DevicePipeline, App, the session
-    Pipeline, DecoderSession, DecoderPool and the conformance gate take the
-    card; where there is none they raise instead of running on the CPU."""
+    Pipeline, DecoderSession, DecoderPool, the conformance gate, the mesh,
+    the bench harness and the RD measurement take the card; where there is
+    none they raise instead of running on the CPU."""
     import inspect
+
+    from tpuh264_torch.bench import harness, quality
+    from tpuh264_torch.dist import mesh
 
     from tpuh264_torch.conformance import gate
     from tpuh264_torch.engine import (CodecConfig, DecoderPool,
@@ -237,7 +247,15 @@ def test_pipelines_default_to_the_card(monkeypatch):
               gate.run_gate: lambda **kw: gate.run_gate(
                   ((64, 48, 1, False),), verbose=False, **kw),
               gate.run_gate_extended: lambda **kw: gate.run_gate_extended(
-                  verbose=False, **kw)}
+                  verbose=False, **kw),
+              mesh.make_codec_mesh: lambda **kw: mesh.make_codec_mesh(
+                  1, 1, **kw),
+              harness.run_single: lambda **kw: harness.run_single(
+                  cfg, impl="tpu_gop", **kw),
+              harness.run_matrix: lambda **kw: harness.run_matrix(
+                  ("360p",), (1,), **kw),
+              quality.our_rd_point: lambda **kw: quality.our_rd_point(
+                  [(np.zeros((48, 64), np.uint8),)], 30, **kw)}
     for fn, make in makers.items():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
         with pytest.raises(RuntimeError, match="is_available"):
@@ -256,7 +274,7 @@ COPIES = [
     "golden/__init__.py", "golden/transform.py", "golden/inter.py",
     "golden/deblock.py", "golden/intra.py", "golden/intra44.py",
     "golden/intra8.py", "golden/transform8.py", "golden/codec.py",
-    "golden/cabac_slice.py", "engine/libav_backend.py",
+    "golden/cabac_slice.py", "engine/libav_backend.py", "bench/charts.py",
 ]
 
 

@@ -154,25 +154,35 @@ def test_port_imports_no_jax():
 
 
 def test_unported_options_raise():
-    """What is still unported raises: the DPB halo of the P encode and
-    decode.  The 8x8 transform of both is ported (tests/test_torch_t8.py)
-    and runs.  The "libav" implementation of the App and of the session
-    Pipeline is ported: both build it."""
+    """Nothing of the P encode and decode is refused any more: the DPB
+    halo runs (tests/test_torch_halo.py holds it to JAX), and on a
+    reference edge-extended by HALO_Y / HALO_C rows -- what the frame's
+    only band receives -- it equals the unsharded encode and decode, as
+    does the 8x8 transform (tests/test_torch_t8.py).  The "libav"
+    implementation of the App and of the session Pipeline is ported: both
+    build it."""
     import torch
 
     from tpuh264_torch.engine import Pipeline
     from tpuh264_torch.engine.app import App
     from tpuh264_torch.kernels import pframe
 
-    y = torch.zeros((1, 16, 16), dtype=torch.uint8)
-    c = torch.zeros((1, 8, 8), dtype=torch.uint8)
-    refs = (y[None].int(), c[None].int(), c[None].int())
-    with pytest.raises(NotImplementedError):
-        pframe.encode_pframe_rows_multi(y, c, c, *refs, 28, halo=True)
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy(rng.integers(0, 256, (1, 16, 32), np.uint8))
+    c = torch.from_numpy(rng.integers(0, 256, (1, 8, 16), np.uint8))
+    refs = tuple(torch.from_numpy(rng.integers(0, 256, p.shape, np.int32)
+                                  )[None] for p in (y, c, c))
+    ext = tuple(pframe._edge_pad(r[0], halo, 0)[None] for r, halo in zip(
+        refs, (pframe.HALO_Y, pframe.HALO_C, pframe.HALO_C)))
+    sym, rec, mv = pframe.encode_pframe_rows_multi(y, c, c, *refs, 28)
+    hsym, hrec, hmv = pframe.encode_pframe_rows_multi(y, c, c, *ext, 28,
+                                                      halo=True)
+    for a, b in zip((*sym, *rec, *mv), (*hsym, *hrec, *hmv)):
+        assert torch.equal(a, b)
+    dec, _ = pframe.decode_pframe_rows_multi(hsym, *ext, 28, halo=True)
+    assert all(torch.equal(a, b) for a, b in zip(dec, rec))
     sym, rec, _ = pframe.encode_pframe_rows_multi(y, c, c, *refs, 28,
                                                   t8=True)
-    with pytest.raises(NotImplementedError):
-        pframe.decode_pframe_rows_multi(sym, *refs, 28, halo=True)
     dec, _ = pframe.decode_pframe_rows_multi(sym, *refs, 28, t8=True)
     assert all(torch.equal(a, b) for a, b in zip(dec, rec))
     from tpuh264_torch.engine import libav_backend

@@ -1,16 +1,17 @@
 """P-frame encoder/decoder core in PyTorch (row-slice parallel, rate-biased ME).
 
-Port of tpuh264/kernels/pframe.py for the paths the GOP pipeline and
-the sessions run: `encode_pframe_rows_multi` (1..4 references;
-`intra_in_p` True or False; `t8` True or False) and
-`decode_pframe_rows_multi`, both with `halo=False` only.  Decisions are
-bit-identical to the JAX version (tests/test_torch_pframe.py,
-tests/test_torch_intra_in_p.py, tests/test_torch_t8.py):
+Port of tpuh264/kernels/pframe.py: `encode_pframe_rows_multi` (1..4
+references; `intra_in_p` True or False; `t8` True or False; `halo`) and
+`decode_pframe_rows_multi`.  Decisions are bit-identical to the JAX
+version (tests/test_torch_pframe.py, tests/test_torch_intra_in_p.py,
+tests/test_torch_t8.py, tests/test_torch_halo.py):
 
   1. stage A: the exact SAD table over the +-8 grid on the stride-2
      subsample -- K1, `me_cuda.sad_field` (CUDA kernel on the card, its
      plain version on the CPU) -- then the two-phase rate-biased winner
-     with a per-stream global vector;
+     with a per-stream global vector (with a process `group`, the
+     winner counts are summed over it first: a row-sharded band takes
+     the frame's vector, dist/mesh.py);
   2. stage B: a 3x3 full-resolution refine around the winner;
   3. stages C/D: all 49 reachable quarter-pel positions as static
      slices of an 18x18 four-plane window, then the normative
@@ -34,6 +35,12 @@ cumulative sum and a running reset index (the JAX associative_scan),
 reconstructs inter MBs batched, and runs the left-neighbour intra
 prediction of intra MBs as a Python loop over MB columns (GOP-start
 dispatches decode the I frame as all-intra P records).
+
+With `halo=True` the references arrive vertically pre-extended by
+HALO_Y / HALO_C rows per side: the neighbour bands' rows a row-sharded
+DPB exchanges (dist/mesh.py), edge-replicated at the frame's edges.
+The planes then take only the 6-tap margin vertically, and a band's
+result equals the rows of the unsharded encode.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ..golden.inter import (
     mv_rate_bits,
     ref_idx_bits,
 )
+from ..dist.collectives import all_reduce
 from . import me_cuda, tables
 from . import transform as T
 from . import transform8 as T8
@@ -151,12 +159,23 @@ def _tap6(a, b, c, d, e, f):
     return a - 5 * b + 20 * c + 20 * d - 5 * e + f
 
 
-def build_halfpel_planes(ref: torch.Tensor, pad: int = SEARCH_PAD):
-    """[S,H,W] -> 4 int32 planes [S, H+2(pad+1), W+2(pad+1)] (G, b, h, j),
-    bit-exact with golden.inter.build_halfpel_planes."""
-    p_eff = pad + 1
-    p3 = p_eff + 3
-    r = _edge_pad(ref.to(I32), p3, p3)
+# vertical reach of inter prediction into a reference, in rows: the halo a
+# row-sharded DPB exchanges with each neighbour band (dist/mesh.py)
+HALO_Y = SEARCH_PAD + 1   # 13: ME range + refine + subpel + 6-tap margin
+HALO_C = SEARCH_PAD // 2 + 2  # 8: chroma eighth-pel reach
+
+
+def build_halfpel_planes_ext(ref_ext: torch.Tensor, pad: int = SEARCH_PAD):
+    """Half-pel planes of a vertically pre-extended reference: ref_ext
+    [S, H + 2*(pad+1), W] carries pad+1 real (or edge-replicated) rows
+    above and below the band -> 4 int32 planes [S, H+2(pad+1), W+2(pad+1)]
+    (G, b, h, j).  Only the 6-tap margin is added vertically, the full
+    edge pad horizontally.  Equal to the full frame's planes where the
+    halo rows are the frame's continuation rows (or its edge rows at the
+    frame's edges), but for the outer 3 rows, whose 6-tap reads pass the
+    halo (motion never reaches them)."""
+    p3 = pad + 4
+    r = _edge_pad(ref_ext.to(I32), 3, p3)
     b1 = _tap6(r[:, :, :-5], r[:, :, 1:-4], r[:, :, 2:-3], r[:, :, 3:-2],
                r[:, :, 4:-1], r[:, :, 5:])
     h1 = _tap6(r[:, :-5], r[:, 1:-4], r[:, 2:-3], r[:, 3:-2], r[:, 4:-1],
@@ -167,13 +186,22 @@ def build_halfpel_planes(ref: torch.Tensor, pad: int = SEARCH_PAD):
     b_p = torch.clamp((b1[:, 3:-3, 1:] + 16) >> 5, 0, 255)
     h_p = torch.clamp((h1[:, 1:, 3:-3] + 16) >> 5, 0, 255)
     j_p = torch.clamp((j1[:, 1:, 1:] + 512) >> 10, 0, 255)
-    h2 = ref.shape[1] + 2 * p_eff
-    w2 = ref.shape[2] + 2 * p_eff
+    h2 = ref_ext.shape[1]
+    w2 = ref_ext.shape[2] + 2 * (pad + 1)
     return tuple(pl[:, :h2, :w2].contiguous() for pl in (g_p, b_p, h_p, j_p))
 
 
-def _pad_ref(plane: torch.Tensor, pad: int) -> torch.Tensor:
-    return _edge_pad(plane.to(I32), pad, pad).contiguous()
+def build_halfpel_planes(ref: torch.Tensor, pad: int = SEARCH_PAD):
+    """[S,H,W] -> 4 int32 planes [S, H+2(pad+1), W+2(pad+1)] (G, b, h, j),
+    bit-exact with golden.inter.build_halfpel_planes: the planes of the
+    frame extended by its edge rows (the normative Clip3 clamp)."""
+    return build_halfpel_planes_ext(_edge_pad(ref.to(I32), pad + 1, 0), pad)
+
+
+def _pad_ref_ext(plane_ext: torch.Tensor, pad: int) -> torch.Tensor:
+    """Horizontal-only edge pad of a vertically pre-extended chroma
+    reference [S, H/2 + 2*pad, W/2]."""
+    return _edge_pad(plane_ext.to(I32), 0, pad).contiguous()
 
 
 def _mb_origin(s, r, c, mb, device):
@@ -237,13 +265,19 @@ def _argmax_first(x: torch.Tensor) -> torch.Tensor:
     return 511 - torch.remainder(key.amax(-1), 512)
 
 
-def _int_winner(sads: torch.Tensor, lam: int):
+def _int_winner(sads: torch.Tensor, lam: int, group=None):
     """Two-phase stage-A selection on the SAD table [S,R,C,NN].
 
     Phase 1: zero-anchored rate bias -> per-MB winner; per-stream global
     MV = mode of the winners (raster-earliest on ties).  Phase 2:
     re-select with the rate measured relative to the global vector.
-    Returns (iy0, ix0 [S,R,C], gy, gx [S])."""
+    Returns (iy0, ix0 [S,R,C], gy, gx [S]).
+
+    group: the process group the MB rows are sharded over (the JAX
+    version's axis_name).  The winner mode is a frame-global statistic,
+    so a row-sharded call sums the counts over the group; otherwise each
+    band would take its own global vector and the phase-2 selection
+    would diverge from the unsharded encode."""
     dev = sads.device
     s = sads.shape[0]
     cost1 = 4 * sads + lam * tables.get("rate0", dev)
@@ -251,6 +285,8 @@ def _int_winner(sads: torch.Tensor, lam: int):
     counts = torch.zeros((s, _NN), dtype=torch.int64, device=dev)
     counts.scatter_add_(1, win1.reshape(s, -1),
                         torch.ones_like(win1.reshape(s, -1)))
+    if group is not None:
+        all_reduce(counts, group)
     gidx = _argmax_first(counts)  # [S]
     gy = (gidx // _N - SEARCH_RANGE).to(I32)
     gx = (gidx % _N - SEARCH_RANGE).to(I32)
@@ -405,14 +441,19 @@ def _mc_all(planes_l, refs_up, refs_vp, mvx, mvy, refsel):
     return out
 
 
-def _references(refs_y, refs_u, refs_v):
-    """Per reference: stacked half-pel planes [4,S,Hp,Wp] and padded chroma."""
+def _references(refs_y, refs_u, refs_v, halo: bool):
+    """Per reference: stacked half-pel planes [4,S,Hp,Wp] and padded
+    chroma.  Without `halo` the frame's edge rows stand in for the halo
+    (the normative Clip3 clamp), so both cases take one path."""
+    if not halo:
+        refs_y = _edge_pad(refs_y, HALO_Y, 0)
+        refs_u = _edge_pad(refs_u, HALO_C, 0)
+        refs_v = _edge_pad(refs_v, HALO_C, 0)
     n_refs = refs_y.shape[0]
-    planes = [torch.stack(build_halfpel_planes(refs_y[n]), 0)
-              for n in range(n_refs)]
-    ups = [_pad_ref(refs_u[n], _CP) for n in range(n_refs)]
-    vps = [_pad_ref(refs_v[n], _CP) for n in range(n_refs)]
-    return planes, ups, vps
+    return ([torch.stack(build_halfpel_planes_ext(refs_y[n]), 0)
+             for n in range(n_refs)],
+            [_pad_ref_ext(refs_u[n], _CP) for n in range(n_refs)],
+            [_pad_ref_ext(refs_v[n], _CP) for n in range(n_refs)])
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +556,7 @@ def _intra_in_p_scan(src_mbs, u_mbs, v_mbs, inter_sad, rec_inter, qp: int,
 def encode_pframe_rows_multi(
     y, u, v, refs_y, refs_u, refs_v, qp: int, ref_base: int = 0,
     halo: bool = False, t8: bool = False, intra_in_p: bool = True,
+    group=None,
 ) -> Tuple[MBSymbolsP, Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
     """Encode P frames [S, H, W] against a DPB refs_* [N, S, H, W]
     (newest first).  Per MB every reference is searched; the lowest
@@ -523,15 +565,17 @@ def encode_pframe_rows_multi(
     `intra_in_p` each MB also tries Intra_16x16 (`_intra_in_p_scan`);
     without it (the RTC preset) the frame stays batched.  Returns
     (symbols, uint8 recon planes, (mvx, mvy) with zero motion for intra
-    MBs).  `halo` is not ported and raises."""
-    if halo:
-        raise NotImplementedError("port covers halo=False only")
+    MBs).  With `halo` the references arrive vertically pre-extended by
+    (HALO_Y, HALO_C) rows per side (a row-sharded DPB, dist/mesh.py), and
+    `group` is the process group of the row bands (see `_int_winner`):
+    the band's result is bit-identical to its rows of the unsharded
+    encode."""
     qpc = T.chroma_qp_from_luma(qp)
     n_refs = refs_y.shape[0]
     s, h, w = y.shape
     r, c = h // 16, w // 16
     lam = int(LAMBDA_ME[min(max(qp, 0), 51)])
-    planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v)
+    planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v, halo)
 
     y32 = y.to(I32).contiguous()
     src_mbs = _plane_to_mbs(y32, 16)
@@ -542,7 +586,7 @@ def encode_pframe_rows_multi(
     mvx = mvy = inter_sad = inter_cost = refsel = None
     for n in range(n_refs):
         sads = me_cuda.sad_field(y32, planes_l[n][0])
-        iy0, ix0, gy, gx = _int_winner(sads, lam)
+        iy0, ix0, gy, gx = _int_winner(sads, lam, group)
         del sads
         gqx = (4 * gx)[:, None, None]
         gqy = (4 * gy)[:, None, None]
@@ -652,13 +696,11 @@ def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
     """Reconstruct P frames from parsed symbols and a DPB refs_*
     [N, S, H, W] (newest first; per-MB symbols.refidx; with `t8`, the
     MBs whose symbols.t8 is 1 reconstruct through the 8x8 transform).
-    Returns (uint8 recon planes, (mvx, mvy)).  `halo` is not ported and
-    raises."""
-    if halo:
-        raise NotImplementedError("port covers halo=False only")
+    Returns (uint8 recon planes, (mvx, mvy)).  `halo`: the references
+    arrive vertically pre-extended (a row-sharded DPB)."""
     qpc = T.chroma_qp_from_luma(qp)
     s, r, c = symbols.kind.shape
-    planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v)
+    planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v, halo)
 
     kind = symbols.kind.to(I32)
     refidx = (symbols.refidx.to(I32) if symbols.refidx is not None
