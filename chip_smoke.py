@@ -10,9 +10,10 @@ tpuh264_torch/csrc, then:
   1. prints the card (nvidia-smi name and power limit) and builds the
      port's two libraries: the CUDA kernels (nvcc) and the host CAVLC
      engine (g++, a copy of native/cavlc.cpp);
-  2. holds K1 (stage-A SAD table), K2 (CAVLC block pack) and K3 (bit-
-     string merge) against their plain PyTorch versions on the card
-     (exact equality) at the main path's 1920x1080 x 4 shapes, K3 at its
+  2. holds K1 (stage-A SAD table), K2 (CAVLC block pack), K3 (bit-
+     string merge) and K4 (D1, the in-loop deblock) against their plain
+     PyTorch versions on the card (exact equality) at the main path's
+     1920x1080 x 4 shapes (K4: an encoded I frame and P frame), K3 at its
      MB level (27 chunks -> 128 words) and its slice level (K = 123
      strings -> 8192 words), with the winner selection's first-index ties
      on the card; all three again on seeded edge cases (K1: samples 0 and
@@ -22,7 +23,10 @@ tpuh264_torch/csrc, then:
      33 and 32*W bits, empty lanes, K 1 / 27 / 123 x W 1 / 20 / 128 x
      n_out 1 / 16 / 128 / 8192 with truncation), and K2/K3 on intra-in-P
      P symbols at 854x480 x 8 (skip, inter and intra MBs; slice level
-     K = 57); times each kernel beside its plain version (CUDA events,
+     K = 57); K4 on seeded edge cases (`d1_case`: C = 1, odd S / R / C,
+     MV steps 3 / 4 / 5, refidx 0..3, random t8, all-intra, qp 0 .. 51)
+     and on config-3 symbols (the 8x8 transform, intra-in-P) at 854x480
+     x 8; times each kernel beside its plain version (CUDA events,
      after a warm-up) and against its bound (the bytes it must move over
      the card's 3.35 TB/s), and one fenced `encode_bits_pframe` call;
   3. at 64x48 x 2 the GPU emits the CPU's bytes (plain versions) and
@@ -40,9 +44,9 @@ tpuh264_torch/csrc, then:
   4. drives the main path -- GOPDevicePipeline, 1920x1080 x 4 streams, CBR
      4 Mbps, RTC preset, gop 8, "rigid" source -- for 3 dispatches
      (crossing an IDR): after every dispatch the decode-from-bits DPB
-     equals the encoder DPB bit for bit, and K3 launched twice (MB and
-     slice level) per entropy call: 4 times per IDR dispatch, 2 per
-     interior one;
+     equals the encoder DPB bit for bit (both sides deblock with K4), K3
+     launched twice (MB and slice level) per entropy call: 4 times per
+     IDR dispatch, 2 per interior one, and K4 8 times per dispatch;
   5. runs `run()` briefly at that configuration and at 854x480 x 8 streams
      at 1 Mbps and prints aggregate fps, the stage split, PSNR and QP;
   6. the reference's operating point with the default CodecConfig
@@ -94,9 +98,10 @@ tpuh264_torch/csrc, then:
      recon of every frame, beside part B: 854x480 x 8 from RGBA, CABAC +
      8x8 transform + deblock, 2 references, CBR 1 Mbps, gop 8, 4 frames
      through DecoderPool.decode_batch (per session: CABAC does not
-     batch) == the recon; per-frame copy / encode / entropy / decode
-     ms, kbps at 30 fps, PSNR-Y, QP, and the t8 / reference-1 / intra
-     shares of the P MBs;
+     batch) == the recon, and its stream 0 decoded by the golden decoder
+     == the recon (a check of K4's t8 edges independent of K4); per-frame
+     copy / encode / entropy / decode ms, kbps at 30 fps, PSNR-Y, QP, and
+     the t8 / reference-1 / intra shares of the P MBs;
  16. the distribution layer, device_pack and the bench harness: (a)
      BASELINE config 5 cut to one card -- 4 ranks (processes) sharing it
      under gloo, mesh (streams 2, rows 2), 16 x 1920x1080 "rigid", I + 2
@@ -116,8 +121,11 @@ tpuh264_torch/csrc, then:
 Every path of phases 4 and 6-16 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
 launched every kernel it runs (phase 12 and the general stream have no
-P frame on the fast path, so none), and none may reach the plain
-version of K1 or K3.  No session of the engine's own streams (phases
+P frame on the fast path, so none; the deblock runs on every GOP
+pipeline and on the sessions with `deblock=True`), and none may reach
+the plain version of K1, K3 or K4.  Encoder DPB == decoder DPB does not
+check K4 (both sides run it): phase 14's gate against the oracle and
+phase 15's golden decode do.  No session of the engine's own streams (phases
 11-13 and 15) may leave the fast path for the golden decoder.
 Any failure exits non-zero.  The last two lines are the kernel table
 (launches summed over those paths; phase 16's worker processes report
@@ -188,28 +196,31 @@ def max_abs_err(x, y) -> int:
 
 
 class Launches:
-    """The three wrappers' launch counts, zeroed before and read after each
-    path the smoke drives; summed over those paths for the kernel table.
-    The plain versions of K1 (`_sad_field`) and K3 (`tree_merge`) are
-    counted too: neither may run on a path."""
+    """The four wrappers' launch counts (K1, K2, K3, K4 = the deblock D1),
+    zeroed before and read after each path the smoke drives; summed over
+    those paths for the kernel table.  The plain versions of K1
+    (`_sad_field`), K3 (`tree_merge`) and K4 (`_deblock_rows_plain`) are
+    counted too: none may run on a path."""
 
     def __init__(self):
-        from tpuh264_torch.kernels import cavlc_cuda, me_cuda
+        from tpuh264_torch.kernels import cavlc_cuda, deblock, me_cuda
 
         self.fns = (me_cuda.sad_field, cavlc_cuda.pack_blocks,
-                    cavlc_cuda.merge_tree)
-        self.total = [0, 0, 0]
+                    cavlc_cuda.merge_tree, deblock.deblock_frame_rows)
+        self.total = [0, 0, 0, 0]
 
-    def path(self, name, fn, needs=(0, 1, 2)):
-        from tpuh264_torch.kernels import cavlc_cuda, me_cuda
+    def path(self, name, fn, needs=(0, 1, 2, 3)):
+        from tpuh264_torch.kernels import cavlc_cuda, deblock, me_cuda
 
         for f in self.fns:
             f.launches = 0
-        plains = [(me_cuda, "_sad_field"), (cavlc_cuda, "tree_merge")]
+        plains = [(me_cuda, "_sad_field"), (cavlc_cuda, "tree_merge"),
+                  (deblock, "_deblock_rows_plain")]
         saved = [getattr(m, a) for m, a in plains]
-        calls = [[], []]
+        calls = [[] for _ in plains]
         for (m, a), f, c in zip(plains, saved, calls):
-            setattr(m, a, lambda *x, f=f, c=c: c.append(1) or f(*x))
+            setattr(m, a, lambda *x, f=f, c=c, **kw: (c.append(1)
+                                                       or f(*x, **kw)))
         try:
             out = fn()
         finally:
@@ -218,14 +229,15 @@ class Launches:
         counts = [f.launches for f in self.fns]
         for i, n in enumerate(counts):
             self.total[i] += n
+        plain = [len(c) for c in calls]
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
-              f"K3 {counts[2]}; plain K1 calls {len(calls[0])}, plain K3 "
-              f"calls {len(calls[1])}")
+              f"K3 {counts[2]}, K4 (deblock) {counts[3]}; plain K1 calls "
+              f"{plain[0]}, plain K3 calls {plain[1]}, plain K4 calls "
+              f"{plain[2]}")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
-        if calls[0] or calls[1]:
-            fail(f"{name}: a plain version ran (K1 {len(calls[0])}, K3 "
-                 f"{len(calls[1])} times)")
+        if any(plain):
+            fail(f"{name}: a plain version ran (K1, K3, K4: {plain} times)")
         return out, counts
 
 
@@ -235,6 +247,7 @@ NO_LIBRARY = {
           "289 candidate patches of every MB unfolded, and that is the work",
     "K2": "no PyTorch call encodes CAVLC",
     "K3": "no PyTorch call concatenates variable-length bit strings",
+    "K4": "no PyTorch call runs the H.264 deblocking filter",
 }
 
 
@@ -268,6 +281,15 @@ def k1_bytes(s, h, w) -> int:
 
     return 4 * s * ((h // 2) * (w // 2) + (h + 2 * R - 1) * (w + 2 * R - 1)
                     + (h // 16) * (w // 16) * (2 * R + 1) ** 2)
+
+
+def k4_bytes(args, kw) -> int:
+    """D1: the int32 planes and side information the call passes (kind,
+    mvx, mvy, nnz, refidx and t8 where given) in, the uint8 planes out."""
+    planes = sum(p.numel() for p in args[:3])
+    side = sum(x.numel() for x in (*args[3:7], *kw.values())
+               if x is not None)
+    return 4 * planes + planes + 4 * side
 
 
 def k2_bytes(n, nh, n_w) -> int:
@@ -467,6 +489,59 @@ def k3_case(rng, np, n, k, w):
     return words.astype(np.uint32).view(np.int32), bits.astype(np.int32)
 
 
+D1_SHAPES = ((1, 16, 16), (3, 80, 112), (2, 32, 16))  # (S, H, W)
+D1_VARIANTS = ("inter", "t8", "intra")
+D1_QPS = (0, 15, 16, 29, 30, 39, 51)
+D1_CASES = [(shape, variant, qp) for shape in D1_SHAPES
+            for variant in D1_VARIANTS for qp in D1_QPS]
+
+
+def d1_case(np, shape, variant, qp):
+    """Seeded deblock inputs (numpy): y, u, v int32, kind, mvx, mvy, nnz,
+    refidx, t8 (the last two None where the variant has none).  Shapes: C
+    = 1, and odd S, R and C.  Samples: MB row lane % 4 picks a smooth
+    random walk of 4x4-block levels (most edges filter), near black or
+    near white (p0 +- delta clips at 0 / 255), or uniform noise.  "inter":
+    skip / inter / intra MBs, MVs a walk of steps 0, +-3, +-4, +-5 quarter
+    pels along each row, refidx 0..3; "t8" adds a random t8; "intra":
+    every MB intra (deblock_i's shape: no refidx, no t8)."""
+    s, h, w = shape
+    r, c = h // 16, w // 16
+    rng = np.random.default_rng([s, h, w, D1_VARIANTS.index(variant), qp])
+
+    def plane(sh, blk):
+        lv = 128 + np.cumsum(rng.integers(-9, 10, (sh[0], sh[1] // blk,
+                                                   sh[2] // blk)), -1)
+        lv = np.repeat(np.repeat(lv, blk, 1), blk, 2)
+        p = lv + rng.integers(-2, 3, sh)
+        lane = np.arange(sh[0] * r).reshape(sh[0], r, 1, 1) % 4
+        lane = np.repeat(lane, sh[1] // r, 1).reshape(sh[0], sh[1], 1)
+        p = np.where(lane == 1, p % 9, p)
+        p = np.where(lane == 2, 255 - p % 9, p)
+        p = np.where(lane == 3, rng.integers(0, 256, sh), p)
+        return np.clip(p, 0, 255).astype(np.int32)
+
+    y = plane((s, h, w), 4)
+    u, v = plane((s, h // 2, w // 2), 2), plane((s, h // 2, w // 2), 2)
+    mb = (s, r, c)
+    if variant == "intra":
+        kind = np.full(mb, 2, np.int32)
+        mvx = mvy = np.zeros(mb, np.int32)
+    else:
+        kind = rng.choice(np.array([0, 1, 2], np.int32), mb,
+                          p=[0.3, 0.5, 0.2])
+        steps = np.array([0, 3, -3, 4, -4, 5, -5])
+        mvx, mvy = (rng.integers(-64, 65, (s, r, 1)) + np.cumsum(
+            rng.choice(steps, mb), -1) for _ in range(2))
+        mvx, mvy = mvx.astype(np.int32), mvy.astype(np.int32)
+    nnz = rng.integers(0, 17, (*mb, 4, 4))
+    nnz[rng.random((*mb, 4, 4)) < 0.6] = 0
+    ref = None if variant == "intra" else \
+        rng.integers(0, 4, mb).astype(np.int32)
+    t8 = rng.integers(0, 2, mb).astype(np.int32) if variant == "t8" else None
+    return y, u, v, kind, mvx, mvy, nnz.astype(np.int32), ref, t8
+
+
 def k3_edges(dev, torch, np):
     """K3 on seeded edge cases: K 1 / 27 / 123 x W 1 / 20 / 128 x n_out 1
     / 16 / 128 / 8192, K3_LANES lanes each."""
@@ -487,12 +562,96 @@ def k3_edges(dev, torch, np):
           f"lanes truncated at n_out words")
 
 
+def d1_args(torch, rec, qp, sym=None, motion=None, t8=False):
+    """deblock_frame_rows's arguments as deblock_i (no symbols) or
+    deblock_p build them, the planes as int32: (args, keyword args)."""
+    from tpuh264_torch.kernels import deblock
+
+    planes = [p.to(torch.int32).contiguous() for p in rec]
+    s, h, w = planes[0].shape
+    sh = (s, h // 16, w // 16)
+    if sym is None:
+        z = torch.zeros(sh, dtype=torch.int32, device=planes[0].device)
+        nnz = torch.zeros((*sh, 4, 4), dtype=torch.int32, device=z.device)
+        return (*planes, torch.full_like(z, 2), z, z, nnz, qp), {}
+    return ((*planes, sym.kind, motion[0], motion[1],
+             deblock.deblock_nnz(sym, t8), qp),
+            dict(refidx=sym.refidx, t8=sym.t8 if t8 else None))
+
+
+def d1_equal(args, kw, torch, what) -> int:
+    """D1 against its plain version on one input; fails unless equal."""
+    from tpuh264_torch.kernels import deblock
+
+    k = deblock.deblock_frame_rows(*args, **kw)
+    p = deblock._deblock_rows_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(a.dtype == torch.uint8 and torch.equal(a, b)
+               for a, b in zip(k, p)):
+        fail(f"D1 deblock_frame_rows differs from its plain version ({what})")
+    return max(max_abs_err(a, b) for a, b in zip(k, p))
+
+
+def d1_row(args, kw, torch, what):
+    """D1 equal to its plain version on (args, kw), timed beside it: the
+    row of the kernel table."""
+    from tpuh264_torch.kernels import deblock
+
+    return kernel_row(
+        "K4", "deblock_frame_rows (D1, in-loop deblocking filter)",
+        "tpuh264_torch/csrc/deblock.cu", "tpuh264/kernels/deblock.py:130",
+        d1_equal(args, kw, torch, what),
+        timed(lambda: deblock.deblock_frame_rows(*args, **kw), 20),
+        timed(lambda: deblock._deblock_rows_plain(*args, **kw), 1),
+        k4_bytes(args, kw))
+
+
+def d1_edges(dev, torch, np):
+    """D1 on the seeded edge cases of `d1_case` (every D1_CASES entry)."""
+    for case in D1_CASES:
+        y, u, v, kind, mvx, mvy, nnz, ref, t8 = [
+            None if a is None else torch.from_numpy(a).to(dev)
+            for a in d1_case(np, *case)]
+        d1_equal((y, u, v, kind, mvx, mvy, nnz, case[2]),
+                 dict(refidx=ref, t8=t8), torch, f"edge case {case}")
+    print(f"phase 2: K4 (D1) edge cases, {len(D1_CASES)}: (S, H, W) "
+          f"{list(D1_SHAPES)} (C = 1; odd S, R, C) x {list(D1_VARIANTS)} "
+          f"(MV steps 0 / 3 / 4 / 5, refidx 0..3, random t8, all-intra; "
+          f"samples near 0 / 255) x qp {list(D1_QPS)}: equal to plain")
+
+
+def d1_t8_480p(dev, torch, np):
+    """D1 on config-3 symbols at 854x480 x 8 (864 wide): the "meeting"
+    clip, an I frame, then a P frame with the 8x8 transform and
+    intra-in-P against its deblocked recon; t8 MBs required."""
+    from tpuh264_torch.kernels import deblock, iframe, pframe
+
+    w, h, s, qp = 864, 480, 8, 30
+    f0, f1 = ([torch.from_numpy(p).to(dev) for p in f]
+              for f in clip_streams(w, h, 2, s))
+    _, rec_i = iframe.encode_iframe_rows(*f0, qp)
+    d1_equal(*d1_args(torch, rec_i, qp), torch, "480p x 8 I frame")
+    refs = [p.to(torch.int32)[None] for p in deblock.deblock_i(rec_i, qp)]
+    sym, rec, mot = pframe.encode_pframe_rows_multi(*f1, *refs, qp, t8=True,
+                                                    intra_in_p=True)
+    n8 = int((sym.t8 == 1).sum())
+    if n8 == 0:
+        fail("D1 480p x 8: no MB chose the 8x8 transform")
+    r = d1_row(*d1_args(torch, rec, qp, sym, mot, t8=True), torch,
+               "480p x 8 t8 P frame")
+    print(f"phase 2: K4 (D1) 854x480 x 8 (864 wide) 'meeting' I frame and "
+          f"t8 P frame ({n8} of {sym.t8.numel()} MBs t8): equal to plain; "
+          f"P frame: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+          f"bound {r['bound_ms']:.4f} ms (bytes): "
+          f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
+
+
 def phase_kernels(dev, torch, np):
-    """Phase 2: K1/K2/K3 against their plain versions at 1080p x 4 and on
-    edge cases, and K2/K3 on intra-in-P symbols at 480p x 8; K3 at its MB
-    and slice levels."""
+    """Phase 2: K1/K2/K3/K4 against their plain versions at 1080p x 4 and
+    on edge cases, K2/K3 on intra-in-P symbols and K4 on t8 symbols at 480p
+    x 8; K3 at its MB and slice levels."""
     from tpuh264_torch.engine.sources import device_source_gop
-    from tpuh264_torch.kernels import me_cuda, pframe
+    from tpuh264_torch.kernels import iframe, me_cuda, pframe
 
     w, h, s = 1920, 1088, 4
     y, u, v = device_source_gop(w, h, 2, s, "rigid", 100, dev)
@@ -527,16 +686,26 @@ def phase_kernels(dev, torch, np):
     # K2 / K3 inputs: one encoded 1080p x 4 P frame, four times over (a
     # P dispatch's 16 frame-streams: 3.5 M blocks, 130,560 MBs)
     refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
-    sym, _, _ = pframe.encode_pframe_rows_multi(
+    sym, rec_p, mot = pframe.encode_pframe_rows_multi(
         y[1], u[1], v[1], *refs, 30, intra_in_p=False)
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
     rows += k23_rows(sym4, torch, "1080p x 4 P symbols x 4 frames")
+    # K4 (D1): an encoded I frame and P frame at 1080p x 4, the P frame's
+    # row in the kernel table
+    _, rec_i = iframe.encode_iframe_rows(y[0], u[0], v[0], 30)
+    d1_equal(*d1_args(torch, rec_i, 30), torch, "1080p x 4 I frame")
+    del rec_i
+    rows.append(d1_row(*d1_args(torch, rec_p, 30, sym, mot), torch,
+                       "1080p x 4 P frame"))
+    del rec_p, mot
     for r in rows:
         show(r, "1080p x 4 shapes")
     del sym, sym4
     k2_edges(dev, torch, np)
     k3_edges(dev, torch, np)
+    d1_edges(dev, torch, np)
+    d1_t8_480p(dev, torch, np)
 
     # intra-in-P P symbols at 854x480 x 8: a band copied from the
     # reference (skips), the moving field (inter) and a flat patch no
@@ -787,34 +956,40 @@ def check_dpbs(pipe, np, what, i):
 
 def phase_main(dev, torch, np, card):
     """Phase 4: the main path, 3 dispatches, enc DPB == dec DPB each time;
-    K3 launched twice per entropy call (MB and slice level)."""
+    K3 launched twice per entropy call (MB and slice level), the deblock
+    (K4) 8 times per dispatch (4 encoder frames, 4 decoder frames)."""
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
-    from tpuh264_torch.kernels import cavlc_cuda
+    from tpuh264_torch.kernels import cavlc_cuda, deblock
 
     cfg = CodecConfig(width=1920, height=1080, streams=4, qp=None,
                       bitrate=4_000_000, intra_in_p=False)
     pipe = GOPDevicePipeline(cfg, gop_size=8, source_kind="rigid",
                              device=dev)
     spy = SymbolSpy(pipe, torch)
-    qps, times, k3 = [], [], []
+    qps, times, k3, k4 = [], [], [], []
     for i in range(3):
         qps.append(pipe.rc.current_qp())
         n0 = cavlc_cuda.merge_tree.launches
+        d0 = deblock.deblock_frame_rows.launches
         t0 = time.perf_counter()
         pipe.pump_frame()
         times.append(time.perf_counter() - t0)
         k3.append(cavlc_cuda.merge_tree.launches - n0)
+        k4.append(deblock.deblock_frame_rows.launches - d0)
         check_dpbs(pipe, np, "1080p", i)
     expect = [4 if st else 2 for st in spy.starts]
     if k3 != expect:
         fail(f"1080p: K3 launches per dispatch {k3}, expected {expect} "
              f"(GOP starts {spy.starts})")
+    if k4 != [8, 8, 8]:
+        fail(f"1080p: deblock launches per dispatch {k4}, expected 8 each")
     print(f"phase 4: 1920x1080 x 4, CBR 4 Mbps, gop 8, rigid: 3 dispatches "
           f"(12 frames, GOP starts {spy.starts}), decoder DPB == encoder DPB "
           f"after each; K3 launches per dispatch {k3} (MB + slice level per "
-          f"entropy call); QP {qps}; PSNR {pipe.last_psnr_y:.2f} dB; "
-          f"pump_frame s {[round(t, 2) for t in times]} [{card}]")
+          f"entropy call), K4 (deblock) {k4} (4 encoder + 4 decoder "
+          f"frames); QP {qps}; PSNR {pipe.last_psnr_y:.2f} dB; "
+          f"pump_frame s {[round(t, 3) for t in times]} [{card}]")
 
 
 def phase_runs(dev, card):
@@ -1166,7 +1341,8 @@ def phase_sessions(dev, np, card, launches):
                              entropy_ms=round(tm["entropy_ms"], 1),
                              decode_ms=round(dec_ms, 1)))
 
-    launches.path("EncoderSession + DecoderPool 480p x 8", drive, needs=(0,))
+    launches.path("EncoderSession + DecoderPool 480p x 8", drive,
+                  needs=(0, 3))
     stay_fast([pool[i] for i in range(s)], "480p sessions")
     if len(i4) != 2 or min(i4) <= 0:
         fail(f"480p sessions: Intra_4x4 share of the IDR frames {i4}")
@@ -1476,15 +1652,24 @@ def phase_config3(dev, np, card, launches):
         1, mp_context=multiprocessing.get_context("spawn"))
     try:
         gold = oracle.submit(gate._timed_decode, b"".join(aus), "golden")
-        part_b(dev, np, card, launches, torch)
+        aus_b, recons_b = part_b(dev, np, card, launches, torch)
+        gold_b = oracle.submit(gate._timed_decode, b"".join(aus_b), "golden")
         frames, gold_s = gold.result()
+        frames_b, gold_bs = gold_b.result()
     finally:
         oracle.shutdown(wait=True, cancel_futures=True)
-    if len(frames) != n:
-        fail(f"config 3: the golden decoder decoded {len(frames)} frames")
-    for t, (f, r) in enumerate(zip(frames, recons)):
-        if not all(np.array_equal(np.asarray(a), b) for a, b in zip(f, r)):
-            fail(f"config 3: golden decode != encoder recon at frame {t}")
+    for what, got, want in (("config 3", frames, recons),
+                            ("config 3 part B stream 0", frames_b, recons_b)):
+        if len(got) != len(want):
+            fail(f"{what}: the golden decoder decoded {len(got)} frames")
+        for t, (f, r) in enumerate(zip(got, want)):
+            if not all(np.array_equal(np.asarray(a), b[:a.shape[0],
+                                                      :a.shape[1]])
+                       for a, b in zip(f, r)):
+                fail(f"{what}: golden decode != encoder recon at frame {t}")
+    print(f"phase 15: part B stream 0 (CABAC, 8x8 transform, deblock with "
+          f"K4) decoded by the golden decoder (worker, {gold_bs:.1f} s) == "
+          f"the encoder recon of all {len(frames_b)} frames [{card}]")
     mean = lambda k: sum(r[k] for r in rows[1:]) / (n - 1)
     print(f"phase 15: BASELINE config 3 (1920x1080, CABAC + 8x8 transform, "
           f"2 references, CBR 4 Mbps, intra-in-P, gop 6), 'rigid', {n} "
@@ -1503,7 +1688,8 @@ def part_b(dev, np, card, launches, torch):
     """Phase 15 part B: 854x480 x 8 from RGBA (the "meeting" clip), CABAC +
     8x8 transform + deblock, 2 references, CBR 1 Mbps, gop 8, 4 frames;
     every frame's access units through DecoderPool.decode_batch (per
-    session: CABAC does not batch) == the recon."""
+    session: CABAC does not batch) == the recon.  Returns stream 0's
+    access units and recon planes per frame, for the golden decoder."""
     from tpuh264_torch.engine import CodecConfig, DecoderPool, EncoderSession
 
     w, h, s, n = 854, 480, 8, 4
@@ -1516,7 +1702,7 @@ def part_b(dev, np, card, launches, torch):
     for i in range(s):
         pool.init_decoder(i)
     spy = PSymbols(enc, torch)
-    rows = []
+    rows, aus0, recons0 = [], [], []
 
     def drive():
         for t, rgba in enumerate(frames):
@@ -1525,6 +1711,8 @@ def part_b(dev, np, card, launches, torch):
             got = pool.decode_batch([(i, f.data) for i, f in enumerate(out)])
             dec_ms = (time.perf_counter() - t0) * 1e3
             recon = [p.cpu().numpy() for p in enc.recon]
+            aus0.append(out[0].data)
+            recons0.append([r[0] for r in recon])
             for i in range(s):
                 if got[i] is None or not all(
                         np.array_equal(a, r[i][:a.shape[0], :a.shape[1]])
@@ -1536,7 +1724,8 @@ def part_b(dev, np, card, launches, torch):
                          round(tm["encode_ms"], 1),
                          round(tm["entropy_ms"], 1), round(dec_ms, 1)))
 
-    _, counts = launches.path("config 3 part B 480p x 8", drive, needs=(0,))
+    _, counts = launches.path("config 3 part B 480p x 8", drive,
+                              needs=(0, 3))
     stay_fast([pool[i] for i in range(s)], "config 3 part B")
     intra, t8, ref1 = spy.shares()
     if counts[0] != sum(spy.searched) or t8 <= 0:
@@ -1549,6 +1738,7 @@ def part_b(dev, np, card, launches, torch):
           f"launches ({spy.searched}); P-frame MB shares t8 {t8:.4f}, "
           f"reference 1 {ref1:.4f}, intra {intra:.4f}; (frame, QP, bytes, "
           f"encode, entropy, decode ms) {rows} [{card}]")
+    return aus0, recons0
 
 
 # ---- phase 16: the distribution layer, device_pack and the bench ----------
@@ -2036,7 +2226,8 @@ def main() -> None:
     for r, n in zip(rows, launches.total):
         r["launches"] = n
     print(f"launches summed over the driven paths: K1 {launches.total[0]}, "
-          f"K2 {launches.total[1]}, K3 {launches.total[2]}")
+          f"K2 {launches.total[1]}, K3 {launches.total[2]}, K4 (deblock) "
+          f"{launches.total[3]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

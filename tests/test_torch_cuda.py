@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K3) against their plain PyTorch
-versions, on the card, plus the wrappers' no-fallback rule.
+"""The port's CUDA kernels (K1, K2, K3, the deblock D1) against their
+plain PyTorch versions, on the card, plus the wrappers' no-fallback rule.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed.  On a machine with a card and nvcc:
@@ -16,13 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tpuh264_torch.kernels import cavlc_cuda, me_cuda
+from tpuh264_torch.kernels import deblock as DB
 from tpuh264_torch.kernels import pframe as TP
 
 
 def _launches():
     return (me_cuda.sad_field.launches, cavlc_cuda.pack_blocks.launches,
-            cavlc_cuda.merge_tree.launches)
+            cavlc_cuda.merge_tree.launches, DB.deblock_frame_rows.launches)
 
 
 @pytest.fixture
@@ -289,6 +291,67 @@ def test_wrappers_check_inputs_on_card(dev):
                                z(8, 2), z(8, 2), 20, 2)
 
 
+def _deblock_both(dev, case):
+    """The deblock kernel and its plain version on the card, one input."""
+    args = [None if a is None else torch.from_numpy(a).to(dev)
+            for a in chip_smoke.d1_case(np, *case)]
+    y, u, v, kind, mvx, mvy, nnz, ref, t8 = args
+    qp = case[2]
+    before = DB.deblock_frame_rows.launches
+    got = DB.deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp, refidx=ref,
+                                t8=t8)
+    plain = DB._deblock_rows_plain(y, u, v, kind, mvx, mvy, nnz, qp, ref, t8)
+    torch.cuda.synchronize()
+    assert DB.deblock_frame_rows.launches == before + 1
+    return got, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,variant,qp", chip_smoke.D1_CASES)
+def test_deblock_kernel_matches_plain_edge_cases(dev, shape, variant, qp):
+    """C = 1, odd S / R / C, MV steps 3 / 4 / 5, refidx 0..3, random t8,
+    all-intra, qp 0 .. 51 (chip_smoke phase 2's generator)."""
+    got, plain = _deblock_both(dev, (shape, variant, qp))
+    for a, b in zip(got, plain):
+        assert a.dtype == torch.uint8 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", chip_smoke.D1_VARIANTS)
+def test_deblock_kernel_matches_plain_480p(dev, variant):
+    got, plain = _deblock_both(dev, ((2, 480, 864), variant, 30))
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_deblock_wrapper_on_card(dev):
+    """Planes of another dtype (uint8, as decoders pass them) and a bool
+    t8 are taken as int32 copies; a plane of the wrong shape, a misaligned
+    plane or a qp past 51 raises before any launch."""
+    args = [None if a is None else torch.from_numpy(a).to(dev)
+            for a in chip_smoke.d1_case(np, (2, 32, 48), "t8", 33)]
+    y, u, v, kind, mvx, mvy, nnz, ref, t8 = args
+    want = DB.deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, 33,
+                                 refidx=ref, t8=t8)
+    got = DB.deblock_frame_rows(y.to(torch.uint8), u.to(torch.uint8),
+                                v.to(torch.uint8), kind, mvx, mvy, nnz, 33,
+                                refidx=ref, t8=t8 == 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    before = DB.deblock_frame_rows.launches
+    with pytest.raises(ValueError):
+        DB.deblock_frame_rows(y, u[:, :8], v, kind, mvx, mvy, nnz, 33)
+    with pytest.raises(ValueError):
+        DB.deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, 52)
+    with pytest.raises(ValueError):
+        DB.deblock_frame_rows(y, u, v, kind.cpu(), mvx, mvy, nnz, 33)
+    flat = torch.zeros(y.numel() + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        DB.deblock_frame_rows(flat[1:].view(y.shape), u, v, kind, mvx, mvy,
+                              nnz, 33)
+    assert DB.deblock_frame_rows.launches == before
+
+
 def test_wrappers_raise_off_cpu_without_fallback():
     """A tensor that is not on the CPU never reaches a plain version: on a
     device the kernel cannot take, the wrapper raises."""
@@ -303,6 +366,12 @@ def test_wrappers_raise_off_cpu_without_fallback():
         cavlc_cuda.pack_blocks(z(8, 16), z(8), z(8), z(8, 2), z(8, 2), 20, 2)
     with pytest.raises(ValueError):
         cavlc_cuda.merge_tree(z(8, 3, 2), z(8, 3), 8)
+    with pytest.raises(ValueError):
+        DB.deblock_frame_rows(z(1, 32, 32), z(1, 16, 16), z(1, 16, 16),
+                              z(1, 2, 2), z(1, 2, 2), z(1, 2, 2),
+                              z(1, 2, 2, 4, 4), 30)
+    with pytest.raises(ValueError):
+        DB.deblock_i((z(1, 32, 32), z(1, 16, 16), z(1, 16, 16)), 30)
     assert _launches() == before
 
 

@@ -5,11 +5,15 @@
 
 Runs warm-up dispatches, then:
 
-  1. per-stage wall time of `pump_frame()` dispatches, each stage fenced
-     by torch.cuda.synchronize() (so a stage's time includes its device
-     work): source, I encode, P encode, deblock (encoder and decoder),
-     entropy (I / P), wire download, native parse, P decode;
-  2. one dispatch under torch.profiler: device-busy share (the union of
+  1. per-stage wall time of interior `pump_frame()` dispatches, each
+     stage fenced by torch.cuda.synchronize() (so a stage's time includes
+     its device work): source, I encode, P encode, deblock (encoder and
+     decoder), entropy (I / P), wire download, native parse, P decode,
+     and inside P decode its intra-reconstruction column scan
+     (`p_decode.intra_scan`, also counted in `p_decode`);
+  2. the same for one GOP-start dispatch (`force_idr()`: an I frame and
+     three P frames);
+  3. one dispatch under torch.profiler: device-busy share (the union of
      the CUDA kernels' intervals over wall time), kernel launches, and
      the top operators by host and by device time.
 
@@ -56,6 +60,8 @@ def _instrument():
         "p_encode", dp.pframe.encode_pframe_rows_multi)
     dp.pframe.decode_pframe_rows_multi = _fenced(
         "p_decode", dp.pframe.decode_pframe_rows_multi)
+    dp.pframe._intra_recon_scan = _fenced("p_decode.intra_scan",
+                                          dp.pframe._intra_recon_scan)
     dp.kdeblock.deblock_i = _fenced("deblock", dp.kdeblock.deblock_i)
     dp.kdeblock.deblock_p = _fenced("deblock", dp.kdeblock.deblock_p)
     dp.entropy_gpu.encode_bits_iframe = _fenced(
@@ -87,16 +93,22 @@ def main():
     pipe.pump_frame()
     torch.cuda.synchronize()
     _instrument()
-    t0 = time.perf_counter()
-    for _ in range(args.dispatches):
-        pipe.pump_frame()
-    wall = time.perf_counter() - t0
-    n = args.dispatches
-    print(f"config {args.width}x{args.height} x {args.streams}, "
-          f"{n} interior dispatches, fenced wall {wall / n:.3f} s/dispatch")
-    for k, v in sorted(STAGES.items(), key=lambda kv: -kv[1]):
-        print(f"  stage {k:14s} {v / n * 1e3:10.1f} ms/dispatch "
-              f"({COUNTS[k] // n} calls/dispatch, {100 * v / wall:.1f}%)")
+    def stages(what, n):
+        STAGES.clear()
+        COUNTS.clear()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pipe.pump_frame()
+        wall = time.perf_counter() - t0
+        print(f"config {args.width}x{args.height} x {args.streams}, {n} "
+              f"{what}, fenced wall {wall / n:.3f} s/dispatch")
+        for k, v in sorted(STAGES.items(), key=lambda kv: -kv[1]):
+            print(f"  stage {k:20s} {v / n * 1e3:10.1f} ms/dispatch "
+                  f"({COUNTS[k] // n} calls/dispatch, {100 * v / wall:.1f}%)")
+
+    stages("interior dispatches", args.dispatches)
+    pipe.force_idr()
+    stages("GOP-start dispatch", 1)
 
     from torch.profiler import ProfilerActivity, profile
 

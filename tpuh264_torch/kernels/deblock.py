@@ -1,21 +1,30 @@
-"""In-loop deblocking filter in PyTorch (H.264 8.7), row-slice mode (idc=2).
+"""In-loop deblocking filter (H.264 8.7), row-slice mode (idc=2): D1, a
+CUDA kernel, plus its plain PyTorch version.
 
-Port of tpuh264/kernels/deblock.py.  A Python loop over MB columns,
-batched over [S, R]: each step filters the vertical MB-boundary edge
-against the previous MB (modifying its last columns -- the normative
-order), then the current MB's internal vertical edges, then its
-internal horizontal edges.  With idc=2 and row slices the horizontal
-MB-boundary edges sit on slice boundaries and are not filtered, which
-keeps rows independent.  tc0 is a table gather by bS (the JAX version's
-select chain was a TPU workaround).  The first column's left edge has
-bS 0 everywhere (no left MB in the slice) and is skipped outright.  For
-MBs coded with the 8x8 transform (`t8`) the 4-aligned internal luma
-edges get bS 0; the chroma internal edge keeps the bS of luma edge 2.
+Port of tpuh264/kernels/deblock.py `deblock_frame_rows` (a jax.lax.scan
+over MB columns).  The kernel (csrc/deblock.cu) runs one MB row a warp
+and walks its columns in order.  The plain version, `_deblock_rows_plain`,
+is a Python loop over MB columns, batched over [S, R]: each step filters
+the vertical MB-boundary edge against the previous MB (modifying its
+last columns -- the normative order), then the current MB's internal
+vertical edges, then its internal horizontal edges.  With idc=2 and row
+slices the horizontal MB-boundary edges sit on slice boundaries and are
+not filtered, which keeps rows independent.  tc0 is a table gather by
+bS (the JAX version's select chain was a TPU workaround).  The first
+column's left edge has bS 0 everywhere (no left MB in the slice) and is
+skipped outright.  For MBs coded with the 8x8 transform (`t8`) the
+4-aligned internal luma edges get bS 0; the chroma internal edge keeps
+the bS of luma edge 2.
+
+`deblock_frame_rows` takes the plain version only for tensors on the
+CPU; for a CUDA tensor it launches the kernel or raises.
 
 Also home of `deblock_nnz` (was engine/encoder.py `_deblock_nnz`) and of
 the pipeline's two call shapes `deblock_i` / `deblock_p`.
 
-Bit-exact with the JAX version (tests/test_torch_transform_iframe_deblock.py).
+The plain version is bit-exact with the JAX version
+(tests/test_torch_deblock.py, _transform_iframe_deblock.py), the kernel
+with the plain version (chip_smoke.py phase 2, tests/test_torch_cuda.py).
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import numpy as np
 import torch
 
 from ..golden.deblock import ALPHA, BETA, TC0
-from . import tables
+from . import cuda_lib, tables
 from . import transform as T
 from .iframe import _mb_view, _mbs_to_plane
 
@@ -131,12 +140,9 @@ def _internal(mb: torch.Tensor, intra, qp: int, chroma: bool,
     return mb
 
 
-def deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp: int,
-                       refidx=None, t8=None) -> Tuple[torch.Tensor, ...]:
-    """Filter [S, H, W] frames in row-slice (idc=2) mode; returns uint8
-    planes.  kind/mvx/mvy/refidx/t8 [S, R, C]; nnz [S, R, C, 4, 4] per-4x4
-    luma coded-coefficient counts (by, bx), 8x8-effective for t8 MBs
-    (`deblock_nnz`)."""
+def _deblock_rows_plain(y, u, v, kind, mvx, mvy, nnz, qp: int,
+                        refidx=None, t8=None) -> Tuple[torch.Tensor, ...]:
+    """Plain version of `deblock_frame_rows` (same arguments)."""
     qpc = T.chroma_qp_from_luma(qp)
     s, h, w = y.shape
     r, c = h // 16, w // 16
@@ -205,6 +211,54 @@ def deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp: int,
         _mbs_to_plane(torch.stack(o, dim=2)).to(torch.uint8)
         for o in (out_y, out_u, out_v)
     )
+
+
+def deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp: int,
+                       refidx=None, t8=None) -> Tuple[torch.Tensor, ...]:
+    """Filter [S, H, W] frames in row-slice (idc=2) mode; returns uint8
+    planes.  kind/mvx/mvy/refidx/t8 [S, R, C]; nnz [S, R, C, 4, 4] per-4x4
+    luma coded-coefficient counts (by, bx), 8x8-effective for t8 MBs
+    (`deblock_nnz`).
+
+    Precondition of the kernel: every sample of y, u and v lies in
+    [0, 255] -- true of every reconstruction the callers pass (the
+    encoder's and decoders' clamped recon).  Inputs of another integer
+    dtype are taken as int32 copies."""
+    if y.device.type == "cpu":
+        return _deblock_rows_plain(y, u, v, kind, mvx, mvy, nnz, qp,
+                                   refidx, t8)
+    s, h, w = y.shape
+    if h % 16 or w % 16 or not s * h * w:
+        raise ValueError(f"deblock_frame_rows: frame {h}x{w} x {s} is not "
+                         f"whole MBs")
+    qp = int(qp)
+    if not 0 <= qp <= 51:
+        raise ValueError(f"deblock_frame_rows: qp {qp} outside 0..51")
+    r, c = h // 16, w // 16
+    planes = [p.to(I32).contiguous() for p in (y, u, v)]
+    side = [x.to(I32).contiguous() for x in (kind, mvx, mvy)]
+    nz = nnz.to(I32).contiguous()
+    opt = [None if x is None else x.to(I32).contiguous()
+           for x in (refidx, t8)]
+    cuda_lib.check_inputs("deblock_frame_rows", y.device, [
+        (planes[0], (s, h, w)), (planes[1], (s, h // 2, w // 2)),
+        (planes[2], (s, h // 2, w // 2)), (nz, (s, r, c, 4, 4)),
+        *[(x, (s, r, c)) for x in side + opt if x is not None]])
+    if any(p.data_ptr() % 16 for p in planes):
+        raise ValueError("deblock_frame_rows: planes must be 16-byte "
+                         "aligned")
+    out = [torch.empty(p.shape, dtype=torch.uint8, device=y.device)
+           for p in planes]
+    ptr = lambda x: None if x is None else x.data_ptr()
+    err = cuda_lib.load().th264_deblock_rows(
+        *map(ptr, planes + side + opt + [nz] + out), s * r, c, qp,
+        T.chroma_qp_from_luma(qp), cuda_lib.stream(y.device))
+    cuda_lib.check(err, "th264_deblock_rows")
+    deblock_frame_rows.launches += 1
+    return tuple(out)
+
+
+deblock_frame_rows.launches = 0  # launches of the D1 kernel
 
 
 def deblock_nnz(symbols, t8_enabled: bool = False) -> torch.Tensor:
