@@ -24,11 +24,13 @@ tpuh264_torch/csrc, then:
      n_out 1 / 16 / 128 / 8192 with truncation), and K2/K3 on intra-in-P
      P symbols at 854x480 x 8 (skip, inter and intra MBs; slice level
      K = 57); K4 on seeded edge cases (`d1_case`: C = 1, odd S / R / C,
-     MV steps 3 / 4 / 5, refidx 0..3, random t8, all-intra, qp 0 .. 51)
-     and on config-3 symbols (the 8x8 transform, intra-in-P) at 854x480
-     x 8; times each kernel beside its plain version (CUDA events,
-     after a warm-up) and against its bound (the bytes it must move over
-     the card's 3.35 TB/s), and one fenced `encode_bits_pframe` call;
+     an even C of 16, MV steps 3 / 4 / 5, refidx 0..3, random t8,
+     all-intra, qp 0 .. 51) and on config-3 symbols (the 8x8 transform,
+     intra-in-P) at 854x480 x 8; times each kernel beside its plain
+     version (CUDA events, after a warm-up) and against its bound (the
+     bytes it must move over the card's 3.35 TB/s), K4 also in cycles a
+     MB column at the SM clock read under load, and one fenced
+     `encode_bits_pframe` call;
   3. at 64x48 x 2 the GPU emits the CPU's bytes (plain versions) and
      decoder DPB on every path: the RTC preset, intra-in-P, two
      references, host ingest with fan-out 2 and a drop_frames, and the
@@ -148,14 +150,26 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_line(card: str) -> str:
-    """nvidia-smi's name and power limit of `card` (an index or UUID)."""
+def card_line(card: str, fields: str = "name,power.limit") -> str:
+    """nvidia-smi's `fields` (by default the name and power limit) of
+    `card` (an index or UUID), as its csv line."""
     res = subprocess.run(
-        ["nvidia-smi", "-i", card, "--query-gpu=name,power.limit",
+        ["nvidia-smi", "-i", card, f"--query-gpu={fields}",
          "--format=csv,noheader"], capture_output=True, text=True)
     if res.returncode != 0:
         fail(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def busy_sm_clock() -> int:
+    """The card's SM clock in MHz (nvidia-smi clocks.sm), read while a
+    ~1 s device sleep keeps it busy: an idle card lowers its clock."""
+    import torch
+
+    torch.cuda._sleep(2_000_000_000)  # cycles
+    mhz = card_line(os.environ["CUDA_VISIBLE_DEVICES"], "clocks.sm")
+    torch.cuda.synchronize()
+    return int(mhz.split()[0])  # "1980 MHz"
 
 
 def timed(fn, iters: int) -> float:
@@ -489,7 +503,8 @@ def k3_case(rng, np, n, k, w):
     return words.astype(np.uint32).view(np.int32), bits.astype(np.int32)
 
 
-D1_SHAPES = ((1, 16, 16), (3, 80, 112), (2, 32, 16))  # (S, H, W)
+# (S, H, W): C = 1; odd S, R, C; a long lane of an even C = 16
+D1_SHAPES = ((1, 16, 16), (3, 80, 112), (2, 32, 16), (2, 48, 256))
 D1_VARIANTS = ("inter", "t8", "intra")
 D1_QPS = (0, 15, 16, 29, 30, 39, 51)
 D1_CASES = [(shape, variant, qp) for shape in D1_SHAPES
@@ -498,13 +513,13 @@ D1_CASES = [(shape, variant, qp) for shape in D1_SHAPES
 
 def d1_case(np, shape, variant, qp):
     """Seeded deblock inputs (numpy): y, u, v int32, kind, mvx, mvy, nnz,
-    refidx, t8 (the last two None where the variant has none).  Shapes: C
-    = 1, and odd S, R and C.  Samples: MB row lane % 4 picks a smooth
-    random walk of 4x4-block levels (most edges filter), near black or
-    near white (p0 +- delta clips at 0 / 255), or uniform noise.  "inter":
-    skip / inter / intra MBs, MVs a walk of steps 0, +-3, +-4, +-5 quarter
-    pels along each row, refidx 0..3; "t8" adds a random t8; "intra":
-    every MB intra (deblock_i's shape: no refidx, no t8)."""
+    refidx, t8 (the last two None where the variant has none).  Shapes: C =
+    1, odd S, R and C, and an even C of 16.  Samples: MB row lane % 4 picks
+    a smooth random walk of 4x4-block levels (most edges filter), near
+    black or near white (p0 +- delta clips at 0 / 255), or uniform noise.
+    "inter": skip / inter / intra MBs, MVs a walk of steps 0, +-3, +-4, +-5
+    quarter pels along each row, refidx 0..3; "t8" adds a random t8;
+    "intra": every MB intra (deblock_i's shape: no refidx, no t8)."""
     s, h, w = shape
     r, c = h // 16, w // 16
     rng = np.random.default_rng([s, h, w, D1_VARIANTS.index(variant), qp])
@@ -592,18 +607,56 @@ def d1_equal(args, kw, torch, what) -> int:
     return max(max_abs_err(a, b) for a, b in zip(k, p))
 
 
-def d1_row(args, kw, torch, what):
+def d1_row(args, kw, torch, what, mhz):
     """D1 equal to its plain version on (args, kw), timed beside it: the
-    row of the kernel table."""
+    row of the kernel table, with the kernel's cycles a MB column at an
+    SM clock of `mhz` (what bounds it: one lane's chain of C columns)."""
     from tpuh264_torch.kernels import deblock
 
-    return kernel_row(
+    r = kernel_row(
         "K4", "deblock_frame_rows (D1, in-loop deblocking filter)",
         "tpuh264_torch/csrc/deblock.cu", "tpuh264/kernels/deblock.py:130",
         d1_equal(args, kw, torch, what),
         timed(lambda: deblock.deblock_frame_rows(*args, **kw), 20),
         timed(lambda: deblock._deblock_rows_plain(*args, **kw), 1),
         k4_bytes(args, kw))
+    r["cycles_col"] = d1_cycles(r["ms"], mhz, args[0].shape[-1] // 16)
+    return r
+
+
+def d1_cycles(ms: float, mhz: int, c: int) -> float:
+    """SM cycles a MB column of a D1 call of `ms` over `c` columns."""
+    return ms * mhz * 1e3 / c
+
+
+def pframe_1080p(dev, torch):
+    """Phase 2's 1920x1080 x 4 input (1088 rows): two "rigid" frames and
+    the second encoded as a P frame against the first: y, u, v, the P
+    symbols, its recon and motion."""
+    from tpuh264_torch.engine.sources import device_source_gop
+    from tpuh264_torch.kernels import pframe
+
+    y, u, v = device_source_gop(1920, 1088, 2, 4, "rigid", 100, dev)
+    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    sym, rec, mot = pframe.encode_pframe_rows_multi(
+        y[1], u[1], v[1], *refs, 30, intra_in_p=False)
+    return y, u, v, sym, rec, mot
+
+
+def t8_pframe_480p(dev, torch):
+    """Config-3 symbols at 854x480 x 8 (864 wide), QP 30: the "meeting"
+    clip, an I frame, then a P frame with the 8x8 transform and
+    intra-in-P against its deblocked recon: the I recon, the P symbols,
+    recon and motion."""
+    from tpuh264_torch.kernels import deblock, iframe, pframe
+
+    f0, f1 = ([torch.from_numpy(p).to(dev) for p in f]
+              for f in clip_streams(864, 480, 2, 8))
+    _, rec_i = iframe.encode_iframe_rows(*f0, 30)
+    refs = [p.to(torch.int32)[None] for p in deblock.deblock_i(rec_i, 30)]
+    sym, rec, mot = pframe.encode_pframe_rows_multi(*f1, *refs, 30, t8=True,
+                                                    intra_in_p=True)
+    return rec_i, sym, rec, mot
 
 
 def d1_edges(dev, torch, np):
@@ -615,38 +668,30 @@ def d1_edges(dev, torch, np):
         d1_equal((y, u, v, kind, mvx, mvy, nnz, case[2]),
                  dict(refidx=ref, t8=t8), torch, f"edge case {case}")
     print(f"phase 2: K4 (D1) edge cases, {len(D1_CASES)}: (S, H, W) "
-          f"{list(D1_SHAPES)} (C = 1; odd S, R, C) x {list(D1_VARIANTS)} "
+          f"{list(D1_SHAPES)} (C = 1; odd S, R, C; C = 16) x "
+          f"{list(D1_VARIANTS)} "
           f"(MV steps 0 / 3 / 4 / 5, refidx 0..3, random t8, all-intra; "
           f"samples near 0 / 255) x qp {list(D1_QPS)}: equal to plain")
 
 
-def d1_t8_480p(dev, torch, np):
-    """D1 on config-3 symbols at 854x480 x 8 (864 wide): the "meeting"
-    clip, an I frame, then a P frame with the 8x8 transform and
-    intra-in-P against its deblocked recon; t8 MBs required."""
-    from tpuh264_torch.kernels import deblock, iframe, pframe
-
-    w, h, s, qp = 864, 480, 8, 30
-    f0, f1 = ([torch.from_numpy(p).to(dev) for p in f]
-              for f in clip_streams(w, h, 2, s))
-    _, rec_i = iframe.encode_iframe_rows(*f0, qp)
-    d1_equal(*d1_args(torch, rec_i, qp), torch, "480p x 8 I frame")
-    refs = [p.to(torch.int32)[None] for p in deblock.deblock_i(rec_i, qp)]
-    sym, rec, mot = pframe.encode_pframe_rows_multi(*f1, *refs, qp, t8=True,
-                                                    intra_in_p=True)
+def d1_t8_480p(dev, torch, mhz, card):
+    """D1 on `t8_pframe_480p`'s I frame and t8 P frame; t8 MBs required."""
+    rec_i, sym, rec, mot = t8_pframe_480p(dev, torch)
+    d1_equal(*d1_args(torch, rec_i, 30), torch, "480p x 8 I frame")
     n8 = int((sym.t8 == 1).sum())
     if n8 == 0:
         fail("D1 480p x 8: no MB chose the 8x8 transform")
-    r = d1_row(*d1_args(torch, rec, qp, sym, mot, t8=True), torch,
-               "480p x 8 t8 P frame")
+    r = d1_row(*d1_args(torch, rec, 30, sym, mot, t8=True), torch,
+               "480p x 8 t8 P frame", mhz)
     print(f"phase 2: K4 (D1) 854x480 x 8 (864 wide) 'meeting' I frame and "
           f"t8 P frame ({n8} of {sym.t8.numel()} MBs t8): equal to plain; "
           f"P frame: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
           f"bound {r['bound_ms']:.4f} ms (bytes): "
-          f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
+          f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; "
+          f"{r['cycles_col']:.0f} cycles a MB column at {mhz} MHz [{card}]")
 
 
-def phase_kernels(dev, torch, np):
+def phase_kernels(dev, torch, np, card):
     """Phase 2: K1/K2/K3/K4 against their plain versions at 1080p x 4 and
     on edge cases, K2/K3 on intra-in-P symbols and K4 on t8 symbols at 480p
     x 8; K3 at its MB and slice levels."""
@@ -654,7 +699,7 @@ def phase_kernels(dev, torch, np):
     from tpuh264_torch.kernels import iframe, me_cuda, pframe
 
     w, h, s = 1920, 1088, 4
-    y, u, v = device_source_gop(w, h, 2, s, "rigid", 100, dev)
+    y, u, v, sym, rec_p, mot = pframe_1080p(dev, torch)
     y0, y1 = y[0].to(torch.int32), y[1].to(torch.int32).contiguous()
     gplane = pframe.build_halfpel_planes(y0)[0]
     rows = []
@@ -683,29 +728,31 @@ def phase_kernels(dev, torch, np):
         if not torch.equal(a.cpu(), b):
             fail("winner selection ties differ between the card and the CPU")
 
-    # K2 / K3 inputs: one encoded 1080p x 4 P frame, four times over (a
+    # K2 / K3 inputs: the encoded 1080p x 4 P frame, four times over (a
     # P dispatch's 16 frame-streams: 3.5 M blocks, 130,560 MBs)
-    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
-    sym, rec_p, mot = pframe.encode_pframe_rows_multi(
-        y[1], u[1], v[1], *refs, 30, intra_in_p=False)
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
     rows += k23_rows(sym4, torch, "1080p x 4 P symbols x 4 frames")
     # K4 (D1): an encoded I frame and P frame at 1080p x 4, the P frame's
-    # row in the kernel table
+    # row in the kernel table, with its cycles a MB column
     _, rec_i = iframe.encode_iframe_rows(y[0], u[0], v[0], 30)
     d1_equal(*d1_args(torch, rec_i, 30), torch, "1080p x 4 I frame")
     del rec_i
+    mhz = busy_sm_clock()
+    print(f"phase 2: SM clock under load {mhz} MHz (nvidia-smi clocks.sm) "
+          f"[{card}]")
     rows.append(d1_row(*d1_args(torch, rec_p, 30, sym, mot), torch,
-                       "1080p x 4 P frame"))
+                       "1080p x 4 P frame", mhz))
     del rec_p, mot
     for r in rows:
         show(r, "1080p x 4 shapes")
+    print(f"phase 2: K4 (D1) 1080p x 4 P frame: {rows[-1]['cycles_col']:.0f} "
+          f"cycles a MB column (120 columns) at {mhz} MHz [{card}]")
     del sym, sym4
     k2_edges(dev, torch, np)
     k3_edges(dev, torch, np)
     d1_edges(dev, torch, np)
-    d1_t8_480p(dev, torch, np)
+    d1_t8_480p(dev, torch, mhz, card)
 
     # intra-in-P P symbols at 854x480 x 8: a band copied from the
     # reference (skips), the moving field (inter) and a flat patch no
@@ -2203,7 +2250,7 @@ def main() -> None:
           f"(load {t1 - t0:.1f} s) with nvcc for sm_90a; host CAVLC engine "
           f"built and loaded in {time.perf_counter() - t1:.1f} s with g++")
 
-    rows = phase_kernels(dev, torch, np)
+    rows = phase_kernels(dev, torch, np, card)
     phase_small(dev, torch, np)
     phase_small_sessions(dev, np)
 

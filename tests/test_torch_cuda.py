@@ -309,8 +309,9 @@ def _deblock_both(dev, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,variant,qp", chip_smoke.D1_CASES)
 def test_deblock_kernel_matches_plain_edge_cases(dev, shape, variant, qp):
-    """C = 1, odd S / R / C, MV steps 3 / 4 / 5, refidx 0..3, random t8,
-    all-intra, qp 0 .. 51 (chip_smoke phase 2's generator)."""
+    """C = 1, odd S / R / C, an even C of 16, MV steps 3 / 4 / 5, refidx
+    0..3, random t8, all-intra, qp 0 .. 51 (chip_smoke phase 2's
+    generator)."""
     got, plain = _deblock_both(dev, (shape, variant, qp))
     for a, b in zip(got, plain):
         assert a.dtype == torch.uint8 and torch.equal(a, b)

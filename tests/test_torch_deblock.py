@@ -45,12 +45,15 @@ def test_plain_deblock_matches_jax(shape, variant, qp):
 
 
 def test_edge_cases_cover_what_they_claim():
-    """C = 1 and odd S, R, C; MV steps of 3, 4 and 5 quarter pels; refidx
-    0..3; t8 both ways; all-intra; samples at 0 and 255; filtering at qp
-    16 and above, none below (alpha is 0 there)."""
+    """C = 1 and odd S, R, C; a long lane of an even C >= 16 (the register
+    pipeline and the exchanges over many columns, the last MB stored after
+    an even count); MV steps of 3, 4 and 5 quarter pels; refidx 0..3; t8
+    both ways; all-intra; samples at 0 and 255; filtering at qp 16 and
+    above, none below (alpha is 0 there)."""
     shapes = {(s, h // 16, w // 16) for s, h, w in chip_smoke.D1_SHAPES}
     assert any(c == 1 for _, _, c in shapes)
     assert any(s % 2 and r % 2 and c % 2 for s, r, c in shapes)
+    assert any(c % 2 == 0 and c >= 16 for _, _, c in shapes)
     assert set(chip_smoke.D1_QPS) >= {0, 15, 16, 51}
     y, u, v, kind, mvx, mvy, nnz, ref, t8 = chip_smoke.d1_case(
         np, (3, 80, 112), "t8", 30)
@@ -73,9 +76,11 @@ def test_edge_cases_cover_what_they_claim():
         assert (not np.array_equal(out[0].numpy(), y)) == changed
 
 
-# CUDA's names for g++: a block's threads run as std::threads, __syncwarp
-# is a barrier among them, __shared__ arrays are statics (one block at a
-# time), int4 / uint2 are plain structs.
+# CUDA's names for g++: a block's 64 threads run as std::threads, each
+# warp's __syncwarp is a barrier among its 32, __shared__ arrays are
+# statics (one block at a time), int4 / uint2 / uint4 are plain structs.
+# The kernel has no block-wide barrier (its two warps share nothing), so
+# the shims define none.
 SHIMS = r"""
 #pragma once
 #include <algorithm>
@@ -88,14 +93,20 @@ using std::abs; using std::max; using std::min;
 #define __forceinline__ inline
 #define __constant__
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 #define __launch_bounds__(n)
-struct int4 { int x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int a, int b, int c, int d) { return int4{a, b, c, d}; }
 struct uint2 { uint32_t x, y; };
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return uint4{a, b, c, d};
+}
 struct Dim { int x; };
 inline thread_local Dim threadIdx, blockIdx;
-inline std::barrier<>* g_warp;
-inline void __syncwarp() { g_warp->arrive_and_wait(); }
+inline std::barrier<>* g_warp[2];
+inline void __syncwarp() { g_warp[threadIdx.x >> 5]->arrive_and_wait(); }
 """
 
 # Reads int32 S R C qp qpc has_ref has_t8, then the int32 inputs (y, u,
@@ -117,20 +128,20 @@ int main() {
   for (auto* a : {&y, &u, &v, &kind, &mvx, &mvy, &ref, &t8, &nnz})
     if (fread(a->data(), 4, a->size(), stdin) != a->size()) return 3;
   std::vector<uint8_t> o(n + 2 * nc);
-  std::barrier<> warp(32);
-  g_warp = &warp;
-  for (int lane = 0; lane < S * R; ++lane) {
+  const Args args{y.data(), u.data(), v.data(), kind.data(), mvx.data(),
+                  mvy.data(), has_ref ? ref.data() : nullptr,
+                  has_t8 ? t8.data() : nullptr, nnz.data(), o.data(),
+                  o.data() + n, o.data() + n + nc, S * R, C};
+  std::barrier<> luma(32), chroma(32);
+  g_warp[0] = &luma;
+  g_warp[1] = &chroma;
+  for (int b = 0; b < (S * R + 1) / 2; ++b) {
     std::vector<std::thread> block;
-    for (int t = 0; t < 32; ++t)
-      block.emplace_back([&, t, lane] {
+    for (int t = 0; t < 64; ++t)
+      block.emplace_back([&, t, b] {
         threadIdx.x = t;
-        blockIdx.x = lane;
-        deblock_rows_kernel(y.data(), u.data(), v.data(), kind.data(),
-                            mvx.data(), mvy.data(),
-                            has_ref ? ref.data() : nullptr,
-                            has_t8 ? t8.data() : nullptr, nnz.data(),
-                            o.data(), o.data() + n, o.data() + n + nc, C, qp,
-                            qpc);
+        blockIdx.x = b;
+        deblock_rows_kernel(args, qp, qpc);
       });
     for (auto& th : block) th.join();
   }
@@ -159,9 +170,10 @@ def cpu_kernel(tmp_path_factory):
 
 @pytest.mark.parametrize("variant", chip_smoke.D1_VARIANTS)
 def test_kernel_source_on_cpu_threads_matches_plain(cpu_kernel, variant):
-    """The kernel's passes, bS bookkeeping and slot handling, run a warp's
-    32 threads at a time with __syncwarp as a barrier, equal the plain
-    version on every shape and qp of the variant."""
+    """The kernel's filters, bS bookkeeping, exchanges and register
+    pipeline, run a block's 64 threads at a time with each warp's
+    __syncwarp as a barrier, equal the plain version on every shape and
+    qp of the variant."""
     from tpuh264_torch.kernels.transform import chroma_qp_from_luma
 
     for shape, var, qp in chip_smoke.D1_CASES:

@@ -1,5 +1,6 @@
 // D1: the in-loop deblocking filter (H.264 8.7) in row-slice mode
-// (disable_deblocking_filter_idc 2), one MB row a warp.
+// (disable_deblocking_filter_idc 2): a block of two warps per two MB
+// rows, one warp for their luma and one for their chroma.
 //
 // Replaces: tpuh264/kernels/deblock.py `deblock_frame_rows` (:130), a
 // jax.lax.scan over MB columns (scan at :303), not a pallas_call.  Its
@@ -19,41 +20,76 @@
 // [0, 255] (every reconstruction the callers pass); the arithmetic is
 // int32 as the plain version's, and the outputs are its uint8 planes.
 //
-// What bounds it on the H100: the dependent chain, not bytes.  Row
-// slices never filter across MB rows, so the S x R MB rows are
-// independent lanes (272 at 1080p x 4), but inside a lane the C columns
-// are strictly ordered and each column is 7 edge passes that read what
-// the pass before wrote.  The bytes bound (int32 planes and side
-// information in, uint8 planes out: 65.4 MB, 0.0195 ms at 1080p x 4)
-// is far below the chain's 120 x 7 dependent passes.
+// What bounds it on the H100: one lane's chain, not bytes.  Row slices
+// never filter across MB rows, so the S x R MB rows are independent
+// lanes (272 at 1080p x 4), but inside a lane the C columns are strictly
+// ordered, and each luma line of a column goes through 7 dependent
+// filter evaluations: the left edge, x = 4, 8, 12, then (as a column)
+// y = 4, 8, 12, whose result the next column's left edge reads.  The
+// bytes bound (int32 planes and side information in, uint8 planes out:
+// 65.3 MB, 0.0195 ms at 1080p x 4) is far below that chain.
 //
-// Design: one warp (a block of 32 threads) per lane.
-//  * Within an edge the 16 luma rows (vertical edges) or columns
-//    (horizontal edges) are independent, and so are the 8 of each chroma
-//    plane: threads 0-15 take luma, 16-23 U and 24-31 V.  The left edge
-//    and the first internal edge each way keep all 32 threads busy; the
-//    two further luma edges each way use 16.  A __syncwarp between passes
-//    orders them.
-//  * The lane keeps two MBs in shared memory as int32 (luma 16 x 2 x 16,
-//    chroma 8 x 2 x 8 a plane, rows padded to 33 / 17 words so a pass's
-//    row-wise reads fall in distinct banks), alternating slots: column c
-//    sits in slot c & 1 and column c - 1 in the other.  Once column c's
-//    left edge is filtered, MB c - 1 is final and leaves as uint8, once.
-//  * Column c + 1's samples and side information are loaded into
-//    registers (16-byte loads) while column c is filtered, so the loads
-//    overlap the chain.
-//  * ALPHA, BETA and TC0 (Table 8-16, 8-17) sit in __constant__ memory,
-//    copied from the port's golden/deblock.py (tests/test_torch_deblock.py
-//    holds them equal); qp is uniform, so every lookup is a broadcast.
+// Design, around one lane's chain (a warp a lane with seven
+// shared-memory passes a column took ~2,990 cycles a column):
+//  * Lines live in registers.  A luma thread owns one sample row of its
+//    MB (16 int32) and the same row of the MB to its left, whose columns
+//    12..15 are the left edge's p side: the left edge and x = 4, 8, 12
+//    are register arithmetic in that thread.  Shared memory is a
+//    transpose only: the thread writes its row, reads its column,
+//    filters y = 4, 8, 12, writes the column back and reads its row,
+//    which the next column's left edge finishes.  Two exchanges and two
+//    __syncwarps a column.  Rows are padded to 20 words (chroma 12) and
+//    the lanes' buffers offset by 16 (chroma 8) banks, so the 16-byte
+//    row accesses and the 4-byte column accesses are free of bank
+//    conflicts.  Chroma works the same way with rows of 8 and one
+//    internal edge each way.
+//  * Luma and chroma on separate warps of a 64-thread block: warp 0
+//    holds the luma of lanes 2b (threads 0-15) and 2b + 1 (16-31), warp
+//    1 their U and V rows (8 threads each).  Neither path waits for the
+//    other, and the chroma chain (left edge and x = 4 independent, then
+//    y = 4) ends first; the warps share nothing, so the block has no
+//    barrier.  Two lanes a warp rather than 16 idle threads: a warp's
+//    instruction costs the same either way, and two lanes a block (136
+//    blocks at 1080p x 4) ran faster on the card than four or three,
+//    which share an SM's L1 and shared memory among more lanes.
+//  * bS leaves the chain: the side information arrives in registers
+//    with the samples, and each thread works out the bS of its edges
+//    (left, three vertical and three horizontal for luma; the t8 mask;
+//    chroma's luma group k / 2) from it alone, beside the first filter.
+//  * No branch inside a column: the filters compute every result and
+//    select, as the plain version's torch.where's do (& and |, never the
+//    short-circuit && and ||), so a column is one straight block the
+//    compiler schedules as a whole, and bS 4 lines do not serialise a
+//    warp against bS < 4 lines.  The threshold tests |a - b| < t are
+//    (a - b)^2 < t^2: a multiply-add instead of two operations of the
+//    integer ALU, which takes a warp instruction every other cycle.
+//  * Column c + 2's samples and side information load into registers
+//    while column c is filtered, two input slots alternating so that no
+//    value is copied, and column c + 4's rows are prefetched into L2: at
+//    1080p x 4 the 65 MB do not stay in the 50 MB L2, and without the
+//    prefetch a column waited ~170 cycles longer on device memory.  A
+//    finished MB leaves once, as uint8, 16 bytes a luma row and 8 a
+//    chroma row, as soon as the next MB's left edge has run.  ALPHA,
+//    BETA and TC0 (Table 8-16, 8-17) sit in __constant__ memory, copied
+//    from the port's golden/deblock.py (tests/test_torch_deblock.py holds
+//    them equal); qp is uniform.
+//
+// What bounds it now: the luma warp's instruction rate.  A column is
+// ~600 of its instructions, most on the integer ALU, around the chain
+// of ~7 dependent filter evaluations and two exchanges: ~1,230 cycles a
+// column at 480p x 8 and ~1,325 at 1080p x 4 on an H100 at 1980 MHz
+// (PERF.md; chip_smoke.py phase 2 and tools/time_deblock.py print the
+// reading).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kLS = 33;  // luma window row stride: 2 MB slots of 16 + pad
-constexpr int kCS = 17;  // chroma window row stride: 2 slots of 8 + pad
-constexpr int kSide = 21;  // per MB: nnz[16] (by, bx), kind, mvx, mvy, ref, t8
+constexpr int kLS = 20;       // luma exchange row stride (words): 16 + 4
+constexpr int kLLane = 336;   // luma words a lane: 16 rows x 20, + 16
+constexpr int kCS = 12;       // chroma exchange row stride: 8 + 4
+constexpr int kCPlane = 104;  // chroma words a lane's plane: 8 x 12, + 8
 
 __constant__ int kAlpha[52] = {
     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 4, 5, 6, 7, 8, 9,
@@ -76,125 +112,144 @@ __constant__ int kTc0[52][3] = {
 
 // the filter parameters of one QP (luma qp or chroma qpc)
 struct Params {
-  int alpha, beta, tc1, tc2, tc3;  // tc0 for bS 1, 2, >= 3
-  __device__ int tc0(int bs) const {
+  int alpha2, beta2, strong2, tc1, tc2, tc3;  // squares: alpha^2, beta^2,
+                                               // ((alpha >> 2) + 2)^2
+  __device__ int tc0(int bs) const {       // tc0 for bS 1, 2, >= 3
     return bs <= 1 ? tc1 : (bs == 2 ? tc2 : tc3);
   }
 };
 
 __device__ __forceinline__ Params params(int qp) {
-  return Params{kAlpha[qp], kBeta[qp], kTc0[qp][0], kTc0[qp][1],
-                kTc0[qp][2]};
+  const int a = kAlpha[qp], b = kBeta[qp], s = (a >> 2) + 2;
+  return Params{a * a, b * b, s * s, kTc0[qp][0], kTc0[qp][1], kTc0[qp][2]};
 }
 
 __device__ __forceinline__ int clip3(int lo, int hi, int x) {
   return min(max(x, lo), hi);
 }
 
-// One luma edge line: p_k = P[-k * st], q_k = Q[k * st], k = 0..3.
-__device__ __forceinline__ void filter_luma(int* P, int* Q, int st, int bs,
+// |a - b| < t as (a - b)^2 < t^2: a multiply-add, where |.| and a compare
+// would both take the integer ALU, which runs at half the warp's rate
+__device__ __forceinline__ bool near(int a, int b, int t2) {
+  return (a - b) * (a - b) < t2;
+}
+
+// One luma edge line p3 p2 p1 p0 | q0 q1 q2 q3 (8.7.2.3, 8.7.2.4),
+// without a branch (& and |, never the short-circuit && and ||): every
+// result is computed, then the filterSamplesFlag, ap / aq and bS select.
+// p1 + Clip3(-tc0, tc0, (p2 + avg - 2 p1) >> 1) is computed as
+// (2 p2 + p0 + q0 + 1) >> 2 clipped to p1 -+ tc0, which takes fewer
+// operations.  Only an MB edge (kMbEdge) can have bS 4: there the bS 4
+// result is computed too.
+template <bool kMbEdge>
+__device__ __forceinline__ void filter_luma(int p3, int& p2, int& p1,
+                                            int& p0, int& q0, int& q1,
+                                            int& q2, int q3, int bs,
                                             const Params& f) {
-  if (bs <= 0) return;
-  const int p0 = P[0], p1 = P[-st], p2 = P[-2 * st], p3 = P[-3 * st];
-  const int q0 = Q[0], q1 = Q[st], q2 = Q[2 * st], q3 = Q[3 * st];
-  if (!(abs(p0 - q0) < f.alpha && abs(p1 - p0) < f.beta &&
-        abs(q1 - q0) < f.beta))
-    return;
-  const bool ap = abs(p2 - p0) < f.beta, aq = abs(q2 - q0) < f.beta;
-  if (bs == 4) {
-    const bool strong = abs(p0 - q0) < ((f.alpha >> 2) + 2);
-    if (ap && strong) {
-      P[0] = (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3;
-      P[-st] = (p2 + p1 + p0 + q0 + 2) >> 2;
-      P[-2 * st] = (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3;
-    } else {
-      P[0] = (2 * p1 + p0 + q1 + 2) >> 2;
-    }
-    if (aq && strong) {
-      Q[0] = (q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3;
-      Q[st] = (q2 + q1 + q0 + p0 + 2) >> 2;
-      Q[2 * st] = (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3;
-    } else {
-      Q[0] = (2 * q1 + q0 + p1 + 2) >> 2;
-    }
+  const bool filt = (bs > 0) & near(p0, q0, f.alpha2) &
+                    near(p1, p0, f.beta2) & near(q1, q0, f.beta2);
+  const bool ap = near(p2, p0, f.beta2), aq = near(q2, q0, f.beta2);
+  const int tc0 = f.tc0(bs), tc = tc0 + ap + aq;
+  const int d = ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3;
+  const int sum = p0 + q0 + 1;
+  const bool fp = filt & ap, fq = filt & aq;
+  const int delta = clip3(-tc, tc, d);
+  const int np0 = clip3(0, 255, p0 + delta);
+  const int nq0 = clip3(0, 255, q0 - delta);
+  const int np1 = clip3(p1 - tc0, p1 + tc0, (2 * p2 + sum) >> 2);
+  const int nq1 = clip3(q1 - tc0, q1 + tc0, (2 * q2 + sum) >> 2);
+  if (!kMbEdge) {
+    p1 = fp ? np1 : p1;
+    p0 = filt ? np0 : p0;
+    q0 = filt ? nq0 : q0;
+    q1 = fq ? nq1 : q1;
     return;
   }
-  const int tc0 = f.tc0(bs);
-  const int tc = tc0 + ap + aq;
-  const int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
-  P[0] = clip3(0, 255, p0 + delta);
-  Q[0] = clip3(0, 255, q0 - delta);
-  const int avg = (p0 + q0 + 1) >> 1;
-  if (ap) P[-st] = p1 + clip3(-tc0, tc0, (p2 + avg - 2 * p1) >> 1);
-  if (aq) Q[st] = q1 + clip3(-tc0, tc0, (q2 + avg - 2 * q1) >> 1);
+  const bool s4 = filt & (bs == 4), strong = near(p0, q0, f.strong2);
+  const bool sp = s4 & ap & strong, sq = s4 & aq & strong;
+  const int o_p2 = sp ? (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3 : p2;
+  const int o_q2 = sq ? (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3 : q2;
+  const int o_p1 = sp ? (p2 + p1 + p0 + q0 + 2) >> 2
+                      : (fp & !s4 ? np1 : p1);
+  const int o_q1 = sq ? (q2 + q1 + q0 + p0 + 2) >> 2
+                      : (fq & !s4 ? nq1 : q1);
+  const int o_p0 = sp     ? (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3
+                   : s4   ? (2 * p1 + p0 + q1 + 2) >> 2
+                   : filt ? np0
+                          : p0;
+  const int o_q0 = sq     ? (q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3
+                   : s4   ? (2 * q1 + q0 + p1 + 2) >> 2
+                   : filt ? nq0
+                          : q0;
+  p2 = o_p2;
+  p1 = o_p1;
+  p0 = o_p0;
+  q0 = o_q0;
+  q1 = o_q1;
+  q2 = o_q2;
 }
 
-// One chroma edge line: p1 p0 | q0 q1.
-__device__ __forceinline__ void filter_chroma(int* P, int* Q, int st,
-                                              int bs, const Params& f) {
-  if (bs <= 0) return;
-  const int p0 = P[0], p1 = P[-st], q0 = Q[0], q1 = Q[st];
-  if (!(abs(p0 - q0) < f.alpha && abs(p1 - p0) < f.beta &&
-        abs(q1 - q0) < f.beta))
-    return;
-  if (bs == 4) {
-    P[0] = (2 * p1 + p0 + q1 + 2) >> 2;
-    Q[0] = (2 * q1 + q0 + p1 + 2) >> 2;
-    return;
-  }
+// One chroma edge line p1 p0 | q0 q1, the same way.
+template <bool kMbEdge>
+__device__ __forceinline__ void filter_chroma(int p1, int& p0, int& q0,
+                                              int q1, int bs,
+                                              const Params& f) {
+  const bool filt = (bs > 0) & near(p0, q0, f.alpha2) &
+                    near(p1, p0, f.beta2) & near(q1, q0, f.beta2);
   const int tc = f.tc0(bs) + 1;
-  const int delta = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
-  P[0] = clip3(0, 255, p0 + delta);
-  Q[0] = clip3(0, 255, q0 - delta);
+  const int d = ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3;
+  const int delta = clip3(-tc, tc, d);
+  const int np0 = clip3(0, 255, p0 + delta);
+  const int nq0 = clip3(0, 255, q0 - delta);
+  const bool s4 = kMbEdge & (bs == 4);
+  const int o_p0 = !filt ? p0 : s4 ? (2 * p1 + p0 + q1 + 2) >> 2 : np0;
+  const int o_q0 = !filt ? q0 : s4 ? (2 * q1 + q0 + p1 + 2) >> 2 : nq0;
+  p0 = o_p0;
+  q0 = o_q0;
 }
 
-// bS of an internal edge between 4x4 blocks a and b of one MB
-__device__ __forceinline__ int bs_internal(const int* sd, int a, int b) {
-  if (sd[16] == 2) return 3;
-  return (sd[a] > 0 || sd[b] > 0) ? 2 : 0;
-}
-
-// bS of the left MB edge at 4-row group by: sp the left MB, sc this one
-__device__ __forceinline__ int bs_left(const int* sp, const int* sc, int by) {
-  if (sc[16] == 2 || sp[16] == 2) return 4;
-  if (sp[4 * by + 3] > 0 || sc[4 * by] > 0) return 2;
-  return (abs(sc[17] - sp[17]) >= 4 || abs(sc[18] - sp[18]) >= 4 ||
-          sc[19] != sp[19])
-             ? 1
-             : 0;
-}
-
-// One MB column's inputs, in flight in registers.
-struct Column {
-  int4 y0, y1;  // luma row t / 2, samples 8 (t & 1) .. + 7
-  int4 c;       // chroma plane t / 16, row (t & 15) / 2, samples 4 (t & 1) ..
-  int side;     // kSide entry t (t < kSide)
+// The kernel's inputs and outputs: lanes = S * R MB rows of C columns.
+struct Args {
+  const int32_t *y, *u, *v, *kind, *mvx, *mvy, *ref, *t8, *nnz;
+  uint8_t *oy, *ou, *ov;
+  int lanes, C;
 };
 
-__device__ __forceinline__ Column load_column(
-    const int32_t* __restrict__ y, const int32_t* __restrict__ u,
-    const int32_t* __restrict__ v, const int32_t* __restrict__ nnz,
-    const int32_t* __restrict__ kind, const int32_t* __restrict__ mvx,
-    const int32_t* __restrict__ mvy, const int32_t* __restrict__ ref,
-    const int32_t* __restrict__ t8, int lane, int C, int col, int t) {
-  const int W = 16 * C, Wc = 8 * C;
-  Column k;
-  const int4* py = reinterpret_cast<const int4*>(
-      y + (size_t)(16 * lane + (t >> 1)) * W + 16 * col + 8 * (t & 1));
-  k.y0 = py[0];
-  k.y1 = py[1];
-  const int32_t* cp = (t < 16) ? u : v;
-  k.c = *reinterpret_cast<const int4*>(
-      cp + (size_t)(8 * lane + ((t & 15) >> 1)) * Wc + 8 * col + 4 * (t & 1));
-  const size_t mb = (size_t)lane * C + col;
-  k.side = 0;
-  if (t < 16) k.side = nnz[16 * mb + t];
-  else if (t == 16) k.side = kind[mb];
-  else if (t == 17) k.side = mvx[mb];
-  else if (t == 18) k.side = mvy[mb];
-  else if (t == 19) k.side = ref ? ref[mb] : 0;
-  else if (t == 20) k.side = t8 ? t8[mb] : 0;
-  return k;
+// One MB's side information as a thread needs it; g is the thread's
+// 4x4-block group (luma row / column r / 4, chroma k / 2).
+struct Side {
+  int kind, mvx, mvy, ref, t8;
+  int row[4];  // nnz[g][0..3]: the blocks along its rows (vertical edges)
+  int col[4];  // nnz[0..3][g]: along its columns (horizontal edges)
+};
+
+__device__ __forceinline__ Side load_side(const Args& a, size_t mb, int g) {
+  Side s;
+  s.kind = a.kind[mb];
+  s.mvx = a.mvx[mb];
+  s.mvy = a.mvy[mb];
+  s.ref = a.ref ? a.ref[mb] : 0;
+  s.t8 = a.t8 ? a.t8[mb] : 0;
+  const int32_t* nz = a.nnz + 16 * mb;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s.row[j] = nz[4 * g + j];
+    s.col[j] = nz[4 * j + g];
+  }
+  return s;
+}
+
+// bS of the left MB edge: p the left MB, c this one
+__device__ __forceinline__ int bs_left(const Side& p, const Side& c) {
+  const int moved = (abs(c.mvx - p.mvx) >= 4) | (abs(c.mvy - p.mvy) >= 4) |
+                    (c.ref != p.ref);
+  const int coded = ((p.row[3] > 0) | (c.row[0] > 0)) ? 2 : moved;
+  return ((c.kind == 2) | (p.kind == 2)) ? 4 : coded;
+}
+
+// bS of an internal edge between 4x4 blocks with counts a and b
+__device__ __forceinline__ int bs_internal(const Side& s, int a, int b) {
+  return s.kind == 2 ? 3 : (((a > 0) | (b > 0)) ? 2 : 0);
 }
 
 __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
@@ -202,121 +257,202 @@ __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
          ((uint32_t)(c & 255) << 16) | ((uint32_t)(d & 255) << 24);
 }
 
-__global__ void __launch_bounds__(32)
-    deblock_rows_kernel(const int32_t* __restrict__ y,
-                        const int32_t* __restrict__ u,
-                        const int32_t* __restrict__ v,
-                        const int32_t* __restrict__ kind,
-                        const int32_t* __restrict__ mvx,
-                        const int32_t* __restrict__ mvy,
-                        const int32_t* __restrict__ ref,
-                        const int32_t* __restrict__ t8,
-                        const int32_t* __restrict__ nnz,
-                        uint8_t* __restrict__ oy, uint8_t* __restrict__ ou,
-                        uint8_t* __restrict__ ov, int C, int qp, int qpc) {
-  __shared__ int L[16 * kLS];
-  __shared__ int Ch[2][8 * kCS];
-  __shared__ int side[2][kSide];
-  const int lane = blockIdx.x;  // s * R + r: its luma rows are 16 lane ..
-  const int t = threadIdx.x;
-  const int W = 16 * C, Wc = 8 * C;
-  const Params fl = params(qp), fc = params(qpc);
-  // this thread's chroma line: plane cp, row / column k
-  const int cp = (t - 16) >> 3, k = (t - 16) & 7;
-  const int ly = t >> 1, lh = t & 1;                  // load / store: luma
-  const int cpl = t >> 4, cy = (t & 15) >> 1;         // and chroma
+// N samples (16 or 8) to dst as uint8, in one store
+template <int N>
+__device__ __forceinline__ void store_row(uint8_t* dst, const int (&m)[N]) {
+  const uint32_t w0 = pack4(m[0], m[1], m[2], m[3]);
+  const uint32_t w1 = pack4(m[4], m[5], m[6], m[7]);
+  if constexpr (N == 16)
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(w0, w1, pack4(m[8], m[9], m[10], m[11]),
+                   pack4(m[12], m[13], m[14], m[15]));
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w0, w1);
+}
 
-  Column next = load_column(y, u, v, nnz, kind, mvx, mvy, ref, t8, lane, C,
-                            0, t);
-  for (int col = 0; col < C; ++col) {
-    const int cs = col & 1, ps = cs ^ 1;
-    {  // column col -> slot cs
-      int* lr = L + ly * kLS + 16 * cs + 8 * lh;
-      lr[0] = next.y0.x; lr[1] = next.y0.y; lr[2] = next.y0.z;
-      lr[3] = next.y0.w; lr[4] = next.y1.x; lr[5] = next.y1.y;
-      lr[6] = next.y1.z; lr[7] = next.y1.w;
-      int* cr = Ch[cpl] + cy * kCS + 8 * cs + 4 * lh;
-      cr[0] = next.c.x; cr[1] = next.c.y; cr[2] = next.c.z; cr[3] = next.c.w;
-      if (t < kSide) side[cs][t] = next.side;
-    }
-    __syncwarp();
-    if (col + 1 < C)
-      next = load_column(y, u, v, nnz, kind, mvx, mvy, ref, t8, lane, C,
-                         col + 1, t);
-    const int* sc = side[cs];
-    const bool tf = sc[20] == 1;
-
-    if (col > 0) {
-      // ---- the left MB edge (MB col - 1 | MB col) ----
-      const int* sp = side[ps];
-      if (t < 16) {
-        int* row = L + t * kLS;
-        filter_luma(row + 16 * ps + 15, row + 16 * cs, 1,
-                    bs_left(sp, sc, t >> 2), fl);
-      } else {
-        int* row = Ch[cp] + k * kCS;
-        filter_chroma(row + 8 * ps + 7, row + 8 * cs, 1,
-                      bs_left(sp, sc, k >> 1), fc);
-      }
-      __syncwarp();
-      // MB col - 1 is final: out as uint8
-      const int* lr = L + ly * kLS + 16 * ps + 8 * lh;
-      *reinterpret_cast<uint2*>(oy + (size_t)(16 * lane + ly) * W +
-                                16 * (col - 1) + 8 * lh) =
-          make_uint2(pack4(lr[0], lr[1], lr[2], lr[3]),
-                     pack4(lr[4], lr[5], lr[6], lr[7]));
-      const int* cr = Ch[cpl] + cy * kCS + 8 * ps + 4 * lh;
-      *reinterpret_cast<uint32_t*>((cpl ? ov : ou) +
-                                   (size_t)(8 * lane + cy) * Wc +
-                                   8 * (col - 1) + 4 * lh) =
-          pack4(cr[0], cr[1], cr[2], cr[3]);
-    }
-
-    // ---- internal vertical edges x = 4, 8, 12 (chroma x = 4) ----
+// N int32 samples (N / 4 int4) from src into m
+template <int N>
+__device__ __forceinline__ void load_row(int4 (&m)[N / 4],
+                                         const int32_t* src) {
 #pragma unroll
-    for (int bx = 1; bx <= 3; ++bx) {
-      if (t < 16) {
-        const int by = t >> 2;
-        int bs = bs_internal(sc, 4 * by + bx - 1, 4 * by + bx);
-        if (bx != 2 && tf) bs = 0;
-        int* e = L + t * kLS + 16 * cs + 4 * bx;
-        filter_luma(e - 1, e, 1, bs, fl);
-      } else if (bx == 1) {
-        const int by = k >> 1;
-        int* e = Ch[cp] + k * kCS + 8 * cs + 4;
-        filter_chroma(e - 1, e, 1, bs_internal(sc, 4 * by + 1, 4 * by + 2),
-                      fc);
-      }
-      __syncwarp();
-    }
-    // ---- internal horizontal edges y = 4, 8, 12 (chroma y = 4) ----
+  for (int j = 0; j < N / 4; ++j) m[j] = reinterpret_cast<const int4*>(src)[j];
+}
+
+template <int N>
+__device__ __forceinline__ void unpack_row(int (&m)[N],
+                                           const int4 (&w)[N / 4]) {
 #pragma unroll
-    for (int by = 1; by <= 3; ++by) {
-      if (t < 16) {
-        const int bx = t >> 2;
-        int bs = bs_internal(sc, 4 * (by - 1) + bx, 4 * by + bx);
-        if (by != 2 && tf) bs = 0;
-        int* e = L + 4 * by * kLS + 16 * cs + t;
-        filter_luma(e - kLS, e, kLS, bs, fl);
-      } else if (by == 1) {
-        const int bx = k >> 1;
-        int* e = Ch[cp] + 4 * kCS + 8 * cs + k;
-        filter_chroma(e - kCS, e, kCS, bs_internal(sc, 4 + bx, 8 + bx), fc);
-      }
-      __syncwarp();
-    }
+  for (int j = 0; j < N / 4; ++j) {
+    m[4 * j] = w[j].x;
+    m[4 * j + 1] = w[j].y;
+    m[4 * j + 2] = w[j].z;
+    m[4 * j + 3] = w[j].w;
   }
-  // the last MB of the lane
-  const int ls = (C - 1) & 1;
-  const int* lr = L + ly * kLS + 16 * ls + 8 * lh;
-  *reinterpret_cast<uint2*>(oy + (size_t)(16 * lane + ly) * W +
-                            16 * (C - 1) + 8 * lh) =
-      make_uint2(pack4(lr[0], lr[1], lr[2], lr[3]),
-                 pack4(lr[4], lr[5], lr[6], lr[7]));
-  const int* cr = Ch[cpl] + cy * kCS + 8 * ls + 4 * lh;
-  *reinterpret_cast<uint32_t*>((cpl ? ov : ou) + (size_t)(8 * lane + cy) * Wc +
-                               8 * (C - 1) + 4 * lh) =
-      pack4(cr[0], cr[1], cr[2], cr[3]);
+}
+
+// Exchange 1: thread i writes its row i of an N x N block (row stride
+// S), then reads column i into m.  Exchange 2 writes column i of m and
+// reads row i into row.
+template <int N, int S>
+__device__ __forceinline__ void rows_to_cols(int (&m)[N], int* buf, int i) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    reinterpret_cast<int4*>(buf + i * S)[j] =
+        make_int4(m[4 * j], m[4 * j + 1], m[4 * j + 2], m[4 * j + 3]);
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < N; ++k) m[k] = buf[k * S + i];
+}
+
+template <int N, int S>
+__device__ __forceinline__ void cols_to_rows(const int (&m)[N], int (&row)[N],
+                                             int* buf, int i) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) buf[k * S + i] = m[k];
+  __syncwarp();
+  int4 w[N / 4];
+  load_row<N>(w, buf + i * S);
+  unpack_row<N>(row, w);
+}
+
+// One thread's line through a lane: its row of every MB (N = 16 luma,
+// 8 chroma), the side information's group g, its exchange buffer and
+// its row / column index i there.
+struct Line {
+  const int32_t* src;
+  uint8_t* dst;
+  size_t mb0;  // the lane's first MB
+  int g, i;
+  int* buf;
+  bool valid;  // false: a missing lane's stand-in, which stores nothing
+};
+
+// One column's inputs in flight: the line's N samples and its side
+// information.
+template <int N>
+struct In {
+  int4 s[N / 4];
+  Side sd;
+};
+
+// a hint that brings p's line into L2 (nothing where the source runs on
+// the CPU, in tests/test_torch_deblock.py)
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void load_in(In<N>& in, const Args& a,
+                                        const Line& l, int col) {
+  load_row<N>(in.s, l.src + N * col);
+  in.sd = load_side(a, l.mb0 + col, l.g);
+}
+
+// MB column col of the line, from `in`, which then takes column col + 2
+// (the last column again at the end) while column col + 4's rows go to
+// L2.  prev holds the line's row of the MB to the left and ps its side
+// information; both become this MB's.
+template <int N>
+__device__ __forceinline__ void column(In<N>& in, int col, const Args& a,
+                                       const Line& l, int (&prev)[N],
+                                       Side& ps, const Params& f) {
+  int m[N];
+  unpack_row<N>(m, in.s);
+  const Side cs = in.sd;
+  load_in<N>(in, a, l, min(col + 2, a.C - 1));
+  const int pc = min(col + 4, a.C - 1);
+  prefetch_l2(l.src + N * pc);
+  prefetch_l2(a.nnz + 16 * (l.mb0 + pc) + l.g);
+
+  // the bS of the line's edges, from the side information alone
+  const int bl = col > 0 ? bs_left(ps, cs) : 0;
+  if constexpr (N == 16) {
+    const bool t8 = cs.t8 == 1;  // 8x8 transform: no edges 4 and 12
+    int bv[3], bh[3];
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      bv[e] = t8 & (e != 1) ? 0 : bs_internal(cs, cs.row[e], cs.row[e + 1]);
+      bh[e] = t8 & (e != 1) ? 0 : bs_internal(cs, cs.col[e], cs.col[e + 1]);
+    }
+    // the left MB edge; then the left MB's row is final (in column 0 a
+    // dummy row, which column 1 or the last store overwrites)
+    filter_luma<true>(prev[12], prev[13], prev[14], prev[15], m[0], m[1],
+                      m[2], m[3], bl, f);
+    if (l.valid) store_row<16>(l.dst + 16 * max(col - 1, 0), prev);
+    // internal vertical edges x = 4, 8, 12, then on column i horizontal
+    // edges y = 4, 8, 12
+#pragma unroll
+    for (int x = 4; x < 16; x += 4)
+      filter_luma<false>(m[x - 4], m[x - 3], m[x - 2], m[x - 1], m[x],
+                         m[x + 1], m[x + 2], m[x + 3], bv[x / 4 - 1], f);
+    rows_to_cols<16, kLS>(m, l.buf, l.i);
+#pragma unroll
+    for (int y = 4; y < 16; y += 4)
+      filter_luma<false>(m[y - 4], m[y - 3], m[y - 2], m[y - 1], m[y],
+                         m[y + 1], m[y + 2], m[y + 3], bh[y / 4 - 1], f);
+    cols_to_rows<16, kLS>(m, prev, l.buf, l.i);
+  } else {
+    // luma group g's bS: left edge, edge 8 each way (never t8-masked)
+    const int bv = bs_internal(cs, cs.row[1], cs.row[2]);
+    const int bh = bs_internal(cs, cs.col[1], cs.col[2]);
+    filter_chroma<true>(prev[6], prev[7], m[0], m[1], bl, f);
+    if (l.valid) store_row<8>(l.dst + 8 * max(col - 1, 0), prev);
+    filter_chroma<false>(m[2], m[3], m[4], m[5], bv, f);
+    rows_to_cols<8, kCS>(m, l.buf, l.i);
+    filter_chroma<false>(m[2], m[3], m[4], m[5], bh, f);
+    cols_to_rows<8, kCS>(m, prev, l.buf, l.i);
+  }
+  ps = cs;
+}
+
+// The line through all C columns.  Two input slots alternate (even
+// columns in A, odd in B), so each load lands in the registers the
+// column two back has just left and no value is copied.
+template <int N>
+__device__ __forceinline__ void lane_line(const Args& a, const Line& l,
+                                          const Params& f) {
+  const int C = a.C;
+  In<N> A, B;
+  load_in<N>(A, a, l, 0);
+  load_in<N>(B, a, l, min(1, C - 1));
+  int prev[N] = {};
+  Side ps = A.sd;
+  for (int col = 0;; col += 2) {
+    column<N>(A, col, a, l, prev, ps, f);
+    if (col + 1 == C) break;
+    column<N>(B, col + 1, a, l, prev, ps, f);
+    if (col + 2 == C) break;
+  }
+  if (l.valid) store_row<N>(l.dst + N * (C - 1), prev);  // the last MB
+}
+
+// Block b: lanes 2b and 2b + 1 (a missing second lane recomputes the
+// last one and stores nothing).  Warp 0 luma: thread 16 h + r is row r
+// of lane 2b + h.  Warp 1 chroma: thread 16 h + 8 p + k is row k of
+// plane p (U, V) of lane 2b + h.
+__global__ void __launch_bounds__(64)
+    deblock_rows_kernel(Args a, int qp, int qpc) {
+  __shared__ __align__(16) int L[2 * kLLane];
+  __shared__ __align__(16) int Ch[4 * kCPlane];
+  const int t = threadIdx.x & 31, h = t >> 4;
+  const int lane = 2 * blockIdx.x + h;
+  const bool valid = lane < a.lanes;
+  const int at = valid ? lane : a.lanes - 1;
+  const size_t mb0 = (size_t)at * a.C;
+  if (threadIdx.x < 32) {
+    const int r = t & 15;
+    const size_t row = (size_t)(16 * at + r) * 16 * a.C;
+    lane_line<16>(a, Line{a.y + row, a.oy + row, mb0, r >> 2, r,
+                          L + h * kLLane, valid}, params(qp));
+  } else {
+    const int p = (t >> 3) & 1, k = t & 7;
+    const size_t row = (size_t)(8 * at + k) * 8 * a.C;
+    lane_line<8>(a, Line{(p ? a.v : a.u) + row, (p ? a.ov : a.ou) + row,
+                         mb0, k >> 1, k, Ch + (t >> 3) * kCPlane, valid},
+                 params(qpc));
+  }
 }
 
 }  // namespace
@@ -331,8 +467,9 @@ extern "C" int th264_deblock_rows(
     const int32_t* ref, const int32_t* t8, const int32_t* nnz, uint8_t* oy,
     uint8_t* ou, uint8_t* ov, int lanes, int C, int qp, int qpc,
     void* stream) {
-  deblock_rows_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(
-      y, u, v, kind, mvx, mvy, ref, t8, nnz, oy, ou, ov, C, qp, qpc);
+  const Args a{y, u, v, kind, mvx, mvy, ref, t8, nnz, oy, ou, ov, lanes, C};
+  deblock_rows_kernel<<<(lanes + 1) / 2, 64, 0, (cudaStream_t)stream>>>(
+      a, qp, qpc);
   return (int)cudaGetLastError();
 }
 

@@ -2,12 +2,14 @@
 CUDA kernel, plus its plain PyTorch version.
 
 Port of tpuh264/kernels/deblock.py `deblock_frame_rows` (a jax.lax.scan
-over MB columns).  The kernel (csrc/deblock.cu) runs one MB row a warp
-and walks its columns in order.  The plain version, `_deblock_rows_plain`,
-is a Python loop over MB columns, batched over [S, R]: each step filters
-the vertical MB-boundary edge against the previous MB (modifying its
-last columns -- the normative order), then the current MB's internal
-vertical edges, then its internal horizontal edges.  With idc=2 and row
+over MB columns).  The kernel (csrc/deblock.cu) runs two MB rows a
+block, one warp for their luma lines and one for their chroma, and walks
+the columns in order with the lines in registers.  The plain version,
+`_deblock_rows_plain`, is a Python loop over MB columns, batched over
+[S, R]: each step filters the vertical MB-boundary edge against the
+previous MB (modifying its last columns -- the normative order), then
+the current MB's internal vertical edges, then its internal horizontal
+edges.  With idc=2 and row
 slices the horizontal MB-boundary edges sit on slice boundaries and are
 not filtered, which keeps rows independent.  tc0 is a table gather by
 bS (the JAX version's select chain was a TPU workaround).  The first
