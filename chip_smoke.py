@@ -11,9 +11,11 @@ tpuh264_torch/csrc, then:
      port's two libraries: the CUDA kernels (nvcc) and the host CAVLC
      engine (g++, a copy of native/cavlc.cpp);
   2. holds K1 (stage-A SAD table), K2 (CAVLC block pack), K3 (bit-
-     string merge) and K4 (D1, the in-loop deblock) against their plain
+     string merge), K4 (D1, the in-loop deblock) and K5 (D2, the
+     decoders' intra-reconstruction column scan) against their plain
      PyTorch versions on the card (exact equality) at the main path's
-     1920x1080 x 4 shapes (K4: an encoded I frame and P frame), K3 at its
+     1920x1080 x 4 shapes (K4: an encoded I frame and P frame; K5: the
+     decoders' own inputs of that P frame and of its IDR), K3 at its
      MB level (27 chunks -> 128 words) and its slice level (K = 123
      strings -> 8192 words), with the winner selection's first-index ties
      on the card; all three again on seeded edge cases (K1: samples 0 and
@@ -26,7 +28,11 @@ tpuh264_torch/csrc, then:
      K = 57); K4 on seeded edge cases (`d1_case`: C = 1, odd S / R / C,
      an even C of 16, MV steps 3 / 4 / 5, refidx 0..3, random t8,
      all-intra, qp 0 .. 51) and on config-3 symbols (the 8x8 transform,
-     intra-in-P) at 854x480 x 8; times each kernel beside its plain
+     intra-in-P) at 854x480 x 8; K5 on seeded cases (`d2_case`: C = 1,
+     2, 3 and 61, intra shares 0 / ~1% / 50% / 100% and the I decode, DC
+     and H mixes, clips at 0 and 255) and on a default-config (intra-in-P)
+     P frame of "meeting" at 854x480 x 8, intra MBs required; times each
+     kernel beside its plain
      version (CUDA events, after a warm-up) and against its bound (the
      bytes it must move over the card's 3.35 TB/s), K4 also in cycles a
      MB column at the SM clock read under load, and one fenced
@@ -48,7 +54,8 @@ tpuh264_torch/csrc, then:
      (crossing an IDR): after every dispatch the decode-from-bits DPB
      equals the encoder DPB bit for bit (both sides deblock with K4), K3
      launched twice (MB and slice level) per entropy call: 4 times per
-     IDR dispatch, 2 per interior one, and K4 8 times per dispatch;
+     IDR dispatch, 2 per interior one, K4 8 times per dispatch and K5
+     4 times (once a decoded frame, the IDR's included);
   5. runs `run()` briefly at that configuration and at 854x480 x 8 streams
      at 1 Mbps and prints aggregate fps, the stage split, PSNR and QP;
   6. the reference's operating point with the default CodecConfig
@@ -123,9 +130,11 @@ tpuh264_torch/csrc, then:
 Every path of phases 4 and 6-16 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
 launched every kernel it runs (phase 12 and the general stream have no
-P frame on the fast path, so none; the deblock runs on every GOP
-pipeline and on the sessions with `deblock=True`), and none may reach
-the plain version of K1, K3 or K4.  Encoder DPB == decoder DPB does not
+P frame on the fast path, so no K1; the deblock runs on every GOP
+pipeline and on the sessions with `deblock=True`; K5 on every path that
+decodes but the wavefront's, phase 16(a)'s halo decodes too), and none
+may reach the plain version of K1, K3, K4 or K5 (K5's plain version
+with `i44`, the Intra_4x4 reconstruction, is the session path's own).  Encoder DPB == decoder DPB does not
 check K4 (both sides run it): phase 14's gate against the oracle and
 phase 15's golden decode do.  No session of the engine's own streams (phases
 11-13 and 15) may leave the fast path for the golden decoder.
@@ -209,32 +218,47 @@ def max_abs_err(x, y) -> int:
     return int((x.long() - y.long()).abs().max().item()) if x.numel() else 0
 
 
+def _plain_spy(name, f, calls):
+    """`f` counting its calls into `calls`; K5's plain version only where
+    it is called without `i44` (with it, it is the Intra_4x4 path's own
+    reconstruction, D5's work)."""
+    def call(*a, **kw):
+        i44 = kw.get("i44", a[5] if len(a) > 5 else None)
+        if name != "_intra_recon_scan_plain" or i44 is None:
+            calls.append(1)
+        return f(*a, **kw)
+    return call
+
+
 class Launches:
-    """The four wrappers' launch counts (K1, K2, K3, K4 = the deblock D1),
-    zeroed before and read after each path the smoke drives; summed over
-    those paths for the kernel table.  The plain versions of K1
-    (`_sad_field`), K3 (`tree_merge`) and K4 (`_deblock_rows_plain`) are
-    counted too: none may run on a path."""
+    """The five wrappers' launch counts (K1, K2, K3, K4 = the deblock D1,
+    K5 = the intra reconstruction D2), zeroed before and read after each
+    path the smoke drives; summed over those paths for the kernel table.
+    The plain versions of K1 (`_sad_field`), K3 (`tree_merge`), K4
+    (`_deblock_rows_plain`) and K5 (`_intra_recon_scan_plain` without
+    `i44`; with it, the Intra_4x4 reconstruction, it is the path's own)
+    are counted too: none may run on a path."""
 
     def __init__(self):
-        from tpuh264_torch.kernels import cavlc_cuda, deblock, me_cuda
+        from tpuh264_torch.kernels import cavlc_cuda, deblock, iframe, me_cuda
 
         self.fns = (me_cuda.sad_field, cavlc_cuda.pack_blocks,
-                    cavlc_cuda.merge_tree, deblock.deblock_frame_rows)
-        self.total = [0, 0, 0, 0]
+                    cavlc_cuda.merge_tree, deblock.deblock_frame_rows,
+                    iframe._intra_recon_scan)
+        self.total = [0] * len(self.fns)
 
-    def path(self, name, fn, needs=(0, 1, 2, 3)):
-        from tpuh264_torch.kernels import cavlc_cuda, deblock, me_cuda
+    def path(self, name, fn, needs=(0, 1, 2, 3, 4)):
+        from tpuh264_torch.kernels import cavlc_cuda, deblock, iframe, me_cuda
 
         for f in self.fns:
             f.launches = 0
         plains = [(me_cuda, "_sad_field"), (cavlc_cuda, "tree_merge"),
-                  (deblock, "_deblock_rows_plain")]
+                  (deblock, "_deblock_rows_plain"),
+                  (iframe, "_intra_recon_scan_plain")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
         for (m, a), f, c in zip(plains, saved, calls):
-            setattr(m, a, lambda *x, f=f, c=c, **kw: (c.append(1)
-                                                       or f(*x, **kw)))
+            setattr(m, a, _plain_spy(a, f, c))
         try:
             out = fn()
         finally:
@@ -245,13 +269,14 @@ class Launches:
             self.total[i] += n
         plain = [len(c) for c in calls]
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
-              f"K3 {counts[2]}, K4 (deblock) {counts[3]}; plain K1 calls "
-              f"{plain[0]}, plain K3 calls {plain[1]}, plain K4 calls "
-              f"{plain[2]}")
+              f"K3 {counts[2]}, K4 (deblock) {counts[3]}, K5 (intra "
+              f"recon) {counts[4]}; plain calls K1 {plain[0]}, K3 "
+              f"{plain[1]}, K4 {plain[2]}, K5 without i44 {plain[3]}")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
         if any(plain):
-            fail(f"{name}: a plain version ran (K1, K3, K4: {plain} times)")
+            fail(f"{name}: a plain version ran (K1, K3, K4, K5: {plain} "
+                 f"times)")
         return out, counts
 
 
@@ -262,6 +287,7 @@ NO_LIBRARY = {
     "K2": "no PyTorch call encodes CAVLC",
     "K3": "no PyTorch call concatenates variable-length bit strings",
     "K4": "no PyTorch call runs the H.264 deblocking filter",
+    "K5": "no PyTorch call runs H.264 intra prediction",
 }
 
 
@@ -643,20 +669,22 @@ def pframe_1080p(dev, torch):
     return y, u, v, sym, rec, mot
 
 
-def t8_pframe_480p(dev, torch):
-    """Config-3 symbols at 854x480 x 8 (864 wide), QP 30: the "meeting"
-    clip, an I frame, then a P frame with the 8x8 transform and
-    intra-in-P against its deblocked recon: the I recon, the P symbols,
-    recon and motion."""
+def pframe_480p(dev, torch, t8, gap=1):
+    """A 854x480 x 8 (864 wide) P frame at QP 30: the "meeting" clip, an I
+    frame, then the clip's frame `gap` frames on as a P frame with
+    intra-in-P (the CodecConfig default) and, where `t8`, the 8x8
+    transform (config 3's symbols) against the I frame's deblocked recon:
+    the I recon, the references, the P symbols, recon and motion."""
     from tpuh264_torch.kernels import deblock, iframe, pframe
 
-    f0, f1 = ([torch.from_numpy(p).to(dev) for p in f]
-              for f in clip_streams(864, 480, 2, 8))
+    clip = clip_streams(864, 480, gap + 1, 8)
+    f0, f1 = ([torch.from_numpy(p).to(dev) for p in clip[t]]
+              for t in (0, gap))
     _, rec_i = iframe.encode_iframe_rows(*f0, 30)
     refs = [p.to(torch.int32)[None] for p in deblock.deblock_i(rec_i, 30)]
-    sym, rec, mot = pframe.encode_pframe_rows_multi(*f1, *refs, 30, t8=True,
+    sym, rec, mot = pframe.encode_pframe_rows_multi(*f1, *refs, 30, t8=t8,
                                                     intra_in_p=True)
-    return rec_i, sym, rec, mot
+    return rec_i, refs, sym, rec, mot
 
 
 def d1_edges(dev, torch, np):
@@ -675,8 +703,8 @@ def d1_edges(dev, torch, np):
 
 
 def d1_t8_480p(dev, torch, mhz, card):
-    """D1 on `t8_pframe_480p`'s I frame and t8 P frame; t8 MBs required."""
-    rec_i, sym, rec, mot = t8_pframe_480p(dev, torch)
+    """D1 on `pframe_480p`'s I frame and t8 P frame; t8 MBs required."""
+    rec_i, _, sym, rec, mot = pframe_480p(dev, torch, t8=True)
     d1_equal(*d1_args(torch, rec_i, 30), torch, "480p x 8 I frame")
     n8 = int((sym.t8 == 1).sum())
     if n8 == 0:
@@ -691,10 +719,211 @@ def d1_t8_480p(dev, torch, mhz, card):
           f"{r['cycles_col']:.0f} cycles a MB column at {mhz} MHz [{card}]")
 
 
+# (S, R, C): C = 1, 2 and 3, and a long lane (C = 61, odd: past the
+# kernel's ring of 8 columns in flight and its 32-column flag windows);
+# S and R from 1 to 4
+D2_SHAPES = ((1, 1, 1), (4, 3, 1), (2, 4, 2), (3, 2, 3), (2, 2, 61))
+# intra shares 0, ~1% (at least one MB), 50% and 100% beside `other`, and
+# the I decode (no `other`: every MB intra)
+D2_SHARE = {"inter": 0.0, "sparse": 0.01, "half": 0.5, "intra": 1.0,
+            "iframe": 1.0}
+D2_VARIANTS = tuple(D2_SHARE)
+D2_QP = 32
+D2_CASES = [(shape, variant) for shape in D2_SHAPES
+            for variant in D2_VARIANTS]
+
+
+def d2_case(np, shape, variant):
+    """Seeded D2 inputs (numpy): (symbols, other, refs, qp).  `symbols`
+    holds the P-slice symbol fields (kernels/pframe.py MBSymbolsP's names
+    and layout), the MB kinds by the variant's intra share (the others
+    skip or inter).  Intra MBs take legal modes only: column 0 DC (mode 2,
+    cmode 0), later columns DC or H at random, luma and chroma apart.
+    Luma and chroma DC levels up to +-40 at QP 32 drive prediction +
+    residual past 0 and past 255.  `other` is [S,R,C,16,16], [S,R,C,8,8]
+    x 2 random samples (what the intra scan takes for the other MBs);
+    `refs` one reference [1,S,H,W] x 3 for the whole P decode, and inter
+    MBs' MVs within +-6 pels.  Both None for "iframe" (the I decode)."""
+    s, r, c = shape
+    rng = np.random.default_rng([s, r, c, D2_VARIANTS.index(variant)])
+    mb = (s, r, c)
+    intra = rng.random(mb) < D2_SHARE[variant]
+    if variant == "sparse" and not intra.any():
+        intra[tuple(int(rng.integers(0, n)) for n in mb)] = True
+    kind = np.where(intra, 2, rng.integers(0, 2, mb))
+    first = np.arange(c) == 0
+    mode = np.where(intra, np.where(first, 2, rng.choice([1, 2], mb)), 0)
+    cmode = np.where(intra, np.where(first, 0, rng.integers(0, 2, mb)), 0)
+    cbp_luma = np.where(intra, rng.integers(0, 2, mb),
+                        np.where(kind == 1, rng.integers(0, 16, mb), 0))
+    cbp_chroma = np.where(kind == 0, 0, rng.integers(0, 3, mb))
+    # quarter-pel MVs; an inter MB's mvd is its MV less its left
+    # neighbour's (0 where that one is not inter: the decoder's chain)
+    mvd = []
+    for _ in range(2):
+        mv = np.where(kind == 1, rng.integers(-24, 25, mb), 0)
+        mvd.append(np.where(kind == 1, mv - np.concatenate(
+            [np.zeros((s, r, 1), mv.dtype), mv[..., :-1]], -1), 0))
+
+    def levels(sh, amp, zero):
+        x = rng.integers(-amp, amp + 1, sh)
+        x[rng.random(sh) < zero] = 0
+        return x.astype(np.int16)
+
+    i32 = lambda x: x.astype(np.int32)
+    sym = dict(kind=i32(kind), mode=i32(mode), cmode=i32(cmode),
+               cbp_luma=i32(cbp_luma), cbp_chroma=i32(cbp_chroma),
+               mvdx=i32(mvd[0]), mvdy=i32(mvd[1]),
+               luma_dc=levels((*mb, 16), 40, 0.5),
+               luma_ac=levels((*mb, 16, 16), 6, 0.8),
+               chroma_dc=levels((*mb, 2, 4), 30, 0.5),
+               chroma_ac=levels((*mb, 2, 4, 15), 6, 0.8),
+               refidx=np.zeros(mb, np.int32))
+    if variant == "iframe":
+        return sym, None, None, D2_QP
+    other = tuple(i32(rng.integers(0, 256, (*mb, n, n))) for n in (16, 8, 8))
+    refs = tuple(i32(rng.integers(0, 256, (1, s, n * r, n * c)))
+                 for n in (16, 8, 8))
+    return sym, other, refs, D2_QP
+
+
+def d2_args(torch, case, dev):
+    """`_intra_recon_scan`'s arguments (a dict) for a `d2_case` result on
+    `dev`: the residuals from the port's `_intra_residuals`, `other` and
+    is_intra (kind == 2) where the case has them."""
+    import types
+
+    from tpuh264_torch.kernels import iframe
+    from tpuh264_torch.kernels.transform import chroma_qp_from_luma
+
+    sym, other, _, qp = case
+    t = types.SimpleNamespace(**{k: torch.as_tensor(v, device=dev)
+                                 for k, v in sym.items()})
+    res = iframe._intra_residuals(t, qp, chroma_qp_from_luma(qp))
+    if other is None:
+        return dict(mode=t.mode, cmode=t.cmode, res=res)
+    return dict(mode=t.mode, cmode=t.cmode, res=res,
+                other=tuple(torch.as_tensor(p, device=dev) for p in other),
+                is_intra=t.kind == 2)
+
+
+def d2_capture(fn):
+    """The arguments (dicts) of the `_intra_recon_scan` calls that `fn()`
+    makes: the decoders' own inputs of the scan."""
+    import inspect
+
+    from tpuh264_torch.kernels import iframe, pframe
+
+    real = iframe._intra_recon_scan
+    sig = inspect.signature(real)
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(dict(sig.bind(*a, **kw).arguments))
+        return real(*a, **kw)
+
+    # the router counts its launches on the function its module names
+    spy.launches = real.launches
+    iframe._intra_recon_scan = pframe._intra_recon_scan = spy
+    try:
+        fn()
+    finally:
+        iframe._intra_recon_scan = pframe._intra_recon_scan = real
+        real.launches = spy.launches
+    return calls
+
+
+def k5_bytes(kw) -> int:
+    """D2: mode, cmode and is_intra in (int32), then per MB one 1,536-byte
+    input -- its residuals where intra, `other` elsewhere: the result
+    depends on nothing else -- and its 1,536 bytes of int32 output."""
+    n = kw["mode"].numel()
+    flags = 2 + (kw.get("is_intra") is not None)
+    return n * (4 * flags + 2 * 1536)
+
+
+def d2_equal(kw, torch, what) -> int:
+    """D2 against its plain version on one input; fails unless equal."""
+    from tpuh264_torch.kernels import iframe
+
+    k = iframe._intra_recon_scan(**kw)
+    p = iframe._intra_recon_scan_plain(**kw)
+    torch.cuda.synchronize()
+    if not all(a.dtype == torch.int32 and torch.equal(a, b)
+               for a, b in zip(k, p)):
+        fail(f"D2 _intra_recon_scan differs from its plain version ({what})")
+    return max(max_abs_err(a, b) for a, b in zip(k, p))
+
+
+def d2_timed(kw, torch, what, card):
+    """D2 equal to its plain version on `kw`, timed beside it: a line, and
+    (max_abs_err, kernel ms, plain ms)."""
+    from tpuh264_torch.kernels import iframe
+
+    err = d2_equal(kw, torch, what)
+    ms = timed(lambda: iframe._intra_recon_scan(**kw), 20)
+    plain = timed(lambda: iframe._intra_recon_scan_plain(**kw), 1)
+    bound = bound_ms(k5_bytes(kw))
+    mode = kw["mode"]
+    n_intra = (mode.numel() if kw.get("is_intra") is None
+               else int(kw["is_intra"].sum()))
+    print(f"phase 2: K5 (D2) {what} ({list(mode.shape)}, {n_intra} of "
+          f"{mode.numel()} MBs intra): equal to plain (max_abs_err {err}); "
+          f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms "
+          f"(bytes, {k5_bytes(kw) / 1e6:.1f} MB): "
+          f"{100 * bound / ms:.1f}% of the bound [{card}]")
+    return err, ms, plain
+
+
+def d2_edges(dev, torch, np):
+    """D2 on the seeded cases of `d2_case` (every D2_CASES entry)."""
+    for case in D2_CASES:
+        d2_equal(d2_args(torch, d2_case(np, *case), dev), torch,
+                 f"edge case {case}")
+    print(f"phase 2: K5 (D2) edge cases, {len(D2_CASES)}: (S, R, C) "
+          f"{list(D2_SHAPES)} x {list(D2_VARIANTS)} (intra shares 0, ~1%, "
+          f"50%, 100%, and the I decode; DC / H mixes, clips at 0 and 255): "
+          f"equal to plain")
+
+
+def d2_rows(dev, torch, np, card, frames):
+    """K5 (D2) against its plain version on the decoders' own inputs: the
+    1080p x 4 P frame and IDR (`frames`: y, u, v, P symbols, I symbols)
+    and the 480p x 8 default-config P frame (intra MBs required), and on
+    the D2 cases; the 1080p P frame's row of the kernel table."""
+    from tpuh264_torch.kernels import iframe, pframe
+
+    y, u, v, sym, sym_i = frames
+    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    p1080, = d2_capture(lambda: pframe.decode_pframe_rows_multi(
+        sym, *refs, 30))
+    err, ms, plain = d2_timed(p1080, torch, "1080p x 4 P frame", card)
+    row = kernel_row(
+        "K5", "_intra_recon_scan (D2, intra-reconstruction column scan)",
+        "tpuh264_torch/csrc/intra_recon.cu",
+        "tpuh264/kernels/pframe.py:1167", err, ms, plain, k5_bytes(p1080))
+    del p1080
+    idr, = d2_capture(lambda: iframe.decode_iframe_scan(sym_i, 30))
+    d2_timed(idr, torch, "1080p x 4 IDR (decode_iframe_scan)", card)
+    del idr
+    # 8 frames on (as after dropped capture frames): 63 intra MBs in 11
+    # of the 54 columns on the card (1 frame on: none)
+    _, refs, sym, _, _ = pframe_480p(dev, torch, t8=False, gap=8)
+    if not (sym.kind == 2).any():
+        fail("D2 480p x 8: the default config coded no intra MB")
+    p480, = d2_capture(lambda: pframe.decode_pframe_rows_multi(
+        sym, *refs, 30))
+    d2_timed(p480, torch, "480p x 8 'meeting' intra-in-P P frame, 8 "
+             "frames on", card)
+    del p480
+    d2_edges(dev, torch, np)
+    return row
+
+
 def phase_kernels(dev, torch, np, card):
-    """Phase 2: K1/K2/K3/K4 against their plain versions at 1080p x 4 and
-    on edge cases, K2/K3 on intra-in-P symbols and K4 on t8 symbols at 480p
-    x 8; K3 at its MB and slice levels."""
+    """Phase 2: K1-K5 against their plain versions at 1080p x 4 and on
+    edge cases, K2/K3 on intra-in-P symbols, K4 on t8 symbols and K5 on
+    default-config symbols at 480p x 8; K3 at its MB and slice levels."""
     from tpuh264_torch.engine.sources import device_source_gop
     from tpuh264_torch.kernels import iframe, me_cuda, pframe
 
@@ -735,7 +964,7 @@ def phase_kernels(dev, torch, np, card):
     rows += k23_rows(sym4, torch, "1080p x 4 P symbols x 4 frames")
     # K4 (D1): an encoded I frame and P frame at 1080p x 4, the P frame's
     # row in the kernel table, with its cycles a MB column
-    _, rec_i = iframe.encode_iframe_rows(y[0], u[0], v[0], 30)
+    sym_i, rec_i = iframe.encode_iframe_rows(y[0], u[0], v[0], 30)
     d1_equal(*d1_args(torch, rec_i, 30), torch, "1080p x 4 I frame")
     del rec_i
     mhz = busy_sm_clock()
@@ -744,11 +973,13 @@ def phase_kernels(dev, torch, np, card):
     rows.append(d1_row(*d1_args(torch, rec_p, 30, sym, mot), torch,
                        "1080p x 4 P frame", mhz))
     del rec_p, mot
-    for r in rows:
-        show(r, "1080p x 4 shapes")
     print(f"phase 2: K4 (D1) 1080p x 4 P frame: {rows[-1]['cycles_col']:.0f} "
           f"cycles a MB column (120 columns) at {mhz} MHz [{card}]")
-    del sym, sym4
+    # K5 (D2): the decoders' inputs of the P frame and the IDR, then 480p
+    rows.append(d2_rows(dev, torch, np, card, (y, u, v, sym, sym_i)))
+    for r in rows:
+        show(r, "1080p x 4 shapes")
+    del sym, sym4, sym_i
     k2_edges(dev, torch, np)
     k3_edges(dev, torch, np)
     d1_edges(dev, torch, np)
@@ -1004,26 +1235,29 @@ def check_dpbs(pipe, np, what, i):
 def phase_main(dev, torch, np, card):
     """Phase 4: the main path, 3 dispatches, enc DPB == dec DPB each time;
     K3 launched twice per entropy call (MB and slice level), the deblock
-    (K4) 8 times per dispatch (4 encoder frames, 4 decoder frames)."""
+    (K4) 8 times per dispatch (4 encoder frames, 4 decoder frames), the
+    intra reconstruction (K5) 4 times (the decoder's frames)."""
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
-    from tpuh264_torch.kernels import cavlc_cuda, deblock
+    from tpuh264_torch.kernels import cavlc_cuda, deblock, iframe
 
     cfg = CodecConfig(width=1920, height=1080, streams=4, qp=None,
                       bitrate=4_000_000, intra_in_p=False)
     pipe = GOPDevicePipeline(cfg, gop_size=8, source_kind="rigid",
                              device=dev)
     spy = SymbolSpy(pipe, torch)
-    qps, times, k3, k4 = [], [], [], []
+    qps, times, k3, k4, k5 = [], [], [], [], []
     for i in range(3):
         qps.append(pipe.rc.current_qp())
         n0 = cavlc_cuda.merge_tree.launches
         d0 = deblock.deblock_frame_rows.launches
+        r0 = iframe._intra_recon_scan.launches
         t0 = time.perf_counter()
         pipe.pump_frame()
         times.append(time.perf_counter() - t0)
         k3.append(cavlc_cuda.merge_tree.launches - n0)
         k4.append(deblock.deblock_frame_rows.launches - d0)
+        k5.append(iframe._intra_recon_scan.launches - r0)
         check_dpbs(pipe, np, "1080p", i)
     expect = [4 if st else 2 for st in spy.starts]
     if k3 != expect:
@@ -1031,12 +1265,16 @@ def phase_main(dev, torch, np, card):
              f"(GOP starts {spy.starts})")
     if k4 != [8, 8, 8]:
         fail(f"1080p: deblock launches per dispatch {k4}, expected 8 each")
+    if k5 != [4, 4, 4]:  # one a decoded frame, the IDR's included
+        fail(f"1080p: intra recon launches per dispatch {k5}, expected 4 "
+             f"each")
     print(f"phase 4: 1920x1080 x 4, CBR 4 Mbps, gop 8, rigid: 3 dispatches "
           f"(12 frames, GOP starts {spy.starts}), decoder DPB == encoder DPB "
           f"after each; K3 launches per dispatch {k3} (MB + slice level per "
           f"entropy call), K4 (deblock) {k4} (4 encoder + 4 decoder "
-          f"frames); QP {qps}; PSNR {pipe.last_psnr_y:.2f} dB; "
-          f"pump_frame s {[round(t, 3) for t in times]} [{card}]")
+          f"frames), K5 (intra recon) {k5} (4 decoded frames); QP {qps}; "
+          f"PSNR {pipe.last_psnr_y:.2f} dB; pump_frame s "
+          f"{[round(t, 3) for t in times]} [{card}]")
 
 
 def phase_runs(dev, card):
@@ -1229,7 +1467,7 @@ def phase_device_pipeline(dev, torch, np, card, launches):
         for _ in range(2):
             pipe.pump_frame()
 
-    launches.path("DevicePipeline 480p x 8", drive, needs=(1, 2))
+    launches.path("DevicePipeline 480p x 8", drive, needs=(1, 2, 4))
     if pipe.fallback_packs:
         fail("DevicePipeline: host repack")
     # the port's own decode of frame 0's bytes (native parse + I scan):
@@ -1389,7 +1627,7 @@ def phase_sessions(dev, np, card, launches):
                              decode_ms=round(dec_ms, 1)))
 
     launches.path("EncoderSession + DecoderPool 480p x 8", drive,
-                  needs=(0, 3))
+                  needs=(0, 3, 4))
     stay_fast([pool[i] for i in range(s)], "480p sessions")
     if len(i4) != 2 or min(i4) <= 0:
         fail(f"480p sessions: Intra_4x4 share of the IDR frames {i4}")
@@ -1489,7 +1727,7 @@ def phase_app_tpu(dev, np, card, launches):
         app.stop()
         box["pipe"] = pipe
 
-    launches.path("App tpu 480p fan-out 8", drive, needs=(0,))
+    launches.path("App tpu 480p fan-out 8", drive, needs=(0, 4))
     stats, pipe = box["stats"], box["pipe"]
     if app.error is not None:
         fail(f"App tpu: the pump thread failed: {app.error!r}")
@@ -1577,7 +1815,7 @@ def phase_gate(dev, np, card, launches):
     def decode():
         return [sess.decode(i_bytes), sess.decode(p_bytes)]
 
-    outs, _ = launches.path("general stream", decode, needs=())
+    outs, _ = launches.path("general stream", decode, needs=(4,))
     if not sess._general or sess.frames_concealed:
         fail(f"general stream: the session did not switch to the golden "
              f"path (general {sess._general}, concealed "
@@ -1685,7 +1923,7 @@ def phase_config3(dev, np, card, launches):
                 entropy_ms=round(tm["entropy_ms"], 1),
                 decode_ms=round(dec_ms, 1)))
 
-    _, counts = launches.path("config 3 1080p", drive, needs=(0,))
+    _, counts = launches.path("config 3 1080p", drive, needs=(0, 4))
     intra, t8, ref1 = spy.shares()
     if spy.searched != [1, 2, 2, 2, 2] or counts[0] != sum(spy.searched):
         fail(f"config 3: K1 launched {counts[0]} times for the references "
@@ -1772,7 +2010,7 @@ def part_b(dev, np, card, launches, torch):
                          round(tm["entropy_ms"], 1), round(dec_ms, 1)))
 
     _, counts = launches.path("config 3 part B 480p x 8", drive,
-                              needs=(0, 3))
+                              needs=(0, 3, 4))
     stay_fast([pool[i] for i in range(s)], "config 3 part B")
     intra, t8, ref1 = spy.shares()
     if counts[0] != sum(spy.searched) or t8 <= 0:
@@ -1884,21 +2122,29 @@ def shard_rank(rank: int, tmp: str) -> None:
         k1 = me_cuda.sad_field.launches - k1
         me_cuda._sad_field = sad
         # each rank decodes its own P symbols against its halo-extended DPB
-        halo_ok = True
+        # (K5 once a frame, its plain version never)
+        halo_ok, plain5 = True, []
+        rplain = iframe._intra_recon_scan_plain
+        iframe._intra_recon_scan_plain = _plain_spy(
+            "_intra_recon_scan_plain", rplain, plain5)
+        k5 = iframe._intra_recon_scan.launches
         for t in range(1, n):
             ext = dm._halo_extend_yuv(*recs[t - 1], pframe.HALO_Y,
                                       pframe.HALO_C, mesh)
             dec, _ = pframe.decode_pframe_rows_multi(
                 syms[t], *(e[None] for e in ext), qp, halo=True)
             halo_ok &= all(torch.equal(a, b) for a, b in zip(dec, recs[t]))
+        k5 = iframe._intra_recon_scan.launches - k5
+        iframe._intra_recon_scan_plain = rplain
         got = [([(f, dm.gather(mesh, x)) for f, x in _sym_fields(syms[t])],
                 [dm.gather(mesh, x) for x in recs[t]],
                 [dm.gather(mesh, x) for x in mots[t - 1]] if t else [])
                for t in range(n)]
-        ok = halo_ok and k1 == n - 1 and not plain
+        ok = halo_ok and k1 == k5 == n - 1 and not plain and not plain5
         result = dict(rank=rank, band=[mesh.stream_index, mesh.row_index],
                       shape=list(recs[0][0].shape), k1_launches=k1,
-                      plain_k1_calls=len(plain), i_ms=round(i_ms, 1),
+                      plain_k1_calls=len(plain), k5_launches=k5,
+                      plain_k5_calls=len(plain5), i_ms=round(i_ms, 1),
                       p_step_ms=p_ms, halo_decode_equal=bool(halo_ok))
         if rank == 0:
             # the unsharded encode of the same frames on the same device
@@ -2076,18 +2322,21 @@ def phase_dist(dev, np, card, launches):
             tmp, "rank"), 600, "phase 16(a)", "SHARD_RESULT ")
         t_a = time.perf_counter()
         k1 = sum(r["k1_launches"] for r in ranks)
-        if k1 != world * (n_frames - 1) or any(r["plain_k1_calls"]
-                                               for r in ranks):
-            fail(f"phase 16(a): K1 launched {k1} times (expected "
-                 f"{world * (n_frames - 1)}); plain K1 "
-                 f"{[r['plain_k1_calls'] for r in ranks]}")
+        k5 = sum(r["k5_launches"] for r in ranks)
+        if (k1 != world * (n_frames - 1) or k5 != k1
+                or any(r["plain_k1_calls"] or r["plain_k5_calls"]
+                       for r in ranks)):
+            fail(f"phase 16(a): K1 launched {k1} times, K5 {k5} (expected "
+                 f"{world * (n_frames - 1)} each); plain K1 "
+                 f"{[r['plain_k1_calls'] for r in ranks]}, plain K5 "
+                 f"{[r['plain_k5_calls'] for r in ranks]}")
         r0 = ranks[0]
         for r in ranks:
             print(f"phase 16(a): rank {r['rank']} band {r['band']} "
                   f"{r['shape']}: I {r['i_ms']} ms, P steps {r['p_step_ms']}"
                   f" ms (fenced, halo exchange included), halo decode == "
-                  f"band {r['halo_decode_equal']}, K1 {r['k1_launches']} "
-                  f"[{card}]")
+                  f"band {r['halo_decode_equal']}, K1 {r['k1_launches']}, "
+                  f"K5 {r['k5_launches']} [{card}]")
         print(f"phase 16(a): BASELINE config 5 cut to one card: "
               f"{SHARD_STREAMS} x {SHARD_W}x{SHARD_H} 'rigid', I + "
               f"{n_frames - 1} P at QP {SHARD_QP} (GOP depth cut to "
@@ -2096,7 +2345,8 @@ def phase_dist(dev, np, card, launches):
               f"motion == the unsharded encode ({r0['compared']} tensors, "
               f"unsharded {r0['unsharded_ms']} ms on rank 0); "
               f"{r0['crossing_mbs']} MBs with a vertical MV across the "
-              f"band edge; K1 {k1} launches, plain K1 none; frames made in "
+              f"band edge; K1 {k1} launches, plain K1 none; K5 {k5} "
+              f"launches (the halo decodes), plain K5 none; frames made in "
               f"{t_made - t_phase:.1f} s, ranks {t_a - t_made:.1f} s "
               f"[{card}]")
 
@@ -2142,6 +2392,7 @@ def phase_dist(dev, np, card, launches):
           f"encode (NCCL between cards not checked: one card) [{card}]")
     launches.total[0] += k1 + sum(r["k1_launches"] for r in mh_res) + \
         nccl_res["k1_launches"]
+    launches.total[4] += k5
     phase_bench(dev, card, launches)
     print(f"phase 16: wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
@@ -2274,7 +2525,7 @@ def main() -> None:
         r["launches"] = n
     print(f"launches summed over the driven paths: K1 {launches.total[0]}, "
           f"K2 {launches.total[1]}, K3 {launches.total[2]}, K4 (deblock) "
-          f"{launches.total[3]}")
+          f"{launches.total[3]}, K5 (intra recon) {launches.total[4]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

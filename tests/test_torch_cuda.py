@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, K2, K3, the deblock D1) against their
-plain PyTorch versions, on the card, plus the wrappers' no-fallback rule.
+"""The port's CUDA kernels (K1, K2, K3, the deblock D1, the intra
+reconstruction D2) against their plain PyTorch versions, on the card,
+plus the wrappers' no-fallback rule.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed.  On a machine with a card and nvcc:
@@ -17,14 +18,16 @@ import pytest
 import torch
 
 import chip_smoke
-from tpuh264_torch.kernels import cavlc_cuda, me_cuda
+from tpuh264_torch.kernels import cavlc_cuda, cuda_lib, me_cuda
 from tpuh264_torch.kernels import deblock as DB
+from tpuh264_torch.kernels import iframe as IF
 from tpuh264_torch.kernels import pframe as TP
 
 
 def _launches():
     return (me_cuda.sad_field.launches, cavlc_cuda.pack_blocks.launches,
-            cavlc_cuda.merge_tree.launches, DB.deblock_frame_rows.launches)
+            cavlc_cuda.merge_tree.launches, DB.deblock_frame_rows.launches,
+            IF._intra_recon_scan.launches)
 
 
 @pytest.fixture
@@ -351,6 +354,100 @@ def test_deblock_wrapper_on_card(dev):
         DB.deblock_frame_rows(flat[1:].view(y.shape), u, v, kind, mvx, mvy,
                               nnz, 33)
     assert DB.deblock_frame_rows.launches == before
+
+
+def _intra_both(kw):
+    """The intra-reconstruction kernel and its plain version, one input."""
+    before = IF._intra_recon_scan.launches
+    got = IF._intra_recon_scan(**kw)
+    plain = IF._intra_recon_scan_plain(**kw)
+    torch.cuda.synchronize()
+    assert IF._intra_recon_scan.launches == before + 1
+    for a, b in zip(got, plain):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,variant", chip_smoke.D2_CASES)
+def test_intra_recon_kernel_matches_plain_edge_cases(dev, shape, variant):
+    """C = 1, 2, 3 and 61, S and R 1 to 4, intra shares 0 / ~1% / 50% /
+    100% and the I decode, DC / H mixes, clips at 0 and 255
+    (chip_smoke phase 2's generator)."""
+    _intra_both(chip_smoke.d2_args(
+        torch, chip_smoke.d2_case(np, shape, variant), dev))
+
+
+@pytest.mark.cuda
+def test_intra_recon_kernel_matches_plain_1080p(dev):
+    """The P decode's and the I decode's own inputs of the scan at 1080p
+    x 4: a pipeline P frame of "rigid" and its I frame."""
+    y, u, v, sym, _, _ = chip_smoke.pframe_1080p(dev, torch)
+    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    sym_i, _ = IF.encode_iframe_rows(y[0], u[0], v[0], 30)
+    calls = chip_smoke.d2_capture(
+        lambda: TP.decode_pframe_rows_multi(sym, *refs, 30))
+    calls += chip_smoke.d2_capture(lambda: IF.decode_iframe_scan(sym_i, 30))
+    assert len(calls) == 2 and "other" in calls[0] and "other" not in calls[1]
+    for kw in calls:
+        _intra_both(kw)
+
+
+@pytest.mark.cuda
+def test_intra_recon_wrapper_on_card(dev):
+    """A bool is_intra and int16 residuals are taken as int32 copies, a
+    residual view at an offset that is not 16-byte aligned as an aligned
+    copy; a wrong shape, `other` without is_intra or a tensor on the CPU
+    raises before any launch."""
+    kw = chip_smoke.d2_args(torch, chip_smoke.d2_case(np, (2, 3, 5), "half"),
+                            dev)
+    want = IF._intra_recon_scan_plain(**kw)
+    flat = torch.zeros(kw["res"][0].numel() + 1, dtype=torch.int32,
+                       device=dev)
+    odd = flat[1:].view(kw["res"][0].shape)
+    odd.copy_(kw["res"][0])
+    res = (odd, kw["res"][1].to(torch.int16), kw["res"][2])
+    got = IF._intra_recon_scan(**{**kw, "res": res})
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    before = IF._intra_recon_scan.launches
+    bad = [{**kw, "res": (kw["res"][0][:, :1], *kw["res"][1:])},
+           {**kw, "is_intra": None},
+           {**kw, "cmode": kw["cmode"].cpu()}]
+    for b in bad:
+        with pytest.raises(ValueError):
+            IF._intra_recon_scan(**b)
+    assert IF._intra_recon_scan.launches == before
+
+
+@pytest.mark.cuda
+def test_intra_recon_raises_without_fallback(dev, monkeypatch):
+    """A kernel library that cannot be built, or an entry that reports a
+    CUDA error at launch, raises: the plain version is never taken."""
+    kw = chip_smoke.d2_args(torch, chip_smoke.d2_case(np, (2, 2, 3), "half"),
+                            dev)
+    lib = cuda_lib.load()
+    plain = []
+    monkeypatch.setattr(IF, "_intra_recon_scan_plain",
+                        lambda *a, **k: plain.append(1))
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_lib, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        IF._intra_recon_scan(**kw)
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def th264_intra_recon_rows(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(cuda_lib, "load", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="th264_intra_recon_rows"):
+        IF._intra_recon_scan(**kw)
+    assert not plain
 
 
 def test_wrappers_raise_off_cpu_without_fallback():

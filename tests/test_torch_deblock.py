@@ -10,7 +10,6 @@ comparison is exact (array_equal): this is an integer codec.
 
 import os
 import re
-import shutil
 import subprocess
 
 import numpy as np
@@ -18,6 +17,7 @@ import pytest
 import torch
 
 import chip_smoke
+import cuda_threads
 from tpuh264.kernels import deblock as jdb
 from tpuh264_torch.golden.deblock import ALPHA, BETA, TC0
 from tpuh264_torch.kernels import cuda_lib
@@ -76,39 +76,6 @@ def test_edge_cases_cover_what_they_claim():
         assert (not np.array_equal(out[0].numpy(), y)) == changed
 
 
-# CUDA's names for g++: a block's 64 threads run as std::threads, each
-# warp's __syncwarp is a barrier among its 32, __shared__ arrays are
-# statics (one block at a time), int4 / uint2 / uint4 are plain structs.
-# The kernel has no block-wide barrier (its two warps share nothing), so
-# the shims define none.
-SHIMS = r"""
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cstdint>
-#include <cstdlib>
-using std::abs; using std::max; using std::min;
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __constant__
-#define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
-#define __launch_bounds__(n)
-struct alignas(16) int4 { int x, y, z, w; };
-inline int4 make_int4(int a, int b, int c, int d) { return int4{a, b, c, d}; }
-struct uint2 { uint32_t x, y; };
-inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
-struct uint4 { uint32_t x, y, z, w; };
-inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return uint4{a, b, c, d};
-}
-struct Dim { int x; };
-inline thread_local Dim threadIdx, blockIdx;
-inline std::barrier<>* g_warp[2];
-inline void __syncwarp() { g_warp[threadIdx.x >> 5]->arrive_and_wait(); }
-"""
-
 # Reads int32 S R C qp qpc has_ref has_t8, then the int32 inputs (y, u,
 # v, kind, mvx, mvy, ref, t8, nnz) on stdin; writes the uint8 planes.
 HARNESS = r"""
@@ -154,18 +121,11 @@ int main() {
 @pytest.fixture(scope="module")
 def cpu_kernel(tmp_path_factory):
     """csrc/deblock.cu (all but its launch entry) built with g++ against
-    the shims above: the kernel's own source, run on CPU threads."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ (C++20) to run the kernel source on the CPU")
-    d = tmp_path_factory.mktemp("deblock_cpu")
-    (d / "cuda_runtime.h").write_text(SHIMS)
-    (d / "harness.cpp").write_text(HARNESS)
-    exe = d / "deblock_cpu"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-I", str(d), "-I",
-                    os.path.dirname(SOURCE), "-o", str(exe),
-                    str(d / "harness.cpp")], check=True)
-    return str(exe)
+    the shims of cuda_threads.py: the kernel's own source, run on CPU
+    threads (a block's 64 threads, each warp's __syncwarp a barrier)."""
+    return cuda_threads.build(tmp_path_factory.mktemp("deblock_cpu"),
+                              HARNESS, os.path.dirname(SOURCE),
+                              "deblock_cpu")
 
 
 @pytest.mark.parametrize("variant", chip_smoke.D1_VARIANTS)

@@ -1,0 +1,246 @@
+"""The decoders' intra-reconstruction column scan (D2): the port's
+decoders against the JAX package's on seeded symbols, the kernel's
+source run on CPU threads against the plain version, and the router's
+routes.
+
+The inputs come from `chip_smoke.d2_case`, the generator chip_smoke.py
+phase 2 holds the kernel to its plain version with on the card.  Every
+comparison is exact (array_equal): this is an integer codec.
+"""
+
+import os
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import cuda_threads
+from tpuh264.kernels import iframe as jif
+from tpuh264.kernels import pframe as jpf
+from tpuh264_torch.kernels import cuda_lib
+from tpuh264_torch.kernels import iframe as tif
+from tpuh264_torch.kernels import pframe as tpf
+
+SOURCE = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc",
+                      "intra_recon.cu")
+I_FIELDS = [f for f in tif.MBSymbols._fields if f != "i4modes"]
+
+
+def _case(case):
+    return chip_smoke.d2_case(np, *case)
+
+
+def _plain(case):
+    """The plain scan's int32 output on the case's CPU inputs."""
+    return tif._intra_recon_scan_plain(**chip_smoke.d2_args(torch, case,
+                                                            "cpu"))
+
+
+@pytest.mark.parametrize("shape,variant", chip_smoke.D2_CASES)
+def test_decode_matches_jax(shape, variant):
+    """The port's P decode (`decode_pframe_rows_multi`: skip, inter and
+    intra MBs at the case's share) and I decode (`decode_iframe_scan`,
+    the "iframe" variant) equal the JAX package's on the same symbols."""
+    sym, _, refs, qp = _case((shape, variant))
+    if refs is None:
+        j = jif.decode_iframe_scan(
+            jif.MBSymbols(**{f: sym[f] for f in I_FIELDS}), qp)
+        t = tif.decode_iframe_scan(
+            tif.MBSymbols(**{f: torch.from_numpy(sym[f]) for f in I_FIELDS}),
+            qp)
+    else:
+        j, jm = jpf.decode_pframe_rows_multi(jpf.MBSymbolsP(**sym), *refs,
+                                             qp)
+        t, tm = tpf.decode_pframe_rows_multi(
+            tpf.MBSymbolsP(**{k: torch.from_numpy(v)
+                              for k, v in sym.items()}),
+            *map(torch.from_numpy, refs), qp)
+        for a, b in zip(jm, tm):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    for a, b in zip(j, t):
+        assert b.dtype == torch.uint8
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_cases_cover_what_they_claim():
+    """C = 1, 2, 3 and a long lane of C >= 54; S and R from 1 to 4; intra
+    shares 0, ~1% (at least one MB), 50% and 100%, and the I decode
+    without `other`; legal modes only (column 0 DC), with luma and chroma
+    DC and H both chosen in later columns; prediction + residual past 0
+    and past 255 (the clip), and inter MBs with MVs."""
+    shapes = set(chip_smoke.D2_SHAPES)
+    assert {1, 2, 3} <= {c for _, _, c in shapes}
+    assert any(c >= 54 for _, _, c in shapes)
+    assert {s for s, _, _ in shapes} == {1, 2, 3, 4}
+    assert {r for _, r, _ in shapes} == {1, 2, 3, 4}
+    long = max(shapes, key=lambda x: x[2])
+    lmodes, cmodes, clipped = set(), set(), set()
+    for variant in chip_smoke.D2_VARIANTS:
+        sym, other, refs, _ = _case((long, variant))
+        intra = sym["kind"] == 2
+        share = intra.mean()
+        want = chip_smoke.D2_SHARE[variant]
+        assert (other is None) == (refs is None) == (variant == "iframe")
+        if variant == "sparse":
+            assert 0 < share < 0.05
+        else:
+            assert share == pytest.approx(want, abs=0.1)
+        assert (sym["mode"][..., 0][intra[..., 0]] == 2).all()
+        assert (sym["cmode"][..., 0][intra[..., 0]] == 0).all()
+        assert set(np.unique(sym["mode"][intra])) <= {1, 2}
+        assert set(np.unique(sym["cmode"][intra])) <= {0, 1}
+        lmodes |= set(np.unique(sym["mode"][..., 1:][intra[..., 1:]]))
+        cmodes |= set(np.unique(sym["cmode"][..., 1:][intra[..., 1:]]))
+        if variant == "half":
+            assert (sym["mvdx"][sym["kind"] == 1] != 0).any()
+            assert (sym["kind"] == 0).any() and (sym["kind"] == 1).any()
+        out = _plain((sym, other, refs, chip_smoke.D2_QP))
+        for o in out:
+            o = o.numpy()[intra]
+            clipped |= {v for v in (0, 255) if (o == v).any()}
+    assert lmodes == {1, 2} and cmodes == {0, 1}
+    assert clipped == {0, 255}
+
+
+# Reads int32 lanes C has_other, then the int32 inputs (mode, cmode,
+# is_intra where has_other, the residuals y u v, other y u v where
+# has_other) on stdin; writes the int32 planes y, u, v.
+HARNESS = r"""
+#include <cuda_runtime.h>
+#include <cstdio>
+#include <thread>
+#include <vector>
+#include "intra_recon.cu"
+int main() {
+  int32_t a[3];
+  if (fread(a, 4, 3, stdin) != 3) return 2;
+  const int lanes = a[0], C = a[1], has_other = a[2];
+  const size_t m = (size_t)lanes * C;
+  std::vector<int32_t> mode(m), cmode(m), isi(has_other ? m : 0),
+      ry(256 * m), ru(64 * m), rv(64 * m), oy(has_other ? 256 * m : 0),
+      ou(has_other ? 64 * m : 0), ov(has_other ? 64 * m : 0);
+  for (auto* x : {&mode, &cmode, &isi, &ry, &ru, &rv, &oy, &ou, &ov})
+    if (fread(x->data(), 4, x->size(), stdin) != x->size()) return 3;
+  std::vector<int32_t> y(256 * m), u(64 * m), v(64 * m);
+  const int32_t* no = nullptr;
+  const Args args{mode.data(), cmode.data(), has_other ? isi.data() : no,
+                  ry.data(), ru.data(), rv.data(),
+                  has_other ? oy.data() : no, has_other ? ou.data() : no,
+                  has_other ? ov.data() : no, y.data(), u.data(), v.data(),
+                  lanes, C};
+  std::barrier<> warp(32);
+  g_warp[0] = &warp;
+  for (int b = 0; b < lanes; ++b) {
+    std::vector<std::thread> block;
+    for (int t = 0; t < 32; ++t)
+      block.emplace_back([&, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        intra_recon_kernel(args);
+      });
+    for (auto& th : block) th.join();
+  }
+  for (auto* x : {&y, &u, &v}) fwrite(x->data(), 4, x->size(), stdout);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def cpu_kernel(tmp_path_factory):
+    """csrc/intra_recon.cu (all but its launch entry) built with g++
+    against the shims of cuda_threads.py: the kernel's own source, a
+    lane's 32 threads as std::threads, its shuffles through barriers."""
+    return cuda_threads.build(tmp_path_factory.mktemp("intra_recon_cpu"),
+                              HARNESS, os.path.dirname(SOURCE),
+                              "intra_recon_cpu")
+
+
+@pytest.mark.parametrize("shape,variant", chip_smoke.D2_CASES)
+def test_kernel_source_on_cpu_threads_matches_plain(cpu_kernel, shape,
+                                                    variant):
+    """The kernel's chunk layout, shuffles, flag windows and ring of
+    columns in flight, run a lane's 32 threads at a time, equal the plain
+    version on the case."""
+    case = _case((shape, variant))
+    kw = chip_smoke.d2_args(torch, case, "cpu")
+    s, r, c = shape
+    has_other = "other" in kw
+    ins = [kw["mode"], kw["cmode"]]
+    if has_other:
+        ins.append(kw["is_intra"])
+    ins += list(kw["res"]) + (list(kw["other"]) if has_other else [])
+    head = np.array([s * r, c, has_other], np.int32)
+    body = head.tobytes() + b"".join(
+        x.to(torch.int32).contiguous().numpy().tobytes() for x in ins)
+    out = np.frombuffer(subprocess.run(
+        [cpu_kernel], input=body, capture_output=True, check=True).stdout,
+        np.int32)
+    want = tif._intra_recon_scan_plain(**kw)
+    off = 0
+    for w in want:
+        got = out[off:off + w.numel()].reshape(w.shape)
+        off += w.numel()
+        np.testing.assert_array_equal(got, w.numpy(), err_msg=str(shape))
+    assert off == out.size
+
+
+def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
+    """On CPU tensors the router (and both decoders through it) takes the
+    plain version: the kernel library is never loaded and the launch
+    counter does not move."""
+    def refuse():
+        raise AssertionError("the kernel library was loaded for CPU tensors")
+
+    monkeypatch.setattr(cuda_lib, "load", refuse)
+    before = tif._intra_recon_scan.launches
+    case = _case(((2, 2, 3), "half"))
+    kw = chip_smoke.d2_args(torch, case, "cpu")
+    out = tif._intra_recon_scan(**kw)
+    for a, b in zip(out, tif._intra_recon_scan_plain(**kw)):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    sym, _, refs, qp = case
+    tpf.decode_pframe_rows_multi(
+        tpf.MBSymbolsP(**{k: torch.from_numpy(v) for k, v in sym.items()}),
+        *map(torch.from_numpy, refs), qp)
+    tif.decode_iframe_scan(
+        tif.MBSymbols(**{f: torch.from_numpy(sym[f]) for f in I_FIELDS}), qp)
+    assert tif._intra_recon_scan.launches == before
+
+
+def _meta(case):
+    return {k: (tuple(x.to("meta") for x in v) if isinstance(v, tuple)
+                else v.to("meta"))
+            for k, v in chip_smoke.d2_args(torch, case, "cpu").items()}
+
+
+def test_i44_goes_to_the_plain_version(monkeypatch):
+    """With `i44` (the Intra_4x4 reconstruction, D5's work) the router
+    takes the plain version by argument, on any device, without loading
+    the kernel library; without it, a tensor off the CPU never reaches
+    the plain version: on a device the kernel cannot take it raises."""
+    calls = []
+
+    def plain(*a, **kw):
+        calls.append(a)
+        return "plain"
+
+    def refuse():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(tif, "_intra_recon_scan_plain", plain)
+    monkeypatch.setattr(cuda_lib, "load", refuse)
+    before = tif._intra_recon_scan.launches
+    kw = _meta(_case(((1, 2, 3), "iframe")))
+    s, r, c = kw["mode"].shape
+    i44 = (torch.zeros((s, r, c, 16, 16), dtype=torch.int32, device="meta"),
+           torch.zeros((s, r, c, 16), dtype=torch.int32, device="meta"), 30)
+    assert tif._intra_recon_scan(**kw, i44=i44) == "plain"
+    assert len(calls) == 1 and calls[0][5] is i44
+    for k in (kw, _meta(_case(((1, 2, 3), "half")))):
+        with pytest.raises(ValueError):
+            tif._intra_recon_scan(**k)
+    assert len(calls) == 1
+    assert tif._intra_recon_scan.launches == before

@@ -93,7 +93,7 @@ def main() -> None:
                                                              a.entry)))
     _, _, _, sym, rec, mot = cs.pframe_1080p(dev, torch)
     cases = [("1080p x 4 P frame", cs.d1_args(torch, rec, 30, sym, mot))]
-    _, sym, rec, mot = cs.t8_pframe_480p(dev, torch)
+    _, _, sym, rec, mot = cs.pframe_480p(dev, torch, t8=True)
     cases.append(("480p x 8 t8 P frame",
                   cs.d1_args(torch, rec, 30, sym, mot, t8=True)))
     for what, (args, kw) in cases:

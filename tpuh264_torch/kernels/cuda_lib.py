@@ -94,8 +94,10 @@ def load() -> ctypes.CDLL:
         lib.th264_pack_blocks.argtypes = [p, p, p, p, p, p, p, p, i64, i, i, p]
         lib.th264_merge_tree.argtypes = [p, p, p, p, i64, i, i, i, p]
         lib.th264_deblock_rows.argtypes = [p] * 12 + [i, i, i, i, p]
+        lib.th264_intra_recon_rows.argtypes = [p] * 12 + [i, i, p]
         for fn in (lib.th264_sad_field, lib.th264_pack_blocks,
-                   lib.th264_merge_tree, lib.th264_deblock_rows):
+                   lib.th264_merge_tree, lib.th264_deblock_rows,
+                   lib.th264_intra_recon_rows):
             fn.restype = ctypes.c_int
         lib.th264_cuda_error_string.argtypes = [ctypes.c_int]
         lib.th264_cuda_error_string.restype = ctypes.c_char_p

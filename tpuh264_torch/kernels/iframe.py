@@ -16,10 +16,15 @@ module's integer `_LAMBDA8` table and rate proxy `_rate_bits`.
 intra-in-P scan of pframe.py, and `_intra_residuals` /
 `_intra_recon_scan` (the decode) with the P decoder's intra MBs.
 
+The decode's column scan, `_intra_recon_scan`, is D2, a CUDA kernel
+(csrc/intra_recon.cu: a warp per MB row) for CUDA tensors, with its
+plain version `_intra_recon_scan_plain` for CPU tensors and for the
+Intra_4x4 reconstruction (`i44`).
+
 Bit-exact with the JAX version (tests/test_torch_transform_iframe_deblock.py,
-tests/test_torch_intra44.py).  On the card these loops are launch-bound
-(120 columns of small kernels at 1080p); a fused column kernel or a CUDA
-graph is later work.
+tests/test_torch_intra44.py, tests/test_torch_intra_recon.py).  On the
+card the encode loops are launch-bound (120 columns of small kernels at
+1080p); kernels for them are later work.
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import cuda_lib, tables
 from . import intra44 as I44
-from . import tables
 from . import transform as T
 
 I32 = torch.int32
@@ -352,12 +357,56 @@ def _intra_residuals(symbols, qp: int, qpc: int):
 def _intra_recon_scan(mode, cmode, res, other=None, is_intra=None,
                       i44=None):
     """Left-neighbour prediction of intra MBs, column by column, plus the
-    residuals `res` of `_intra_residuals`.  Where `is_intra` is False an
-    MB takes its reconstruction from `other` ([S,R,C,16,16], [S,R,C,8,8]
-    x 2) instead, and serves as the next MB's left neighbour.  With `i44`
-    = (luma_ac [S,R,C,16,16], i4modes [S,R,C,16], qp) the MBs of mode 4
+    residuals `res` of `_intra_residuals` (luma [S,R,C,4,4,4,4], chroma
+    [S,R,C,2,2,4,4] each).  Where `is_intra` [S,R,C] is False an MB takes
+    its reconstruction from `other` ([S,R,C,16,16], [S,R,C,8,8] x 2)
+    instead, and serves as the next MB's left neighbour.  With `i44` =
+    (luma_ac [S,R,C,16,16], i4modes [S,R,C,16], qp) the MBs of mode 4
     take the causal Intra_4x4 reconstruction.  Returns int32
-    [S,R,C,16,16], [S,R,C,8,8] x 2."""
+    [S,R,C,16,16], [S,R,C,8,8] x 2.
+
+    CPU tensors, and every call with `i44`, take the plain version; CUDA
+    tensors without `i44` launch the D2 kernel (csrc/intra_recon.cu) or
+    raise."""
+    if mode.device.type == "cpu" or i44 is not None:
+        return _intra_recon_scan_plain(mode, cmode, res, other, is_intra,
+                                       i44)
+    s, r, c = mode.shape
+    if not s * r * c:
+        raise ValueError(f"_intra_recon_scan: no MB ({s}, {r}, {c})")
+    if (other is None) != (is_intra is None):
+        raise ValueError("_intra_recon_scan: `other` and `is_intra` go "
+                         "together")
+    dev = mode.device
+    flags = [x.to(I32).contiguous() for x in (mode, cmode)
+             + (() if is_intra is None else (is_intra,))]
+    planes = [x.to(I32).contiguous()
+              for x in (*res, *(() if other is None else other))]
+    mb = (s, r, c)
+    shapes = [(*mb, 4, 4, 4, 4), (*mb, 2, 2, 4, 4), (*mb, 2, 2, 4, 4),
+              (*mb, 16, 16), (*mb, 8, 8), (*mb, 8, 8)]
+    cuda_lib.check_inputs("_intra_recon_scan", dev, [
+        *[(x, mb) for x in flags], *zip(planes, shapes)])
+    # 16-byte loads: a view at an odd offset is copied to fresh storage
+    planes = [x if x.data_ptr() % 16 == 0 else x.clone() for x in planes]
+    out = [torch.empty(sh, dtype=I32, device=dev) for sh in shapes[3:]]
+    opt = [None] * 4 if other is None else [flags[2], *planes[3:]]
+    ptr = lambda x: None if x is None else x.data_ptr()
+    err = cuda_lib.load().th264_intra_recon_rows(
+        *map(ptr, [*flags[:2], opt[0], *planes[:3], *opt[1:], *out]),
+        s * r, c, cuda_lib.stream(dev))
+    cuda_lib.check(err, "th264_intra_recon_rows")
+    _intra_recon_scan.launches += 1
+    return tuple(out)
+
+
+_intra_recon_scan.launches = 0  # launches of the D2 kernel
+
+
+def _intra_recon_scan_plain(mode, cmode, res, other=None, is_intra=None,
+                            i44=None):
+    """Plain version of `_intra_recon_scan` (same arguments): a Python
+    loop over the MB columns, batched over [S, R]."""
     s, r, c = mode.shape
     lead, dev = (s, r), mode.device
     left = (None, None, None)
