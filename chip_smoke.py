@@ -11,8 +11,9 @@ tpuh264_torch/csrc, then:
      port's two libraries: the CUDA kernels (nvcc) and the host CAVLC
      engine (g++, a copy of native/cavlc.cpp);
   2. holds K1 (stage-A SAD table), K2 (CAVLC block pack), K3 (bit-
-     string merge), K4 (D1, the in-loop deblock) and K5 (D2, the
-     decoders' intra-reconstruction column scan) against their plain
+     string merge), K4 (D1, the in-loop deblock), K5 (D2, the
+     decoders' intra-reconstruction column scan) and K6 (D3 and D4, the
+     encoder's Intra_16x16 column scans) against their plain
      PyTorch versions on the card (exact equality) at the main path's
      1920x1080 x 4 shapes (K4: an encoded I frame and P frame; K5: the
      decoders' own inputs of that P frame and of its IDR), K3 at its
@@ -31,11 +32,16 @@ tpuh264_torch/csrc, then:
      intra-in-P) at 854x480 x 8; K5 on seeded cases (`d2_case`: C = 1,
      2, 3 and 61, intra shares 0 / ~1% / 50% / 100% and the I decode, DC
      and H mixes, clips at 0 and 255) and on a default-config (intra-in-P)
-     P frame of "meeting" at 854x480 x 8, intra MBs required; times each
-     kernel beside its plain
+     P frame of "meeting" at 854x480 x 8, intra MBs required; K6 on the
+     1080p x 4 I frame (D3), on the intra-in-P P frame at 854x480 x 8
+     (D4, the P encode's own inputs of its scan) and on seeded cases
+     (`d3_case`, `d4_args`: C = 1, 2, 3 and 61; flat, noise, rows and
+     0 / 255 content; QPs 0, 11, 12, 28, 51; D3 from uint8 and int32
+     planes; D4 intra shares 0 / ~1% / 50% / 100% and exact SAD ties);
+     times each kernel beside its plain
      version (CUDA events, after a warm-up) and against its bound (the
-     bytes it must move over the card's 3.35 TB/s), K4 also in cycles a
-     MB column at the SM clock read under load, and one fenced
+     bytes it must move over the card's 3.35 TB/s), K4 and K6 also in
+     cycles a MB column at the SM clock read under load, and one fenced
      `encode_bits_pframe` call;
   3. at 64x48 x 2 the GPU emits the CPU's bytes (plain versions) and
      decoder DPB on every path: the RTC preset, intra-in-P, two
@@ -54,8 +60,9 @@ tpuh264_torch/csrc, then:
      (crossing an IDR): after every dispatch the decode-from-bits DPB
      equals the encoder DPB bit for bit (both sides deblock with K4), K3
      launched twice (MB and slice level) per entropy call: 4 times per
-     IDR dispatch, 2 per interior one, K4 8 times per dispatch and K5
-     4 times (once a decoded frame, the IDR's included);
+     IDR dispatch, 2 per interior one, K4 8 times per dispatch, K5
+     4 times (once a decoded frame, the IDR's included) and K6 once a
+     GOP-start dispatch (its I frame);
   5. runs `run()` briefly at that configuration and at 854x480 x 8 streams
      at 1 Mbps and prints aggregate fps, the stage split, PSNR and QP;
   6. the reference's operating point with the default CodecConfig
@@ -132,9 +139,12 @@ counts set to 0 just before it and read just after; each must have
 launched every kernel it runs (phase 12 and the general stream have no
 P frame on the fast path, so no K1; the deblock runs on every GOP
 pipeline and on the sessions with `deblock=True`; K5 on every path that
-decodes but the wavefront's, phase 16(a)'s halo decodes too), and none
-may reach the plain version of K1, K3, K4 or K5 (K5's plain version
-with `i44`, the Intra_4x4 reconstruction, is the session path's own).  Encoder DPB == decoder DPB does not
+decodes but the wavefront's, phase 16(a)'s halo decodes too; K6 on
+every path that encodes an I frame without Intra_4x4 or a P frame with
+intra-in-P, phase 16(a)'s ranks too), and none may reach the plain
+version of K1, K3, K4, K5 or K6 (K5's plain version with `i44`, the
+Intra_4x4 reconstruction, and D3's with `intra44`, the Intra_4x4 trial,
+are the session path's own).  Encoder DPB == decoder DPB does not
 check K4 (both sides run it): phase 14's gate against the oracle and
 phase 15's golden decode do.  No session of the engine's own streams (phases
 11-13 and 15) may leave the fast path for the golden decoder.
@@ -218,43 +228,59 @@ def max_abs_err(x, y) -> int:
     return int((x.long() - y.long()).abs().max().item()) if x.numel() else 0
 
 
+# the plain versions a path may call with an argument (name, position):
+# K5's with `i44` and D3's with `intra44` are the Intra_4x4 path's own
+# (D5's work)
+EXEMPT = {"_intra_recon_scan_plain": ("i44", 5),
+          "_encode_iframe_scan_plain": ("intra44", 4)}
+
+
 def _plain_spy(name, f, calls):
-    """`f` counting its calls into `calls`; K5's plain version only where
-    it is called without `i44` (with it, it is the Intra_4x4 path's own
-    reconstruction, D5's work)."""
+    """`f` counting its calls into `calls`, but those with its EXEMPT
+    argument set."""
+    arg, pos = EXEMPT.get(name, (None, 0))
+
     def call(*a, **kw):
-        i44 = kw.get("i44", a[5] if len(a) > 5 else None)
-        if name != "_intra_recon_scan_plain" or i44 is None:
+        if arg is None or not kw.get(arg, a[pos] if len(a) > pos else None):
             calls.append(1)
         return f(*a, **kw)
     return call
 
 
 class Launches:
-    """The five wrappers' launch counts (K1, K2, K3, K4 = the deblock D1,
-    K5 = the intra reconstruction D2), zeroed before and read after each
-    path the smoke drives; summed over those paths for the kernel table.
-    The plain versions of K1 (`_sad_field`), K3 (`tree_merge`), K4
-    (`_deblock_rows_plain`) and K5 (`_intra_recon_scan_plain` without
-    `i44`; with it, the Intra_4x4 reconstruction, it is the path's own)
-    are counted too: none may run on a path."""
+    """The six kernels' launch counts (K1, K2, K3, K4 = the deblock D1,
+    K5 = the intra reconstruction D2, K6 = the Intra_16x16 encode scans
+    D3 and D4: its two routers' counts summed), zeroed before and read
+    after each path the smoke drives; summed over those paths for the
+    kernel table.  The plain versions of K1 (`_sad_field`), K3
+    (`tree_merge`), K4 (`_deblock_rows_plain`), K5
+    (`_intra_recon_scan_plain` without `i44`; with it, the Intra_4x4
+    reconstruction, it is the path's own) and K6
+    (`_encode_iframe_scan_plain` without `intra44`,
+    `_intra_in_p_scan_plain`) are counted too: none may run on a path."""
 
     def __init__(self):
-        from tpuh264_torch.kernels import cavlc_cuda, deblock, iframe, me_cuda
+        from tpuh264_torch.kernels import (cavlc_cuda, deblock, iframe,
+                                           me_cuda, pframe)
 
-        self.fns = (me_cuda.sad_field, cavlc_cuda.pack_blocks,
-                    cavlc_cuda.merge_tree, deblock.deblock_frame_rows,
-                    iframe._intra_recon_scan)
+        self.fns = ((me_cuda.sad_field,), (cavlc_cuda.pack_blocks,),
+                    (cavlc_cuda.merge_tree,), (deblock.deblock_frame_rows,),
+                    (iframe._intra_recon_scan,),
+                    (iframe.encode_iframe_scan, pframe._intra_in_p_scan))
         self.total = [0] * len(self.fns)
 
-    def path(self, name, fn, needs=(0, 1, 2, 3, 4)):
-        from tpuh264_torch.kernels import cavlc_cuda, deblock, iframe, me_cuda
+    def path(self, name, fn, needs=(0, 1, 2, 3, 4, 5)):
+        from tpuh264_torch.kernels import (cavlc_cuda, deblock, iframe,
+                                           me_cuda, pframe)
 
-        for f in self.fns:
-            f.launches = 0
+        for fs in self.fns:
+            for f in fs:
+                f.launches = 0
         plains = [(me_cuda, "_sad_field"), (cavlc_cuda, "tree_merge"),
                   (deblock, "_deblock_rows_plain"),
-                  (iframe, "_intra_recon_scan_plain")]
+                  (iframe, "_intra_recon_scan_plain"),
+                  (iframe, "_encode_iframe_scan_plain"),
+                  (pframe, "_intra_in_p_scan_plain")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
         for (m, a), f, c in zip(plains, saved, calls):
@@ -264,19 +290,22 @@ class Launches:
         finally:
             for (m, a), f in zip(plains, saved):
                 setattr(m, a, f)
-        counts = [f.launches for f in self.fns]
+        counts = [sum(f.launches for f in fs) for fs in self.fns]
         for i, n in enumerate(counts):
             self.total[i] += n
         plain = [len(c) for c in calls]
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
               f"K3 {counts[2]}, K4 (deblock) {counts[3]}, K5 (intra "
-              f"recon) {counts[4]}; plain calls K1 {plain[0]}, K3 "
-              f"{plain[1]}, K4 {plain[2]}, K5 without i44 {plain[3]}")
+              f"recon) {counts[4]}, K6 (intra16 encode) {counts[5]} (D3 "
+              f"{self.fns[5][0].launches}, D4 {self.fns[5][1].launches}); "
+              f"plain calls K1 {plain[0]}, K3 {plain[1]}, K4 {plain[2]}, "
+              f"K5 without i44 {plain[3]}, K6: D3 without intra44 "
+              f"{plain[4]}, D4 {plain[5]}")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
         if any(plain):
-            fail(f"{name}: a plain version ran (K1, K3, K4, K5: {plain} "
-                 f"times)")
+            fail(f"{name}: a plain version ran (K1, K3, K4, K5, K6 D3, K6 "
+                 f"D4: {plain} times)")
         return out, counts
 
 
@@ -288,6 +317,7 @@ NO_LIBRARY = {
     "K3": "no PyTorch call concatenates variable-length bit strings",
     "K4": "no PyTorch call runs the H.264 deblocking filter",
     "K5": "no PyTorch call runs H.264 intra prediction",
+    "K6": "no PyTorch call runs an H.264 intra encode",
 }
 
 
@@ -833,6 +863,226 @@ def d2_capture(fn):
     return calls
 
 
+# K6 (D3, D4): the D2 shapes (C = 1, 2, 3 and a long lane of 61; S and R
+# from 1 to 4); content flat (DC / H ties), noise, constant rows (H
+# wins) and samples at 0 and 255 (the recon clips); QPs 0, 11 (the
+# rounding shift of dequant_luma_dc), 12, 28 and 51 (the tables' top).
+# Each content meets every QP across the shapes: (shape i + content j)
+# picks the QP.
+D3_SHAPES = D2_SHAPES
+D3_CONTENT = ("flat", "noise", "rows", "saturate")
+D3_QPS = (0, 11, 12, 28, 51)
+D3_CASES = [(shape, content, D3_QPS[(i + j) % len(D3_QPS)])
+            for i, shape in enumerate(D3_SHAPES)
+            for j, content in enumerate(D3_CONTENT)]
+# D4: the inter SAD makes intra win on a share of the MBs (0, ~1% -- at
+# least one MB --, 50%, 100%), or ties it exactly ("ties": the intra SAD
+# itself on half the MBs, exact up to each lane's first tie, which inter
+# wins and which changes the chain after it)
+D4_SHARE = {"inter": 0.0, "sparse": 0.01, "half": 0.5, "intra": 1.0,
+            "ties": 0.5}
+D4_CASES = [(shape, variant, D3_CONTENT[(i + j) % len(D3_CONTENT)],
+             D3_QPS[(i + j) % len(D3_QPS)])
+            for i, shape in enumerate(D3_SHAPES)
+            for j, variant in enumerate(D4_SHARE)]
+NO_INTER = 1 << 30  # an inter SAD no intra SAD reaches (at most 65,280)
+
+
+def d3_case(np, shape, content, qp):
+    """Seeded source frames (numpy uint8 y [S,H,W], u, v [S,H/2,W/2]) of a
+    D3 case, and its qp."""
+    s, r, c = shape
+    rng = np.random.default_rng(
+        [s, r, c, D3_CONTENT.index(content), qp])
+
+    def plane(n):
+        h, w = n * r, n * c
+        if content == "flat":  # one value a lane: DC and H predict alike
+            x = np.repeat(rng.integers(0, 256, (s, r, 1, 1)), n, 2)
+            x = np.broadcast_to(x, (s, r, n, w)).reshape(s, h, w)
+        elif content == "noise":
+            x = rng.integers(0, 256, (s, h, w))
+        elif content == "rows":  # a value a sample row: H wins
+            x = np.broadcast_to(rng.integers(0, 256, (s, h, 1)), (s, h, w))
+        else:  # "saturate": 0 and 255 samples, so recon passes both
+            x = np.where(rng.random((s, h, w)) < 0.5, 0, 255)
+            x[:, :, ::3] = rng.integers(0, 256, (s, h, (w + 2) // 3))
+        return np.ascontiguousarray(x).astype(np.uint8)
+
+    return plane(16), plane(8), plane(8), qp
+
+
+def d4_args(torch, case, dev):
+    """`_intra_in_p_scan`'s arguments (a dict) for a D4_CASES entry on
+    `dev`: the case's source as MB views of int32 planes, `rec_inter`
+    random samples, and the inter SAD of its variant ("ties": the plain
+    scan's intra SADs when every MB takes intra, on half the MBs)."""
+    import numpy as np
+
+    from tpuh264_torch.kernels import iframe, pframe
+    from tpuh264_torch.kernels.transform import chroma_qp_from_luma
+
+    shape, variant, content, qp = case
+    s, r, c = shape
+    y, u, v, _ = d3_case(np, shape, content, qp)
+    rng = np.random.default_rng([s, r, c, list(D4_SHARE).index(variant)])
+    i32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32))
+    mbs = [iframe._plane_to_mbs(i32(p), n)
+           for p, n in ((y, 16), (u, 8), (v, 8))]
+    rec = tuple(i32(rng.integers(0, 256, (s, r, c, n, n)))
+                for n in (16, 8, 8))
+    intra = rng.random((s, r, c)) < D4_SHARE[variant]
+    if variant == "sparse" and not intra.any():
+        intra[tuple(int(rng.integers(0, n)) for n in shape)] = True
+    isad = np.where(intra, NO_INTER, 0)
+    kw = dict(src_mbs=mbs[0], u_mbs=mbs[1], v_mbs=mbs[2], rec_inter=rec,
+              qp=qp, qpc=chroma_qp_from_luma(qp))
+    if variant == "ties":
+        _, m, _ = pframe._intra_in_p_scan_plain(
+            **kw, inter_sad=torch.full((s, r, c), NO_INTER,
+                                       dtype=torch.int32))
+        isad = np.where(intra, NO_INTER, m.sad.numpy())
+    kw["inter_sad"] = i32(isad)
+    return {k: (tuple(p.to(dev) for p in x) if isinstance(x, tuple) else
+                x.to(dev) if torch.is_tensor(x) else x)
+            for k, x in kw.items()}
+
+
+def d4_capture(fn):
+    """The arguments (dicts) of the `_intra_in_p_scan` calls that `fn()`
+    makes: the P encode's own inputs of the intra-in-P scan."""
+    import inspect
+
+    from tpuh264_torch.kernels import pframe
+
+    real = pframe._intra_in_p_scan
+    sig = inspect.signature(real)
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(dict(sig.bind(*a, **kw).arguments))
+        return real(*a, **kw)
+
+    spy.launches = real.launches
+    pframe._intra_in_p_scan = spy
+    try:
+        fn()
+    finally:
+        pframe._intra_in_p_scan = real
+        real.launches = spy.launches
+    return calls
+
+
+def k6_bytes(planes, kw=None, n_intra=0) -> int:
+    """K6 per MB: the source samples in (uint8 or int32), the four int32
+    fields and the int16 levels (16 + 256 + 8 + 120) out; D3 also the
+    i4modes (16 int16) and uint8 recon out; D4 (`kw`) also the inter SAD
+    in, `rec_inter` in only where inter wins (the result reads it
+    nowhere else), the intra SAD, the uint8 choice and the int32 final
+    recon out."""
+    n = planes[0].numel() // 256
+    src = sum(p.numel() * p.element_size() for p in planes)
+    out = n * (16 + 2 * (16 + 256 + 8 + 120))
+    if kw is None:
+        return src + out + n * (2 * 16 + 384)
+    return src + out + n * (4 + 4 + 1 + 4 * 384) + (n - n_intra) * 4 * 384
+
+
+def k6_cycles(ms: float, mhz: int, c: int) -> float:
+    """SM cycles a MB column of a lane (every lane walks its C columns in
+    parallel with the others)."""
+    return ms * 1e-3 * mhz * 1e6 / c
+
+
+def d3_equal(planes, qp, torch, what) -> int:
+    """K6 as the I encode's scan (D3) against its plain version on one
+    frame batch; fails unless every field and the recon are equal."""
+    from tpuh264_torch.kernels import iframe
+
+    k = iframe.encode_iframe_scan(*planes, qp)
+    p = iframe._encode_iframe_scan_plain(*planes, qp)
+    torch.cuda.synchronize()
+    pairs = list(zip((*k[0], *k[1]), (*p[0], *p[1])))
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        fail(f"K6 (D3) encode_iframe_scan differs from its plain version "
+             f"({what})")
+    return max(max_abs_err(a, b) for a, b in pairs)
+
+
+def d4_equal(kw, torch, what):
+    """K6 as the intra-in-P scan (D4) against its plain version on one
+    input (levels int16 in the kernel, int32 in the plain version); fails
+    unless equal.  Returns (max_abs_err, intra MBs)."""
+    from tpuh264_torch.kernels import pframe
+
+    use, m, rec = pframe._intra_in_p_scan(**kw)
+    puse, pm, prec = pframe._intra_in_p_scan_plain(**kw)
+    torch.cuda.synchronize()
+    pairs = [(use, puse), *zip(m[:-1], pm[:-1]), *zip(rec, prec)]
+    if not (use.dtype == torch.bool and all(
+            torch.equal(a.to(b.dtype), b) for a, b in pairs)):
+        fail(f"K6 (D4) _intra_in_p_scan differs from its plain version "
+             f"({what})")
+    return max(max_abs_err(a, b) for a, b in pairs), int(use.sum())
+
+
+def d3_timed(planes, qp, torch, what, card, mhz):
+    """D3 equal to its plain version on `planes`, timed beside it: a line,
+    and (max_abs_err, kernel ms, plain ms, bytes)."""
+    from tpuh264_torch.kernels import iframe
+
+    err = d3_equal(planes, qp, torch, what)
+    ms = timed(lambda: iframe.encode_iframe_scan(*planes, qp), 20)
+    plain = timed(lambda: iframe._encode_iframe_scan_plain(*planes, qp), 1)
+    nbytes = k6_bytes(planes)
+    bound = bound_ms(nbytes)
+    c = planes[0].shape[2] // 16
+    print(f"phase 2: K6 (D3) {what} ({list(planes[0].shape)} "
+          f"{planes[0].dtype}, QP {qp}): equal to plain (max_abs_err {err}); "
+          f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms "
+          f"(bytes, {nbytes / 1e6:.1f} MB): {100 * bound / ms:.2f}% of the "
+          f"bound; {k6_cycles(ms, mhz, c):.0f} cycles a MB column ({c} "
+          f"columns) at {mhz} MHz [{card}]")
+    return err, ms, plain, nbytes
+
+
+def d4_timed(kw, torch, what, card, mhz):
+    """D4 equal to its plain version on `kw`, timed beside it: a line."""
+    from tpuh264_torch.kernels import iframe, pframe
+
+    err, n_intra = d4_equal(kw, torch, what)
+    ms = timed(lambda: pframe._intra_in_p_scan(**kw), 20)
+    plain = timed(lambda: pframe._intra_in_p_scan_plain(**kw), 1)
+    planes = [iframe._mbs_to_plane(kw[k])
+              for k in ("src_mbs", "u_mbs", "v_mbs")]
+    nbytes = k6_bytes(planes, kw, n_intra)
+    bound = bound_ms(nbytes)
+    s, r, c = kw["inter_sad"].shape
+    print(f"phase 2: K6 (D4) {what} ([{s}, {r}, {c}] MBs, {n_intra} take "
+          f"intra, QP {kw['qp']}): equal to plain (max_abs_err {err}); "
+          f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms "
+          f"(bytes, {nbytes / 1e6:.1f} MB): {100 * bound / ms:.2f}% of the "
+          f"bound; {k6_cycles(ms, mhz, c):.0f} cycles a MB column at {mhz} "
+          f"MHz [{card}]")
+
+
+def d3_edges(dev, torch, np):
+    """K6 on the seeded cases: D3 on every D3_CASES entry (uint8 and int32
+    planes), D4 on every D4_CASES entry."""
+    for case in D3_CASES:
+        y, u, v, qp = d3_case(np, *case)
+        planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
+        d3_equal(planes, qp, torch, f"edge case {case}")
+        d3_equal([p.to(torch.int32) for p in planes], qp, torch,
+                 f"edge case {case}, int32")
+    for case in D4_CASES:
+        d4_equal(d4_args(torch, case, dev), torch, f"edge case {case}")
+    print(f"phase 2: K6 edge cases: D3 {len(D3_CASES)} x (uint8, int32), "
+          f"(S, R, C) {list(D3_SHAPES)} x {list(D3_CONTENT)}, QPs "
+          f"{list(D3_QPS)}; D4 {len(D4_CASES)}, intra shares "
+          f"{list(D4_SHARE)}: equal to plain")
+
+
 def k5_bytes(kw) -> int:
     """D2: mode, cmode and is_intra in (int32), then per MB one 1,536-byte
     input -- its residuals where intra, `other` elsewhere: the result
@@ -921,9 +1171,10 @@ def d2_rows(dev, torch, np, card, frames):
 
 
 def phase_kernels(dev, torch, np, card):
-    """Phase 2: K1-K5 against their plain versions at 1080p x 4 and on
-    edge cases, K2/K3 on intra-in-P symbols, K4 on t8 symbols and K5 on
-    default-config symbols at 480p x 8; K3 at its MB and slice levels."""
+    """Phase 2: K1-K6 against their plain versions at 1080p x 4 and on
+    edge cases, K2/K3 and K6 (D4) on intra-in-P inputs, K4 on t8 symbols
+    and K5 on default-config symbols at 480p x 8; K3 at its MB and slice
+    levels."""
     from tpuh264_torch.engine.sources import device_source_gop
     from tpuh264_torch.kernels import iframe, me_cuda, pframe
 
@@ -977,6 +1228,14 @@ def phase_kernels(dev, torch, np, card):
           f"cycles a MB column (120 columns) at {mhz} MHz [{card}]")
     # K5 (D2): the decoders' inputs of the P frame and the IDR, then 480p
     rows.append(d2_rows(dev, torch, np, card, (y, u, v, sym, sym_i)))
+    # K6 (D3): the 1080p x 4 I frame (the main path's GOP start), from
+    # its uint8 planes; the row of the kernel table, with its cycles
+    err, ms, plain, nbytes = d3_timed((y[0], u[0], v[0]), 30, torch,
+                                      "1080p x 4 I frame", card, mhz)
+    rows.append(kernel_row(
+        "K6", "encode_iframe_scan / _intra_in_p_scan (D3, D4, Intra_16x16 "
+        "encode column scan)", "tpuh264_torch/csrc/intra16_enc.cu",
+        "tpuh264/kernels/iframe.py:219", err, ms, plain, nbytes))
     for r in rows:
         show(r, "1080p x 4 shapes")
     del sym, sym4, sym_i
@@ -984,6 +1243,7 @@ def phase_kernels(dev, torch, np, card):
     k3_edges(dev, torch, np)
     d1_edges(dev, torch, np)
     d1_t8_480p(dev, torch, mhz, card)
+    d3_edges(dev, torch, np)
 
     # intra-in-P P symbols at 854x480 x 8: a band copied from the
     # reference (skips), the moving field (inter) and a flat patch no
@@ -996,11 +1256,16 @@ def phase_kernels(dev, torch, np, card):
         cur[i][:, :64 // sh] = p[0][:, :64 // sh]
         cur[i][:, 160 // sh:288 // sh, 96 // sh:480 // sh] = 30 + 40 * i
     refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
-    sym, _, _ = pframe.encode_pframe_rows_multi(*cur, *refs, 30,
-                                                intra_in_p=True)
+    out = []
+    p480, = d4_capture(lambda: out.append(pframe.encode_pframe_rows_multi(
+        *cur, *refs, 30, intra_in_p=True)))
+    sym = out[0][0]
     kinds = torch.bincount(sym.kind.reshape(-1), minlength=3).tolist()
     if min(kinds) == 0:
         fail(f"intra-in-P symbols lack an MB kind (skip/inter/intra): {kinds}")
+    # K6 (D4) on that P encode's own inputs of the intra-in-P scan
+    d4_timed(p480, torch, "854x480 x 8 intra-in-P P frame", card, mhz)
+    del p480
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
     for r in k23_rows(sym4, torch, "intra-in-P 854x480 x 8 x 4 frames"):
@@ -1236,28 +1501,33 @@ def phase_main(dev, torch, np, card):
     """Phase 4: the main path, 3 dispatches, enc DPB == dec DPB each time;
     K3 launched twice per entropy call (MB and slice level), the deblock
     (K4) 8 times per dispatch (4 encoder frames, 4 decoder frames), the
-    intra reconstruction (K5) 4 times (the decoder's frames)."""
+    intra reconstruction (K5) 4 times (the decoder's frames), K6 once a
+    GOP-start dispatch (its I frame; the RTC preset has no intra-in-P)."""
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
-    from tpuh264_torch.kernels import cavlc_cuda, deblock, iframe
+    from tpuh264_torch.kernels import cavlc_cuda, deblock, iframe, pframe
 
     cfg = CodecConfig(width=1920, height=1080, streams=4, qp=None,
                       bitrate=4_000_000, intra_in_p=False)
     pipe = GOPDevicePipeline(cfg, gop_size=8, source_kind="rigid",
                              device=dev)
     spy = SymbolSpy(pipe, torch)
-    qps, times, k3, k4, k5 = [], [], [], [], []
+    qps, times, k3, k4, k5, k6 = [], [], [], [], [], []
+    k6_count = lambda: (iframe.encode_iframe_scan.launches
+                        + pframe._intra_in_p_scan.launches)
     for i in range(3):
         qps.append(pipe.rc.current_qp())
         n0 = cavlc_cuda.merge_tree.launches
         d0 = deblock.deblock_frame_rows.launches
         r0 = iframe._intra_recon_scan.launches
+        e0 = k6_count()
         t0 = time.perf_counter()
         pipe.pump_frame()
         times.append(time.perf_counter() - t0)
         k3.append(cavlc_cuda.merge_tree.launches - n0)
         k4.append(deblock.deblock_frame_rows.launches - d0)
         k5.append(iframe._intra_recon_scan.launches - r0)
+        k6.append(k6_count() - e0)
         check_dpbs(pipe, np, "1080p", i)
     expect = [4 if st else 2 for st in spy.starts]
     if k3 != expect:
@@ -1268,11 +1538,15 @@ def phase_main(dev, torch, np, card):
     if k5 != [4, 4, 4]:  # one a decoded frame, the IDR's included
         fail(f"1080p: intra recon launches per dispatch {k5}, expected 4 "
              f"each")
+    if k6 != [int(st) for st in spy.starts]:
+        fail(f"1080p: K6 launches per dispatch {k6}, expected one a GOP "
+             f"start (GOP starts {spy.starts})")
     print(f"phase 4: 1920x1080 x 4, CBR 4 Mbps, gop 8, rigid: 3 dispatches "
           f"(12 frames, GOP starts {spy.starts}), decoder DPB == encoder DPB "
           f"after each; K3 launches per dispatch {k3} (MB + slice level per "
           f"entropy call), K4 (deblock) {k4} (4 encoder + 4 decoder "
-          f"frames), K5 (intra recon) {k5} (4 decoded frames); QP {qps}; "
+          f"frames), K5 (intra recon) {k5} (4 decoded frames), K6 (intra16 "
+          f"encode) {k6} (the I frames); QP {qps}; "
           f"PSNR {pipe.last_psnr_y:.2f} dB; pump_frame s "
           f"{[round(t, 3) for t in times]} [{card}]")
 
@@ -1467,7 +1741,7 @@ def phase_device_pipeline(dev, torch, np, card, launches):
         for _ in range(2):
             pipe.pump_frame()
 
-    launches.path("DevicePipeline 480p x 8", drive, needs=(1, 2, 4))
+    launches.path("DevicePipeline 480p x 8", drive, needs=(1, 2, 4, 5))
     if pipe.fallback_packs:
         fail("DevicePipeline: host repack")
     # the port's own decode of frame 0's bytes (native parse + I scan):
@@ -1627,7 +1901,7 @@ def phase_sessions(dev, np, card, launches):
                              decode_ms=round(dec_ms, 1)))
 
     launches.path("EncoderSession + DecoderPool 480p x 8", drive,
-                  needs=(0, 3, 4))
+                  needs=(0, 3, 4, 5))
     stay_fast([pool[i] for i in range(s)], "480p sessions")
     if len(i4) != 2 or min(i4) <= 0:
         fail(f"480p sessions: Intra_4x4 share of the IDR frames {i4}")
@@ -1727,7 +2001,7 @@ def phase_app_tpu(dev, np, card, launches):
         app.stop()
         box["pipe"] = pipe
 
-    launches.path("App tpu 480p fan-out 8", drive, needs=(0, 4))
+    launches.path("App tpu 480p fan-out 8", drive, needs=(0, 4, 5))
     stats, pipe = box["stats"], box["pipe"]
     if app.error is not None:
         fail(f"App tpu: the pump thread failed: {app.error!r}")
@@ -1923,7 +2197,7 @@ def phase_config3(dev, np, card, launches):
                 entropy_ms=round(tm["entropy_ms"], 1),
                 decode_ms=round(dec_ms, 1)))
 
-    _, counts = launches.path("config 3 1080p", drive, needs=(0, 4))
+    _, counts = launches.path("config 3 1080p", drive, needs=(0, 4, 5))
     intra, t8, ref1 = spy.shares()
     if spy.searched != [1, 2, 2, 2, 2] or counts[0] != sum(spy.searched):
         fail(f"config 3: K1 launched {counts[0]} times for the references "
@@ -2010,7 +2284,7 @@ def part_b(dev, np, card, launches, torch):
                          round(tm["entropy_ms"], 1), round(dec_ms, 1)))
 
     _, counts = launches.path("config 3 part B 480p x 8", drive,
-                              needs=(0, 3, 4))
+                              needs=(0, 3, 4, 5))
     stay_fast([pool[i] for i in range(s)], "config 3 part B")
     intra, t8, ref1 = spy.shares()
     if counts[0] != sum(spy.searched) or t8 <= 0:
@@ -2100,10 +2374,19 @@ def shard_rank(rank: int, tmp: str) -> None:
         frames = [[np.load(os.path.join(tmp, f"{p}{t}.npy"), mmap_mode="r")
                    for p in "yuv"] for t in range(n)]
         i_fn, p_fn = dm.sharded_gop_step(mesh, fused_halo=True)
-        plain = []
+        plain, plain6 = [], []
         sad = me_cuda._sad_field
         me_cuda._sad_field = lambda *a: plain.append(1) or sad(*a)
         k1 = me_cuda.sad_field.launches
+        # K6 once a frame (the I step's scan, then each P step's
+        # intra-in-P scan), its plain versions never
+        k6_fns = (iframe.encode_iframe_scan, pframe._intra_in_p_scan)
+        k6 = sum(f.launches for f in k6_fns)
+        p6 = [(iframe, "_encode_iframe_scan_plain"),
+              (pframe, "_intra_in_p_scan_plain")]
+        p6_saved = [getattr(m, a) for m, a in p6]
+        for (m, a), f in zip(p6, p6_saved):
+            setattr(m, a, _plain_spy(a, f, plain6))
         sync()
         t0 = time.perf_counter()
         sym, rec = i_fn(*dm.shard_inputs(mesh, *frames[0]), qp)
@@ -2121,6 +2404,9 @@ def shard_rank(rank: int, tmp: str) -> None:
             mots.append(mot)
         k1 = me_cuda.sad_field.launches - k1
         me_cuda._sad_field = sad
+        k6 = sum(f.launches for f in k6_fns) - k6
+        for (m, a), f in zip(p6, p6_saved):
+            setattr(m, a, f)
         # each rank decodes its own P symbols against its halo-extended DPB
         # (K5 once a frame, its plain version never)
         halo_ok, plain5 = True, []
@@ -2140,11 +2426,13 @@ def shard_rank(rank: int, tmp: str) -> None:
                 [dm.gather(mesh, x) for x in recs[t]],
                 [dm.gather(mesh, x) for x in mots[t - 1]] if t else [])
                for t in range(n)]
-        ok = halo_ok and k1 == k5 == n - 1 and not plain and not plain5
+        ok = (halo_ok and k1 == k5 == n - 1 and k6 == n and not plain
+              and not plain5 and not plain6)
         result = dict(rank=rank, band=[mesh.stream_index, mesh.row_index],
                       shape=list(recs[0][0].shape), k1_launches=k1,
                       plain_k1_calls=len(plain), k5_launches=k5,
-                      plain_k5_calls=len(plain5), i_ms=round(i_ms, 1),
+                      plain_k5_calls=len(plain5), k6_launches=k6,
+                      plain_k6_calls=len(plain6), i_ms=round(i_ms, 1),
                       p_step_ms=p_ms, halo_decode_equal=bool(halo_ok))
         if rank == 0:
             # the unsharded encode of the same frames on the same device
@@ -2323,20 +2611,24 @@ def phase_dist(dev, np, card, launches):
         t_a = time.perf_counter()
         k1 = sum(r["k1_launches"] for r in ranks)
         k5 = sum(r["k5_launches"] for r in ranks)
+        k6 = sum(r["k6_launches"] for r in ranks)
         if (k1 != world * (n_frames - 1) or k5 != k1
+                or k6 != world * n_frames
                 or any(r["plain_k1_calls"] or r["plain_k5_calls"]
-                       for r in ranks)):
+                       or r["plain_k6_calls"] for r in ranks)):
             fail(f"phase 16(a): K1 launched {k1} times, K5 {k5} (expected "
-                 f"{world * (n_frames - 1)} each); plain K1 "
+                 f"{world * (n_frames - 1)} each), K6 {k6} (expected "
+                 f"{world * n_frames}); plain K1 "
                  f"{[r['plain_k1_calls'] for r in ranks]}, plain K5 "
-                 f"{[r['plain_k5_calls'] for r in ranks]}")
+                 f"{[r['plain_k5_calls'] for r in ranks]}, plain K6 "
+                 f"{[r['plain_k6_calls'] for r in ranks]}")
         r0 = ranks[0]
         for r in ranks:
             print(f"phase 16(a): rank {r['rank']} band {r['band']} "
                   f"{r['shape']}: I {r['i_ms']} ms, P steps {r['p_step_ms']}"
                   f" ms (fenced, halo exchange included), halo decode == "
                   f"band {r['halo_decode_equal']}, K1 {r['k1_launches']}, "
-                  f"K5 {r['k5_launches']} [{card}]")
+                  f"K5 {r['k5_launches']}, K6 {r['k6_launches']} [{card}]")
         print(f"phase 16(a): BASELINE config 5 cut to one card: "
               f"{SHARD_STREAMS} x {SHARD_W}x{SHARD_H} 'rigid', I + "
               f"{n_frames - 1} P at QP {SHARD_QP} (GOP depth cut to "
@@ -2346,7 +2638,8 @@ def phase_dist(dev, np, card, launches):
               f"unsharded {r0['unsharded_ms']} ms on rank 0); "
               f"{r0['crossing_mbs']} MBs with a vertical MV across the "
               f"band edge; K1 {k1} launches, plain K1 none; K5 {k5} "
-              f"launches (the halo decodes), plain K5 none; frames made in "
+              f"launches (the halo decodes), plain K5 none; K6 {k6} "
+              f"launches (I and P steps), plain K6 none; frames made in "
               f"{t_made - t_phase:.1f} s, ranks {t_a - t_made:.1f} s "
               f"[{card}]")
 
@@ -2393,6 +2686,7 @@ def phase_dist(dev, np, card, launches):
     launches.total[0] += k1 + sum(r["k1_launches"] for r in mh_res) + \
         nccl_res["k1_launches"]
     launches.total[4] += k5
+    launches.total[5] += k6
     phase_bench(dev, card, launches)
     print(f"phase 16: wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
@@ -2525,7 +2819,8 @@ def main() -> None:
         r["launches"] = n
     print(f"launches summed over the driven paths: K1 {launches.total[0]}, "
           f"K2 {launches.total[1]}, K3 {launches.total[2]}, K4 (deblock) "
-          f"{launches.total[3]}, K5 (intra recon) {launches.total[4]}")
+          f"{launches.total[3]}, K5 (intra recon) {launches.total[4]}, K6 "
+          f"(intra16 encode) {launches.total[5]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

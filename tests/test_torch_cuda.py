@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1, K2, K3, the deblock D1, the intra
-reconstruction D2) against their plain PyTorch versions, on the card,
-plus the wrappers' no-fallback rule.
+reconstruction D2, the Intra_16x16 encode scans D3 / D4) against their
+plain PyTorch versions, on the card, plus the wrappers' no-fallback rule.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed.  On a machine with a card and nvcc:
@@ -27,7 +27,8 @@ from tpuh264_torch.kernels import pframe as TP
 def _launches():
     return (me_cuda.sad_field.launches, cavlc_cuda.pack_blocks.launches,
             cavlc_cuda.merge_tree.launches, DB.deblock_frame_rows.launches,
-            IF._intra_recon_scan.launches)
+            IF._intra_recon_scan.launches, IF.encode_iframe_scan.launches,
+            TP._intra_in_p_scan.launches)
 
 
 @pytest.fixture
@@ -448,6 +449,109 @@ def test_intra_recon_raises_without_fallback(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="th264_intra_recon_rows"):
         IF._intra_recon_scan(**kw)
     assert not plain
+
+
+def _i16_both(planes, qp):
+    """K6 as the I encode's scan (D3) and its plain version, one input."""
+    before = IF.encode_iframe_scan.launches
+    got = IF.encode_iframe_scan(*planes, qp)
+    want = IF._encode_iframe_scan_plain(*planes, qp)
+    torch.cuda.synchronize()
+    assert IF.encode_iframe_scan.launches == before + 1
+    for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _i16_in_p_both(kw):
+    """K6 as the intra-in-P scan (D4) and its plain version, one input:
+    the kernel's levels are int16, the plain version's int32."""
+    before = TP._intra_in_p_scan.launches
+    use, m, rec = TP._intra_in_p_scan(**kw)
+    puse, pm, prec = TP._intra_in_p_scan_plain(**kw)
+    torch.cuda.synchronize()
+    assert TP._intra_in_p_scan.launches == before + 1
+    assert use.dtype == torch.bool and torch.equal(use, puse)
+    for f in IF.Intra16._fields[:-1]:
+        assert torch.equal(getattr(m, f).to(torch.int32), getattr(pm, f)), f
+    for a, b in zip(rec, prec):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.D3_CASES)
+def test_intra16_kernel_matches_plain_d3_cases(dev, case):
+    """D3 on chip_smoke phase 2's seeded frames (C = 1, 2, 3 and 61; flat,
+    noise, rows, 0 / 255; QP 0, 11, 12, 28, 51), uint8 and int32."""
+    y, u, v, qp = chip_smoke.d3_case(np, *case)
+    planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
+    _i16_both(planes, qp)
+    _i16_both([p.to(torch.int32) for p in planes], qp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.D4_CASES)
+def test_intra16_kernel_matches_plain_d4_cases(dev, case):
+    """D4 on the seeded cases: intra shares 0 / ~1% / 50% / 100% and
+    exact ties of the intra and inter SADs."""
+    _i16_in_p_both(chip_smoke.d4_args(torch, case, dev))
+
+
+@pytest.mark.cuda
+def test_intra16_kernel_matches_plain_1080p(dev):
+    """D3 on a 1080p x 4 frame of "rigid", and D4 on the intra-in-P P
+    encode's own inputs of the scan at 480p x 8."""
+    y, u, v, _, _, _ = chip_smoke.pframe_1080p(dev, torch)
+    _i16_both((y[0], u[0], v[0]), 30)
+    calls = chip_smoke.d4_capture(lambda: chip_smoke.pframe_480p(
+        dev, torch, t8=False, gap=8))
+    assert len(calls) == 1
+    _i16_in_p_both(calls[0])
+
+
+@pytest.mark.cuda
+def test_intra16_raises_without_fallback(dev, monkeypatch):
+    """A kernel library that cannot be built, or an entry that reports a
+    CUDA error at launch, raises: the plain versions are never taken;
+    with intra44 the I encode takes its plain version by argument."""
+    y, u, v, qp = chip_smoke.d3_case(np, (2, 2, 3), "noise", 28)
+    planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
+    kw = chip_smoke.d4_args(torch, chip_smoke.D4_CASES[7], dev)
+    lib = cuda_lib.load()
+    plain = []
+    monkeypatch.setattr(IF, "_encode_iframe_scan_plain",
+                        lambda *a, **k: plain.append(1))
+    monkeypatch.setattr(TP, "_intra_in_p_scan_plain",
+                        lambda *a, **k: plain.append(1))
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_lib, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        IF.encode_iframe_scan(*planes, qp)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        TP._intra_in_p_scan(**kw)
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def th264_intra16_encode_rows(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+        @staticmethod
+        def th264_intra16_in_p_rows(*args):
+            return 9
+
+    monkeypatch.setattr(cuda_lib, "load", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="th264_intra16_encode_rows"):
+        IF.encode_iframe_scan(*planes, qp)
+    with pytest.raises(RuntimeError, match="th264_intra16_in_p_rows"):
+        TP._intra_in_p_scan(**kw)
+    assert not plain
+    IF.encode_iframe_scan(*planes, qp, intra44=True)
+    assert plain == [1]
 
 
 def test_wrappers_raise_off_cpu_without_fallback():

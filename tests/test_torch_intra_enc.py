@@ -1,0 +1,355 @@
+"""The encoder's Intra_16x16 column scans (D3, the I encode; D4, the
+intra-in-P trial of the P encode) and their kernel K6: the port's
+encodes against the JAX package's on seeded frames, the kernel's source
+run on CPU threads against the plain versions, and the routers' routes.
+
+The inputs come from `chip_smoke.d3_case` / `d4_args`, the generators
+chip_smoke.py phase 2 holds the kernel to its plain versions with on the
+card.  Every comparison is exact (array_equal): this is an integer codec.
+"""
+
+import os
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import cuda_threads
+from tpuh264.kernels import iframe as jif
+from tpuh264.kernels import pframe as jpf
+from tpuh264_torch.kernels import cuda_lib
+from tpuh264_torch.kernels import iframe as tif
+from tpuh264_torch.kernels import pframe as tpf
+
+SOURCE = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc",
+                      "intra16_enc.cu")
+D3_IDS = [f"{s}-{c}-qp{q}" for s, c, q in chip_smoke.D3_CASES]
+D4_IDS = [f"{s}-{v}-{c}-qp{q}" for s, v, c, q in chip_smoke.D4_CASES]
+
+
+def _frames(case):
+    y, u, v, qp = chip_smoke.d3_case(np, *case)
+    return (y, u, v), qp
+
+
+def _eq(a, b, msg=""):
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=msg)
+
+
+@pytest.mark.parametrize("case", chip_smoke.D3_CASES, ids=D3_IDS)
+def test_iframe_encode_matches_jax(case):
+    """The port's `encode_iframe_rows` (the plain scan on the CPU) equals
+    JAX `encode_iframe_scan`: every symbol field and the recon."""
+    planes, qp = _frames(case)
+    jsym, jrec = jif.encode_iframe_scan(*planes, qp)
+    tsym, trec = tif.encode_iframe_rows(*map(torch.from_numpy, planes), qp)
+    for f in tif.MBSymbols._fields:
+        _eq(getattr(jsym, f), getattr(tsym, f).numpy(), f)
+    for a, b in zip(jrec, trec):
+        assert b.dtype == torch.uint8
+        _eq(a, b.numpy(), "recon")
+
+
+def _p_frames(shape, seed):
+    """A P frame and its reference [1, S, H, W] (int32 numpy): the
+    reference holds the frame in a random half of the MBs (inter wins at
+    SAD 0) and unrelated noise elsewhere, where the frame is flat, rows
+    or noise by MB (Intra_16x16 wins many of them)."""
+    s, r, c = shape
+    rng = np.random.default_rng([s, r, c, seed])
+    cur, ref = [], []
+    for n in (16, 8, 8):
+        kind = rng.integers(0, 3, (s, r, c))
+        flat = np.repeat(np.repeat(rng.integers(0, 256, (s, r, c)), n, 1),
+                         n, 2)
+        rows = np.repeat(rng.integers(0, 256, (s, r * n, c)), n, 2)
+        noise = rng.integers(0, 256, (s, r * n, c * n))
+        up = lambda k: np.repeat(np.repeat(kind == k, n, 1), n, 2)
+        x = np.where(up(0), flat, np.where(up(1), rows, noise))
+        keep = np.repeat(np.repeat(rng.random((s, r, c)) < 0.5, n, 1), n, 2)
+        cur.append(x.astype(np.int32))
+        ref.append(np.where(keep, x, rng.integers(0, 256, x.shape))
+                   .astype(np.int32)[None])
+    return cur, ref
+
+
+# two shapes (a JAX compile each): short lanes, and the long one
+P_SHAPES = ((3, 2, 3), (2, 2, 61))
+
+
+@pytest.mark.parametrize("shape", P_SHAPES)
+@pytest.mark.parametrize("qp", (0, 11, 28, 51))
+def test_pframe_intra_in_p_matches_jax(shape, qp):
+    """The port's `encode_pframe_rows_multi(intra_in_p=True)` (its D4
+    scan the plain version on the CPU) equals JAX's: symbols, recon and
+    motion; the frame codes intra and other MBs."""
+    cur, ref = _p_frames(shape, qp)
+    jsym, jrec, jmot = jpf.encode_pframe_rows_multi(*cur, *ref, qp,
+                                                    intra_in_p=True)
+    tsym, trec, tmot = tpf.encode_pframe_rows_multi(
+        *map(torch.from_numpy, cur), *map(torch.from_numpy, ref), qp,
+        intra_in_p=True)
+    for f in jpf.MBSymbolsP._fields:
+        if getattr(jsym, f) is not None:
+            _eq(getattr(jsym, f), getattr(tsym, f).numpy(), f)
+    for a, b in zip((*jrec, *jmot), (*trec, *tmot)):
+        _eq(a, b.numpy())
+    assert (tsym.kind == tpf.KIND_INTRA).any()
+    assert (tsym.kind != tpf.KIND_INTRA).any()
+
+
+def test_cases_cover_what_they_claim():
+    """C = 1, 2, 3 and a lane of C >= 54; S and R from 1 to 4; every QP
+    with every content; flat content ties DC and H, rows make H win, the
+    saturated content's recon reaches 0 and 255; D4's intra shares 0,
+    ~1% (at least one MB), 50% and 100% of the MBs, and exact ties."""
+    shapes = set(chip_smoke.D3_SHAPES)
+    assert {1, 2, 3} <= {c for _, _, c in shapes}
+    assert any(c >= 54 for _, _, c in shapes)
+    assert {s for s, _, _ in shapes} == {1, 2, 3, 4}
+    assert {r for _, r, _ in shapes} == {1, 2, 3, 4}
+    pairs = {(c, q) for _, c, q in chip_smoke.D3_CASES}
+    assert pairs == {(c, q) for c in chip_smoke.D3_CONTENT
+                     for q in chip_smoke.D3_QPS}
+    modes, cmodes, clipped = {}, set(), set()
+    for case in chip_smoke.D3_CASES:
+        planes, qp = _frames(case)
+        sym, rec = tif._encode_iframe_scan_plain(
+            *map(torch.from_numpy, planes), qp)
+        later = sym.mode[..., 1:]
+        modes.setdefault(case[1], set()).update(later.unique().tolist())
+        cmodes.update(sym.cmode[..., 1:].unique().tolist())
+        if case[1] == "saturate":
+            clipped |= {v for v in (0, 255) if (rec[0] == v).any()}
+    assert modes["flat"] == {2} and 1 in modes["rows"]
+    assert set().union(*modes.values()) == {1, 2} and cmodes == {0, 1}
+    assert clipped == {0, 255}
+    long = max(shapes, key=lambda x: x[2])
+    ties = 0
+    for variant, share in chip_smoke.D4_SHARE.items():
+        case = next(k for k in chip_smoke.D4_CASES
+                    if k[0] == long and k[1] == variant)
+        kw = chip_smoke.d4_args(torch, case, "cpu")
+        use, m, _ = tpf._intra_in_p_scan_plain(**kw)
+        got = use.float().mean().item()
+        if variant == "sparse":
+            assert 0 < got < 0.05
+        elif variant == "ties":
+            ties += int((m.sad == kw["inter_sad"]).sum())
+        else:
+            assert got == pytest.approx(share, abs=0.1)
+    assert ties >= long[0] * long[1]  # each lane's first tie at least
+
+
+# Reads int32 lanes C qp qpc src_u8 d4, then the source planes y u v
+# (uint8 where src_u8, else int32) and, where d4, the int32 inter SAD and
+# rec_inter y u v; writes every output in the entry's order.
+HARNESS = r"""
+#include <cuda_runtime.h>
+#include <cstdio>
+#include <thread>
+#include <vector>
+#include "intra16_enc.cu"
+template <typename T> bool rd(std::vector<T>& x) {
+  return fread(x.data(), sizeof(T), x.size(), stdin) == x.size();
+}
+template <typename T> void wr(const std::vector<T>& x) {
+  fwrite(x.data(), sizeof(T), x.size(), stdout);
+}
+int main() {
+  int32_t h[6];
+  if (fread(h, 4, 6, stdin) != 6) return 2;
+  const int lanes = h[0], C = h[1], qp = h[2], qpc = h[3], u8 = h[4],
+            d4 = h[5];
+  const size_t m = (size_t)lanes * C, es = u8 ? 1 : 4;
+  std::vector<uint8_t> sy(256 * m * es), su(64 * m * es), sv(64 * m * es);
+  std::vector<int32_t> isad(d4 ? m : 0), iy(d4 ? 256 * m : 0),
+      iu(d4 ? 64 * m : 0), iv(d4 ? 64 * m : 0);
+  if (!rd(sy) || !rd(su) || !rd(sv) || !rd(isad) || !rd(iy) || !rd(iu) ||
+      !rd(iv))
+    return 3;
+  std::vector<int32_t> mode(m), cmode(m), cbl(m), cbc(m), sad(d4 ? m : 0);
+  std::vector<uint8_t> use(d4 ? m : 0);
+  std::vector<int16_t> dc(16 * m), ac(256 * m), cdc(8 * m), cac(120 * m),
+      i4(d4 ? 0 : 16 * m);
+  std::vector<uint8_t> ry8(d4 ? 0 : 256 * m), ru8(d4 ? 0 : 64 * m),
+      rv8(d4 ? 0 : 64 * m);
+  std::vector<int32_t> ry(d4 ? 256 * m : 0), ru(d4 ? 64 * m : 0),
+      rv(d4 ? 64 * m : 0);
+  auto p = [](auto& v) { return v.empty() ? nullptr : v.data(); };
+  const Args args{sy.data(), su.data(), sv.data(), u8, p(isad), p(iy),
+                  p(iu), p(iv), mode.data(), cmode.data(), cbl.data(),
+                  cbc.data(), p(sad), p(use), dc.data(), ac.data(),
+                  cdc.data(), cac.data(), p(i4), p(ry8), p(ru8), p(rv8),
+                  p(ry), p(ru), p(rv), lanes, C, qp, qpc};
+  std::barrier<> warp(32);
+  g_warp[0] = &warp;
+  for (int b = 0; b < lanes; ++b) {
+    std::vector<std::thread> block;
+    for (int t = 0; t < 32; ++t)
+      block.emplace_back([&, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        intra16_enc_kernel(args);
+      });
+    for (auto& th : block) th.join();
+  }
+  wr(mode), wr(cmode), wr(cbl), wr(cbc), wr(sad), wr(use), wr(dc), wr(ac);
+  wr(cdc), wr(cac), wr(i4), wr(ry8), wr(ru8), wr(rv8), wr(ry), wr(ru);
+  wr(rv);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def cpu_kernel(tmp_path_factory):
+    """csrc/intra16_enc.cu (all but its launch entries) built with g++
+    against the shims of cuda_threads.py: the kernel's own source, a
+    lane's 32 threads as std::threads, its shuffles through barriers."""
+    return cuda_threads.build(tmp_path_factory.mktemp("intra16_enc_cpu"),
+                              HARNESS, os.path.dirname(SOURCE),
+                              "intra16_enc_cpu")
+
+
+def _run(exe, planes, qp, d4=None):
+    """K6's source on CPU threads: its outputs as a dict of numpy arrays
+    (the K6Out names; recon rec_y, rec_u, rec_v), planes uint8 or int32
+    [S, H, W] x 3."""
+    s, h, w = planes[0].shape
+    r, c = h // 16, w // 16
+    m, u8 = s * r * c, planes[0].dtype == torch.uint8
+    qpc = tif.T.chroma_qp_from_luma(qp)
+    head = np.array([s * r, c, qp, qpc, u8, d4 is not None], np.int32)
+    ins = list(planes) + ([] if d4 is None else [d4[0], *d4[1]])
+    body = head.tobytes() + b"".join(
+        x.contiguous().numpy().tobytes() for x in ins)
+    out = subprocess.run([exe], input=body, capture_output=True,
+                         check=True).stdout
+    mb = (s, r, c)
+    spec = [("mode", mb, np.int32), ("cmode", mb, np.int32),
+            ("cbp_luma", mb, np.int32), ("cbp_chroma", mb, np.int32)]
+    if d4 is not None:
+        spec += [("sad", mb, np.int32), ("use", mb, np.uint8)]
+    spec += [("luma_dc", (*mb, 16), np.int16),
+             ("luma_ac", (*mb, 16, 16), np.int16),
+             ("chroma_dc", (*mb, 2, 4), np.int16),
+             ("chroma_ac", (*mb, 2, 4, 15), np.int16)]
+    if d4 is None:
+        spec += [("i4modes", (*mb, 16), np.int16),
+                 ("rec_y", (s, h, w), np.uint8),
+                 ("rec_u", (s, h // 2, w // 2), np.uint8),
+                 ("rec_v", (s, h // 2, w // 2), np.uint8)]
+    else:
+        spec += [("rec_y", (*mb, 16, 16), np.int32),
+                 ("rec_u", (*mb, 8, 8), np.int32),
+                 ("rec_v", (*mb, 8, 8), np.int32)]
+    got, off = {}, 0
+    for name, shape, dt in spec:
+        n = int(np.prod(shape)) * np.dtype(dt).itemsize
+        got[name] = np.frombuffer(out[off:off + n], dt).reshape(shape)
+        off += n
+    assert off == len(out)
+    return got
+
+
+@pytest.mark.parametrize("case", chip_smoke.D3_CASES, ids=D3_IDS)
+def test_kernel_source_on_cpu_threads_matches_plain_d3(cpu_kernel, case):
+    """D3: the kernel's roles, butterflies, shuffle reductions and DC
+    Hadamards, run a lane's 32 threads at a time, equal the plain I
+    encode on the case, from uint8 and from int32 planes."""
+    planes, qp = _frames(case)
+    planes = [torch.from_numpy(p) for p in planes]
+    sym, rec = tif._encode_iframe_scan_plain(*planes, qp)
+    for src in (planes, [p.to(torch.int32) for p in planes]):
+        got = _run(cpu_kernel, src, qp)
+        for f in tif.MBSymbols._fields:
+            _eq(got[f], getattr(sym, f).numpy(), f)
+        for f, want in zip(("rec_y", "rec_u", "rec_v"), rec):
+            _eq(got[f], want.numpy(), f)
+
+
+@pytest.mark.parametrize("case", chip_smoke.D4_CASES, ids=D4_IDS)
+def test_kernel_source_on_cpu_threads_matches_plain_d4(cpu_kernel, case):
+    """D4: the same kernel with the inter choice equals the plain
+    intra-in-P scan: the choice, every Intra16 field and the final
+    reconstruction that chains into the next column."""
+    kw = chip_smoke.d4_args(torch, case, "cpu")
+    use, m, rec = tpf._intra_in_p_scan_plain(**kw)
+    planes = [tif._mbs_to_plane(kw[k]).contiguous()
+              for k in ("src_mbs", "u_mbs", "v_mbs")]
+    got = _run(cpu_kernel, planes, kw["qp"], (kw["inter_sad"],
+                                              kw["rec_inter"]))
+    _eq(got["use"], use.numpy().astype(np.uint8), "use")
+    for f in ("mode", "cmode", "sad", "cbp_luma", "cbp_chroma", "chroma_dc",
+              "chroma_ac"):
+        _eq(got[f], getattr(m, f).numpy(), f)
+    _eq(got["luma_dc"], m.dc_zz.numpy(), "dc_zz")
+    _eq(got["luma_ac"], m.ac_zz.reshape(got["luma_ac"].shape).numpy(),
+        "ac_zz")
+    for f, want in zip(("rec_y", "rec_u", "rec_v"), rec):
+        _eq(got[f], want.numpy(), f)
+
+
+def _refuse():
+    raise AssertionError("the kernel library was loaded for CPU tensors")
+
+
+def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
+    """On CPU tensors both routers (and the I and P encodes through them)
+    take the plain versions: the kernel library is never loaded and the
+    launch counters do not move."""
+    monkeypatch.setattr(cuda_lib, "load", _refuse)
+    before = (tif.encode_iframe_scan.launches,
+              tpf._intra_in_p_scan.launches)
+    planes, qp = _frames(chip_smoke.D3_CASES[6])
+    planes = [torch.from_numpy(p) for p in planes]
+    got = tif.encode_iframe_scan(*planes, qp)
+    want = tif._encode_iframe_scan_plain(*planes, qp)
+    for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        assert torch.equal(a, b)
+    kw = chip_smoke.d4_args(torch, chip_smoke.D4_CASES[7], "cpu")
+    got = tpf._intra_in_p_scan(**kw)
+    want = tpf._intra_in_p_scan_plain(**kw)
+    assert torch.equal(got[0], want[0])
+    cur, ref = _p_frames((2, 2, 3), 1)
+    tpf.encode_pframe_rows_multi(*map(torch.from_numpy, cur),
+                                 *map(torch.from_numpy, ref), 28)
+    assert (tif.encode_iframe_scan.launches,
+            tpf._intra_in_p_scan.launches) == before
+
+
+def test_intra44_goes_to_the_plain_version(monkeypatch):
+    """With `intra44` (its trial sits on the chain: D5's work) the router
+    takes the plain version by argument, on any device, without loading
+    the kernel library; without it, a tensor off the CPU never reaches
+    the plain versions: on a device the kernel cannot take, both routers
+    raise."""
+    calls = []
+
+    def plain(*a, **kw):
+        calls.append(a)
+        return "plain"
+
+    monkeypatch.setattr(tif, "_encode_iframe_scan_plain", plain)
+    monkeypatch.setattr(tpf, "_intra_in_p_scan_plain", plain)
+    monkeypatch.setattr(cuda_lib, "load", _refuse)
+    before = (tif.encode_iframe_scan.launches,
+              tpf._intra_in_p_scan.launches)
+    meta = [torch.zeros(sh, dtype=torch.uint8, device="meta")
+            for sh in ((2, 32, 48), (2, 16, 24), (2, 16, 24))]
+    assert tif.encode_iframe_scan(*meta, 30, intra44=True) == "plain"
+    assert len(calls) == 1 and calls[0][4] is True
+    with pytest.raises(ValueError):
+        tif.encode_iframe_scan(*meta, 30)
+    kw = {k: (x.to("meta") if torch.is_tensor(x) else
+              tuple(p.to("meta") for p in x) if isinstance(x, tuple) else x)
+          for k, x in chip_smoke.d4_args(
+              torch, chip_smoke.D4_CASES[7], "cpu").items()}
+    with pytest.raises(ValueError):
+        tpf._intra_in_p_scan(**kw)
+    assert len(calls) == 1
+    assert (tif.encode_iframe_scan.launches,
+            tpf._intra_in_p_scan.launches) == before

@@ -95,9 +95,14 @@ def load() -> ctypes.CDLL:
         lib.th264_merge_tree.argtypes = [p, p, p, p, i64, i, i, i, p]
         lib.th264_deblock_rows.argtypes = [p] * 12 + [i, i, i, i, p]
         lib.th264_intra_recon_rows.argtypes = [p] * 12 + [i, i, p]
+        lib.th264_intra16_encode_rows.argtypes = (
+            [p] * 3 + [i] + [p] * 12 + [i, i, i, i, p])
+        lib.th264_intra16_in_p_rows.argtypes = (
+            [p] * 3 + [i] + [p] * 17 + [i, i, i, i, p])
         for fn in (lib.th264_sad_field, lib.th264_pack_blocks,
                    lib.th264_merge_tree, lib.th264_deblock_rows,
-                   lib.th264_intra_recon_rows):
+                   lib.th264_intra_recon_rows, lib.th264_intra16_encode_rows,
+                   lib.th264_intra16_in_p_rows):
             fn.restype = ctypes.c_int
         lib.th264_cuda_error_string.argtypes = [ctypes.c_int]
         lib.th264_cuda_error_string.restype = ctypes.c_char_p
@@ -112,15 +117,15 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def check_inputs(name: str, device, specs) -> None:
+def check_inputs(name: str, device, specs, dtype=torch.int32) -> None:
     """Validate (tensor, shape) pairs before their pointers reach a kernel:
-    each on the CUDA `device`, int32, of that shape, contiguous."""
+    each on the CUDA `device`, of `dtype`, of that shape, contiguous."""
     for t, shape in specs:
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{name}: every input must be on one CUDA "
                              f"device ({device}), got {t.device}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: inputs must be int32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: inputs must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():

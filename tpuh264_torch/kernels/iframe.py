@@ -2,29 +2,33 @@
 
 Port of tpuh264/kernels/iframe.py.  Each MB row is its own slice, so the
 only causal chain is the left neighbour within a row: the column
-`lax.scan` of the JAX version becomes a Python loop over the C MB
-columns, every step batched over all (stream, MB row) pairs.  The first
-column is a Python-level branch (no left neighbour: DC prediction at 128
-only).
+`lax.scan` of the JAX version becomes one CUDA kernel a scan on the card
+(a warp per (stream, MB row) lane walking its C columns), and a Python
+loop over the C MB columns, batched over all lanes, in the plain
+versions.  The first column has no left neighbour: DC prediction at 128
+only.
 
-With `intra44` every column also runs the causal Intra_4x4 trial
+The encode's column scan, `encode_iframe_scan`, is D3: K6
+(csrc/intra16_enc.cu, `_intra16_launch`) for CUDA tensors without
+`intra44`; its plain version `_encode_iframe_scan_plain` (`_intra16_mb`
+a column) takes CPU tensors and every call with `intra44`.  With
+`intra44` every column also runs the causal Intra_4x4 trial
 (intra44.py) and keeps, per MB, whichever of Intra_16x16 and Intra_4x4
 has the lower Lagrangian cost J = 8*SSD + lam8[qp]*rate, with the JAX
 module's integer `_LAMBDA8` table and rate proxy `_rate_bits`.
 
-`_intra16_mb` (one column's Intra_16x16 encode) is shared with the
-intra-in-P scan of pframe.py, and `_intra_residuals` /
+`_intra16_mb` and `_intra16_launch` are shared with the intra-in-P scan
+of pframe.py (D4, the same kernel), and `_intra_residuals` /
 `_intra_recon_scan` (the decode) with the P decoder's intra MBs.
 
 The decode's column scan, `_intra_recon_scan`, is D2, a CUDA kernel
-(csrc/intra_recon.cu: a warp per MB row) for CUDA tensors, with its
+(K5, csrc/intra_recon.cu: a warp per MB row) for CUDA tensors, with its
 plain version `_intra_recon_scan_plain` for CPU tensors and for the
 Intra_4x4 reconstruction (`i44`).
 
 Bit-exact with the JAX version (tests/test_torch_transform_iframe_deblock.py,
-tests/test_torch_intra44.py, tests/test_torch_intra_recon.py).  On the
-card the encode loops are launch-bound (120 columns of small kernels at
-1080p); kernels for them are later work.
+tests/test_torch_intra44.py, tests/test_torch_intra_recon.py,
+tests/test_torch_intra_enc.py).
 """
 
 from __future__ import annotations
@@ -284,12 +288,121 @@ def _intra44_choice(m: Intra16, ymb, left_y, first: bool, qp: int):
     return m, torch.where(u1, m44, -1).to(torch.int16)
 
 
+class K6Out(NamedTuple):
+    """What `_intra16_launch` returns: the Intra_16x16 fields [S, R, C,
+    ...] (levels int16, in the MBSymbols layouts), then D3's i4modes (all
+    -1) and uint8 raster recon planes, or D4's intra SAD, choice `use`
+    (bool) and int32 final recon [S,R,C,16,16], [S,R,C,8,8] x 2."""
+
+    mode: torch.Tensor
+    cmode: torch.Tensor
+    cbp_luma: torch.Tensor
+    cbp_chroma: torch.Tensor
+    luma_dc: torch.Tensor     # [S, R, C, 16] int16
+    luma_ac: torch.Tensor     # [S, R, C, 16, 16] int16, blocks by*4+bx
+    chroma_dc: torch.Tensor   # [S, R, C, 2, 4] int16
+    chroma_ac: torch.Tensor   # [S, R, C, 2, 4, 15] int16
+    i4modes: Optional[torch.Tensor]
+    sad: Optional[torch.Tensor]
+    use: Optional[torch.Tensor]
+    rec: Tuple[torch.Tensor, ...]
+
+
+def _intra16_launch(name: str, planes, qp: int, qpc: int, inter_sad=None,
+                    rec_inter=None) -> K6Out:
+    """One launch of K6 (csrc/intra16_enc.cu) over source planes y [S, H,
+    W], u, v [S, H/2, W/2] on the card (uint8, else taken as int32) at
+    luma / chroma QPs qp, qpc: the I encode's scan (D3) or, with
+    `inter_sad` [S, R, C] and `rec_inter` (int32 [S,R,C,16,16],
+    [S,R,C,8,8] x 2), the intra-in-P scan (D4).  Raises on a bad input
+    or a failed build or launch; the caller counts the launch."""
+    y = planes[0]
+    s, h, w = y.shape
+    r, c = h // 16, w // 16
+    if not s * r * c or h % 16 or w % 16:
+        raise ValueError(f"{name}: frames {tuple(y.shape)} hold no whole MB")
+    if not (0 <= qp <= 51 and 0 <= qpc <= 51):
+        raise ValueError(f"{name}: QP {qp} / {qpc} outside 0..51")
+    dev = y.device
+    u8 = all(p.dtype == torch.uint8 for p in planes)
+    planes = [p.contiguous() if u8 else p.to(I32).contiguous()
+              for p in planes]
+    shapes = [(s, h, w), (s, h // 2, w // 2), (s, h // 2, w // 2)]
+    mb = (s, r, c)
+    d4 = inter_sad is not None
+    if d4 != (rec_inter is not None):
+        raise ValueError(f"{name}: `inter_sad` and `rec_inter` go together")
+    side = []
+    if d4:
+        side = [x.to(I32).contiguous() for x in (inter_sad, *rec_inter)]
+    cuda_lib.check_inputs(name, dev, list(zip(planes, shapes)),
+                          dtype=torch.uint8 if u8 else I32)
+    cuda_lib.check_inputs(name, dev, list(zip(side, [
+        mb, (*mb, 16, 16), (*mb, 8, 8), (*mb, 8, 8)])))
+    # 16-byte loads: a view at an odd offset is copied to fresh storage
+    planes, side = ([x if x.data_ptr() % 16 == 0 else x.clone() for x in xs]
+                    for xs in (planes, side))
+    new = lambda sh, dt: torch.empty(sh, dtype=dt, device=dev)
+    i16 = torch.int16
+    out = dict(mode=new(mb, I32), cmode=new(mb, I32),
+               cbp_luma=new(mb, I32), cbp_chroma=new(mb, I32),
+               luma_dc=new((*mb, 16), i16), luma_ac=new((*mb, 16, 16), i16),
+               chroma_dc=new((*mb, 2, 4), i16),
+               chroma_ac=new((*mb, 2, 4, 15), i16),
+               i4modes=None, sad=None, use=None)
+    lib = cuda_lib.load()
+    ptr = lambda x: x.data_ptr()
+    fields = [out[f] for f in ("mode", "cmode", "cbp_luma", "cbp_chroma")]
+    levels = [out[f] for f in ("luma_dc", "luma_ac", "chroma_dc",
+                               "chroma_ac")]
+    if d4:
+        out.update(sad=new(mb, I32), use=new(mb, torch.uint8),
+                   rec=(new((*mb, 16, 16), I32), new((*mb, 8, 8), I32),
+                        new((*mb, 8, 8), I32)))
+        err = lib.th264_intra16_in_p_rows(
+            *map(ptr, [*planes]), int(u8), *map(ptr, side),
+            *map(ptr, [*fields, out["sad"], out["use"], *levels,
+                       *out["rec"]]),
+            s * r, c, qp, qpc, cuda_lib.stream(dev))
+        entry = "th264_intra16_in_p_rows"
+        out["use"] = out["use"].view(torch.bool)
+    else:
+        out.update(i4modes=new((*mb, 16), i16),
+                   rec=tuple(new(sh, torch.uint8) for sh in shapes))
+        err = lib.th264_intra16_encode_rows(
+            *map(ptr, planes), int(u8),
+            *map(ptr, [*fields, *levels, out["i4modes"], *out["rec"]]),
+            s * r, c, qp, qpc, cuda_lib.stream(dev))
+        entry = "th264_intra16_encode_rows"
+    cuda_lib.check(err, entry)
+    return K6Out(**out)
+
+
 def encode_iframe_scan(y, u, v, qp: int, intra44: bool = False
                        ) -> Tuple[MBSymbols, Tuple[torch.Tensor, ...]]:
     """Encode [S, H, W] frames (u, v [S, H/2, W/2]) as I frames with one
     slice per MB row, with the Intra_4x4 trial where `intra44`.  Returns
     (symbols, (recon_y, recon_u, recon_v)) with uint8 recon, exactly as
-    tpuh264.kernels.iframe.encode_iframe_scan."""
+    tpuh264.kernels.iframe.encode_iframe_scan.
+
+    CPU tensors, and every call with `intra44` (its trial sits on the
+    chain: D5's work), take the plain version; CUDA tensors without it
+    launch K6 (csrc/intra16_enc.cu) or raise."""
+    if y.device.type == "cpu" or intra44:
+        return _encode_iframe_scan_plain(y, u, v, qp, intra44)
+    o = _intra16_launch("encode_iframe_scan", (y, u, v), qp,
+                        T.chroma_qp_from_luma(qp))
+    encode_iframe_scan.launches += 1
+    return MBSymbols(*o[:9]), o.rec
+
+
+encode_iframe_scan.launches = 0  # launches of K6 for D3
+
+
+def _encode_iframe_scan_plain(y, u, v, qp: int, intra44: bool = False
+                              ) -> Tuple[MBSymbols, Tuple[torch.Tensor, ...]]:
+    """Plain version of `encode_iframe_scan` (same arguments): a Python
+    loop of `_intra16_mb` over the MB columns, batched over [S, R]."""
     qpc = T.chroma_qp_from_luma(qp)
     s, h, w = y.shape
     r, c = h // 16, w // 16

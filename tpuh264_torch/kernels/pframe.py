@@ -21,9 +21,11 @@ tests/test_torch_t8.py, tests/test_torch_halo.py):
   5. with `t8`, the 8x8 transform of every inter MB beside the 4x4 one:
      the lower J = 8*SSD + lambda8*rate wins (`_t8_choice`), and P_Skip,
      the symbols and the recon follow the chosen transform;
-  6. with `intra_in_p`, a Python loop over the MB columns (the JAX
-     column `lax.scan`; its TPU unroll factor is not carried over)
-     tries Intra_16x16 against each MB's left reconstruction.
+  6. with `intra_in_p`, the column scan (the JAX column `lax.scan`,
+     D4) tries Intra_16x16 against each MB's left reconstruction:
+     `_intra_in_p_scan`, K6 on the card (csrc/intra16_enc.cu, the I
+     encode's kernel), its plain version `_intra_in_p_scan_plain` (a
+     Python loop over the MB columns) for CPU tensors.
 
 Per-MB windows and the motion-compensated predictions are gathers from
 the padded planes at per-MB origins (the JAX version's masked sums over
@@ -71,6 +73,7 @@ from .iframe import (
     _blocks_to_mb,
     _chroma_cbp,
     _encode_chroma,
+    _intra16_launch,
     _intra16_mb,
     _intra_recon_scan,
     _intra_residuals,
@@ -526,13 +529,40 @@ def _t8_choice(src_mbs, predl, qp: int, l_zz, cbp4, rec4):
 
 def _intra_in_p_scan(src_mbs, u_mbs, v_mbs, inter_sad, rec_inter, qp: int,
                      qpc: int):
-    """The intra-in-P column scan: left to right along each MB row, the
-    Intra_16x16 candidate of every MB (predicted from the left MB's
+    """The intra-in-P column scan (D4): left to right along each MB row,
+    the Intra_16x16 candidate of every MB (predicted from the left MB's
     final reconstruction, intra or inter) replaces the inter choice when
     its luma SAD is strictly below the inter SAD.  Only the decision and
     the reconstruction chain are sequential; the symbols are assembled
     batched afterwards.  Returns (use_intra [S,R,C], the stacked
-    `iframe.Intra16` fields [S,R,C,...], final recon [S,R,C,...] x 3)."""
+    `iframe.Intra16` fields [S,R,C,...] with rec None, final int32
+    recon [S,R,C,16,16], [S,R,C,8,8] x 2).
+
+    CPU tensors take the plain version; CUDA tensors launch K6
+    (csrc/intra16_enc.cu, the I encode's kernel with the inter choice)
+    or raise.  The kernel's levels are int16 (the plain version's int32:
+    the same values, which the symbols store as int16)."""
+    if inter_sad.device.type == "cpu":
+        return _intra_in_p_scan_plain(src_mbs, u_mbs, v_mbs, inter_sad,
+                                      rec_inter, qp, qpc)
+    o = _intra16_launch("_intra_in_p_scan", [
+        _mbs_to_plane(x) for x in (src_mbs, u_mbs, v_mbs)], qp, qpc,
+        inter_sad, rec_inter)
+    _intra_in_p_scan.launches += 1
+    s, r, c = inter_sad.shape
+    return o.use, Intra16(
+        o.mode, o.cmode, o.sad, o.luma_dc, o.luma_ac.view(s, r, c, 4, 4, 16),
+        o.cbp_luma, o.chroma_dc, o.chroma_ac, o.cbp_chroma, None), o.rec
+
+
+_intra_in_p_scan.launches = 0  # launches of K6 for D4
+
+
+def _intra_in_p_scan_plain(src_mbs, u_mbs, v_mbs, inter_sad, rec_inter,
+                           qp: int, qpc: int):
+    """Plain version of `_intra_in_p_scan` (same arguments): a Python
+    loop of `iframe._intra16_mb` over the MB columns, batched over
+    [S, R]."""
     c = inter_sad.shape[2]
     left = (None, None, None)
     outs = []
