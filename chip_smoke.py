@@ -31,7 +31,8 @@ tpuh264_torch/csrc, then:
      all-intra, qp 0 .. 51) and on config-3 symbols (the 8x8 transform,
      intra-in-P) at 854x480 x 8; K5 on seeded cases (`d2_case`: C = 1,
      2, 3 and 61, intra shares 0 / ~1% / 50% / 100% and the I decode, DC
-     and H mixes, clips at 0 and 255) and on a default-config (intra-in-P)
+     and H mixes, clips at 0 and 255, H modes in column 0, which no legal
+     stream codes) and on a default-config (intra-in-P)
      P frame of "meeting" at 854x480 x 8, intra MBs required; K6 on the
      1080p x 4 I frame (D3), on the intra-in-P P frame at 854x480 x 8
      (D4, the P encode's own inputs of its scan) and on seeded cases
@@ -754,10 +755,14 @@ def d1_t8_480p(dev, torch, mhz, card):
 # S and R from 1 to 4
 D2_SHAPES = ((1, 1, 1), (4, 3, 1), (2, 4, 2), (3, 2, 3), (2, 2, 61))
 # intra shares 0, ~1% (at least one MB), 50% and 100% beside `other`, and
-# the I decode (no `other`: every MB intra)
+# the I decode (no `other`: every MB intra); then the P decode ("col0",
+# column 0 all intra) and the I decode ("iframe-col0") with modes that
+# no legal stream codes in column 0: luma H (mode 1) and chroma H (cmode
+# 1), apart and together (D2_COL0, lane by lane)
 D2_SHARE = {"inter": 0.0, "sparse": 0.01, "half": 0.5, "intra": 1.0,
-            "iframe": 1.0}
+            "iframe": 1.0, "col0": 0.5, "iframe-col0": 1.0}
 D2_VARIANTS = tuple(D2_SHARE)
+D2_COL0 = ((1, 1), (1, 0), (2, 1), (2, 0))  # (mode, cmode) of lane l % 4
 D2_QP = 32
 D2_CASES = [(shape, variant) for shape in D2_SHAPES
             for variant in D2_VARIANTS]
@@ -767,23 +772,32 @@ def d2_case(np, shape, variant):
     """Seeded D2 inputs (numpy): (symbols, other, refs, qp).  `symbols`
     holds the P-slice symbol fields (kernels/pframe.py MBSymbolsP's names
     and layout), the MB kinds by the variant's intra share (the others
-    skip or inter).  Intra MBs take legal modes only: column 0 DC (mode 2,
-    cmode 0), later columns DC or H at random, luma and chroma apart.
+    skip or inter).  Intra MBs take legal modes, column 0 DC (mode 2,
+    cmode 0), but in the "-col0" variants, whose column 0 is all intra
+    with lane l's modes D2_COL0[l % 4]; later columns DC or H at random,
+    luma and chroma apart.
     Luma and chroma DC levels up to +-40 at QP 32 drive prediction +
     residual past 0 and past 255.  `other` is [S,R,C,16,16], [S,R,C,8,8]
     x 2 random samples (what the intra scan takes for the other MBs);
     `refs` one reference [1,S,H,W] x 3 for the whole P decode, and inter
-    MBs' MVs within +-6 pels.  Both None for "iframe" (the I decode)."""
+    MBs' MVs within +-6 pels.  Both None for "iframe" and "iframe-col0"
+    (the I decode)."""
     s, r, c = shape
     rng = np.random.default_rng([s, r, c, D2_VARIANTS.index(variant)])
     mb = (s, r, c)
     intra = rng.random(mb) < D2_SHARE[variant]
     if variant == "sparse" and not intra.any():
         intra[tuple(int(rng.integers(0, n)) for n in mb)] = True
+    col0 = variant.endswith("col0")
+    if col0:
+        intra[..., 0] = True
     kind = np.where(intra, 2, rng.integers(0, 2, mb))
     first = np.arange(c) == 0
-    mode = np.where(intra, np.where(first, 2, rng.choice([1, 2], mb)), 0)
-    cmode = np.where(intra, np.where(first, 0, rng.integers(0, 2, mb)), 0)
+    lanes = np.arange(s * r).reshape(s, r, 1) % len(D2_COL0)
+    m0, c0 = ((np.asarray(D2_COL0)[:, i][lanes] if col0 else legal)
+              for i, legal in ((0, 2), (1, 0)))
+    mode = np.where(intra, np.where(first, m0, rng.choice([1, 2], mb)), 0)
+    cmode = np.where(intra, np.where(first, c0, rng.integers(0, 2, mb)), 0)
     cbp_luma = np.where(intra, rng.integers(0, 2, mb),
                         np.where(kind == 1, rng.integers(0, 16, mb), 0))
     cbp_chroma = np.where(kind == 0, 0, rng.integers(0, 3, mb))
@@ -809,7 +823,7 @@ def d2_case(np, shape, variant):
                chroma_dc=levels((*mb, 2, 4), 30, 0.5),
                chroma_ac=levels((*mb, 2, 4, 15), 6, 0.8),
                refidx=np.zeros(mb, np.int32))
-    if variant == "iframe":
+    if variant.startswith("iframe"):
         return sym, None, None, D2_QP
     other = tuple(i32(rng.integers(0, 256, (*mb, n, n))) for n in (16, 8, 8))
     refs = tuple(i32(rng.integers(0, 256, (1, s, n * r, n * c)))
@@ -988,10 +1002,54 @@ def k6_bytes(planes, kw=None, n_intra=0) -> int:
     return src + out + n * (4 + 4 + 1 + 4 * 384) + (n - n_intra) * 4 * 384
 
 
+def ptxas_lines(src: str) -> list:
+    """`src` (a kernel source) compiled alone by nvcc with -Xptxas -v into
+    tpuh264_torch/build/: ptxas's lines on each kernel's registers, stack,
+    spills and shared memory (empty where the build prints none)."""
+    from tpuh264_torch.kernels import cuda_lib
+
+    os.makedirs(cuda_lib.BUILD, exist_ok=True)
+    out = os.path.join(cuda_lib.BUILD, os.path.basename(src) + ".cubin")
+    res = subprocess.run([cuda_lib._nvcc(), "-gencode", cuda_lib.ARCH,
+                          "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
+                          "-o", out, src], capture_output=True, text=True)
+    if res.returncode != 0:
+        fail(f"nvcc -Xptxas -v {src}: {res.stdout}{res.stderr}")
+    return [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+            if "spill" in ln or "Used" in ln]
+
+
 def k6_cycles(ms: float, mhz: int, c: int) -> float:
     """SM cycles a MB column of a lane (every lane walks its C columns in
     parallel with the others)."""
     return ms * 1e-3 * mhz * 1e6 / c
+
+
+def intra_in_p_480p(dev, torch):
+    """Phase 2's 854x480 x 8 intra-in-P P frame (864 columns): a band
+    copied from the reference (skips), the moving field (inter) and a
+    flat patch no reference holds (intra), encoded with intra-in-P.
+    Returns the P encode's own arguments of its intra-in-P scan (a dict,
+    `d4_capture`), its symbols and its MB kinds (skip, inter, intra)."""
+    from tpuh264_torch.engine.sources import device_source_gop
+    from tpuh264_torch.kernels import pframe
+
+    w, h, s = 864, 480, 8
+    y, u, v = device_source_gop(w, h, 2, s, "rigid", 40, dev)
+    cur = [p[1].clone() for p in (y, u, v)]
+    for i, p in enumerate((y, u, v)):
+        sh = 1 + (i == 0)
+        cur[i][:, :64 // sh] = p[0][:, :64 // sh]
+        cur[i][:, 160 // sh:288 // sh, 96 // sh:480 // sh] = 30 + 40 * i
+    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    out = []
+    kw, = d4_capture(lambda: out.append(pframe.encode_pframe_rows_multi(
+        *cur, *refs, 30, intra_in_p=True)))
+    sym = out[0][0]
+    kinds = torch.bincount(sym.kind.reshape(-1), minlength=3).tolist()
+    if min(kinds) == 0:
+        fail(f"intra-in-P symbols lack an MB kind (skip/inter/intra): {kinds}")
+    return kw, sym, kinds
 
 
 def d3_equal(planes, qp, torch, what) -> int:
@@ -1132,8 +1190,8 @@ def d2_edges(dev, torch, np):
                  f"edge case {case}")
     print(f"phase 2: K5 (D2) edge cases, {len(D2_CASES)}: (S, R, C) "
           f"{list(D2_SHAPES)} x {list(D2_VARIANTS)} (intra shares 0, ~1%, "
-          f"50%, 100%, and the I decode; DC / H mixes, clips at 0 and 255): "
-          f"equal to plain")
+          f"50%, 100%, and the I decode; DC / H mixes, clips at 0 and 255; "
+          f"H modes in column 0): equal to plain")
 
 
 def d2_rows(dev, torch, np, card, frames):
@@ -1175,7 +1233,6 @@ def phase_kernels(dev, torch, np, card):
     edge cases, K2/K3 and K6 (D4) on intra-in-P inputs, K4 on t8 symbols
     and K5 on default-config symbols at 480p x 8; K3 at its MB and slice
     levels."""
-    from tpuh264_torch.engine.sources import device_source_gop
     from tpuh264_torch.kernels import iframe, me_cuda, pframe
 
     w, h, s = 1920, 1088, 4
@@ -1229,7 +1286,12 @@ def phase_kernels(dev, torch, np, card):
     # K5 (D2): the decoders' inputs of the P frame and the IDR, then 480p
     rows.append(d2_rows(dev, torch, np, card, (y, u, v, sym, sym_i)))
     # K6 (D3): the 1080p x 4 I frame (the main path's GOP start), from
-    # its uint8 planes; the row of the kernel table, with its cycles
+    # its uint8 planes; the row of the kernel table, with its cycles, and
+    # ptxas's registers, spills and shared memory of its source
+    for ln in ptxas_lines(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tpuh264_torch", "csrc",
+            "intra16_enc.cu")):
+        print(f"phase 2: K6 ptxas: {ln}")
     err, ms, plain, nbytes = d3_timed((y[0], u[0], v[0]), 30, torch,
                                       "1080p x 4 I frame", card, mhz)
     rows.append(kernel_row(
@@ -1245,24 +1307,9 @@ def phase_kernels(dev, torch, np, card):
     d1_t8_480p(dev, torch, mhz, card)
     d3_edges(dev, torch, np)
 
-    # intra-in-P P symbols at 854x480 x 8: a band copied from the
-    # reference (skips), the moving field (inter) and a flat patch no
-    # reference holds (intra), four P frames' worth (32 frame-streams)
-    w, h, s = 864, 480, 8
-    y, u, v = device_source_gop(w, h, 2, s, "rigid", 40, dev)
-    cur = [p[1].clone() for p in (y, u, v)]
-    for i, p in enumerate((y, u, v)):
-        sh = 1 + (i == 0)
-        cur[i][:, :64 // sh] = p[0][:, :64 // sh]
-        cur[i][:, 160 // sh:288 // sh, 96 // sh:480 // sh] = 30 + 40 * i
-    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
-    out = []
-    p480, = d4_capture(lambda: out.append(pframe.encode_pframe_rows_multi(
-        *cur, *refs, 30, intra_in_p=True)))
-    sym = out[0][0]
-    kinds = torch.bincount(sym.kind.reshape(-1), minlength=3).tolist()
-    if min(kinds) == 0:
-        fail(f"intra-in-P symbols lack an MB kind (skip/inter/intra): {kinds}")
+    # intra-in-P P symbols at 854x480 x 8, four P frames' worth (32
+    # frame-streams)
+    p480, sym, kinds = intra_in_p_480p(dev, torch)
     # K6 (D4) on that P encode's own inputs of the intra-in-P scan
     d4_timed(p480, torch, "854x480 x 8 intra-in-P P frame", card, mhz)
     del p480

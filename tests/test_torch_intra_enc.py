@@ -1,7 +1,8 @@
 """The encoder's Intra_16x16 column scans (D3, the I encode; D4, the
 intra-in-P trial of the P encode) and their kernel K6: the port's
-encodes against the JAX package's on seeded frames, the kernel's source
-run on CPU threads against the plain versions, and the routers' routes.
+encodes against the JAX package's on seeded frames, the algebra the
+kernel's design rests on, the kernel's source run on CPU threads against
+the plain versions, and the routers' routes.
 
 The inputs come from `chip_smoke.d3_case` / `d4_args`, the generators
 chip_smoke.py phase 2 holds the kernel to its plain versions with on the
@@ -22,6 +23,7 @@ from tpuh264.kernels import pframe as jpf
 from tpuh264_torch.kernels import cuda_lib
 from tpuh264_torch.kernels import iframe as tif
 from tpuh264_torch.kernels import pframe as tpf
+from tpuh264_torch.kernels import transform as T
 
 SOURCE = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc",
                       "intra16_enc.cu")
@@ -149,7 +151,6 @@ def test_cases_cover_what_they_claim():
 HARNESS = r"""
 #include <cuda_runtime.h>
 #include <cstdio>
-#include <thread>
 #include <vector>
 #include "intra16_enc.cu"
 template <typename T> bool rd(std::vector<T>& x) {
@@ -184,18 +185,8 @@ int main() {
                   cbc.data(), p(sad), p(use), dc.data(), ac.data(),
                   cdc.data(), cac.data(), p(i4), p(ry8), p(ru8), p(rv8),
                   p(ry), p(ru), p(rv), lanes, C, qp, qpc};
-  std::barrier<> warp(32);
-  g_warp[0] = &warp;
-  for (int b = 0; b < lanes; ++b) {
-    std::vector<std::thread> block;
-    for (int t = 0; t < 32; ++t)
-      block.emplace_back([&, t, b] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        intra16_enc_kernel(args);
-      });
-    for (auto& th : block) th.join();
-  }
+  for (int b = 0; b < lanes; ++b)
+    run_block_fibers(kThreads, b, [&] { intra16_enc_kernel(args); });
   wr(mode), wr(cmode), wr(cbl), wr(cbc), wr(sad), wr(use), wr(dc), wr(ac);
   wr(cdc), wr(cac), wr(i4), wr(ry8), wr(ru8), wr(rv8), wr(ry), wr(ru);
   wr(rv);
@@ -208,7 +199,9 @@ int main() {
 def cpu_kernel(tmp_path_factory):
     """csrc/intra16_enc.cu (all but its launch entries) built with g++
     against the shims of cuda_threads.py: the kernel's own source, a
-    lane's 32 threads as std::threads, its shuffles through barriers."""
+    lane's kThreads threads (its warps in their roles) as fibers
+    (`run_block_fibers`), its shuffles, ballots and block barriers
+    switching between them."""
     return cuda_threads.build(tmp_path_factory.mktemp("intra16_enc_cpu"),
                               HARNESS, os.path.dirname(SOURCE),
                               "intra16_enc_cpu")
@@ -291,6 +284,108 @@ def test_kernel_source_on_cpu_threads_matches_plain_d4(cpu_kernel, case):
         "ac_zz")
     for f, want in zip(("rec_y", "rec_u", "rec_v"), rec):
         _eq(got[f], want.numpy(), f)
+
+
+# The algebra the kernel rests on (csrc/intra16_enc.cu, its note's 1.-6.),
+# checked in plain torch with the port's transform.py on seeded blocks.
+
+
+def _blocks(seed, n=4096):
+    """Seeded source blocks [n, 4, 4] (0..255), DC predictions [n] and H
+    prediction rows [n, 4] (0..255), int32."""
+    rng = np.random.default_rng(seed)
+    i32 = lambda x: torch.from_numpy(x.astype(np.int32))
+    return (i32(rng.integers(0, 256, (n, 4, 4))), i32(rng.integers(0, 256, n)),
+            i32(rng.integers(0, 256, (n, 4))))
+
+
+def _vert(p):
+    """forward4x4's vertical butterfly of columns p [..., 4]."""
+    a0, a1 = p[..., 0] + p[..., 3], p[..., 1] + p[..., 2]
+    a2, a3 = p[..., 1] - p[..., 2], p[..., 0] - p[..., 3]
+    return torch.stack([a0 + a1, 2 * a3 + a2, a0 - a1, a3 - 2 * a2], -1)
+
+
+@pytest.mark.parametrize("kind", ("dc", "h"))
+def test_premise_transform_of_the_prediction(kind):
+    """1.-3.: F(src - pred) == F(src) - F(pred) for DC and H predictions;
+    a DC prediction's F is 16 pdc at raster 0, an H prediction's 4 v_r at
+    rasters 0, 4, 8, 12 (v the vertical butterfly of its rows), and both
+    are zero off those positions."""
+    src, pdc, rows = _blocks(1)
+    if kind == "dc":
+        pred = pdc[:, None, None].expand(-1, 4, 4)
+        want = torch.zeros_like(src)
+        want[:, 0, 0] = 16 * pdc
+    else:
+        pred = rows[:, :, None].expand(-1, 4, 4)
+        want = torch.zeros_like(src)
+        want[:, :, 0] = 4 * _vert(rows)
+    fp = T.forward4x4(pred)
+    assert torch.equal(T.forward4x4(src - pred), T.forward4x4(src) - fp)
+    assert torch.equal(fp, want)
+
+
+def _row_pass(d):
+    """inverse4x4's row pass of [..., 4, 4] (each row: d0 .. d3)."""
+    d0, d1, d2, d3 = d.unbind(-1)
+    e0, e1 = d0 + d2, d0 - d2
+    e2, e3 = (d1 >> 1) - d3, d1 + (d3 >> 1)
+    return torch.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3], -1)
+
+
+def _col_pass(f):
+    """inverse4x4's column pass of [..., 4, 4]."""
+    return _row_pass(f.transpose(-1, -2)).transpose(-1, -2)
+
+
+@pytest.mark.parametrize("qp", range(52))
+def test_premise_row_pass_and_right_column(qp):
+    """5.-6. at every QP: with the block's levels quantised and
+    dequantised (and a dequantised DC in raster 0), inverse4x4 is the
+    column pass of d0_r + P[r][x], P the row pass with d0 = 0; so the
+    final right column is the column pass of d0_r + K_r, K_r = d2 - d1 -
+    (d3 >> 1), and each of its rows is f0 + D_r, D_r off f0.  And the DC
+    Hadamards: only column j = 0 of H (S - c) depends on the
+    prediction, by 256 pdc at (0, 0) (DC) or 16 (H L)_i (H); chroma's 2x2
+    by 2 (s a)_i."""
+    src, pdc, rows = _blocks(100 + qp)
+    pred = rows[:, :, None].expand(-1, 4, 4)
+    w = T.forward4x4(src - pred)
+    z = T.quant4x4(w, qp, intra=True).reshape(-1, 16)
+    d = T.dequant_flat(z, qp).reshape(-1, 4, 4).clone()
+    d[:, 0, 0] = w[:, 0, 0]  # any DC value
+    p0 = d.clone()
+    p0[..., 0] = 0
+    parts = d[..., 0:1] + _row_pass(p0)
+    assert torch.equal(T.inverse4x4(d), _col_pass(parts))
+    rec = torch.clamp(pred + ((T.inverse4x4(d) + 32) >> 6), 0, 255)
+    k = d[..., 2] - d[..., 1] - (d[..., 3] >> 1)
+    f = d[..., 0] + k
+    right = torch.clamp(rows + ((_col_pass(f[..., None].expand(-1, 4, 4))
+                                 [..., 0] + 32) >> 6), 0, 255)
+    assert torch.equal(rec[..., 3], right)
+    no_f0 = _col_pass(torch.cat([torch.zeros_like(f[:, :1]), f[:, 1:]], 1)
+                      [..., None].expand(-1, 4, 4))[..., 0]
+    assert torch.equal(_col_pass(f[..., None].expand(-1, 4, 4))[..., 0],
+                       f[:, :1] + no_f0)
+    s = src.reshape(-1, 4, 4, 4, 4).sum((-1, -2), dtype=torch.int32)[:64]
+    lb = rows.reshape(-1, 4, 4).sum(-1, dtype=torch.int32)[:64, :4]
+    dc = pdc[:64, None, None]
+    hs = T.hadamard4x4(s)
+    want = hs.clone()
+    want[:, 0, 0] -= 256 * pdc[:64]
+    assert torch.equal(T.hadamard4x4(s - 16 * dc), want)
+    want = hs.clone()
+    want[:, :, 0] -= 16 * T.hadamard4x4(lb[:, :, None].expand(-1, 4, 4))[
+        :, :, 0] // 4
+    assert torch.equal(T.hadamard4x4(s - 4 * lb[:, :, None]), want)
+    c = s[:, :2, :2]
+    a = rows[:64, :2]
+    want = T.hadamard2x2(c).clone()
+    want[:, 0, 0] -= 2 * (a[:, 0] + a[:, 1])
+    want[:, 1, 0] -= 2 * (a[:, 0] - a[:, 1])
+    assert torch.equal(T.hadamard2x2(c - a[:, :, None]), want)
 
 
 def _refuse():

@@ -67,9 +67,10 @@ def test_decode_matches_jax(shape, variant):
 def test_cases_cover_what_they_claim():
     """C = 1, 2, 3 and a long lane of C >= 54; S and R from 1 to 4; intra
     shares 0, ~1% (at least one MB), 50% and 100%, and the I decode
-    without `other`; legal modes only (column 0 DC), with luma and chroma
-    DC and H both chosen in later columns; prediction + residual past 0
-    and past 255 (the clip), and inter MBs with MVs."""
+    without `other`; legal modes (column 0 DC) but in the two "-col0"
+    variants, whose column 0 is all intra with luma H, chroma H and both;
+    luma and chroma DC and H both chosen in later columns; prediction +
+    residual past 0 and past 255 (the clip), and inter MBs with MVs."""
     shapes = set(chip_smoke.D2_SHAPES)
     assert {1, 2, 3} <= {c for _, _, c in shapes}
     assert any(c >= 54 for _, _, c in shapes)
@@ -82,13 +83,19 @@ def test_cases_cover_what_they_claim():
         intra = sym["kind"] == 2
         share = intra.mean()
         want = chip_smoke.D2_SHARE[variant]
-        assert (other is None) == (refs is None) == (variant == "iframe")
+        assert ((other is None) == (refs is None)
+                == variant.startswith("iframe"))
         if variant == "sparse":
             assert 0 < share < 0.05
         else:
             assert share == pytest.approx(want, abs=0.1)
-        assert (sym["mode"][..., 0][intra[..., 0]] == 2).all()
-        assert (sym["cmode"][..., 0][intra[..., 0]] == 0).all()
+        modes0 = set(zip(sym["mode"][..., 0][intra[..., 0]],
+                         sym["cmode"][..., 0][intra[..., 0]]))
+        if variant.endswith("col0"):
+            assert intra[..., 0].all()
+            assert modes0 == {(1, 1), (1, 0), (2, 1), (2, 0)}
+        else:
+            assert modes0 <= {(2, 0)}
         assert set(np.unique(sym["mode"][intra])) <= {1, 2}
         assert set(np.unique(sym["cmode"][intra])) <= {0, 1}
         lmodes |= set(np.unique(sym["mode"][..., 1:][intra[..., 1:]]))
@@ -102,6 +109,49 @@ def test_cases_cover_what_they_claim():
             clipped |= {v for v in (0, 255) if (o == v).any()}
     assert lmodes == {1, 2} and cmodes == {0, 1}
     assert clipped == {0, 255}
+
+
+def _decode_both(sym, refs, qp):
+    """The JAX package's decode of the symbols and the port's (the I
+    decode where `refs` is None, else the P decode): their planes."""
+    if refs is None:
+        f = {k: sym[k] for k in I_FIELDS}
+        j = jif.decode_iframe_scan(jif.MBSymbols(**f), qp)
+        t = tif.decode_iframe_scan(tif.MBSymbols(
+            **{k: torch.from_numpy(v) for k, v in f.items()}), qp)
+    else:
+        j, _ = jpf.decode_pframe_rows_multi(jpf.MBSymbolsP(**sym), *refs, qp)
+        t, _ = tpf.decode_pframe_rows_multi(
+            tpf.MBSymbolsP(**{k: torch.from_numpy(v) for k, v in sym.items()}),
+            *map(torch.from_numpy, refs), qp)
+    return [np.asarray(a) for a in j], [b.numpy() for b in t]
+
+
+@pytest.mark.parametrize("variant", ("col0", "iframe-col0"))
+def test_column0_h_modes_match_jax(variant):
+    """Streams no encoder of the codec emits: intra MBs in column 0 with
+    luma H (mode 1), chroma H (cmode 1), and both, lane by lane.  The JAX
+    scans start from a zero carry, so H predicts 0 there and DC 128; the
+    port's P decode (`decode_pframe_rows_multi`) and I decode
+    (`decode_iframe_scan`) give the same pixels.  Against the same
+    symbols with DC in column 0, column 0 differs exactly in the lanes
+    and planes that code H there."""
+    sym, _, refs, qp = _case(((2, 4, 2), variant))
+    j, t = _decode_both(sym, refs, qp)
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(a, b)
+    first = (sym["kind"] == 2) & (np.arange(2) == 0)
+    dc = dict(sym, mode=np.where(first, 2, sym["mode"]),
+              cmode=np.where(first, 0, sym["cmode"]))
+    _, t_dc = _decode_both(dc, refs, qp)
+    s, r = sym["mode"].shape[:2]
+    for plane, n, want in ((0, 16, sym["mode"][..., 0] == 1),
+                           (1, 8, sym["cmode"][..., 0] == 1),
+                           (2, 8, sym["cmode"][..., 0] == 1)):
+        assert want.any() and not want.all()
+        diff = (t[plane] != t_dc[plane])[..., :n]
+        diff = diff.reshape(s, r, n, n).any((-1, -2))
+        np.testing.assert_array_equal(diff, want)
 
 
 # Reads int32 lanes C has_other, then the int32 inputs (mode, cmode,

@@ -1,5 +1,6 @@
-// K6: the encoder's Intra_16x16 column scan (D3, the I encode, and D4,
-// the intra-in-P trial of the P encode), a warp per MB row.
+// K6: the encoder's Intra_16x16 column scans (D3, the I encode, and D4,
+// the intra-in-P trial of the P encode): a block of six warps per MB
+// row, with only the prediction-dependent work on the column chain.
 //
 // Replaces: the jax.lax.scan of tpuh264/kernels/iframe.py
 // `encode_iframe_scan` (:199; step :219, scan :308) and the intra-in-P
@@ -30,29 +31,84 @@
 // as torch's); a dequant `(z * v) << k` is written as a multiply by
 // 1 << k (a left shift of a negative value is undefined in C++17); every
 // product fits int32 (golden/transform.py).  QP is an argument: the rate
-// controller moves it from frame to frame.
+// controller moves it from frame to frame.  The source planes and
+// `rec_inter` hold 8-bit samples (0..255), as every plane of the codec
+// does: the SADs are taken on packed bytes (__vsadu4), DC and H summed
+// in the two halves of one 32-bit word (each at most 65,280).
 //
-// What bounds it on the H100: latency along the chain.  The S x R MB
-// rows are independent lanes (272 at 1080p x 4, 240 at 480p x 8), a
-// warp each: about two warps an SM, so the card's bytes (52.7 MB for a
-// 1080p x 4 I frame, 0.016 ms) are far from the limit; each lane walks
-// its C columns one after the other, and a column is three warp
-// barriers, ~25 shuffles and a few hundred integer instructions a
-// thread.  Design, simple first:
-//  * Threads 0-15 own the 16 luma 4x4 blocks (by * 4 + bx, raster),
-//    16-19 the Cb and 20-23 the Cr blocks, in registers; 24-31 only take
-//    part in the reductions.  The transforms are butterflies in
-//    registers; the SADs, cbp flags and the DC / H choice are xor-shuffle
-//    reductions, so every thread learns them.
-//  * Shared memory holds only what crosses blocks: the left column (32
-//    samples), the DC coefficients before and after quantisation.
-//  * The next column's source samples (and D4's inter SAD) are loaded
-//    while the current column is computed.
+// The algebra the design rests on, exact in integers:
+//  1. The forward core transform F (forward4x4: adds and 2*) is linear:
+//     F(src - pred) = F(src) - F(pred).
+//  2. A DC prediction is constant over a 4x4 block (chroma's DC per
+//     4-row half too): F(pred) is 16 pdc at raster 0, zero elsewhere.
+//  3. An H prediction p_r is constant along each row r: F(pred) is zero
+//     but at rasters 0, 4, 8, 12, where it is 4 v_r, v = forward4x4's
+//     vertical butterfly of (p_0 .. p_3) (v_0 their sum).
+//  4. So 12 of a block's 15 AC levels are quant(F(src)), off the
+//     prediction; the levels at 4, 8, 12 are quant(F(src) - 4 v) (v = 0
+//     for DC); a block's DC coefficient is its sample sum S less 16 pdc
+//     or 4 v_0.  Through the luma DC Hadamard H X H: Fh - 256 pdc at
+//     (0, 0) (DC) or Fh - 16 (H L)_i at (i, 0) (H; L_by the sum of block
+//     row by's four left samples), Fh the Hadamard of the sums S: only
+//     its column j = 0 depends on the prediction.  Chroma's 2x2: Fc less
+//     2 (s a)_i at (i, 0), a_r = 16 dcs_r (DC) or 4 L_r (H).
+//  5. The inverse transform's row pass takes the `>> 1` of d1 and d3
+//     apart, so output x of row r is d0_r + P[r][x], P from the row's
+//     other three dequantised levels: off the prediction.  Column 3 is
+//     d0_r + K_r, K_r = d2 - d1 - (d3 >> 1); d0_r is the dequantised DC
+//     (r = 0) or the level at 4r.
+//  6. So the next MB's left column (the final right sample column) needs
+//     on the chain only: the SADs and the choice, the prediction-
+//     dependent DC levels (4 luma, 2 a chroma plane) and the inverse
+//     Hadamard of the right-hand blocks, their levels at 4, 8, 12, and
+//     the column pass of their column 3; the rest is done off it.
+//
+// Design.  What bounds the kernel on the H100 is integer issue and the
+// latency of one warp's instruction stream, not bytes.  The S x R MB rows
+// are independent lanes (272 at 1080p x 4, 240 at 480p x 8), so an SM
+// runs two or three of them; a warp alone issues about one instruction
+// every three cycles, and an SM sub-partition at most half a warp of
+// integer work a cycle.  So each lane's column work is cut short on the
+// chain (6.) and spread over the six warps of a 192-thread block, none
+// of them a long stream, with few instructions in all.  Each warp role
+// runs its own loop of C + 2 steps (registers per role: 96 in all, so
+// three blocks share an SM); the roles meet at one block barrier a step
+// over a ring of kSlots MB columns in shared memory.  At step k:
+//  * prep, column k (warp 2 luma, two threads a 4x4 block, each two of
+//    its rows; warp 3 chroma, four threads a block, a row each): the
+//    source packed as bytes for the chains' SADs, F(src), the 12
+//    prediction-independent levels (written out in zigzag order, the
+//    slots of rasters 4, 8, 12 left to finish) and whether any is
+//    nonzero, the row pass P, the block sums; after a __syncwarp, the DC
+//    Hadamards of the sums (luma by xor-shuffle butterflies), quantised
+//    off column 0.  Column k + 1's source is loaded meanwhile.
+//  * the chains, column k - 1 (warp 0 luma, warp 1 chroma; a right
+//    column row a lane, lanes 16-31 repeating 0-15): the left column from
+//    shared memory, the lane's 8 (chroma 4) samples' DC and H SADs in one
+//    packed xor-shuffle reduction, and in its shadow both candidates of
+//    the lane's row: the DC levels at (i, 0), the inverse Hadamard's row
+//    of the right-hand block, the levels at 4, 8, 12 (under DC no more
+//    than quant(F(src))) and the column pass of column 3.  The choice
+//    picks one (D4: rec_inter's right sample where inter wins, loaded a
+//    column ahead), and lanes 0-15 store the next column's left.  The
+//    chroma chain picks the last column's intra or inter right samples
+//    at the start of the column, by the luma chain's `use` of the step
+//    before (D4).
+//  * finish, column k - 2 (warp 4 luma, two threads a block, each two of
+//    its columns; warp 5 chroma, four threads a block, a column each):
+//    the levels at 4, 8, 12 (their zigzag slots), the dequantised DC, the
+//    column passes, the reconstruction, cbp by ballots, the DC levels,
+//    modes, SAD and choice; D4 copies rec_inter where inter wins.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 192;
+constexpr int kLuma = 0, kChroma = 1, kPrepY = 2, kPrepC = 3, kFinY = 4,
+              kFinC = 5;  // warps: chains, prep, finish
+constexpr int kSlots = 3;  // ring: prepared, chained, finished columns
 
 // quantiser multiplier MF and dequantiser scale V of the position
 // classes a ((even, even)), b ((odd, odd)) and c (the rest), by qp % 6
@@ -79,6 +135,33 @@ struct Args {
   int lanes, C, qp, qpc;
 };
 
+// One MB column of the lane.  Blocks 0-15 are luma (by * 4 + bx), 16-19
+// Cb and 20-23 Cr (by * 2 + bx); coefficients raster.  Every array is
+// 16-byte aligned: the roles read and write them as int4 / uint2.
+struct __align__(16) Slot {
+  // prep's
+  __align__(16) uint32_t ys[64];  // luma source bytes, row-major, 4 a word
+  __align__(16) uint32_t cs[32];  // chroma's: Cb rows 0-7, then Cr, 2 a row
+  __align__(16) int S[24];        // each block's sample sum, F(src) at 0
+  __align__(16) int zl[16];       // luma Fh (i, j): raw at j 0,
+                                  // quant_luma_dc at j >= 1
+  __align__(16) int zq0[4];       // quant_luma_dc of Fh (i, 0)
+  __align__(16) int zc[8];        // chroma Fc per plane (4p + 2i + j): raw
+                                  // at j 0, quant_chroma_dc at j 1
+  __align__(16) int16_t lv[24][16];  // levels off column 0; raw F(src) at
+                                     // rasters 0, 4, 8, 12
+  __align__(16) int P[24][16];    // the row pass of the levels off column 0
+  // the chains'
+  __align__(16) int lft[16];      // the luma left column of this MB
+  __align__(16) int clft[16];     // chroma's (Cb 8, Cr 8)
+  __align__(16) int zl0[4];       // the luma DC levels at (i, 0)
+  __align__(16) int zc0[4];       // the chroma DC levels at (i, 0), 2p + i
+  __align__(16) int cdcp[4];      // chroma DC predictions, 2p + half
+  int mode, cmode, pdc, sad, use;
+  int nzy, nzc;  // prep's: a luma / chroma AC level off rasters 4, 8, 12
+                 // is nonzero
+};
+
 // raster index of 4x4 zigzag slot k (golden ZIGZAG4), a nibble a slot
 __device__ __forceinline__ int zz(int k) {
   return (int)((0xFEB7ADC963258410ull >> (4 * k)) & 15);
@@ -102,330 +185,726 @@ __device__ __forceinline__ int quant(int w, int mf, int f, int qbits) {
 
 __device__ __forceinline__ int clip255(int x) { return min(max(x, 0), 255); }
 
-// Forward core transform of a raster 4x4 block in place (transform.py
-// forward4x4: the vertical butterflies, then the horizontal ones).
-__device__ __forceinline__ void forward4x4(int (&x)[16]) {
+// One plane's quantiser at its QP.
+struct Quant {
+  int qd, qbits, fq, scale, mf[3], vs[3];
+};
+
+__device__ __forceinline__ Quant quantiser(int qp) {
+  Quant q;
+  const int qm = qp % 6;
+  q.qd = qp / 6;
+  q.qbits = 15 + q.qd;
+  q.fq = (1 << q.qbits) / 3;
+  q.scale = 1 << q.qd;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int a0 = x[c] + x[12 + c], a1 = x[4 + c] + x[8 + c];
-    const int a2 = x[4 + c] - x[8 + c], a3 = x[c] - x[12 + c];
-    x[c] = a0 + a1;
-    x[4 + c] = 2 * a3 + a2;
-    x[8 + c] = a0 - a1;
-    x[12 + c] = a3 - 2 * a2;
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int p0 = x[4 * r], p1 = x[4 * r + 1], p2 = x[4 * r + 2],
-              p3 = x[4 * r + 3];
-    const int b0 = p0 + p3, b1 = p1 + p2, b2 = p1 - p2, b3 = p0 - p3;
-    x[4 * r] = b0 + b1;
-    x[4 * r + 1] = 2 * b3 + b2;
-    x[4 * r + 2] = b0 - b1;
-    x[4 * r + 3] = b3 - 2 * b2;
-  }
+  for (int i = 0; i < 3; ++i) q.mf[i] = kMF[i][qm], q.vs[i] = kV[i][qm];
+  return q;
 }
 
-// Normative inverse transform in place (8.5.12.2, transform.py
-// inverse4x4): each row first, then each column; `>> 1` arithmetic.
-__device__ __forceinline__ void inverse4x4(int (&d)[16]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int d0 = d[4 * r], d1 = d[4 * r + 1], d2 = d[4 * r + 2],
-              d3 = d[4 * r + 3];
-    const int e0 = d0 + d2, e1 = d0 - d2;
-    const int e2 = (d1 >> 1) - d3, e3 = d1 + (d3 >> 1);
-    d[4 * r] = e0 + e3;
-    d[4 * r + 1] = e1 + e2;
-    d[4 * r + 2] = e1 - e2;
-    d[4 * r + 3] = e0 - e3;
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int f0 = d[c], f1 = d[4 + c], f2 = d[8 + c], f3 = d[12 + c];
-    const int g0 = f0 + f2, g1 = f0 - f2;
-    const int g2 = (f1 >> 1) - f3, g3 = f1 + (f3 >> 1);
-    d[c] = g0 + g3;
-    d[4 + c] = g1 + g2;
-    d[8 + c] = g1 - g2;
-    d[12 + c] = g0 - g3;
-  }
+__device__ __forceinline__ int q_ac(const Quant& q, int w, int c) {
+  return quant(w, q.mf[c], q.fq, q.qbits);
+}
+__device__ __forceinline__ int dq_ac(const Quant& q, int z, int c) {
+  return z * q.vs[c] * q.scale;
+}
+__device__ __forceinline__ int q_ldc(const Quant& q, int f) {
+  return quant(f, q.mf[0], q.fq << 2, q.qbits + 2);
+}
+__device__ __forceinline__ int dq_ldc(const Quant& q, int g) {
+  return q.qd >= 2 ? g * q.vs[0] * (1 << (q.qd - 2))
+                   : (g * q.vs[0] + (1 << (1 - q.qd))) >> (2 - q.qd);
+}
+__device__ __forceinline__ int q_cdc(const Quant& q, int f) {
+  return quant(f, q.mf[0], q.fq << 1, q.qbits + 1);
+}
+__device__ __forceinline__ int dq_cdc(const Quant& q, int g) {
+  return (g * q.vs[0] * q.scale) >> 1;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
+__device__ __forceinline__ int4 ld4(const int* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
+__device__ __forceinline__ int4 splat(int x) { return make_int4(x, x, x, x); }
+__device__ __forceinline__ unsigned warp_sum(unsigned v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+__device__ __forceinline__ int pick4(int4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ int sum4(int4 v) { return v.x + v.y + v.z + v.w; }
 
-__device__ __forceinline__ int warp_or(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v |= __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// forward4x4's vertical butterfly of one column p (v.x the sum): 4 v is
+// F(pred) at rasters 0, 4, 8, 12 of an H prediction p
+__device__ __forceinline__ int4 vert(int4 p) {
+  const int a0 = p.x + p.w, a1 = p.y + p.z, a2 = p.y - p.z, a3 = p.x - p.w;
+  return make_int4(a0 + a1, 2 * a3 + a2, a0 - a1, a3 - 2 * a2);
 }
 
-// The block a thread owns: plane 0 luma (threads 0-15, 4x4 grid), 1 Cb
-// (16-19) or 2 Cr (20-23, 2x2 grids); threads 24-31 own none.
-struct Role {
-  bool luma, chroma;
-  int plane, by, bx, j;  // j: the block's raster index in its MB
-  int n;                 // the plane's MB width in samples (16 or 8)
-  int li;                // `left` index of the block's first row
+// The inverse transform's column pass of one column f, (+ 32) >> 6 and
+// the prediction p of each row, clipped: the block's final samples.
+__device__ __forceinline__ int4 column(int f0, int f1, int f2, int f3,
+                                       int4 p) {
+  const int g0 = f0 + f2, g1 = f0 - f2;
+  const int g2 = (f1 >> 1) - f3, g3 = f1 + (f3 >> 1);
+  return make_int4(clip255(p.x + ((g0 + g3 + 32) >> 6)),
+                   clip255(p.y + ((g1 + g2 + 32) >> 6)),
+                   clip255(p.z + ((g1 - g2 + 32) >> 6)),
+                   clip255(p.w + ((g0 - g3 + 32) >> 6)));
+}
+
+// Output row r of the column pass, less f0 (which enters every row as
+// it is): f2 + f1 + (f3 >> 1), -f2 + (f1 >> 1) - f3, -f2 - (f1 >> 1) +
+// f3, f2 - f1 - (f3 >> 1), without a branch on r.
+struct RowOf {
+  bool mid;  // rows 1 and 2 take f1 >> 1 and f3, rows 0 and 3 f1, f3 >> 1
+  int s1, s2, s3;
 };
 
-__device__ __forceinline__ Role role(int t) {
-  Role k{};
-  k.luma = t < 16;
-  k.chroma = t >= 16 && t < 24;
-  if (k.luma) {
-    k.plane = 0, k.by = t >> 2, k.bx = t & 3, k.j = t, k.n = 16;
-    k.li = 4 * k.by;
-  } else {
-    const int c = k.chroma ? t - 16 : 0;
-    k.plane = 1 + (c >> 2), k.j = c & 3, k.by = k.j >> 1, k.bx = k.j & 1;
-    k.n = 8, k.li = 16 + 8 * (k.plane - 1) + 4 * k.by;
-  }
-  return k;
+__device__ __forceinline__ RowOf row_of(int r) {
+  return RowOf{r == 1 || r == 2, r < 2 ? 1 : -1, (r == 0 || r == 3) ? 1 : -1,
+               (r == 0 || r == 2) ? 1 : -1};
 }
 
-// The thread's 4x4 source block of MB (lane, col), raster, into x.
-__device__ __forceinline__ void load_src(int (&x)[16], const Args& a,
-                                         const Role& k, size_t lane,
-                                         int col) {
-  if (!(k.luma || k.chroma)) return;
+__device__ __forceinline__ int rest_of_row(const RowOf& w, int f1, int f2,
+                                           int f3) {
+  return w.s2 * f2 + w.s1 * (w.mid ? f1 >> 1 : f1) +
+         w.s3 * (w.mid ? f3 : f3 >> 1);
+}
+
+// Row r of the right sample column of a right-hand block: its levels at
+// 4, 8, 12 from the raw F(src) (ra.y, .z, .w) less 4 v (v zero for a DC
+// prediction), dequantised, plus K (kk); d0 of row 0 the dequantised DC
+// `dcd`; the column pass; + the row's prediction `pred`, clipped.
+__device__ __forceinline__ int right_sample(const Quant& q, int dcd,
+                                            int4 ra, int4 k, int4 v,
+                                            int pred, const RowOf& w) {
+  const int f1 = dq_ac(q, q_ac(q, ra.y - 4 * v.y, 2), 2) + k.y;
+  const int f2 = dq_ac(q, q_ac(q, ra.z - 4 * v.z, 0), 0) + k.z;
+  const int f3 = dq_ac(q, q_ac(q, ra.w - 4 * v.w, 2), 2) + k.w;
+  return clip255(pred + ((dcd + k.x + rest_of_row(w, f1, f2, f3) + 32) >> 6));
+}
+
+// A prep or finish thread's block: plane 0 luma, 1 Cb, 2 Cr; j its raster
+// index in its plane's MB, n the MB width; b its index among the 24; h
+// its half (luma, two threads a block) or its row / column (chroma, four
+// threads a block).
+struct Block {
+  int b, h, plane, by, bx, j, n;
+};
+
+__device__ __forceinline__ Block block_of(bool luma, int t) {
+  if (luma) {
+    const int i = t >> 1;
+    return Block{i, t & 1, 0, i >> 2, i & 3, i, 16};
+  }
+  const int i = t >> 2, j = i & 3;
+  return Block{16 + i, t & 3, 1 + (i >> 2), j >> 1, j & 1, j, 8};
+}
+
+// A block's four source rows, loaded a step ahead by the prep warps, as
+// packed bytes (every thread of a block loads all four).  int32 samples
+// (0..255) are packed too, at the end of the step that loads them, so
+// that the loads' latency passes under that step's work.
+struct Next {
+  uint32_t w[4];
+};
+
+struct Raw {
+  int4 v[4];
+};
+
+__device__ __forceinline__ uint32_t pack4(int4 v) {
+  return (uint32_t)(v.x & 255) | ((uint32_t)(v.y & 255) << 8) |
+         ((uint32_t)(v.z & 255) << 16) | ((uint32_t)(v.w & 255) << 24);
+}
+
+__device__ __forceinline__ void prep_load(Next& nx, Raw& raw, const Args& a,
+                                          const Block& k, size_t lane,
+                                          int col) {
   const size_t w = (size_t)a.C * k.n;
-  const size_t row0 = lane * k.n + 4 * k.by;
-  const size_t x0 = (size_t)col * k.n + 4 * k.bx;
+  const size_t row0 = lane * k.n + 4 * k.by, x0 = (size_t)col * k.n + 4 * k.bx;
   const void* p = k.plane == 0 ? a.sy : k.plane == 1 ? a.su : a.sv;
 #pragma unroll
   for (int y = 0; y < 4; ++y) {
     const size_t o = (row0 + y) * w + x0;
-    if (a.src_u8) {
-      const uint32_t s = *reinterpret_cast<const uint32_t*>(
+    if (a.src_u8)
+      nx.w[y] = *reinterpret_cast<const uint32_t*>(
           static_cast<const uint8_t*>(p) + o);
-      x[4 * y] = s & 255;
-      x[4 * y + 1] = (s >> 8) & 255;
-      x[4 * y + 2] = (s >> 16) & 255;
-      x[4 * y + 3] = s >> 24;
-    } else {
-      const int4 s =
-          *reinterpret_cast<const int4*>(static_cast<const int32_t*>(p) + o);
-      x[4 * y] = s.x;
-      x[4 * y + 1] = s.y;
-      x[4 * y + 2] = s.z;
-      x[4 * y + 3] = s.w;
-    }
+    else
+      raw.v[y] = *reinterpret_cast<const int4*>(
+          static_cast<const int32_t*>(p) + o);
   }
 }
 
-// Offset (in int4s) of row y of the thread's block in an MB-layout
-// int32 plane ([lanes, C, n, n]).
-__device__ __forceinline__ size_t mb_row(const Role& k, size_t m, int y) {
-  return (m * k.n * k.n + (size_t)(4 * k.by + y) * k.n + 4 * k.bx) >> 2;
+__device__ __forceinline__ uint32_t pack16(int lo, int hi) {
+  return (uint32_t)(uint16_t)lo | ((uint32_t)(uint16_t)hi << 16);
 }
 
-// Block b is lane b: a warp walks its C columns.
-__global__ void __launch_bounds__(32) intra16_enc_kernel(Args a) {
-  __shared__ int left[32];  // luma rows 0-15, Cb 16-23, Cr 24-31
-  __shared__ int xdc[24];   // the blocks' DC coefficients
-  __shared__ int zdc[24];   // the quantised DC levels, raster per plane
-  const int t = threadIdx.x;
+// Zigzag slot s's level of a block whose levels (raster) sit at lv, as
+// prep writes it: 0 at the DC's slot 0 and at the slots of rasters 4, 8,
+// 12 (2, 3, 9), which finish writes.
+__device__ __forceinline__ int prep_slot(const int16_t* lv, int s) {
+  return (s == 0 || s == 2 || s == 3 || s == 9) ? 0 : lv[zz(s)];
+}
+
+// The DC Hadamards of the block sums, quantised off column j = 0 (the
+// only one the prediction reaches): luma by butterflies across lanes
+// (lane t and t + 16: sum t), ending with Fh(pi(p), pi(q)) in lane (p, q)
+// (pi = (0, 3, 1, 2), the sequency order of the Hadamard matrix's rows);
+// chroma a thread an element (t < 8).
+__device__ void prep_dc(Slot& s, bool luma, int t, const Quant& q) {
+  if (luma) {
+    int f = s.S[t & 15];
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) {
+      const int g = __shfl_xor_sync(0xffffffffu, f, o);
+      f = (t & o) ? g - f : f + g;
+    }
+    const int i = (0x2130 >> (4 * ((t >> 2) & 3))) & 15,
+              j = (0x2130 >> (4 * (t & 3))) & 15;
+    const int z = q_ldc(q, f);
+    if (t < 16) s.zl[4 * i + j] = j ? z : f;
+    if (t < 16 && j == 0) s.zq0[i] = z;
+  } else if (t < 8) {
+    const int i = (t >> 1) & 1, j = t & 1;
+    const int4 S4 = ld4(s.S + 16 + 4 * (t >> 2));
+    const int f = (S4.x + (j ? -S4.y : S4.y)) +
+                  (i ? -1 : 1) * (S4.z + (j ? -S4.w : S4.w));
+    s.zc[t] = j ? q_cdc(q, f) : f;
+  }
+}
+
+// The luma prep of column col (warp 1): thread t, rows 2h, 2h + 1 of
+// block t >> 1.
+__device__ void prep_luma(const Args& a, Slot& s, const Next& nx,
+                          const Block& k, size_t lane, int col, int t,
+                          const Quant& q) {
+  const size_t m = lane * a.C + col;
+  const int h = k.h;
+  int x[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[i] = (nx.w[i >> 2] >> (8 * (i & 3))) & 255;
+  // the source as bytes, for the chain's SADs
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    s.ys[(4 * k.by + 2 * h + rr) * 4 + k.bx] = h ? nx.w[2 + rr] : nx.w[rr];
+  // forward4x4: the vertical butterflies' rows 2h, 2h + 1, then those
+  // rows' horizontal ones
+  const int m1 = h ? 1 : 2, m2 = h ? -2 : 1, sg = h ? -1 : 1;
+  int v[2][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int a0 = x[c] + x[12 + c], a1 = x[4 + c] + x[8 + c];
+    const int a2 = x[4 + c] - x[8 + c], a3 = x[c] - x[12 + c];
+    v[0][c] = a0 + sg * a1;       // row 0 (h 0) or 2 (h 1)
+    v[1][c] = m1 * a3 + m2 * a2;  // row 1: 2 a3 + a2; row 3: a3 - 2 a2
+  }
+  int lv[8], pr[8];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int p0 = v[rr][0], p1 = v[rr][1], p2 = v[rr][2], p3 = v[rr][3];
+    const int b0 = p0 + p3, b1 = p1 + p2, b2 = p1 - p2, b3 = p0 - p3;
+    const int f[4] = {b0 + b1, 2 * b3 + b2, b0 - b1, b3 - 2 * b2};
+    int d[4];
+    lv[4 * rr] = f[0];  // raw in column 0
+#pragma unroll
+    for (int c = 1; c < 4; ++c) {
+      const int cl = pos_class(4 * rr + c);  // row parity is rr's
+      lv[4 * rr + c] = q_ac(q, f[c], cl);
+      d[c] = dq_ac(q, lv[4 * rr + c], cl);
+    }
+    // inverse4x4's row pass with d0 = 0
+    const int e2 = (d[1] >> 1) - d[3], e3 = d[1] + (d[3] >> 1);
+    pr[4 * rr] = d[2] + e3;
+    pr[4 * rr + 1] = e2 - d[2];
+    pr[4 * rr + 2] = -d[2] - e2;
+    pr[4 * rr + 3] = d[2] - e3;
+  }
+  if (h == 0) s.S[k.b] = lv[0];
+  reinterpret_cast<int4*>(s.lv[k.b])[h] =
+      make_int4(pack16(lv[0], lv[1]), pack16(lv[2], lv[3]),
+                pack16(lv[4], lv[5]), pack16(lv[6], lv[7]));
+  int4* pp = reinterpret_cast<int4*>(s.P[k.b]) + 2 * h;
+  pp[0] = make_int4(pr[0], pr[1], pr[2], pr[3]);
+  pp[1] = make_int4(pr[4], pr[5], pr[6], pr[7]);
+  __syncwarp();
+  // zigzag slots 8h .. 8h + 7 of the levels off rasters 4, 8, 12
+  int zs[8], nz = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) nz |= zs[i] = prep_slot(s.lv[k.b], 8 * h + i);
+  reinterpret_cast<int4*>(a.ac + m * 256 + 16 * k.b)[h] =
+      make_int4(pack16(zs[0], zs[1]), pack16(zs[2], zs[3]),
+                pack16(zs[4], zs[5]), pack16(zs[6], zs[7]));
+  const uint32_t nzb = __ballot_sync(0xffffffffu, nz != 0);
+  if (t == 0) s.nzy = nzb != 0;
+  prep_dc(s, true, t, q);
+}
+
+// The chroma prep of column col (warp 2): thread t, row r = t & 3 of
+// block 16 + (t >> 2); `stage` holds the chroma AC levels in their output
+// order; qm / qv the quantiser / dequantiser factors of the row's
+// positions 1-3.
+__device__ void prep_chroma(const Args& a, Slot& s, int16_t* stage,
+                            const Next& nx, const Block& k, size_t lane,
+                            int col, int t, const Quant& q, int4 cr,
+                            int4 qm, int4 qv) {
+  const size_t m = lane * a.C + col;
+  const int r = k.h, p = k.plane - 1;
+  const uint32_t wr = r == 0 ? nx.w[0] : r == 1 ? nx.w[1]
+                      : r == 2 ? nx.w[2] : nx.w[3];
+  s.cs[16 * p + 2 * (4 * k.by + r) + k.bx] = wr;
+  // forward4x4: row r of the vertical butterflies (weights cr), then its
+  // horizontal one
+  int y[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int x0 = (nx.w[0] >> (8 * c)) & 255, x1 = (nx.w[1] >> (8 * c)) & 255;
+    const int x2 = (nx.w[2] >> (8 * c)) & 255, x3 = (nx.w[3] >> (8 * c)) & 255;
+    y[c] = cr.x * x0 + cr.y * x1 + cr.z * x2 + cr.w * x3;
+  }
+  const int b0 = y[0] + y[3], b1 = y[1] + y[2], b2 = y[1] - y[2],
+            b3 = y[0] - y[3];
+  const int f0 = b0 + b1;  // raw in column 0
+  const int l1 = quant(2 * b3 + b2, qm.y, q.fq, q.qbits);
+  const int l2 = quant(b0 - b1, qm.z, q.fq, q.qbits);
+  const int l3 = quant(b3 - 2 * b2, qm.w, q.fq, q.qbits);
+  const int d1 = l1 * qv.y, d2 = l2 * qv.z, d3 = l3 * qv.w;
+  // inverse4x4's row pass with d0 = 0
+  const int e2 = (d1 >> 1) - d3, e3 = d1 + (d3 >> 1);
+  if (r == 0) s.S[k.b] = f0;
+  *reinterpret_cast<uint2*>(s.lv[k.b] + 4 * r) =
+      make_uint2(pack16(f0, l1), pack16(l2, l3));
+  reinterpret_cast<int4*>(s.P[k.b])[r] =
+      make_int4(d2 + e3, e2 - d2, -d2 - e2, d2 - e3);
+  __syncwarp();
+  // zigzag slots 4r .. 4r + 3 (slot 0, the DC, is not stored)
+  int16_t* o = stage + 60 * p + 15 * k.j - 1;  // slot i at o[i]
+  int nz = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int sl = 4 * r + i, z = prep_slot(s.lv[k.b], sl);
+    nz |= z;
+    if (sl) o[sl] = (int16_t)z;
+  }
+  const uint32_t nzb = __ballot_sync(0xffffffffu, nz != 0);
+  if (t == 0) s.nzc = nzb != 0;
+  prep_dc(s, false, t, q);
+  __syncwarp();  // the chroma AC staged
+  if (t < 15)
+    reinterpret_cast<int4*>(a.cac + m * 120)[t] =
+        reinterpret_cast<const int4*>(stage)[t];
+}
+
+// The raw F(src) at rasters 4, 8, 12 (in .y, .z, .w) and K (column 3 of
+// P, rows 0-3) of block b of slot s.
+__device__ __forceinline__ int4 raw_of(const Slot& s, int b) {
+  return make_int4(0, s.lv[b][4], s.lv[b][8], s.lv[b][12]);
+}
+__device__ __forceinline__ int4 k_of(const Slot& s, int b) {
+  return make_int4(s.P[b][3], s.P[b][7], s.P[b][11], s.P[b][15]);
+}
+
+// The luma chain, column col (warp 0; see the note above): lane t takes
+// right column row y = t & 15 (lanes 16-31 repeat 0-15) and SAD row t >>
+// 1; `ir` / `isad` D4's rec_inter right sample of row y and inter SAD,
+// of this column on entry and of the next on return.
+__device__ void luma_column(const Args& a, Slot& s, Slot& next, size_t lane,
+                            int col, int t, const Quant& q, bool d4, int4 sy,
+                            const RowOf& w, int& ir, int& isad) {
+  const size_t m = lane * a.C + col;
+  const bool first = col == 0;
+  const int y = t & 15, by = y >> 2;
+  const int ir_now = ir, isad_now = isad;
+  if (d4 && col + 1 < a.C) {  // the next column's, a step ahead
+    ir = a.iy[(m + 1) * 256 + 16 * y + 15];
+    isad = a.inter_sad[m + 1];
+  }
+  const int4 L0 = ld4(s.lft), L1 = ld4(s.lft + 4), L2 = ld4(s.lft + 8),
+             L3 = ld4(s.lft + 12);
+  const int4 rows = ld4(s.lft + 4 * by);
+  const int lsad = s.lft[t >> 1], lme = s.lft[y];
+  const uint2 sw = reinterpret_cast<const uint2*>(s.ys)[t];
+  const int4 z0 = ld4(s.zl), z1 = ld4(s.zl + 4), z2 = ld4(s.zl + 8),
+             z3 = ld4(s.zl + 12), zq = ld4(s.zq0);
+  const int4 ra = raw_of(s, 4 * by + 3), kk = k_of(s, 4 * by + 3);
+
+  // DC's prediction, then the DC and H SADs in one packed reduction
+  const int lb0 = sum4(L0), lb1 = sum4(L1), lb2 = sum4(L2), lb3 = sum4(L3);
+  const int pdc = first ? 128 : (lb0 + lb1 + lb2 + lb3 + 8) >> 4;
+  const uint32_t pd4 = (uint32_t)pdc * 0x01010101u;
+  const uint32_t ph4 = (uint32_t)lsad * 0x01010101u;
+  const uint32_t sads = warp_sum(
+      __vsadu4(sw.x, pd4) + __vsadu4(sw.y, pd4) +
+      ((__vsadu4(sw.x, ph4) + __vsadu4(sw.y, ph4)) << 16));
+
+  // meanwhile both candidates of row y: R_i = sum over j >= 1 of
+  // z(i, j) h(j, 3); the DC levels at (i, 0), quant_luma_dc of Fh(i, 0)
+  // less 256 pdc at i = 0 (DC) or less 16 (H L)_i (H); the inverse
+  // Hadamard's row by of column 3, dequantised
+  const int R0 = z0.z - z0.y - z0.w, R1 = z1.z - z1.y - z1.w,
+            R2 = z2.z - z2.y - z2.w, R3 = z3.z - z3.y - z3.w;
+  const int zd0 = q_ldc(q, z0.x - 256 * pdc), zd1 = zq.y, zd2 = zq.z,
+            zd3 = zq.w;
+  const int gd = (zd0 + R0) + sy.y * (zd1 + R1) + sy.z * (zd2 + R2) +
+                 sy.w * (zd3 + R3);
+  const int rec_dc = right_sample(q, dq_ldc(q, gd), ra, kk, splat(0), pdc, w);
+  const int zh0 = q_ldc(q, z0.x - 16 * (lb0 + lb1 + lb2 + lb3));
+  const int zh1 = q_ldc(q, z1.x - 16 * (lb0 + lb1 - lb2 - lb3));
+  const int zh2 = q_ldc(q, z2.x - 16 * (lb0 - lb1 - lb2 + lb3));
+  const int zh3 = q_ldc(q, z3.x - 16 * (lb0 - lb1 + lb2 - lb3));
+  const int gh = (zh0 + R0) + sy.y * (zh1 + R1) + sy.z * (zh2 + R2) +
+                 sy.w * (zh3 + R3);
+  const int rec_h = right_sample(q, dq_ldc(q, gh), ra, kk, vert(rows), lme, w);
+
+  // the choice: DC wins a tie and is column 0's only mode; D4's inter
+  // wins a tie with the intra SAD
+  const int sad_dc = (int)(sads & 0xffffu), sad_h = (int)(sads >> 16);
+  const bool dc = first || sad_dc <= sad_h;
+  const int sad = dc ? sad_dc : sad_h;
+  const bool use = !d4 || sad < isad_now;
+  if (t < 16 && col + 1 < a.C)
+    next.lft[y] = use ? (dc ? rec_dc : rec_h) : ir_now;
+  if (t < 4)  // the DC levels at (i, 0), for finish
+    s.zl0[t] = pick4(dc ? make_int4(zd0, zd1, zd2, zd3)
+                        : make_int4(zh0, zh1, zh2, zh3), t);
+  if (t == 0) {
+    s.mode = dc ? 2 : 1;
+    s.pdc = pdc;
+    s.sad = sad;
+    s.use = use;
+  }
+}
+
+// The chroma chain, column col (warp 1): lane t takes right column row t
+// & 15 (plane p = (t >> 3) & 1, row y = t & 7) and the 4 SAD samples of
+// word t; `crec` carries its intra right sample from column to column,
+// `ir` its rec_inter right sample (D4), loaded a column ahead of its use.
+__device__ void chroma_column(const Args& a, const Slot& pv, Slot& s,
+                              size_t lane, int col, int t, const Quant& q,
+                              bool d4, const RowOf& w, int& crec, int& ir) {
+  const size_t m = lane * a.C + col;
+  const bool first = col == 0;
+  const int p = (t >> 3) & 1, y = t & 7, hb = y >> 2;
+  if (!first) {  // the last column's final right samples: this one's left
+    if (t < 16) s.clft[t] = !d4 || pv.use ? crec : ir;
+    __syncwarp();
+  }
+  if (d4)  // this column's, for the next one's left
+    ir = (p ? a.iv : a.iu)[m * 64 + 8 * y + 7];
+  const int4 c0 = ld4(s.clft + 8 * p), c1 = ld4(s.clft + 8 * p + 4);
+  const int4 cs = ld4(s.clft + 4 * (t >> 3));  // the SAD row's half
+  const int lsad = s.clft[t >> 1], lme = s.clft[8 * p + y];
+  const uint32_t sw = s.cs[t];
+  const int4 zc = ld4(s.zc + 4 * p);
+  const int4 ra = raw_of(s, 16 + 4 * p + 2 * hb + 1),
+             kk = k_of(s, 16 + 4 * p + 2 * hb + 1);
+
+  // DC's prediction of each half, then the summed Cb + Cr SADs
+  const int l0 = sum4(c0), l1 = sum4(c1);
+  const int d0 = first ? 128 : (l0 + 2) >> 2, d1 = first ? 128 : (l1 + 2) >> 2;
+  const int dsad = first ? 128 : (sum4(cs) + 2) >> 2;
+  const uint32_t sads = warp_sum(
+      __vsadu4(sw, (uint32_t)dsad * 0x01010101u) +
+      (__vsadu4(sw, (uint32_t)lsad * 0x01010101u) << 16));
+
+  // meanwhile both candidates of the lane's row: plane p's DC levels at
+  // (i, 0), a_r = 16 dcs_r (DC) or 4 L_r (H), and the inverse 2x2
+  // Hadamard at (hb, 1)
+  const int sg = hb ? -1 : 1;
+  const int zd0 = q_cdc(q, zc.x - 32 * (d0 + d1));
+  const int zd1 = q_cdc(q, zc.z - 32 * (d0 - d1));
+  const int gd = (zd0 - zc.y) + sg * (zd1 - zc.w);
+  const int rec_dc = right_sample(q, dq_cdc(q, gd), ra, kk, splat(0),
+                              hb ? d1 : d0, w);
+  const int zh0 = q_cdc(q, zc.x - 8 * (l0 + l1));
+  const int zh1 = q_cdc(q, zc.z - 8 * (l0 - l1));
+  const int gh = (zh0 - zc.y) + sg * (zh1 - zc.w);
+  const int rec_h = right_sample(q, dq_cdc(q, gh), ra, kk, vert(hb ? c1 : c0),
+                             lme, w);
+
+  const bool dc = first || (sads & 0xffffu) <= (sads >> 16);
+  crec = dc ? rec_dc : rec_h;
+  if (y == 0 && t < 16) {  // lanes 0 and 8: plane p's DC levels
+    s.zc0[2 * p] = dc ? zd0 : zh0;
+    s.zc0[2 * p + 1] = dc ? zd1 : zh1;
+    s.cdcp[2 * p] = d0;
+    s.cdcp[2 * p + 1] = d1;
+  }
+  if (t == 0) s.cmode = dc ? 0 : 1;
+}
+
+// The luma finish of column col (warp 3): thread t, columns 2h, 2h + 1
+// of block t >> 1; sy, sx its Hadamard signs h(by, i), h(j, bx).
+__device__ void finish_luma(const Args& a, const Slot& s, const Block& k,
+                            size_t lane, int col, int t, const Quant& q,
+                            bool d4, int4 sy, int4 sx) {
+  const size_t m = lane * a.C + col;
+  const bool use = !d4 || s.use;
+  const int h = k.h;
+  const int4 pr = s.mode == 2 ? splat(s.pdc) : ld4(s.lft + 4 * k.by);
+  const int4 v = vert(pr);  // zero but v.x for a DC prediction
+  const int16_t* lv = s.lv[k.b];
+  const int q4 = q_ac(q, lv[4] - 4 * v.y, 2);
+  const int q8 = q_ac(q, lv[8] - 4 * v.z, 0);
+  const int q12 = q_ac(q, lv[12] - 4 * v.w, 2);
+  // zigzag slots 2, 3 (rasters 4, 8; h 0) and 9 (raster 12; h 1)
+  int16_t* o = a.ac + m * 256 + 16 * k.b;
+  if (h) {
+    o[9] = (int16_t)q12;
+  } else {
+    o[2] = (int16_t)q4;
+    o[3] = (int16_t)q8;
+  }
+  // the dequantised DC: element (by, bx) of the inverse Hadamard
+  const int4 zi = ld4(s.zl0);
+  int g = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int4 z = ld4(s.zl + 4 * i);
+    g += pick4(sy, i) * (pick4(zi, i) + z.y * sx.y + z.z * sx.z + z.w * sx.w);
+  }
+  const int d0[4] = {dq_ldc(q, g), dq_ac(q, q4, 2), dq_ac(q, q8, 0),
+                     dq_ac(q, q12, 2)};
+  // columns 2h, 2h + 1: e[r] = d0_r + P[r][x], the column pass
+  int rec[2][4];
+#pragma unroll
+  for (int xx = 0; xx < 2; ++xx) {
+    int e[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) e[r] = d0[r] + s.P[k.b][4 * r + 2 * h + xx];
+    const int4 c = column(e[0], e[1], e[2], e[3], pr);
+    rec[xx][0] = c.x, rec[xx][1] = c.y, rec[xx][2] = c.z, rec[xx][3] = c.w;
+  }
+  // the reconstruction, where it is the intra one
+  if (use) {
+    if (d4) {
+      int32_t* op = a.ry + m * 256 + 4 * k.by * 16 + 4 * k.bx + 2 * h;
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+        *reinterpret_cast<int2*>(op + 16 * y) = make_int2(rec[0][y],
+                                                           rec[1][y]);
+    } else {
+      const size_t w = (size_t)a.C * 16;
+      uint8_t* op = a.ry8 + (lane * 16 + 4 * k.by) * w + (size_t)col * 16 +
+                    4 * k.bx + 2 * h;
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+        *reinterpret_cast<uint16_t*>(op + y * w) =
+            (uint16_t)(rec[0][y] | (rec[1][y] << 8));
+    }
+  } else {  // D4: the inter reconstruction stays
+    const int4* iy = reinterpret_cast<const int4*>(a.iy) + m * 64;
+    int4* oy = reinterpret_cast<int4*>(a.ry) + m * 64;
+    oy[t] = iy[t];
+    oy[t + 32] = iy[t + 32];
+  }
+  const uint32_t nzb = __ballot_sync(0xffffffffu, (h ? q12 : q4 | q8) != 0);
+  if (a.i4 && t < 2) reinterpret_cast<int4*>(a.i4 + m * 16)[t] = splat(-1);
+  if (t < 16) {  // the DC level of zigzag slot t
+    const int zr = zz(t);
+    a.dc[m * 16 + t] = (int16_t)((zr & 3) ? s.zl[zr] : s.zl0[zr >> 2]);
+  }
+  if (t == 0) {
+    a.mode[m] = s.mode;
+    a.cbp_l[m] = nzb != 0 || s.nzy;
+    if (a.sad) a.sad[m] = s.sad;
+    if (a.use) a.use[m] = use;
+  }
+}
+
+// The chroma finish of column col (warp 4): thread t, column x = t & 3
+// of block 16 + (t >> 2).
+__device__ void finish_chroma(const Args& a, const Slot& s, const Block& k,
+                              size_t lane, int col, int t, const Quant& q,
+                              bool d4) {
+  const size_t m = lane * a.C + col;
+  const bool use = !d4 || s.use;
+  const int x = k.h, p = k.plane - 1;
+  const int4 pr = s.cmode == 0 ? splat(s.cdcp[2 * p + k.by])
+                               : ld4(s.clft + 8 * p + 4 * k.by);
+  const int4 v = vert(pr);  // zero but v.x for a DC prediction
+  const int16_t* lv = s.lv[k.b];
+  const int q4 = q_ac(q, lv[4] - 4 * v.y, 2);
+  const int q8 = q_ac(q, lv[8] - 4 * v.z, 0);
+  const int q12 = q_ac(q, lv[12] - 4 * v.w, 2);
+  // zigzag slots 2, 3, 9 (rasters 4, 8, 12): threads x 0, 1, 2
+  if (x < 3)
+    a.cac[m * 120 + 60 * p + 15 * k.j + (x == 2 ? 8 : x + 1)] =
+        (int16_t)(x == 0 ? q4 : x == 1 ? q8 : q12);
+  // the dequantised DC: element (by, bx) of the inverse 2x2 Hadamard
+  const int4 zc = ld4(s.zc + 4 * p);
+  const int z00 = s.zc0[2 * p], z10 = s.zc0[2 * p + 1];
+  const int sx = k.bx ? -1 : 1;
+  const int g = dq_cdc(q, (z00 + sx * zc.y) + (k.by ? -1 : 1) *
+                                                  (z10 + sx * zc.w));
+  // column x: e[r] = d0_r + P[r][x], the column pass
+  const int* pp = s.P[k.b] + x;
+  const int4 c = column(g + pp[0], dq_ac(q, q4, 2) + pp[4],
+                        dq_ac(q, q8, 0) + pp[8], dq_ac(q, q12, 2) + pp[12],
+                        pr);
+  if (use) {
+    if (d4) {
+      int32_t* op = (p ? a.rv : a.ru) + m * 64 + 4 * k.by * 8 + 4 * k.bx + x;
+      op[0] = c.x, op[8] = c.y, op[16] = c.z, op[24] = c.w;
+    } else {
+      const size_t w = (size_t)a.C * 8;
+      uint8_t* op = (p ? a.rv8 : a.ru8) + (lane * 8 + 4 * k.by) * w +
+                    (size_t)col * 8 + 4 * k.bx + x;
+      op[0] = (uint8_t)c.x, op[w] = (uint8_t)c.y, op[2 * w] = (uint8_t)c.z,
+      op[3 * w] = (uint8_t)c.w;
+    }
+  } else {  // D4: the inter reconstruction stays
+    const int4* ic = reinterpret_cast<const int4*>(t < 16 ? a.iu : a.iv);
+    int4* oc = reinterpret_cast<int4*>(t < 16 ? a.ru : a.rv);
+    oc[m * 16 + (t & 15)] = ic[m * 16 + (t & 15)];
+  }
+  // cbp: chroma AC (here or prep's), else chroma DC (x 0: raster j's)
+  const uint32_t nzb = __ballot_sync(0xffffffffu, (q4 | q8 | q12) != 0);
+  const int zj = (k.j & 1) ? pick4(zc, k.j) : k.j ? z10 : z00;
+  const uint32_t dcb = __ballot_sync(0xffffffffu, x == 0 && zj != 0);
+  if (x == 0) a.cdc[m * 8 + 4 * p + k.j] = (int16_t)zj;
+  if (t == 0) {
+    a.cmode[m] = s.cmode;
+    a.cbp_c[m] = (nzb != 0 || s.nzc) ? 2 : dcb ? 1 : 0;
+  }
+}
+
+// The end of a step: every warp of the block meets here once a step.
+// Each warp role runs a loop of its own that reaches it C + 2 times (bar.sync
+// 0 counts the block's warps wherever in the code they arrive), so that
+// each role keeps only its own registers.
+__device__ __forceinline__ void step_end() {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync 0;" ::: "memory");
+#else
+  __syncthreads();
+#endif
+}
+
+// The slot after / before slot i of the ring.
+__device__ __forceinline__ int next_slot(int i) {
+  return i == kSlots - 1 ? 0 : i + 1;
+}
+__device__ __forceinline__ int prev_slot(int i) {
+  return i == 0 ? kSlots - 1 : i - 1;
+}
+
+// The luma chain's loop (warp 0): at step c, column c - 1.
+__device__ void luma_chain(const Args& a, Slot* ring, size_t lane, int t,
+                           bool d4) {
+  const Quant q = quantiser(a.qp);
+  const int by = (t & 15) >> 2;  // the right-hand block of the lane's row
+  const int4 sy = make_int4(h4(by, 0), h4(by, 1), h4(by, 2), h4(by, 3));
+  const RowOf w = row_of(t & 3);
+  int ir = 0, isad = 0;
+  if (t < 16) ring[0].lft[t] = 0;  // read, never used, in column 0
+  if (d4) {
+    ir = a.iy[lane * a.C * 256 + 16 * (t & 15) + 15];
+    isad = a.inter_sad[lane * a.C];
+  }
+  for (int c = 0, i = kSlots - 1; c < a.C + 2; ++c, i = next_slot(i)) {
+    if (c >= 1 && c <= a.C)
+      luma_column(a, ring[i], ring[next_slot(i)], lane, c - 1, t, q, d4, sy,
+                  w, ir, isad);
+    step_end();
+  }
+}
+
+// The chroma chain's loop (warp 1): at step c, column c - 1.
+__device__ void chroma_chain(const Args& a, Slot* ring, size_t lane, int t,
+                             bool d4) {
+  const Quant q = quantiser(a.qpc);
+  const RowOf w = row_of(t & 3);
+  int crec = 0, ir = 0;
+  if (t < 16) ring[0].clft[t] = 0;  // read, never used, in column 0
+  for (int c = 0, i = kSlots - 1; c < a.C + 2; ++c, i = next_slot(i)) {
+    if (c >= 1 && c <= a.C)
+      chroma_column(a, ring[prev_slot(i)], ring[i], lane, c - 1, t, q, d4, w,
+                    crec, ir);
+    step_end();
+  }
+}
+
+// The prep loops (warp 2 luma, warp 3 chroma): at step c, column c; the
+// next column's source loaded meanwhile.
+__device__ void prep_loop(const Args& a, Slot* ring, int16_t* stage,
+                          size_t lane, int t, bool luma) {
+  const Quant q = quantiser(luma ? a.qp : a.qpc);
+  const Block k = block_of(luma, t);
+  // a chroma thread's row r = k.h: its vertical butterfly's weights and
+  // its positions' quantiser and dequantiser factors
+  const int r = k.h;
+  const int4 cr = r == 0   ? make_int4(1, 1, 1, 1)
+                  : r == 1 ? make_int4(2, 1, -1, -2)
+                  : r == 2 ? make_int4(1, -1, -1, 1)
+                           : make_int4(1, -2, 2, -1);
+  const int c1 = r & 1 ? 1 : 2, c2 = r & 1 ? 2 : 0;  // classes of 1, 3 / 2
+  const int4 qm = make_int4(0, q.mf[c1], q.mf[c2], q.mf[c1]);
+  const int4 qv = make_int4(0, q.vs[c1] * q.scale, q.vs[c2] * q.scale,
+                            q.vs[c1] * q.scale);
+  Next nx{};
+  Raw raw{};
+  prep_load(nx, raw, a, k, lane, 0);
+  if (!a.src_u8)
+#pragma unroll
+    for (int y = 0; y < 4; ++y) nx.w[y] = pack4(raw.v[y]);
+  for (int c = 0, i = 0; c < a.C + 2; ++c, i = next_slot(i)) {
+    if (c < a.C) {
+      const Next cur = nx;
+      const bool more = c + 1 < a.C;
+      if (more) prep_load(nx, raw, a, k, lane, c + 1);
+      if (luma)
+        prep_luma(a, ring[i], cur, k, lane, c, t, q);
+      else
+        prep_chroma(a, ring[i], stage, cur, k, lane, c, t, q, cr, qm, qv);
+      if (more && !a.src_u8)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) nx.w[y] = pack4(raw.v[y]);
+    }
+    step_end();
+  }
+}
+
+// The finish loops (warp 4 luma, warp 5 chroma): at step c, column c - 2.
+__device__ void finish_loop(const Args& a, Slot* ring, size_t lane, int t,
+                            bool luma, bool d4) {
+  const Quant q = quantiser(luma ? a.qp : a.qpc);
+  const Block k = block_of(luma, t);
+  // a luma thread's Hadamard signs h(by, i) and h(j, bx)
+  const int4 sy = make_int4(h4(k.by, 0), h4(k.by, 1), h4(k.by, 2),
+                            h4(k.by, 3));
+  const int4 sx = make_int4(h4(0, k.bx), h4(1, k.bx), h4(2, k.bx),
+                            h4(3, k.bx));
+  for (int c = 0, i = kSlots - 2; c < a.C + 2; ++c, i = next_slot(i)) {
+    if (c >= 2) {
+      if (luma)
+        finish_luma(a, ring[i], k, lane, c - 2, t, q, d4, sy, sx);
+      else
+        finish_chroma(a, ring[i], k, lane, c - 2, t, q, d4);
+    }
+    step_end();
+  }
+}
+
+// Block b is lane b: its six warps walk the C columns in C + 2 steps.
+// At 96 registers (ptxas) three blocks fit an SM: 272 lanes at 1080p x 4
+// on 132 SMs run in one wave.
+__global__ void __launch_bounds__(kThreads, 2) intra16_enc_kernel(Args a) {
+  __shared__ Slot ring[kSlots];
+  __shared__ __align__(16) int16_t stage[120];
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
   const size_t lane = blockIdx.x;
-  const Role k = role(t);
-  const bool act = k.luma || k.chroma;
-  const int qp = k.chroma ? a.qpc : a.qp;  // the thread's plane's QP
-  const int qm = qp % 6, qd = qp / 6;
-  const int qbits = 15 + qd, fq = (1 << qbits) / 3, scale = 1 << qd;
-  const int mf[3] = {kMF[0][qm], kMF[1][qm], kMF[2][qm]};
-  const int vs[3] = {kV[0][qm], kV[1][qm], kV[2][qm]};
   const bool d4 = a.inter_sad != nullptr;
-
-  int cur[16] = {}, nxt[16] = {};
-  load_src(cur, a, k, lane, 0);
-  int isad = d4 ? a.inter_sad[lane * a.C] : 0;
-  for (int col = 0; col < a.C; ++col) {
-    const size_t m = lane * a.C + col;
-    int isad_next = 0;
-    if (col + 1 < a.C) {
-      load_src(nxt, a, k, lane, col + 1);
-      if (d4) isad_next = a.inter_sad[m + 1];
-    }
-    const bool first = col == 0;
-
-    // ---- prediction: DC and H of the thread's rows, their SADs ----
-    int pdc = 128, ph[4] = {128, 128, 128, 128};
-    if (!first && act) {
-      int sum = 0;
-      if (k.luma) {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) sum += left[i];
-        pdc = (sum + 8) >> 4;
-      } else {  // the block's rows are its 4-row half
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sum += left[k.li + i];
-        pdc = (sum + 2) >> 2;
-      }
-#pragma unroll
-      for (int y = 0; y < 4; ++y) ph[y] = left[k.li + y];
-    }
-    int sdc = 0, sh = 0;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      sdc += abs(cur[i] - pdc);
-      sh += abs(cur[i] - ph[i >> 2]);
-    }
-    const int l_dc = warp_sum(k.luma ? sdc : 0);
-    const int c_dc = warp_sum(k.chroma ? sdc : 0);
-    const int l_h = first ? 0 : warp_sum(k.luma ? sh : 0);
-    const int c_h = first ? 0 : warp_sum(k.chroma ? sh : 0);
-    const bool luma_dc = first || l_dc <= l_h;    // ties to DC
-    const bool chroma_dc = first || c_dc <= c_h;
-    const int sad = luma_dc ? l_dc : l_h;
-    const bool dc_mine = k.luma ? luma_dc : chroma_dc;
-    int pred[4];
-#pragma unroll
-    for (int y = 0; y < 4; ++y) pred[y] = dc_mine ? pdc : ph[y];
-
-    // ---- forward transform and AC quantisation, in registers ----
-    int w[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) w[i] = cur[i] - pred[i >> 2];
-    forward4x4(w);
-    int q[16];
-    int nz = 0;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      q[i] = quant(w[i], mf[pos_class(i)], fq, qbits);
-      if (i > 0) nz |= q[i];
-    }
-    if (act) xdc[t] = w[0];
-    __syncwarp();
-
-    // ---- the DC transforms: element (i, j) of H X H is the thread's
-    // own block's (luma 4x4 over (by, bx), chroma 2x2 per plane) ----
-    const int base = k.luma ? 0 : 16 + 4 * (k.plane - 1);
-    int z = 0;
-    if (k.luma) {
-      int f = 0;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          f += h4(k.by, r) * xdc[4 * r + c] * h4(c, k.bx);
-      z = quant(f, mf[0], fq << 2, qbits + 2);
-    } else if (k.chroma) {
-      int f = 0;
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          f += ((k.by & r) ? -1 : 1) * xdc[base + 2 * r + c] *
-               ((c & k.bx) ? -1 : 1);
-      z = quant(f, mf[0], fq << 1, qbits + 1);
-    }
-    if (act) zdc[t] = z;
-    __syncwarp();
-    int dcd = 0;  // the block's dequantised DC
-    if (k.luma) {
-      int g = 0;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          g += h4(k.by, r) * zdc[4 * r + c] * h4(c, k.bx);
-      dcd = qd >= 2 ? g * vs[0] * (1 << (qd - 2))
-                    : (g * vs[0] + (1 << (1 - qd))) >> (2 - qd);
-    } else if (k.chroma) {
-      int g = 0;
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          g += ((k.by & r) ? -1 : 1) * zdc[base + 2 * r + c] *
-               ((c & k.bx) ? -1 : 1);
-      dcd = (g * vs[0] * scale) >> 1;
-    }
-    // cbp: luma AC anywhere (bit 0), chroma AC (bit 1), chroma DC (bit 2)
-    const int flags = warp_or((k.luma && nz ? 1 : 0) |
-                              (k.chroma && nz ? 2 : 0) |
-                              (k.chroma && z ? 4 : 0));
-    const int cbp_l = flags & 1;
-    const int cbp_c = (flags & 2) ? 2 : (flags & 4) ? 1 : 0;
-
-    // ---- reconstruction ----
-    int rec[16];
-    rec[0] = dcd;
-#pragma unroll
-    for (int i = 1; i < 16; ++i) rec[i] = q[i] * vs[pos_class(i)] * scale;
-    inverse4x4(rec);
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      rec[i] = clip255(pred[i >> 2] + ((rec[i] + 32) >> 6));
-    const bool use = !d4 || sad < isad;  // inter wins a tie
-    if (!use && act) {
-      const int32_t* ip = k.plane == 0 ? a.iy : k.plane == 1 ? a.iu : a.iv;
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const int4 s = reinterpret_cast<const int4*>(ip)[mb_row(k, m, y)];
-        rec[4 * y] = s.x;
-        rec[4 * y + 1] = s.y;
-        rec[4 * y + 2] = s.z;
-        rec[4 * y + 3] = s.w;
-      }
-    }
-
-    // ---- outputs ----
-    if (t == 0) {
-      a.mode[m] = luma_dc ? 2 : 1;
-      a.cmode[m] = chroma_dc ? 0 : 1;
-      a.cbp_l[m] = cbp_l;
-      a.cbp_c[m] = cbp_c;
-      if (a.sad) a.sad[m] = sad;
-      if (a.use) a.use[m] = use;
-    }
-    if (k.luma) {
-      a.dc[m * 16 + t] = (int16_t)zdc[zz(t)];
-      int16_t* o = a.ac + m * 256 + 16 * t;
-      o[0] = 0;  // slot 0 is the DC, coded apart
-#pragma unroll
-      for (int s = 1; s < 16; ++s) o[s] = (int16_t)q[zz(s)];
-      if (a.i4) a.i4[m * 16 + t] = -1;
-    } else if (k.chroma) {
-      const int p = k.plane - 1;
-      a.cdc[m * 8 + 4 * p + k.j] = (int16_t)z;
-      int16_t* o = a.cac + m * 120 + 60 * p + 15 * k.j;
-#pragma unroll
-      for (int s = 1; s < 16; ++s) o[s - 1] = (int16_t)q[zz(s)];
-    }
-    if (act) {
-      if (d4) {
-        int32_t* op = k.plane == 0 ? a.ry : k.plane == 1 ? a.ru : a.rv;
-#pragma unroll
-        for (int y = 0; y < 4; ++y)
-          reinterpret_cast<int4*>(op)[mb_row(k, m, y)] = make_int4(
-              rec[4 * y], rec[4 * y + 1], rec[4 * y + 2], rec[4 * y + 3]);
-      } else {
-        uint8_t* op = k.plane == 0 ? a.ry8 : k.plane == 1 ? a.ru8 : a.rv8;
-        const size_t w = (size_t)a.C * k.n;
-#pragma unroll
-        for (int y = 0; y < 4; ++y)
-          *reinterpret_cast<uint32_t*>(
-              op + (lane * k.n + 4 * k.by + y) * w + (size_t)col * k.n +
-              4 * k.bx) = (uint32_t)rec[4 * y] |
-                          ((uint32_t)rec[4 * y + 1] << 8) |
-                          ((uint32_t)rec[4 * y + 2] << 16) |
-                          ((uint32_t)rec[4 * y + 3] << 24);
-      }
-      // the right column of the final reconstruction: the next MB's left
-      if (k.bx == (k.luma ? 3 : 1)) {
-#pragma unroll
-        for (int y = 0; y < 4; ++y) left[k.li + y] = rec[4 * y + 3];
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 16; ++i) cur[i] = nxt[i];
-    isad = isad_next;
+  switch (warp) {
+    case kLuma: luma_chain(a, ring, lane, t, d4); break;
+    case kChroma: chroma_chain(a, ring, lane, t, d4); break;
+    case kPrepY: prep_loop(a, ring, stage, lane, t, true); break;
+    case kPrepC: prep_loop(a, ring, stage, lane, t, false); break;
+    case kFinY: finish_loop(a, ring, lane, t, true, d4); break;
+    default: finish_loop(a, ring, lane, t, false, d4);
   }
 }
 
@@ -447,7 +926,7 @@ extern "C" int th264_intra16_encode_rows(
                mode, cmode, cbp_l, cbp_c, nullptr, nullptr, dc, ac, cdc,
                cac, i4, ry, ru, rv, nullptr, nullptr, nullptr, lanes, C, qp,
                qpc};
-  intra16_enc_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(a);
+  intra16_enc_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -464,7 +943,7 @@ extern "C" int th264_intra16_in_p_rows(
   const Args a{sy, su, sv, src_u8, inter_sad, iy, iu, iv, mode, cmode,
                cbp_l, cbp_c, sad, use, dc, ac, cdc, cac, nullptr, nullptr,
                nullptr, nullptr, ry, ru, rv, lanes, C, qp, qpc};
-  intra16_enc_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(a);
+  intra16_enc_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,10 @@
 // intra lane position takes its prediction from the left MB's right
 // sample column (luma: DC (sum of the 16 + 8) >> 4 where mode == 2, else
 // H, the left sample of its row; chroma: DC per 4-row half (sum of the
-// 4 + 2) >> 2 where cmode == 0, else H), or 128 in column 0 whatever the
-// mode (the plain version's rule; the encoder codes column 0 as DC),
-// adds its residual and clips to 0..255.  An MB whose is_intra is 0
+// 4 + 2) >> 2 where cmode == 0, else H); in column 0, as the JAX scans
+// with their zero carry, DC is 128 and H predicts 0 (no legal stream
+// codes H there; the encoder codes column 0 as DC).  It adds its
+// residual and clips to 0..255.  An MB whose is_intra is 0
 // takes `other` instead (the inter reconstruction), and serves as the
 // next MB's left neighbour all the same.  Without `other` every MB is
 // intra (the I decode).  int32 in, int32 out, of any value: nothing here
@@ -154,7 +155,9 @@ __device__ __forceinline__ void column(const Slot& s, const Args& a,
                                        int t, int4& la, int4& lb, int4& lc) {
   int4 oa = s.a, ob = s.b, oc = s.c;
   if (s.f & kIntra) {  // uniform across the warp
-    int pa = 128, pb = 128, pc = 128;
+    // column 0: DC 128, H against zeros
+    int pa = (s.f & kLumaDc) ? 128 : 0, pb = pa;
+    int pc = (s.f & kChromaDc) ? 128 : 0;
     if (col > 0) {
       // the left samples of this thread's rows, from the threads whose
       // chunks ended the previous MB's rows

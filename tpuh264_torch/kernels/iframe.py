@@ -5,8 +5,10 @@ only causal chain is the left neighbour within a row: the column
 `lax.scan` of the JAX version becomes one CUDA kernel a scan on the card
 (a warp per (stream, MB row) lane walking its C columns), and a Python
 loop over the C MB columns, batched over all lanes, in the plain
-versions.  The first column has no left neighbour: DC prediction at 128
-only.
+versions.  The first column has no left neighbour: the encode predicts
+it by DC at 128 only; the decode, as the JAX scans with their zero
+carry, takes DC at 128 where its mode says DC and 0 (H against zeros)
+where it says H, which no legal stream codes there.
 
 The encode's column scan, `encode_iframe_scan`, is D3: K6
 (csrc/intra16_enc.cu, `_intra16_launch`) for CUDA tensors without
@@ -529,14 +531,13 @@ def _intra_recon_scan_plain(mode, cmode, res, other=None, is_intra=None,
         pred_dc, pred_h = _pred_luma(left[0], first, lead, dev)
         pu_dc, pu_h = _pred_chroma(left[1], first, lead, dev)
         pv_dc, pv_h = _pred_chroma(left[2], first, lead, dev)
-        if first:
-            pred, predu, predv = pred_dc, pu_dc, pv_dc
-        else:
-            lsel = (mode[:, :, col] == 2)[..., None, None]
-            csel = (cmode[:, :, col] == 0)[..., None, None]
-            pred = torch.where(lsel, pred_dc, pred_h)
-            predu = torch.where(csel, pu_dc, pu_h)
-            predv = torch.where(csel, pv_dc, pv_h)
+        if first:  # H predicts from the JAX scans' zero carry: 0
+            pred_h = pu_h = pv_h = 0
+        lsel = (mode[:, :, col] == 2)[..., None, None]
+        csel = (cmode[:, :, col] == 0)[..., None, None]
+        pred = torch.where(lsel, pred_dc, pred_h)
+        predu = torch.where(csel, pu_dc, pu_h)
+        predv = torch.where(csel, pv_dc, pv_h)
         rec = (
             _blocks_to_mb(torch.clamp(_luma_blocks(pred) + res[0][:, :, col],
                                       0, 255)),
