@@ -65,7 +65,9 @@ tpuh264_torch/csrc, then:
      4 times (once a decoded frame, the IDR's included) and K6 once a
      GOP-start dispatch (its I frame);
   5. runs `run()` briefly at that configuration and at 854x480 x 8 streams
-     at 1 Mbps and prints aggregate fps, the stage split, PSNR and QP;
+     at 1 Mbps through `bench.headline.measure` (one repeat each, decoder
+     DPB == encoder DPB after it) and prints aggregate fps, the labelled
+     stage split, PSNR and QP, and the headline's line and 480p line;
   6. the reference's operating point with the default CodecConfig
      (intra-in-P): 854x480 x 8, CBR 1 Mbps, gop 8, 3 dispatches, decoder
      DPB == encoder DPB after each; the share of intra MBs in P frames;
@@ -76,13 +78,15 @@ tpuh264_torch/csrc, then:
   8. host ingest -> fan-out 8: one 854x480 stream of camera-like host
      frames at QP 32, decoded eight times, with a drop_frames: all eight
      decode streams equal the encoder DPB; intra MBs coded in P frames;
-     the upload ms per dispatch;
+     the upload ms per dispatch; then `bench.ingest.measure` on that
+     pipeline for 3 s, its `host_ingest_fanout` line;
   9. the I-only DevicePipeline at 854x480, decoded 8 times from symbols;
      the port's own decode of a frame's bytes (`decode_bytes`: native
      parse + I scan) equals the encoder's reconstruction;
  10. the live App (impl "tpu_gop") with the defaults at 854x480 x 8 for
      10 s, or longer until its first dispatch has retired: its stats,
-     capture drops included, then stop();
+     capture drops included, and their `bench.live.render` view, then
+     stop();
  11. EncoderSession at the reference's operating point, 854x480 x 8 from
      RGBA (a different "meeting" clip frame per stream), intra44 +
      deblock, gop 8, CBR 1 Mbps, 10 frames across an IDR: every frame's 8
@@ -105,10 +109,11 @@ tpuh264_torch/csrc, then:
      through DecoderSession on the card: the I frame on the fast path,
      the P frame on the golden one, both equal to the golden decode (and
      to libavcodec's where it loads);
- 15. BASELINE config 3 on the card (tools/bench_config3.py's session):
-     EncoderSession 1920x1080, CABAC + 8x8 transform, 2 references, CBR
-     4 Mbps, intra-in-P, gop 6, 6 frames of "rigid" (IDR + 5 P), each
-     access unit through a DecoderSession == the recon; MBs coded with
+ 15. BASELINE config 3 on the card through `bench.config3` (the analog of
+     tools/bench_config3.py): EncoderSession 1920x1080, CABAC + 8x8
+     transform, 2 references, CBR 4 Mbps, intra-in-P, gop 6, 6 frames of
+     "rigid" (IDR + 5 P), each access unit through a DecoderSession ==
+     the recon; MBs coded with
      the 8x8 transform and with reference 1 required; K1 launched once
      per P frame and searched reference (1 + 2 x 4 = 9); the whole
      stream decoded by the golden decoder in a spawned worker == the
@@ -118,7 +123,10 @@ tpuh264_torch/csrc, then:
      batch) == the recon, and its stream 0 decoded by the golden decoder
      == the recon (a check of K4's t8 edges independent of K4); per-frame
      copy / encode / entropy / decode ms, kbps at 30 fps, PSNR-Y, QP, and
-     the t8 / reference-1 / intra shares of the P MBs;
+     the t8 / reference-1 / intra shares of the P MBs; the
+     `config3_session_encode` line; `bench.config3.flagship_multiref`
+     (1920x1080 x 4, 2 references, CBR 4 Mbps) for 2 s, decoder DPB ==
+     encoder DPB after it;
  16. the distribution layer, device_pack and the bench harness: (a)
      BASELINE config 5 cut to one card -- 4 ranks (processes) sharing it
      under gloo, mesh (streams 2, rows 2), 16 x 1920x1080 "rigid", I + 2
@@ -126,8 +134,10 @@ tpuh264_torch/csrc, then:
      every frame's gathered symbols, recon and motion == the unsharded
      encode on the card, MVs across the band edge, each rank's halo
      decode == its band, K1 once per rank per P frame (8), its plain
-     version never; (b) `python -m tpuh264_torch.dist.multihost`, 2
-     processes, both layouts at 832x480: bitexact; (c) a 1-rank NCCL
+     version never; (b) `bench.multihost.measure` at its smallest mesh
+     (1x2, 2 processes of `python -m tpuh264_torch.dist.multihost`), one
+     host then two hosts with the rows across them, and the
+     stream-parallel layout, at 832x480: bitexact; (c) a 1-rank NCCL
      group at 854x480 x 8 == the unsharded encode; (d)
      `device_pack.assemble_iframe` / `assemble_pframe` at 854x480 x 8:
      card bytes == CPU bytes, the golden decode == recon; (e)
@@ -1599,23 +1609,30 @@ def phase_main(dev, torch, np, card):
 
 
 def phase_runs(dev, card):
-    """Phase 5: short measured runs at the two benchmark configurations."""
+    """Phase 5: short measured runs at the headline's two configurations
+    through `bench.headline.measure` (one repeat each, decoder DPB ==
+    encoder DPB after it), printed in the headline's formats; the gate is
+    phase 14's."""
+    from tpuh264_torch.bench import harness, headline
     from tpuh264_torch.engine import CodecConfig
-    from tpuh264_torch.engine.devpipe import GOPDevicePipeline
 
-    for w, h, s, rate, dur in ((1920, 1080, 4, 4_000_000, 15.0),
-                               (854, 480, 8, 1_000_000, 12.0)):
-        cfg = CodecConfig(width=w, height=h, streams=s, qp=None,
-                          bitrate=rate, intra_in_p=False)
-        pipe = GOPDevicePipeline(cfg, gop_size=32, source_kind="rigid",
-                                 device=dev)
-        snap = pipe.run(duration_s=dur, warmup=1)
-        stages = {k: round(v, 1) for k, v in snap.items()
-                  if k.startswith("ms_")}
-        print(f"phase 5: run() {w}x{h} x {s} CBR {rate // 1000} kbps: "
-              f"{snap['frames_per_s_aggregate']:.2f} aggregate fps "
-              f"({snap['frames']} frames), stages/dispatch ms {stages}, "
-              f"PSNR {snap['psnr_y']:.2f} dB, QP {snap['qp']} [{card}]")
+    runs = []
+    for (fields, _, _), dur in ((headline.HEADLINE, 15.0),
+                                (headline.SECONDARY, 12.0)):
+        cfg = CodecConfig(**fields)
+        runs.append(headline.measure(cfg, dur, 1, 1, dev))
+        r = runs[-1][0]
+        print(f"phase 5: run() {cfg.width}x{cfg.height} x {cfg.streams} CBR "
+              f"{cfg.bitrate // 1000} kbps: "
+              f"{r['frames_per_s_aggregate']:.2f} aggregate fps "
+              f"({r['frames']} frames), PSNR {r['psnr_y']:.2f} dB, QP "
+              f"{r['qp']} [{card}]")
+        print(f"phase 5: "
+              f"{headline.stage_line(f'{cfg.width}x{cfg.height}', runs[-1])}")
+    print("phase 5: headline line (one repeat, gate in phase 14): "
+          + json.dumps(headline.headline_line(
+              runs[0], "phase 14", harness.device_info(dev))))
+    print(f"phase 5: ref-config line: {headline.secondary_line(runs[1])}")
 
 
 class SymbolSpy:
@@ -1730,7 +1747,9 @@ def phase_multiref(dev, torch, np, card, launches):
 
 def phase_ingest_fanout(dev, torch, np, card, launches):
     """Phase 8: host ingest -> fan-out 8 (one camera stream decoded 8x),
-    intra-in-P (the CodecConfig default): intra MBs must be coded."""
+    intra-in-P (the CodecConfig default): intra MBs must be coded; then
+    `bench.ingest.measure` on the same pipeline for 3 s."""
+    from tpuh264_torch.bench import ingest
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
     from tpuh264_torch.engine.sources import clip_frames
@@ -1744,21 +1763,21 @@ def phase_ingest_fanout(dev, torch, np, card, launches):
                              device=dev)
     spy = SymbolSpy(pipe, torch)
     copy_ms = []
-
-    def batch(f0):
-        return [np.stack([clip[f0 + f][p] for f in range(4)])[:, None]
-                .astype(np.uint8) for p in range(3)]
+    box = {}
 
     def drive():
         f0 = 0
         for i in range(3):
-            pipe.pump_host_frames(*batch(f0))
+            pipe.pump_host_frames(*ingest.host_batch(pipe, f0,
+                                                     clip.__getitem__))
             copy_ms.append(round(pipe.last_copy_ms, 3))
             check_dpbs(pipe, np, "ingest fan-out 8", i)
             f0 += 4
             if i == 0:  # capture backpressure: the encoder skips 4 frames
                 pipe.drop_frames(4)
                 f0 += 4
+        # the bench's window, its source clock going on from the clip's
+        box["line"] = ingest.measure(pipe, seconds=3.0, warmup=0)
 
     launches.path("host ingest -> fan-out 8", drive)
     if pipe.decoded_planes()[0].shape[0] != 8:
@@ -1772,6 +1791,9 @@ def phase_ingest_fanout(dev, torch, np, card, launches):
           f"DPB after each; P-frame MB kinds skip/inter/intra {kinds}; copy "
           f"ms per dispatch (memcpy into reused pinned staging + upload) "
           f"{copy_ms}; time_offset {pipe.time_offset} [{card}]")
+    print(f"phase 8: bench.ingest.measure, 3 s on that pipeline "
+          f"(intra-in-P), decode streams == encoder DPB after it: "
+          f"{json.dumps(box['line'])}")
 
 
 def phase_device_pipeline(dev, torch, np, card, launches):
@@ -1817,7 +1839,9 @@ def phase_device_pipeline(dev, torch, np, card, launches):
 
 
 def phase_app(dev, card, launches):
-    """Phase 10: the live App at 854x480 x 8 for ~10 s."""
+    """Phase 10: the live App at 854x480 x 8 for ~10 s; its stats as
+    `bench.live.render` shows them."""
+    from tpuh264_torch.bench import live
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.app import App
 
@@ -1860,6 +1884,8 @@ def phase_app(dev, card, launches):
           f"time_offset "
           f"{pipe.time_offset}; get_stats() {shown}; stop() took "
           f"{box['stop_s']:.1f} s [{card}]")
+    for ln in live.render(stats).splitlines():
+        print(f"phase 10: {ln}")
 
 
 def clip_streams(w, h, n, streams):
@@ -2188,42 +2214,39 @@ class PSymbols:
 
 
 def phase_config3(dev, np, card, launches):
-    """Phase 15: BASELINE config 3 on the card (tools/bench_config3.py's
-    session: 1080p, CABAC + 8x8 transform, 2 references, CBR 4 Mbps,
-    intra-in-P), 6 frames, decoded by a DecoderSession on the fast path
-    == the recon after every frame and == the golden decode of the whole
-    stream (in a spawned worker, beside part B); then part B, the
-    reference lab's operating point (854x480 x 8 from RGBA) with CABAC,
-    the 8x8 transform and its deblock, through DecoderPool.decode_batch."""
+    """Phase 15: BASELINE config 3 on the card through `bench.config3`
+    (tools/bench_config3.py's session: 1080p, CABAC + 8x8 transform, 2
+    references, CBR 4 Mbps, intra-in-P), 6 frames, decoded by a
+    DecoderSession on the fast path == the recon after every frame and ==
+    the golden decode of the whole stream (in a spawned worker, beside
+    part B), its `config3_session_encode` line; part B, the reference
+    lab's operating point (854x480 x 8 from RGBA) with CABAC, the 8x8
+    transform and its deblock, through DecoderPool.decode_batch; then
+    `bench.config3.flagship_multiref` (1080p x 4, 2 references) for 2 s."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     import torch
 
+    from tpuh264_torch.bench import config3, harness
     from tpuh264_torch.conformance import gate
-    from tpuh264_torch.engine import (CodecConfig, DecoderPool,
-                                      DecoderSession, EncoderSession, sources)
+    from tpuh264_torch.engine import DecoderSession, EncoderSession
 
     # ---- part A: config 3 at 1920x1080, IDR + 5 P ----
     w, h, n = 1920, 1080, 6
-    cfg = CodecConfig(width=w, height=h, qp=None, bitrate=4_000_000,
-                      cabac=True, transform8x8=True, num_ref_frames=2,
-                      gop_size=6, intra_in_p=True)
-    enc = EncoderSession(cfg, device=dev)
+    enc = EncoderSession(config3.session_config(w, h, n), device=dev)
     dec = DecoderSession(device=dev)
     spy = PSymbols(enc, torch)
-    src = [sources.yuv_frame(w, h, t, kind="rigid") for t in range(n)]
-    rows, aus, recons = [], [], []
+    src = config3.source(w, h, n)
+    rows, done = [], []
 
     def drive():
-        for t, planes in enumerate(src):
-            out = enc.encode_frame_yuv(*planes)[0]
+        for t, (planes, f) in enumerate(zip(src,
+                                            config3.encode_frames(enc, src))):
             t0 = time.perf_counter()
-            got = dec.decode(out.data)
+            got = dec.decode(f["au"])
             dec_ms = (time.perf_counter() - t0) * 1e3
-            recon = [p[0].cpu().numpy() for p in enc.recon]
-            recon = [r[:a.shape[0], :a.shape[1]] for r, a in zip(recon,
-                                                                  planes)]
+            recon = f["recon"]
             if got is None or not all(np.array_equal(a, r)
                                       for a, r in zip(got, recon)):
                 fail(f"config 3: decoder != encoder recon at frame {t}")
@@ -2231,12 +2254,11 @@ def phase_config3(dev, np, card, launches):
                 fail(f"config 3: the decoder left the fast path (general "
                      f"{dec._general}) or concealed at frame {t}")
             d = recon[0].astype(np.float64) - planes[0]
-            tm = out.timings
-            aus.append(out.data)
-            recons.append(recon)
+            tm = f["timings"]
+            done.append(f)
             rows.append(dict(
-                frame=t, idr=out.is_idr, qp=out.qp,
-                kbps_at_30fps=round(len(out.data) * 8 * 30 / 1e3, 1),
+                frame=t, idr=f["idr"], qp=f["qp"],
+                kbps_at_30fps=round(len(f["au"]) * 8 * 30 / 1e3, 1),
                 psnr_y=round(float(10 * np.log10(255.0 ** 2
                                                  / (d * d).mean())), 2),
                 copy_ms=round(tm["copy_ms"], 1),
@@ -2254,6 +2276,7 @@ def phase_config3(dev, np, card, launches):
     for r in rows:
         print(f"phase 15: config 3 frame {r} [{card}]")
     # the independent oracle: the golden decoder, in a spawned worker
+    aus = [f["au"] for f in done]
     oracle = ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -2264,15 +2287,18 @@ def phase_config3(dev, np, card, launches):
         frames_b, gold_bs = gold_b.result()
     finally:
         oracle.shutdown(wait=True, cancel_futures=True)
-    for what, got, want in (("config 3", frames, recons),
-                            ("config 3 part B stream 0", frames_b, recons_b)):
-        if len(got) != len(want):
-            fail(f"{what}: the golden decoder decoded {len(got)} frames")
-        for t, (f, r) in enumerate(zip(got, want)):
-            if not all(np.array_equal(np.asarray(a), b[:a.shape[0],
-                                                      :a.shape[1]])
-                       for a, b in zip(f, r)):
-                fail(f"{what}: golden decode != encoder recon at frame {t}")
+    try:
+        config3.check_decoded(frames, [f["recon"] for f in done])
+    except AssertionError as e:
+        fail(f"golden decode: {e}")
+    if len(frames_b) != len(recons_b):
+        fail(f"config 3 part B stream 0: the golden decoder decoded "
+             f"{len(frames_b)} frames")
+    for t, (f, r) in enumerate(zip(frames_b, recons_b)):
+        if not all(np.array_equal(np.asarray(a), b[:a.shape[0], :a.shape[1]])
+                   for a, b in zip(f, r)):
+            fail(f"config 3 part B stream 0: golden decode != encoder recon "
+                 f"at frame {t}")
     print(f"phase 15: part B stream 0 (CABAC, 8x8 transform, deblock with "
           f"K4) decoded by the golden decoder (worker, {gold_bs:.1f} s) == "
           f"the encoder recon of all {len(frames_b)} frames [{card}]")
@@ -2288,6 +2314,13 @@ def phase_config3(dev, np, card, launches):
           f"decode {mean('decode_ms'):.1f}; stream "
           f"{sum(map(len, aus)) * 8 * 30 / n / 1e3:.1f} kbps at 30 fps "
           f"[{card}]")
+    print("phase 15: " + json.dumps(config3.session_line(
+        done, frames, src, "golden", harness.device_info(dev))))
+    line, _ = launches.path("config 3 flagship 1080p x 4, 2 references",
+                            lambda: config3.flagship_multiref(
+                                w, h, 2.0, device=dev), needs=(0, 1, 2, 3, 4))
+    print(f"phase 15: bench.config3.flagship_multiref, 2 s, decoder DPB == "
+          f"encoder DPB after it: {json.dumps(line)}")
 
 
 def part_b(dev, np, card, launches, torch):
@@ -2624,9 +2657,10 @@ def phase_dist(dev, np, card, launches):
     reference chain) and the ranks to 4 on one card (the smoke must run on
     one card: the four processes share it, as gloo allows) for the
     smoke's wall.
-    (b) `python -m tpuh264_torch.dist.multihost`, 2 processes on the card
-    with gloo, rows across processes and not ("dcn-halo",
-    "stream-parallel"), 832x480: both bitexact.
+    (b) `bench.multihost.measure` at mesh 1x2 -- 2 processes of `python -m
+    tpuh264_torch.dist.multihost` on the card with gloo, one host, then
+    two hosts with the rows across them -- and the stream-parallel layout
+    (mesh 2x1), 832x480: all bitexact.
     (c) a 1-rank NCCL group (mesh 1x1): sharded_gop_step at 854x480 x 8 ==
     the unsharded encode, so the NCCL route initialises and runs on the
     card (NCCL between cards is not checked: one card is visible).
@@ -2638,8 +2672,11 @@ def phase_dist(dev, np, card, launches):
     (quality.py needs libx264 and libavcodec, which the card machine
     lacks: the CPU tests hold it.)"""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
+
+    from tpuh264_torch.bench import multihost
 
     t_phase = time.perf_counter()
     n_frames = 3
@@ -2690,48 +2727,56 @@ def phase_dist(dev, np, card, launches):
               f"{t_made - t_phase:.1f} s, ranks {t_a - t_made:.1f} s "
               f"[{card}]")
 
-        # (b) and (c) in their own processes while (d) runs here
-        mh = [[sys.executable, "-m", "tpuh264_torch.dist.multihost",
-               "--coordinator", f"file://{tmp}/mh{int(rows)}",
-               "--num-processes", "2", "--process-id", str(pid),
-               "--width", "832", "--height", "480", "--bench-reps", "2",
-               "--device", str(dev)] + (["--rows-across-hosts"] if rows
-                                      else [])
-              for rows in (True, False) for pid in (0, 1)]
-        mh_procs = start_procs(mh, tmp, "multihost")
+        # (b) and (c) in their own processes while (d) runs here: the
+        # bench's two host layouts one after the other (a thread waits on
+        # them), the stream-parallel layout and the NCCL rank beside them
+        sp_procs = multihost.start_layout(tmp, "sp", 2, 1, False, None, 2,
+                                          832, 480, str(dev))
         # the 1-rank group's bootstrap stays on the loopback: one host
         nccl_procs = start_procs(
             [[sys.executable, "-c", "import sys, chip_smoke; "
               "chip_smoke.nccl_rank(*sys.argv[1:])", tmp, str(dev)]], tmp,
             "nccl", {"NCCL_SOCKET_IFNAME": "lo"})
+        pool = ThreadPoolExecutor(1)
+        mh_bench = pool.submit(multihost.measure, (1, 2), 2, 832, 480,
+                               str(dev), 300)
+        pool.shutdown(wait=False)
         try:
             phase_device_pack(dev, np, card, launches, torch)
         except BaseException:
-            kill_procs(mh_procs + nccl_procs)
+            kill_procs(sp_procs + nccl_procs)
             raise
-        mh_res = wait_procs(mh_procs, 300, "phase 16(b)",
-                            "MULTIHOST_RESULT ")
         nccl_res = wait_procs(nccl_procs, 300, "phase 16(c)",
                               "NCCL_RESULT ")[0]
-    for r in mh_res:
+        try:
+            sp_res = multihost.collect(sp_procs, 300)
+            mh_line = mh_bench.result()
+        except (RuntimeError, AssertionError,
+                subprocess.TimeoutExpired) as e:
+            fail(f"phase 16(b): {e}")
+    for r in sp_res:
         if not r["bitexact"] or r["k1_launches"] != 2:
             fail(f"phase 16(b): multihost worker {r}")
-    for rows in (True, False):
-        rs = [r for r in mh_res if r["rows_across_hosts"] == rows]
-        print(f"phase 16(b): python -m tpuh264_torch.dist.multihost, 2 gloo "
-              f"processes on the card, 832x480, "
-              f"{'dcn-halo' if rows else 'stream-parallel'} mesh "
-              f"{rs[0]['mesh']}, fused halo {rs[0]['fused_halo']}: bitexact "
-              f"in both; P step {[round(r['p_step_ms'], 1) for r in rs]} ms "
-              f"[{card}]")
+    if mh_line["k1_launches"] != [2] * 4:
+        fail(f"phase 16(b): bench.multihost {mh_line}")
+    print(f"phase 16(b): bench.multihost.measure, mesh 1x2 over 2 gloo "
+          f"processes on the card, 832x480, one host then two hosts with "
+          f"the rows across them: bitexact in both (its P steps beside the "
+          f"other phase-16 work, so no scaling figure): {json.dumps(mh_line)}")
+    print(f"phase 16(b): python -m tpuh264_torch.dist.multihost, 2 gloo "
+          f"processes on the card, 832x480, stream-parallel mesh "
+          f"{sp_res[0]['mesh']}, fused halo {sp_res[0]['fused_halo']}: "
+          f"bitexact in both; P step "
+          f"{[round(r['p_step_ms'], 1) for r in sp_res]} ms [{card}]")
     if (not nccl_res["equal_unsharded"] or nccl_res["backend"] != "nccl"
             or nccl_res["k1_launches"] != 2):
         fail(f"phase 16(c): {nccl_res}")
     print(f"phase 16(c): a 1-rank NCCL group, mesh 1x1, sharded_gop_step "
           f"854x480 x 8 ({nccl_res['shape']}), I + 2 P: == the unsharded "
           f"encode (NCCL between cards not checked: one card) [{card}]")
-    launches.total[0] += k1 + sum(r["k1_launches"] for r in mh_res) + \
-        nccl_res["k1_launches"]
+    launches.total[0] += (k1 + sum(r["k1_launches"] for r in sp_res)
+                          + sum(mh_line["k1_launches"])
+                          + nccl_res["k1_launches"])
     launches.total[4] += k5
     launches.total[5] += k6
     phase_bench(dev, card, launches)

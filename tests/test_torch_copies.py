@@ -203,8 +203,8 @@ def _imported_modules(path):
 
 def test_port_sources_import_nothing_of_the_jax_package():
     """An ast scan of chip_smoke.py and of every module of the port (the
-    distribution layer and the bench among them): no `import tpuh264...` /
-    `from tpuh264... import`, and no jax."""
+    distribution layer and the bench's entry points among them): no
+    `import tpuh264...` / `from tpuh264... import`, and no jax."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "tpuh264_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -212,7 +212,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
     rel = {os.path.relpath(p, REPO) for p in paths}
     for sub in ("dist/__init__", "dist/collectives", "dist/mesh",
                 "dist/multihost", "bench/__init__", "bench/harness",
-                "bench/quality", "bench/charts", "entropy/device_pack"):
+                "bench/quality", "bench/charts", "bench/headline",
+                "bench/config3", "bench/ingest", "bench/multihost",
+                "bench/rd", "bench/live", "entropy/device_pack"):
         assert f"tpuh264_torch/{sub}.py" in rel
     for p in paths:
         for m in _imported_modules(p):

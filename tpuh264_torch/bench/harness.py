@@ -59,6 +59,28 @@ def machine_info() -> Dict[str, object]:
     return info
 
 
+def device_info(device="cuda") -> Dict[str, object]:
+    """What a measurement ran on, for the line it prints: {"name",
+    "power_limit"} -- torch's name of the card and nvidia-smi's power
+    limit of it (the limit sets its speed under load), or "cpu" and None.
+    A CUDA device where there is no card raises, as the pipelines do."""
+    from ..engine.devpipe import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return {"name": "cpu", "power_limit": None}
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    # nvidia-smi counts the machine's cards, torch the visible ones
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    card = visible.split(",")[idx].strip() if visible else str(idx)
+    res = subprocess.run(
+        ["nvidia-smi", "-i", card, "--query-gpu=power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return {"name": torch.cuda.get_device_name(idx),
+            "power_limit": res.stdout.strip().splitlines()[0]}
+
+
 def _run_single_gop(config: CodecConfig, duration_s: float,
                     warmup_frames: int, device) -> Dict[str, float]:
     """Measure the decode-from-bits GOP pipeline (the headline path
