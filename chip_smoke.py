@@ -12,8 +12,10 @@ tpuh264_torch/csrc, then:
      engine (g++, a copy of native/cavlc.cpp);
   2. holds K1 (stage-A SAD table), K2 (CAVLC block pack), K3 (bit-
      string merge), K4 (D1, the in-loop deblock), K5 (D2, the
-     decoders' intra-reconstruction column scan) and K6 (D3 and D4, the
-     encoder's Intra_16x16 column scans) against their plain
+     decoders' intra-reconstruction column scan), K6 (D3 and D4, the
+     encoder's Intra_16x16 column scans), K7 and K8 (the single-slice
+     wavefront's encode and decode, a block a stream walking the
+     anti-diagonals) against their plain
      PyTorch versions on the card (exact equality) at the main path's
      1920x1080 x 4 shapes (K4: an encoded I frame and P frame; K5: the
      decoders' own inputs of that P frame and of its IDR), K3 at its
@@ -39,10 +41,18 @@ tpuh264_torch/csrc, then:
      (`d3_case`, `d4_args`: C = 1, 2, 3 and 61; flat, noise, rows and
      0 / 255 content; QPs 0, 11, 12, 28, 51; D3 from uint8 and int32
      planes; D4 intra shares 0 / ~1% / 50% / 100% and exact SAD ties);
+     K7 / K8 on one frame of phase 12's 854x480 x 8, of BASELINE config
+     1's 640x360 (368) x 1 and of 1920x1080 (1088) x 1 (the "meeting"
+     clip, QP 28), and on seeded cases (`wave_case`: one MB, one row, one
+     column, R > C; noise, ramps, mixed MB kinds, flat 0 / 255 and
+     saturated frames; QPs 0, 11, 12, 28, 51; K7 from uint8 and int32
+     planes; K8 also on random modes, each legal at its MB), K8 on K7's
+     symbols equal to K7's recon too;
      times each kernel beside its plain
      version (CUDA events, after a warm-up) and against its bound (the
      bytes it must move over the card's 3.35 TB/s), K4 and K6 also in
-     cycles a MB column at the SM clock read under load, and one fenced
+     cycles a MB column, K7 and K8 in cycles a wave, at the SM clock read
+     under load, and one fenced
      `encode_bits_pframe` call;
   3. at 64x48 x 2 the GPU emits the CPU's bytes (plain versions) and
      decoder DPB on every path: the RTC preset, intra-in-P, two
@@ -93,8 +103,13 @@ tpuh264_torch/csrc, then:
      access units through DecoderPool.decode_batch == the recon; Intra_4x4
      MBs coded in the IDR frames; K1 launched once per P frame; per-frame
      copy / encode / entropy / decode ms;
- 12. single-slice I frames (the wavefront) at 854x480 x 8, gop 1, 2
-     frames, each stream decoded by its own DecoderSession == the recon;
+ 12. single-slice I frames (the wavefront: K7 once a frame, K8 once a
+     decoded frame) at 854x480 x 8, gop 1, 2 frames, each stream decoded
+     by its own DecoderSession == the recon; then BASELINE config 1:
+     EncoderSession 640x360 x 1, QP 28, single slice, gop 1, 30 frames of
+     the "meeting" clip, each through a DecoderSession == the recon, K7
+     and K8 30 times each, frame 0 through the gate's oracle == the
+     recon; mean encode / entropy / decode ms and the round trip's fps;
  13. the live App with impl "tpu" (the session Pipeline: 1 encoder ->
      ring -> 8 decoders) at 854x480 for 10 s: its stats, then stop();
      every decoder == the encoder recon at the last frame;
@@ -148,12 +163,13 @@ tpuh264_torch/csrc, then:
 Every path of phases 4 and 6-16 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
 launched every kernel it runs (phase 12 and the general stream have no
-P frame on the fast path, so no K1; the deblock runs on every GOP
+P frame on the fast path, so no K1; K7 and K8 run on phase 12 alone
+(and in phase 3's single-slice session case); the deblock runs on every GOP
 pipeline and on the sessions with `deblock=True`; K5 on every path that
 decodes but the wavefront's, phase 16(a)'s halo decodes too; K6 on
 every path that encodes an I frame without Intra_4x4 or a P frame with
 intra-in-P, phase 16(a)'s ranks too), and none may reach the plain
-version of K1, K3, K4, K5 or K6 (K5's plain version with `i44`, the
+version of K1, K3, K4, K5, K6, K7 or K8 (K5's plain version with `i44`, the
 Intra_4x4 reconstruction, and D3's with `intra44`, the Intra_4x4 trial,
 are the session path's own).  Encoder DPB == decoder DPB does not
 check K4 (both sides run it): phase 14's gate against the oracle and
@@ -259,30 +275,34 @@ def _plain_spy(name, f, calls):
 
 
 class Launches:
-    """The six kernels' launch counts (K1, K2, K3, K4 = the deblock D1,
+    """The eight kernels' launch counts (K1, K2, K3, K4 = the deblock D1,
     K5 = the intra reconstruction D2, K6 = the Intra_16x16 encode scans
-    D3 and D4: its two routers' counts summed), zeroed before and read
-    after each path the smoke drives; summed over those paths for the
-    kernel table.  The plain versions of K1 (`_sad_field`), K3
-    (`tree_merge`), K4 (`_deblock_rows_plain`), K5
-    (`_intra_recon_scan_plain` without `i44`; with it, the Intra_4x4
-    reconstruction, it is the path's own) and K6
+    D3 and D4: its two routers' counts summed, K7 / K8 = the single-slice
+    wavefront's encode / decode), zeroed before and read after each path
+    the smoke drives; summed over those paths for the kernel table.  The
+    plain versions of K1 (`_sad_field`), K3 (`tree_merge`), K4
+    (`_deblock_rows_plain`), K5 (`_intra_recon_scan_plain` without `i44`;
+    with it, the Intra_4x4 reconstruction, it is the path's own), K6
     (`_encode_iframe_scan_plain` without `intra44`,
-    `_intra_in_p_scan_plain`) are counted too: none may run on a path."""
+    `_intra_in_p_scan_plain`), K7 (`_encode_iframe_single_plain`) and K8
+    (`_decode_iframe_single_plain`) are counted too: none may run on a
+    path."""
 
     def __init__(self):
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, iframe,
-                                           me_cuda, pframe)
+                                           me_cuda, pframe, wavefront)
 
         self.fns = ((me_cuda.sad_field,), (cavlc_cuda.pack_blocks,),
                     (cavlc_cuda.merge_tree,), (deblock.deblock_frame_rows,),
                     (iframe._intra_recon_scan,),
-                    (iframe.encode_iframe_scan, pframe._intra_in_p_scan))
+                    (iframe.encode_iframe_scan, pframe._intra_in_p_scan),
+                    (wavefront.encode_iframe_single,),
+                    (wavefront.decode_iframe_single,))
         self.total = [0] * len(self.fns)
 
     def path(self, name, fn, needs=(0, 1, 2, 3, 4, 5)):
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, iframe,
-                                           me_cuda, pframe)
+                                           me_cuda, pframe, wavefront)
 
         for fs in self.fns:
             for f in fs:
@@ -291,7 +311,9 @@ class Launches:
                   (deblock, "_deblock_rows_plain"),
                   (iframe, "_intra_recon_scan_plain"),
                   (iframe, "_encode_iframe_scan_plain"),
-                  (pframe, "_intra_in_p_scan_plain")]
+                  (pframe, "_intra_in_p_scan_plain"),
+                  (wavefront, "_encode_iframe_single_plain"),
+                  (wavefront, "_decode_iframe_single_plain")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
         for (m, a), f, c in zip(plains, saved, calls):
@@ -308,15 +330,17 @@ class Launches:
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
               f"K3 {counts[2]}, K4 (deblock) {counts[3]}, K5 (intra "
               f"recon) {counts[4]}, K6 (intra16 encode) {counts[5]} (D3 "
-              f"{self.fns[5][0].launches}, D4 {self.fns[5][1].launches}); "
-              f"plain calls K1 {plain[0]}, K3 {plain[1]}, K4 {plain[2]}, "
-              f"K5 without i44 {plain[3]}, K6: D3 without intra44 "
-              f"{plain[4]}, D4 {plain[5]}")
+              f"{self.fns[5][0].launches}, D4 {self.fns[5][1].launches}), "
+              f"K7 (wavefront encode) {counts[6]}, K8 (wavefront decode) "
+              f"{counts[7]}; plain calls K1 {plain[0]}, K3 {plain[1]}, K4 "
+              f"{plain[2]}, K5 without i44 {plain[3]}, K6: D3 without "
+              f"intra44 {plain[4]}, D4 {plain[5]}, K7 {plain[6]}, K8 "
+              f"{plain[7]}")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
         if any(plain):
             fail(f"{name}: a plain version ran (K1, K3, K4, K5, K6 D3, K6 "
-                 f"D4: {plain} times)")
+                 f"D4, K7, K8: {plain} times)")
         return out, counts
 
 
@@ -329,6 +353,8 @@ NO_LIBRARY = {
     "K4": "no PyTorch call runs the H.264 deblocking filter",
     "K5": "no PyTorch call runs H.264 intra prediction",
     "K6": "no PyTorch call runs an H.264 intra encode",
+    "K7": "no PyTorch call runs an H.264 intra encode",
+    "K8": "no PyTorch call runs H.264 intra prediction",
 }
 
 
@@ -997,6 +1023,74 @@ def d4_capture(fn):
     return calls
 
 
+# K7 / K8 (the single-slice wavefront): one MB (R = C = 1), one row (R =
+# 1: the encoder still runs the wavefront), one column (C = 1), R > C
+# (a wave's MBs capped by C, not R), and wider frames; content noise,
+# linear ramps a stream and plane (Plane wins luma and chroma), a mix of
+# MB kinds a frame (flat, vertical and horizontal stripes, ramps, noise:
+# every mode beside its neighbours), flat 0 and 255 frames and 0 / 255
+# samples (the recon clips); QPs 0, 11, 12, 28 and 51 met by every
+# content across the shapes.
+W_SHAPES = ((1, 1, 1), (2, 1, 3), (2, 3, 1), (1, 5, 2), (2, 3, 4),
+            (1, 2, 6))
+W_CONTENT = ("noise", "ramp", "mix", "flat0", "flat255", "saturate")
+W_QPS = D3_QPS
+W_CASES = [(shape, content, W_QPS[(i + j) % len(W_QPS)])
+           for i, shape in enumerate(W_SHAPES)
+           for j, content in enumerate(W_CONTENT)]
+
+
+def wave_case(np, shape, content, qp):
+    """Seeded source frames (numpy uint8 y [S,H,W], u, v [S,H/2,W/2]) of a
+    W_CASES entry, and its qp."""
+    s, r, c = shape
+    rng = np.random.default_rng([s, r, c, W_CONTENT.index(content), qp])
+
+    def plane(n):
+        h, w = n * r, n * c
+        yy, xx = np.mgrid[0:h, 0:w]
+        ramp = lambda: (128 + rng.integers(-3, 4, (s, 1, 1)) * (xx - w // 2)
+                        + rng.integers(-3, 4, (s, 1, 1)) * (yy - h // 2))
+        if content == "noise":
+            x = rng.integers(0, 256, (s, h, w))
+        elif content == "ramp":
+            x = ramp()
+        elif content == "mix":
+            up = lambda a: np.repeat(np.repeat(a, n, 1), n, 2)
+            kind = up(rng.integers(0, 5, (s, r, c)))
+            x = np.select([kind == 0, kind == 1, kind == 2, kind == 3], [
+                up(rng.integers(0, 256, (s, r, c))),
+                np.broadcast_to(rng.integers(0, 256, (s, 1, w)), (s, h, w)),
+                np.broadcast_to(rng.integers(0, 256, (s, h, 1)), (s, h, w)),
+                ramp()], rng.integers(0, 256, (s, h, w)))
+        elif content in ("flat0", "flat255"):
+            x = np.full((s, h, w), 0 if content == "flat0" else 255)
+        else:  # "saturate"
+            x = np.where(rng.random((s, h, w)) < 0.5, 0, 255)
+            x[:, :, ::3] = rng.integers(0, 256, (s, h, (w + 2) // 3))
+        return np.ascontiguousarray(np.clip(x, 0, 255)).astype(np.uint8)
+
+    return plane(16), plane(8), plane(8), qp
+
+
+def legal_modes(np, rng, shape):
+    """(mode, cmode) int32 [S, R, C] drawn at random among the modes legal
+    at each MB: luma V (0) below row 0, H (1) right of column 0, DC (2)
+    everywhere, Plane (3) with both; chroma DC (0) everywhere, H (1) right
+    of column 0, V (2) below row 0, Plane (3) with both."""
+    s, r, c = shape
+    top = np.broadcast_to((np.arange(r) > 0)[:, None], (r, c))
+    left = np.broadcast_to((np.arange(c) > 0)[None, :], (r, c))
+    every = np.ones((r, c), bool)
+
+    def draw(avail):  # a uniform pick among the available candidates
+        keys = np.where(np.stack(avail, -1), rng.random((s, r, c, 4)), -1)
+        return keys.argmax(-1).astype(np.int32)
+
+    return (draw([top, left, every, top & left]),
+            draw([every, left, top, top & left]))
+
+
 def k6_bytes(planes, kw=None, n_intra=0) -> int:
     """K6 per MB: the source samples in (uint8 or int32), the four int32
     fields and the int16 levels (16 + 256 + 8 + 120) out; D3 also the
@@ -1151,6 +1245,177 @@ def d3_edges(dev, torch, np):
           f"{list(D4_SHARE)}: equal to plain")
 
 
+def k7_bytes(planes) -> int:
+    """K7 per MB: the uint8 source samples in (384), the four int32
+    fields, the int16 levels and i4modes (16 + 256 + 8 + 120 + 16) and the
+    uint8 recon (384) out."""
+    n = planes[0].numel() // 256
+    return n * (384 + 16 + 2 * (16 + 256 + 8 + 120 + 16) + 384)
+
+
+def k8_bytes(mode) -> int:
+    """K8 per MB: mode and cmode (int32) and the int32 residuals (384
+    samples) in, the uint8 recon (384) out."""
+    return mode.numel() * (8 + 4 * 384 + 384)
+
+
+def wave_cycles(ms: float, mhz: int, waves: int) -> float:
+    """SM cycles a wave (every stream's block walks its R + C - 1 waves in
+    parallel with the others)."""
+    return ms * 1e-3 * mhz * 1e6 / waves
+
+
+def k7_equal(planes, qp, torch, what):
+    """K7 against its plain version on one frame batch; fails unless every
+    field and the recon are equal.  Returns (max_abs_err, the kernel's
+    symbols, its recon)."""
+    from tpuh264_torch.kernels import wavefront
+
+    k = wavefront.encode_iframe_single(*planes, qp)
+    p = wavefront._encode_iframe_single_plain(*planes, qp)
+    torch.cuda.synchronize()
+    pairs = list(zip((*k[0], *k[1]), (*p[0], *p[1])))
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        fail(f"K7 encode_iframe_single differs from its plain version "
+             f"({what})")
+    return max(max_abs_err(a, b) for a, b in pairs), k[0], k[1]
+
+
+def k7_int32_equal(planes, sym, rec, qp, torch, what) -> int:
+    """K7 from the int32 form of uint8 `planes` (what the session's RGBA
+    conversion hands it) against its output `sym`, `rec` from the uint8
+    planes; fails unless equal.  Returns max_abs_err."""
+    from tpuh264_torch.kernels import wavefront
+
+    k = wavefront.encode_iframe_single(*(p.to(torch.int32) for p in planes),
+                                       qp)
+    torch.cuda.synchronize()
+    pairs = list(zip((*k[0], *k[1]), (*sym, *rec)))
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        fail(f"K7 from int32 planes differs from K7 from uint8 ({what})")
+    return max(max_abs_err(a, b) for a, b in pairs)
+
+
+def k8_equal(sym, qp, torch, what, recon=None) -> int:
+    """K8 (the decode router: batched residuals, then the kernel) against
+    its plain version on one symbol batch, and against the encoder's
+    `recon` where given; fails unless equal."""
+    from tpuh264_torch.kernels import wavefront
+
+    k = wavefront.decode_iframe_single(sym, qp)
+    p = wavefront._decode_iframe_single_plain(sym, qp)
+    torch.cuda.synchronize()
+    if not all(a.dtype == torch.uint8 and torch.equal(a, b)
+               for a, b in zip(k, p)):
+        fail(f"K8 decode_iframe_single differs from its plain version "
+             f"({what})")
+    if recon is not None and not all(torch.equal(a, b)
+                                     for a, b in zip(k, recon)):
+        fail(f"K8 decode_iframe_single differs from the encoder's recon "
+             f"({what})")
+    return max(max_abs_err(a, b) for a, b in zip(k, p))
+
+
+def wave_timed(planes, qp, torch, what, card, mhz):
+    """K7 and K8 equal to their plain versions on `planes` (K8 on K7's
+    symbols, equal to K7's recon too), timed beside them: K8 alone on the
+    router's residuals, and the router (residuals + K8).  Prints a line
+    each; returns the two rows' numbers, (max_abs_err, ms, plain ms,
+    bytes) each."""
+    from tpuh264_torch.kernels import wavefront
+    from tpuh264_torch.kernels.iframe import _intra_residuals
+    from tpuh264_torch.kernels.transform import chroma_qp_from_luma
+
+    err7, sym, rec = k7_equal(planes, qp, torch, what)
+    err7 = max(err7, k7_int32_equal(planes, sym, rec, qp, torch, what))
+    err8 = k8_equal(sym, qp, torch, what, rec)
+    s, h, w = planes[0].shape
+    waves = h // 16 + w // 16 - 1
+    ms7 = timed(lambda: wavefront.encode_iframe_single(*planes, qp), 20)
+    wide = [p.to(torch.int32) for p in planes]
+    ms7i = timed(lambda: wavefront.encode_iframe_single(*wide, qp), 20)
+    plain7 = timed(lambda: wavefront._encode_iframe_single_plain(*planes,
+                                                                 qp), 1)
+    res = _intra_residuals(sym, qp, chroma_qp_from_luma(qp))
+    ms8 = timed(lambda: wavefront._k8_launch(sym.mode, sym.cmode, res), 20)
+    router8 = timed(lambda: wavefront.decode_iframe_single(sym, qp), 20)
+    plain8 = timed(lambda: wavefront._decode_iframe_single_plain(sym, qp), 1)
+    b7, b8 = k7_bytes(planes), k8_bytes(sym.mode)
+    modes = torch.bincount(sym.mode.reshape(-1).long(), minlength=4).tolist()
+    cmodes = torch.bincount(sym.cmode.reshape(-1).long(),
+                            minlength=4).tolist()
+    for key, err, ms, plain, nb, extra in (
+            ("K7", err7, ms7, plain7, b7, f"from int32 planes (equal) "
+             f"{ms7i:.4f} ms; luma modes V/H/DC/Plane {modes}, "
+             f"chroma DC/H/V/Plane {cmodes}"),
+            ("K8", err8, ms8, plain8, b8, f"the router with its batched "
+             f"residuals {router8:.4f} ms")):
+        print(f"phase 2: {key} {what} ({list(planes[0].shape)}, QP {qp}, "
+              f"{waves} waves): equal to plain (max_abs_err {err}); kernel "
+              f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound_ms(nb):.4f} "
+              f"ms (bytes, {nb / 1e6:.2f} MB): "
+              f"{100 * bound_ms(nb) / ms:.2f}% of the bound; "
+              f"{wave_cycles(ms, mhz, waves):.0f} cycles a wave at {mhz} MHz; "
+              f"{extra} [{card}]")
+    return (err7, ms7, plain7, b7), (err8, ms8, plain8, b8)
+
+
+def wave_edges(dev, torch, np):
+    """K7 and K8 on every W_CASES entry: K7 against its plain version and
+    from int32 planes, K8 on K7's symbols against its plain version and
+    K7's recon, and K8 on those symbols with every MB's modes drawn at
+    random among those legal there (`legal_modes`: the edges' missing
+    neighbours read 0 only where no mode uses them)."""
+    for case in W_CASES:
+        y, u, v, qp = wave_case(np, *case)
+        planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
+        _, sym, rec = k7_equal(planes, qp, torch, f"edge case {case}")
+        k7_int32_equal(planes, sym, rec, qp, torch, f"edge case {case}")
+        k8_equal(sym, qp, torch, f"edge case {case}", rec)
+        mode, cmode = legal_modes(np, np.random.default_rng(
+            sum(case[0]) + qp), tuple(sym.mode.shape))
+        rand = sym._replace(mode=torch.from_numpy(mode).to(dev),
+                            cmode=torch.from_numpy(cmode).to(dev))
+        k8_equal(rand, qp, torch, f"edge case {case}, random modes")
+    print(f"phase 2: K7 / K8 edge cases, {len(W_CASES)}: (S, R, C) "
+          f"{list(W_SHAPES)} x {list(W_CONTENT)}, QPs {list(W_QPS)}; K7 also "
+          f"from int32 planes, K8 also on random legal modes: equal to "
+          f"plain")
+
+
+def wave_frames(dev, torch, np, w, h, s):
+    """One frame of `s` streams of the "meeting" clip (stream i from clip
+    frame i) at w x h, edge-padded to the MB grid as EncoderSession pads
+    it, uint8 on `dev`."""
+    from tpuh264_torch.engine.encoder import _pad_multiple
+
+    return [torch.from_numpy(_pad_multiple(p, m)).to(dev)
+            for p, m in zip(clip_streams(w, h, 1, s)[0], (16, 8, 8))]
+
+
+def wave_rows(dev, torch, np, card, mhz):
+    """K7 and K8 against their plain versions and timed: on phase 12's
+    854x480 x 8 frame (the rows of the kernel table), on BASELINE config
+    1's 640x360 (368) x 1 and on a 1920x1080 (1088) x 1 frame (the longest
+    waves, 68 MBs), then on the edge cases."""
+    rows = []
+    for w, h, s, what in ((854, 480, 8, "854x480 x 8 (phase 12's frames)"),
+                          (640, 360, 1, "640x360 x 1 (BASELINE config 1)"),
+                          (1920, 1080, 1, "1920x1080 x 1 (long waves)")):
+        got = wave_timed(wave_frames(dev, torch, np, w, h, s), 28, torch,
+                         what, card, mhz)
+        if not rows:
+            rows = [kernel_row(
+                "K7", "encode_iframe_single (single-slice wavefront encode)",
+                "tpuh264_torch/csrc/wavefront.cu",
+                "tpuh264/kernels/wavefront.py:284", *got[0]), kernel_row(
+                "K8", "decode_iframe_single (single-slice wavefront decode)",
+                "tpuh264_torch/csrc/wavefront.cu",
+                "tpuh264/kernels/wavefront.py:435", *got[1])]
+    wave_edges(dev, torch, np)
+    return rows
+
+
 def k5_bytes(kw) -> int:
     """D2: mode, cmode and is_intra in (int32), then per MB one 1,536-byte
     input -- its residuals where intra, `other` elsewhere: the result
@@ -1242,7 +1507,8 @@ def phase_kernels(dev, torch, np, card):
     """Phase 2: K1-K6 against their plain versions at 1080p x 4 and on
     edge cases, K2/K3 and K6 (D4) on intra-in-P inputs, K4 on t8 symbols
     and K5 on default-config symbols at 480p x 8; K3 at its MB and slice
-    levels."""
+    levels; K7 / K8 at 480p x 8, config 1 and 1080p x 1 and on their edge
+    cases."""
     from tpuh264_torch.kernels import iframe, me_cuda, pframe
 
     w, h, s = 1920, 1088, 4
@@ -1311,6 +1577,15 @@ def phase_kernels(dev, torch, np, card):
     for r in rows:
         show(r, "1080p x 4 shapes")
     del sym, sym4, sym_i
+    # K7 / K8 (the single-slice wavefront): phase 12's frames, config 1,
+    # a 1080p frame and the edge cases
+    for ln in ptxas_lines(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tpuh264_torch", "csrc",
+            "wavefront.cu")):
+        print(f"phase 2: K7 / K8 ptxas: {ln}")
+    for r in wave_rows(dev, torch, np, card, mhz):
+        show(r, "854x480 x 8 (phase 12's frames)")
+        rows.append(r)
     k2_edges(dev, torch, np)
     k3_edges(dev, torch, np)
     d1_edges(dev, torch, np)
@@ -2010,8 +2285,9 @@ def phase_sessions(dev, np, card, launches):
 
 
 def phase_wavefront(dev, np, card, launches):
-    """Phase 12: single-slice I frames (the wavefront) at 854x480 x 8, gop
-    1, 2 frames, each stream decoded by its own DecoderSession == recon.
+    """Phase 12: single-slice I frames (the wavefront: K7 encodes, K8
+    decodes) at 854x480 x 8, gop 1, 2 frames, each stream decoded by its
+    own DecoderSession == recon; then BASELINE config 1 (`phase_config1`).
     No P frame: K1 is not on this path."""
     from tpuh264_torch.engine import CodecConfig, DecoderSession, EncoderSession
 
@@ -2040,15 +2316,118 @@ def phase_wavefront(dev, np, card, launches):
                        round(out[0].timings["entropy_ms"], 1),
                        round((time.perf_counter() - t0) * 1e3, 1)))
 
-    _, counts = launches.path("wavefront 480p x 8", drive, needs=())
+    _, counts = launches.path("wavefront 480p x 8", drive, needs=(6, 7))
     stay_fast(decs, "wavefront")
     if counts[0]:
         fail(f"wavefront: K1 launched {counts[0]} times on an I-only path")
-    waves = 2 * ((h + 15) // 16 - 1) + (w + 15) // 16
-    print(f"phase 12: single-slice I frames (wavefront, {waves} waves) "
-          f"854x480 x 8, gop 1, 2 frames: each stream's DecoderSession == "
-          f"encoder recon; (encode, entropy, 8 decodes) ms per frame {ms} "
-          f"[{card}]")
+    if counts[6] != len(frames) or counts[7] != len(frames) * s:
+        fail(f"wavefront: K7 / K8 launched {counts[6]} / {counts[7]} times, "
+             f"expected one a frame / one a frame and stream")
+    waves = (h + 15) // 16 + (w + 15) // 16 - 1
+    print(f"phase 12: single-slice I frames (wavefront: K7 / K8, {waves} "
+          f"waves a launch) 854x480 x 8, gop 1, 2 frames: each stream's "
+          f"DecoderSession == encoder recon; (encode, entropy, 8 decodes) ms "
+          f"per frame {ms} [{card}]")
+    phase_config1(dev, np, card, launches)
+    config1_rgba(dev, launches)
+
+
+def phase_config1(dev, np, card, launches):
+    """Phase 12, BASELINE config 1 (`BASELINE.json` configs[0]: 360p
+    baseline-profile I-frame-only encode -> decode roundtrip, CAVLC, single
+    slice, fixed QP): EncoderSession 640x360 x 1, QP 28, gop 1, 30 frames
+    of the "meeting" clip, each access unit through a DecoderSession ==
+    the recon; K7 and K8 once a frame, no plain wavefront; the first
+    frame also through the gate's oracle == the recon; mean encode /
+    entropy / decode ms a frame and the round trip's fps."""
+    from tpuh264_torch.conformance import gate
+    from tpuh264_torch.engine import CodecConfig, DecoderSession, EncoderSession
+
+    w, h, n = 640, 360, 30
+    frames = clip_streams(w, h, n, 1)
+    enc = EncoderSession(CodecConfig(width=w, height=h, streams=1, qp=28,
+                                     slice_mode="single", gop_size=1),
+                         device=dev)
+    dec = DecoderSession(device=dev)
+    rows, first = [], []
+
+    def drive():
+        for t, planes in enumerate(frames):
+            t0 = time.perf_counter()
+            f, = enc.encode_frame_yuv(*planes)
+            t1 = time.perf_counter()
+            got = dec.decode(f.data)
+            t2 = time.perf_counter()
+            if not f.is_idr:
+                fail(f"config 1: frame {t} is not an IDR")
+            recon = [p[0].cpu().numpy() for p in enc.recon]
+            if got is None or not all(
+                    np.array_equal(a, r[:a.shape[0], :a.shape[1]])
+                    for a, r in zip(got, recon)):
+                fail(f"config 1: DecoderSession != encoder recon, frame {t}")
+            if got[0].shape != (h, w):
+                fail(f"config 1: decoded luma {got[0].shape}")
+            if t == 0:
+                first.append((f.data, got))
+            rows.append(dict(encode=f.timings["encode_ms"],
+                             entropy=f.timings["entropy_ms"],
+                             decode=(t2 - t1) * 1e3, wall=t2 - t0,
+                             bytes=len(f.data)))
+
+    _, counts = launches.path("BASELINE config 1 640x360", drive,
+                              needs=(6, 7))
+    stay_fast([dec], "config 1")
+    if counts[6] != n or counts[7] != n:
+        fail(f"config 1: K7 / K8 launched {counts[6]} / {counts[7]} times "
+             f"for {n} frames")
+    data, got = first[0]
+    t0 = time.perf_counter()
+    oracle = gate.decode_oracle(data)
+    oracle_s = time.perf_counter() - t0
+    if len(oracle) != 1 or not all(np.array_equal(np.asarray(a), b)
+                                   for a, b in zip(oracle[0], got)):
+        fail("config 1: the gate's oracle != the recon of frame 0")
+    mean = lambda k: sum(r[k] for r in rows) / n
+    print(f"phase 12: BASELINE config 1, 640x360 x 1, QP 28, single slice, "
+          f"gop 1, {n} frames of 'meeting': DecoderSession == encoder recon "
+          f"every frame; frame 0 through the gate's oracle "
+          f"({gate.oracle_name()}, {oracle_s:.1f} s) == recon; K7 {counts[6]}"
+          f", K8 {counts[7]} launches; mean ms a frame: encode "
+          f"{mean('encode'):.2f}, entropy {mean('entropy'):.2f}, decode "
+          f"{mean('decode'):.2f}; round trip "
+          f"{n / sum(r['wall'] for r in rows):.1f} fps (host wall, encode + "
+          f"decode); {mean('bytes'):.0f} bytes a "
+          f"frame [{card}]")
+
+
+def config1_rgba(dev, launches):
+    """Phase 12, config 1 from RGBA: `EncoderSession.encode_frame` (whose
+    colour conversion gives K7 int32 planes) at 640x360 x 1, single slice,
+    2 frames, emits the bytes of the same session on the CPU (the plain
+    wavefront, run before the path is driven)."""
+    from tpuh264_torch.engine import CodecConfig, EncoderSession
+
+    cfg = CodecConfig(width=640, height=360, streams=1, qp=28,
+                      slice_mode="single", gop_size=1)
+    frames = clip_rgba(dev, 640, 360, 2, 1)
+    cpu = EncoderSession(cfg, device="cpu")
+    want = [cpu.encode_frame(f)[0].data for f in frames]
+    enc = EncoderSession(cfg, device=dev)
+    got = []
+
+    def drive():
+        for f in frames:
+            got.append(enc.encode_frame(f)[0].data)
+
+    _, counts = launches.path("config 1 from RGBA", drive, needs=(6,))
+    if counts[6] != len(frames):
+        fail(f"config 1 from RGBA: K7 launched {counts[6]} times for "
+             f"{len(frames)} frames")
+    if got != want:
+        fail("config 1 from RGBA: the card's stream != the CPU session's")
+    print(f"phase 12: config 1 from RGBA (encode_frame, int32 planes into "
+          f"K7), 640x360 x 1, 2 frames: the card's bytes == the CPU "
+          f"session's ({sum(map(len, got))} bytes)")
 
 
 def phase_app_tpu(dev, np, card, launches):
@@ -2912,7 +3291,8 @@ def main() -> None:
     print(f"launches summed over the driven paths: K1 {launches.total[0]}, "
           f"K2 {launches.total[1]}, K3 {launches.total[2]}, K4 (deblock) "
           f"{launches.total[3]}, K5 (intra recon) {launches.total[4]}, K6 "
-          f"(intra16 encode) {launches.total[5]}")
+          f"(intra16 encode) {launches.total[5]}, K7 (wavefront encode) "
+          f"{launches.total[6]}, K8 (wavefront decode) {launches.total[7]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

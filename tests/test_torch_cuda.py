@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1, K2, K3, the deblock D1, the intra
-reconstruction D2, the Intra_16x16 encode scans D3 / D4) against their
-plain PyTorch versions, on the card, plus the wrappers' no-fallback rule.
+reconstruction D2, the Intra_16x16 encode scans D3 / D4, the single-slice
+wavefront's encode K7 and decode K8) against their plain PyTorch
+versions, on the card, plus the wrappers' no-fallback rule.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed.  On a machine with a card and nvcc:
@@ -22,6 +23,7 @@ from tpuh264_torch.kernels import cavlc_cuda, cuda_lib, me_cuda
 from tpuh264_torch.kernels import deblock as DB
 from tpuh264_torch.kernels import iframe as IF
 from tpuh264_torch.kernels import pframe as TP
+from tpuh264_torch.kernels import wavefront as WF
 
 
 def _launches():
@@ -554,6 +556,111 @@ def test_intra16_raises_without_fallback(dev, monkeypatch):
     assert plain == [1]
 
 
+def _wave_both(planes, qp):
+    """K7 and its plain version on one input, and K8 and its plain version
+    on K7's symbols: equal, and the decode equal to the recon."""
+    before = (WF.encode_iframe_single.launches,
+              WF.decode_iframe_single.launches)
+    sym, rec = WF.encode_iframe_single(*planes, qp)
+    psym, prec = WF._encode_iframe_single_plain(*planes, qp)
+    dec = WF.decode_iframe_single(sym, qp)
+    pdec = WF._decode_iframe_single_plain(sym, qp)
+    torch.cuda.synchronize()
+    assert (WF.encode_iframe_single.launches,
+            WF.decode_iframe_single.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    for a, b in zip((*sym, *rec), (*psym, *prec)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b, c in zip(dec, pdec, rec):
+        assert a.dtype == torch.uint8 and torch.equal(a, b)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.W_CASES)
+def test_wavefront_kernels_match_plain_cases(dev, case):
+    """K7 / K8 on chip_smoke phase 2's seeded frames (one MB, one row, one
+    column, R > C; ramps, mixed MB kinds, flat and saturated frames; QP 0
+    to 51), K7 from uint8 and from int32 planes."""
+    y, u, v, qp = chip_smoke.wave_case(np, *case)
+    planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
+    _wave_both(planes, qp)
+    _wave_both([p.to(torch.int32) for p in planes], qp)
+
+
+@pytest.mark.cuda
+def test_wavefront_session_from_rgba_matches_cpu(dev):
+    """EncoderSession.encode_frame (RGBA, whose colour conversion gives
+    int32 planes) with a single slice emits on the card, through K7, the
+    bytes of the same session on the CPU."""
+    from tpuh264_torch.engine import CodecConfig, EncoderSession
+
+    cfg = CodecConfig(width=160, height=104, streams=2, qp=28,
+                      slice_mode="single", gop_size=1)
+    frames = np.random.default_rng(5).integers(0, 256, (2, 2, 104, 160, 4),
+                                               dtype=np.uint8)
+    cpu = EncoderSession(cfg, device="cpu")
+    card = EncoderSession(cfg, device=dev)
+    before = WF.encode_iframe_single.launches
+    for f in frames:
+        want = [a.data for a in cpu.encode_frame(f)]
+        assert [a.data for a in card.encode_frame(f)] == want
+    assert WF.encode_iframe_single.launches == before + len(frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,s", [(640, 360, 1), (854, 480, 8)])
+def test_wavefront_kernels_match_plain_frames(dev, w, h, s):
+    """K7 / K8 on BASELINE config 1's frame size and on phase 12's 480p x
+    8 frames of the "meeting" clip, edge-padded as the session pads."""
+    _wave_both(chip_smoke.wave_frames(dev, torch, np, w, h, s), 28)
+
+
+@pytest.mark.cuda
+def test_wavefront_raises_without_fallback(dev, monkeypatch):
+    """A kernel library that cannot be built, or an entry that reports a
+    CUDA error at launch, raises: the plain versions are never taken."""
+    y, u, v, qp = chip_smoke.wave_case(np, (2, 3, 4), "mix", 28)
+    planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
+    sym, _ = WF.encode_iframe_single(*planes, qp)
+    lib = cuda_lib.load()
+    plain = []
+    monkeypatch.setattr(WF, "_encode_iframe_single_plain",
+                        lambda *a, **k: plain.append(1))
+    monkeypatch.setattr(WF, "_decode_iframe_single_plain",
+                        lambda *a, **k: plain.append(1))
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_lib, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        WF.encode_iframe_single(*planes, qp)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        WF.decode_iframe_single(sym, qp)
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def th264_wavefront_encode(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+        @staticmethod
+        def th264_wavefront_decode(*args):
+            return 9
+
+    monkeypatch.setattr(cuda_lib, "load", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="th264_wavefront_encode"):
+        WF.encode_iframe_single(*planes, qp)
+    with pytest.raises(RuntimeError, match="th264_wavefront_decode"):
+        WF.decode_iframe_single(sym, qp)
+    with pytest.raises(RuntimeError, match="th264_wavefront_encode"):
+        WF.encode_iframe_single(*(p.to(torch.int32) for p in planes), qp)
+    assert not plain
+
+
 def test_wrappers_raise_off_cpu_without_fallback():
     """A tensor that is not on the CPU never reaches a plain version: on a
     device the kernel cannot take, the wrapper raises."""
@@ -579,7 +686,8 @@ def test_wrappers_raise_off_cpu_without_fallback():
 
 def test_library_rebuilt_when_vlc_tables_change(tmp_path, monkeypatch):
     """The built library is reused only while its generated table header
-    matches the tables the plain versions read, and no source is newer."""
+    matches the tables the plain versions read, and no source or shared
+    header (csrc/*.cuh) is newer."""
     from tpuh264_torch.kernels import cuda_lib
 
     lib, header = tmp_path / "lib.so", tmp_path / "cavlc_tables.cuh"
@@ -590,7 +698,8 @@ def test_library_rebuilt_when_vlc_tables_change(tmp_path, monkeypatch):
     assert cuda_lib._stale(text)  # nothing built yet
     header.write_text(text)
     lib.write_bytes(b"")
-    newest = max(map(os.path.getmtime, cuda_lib._sources()))
+    assert any(p.endswith(".cuh") for p in cuda_lib._deps())
+    newest = max(map(os.path.getmtime, cuda_lib._deps()))
     os.utime(lib, (newest + 10, newest + 10))
     assert not cuda_lib._stale(text)
     assert cuda_lib._stale(text.replace("kRB", "kRB_changed"))

@@ -86,6 +86,54 @@ def test_failed_build_raises_and_leaves_no_library(tmp_path):
     assert libbuild.stale(lib, header, "tables", [str(src)])
 
 
+# a stand-in object compiler: python -c STEP dir n src obj marks its start
+# in `dir`, waits (up to 30 s, else exits 5) until n steps have started,
+# then copies `src` to `obj`: it finishes only if all n run at once
+STEP = ("import os, shutil, sys, time; d, n = sys.argv[1], int(sys.argv[2]); "
+        "open(os.path.join(d, os.path.basename(sys.argv[3])), 'w').close(); "
+        "t = time.time() + 30\n"
+        "while len(os.listdir(d)) < n:\n"
+        "    time.sleep(0.01)\n"
+        "    if time.time() > t: raise SystemExit(5)\n"
+        "shutil.copy(sys.argv[3], sys.argv[4])")
+LINK = ("import sys; open(sys.argv[1], 'w').write("
+        "''.join(open(p).read() for p in sys.argv[2:]))")
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_steps_compile_at_once_then_link(tmp_path, fail):
+    """A command given as a list of steps (the CUDA library's: one compiler
+    a source, then the link) starts every step but the last at once and
+    runs the last after them; a failing step raises, names its command
+    and leaves no library."""
+    srcs = []
+    for i in range(3):
+        srcs.append(tmp_path / f"k{i}.cu")
+        srcs[-1].write_text(f"kernel {i};")
+    lib, header = str(tmp_path / "out" / "lib.so"), str(tmp_path / "h.h")
+    starts = tmp_path / "starts"
+    starts.mkdir()
+
+    def command(out):
+        objs = [str(p) + ".o" for p in srcs]
+        n = str(2 if fail else 3)  # the steps that wait for each other
+        steps = [[sys.executable, "-c", STEP, str(starts), n, str(p), o]
+                 for p, o in zip(srcs, objs)]
+        if fail:
+            steps[1] = [sys.executable, "-c", "raise SystemExit(3)"]
+        return steps + [[sys.executable, "-c", LINK, out, *objs]]
+
+    if fail:
+        with pytest.raises(RuntimeError, match="SystemExit"):
+            libbuild.ensure(lib, header, "t", list(map(str, srcs)), command)
+        assert not os.path.exists(lib)
+        return
+    assert libbuild.ensure(lib, header, "t", list(map(str, srcs)),
+                           command) > 0
+    assert open(lib).read() == "kernel 0;kernel 1;kernel 2;"
+    assert sorted(os.listdir(starts)) == ["k0.cu", "k1.cu", "k2.cu"]
+
+
 @pytest.mark.parametrize("mod", [cuda_lib, native], ids=["cuda", "native"])
 def test_both_libraries_build_into_the_port_build_dir(mod):
     """Both libraries go through the helper into tpuh264_torch/build/."""

@@ -1,9 +1,12 @@
 """Build and load the port's CUDA kernels (../csrc/*.cu) as one library.
 
-The sources are compiled at first use, on the machine with the card:
+The sources are compiled at first use, on the machine with the card,
+one nvcc a source, all started at once, then linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -I build -o build/libtpuh264_cuda.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -I build -c csrc/X.cu -o build/obj/X.cu.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/libtpuh264_cuda.so build/obj/*.o
 
 into `tpuh264_torch/build/` (git-ignored, see libbuild.py), together
 with the generated header `cavlc_tables.cuh` (the CAVLC VLC tables of
@@ -69,15 +72,32 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _deps():
+    """The files the library is built from: the sources and the headers
+    they share (*.cuh)."""
+    return _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _stale(header_text: str) -> bool:
-    """True when LIB is missing, older than a source, or was built against
-    other VLC tables than the ones entropy/cavlc_tables.py gives now."""
-    return libbuild.stale(LIB, HEADER, header_text, _sources())
+    """True when LIB is missing, older than a source or shared header, or
+    was built against other VLC tables than the ones
+    entropy/cavlc_tables.py gives now."""
+    return libbuild.stale(LIB, HEADER, header_text, _deps())
 
 
 def _command(out: str) -> list:
-    return [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-I", BUILD, "-o", out, *_sources()]
+    """One nvcc a source into build/obj/ (libbuild starts them all at
+    once), then the link of the objects into `out`."""
+    nvcc, objs = _nvcc(), os.path.join(BUILD, "obj")
+    os.makedirs(objs, exist_ok=True)
+    steps, linked = [], []
+    for src in _sources():
+        obj = os.path.join(objs, os.path.basename(src) + ".o")
+        steps.append([nvcc, "-gencode", ARCH, "-std=c++17", "-O3",
+                      "-Xcompiler", "-fPIC", "-I", BUILD, "-c", src, "-o",
+                      obj])
+        linked.append(obj)
+    return steps + [[nvcc, "-gencode", ARCH, "-shared", "-o", out, *linked]]
 
 
 def load() -> ctypes.CDLL:
@@ -87,7 +107,7 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         build_seconds = libbuild.ensure(LIB, HEADER, _tables_header(),
-                                        _sources(), _command)
+                                        _deps(), _command)
         lib = ctypes.CDLL(LIB)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.th264_sad_field.argtypes = [p, p, p, i, i, i, p]
@@ -99,10 +119,14 @@ def load() -> ctypes.CDLL:
             [p] * 3 + [i] + [p] * 12 + [i, i, i, i, p])
         lib.th264_intra16_in_p_rows.argtypes = (
             [p] * 3 + [i] + [p] * 17 + [i, i, i, i, p])
+        lib.th264_wavefront_encode.argtypes = (
+            [p] * 3 + [i] + [p] * 12 + [i] * 5 + [p])
+        lib.th264_wavefront_decode.argtypes = [p] * 8 + [i] * 3 + [p]
         for fn in (lib.th264_sad_field, lib.th264_pack_blocks,
                    lib.th264_merge_tree, lib.th264_deblock_rows,
                    lib.th264_intra_recon_rows, lib.th264_intra16_encode_rows,
-                   lib.th264_intra16_in_p_rows):
+                   lib.th264_intra16_in_p_rows, lib.th264_wavefront_encode,
+                   lib.th264_wavefront_decode):
             fn.restype = ctypes.c_int
         lib.th264_cuda_error_string.argtypes = [ctypes.c_int]
         lib.th264_cuda_error_string.restype = ctypes.c_char_p

@@ -3,14 +3,23 @@
 Port of tpuh264/kernels/wavefront.py (plain XLA there, outside any
 Pallas kernel).  A single-slice stream predicts across MB rows (the V
 and Plane Intra_16x16 modes, top neighbours everywhere), so MB (r, c)
-depends on (r, c-1), (r-1, c) and (r-1, c-1).  Ordered by wave w = 2r + c
-every dependency is strictly earlier, so 2(R-1) + C waves cover the
-frame, each batched over streams and the rows it reaches.
+depends on (r, c-1), (r-1, c) and (r-1, c-1).
 
-The carried state is the dependency frontier: per column the bottom row
-of its last reconstructed MB (top neighbours), per row the right column
-of its last MB (left neighbours), and per column the saved corner
-p[-1,-1] (the frontier entry before the row below overwrote it).
+On the card each direction is one kernel launch a frame: the encode
+`encode_iframe_single` is K7 and the reconstruction
+`decode_iframe_single` K8 (csrc/wavefront.cu: a block per stream, its
+warps taking the MBs of each anti-diagonal r + c, a barrier between
+diagonals).  CUDA tensors launch them or raise; CPU tensors take the
+plain versions `_encode_iframe_single_plain` /
+`_decode_iframe_single_plain`, which follow the JAX scan's waves.
+
+The plain versions order the MBs by wave w = 2r + c: every dependency
+is strictly earlier, so 2(R-1) + C waves cover the frame, each batched
+over streams and the rows it reaches.  Their carried state is the
+dependency frontier: per column the bottom row of its last reconstructed
+MB (top neighbours), per row the right column of its last MB (left
+neighbours), and per column the saved corner p[-1,-1] (the frontier
+entry before the row below overwrote it).
 
 The JAX scan advances every row lane each wave and sends the lanes
 outside the frame to a dump column C of its C+1-wide frontier
@@ -22,10 +31,10 @@ CUDA).  Outputs are written in place at (row, column), so no wave-to-
 raster gather is needed.
 
 The decode reuses iframe.py's batched residuals: only the prediction
-follows the waves.  Bit-exact with the JAX version
-(tests/test_torch_wavefront.py); mode decision order mirrors the golden
-encoder (luma DC, V, H, Plane; chroma DC, H, V, Plane; the first strict
-minimum wins).
+follows the waves (on the card too: K8 takes the residuals).  Bit-exact
+with the JAX version (tests/test_torch_wavefront.py); mode decision
+order mirrors the golden encoder (luma DC, V, H, Plane; chroma DC, H, V,
+Plane; the first strict minimum wins).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Tuple
 
 import torch
 
+from . import cuda_lib
 from . import transform as T
 from .iframe import (
     MBSymbols,
@@ -46,7 +56,6 @@ from .iframe import (
     _intra_residuals,
     _luma_blocks,
     _recon_chroma,
-    _sad,
 )
 from .intra44 import argmin_first
 
@@ -171,7 +180,77 @@ def encode_iframe_single(y, u, v, qp: int
                          ) -> Tuple[MBSymbols, Tuple[torch.Tensor, ...]]:
     """Encode [S, H, W] frames (u, v [S, H/2, W/2]) as single-slice I
     frames; the output contract of iframe.encode_iframe_scan, exactly as
-    tpuh264.kernels.wavefront.encode_iframe_single."""
+    tpuh264.kernels.wavefront.encode_iframe_single.
+
+    CPU tensors take the plain version; CUDA tensors launch K7
+    (csrc/wavefront.cu) or raise: uint8 planes, or others taken as int32
+    (the session's RGBA conversion gives int32 samples in 0..255)."""
+    if y.device.type == "cpu":
+        return _encode_iframe_single_plain(y, u, v, qp)
+    out = _k7_launch(y, u, v, qp)
+    encode_iframe_single.launches += 1
+    return out
+
+
+encode_iframe_single.launches = 0  # launches of K7
+
+
+def _frame_shape(name: str, shape, qp: int):
+    """(S, R, C) of luma frames of `shape` [S, H, W], whole MBs high and
+    wide; raises on any other shape or a QP outside 0..51."""
+    s, h, w = shape
+    if not s * h * w or h % 16 or w % 16:
+        raise ValueError(f"{name}: frames {tuple(shape)} are not whole MBs")
+    if not 0 <= qp <= 51:
+        raise ValueError(f"{name}: QP {qp} outside 0..51")
+    return s, h // 16, w // 16
+
+
+def _aligned(xs):
+    """The tensors of `xs`, each at a 16-byte aligned address (the kernels'
+    vector loads): a view at another offset is copied to fresh storage."""
+    return [x if x.data_ptr() % 16 == 0 else x.clone() for x in xs]
+
+
+def _k7_launch(y, u, v, qp: int):
+    """One launch of K7 over source planes on the card (uint8 if all three
+    are, else int32); raises on a bad input or a failed build or
+    launch."""
+    name = "encode_iframe_single"
+    s, r, c = _frame_shape(name, y.shape, qp)
+    dev = y.device
+    u8 = all(p.dtype == torch.uint8 for p in (y, u, v))
+    planes = [p.contiguous() if u8 else p.to(I32).contiguous()
+              for p in (y, u, v)]
+    shapes = [(s, 16 * r, 16 * c), (s, 8 * r, 8 * c), (s, 8 * r, 8 * c)]
+    cuda_lib.check_inputs(name, dev, list(zip(planes, shapes)),
+                          dtype=torch.uint8 if u8 else I32)
+    planes = _aligned(planes)
+    mb = (s, r, c)
+    new = lambda sh, dt: torch.empty(sh, dtype=dt, device=dev)
+    i16 = torch.int16
+    sym = MBSymbols(mode=new(mb, I32), cmode=new(mb, I32),
+                    cbp_luma=new(mb, I32), cbp_chroma=new(mb, I32),
+                    luma_dc=new((*mb, 16), i16),
+                    luma_ac=new((*mb, 16, 16), i16),
+                    chroma_dc=new((*mb, 2, 4), i16),
+                    chroma_ac=new((*mb, 2, 4, 15), i16),
+                    i4modes=new((*mb, 16), i16))
+    rec = tuple(new(sh, torch.uint8) for sh in shapes)
+    lib = cuda_lib.load()
+    ptr = lambda x: x.data_ptr()
+    err = lib.th264_wavefront_encode(
+        *map(ptr, planes), int(u8), *map(ptr, [*sym, *rec]), s, r, c, qp,
+        T.chroma_qp_from_luma(qp), cuda_lib.stream(dev))
+    cuda_lib.check(err, "th264_wavefront_encode")
+    return sym, rec
+
+
+def _encode_iframe_single_plain(y, u, v, qp: int
+                                ) -> Tuple[MBSymbols,
+                                           Tuple[torch.Tensor, ...]]:
+    """Plain version of `encode_iframe_single` (same arguments): the waves
+    2r + c in a Python loop, batched over streams and rows."""
     qpc = T.chroma_qp_from_luma(qp)
     s, hgt, wid = y.shape
     r, c = hgt // 16, wid // 16
@@ -250,7 +329,53 @@ def decode_iframe_single(symbols: MBSymbols, qp: int
                          ) -> Tuple[torch.Tensor, ...]:
     """Wavefront reconstruction of single-slice I frames from parsed
     symbols -> uint8 (y, u, v), exactly as
-    tpuh264.kernels.wavefront.decode_iframe_single."""
+    tpuh264.kernels.wavefront.decode_iframe_single.
+
+    CPU tensors take the plain version; on the card the residuals are
+    batched here (`_intra_residuals`, prediction-independent) and K8
+    (csrc/wavefront.cu) does the prediction, the sum and the clip, or
+    the call raises."""
+    if symbols.mode.device.type == "cpu":
+        return _decode_iframe_single_plain(symbols, qp)
+    s, r, c = symbols.mode.shape
+    _frame_shape("decode_iframe_single", (s, 16 * r, 16 * c), qp)
+    res = _intra_residuals(symbols, qp, T.chroma_qp_from_luma(qp))
+    rec = _k8_launch(symbols.mode, symbols.cmode, res)
+    decode_iframe_single.launches += 1
+    return rec
+
+
+def _k8_launch(mode, cmode, res):
+    """One launch of K8 on the card: the prediction of `mode` / `cmode`
+    [S, R, C] plus the residuals `res` of `_intra_residuals` (luma
+    [S,R,C,4,4,4,4], chroma [S,R,C,2,2,4,4] each), clipped -> uint8
+    planes; raises on a bad input or a failed build or launch."""
+    name = "decode_iframe_single"
+    s, r, c = mode.shape
+    dev = mode.device
+    flags = [x.to(I32).contiguous() for x in (mode, cmode)]
+    mb = (s, r, c)
+    res = [x.to(I32).contiguous() for x in res]
+    cuda_lib.check_inputs(name, dev, [(x, mb) for x in flags] + list(zip(
+        res, [(*mb, 4, 4, 4, 4), (*mb, 2, 2, 4, 4), (*mb, 2, 2, 4, 4)])))
+    res = _aligned(res)
+    rec = tuple(torch.empty(sh, dtype=torch.uint8, device=dev)
+                for sh in ((s, 16 * r, 16 * c), (s, 8 * r, 8 * c),
+                           (s, 8 * r, 8 * c)))
+    ptr = lambda x: x.data_ptr()
+    err = cuda_lib.load().th264_wavefront_decode(
+        *map(ptr, [*flags, *res, *rec]), s, r, c, cuda_lib.stream(dev))
+    cuda_lib.check(err, "th264_wavefront_decode")
+    return rec
+
+
+decode_iframe_single.launches = 0  # launches of K8
+
+
+def _decode_iframe_single_plain(symbols: MBSymbols, qp: int
+                                ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of `decode_iframe_single` (same arguments): the waves
+    2r + c in a Python loop, the residuals batched."""
     qpc = T.chroma_qp_from_luma(qp)
     s, r, c = symbols.mode.shape
     dev = symbols.mode.device

@@ -38,8 +38,10 @@ def stale(lib: str, header: str, header_text: str,
 def ensure(lib: str, header: str, header_text: str, sources: Sequence[str],
            command: Callable[[str], list]) -> float:
     """Build `lib` unless it is fresh: write `header`, then run
-    `command(out)` (the compiler line writing the library to `out`).
-    Returns the build's wall seconds, 0 when the library was fresh."""
+    `command(out)`: the compiler line writing the library to `out`, or a
+    list of such lines whose last one writes it, the others started all at
+    once before it (one compiler a source, then the link).  Returns the
+    build's wall seconds, 0 when the library was fresh."""
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     with open(f"{lib}.lock", "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)  # one builder across processes
@@ -51,11 +53,22 @@ def ensure(lib: str, header: str, header_text: str, sources: Sequence[str],
             f.write(header_text)
         os.replace(tmp, header)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = command(tmp)
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"{os.path.basename(cmd[0])} failed:\n"
-                               + " ".join(cmd) + "\n" + res.stdout
-                               + res.stderr)
+        cmds = command(tmp)
+        steps = cmds if cmds and isinstance(cmds[0], list) else [cmds]
+        procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+                 for c in steps[:-1]]
+        results = []
+        for c, p in procs:
+            out, err = p.communicate()
+            results.append((c, p.returncode, out, err))
+        if all(rc == 0 for _, rc, _, _ in results):
+            res = subprocess.run(steps[-1], capture_output=True, text=True)
+            results.append((steps[-1], res.returncode, res.stdout,
+                            res.stderr))
+        for cmd, rc, out, err in results:
+            if rc != 0:
+                raise RuntimeError(f"{os.path.basename(cmd[0])} failed:\n"
+                                   + " ".join(cmd) + "\n" + out + err)
         os.replace(tmp, lib)
         return time.perf_counter() - t0
