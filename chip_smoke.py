@@ -1091,6 +1091,16 @@ def legal_modes(np, rng, shape):
             draw([every, left, top, top & left]))
 
 
+def any_modes(np, rng, shape):
+    """(mode, cmode) int32 [S, R, C], every MB's drawn uniformly from 0-3
+    whatever neighbours it has: at the frame's edges the missing samples
+    predict as the plain decode reads them (0, and the corner of a column-0
+    MB from row 2 on, the bottom-right sample of MB (r - 2, 0))."""
+    s, r, c = shape
+    return (rng.integers(0, 4, (s, r, c)).astype(np.int32),
+            rng.integers(0, 4, (s, r, c)).astype(np.int32))
+
+
 def k6_bytes(planes, kw=None, n_intra=0) -> int:
     """K6 per MB: the source samples in (uint8 or int32), the four int32
     fields and the int16 levels (16 + 256 + 8 + 120) out; D3 also the
@@ -1365,7 +1375,8 @@ def wave_edges(dev, torch, np):
     from int32 planes, K8 on K7's symbols against its plain version and
     K7's recon, and K8 on those symbols with every MB's modes drawn at
     random among those legal there (`legal_modes`: the edges' missing
-    neighbours read 0 only where no mode uses them)."""
+    neighbours read 0 only where no mode uses them), then among all four
+    (`any_modes`: the edges' zeros and the column-0 corner predict)."""
     for case in W_CASES:
         y, u, v, qp = wave_case(np, *case)
         planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
@@ -1377,10 +1388,16 @@ def wave_edges(dev, torch, np):
         rand = sym._replace(mode=torch.from_numpy(mode).to(dev),
                             cmode=torch.from_numpy(cmode).to(dev))
         k8_equal(rand, qp, torch, f"edge case {case}, random modes")
+        mode, cmode = any_modes(np, np.random.default_rng(
+            sum(case[0]) + qp + 1), tuple(sym.mode.shape))
+        rand = sym._replace(mode=torch.from_numpy(mode).to(dev),
+                            cmode=torch.from_numpy(cmode).to(dev))
+        k8_equal(rand, qp, torch, f"edge case {case}, any modes")
     print(f"phase 2: K7 / K8 edge cases, {len(W_CASES)}: (S, R, C) "
           f"{list(W_SHAPES)} x {list(W_CONTENT)}, QPs {list(W_QPS)}; K7 also "
-          f"from int32 planes, K8 also on random legal modes: equal to "
-          f"plain")
+          f"from int32 planes, K8 also on random legal modes and on any "
+          f"modes (0-3 at every MB, a column-0 Plane MB's corner included): "
+          f"equal to plain")
 
 
 def wave_frames(dev, torch, np, w, h, s):

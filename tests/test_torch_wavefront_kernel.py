@@ -179,6 +179,46 @@ def test_kernel_source_on_cpu_threads_matches_plain(cpu_kernel, case):
         _eq(dec[f], w.numpy(), f"decode of random modes {f}")
 
 
+@pytest.mark.parametrize("case", chip_smoke.W_CASES, ids=IDS)
+def test_k8_any_modes_on_cpu_threads_match_plain(cpu_kernel, case):
+    """K8 on the case's symbols with every MB's mode and cmode drawn from
+    0-3 whatever its neighbours (`any_modes`): V and Plane in row 0, H and
+    Plane in column 0 predict from the zeros and the saved corner exactly
+    as the plain decode does (a column-0 MB from row 2 on takes the
+    bottom-right sample of MB (r - 2, 0) as its corner)."""
+    y, u, v, qp = chip_smoke.wave_case(np, *case)
+    sym, _ = W._encode_iframe_single_plain(
+        *map(torch.from_numpy, (y, u, v)), qp)
+    mode, cmode = chip_smoke.any_modes(
+        np, np.random.default_rng(sum(case[0]) + qp + 1),
+        tuple(sym.mode.shape))
+    rand = sym._replace(mode=torch.from_numpy(mode),
+                        cmode=torch.from_numpy(cmode))
+    want = W._decode_iframe_single_plain(rand, qp)
+    dec = _decode(cpu_kernel, rand, qp)
+    for f, w in zip(("rec_y", "rec_u", "rec_v"), want):
+        _eq(dec[f], w.numpy(), f"decode of any modes {f}")
+
+
+def test_any_modes_reach_the_column0_corner():
+    """`any_modes` draws every mode at every kind of MB over the cases:
+    luma and chroma Plane in column 0 from row 2 on (the saved corner), V
+    / Plane in row 0 and H / Plane in column 0 (the zeros)."""
+    col0_plane = row0 = col0 = 0
+    for case in chip_smoke.W_CASES:
+        s, r, c = case[0]
+        qp = case[2]
+        mode, cmode = chip_smoke.any_modes(
+            np, np.random.default_rng(sum(case[0]) + qp + 1), (s, r, c))
+        assert mode.dtype == cmode.dtype == np.int32
+        assert set(np.unique(mode)) <= {0, 1, 2, 3}
+        col0_plane += int((mode[:, 2:, 0] == 3).sum()
+                          + (cmode[:, 2:, 0] == 3).sum())
+        row0 += int(np.isin(mode[:, 0], (0, 3)).sum())
+        col0 += int(np.isin(mode[:, :, 0], (1, 3)).sum())
+    assert col0_plane and row0 and col0
+
+
 def test_cases_cover_what_they_claim():
     """R = C = 1, R = 1, C = 1, R > C and S of 1 and 2; every content at
     every QP across the shapes; the plain encode picks every luma mode

@@ -30,12 +30,12 @@
 //    (batched in torch before the launch: they do not depend on the
 //    prediction), clipped to 0..255.
 // Where a neighbour is unavailable (row 0 has no top, column 0 no left)
-// its samples read 0, and so does the corner where either is missing.  A
-// legal stream never predicts from them: V needs the top, H the left,
-// Plane both, and DC uses only the available sides.  (On a mode that is
-// illegal at its MB the plain version reads its saved corner, the
-// bottom-right sample of MB (r - 2, 0), at a Plane MB of column 0 from
-// row 2 on; K8 reads 0 there.)
+// its samples read 0, and so does the corner of row 0 and of MB (1, 0).
+// A legal stream never predicts from them: V needs the top, H the left,
+// Plane both, and DC uses only the available sides.  On a mode that is
+// illegal at its MB the plain version's saved corner decides: a column-0
+// MB from row 2 on takes the bottom-right sample of MB (r - 2, 0), and so
+// does K8.
 //
 // Design.  A wave is the anti-diagonal d = r + c: MB (r, c) reads only
 // MBs of waves d - 1 and d - 2, so R + C - 1 waves cover the frame, each
@@ -126,7 +126,11 @@ __device__ void load_nb(Nb& nb, const Plane& py, const Plane* pc, int r,
   if (t < 3) {
     const Plane& q = t ? pc[t - 1] : py;
     const int n = t ? 8 : 16;
-    nb.corner[t] = r && c ? q.at(n * r - 1, n * c - 1) : 0;
+    // column 0 from row 2 on: the plain decode's saved corner, the
+    // bottom-right sample of MB (r - 2, 0)
+    nb.corner[t] = r && c       ? q.at(n * r - 1, n * c - 1)
+                   : r >= 2 ? q.at(n * (r - 1) - 1, n - 1)
+                            : 0;
   }
   __syncwarp();
 }
