@@ -14,8 +14,8 @@ tpuh264_torch/csrc, then:
      string merge), K4 (D1, the in-loop deblock), K5 (D2, the
      decoders' intra-reconstruction column scan), K6 (D3 and D4, the
      encoder's Intra_16x16 column scans), K7 and K8 (the single-slice
-     wavefront's encode and decode, a block a stream walking the
-     anti-diagonals) against their plain
+     wavefront's encode and decode, a thread-block cluster a stream, its
+     MB rows pipelined) against their plain
      PyTorch versions on the card (exact equality) at the main path's
      1920x1080 x 4 shapes (K4: an encoded I frame and P frame; K5: the
      decoders' own inputs of that P frame and of its IDR), K3 at its
@@ -44,10 +44,12 @@ tpuh264_torch/csrc, then:
      K7 / K8 on one frame of phase 12's 854x480 x 8, of BASELINE config
      1's 640x360 (368) x 1 and of 1920x1080 (1088) x 1 (the "meeting"
      clip, QP 28), and on seeded cases (`wave_case`: one MB, one row, one
-     column, R > C; noise, ramps, mixed MB kinds, flat 0 / 255 and
-     saturated frames; QPs 0, 11, 12, 28, 51; K7 from uint8 and int32
-     planes; K8 also on random modes, each legal at its MB), K8 on K7's
-     symbols equal to K7's recon too;
+     column, R > C, several rows a CTA; noise, ramps, mixed MB kinds,
+     flat 0 / 255 and saturated frames; QPs 0, 11, 12, 28, 51; K7 from
+     uint8 and int32 planes; K8 also on random modes, each legal at its
+     MB, on any modes (0-3 at every MB) and on random cbp over the
+     levels), K8 on K7's symbols equal to K7's recon too; their cluster
+     and team sizes;
      times each kernel beside its plain
      version (CUDA events, after a warm-up) and against its bound (the
      bytes it must move over the card's 3.35 TB/s), K4 and K6 also in
@@ -1030,9 +1032,11 @@ def d4_capture(fn):
 # MB kinds a frame (flat, vertical and horizontal stripes, ramps, noise:
 # every mode beside its neighbours), flat 0 and 255 frames and 0 / 255
 # samples (the recon clips); QPs 0, 11, 12, 28 and 51 met by every
-# content across the shapes.
+# content across the shapes.  (1, 7, 5) and (2, 9, 4) put several MB rows
+# on each CTA of the kernels' clusters as the CPU-thread tests build them
+# (at most 3 CTAs, 2 teams a CTA), 7 rows not a multiple of the cluster.
 W_SHAPES = ((1, 1, 1), (2, 1, 3), (2, 3, 1), (1, 5, 2), (2, 3, 4),
-            (1, 2, 6))
+            (1, 2, 6), (1, 7, 5), (2, 9, 4))
 W_CONTENT = ("noise", "ramp", "mix", "flat0", "flat255", "saturate")
 W_QPS = D3_QPS
 W_CASES = [(shape, content, W_QPS[(i + j) % len(W_QPS)])
@@ -1099,6 +1103,14 @@ def any_modes(np, rng, shape):
     s, r, c = shape
     return (rng.integers(0, 4, (s, r, c)).astype(np.int32),
             rng.integers(0, 4, (s, r, c)).astype(np.int32))
+
+
+def masked_cbp(np, rng, shape):
+    """(cbp_luma, cbp_chroma) int32 [S, R, C] drawn at random whatever the
+    levels hold (luma 0 / 1, chroma 0 / 1 / 2): where they say fewer
+    levels than were coded, the decode must mask the rest."""
+    return (rng.integers(0, 2, shape).astype(np.int32),
+            rng.integers(0, 3, shape).astype(np.int32))
 
 
 def k6_bytes(planes, kw=None, n_intra=0) -> int:
@@ -1264,9 +1276,9 @@ def k7_bytes(planes) -> int:
 
 
 def k8_bytes(mode) -> int:
-    """K8 per MB: mode and cmode (int32) and the int32 residuals (384
-    samples) in, the uint8 recon (384) out."""
-    return mode.numel() * (8 + 4 * 384 + 384)
+    """K8 per MB: mode, cmode, cbp_luma and cbp_chroma (int32) and the
+    int16 levels (16 + 256 + 8 + 120) in, the uint8 recon (384) out."""
+    return mode.numel() * (16 + 2 * (16 + 256 + 8 + 120) + 384)
 
 
 def wave_cycles(ms: float, mhz: int, waves: int) -> float:
@@ -1307,9 +1319,9 @@ def k7_int32_equal(planes, sym, rec, qp, torch, what) -> int:
 
 
 def k8_equal(sym, qp, torch, what, recon=None) -> int:
-    """K8 (the decode router: batched residuals, then the kernel) against
-    its plain version on one symbol batch, and against the encoder's
-    `recon` where given; fails unless equal."""
+    """K8 (the decode router: one launch on the symbols) against its plain
+    version on one symbol batch, and against the encoder's `recon` where
+    given; fails unless equal."""
     from tpuh264_torch.kernels import wavefront
 
     k = wavefront.decode_iframe_single(sym, qp)
@@ -1326,15 +1338,23 @@ def k8_equal(sym, qp, torch, what, recon=None) -> int:
     return max(max_abs_err(a, b) for a, b in zip(k, p))
 
 
+def wave_plan(r, c):
+    """K7's and K8's launch shape for R x C MBs, as a phrase."""
+    from tpuh264_torch.kernels import wavefront
+
+    return "; ".join(
+        f"{key}: clusters of {k} CTAs, {rpc} MB rows and {teams} teams (2 "
+        f"warps each) a CTA, {smem} B of shared memory a CTA"
+        for key, (k, rpc, teams, smem) in zip(
+            ("K7", "K8"), wavefront.launch_plan(r, c)))
+
+
 def wave_timed(planes, qp, torch, what, card, mhz):
     """K7 and K8 equal to their plain versions on `planes` (K8 on K7's
-    symbols, equal to K7's recon too), timed beside them: K8 alone on the
-    router's residuals, and the router (residuals + K8).  Prints a line
-    each; returns the two rows' numbers, (max_abs_err, ms, plain ms,
-    bytes) each."""
+    symbols, equal to K7's recon too), timed beside them: K8's entry on the
+    symbols, and the router around it.  Prints a line each; returns the two
+    rows' numbers, (max_abs_err, ms, plain ms, bytes) each."""
     from tpuh264_torch.kernels import wavefront
-    from tpuh264_torch.kernels.iframe import _intra_residuals
-    from tpuh264_torch.kernels.transform import chroma_qp_from_luma
 
     err7, sym, rec = k7_equal(planes, qp, torch, what)
     err7 = max(err7, k7_int32_equal(planes, sym, rec, qp, torch, what))
@@ -1346,8 +1366,7 @@ def wave_timed(planes, qp, torch, what, card, mhz):
     ms7i = timed(lambda: wavefront.encode_iframe_single(*wide, qp), 20)
     plain7 = timed(lambda: wavefront._encode_iframe_single_plain(*planes,
                                                                  qp), 1)
-    res = _intra_residuals(sym, qp, chroma_qp_from_luma(qp))
-    ms8 = timed(lambda: wavefront._k8_launch(sym.mode, sym.cmode, res), 20)
+    ms8 = timed(lambda: wavefront._k8_launch(sym, qp), 20)
     router8 = timed(lambda: wavefront.decode_iframe_single(sym, qp), 20)
     plain8 = timed(lambda: wavefront._decode_iframe_single_plain(sym, qp), 1)
     b7, b8 = k7_bytes(planes), k8_bytes(sym.mode)
@@ -1358,10 +1377,11 @@ def wave_timed(planes, qp, torch, what, card, mhz):
             ("K7", err7, ms7, plain7, b7, f"from int32 planes (equal) "
              f"{ms7i:.4f} ms; luma modes V/H/DC/Plane {modes}, "
              f"chroma DC/H/V/Plane {cmodes}"),
-            ("K8", err8, ms8, plain8, b8, f"the router with its batched "
-             f"residuals {router8:.4f} ms")):
+            ("K8", err8, ms8, plain8, b8, f"the router around it "
+             f"{router8:.4f} ms")):
         print(f"phase 2: {key} {what} ({list(planes[0].shape)}, QP {qp}, "
-              f"{waves} waves): equal to plain (max_abs_err {err}); kernel "
+              f"{waves} waves; {wave_plan(h // 16, w // 16)}): equal to plain "
+              f"(max_abs_err {err}); kernel "
               f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound_ms(nb):.4f} "
               f"ms (bytes, {nb / 1e6:.2f} MB): "
               f"{100 * bound_ms(nb) / ms:.2f}% of the bound; "
@@ -1376,7 +1396,8 @@ def wave_edges(dev, torch, np):
     K7's recon, and K8 on those symbols with every MB's modes drawn at
     random among those legal there (`legal_modes`: the edges' missing
     neighbours read 0 only where no mode uses them), then among all four
-    (`any_modes`: the edges' zeros and the column-0 corner predict)."""
+    (`any_modes`: the edges' zeros and the column-0 corner predict), and
+    K8 on K7's levels under random cbp (`masked_cbp`)."""
     for case in W_CASES:
         y, u, v, qp = wave_case(np, *case)
         planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
@@ -1393,11 +1414,17 @@ def wave_edges(dev, torch, np):
         rand = sym._replace(mode=torch.from_numpy(mode).to(dev),
                             cmode=torch.from_numpy(cmode).to(dev))
         k8_equal(rand, qp, torch, f"edge case {case}, any modes")
+        cbl, cbc = masked_cbp(np, np.random.default_rng(sum(case[0]) + qp),
+                              tuple(sym.mode.shape))
+        k8_equal(sym._replace(cbp_luma=torch.from_numpy(cbl).to(dev),
+                              cbp_chroma=torch.from_numpy(cbc).to(dev)), qp,
+                 torch, f"edge case {case}, masked levels")
     print(f"phase 2: K7 / K8 edge cases, {len(W_CASES)}: (S, R, C) "
           f"{list(W_SHAPES)} x {list(W_CONTENT)}, QPs {list(W_QPS)}; K7 also "
-          f"from int32 planes, K8 also on random legal modes and on any "
-          f"modes (0-3 at every MB, a column-0 Plane MB's corner included): "
-          f"equal to plain")
+          f"from int32 planes, K8 also on random legal modes, on any "
+          f"modes (0-3 at every MB, a column-0 Plane MB's corner included) "
+          f"and on random cbp over the levels (the masks act): equal to "
+          f"plain")
 
 
 def wave_frames(dev, torch, np, w, h, s):

@@ -8,7 +8,16 @@ the harness), and __syncthreads a std::barrier among the block's threads
 harness runs a block by `run_block_fibers`, its threads are ucontext
 fibers on one OS thread and the barriers switch between them, each fiber
 resumed once the barrier it waits at opens: for blocks of many warps,
-far cheaper than as many OS threads.  A warp shuffle or
+far cheaper than as many OS threads.  `run_cluster_fibers` runs the CTAs
+of one thread-block cluster together so, each with its own warp barriers
+and its own dynamic shared memory (`cl_smem`, filled with a pattern
+first so that a kernel that reads what it never wrote fails); `cl_map` is
+DSMEM (the same offset in a sibling CTA's buffer), `cl_sync` the cluster
+barrier, `cl_acquire` / `cl_release` (and `cta_acquire` /
+`cta_release`) plain loads and stores of a flag,
+and `cl_pause`, the body of a kernel's wait loop, yields the fiber.  A
+run in which every live fiber only waits (no barrier reached, no flag
+released) is a deadlock and aborts.  A warp shuffle or
 ballot is an exchange through a per-warp array after one such warp
 barrier: the arrays alternate between two copies from one exchange to
 the next (each thread counts its own), so a thread may write the next
@@ -30,6 +39,7 @@ SHIMS = r"""
 #include <algorithm>
 #include <barrier>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <functional>
 #include <memory>
@@ -38,6 +48,7 @@ SHIMS = r"""
 using std::abs; using std::max; using std::min;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __constant__
 #define __shared__ static
@@ -57,8 +68,10 @@ struct Dim { int x; };
 inline thread_local Dim threadIdx, blockIdx;
 inline std::barrier<>* g_warp[32];
 inline std::barrier<>* g_block;
-// Fiber mode (run_block_fibers): a block's threads as ucontext fibers on
-// one OS thread, each resumed only once the barrier it waits at opens.
+// Fiber mode (run_block_fibers, run_cluster_fibers): a block's threads as
+// ucontext fibers on one OS thread, each resumed only once the barrier it
+// waits at opens.
+constexpr int kMaxCta = 16;  // CTAs a cluster
 struct FiberBar {
   int expected = 0, count = 0;
   unsigned gen = 0;
@@ -68,13 +81,17 @@ struct Fiber {
   unsigned xcount = 0;
   FiberBar* bar = nullptr;  // the barrier it waits at, of generation gen
   unsigned gen = 0;
+  int cta = 0, tid = 0;
   bool done = false;
 };
 inline bool g_fibers = false;
-inline FiberBar g_fwarp[32], g_fblock;
+inline FiberBar g_fwarp[kMaxCta][32], g_fblock[kMaxCta], g_fcluster;
 inline Fiber* g_fiber;  // the running one
+inline int g_cta = 0;   // its CTA in the cluster (0 outside fiber mode)
+inline unsigned long g_progress = 0;  // barrier arrivals, flag releases
 inline ucontext_t g_sched;
 inline void fiber_wait(FiberBar& b) {
+  ++g_progress;
   if (++b.count == b.expected) {
     b.count = 0;
     ++b.gen;
@@ -86,24 +103,47 @@ inline void fiber_wait(FiberBar& b) {
 }
 inline void __syncwarp() {
   if (g_fibers)
-    fiber_wait(g_fwarp[threadIdx.x >> 5]);
+    fiber_wait(g_fwarp[g_cta][threadIdx.x >> 5]);
   else
     g_warp[threadIdx.x >> 5]->arrive_and_wait();
 }
 inline void __syncthreads() {
   if (g_fibers)
-    fiber_wait(g_fblock);
+    fiber_wait(g_fblock[g_cta]);
   else
     g_block->arrive_and_wait();
 }
-inline uint32_t g_xchg[32][2][32];
+// Clusters (run_cluster_fibers): each CTA's dynamic shared memory, DSMEM,
+// the cluster barrier, flags and the yield of a wait loop.
+inline uint8_t* g_smem[kMaxCta];
+inline uint8_t* cl_smem() { return g_smem[g_cta]; }
+template <typename T>
+inline T* cl_map(T* p, int rank) {
+  return reinterpret_cast<T*>(g_smem[rank] +
+                              (reinterpret_cast<uint8_t*>(p) - g_smem[g_cta]));
+}
+inline void cl_sync() { fiber_wait(g_fcluster); }
+inline unsigned cl_acquire(const unsigned* p) {
+  return *static_cast<const volatile unsigned*>(p);
+}
+inline void cl_release(unsigned* p, unsigned v) {
+  ++g_progress;
+  *static_cast<volatile unsigned*>(p) = v;
+}
+inline unsigned cta_acquire(const unsigned* p) { return cl_acquire(p); }
+inline void cta_release(unsigned* p, unsigned v) { cl_release(p, v); }
+inline void cl_pause() {
+  g_fiber->bar = nullptr;
+  swapcontext(&g_fiber->ctx, &g_sched);
+}
+inline uint32_t g_xchg[kMaxCta][32][2][32];
 inline thread_local unsigned g_xcount;
 // thread x's value, as every thread of the warp offers its own
 inline uint32_t* exchange(uint32_t v) {
   const int w = threadIdx.x >> 5, c = g_xcount++ & 1;
-  g_xchg[w][c][threadIdx.x & 31] = v;
+  g_xchg[g_cta][w][c][threadIdx.x & 31] = v;
   __syncwarp();
-  return g_xchg[w][c];
+  return g_xchg[g_cta][w][c];
 }
 inline int __shfl_sync(unsigned, int v, int src) {
   return (int)exchange((uint32_t)v)[src & 31];
@@ -123,42 +163,70 @@ inline unsigned __ballot_sync(unsigned, int p) {
   for (int i = 0; i < 32; ++i) b |= all[i] << i;
   return b;
 }
-// Runs `body` as block `block`'s `n` threads (warps of 32), as fibers.
+// Runs `body` as the `n` threads (warps of 32) of each of the `ctas`
+// CTAs of one cluster, blocks first_block.., as fibers; each CTA with
+// `smem` bytes of dynamic shared memory.
 inline std::function<void()> g_fiber_body;
 inline void fiber_entry() {
   g_fiber_body();
+  ++g_progress;
   g_fiber->done = true;
 }
-inline void run_block_fibers(int n, int block, std::function<void()> body) {
+inline void run_cluster_fibers(int n, int ctas, int first_block, size_t smem,
+                               std::function<void()> body) {
   static std::vector<std::unique_ptr<char[]>> stacks;
   constexpr size_t kStack = 1 << 17;
-  while ((int)stacks.size() < n) stacks.emplace_back(new char[kStack]);
-  std::vector<Fiber> fs(n);
+  const int total = n * ctas;
+  if (ctas > kMaxCta) abort();
+  while ((int)stacks.size() < total) stacks.emplace_back(new char[kStack]);
+  const int fill = (int)0xa5a5a5a5u;
+  std::vector<std::vector<int4>> mem(ctas, std::vector<int4>(
+      (smem + 15) / 16, int4{fill, fill, fill, fill}));
+  for (int k = 0; k < ctas; ++k)
+    g_smem[k] = reinterpret_cast<uint8_t*>(mem[k].data());
+  std::vector<Fiber> fs(total);
   g_fiber_body = std::move(body);
   g_fibers = true;
-  for (int w = 0; w < (n + 31) / 32; ++w) g_fwarp[w] = FiberBar{32};
-  g_fblock = FiberBar{n};
-  for (int i = 0; i < n; ++i) {
+  for (int k = 0; k < ctas; ++k) {
+    for (int w = 0; w < (n + 31) / 32; ++w) g_fwarp[k][w] = FiberBar{32};
+    g_fblock[k] = FiberBar{n};
+  }
+  g_fcluster = FiberBar{total};
+  for (int i = 0; i < total; ++i) {
+    fs[i].cta = i / n, fs[i].tid = i % n;
     getcontext(&fs[i].ctx);
     fs[i].ctx.uc_stack.ss_sp = stacks[i].get();
     fs[i].ctx.uc_stack.ss_size = kStack;
     fs[i].ctx.uc_link = &g_sched;
     makecontext(&fs[i].ctx, fiber_entry, 0);
   }
-  for (int live = n; live;)
-    for (int i = 0; i < n; ++i) {
+  for (int live = total, idle = 0; live;) {
+    const unsigned long before = g_progress;
+    for (int i = 0; i < total; ++i) {
       Fiber& f = fs[i];
       if (f.done || (f.bar && f.bar->gen == f.gen)) continue;
       f.bar = nullptr;
-      threadIdx.x = i;
-      blockIdx.x = block;
+      threadIdx.x = f.tid;
+      blockIdx.x = first_block + f.cta;
+      g_cta = f.cta;
       g_xcount = f.xcount;
       g_fiber = &f;
       swapcontext(&g_sched, &f.ctx);
       f.xcount = g_xcount;
       live -= f.done;
     }
+    idle = g_progress == before ? idle + 1 : 0;
+    if (live && idle > 2) {  // every live fiber waits on what none will do
+      fprintf(stderr, "deadlock: %d fibers wait forever\n", live);
+      abort();
+    }
+  }
   g_fibers = false;
+  g_cta = 0;
+}
+// Runs `body` as block `block`'s `n` threads (warps of 32), as fibers.
+inline void run_block_fibers(int n, int block, std::function<void()> body) {
+  run_cluster_fibers(n, 1, block, 0, std::move(body));
 }
 inline unsigned __vsadu4(unsigned a, unsigned b) {
   unsigned s = 0;
@@ -171,10 +239,11 @@ inline unsigned __vsadu4(unsigned a, unsigned b) {
 """
 
 
-def build(d, harness: str, csrc: str, name: str) -> str:
+def build(d, harness: str, csrc: str, name: str, defines=()) -> str:
     """Compile `harness` (C++ that includes a kernel source of `csrc`)
-    against the shims, in directory `d`: the executable's path.  Skips
-    the test where there is no g++."""
+    against the shims, in directory `d`, with the macros `defines`
+    ("NAME=VALUE"): the executable's path.  Skips the test where there is
+    no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ (C++20) to run the kernel source on the CPU")
@@ -182,6 +251,7 @@ def build(d, harness: str, csrc: str, name: str) -> str:
     (d / "harness.cpp").write_text(harness)
     exe = d / name
     subprocess.run([gxx, "-std=c++20", "-O1", "-fno-strict-aliasing",
-                    "-pthread", "-I", str(d), "-I", csrc, "-o", str(exe),
-                    str(d / "harness.cpp")], check=True)
+                    "-pthread", *(f"-D{x}" for x in defines), "-I", str(d),
+                    "-I", csrc, "-o", str(exe), str(d / "harness.cpp")],
+                   check=True)
     return str(exe)

@@ -580,12 +580,24 @@ def _wave_both(planes, qp):
 @pytest.mark.parametrize("case", chip_smoke.W_CASES)
 def test_wavefront_kernels_match_plain_cases(dev, case):
     """K7 / K8 on chip_smoke phase 2's seeded frames (one MB, one row, one
-    column, R > C; ramps, mixed MB kinds, flat and saturated frames; QP 0
-    to 51), K7 from uint8 and from int32 planes."""
+    column, R > C, several rows a CTA; ramps, mixed MB kinds, flat and
+    saturated frames; QP 0 to 51), K7 from uint8 and from int32 planes;
+    K8 also on any modes (0-3 at every MB) and on random cbp over the
+    levels."""
     y, u, v, qp = chip_smoke.wave_case(np, *case)
     planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
     _wave_both(planes, qp)
     _wave_both([p.to(torch.int32) for p in planes], qp)
+    sym, _ = WF.encode_iframe_single(*planes, qp)
+    rng = lambda k: np.random.default_rng(sum(case[0]) + qp + k)
+    mode, cmode = chip_smoke.any_modes(np, rng(1), tuple(sym.mode.shape))
+    cbl, cbc = chip_smoke.masked_cbp(np, rng(0), tuple(sym.mode.shape))
+    on = lambda x: torch.from_numpy(x).to(dev)
+    for other in (sym._replace(mode=on(mode), cmode=on(cmode)),
+                  sym._replace(cbp_luma=on(cbl), cbp_chroma=on(cbc))):
+        got = WF.decode_iframe_single(other, qp)
+        want = WF._decode_iframe_single_plain(other, qp)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -610,10 +622,20 @@ def test_wavefront_session_from_rgba_matches_cpu(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w,h,s", [(640, 360, 1), (854, 480, 8)])
-def test_wavefront_kernels_match_plain_frames(dev, w, h, s):
+def test_wavefront_kernels_match_plain_frames(dev, w, h, s, monkeypatch):
     """K7 / K8 on BASELINE config 1's frame size and on phase 12's 480p x
-    8 frames of the "meeting" clip, edge-padded as the session pads."""
-    _wave_both(chip_smoke.wave_frames(dev, torch, np, w, h, s), 28)
+    8 frames of the "meeting" clip, edge-padded as the session pads; the
+    decode router decodes no residual in torch (K8 does)."""
+    planes = chip_smoke.wave_frames(dev, torch, np, w, h, s)
+    _wave_both(planes, 28)
+    sym, rec = WF.encode_iframe_single(*planes, 28)
+
+    def no_residuals(*a, **k):
+        raise AssertionError("the card route decoded residuals in torch")
+
+    monkeypatch.setattr(WF, "_intra_residuals", no_residuals)
+    assert all(torch.equal(a, b)
+               for a, b in zip(WF.decode_iframe_single(sym, 28), rec))
 
 
 @pytest.mark.cuda

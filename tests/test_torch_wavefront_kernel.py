@@ -4,9 +4,12 @@ plain versions of tpuh264_torch.kernels.wavefront, and the routers'
 routes (CPU tensors never reach the kernel library; any other device
 never reaches the plain versions; a failed build or launch raises).
 
-The inputs are chip_smoke.py's `W_CASES` (`wave_case`), the seeded
-frames phase 2 holds the kernels to their plain versions with on the
-card.  Every comparison is exact (array_equal): this is an integer codec.
+The source runs with small clusters (at most CLUSTER CTAs, TEAMS teams a
+CTA), each stream's cluster as fibers that switch at every barrier and
+flag wait.  The inputs are chip_smoke.py's `W_CASES` (`wave_case`), the
+seeded frames phase 2 holds the kernels to their plain versions with on
+the card.  Every comparison is exact (array_equal): this is an integer
+codec.
 """
 
 import os
@@ -26,9 +29,17 @@ SOURCE = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc",
                       "wavefront.cu")
 IDS = [f"{s}-{c}-qp{q}" for s, c, q in chip_smoke.W_CASES]
 
+# The cluster and team sizes the CPU threads run the source with: small,
+# so that the W_SHAPES with more rows than that put several rows on a CTA
+# and on a team, and a row count that is not a multiple of the cluster
+# leaves the last CTA short.
+CLUSTER, TEAMS = 3, 2
+
 # Reads int32 S R C qp qpc decode u8, then the encode's source planes y u
-# v (uint8 where u8, else int32), or the decode's int32 mode, cmode and
-# residuals y u v; writes every output in the entry's order.
+# v (uint8 where u8, else int32), or the decode's int32 mode, cmode,
+# cbp_luma, cbp_chroma and int16 luma_dc, luma_ac, chroma_dc, chroma_ac;
+# writes the launch plan (K, rows a CTA, teams a CTA), then every output in
+# the entry's order.  Each stream runs as one cluster of fibers.
 HARNESS = r"""
 #include <cuda_runtime.h>
 #include <cstdio>
@@ -46,16 +57,23 @@ int main() {
   const int S = h[0], R = h[1], C = h[2], qp = h[3], qpc = h[4], dec = h[5],
             u8 = h[6];
   const size_t m = (size_t)S * R * C;
+  const Grid g = plan(R, C);
+  const int32_t shape[3] = {g.K, g.rpc, g.teams};
+  fwrite(shape, 4, 3, stdout);
   std::vector<uint8_t> ry(256 * m), ru(64 * m), rv(64 * m);
   if (dec) {
-    std::vector<int32_t> mode(m), cmode(m), res_y(256 * m), res_u(64 * m),
-        res_v(64 * m);
-    if (!rd(mode) || !rd(cmode) || !rd(res_y) || !rd(res_u) || !rd(res_v))
+    std::vector<int32_t> mode(m), cmode(m), cbl(m), cbc(m);
+    std::vector<int16_t> dc(16 * m), ac(256 * m), cdc(8 * m), cac(120 * m);
+    if (!rd(mode) || !rd(cmode) || !rd(cbl) || !rd(cbc) || !rd(dc) ||
+        !rd(ac) || !rd(cdc) || !rd(cac))
       return 3;
-    const DecArgs a{mode.data(), cmode.data(), res_y.data(), res_u.data(),
-                    res_v.data(), ry.data(), ru.data(), rv.data(), R, C};
-    for (int b = 0; b < S; ++b)
-      run_block_fibers(kThreads, b, [&] { wavefront_dec_kernel(a); });
+    const DecArgs a{mode.data(), cmode.data(), cbl.data(), cbc.data(),
+                    dc.data(),   ac.data(),    cdc.data(), cac.data(),
+                    ry.data(),   ru.data(),    rv.data(),  g, qp, qpc};
+    for (int s = 0; s < S; ++s)
+      run_cluster_fibers(64 * g.teams, g.K, s * g.K,
+                         smem_bytes(g, sizeof(DecTeam)),
+                         [&] { wavefront_dec_kernel(a); });
   } else {
     std::vector<uint8_t> by(256 * m), bu(64 * m), bv(64 * m);
     std::vector<int32_t> wy(u8 ? 0 : 256 * m), wu(u8 ? 0 : 64 * m),
@@ -71,9 +89,11 @@ int main() {
     const EncArgs a{sy, su, sv, u8, mode.data(),
                     cmode.data(), cbl.data(), cbc.data(), dc.data(),
                     ac.data(), cdc.data(), cac.data(), i4.data(), ry.data(),
-                    ru.data(), rv.data(), R, C, qp, qpc};
-    for (int b = 0; b < S; ++b)
-      run_block_fibers(kThreads, b, [&] { wavefront_enc_kernel(a); });
+                    ru.data(), rv.data(), g, qp, qpc};
+    for (int s = 0; s < S; ++s)
+      run_cluster_fibers(64 * g.teams, g.K, s * g.K,
+                         smem_bytes(g, sizeof(EncTeam)),
+                         [&] { wavefront_enc_kernel(a); });
     wr(mode), wr(cmode), wr(cbl), wr(cbc), wr(dc), wr(ac), wr(cdc), wr(cac);
     wr(i4);
   }
@@ -86,16 +106,20 @@ int main() {
 @pytest.fixture(scope="module")
 def cpu_kernel(tmp_path_factory):
     """csrc/wavefront.cu (all but its launch entries) built with g++
-    against the shims of cuda_threads.py: a stream's kThreads threads (its
-    warps, each taking MBs of a wave) as fibers (`run_block_fibers`), its
-    shuffles, ballots and wave barriers switching between them."""
+    against the shims of cuda_threads.py, with clusters of at most CLUSTER
+    CTAs and TEAMS teams a CTA: each stream's cluster as fibers
+    (`run_cluster_fibers`), its shuffles, ballots, flag waits and cluster
+    barriers switching between them."""
     return cuda_threads.build(tmp_path_factory.mktemp("wavefront_cpu"),
                               HARNESS, os.path.dirname(SOURCE),
-                              "wavefront_cpu")
+                              "wavefront_cpu",
+                              (f"WF_MAX_CLUSTER={CLUSTER}",
+                               f"WF_MAX_TEAMS={TEAMS}"))
 
 
 def _unpack(out, spec):
-    got, off = {}, 0
+    got, off = {}, 12
+    got["plan"] = tuple(np.frombuffer(out[:12], np.int32).tolist())
     for name, shape, dt in spec:
         n = int(np.prod(shape)) * np.dtype(dt).itemsize
         got[name] = np.frombuffer(out[off:off + n], dt).reshape(shape)
@@ -133,14 +157,18 @@ def _encode(exe, planes, qp):
 
 
 def _decode(exe, symbols, qp):
-    """K8's source on CPU threads on the residuals the router batches:
-    the recon planes."""
+    """K8's source on CPU threads on the symbols: the recon planes."""
     s, r, c = symbols.mode.shape
-    res = tif._intra_residuals(symbols, qp, tif.T.chroma_qp_from_luma(qp))
-    head = np.array([s, r, c, qp, 0, 1, 0], np.int32)
+    head = np.array([s, r, c, qp, tif.T.chroma_qp_from_luma(qp), 1, 0],
+                    np.int32)
+    flags = (symbols.mode, symbols.cmode, symbols.cbp_luma,
+             symbols.cbp_chroma)
+    levels = (symbols.luma_dc, symbols.luma_ac, symbols.chroma_dc,
+              symbols.chroma_ac)
     body = head.tobytes() + b"".join(
-        x.to(torch.int32).contiguous().numpy().tobytes()
-        for x in (symbols.mode, symbols.cmode, *res))
+        x.to(torch.int32).contiguous().numpy().tobytes() for x in flags
+    ) + b"".join(x.to(torch.int16).contiguous().numpy().tobytes()
+                 for x in levels)
     out = subprocess.run([exe], input=body, capture_output=True,
                          check=True).stdout
     return _unpack(out, _recon_spec(s, r, c))
@@ -198,6 +226,62 @@ def test_k8_any_modes_on_cpu_threads_match_plain(cpu_kernel, case):
     dec = _decode(cpu_kernel, rand, qp)
     for f, w in zip(("rec_y", "rec_u", "rec_v"), want):
         _eq(dec[f], w.numpy(), f"decode of any modes {f}")
+
+
+@pytest.mark.parametrize("case", chip_smoke.W_CASES, ids=IDS)
+def test_k8_masked_levels_on_cpu_threads_match_plain(cpu_kernel, case):
+    """K8 on the case's levels under random cbp (`masked_cbp`): where cbp
+    says no luma AC, no chroma DC or no chroma AC, the levels there are
+    dropped, exactly as the plain decode's masks drop them."""
+    y, u, v, qp = chip_smoke.wave_case(np, *case)
+    sym, _ = W._encode_iframe_single_plain(
+        *map(torch.from_numpy, (y, u, v)), qp)
+    cbl, cbc = chip_smoke.masked_cbp(
+        np, np.random.default_rng(sum(case[0]) + qp), tuple(sym.mode.shape))
+    masked = sym._replace(cbp_luma=torch.from_numpy(cbl),
+                          cbp_chroma=torch.from_numpy(cbc))
+    want = W._decode_iframe_single_plain(masked, qp)
+    dec = _decode(cpu_kernel, masked, qp)
+    for f, w in zip(("rec_y", "rec_u", "rec_v"), want):
+        _eq(dec[f], w.numpy(), f"decode of masked levels {f}")
+
+
+def test_masked_cases_hide_coded_levels():
+    """Over the cases, `masked_cbp` says 0 where luma AC, chroma DC and
+    chroma AC levels were coded, so each mask drops real levels."""
+    hidden = np.zeros(3, int)
+    for case in chip_smoke.W_CASES:
+        y, u, v, qp = chip_smoke.wave_case(np, *case)
+        sym, _ = W._encode_iframe_single_plain(
+            *map(torch.from_numpy, (y, u, v)), qp)
+        cbl, cbc = chip_smoke.masked_cbp(
+            np, np.random.default_rng(sum(case[0]) + qp),
+            tuple(sym.mode.shape))
+        ac = sym.luma_ac.numpy().reshape(*cbl.shape, -1) != 0
+        cdc = sym.chroma_dc.numpy().reshape(*cbl.shape, -1) != 0
+        cac = sym.chroma_ac.numpy().reshape(*cbl.shape, -1) != 0
+        hidden += [(ac.any(-1) & (cbl == 0)).sum(),
+                   (cdc.any(-1) & (cbc == 0)).sum(),
+                   (cac.any(-1) & (cbc == 1)).sum()]
+    assert (hidden > 0).all(), hidden
+
+
+def test_shapes_cover_the_cluster_plans(cpu_kernel):
+    """Under the tests' cluster and team limits some W_SHAPES put several
+    MB rows on each CTA and on a team, with a row count that is not a
+    multiple of the cluster size (the last CTA short); the plan is the
+    kernel's own (`plan`, read back from the harness)."""
+    plans = {}
+    for s, r, c in chip_smoke.W_SHAPES:
+        sym, _ = W._encode_iframe_single_plain(
+            *(torch.zeros((s, n * r, n * c), dtype=torch.uint8)
+              for n in (16, 8, 8)), 28)
+        plans[(r, c)] = _decode(cpu_kernel, sym, 28)["plan"]
+    assert plans[(1, 1)] == (1, 1, 1)
+    assert any(k == CLUSTER and rpc > TEAMS and r % k
+               for (r, _), (k, rpc, teams) in plans.items())
+    assert all(teams == min(rpc, TEAMS) and k * rpc >= r > (k - 1) * rpc
+               for (r, _), (k, rpc, teams) in plans.items())
 
 
 def test_any_modes_reach_the_column0_corner():
@@ -347,6 +431,43 @@ def test_off_cpu_never_reaches_the_plain_versions(monkeypatch):
     assert not plain
     assert (W.encode_iframe_single.launches,
             W.decode_iframe_single.launches) == before
+
+
+def test_card_decode_is_one_launch_on_the_levels(monkeypatch):
+    """Off the CPU the decode router launches K8 once on the symbols as
+    they are: no `_intra_residuals`, the int16 levels and int32 flags
+    handed to the entry in MBSymbols' order, then the shape and both QPs."""
+    _, sym, qp = _meta_case()
+
+    def no_residuals(*a, **k):
+        raise AssertionError("the card route decoded residuals in torch")
+
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def th264_wavefront_decode(*args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(W, "_intra_residuals", no_residuals)
+    monkeypatch.setattr(cuda_lib, "load", lambda: Lib())
+    monkeypatch.setattr(cuda_lib, "stream", lambda dev: "stream")
+    asked = []
+    monkeypatch.setattr(cuda_lib, "check_inputs",
+                        lambda name, dev, specs, dtype=torch.int32:
+                        asked.append((dtype, [x.dtype for x, _ in specs])))
+    before = W.decode_iframe_single.launches
+    rec = W.decode_iframe_single(sym, qp)
+    assert W.decode_iframe_single.launches == before + 1
+    assert len(calls) == 1 and len(calls[0]) == 11 + 5 + 1
+    s, r, c = sym.mode.shape
+    assert calls[0][11:] == (s, r, c, qp, tif.T.chroma_qp_from_luma(qp),
+                             "stream")
+    assert asked == [(torch.int32, [torch.int32] * 4),
+                     (torch.int16, [torch.int16] * 4)]
+    assert [tuple(x.shape) for x in rec] == [
+        (s, 16 * r, 16 * c), (s, 8 * r, 8 * c), (s, 8 * r, 8 * c)]
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "qp"])

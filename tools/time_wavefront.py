@@ -3,8 +3,8 @@
 tpuh264_torch/csrc/wavefront.cu, at chip_smoke.py phase 2's frames,
 optionally in turns with another build of them.
 
-    python3 tools/time_wavefront.py [--other SRC.cu [--entry ENC,DEC]]
-                                    [--rounds N]
+    python3 tools/time_wavefront.py [--parent DIR ...] [--other SRC.cu
+                                    [--entry ENC]] [--rounds N]
     python3 tools/time_wavefront.py --sessions [--root DIR] [--tag T]
                                     [--frames N]
     python3 tools/time_wavefront.py --count-ops
@@ -12,19 +12,27 @@ optionally in turns with another build of them.
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 The frames are phase 2's: one frame of the "meeting" clip at 854x480 x 8
 (phase 12), 640x360 x 1 (BASELINE config 1) and 1920x1080 x 1, edge-padded
-to the MB grid, QP 28.  SRC.cu is a source with the two C entries of
-csrc/wavefront.cu (e.g. `git show <commit>:tpuh264_torch/csrc/
+to the MB grid, QP 28.  DIR is another tree of the repo (e.g. `git
+archive <commit>` unpacked into a git-ignored directory; --parent may be
+given more than once): its package is imported as a package of its own
+(`tree0_tpuh264_torch`, ..., its kernel library built in its own tree)
+and its routers `encode_iframe_single`
+and `decode_iframe_single` are timed in turns with this checkout's (the
+routers, since what K8 takes changed: the parent's decodes the residuals
+in torch and then launches its K8).  SRC.cu is a source with K7's C
+entry of csrc/wavefront.cu (e.g. `git show <commit>:tpuh264_torch/csrc/
 wavefront.cu` in a git-ignored directory, with csrc/intra16_common.cuh
 beside it), named by --entry; it is built with nvcc into
-tpuh264_torch/build/ as a library of its own and called through the same
-wrappers (`kernels/wavefront.py` `encode_iframe_single` and
-`_k8_launch`).  Every build is first held equal to the plain versions
-(K8 on K7's symbols, and to K7's recon).  Each round times other, this,
-this, other (CUDA events behind a device sleep, 20 calls:
-chip_smoke.timed) and prints each reading's ms, its share of the bytes
-bound (chip_smoke.k7_bytes / k8_bytes) and its SM cycles a wave at the
-clock read under load, beside the card's name and power limit; then
-ptxas's registers, spills and shared memory of each build.
+tpuh264_torch/build/ as a library of its own and called through this
+checkout's wrapper `encode_iframe_single`.  Every build is first held
+equal to this checkout's plain versions (K8 on K7's symbols, and to K7's
+recon).  Each round times the others, this, this, the others (CUDA
+events behind a device sleep, 20 calls: chip_smoke.timed): K7, this
+checkout's K8 entry alone (`_k8_launch`) and every tree's K8 router,
+each reading's ms, its share of the bytes bound (chip_smoke.k7_bytes /
+k8_bytes) and its SM cycles a wave at the clock read under load, beside
+the card's name and power limit; then ptxas's registers, spills and
+shared memory of each build, and this checkout's cluster plan.
 
 With --sessions it times instead the single-slice session path of the
 checkout at DIR (by default this one; an earlier tree unpacked by `git
@@ -56,19 +64,17 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-ENTRIES = ("th264_wavefront_encode", "th264_wavefront_decode")
+ENTRY = "th264_wavefront_encode"
 FRAMES = ((854, 480, 8), (640, 360, 1), (1920, 1080, 1))
 QP = 28
 
 
 class _OtherLib:
-    """The kernel library with another build's entries in K7's and K8's
-    place."""
+    """The kernel library with another build's entry in K7's place."""
 
-    def __init__(self, lib, enc, dec):
+    def __init__(self, lib, enc):
         self._lib = lib
         self.th264_wavefront_encode = enc
-        self.th264_wavefront_decode = dec
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
@@ -88,14 +94,36 @@ def _through(lib, fn):
     return call
 
 
-def builds(other, entries):
-    """[(name, encode, decode)]: this checkout's K7 / K8 wrappers, and
-    `other`'s entries through the same wrappers where given."""
+def tree_wavefront(root: str, alias: str):
+    """kernels/wavefront.py of the tree at `root`, its package imported as
+    `alias` (its modules import each other relatively, so it stays apart
+    from this checkout's)."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "tpuh264_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.kernels.wavefront")
+
+
+def builds(other, entry, parents):
+    """[(name, encode, decode router)]: this checkout's, each tree of
+    `parents`' routers, and `other`'s K7 entry through this checkout's
+    wrapper (no decode) where given."""
     from tpuh264_torch.kernels import cuda_lib, wavefront
 
     real = cuda_lib.load()
     out = [("this checkout", wavefront.encode_iframe_single,
-            wavefront._k8_launch)]
+            wavefront.decode_iframe_single)]
+    for i, root in enumerate(parents):
+        pw = tree_wavefront(root, f"tree{i}_tpuh264_torch")
+        out.append((f"tree {root}", pw.encode_iframe_single,
+                    pw.decode_iframe_single))
     if other is None:
         return out
     so_path = os.path.join(cuda_lib.BUILD, "libwavefront_other.so")
@@ -105,39 +133,32 @@ def builds(other, entries):
                          capture_output=True, text=True)
     if res.returncode != 0:
         cs.fail(f"nvcc {other}: {res.stdout}{res.stderr}")
-    so = ctypes.CDLL(so_path)
-    fns = []
-    for mine, theirs in zip(ENTRIES, entries):
-        fn = getattr(so, theirs)
-        fn.argtypes = getattr(real, mine).argtypes
-        fn.restype = ctypes.c_int
-        fns.append(fn)
-    lib = _OtherLib(real, *fns)
-    out.append((other, _through(lib, wavefront.encode_iframe_single),
-                _through(lib, wavefront._k8_launch)))
+    fn = getattr(ctypes.CDLL(so_path), entry)
+    fn.argtypes = real.th264_wavefront_encode.argtypes
+    fn.restype = ctypes.c_int
+    lib = _OtherLib(real, fn)
+    out.append((other, _through(lib, wavefront.encode_iframe_single), None))
     return out
 
 
 def check(enc, dec, planes, torch, what):
-    """The build's K7 and K8 equal the plain versions on `planes`; K8's
-    inputs (mode, cmode, residuals)."""
+    """The build's K7 and K8 router (where given) equal this checkout's
+    plain versions on `planes`; returns K7's symbols."""
     from tpuh264_torch.kernels import wavefront
-    from tpuh264_torch.kernels.iframe import _intra_residuals
-    from tpuh264_torch.kernels.transform import chroma_qp_from_luma
 
     sym, rec = enc(*planes, QP)
     psym, prec = wavefront._encode_iframe_single_plain(*planes, QP)
     if not all(a.dtype == b.dtype and torch.equal(a, b)
                for a, b in zip((*sym, *rec), (*psym, *prec))):
         cs.fail(f"{what}: K7 differs from the plain encode")
-    args = (sym.mode, sym.cmode, _intra_residuals(sym, QP,
-                                                  chroma_qp_from_luma(QP)))
-    got = dec(*args)
-    want = wavefront._decode_iframe_single_plain(sym, QP)
-    if not all(torch.equal(a, b) and torch.equal(a, c)
-               for a, b, c in zip(got, want, rec)):
-        cs.fail(f"{what}: K8 differs from the plain decode or the recon")
-    return args
+    if dec is not None:
+        got = dec(sym, QP)
+        want = wavefront._decode_iframe_single_plain(sym, QP)
+        if not all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(got, want, rec)):
+            cs.fail(f"{what}: K8 differs from the plain decode or the "
+                    f"recon")
+    return psym
 
 
 def sessions(root: str, tag: str, n_frames: int) -> None:
@@ -221,9 +242,10 @@ def count_ops() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", help="another K7 / K8 kernel source (.cu)")
-    ap.add_argument("--entry", default=",".join(ENTRIES),
-                    help="its encode and decode C entries, comma-separated")
+    ap.add_argument("--parent", action="append", default=[],
+                    help="another tree: time its routers too (repeatable)")
+    ap.add_argument("--other", help="another K7 kernel source (.cu)")
+    ap.add_argument("--entry", default=ENTRY, help="its K7 C entry")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--sessions", action="store_true",
                     help="time the session path of the tree at --root")
@@ -245,44 +267,56 @@ def main() -> None:
     if a.sessions:
         sessions(a.root, a.tag, a.frames)
         return
-    entries = a.entry.split(",")
-    if len(entries) != 2:
-        cs.fail("--entry takes the encode and decode entries, "
-                "comma-separated")
+    from tpuh264_torch.kernels import wavefront
+
     dev = torch.device("cuda", 0)
     card = cs.card_line(os.environ["CUDA_VISIBLE_DEVICES"].split(",")[0])
-    bs = builds(a.other, entries)
+    bs = builds(a.other, a.entry, a.parent)
     cases = []
     for w, h, s in FRAMES:
         planes = cs.wave_frames(dev, torch, np, w, h, s)
         what = f"{w}x{h} x {s}"
         for name, enc, dec in bs:
-            args = check(enc, dec, planes, torch, f"{name}: {what}")
-        cases.append((what, planes, args))
+            sym = check(enc, dec, planes, torch, f"{name}: {what}")
+        cases.append((what, planes, sym))
     torch.cuda.synchronize()
     mhz = cs.busy_sm_clock()
     print(f"{card}; SM clock under load {mhz} MHz")
-    order = bs[::-1] + bs if len(bs) > 1 else bs * 2
+    order = bs[:0:-1] + bs[:1] + bs[:1] + bs[1:] if len(bs) > 1 else bs * 2
+    mine = [("this checkout's K8 entry", None, wavefront._k8_launch)] * 2
     for rnd in range(a.rounds):
-        for what, planes, args in cases:
+        for what, planes, sym in cases:
             waves = planes[0].shape[1] // 16 + planes[0].shape[2] // 16 - 1
-            for key, nbytes, pick in (
-                    ("K7", cs.k7_bytes(planes), lambda b: lambda: b[1](
-                        *planes, QP)),
-                    ("K8", cs.k8_bytes(args[0]), lambda b: lambda: b[2](
-                        *args))):
+            timings = [("K7", cs.k7_bytes(planes), b[0],
+                        (lambda b: lambda: b[1](*planes, QP))(b))
+                       for b in order]
+            timings += [("K8", cs.k8_bytes(sym.mode), f"{b[0]} router",
+                         (lambda b: lambda: b[2](sym, QP))(b))
+                        for b in order if b[2] is not None]
+            timings += [("K8", cs.k8_bytes(sym.mode), b[0],
+                         (lambda b: lambda: b[2](sym, QP))(b)) for b in mine]
+            for key, nbytes, name, fn in timings:
                 bound = cs.bound_ms(nbytes)
-                for b in order:
-                    ms = cs.timed(pick(b), 20)
-                    print(f"round {rnd}: {key} {what}: {b[0]}: {ms:.4f} ms, "
-                          f"{100 * bound / ms:.2f}% of the bytes bound "
-                          f"{bound:.4f} ms, "
-                          f"{cs.wave_cycles(ms, mhz, waves):.0f} cycles a "
-                          f"wave ({waves} waves) at {mhz} MHz [{card}]")
-    srcs = [os.path.join(ROOT, "tpuh264_torch", "csrc", "wavefront.cu")]
-    for b, src in zip(bs, srcs + [a.other]):
+                ms = cs.timed(fn, 20)
+                print(f"round {rnd}: {key} {what}: {name}: {ms:.4f} ms, "
+                      f"{100 * bound / ms:.2f}% of the bytes bound "
+                      f"{bound:.4f} ms, "
+                      f"{cs.wave_cycles(ms, mhz, waves):.0f} cycles a "
+                      f"wave ({waves} waves) at {mhz} MHz [{card}]",
+                      flush=True)
+    srcs = [("this checkout", os.path.join(ROOT, "tpuh264_torch", "csrc",
+                                           "wavefront.cu"))]
+    srcs += [(f"tree {root}", os.path.join(root, "tpuh264_torch", "csrc",
+                                           "wavefront.cu"))
+             for root in a.parent]
+    if a.other:
+        srcs.append((a.other, a.other))
+    for name, src in srcs:
         for ln in cs.ptxas_lines(src):
-            print(f"ptxas, {b[0]}: {ln}")
+            print(f"ptxas, {name}: {ln}")
+    for w, h, _ in FRAMES:
+        r, c = (h + 15) // 16, (w + 15) // 16
+        print(f"plan {w}x{h}: {cs.wave_plan(r, c)}")
 
 
 if __name__ == "__main__":

@@ -121,12 +121,13 @@ def load() -> ctypes.CDLL:
             [p] * 3 + [i] + [p] * 17 + [i, i, i, i, p])
         lib.th264_wavefront_encode.argtypes = (
             [p] * 3 + [i] + [p] * 12 + [i] * 5 + [p])
-        lib.th264_wavefront_decode.argtypes = [p] * 8 + [i] * 3 + [p]
+        lib.th264_wavefront_decode.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.th264_wavefront_plan.argtypes = [i, i, p]
         for fn in (lib.th264_sad_field, lib.th264_pack_blocks,
                    lib.th264_merge_tree, lib.th264_deblock_rows,
                    lib.th264_intra_recon_rows, lib.th264_intra16_encode_rows,
                    lib.th264_intra16_in_p_rows, lib.th264_wavefront_encode,
-                   lib.th264_wavefront_decode):
+                   lib.th264_wavefront_decode, lib.th264_wavefront_plan):
             fn.restype = ctypes.c_int
         lib.th264_cuda_error_string.argtypes = [ctypes.c_int]
         lib.th264_cuda_error_string.restype = ctypes.c_char_p

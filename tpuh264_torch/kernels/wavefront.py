@@ -7,11 +7,12 @@ depends on (r, c-1), (r-1, c) and (r-1, c-1).
 
 On the card each direction is one kernel launch a frame: the encode
 `encode_iframe_single` is K7 and the reconstruction
-`decode_iframe_single` K8 (csrc/wavefront.cu: a block per stream, its
-warps taking the MBs of each anti-diagonal r + c, a barrier between
-diagonals).  CUDA tensors launch them or raise; CPU tensors take the
-plain versions `_encode_iframe_single_plain` /
-`_decode_iframe_single_plain`, which follow the JAX scan's waves.
+`decode_iframe_single` K8 (csrc/wavefront.cu: a thread-block cluster per
+stream, a team of warps per MB row walking it left to right, each row
+handing its MBs' bottom samples down to the next through shared memory).
+CUDA tensors launch them or raise; CPU tensors take the plain versions
+`_encode_iframe_single_plain` / `_decode_iframe_single_plain`, which
+follow the JAX scan's waves.
 
 The plain versions order the MBs by wave w = 2r + c: every dependency
 is strictly earlier, so 2(R-1) + C waves cover the frame, each batched
@@ -30,8 +31,9 @@ and output write of a wave lands on its own index, with no dump column
 CUDA).  Outputs are written in place at (row, column), so no wave-to-
 raster gather is needed.
 
-The decode reuses iframe.py's batched residuals: only the prediction
-follows the waves (on the card too: K8 takes the residuals).  Bit-exact
+The plain decode reuses iframe.py's batched residuals: only the
+prediction follows the waves.  K8 takes the parsed levels and decodes the
+residuals itself, off its chain.  Bit-exact
 with the JAX version (tests/test_torch_wavefront.py); mode decision
 order mirrors the golden encoder (luma DC, V, H, Plane; chroma DC, H, V,
 Plane; the first strict minimum wins).
@@ -39,6 +41,7 @@ Plane; the first strict minimum wins).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -331,45 +334,57 @@ def decode_iframe_single(symbols: MBSymbols, qp: int
     symbols -> uint8 (y, u, v), exactly as
     tpuh264.kernels.wavefront.decode_iframe_single.
 
-    CPU tensors take the plain version; on the card the residuals are
-    batched here (`_intra_residuals`, prediction-independent) and K8
-    (csrc/wavefront.cu) does the prediction, the sum and the clip, or
-    the call raises."""
+    CPU tensors take the plain version; on the card K8
+    (csrc/wavefront.cu) decodes the residuals from the levels, predicts,
+    sums and clips in one launch, or the call raises."""
     if symbols.mode.device.type == "cpu":
         return _decode_iframe_single_plain(symbols, qp)
-    s, r, c = symbols.mode.shape
-    _frame_shape("decode_iframe_single", (s, 16 * r, 16 * c), qp)
-    res = _intra_residuals(symbols, qp, T.chroma_qp_from_luma(qp))
-    rec = _k8_launch(symbols.mode, symbols.cmode, res)
+    rec = _k8_launch(symbols, qp)
     decode_iframe_single.launches += 1
     return rec
 
 
-def _k8_launch(mode, cmode, res):
-    """One launch of K8 on the card: the prediction of `mode` / `cmode`
-    [S, R, C] plus the residuals `res` of `_intra_residuals` (luma
-    [S,R,C,4,4,4,4], chroma [S,R,C,2,2,4,4] each), clipped -> uint8
-    planes; raises on a bad input or a failed build or launch."""
+decode_iframe_single.launches = 0  # launches of K8
+
+
+def _k8_launch(symbols: MBSymbols, qp: int):
+    """One launch of K8 on the card: int32 mode, cmode, cbp_luma,
+    cbp_chroma [S, R, C] and the int16 levels as MBSymbols holds them ->
+    uint8 planes; raises on a bad input or a failed build or launch."""
     name = "decode_iframe_single"
-    s, r, c = mode.shape
-    dev = mode.device
-    flags = [x.to(I32).contiguous() for x in (mode, cmode)]
+    s, r, c = symbols.mode.shape
+    _frame_shape(name, (s, 16 * r, 16 * c), qp)
+    dev = symbols.mode.device
     mb = (s, r, c)
-    res = [x.to(I32).contiguous() for x in res]
-    cuda_lib.check_inputs(name, dev, [(x, mb) for x in flags] + list(zip(
-        res, [(*mb, 4, 4, 4, 4), (*mb, 2, 2, 4, 4), (*mb, 2, 2, 4, 4)])))
-    res = _aligned(res)
+    flags = [x.to(I32).contiguous() for x in (
+        symbols.mode, symbols.cmode, symbols.cbp_luma, symbols.cbp_chroma)]
+    levels = [x.contiguous() for x in (symbols.luma_dc, symbols.luma_ac,
+                                       symbols.chroma_dc, symbols.chroma_ac)]
+    cuda_lib.check_inputs(name, dev, [(x, mb) for x in flags])
+    cuda_lib.check_inputs(name, dev, list(zip(levels, [
+        (*mb, 16), (*mb, 16, 16), (*mb, 2, 4), (*mb, 2, 4, 15)])),
+        dtype=torch.int16)
+    flags, levels = _aligned(flags), _aligned(levels)
     rec = tuple(torch.empty(sh, dtype=torch.uint8, device=dev)
                 for sh in ((s, 16 * r, 16 * c), (s, 8 * r, 8 * c),
                            (s, 8 * r, 8 * c)))
     ptr = lambda x: x.data_ptr()
     err = cuda_lib.load().th264_wavefront_decode(
-        *map(ptr, [*flags, *res, *rec]), s, r, c, cuda_lib.stream(dev))
+        *map(ptr, [*flags, *levels, *rec]), s, r, c, qp,
+        T.chroma_qp_from_luma(qp), cuda_lib.stream(dev))
     cuda_lib.check(err, "th264_wavefront_decode")
     return rec
 
 
-decode_iframe_single.launches = 0  # launches of K8
+def launch_plan(r: int, c: int):
+    """K7's and K8's launch shapes for R x C MBs a stream on the card (the
+    kernel library chooses them): ((cluster size, MB rows a CTA, teams a
+    CTA, shared memory a CTA in bytes) of K7, the same of K8)."""
+    out = (ctypes.c_int * 8)()
+    lib = cuda_lib.load()
+    cuda_lib.check(lib.th264_wavefront_plan(r, c, out),
+                   "th264_wavefront_plan")
+    return tuple(out[:4]), tuple(out[4:])
 
 
 def _decode_iframe_single_plain(symbols: MBSymbols, qp: int
