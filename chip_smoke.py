@@ -15,7 +15,9 @@ tpuh264_torch/csrc, then:
      decoders' intra-reconstruction column scan), K6 (D3 and D4, the
      encoder's Intra_16x16 column scans), K7 and K8 (the single-slice
      wavefront's encode and decode, a thread-block cluster a stream, its
-     MB rows pipelined) against their plain
+     MB rows pipelined), K9 (the P encode after stage A: refinement,
+     reference choice, MC, inter coding) and K10 (the P decode's MV
+     chain, MC and inter residuals) against their plain
      PyTorch versions on the card (exact equality) at the main path's
      1920x1080 x 4 shapes (K4: an encoded I frame and P frame; K5: the
      decoders' own inputs of that P frame and of its IDR), K3 at its
@@ -49,7 +51,14 @@ tpuh264_torch/csrc, then:
      uint8 and int32 planes; K8 also on random modes, each legal at its
      MB, on any modes (0-3 at every MB) and on random cbp over the
      levels), K8 on K7's symbols equal to K7's recon too; their cluster
-     and team sizes;
+     and team sizes; K9 / K10 on the 1080p x 4 RTC P frame (one
+     reference) and its decode, on a 854x480 x 8 default-config P frame
+     of "meeting" with two references and intra-in-P and its decode, and
+     on seeded cases (`k9_case`, `k10_case`: one MB, odd S, a row of 34
+     columns; noise, motion, flat and 0 / 255 content; QPs 0, 28, 51;
+     1-4 references, ref_base 0 / 1, stage-A winners at +-8, halo and
+     intra-in-P on and off; decode symbols of skip, inter and intra MBs
+     with chains that restart and run past the planes' pad);
      times each kernel beside its plain
      version (CUDA events, after a warm-up) and against its bound (the
      bytes it must move over the card's 3.35 TB/s), K4 and K6 also in
@@ -170,10 +179,13 @@ P frame on the fast path, so no K1; K7 and K8 run on phase 12 alone
 pipeline and on the sessions with `deblock=True`; K5 on every path that
 decodes but the wavefront's, phase 16(a)'s halo decodes too; K6 on
 every path that encodes an I frame without Intra_4x4 or a P frame with
-intra-in-P, phase 16(a)'s ranks too), and none may reach the plain
-version of K1, K3, K4, K5, K6, K7 or K8 (K5's plain version with `i44`, the
-Intra_4x4 reconstruction, and D3's with `intra44`, the Intra_4x4 trial,
-are the session path's own).  Encoder DPB == decoder DPB does not
+intra-in-P, phase 16(a)'s ranks too; K9 on every path that encodes a P
+frame and K10 on every path that decodes one, but config 3's), and none
+may reach the plain version of K1, K3, K4, K5, K6, K7, K8, K9 or K10
+(K5's plain version with `i44`, the Intra_4x4 reconstruction, and D3's
+with `intra44`, the Intra_4x4 trial, are the session path's own; K9's
+and K10's with `t8`, the 8x8 transform's choice of config 3, too, and
+their calls are printed apart).  Encoder DPB == decoder DPB does not
 check K4 (both sides run it): phase 14's gate against the oracle and
 phase 15's golden decode do.  No session of the engine's own streams (phases
 11-13 and 15) may leave the fast path for the golden decoder.
@@ -259,36 +271,47 @@ def max_abs_err(x, y) -> int:
 
 # the plain versions a path may call with an argument (name, position):
 # K5's with `i44` and D3's with `intra44` are the Intra_4x4 path's own
-# (D5's work)
+# (D5's work); K9's and K10's with `t8` are the CABAC + 8x8 session path's
+# own (the 8x8 transform's choice, config 3), counted and printed apart
 EXEMPT = {"_intra_recon_scan_plain": ("i44", 5),
-          "_encode_iframe_scan_plain": ("intra44", 4)}
+          "_encode_iframe_scan_plain": ("intra44", 4),
+          "_inter_encode_plain": ("t8", 12),
+          "_inter_decode_plain": ("t8", 5)}
 
 
-def _plain_spy(name, f, calls):
+def _plain_spy(name, f, calls, exempt=None):
     """`f` counting its calls into `calls`, but those with its EXEMPT
-    argument set."""
+    argument set (into `exempt`, where given)."""
     arg, pos = EXEMPT.get(name, (None, 0))
 
     def call(*a, **kw):
         if arg is None or not kw.get(arg, a[pos] if len(a) > pos else None):
             calls.append(1)
+        elif exempt is not None:
+            exempt.append(1)
         return f(*a, **kw)
     return call
 
 
 class Launches:
-    """The eight kernels' launch counts (K1, K2, K3, K4 = the deblock D1,
+    """The ten kernels' launch counts (K1, K2, K3, K4 = the deblock D1,
     K5 = the intra reconstruction D2, K6 = the Intra_16x16 encode scans
     D3 and D4: its two routers' counts summed, K7 / K8 = the single-slice
-    wavefront's encode / decode), zeroed before and read after each path
+    wavefront's encode / decode, K9 = the P encode after stage A, K10 =
+    the P decode's inter part), zeroed before and read after each path
     the smoke drives; summed over those paths for the kernel table.  The
     plain versions of K1 (`_sad_field`), K3 (`tree_merge`), K4
     (`_deblock_rows_plain`), K5 (`_intra_recon_scan_plain` without `i44`;
     with it, the Intra_4x4 reconstruction, it is the path's own), K6
     (`_encode_iframe_scan_plain` without `intra44`,
-    `_intra_in_p_scan_plain`), K7 (`_encode_iframe_single_plain`) and K8
-    (`_decode_iframe_single_plain`) are counted too: none may run on a
-    path."""
+    `_intra_in_p_scan_plain`), K7 (`_encode_iframe_single_plain`), K8
+    (`_decode_iframe_single_plain`), K9 (`_inter_encode_plain` without
+    `t8`) and K10 (`_inter_decode_plain` without `t8`) are counted too:
+    none may run on a path.  The `t8` calls of K9's and K10's plain
+    versions (the CABAC + 8x8 session path's eager route) are counted
+    apart and printed."""
+
+    NEEDS = (0, 1, 2, 3, 4, 5, 8, 9)  # a GOP pipeline's kernels
 
     def __init__(self):
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, iframe,
@@ -299,10 +322,11 @@ class Launches:
                     (iframe._intra_recon_scan,),
                     (iframe.encode_iframe_scan, pframe._intra_in_p_scan),
                     (wavefront.encode_iframe_single,),
-                    (wavefront.decode_iframe_single,))
+                    (wavefront.decode_iframe_single,),
+                    (pframe._inter_encode,), (pframe._inter_decode,))
         self.total = [0] * len(self.fns)
 
-    def path(self, name, fn, needs=(0, 1, 2, 3, 4, 5)):
+    def path(self, name, fn, needs=NEEDS):
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, iframe,
                                            me_cuda, pframe, wavefront)
 
@@ -315,11 +339,14 @@ class Launches:
                   (iframe, "_encode_iframe_scan_plain"),
                   (pframe, "_intra_in_p_scan_plain"),
                   (wavefront, "_encode_iframe_single_plain"),
-                  (wavefront, "_decode_iframe_single_plain")]
+                  (wavefront, "_decode_iframe_single_plain"),
+                  (pframe, "_inter_encode_plain"),
+                  (pframe, "_inter_decode_plain")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
-        for (m, a), f, c in zip(plains, saved, calls):
-            setattr(m, a, _plain_spy(a, f, c))
+        t8_calls = [[] for _ in plains]
+        for (m, a), f, c, e in zip(plains, saved, calls, t8_calls):
+            setattr(m, a, _plain_spy(a, f, c, e))
         try:
             out = fn()
         finally:
@@ -334,20 +361,30 @@ class Launches:
               f"recon) {counts[4]}, K6 (intra16 encode) {counts[5]} (D3 "
               f"{self.fns[5][0].launches}, D4 {self.fns[5][1].launches}), "
               f"K7 (wavefront encode) {counts[6]}, K8 (wavefront decode) "
-              f"{counts[7]}; plain calls K1 {plain[0]}, K3 {plain[1]}, K4 "
+              f"{counts[7]}, K9 (P encode) {counts[8]}, K10 (P decode) "
+              f"{counts[9]}; plain calls K1 {plain[0]}, K3 {plain[1]}, K4 "
               f"{plain[2]}, K5 without i44 {plain[3]}, K6: D3 without "
               f"intra44 {plain[4]}, D4 {plain[5]}, K7 {plain[6]}, K8 "
-              f"{plain[7]}")
+              f"{plain[7]}, K9 without t8 {plain[8]}, K10 without t8 "
+              f"{plain[9]}")
+        if t8_calls[8] or t8_calls[9]:
+            print(f"launches [{name}]: the t8 eager route (EXEMPT): K9's "
+                  f"plain version {len(t8_calls[8])}, K10's "
+                  f"{len(t8_calls[9])} calls")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
         if any(plain):
             fail(f"{name}: a plain version ran (K1, K3, K4, K5, K6 D3, K6 "
-                 f"D4, K7, K8: {plain} times)")
+                 f"D4, K7, K8, K9, K10: {plain} times)")
         return out, counts
 
 
 HBM_BPS = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 NO_LIBRARY = {
+    "K9": "no PyTorch call runs H.264 motion refinement, compensation "
+          "and inter coding",
+    "K10": "no PyTorch call runs H.264 motion compensation and inter "
+           "reconstruction",
     "K1": "no single PyTorch call: torch.cdist(p=1) would first need the "
           "289 candidate patches of every MB unfolded, and that is the work",
     "K2": "no PyTorch call encodes CAVLC",
@@ -1003,11 +1040,186 @@ def d4_args(torch, case, dev):
 def d4_capture(fn):
     """The arguments (dicts) of the `_intra_in_p_scan` calls that `fn()`
     makes: the P encode's own inputs of the intra-in-P scan."""
-    import inspect
-
     from tpuh264_torch.kernels import pframe
 
-    real = pframe._intra_in_p_scan
+    return capture(pframe, "_intra_in_p_scan", fn)
+
+
+# K9 (the P encode after stage A) and K10 (the P decode's inter part):
+# one MB (S = R = C = 1), odd S, one row, one column, a 3 x 5 frame, a
+# row of 34 columns (K10 carries its chain past 32);
+# content noise, real motion (the references are shifted crops of one
+# texture, the source another with noise), flat frames (every SAD 0, so
+# the rates and the tie order decide) and samples at 0 / 255 (the recon
+# clips; QP 0 makes the largest levels); QPs 0, 28 and 51.  K9 takes 1-4
+# references and ref_base 0 or 1, intra-in-P on or off (int32 MBs or
+# uint8 planes out), references vertically pre-extended (`halo`) or not,
+# and its stage-A winners from the real stage A or "edge" ones: each of
+# iy0, ix0 at -8, +8 or random in between, with random global vectors,
+# so that the refined vectors reach +-9 pels beside a global vector of up
+# to 8 the other way.  K10 decodes symbols with skip, inter and intra MBs
+# ("mixed"), inter chains only ("inter", long chains, MVs past the
+# planes' pad: the clamp), all skip and all intra, and random references.
+P_SHAPES = ((1, 1, 1), (3, 1, 2), (2, 2, 3), (1, 3, 5), (1, 2, 34))
+P_CONTENT = ("noise", "motion", "flat", "saturate")
+P_QPS = (0, 28, 51)
+K9_CASES = [(shape, 1 + (i + j + w) % 4, (i + w) % 2, content,
+             P_QPS[(i + j + w) % 3], ("stageA", "edge")[w],
+             bool((i + j) % 2), (i + 2 * j + w) % 3 == 0)
+            for i, shape in enumerate(P_SHAPES)
+            for j, content in enumerate(P_CONTENT) for w in (0, 1)]
+K10_MIX = ("mixed", "inter", "skip", "intra")
+K10_CASES = [(shape, 1 + (i + j) % 4, mix, P_QPS[(i + 2 * j) % 3],
+              (i + j) % 3 == 1)
+             for i, shape in enumerate(P_SHAPES)
+             for j, mix in enumerate(K10_MIX)]
+
+
+def _p_frames(np, rng, n, s, h, w, content, ext=0):
+    """n uint8 frames [n, s, h + 2 ext, w] of the content (`ext` rows of
+    the frame's continuation above and below: a halo)."""
+    hh = h + 2 * ext
+    if content == "flat":
+        return np.full((n, s, hh, w), 128, np.uint8)
+    if content == "saturate":
+        x = np.where(rng.random((n, s, hh, w)) < 0.5, 0, 255)
+        return x.astype(np.uint8)
+    if content == "noise":
+        return rng.integers(0, 256, (n, s, hh, w)).astype(np.uint8)
+    tex = rng.integers(0, 256, (s, hh + 24, w + 24))
+    tex = (tex + np.roll(tex, 1, -1) + np.roll(tex, 1, -2)) // 3
+    out = []
+    for _ in range(n):
+        dy, dx = rng.integers(0, 25, 2)
+        f = tex[:, dy:dy + hh, dx:dx + w] + rng.integers(-3, 4, (s, hh, w))
+        out.append(np.clip(f, 0, 255))
+    return np.stack(out).astype(np.uint8)
+
+
+def k9_case(np, shape, n_refs, ref_base, content, qp, winners, iip, halo):
+    """Seeded K9 inputs (numpy): dict of the source y, u, v [S, H, W]
+    uint8, the references refs_y, refs_u, refs_v [N, S, H, W] uint8 (with
+    `halo`, HALO_Y / HALO_C more rows a side), the stage-A winners iy0,
+    ix0 [N, S, R, C] and global vectors gy, gx [N, S] int32 ("edge"; None
+    for "stageA": the real stage A runs on them), and qp, ref_base,
+    intra_in_p, halo."""
+    from tpuh264_torch.kernels import pframe
+
+    s, r, c = shape
+    rng = np.random.default_rng([s, r, c, n_refs, ref_base,
+                                 P_CONTENT.index(content), qp,
+                                 winners == "edge", iip, halo])
+    h, w = 16 * r, 16 * c
+    ey, ec = (pframe.HALO_Y, pframe.HALO_C) if halo else (0, 0)
+    src = [_p_frames(np, rng, 1, s, h, w, content)[0],
+           _p_frames(np, rng, 1, s, h // 2, w // 2, content)[0],
+           _p_frames(np, rng, 1, s, h // 2, w // 2, content)[0]]
+    refs = [_p_frames(np, rng, n_refs, s, h, w, content, ey),
+            _p_frames(np, rng, n_refs, s, h // 2, w // 2, content, ec),
+            _p_frames(np, rng, n_refs, s, h // 2, w // 2, content, ec)]
+    win = None
+    if winners == "edge":
+        mb = (n_refs, s, r, c)
+        pick = lambda: np.where(rng.random(mb) < 0.6,
+                                rng.choice([-8, 8], mb),
+                                rng.integers(-8, 9, mb)).astype(np.int32)
+        win = (pick(), pick(), rng.integers(-8, 9, (n_refs, s)).astype(
+            np.int32), rng.integers(-8, 9, (n_refs, s)).astype(np.int32))
+    return dict(y=src[0], u=src[1], v=src[2], refs_y=refs[0],
+                refs_u=refs[1], refs_v=refs[2], winners=win, qp=qp,
+                ref_base=ref_base, intra_in_p=iip, halo=halo)
+
+
+def k9_args(torch, case, dev):
+    """`_inter_encode`'s arguments (a dict, t8 False) for a `k9_case`
+    result on `dev`: the references' planes from `_references`, the
+    stage-A winners the case gives or the real stage A's (K1 and the
+    winner selection on `dev`)."""
+    from tpuh264_torch.golden.inter import LAMBDA_ME
+    from tpuh264_torch.kernels import me_cuda, pframe
+
+    t = lambda x: torch.from_numpy(x).to(dev)
+    planes_l, refs_up, refs_vp = pframe._references(
+        t(case["refs_y"]), t(case["refs_u"]), t(case["refs_v"]),
+        case["halo"])
+    y32 = t(case["y"]).to(torch.int32).contiguous()
+    if case["winners"] is None:
+        lam = int(LAMBDA_ME[case["qp"]])
+        win = [torch.stack(f) for f in zip(*[
+            pframe._int_winner(me_cuda.sad_field(y32, p[0]), lam)
+            for p in planes_l])]
+    else:
+        win = [t(x) for x in case["winners"]]
+    return dict(y32=y32, u=t(case["u"]), v=t(case["v"]), planes_l=planes_l,
+                refs_up=refs_up, refs_vp=refs_vp, iy0=win[0], ix0=win[1],
+                gy=win[2], gx=win[3], qp=case["qp"],
+                ref_base=case["ref_base"], t8=False,
+                intra_in_p=case["intra_in_p"])
+
+
+def k10_case(np, shape, n_refs, mix, qp, halo):
+    """Seeded K10 inputs (numpy): (symbols, refs, qp, halo), `symbols`
+    the MBSymbolsP fields (int32 flags, int16 levels) of MBs of the mix
+    (the kinds skip 0 / inter 1 / intra 2), inter MBs' mvds in +-24
+    quarter-pels (chains past the planes' pad where they run long: the
+    clamp), references and cbps at random; refs [N, S, H, W] x 3 uint8
+    random (with `halo`, HALO_Y / HALO_C more rows a side)."""
+    from tpuh264_torch.kernels import pframe
+
+    s, r, c = shape
+    rng = np.random.default_rng([s, r, c, n_refs, K10_MIX.index(mix), qp,
+                                 halo])
+    mb = (s, r, c)
+    kind = {"mixed": rng.integers(0, 3, mb), "inter": np.where(
+        rng.random(mb) < 0.85, 1, rng.integers(0, 3, mb)),
+        "skip": np.zeros(mb, int), "intra": np.full(mb, 2)}[mix]
+    inter, intra = kind == 1, kind == 2
+
+    def levels(sh, amp, zero):
+        x = rng.integers(-amp, amp + 1, sh)
+        x[rng.random(sh) < zero] = 0
+        return x.astype(np.int16)
+
+    i32 = lambda x: np.asarray(x).astype(np.int32)
+    sym = dict(
+        kind=i32(kind), mode=i32(np.where(intra, 2, 0)),
+        cmode=i32(np.zeros(mb)),
+        cbp_luma=i32(np.where(intra, rng.integers(0, 2, mb),
+                              np.where(inter, rng.integers(0, 16, mb), 0))),
+        cbp_chroma=i32(np.where(kind == 0, 0, rng.integers(0, 3, mb))),
+        mvdx=i32(np.where(inter, rng.integers(-24, 25, mb), 0)),
+        mvdy=i32(np.where(inter, rng.integers(-24, 25, mb), 0)),
+        luma_dc=levels((*mb, 16), 30, 0.5),
+        luma_ac=levels((*mb, 16, 16), 8, 0.7),
+        chroma_dc=levels((*mb, 2, 4), 30, 0.4),
+        chroma_ac=levels((*mb, 2, 4, 15), 8, 0.7),
+        refidx=i32(np.where(inter, rng.integers(0, n_refs, mb), 0)),
+        t8=i32(np.zeros(mb)))
+    ey, ec = (pframe.HALO_Y, pframe.HALO_C) if halo else (0, 0)
+    refs = tuple(rng.integers(0, 256, (n_refs, s, n * r + 2 * e, n * c))
+                 .astype(np.uint8) for n, e in ((16, ey), (8, ec), (8, ec)))
+    return sym, refs, qp, halo
+
+
+def k10_args(torch, case, dev):
+    """`_inter_decode`'s arguments (a dict, t8 False) for a `k10_case`
+    result on `dev`."""
+    from tpuh264_torch.kernels import pframe
+
+    sym, refs, qp, halo = case
+    planes_l, refs_up, refs_vp = pframe._references(
+        *[torch.from_numpy(x).to(dev) for x in refs], halo)
+    return dict(symbols=pframe.MBSymbolsP(**{
+        k: torch.from_numpy(v).to(dev) for k, v in sym.items()}),
+        planes_l=planes_l, refs_up=refs_up, refs_vp=refs_vp, qp=qp, t8=False)
+
+
+def capture(module, name, fn):
+    """The arguments (dicts) of the calls of `module.name` that `fn()`
+    makes, e.g. the P encode's own inputs of `_inter_encode`."""
+    import inspect
+
+    real = getattr(module, name)
     sig = inspect.signature(real)
     calls = []
 
@@ -1016,11 +1228,11 @@ def d4_capture(fn):
         return real(*a, **kw)
 
     spy.launches = real.launches
-    pframe._intra_in_p_scan = spy
+    setattr(module, name, spy)
     try:
         fn()
     finally:
-        pframe._intra_in_p_scan = real
+        setattr(module, name, real)
         real.launches = spy.launches
     return calls
 
@@ -1547,6 +1759,178 @@ def d2_rows(dev, torch, np, card, frames):
     return row
 
 
+def k9_bytes(kw) -> int:
+    """K9: the int32 source (y, u, v) and stage A's winners and global
+    vectors in; for every reference the four int32 half-pel planes and
+    the two chroma planes over the frame's area (every MB searches every
+    reference, and its 18x18 windows of the four planes tile the plane,
+    so that is what the data needs; the planes' pads and the MC reads of
+    the chosen reference add nothing new); per MB 8 int32 fields, 384
+    int16 levels and the reconstruction (384 uint8 samples, or int32 with
+    intra-in-P) out."""
+    src = sum(kw[k].numel() for k in ("y32", "u", "v", "iy0", "ix0", "gy",
+                                      "gx"))
+    frame = kw["y32"].numel()
+    planes = len(kw["planes_l"]) * (4 * frame + 2 * (frame // 4))
+    mbs = frame // 256
+    return 4 * (src + planes) + mbs * (32 + 768 + 384 * (
+        4 if kw["intra_in_p"] else 1))
+
+
+def k10_bytes(kw, motion) -> int:
+    """K10, what this run's data needs: per MB six int32 flags and 384
+    int16 levels in, and from its reference the half-pel planes its
+    quarter-pel fraction reads (G alone for a whole-pel vector, else the
+    planes of its two components), a 16x16 int32 window each, and the two
+    8x8 int32 chroma windows; per MB the int32 reconstruction (384
+    samples) and the two int32 MV components out.  `motion`: the call's
+    (mvx, mvy)."""
+    import torch
+
+    from tpuh264_torch.kernels import pframe
+
+    lut = pframe.tables.get("qpel_lut", motion[0].device)[..., 0]  # planes
+    n_planes = 1 + (lut[:, 0] != lut[:, 1]).to(torch.int64)  # [16]
+    mvx, mvy = motion
+    reads = int(n_planes[((mvy & 3) * 4 + (mvx & 3)).long()].sum())
+    mbs = mvx.numel()
+    return 4 * 256 * reads + mbs * (2 * 4 * 64 + 24 + 768 + 1536 + 8)
+
+
+def _all_equal(k, p, torch, what) -> int:
+    """Every output tensor of a kernel equal to its plain version's (dtype
+    and values); fails unless so.  Returns the max_abs_err."""
+    torch.cuda.synchronize()
+    if len(k) != len(p) or not all(a.dtype == b.dtype and a.shape == b.shape
+                                   and torch.equal(a, b)
+                                   for a, b in zip(k, p)):
+        fail(f"{what} differs from its plain version")
+    return max(max_abs_err(a, b) for a, b in zip(k, p))
+
+
+def k9_equal(kw, torch, what) -> int:
+    """K9 (`_inter_encode`) against its plain version on one input, every
+    field and the reconstruction."""
+    from tpuh264_torch.kernels import pframe
+
+    flat = lambda o: [*o[:-1], *o.rec]
+    return _all_equal(flat(pframe._inter_encode(**kw)),
+                      flat(pframe._inter_encode_plain(**kw)), torch,
+                      f"K9 _inter_encode ({what})")
+
+
+def k10_equal(kw, torch, what) -> int:
+    """K10 (`_inter_decode`) against its plain version on one input: the
+    reconstruction and the motion."""
+    from tpuh264_torch.kernels import pframe
+
+    flat = lambda o: [*o[0], *o[1]]
+    return _all_equal(flat(pframe._inter_decode(**kw)),
+                      flat(pframe._inter_decode_plain(**kw)), torch,
+                      f"K10 _inter_decode ({what})")
+
+
+def pframe_480p_2ref(dev, torch):
+    """A 854x480 x 8 (864 wide) default-config P frame with two references:
+    the "meeting" clip at QP 30, an I frame, a P frame against it, then a
+    P frame against both (newest first), all with intra-in-P, each
+    reference deblocked.  Returns the last encode's and its decode's
+    arguments of `_inter_encode` / `_inter_decode` (dicts) and its MB
+    kinds (skip, inter, intra)."""
+    from tpuh264_torch.kernels import deblock, iframe, pframe
+
+    frames = [[torch.from_numpy(p).to(dev) for p in f]
+              for f in clip_streams(864, 480, 3, 8)]
+    _, rec = iframe.encode_iframe_rows(*frames[0], 30)
+    dpb = [[p.to(torch.int32) for p in deblock.deblock_i(rec, 30)]]
+    sym, rec, mot = pframe.encode_pframe_rows_multi(
+        *frames[1], *(p[None] for p in dpb[0]), 30, intra_in_p=True)
+    dpb.insert(0, [p.to(torch.int32)
+                   for p in deblock.deblock_p(rec, sym, mot, 30)])
+    refs = [torch.stack(p) for p in zip(*dpb)]
+    out = []
+    enc, = capture(pframe, "_inter_encode", lambda: out.append(
+        pframe.encode_pframe_rows_multi(*frames[2], *refs, 30,
+                                        intra_in_p=True)))
+    sym = out[0][0]
+    dec, = capture(pframe, "_inter_decode",
+                   lambda: pframe.decode_pframe_rows_multi(sym, *refs, 30))
+    kinds = torch.bincount(sym.kind.reshape(-1), minlength=3).tolist()
+    return enc, dec, kinds
+
+
+def p_timed(key, kw, torch, what, card):
+    """K9 or K10 equal to its plain version on `kw`, timed beside it: a
+    line, and (max_abs_err, kernel ms, plain ms, bytes)."""
+    from tpuh264_torch.kernels import pframe
+
+    if key == "K9":
+        err = k9_equal(kw, torch, what)
+        fn, plain_fn, nbytes = (pframe._inter_encode,
+                                pframe._inter_encode_plain, k9_bytes(kw))
+    else:
+        err = k10_equal(kw, torch, what)
+        fn, plain_fn, nbytes = (pframe._inter_decode,
+                                pframe._inter_decode_plain,
+                                k10_bytes(kw, pframe._inter_decode(**kw)[1]))
+    ms = timed(lambda: fn(**kw), 20)
+    plain = timed(lambda: plain_fn(**kw), 2)
+    bound = bound_ms(nbytes)
+    print(f"phase 2: {key} {what}: equal to plain (max_abs_err {err}); "
+          f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms "
+          f"(bytes, {nbytes / 1e6:.1f} MB): {100 * bound / ms:.2f}% of the "
+          f"bound [{card}]")
+    return err, ms, plain, nbytes
+
+
+def p_rows(dev, torch, np, card):
+    """K9 and K10: the rows of the kernel table on the main path's 1080p x
+    4 RTC P frame (one reference) and its decode, a line each on the
+    480p x 8 default-config P frame with two references, then the seeded
+    edge cases (`K9_CASES`, `K10_CASES`)."""
+    from tpuh264_torch.kernels import pframe
+
+    for src in ("pframe_enc.cu", "pframe_dec.cu"):
+        for ln in ptxas_lines(os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "tpuh264_torch", "csrc", src)):
+            print(f"phase 2: {src} ptxas: {ln}")
+    out = []
+    enc, = capture(pframe, "_inter_encode",
+                   lambda: out.append(pframe_1080p(dev, torch)))
+    y, u, v, sym = out[0][:4]
+    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    dec, = capture(pframe, "_inter_decode",
+                   lambda: pframe.decode_pframe_rows_multi(sym, *refs, 30))
+    del out, y, u, v, sym, refs
+    rows = []
+    for key, kw, name, source, replaces in (
+            ("K9", enc, "encode_pframe_rows_multi after stage A "
+             "(_inter_encode: refine, reference choice, MC, inter coding)",
+             "tpuh264_torch/csrc/pframe_enc.cu",
+             "tpuh264/kernels/pframe.py:638"),
+            ("K10", dec, "decode_pframe_rows_multi's inter part "
+             "(_inter_decode: MV chain, MC, inter residuals)",
+             "tpuh264_torch/csrc/pframe_dec.cu",
+             "tpuh264/kernels/pframe.py:1021")):
+        rows.append(kernel_row(key, name, source, replaces, *p_timed(
+            key, kw, torch, "1080p x 4 RTC P frame, one reference", card)))
+    del enc, dec
+    enc, dec, kinds = pframe_480p_2ref(dev, torch)
+    for key, kw in (("K9", enc), ("K10", dec)):
+        p_timed(key, kw, torch, f"854x480 x 8 default-config P frame, two "
+                f"references (MB kinds skip/inter/intra {kinds})", card)
+    del enc, dec
+    for case in K9_CASES:
+        k9_equal(k9_args(torch, k9_case(np, *case), dev), torch,
+                 f"edge case {case}")
+    for case in K10_CASES:
+        k10_equal(k10_args(torch, k10_case(np, *case), dev), torch,
+                  f"edge case {case}")
+    print(f"phase 2: K9 / K10 equal to their plain versions on "
+          f"{len(K9_CASES)} / {len(K10_CASES)} seeded edge cases")
+    return rows
+
+
 def phase_kernels(dev, torch, np, card):
     """Phase 2: K1-K6 against their plain versions at 1080p x 4 and on
     edge cases, K2/K3 and K6 (D4) on intra-in-P inputs, K4 on t8 symbols
@@ -1629,6 +2013,11 @@ def phase_kernels(dev, torch, np, card):
         print(f"phase 2: K7 / K8 ptxas: {ln}")
     for r in wave_rows(dev, torch, np, card, mhz):
         show(r, "854x480 x 8 (phase 12's frames)")
+        rows.append(r)
+    # K9 / K10 (the P-frame inter path): the 1080p x 4 P frame, 480p x 8
+    # with two references and intra-in-P, the edge cases
+    for r in p_rows(dev, torch, np, card):
+        show(r, "1080p x 4 shapes (RTC P frame, one reference)")
         rows.append(r)
     k2_edges(dev, torch, np)
     k3_edges(dev, torch, np)
@@ -2173,10 +2562,10 @@ def phase_app(dev, card, launches):
         pipe = app.pipeline
         t0 = time.perf_counter()
         time.sleep(10.0)
-        # the stats show output and drops only once the first dispatch
-        # (an IDR and 3 intra-in-P P frames, 7-10 s) has retired and the
-        # pump has dropped the frames it fell behind by (time_offset > 0)
-        while (pipe.time_offset == 0 and app.is_processing()
+        # the stats show output only once the first dispatch (an IDR and 3
+        # intra-in-P P frames) has retired; a pump that falls behind the
+        # capture clock drops frames (time_offset), one that keeps up none
+        while (pipe.stats.decoded_frames == 0 and app.is_processing()
                and time.perf_counter() - t0 < 120.0):
             time.sleep(0.1)
         box["wait_s"] = time.perf_counter() - t0
@@ -2194,8 +2583,15 @@ def phase_app(dev, card, launches):
         fail("App: stop() left the pipeline running")
     app.stop()
     frames = pipe.dispatch_index * pipe.FRAMES_PER_DISPATCH
-    if frames <= 0 or stats["dropped_capture"] <= 0:
-        fail(f"App: no frames or no capture drops: {stats}")
+    if frames <= 0 or stats["output_fps"] <= 0:
+        fail(f"App: no frames or no output: {stats}")
+    # every frame the pump skipped is counted as a capture drop: in the
+    # window the stats showed, or after it
+    dropped = (stats["dropped_capture"]
+               + pipe.stats.snapshot(8)["dropped_capture"])
+    if dropped != pipe.time_offset:
+        fail(f"App: {dropped} capture drops counted for {pipe.time_offset} "
+             f"frames skipped")
     shown = {k: (round(v, 3) if isinstance(v, float) else v)
              for k, v in stats.items()}
     print(f"phase 10: App(impl='tpu_gop') 854x480 x 8, defaults, "
@@ -2293,7 +2689,7 @@ def phase_sessions(dev, np, card, launches):
                              decode_ms=round(dec_ms, 1)))
 
     launches.path("EncoderSession + DecoderPool 480p x 8", drive,
-                  needs=(0, 3, 4, 5))
+                  needs=(0, 3, 4, 5, 8, 9))
     stay_fast([pool[i] for i in range(s)], "480p sessions")
     if len(i4) != 2 or min(i4) <= 0:
         fail(f"480p sessions: Intra_4x4 share of the IDR frames {i4}")
@@ -2497,7 +2893,7 @@ def phase_app_tpu(dev, np, card, launches):
         app.stop()
         box["pipe"] = pipe
 
-    launches.path("App tpu 480p fan-out 8", drive, needs=(0, 4, 5))
+    launches.path("App tpu 480p fan-out 8", drive, needs=(0, 4, 5, 8, 9))
     stats, pipe = box["stats"], box["pipe"]
     if app.error is not None:
         fail(f"App tpu: the pump thread failed: {app.error!r}")
@@ -2741,7 +3137,8 @@ def phase_config3(dev, np, card, launches):
         done, frames, src, "golden", harness.device_info(dev))))
     line, _ = launches.path("config 3 flagship 1080p x 4, 2 references",
                             lambda: config3.flagship_multiref(
-                                w, h, 2.0, device=dev), needs=(0, 1, 2, 3, 4))
+                                w, h, 2.0, device=dev),
+                            needs=(0, 1, 2, 3, 4, 8, 9))
     print(f"phase 15: bench.config3.flagship_multiref, 2 s, decoder DPB == "
           f"encoder DPB after it: {json.dumps(line)}")
 
@@ -2885,8 +3282,10 @@ def shard_rank(rank: int, tmp: str) -> None:
         # intra-in-P scan), its plain versions never
         k6_fns = (iframe.encode_iframe_scan, pframe._intra_in_p_scan)
         k6 = sum(f.launches for f in k6_fns)
+        k9 = pframe._inter_encode.launches  # K9 once a P frame
         p6 = [(iframe, "_encode_iframe_scan_plain"),
-              (pframe, "_intra_in_p_scan_plain")]
+              (pframe, "_intra_in_p_scan_plain"),
+              (pframe, "_inter_encode_plain")]
         p6_saved = [getattr(m, a) for m, a in p6]
         for (m, a), f in zip(p6, p6_saved):
             setattr(m, a, _plain_spy(a, f, plain6))
@@ -2908,15 +3307,20 @@ def shard_rank(rank: int, tmp: str) -> None:
         k1 = me_cuda.sad_field.launches - k1
         me_cuda._sad_field = sad
         k6 = sum(f.launches for f in k6_fns) - k6
+        k9 = pframe._inter_encode.launches - k9
         for (m, a), f in zip(p6, p6_saved):
             setattr(m, a, f)
         # each rank decodes its own P symbols against its halo-extended DPB
-        # (K5 once a frame, its plain version never)
+        # (K10 and K5 once a frame, their plain versions never)
         halo_ok, plain5 = True, []
         rplain = iframe._intra_recon_scan_plain
         iframe._intra_recon_scan_plain = _plain_spy(
             "_intra_recon_scan_plain", rplain, plain5)
+        dplain = pframe._inter_decode_plain
+        pframe._inter_decode_plain = _plain_spy(
+            "_inter_decode_plain", dplain, plain5)
         k5 = iframe._intra_recon_scan.launches
+        k10 = pframe._inter_decode.launches
         for t in range(1, n):
             ext = dm._halo_extend_yuv(*recs[t - 1], pframe.HALO_Y,
                                       pframe.HALO_C, mesh)
@@ -2924,18 +3328,21 @@ def shard_rank(rank: int, tmp: str) -> None:
                 syms[t], *(e[None] for e in ext), qp, halo=True)
             halo_ok &= all(torch.equal(a, b) for a, b in zip(dec, recs[t]))
         k5 = iframe._intra_recon_scan.launches - k5
+        k10 = pframe._inter_decode.launches - k10
         iframe._intra_recon_scan_plain = rplain
+        pframe._inter_decode_plain = dplain
         got = [([(f, dm.gather(mesh, x)) for f, x in _sym_fields(syms[t])],
                 [dm.gather(mesh, x) for x in recs[t]],
                 [dm.gather(mesh, x) for x in mots[t - 1]] if t else [])
                for t in range(n)]
-        ok = (halo_ok and k1 == k5 == n - 1 and k6 == n and not plain
-              and not plain5 and not plain6)
+        ok = (halo_ok and k1 == k5 == k9 == k10 == n - 1 and k6 == n
+              and not plain and not plain5 and not plain6)
         result = dict(rank=rank, band=[mesh.stream_index, mesh.row_index],
                       shape=list(recs[0][0].shape), k1_launches=k1,
                       plain_k1_calls=len(plain), k5_launches=k5,
                       plain_k5_calls=len(plain5), k6_launches=k6,
-                      plain_k6_calls=len(plain6), i_ms=round(i_ms, 1),
+                      plain_k6_calls=len(plain6), k9_launches=k9,
+                      k10_launches=k10, i_ms=round(i_ms, 1),
                       p_step_ms=p_ms, halo_decode_equal=bool(halo_ok))
         if rank == 0:
             # the unsharded encode of the same frames on the same device
@@ -2994,11 +3401,13 @@ def nccl_rank(tmp: str, device: str) -> None:
             for t in range(3)]
         i_fn, p_fn = dm.sharded_gop_step(mesh, fused_halo=False)
         k1 = me_cuda.sad_field.launches
+        k9 = pframe._inter_encode.launches
         _, rec = i_fn(*dm.shard_inputs(mesh, *frames[0]), SHARD_QP)
         for t in (1, 2):
             sym, rec, _ = p_fn(*dm.shard_inputs(mesh, *frames[t]), *rec,
                                SHARD_QP)
         k1 = me_cuda.sad_field.launches - k1
+        k9 = pframe._inter_encode.launches - k9
         got = [dm.gather(mesh, x) for x in rec] + [
             dm.gather(mesh, x) for _, x in _sym_fields(sym)]
         up = lambda t: [torch.from_numpy(a).to(dev) for a in frames[t]]
@@ -3010,7 +3419,8 @@ def nccl_rank(tmp: str, device: str) -> None:
         ok = all(torch.equal(a, b) for a, b in zip(got, exp))
         print("NCCL_RESULT " + json.dumps(dict(
             backend=dist.get_backend(), shape=list(rec[0].shape),
-            equal_unsharded=ok, k1_launches=k1)), flush=True)
+            equal_unsharded=ok, k1_launches=k1, k9_launches=k9)),
+            flush=True)
     finally:
         dist.destroy_process_group()
     if not ok:
@@ -3119,15 +3529,18 @@ def phase_dist(dev, np, card, launches):
         k1 = sum(r["k1_launches"] for r in ranks)
         k5 = sum(r["k5_launches"] for r in ranks)
         k6 = sum(r["k6_launches"] for r in ranks)
-        if (k1 != world * (n_frames - 1) or k5 != k1
-                or k6 != world * n_frames
+        k9 = sum(r["k9_launches"] for r in ranks)
+        k10 = sum(r["k10_launches"] for r in ranks)
+        if (k1 != world * (n_frames - 1) or k5 != k1 or k9 != k1
+                or k10 != k1 or k6 != world * n_frames
                 or any(r["plain_k1_calls"] or r["plain_k5_calls"]
                        or r["plain_k6_calls"] for r in ranks)):
-            fail(f"phase 16(a): K1 launched {k1} times, K5 {k5} (expected "
-                 f"{world * (n_frames - 1)} each), K6 {k6} (expected "
+            fail(f"phase 16(a): K1 launched {k1} times, K5 {k5}, K9 {k9}, "
+                 f"K10 {k10} (expected {world * (n_frames - 1)} each), K6 "
+                 f"{k6} (expected "
                  f"{world * n_frames}); plain K1 "
-                 f"{[r['plain_k1_calls'] for r in ranks]}, plain K5 "
-                 f"{[r['plain_k5_calls'] for r in ranks]}, plain K6 "
+                 f"{[r['plain_k1_calls'] for r in ranks]}, plain K5 / K10 "
+                 f"{[r['plain_k5_calls'] for r in ranks]}, plain K6 / K9 "
                  f"{[r['plain_k6_calls'] for r in ranks]}")
         r0 = ranks[0]
         for r in ranks:
@@ -3135,7 +3548,8 @@ def phase_dist(dev, np, card, launches):
                   f"{r['shape']}: I {r['i_ms']} ms, P steps {r['p_step_ms']}"
                   f" ms (fenced, halo exchange included), halo decode == "
                   f"band {r['halo_decode_equal']}, K1 {r['k1_launches']}, "
-                  f"K5 {r['k5_launches']}, K6 {r['k6_launches']} [{card}]")
+                  f"K5 {r['k5_launches']}, K6 {r['k6_launches']}, K9 "
+                  f"{r['k9_launches']}, K10 {r['k10_launches']} [{card}]")
         print(f"phase 16(a): BASELINE config 5 cut to one card: "
               f"{SHARD_STREAMS} x {SHARD_W}x{SHARD_H} 'rigid', I + "
               f"{n_frames - 1} P at QP {SHARD_QP} (GOP depth cut to "
@@ -3178,9 +3592,9 @@ def phase_dist(dev, np, card, launches):
                 subprocess.TimeoutExpired) as e:
             fail(f"phase 16(b): {e}")
     for r in sp_res:
-        if not r["bitexact"] or r["k1_launches"] != 2:
+        if not r["bitexact"] or (r["k1_launches"], r["k9_launches"]) != (2, 2):
             fail(f"phase 16(b): multihost worker {r}")
-    if mh_line["k1_launches"] != [2] * 4:
+    if mh_line["k1_launches"] != [2] * 4 or mh_line["k9_launches"] != [2] * 4:
         fail(f"phase 16(b): bench.multihost {mh_line}")
     print(f"phase 16(b): bench.multihost.measure, mesh 1x2 over 2 gloo "
           f"processes on the card, 832x480, one host then two hosts with "
@@ -3192,7 +3606,7 @@ def phase_dist(dev, np, card, launches):
           f"bitexact in both; P step "
           f"{[round(r['p_step_ms'], 1) for r in sp_res]} ms [{card}]")
     if (not nccl_res["equal_unsharded"] or nccl_res["backend"] != "nccl"
-            or nccl_res["k1_launches"] != 2):
+            or nccl_res["k1_launches"] != 2 or nccl_res["k9_launches"] != 2):
         fail(f"phase 16(c): {nccl_res}")
     print(f"phase 16(c): a 1-rank NCCL group, mesh 1x1, sharded_gop_step "
           f"854x480 x 8 ({nccl_res['shape']}), I + 2 P: == the unsharded "
@@ -3202,6 +3616,10 @@ def phase_dist(dev, np, card, launches):
                           + nccl_res["k1_launches"])
     launches.total[4] += k5
     launches.total[5] += k6
+    launches.total[8] += (k9 + sum(r["k9_launches"] for r in sp_res)
+                          + sum(mh_line["k9_launches"])
+                          + nccl_res["k9_launches"])
+    launches.total[9] += k10
     phase_bench(dev, card, launches)
     print(f"phase 16: wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
@@ -3336,7 +3754,9 @@ def main() -> None:
           f"K2 {launches.total[1]}, K3 {launches.total[2]}, K4 (deblock) "
           f"{launches.total[3]}, K5 (intra recon) {launches.total[4]}, K6 "
           f"(intra16 encode) {launches.total[5]}, K7 (wavefront encode) "
-          f"{launches.total[6]}, K8 (wavefront decode) {launches.total[7]}")
+          f"{launches.total[6]}, K8 (wavefront decode) {launches.total[7]}, "
+          f"K9 (P encode) {launches.total[8]}, K10 (P decode) "
+          f"{launches.total[9]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

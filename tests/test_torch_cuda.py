@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1, K2, K3, the deblock D1, the intra
 reconstruction D2, the Intra_16x16 encode scans D3 / D4, the single-slice
-wavefront's encode K7 and decode K8) against their plain PyTorch
-versions, on the card, plus the wrappers' no-fallback rule.
+wavefront's encode K7 and decode K8, the P encode after stage A K9 and
+the P decode's inter part K10) against their plain PyTorch versions, on
+the card, plus the wrappers' no-fallback rule.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed.  On a machine with a card and nvcc:
@@ -30,7 +31,8 @@ def _launches():
     return (me_cuda.sad_field.launches, cavlc_cuda.pack_blocks.launches,
             cavlc_cuda.merge_tree.launches, DB.deblock_frame_rows.launches,
             IF._intra_recon_scan.launches, IF.encode_iframe_scan.launches,
-            TP._intra_in_p_scan.launches)
+            TP._intra_in_p_scan.launches, TP._inter_encode.launches,
+            TP._inter_decode.launches)
 
 
 @pytest.fixture
@@ -869,3 +871,131 @@ def test_gate_small_on_card(dev):
     b = gate.run_gate_extended(device=dev, workers=2, verbose=False)
     assert (a["compared"], b["compared"]) == (2, 16)
     assert all(n > m for n, m in zip(_launches(), before))
+
+
+def _flat_enc(o):
+    return [*o[:-1], *o.rec]
+
+
+def _p_both(kw, enc: bool):
+    """K9 (enc) or K10 and its plain version on one input: one launch,
+    every output equal (dtype and values)."""
+    fn = TP._inter_encode if enc else TP._inter_decode
+    plain = TP._inter_encode_plain if enc else TP._inter_decode_plain
+    flat = _flat_enc if enc else (lambda o: [*o[0], *o[1]])
+    before = fn.launches
+    got, want = flat(fn(**kw)), flat(plain(**kw))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.K9_CASES, ids=str)
+def test_pframe_encode_kernel_matches_plain_cases(dev, case):
+    _p_both(chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), dev),
+            True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.K10_CASES, ids=str)
+def test_pframe_decode_kernel_matches_plain_cases(dev, case):
+    _p_both(chip_smoke.k10_args(torch, chip_smoke.k10_case(np, *case), dev),
+            False)
+
+
+@pytest.mark.cuda
+def test_pframe_kernels_match_plain_1080p(dev):
+    """The 1080p x 4 RTC P frame: its encode makes one K9 launch and its
+    decode one K10 launch, neither calls a plain version, and each
+    kernel equals its plain version on the captured inputs."""
+    out, plain = [], []
+    enc, = chip_smoke.capture(TP, "_inter_encode", lambda: out.append(
+        chip_smoke.pframe_1080p(dev, torch)))
+    y, u, v, sym, rec, mot = out[0]
+    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    real = (TP._inter_encode_plain, TP._inter_decode_plain)
+    TP._inter_encode_plain = TP._inter_decode_plain = (
+        lambda *a, **k: plain.append(1))
+    try:
+        dec, = chip_smoke.capture(TP, "_inter_decode", lambda: out.append(
+            TP.decode_pframe_rows_multi(sym, *refs, 30)))
+    finally:
+        TP._inter_encode_plain, TP._inter_decode_plain = real
+    assert not plain
+    for a, b in zip((*out[1][0], *out[1][1]), (*rec, *mot)):
+        assert torch.equal(a, b)
+    _p_both(enc, True)
+    _p_both(dec, False)
+
+
+@pytest.mark.cuda
+def test_pframe_wrappers_check_inputs_on_card(dev):
+    """A bad dtype or shape raises before any launch."""
+    kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(
+        np, *chip_smoke.K9_CASES[17]), dev)
+    dkw = chip_smoke.k10_args(torch, chip_smoke.k10_case(
+        np, *chip_smoke.K10_CASES[9]), dev)
+    before = (TP._inter_encode.launches, TP._inter_decode.launches)
+    with pytest.raises(TypeError):
+        TP._inter_encode(**{**kw, "iy0": kw["iy0"].long()})
+    with pytest.raises(ValueError):
+        TP._inter_encode(**{**kw, "gx": kw["gx"][:, :1]})
+    with pytest.raises(ValueError):
+        TP._inter_encode(**{**kw, "planes_l": [p[:, :, 1:] for p in
+                                               kw["planes_l"]]})
+    with pytest.raises(ValueError):
+        TP._inter_decode(**{**dkw, "refs_up": dkw["refs_up"][:0]})
+    with pytest.raises(TypeError):
+        TP._inter_decode(**{**dkw, "planes_l": [p.float() for p in
+                                                dkw["planes_l"]]})
+    assert (TP._inter_encode.launches, TP._inter_decode.launches) == before
+
+
+@pytest.mark.cuda
+def test_pframe_raises_without_fallback(dev, monkeypatch):
+    """A kernel library that cannot be built, or an entry that reports a
+    CUDA error at launch, raises: the plain versions are never taken;
+    with t8 both take them by argument (the CABAC + 8x8 route)."""
+    kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(
+        np, *chip_smoke.K9_CASES[20]), dev)
+    dkw = chip_smoke.k10_args(torch, chip_smoke.k10_case(
+        np, *chip_smoke.K10_CASES[12]), dev)
+    lib = cuda_lib.load()
+    plain = []
+    monkeypatch.setattr(TP, "_inter_encode_plain",
+                        lambda *a, **k: plain.append(1))
+    monkeypatch.setattr(TP, "_inter_decode_plain",
+                        lambda *a, **k: plain.append(1))
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_lib, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        TP._inter_encode(**kw)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        TP._inter_decode(**dkw)
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def th264_pframe_encode(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+        @staticmethod
+        def th264_pframe_decode(*args):
+            return 9
+
+    monkeypatch.setattr(cuda_lib, "load", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="th264_pframe_encode"):
+        TP._inter_encode(**kw)
+    with pytest.raises(RuntimeError, match="th264_pframe_decode"):
+        TP._inter_decode(**dkw)
+    assert not plain
+    TP._inter_encode(**{**kw, "t8": True})
+    TP._inter_decode(**{**dkw, "t8": True})
+    assert plain == [1, 1]

@@ -144,6 +144,7 @@ def measure(mesh: Tuple[int, int] = (4, 2), reps: int = 30,
         "p_step_ms_2host": round(t2, 2),
         "efficiency": round(t1 / t2, 3),
         "k1_launches": [r["k1_launches"] for r in one + two],
+        "k9_launches": [r["k9_launches"] for r in one + two],
         "device": dev,
     }
 

@@ -142,6 +142,7 @@ def _gop(num_processes, process_id, rows_across_hosts, width, height, qp,
     seq = [batch(t) for t in range(1, 3)]
 
     k1 = me_cuda.sad_field.launches
+    k9 = pframe._inter_encode.launches
     sym_i, recon = i_fn(*(place_global(mesh, a) for a in (y0, u0, v0)), qp)
     recs = [recon]
     for planes in seq:
@@ -149,6 +150,7 @@ def _gop(num_processes, process_id, rows_across_hosts, width, height, qp,
                            *recs[-1], qp)
         recs.append(recon)
     k1 = me_cuda.sad_field.launches - k1
+    k9 = pframe._inter_encode.launches - k9
 
     # gather the final reconstruction to every process and compare with
     # the local unsharded encode (bit-exact across the halo)
@@ -174,6 +176,7 @@ def _gop(num_processes, process_id, rows_across_hosts, width, height, qp,
         "device_kind": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
         "k1_launches": k1,
+        "k9_launches": k9,
     }
 
     if bench_reps:

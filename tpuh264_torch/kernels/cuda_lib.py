@@ -123,11 +123,15 @@ def load() -> ctypes.CDLL:
             [p] * 3 + [i] + [p] * 12 + [i] * 5 + [p])
         lib.th264_wavefront_decode.argtypes = [p] * 11 + [i] * 5 + [p]
         lib.th264_wavefront_plan.argtypes = [i, i, p]
+        # K9 / K10: a host array of device pointers, one of ints, the stream
+        lib.th264_pframe_encode.argtypes = [p, p, p]
+        lib.th264_pframe_decode.argtypes = [p, p, p]
         for fn in (lib.th264_sad_field, lib.th264_pack_blocks,
                    lib.th264_merge_tree, lib.th264_deblock_rows,
                    lib.th264_intra_recon_rows, lib.th264_intra16_encode_rows,
                    lib.th264_intra16_in_p_rows, lib.th264_wavefront_encode,
-                   lib.th264_wavefront_decode, lib.th264_wavefront_plan):
+                   lib.th264_wavefront_decode, lib.th264_wavefront_plan,
+                   lib.th264_pframe_encode, lib.th264_pframe_decode):
             fn.restype = ctypes.c_int
         lib.th264_cuda_error_string.argtypes = [ctypes.c_int]
         lib.th264_cuda_error_string.restype = ctypes.c_char_p

@@ -4,39 +4,46 @@ Port of tpuh264/kernels/pframe.py: `encode_pframe_rows_multi` (1..4
 references; `intra_in_p` True or False; `t8` True or False; `halo`) and
 `decode_pframe_rows_multi`.  Decisions are bit-identical to the JAX
 version (tests/test_torch_pframe.py, tests/test_torch_intra_in_p.py,
-tests/test_torch_t8.py, tests/test_torch_halo.py):
+tests/test_torch_t8.py, tests/test_torch_halo.py,
+tests/test_torch_pframe_kernel.py):
 
-  1. stage A: the exact SAD table over the +-8 grid on the stride-2
-     subsample -- K1, `me_cuda.sad_field` (CUDA kernel on the card, its
-     plain version on the CPU) -- then the two-phase rate-biased winner
-     with a per-stream global vector (with a process `group`, the
-     winner counts are summed over it first: a row-sharded band takes
-     the frame's vector, dist/mesh.py);
-  2. stage B: a 3x3 full-resolution refine around the winner;
-  3. stages C/D: all 49 reachable quarter-pel positions as static
-     slices of an 18x18 four-plane window, then the normative
-     half -> quarter selection;
-  4. motion compensation, transforms, quant and reconstruction batched
-     over [S, R, C];
-  5. with `t8`, the 8x8 transform of every inter MB beside the 4x4 one:
-     the lower J = 8*SSD + lambda8*rate wins (`_t8_choice`), and P_Skip,
-     the symbols and the recon follow the chosen transform;
-  6. with `intra_in_p`, the column scan (the JAX column `lax.scan`,
+  1. stage A, per reference: the exact SAD table over the +-8 grid on
+     the stride-2 subsample -- K1, `me_cuda.sad_field` (CUDA kernel on
+     the card, its plain version on the CPU) -- then the two-phase
+     rate-biased winner with a per-stream global vector (with a process
+     `group`, the winner counts are summed over it first: a row-sharded
+     band takes the frame's vector, dist/mesh.py);
+  2. then over all references at once, `_inter_encode`: K9 on the card
+     (csrc/pframe_enc.cu), its plain version `_inter_encode_plain` for
+     CPU tensors and for `t8`:
+     a. stage B: a 3x3 full-resolution refine around the winner;
+     b. stages C/D: all 49 reachable quarter-pel positions of an 18x18
+        four-plane window, then the normative half -> quarter selection;
+     c. the reference choice, motion compensation, transforms, quant,
+        reconstruction and P_Skip;
+     d. with `t8`, the 8x8 transform of every inter MB beside the 4x4
+        one: the lower J = 8*SSD + lambda8*rate wins (`_t8_choice`), and
+        P_Skip, the symbols and the recon follow the chosen transform;
+  3. with `intra_in_p`, the column scan (the JAX column `lax.scan`,
      D4) tries Intra_16x16 against each MB's left reconstruction:
      `_intra_in_p_scan`, K6 on the card (csrc/intra16_enc.cu, the I
      encode's kernel), its plain version `_intra_in_p_scan_plain` (a
      Python loop over the MB columns) for CPU tensors.
 
-Per-MB windows and the motion-compensated predictions are gathers from
-the padded planes at per-MB origins (the JAX version's masked sums over
-static shifts were a TPU workaround).  Ties keep the first candidate in
-raster order everywhere (`_argmin_first`), on every backend.
+In the plain versions, per-MB windows and the motion-compensated
+predictions are gathers from the padded planes at per-MB origins (the
+JAX version's masked sums over static shifts were a TPU workaround).
+Ties keep the first candidate in raster order everywhere
+(`_argmin_first`), on every backend.
 
-The decoder resolves the MV chain mv_c = g_c * (mv_{c-1} + mvd_c) with a
-cumulative sum and a running reset index (the JAX associative_scan),
-reconstructs inter MBs batched, and runs the left-neighbour intra
-prediction of intra MBs as a Python loop over MB columns (GOP-start
-dispatches decode the I frame as all-intra P records).
+The decoder's inter part, `_inter_decode` (K10 on the card,
+csrc/pframe_dec.cu; `_inter_decode_plain` for CPU tensors and `t8`),
+resolves the MV chain mv_c = g_c * (mv_{c-1} + mvd_c) (the plain
+version with a cumulative sum and a running reset index, the JAX
+associative_scan) and reconstructs every MB as inter; then the
+left-neighbour intra prediction of intra MBs runs as a column scan (K5,
+`_intra_recon_scan`; GOP-start dispatches decode the I frame as
+all-intra P records).
 
 With `halo=True` the references arrive vertically pre-extended by
 HALO_Y / HALO_C rows per side: the neighbour bands' rows a row-sharded
@@ -47,6 +54,7 @@ result equals the rows of the unsharded encode.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -64,7 +72,7 @@ from ..golden.inter import (
     ref_idx_bits,
 )
 from ..dist.collectives import all_reduce
-from . import me_cuda, tables
+from . import cuda_lib, me_cuda, tables
 from . import transform as T
 from . import transform8 as T8
 from .iframe import (
@@ -583,44 +591,161 @@ def _intra_in_p_scan_plain(src_mbs, u_mbs, v_mbs, inter_sad, rec_inter,
     return use_intra, intra, rec
 
 
-def encode_pframe_rows_multi(
-    y, u, v, refs_y, refs_u, refs_v, qp: int, ref_base: int = 0,
-    halo: bool = False, t8: bool = False, intra_in_p: bool = True,
-    group=None,
-) -> Tuple[MBSymbolsP, Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
-    """Encode P frames [S, H, W] against a DPB refs_* [N, S, H, W]
-    (newest first).  Per MB every reference is searched; the lowest
-    rate-biased cost wins, ties to the smaller index.  With `t8` each
-    inter MB also tries the 8x8 transform (`_t8_choice`).  With
-    `intra_in_p` each MB also tries Intra_16x16 (`_intra_in_p_scan`);
-    without it (the RTC preset) the frame stays batched.  Returns
-    (symbols, uint8 recon planes, (mvx, mvy) with zero motion for intra
-    MBs).  With `halo` the references arrive vertically pre-extended by
-    (HALO_Y, HALO_C) rows per side (a row-sharded DPB, dist/mesh.py), and
-    `group` is the process group of the row bands (see `_int_winner`):
-    the band's result is bit-identical to its rows of the unsharded
-    encode."""
+class InterEnc(NamedTuple):
+    """What the P encode's inter part (`_inter_encode`, K9) returns per MB
+    [S, R, C]: the chosen motion, reference and SAD, the symbols of the
+    inter coding, and its reconstruction."""
+
+    mvx: torch.Tensor         # int32 quarter-pel
+    mvy: torch.Tensor
+    refsel: torch.Tensor      # int32 reference index among the N
+    sad: torch.Tensor         # int32 luma SAD of the chosen prediction
+    kind: torch.Tensor        # int32 KIND_SKIP / KIND_INTER
+    refidx: torch.Tensor      # int32 0 for a skip, else refsel + ref_base
+    cbp_luma: torch.Tensor    # int32 4-bit
+    cbp_chroma: torch.Tensor  # int32 0..2
+    luma_ac: torch.Tensor     # [S,R,C,16,16] int16 zigzag, blocks raster
+    chroma_dc: torch.Tensor   # [S,R,C,2,4] int16
+    chroma_ac: torch.Tensor   # [S,R,C,2,4,15] int16
+    t8: torch.Tensor          # int32 1 where the 8x8 transform was chosen
+    rec: Tuple[torch.Tensor, ...]  # int32 MBs (intra_in_p) or uint8 planes
+
+
+def _inter_encode(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
+                  qp: int, ref_base: int, t8: bool, intra_in_p: bool
+                  ) -> InterEnc:
+    """The P encode after stage A, over every reference at once: from the
+    stage-A winners iy0, ix0 [N, S, R, C] and global vectors gy, gx [N, S]
+    (int32), the source y32 [S, H, W] int32, u, v and the references'
+    planes (`_references`), stages B-D per reference, the reference
+    choice, MC, the inter transforms, the reconstruction (int32 MBs with
+    `intra_in_p`, for the intra-in-P scan; else uint8 planes) and P_Skip.
+
+    CPU tensors, and every call with `t8` (the 8x8 transform's choice,
+    the CABAC + 8x8 session path), take the plain version; CUDA tensors
+    without `t8` launch K9 (csrc/pframe_enc.cu) or raise."""
+    if y32.device.type == "cpu" or t8:
+        return _inter_encode_plain(y32, u, v, planes_l, refs_up, refs_vp,
+                                   iy0, ix0, gy, gx, qp, ref_base, t8,
+                                   intra_in_p)
+    out = _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy,
+                     gx, qp, ref_base, intra_in_p)
+    _inter_encode.launches += 1
+    return out
+
+
+_inter_encode.launches = 0  # launches of K9
+
+
+def _pointers(tensors):
+    """A ctypes array of the tensors' device pointers (a kernel entry's
+    `p`)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _ints(values):
+    return (ctypes.c_int * len(values))(*[int(x) for x in values])
+
+
+def _ref_planes(planes_l, refs_up, refs_vp):
+    """The references' planes as a kernel entry lists them: four of each
+    kind, the unused ones repeating reference 0's."""
+    fill = lambda x: list(x) + [x[0]] * (4 - len(x))
+    return fill(planes_l) + fill(refs_up) + fill(refs_vp)
+
+
+def _check_refs(name, dev, planes_l, refs_up, refs_vp, s, h: int, w: int):
+    """Raise unless there are one to four references whose planes have the
+    geometry `_references` gives (pads _PE and _CP) for [s, h, w]
+    frames."""
+    n = len(planes_l)
+    if not 1 <= n <= 4 or len(refs_up) != n or len(refs_vp) != n:
+        raise ValueError(f"{name}: 1 to 4 references, got {n}")
+    cuda_lib.check_inputs(name, dev, [
+        *[(p, (4, s, h + 2 * _PE, w + 2 * _PE)) for p in planes_l],
+        *[(p, (s, h // 2 + 2 * _CP, w // 2 + 2 * _CP))
+          for p in (*refs_up, *refs_vp)]])
+
+
+def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
+                 qp: int, ref_base: int, intra_in_p: bool):
+    """K9's operands in its entry's order (csrc/pframe_enc.cu `enc_args`):
+    (input tensors, output tensors, ints); the outputs freshly allocated
+    on the inputs' device."""
+    s, h, w = y32.shape
+    r, c = h // 16, w // 16
+    n = len(planes_l)
+    dev = y32.device
+    mb = (s, r, c)
+    i32 = lambda *sh: torch.empty(sh, dtype=I32, device=dev)
+    lev = lambda *sh: torch.empty((*mb, *sh), dtype=torch.int16, device=dev)
+    outs = [i32(*mb) for _ in range(8)] + [lev(16, 16), lev(2, 4),
+                                           lev(2, 4, 15)]
+    if intra_in_p:
+        outs += [i32(*mb, 16, 16), i32(*mb, 8, 8), i32(*mb, 8, 8)]
+    else:
+        outs += [torch.empty(sh, dtype=torch.uint8, device=dev) for sh in
+                 ((s, h, w), (s, h // 2, w // 2), (s, h // 2, w // 2))]
+    lam = int(LAMBDA_ME[min(max(qp, 0), 51)])
+    ref_cost = [lam * ref_idx_bits(k + ref_base, ref_base + n)
+                for k in range(n)] + [0] * (4 - n)
+    ins = [y32, u.to(I32).contiguous(), v.to(I32).contiguous(), iy0, ix0,
+           gy, gx, *_ref_planes(planes_l, refs_up, refs_vp)]
+    ints = [s, r, c, n, h + 2 * _PE, w + 2 * _PE, h // 2 + 2 * _CP,
+            w // 2 + 2 * _CP, _PE, _CP, qp, T.chroma_qp_from_luma(qp), lam,
+            ref_base, int(intra_in_p), *ref_cost]
+    return ins, outs, ints
+
+
+def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
+               qp: int, ref_base: int, intra_in_p: bool) -> InterEnc:
+    """One launch of K9 (see `_inter_encode`); raises on a bad input or a
+    failed build or launch."""
+    name = "encode_pframe_rows_multi"
+    s, h, w = y32.shape
+    r, c = h // 16, w // 16
+    if not s * r * c or h % 16 or w % 16:
+        raise ValueError(f"{name}: frames {tuple(y32.shape)} hold no whole MB")
+    if not 0 <= qp <= 51:
+        raise ValueError(f"{name}: QP {qp} outside 0..51")
+    dev = y32.device
+    _check_refs(name, dev, planes_l, refs_up, refs_vp, s, h, w)
+    ins, outs, ints = _k9_operands(y32, u, v, planes_l, refs_up, refs_vp,
+                                   iy0, ix0, gy, gx, qp, ref_base,
+                                   intra_in_p)
+    n, mb = len(planes_l), (s, r, c)
+    cuda_lib.check_inputs(name, dev, [
+        (y32, (s, h, w)), (ins[1], (s, h // 2, w // 2)),
+        (ins[2], (s, h // 2, w // 2)), (iy0, (n, *mb)), (ix0, (n, *mb)),
+        (gy, (n, s)), (gx, (n, s))])
+    err = cuda_lib.load().th264_pframe_encode(
+        _pointers(ins + outs), _ints(ints), cuda_lib.stream(dev))
+    cuda_lib.check(err, "th264_pframe_encode")
+    return InterEnc(*outs[:11], torch.zeros_like(outs[0]), tuple(outs[11:]))
+
+
+def _inter_encode_plain(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0,
+                        gy, gx, qp: int, ref_base: int, t8: bool,
+                        intra_in_p: bool) -> InterEnc:
+    """Plain version of `_inter_encode` (same arguments): per reference
+    the batched stages B-D, the choice among the references, then MC,
+    the transforms (with `t8`, the 8x8 choice) and P_Skip batched over
+    [S, R, C]."""
     qpc = T.chroma_qp_from_luma(qp)
-    n_refs = refs_y.shape[0]
-    s, h, w = y.shape
+    n_refs = len(planes_l)
+    s, h, w = y32.shape
     r, c = h // 16, w // 16
     lam = int(LAMBDA_ME[min(max(qp, 0), 51)])
-    planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v, halo)
-
-    y32 = y.to(I32).contiguous()
     src_mbs = _plane_to_mbs(y32, 16)
     u_mbs = _plane_to_mbs(u.to(I32), 8)
     v_mbs = _plane_to_mbs(v.to(I32), 8)
 
-    # ---- motion search per reference, batched over all MBs ----
     mvx = mvy = inter_sad = inter_cost = refsel = None
     for n in range(n_refs):
-        sads = me_cuda.sad_field(y32, planes_l[n][0])
-        iy0, ix0, gy, gx = _int_winner(sads, lam, group)
-        del sads
-        gqx = (4 * gx)[:, None, None]
-        gqy = (4 * gy)[:, None, None]
-        iy, ix = _int_refine(planes_l[n][0], src_mbs, iy0, ix0, lam, gqx, gqy)
+        gqx = (4 * gx[n])[:, None, None]
+        gqy = (4 * gy[n])[:, None, None]
+        iy, ix = _int_refine(planes_l[n][0], src_mbs, iy0[n], ix0[n], lam,
+                             gqx, gqy)
         w2 = _extract_w2(planes_l[n], iy, ix)
         mvx_n, mvy_n, sad_n, cost_n = _subpel_refine(w2, src_mbs, iy, ix,
                                                      lam, gqx, gqy)
@@ -659,25 +784,73 @@ def encode_pframe_rows_multi(
     cdc = torch.stack([dcu.reshape(s, r, c, 4), dcv.reshape(s, r, c, 4)], -2)
     cac = torch.stack([acu.reshape(s, r, c, 4, 15),
                        acv.reshape(s, r, c, 4, 15)], -3)
-    zero = torch.zeros_like(mvx)
-    fields = dict(kind=torch.where(skip, KIND_SKIP, KIND_INTER), mode=zero,
-                  cmode=zero, cbp_luma=cbp_l, cbp_chroma=cbp_c,
-                  luma_dc=torch.zeros((s, r, c, 16), dtype=I32,
-                                      device=y.device),
-                  luma_ac=l_zz, chroma_dc=cdc, chroma_ac=cac,
-                  refidx=torch.where(skip, 0, refsel + ref_base),
-                  t8=torch.where(skip, 0, use_t8.to(I32)))
     rec = (rec_y, rec_u, rec_v)
+    if not intra_in_p:
+        rec = tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
+    i16 = torch.int16
+    return InterEnc(
+        mvx.to(I32), mvy.to(I32), refsel.to(I32), inter_sad.to(I32),
+        torch.where(skip, KIND_SKIP, KIND_INTER).to(I32),
+        torch.where(skip, 0, refsel + ref_base).to(I32), cbp_l.to(I32),
+        cbp_c.to(I32), l_zz.reshape(s, r, c, 16, 16).to(i16), cdc.to(i16),
+        cac.to(i16), torch.where(skip, 0, use_t8.to(I32)).to(I32), rec)
+
+
+def encode_pframe_rows_multi(
+    y, u, v, refs_y, refs_u, refs_v, qp: int, ref_base: int = 0,
+    halo: bool = False, t8: bool = False, intra_in_p: bool = True,
+    group=None,
+) -> Tuple[MBSymbolsP, Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """Encode P frames [S, H, W] against a DPB refs_* [N, S, H, W]
+    (newest first).  Per MB every reference is searched; the lowest
+    rate-biased cost wins, ties to the smaller index.  With `t8` each
+    inter MB also tries the 8x8 transform (`_t8_choice`).  With
+    `intra_in_p` each MB also tries Intra_16x16 (`_intra_in_p_scan`);
+    without it (the RTC preset) the frame stays batched.  Returns
+    (symbols, uint8 recon planes, (mvx, mvy) with zero motion for intra
+    MBs).  With `halo` the references arrive vertically pre-extended by
+    (HALO_Y, HALO_C) rows per side (a row-sharded DPB, dist/mesh.py), and
+    `group` is the process group of the row bands (see `_int_winner`):
+    the band's result is bit-identical to its rows of the unsharded
+    encode.
+
+    Stage A (K1 and `_int_winner`) runs for every reference first, then
+    the rest at once (`_inter_encode`: K9 on the card without `t8`)."""
+    qpc = T.chroma_qp_from_luma(qp)
+    n_refs = refs_y.shape[0]
+    s, h, w = y.shape
+    r, c = h // 16, w // 16
+    lam = int(LAMBDA_ME[min(max(qp, 0), 51)])
+    planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v, halo)
+    y32 = y.to(I32).contiguous()
+
+    # ---- stage A per reference, batched over all MBs ----
+    iy0, ix0, gy, gx = (torch.stack(f) for f in zip(*[
+        _int_winner(me_cuda.sad_field(y32, planes_l[n][0]), lam, group)
+        for n in range(n_refs)]))
+    o = _inter_encode(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy,
+                      gx, qp, ref_base, t8, intra_in_p)
+
+    zero = torch.zeros_like(o.mvx)
+    fields = dict(kind=o.kind, mode=zero, cmode=zero, cbp_luma=o.cbp_luma,
+                  cbp_chroma=o.cbp_chroma,
+                  luma_dc=torch.zeros((s, r, c, 16), dtype=torch.int16,
+                                      device=y.device),
+                  luma_ac=o.luma_ac, chroma_dc=o.chroma_dc,
+                  chroma_ac=o.chroma_ac, refidx=o.refidx, t8=o.t8)
+    mvx, mvy, rec = o.mvx, o.mvy, o.rec
     if intra_in_p:
-        use, intra, rec = _intra_in_p_scan(src_mbs, u_mbs, v_mbs, inter_sad,
-                                           rec, qp, qpc)
+        use, intra, rec = _intra_in_p_scan(
+            _plane_to_mbs(y32, 16), _plane_to_mbs(u.to(I32), 8),
+            _plane_to_mbs(v.to(I32), 8), o.sad, rec, qp, qpc)
         sel = {0: use}
         for d in range(1, 4):
             sel[d] = sel[d - 1][..., None]
         for name, val in (("mode", intra.mode), ("cmode", intra.cmode),
                           ("cbp_luma", intra.cbp_luma),
                           ("cbp_chroma", intra.cbp_chroma),
-                          ("luma_dc", intra.dc_zz), ("luma_ac", intra.ac_zz),
+                          ("luma_dc", intra.dc_zz),
+                          ("luma_ac", intra.ac_zz.reshape(s, r, c, 16, 16)),
                           ("chroma_dc", intra.chroma_dc),
                           ("chroma_ac", intra.chroma_ac),
                           ("kind", KIND_INTRA), ("refidx", 0),
@@ -686,6 +859,7 @@ def encode_pframe_rows_multi(
             fields[name] = torch.where(sel[old.dim() - 3], val, old)
         mvx = torch.where(use, 0, mvx)
         mvy = torch.where(use, 0, mvy)
+        rec = tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
     # the MV predictor is the left MB's MV (row-slice 8.4.1.3 form; zero
     # left of column 0 and for an intra left MB): a shift of the batched
     # MV field, so the symbols assemble without a column scan
@@ -701,14 +875,13 @@ def encode_pframe_rows_multi(
         mvdx=torch.where(is_intra, 0, mvx - pmvx).to(I32),
         mvdy=torch.where(is_intra, 0, mvy - pmvy).to(I32),
         luma_dc=fields["luma_dc"].to(i16),
-        luma_ac=fields["luma_ac"].reshape(s, r, c, 16, 16).to(i16),
+        luma_ac=fields["luma_ac"].to(i16),
         chroma_dc=fields["chroma_dc"].to(i16),
         chroma_ac=fields["chroma_ac"].to(i16),
         refidx=fields["refidx"].to(I32),
         t8=fields["t8"].to(I32),
     )
-    recon = tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
-    return symbols, recon, (mvx.to(I32), mvy.to(I32))
+    return symbols, rec, (mvx.to(I32), mvy.to(I32))
 
 
 def _mv_chain(g: torch.Tensor, mvd: torch.Tensor) -> torch.Tensor:
@@ -721,21 +894,84 @@ def _mv_chain(g: torch.Tensor, mvd: torch.Tensor) -> torch.Tensor:
     return (g * (cs - base)).to(I32)
 
 
-def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
-                             qp: int, halo: bool = False, t8: bool = False):
-    """Reconstruct P frames from parsed symbols and a DPB refs_*
-    [N, S, H, W] (newest first; per-MB symbols.refidx; with `t8`, the
-    MBs whose symbols.t8 is 1 reconstruct through the 8x8 transform).
-    Returns (uint8 recon planes, (mvx, mvy)).  `halo`: the references
-    arrive vertically pre-extended (a row-sharded DPB)."""
+def _inter_decode(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
+                  qp: int, t8: bool):
+    """The P decode's inter reconstruction from parsed symbols: the MV
+    chain, MC from each MB's reference, the inter residuals.  Returns
+    (int32 recon [S,R,C,16,16], [S,R,C,8,8] x 2 of every MB, as if inter:
+    `_intra_recon_scan`'s `other`; (mvx, mvy) [S, R, C], zero for skip
+    and intra MBs).
+
+    CPU tensors, and every call with `t8` (the CABAC + 8x8 session
+    path), take the plain version; CUDA tensors without `t8` launch K10
+    (csrc/pframe_dec.cu) or raise."""
+    if symbols.kind.device.type == "cpu" or t8:
+        return _inter_decode_plain(symbols, planes_l, refs_up, refs_vp, qp,
+                                   t8)
+    out = _k10_launch(symbols, planes_l, refs_up, refs_vp, qp)
+    _inter_decode.launches += 1
+    return out
+
+
+_inter_decode.launches = 0  # launches of K10
+
+
+def _k10_operands(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
+                  qp: int):
+    """K10's operands in its entry's order (csrc/pframe_dec.cu
+    `dec_args`): (input tensors, output tensors, ints)."""
+    s, r, c = mb = tuple(symbols.kind.shape)
+    dev = symbols.kind.device
+    refidx = (symbols.refidx if symbols.refidx is not None
+              else torch.zeros(mb, dtype=I32, device=dev))
+    ins = [x.to(I32).contiguous() for x in (
+        symbols.kind, symbols.mvdx, symbols.mvdy, refidx, symbols.cbp_luma,
+        symbols.cbp_chroma)]
+    ins += [x.to(torch.int16).contiguous() for x in (
+        symbols.luma_ac, symbols.chroma_dc, symbols.chroma_ac)]
+    ins += _ref_planes(planes_l, refs_up, refs_vp)
+    outs = [torch.empty((*mb, k, k), dtype=I32, device=dev)
+            for k in (16, 8, 8)]
+    outs += [torch.empty(mb, dtype=I32, device=dev) for _ in range(2)]
+    h, w = 16 * r, 16 * c
+    ints = [s, r, c, len(planes_l), h + 2 * _PE, w + 2 * _PE,
+            h // 2 + 2 * _CP, w // 2 + 2 * _CP, _PE, _CP, qp,
+            T.chroma_qp_from_luma(qp)]
+    return ins, outs, ints
+
+
+def _k10_launch(symbols: MBSymbolsP, planes_l, refs_up, refs_vp, qp: int):
+    """One launch of K10 (see `_inter_decode`); raises on a bad input or a
+    failed build or launch."""
+    name = "decode_pframe_rows_multi"
+    s, r, c = mb = tuple(symbols.kind.shape)
+    if not s * r * c:
+        raise ValueError(f"{name}: no MB {mb}")
+    if not 0 <= qp <= 51:
+        raise ValueError(f"{name}: QP {qp} outside 0..51")
+    dev = symbols.kind.device
+    _check_refs(name, dev, planes_l, refs_up, refs_vp, s, 16 * r, 16 * c)
+    ins, outs, ints = _k10_operands(symbols, planes_l, refs_up, refs_vp, qp)
+    cuda_lib.check_inputs(name, dev, [(x, mb) for x in ins[:6]])
+    cuda_lib.check_inputs(name, dev, zip(ins[6:9], [
+        (*mb, 16, 16), (*mb, 2, 4), (*mb, 2, 4, 15)]), dtype=torch.int16)
+    err = cuda_lib.load().th264_pframe_decode(
+        _pointers(ins + outs), _ints(ints), cuda_lib.stream(dev))
+    cuda_lib.check(err, "th264_pframe_decode")
+    return tuple(outs[:3]), tuple(outs[3:])
+
+
+def _inter_decode_plain(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
+                        qp: int, t8: bool):
+    """Plain version of `_inter_decode` (same arguments): the MV chain by
+    a cumulative sum with a running reset index, then MC and the inter
+    residuals batched over [S, R, C] (with `t8`, the MBs whose symbols.t8
+    is 1 through the 8x8 transform)."""
     qpc = T.chroma_qp_from_luma(qp)
     s, r, c = symbols.kind.shape
-    planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v, halo)
-
     kind = symbols.kind.to(I32)
     refidx = (symbols.refidx.to(I32) if symbols.refidx is not None
               else torch.zeros_like(kind))
-    is_intra = kind == KIND_INTRA
     is_skip = kind == KIND_SKIP
 
     g = (kind == KIND_INTER).to(I32)
@@ -771,11 +1007,26 @@ def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
     qv = q_from_zz(cac[..., 1, :, :].reshape(s, r, c, 2, 2, 15))
     rec_u_inter = _recon_chroma(predcu, dcu, qu, ccbp, qpc)
     rec_v_inter = _recon_chroma(predcv, dcv, qv, ccbp, qpc)
+    return (rec_y_inter, rec_u_inter, rec_v_inter), (mvx, mvy)
 
+
+def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
+                             qp: int, halo: bool = False, t8: bool = False):
+    """Reconstruct P frames from parsed symbols and a DPB refs_*
+    [N, S, H, W] (newest first; per-MB symbols.refidx; with `t8`, the
+    MBs whose symbols.t8 is 1 reconstruct through the 8x8 transform).
+    Returns (uint8 recon planes, (mvx, mvy)).  `halo`: the references
+    arrive vertically pre-extended (a row-sharded DPB).  The inter part
+    is `_inter_decode` (K10 on the card without `t8`), the intra MBs'
+    column scan `_intra_recon_scan` (K5)."""
+    qpc = T.chroma_qp_from_luma(qp)
+    planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v, halo)
+    rec_inter, motion = _inter_decode(symbols, planes_l, refs_up, refs_vp,
+                                      qp, t8)
     # ---- intra MBs: batched residuals, then left-neighbour prediction
     # column by column (inter MBs pass through as left neighbours) ----
     rec = _intra_recon_scan(symbols.mode.to(I32), symbols.cmode.to(I32),
-                            _intra_residuals(symbols, qp, qpc),
-                            (rec_y_inter, rec_u_inter, rec_v_inter), is_intra)
+                            _intra_residuals(symbols, qp, qpc), rec_inter,
+                            symbols.kind == KIND_INTRA)
     recon = tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
-    return recon, (torch.where(is_intra, 0, mvx), torch.where(is_intra, 0, mvy))
+    return recon, motion
