@@ -56,7 +56,7 @@ tpuh264_torch/csrc, then:
      of "meeting" with two references and intra-in-P and its decode, and
      on seeded cases (`k9_case`, `k10_case`: one MB, odd S, a row of 34
      columns; noise, motion, flat and 0 / 255 content; QPs 0, 28, 51;
-     1-4 references, ref_base 0 / 1, stage-A winners at +-8, halo and
+     1-4 and 6 references, ref_base 0 / 1, stage-A winners at +-8, halo and
      intra-in-P on and off; decode symbols of skip, inter and intra MBs
      with chains that restart and run past the planes' pad);
      times each kernel beside its plain
@@ -1068,11 +1068,15 @@ K9_CASES = [(shape, 1 + (i + j + w) % 4, (i + w) % 2, content,
              bool((i + j) % 2), (i + 2 * j + w) % 3 == 0)
             for i, shape in enumerate(P_SHAPES)
             for j, content in enumerate(P_CONTENT) for w in (0, 1)]
+# and six references (more than the GOP pipeline's four: a session or a
+# decoded stream may hold up to sixteen)
+K9_CASES.append(((1, 2, 3), 6, 0, "motion", 28, "stageA", True, False))
 K10_MIX = ("mixed", "inter", "skip", "intra")
 K10_CASES = [(shape, 1 + (i + j) % 4, mix, P_QPS[(i + 2 * j) % 3],
               (i + j) % 3 == 1)
              for i, shape in enumerate(P_SHAPES)
-             for j, mix in enumerate(K10_MIX)]
+             for j, mix in enumerate(K10_MIX)] + [((2, 1, 3), 6, "mixed", 28,
+                                                    False)]
 
 
 def _p_frames(np, rng, n, s, h, w, content, ext=0):

@@ -56,7 +56,7 @@
 namespace {
 
 constexpr int kWarps = 8;  // a block's warps: MBs reconstructed at once
-constexpr int kMaxRefs = 4;
+constexpr int kMaxRefs = 16;  // H.264's most references
 
 struct DecArgs {
   const int32_t *kind, *mvdx, *mvdy, *refidx, *cbp_l, *cbp_c;  // [S,R,C]
@@ -68,7 +68,7 @@ struct DecArgs {
   int S, R, C, N, Hp, Wp, Hcp, Wcp, pe, cp, qp, qpc;
 };
 
-constexpr int kPtrs = 9 + 3 * kMaxRefs + 5;  // 26
+constexpr int kPtrs = 9 + 3 * kMaxRefs + 5;  // 62
 constexpr int kInts = 12;
 
 // The arguments from the entry's pointer and int arrays, in the order

@@ -12,7 +12,7 @@
 // `kernels/pframe.py` `_inter_encode_plain` (called with t8 False).
 //
 // What it computes, exactly as the plain version, per MB of stream s and
-// per reference n < N (1-4), from stage A's winner (iy0, ix0) and the
+// per reference n < N (1-16), from stage A's winner (iy0, ix0) and the
 // stream's global vector (gy, gx) of that reference:
 //  * stage B: the 3x3 full-pel refine on the G plane, cost sad + lam *
 //    rate_q(4 mx - 4 gx, 4 my - 4 gy), candidates in raster order (dy
@@ -71,9 +71,10 @@
 //    arithmetic (floor, two's complement), as torch's;
 //  * alignment: the half-pel planes are [S, Hp, Wp] int32 with Wp not a
 //    multiple of 4; every load here is a scalar one;
-//  * multi-reference: up to four references' pointers, a reference's
-//    winners at [n, S, R, C]; N is 1 right after an IDR, and ref_base is
-//    the temporal-layer session's forced reference.
+//  * multi-reference: up to sixteen references' pointers (unused ones
+//    repeat reference 0's), a reference's winners at [n, S, R, C]; N is 1
+//    right after an IDR, and ref_base is the temporal-layer session's
+//    forced reference.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,7 +84,7 @@
 namespace {
 
 constexpr int kWarps = 4;     // MBs a block, a warp each
-constexpr int kMaxRefs = 4;
+constexpr int kMaxRefs = 16;  // H.264's most references
 constexpr int kWin = 18;      // window side: 16 + the +-1 around a vector
 constexpr int kSearch = 8, kRefine = 1;  // golden.inter SEARCH_RANGE, REFINE_RANGE
 static_assert(4 * (kSearch + kRefine) + 3 + 4 * kSearch <= 127,
@@ -102,8 +103,8 @@ struct EncArgs {
   int ref_cost[kMaxRefs];              // lam * ref_idx_bits of reference n
 };
 
-constexpr int kPtrs = 3 + 4 + 3 * kMaxRefs + 8 + 3 + 3;  // 33
-constexpr int kInts = 15 + kMaxRefs;                      // 19
+constexpr int kPtrs = 3 + 4 + 3 * kMaxRefs + 8 + 3 + 3;  // 69
+constexpr int kInts = 15 + kMaxRefs;                      // 31
 
 // The arguments from the entry's pointer and int arrays, in the order
 // kernels/pframe.py `_k9_launch` builds them.

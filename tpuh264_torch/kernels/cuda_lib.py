@@ -12,8 +12,9 @@ into `tpuh264_torch/build/` (git-ignored, see libbuild.py), together
 with the generated header `cavlc_tables.cuh` (the CAVLC VLC tables of
 the port's entropy/cavlc_tables.py as __constant__ arrays).  The
 library has a plain C interface and is loaded with ctypes: every entry
-takes device pointers and the CUDA stream as void*, launches on that
-stream and returns cudaGetLastError().  A missing nvcc or a failed build raises.
+takes device pointers and the CUDA stream as void* (K9's and K10's take
+their pointers and ints as host arrays, `pointers` and `ints`), launches
+on that stream and returns cudaGetLastError().  A missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -164,3 +165,14 @@ def check_inputs(name: str, device, specs, dtype=torch.int32) -> None:
 def stream(device) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on `device`, as a kernel argument."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def pointers(tensors) -> ctypes.Array:
+    """The tensors' device pointers as a host array (the `p` argument of
+    the entries that take their pointers as one array)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def ints(values) -> ctypes.Array:
+    """The values as a host array of C ints (those entries' `n`)."""
+    return (ctypes.c_int * len(values))(*[int(x) for x in values])

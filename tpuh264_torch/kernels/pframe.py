@@ -54,7 +54,6 @@ result equals the rows of the unsharded encode.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -637,30 +636,23 @@ def _inter_encode(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
 _inter_encode.launches = 0  # launches of K9
 
 
-def _pointers(tensors):
-    """A ctypes array of the tensors' device pointers (a kernel entry's
-    `p`)."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-
-def _ints(values):
-    return (ctypes.c_int * len(values))(*[int(x) for x in values])
+_MAX_REFS = 16  # the kernels' kMaxRefs: H.264's most references
 
 
 def _ref_planes(planes_l, refs_up, refs_vp):
-    """The references' planes as a kernel entry lists them: four of each
-    kind, the unused ones repeating reference 0's."""
-    fill = lambda x: list(x) + [x[0]] * (4 - len(x))
+    """The references' planes as a kernel entry lists them: _MAX_REFS of
+    each kind, the unused ones repeating reference 0's."""
+    fill = lambda x: list(x) + [x[0]] * (_MAX_REFS - len(x))
     return fill(planes_l) + fill(refs_up) + fill(refs_vp)
 
 
 def _check_refs(name, dev, planes_l, refs_up, refs_vp, s, h: int, w: int):
-    """Raise unless there are one to four references whose planes have the
-    geometry `_references` gives (pads _PE and _CP) for [s, h, w]
+    """Raise unless there are 1 to _MAX_REFS references whose planes have
+    the geometry `_references` gives (pads _PE and _CP) for [s, h, w]
     frames."""
     n = len(planes_l)
-    if not 1 <= n <= 4 or len(refs_up) != n or len(refs_vp) != n:
-        raise ValueError(f"{name}: 1 to 4 references, got {n}")
+    if not 1 <= n <= _MAX_REFS or len(refs_up) != n or len(refs_vp) != n:
+        raise ValueError(f"{name}: 1 to {_MAX_REFS} references, got {n}")
     cuda_lib.check_inputs(name, dev, [
         *[(p, (4, s, h + 2 * _PE, w + 2 * _PE)) for p in planes_l],
         *[(p, (s, h // 2 + 2 * _CP, w // 2 + 2 * _CP))
@@ -688,7 +680,7 @@ def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
                  ((s, h, w), (s, h // 2, w // 2), (s, h // 2, w // 2))]
     lam = int(LAMBDA_ME[min(max(qp, 0), 51)])
     ref_cost = [lam * ref_idx_bits(k + ref_base, ref_base + n)
-                for k in range(n)] + [0] * (4 - n)
+                for k in range(n)] + [0] * (_MAX_REFS - n)
     ins = [y32, u.to(I32).contiguous(), v.to(I32).contiguous(), iy0, ix0,
            gy, gx, *_ref_planes(planes_l, refs_up, refs_vp)]
     ints = [s, r, c, n, h + 2 * _PE, w + 2 * _PE, h // 2 + 2 * _CP,
@@ -719,7 +711,8 @@ def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
         (ins[2], (s, h // 2, w // 2)), (iy0, (n, *mb)), (ix0, (n, *mb)),
         (gy, (n, s)), (gx, (n, s))])
     err = cuda_lib.load().th264_pframe_encode(
-        _pointers(ins + outs), _ints(ints), cuda_lib.stream(dev))
+        cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+        cuda_lib.stream(dev))
     cuda_lib.check(err, "th264_pframe_encode")
     return InterEnc(*outs[:11], torch.zeros_like(outs[0]), tuple(outs[11:]))
 
@@ -956,7 +949,8 @@ def _k10_launch(symbols: MBSymbolsP, planes_l, refs_up, refs_vp, qp: int):
     cuda_lib.check_inputs(name, dev, zip(ins[6:9], [
         (*mb, 16, 16), (*mb, 2, 4), (*mb, 2, 4, 15)]), dtype=torch.int16)
     err = cuda_lib.load().th264_pframe_decode(
-        _pointers(ins + outs), _ints(ints), cuda_lib.stream(dev))
+        cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+        cuda_lib.stream(dev))
     cuda_lib.check(err, "th264_pframe_decode")
     return tuple(outs[:3]), tuple(outs[3:])
 
