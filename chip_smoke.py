@@ -1071,12 +1071,28 @@ K9_CASES = [(shape, 1 + (i + j + w) % 4, (i + w) % 2, content,
 # and six references (more than the GOP pipeline's four: a session or a
 # decoded stream may hold up to sixteen)
 K9_CASES.append(((1, 2, 3), 6, 0, "motion", 28, "stageA", True, False))
+# and "subpel": each MB's source is reference 0's quarter-pel prediction
+# at 4 (iy0 + sy) + 3 sy (and likewise in x), sy = +-1, on a smooth
+# texture, so that stage B takes the far +-1 candidate, the half-pel
+# selection a corner and the quarter-pel one the ring beyond it (|by| =
+# |bx| = 3): the last rows and columns of the 20x20 window.  MBs at the
+# frame's border take winners of +-12 / 13 pointing out of the frame, so
+# that their windows reach past the planes' pad (the clamp); the others
+# stay within +-8 (no clamp).
+K9_CASES += [((2, 2, 3), 1, 0, "smooth", 12, "subpel", False, False),
+             ((1, 3, 5), 2, 0, "smooth", 20, "subpel", True, False),
+             ((1, 3, 5), 1, 1, "smooth", 28, "subpel", False, True)]
 K10_MIX = ("mixed", "inter", "skip", "intra")
 K10_CASES = [(shape, 1 + (i + j) % 4, mix, P_QPS[(i + 2 * j) % 3],
               (i + j) % 3 == 1)
              for i, shape in enumerate(P_SHAPES)
              for j, mix in enumerate(K10_MIX)] + [((2, 1, 3), 6, "mixed", 28,
                                                     False)]
+# and rows of 97 columns, more than three 32-column spans: every MB inter
+# ("chain": one run of 97), and every MB inter but a skip at column 33
+# and an intra MB at column 64 ("resets": runs of 33, 30 and 32)
+K10_CASES += [((1, 1, 97), 2, "chain", 28, False),
+              ((2, 1, 97), 1, "resets", 12, True)]
 
 
 def _p_frames(np, rng, n, s, h, w, content, ext=0):
@@ -1111,10 +1127,13 @@ def k9_case(np, shape, n_refs, ref_base, content, qp, winners, iip, halo):
 
     s, r, c = shape
     rng = np.random.default_rng([s, r, c, n_refs, ref_base,
-                                 P_CONTENT.index(content), qp,
-                                 winners == "edge", iip, halo])
+                                 (*P_CONTENT, "smooth").index(content), qp,
+                                 ("stageA", "edge", "subpel").index(winners),
+                                 iip, halo])
     h, w = 16 * r, 16 * c
     ey, ec = (pframe.HALO_Y, pframe.HALO_C) if halo else (0, 0)
+    if winners == "subpel":
+        return _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo)
     src = [_p_frames(np, rng, 1, s, h, w, content)[0],
            _p_frames(np, rng, 1, s, h // 2, w // 2, content)[0],
            _p_frames(np, rng, 1, s, h // 2, w // 2, content)[0]]
@@ -1131,6 +1150,61 @@ def k9_case(np, shape, n_refs, ref_base, content, qp, winners, iip, halo):
             np.int32), rng.integers(-8, 9, (n_refs, s)).astype(np.int32))
     return dict(y=src[0], u=src[1], v=src[2], refs_y=refs[0],
                 refs_u=refs[1], refs_v=refs[2], winners=win, qp=qp,
+                ref_base=ref_base, intra_in_p=iip, halo=halo)
+
+
+def _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo):
+    """`k9_case`'s "subpel" inputs (see K9_CASES): smooth references, the
+    source reference 0's motion-compensated prediction at the vectors
+    4 (iy0 + sy) + 3 sy, 4 (ix0 + sx) + 3 sx, with the winners and zero
+    global vectors of reference 0 given (the others' at random)."""
+    import torch
+
+    from tpuh264_torch.kernels import pframe
+
+    s, r, c = shape
+    h, w = 16 * r, 16 * c
+    ey, ec = (pframe.HALO_Y, pframe.HALO_C) if halo else (0, 0)
+
+    def smooth(n, hh, ww):
+        x = rng.integers(0, 256, (n, s, hh + 8, ww + 8)).astype(np.float64)
+        for ax in (-1, -2):  # a 9-tap box blur a direction, twice
+            for _ in range(2):
+                x = sum(np.roll(x, k, ax) for k in range(-4, 5)) / 9
+        x = (x - x.mean()) * 6 + 128
+        return np.clip(x[..., 4:-4, 4:-4], 0, 255).astype(np.uint8)
+
+    refs = [smooth(n_refs, h + 2 * ey, w), smooth(n_refs, h // 2 + 2 * ec,
+                                                  w // 2),
+            smooth(n_refs, h // 2 + 2 * ec, w // 2)]
+    mb = (n_refs, s, r, c)
+    sign = lambda: rng.choice([-1, 1], mb[1:])
+    sy, sx = sign(), sign()
+    rows, cols = np.arange(r)[:, None], np.arange(c)[None, :]
+    # at the border, out of the frame past the pad; inside, within +-8
+    out_y = np.where(rows == 0, -1, np.where(rows == r - 1, 1, 0))
+    out_x = np.where(cols == 0, -1, np.where(cols == c - 1, 1, 0))
+    far = lambda out: np.where(out != 0, out * rng.integers(12, 14, mb[1:]),
+                               rng.integers(-7, 8, mb[1:]))
+    iy, ix = far(out_y), far(out_x)
+    sy = np.where(out_y != 0, out_y, sy)
+    sx = np.where(out_x != 0, out_x, sx)
+    win = [rng.integers(-8, 9, mb).astype(np.int32) for _ in range(2)]
+    win[0][0], win[1][0] = iy, ix
+    g = [rng.integers(-2, 3, (n_refs, s)).astype(np.int32) for _ in range(2)]
+    g[0][0] = g[1][0] = 0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    planes_l, refs_up, refs_vp = pframe._references(
+        *(t(x) for x in refs), halo)
+    mvy = t((4 * (iy + sy) + 3 * sy).astype(np.int32))
+    mvx = t((4 * (ix + sx) + 3 * sx).astype(np.int32))
+    src = [pframe._mbs_to_plane(x.to(torch.uint8)).numpy() for x in (
+        pframe._mc_luma(planes_l[0], mvx, mvy),
+        pframe._mc_chroma(refs_up[0], mvx, mvy),
+        pframe._mc_chroma(refs_vp[0], mvx, mvy))]
+    return dict(y=src[0], u=src[1], v=src[2], refs_y=refs[0],
+                refs_u=refs[1], refs_v=refs[2],
+                winners=(win[0], win[1], g[0], g[1]), qp=qp,
                 ref_base=ref_base, intra_in_p=iip, halo=halo)
 
 
@@ -1171,12 +1245,15 @@ def k10_case(np, shape, n_refs, mix, qp, halo):
     from tpuh264_torch.kernels import pframe
 
     s, r, c = shape
-    rng = np.random.default_rng([s, r, c, n_refs, K10_MIX.index(mix), qp,
-                                 halo])
+    rng = np.random.default_rng([s, r, c, n_refs, (
+        *K10_MIX, "chain", "resets").index(mix), qp, halo])
     mb = (s, r, c)
     kind = {"mixed": rng.integers(0, 3, mb), "inter": np.where(
         rng.random(mb) < 0.85, 1, rng.integers(0, 3, mb)),
-        "skip": np.zeros(mb, int), "intra": np.full(mb, 2)}[mix]
+        "skip": np.zeros(mb, int), "intra": np.full(mb, 2)}.get(
+            mix, np.ones(mb, int))
+    if mix == "resets":
+        kind[..., 33], kind[..., 64] = 0, 2
     inter, intra = kind == 1, kind == 2
 
     def levels(sh, amp, zero):

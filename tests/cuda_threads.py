@@ -23,8 +23,10 @@ barrier: the arrays alternate between two copies from one exchange to
 the next (each thread counts its own), so a thread may write the next
 while a slower one still reads the last; every thread of the warp must
 reach each exchange, as the kernels' warp-uniform code does.
-__shared__ arrays are statics, int2 / int4 / uint2 / uint4 plain structs;
-__vsadu4 is computed byte by byte.  A harness includes the kernel's
+`__reduce_add_sync` (redux.sync) sums such an exchange.  __shared__
+arrays are statics, int2 / int4 / uint2 / uint4 plain structs,
+__grid_constant__ nothing; __vsadu4 is computed byte by byte, __clz by
+the compiler's builtin.  A harness includes the kernel's
 source after this header (as cuda_runtime.h); the source's launch entry
 is guarded by __CUDACC__, which g++ does not define.
 """
@@ -54,6 +56,7 @@ using std::abs; using std::max; using std::min;
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 #define __launch_bounds__(...)
+#define __grid_constant__
 struct alignas(16) int4 { int x, y, z, w; };
 inline int4 make_int4(int a, int b, int c, int d) { return int4{a, b, c, d}; }
 struct alignas(8) int2 { int x, y; };
@@ -157,6 +160,16 @@ inline int __shfl_xor_sync(unsigned mask, int v, int lane_mask) {
 inline unsigned __shfl_xor_sync(unsigned mask, unsigned v, int lane_mask) {
   return __shfl_sync(mask, v, (threadIdx.x & 31) ^ lane_mask);
 }
+// redux.sync: the warp's sum, to every lane
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  const uint32_t* all = exchange(v);
+  unsigned sum = 0;
+  for (int i = 0; i < 32; ++i) sum += all[i];
+  return sum;
+}
+inline int __reduce_add_sync(unsigned mask, int v) {
+  return (int)__reduce_add_sync(mask, (unsigned)v);
+}
 inline unsigned __ballot_sync(unsigned, int p) {
   const uint32_t* all = exchange(p != 0);
   unsigned b = 0;
@@ -228,6 +241,7 @@ inline void run_cluster_fibers(int n, int ctas, int first_block, size_t smem,
 inline void run_block_fibers(int n, int block, std::function<void()> body) {
   run_cluster_fibers(n, 1, block, 0, std::move(body));
 }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline unsigned __vsadu4(unsigned a, unsigned b) {
   unsigned s = 0;
   for (int i = 0; i < 32; i += 8) {

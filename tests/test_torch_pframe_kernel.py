@@ -67,7 +67,7 @@ KERNELS = {
     "k9": ('"pframe_enc.cu"', "enc_args", "pframe_encode_kernel",
            "(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps"),
     "k10": ('"pframe_dec.cu"', "dec_args", "pframe_decode_kernel",
-            "a.S * a.R", "32 * kWarps"),
+            "(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps"),
 }
 
 
@@ -117,10 +117,11 @@ def _eq(got, want, what):
 
 @pytest.mark.parametrize("case", chip_smoke.K9_CASES, ids=str)
 def test_k9_source_on_cpu_threads_matches_plain(cpu_kernels, case):
-    """K9's windows, shuffle-reduced SADs, sequential selections (stage B
-    raster, half then quarter, references by index), MC, transforms,
-    ballots and stores, a block's warps at a time, equal the plain
-    version on the case: every field and the reconstruction."""
+    """K9's byte windows, redux-reduced SADs of the 17 sub-pel positions,
+    sequential selections (stage B raster, half then quarter, references
+    by index), MC, transforms, ballots and 16-byte stores, a block's warps
+    at a time, equal the plain version on the case: every field and the
+    reconstruction."""
     kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu")
     want = tpf._inter_encode_plain(**kw)
     args = {k: v for k, v in kw.items() if k != "t8"}
@@ -132,10 +133,36 @@ def test_k9_source_on_cpu_threads_matches_plain(cpu_kernels, case):
         _eq(got, w, f"rec {i}")
 
 
+@pytest.mark.parametrize("case", [c for c in chip_smoke.K9_CASES
+                                  if c[5] == "subpel"], ids=str)
+def test_k9_subpel_cases_reach_the_window_edges(case):
+    """The "subpel" cases choose what they are built for, so that the
+    kernel's 17 sub-pel positions meet the choices the plain version's 49
+    could make: most MBs take the far +-1 of stage B and the quarter-pel
+    ring beyond a corner half-pel winner (mv - 4 (iy0, ix0) = (+-7, +-7):
+    the last rows and columns of the 20x20 window), and the windows lie
+    past the planes' border (the clamp) at the frame's edge and inside
+    them (no clamp) elsewhere, where the frame has an inner MB."""
+    kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu")
+    o = tpf._inter_encode_plain(**kw)
+    iy0, ix0 = kw["iy0"][0], kw["ix0"][0]
+    ring = ((o.mvy - 4 * iy0).abs() == 7) & ((o.mvx - 4 * ix0).abs() == 7)
+    assert (o.refsel == 0).all()
+    assert 2 * int(ring.sum()) > ring.numel()
+    s, r, c = case[0]
+    hp, wp = kw["planes_l"][0].shape[-2:]
+    y0 = (16 * torch.arange(r)[:, None] + iy0 - 2 + tpf._PE)
+    x0 = (16 * torch.arange(c)[None, :] + ix0 - 2 + tpf._PE)
+    edge = (y0 < 0) | (y0 + 20 > hp) | (x0 < 0) | (x0 + 20 > wp)
+    assert (edge & ring).any()
+    assert (~edge & ring).any() == (r > 2 and c > 2)
+
+
 @pytest.mark.parametrize("case", chip_smoke.K10_CASES, ids=str)
 def test_k10_source_on_cpu_threads_matches_plain(cpu_kernels, case):
-    """K10's segmented shuffle scan of the MV chain, MC and residuals, a
-    block's warps at a time, equal the plain version on the case."""
+    """K10's MV look-back (ballot and redux, 32 columns at a time), MC and
+    residuals, a block's warps at a time, equal the plain version on the
+    case."""
     kw = chip_smoke.k10_args(torch, chip_smoke.k10_case(np, *case), "cpu")
     rec, mv = tpf._inter_decode_plain(**kw)
     args = {k: v for k, v in kw.items() if k != "t8"}

@@ -1,14 +1,17 @@
 // The device helpers K9 (pframe_enc.cu) and K10 (pframe_dec.cu) share:
 // the inter quantiser, the 4x4 forward and inverse core transforms, the
-// 2x2 chroma DC Hadamard, the quarter-pel luma and eighth-pel chroma
-// motion compensation, and the motion vector rate.  Each bit-exact with
-// the torch code of kernels/transform.py and kernels/pframe.py; on top of
+// 2x2 chroma DC Hadamard, the quarter-pel component tables, the
+// eighth-pel chroma motion compensation, packed-byte helpers and the
+// motion vector rate.  Each bit-exact with the torch code of
+// kernels/transform.py and kernels/pframe.py; on top of
 // intra16_common.cuh's tables and integer quant / dequant forms.
 //
 // Arithmetic: `>>` of a negative int is arithmetic and `&` two's
 // complement, as torch's on int32, so `mvy >> 2`, `mvy & 3`, `mvy >> 3`
 // and `mvy & 7` are the floor division and remainder the plain version
-// takes; they stay int arithmetic here.
+// takes; they stay int arithmetic here.  Predictions are kept as packed
+// bytes: every sample they are made of is 0..255 (the references are
+// reconstructed pictures, and build_halfpel_planes_ext clips b, h, j).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,10 +49,16 @@ __device__ __forceinline__ void fwd4(int* x) {
   }
 }
 
+// byte j of a packed word
+__device__ __forceinline__ int byte_of(uint32_t w, int j) {
+  return (int)((w >> (8 * j)) & 255u);
+}
+
 // inverse4x4 (8.5.12.2: rows first, then columns; the `>> 1`s make the
-// order matter), then (+ 32) >> 6 added to `pred` and clipped to 0..255,
-// in place on the raster block d.
-__device__ __forceinline__ void inv4_add(int* d, const int* pred) {
+// order matter), then (+ 32) >> 6 added to the prediction and clipped to
+// 0..255, in place on the raster block d; pred[i] holds row i's four
+// prediction samples as bytes.
+__device__ __forceinline__ void inv4_add(int* d, const uint32_t* pred) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     int* y = d + 4 * r;
@@ -64,7 +73,8 @@ __device__ __forceinline__ void inv4_add(int* d, const int* pred) {
     d[c] = g0 + g3, d[4 + c] = g1 + g2, d[8 + c] = g1 - g2, d[12 + c] = g0 - g3;
   }
 #pragma unroll
-  for (int i = 0; i < 16; ++i) d[i] = clip255(pred[i] + ((d[i] + 32) >> 6));
+  for (int i = 0; i < 16; ++i)
+    d[i] = clip255(byte_of(pred[i >> 2], i & 3) + ((d[i] + 32) >> 6));
 }
 
 // element k (raster, by * 2 + bx) of hadamard2x2 over the four blocks'
@@ -78,7 +88,8 @@ __device__ __forceinline__ int had2(const int* x, int k) {
 // The quarter-pel luma components (golden.inter QPEL_TBL, kernels/pframe.py
 // `_COMP_*`): component id -> half-pel plane (G, b, h, j) and its integer
 // offset (dy, dx); and for each fraction fy * 4 + fx the two components
-// whose rounded mean is the prediction.
+// whose rounded mean is the prediction (one component twice at the
+// whole- and half-pel fractions 0, 2, 8, 10).
 __constant__ int kCompPl[8] = {0, 1, 2, 3, 0, 0, 1, 2};
 __constant__ int kCompDy[8] = {0, 0, 0, 0, 0, 1, 1, 0};
 __constant__ int kCompDx[8] = {0, 0, 0, 0, 1, 0, 0, 1};
@@ -91,60 +102,66 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-// One reference's planes: the four half-pel planes of its luma ([4, S,
-// Hp, Wp], pad pe) and its two chroma planes ([S, Hcp, Wcp], pad cp), all
-// int32; each read at indices clamped into the plane, as the plain
-// version's `_gather_win` clamps them (legal motion never reaches it).
-struct RefPlanes {
-  const int32_t *l, *u, *v;
-  size_t lstride;  // S * Hp * Wp: from one half-pel plane to the next
-  int Hp, Wp, Hcp, Wcp;
-};
-
+// sample (y, x) of an h x w plane at indices clamped into it, as the plain
+// version's `_gather_win` clamps them (legal motion never reaches it)
 __device__ __forceinline__ int at(const int32_t* p, int y, int x, int h,
                                   int w) {
   return p[(size_t)clampi(y, 0, h - 1) * w + clampi(x, 0, w - 1)];
 }
 
-// Quarter-pel luma sample (yy, xx) of the MB whose plane-space origin at
-// the motion's integer part is (y0, x0) = MB origin + (mv >> 2) + pe, at
-// fraction f = (mvy & 3) * 4 + (mvx & 3); `l` is stream s's G plane.
-__device__ __forceinline__ int mc_luma(const RefPlanes& p, const int32_t* l,
-                                       int y0, int x0, int f, int yy, int xx) {
-  int v = 1;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int id = kQpel[f][k];
-    v += at(l + kCompPl[id] * p.lstride, y0 + kCompDy[id] + yy,
-            x0 + kCompDx[id] + xx, p.Hp, p.Wp);
-  }
-  return v >> 1;
+// four 0..255 ints as the bytes of a word, the first lowest
+__device__ __forceinline__ uint32_t pack_bytes(int a, int b, int c, int d) {
+  return (uint32_t)a | ((uint32_t)b << 8) | ((uint32_t)c << 16) |
+         ((uint32_t)d << 24);
 }
 
-// Eighth-pel bilinear chroma sample (yy, xx) from stream s's plane `c`,
+// the per-byte rounded mean (a + b + 1) >> 1 of two packed words: per
+// byte, (a | b) - ((a ^ b) >> 1), the mask keeping each byte's shift
+// inside it (no byte borrows: (a | b) >= (a ^ b) / 2)
+__device__ __forceinline__ uint32_t avg4(uint32_t a, uint32_t b) {
+  return (a | b) - (((a ^ b) >> 1) & 0x7f7f7f7fu);
+}
+
+// Four eighth-pel bilinear chroma samples (8.4.2.2.2), row yy and
+// columns xx .. xx + 3 of a chroma MB, from plane c (hc x wc, int32) at
 // origin (y0, x0) = chroma MB origin + (mv >> 3) + cp, fractions (xf, yf)
-// = mv & 7.
-__device__ __forceinline__ int mc_chroma(const RefPlanes& p, const int32_t* c,
-                                         int y0, int x0, int xf, int yf,
-                                         int yy, int xx) {
-  const int y = y0 + yy, x = x0 + xx;
-  return ((8 - xf) * (8 - yf) * at(c, y, x, p.Hcp, p.Wcp) +
-          xf * (8 - yf) * at(c, y, x + 1, p.Hcp, p.Wcp) +
-          (8 - xf) * yf * at(c, y + 1, x, p.Hcp, p.Wcp) +
-          xf * yf * at(c, y + 1, x + 1, p.Hcp, p.Wcp) + 32) >> 6;
+// = mv & 7, as the bytes of a word.  `inside`: the MB's 9x9 window lies
+// in the plane, so no index needs the clamp.
+__device__ __forceinline__ uint32_t mc_chroma4(const int32_t* c, int hc,
+                                               int wc, int y0, int x0,
+                                               int xf, int yf, int yy,
+                                               int xx, bool inside) {
+  int t[2][5];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (inside) {
+      const int32_t* p = c + (size_t)(y0 + yy + i) * wc + x0 + xx;
+#pragma unroll
+      for (int j = 0; j < 5; ++j) t[i][j] = p[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 5; ++j) t[i][j] = at(c, y0 + yy + i, x0 + xx + j, hc, wc);
+    }
+  }
+  const int w00 = (8 - xf) * (8 - yf), w01 = xf * (8 - yf);
+  const int w10 = (8 - xf) * yf, w11 = xf * yf;
+  uint32_t out = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    out |= (uint32_t)((w00 * t[0][j] + w01 * t[0][j + 1] + w10 * t[1][j] +
+                       w11 * t[1][j + 1] + 32) >> 6) << (8 * j);
+  return out;
 }
 
 // kernels/pframe.py `_rate_q` of one component: 2 * n - 1, n the count of
 // the powers 1, 2, .., 128 that are <= 2|v| + 1, i.e. min(bit length, 8):
 // golden.inter.mv_rate_bits's ue(2|v|) length wherever |v| <= 127.  The
 // refined vectors stay within 4 * (SEARCH_RANGE + REFINE_RANGE) + 3 + 4 *
-// SEARCH_RANGE = 71 quarter-pels of the global vector (asserted by the
-// sources' static_asserts), so the count is the exact length there.
+// SEARCH_RANGE = 71 quarter-pels of the global vector (asserted by
+// pframe_enc.cu's static_assert), so the count is the exact length there.
 __device__ __forceinline__ int ue_len(int v) {
-  const unsigned x = 2u * (unsigned)abs(v) + 1u;
-  int n = 0;
-  while (n < 7 && (x >> n) > 1u) ++n;  // n + 1 = min(bit length, 8)
-  return 2 * (n + 1) - 1;
+  const int bits = 32 - __clz(2 * abs(v) + 1);
+  return 2 * min(bits, 8) - 1;
 }
 __device__ __forceinline__ int rate_q(int vx, int vy) {
   return ue_len(vx) + ue_len(vy);

@@ -1,5 +1,5 @@
 // K10: the P decode's inter reconstruction -- the MV chain, motion
-// compensation and the inter residuals -- a block per MB row.
+// compensation and the inter residuals -- a warp per MB.
 //
 // Replaces: the XLA program of tpuh264/kernels/pframe.py
 // `decode_pframe_rows_multi` (:1021) before its intra scan, not a
@@ -33,20 +33,31 @@
 // 16x16 int32 window each, and two 8x8 int32 chroma windows, with 792
 // bytes of symbols, and writes 1,544 bytes (int32 reconstruction and
 // motion): at most 4.9 KB a MB, 160 MB or 0.048 ms at 1080p x 4.  Its
-// arithmetic is small.
+// arithmetic is small.  The first design (d893870) ran a block of 8 warps
+// a MB row behind a block barrier every 32 columns: 272 blocks at 1080p
+// x 4, two or three rows an SM, each warp's MBs one after another.
 //
-// Design, simple and right first: a block of kWarps warps per MB row
-// (stream s, row r).  The row's columns go 32 at a time: warp 0 runs the
-// chain over the 32 columns as a segmented inclusive scan by shuffles
-// (each column a pair (reset, sum); an inter MB continues its left
-// neighbour's sum, any other resets it to 0), carrying the last column's
-// vector into the next 32; after a block barrier every warp takes every
-// kWarps-th MB of them: the prediction into its shared memory, then
-// lanes 0-15 a luma 4x4 block each and lanes 16-23 a chroma block each.
+// Design: a warp per MB over the whole grid (kWarps MBs a block, about
+// 4,080 blocks at 1080p x 4), no block barrier.
+//  * The MV chain by look-back: the warp reads the kinds of the 32
+//    columns ending at its own (a lane a column, one coalesced load),
+//    finds the last reset (a column that is not inter, or left of the
+//    row) by a ballot and sums the mvds after it (__reduce_add_sync); with
+//    no reset among the 32 it goes on 32 columns further left.  Exact for
+//    any number of columns: the sum restarts where the plain version's
+//    running reset index does.
+//  * MC: all 32 lanes, the luma 8 samples a lane (row lane / 2), the
+//    chroma 4 (plane lane / 16), straight from the int32 planes; a window
+//    inside the plane (every MB whose vector stays within the pad) takes
+//    no clamp.  The prediction goes to shared memory as bytes.
+//  * The residuals: lanes 0-15 a luma 4x4 block each, their levels two
+//    16-byte loads, lanes 16-23 a chroma block each, the chroma AC
+//    levels staged through shared memory by 16-byte loads; the int32
+//    reconstruction leaves as 16-byte stores, a block row each.
 // Where trouble is likely: negative shifts and masks (mv >> 2, & 3, >> 3,
-// & 7) stay int arithmetic, as torch's; every load is a scalar one (the
-// half-pel planes' rows are not 16-byte aligned); the chain restarts at
-// every non-inter MB, as the plain version's running reset index does.
+// & 7) stay int arithmetic, as torch's; the half-pel planes' loads are
+// scalar (their rows are not 16-byte aligned); the levels are 16-byte
+// aligned (the wrapper clones a level array that is not).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,8 +66,9 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // a block's warps: MBs reconstructed at once
+constexpr int kWarps = 8;     // MBs a block, a warp each
 constexpr int kMaxRefs = 16;  // H.264's most references
+constexpr unsigned kFull = 0xffffffffu;
 
 struct DecArgs {
   const int32_t *kind, *mvdx, *mvdy, *refidx, *cbp_l, *cbp_c;  // [S,R,C]
@@ -95,112 +107,144 @@ inline DecArgs dec_args(void* const* p, const int* n) {
   return a;
 }
 
-// A warp's shared memory: its MB's prediction and chroma DC levels.
+// A warp's shared memory: its MB's prediction as bytes (luma 4 words a
+// row, chroma 2) and its chroma AC levels.
 struct WarpMem {
-  int pred[256], pu[64], pv[64];
+  uint32_t pred[64], pu[16], pv[16];
+  alignas(16) int16_t cac[120];
 };
 
-// One MB (m = (s, r, c)) at motion (mvx, mvy), by one warp.
-__device__ void recon_mb(const DecArgs& a, WarpMem& w, int lane, size_t m,
-                         int s, int r, int c, int mvx, int mvy) {
-  const RefPlanes geo{nullptr, nullptr, nullptr,
-                      (size_t)a.S * a.Hp * a.Wp, a.Hp, a.Wp, a.Hcp, a.Wcp};
+// The motion of MB column c of the row whose first MB is `row0`: the sum
+// of the mvds over the run of inter MBs that ends at c (0 where c is not
+// inter), every lane the same.  Lane l looks at column end - 31 + l.
+__device__ __forceinline__ int2 mv_lookback(const DecArgs& a, size_t row0,
+                                            int c, int lane) {
+  int vx = 0, vy = 0;
+  for (int end = c;; end -= 32) {
+    const int cc = end - 31 + lane;
+    const bool inter = cc >= 0 && a.kind[row0 + cc] == 1;
+    const unsigned resets = __ballot_sync(kFull, !inter);
+    const int last = resets ? 31 - __clz((int)resets) : -1;  // the last reset
+    const bool run = lane > last;  // after it: the run that reaches c
+    vx += (int)__reduce_add_sync(kFull, run ? (unsigned)a.mvdx[row0 + cc] : 0u);
+    vy += (int)__reduce_add_sync(kFull, run ? (unsigned)a.mvdy[row0 + cc] : 0u);
+    if (resets) return make_int2(vx, vy);
+  }
+}
+
+// The lane's 8 luma prediction samples (MB row `row`, columns col ..
+// col + 7) from stream s's G plane `g` (the others lstride on) at the
+// integer origin (y0, x0) = MB origin + (mv >> 2) + pe and fraction f =
+// (mvy & 3) * 4 + (mvx & 3), as bytes; `inside` when the 17x17 reach
+// lies in the plane.
+__device__ __forceinline__ uint2 mc_luma8(const int32_t* g, size_t lstride,
+                                          int hp, int wp, int y0, int x0,
+                                          int f, int row, int col,
+                                          bool inside) {
+  int v[8];
+  const int c1 = kQpel[f][0], c2 = kQpel[f][1];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int id = k ? c2 : c1;
+    if (k && c1 == c2) break;  // one component: (a + a + 1) >> 1 = a
+    const int32_t* p = g + kCompPl[id] * lstride;
+    const int y = y0 + kCompDy[id] + row, x = x0 + kCompDx[id] + col;
+    int t[8];
+    if (inside) {
+      const int32_t* q = p + (size_t)y * wp + x;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) t[j] = q[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) t[j] = at(p, y, x + j, hp, wp);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = k ? (v[j] + t[j] + 1) >> 1 : t[j];
+  }
+  return make_uint2(pack_bytes(v[0], v[1], v[2], v[3]),
+                    pack_bytes(v[4], v[5], v[6], v[7]));
+}
+
+__global__ void __launch_bounds__(32 * kWarps)
+    pframe_decode_kernel(const __grid_constant__ DecArgs a) {
+  __shared__ WarpMem smem[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rc = a.R * a.C, mbs = a.S * rc;
+  const int mi = blockIdx.x * kWarps + warp;
+  if (mi >= mbs) return;  // the whole warp: no block barrier follows
+  WarpMem& w = smem[warp];
+  const size_t m = mi;
+  const int s = mi / rc, r = (mi % rc) / a.C, c = mi % a.C;
+  const int2 mv = mv_lookback(a, m - c, c, lane);
+  const int mvx = mv.x, mvy = mv.y;
+  if (lane == 0) a.mvx[m] = mvx, a.mvy[m] = mvy;
+
   const int kind = a.kind[m], ri = a.refidx[m];
   const int ref = ri >= 1 && ri < a.N ? ri : 0;
   const bool skip = kind == 0;
   const int cbp_l = skip ? 0 : a.cbp_l[m], cbp_c = skip ? 0 : a.cbp_c[m];
+  // the chroma AC levels into shared memory, 16 bytes a lane
+  if (lane < 15)
+    reinterpret_cast<int4*>(w.cac)[lane] =
+        reinterpret_cast<const int4*>(a.chroma_ac + m * 120)[lane];
   {
-    const int32_t* l = a.pl[ref] + (size_t)s * a.Hp * a.Wp;
-    const int f = (mvy & 3) * 4 + (mvx & 3);
+    const int row = lane >> 1, col = (lane & 1) * 8;
     const int y0 = 16 * r + (mvy >> 2) + a.pe, x0 = 16 * c + (mvx >> 2) + a.pe;
-    for (int i = lane; i < 256; i += 32)
-      w.pred[i] = mc_luma(geo, l, y0, x0, f, i >> 4, i & 15);
-    const size_t cso = (size_t)s * a.Hcp * a.Wcp;
+    const bool inside = y0 >= 0 && x0 >= 0 && y0 + 17 <= a.Hp && x0 + 17 <= a.Wp;
+    const uint2 p = mc_luma8(a.pl[ref] + (size_t)s * a.Hp * a.Wp,
+                             (size_t)a.S * a.Hp * a.Wp, a.Hp, a.Wp, y0, x0,
+                             (mvy & 3) * 4 + (mvx & 3), row, col, inside);
+    w.pred[2 * lane] = p.x, w.pred[2 * lane + 1] = p.y;
     const int y8 = 8 * r + (mvy >> 3) + a.cp, x8 = 8 * c + (mvx >> 3) + a.cp;
-    const int xf = mvx & 7, yf = mvy & 7;
-    for (int i = lane; i < 64; i += 32) {
-      w.pu[i] = mc_chroma(geo, a.pu[ref] + cso, y8, x8, xf, yf, i >> 3, i & 7);
-      w.pv[i] = mc_chroma(geo, a.pv[ref] + cso, y8, x8, xf, yf, i >> 3, i & 7);
-    }
+    const bool cin = y8 >= 0 && x8 >= 0 && y8 + 9 <= a.Hcp && x8 + 9 <= a.Wcp;
+    const int32_t* cref =
+        (lane >> 4 ? a.pv : a.pu)[ref] + (size_t)s * a.Hcp * a.Wcp;
+    (lane >> 4 ? w.pv : w.pu)[lane & 15] =
+        mc_chroma4(cref, a.Hcp, a.Wcp, y8, x8, mvx & 7, mvy & 7,
+                   (lane & 15) >> 1, (lane & 1) * 4, cin);
   }
   __syncwarp();
-  const bool luma = lane < 16, chroma = lane >= 16 && lane < 24;
-  if (luma || chroma) {
-    const int cl = lane - 16, cpl = cl >> 2, cb = cl & 3;
-    const int by = luma ? lane >> 2 : cb >> 1, bx = luma ? lane & 3 : cb & 1;
-    const int n = luma ? 16 : 8;
-    const int* pred = luma ? w.pred : cpl ? w.pv : w.pu;
-    int d[16], pr[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      pr[i] = pred[(4 * by + (i >> 2)) * n + 4 * bx + (i & 3)];
-    if (luma) {
-      const Quant Q = quantiser_inter(a.qp);
-      const bool coded = (cbp_l >> (((by >> 1) << 1) | (bx >> 1))) & 1;
-      const int16_t* lv = a.luma_ac + m * 256 + 16 * lane;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int i = zz(k);
-        d[i] = coded ? dq_ac(Q, lv[k], pos_class(i)) : 0;
-      }
-    } else {
-      const Quant QC = quantiser_inter(a.qpc);
-      const int16_t* dc = a.chroma_dc + m * 8 + 4 * cpl;
-      const int lvl[4] = {dc[0], dc[1], dc[2], dc[3]};
-      d[0] = cbp_c >= 1 ? dq_cdc(QC, had2(lvl, cb)) : 0;
-      const int16_t* lv = a.chroma_ac + m * 120 + 60 * cpl + 15 * cb;
-#pragma unroll
-      for (int k = 1; k < 16; ++k) {
-        const int i = zz(k);
-        d[i] = cbp_c == 2 ? dq_ac(QC, lv[k - 1], pos_class(i)) : 0;
-      }
-    }
-    inv4_add(d, pr);
-    int32_t* o = luma ? a.ry : cpl ? a.rv : a.ru;
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      o[m * n * n + (4 * by + (i >> 2)) * n + 4 * bx + (i & 3)] = d[i];
-  }
-  __syncwarp();  // the warp's next MB overwrites the prediction
-}
 
-__global__ void __launch_bounds__(32 * kWarps)
-    pframe_decode_kernel(const DecArgs a) {
-  __shared__ WarpMem smem[kWarps];
-  __shared__ int mvs[2][32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x;  // s * R + r
-  const int s = row / a.R, r = row % a.R;
-  const size_t m0 = (size_t)row * a.C;
-  int carry_x = 0, carry_y = 0;  // warp 0: the vector left of the 32
-  for (int c0 = 0; c0 < a.C; c0 += 32) {
-    if (warp == 0) {
-      const int c = c0 + lane;
-      const bool inter = c < a.C && a.kind[m0 + c] == 1;
-      int reset = !inter, vx = inter ? a.mvdx[m0 + c] : 0,
-          vy = inter ? a.mvdy[m0 + c] : 0;
-      // segmented inclusive scan: (reset, sum) after (reset', sum') is
-      // (reset | reset', reset ? sum : sum' + sum)
-      for (int o = 1; o < 32; o <<= 1) {
-        const int src = lane >= o ? lane - o : lane;
-        const int pr = __shfl_sync(0xffffffffu, reset, src);
-        const int px = __shfl_sync(0xffffffffu, vx, src);
-        const int py = __shfl_sync(0xffffffffu, vy, src);
-        if (lane >= o && !reset) reset = pr, vx += px, vy += py;
-      }
-      if (!reset) vx += carry_x, vy += carry_y;
-      mvs[0][lane] = vx, mvs[1][lane] = vy;
-      if (c < a.C) a.mvx[m0 + c] = vx, a.mvy[m0 + c] = vy;
-      carry_x = __shfl_sync(0xffffffffu, vx, 31);
-      carry_y = __shfl_sync(0xffffffffu, vy, 31);
+  const bool luma = lane < 16, chroma = lane >= 16 && lane < 24;
+  if (!luma && !chroma) return;
+  const int cl = lane - 16, cpl = cl >> 2, cb = cl & 3;
+  const int by = luma ? lane >> 2 : cb >> 1, bx = luma ? lane & 3 : cb & 1;
+  const int n = luma ? 16 : 8;
+  const Quant Q = quantiser_inter(luma ? a.qp : a.qpc);
+  int d[16];
+  if (luma) {
+    const bool coded = (cbp_l >> (((by >> 1) << 1) | (bx >> 1))) & 1;
+    const int4* lp = reinterpret_cast<const int4*>(a.luma_ac + m * 256 + 16 * lane);
+    const int4 h0 = lp[0], h1 = lp[1];
+    const int words[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int lv = (int)(int16_t)(words[k >> 1] >> (16 * (k & 1)));
+      const int i = zz(k);
+      d[i] = coded ? dq_ac(Q, lv, pos_class(i)) : 0;
     }
-    __syncthreads();
-    const int n = min(32, a.C - c0);
-    for (int k = warp; k < n; k += kWarps)
-      recon_mb(a, smem[warp], lane, m0 + c0 + k, s, r, c0 + k, mvs[0][k],
-               mvs[1][k]);
-    __syncthreads();  // the next 32 columns overwrite mvs
+  } else {
+    const int16_t* dc = a.chroma_dc + m * 8 + 4 * cpl;
+    const int lvl[4] = {dc[0], dc[1], dc[2], dc[3]};
+    d[0] = cbp_c >= 1 ? dq_cdc(Q, had2(lvl, cb)) : 0;
+    const int16_t* lv = w.cac + 60 * cpl + 15 * cb;
+#pragma unroll
+    for (int k = 1; k < 16; ++k) {
+      const int i = zz(k);
+      d[i] = cbp_c == 2 ? dq_ac(Q, lv[k - 1], pos_class(i)) : 0;
+    }
   }
+  const uint32_t* pp = luma ? w.pred : cpl ? w.pv : w.pu;
+  const int wpr = luma ? 4 : 2;  // prediction words a row
+  uint32_t pw[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pw[i] = pp[(4 * by + i) * wpr + bx];
+  inv4_add(d, pw);
+  int32_t* o = (luma ? a.ry : cpl ? a.rv : a.ru) + m * n * n + 4 * bx;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<int4*>(o + (4 * by + i) * n) =
+        make_int4(d[4 * i], d[4 * i + 1], d[4 * i + 2], d[4 * i + 3]);
 }
 
 }  // namespace
@@ -210,12 +254,13 @@ __global__ void __launch_bounds__(32 * kWarps)
                    // shims
 
 // p: kPtrs device pointers, n: kInts ints, in `dec_args`' order (host
-// arrays); a block a MB row of the S * R.
+// arrays); one warp a MB of the S * R * C.
 extern "C" int th264_pframe_decode(void* const* p, const int* n,
                                    void* stream) {
   const DecArgs a = dec_args(p, n);
-  pframe_decode_kernel<<<a.S * a.R, 32 * kWarps, 0, (cudaStream_t)stream>>>(
-      a);
+  const int mbs = a.S * a.R * a.C;
+  pframe_decode_kernel<<<(mbs + kWarps - 1) / kWarps, 32 * kWarps, 0,
+                         (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

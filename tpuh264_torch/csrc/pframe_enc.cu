@@ -17,11 +17,15 @@
 //  * stage B: the 3x3 full-pel refine on the G plane, cost sad + lam *
 //    rate_q(4 mx - 4 gx, 4 my - 4 gy), candidates in raster order (dy
 //    outer), a candidate replacing the best only when strictly cheaper;
-//  * stages C / D: the 49 quarter-pel costs around the refined vector
-//    (each prediction the rounded mean of two half-pel components,
-//    QPEL_TBL), then the half-pel selection in OFFSETS_HALF order and the
-//    quarter-pel one in OFFSETS_QUARTER order around it, both from the
-//    centre and on a strict <; the SAD kept is the chosen position's;
+//  * stages C / D: the half-pel selection in OFFSETS_HALF order around
+//    the refined vector, then the quarter-pel one in OFFSETS_QUARTER
+//    order around the half-pel winner, both on a strict <, each
+//    prediction the rounded mean of two half-pel components (QPEL_TBL);
+//    the plain version tabulates all 49 quarter-pel costs first, but the
+//    selections read only the centre, the 8 half-pel positions and the 8
+//    quarter-pel ones around the half-pel winner, so only those 17 are
+//    computed here (the centre's cost and SAD are stage B's winner's: the
+//    same G samples and rate); the SAD kept is the chosen position's;
 //  * the reference choice: the cost plus lam * ref_idx_bits(n + ref_base,
 //    ref_base + N) (the host's `ref_cost`), a later reference replacing
 //    the best only on a strict <;
@@ -44,37 +48,68 @@
 // planes [S,H,W], [S,H/2,W/2] x 2.
 //
 // What bounds it on the H100: bytes.  Every MB searches every reference,
-// and its 18x18 windows of the four half-pel planes tile each plane, so
-// at 1080p x 4 with one reference it must read the four int32 half-pel
+// and its windows of the four half-pel planes tile each plane, so at
+// 1080p x 4 with one reference it must read the four int32 half-pel
 // planes and the two chroma planes over the frame's area (150.4 MB) and
 // the int32 source (50.1 MB), and write 1,184 bytes a MB (38.6 MB):
-// about 239 MB, 0.071 ms at 3.35 TB/s.  Its arithmetic, 58 candidate SADs
-// of 256 samples a MB and reference, is some 0.5 G integer operations at
-// 1080p x 4, far under the card's rate.
+// about 239 MB, 0.071 ms at 3.35 TB/s.  Its arithmetic, 25 candidate SADs
+// of 256 samples a MB and reference on packed bytes, is far under the
+// card's rate.  What holds it is the latency of the window loads: a
+// warp spends ~60% of its time on them (tools/time_pframe.py --phases).
+// The first design (d893870) also lost time to issue: 58 SADs of int32
+// samples from shared memory, each ending in a 5-step shuffle chain,
+// behind two dependent rounds of window loads, at 24 warps an SM.
 //
-// Design, simple and right first: a warp per MB, kWarps MBs a block (no
-// block barrier: a warp past the last MB returns).  The warp stages the
-// source MB and, per reference, the 18x18 G window of stage B and then
-// the four planes' 18x18 windows of stages C / D in its shared memory;
-// lane l takes row l / 2 and eight columns of every candidate, whose SAD
-// an xor-shuffle reduction gives every lane, so every lane runs the same
-// selections.  Then lanes 0-15 take a luma 4x4 block each and lanes 16-23
-// a chroma block each (cbps by ballots, the chroma DCs through shared
-// memory).  Where trouble is likely, and what is done about it:
+// Design: a warp per MB, kWarps MBs a block (no block barrier: a warp
+// past the last MB returns).
+//  * The source MB is read with 16-byte loads and kept as bytes: the
+//    lane's 8 samples (row lane / 2, columns 8 (lane & 1) ..) in two
+//    registers for the SADs, the MB in shared memory for the transforms.
+//  * Per reference, one load before stage B: the 20x20 windows at (iy0 -
+//    2, ix0 - 2) of the four half-pel planes, which hold stage B's +-1
+//    and every sub-pel position around any refined vector, as bytes in
+//    shared memory (1.6 KB a reference; every half-pel sample is 0..255:
+//    G is the reference, build_halfpel_planes_ext clips b, h, j).  Each
+//    lane packs four int32 samples into a word, 16 loads at a time (all
+//    64 at once took 72 registers and ran slower); a window inside the
+//    plane (every legal vector's) takes no clamp, one that touches the
+//    border clamps every index.  Two buffers: the best reference's
+//    windows stay while the next reference's load into the other.
+//  * Each phase (stage B's 9, the 8 half-pel, the 8 quarter-pel
+//    candidates) computes its candidates' partial SADs together, 8
+//    samples a lane: the window row's words shifted to the candidate's
+//    byte offset, the two components' rounded mean per byte (`avg4`),
+//    __vsadu4 against the source; then one redux.sync (__reduce_add_sync)
+//    a candidate gives every lane the SAD, and every lane runs the same
+//    sequential selection.
+//  * MC: the luma prediction from the chosen reference's windows in
+//    shared memory, the chroma prediction by all 32 lanes, four samples
+//    each.
+//  * 56 registers and 4.3 KB of shared memory a warp: 36 warps an SM.
+//    Held to 48 registers (40 warps) it spills and runs slower.
+//  * Then lanes 0-15 take a luma 4x4 block each and lanes 16-23 a chroma
+//    block each (cbps by ballots, the chroma DCs through shared memory);
+//    every store is 16 bytes a lane (the luma levels, the chroma levels
+//    staged in shared memory, the int32 reconstruction) or 4 (the uint8
+//    planes' rows).
+// Where trouble is likely, and what is done about it:
 //  * tie order: every selection is the plain version's sequential strict
 //    < in its own order (stage B raster, half then quarter, references by
 //    index), run identically on every lane; no parallel min reorders it;
 //  * `_rate_q`: the plain version counts 2|v| + 1 against the powers up
-//    to 128, exact for |v| <= 127; `ue_len` counts the same way, and the
-//    static_assert below bounds the refined vectors at 71;
+//    to 128, exact for |v| <= 127; `ue_len` takes min(bit length, 8), and
+//    the static_assert below bounds the refined vectors at 71;
 //  * negative shifts and masks: mv >> 2, & 3, >> 3, & 7 stay int
 //    arithmetic (floor, two's complement), as torch's;
 //  * alignment: the half-pel planes are [S, Hp, Wp] int32 with Wp not a
-//    multiple of 4; every load here is a scalar one;
+//    multiple of 4, so their loads are scalar; the source, the levels and
+//    the reconstruction are 16-byte aligned (the wrapper clones a source
+//    plane that is not);
 //  * multi-reference: up to sixteen references' pointers (unused ones
 //    repeat reference 0's), a reference's winners at [n, S, R, C]; N is 1
 //    right after an IDR, and ref_base is the temporal-layer session's
-//    forced reference.
+//    forced reference.  The arguments are a __grid_constant__ parameter,
+//    so a reference's pointer is read where it is, not from a local copy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,10 +120,15 @@ namespace {
 
 constexpr int kWarps = 4;     // MBs a block, a warp each
 constexpr int kMaxRefs = 16;  // H.264's most references
-constexpr int kWin = 18;      // window side: 16 + the +-1 around a vector
+constexpr int kWin = 20;      // window side: 16 + stage B's and the sub-pel reach
+constexpr int kWinWords = kWin / 4;            // a window row's words
+constexpr int kPlaneWords = kWin * kWinWords;  // a plane's window
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSearch = 8, kRefine = 1;  // golden.inter SEARCH_RANGE, REFINE_RANGE
 static_assert(4 * (kSearch + kRefine) + 3 + 4 * kSearch <= 127,
               "a refined vector's rate is outside _rate_q's exact range");
+static_assert(kWin == 16 + 2 * (kRefine + 1), "the window holds stage B "
+              "and the sub-pel components around any refined vector");
 
 struct EncArgs {
   const int32_t *y, *u, *v;            // source [S,H,W], [S,H/2,W/2] x 2
@@ -134,31 +174,88 @@ inline EncArgs enc_args(void* const* p, const int* n) {
 }
 static_assert(7 + 3 * kMaxRefs + 14 == kPtrs, "pointer count");
 
-// A warp's shared memory: its MB's source, one reference's windows, the
-// 49 costs and SADs, the prediction, the chroma DCs.
+// A warp's shared memory (4,288 bytes), every sample a byte: two
+// references' four windows, the best so far and the one searched (word i
+// of plane p: row i / 5, samples 4 (i % 5) ..; one word more, read past
+// the last row but never used),
+// the source MB and the prediction (luma 4 words a row, chroma 2), the
+// chroma DC coefficients and levels, and the chroma AC levels staged for
+// their 16-byte stores.
 struct WarpMem {
-  int src[256], su[64], sv[64];
-  int win[4][kWin][kWin];
-  int cost[49], sad[49];
-  int pred[256], pu[64], pv[64];
-  int cdc[2][4];
+  uint32_t win[2][4 * kPlaneWords + 1];
+  uint32_t src[64], su[16], sv[16];
+  uint32_t pred[64], pu[16], pv[16];
+  int cdc[2][4], cdq[2][4];
+  alignas(16) int16_t cac[120];
 };
 
-// the 18x18 window of plane `p` (stream s's) at plane-space (y0, x0),
-// each index clamped into the plane
-__device__ __forceinline__ void load_win(int (*w)[kWin], const int32_t* p,
-                                         int y0, int x0, int hp, int wp,
-                                         int lane) {
-  for (int i = lane; i < kWin * kWin; i += 32)
-    w[i / kWin][i % kWin] = at(p, y0 + i / kWin, x0 + i % kWin, hp, wp);
+// The 20x20 windows of one reference's four half-pel planes (stream s's
+// G plane `g`, the others lstride on) at plane-space (y0, x0), into
+// `win` as bytes: lane l packs words l, l + 32, .. of each plane's 100.
+// A window inside the plane reads without the clamp.
+__device__ __forceinline__ void load_windows(uint32_t* win, const int32_t* g,
+                                             size_t lstride, int y0, int x0,
+                                             int hp, int wp, int lane) {
+  const bool inside = y0 >= 0 && x0 >= 0 && y0 + kWin <= hp && x0 + kWin <= wp;
+#pragma unroll 1  // unrolled, its loads would take as many registers
+  for (int k = 0; k < 4; ++k) {
+    const int i = lane + 32 * k;
+    if (i < kPlaneWords) {
+      const int y = y0 + i / kWinWords, x = x0 + 4 * (i % kWinWords);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int32_t* q = g + p * lstride;
+        int v[4];
+        if (inside) {
+          const int32_t* r = q + (size_t)y * wp + x;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = r[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = at(q, y, x + j, hp, wp);
+        }
+        win[p * kPlaneWords + i] = pack_bytes(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ int warp_sad(int part) {
-  return (int)warp_sum((unsigned)part);
+// the 8 bytes of plane p's window row y from column x: the row's words
+// from x / 4 shifted to the byte offset
+__device__ __forceinline__ uint2 win8(const uint32_t* win, int p, int y,
+                                      int x) {
+  const uint32_t* w = win + p * kPlaneWords + y * kWinWords + (x >> 2);
+  const int s = 8 * (x & 3);
+  const uint64_t lo = ((uint64_t)w[1] << 32) | w[0];
+  const uint64_t hi = ((uint64_t)w[2] << 32) | w[1];
+  return make_uint2((uint32_t)(lo >> s), (uint32_t)(hi >> s));
 }
+
+// The lane's 8 luma prediction samples (MB row `row`, columns col ..
+// col + 7) at quarter-pel offset (py, px) from the window's sample (oy,
+// ox): the rounded mean of the fraction's two components (one, where the
+// fraction names the same one twice: (a + a + 1) >> 1 = a).
+__device__ __forceinline__ uint2 qpel8(const uint32_t* win, int oy, int ox,
+                                       int py, int px, int row, int col) {
+  const int f = (py & 3) * 4 + (px & 3);
+  const int c1 = kQpel[f][0], c2 = kQpel[f][1];
+  const int y = oy + (py >> 2) + row, x = ox + (px >> 2) + col;
+  const uint2 a = win8(win, kCompPl[c1], y + kCompDy[c1], x + kCompDx[c1]);
+  if (c1 == c2) return a;
+  const uint2 b = win8(win, kCompPl[c2], y + kCompDy[c2], x + kCompDx[c2]);
+  return make_uint2(avg4(a.x, b.x), avg4(a.y, b.y));
+}
+
+__device__ __forceinline__ unsigned sad8(uint2 s, uint2 p) {
+  return __vsadu4(s.x, p.x) + __vsadu4(s.y, p.y);
+}
+
+// candidate k of 8 around a centre in raster order, the centre (4 of 9)
+// left out
+__device__ __forceinline__ int ring(int k) { return k + (k >= 4); }
 
 __global__ void __launch_bounds__(32 * kWarps)
-    pframe_encode_kernel(const EncArgs a) {
+    pframe_encode_kernel(const __grid_constant__ EncArgs a) {
   __shared__ WarpMem smem[kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rc = a.R * a.C, mbs = a.S * rc;
@@ -167,108 +264,100 @@ __global__ void __launch_bounds__(32 * kWarps)
   WarpMem& w = smem[warp];
   const int s = m / rc, r = (m % rc) / a.C, c = m % a.C;
   const int H = 16 * a.R, W = 16 * a.C, Hc = H / 2, Wc = W / 2;
-  const RefPlanes geo{nullptr, nullptr, nullptr,
-                      (size_t)a.S * a.Hp * a.Wp, a.Hp, a.Wp, a.Hcp, a.Wcp};
+  const size_t lstride = (size_t)a.S * a.Hp * a.Wp;
   const size_t lso = (size_t)s * a.Hp * a.Wp, cso = (size_t)s * a.Hcp * a.Wcp;
-
-  const int32_t* ys = a.y + (size_t)s * H * W + (size_t)16 * r * W + 16 * c;
-  for (int i = lane; i < 256; i += 32) w.src[i] = ys[(i >> 4) * W + (i & 15)];
-  const size_t co = (size_t)s * Hc * Wc + (size_t)8 * r * Wc + 8 * c;
-  for (int i = lane; i < 64; i += 32) {
-    w.su[i] = a.u[co + (i >> 3) * Wc + (i & 7)];
-    w.sv[i] = a.v[co + (i >> 3) * Wc + (i & 7)];
-  }
-  __syncwarp();
-
   const int row = lane >> 1, col = (lane & 1) * 8;  // the lane's 8 samples
-  const int* srow = w.src + 16 * row + col;
+  const int crow = (lane & 15) >> 1, ccol = (lane & 1) * 4;  // its chroma 4
+
+  // the source as bytes: the lane's luma 8 in registers and shared
+  // memory, its chroma 4 of plane lane / 16 in shared memory
+  uint2 src;
+  {
+    const int32_t* ys =
+        a.y + (size_t)s * H * W + (size_t)(16 * r + row) * W + 16 * c + col;
+    src = make_uint2(pack4(ld4(ys)), pack4(ld4(ys + 4)));
+    w.src[2 * lane] = src.x, w.src[2 * lane + 1] = src.y;
+    const int32_t* cs = (lane >> 4 ? a.v : a.u) + (size_t)s * Hc * Wc +
+                        (size_t)(8 * r + crow) * Wc + 8 * c + ccol;
+    (lane >> 4 ? w.sv : w.su)[lane & 15] = pack4(ld4(cs));
+  }
+
   int best_cost = 0, best_mvx = 0, best_mvy = 0, best_sad = 0, best_ref = 0;
-  for (int n = 0; n < a.N; ++n) {
+  int best_iy0 = 0, best_ix0 = 0, best_buf = 0;
+  for (int n = 0, cur = 0; n < a.N; ++n, cur = best_buf ^ 1) {
+    // reference n's windows go to the buffer the best so far is not in
     const size_t am = (size_t)n * mbs + m;
     const int iy0 = a.iy0[am], ix0 = a.ix0[am];
     const int gqy = 4 * a.gy[n * a.S + s], gqx = 4 * a.gx[n * a.S + s];
-    const int32_t* g = a.pl[n] + lso;
-
-    // stage B: 3x3 full-pel refine, raster order, strict <
-    load_win(w.win[0], g, 16 * r + iy0 - kRefine + a.pe,
-             16 * c + ix0 - kRefine + a.pe, a.Hp, a.Wp, lane);
+    const uint32_t* win = w.win[cur];
+    __syncwarp();  // the reads of the windows there are done
+    load_windows(w.win[cur], a.pl[n] + lso, lstride, 16 * r + iy0 - 2 + a.pe,
+                 16 * c + ix0 - 2 + a.pe, a.Hp, a.Wp, lane);
     __syncwarp();
-    int bcost = 0, iy = 0, ix = 0;
+
+    // stage B: 3x3 full-pel refine on G, raster order, strict <
+    int sad[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+      sad[k] = (int)sad8(src, win8(win, 0, 1 + k / 3 + row, 1 + k % 3 + col));
+#pragma unroll
+    for (int k = 0; k < 9; ++k) sad[k] = (int)__reduce_add_sync(kFull, sad[k]);
+    int cost = 0, iy = 0, ix = 0, bsad = 0;
+#pragma unroll
     for (int k = 0; k < 9; ++k) {
-      const int oy = k / 3, ox = k % 3;
-      const int* wr = &w.win[0][row + oy][col + ox];
-      int part = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part += abs(srow[j] - wr[j]);
-      const int sad = warp_sad(part);
-      const int my = iy0 - kRefine + oy, mx = ix0 - kRefine + ox;
-      const int cost = sad + a.lam * rate_q(4 * mx - gqx, 4 * my - gqy);
-      if (k == 0 || cost < bcost) bcost = cost, iy = my, ix = mx;
+      const int my = iy0 - kRefine + k / 3, mx = ix0 - kRefine + k % 3;
+      const int cand = sad[k] + a.lam * rate_q(4 * mx - gqx, 4 * my - gqy);
+      if (k == 0 || cand < cost) cost = cand, iy = my, ix = mx, bsad = sad[k];
     }
-    __syncwarp();
 
-    // stages C / D: the four planes' windows at the refined vector - 1
-    for (int p = 0; p < 4; ++p)
-      load_win(w.win[p], a.pl[n] + p * geo.lstride + lso,
-               16 * r + iy - 1 + a.pe, 16 * c + ix - 1 + a.pe, a.Hp, a.Wp,
-               lane);
-    __syncwarp();
-    for (int k = 0; k < 49; ++k) {
-      const int py = k / 7 - 3, px = k % 7 - 3;
-      const int f = (py & 3) * 4 + (px & 3);
-      const int c1 = kQpel[f][0], c2 = kQpel[f][1];
-      const int* w1 = &w.win[kCompPl[c1]][1 + (py >> 2) + kCompDy[c1] + row]
-                            [1 + (px >> 2) + kCompDx[c1] + col];
-      const int* w2 = &w.win[kCompPl[c2]][1 + (py >> 2) + kCompDy[c2] + row]
-                            [1 + (px >> 2) + kCompDx[c2] + col];
-      int part = 0;
+    // stage C: the half-pel positions around (iy, ix), OFFSETS_HALF
+    // order; the centre is stage B's winner.  Stage D: the quarter-pel
+    // positions around the half-pel winner, OFFSETS_QUARTER order.
+    const int oy = 2 + iy - iy0, ox = 2 + ix - ix0;  // (iy, ix) in the window
+    int by = 0, bx = 0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) part += abs(srow[j] - ((w1[j] + w2[j] + 1) >> 1));
-      const int sad = warp_sad(part);
-      if (lane == 0) {
-        w.sad[k] = sad;
-        w.cost[k] = sad + a.lam * rate_q(4 * ix + px - gqx, 4 * iy + py - gqy);
+    for (int half = 1; half >= 0; --half) {
+      const int step = half ? 2 : 1, base_y = by, base_x = bx;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        sad[k] = (int)sad8(src, qpel8(win, oy, ox,
+                                      base_y + step * (ring(k) / 3 - 1),
+                                      base_x + step * (ring(k) % 3 - 1), row,
+                                      col));
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        sad[k] = (int)__reduce_add_sync(kFull, sad[k]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int py = base_y + step * (ring(k) / 3 - 1);
+        const int px = base_x + step * (ring(k) % 3 - 1);
+        const int cand =
+            sad[k] + a.lam * rate_q(4 * ix + px - gqx, 4 * iy + py - gqy);
+        if (cand < cost) cost = cand, by = py, bx = px, bsad = sad[k];
       }
     }
-    __syncwarp();
-    // half-pel (OFFSETS_HALF order), then quarter-pel (OFFSETS_QUARTER)
-    // around it; both from the centre, strict <
-    int cost = w.cost[24], by = 0, bx = 0;
-    for (int k = 0; k < 9; ++k) {
-      const int hy = 2 * (k / 3) - 2, hx = 2 * (k % 3) - 2;
-      const int cand = w.cost[(3 + hy) * 7 + 3 + hx];
-      if (k != 4 && cand < cost) cost = cand, by = hy, bx = hx;
-    }
-    const int base_y = by, base_x = bx;
-    for (int k = 0; k < 9; ++k) {
-      const int qy = base_y + k / 3 - 1, qx = base_x + k % 3 - 1;
-      const int cand = w.cost[(3 + qy) * 7 + 3 + qx];
-      if (k != 4 && cand < cost) cost = cand, by = qy, bx = qx;
-    }
-    const int sad = w.sad[(3 + by) * 7 + 3 + bx];
     cost += a.ref_cost[n];
     if (n == 0 || cost < best_cost) {
       best_cost = cost, best_mvx = 4 * ix + bx, best_mvy = 4 * iy + by;
-      best_sad = sad, best_ref = n;
+      best_sad = bsad, best_ref = n, best_iy0 = iy0, best_ix0 = ix0;
+      best_buf = cur;
     }
-    __syncwarp();  // the next reference overwrites the windows and costs
   }
 
-  // motion compensation from the chosen reference
+  // motion compensation from the chosen reference: luma from its
+  // windows, chroma four samples a lane from plane lane / 16
   const int mvx = best_mvx, mvy = best_mvy;
   {
-    const int32_t* l = a.pl[best_ref] + lso;
-    const int f = (mvy & 3) * 4 + (mvx & 3);
-    const int y0 = 16 * r + (mvy >> 2) + a.pe, x0 = 16 * c + (mvx >> 2) + a.pe;
-    for (int i = lane; i < 256; i += 32)
-      w.pred[i] = mc_luma(geo, l, y0, x0, f, i >> 4, i & 15);
+    const uint2 p = qpel8(w.win[best_buf], 2 - best_iy0, 2 - best_ix0, mvy,
+                          mvx, row, col);
+    w.pred[2 * lane] = p.x, w.pred[2 * lane + 1] = p.y;
     const int y8 = 8 * r + (mvy >> 3) + a.cp, x8 = 8 * c + (mvx >> 3) + a.cp;
-    const int xf = mvx & 7, yf = mvy & 7;
-    const int32_t *cu = a.pu[best_ref] + cso, *cv = a.pv[best_ref] + cso;
-    for (int i = lane; i < 64; i += 32) {
-      w.pu[i] = mc_chroma(geo, cu, y8, x8, xf, yf, i >> 3, i & 7);
-      w.pv[i] = mc_chroma(geo, cv, y8, x8, xf, yf, i >> 3, i & 7);
-    }
+    const bool inside =
+        y8 >= 0 && x8 >= 0 && y8 + 9 <= a.Hcp && x8 + 9 <= a.Wcp;
+    const int32_t* cref = (lane >> 4 ? a.pv : a.pu)[best_ref] + cso;
+    (lane >> 4 ? w.pv : w.pu)[lane & 15] =
+        mc_chroma4(cref, a.Hcp, a.Wcp, y8, x8, mvx & 7, mvy & 7, crow, ccol,
+                   inside);
   }
   __syncwarp();
 
@@ -276,86 +365,102 @@ __global__ void __launch_bounds__(32 * kWarps)
   // lanes 16-23 chroma block (lane - 16) & 3 of plane (lane - 16) >> 2
   const bool luma = lane < 16, chroma = lane >= 16 && lane < 24;
   const int cl = lane - 16, cpl = cl >> 2, cb = cl & 3;
-  const Quant Q = quantiser_inter(a.qp), QC = quantiser_inter(a.qpc);
-  int x[16], q[16], pr[16];
+  const int by = luma ? lane >> 2 : cb >> 1, bx = luma ? lane & 3 : cb & 1;
+  const Quant Q = quantiser_inter(luma ? a.qp : a.qpc);  // the lane's plane's
+  // the block's source and prediction words, a row a word
+  const uint32_t* sw = luma ? w.src : cpl ? w.sv : w.su;
+  const uint32_t* pp = luma ? w.pred : cpl ? w.pv : w.pu;
+  const int o0 = 4 * by * (luma ? 4 : 2) + bx, wpr = luma ? 4 : 2;
+  int x[16];  // the coefficients, then their dequantised levels
   bool nz_ac = false;
   if (luma || chroma) {
-    const int stride = luma ? 16 : 8;
-    const int by = luma ? lane >> 2 : cb >> 1, bx = luma ? lane & 3 : cb & 1;
-    const int* src = luma ? w.src : cpl ? w.sv : w.su;
-    const int* pred = luma ? w.pred : cpl ? w.pv : w.pu;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int o = (4 * by + (i >> 2)) * stride + 4 * bx + (i & 3);
-      pr[i] = pred[o];
-      x[i] = src[o] - pr[i];
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t sword = sw[o0 + i * wpr], pword = pp[o0 + i * wpr];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[4 * i + j] = byte_of(sword, j) - byte_of(pword, j);
     }
     fwd4(x);
-    const Quant& qq = luma ? Q : QC;
+    // each coefficient quantised in zigzag order, its level stored (luma:
+    // two a word, 16 bytes at a time; chroma AC: staged in shared memory)
+    // and dequantised in place; the chroma DC goes through the Hadamard
 #pragma unroll
-    for (int i = 0; i < 16; ++i) q[i] = q_ac(qq, x[i], pos_class(i));
-    if (luma) {
-      int16_t* lv = a.luma_ac + (size_t)m * 256 + 16 * lane;
+    for (int half = 0; half < 2; ++half) {
+      uint32_t lw[4] = {};
 #pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        lv[k] = (int16_t)q[zz(k)];
-        nz_ac |= q[k] != 0;
+      for (int k = 8 * half; k < 8 * half + 8; ++k) {
+        const int i = zz(k), cls = pos_class(i);
+        if (chroma && k == 0) {
+          w.cdc[cpl][cb] = x[0];
+          continue;
+        }
+        const int lv = q_ac(Q, x[i], cls);
+        nz_ac |= lv != 0;
+        if (luma)
+          lw[(k >> 1) & 3] |= (uint32_t)(uint16_t)lv << (16 * (k & 1));
+        else
+          w.cac[60 * cpl + 15 * cb + k - 1] = (int16_t)lv;
+        x[i] = dq_ac(Q, lv, cls);
       }
-    } else {
-      int16_t* lv = a.chroma_ac + (size_t)m * 120 + 60 * cpl + 15 * cb;
-#pragma unroll
-      for (int k = 1; k < 16; ++k) {
-        lv[k - 1] = (int16_t)q[zz(k)];
-        nz_ac |= q[zz(k)] != 0;
-      }
-      w.cdc[cpl][cb] = x[0];  // the block's DC coefficient
+      if (luma)
+        reinterpret_cast<int4*>(a.luma_ac + (size_t)m * 256 + 16 * lane)[half] =
+            make_int4((int)lw[0], (int)lw[1], (int)lw[2], (int)lw[3]);
     }
   }
   __syncwarp();
   int dcq = 0;
-  if (chroma) {
-    dcq = q_cdc(QC, had2(w.cdc[cpl], cb));
-    a.chroma_dc[(size_t)m * 8 + 4 * cpl + cb] = (int16_t)dcq;
-  }
+  if (chroma) w.cdq[cpl][cb] = dcq = q_cdc(Q, had2(w.cdc[cpl], cb));
   __syncwarp();
-  if (chroma) w.cdc[cpl][cb] = dcq;
-  const unsigned nzl = __ballot_sync(0xffffffffu, luma && nz_ac);
-  const unsigned anyac = __ballot_sync(0xffffffffu, chroma && nz_ac);
-  const unsigned anydc = __ballot_sync(0xffffffffu, chroma && dcq != 0);
+  // the chroma levels out, 16 bytes a lane: AC [2,4,15], DC [2,4]
+  if (lane < 15)
+    reinterpret_cast<int4*>(a.chroma_ac + (size_t)m * 120)[lane] =
+        reinterpret_cast<const int4*>(w.cac)[lane];
+  else if (lane == 15)
+    *reinterpret_cast<int4*>(a.chroma_dc + (size_t)m * 8) = make_int4(
+        (int)pack16(w.cdq[0][0], w.cdq[0][1]), (int)pack16(w.cdq[0][2], w.cdq[0][3]),
+        (int)pack16(w.cdq[1][0], w.cdq[1][1]), (int)pack16(w.cdq[1][2], w.cdq[1][3]));
+  const unsigned nzl = __ballot_sync(kFull, luma && nz_ac);
+  const unsigned anyac = __ballot_sync(kFull, chroma && nz_ac);
+  const unsigned anydc = __ballot_sync(kFull, chroma && dcq != 0);
   const int cbp_l = ((nzl & 0x33u) ? 1 : 0) | ((nzl & 0xCCu) ? 2 : 0) |
                     ((nzl & 0x3300u) ? 4 : 0) | ((nzl & 0xCC00u) ? 8 : 0);
   const int cbp_c = anyac ? 2 : anydc ? 1 : 0;
 
   // the reconstruction: uncoded 8x8 groups' and chroma's cbp-masked
   // levels dropped, dequantised, inverse transformed, added, clipped
-  if (luma) {
-    const int by = lane >> 2, bx = lane & 3;
-    const bool coded = (cbp_l >> (((by >> 1) << 1) | (bx >> 1))) & 1;
+  if (luma || chroma) {
+    if (luma) {
+      const bool coded = (cbp_l >> (((by >> 1) << 1) | (bx >> 1))) & 1;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) x[i] = coded ? dq_ac(Q, q[i], pos_class(i)) : 0;
-    inv4_add(x, pr);
-  } else if (chroma) {
-    const int dc = cbp_c >= 1 ? dq_cdc(QC, had2(w.cdc[cpl], cb)) : 0;
+      for (int i = 0; i < 16; ++i) x[i] = coded ? x[i] : 0;
+    } else {
 #pragma unroll
-    for (int i = 1; i < 16; ++i)
-      x[i] = cbp_c == 2 ? dq_ac(QC, q[i], pos_class(i)) : 0;
-    x[0] = dc;
-    inv4_add(x, pr);
+      for (int i = 1; i < 16; ++i) x[i] = cbp_c == 2 ? x[i] : 0;
+      x[0] = cbp_c >= 1 ? dq_cdc(Q, had2(w.cdq[cpl], cb)) : 0;
+    }
+    const uint32_t pw[4] = {pp[o0], pp[o0 + wpr], pp[o0 + 2 * wpr],
+                            pp[o0 + 3 * wpr]};
+    inv4_add(x, pw);
   }
   if (luma || chroma) {
-    const int by = luma ? lane >> 2 : cb >> 1, bx = luma ? lane & 3 : cb & 1;
     const int n = luma ? 16 : 8;
-    for (int i = 0; i < 16; ++i) {
-      const int yy = 4 * by + (i >> 2), xx = 4 * bx + (i & 3);
-      if (a.mb_out) {
-        int32_t* o = static_cast<int32_t*>(luma ? a.ry : cpl ? a.rv : a.ru);
-        o[(size_t)m * n * n + yy * n + xx] = x[i];
-      } else {
-        uint8_t* o = static_cast<uint8_t*>(luma ? a.ry : cpl ? a.rv : a.ru);
-        const int pw = luma ? W : Wc, ph = luma ? H : Hc;
-        o[(size_t)s * ph * pw + (size_t)(n * r + yy) * pw + n * c + xx] =
-            (uint8_t)x[i];
-      }
+    if (a.mb_out) {
+      int32_t* o = static_cast<int32_t*>(luma ? a.ry : cpl ? a.rv : a.ru) +
+                   (size_t)m * n * n + 4 * bx;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<int4*>(o + (4 * by + i) * n) =
+            make_int4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+    } else {
+      const int pw_ = luma ? W : Wc, ph = luma ? H : Hc;
+      uint8_t* o = static_cast<uint8_t*>(luma ? a.ry : cpl ? a.rv : a.ru) +
+                   (size_t)s * ph * pw_ + (size_t)(n * r + 4 * by) * pw_ +
+                   n * c + 4 * bx;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<uint32_t*>(o + (size_t)i * pw_) = pack_bytes(
+            x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
     }
   }
   if (lane == 0) {

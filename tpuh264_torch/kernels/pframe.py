@@ -17,8 +17,9 @@ tests/test_torch_pframe_kernel.py):
      (csrc/pframe_enc.cu), its plain version `_inter_encode_plain` for
      CPU tensors and for `t8`:
      a. stage B: a 3x3 full-resolution refine around the winner;
-     b. stages C/D: all 49 reachable quarter-pel positions of an 18x18
-        four-plane window, then the normative half -> quarter selection;
+     b. stages C/D: the normative half -> quarter selection (the plain
+        version tabulates all 49 reachable quarter-pel positions of an
+        18x18 four-plane window; K9 computes the 17 the selections read);
      c. the reference choice, motion compensation, transforms, quant,
         reconstruction and P_Skip;
      d. with `t8`, the 8x8 transform of every inter MB beside the 4x4
@@ -681,8 +682,9 @@ def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
     lam = int(LAMBDA_ME[min(max(qp, 0), 51)])
     ref_cost = [lam * ref_idx_bits(k + ref_base, ref_base + n)
                 for k in range(n)] + [0] * (_MAX_REFS - n)
-    ins = [y32, u.to(I32).contiguous(), v.to(I32).contiguous(), iy0, ix0,
-           gy, gx, *_ref_planes(planes_l, refs_up, refs_vp)]
+    src = [x if x.data_ptr() % 16 == 0 else x.clone()  # 16-byte loads
+           for x in (y32, u.to(I32).contiguous(), v.to(I32).contiguous())]
+    ins = [*src, iy0, ix0, gy, gx, *_ref_planes(planes_l, refs_up, refs_vp)]
     ints = [s, r, c, n, h + 2 * _PE, w + 2 * _PE, h // 2 + 2 * _CP,
             w // 2 + 2 * _CP, _PE, _CP, qp, T.chroma_qp_from_luma(qp), lam,
             ref_base, int(intra_in_p), *ref_cost]
@@ -707,7 +709,7 @@ def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
                                    intra_in_p)
     n, mb = len(planes_l), (s, r, c)
     cuda_lib.check_inputs(name, dev, [
-        (y32, (s, h, w)), (ins[1], (s, h // 2, w // 2)),
+        (ins[0], (s, h, w)), (ins[1], (s, h // 2, w // 2)),
         (ins[2], (s, h // 2, w // 2)), (iy0, (n, *mb)), (ix0, (n, *mb)),
         (gy, (n, s)), (gx, (n, s))])
     err = cuda_lib.load().th264_pframe_encode(
@@ -920,8 +922,9 @@ def _k10_operands(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
     ins = [x.to(I32).contiguous() for x in (
         symbols.kind, symbols.mvdx, symbols.mvdy, refidx, symbols.cbp_luma,
         symbols.cbp_chroma)]
-    ins += [x.to(torch.int16).contiguous() for x in (
-        symbols.luma_ac, symbols.chroma_dc, symbols.chroma_ac)]
+    ins += [x if x.data_ptr() % 16 == 0 else x.clone()  # 16-byte loads
+            for x in (y.to(torch.int16).contiguous() for y in (
+                symbols.luma_ac, symbols.chroma_dc, symbols.chroma_ac))]
     ins += _ref_planes(planes_l, refs_up, refs_vp)
     outs = [torch.empty((*mb, k, k), dtype=I32, device=dev)
             for k in (16, 8, 8)]
