@@ -16,11 +16,14 @@ tpuh264_torch/csrc, then:
      encoder's Intra_16x16 column scans), K7 and K8 (the single-slice
      wavefront's encode and decode, a thread-block cluster a stream, its
      MB rows pipelined), K9 (the P encode after stage A: refinement,
-     reference choice, MC, inter coding) and K10 (the P decode's MV
-     chain, MC and inter residuals) against their plain
+     reference choice, MC, inter coding), K10 (the P decode's MV
+     chain, MC and inter residuals), K11 (the reference build: half-pel
+     planes and padded chroma) and K12 (the stage-A winner) against their
+     plain
      PyTorch versions on the card (exact equality) at the main path's
      1920x1080 x 4 shapes (K4: an encoded I frame and P frame; K5: the
-     decoders' own inputs of that P frame and of its IDR), K3 at its
+     decoders' own inputs of that P frame and of its IDR, the residuals
+     decoded from the levels), K3 at its
      MB level (27 chunks -> 128 words) and its slice level (K = 123
      strings -> 8192 words), with the winner selection's first-index ties
      on the card; all three again on seeded edge cases (K1: samples 0 and
@@ -36,7 +39,8 @@ tpuh264_torch/csrc, then:
      intra-in-P) at 854x480 x 8; K5 on seeded cases (`d2_case`: C = 1,
      2, 3 and 61, intra shares 0 / ~1% / 50% / 100% and the I decode, DC
      and H mixes, clips at 0 and 255, H modes in column 0, which no legal
-     stream codes) and on a default-config (intra-in-P)
+     stream codes, levels the cbps mask out, QPs 0, 32 and 51) and on a
+     default-config (intra-in-P)
      P frame of "meeting" at 854x480 x 8, intra MBs required; K6 on the
      1080p x 4 I frame (D3), on the intra-in-P P frame at 854x480 x 8
      (D4, the P encode's own inputs of its scan) and on seeded cases
@@ -58,7 +62,13 @@ tpuh264_torch/csrc, then:
      columns; noise, motion, flat and 0 / 255 content; QPs 0, 28, 51;
      1-4 and 6 references, ref_base 0 / 1, stage-A winners at +-8, halo and
      intra-in-P on and off; decode symbols of skip, inter and intra MBs
-     with chains that restart and run past the planes' pad);
+     with chains that restart and run past the planes' pad); K11 / K12 on
+     that P frame's encode (and K11 its decode) and the 480p frame's two
+     references, and on seeded cases (`k11_case`: S 1 / 3, one MB, a
+     row, a column, 97 columns, N 1 / 2 / 4, halo on and off, uint8 and
+     int32; `k12_case`: noise, mirrored ties, tied counts, a group's
+     counts summed in), K11 also beside its closest library formulation
+     (replicate F.pad + float32 conv2d);
      times each kernel beside its plain
      version (CUDA events, after a warm-up) and against its bound (the
      bytes it must move over the card's 3.35 TB/s), K4 and K6 also in
@@ -180,8 +190,11 @@ pipeline and on the sessions with `deblock=True`; K5 on every path that
 decodes but the wavefront's, phase 16(a)'s halo decodes too; K6 on
 every path that encodes an I frame without Intra_4x4 or a P frame with
 intra-in-P, phase 16(a)'s ranks too; K9 on every path that encodes a P
-frame and K10 on every path that decodes one, but config 3's), and none
-may reach the plain version of K1, K3, K4, K5, K6, K7, K8, K9 or K10
+frame and K10 on every path that decodes one, but config 3's; K11 on every
+path that encodes or decodes a P frame, K12 on every one that encodes
+one, config 3 and phase 16(a)'s halo ranks included), and none may
+reach the plain version of K1, K3, K4, K5, K6, K7, K8, K9, K10, K11 or
+K12
 (K5's plain version with `i44`, the Intra_4x4 reconstruction, and D3's
 with `intra44`, the Intra_4x4 trial, are the session path's own; K9's
 and K10's with `t8`, the 8x8 transform's choice of config 3, too, and
@@ -273,7 +286,7 @@ def max_abs_err(x, y) -> int:
 # K5's with `i44` and D3's with `intra44` are the Intra_4x4 path's own
 # (D5's work); K9's and K10's with `t8` are the CABAC + 8x8 session path's
 # own (the 8x8 transform's choice, config 3), counted and printed apart
-EXEMPT = {"_intra_recon_scan_plain": ("i44", 5),
+EXEMPT = {"_intra_recon_scan_plain": ("i44", 7),
           "_encode_iframe_scan_plain": ("intra44", 4),
           "_inter_encode_plain": ("t8", 12),
           "_inter_decode_plain": ("t8", 5)}
@@ -294,24 +307,26 @@ def _plain_spy(name, f, calls, exempt=None):
 
 
 class Launches:
-    """The ten kernels' launch counts (K1, K2, K3, K4 = the deblock D1,
+    """The twelve kernels' launch counts (K1, K2, K3, K4 = the deblock D1,
     K5 = the intra reconstruction D2, K6 = the Intra_16x16 encode scans
     D3 and D4: its two routers' counts summed, K7 / K8 = the single-slice
     wavefront's encode / decode, K9 = the P encode after stage A, K10 =
-    the P decode's inter part), zeroed before and read after each path
-    the smoke drives; summed over those paths for the kernel table.  The
-    plain versions of K1 (`_sad_field`), K3 (`tree_merge`), K4
-    (`_deblock_rows_plain`), K5 (`_intra_recon_scan_plain` without `i44`;
-    with it, the Intra_4x4 reconstruction, it is the path's own), K6
-    (`_encode_iframe_scan_plain` without `intra44`,
-    `_intra_in_p_scan_plain`), K7 (`_encode_iframe_single_plain`), K8
-    (`_decode_iframe_single_plain`), K9 (`_inter_encode_plain` without
-    `t8`) and K10 (`_inter_decode_plain` without `t8`) are counted too:
-    none may run on a path.  The `t8` calls of K9's and K10's plain
-    versions (the CABAC + 8x8 session path's eager route) are counted
-    apart and printed."""
+    the P decode's inter part, K11 = the reference build, K12 = the
+    stage-A winner: its calls, two launches each), zeroed before and read
+    after each path the smoke drives; summed over those paths for the
+    kernel table.  The plain versions of K1 (`_sad_field`), K3
+    (`tree_merge`), K4 (`_deblock_rows_plain`), K5
+    (`_intra_recon_scan_plain` without `i44`; with it, the Intra_4x4
+    reconstruction, it is the path's own), K6 (`_encode_iframe_scan_plain`
+    without `intra44`, `_intra_in_p_scan_plain`), K7
+    (`_encode_iframe_single_plain`), K8 (`_decode_iframe_single_plain`),
+    K9 (`_inter_encode_plain` without `t8`), K10 (`_inter_decode_plain`
+    without `t8`), K11 (`_references_plain`) and K12
+    (`_int_winner_plain`) are counted too: none may run on a path.  The
+    `t8` calls of K9's and K10's plain versions (the CABAC + 8x8 session
+    path's eager route) are counted apart and printed."""
 
-    NEEDS = (0, 1, 2, 3, 4, 5, 8, 9)  # a GOP pipeline's kernels
+    NEEDS = (0, 1, 2, 3, 4, 5, 8, 9, 10, 11)  # a GOP pipeline's kernels
 
     def __init__(self):
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, iframe,
@@ -323,7 +338,8 @@ class Launches:
                     (iframe.encode_iframe_scan, pframe._intra_in_p_scan),
                     (wavefront.encode_iframe_single,),
                     (wavefront.decode_iframe_single,),
-                    (pframe._inter_encode,), (pframe._inter_decode,))
+                    (pframe._inter_encode,), (pframe._inter_decode,),
+                    (pframe._references,), (pframe._int_winner,))
         self.total = [0] * len(self.fns)
 
     def path(self, name, fn, needs=NEEDS):
@@ -341,17 +357,25 @@ class Launches:
                   (wavefront, "_encode_iframe_single_plain"),
                   (wavefront, "_decode_iframe_single_plain"),
                   (pframe, "_inter_encode_plain"),
-                  (pframe, "_inter_decode_plain")]
+                  (pframe, "_inter_decode_plain"),
+                  (pframe, "_references_plain"),
+                  (pframe, "_int_winner_plain")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
         t8_calls = [[] for _ in plains]
         for (m, a), f, c, e in zip(plains, saved, calls, t8_calls):
             setattr(m, a, _plain_spy(a, f, c, e))
+        # the eager intra residuals: K5 decodes them; only the EXEMPT
+        # plain scan (`i44`) may still call them, once a call
+        residuals, res_calls = iframe._intra_residuals, []
+        iframe._intra_residuals = (
+            lambda *a, **kw: res_calls.append(1) or residuals(*a, **kw))
         try:
             out = fn()
         finally:
             for (m, a), f in zip(plains, saved):
                 setattr(m, a, f)
+            iframe._intra_residuals = residuals
         counts = [sum(f.launches for f in fs) for fs in self.fns]
         for i, n in enumerate(counts):
             self.total[i] += n
@@ -362,20 +386,29 @@ class Launches:
               f"{self.fns[5][0].launches}, D4 {self.fns[5][1].launches}), "
               f"K7 (wavefront encode) {counts[6]}, K8 (wavefront decode) "
               f"{counts[7]}, K9 (P encode) {counts[8]}, K10 (P decode) "
-              f"{counts[9]}; plain calls K1 {plain[0]}, K3 {plain[1]}, K4 "
-              f"{plain[2]}, K5 without i44 {plain[3]}, K6: D3 without "
-              f"intra44 {plain[4]}, D4 {plain[5]}, K7 {plain[6]}, K8 "
-              f"{plain[7]}, K9 without t8 {plain[8]}, K10 without t8 "
-              f"{plain[9]}")
+              f"{counts[9]}, K11 (references) {counts[10]}, K12 (stage-A "
+              f"winner) {counts[11]}; plain calls K1 {plain[0]}, K3 "
+              f"{plain[1]}, K4 {plain[2]}, K5 without i44 {plain[3]}, K6: "
+              f"D3 without intra44 {plain[4]}, D4 {plain[5]}, K7 "
+              f"{plain[6]}, K8 {plain[7]}, K9 without t8 {plain[8]}, K10 "
+              f"without t8 {plain[9]}, K11 {plain[10]}, K12 {plain[11]}")
         if t8_calls[8] or t8_calls[9]:
             print(f"launches [{name}]: the t8 eager route (EXEMPT): K9's "
                   f"plain version {len(t8_calls[8])}, K10's "
                   f"{len(t8_calls[9])} calls")
+        if t8_calls[3] or t8_calls[4]:
+            print(f"launches [{name}]: the Intra_4x4 eager route (EXEMPT): "
+                  f"K5's plain version with i44 {len(t8_calls[3])} calls "
+                  f"(as many of _intra_residuals), D3's with intra44 "
+                  f"{len(t8_calls[4])}")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
         if any(plain):
             fail(f"{name}: a plain version ran (K1, K3, K4, K5, K6 D3, K6 "
-                 f"D4, K7, K8, K9, K10: {plain} times)")
+                 f"D4, K7, K8, K9, K10, K11, K12: {plain} times)")
+        if len(res_calls) != len(t8_calls[3]):
+            fail(f"{name}: _intra_residuals ran {len(res_calls)} times, "
+                 f"the i44 plain scan {len(t8_calls[3])} times")
         return out, counts
 
 
@@ -385,6 +418,10 @@ NO_LIBRARY = {
           "and inter coding",
     "K10": "no PyTorch call runs H.264 motion compensation and inter "
            "reconstruction",
+    "K11": "timed: replicate F.pad + float32 conv2d with the 6-tap "
+           "filters, rounded and clamped",
+    "K12": "no single PyTorch call: the winners' mode and the rate "
+           "relative to it sit between two argmins",
     "K1": "no single PyTorch call: torch.cdist(p=1) would first need the "
           "289 candidate patches of every MB unfolded, and that is the work",
     "K2": "no PyTorch call encodes CAVLC",
@@ -412,11 +449,13 @@ def kernel_row(key, name, source, replaces, err, ms, plain_ms, nbytes):
 
 
 def show(r, where):
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms']:.4f} ms") + f" ({NO_LIBRARY[r['key']]})"
     print(f"phase 2: {r['name']}: equal to plain (max_abs_err "
           f"{r['max_abs_err']}); kernel {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}): {100 * r['bound_ms'] / r['ms']:.1f}% of the "
-          f"bound, {where}; library call: none ({NO_LIBRARY[r['key']]})")
+          f"bound, {where}; library call: {lib}")
 
 
 def k1_bytes(s, h, w) -> int:
@@ -841,9 +880,13 @@ D2_COL0 = ((1, 1), (1, 0), (2, 1), (2, 0))  # (mode, cmode) of lane l % 4
 D2_QP = 32
 D2_CASES = [(shape, variant) for shape in D2_SHAPES
             for variant in D2_VARIANTS]
+# and QPs 0 and 51 (the dequantisers' extremes), on the I decode, the P
+# decode's mix and all intra
+D2_QP_CASES = [(shape, variant, qp) for shape in D2_SHAPES[2:]
+               for variant in ("iframe", "half", "intra") for qp in (0, 51)]
 
 
-def d2_case(np, shape, variant):
+def d2_case(np, shape, variant, qp=D2_QP):
     """Seeded D2 inputs (numpy): (symbols, other, refs, qp).  `symbols`
     holds the P-slice symbol fields (kernels/pframe.py MBSymbolsP's names
     and layout), the MB kinds by the variant's intra share (the others
@@ -852,13 +895,16 @@ def d2_case(np, shape, variant):
     with lane l's modes D2_COL0[l % 4]; later columns DC or H at random,
     luma and chroma apart.
     Luma and chroma DC levels up to +-40 at QP 32 drive prediction +
-    residual past 0 and past 255.  `other` is [S,R,C,16,16], [S,R,C,8,8]
-    x 2 random samples (what the intra scan takes for the other MBs);
+    residual past 0 and past 255; levels are drawn whatever the cbps say
+    (those a cbp masks out are nonzero too).  `other` is [S,R,C,16,16],
+    [S,R,C,8,8] x 2 random samples (what the intra scan takes for the
+    other MBs);
     `refs` one reference [1,S,H,W] x 3 for the whole P decode, and inter
     MBs' MVs within +-6 pels.  Both None for "iframe" and "iframe-col0"
     (the I decode)."""
     s, r, c = shape
-    rng = np.random.default_rng([s, r, c, D2_VARIANTS.index(variant)])
+    rng = np.random.default_rng([s, r, c, D2_VARIANTS.index(variant)]
+                                + ([] if qp == D2_QP else [qp]))
     mb = (s, r, c)
     intra = rng.random(mb) < D2_SHARE[variant]
     if variant == "sparse" and not intra.any():
@@ -899,31 +945,30 @@ def d2_case(np, shape, variant):
                chroma_ac=levels((*mb, 2, 4, 15), 6, 0.8),
                refidx=np.zeros(mb, np.int32))
     if variant.startswith("iframe"):
-        return sym, None, None, D2_QP
+        return sym, None, None, qp
     other = tuple(i32(rng.integers(0, 256, (*mb, n, n))) for n in (16, 8, 8))
     refs = tuple(i32(rng.integers(0, 256, (1, s, n * r, n * c)))
                  for n in (16, 8, 8))
-    return sym, other, refs, D2_QP
+    return sym, other, refs, qp
 
 
 def d2_args(torch, case, dev):
     """`_intra_recon_scan`'s arguments (a dict) for a `d2_case` result on
-    `dev`: the residuals from the port's `_intra_residuals`, `other` and
+    `dev`: the symbols as `levels`, qp and its chroma QP, `other` and
     is_intra (kind == 2) where the case has them."""
     import types
 
-    from tpuh264_torch.kernels import iframe
     from tpuh264_torch.kernels.transform import chroma_qp_from_luma
 
     sym, other, _, qp = case
     t = types.SimpleNamespace(**{k: torch.as_tensor(v, device=dev)
                                  for k, v in sym.items()})
-    res = iframe._intra_residuals(t, qp, chroma_qp_from_luma(qp))
+    kw = dict(mode=t.mode, cmode=t.cmode, levels=t, qp=qp,
+              qpc=chroma_qp_from_luma(qp))
     if other is None:
-        return dict(mode=t.mode, cmode=t.cmode, res=res)
-    return dict(mode=t.mode, cmode=t.cmode, res=res,
-                other=tuple(torch.as_tensor(p, device=dev) for p in other),
-                is_intra=t.kind == 2)
+        return kw
+    return dict(kw, other=tuple(torch.as_tensor(p, device=dev)
+                                for p in other), is_intra=t.kind == 2)
 
 
 def d2_capture(fn):
@@ -1293,6 +1338,80 @@ def k10_args(torch, case, dev):
     return dict(symbols=pframe.MBSymbolsP(**{
         k: torch.from_numpy(v).to(dev) for k, v in sym.items()}),
         planes_l=planes_l, refs_up=refs_up, refs_vp=refs_vp, qp=qp, t8=False)
+
+
+# K11 (the reference build): S = 1 and 3; one MB, a row, a column, a 2 x 3
+# frame, and a row of 97 columns (past the 64-column tiles); N = 1, 2 and
+# 4; without and with `halo`; int32 and uint8 references; noise, flat and
+# 0 / 255 content (the 6-tap sums at their extremes, the clips).
+K11_SHAPES = ((1, 1, 1), (3, 1, 4), (1, 4, 1), (3, 2, 3), (1, 1, 97))
+K11_CONTENT = ("noise", "flat", "saturate")
+K11_CASES = [(shape, (1, 2, 4)[(i + h) % 3], bool(h), bool((i + h) % 2),
+              K11_CONTENT[(i + 2 * h) % 3])
+             for i, shape in enumerate(K11_SHAPES) for h in (0, 1)]
+
+
+def k11_case(np, shape, n_refs, halo, u8, content):
+    """Seeded K11 inputs (numpy): (refs_y, refs_u, refs_v, halo), the DPB
+    [N, S, H, W] x 3 (with `halo`, HALO_Y / HALO_C more rows a side), of
+    `content`, uint8 where `u8` else int32."""
+    from tpuh264_torch.kernels import pframe
+
+    s, r, c = shape
+    rng = np.random.default_rng([s, r, c, n_refs, halo, u8,
+                                 K11_CONTENT.index(content)])
+    ey, ec = (pframe.HALO_Y, pframe.HALO_C) if halo else (0, 0)
+    refs = []
+    for n, e in ((16, ey), (8, ec), (8, ec)):
+        sh = (n_refs, s, n * r + 2 * e, n * c)
+        x = {"noise": rng.integers(0, 256, sh), "flat": np.full(sh, 77),
+             "saturate": np.where(rng.random(sh) < 0.5, 0, 255)}[content]
+        refs.append(x.astype(np.uint8 if u8 else np.int32))
+    return (*refs, halo)
+
+
+# K12 (the stage-A winner): tables of noise SADs, of SADs in {0, 4, 8, 12}
+# mirrored in dx (every least phase-1 cost tied with its mirror: the
+# first-index rules),
+# and of a few MBs that each make one candidate the winner ("counts":
+# two candidates won by equally many MBs, the argmax's first index); a
+# second table's counts summed in, as a row-sharded `group` gives; lam
+# of QPs 0, 28 and 51.
+K12_SHAPES = ((1, 1, 1), (2, 3, 4), (3, 2, 5), (1, 4, 34))
+K12_CONTENT = ("noise", "tied", "counts")
+K12_CASES = [(shape, content, (0, 28, 51)[(i + j) % 3], (i + j) % 2 == 1)
+             for i, shape in enumerate(K12_SHAPES)
+             for j, content in enumerate(K12_CONTENT)]
+
+
+def k12_case(np, shape, content, qp, group):
+    """Seeded K12 inputs (numpy): (sads [S, R, C, 289] int32, lam, other),
+    `other` a second table whose counts a `group` would sum in (None
+    without `group`)."""
+    from tpuh264_torch.golden.inter import LAMBDA_ME
+
+    s, r, c = shape
+    rng = np.random.default_rng([s, r, c, K12_CONTENT.index(content), qp,
+                                 group])
+
+    def table():
+        sh = (s, r, c, 289)
+        if content == "noise":
+            return rng.integers(0, 16320, sh).astype(np.int32)
+        if content == "tied":  # mirrored in dx, dx = 0 out of the race
+            x = (rng.integers(0, 4, sh) * 4).reshape(s, r, c, 17, 17)
+            x = np.where(np.arange(17) < 8, x, x[..., ::-1])
+            x[..., 8] = 16000
+            return x.reshape(sh).astype(np.int32)
+        # every MB's least SAD at one of two candidates, half each: the
+        # counts tie between them (the later one listed first)
+        x = np.full(sh, 16000, np.int32)
+        mbs = x.reshape(-1, 289)
+        wins = np.where(np.arange(len(mbs)) % 2 == 0, 200, 17)
+        mbs[np.arange(len(mbs)), wins] = 0
+        return x
+
+    return table(), int(LAMBDA_ME[qp]), table() if group else None
 
 
 def capture(module, name, fn):
@@ -1754,12 +1873,21 @@ def wave_rows(dev, torch, np, card, mhz):
 
 
 def k5_bytes(kw) -> int:
-    """D2: mode, cmode and is_intra in (int32), then per MB one 1,536-byte
-    input -- its residuals where intra, `other` elsewhere: the result
-    depends on nothing else -- and its 1,536 bytes of int32 output."""
-    n = kw["mode"].numel()
-    flags = 2 + (kw.get("is_intra") is not None)
-    return n * (4 * flags + 2 * 1536)
+    """D2 from the levels, what this run's data needs: is_intra in (a
+    byte an MB, where given); an intra MB's mode, cmode and cbps (16 B)
+    and the levels its cbps code (luma DC 32 B, luma AC 512 B where
+    cbp_luma is 1, chroma DC 16 B where cbp_chroma >= 1, chroma AC 240 B
+    where it is 2); another MB's 1,536 bytes of `other` (the result
+    depends on nothing else); every MB's 1,536 bytes of int32 output."""
+    lev, n = kw["levels"], kw["mode"].numel()
+    given = kw.get("is_intra") is not None
+    intra = kw["is_intra"].bool() if given else kw["mode"] >= 0
+    cbl, cbc = lev.cbp_luma[intra], lev.cbp_chroma[intra]
+    n_intra = int(intra.sum())
+    levels = (32 * n_intra + 512 * int((cbl == 1).sum())
+              + 16 * int((cbc >= 1).sum()) + 240 * int((cbc == 2).sum()))
+    return (n if given else 0) + 16 * n_intra + levels + (
+        n - n_intra) * 1536 + n * 1536
 
 
 def d2_equal(kw, torch, what) -> int:
@@ -1813,6 +1941,10 @@ def d2_rows(dev, torch, np, card, frames):
     the D2 cases; the 1080p P frame's row of the kernel table."""
     from tpuh264_torch.kernels import iframe, pframe
 
+    for ln in ptxas_lines(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tpuh264_torch", "csrc",
+            "intra_recon.cu")):
+        print(f"phase 2: K5 ptxas: {ln}")
     y, u, v, sym, sym_i = frames
     refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
     p1080, = d2_capture(lambda: pframe.decode_pframe_rows_multi(
@@ -1964,24 +2096,195 @@ def p_timed(key, kw, torch, what, card):
     return err, ms, plain, nbytes
 
 
-def p_rows(dev, torch, np, card):
-    """K9 and K10: the rows of the kernel table on the main path's 1080p x
-    4 RTC P frame (one reference) and its decode, a line each on the
-    480p x 8 default-config P frame with two references, then the seeded
-    edge cases (`K9_CASES`, `K10_CASES`)."""
+def capture_all(module, names, fn):
+    """{name: `capture(module, name, ...)`} for each of `names`, over one
+    run of `fn()`."""
+    if not names:
+        fn()
+        return {}
+    out = {}
+    out[names[0]] = capture(module, names[0], lambda: out.update(
+        capture_all(module, names[1:], fn)))
+    return out
+
+
+def k11_bytes(kw) -> int:
+    """K11: the references in (int32 or uint8, each sample read once), the
+    four int32 half-pel planes and the two int32 chroma planes of each
+    out."""
     from tpuh264_torch.kernels import pframe
 
-    for src in ("pframe_enc.cu", "pframe_dec.cu"):
+    ins, outs, _ = pframe._k11_operands(**kw)
+    return sum(x.numel() * x.element_size() for x in ins + outs)
+
+
+def k12_bytes(kw) -> int:
+    """K12: the SAD table in (read once), the winners and the global
+    vectors out, int32."""
+    s, r, c, nn = kw["sads"].shape
+    return 4 * (s * r * c * (nn + 2) + 2 * s)
+
+
+def k11_library(refs_y, refs_u, refs_v, halo):
+    """K11's closest formulation in library calls (its table row's
+    "library call"; the port never calls it): replicate F.pad, float32
+    conv2d with the 6-tap filters (b and h from the samples, j from b's
+    unrounded sums; TF32 off, so exact), rounded and clamped; chroma
+    replicate F.pad.  Returns ([N, 4, S, Hp, Wp], [N, 2, S, Hcp, Wcp])
+    int32."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuh264_torch.kernels import pframe
+
+    n, s, hs, w = refs_y.shape
+    oy, oyc = (0, 0) if halo else (pframe.HALO_Y, pframe.HALO_C)
+    pe, cp = pframe._PE, pframe._CP
+    x = refs_y.reshape(n * s, 1, hs, w).float()
+    x = F.pad(x, (pe + 3, pe + 3, oy + 3, oy + 3), mode="replicate")
+    tap = torch.tensor([1., -5., 20., 20., -5., 1.], device=x.device)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        b1 = F.conv2d(x, tap.view(1, 1, 1, 6))        # [.., Hp + 6, Wp + 1]
+        h1 = F.conv2d(x, tap.view(1, 1, 6, 1))        # [.., Hp + 1, Wp + 6]
+        j1 = F.conv2d(b1, tap.view(1, 1, 6, 1))       # [.., Hp + 1, Wp + 1]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    g = x[..., 3:-3, 3:-3]
+    b = ((b1[..., 3:-3, 1:] + 16) / 32).floor().clamp(0, 255)
+    h = ((h1[..., 1:, 3:-3] + 16) / 32).floor().clamp(0, 255)
+    j = ((j1[..., 1:, 1:] + 512) / 1024).floor().clamp(0, 255)
+    planes = torch.stack([g, b, h, j], 1).to(torch.int32)
+    hp, wp = planes.shape[-2:]
+    c = torch.stack([F.pad(p.reshape(n * s, 1, *p.shape[-2:]).float(),
+                           (cp, cp, oyc, oyc), mode="replicate")
+                     for p in (refs_u, refs_v)], 1).to(torch.int32)
+    return (planes.reshape(n, s, 4, hp, wp).transpose(1, 2),
+            c.reshape(n, s, 2, *c.shape[-2:]).transpose(1, 2))
+
+
+def k11_equal(kw, torch, what) -> int:
+    """K11 (`_references`) against its plain version on one input, every
+    plane of every reference."""
+    from tpuh264_torch.kernels import pframe
+
+    flat = lambda o: [*o[0], *o[1], *o[2]]
+    return _all_equal(flat(pframe._references(**kw)),
+                      flat(pframe._references_plain(**kw)), torch,
+                      f"K11 _references ({what})")
+
+
+def k12_equal(kw, torch, what) -> int:
+    """K12 (`_int_winner`) against its plain version on one input."""
+    from tpuh264_torch.kernels import pframe
+
+    return _all_equal(list(pframe._int_winner(**kw)),
+                      list(pframe._int_winner_plain(**kw)), torch,
+                      f"K12 _int_winner ({what})")
+
+
+def ref_timed(key, kw, torch, what, card):
+    """K11 or K12 equal to its plain version on `kw`, timed beside it (K11
+    also beside `k11_library`): a line, and (max_abs_err, kernel ms, plain
+    ms, bytes, library ms or None)."""
+    from tpuh264_torch.kernels import pframe
+
+    lib = None
+    if key == "K11":
+        err = k11_equal(kw, torch, what)
+        fn, plain_fn, nbytes = (pframe._references,
+                                pframe._references_plain, k11_bytes(kw))
+        got = k11_library(**kw)
+        want = pframe._references_plain(**kw)
+        lib_err = max(max(max_abs_err(got[0][i], want[0][i]),
+                          max_abs_err(got[1][i, 0], want[1][i]),
+                          max_abs_err(got[1][i, 1], want[2][i]))
+                      for i in range(len(want[0])))
+        lib = timed(lambda: k11_library(**kw), 10)
+    else:
+        err = k12_equal(kw, torch, what)
+        fn, plain_fn, nbytes = (pframe._int_winner, pframe._int_winner_plain,
+                                k12_bytes(kw))
+    ms = timed(lambda: fn(**kw), 20)
+    plain = timed(lambda: plain_fn(**kw), 3)
+    bound = bound_ms(nbytes)
+    extra = ("" if lib is None else f", library formulation {lib:.4f} ms "
+             f"(max_abs_err {lib_err} against the plain version)")
+    print(f"phase 2: {key} {what}: equal to plain (max_abs_err {err}); "
+          f"kernel {ms:.4f} ms, plain {plain:.3f} ms{extra}, bound "
+          f"{bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB): "
+          f"{100 * bound / ms:.2f}% of the bound [{card}]")
+    return err, ms, plain, nbytes, lib
+
+
+def ref_edges(dev, torch, np):
+    """K11 and K12 on their seeded cases (`K11_CASES`, `K12_CASES`); K12's
+    cases with a group sum a second table's counts in between its
+    phases, as the row-sharded encode's all_reduce does (its plain
+    version the same)."""
+    from tpuh264_torch.kernels import pframe
+
+    for case in K11_CASES:
+        refs_y, refs_u, refs_v, halo = k11_case(np, *case)
+        t = lambda x: torch.from_numpy(x).to(dev)
+        k11_equal(dict(refs_y=t(refs_y), refs_u=t(refs_u), refs_v=t(refs_v),
+                       halo=halo), torch, f"edge case {case}")
+    reduce = pframe.all_reduce
+    try:
+        for case in K12_CASES:
+            sads, lam, other = k12_case(np, *case)
+            kw = dict(sads=torch.from_numpy(sads).to(dev), lam=lam)
+            if other is not None:
+                extra = k12_counts(torch, torch.from_numpy(other).to(dev),
+                                   lam)
+                pframe.all_reduce = lambda x, g: x.add_(extra.to(x.dtype))
+                kw["group"] = "another band"
+            k12_equal(kw, torch, f"edge case {case}")
+            pframe.all_reduce = reduce
+    finally:
+        pframe.all_reduce = reduce
+    print(f"phase 2: K11 / K12 equal to their plain versions on "
+          f"{len(K11_CASES)} / {len(K12_CASES)} seeded edge cases")
+
+
+def k12_counts(torch, sads, lam):
+    """The phase-1 counts [S, 289] of a SAD table (what a band adds to
+    the group's all_reduce), by the plain version's formulas."""
+    from tpuh264_torch.kernels import pframe
+
+    cost = 4 * sads + lam * pframe.tables.get("rate0", sads.device)
+    win = pframe._argmin_first(cost).reshape(sads.shape[0], -1)
+    counts = torch.zeros((sads.shape[0], pframe._NN), dtype=torch.int64,
+                         device=sads.device)
+    return counts.scatter_add_(1, win, torch.ones_like(win))
+
+
+def p_rows(dev, torch, np, card):
+    """K9-K12: the rows of the kernel table on the main path's 1080p x 4
+    RTC P frame (one reference: its encode's K9, reference build K11 and
+    stage-A winner K12) and its decode (K10), a line each on that
+    decode's reference build and on the 480p x 8 default-config P frame
+    with two references (its encode's and decode's), then the seeded
+    edge cases (`K9_CASES`, `K10_CASES`, `K11_CASES`, `K12_CASES`)."""
+    from tpuh264_torch.kernels import pframe
+
+    for src in ("pframe_enc.cu", "pframe_dec.cu", "halfpel.cu",
+                "me_winner.cu"):
         for ln in ptxas_lines(os.path.join(os.path.dirname(
                 os.path.abspath(__file__)), "tpuh264_torch", "csrc", src)):
             print(f"phase 2: {src} ptxas: {ln}")
     out = []
-    enc, = capture(pframe, "_inter_encode",
-                   lambda: out.append(pframe_1080p(dev, torch)))
+    names = ("_inter_encode", "_references", "_int_winner")
+    got = capture_all(pframe, names,
+                      lambda: out.append(pframe_1080p(dev, torch)))
+    (enc,), (ref_e,), (win,) = (got[n] for n in names)
     y, u, v, sym = out[0][:4]
     refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
-    dec, = capture(pframe, "_inter_decode",
-                   lambda: pframe.decode_pframe_rows_multi(sym, *refs, 30))
+    got = capture_all(pframe, ("_inter_decode", "_references"),
+                      lambda: pframe.decode_pframe_rows_multi(sym, *refs,
+                                                              30))
+    (dec,), (ref_d,) = got["_inter_decode"], got["_references"]
     del out, y, u, v, sym, refs
     rows = []
     for key, kw, name, source, replaces in (
@@ -1995,12 +2298,37 @@ def p_rows(dev, torch, np, card):
              "tpuh264/kernels/pframe.py:1021")):
         rows.append(kernel_row(key, name, source, replaces, *p_timed(
             key, kw, torch, "1080p x 4 RTC P frame, one reference", card)))
-    del enc, dec
-    enc, dec, kinds = pframe_480p_2ref(dev, torch)
+    for key, kw, name, source, replaces in (
+            ("K11", ref_e, "_references (the half-pel planes and padded "
+             "chroma of every reference)", "tpuh264_torch/csrc/halfpel.cu",
+             "tpuh264/kernels/pframe.py:111"),
+            ("K12", win, "_int_winner (the two-phase stage-A winner)",
+             "tpuh264_torch/csrc/me_winner.cu",
+             "tpuh264/kernels/pframe.py:332")):
+        err, ms, plain, nbytes, lib = ref_timed(
+            key, kw, torch, "1080p x 4 RTC P frame's encode, one reference",
+            card)
+        rows.append(dict(kernel_row(key, name, source, replaces, err, ms,
+                                    plain, nbytes), library_ms=lib))
+    ref_timed("K11", ref_d, torch, "1080p x 4 RTC P frame's decode", card)
+    del enc, dec, ref_e, ref_d, win
+    got = {}
+    caps = capture_all(pframe, ("_references", "_int_winner"),
+                       lambda: got.update(p=pframe_480p_2ref(dev, torch)))
+    enc, dec, kinds = got["p"]
+    two = f"two references (MB kinds skip/inter/intra {kinds})"
     for key, kw in (("K9", enc), ("K10", dec)):
-        p_timed(key, kw, torch, f"854x480 x 8 default-config P frame, two "
-                f"references (MB kinds skip/inter/intra {kinds})", card)
-    del enc, dec
+        p_timed(key, kw, torch, f"854x480 x 8 default-config P frame, {two}",
+                card)
+    # the calls of the last encode (two references) and of its decode
+    ref_timed("K11", caps["_references"][-2], torch,
+              f"854x480 x 8 default-config P frame's encode, {two}", card)
+    ref_timed("K11", caps["_references"][-1], torch,
+              f"854x480 x 8 default-config P frame's decode, {two}", card)
+    for i, kw in enumerate(caps["_int_winner"][-2:]):
+        ref_timed("K12", kw, torch, f"854x480 x 8 default-config P frame, "
+                  f"reference {i} of two", card)
+    del enc, dec, caps, got
     for case in K9_CASES:
         k9_equal(k9_args(torch, k9_case(np, *case), dev), torch,
                  f"edge case {case}")
@@ -2009,6 +2337,7 @@ def p_rows(dev, torch, np, card):
                   f"edge case {case}")
     print(f"phase 2: K9 / K10 equal to their plain versions on "
           f"{len(K9_CASES)} / {len(K10_CASES)} seeded edge cases")
+    ref_edges(dev, torch, np)
     return rows
 
 
@@ -2095,8 +2424,9 @@ def phase_kernels(dev, torch, np, card):
     for r in wave_rows(dev, torch, np, card, mhz):
         show(r, "854x480 x 8 (phase 12's frames)")
         rows.append(r)
-    # K9 / K10 (the P-frame inter path): the 1080p x 4 P frame, 480p x 8
-    # with two references and intra-in-P, the edge cases
+    # K9-K12 (the P-frame inter path, the reference build, the stage-A
+    # winner): the 1080p x 4 P frame, 480p x 8 with two references and
+    # intra-in-P, the edge cases
     for r in p_rows(dev, torch, np, card):
         show(r, "1080p x 4 shapes (RTC P frame, one reference)")
         rows.append(r)
@@ -2348,7 +2678,9 @@ def phase_main(dev, torch, np, card):
     K3 launched twice per entropy call (MB and slice level), the deblock
     (K4) 8 times per dispatch (4 encoder frames, 4 decoder frames), the
     intra reconstruction (K5) 4 times (the decoder's frames), K6 once a
-    GOP-start dispatch (its I frame; the RTC preset has no intra-in-P)."""
+    GOP-start dispatch (its I frame; the RTC preset has no intra-in-P),
+    the reference build (K11) once a P encode and once a decoded frame,
+    the stage-A winner (K12) once a P encode (one reference)."""
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
     from tpuh264_torch.kernels import cavlc_cuda, deblock, iframe, pframe
@@ -2358,7 +2690,7 @@ def phase_main(dev, torch, np, card):
     pipe = GOPDevicePipeline(cfg, gop_size=8, source_kind="rigid",
                              device=dev)
     spy = SymbolSpy(pipe, torch)
-    qps, times, k3, k4, k5, k6 = [], [], [], [], [], []
+    qps, times, k3, k4, k5, k6, k11, k12 = [], [], [], [], [], [], [], []
     k6_count = lambda: (iframe.encode_iframe_scan.launches
                         + pframe._intra_in_p_scan.launches)
     for i in range(3):
@@ -2367,6 +2699,7 @@ def phase_main(dev, torch, np, card):
         d0 = deblock.deblock_frame_rows.launches
         r0 = iframe._intra_recon_scan.launches
         e0 = k6_count()
+        f0, w0 = pframe._references.launches, pframe._int_winner.launches
         t0 = time.perf_counter()
         pipe.pump_frame()
         times.append(time.perf_counter() - t0)
@@ -2374,6 +2707,8 @@ def phase_main(dev, torch, np, card):
         k4.append(deblock.deblock_frame_rows.launches - d0)
         k5.append(iframe._intra_recon_scan.launches - r0)
         k6.append(k6_count() - e0)
+        k11.append(pframe._references.launches - f0)
+        k12.append(pframe._int_winner.launches - w0)
         check_dpbs(pipe, np, "1080p", i)
     expect = [4 if st else 2 for st in spy.starts]
     if k3 != expect:
@@ -2387,12 +2722,20 @@ def phase_main(dev, torch, np, card):
     if k6 != [int(st) for st in spy.starts]:
         fail(f"1080p: K6 launches per dispatch {k6}, expected one a GOP "
              f"start (GOP starts {spy.starts})")
+    # a P encode each: one reference build and one winner (one reference);
+    # a decoded frame each (the IDR's too): one reference build
+    p_enc = [3 if st else 4 for st in spy.starts]
+    if k12 != p_enc or k11 != [n + 4 for n in p_enc]:
+        fail(f"1080p: K11 launches per dispatch {k11}, K12 {k12}, expected "
+             f"{[n + 4 for n in p_enc]} and {p_enc}")
     print(f"phase 4: 1920x1080 x 4, CBR 4 Mbps, gop 8, rigid: 3 dispatches "
           f"(12 frames, GOP starts {spy.starts}), decoder DPB == encoder DPB "
           f"after each; K3 launches per dispatch {k3} (MB + slice level per "
           f"entropy call), K4 (deblock) {k4} (4 encoder + 4 decoder "
           f"frames), K5 (intra recon) {k5} (4 decoded frames), K6 (intra16 "
-          f"encode) {k6} (the I frames); QP {qps}; "
+          f"encode) {k6} (the I frames), K11 (references) {k11} (P "
+          f"encodes and decoded frames), K12 (stage-A winner) {k12} (P "
+          f"encodes); QP {qps}; "
           f"PSNR {pipe.last_psnr_y:.2f} dB; pump_frame s "
           f"{[round(t, 3) for t in times]} [{card}]")
 
@@ -2770,7 +3113,7 @@ def phase_sessions(dev, np, card, launches):
                              decode_ms=round(dec_ms, 1)))
 
     launches.path("EncoderSession + DecoderPool 480p x 8", drive,
-                  needs=(0, 3, 4, 5, 8, 9))
+                  needs=(0, 3, 4, 5, 8, 9, 10, 11))
     stay_fast([pool[i] for i in range(s)], "480p sessions")
     if len(i4) != 2 or min(i4) <= 0:
         fail(f"480p sessions: Intra_4x4 share of the IDR frames {i4}")
@@ -2974,7 +3317,8 @@ def phase_app_tpu(dev, np, card, launches):
         app.stop()
         box["pipe"] = pipe
 
-    launches.path("App tpu 480p fan-out 8", drive, needs=(0, 4, 5, 8, 9))
+    launches.path("App tpu 480p fan-out 8", drive,
+                  needs=(0, 4, 5, 8, 9, 10, 11))
     stats, pipe = box["stats"], box["pipe"]
     if app.error is not None:
         fail(f"App tpu: the pump thread failed: {app.error!r}")
@@ -3166,7 +3510,7 @@ def phase_config3(dev, np, card, launches):
                 entropy_ms=round(tm["entropy_ms"], 1),
                 decode_ms=round(dec_ms, 1)))
 
-    _, counts = launches.path("config 3 1080p", drive, needs=(0, 4, 5))
+    _, counts = launches.path("config 3 1080p", drive, needs=(0, 4, 5, 10, 11))
     intra, t8, ref1 = spy.shares()
     if spy.searched != [1, 2, 2, 2, 2] or counts[0] != sum(spy.searched):
         fail(f"config 3: K1 launched {counts[0]} times for the references "
@@ -3219,7 +3563,7 @@ def phase_config3(dev, np, card, launches):
     line, _ = launches.path("config 3 flagship 1080p x 4, 2 references",
                             lambda: config3.flagship_multiref(
                                 w, h, 2.0, device=dev),
-                            needs=(0, 1, 2, 3, 4, 8, 9))
+                            needs=(0, 1, 2, 3, 4, 8, 9, 10, 11))
     print(f"phase 15: bench.config3.flagship_multiref, 2 s, decoder DPB == "
           f"encoder DPB after it: {json.dumps(line)}")
 
@@ -3265,7 +3609,7 @@ def part_b(dev, np, card, launches, torch):
                          round(tm["entropy_ms"], 1), round(dec_ms, 1)))
 
     _, counts = launches.path("config 3 part B 480p x 8", drive,
-                              needs=(0, 3, 4, 5))
+                              needs=(0, 3, 4, 5, 10, 11))
     stay_fast([pool[i] for i in range(s)], "config 3 part B")
     intra, t8, ref1 = spy.shares()
     if counts[0] != sum(spy.searched) or t8 <= 0:
@@ -3364,9 +3708,14 @@ def shard_rank(rank: int, tmp: str) -> None:
         k6_fns = (iframe.encode_iframe_scan, pframe._intra_in_p_scan)
         k6 = sum(f.launches for f in k6_fns)
         k9 = pframe._inter_encode.launches  # K9 once a P frame
+        # K11 once a P encode and once a P decode (halo=True), K12 once a
+        # P encode (one reference, the counts summed over the rows group)
+        k11, k12 = pframe._references.launches, pframe._int_winner.launches
         p6 = [(iframe, "_encode_iframe_scan_plain"),
               (pframe, "_intra_in_p_scan_plain"),
-              (pframe, "_inter_encode_plain")]
+              (pframe, "_inter_encode_plain"),
+              (pframe, "_references_plain"),
+              (pframe, "_int_winner_plain")]
         p6_saved = [getattr(m, a) for m, a in p6]
         for (m, a), f in zip(p6, p6_saved):
             setattr(m, a, _plain_spy(a, f, plain6))
@@ -3400,6 +3749,9 @@ def shard_rank(rank: int, tmp: str) -> None:
         dplain = pframe._inter_decode_plain
         pframe._inter_decode_plain = _plain_spy(
             "_inter_decode_plain", dplain, plain5)
+        fplain = pframe._references_plain
+        pframe._references_plain = _plain_spy("_references_plain", fplain,
+                                              plain5)
         k5 = iframe._intra_recon_scan.launches
         k10 = pframe._inter_decode.launches
         for t in range(1, n):
@@ -3412,18 +3764,23 @@ def shard_rank(rank: int, tmp: str) -> None:
         k10 = pframe._inter_decode.launches - k10
         iframe._intra_recon_scan_plain = rplain
         pframe._inter_decode_plain = dplain
+        pframe._references_plain = fplain
+        k11 = pframe._references.launches - k11
+        k12 = pframe._int_winner.launches - k12
         got = [([(f, dm.gather(mesh, x)) for f, x in _sym_fields(syms[t])],
                 [dm.gather(mesh, x) for x in recs[t]],
                 [dm.gather(mesh, x) for x in mots[t - 1]] if t else [])
                for t in range(n)]
-        ok = (halo_ok and k1 == k5 == k9 == k10 == n - 1 and k6 == n
-              and not plain and not plain5 and not plain6)
+        ok = (halo_ok and k1 == k5 == k9 == k10 == k12 == n - 1
+              and k11 == 2 * (n - 1) and k6 == n and not plain
+              and not plain5 and not plain6)
         result = dict(rank=rank, band=[mesh.stream_index, mesh.row_index],
                       shape=list(recs[0][0].shape), k1_launches=k1,
                       plain_k1_calls=len(plain), k5_launches=k5,
                       plain_k5_calls=len(plain5), k6_launches=k6,
                       plain_k6_calls=len(plain6), k9_launches=k9,
-                      k10_launches=k10, i_ms=round(i_ms, 1),
+                      k10_launches=k10, k11_launches=k11,
+                      k12_launches=k12, i_ms=round(i_ms, 1),
                       p_step_ms=p_ms, halo_decode_equal=bool(halo_ok))
         if rank == 0:
             # the unsharded encode of the same frames on the same device
@@ -3612,16 +3969,20 @@ def phase_dist(dev, np, card, launches):
         k6 = sum(r["k6_launches"] for r in ranks)
         k9 = sum(r["k9_launches"] for r in ranks)
         k10 = sum(r["k10_launches"] for r in ranks)
+        k11 = sum(r["k11_launches"] for r in ranks)
+        k12 = sum(r["k12_launches"] for r in ranks)
         if (k1 != world * (n_frames - 1) or k5 != k1 or k9 != k1
-                or k10 != k1 or k6 != world * n_frames
+                or k10 != k1 or k12 != k1 or k11 != 2 * k1
+                or k6 != world * n_frames
                 or any(r["plain_k1_calls"] or r["plain_k5_calls"]
                        or r["plain_k6_calls"] for r in ranks)):
             fail(f"phase 16(a): K1 launched {k1} times, K5 {k5}, K9 {k9}, "
-                 f"K10 {k10} (expected {world * (n_frames - 1)} each), K6 "
-                 f"{k6} (expected "
+                 f"K10 {k10}, K12 {k12} (expected {world * (n_frames - 1)} "
+                 f"each), K11 {k11} (twice that), K6 {k6} (expected "
                  f"{world * n_frames}); plain K1 "
                  f"{[r['plain_k1_calls'] for r in ranks]}, plain K5 / K10 "
-                 f"{[r['plain_k5_calls'] for r in ranks]}, plain K6 / K9 "
+                 f"/ K11 {[r['plain_k5_calls'] for r in ranks]}, plain K6 "
+                 f"/ K9 / K11 / K12 "
                  f"{[r['plain_k6_calls'] for r in ranks]}")
         r0 = ranks[0]
         for r in ranks:
@@ -3630,7 +3991,10 @@ def phase_dist(dev, np, card, launches):
                   f" ms (fenced, halo exchange included), halo decode == "
                   f"band {r['halo_decode_equal']}, K1 {r['k1_launches']}, "
                   f"K5 {r['k5_launches']}, K6 {r['k6_launches']}, K9 "
-                  f"{r['k9_launches']}, K10 {r['k10_launches']} [{card}]")
+                  f"{r['k9_launches']}, K10 {r['k10_launches']}, K11 "
+                  f"{r['k11_launches']} (halo=True, encode and decode), K12 "
+                  f"{r['k12_launches']} (counts summed over the rows group) "
+                  f"[{card}]")
         print(f"phase 16(a): BASELINE config 5 cut to one card: "
               f"{SHARD_STREAMS} x {SHARD_W}x{SHARD_H} 'rigid', I + "
               f"{n_frames - 1} P at QP {SHARD_QP} (GOP depth cut to "
@@ -3701,6 +4065,8 @@ def phase_dist(dev, np, card, launches):
                           + sum(mh_line["k9_launches"])
                           + nccl_res["k9_launches"])
     launches.total[9] += k10
+    launches.total[10] += k11
+    launches.total[11] += k12
     phase_bench(dev, card, launches)
     print(f"phase 16: wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
@@ -3837,7 +4203,8 @@ def main() -> None:
           f"(intra16 encode) {launches.total[5]}, K7 (wavefront encode) "
           f"{launches.total[6]}, K8 (wavefront decode) {launches.total[7]}, "
           f"K9 (P encode) {launches.total[8]}, K10 (P decode) "
-          f"{launches.total[9]}")
+          f"{launches.total[9]}, K11 (references) {launches.total[10]}, "
+          f"K12 (stage-A winner) {launches.total[11]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

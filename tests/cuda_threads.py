@@ -23,7 +23,9 @@ barrier: the arrays alternate between two copies from one exchange to
 the next (each thread counts its own), so a thread may write the next
 while a slower one still reads the last; every thread of the warp must
 reach each exchange, as the kernels' warp-uniform code does.
-`__reduce_add_sync` (redux.sync) sums such an exchange.  __shared__
+`__reduce_add_sync` (redux.sync) sums such an exchange, and
+`__reduce_min_sync` / `__reduce_max_sync` take its least / greatest;
+`atomicAdd` is an atomic add on the host.  __shared__
 arrays are statics, int2 / int4 / uint2 / uint4 plain structs,
 __grid_constant__ nothing; __vsadu4 is computed byte by byte, __clz by
 the compiler's builtin.  A harness includes the kernel's
@@ -31,10 +33,14 @@ source after this header (as cuda_runtime.h); the source's launch entry
 is guarded by __CUDACC__, which g++ does not define.
 """
 
+import os
 import shutil
+import struct
 import subprocess
 
+import numpy as np
 import pytest
+import torch
 
 SHIMS = r"""
 #pragma once
@@ -170,6 +176,22 @@ inline unsigned __reduce_add_sync(unsigned, unsigned v) {
 inline int __reduce_add_sync(unsigned mask, int v) {
   return (int)__reduce_add_sync(mask, (unsigned)v);
 }
+// redux.sync min / max of signed ints, to every lane
+inline int __reduce_min_sync(unsigned, int v) {
+  const uint32_t* all = exchange((uint32_t)v);
+  int m = (int)all[0];
+  for (int i = 1; i < 32; ++i) m = std::min(m, (int)all[i]);
+  return m;
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  const uint32_t* all = exchange((uint32_t)v);
+  int m = (int)all[0];
+  for (int i = 1; i < 32; ++i) m = std::max(m, (int)all[i]);
+  return m;
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
 inline unsigned __ballot_sync(unsigned, int p) {
   const uint32_t* all = exchange(p != 0);
   unsigned b = 0;
@@ -269,3 +291,104 @@ def build(d, harness: str, csrc: str, name: str, defines=()) -> str:
                     "-I", csrc, "-o", str(exe), str(d / "harness.cpp")],
                    check=True)
     return str(exe)
+
+
+# A kernel source's launch entry, generically: reads the entry's ints
+# (count, then int32s), then its pointer slots (count, then per slot:
+# int64 bytes, int32 kind -- 0 output, 1 input, 2 input and output, 3
+# null -- and an input's bytes), builds the kernel's arguments with the
+# source's own unpacking (`ARGS(p, n)`) and runs BLOCKS blocks of THREADS
+# threads as fibers; writes every output slot's bytes in order.  SOURCE,
+# ARGS, KERNEL, BLOCKS (an expression in the arguments `a`) and THREADS
+# are macros of `build`.
+ENTRY_HARNESS = r"""
+#include <cuda_runtime.h>
+#include <cstdio>
+#include <vector>
+#include SOURCE
+int main() {
+  int32_t k;
+  if (fread(&k, 4, 1, stdin) != 1) return 2;
+  std::vector<int> n(k);
+  if (fread(n.data(), 4, k, stdin) != (size_t)k) return 2;
+  if (fread(&k, 4, 1, stdin) != 1 || k != kPtrs) return 3;
+  std::vector<std::vector<int4>> buf(k);
+  std::vector<int> kind(k);
+  std::vector<void*> p(k);
+  std::vector<int64_t> size(k);
+  for (int i = 0; i < k; ++i) {
+    if (fread(&size[i], 8, 1, stdin) != 1 || fread(&kind[i], 4, 1, stdin) != 1)
+      return 4;
+    if (kind[i] == 3) {
+      p[i] = nullptr;
+      continue;
+    }
+    const int fill = (int)0xa5a5a5a5u;  // what a kernel never writes shows
+    buf[i].assign((size[i] + 15) / 16 + 1, int4{fill, fill, fill, fill});
+    p[i] = buf[i].data();
+    if ((kind[i] == 1 || kind[i] == 2) &&
+        fread(p[i], 1, size[i], stdin) != (size_t)size[i])
+      return 5;
+  }
+  const auto a = ARGS(p.data(), n.data());
+  const int blocks = BLOCKS;
+  for (int b = 0; b < blocks; ++b)
+    run_block_fibers(THREADS, b, [&] { KERNEL(a); });
+  for (int i = 0; i < k; ++i)
+    if (kind[i] == 0 || kind[i] == 2) fwrite(p[i], 1, size[i], stdout);
+  return 0;
+}
+"""
+
+
+def build_entry(d, csrc: str, source: str, args: str, kernel: str,
+                blocks: str, threads: str) -> str:
+    """`build` of ENTRY_HARNESS over the source `source` of `csrc`, its
+    argument unpacking `args`, kernel `kernel`, grid `blocks` and block
+    `threads`: the executable's path."""
+    return build(d, ENTRY_HARNESS, csrc, os.path.splitext(source)[0],
+                 (f'SOURCE="{source}"', f"ARGS={args}", f"KERNEL={kernel}",
+                  f"BLOCKS={blocks}", f"THREADS={threads}"))
+
+
+def _span(t: torch.Tensor) -> bytes:
+    """The bytes a kernel reads from tensor t's pointer: from its first
+    element to its last in its storage (a strided view's gaps included)."""
+    if not t.numel():
+        return b""
+    n = 1 + sum((sz - 1) * st for sz, st in zip(t.shape, t.stride()))
+    return t.as_strided((n,), (1,)).contiguous().numpy().tobytes()
+
+
+def run_entry(exe: str, ins, outs, ints, inout=()):
+    """A kernel source built by `build_entry`, on CPU threads, over an
+    entry's operands: input tensors `ins` (a strided view as the memory it
+    spans; None as a null pointer), output
+    tensors `outs` (contiguous, filled in place; those whose index is in
+    `inout` sent first as inputs too) and `ints`.  Returns `outs`."""
+    body = [struct.pack("<i", len(ints)),
+            np.asarray(ints, np.int32).tobytes(),
+            struct.pack("<i", len(ins) + len(outs))]
+    for t in ins:
+        if t is None:
+            body.append(struct.pack("<qi", 0, 3))
+            continue
+        raw = _span(t)
+        body += [struct.pack("<qi", len(raw), 1), raw]
+    for i, t in enumerate(outs):
+        nb = t.numel() * t.element_size()
+        if i in inout:
+            body += [struct.pack("<qi", nb, 2), t.contiguous().numpy()
+                     .tobytes()]
+        else:
+            body.append(struct.pack("<qi", nb, 0))
+    raw = subprocess.run([exe], input=b"".join(body), capture_output=True,
+                         check=True).stdout
+    off = 0
+    for t in outs:
+        nb = t.numel() * t.element_size()
+        t.copy_(torch.frombuffer(bytearray(raw[off:off + nb]),
+                                 dtype=t.dtype).reshape(t.shape))
+        off += nb
+    assert off == len(raw)
+    return outs

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1, K2, K3, the deblock D1, the intra
 reconstruction D2, the Intra_16x16 encode scans D3 / D4, the single-slice
-wavefront's encode K7 and decode K8, the P encode after stage A K9 and
-the P decode's inter part K10) against their plain PyTorch versions, on
-the card, plus the wrappers' no-fallback rule.
+wavefront's encode K7 and decode K8, the P encode after stage A K9,
+the P decode's inter part K10, the reference build K11 and the stage-A
+winner K12) against their plain PyTorch versions, on the card, plus the
+wrappers' no-fallback rule.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed.  On a machine with a card and nvcc:
@@ -28,11 +29,19 @@ from tpuh264_torch.kernels import wavefront as WF
 
 
 def _launches():
-    return (me_cuda.sad_field.launches, cavlc_cuda.pack_blocks.launches,
-            cavlc_cuda.merge_tree.launches, DB.deblock_frame_rows.launches,
-            IF._intra_recon_scan.launches, IF.encode_iframe_scan.launches,
-            TP._intra_in_p_scan.launches, TP._inter_encode.launches,
-            TP._inter_decode.launches)
+    """The kernels' launch counters, by kernel (D3 / D4: K6's two
+    routers)."""
+    return {"K1": me_cuda.sad_field.launches,
+            "K2": cavlc_cuda.pack_blocks.launches,
+            "K3": cavlc_cuda.merge_tree.launches,
+            "K4": DB.deblock_frame_rows.launches,
+            "K5": IF._intra_recon_scan.launches,
+            "D3": IF.encode_iframe_scan.launches,
+            "D4": TP._intra_in_p_scan.launches,
+            "K9": TP._inter_encode.launches,
+            "K10": TP._inter_decode.launches,
+            "K11": TP._references.launches,
+            "K12": TP._int_winner.launches}
 
 
 @pytest.fixture
@@ -373,13 +382,15 @@ def _intra_both(kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,variant", chip_smoke.D2_CASES)
-def test_intra_recon_kernel_matches_plain_edge_cases(dev, shape, variant):
+@pytest.mark.parametrize("case", [(*c, chip_smoke.D2_QP)
+                                  for c in chip_smoke.D2_CASES]
+                         + chip_smoke.D2_QP_CASES, ids=str)
+def test_intra_recon_kernel_matches_plain_edge_cases(dev, case):
     """C = 1, 2, 3 and 61, S and R 1 to 4, intra shares 0 / ~1% / 50% /
-    100% and the I decode, DC / H mixes, clips at 0 and 255
-    (chip_smoke phase 2's generator)."""
-    _intra_both(chip_smoke.d2_args(
-        torch, chip_smoke.d2_case(np, shape, variant), dev))
+    100% and the I decode, DC / H mixes, clips at 0 and 255, levels the
+    cbps mask out, QPs 0, 32 and 51 (chip_smoke phase 2's generator)."""
+    _intra_both(chip_smoke.d2_args(torch, chip_smoke.d2_case(np, *case),
+                                   dev))
 
 
 @pytest.mark.cuda
@@ -399,24 +410,41 @@ def test_intra_recon_kernel_matches_plain_1080p(dev):
 
 @pytest.mark.cuda
 def test_intra_recon_wrapper_on_card(dev):
-    """A bool is_intra and int16 residuals are taken as int32 copies, a
-    residual view at an offset that is not 16-byte aligned as an aligned
-    copy; a wrong shape, `other` without is_intra or a tensor on the CPU
-    raises before any launch."""
+    """A bool is_intra and int32 levels are taken as copies, a level view
+    at an offset that is not 16-byte aligned as an aligned copy, the
+    record buffers' strided views as they are; a wrong shape, `other`
+    without is_intra or a tensor on the CPU raises before any launch."""
+    import types
+
+    from tpuh264_torch.engine import devpipe
+
     kw = chip_smoke.d2_args(torch, chip_smoke.d2_case(np, (2, 3, 5), "half"),
                             dev)
     want = IF._intra_recon_scan_plain(**kw)
-    flat = torch.zeros(kw["res"][0].numel() + 1, dtype=torch.int32,
-                       device=dev)
-    odd = flat[1:].view(kw["res"][0].shape)
-    odd.copy_(kw["res"][0])
-    res = (odd, kw["res"][1].to(torch.int16), kw["res"][2])
-    got = IF._intra_recon_scan(**{**kw, "res": res})
+    t = kw["levels"]
+    flat = torch.zeros(t.luma_ac.numel() + 1, dtype=torch.int16, device=dev)
+    odd = flat[1:].view(t.luma_ac.shape)
+    odd.copy_(t.luma_ac)
+    lev = types.SimpleNamespace(**{**vars(t), "luma_ac": odd,
+                                   "chroma_ac": t.chroma_ac.to(torch.int32)})
+    got = IF._intra_recon_scan(**{**kw, "levels": lev})
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    mb = tuple(t.mode.shape)
+    m = torch.stack([t.kind, t.mode, t.cmode, t.cbp_luma, t.cbp_chroma,
+                     t.mvdx, t.mvdy, t.refidx, t.refidx], -1)
+    cf = torch.cat([t.luma_dc, t.luma_ac.reshape(*mb, 256),
+                    t.chroma_dc.reshape(*mb, 8),
+                    t.chroma_ac.reshape(*mb, 120)], -1)
+    sym = devpipe.record_symbols(m.contiguous(), cf.contiguous())
+    got = IF._intra_recon_scan(**{**kw, "mode": sym.mode,
+                                  "cmode": sym.cmode, "levels": sym})
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     before = IF._intra_recon_scan.launches
-    bad = [{**kw, "res": (kw["res"][0][:, :1], *kw["res"][1:])},
+    bad = [{**kw, "levels": types.SimpleNamespace(
+               **{**vars(t), "luma_dc": t.luma_dc[:, :1]})},
            {**kw, "is_intra": None},
-           {**kw, "cmode": kw["cmode"].cpu()}]
+           {**kw, "cmode": kw["cmode"].cpu()},
+           {**kw, "qp": 52}]
     for b in bad:
         with pytest.raises(ValueError):
             IF._intra_recon_scan(**b)
@@ -452,6 +480,64 @@ def test_intra_recon_raises_without_fallback(dev, monkeypatch):
     monkeypatch.setattr(cuda_lib, "load", lambda: Refusing())
     with pytest.raises(RuntimeError, match="th264_intra_recon_rows"):
         IF._intra_recon_scan(**kw)
+    assert not plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.K11_CASES, ids=str)
+def test_references_kernel_matches_plain(dev, case):
+    """K11 equals its plain version on the seeded cases: every plane of
+    every reference, halo on and off, uint8 and int32 references."""
+    refs_y, refs_u, refs_v, halo = chip_smoke.k11_case(np, *case)
+    kw = dict(refs_y=torch.from_numpy(refs_y).to(dev),
+              refs_u=torch.from_numpy(refs_u).to(dev),
+              refs_v=torch.from_numpy(refs_v).to(dev), halo=halo)
+    before = TP._references.launches
+    chip_smoke.k11_equal(kw, torch, str(case))
+    assert TP._references.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.K12_CASES, ids=str)
+def test_int_winner_kernel_matches_plain(dev, case, monkeypatch):
+    """K12 equals its plain version on the seeded cases (first-index ties
+    of both phases, tied counts); with a group, both sum a second
+    table's counts in between the phases."""
+    sads, lam, other = chip_smoke.k12_case(np, *case)
+    kw = dict(sads=torch.from_numpy(sads).to(dev), lam=lam)
+    if other is not None:
+        extra = chip_smoke.k12_counts(torch, torch.from_numpy(other).to(dev),
+                                      lam)
+        monkeypatch.setattr(TP, "all_reduce",
+                            lambda x, g: x.add_(extra.to(x.dtype)))
+        kw["group"] = "another band"
+    before = TP._int_winner.launches
+    chip_smoke.k12_equal(kw, torch, str(case))
+    assert TP._int_winner.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_refs_and_winner_raise_without_fallback(dev, monkeypatch):
+    """K11 and K12 with a library that cannot be built raise: their plain
+    versions are never taken."""
+    refs_y, refs_u, refs_v, halo = chip_smoke.k11_case(
+        np, *chip_smoke.K11_CASES[2])
+    sads, lam, _ = chip_smoke.k12_case(np, *chip_smoke.K12_CASES[3])
+    plain = []
+    monkeypatch.setattr(TP, "_references_plain",
+                        lambda *a, **k: plain.append(1))
+    monkeypatch.setattr(TP, "_int_winner_plain",
+                        lambda *a, **k: plain.append(1))
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_lib, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        TP._references(*[torch.from_numpy(x).to(dev)
+                         for x in (refs_y, refs_u, refs_v)], halo)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        TP._int_winner(torch.from_numpy(sads).to(dev), lam)
     assert not plain
 
 
@@ -753,7 +839,9 @@ def test_pipeline_gpu_bytes_equal_cpu_bytes(dev):
         assert gpu.stream_bytes(si) == cpu.stream_bytes(si)
     for a, b in zip(gpu.decoded_planes(), cpu.decoded_planes()):
         np.testing.assert_array_equal(a, b)
-    assert all(a > b for a, b in zip(_launches(), before))
+    after = _launches()
+    # the RTC preset (intra_in_p=False) runs no intra-in-P scan (D4)
+    assert all(after[k] > before[k] for k in after if k != "D4")
 
 
 @pytest.mark.cuda
@@ -870,7 +958,8 @@ def test_gate_small_on_card(dev):
                       verbose=False)
     b = gate.run_gate_extended(device=dev, workers=2, verbose=False)
     assert (a["compared"], b["compared"]) == (2, 16)
-    assert all(n > m for n, m in zip(_launches(), before))
+    after = _launches()
+    assert all(after[k] > before[k] for k in after)
 
 
 def _flat_enc(o):

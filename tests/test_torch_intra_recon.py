@@ -9,7 +9,7 @@ comparison is exact (array_equal): this is an integer codec.
 """
 
 import os
-import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -38,12 +38,15 @@ def _plain(case):
                                                             "cpu"))
 
 
-@pytest.mark.parametrize("shape,variant", chip_smoke.D2_CASES)
-def test_decode_matches_jax(shape, variant):
+@pytest.mark.parametrize("shape,variant,qp", [
+    (*c, chip_smoke.D2_QP) for c in chip_smoke.D2_CASES]
+    + chip_smoke.D2_QP_CASES)
+def test_decode_matches_jax(shape, variant, qp):
     """The port's P decode (`decode_pframe_rows_multi`: skip, inter and
     intra MBs at the case's share) and I decode (`decode_iframe_scan`,
-    the "iframe" variant) equal the JAX package's on the same symbols."""
-    sym, _, refs, qp = _case((shape, variant))
+    the "iframe" variant) equal the JAX package's on the same symbols, at
+    QP 32 and at QPs 0 and 51."""
+    sym, _, refs, qp = _case((shape, variant, qp))
     if refs is None:
         j = jif.decode_iframe_scan(
             jif.MBSymbols(**{f: sym[f] for f in I_FIELDS}), qp)
@@ -154,87 +157,65 @@ def test_column0_h_modes_match_jax(variant):
         np.testing.assert_array_equal(diff, want)
 
 
-# Reads int32 lanes C has_other, then the int32 inputs (mode, cmode,
-# is_intra where has_other, the residuals y u v, other y u v where
-# has_other) on stdin; writes the int32 planes y, u, v.
-HARNESS = r"""
-#include <cuda_runtime.h>
-#include <cstdio>
-#include <thread>
-#include <vector>
-#include "intra_recon.cu"
-int main() {
-  int32_t a[3];
-  if (fread(a, 4, 3, stdin) != 3) return 2;
-  const int lanes = a[0], C = a[1], has_other = a[2];
-  const size_t m = (size_t)lanes * C;
-  std::vector<int32_t> mode(m), cmode(m), isi(has_other ? m : 0),
-      ry(256 * m), ru(64 * m), rv(64 * m), oy(has_other ? 256 * m : 0),
-      ou(has_other ? 64 * m : 0), ov(has_other ? 64 * m : 0);
-  for (auto* x : {&mode, &cmode, &isi, &ry, &ru, &rv, &oy, &ou, &ov})
-    if (fread(x->data(), 4, x->size(), stdin) != x->size()) return 3;
-  std::vector<int32_t> y(256 * m), u(64 * m), v(64 * m);
-  const int32_t* no = nullptr;
-  const Args args{mode.data(), cmode.data(), has_other ? isi.data() : no,
-                  ry.data(), ru.data(), rv.data(),
-                  has_other ? oy.data() : no, has_other ? ou.data() : no,
-                  has_other ? ov.data() : no, y.data(), u.data(), v.data(),
-                  lanes, C};
-  std::barrier<> warp(32);
-  g_warp[0] = &warp;
-  for (int b = 0; b < lanes; ++b) {
-    std::vector<std::thread> block;
-    for (int t = 0; t < 32; ++t)
-      block.emplace_back([&, t, b] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        intra_recon_kernel(args);
-      });
-    for (auto& th : block) th.join();
-  }
-  for (auto* x : {&y, &u, &v}) fwrite(x->data(), 4, x->size(), stdout);
-  return 0;
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def cpu_kernel(tmp_path_factory):
     """csrc/intra_recon.cu (all but its launch entry) built with g++
     against the shims of cuda_threads.py: the kernel's own source, a
-    lane's 32 threads as std::threads, its shuffles through barriers."""
-    return cuda_threads.build(tmp_path_factory.mktemp("intra_recon_cpu"),
-                              HARNESS, os.path.dirname(SOURCE),
-                              "intra_recon_cpu")
+    lane's 32 threads as fibers, its shuffles and warp barriers switching
+    between them."""
+    return cuda_threads.build_entry(
+        tmp_path_factory.mktemp("intra_recon_cpu"), os.path.dirname(SOURCE),
+        "intra_recon.cu", "k5_args", "intra_recon_kernel", "a.lanes", "32")
 
 
-@pytest.mark.parametrize("shape,variant", chip_smoke.D2_CASES)
-def test_kernel_source_on_cpu_threads_matches_plain(cpu_kernel, shape,
-                                                    variant):
-    """The kernel's chunk layout, shuffles, flag windows and ring of
-    columns in flight, run a lane's 32 threads at a time, equal the plain
-    version on the case."""
-    case = _case((shape, variant))
-    kw = chip_smoke.d2_args(torch, case, "cpu")
-    s, r, c = shape
-    has_other = "other" in kw
-    ins = [kw["mode"], kw["cmode"]]
-    if has_other:
-        ins.append(kw["is_intra"])
-    ins += list(kw["res"]) + (list(kw["other"]) if has_other else [])
-    head = np.array([s * r, c, has_other], np.int32)
-    body = head.tobytes() + b"".join(
-        x.to(torch.int32).contiguous().numpy().tobytes() for x in ins)
-    out = np.frombuffer(subprocess.run(
-        [cpu_kernel], input=body, capture_output=True, check=True).stdout,
-        np.int32)
-    want = tif._intra_recon_scan_plain(**kw)
-    off = 0
-    for w in want:
-        got = out[off:off + w.numel()].reshape(w.shape)
-        off += w.numel()
-        np.testing.assert_array_equal(got, w.numpy(), err_msg=str(shape))
-    assert off == out.size
+def _source_equals_plain(exe, kw, what):
+    """The kernel's source on CPU threads over `_k5_operands` of the
+    arguments `kw` equals the plain version's output."""
+    ins, outs, ints = tif._k5_operands(**kw)
+    got = cuda_threads.run_entry(exe, ins, outs, ints)
+    for g, w in zip(got, tif._intra_recon_scan_plain(**kw)):
+        assert g.dtype == w.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=what)
+
+
+@pytest.mark.parametrize("case", [(*c, chip_smoke.D2_QP)
+                                  for c in chip_smoke.D2_CASES]
+                         + chip_smoke.D2_QP_CASES, ids=str)
+def test_kernel_source_on_cpu_threads_matches_plain(cpu_kernel, case):
+    """The kernel's chunk layout, level loads masked by the cbps, the
+    residual decode through shared memory (a 4x4 block a lane), shuffles,
+    flag windows and ring of columns in flight, run a lane's 32 threads
+    at a time, equal the plain version (`_intra_residuals`, then the
+    column loop) on the case: I frames, P frames of skip, inter and intra
+    MBs, levels that the cbps mask out, QPs 0, 32 and 51."""
+    _source_equals_plain(cpu_kernel, chip_smoke.d2_args(
+        torch, _case(case), "cpu"), str(case))
+
+
+@pytest.mark.parametrize("variant", ("half", "iframe"))
+def test_kernel_source_reads_record_slots(cpu_kernel, variant):
+    """The GOP decode's symbols are strided views of its records (MB
+    fields [.., 9] int32, levels [.., 400] int16 slots,
+    `devpipe.record_symbols`): the router passes them as they are, each
+    field with its MB stride (9 and 400, no copy), and the kernel reads
+    them so, equal to the plain version."""
+    from tpuh264_torch.engine import devpipe
+
+    kw = chip_smoke.d2_args(torch, _case(((2, 2, 61), variant)), "cpu")
+    t = kw["levels"]
+    mb = tuple(t.mode.shape)
+    m = torch.stack([t.kind, t.mode, t.cmode, t.cbp_luma, t.cbp_chroma,
+                     t.mvdx, t.mvdy, t.refidx, t.refidx], -1)
+    cf = torch.cat([t.luma_dc, t.luma_ac.reshape(*mb, 256),
+                    t.chroma_dc.reshape(*mb, 8),
+                    t.chroma_ac.reshape(*mb, 120)], -1)
+    sym = devpipe.record_symbols(m.contiguous(), cf.contiguous())
+    kw = dict(kw, mode=sym.mode, cmode=sym.cmode, levels=sym)
+    ins, _, ints = tif._k5_operands(**kw)
+    assert ints[4:] == [9, 9, 9, 9, 400, 400, 400, 400]
+    assert ins[0].data_ptr() == sym.mode.data_ptr()
+    assert ins[6].data_ptr() == sym.luma_ac.data_ptr()
+    _source_equals_plain(cpu_kernel, kw, variant)
 
 
 def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
@@ -261,9 +242,15 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
 
 
 def _meta(case):
-    return {k: (tuple(x.to("meta") for x in v) if isinstance(v, tuple)
-                else v.to("meta"))
-            for k, v in chip_smoke.d2_args(torch, case, "cpu").items()}
+    def on(v):
+        if isinstance(v, tuple):
+            return tuple(x.to("meta") for x in v)
+        if isinstance(v, types.SimpleNamespace):
+            return types.SimpleNamespace(**{k: on(x)
+                                            for k, x in vars(v).items()})
+        return v.to("meta") if torch.is_tensor(v) else v
+    return {k: on(v) for k, v in chip_smoke.d2_args(torch, case,
+                                                    "cpu").items()}
 
 
 def test_i44_goes_to_the_plain_version(monkeypatch):
@@ -288,7 +275,7 @@ def test_i44_goes_to_the_plain_version(monkeypatch):
     i44 = (torch.zeros((s, r, c, 16, 16), dtype=torch.int32, device="meta"),
            torch.zeros((s, r, c, 16), dtype=torch.int32, device="meta"), 30)
     assert tif._intra_recon_scan(**kw, i44=i44) == "plain"
-    assert len(calls) == 1 and calls[0][5] is i44
+    assert len(calls) == 1 and calls[0][7] is i44
     for k in (kw, _meta(_case(((1, 2, 3), "half")))):
         with pytest.raises(ValueError):
             tif._intra_recon_scan(**k)

@@ -139,3 +139,35 @@ def test_both_libraries_build_into_the_port_build_dir(mod):
     """Both libraries go through the helper into tpuh264_torch/build/."""
     assert os.path.dirname(mod.LIB) == libbuild.BUILD
     assert libbuild.BUILD.endswith(os.path.join("tpuh264_torch", "build"))
+
+
+def test_cuda_library_covers_every_source_and_header(tmp_path, monkeypatch):
+    """The kernel library is built from every csrc/*.cu (one nvcc each,
+    then one link of all the objects: K11's halfpel.cu and K12's
+    me_winner.cu among them) and goes stale when any of them or a shared
+    csrc/*.cuh header (K5 and K8's residual decode in
+    intra16_common.cuh) is newer than the library."""
+    names = {os.path.basename(p) for p in cuda_lib._deps()}
+    assert {"halfpel.cu", "me_winner.cu", "intra_recon.cu", "wavefront.cu",
+            "intra16_common.cuh", "inter_common.cuh"} <= names
+    monkeypatch.setattr(cuda_lib, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_lib, "BUILD", str(tmp_path))
+    steps = cuda_lib._command(str(tmp_path / "lib.so"))
+    compiled = [os.path.basename(s[s.index("-c") + 1]) for s in steps[:-1]]
+    assert sorted(compiled) == sorted(
+        os.path.basename(p) for p in cuda_lib._sources())
+    assert steps[-1][-len(compiled):] == [s[-1] for s in steps[:-1]]
+    lib, header = tmp_path / "lib.so", tmp_path / "tables.cuh"
+    lib.write_text("lib")
+    header.write_text("tables")
+    newest = max(os.path.getmtime(p) for p in cuda_lib._deps())
+    os.utime(lib, (newest + 10, newest + 10))
+    assert not libbuild.stale(str(lib), str(header), "tables",
+                              cuda_lib._deps())
+    shared = os.path.join(cuda_lib.CSRC, "intra16_common.cuh")
+    t = os.path.getmtime(shared)
+    os.utime(lib, (t - 10, t - 10))
+    older = [p for p in cuda_lib._deps() if p != shared]
+    assert not libbuild.stale(str(lib), str(header), "tables", [
+        p for p in older if os.path.getmtime(p) < t - 10])
+    assert libbuild.stale(str(lib), str(header), "tables", cuda_lib._deps())

@@ -9,8 +9,6 @@ this is an integer codec.
 """
 
 import os
-import struct
-import subprocess
 
 import numpy as np
 import pytest
@@ -24,49 +22,10 @@ from tpuh264_torch.kernels import pframe as tpf
 
 CSRC = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc")
 
-# Reads the entry's ints (count, then int32s), then its pointer slots
-# (count, then per slot: int64 bytes, int32 input flag, the bytes of an
-# input), builds the kernel's arguments with the source's own unpacking
-# (`ARGS(p, n)`) and runs BLOCKS blocks of THREADS threads as fibers;
-# writes every output slot's bytes in order.
-HARNESS = r"""
-#include <cuda_runtime.h>
-#include <cstdio>
-#include <vector>
-#include SOURCE
-int main() {
-  int32_t k;
-  if (fread(&k, 4, 1, stdin) != 1) return 2;
-  std::vector<int> n(k);
-  if (fread(n.data(), 4, k, stdin) != (size_t)k) return 2;
-  if (fread(&k, 4, 1, stdin) != 1 || k != kPtrs) return 3;
-  std::vector<std::vector<int4>> buf(k);
-  std::vector<int> is_in(k);
-  std::vector<void*> p(k);
-  std::vector<int64_t> size(k);
-  for (int i = 0; i < k; ++i) {
-    if (fread(&size[i], 8, 1, stdin) != 1 || fread(&is_in[i], 4, 1, stdin) != 1)
-      return 4;
-    const int fill = (int)0xa5a5a5a5u;  // what a kernel never writes shows
-    buf[i].assign((size[i] + 15) / 16 + 1, int4{fill, fill, fill, fill});
-    p[i] = buf[i].data();
-    if (is_in[i] && fread(p[i], 1, size[i], stdin) != (size_t)size[i])
-      return 5;
-  }
-  const auto a = ARGS(p.data(), n.data());
-  const int blocks = BLOCKS;
-  for (int b = 0; b < blocks; ++b)
-    run_block_fibers(THREADS, b, [&] { KERNEL(a); });
-  for (int i = 0; i < k; ++i)
-    if (!is_in[i]) fwrite(p[i], 1, size[i], stdout);
-  return 0;
-}
-"""
-
 KERNELS = {
-    "k9": ('"pframe_enc.cu"', "enc_args", "pframe_encode_kernel",
+    "k9": ("pframe_enc.cu", "enc_args", "pframe_encode_kernel",
            "(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps"),
-    "k10": ('"pframe_dec.cu"', "dec_args", "pframe_decode_kernel",
+    "k10": ("pframe_dec.cu", "dec_args", "pframe_decode_kernel",
             "(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps"),
 }
 
@@ -77,37 +36,9 @@ def cpu_kernels(tmp_path_factory):
     built with g++ against the shims of cuda_threads.py: each block's
     warps as fibers (`run_block_fibers`), its shuffles, ballots and block
     barriers switching between them."""
-    out = {}
-    for key, (src, args, kernel, blocks, threads) in KERNELS.items():
-        out[key] = cuda_threads.build(
-            tmp_path_factory.mktemp(f"{key}_cpu"), HARNESS, CSRC,
-            f"{key}_cpu", (f"SOURCE={src}", f"ARGS={args}",
-                           f"KERNEL={kernel}", f"BLOCKS={blocks}",
-                           f"THREADS={threads}"))
-    return out
-
-
-def _run(exe, ins, outs, ints):
-    """A kernel source on CPU threads over the entry's operands (CPU
-    tensors, as `_k9_operands` / `_k10_operands` give them): the outputs,
-    filled."""
-    body = [struct.pack("<i", len(ints)), np.asarray(ints, np.int32)
-            .tobytes(), struct.pack("<i", len(ins) + len(outs))]
-    for i, t in enumerate(ins + outs):
-        body.append(struct.pack("<qi", t.numel() * t.element_size(),
-                                i < len(ins)))
-        if i < len(ins):
-            body.append(t.contiguous().numpy().tobytes())
-    raw = subprocess.run([exe], input=b"".join(body), capture_output=True,
-                         check=True).stdout
-    off = 0
-    for t in outs:
-        nb = t.numel() * t.element_size()
-        t.copy_(torch.frombuffer(bytearray(raw[off:off + nb]),
-                                 dtype=t.dtype).reshape(t.shape))
-        off += nb
-    assert off == len(raw)
-    return outs
+    return {key: cuda_threads.build_entry(
+        tmp_path_factory.mktemp(f"{key}_cpu"), CSRC, *spec)
+        for key, spec in KERNELS.items()}
 
 
 def _eq(got, want, what):
@@ -125,7 +56,7 @@ def test_k9_source_on_cpu_threads_matches_plain(cpu_kernels, case):
     kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu")
     want = tpf._inter_encode_plain(**kw)
     args = {k: v for k, v in kw.items() if k != "t8"}
-    outs = _run(cpu_kernels["k9"], *tpf._k9_operands(**args))
+    outs = cuda_threads.run_entry(cpu_kernels["k9"], *tpf._k9_operands(**args))
     for f, got in zip(tpf.InterEnc._fields, outs[:11]):
         _eq(got, getattr(want, f), f)
     assert not want.t8.any()
@@ -166,7 +97,7 @@ def test_k10_source_on_cpu_threads_matches_plain(cpu_kernels, case):
     kw = chip_smoke.k10_args(torch, chip_smoke.k10_case(np, *case), "cpu")
     rec, mv = tpf._inter_decode_plain(**kw)
     args = {k: v for k, v in kw.items() if k != "t8"}
-    outs = _run(cpu_kernels["k10"], *tpf._k10_operands(**args))
+    outs = cuda_threads.run_entry(cpu_kernels["k10"], *tpf._k10_operands(**args))
     for i, (got, w) in enumerate(zip(outs, (*rec, *mv))):
         _eq(got, w, f"output {i}")
 

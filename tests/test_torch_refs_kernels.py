@@ -1,0 +1,216 @@
+"""K11 (the P frame's reference build) and K12 (the stage-A winner):
+their sources run on CPU threads against the plain versions, the plain
+reference build against the JAX package's, and the routers.
+
+The kernels' inputs come from `chip_smoke.k11_case` / `k12_case`, the
+generators chip_smoke.py phase 2 holds the kernels to their plain
+versions with on the card.  Every comparison is exact (array_equal):
+this is an integer codec.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import cuda_threads
+from tpuh264.kernels import pframe as jpf
+from tpuh264_torch.kernels import cuda_lib
+from tpuh264_torch.kernels import pframe as tpf
+
+CSRC = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc")
+
+
+@pytest.fixture(scope="module")
+def k11_cpu(tmp_path_factory):
+    """csrc/halfpel.cu (all but its launch entry) built with g++ against
+    the shims of cuda_threads.py: a block's 256 threads as fibers, its
+    block barriers switching between them."""
+    return cuda_threads.build_entry(tmp_path_factory.mktemp("k11_cpu"),
+                                    CSRC, "halfpel.cu", "ref_args",
+                                    "halfpel_kernel", "a.blocks", "kThreads")
+
+
+@pytest.fixture(scope="module")
+def k12_cpu(tmp_path_factory):
+    """csrc/me_winner.cu (all but its launch entry) built likewise, a
+    block's warps as fibers, `redux.sync` min / max through their
+    exchanges, the counts' atomics as host atomics."""
+    return cuda_threads.build_entry(
+        tmp_path_factory.mktemp("k12_cpu"), CSRC, "me_winner.cu", "win_args",
+        "me_winner_kernel", "(a.S * a.R * a.C + kWarps - 1) / kWarps",
+        "32 * kWarps")
+
+
+def _k11_inputs(case):
+    """`_references`' arguments for a `k11_case` on the CPU."""
+    refs_y, refs_u, refs_v, halo = chip_smoke.k11_case(np, *case)
+    return [torch.from_numpy(x) for x in (refs_y, refs_u, refs_v)] + [halo]
+
+
+@pytest.mark.parametrize("case", chip_smoke.K11_CASES, ids=str)
+def test_k11_source_on_cpu_threads_matches_plain(k11_cpu, case):
+    """K11's staged tiles, clamps, 6-tap passes over shared rows and
+    chroma copies, a block at a time, equal the plain version on the
+    case: every plane of every reference."""
+    args = _k11_inputs(case)
+    planes, up, vp = tpf._references_plain(*args)
+    ins, outs, ints = tpf._k11_operands(*args)
+    got_l, got_c = cuda_threads.run_entry(k11_cpu, ins, outs, ints)
+    for n in range(len(planes)):
+        np.testing.assert_array_equal(got_l[n].numpy(), planes[n].numpy(),
+                                      err_msg=f"luma planes, reference {n}")
+        np.testing.assert_array_equal(got_c[n, 0].numpy(), up[n].numpy())
+        np.testing.assert_array_equal(got_c[n, 1].numpy(), vp[n].numpy())
+
+
+def test_k11_cases_cover_what_they_claim():
+    """S = 1 and 3; one MB, a row, a column and 97 columns; N = 1, 2 and
+    4; halo on and off; uint8 and int32 references; every content."""
+    shapes = {c[0] for c in chip_smoke.K11_CASES}
+    assert {s for s, _, _ in shapes} == {1, 3}
+    assert {(1, 1, 1), (1, 4, 1)} <= shapes
+    assert any(r == 1 and c > 1 for _, r, c in shapes)
+    assert any(c == 97 for _, _, c in shapes)
+    assert {c[1] for c in chip_smoke.K11_CASES} == {1, 2, 4}
+    assert {c[2] for c in chip_smoke.K11_CASES} == {False, True}
+    assert {c[3] for c in chip_smoke.K11_CASES} == {False, True}
+    assert {c[4] for c in chip_smoke.K11_CASES} == set(chip_smoke.K11_CONTENT)
+
+
+@pytest.mark.parametrize("case", chip_smoke.K11_CASES, ids=str)
+def test_plain_references_match_jax(case):
+    """The plain reference build equals the JAX package's: without `halo`
+    `build_halfpel_planes` and `_pad_ref`, with it the `_ext` pair (a
+    row-sharded DPB); luma and chroma, every reference."""
+    refs_y, refs_u, refs_v, halo = chip_smoke.k11_case(np, *case)
+    planes, up, vp = tpf._references_plain(
+        *[torch.from_numpy(x) for x in (refs_y, refs_u, refs_v)], halo)
+    build = jpf.build_halfpel_planes_ext if halo else jpf.build_halfpel_planes
+    if halo:
+        pad = lambda x: jpf._pad_ref_ext(x, tpf._CP)
+    else:
+        pad = lambda x: jpf._pad_ref(x, tpf._CP)
+    for n in range(refs_y.shape[0]):
+        want = build(jnp.asarray(refs_y[n]))
+        for k in range(4):
+            np.testing.assert_array_equal(planes[n][k].numpy(),
+                                          np.asarray(want[k]))
+        np.testing.assert_array_equal(up[n].numpy(),
+                                      np.asarray(pad(jnp.asarray(refs_u[n]))))
+        np.testing.assert_array_equal(vp[n].numpy(),
+                                      np.asarray(pad(jnp.asarray(refs_v[n]))))
+
+
+def _k12_source(exe, sads, lam, other=None):
+    """K12's two phases on CPU threads: phase 1 (the counts), the counts
+    of `other` summed in where given (as an all_reduce over a group of
+    two would), phase 2: (iy0, ix0, gy, gx)."""
+    ins, outs, ints = tpf._k12_operands(sads, lam)
+    cuda_threads.run_entry(exe, ins, outs, ints + [1], inout=(0,))
+    if other is not None:
+        o_ins, o_outs, _ = tpf._k12_operands(other, lam)
+        cuda_threads.run_entry(exe, o_ins, o_outs, ints + [1], inout=(0,))
+        outs[0] += o_outs[0]
+    cuda_threads.run_entry(exe, ins, outs, ints + [2], inout=(0,))
+    return outs[1:]
+
+
+@pytest.mark.parametrize("case", chip_smoke.K12_CASES, ids=str)
+def test_k12_source_on_cpu_threads_matches_plain(k12_cpu, case,
+                                                 monkeypatch):
+    """K12's two phases (lane minima, `redux.sync` first-index rules,
+    counts by atomics, the mode recomputed by every warp, the rate
+    relative to it) equal the plain version on the case; with a group,
+    both sum in the other band's counts between the phases."""
+    sads, lam, other = chip_smoke.k12_case(np, *case)
+    sads = torch.from_numpy(sads)
+    group = None
+    if other is not None:
+        other = torch.from_numpy(other)
+        extra = chip_smoke.k12_counts(torch, other, lam)
+        monkeypatch.setattr(tpf, "all_reduce",
+                            lambda t, g: t.add_(extra.to(t.dtype)))
+        group = "the other band"
+    want = tpf._int_winner_plain(sads, lam, group)
+    got = _k12_source(k12_cpu, sads, lam, other)
+    for g, w, name in zip(got, want, ("iy0", "ix0", "gy", "gx")):
+        assert g.dtype == w.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)
+
+
+def test_k12_cases_tie():
+    """The "tied" tables tie the phase-1 cost of some MB's best
+    candidates, and the "counts" tables tie two candidates' counts in a
+    stream, the later one won first: the first-index rules decide."""
+    for case in chip_smoke.K12_CASES:
+        sads, lam, _ = chip_smoke.k12_case(np, *case)
+        t = torch.from_numpy(sads)
+        cost = (4 * t + lam * tpf.tables.get("rate0", "cpu")).reshape(
+            -1, tpf._NN)
+        ties = (cost == cost.min(-1, keepdim=True).values).sum(-1)
+        if case[1] == "tied":
+            assert (ties > 1).all()
+        if case[1] == "counts" and t[0].numel() // tpf._NN % 2 == 0:
+            win = tpf._argmin_first(cost).reshape(t.shape[0], -1)[0]
+            counts = torch.bincount(win, minlength=tpf._NN)
+            assert counts[17] == counts[200] == counts.max()
+            assert win[0] == 200
+            assert tpf._argmax_first(counts[None])[0] == 17
+
+
+def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
+    """On CPU tensors both routers (and the P encode and decode through
+    them) take the plain versions: the kernel library is never loaded
+    and the launch counters do not move."""
+    def refuse():
+        raise AssertionError("the kernel library was loaded for CPU tensors")
+
+    monkeypatch.setattr(cuda_lib, "load", refuse)
+    before = (tpf._references.launches, tpf._int_winner.launches)
+    args = _k11_inputs(chip_smoke.K11_CASES[3])
+    for a, b in zip(tpf._references(*args), tpf._references_plain(*args)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    sads, lam, _ = chip_smoke.k12_case(np, *chip_smoke.K12_CASES[4])
+    sads = torch.from_numpy(sads)
+    for a, b in zip(tpf._int_winner(sads, lam),
+                    tpf._int_winner_plain(sads, lam)):
+        assert torch.equal(a, b)
+    case = chip_smoke.k9_case(np, *chip_smoke.K9_CASES[9])
+    t = torch.from_numpy
+    sym, _, _ = tpf.encode_pframe_rows_multi(
+        t(case["y"]), t(case["u"]), t(case["v"]), t(case["refs_y"]),
+        t(case["refs_u"]), t(case["refs_v"]), case["qp"],
+        halo=case["halo"])
+    tpf.decode_pframe_rows_multi(sym, t(case["refs_y"]), t(case["refs_u"]),
+                                 t(case["refs_v"]), case["qp"],
+                                 halo=case["halo"])
+    assert (tpf._references.launches, tpf._int_winner.launches) == before
+
+
+def test_routers_raise_off_the_cpu(monkeypatch):
+    """A tensor off the CPU never reaches a plain version: on a device the
+    kernels cannot take (meta), or where the inputs are no DPB or no SAD
+    table, both routers raise before any launch."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version or the library was called")
+
+    monkeypatch.setattr(tpf, "_references_plain", refuse)
+    monkeypatch.setattr(tpf, "_int_winner_plain", refuse)
+    monkeypatch.setattr(cuda_lib, "load", refuse)
+    before = (tpf._references.launches, tpf._int_winner.launches)
+    args = [x.to("meta") for x in _k11_inputs(chip_smoke.K11_CASES[3])[:3]]
+    for halo in (False, True):
+        with pytest.raises(ValueError):
+            tpf._references(*args, halo)
+    with pytest.raises(ValueError):
+        tpf._references(args[0], args[1][:, :, 1:], args[2], False)
+    sads = torch.zeros((1, 2, 3, tpf._NN), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        tpf._int_winner(sads, 4)
+    with pytest.raises(ValueError):
+        tpf._int_winner(sads[..., 1:], 4)
+    assert (tpf._references.launches, tpf._int_winner.launches) == before

@@ -9,8 +9,11 @@ Runs warm-up dispatches, then:
      stage fenced by torch.cuda.synchronize() (so a stage's time includes
      its device work): source, I encode, P encode, deblock (encoder and
      decoder), entropy (I / P), wire download, native parse, P decode,
-     and inside P decode its intra-reconstruction column scan
-     (`p_decode.intra_scan`, also counted in `p_decode`);
+     and inside them their sub-stages (also counted in the stage that
+     calls them): the reference build of the P encode and of the P
+     decode (`p_encode.references`, `p_decode.references`: K11), the
+     stage-A winner (`p_encode.winner`: K12) and the decode's intra
+     reconstruction (`p_decode.intra_scan`: K5);
   2. the same for one GOP-start dispatch (`force_idr()`: an I frame and
      three P frames);
   3. one dispatch under torch.profiler: device-busy share (the union of
@@ -36,17 +39,25 @@ from tpuh264_torch.engine import CodecConfig, devpipe  # noqa: E402
 
 STAGES = collections.defaultdict(float)
 COUNTS = collections.Counter()
+OUTER = []  # the fenced stages being timed, outermost first
 
 
 def _fenced(name, fn):
+    """`fn` timed under `name` ("{outer}" in it: the stage that calls it),
+    synchronised before and after."""
     @functools.wraps(fn)
     def wrapper(*a, **kw):
+        label = name.format(outer=OUTER[-1] if OUTER else "other")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(*a, **kw)
+        OUTER.append(label)
+        try:
+            out = fn(*a, **kw)
+        finally:
+            OUTER.pop()
         torch.cuda.synchronize()
-        STAGES[name] += time.perf_counter() - t0
-        COUNTS[name] += 1
+        STAGES[label] += time.perf_counter() - t0
+        COUNTS[label] += 1
         return out
     return wrapper
 
@@ -60,8 +71,11 @@ def _instrument():
         "p_encode", dp.pframe.encode_pframe_rows_multi)
     dp.pframe.decode_pframe_rows_multi = _fenced(
         "p_decode", dp.pframe.decode_pframe_rows_multi)
-    dp.pframe._intra_recon_scan = _fenced("p_decode.intra_scan",
+    dp.pframe._intra_recon_scan = _fenced("{outer}.intra_scan",
                                           dp.pframe._intra_recon_scan)
+    dp.pframe._references = _fenced("{outer}.references",
+                                    dp.pframe._references)
+    dp.pframe._int_winner = _fenced("{outer}.winner", dp.pframe._int_winner)
     dp.kdeblock.deblock_i = _fenced("deblock", dp.kdeblock.deblock_i)
     dp.kdeblock.deblock_p = _fenced("deblock", dp.kdeblock.deblock_p)
     dp.entropy_gpu.encode_bits_iframe = _fenced(

@@ -294,10 +294,6 @@ __device__ __forceinline__ void unpack8(const uint2& v, int* o) {
   for (int i = 0; i < 8; ++i) o[i] = byte_of(i < 4 ? v.x : v.y, i & 3);
 }
 
-__device__ __forceinline__ int clip16(int x) {
-  return min(max(x, -32768), 32767);
-}
-
 // Plane prediction (8.3.3.4 / 8.3.4.4) of an n x n block: a, b, c of
 // (a + b (x - n/2 + 1) + c (y - n/2 + 1) + 16) >> 5, clipped.
 struct PlaneFit {
@@ -403,24 +399,6 @@ __device__ __forceinline__ void forward4x4(int* x) {
     const int b0 = p[0] + p[3], b1 = p[1] + p[2];
     const int b2 = p[1] - p[2], b3 = p[0] - p[3];
     p[0] = b0 + b1, p[1] = 2 * b3 + b2, p[2] = b0 - b1, p[3] = b3 - 2 * b2;
-  }
-}
-
-// inverse4x4 (8.5.12.2) in place: rows first, then columns
-__device__ __forceinline__ void inverse4x4(int* d) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    int* p = d + 4 * r;
-    const int e0 = p[0] + p[2], e1 = p[0] - p[2];
-    const int e2 = (p[1] >> 1) - p[3], e3 = p[1] + (p[3] >> 1);
-    p[0] = e0 + e3, p[1] = e1 + e2, p[2] = e1 - e2, p[3] = e0 - e3;
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int g0 = d[c] + d[8 + c], g1 = d[c] - d[8 + c];
-    const int g2 = (d[4 + c] >> 1) - d[12 + c], g3 = d[4 + c] + (d[12 + c] >> 1);
-    d[c] = g0 + g3, d[4 + c] = g1 + g2, d[8 + c] = g1 - g2;
-    d[12 + c] = g0 - g3;
   }
 }
 
@@ -968,86 +946,33 @@ __global__ void __launch_bounds__(64 * WF_MAX_TEAMS)
 
 // ---------------------------------------------------------------- K8
 
-// A lane's levels of one MB, loaded one MB ahead, int16 pairs.  Luma lane
-// t < 16: `ac0/1` block t's 16 zigzag slots (slot 0 unused), `dc0/1` the
-// 16 DC levels; chroma lane 16 + 4 p + j: `ac0/1` block j of plane p's
-// slots 1-15 (slot 0 zero), `dc0.x/y` the plane's 4 DC levels (raster).
-struct LevelPart {
-  int4 ac0, ac1, dc0, dc1;
-  int cbl, cbc;
-};
-
-__device__ __forceinline__ int level_at(const int4& w0, const int4& w1,
-                                        int i) {
-  const uint32_t w = (uint32_t)pick4(i < 8 ? w0 : w1, (i & 7) >> 1);
-  return (int)(int16_t)(i & 1 ? w >> 16 : w & 0xffffu);
-}
-
-__device__ __forceinline__ LevelPart load_levels(const DecArgs& a, int s,
-                                                 int r, int c, int t) {
+// K8's lane t's levels of MB (s, r, c) (see `load_levels`).
+__device__ __forceinline__ LevelPart mb_levels(const DecArgs& a, int s,
+                                               int r, int c, int t) {
   const size_t m = ((size_t)s * a.g.R + r) * a.g.C + c;
-  LevelPart v;
-  v.cbl = a.cbp_l[m];
-  v.cbc = a.cbp_c[m];
-  v.ac0 = v.ac1 = v.dc0 = v.dc1 = make_int4(0, 0, 0, 0);
-  if (t < 16) {
-    const int4* ac = reinterpret_cast<const int4*>(a.ac + m * 256 + 16 * t);
-    const int4* dc = reinterpret_cast<const int4*>(a.dc + m * 16);
-    v.ac0 = ac[0], v.ac1 = ac[1], v.dc0 = dc[0], v.dc1 = dc[1];
-  } else if (t < 24) {
-    const int p = (t - 16) >> 2, j = (t - 16) & 3;
-    const int16_t* ac = a.cac + m * 120 + 60 * p + 15 * j;  // 2-aligned
-    int w[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      w[k] = (int)pack16(k ? ac[2 * k - 1] : 0, ac[2 * k]);
-    v.ac0 = make_int4(w[0], w[1], w[2], w[3]);
-    v.ac1 = make_int4(w[4], w[5], w[6], w[7]);
-    const uint2 d = *reinterpret_cast<const uint2*>(a.cdc + m * 8 + 4 * p);
-    v.dc0 = make_int4((int)d.x, (int)d.y, 0, 0);
-  }
-  return v;
+  return load_levels(a.dc + m * 16, a.ac + m * 256, a.cdc + m * 8,
+                     a.cac + m * 120, a.cbp_l[m], a.cbp_c[m], t);
 }
 
 // The residuals of one MB into a ring slot (K8's residual warp, lane t):
-// luma block t on lanes 0-15, chroma block j of plane p on 16 + 4 p + j;
-// only the DC differs between them.
+// luma block t on lanes 0-15, chroma block j of plane p on 16 + 4 p + j,
+// saturated to int16.
 __device__ void residuals(const LevelPart& v, const Quant& ql,
                           const Quant& qc, int t, int16_t* ry,
                           int16_t (*rc)[64]) {
-  if (t >= 24) return;
+  int x[16];
+  if (!block_residual(v, ql, qc, t, x)) return;
   const bool luma = t < 16;
   const int p = (t - 16) >> 2, j = (t - 16) & 3;
   const int by = luma ? t >> 2 : j >> 1, bx = luma ? t & 3 : j & 1;
-  const Quant& q = luma ? ql : qc;
-  int x[16];
-  if (luma) {  // element (by, bx) of the inverse DC Hadamard
-    int g = 0;
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      g += h4(by, zz(k) >> 2) * h4(bx, zz(k) & 3) * level_at(v.dc0, v.dc1, k);
-    x[0] = dq_ldc(ql, g);
-  } else {  // element (by, bx) of plane p's 2x2 one, where cbp has a DC
-    const int z0 = level_at(v.dc0, v.dc1, 0), z1 = level_at(v.dc0, v.dc1, 1);
-    const int z2 = level_at(v.dc0, v.dc1, 2), z3 = level_at(v.dc0, v.dc1, 3);
-    const int g = (z0 + (bx ? -z1 : z1)) +
-                  (by ? -1 : 1) * (z2 + (bx ? -z3 : z3));
-    x[0] = v.cbc >= 1 ? dq_cdc(qc, g) : 0;
-  }
-  const bool ac = luma ? v.cbl == 1 : v.cbc == 2;  // cbp has the AC
-#pragma unroll
-  for (int k = 1; k < 16; ++k)
-    x[zz(k)] =
-        ac ? dq_ac(q, level_at(v.ac0, v.ac1, k), pos_class(zz(k))) : 0;
-  inverse4x4(x);
   const int stride = luma ? 16 : 8;
   int16_t* out = (luma ? ry : rc[p]) + 4 * stride * by + 4 * bx;
 #pragma unroll
   for (int yy = 0; yy < 4; ++yy) {
     const int* e = x + 4 * yy;
-    *reinterpret_cast<uint2*>(out + yy * stride) = make_uint2(
-        pack16(clip16((e[0] + 32) >> 6), clip16((e[1] + 32) >> 6)),
-        pack16(clip16((e[2] + 32) >> 6), clip16((e[3] + 32) >> 6)));
+    *reinterpret_cast<uint2*>(out + yy * stride) =
+        make_uint2(pack16(clip16(e[0]), clip16(e[1])),
+                   pack16(clip16(e[2]), clip16(e[3])));
   }
 }
 
@@ -1061,11 +986,11 @@ __device__ void dec_res_chain(const DecArgs& a, const Layout& L, int s,
   const int r0 = rank * g.rpc, r1 = min(g.R, r0 + g.rpc);
   int r = r0 + team, c = 0;
   LevelPart pf;
-  if (r < r1) pf = load_levels(a, s, r, 0, t);
+  if (r < r1) pf = mb_levels(a, s, r, 0, t);
   for (unsigned seq = 0; r < r1; ++seq) {
     const LevelPart cur = pf;
     if (++c == g.C) c = 0, r += g.teams;
-    if (r < r1) pf = load_levels(a, s, r, c, t);
+    if (r < r1) pf = mb_levels(a, s, r, c, t);
     const int slot = seq % kRing;
     if (seq >= kRing) wait_local(&w.consumed, seq - kRing + 1);
     residuals(cur, ql, qc, t, w.ry[slot], w.rc[slot]);

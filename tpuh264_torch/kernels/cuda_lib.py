@@ -12,8 +12,8 @@ into `tpuh264_torch/build/` (git-ignored, see libbuild.py), together
 with the generated header `cavlc_tables.cuh` (the CAVLC VLC tables of
 the port's entropy/cavlc_tables.py as __constant__ arrays).  The
 library has a plain C interface and is loaded with ctypes: every entry
-takes device pointers and the CUDA stream as void* (K9's and K10's take
-their pointers and ints as host arrays, `pointers` and `ints`), launches
+takes device pointers and the CUDA stream as void* (K5's and K9-K12's
+take their pointers and ints as host arrays, `pointers` and `ints`), launches
 on that stream and returns cudaGetLastError().  A missing nvcc or a failed build raises.
 """
 
@@ -115,7 +115,6 @@ def load() -> ctypes.CDLL:
         lib.th264_pack_blocks.argtypes = [p, p, p, p, p, p, p, p, i64, i, i, p]
         lib.th264_merge_tree.argtypes = [p, p, p, p, i64, i, i, i, p]
         lib.th264_deblock_rows.argtypes = [p] * 12 + [i, i, i, i, p]
-        lib.th264_intra_recon_rows.argtypes = [p] * 12 + [i, i, p]
         lib.th264_intra16_encode_rows.argtypes = (
             [p] * 3 + [i] + [p] * 12 + [i, i, i, i, p])
         lib.th264_intra16_in_p_rows.argtypes = (
@@ -124,15 +123,19 @@ def load() -> ctypes.CDLL:
             [p] * 3 + [i] + [p] * 12 + [i] * 5 + [p])
         lib.th264_wavefront_decode.argtypes = [p] * 11 + [i] * 5 + [p]
         lib.th264_wavefront_plan.argtypes = [i, i, p]
-        # K9 / K10: a host array of device pointers, one of ints, the stream
-        lib.th264_pframe_encode.argtypes = [p, p, p]
-        lib.th264_pframe_decode.argtypes = [p, p, p]
+        # K5 and K9-K12: a host array of device pointers, one of ints, the
+        # stream
+        arrays = (lib.th264_intra_recon_rows, lib.th264_pframe_encode,
+                  lib.th264_pframe_decode, lib.th264_halfpel_refs,
+                  lib.th264_me_winner)
+        for fn in arrays:
+            fn.argtypes = [p, p, p]
         for fn in (lib.th264_sad_field, lib.th264_pack_blocks,
                    lib.th264_merge_tree, lib.th264_deblock_rows,
-                   lib.th264_intra_recon_rows, lib.th264_intra16_encode_rows,
+                   lib.th264_intra16_encode_rows,
                    lib.th264_intra16_in_p_rows, lib.th264_wavefront_encode,
                    lib.th264_wavefront_decode, lib.th264_wavefront_plan,
-                   lib.th264_pframe_encode, lib.th264_pframe_decode):
+                   *arrays):
             fn.restype = ctypes.c_int
         lib.th264_cuda_error_string.argtypes = [ctypes.c_int]
         lib.th264_cuda_error_string.restype = ctypes.c_char_p
@@ -169,8 +172,10 @@ def stream(device) -> ctypes.c_void_p:
 
 def pointers(tensors) -> ctypes.Array:
     """The tensors' device pointers as a host array (the `p` argument of
-    the entries that take their pointers as one array)."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    the entries that take their pointers as one array); None is a null
+    pointer."""
+    return (ctypes.c_void_p * len(tensors))(*[
+        None if t is None else t.data_ptr() for t in tensors])
 
 
 def ints(values) -> ctypes.Array:

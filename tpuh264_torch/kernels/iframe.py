@@ -24,9 +24,10 @@ of pframe.py (D4, the same kernel), and `_intra_residuals` /
 `_intra_recon_scan` (the decode) with the P decoder's intra MBs.
 
 The decode's column scan, `_intra_recon_scan`, is D2, a CUDA kernel
-(K5, csrc/intra_recon.cu: a warp per MB row) for CUDA tensors, with its
-plain version `_intra_recon_scan_plain` for CPU tensors and for the
-Intra_4x4 reconstruction (`i44`).
+(K5, csrc/intra_recon.cu: a warp per MB row, decoding the intra MBs'
+residuals from the levels itself) for CUDA tensors, with its plain
+version `_intra_recon_scan_plain` (`_intra_residuals`, then the column
+loop) for CPU tensors and for the Intra_4x4 reconstruction (`i44`).
 
 Bit-exact with the JAX version (tests/test_torch_transform_iframe_deblock.py,
 tests/test_torch_intra44.py, tests/test_torch_intra_recon.py,
@@ -35,6 +36,7 @@ tests/test_torch_intra_enc.py).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -469,59 +471,131 @@ def _intra_residuals(symbols, qp: int, qpc: int):
     return res_y, chroma(0), chroma(1)
 
 
-def _intra_recon_scan(mode, cmode, res, other=None, is_intra=None,
-                      i44=None):
+def _intra_recon_scan(mode, cmode, levels, qp: int, qpc: int, other=None,
+                      is_intra=None, i44=None):
     """Left-neighbour prediction of intra MBs, column by column, plus the
-    residuals `res` of `_intra_residuals` (luma [S,R,C,4,4,4,4], chroma
-    [S,R,C,2,2,4,4] each).  Where `is_intra` [S,R,C] is False an MB takes
-    its reconstruction from `other` ([S,R,C,16,16], [S,R,C,8,8] x 2)
-    instead, and serves as the next MB's left neighbour.  With `i44` =
-    (luma_ac [S,R,C,16,16], i4modes [S,R,C,16], qp) the MBs of mode 4
-    take the causal Intra_4x4 reconstruction.  Returns int32
-    [S,R,C,16,16], [S,R,C,8,8] x 2.
+    residuals that `_intra_residuals` decodes from `levels` (anything
+    with MBSymbols' cbp_luma, cbp_chroma, luma_dc, luma_ac, chroma_dc and
+    chroma_ac: the parsed symbols) at luma / chroma QPs qp, qpc.  Where
+    `is_intra` [S,R,C] is False an MB takes its reconstruction from
+    `other` ([S,R,C,16,16], [S,R,C,8,8] x 2) instead, and serves as the
+    next MB's left neighbour.  With `i44` = (luma_ac [S,R,C,16,16],
+    i4modes [S,R,C,16], qp) the MBs of mode 4 take the causal Intra_4x4
+    reconstruction.  Returns int32 [S,R,C,16,16], [S,R,C,8,8] x 2.
 
     CPU tensors, and every call with `i44`, take the plain version; CUDA
-    tensors without `i44` launch the D2 kernel (csrc/intra_recon.cu) or
-    raise."""
+    tensors without `i44` launch the D2 kernel (csrc/intra_recon.cu,
+    which decodes the residuals of the intra MBs itself) or raise."""
     if mode.device.type == "cpu" or i44 is not None:
-        return _intra_recon_scan_plain(mode, cmode, res, other, is_intra,
-                                       i44)
+        return _intra_recon_scan_plain(mode, cmode, levels, qp, qpc, other,
+                                       is_intra, i44)
     s, r, c = mode.shape
     if not s * r * c:
         raise ValueError(f"_intra_recon_scan: no MB ({s}, {r}, {c})")
+    if not (0 <= qp <= 51 and 0 <= qpc <= 51):
+        raise ValueError(f"_intra_recon_scan: QP {qp} / {qpc} outside 0..51")
     if (other is None) != (is_intra is None):
         raise ValueError("_intra_recon_scan: `other` and `is_intra` go "
                          "together")
     dev = mode.device
-    flags = [x.to(I32).contiguous() for x in (mode, cmode)
-             + (() if is_intra is None else (is_intra,))]
-    planes = [x.to(I32).contiguous()
-              for x in (*res, *(() if other is None else other))]
-    mb = (s, r, c)
-    shapes = [(*mb, 4, 4, 4, 4), (*mb, 2, 2, 4, 4), (*mb, 2, 2, 4, 4),
-              (*mb, 16, 16), (*mb, 8, 8), (*mb, 8, 8)]
-    cuda_lib.check_inputs("_intra_recon_scan", dev, [
-        *[(x, mb) for x in flags], *zip(planes, shapes)])
-    # 16-byte loads: a view at an odd offset is copied to fresh storage
-    planes = [x if x.data_ptr() % 16 == 0 else x.clone() for x in planes]
-    out = [torch.empty(sh, dtype=I32, device=dev) for sh in shapes[3:]]
-    opt = [None] * 4 if other is None else [flags[2], *planes[3:]]
-    ptr = lambda x: None if x is None else x.data_ptr()
+    for x in (mode, cmode, *(getattr(levels, f) for f in _LEVELS),
+              *(() if other is None else (*other, is_intra))):
+        if x.device != dev or dev.type != "cuda":
+            raise ValueError(f"_intra_recon_scan: every input must be on "
+                             f"one CUDA device ({dev}), got {x.device}")
+    ins, outs, ints = _k5_operands(mode, cmode, levels, qp, qpc, other,
+                                   is_intra)
     err = cuda_lib.load().th264_intra_recon_rows(
-        *map(ptr, [*flags[:2], opt[0], *planes[:3], *opt[1:], *out]),
-        s * r, c, cuda_lib.stream(dev))
+        cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+        cuda_lib.stream(mode.device))
     cuda_lib.check(err, "th264_intra_recon_rows")
     _intra_recon_scan.launches += 1
-    return tuple(out)
+    return tuple(outs)
 
 
 _intra_recon_scan.launches = 0  # launches of the D2 kernel
 
 
-def _intra_recon_scan_plain(mode, cmode, res, other=None, is_intra=None,
-                            i44=None):
-    """Plain version of `_intra_recon_scan` (same arguments): a Python
-    loop over the MB columns, batched over [S, R]."""
+# the fields of `levels` K5 reads: the cbps, then the levels
+_LEVELS = ("cbp_luma", "cbp_chroma", "luma_dc", "luma_ac", "chroma_dc",
+           "chroma_ac")
+
+
+def _mb_strided(x: torch.Tensor, mb, inner, dtype, align: int):
+    """(tensor, MB stride in elements) of a per-MB field x [*mb, *inner]
+    for a kernel that reads MB m at element m * stride: x itself where
+    its inner elements are contiguous, its MBs one stride apart and it
+    (with the stride in bytes) is `align`-byte aligned (a strided view of
+    one record buffer, as the GOP decode's); else a contiguous copy."""
+    shape = (*mb, *inner)
+    if tuple(x.shape) != shape:
+        raise ValueError(f"_intra_recon_scan: shape {tuple(x.shape)} != "
+                         f"{shape}")
+    x = x.to(dtype)
+    n_in = math.prod(inner)
+    st = x.stride()
+    # the stride of the innermost MB axis longer than 1 (those inside it
+    # have length 1)
+    k = next((st[d] for d in (2, 1, 0) if mb[d] > 1), n_in)
+    want, step = [], 1
+    for n in reversed(inner):
+        want.append(step)
+        step *= n
+    step = k
+    for n in reversed(mb):
+        want.append(step)
+        step *= n
+    laid_out = all(a == b for a, b, n in zip(st, reversed(want), shape)
+                   if n > 1)
+    if not (laid_out and k >= n_in and x.data_ptr() % align == 0
+            and (k * x.element_size()) % align == 0):
+        x, k = x.contiguous(), n_in
+        if x.data_ptr() % align:
+            x = x.clone()
+    return x, k
+
+
+def _k5_operands(mode, cmode, levels, qp: int, qpc: int, other=None,
+                 is_intra=None):
+    """K5's operands in its entry's order (csrc/intra_recon.cu `k5_args`):
+    (input tensors, output tensors, ints).  The per-MB flags and levels
+    go as the views they are where the kernel can read them so (each
+    with its MB stride), else as contiguous copies; a missing `other` /
+    `is_intra` as None (a null pointer)."""
+    s, r, c = mb = tuple(mode.shape)
+    dev = mode.device
+    flags = [_mb_strided(x, mb, (), I32, 4)
+             for x in (mode, cmode, levels.cbp_luma, levels.cbp_chroma)]
+    lev = [_mb_strided(getattr(levels, f), mb, inner, torch.int16, 16)
+           for f, inner in zip(_LEVELS[2:], ((16,), (16, 16), (2, 4),
+                                              (2, 4, 15)))]
+    shapes = [(*mb, 16, 16), (*mb, 8, 8), (*mb, 8, 8)]
+    if other is None:
+        side = [None] * 4
+    else:
+        if tuple(is_intra.shape) != mb:
+            raise ValueError(f"_intra_recon_scan: is_intra "
+                             f"{tuple(is_intra.shape)} != {mb}")
+        planes = [x.to(I32).contiguous() for x in other]
+        for x, sh in zip(planes, shapes):
+            if tuple(x.shape) != sh:
+                raise ValueError(f"_intra_recon_scan: shape "
+                                 f"{tuple(x.shape)} != {sh}")
+        # 16-byte loads: a view at an odd offset is copied to fresh storage
+        side = [is_intra.to(torch.bool).contiguous().view(torch.uint8),
+                *[x if x.data_ptr() % 16 == 0 else x.clone()
+                  for x in planes]]
+    outs = [torch.empty(sh, dtype=I32, device=dev) for sh in shapes]
+    ins = [x for x, _ in flags] + side[:1] + [x for x, _ in lev] + side[1:]
+    return ins, outs, [s * r, c, qp, qpc, *[k for _, k in flags + lev]]
+
+
+def _intra_recon_scan_plain(mode, cmode, levels, qp: int, qpc: int,
+                            other=None, is_intra=None, i44=None):
+    """Plain version of `_intra_recon_scan` (same arguments):
+    `_intra_residuals` of every MB, then a Python loop over the MB
+    columns, batched over [S, R]."""
+    res = _intra_residuals(levels, qp, qpc)
     s, r, c = mode.shape
     lead, dev = (s, r), mode.device
     left = (None, None, None)
@@ -573,7 +647,7 @@ def decode_iframe_scan(symbols: MBSymbols, qp: int, intra44: bool = False
     i44 = ((symbols.luma_ac, symbols.i4modes.to(I32), qp) if intra44
            else None)
     rec = _intra_recon_scan(symbols.mode.to(I32), symbols.cmode.to(I32),
-                            _intra_residuals(symbols, qp, qpc), i44=i44)
+                            symbols, qp, qpc, i44=i44)
     return tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
 
 

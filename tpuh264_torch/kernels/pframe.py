@@ -84,7 +84,6 @@ from .iframe import (
     _intra16_launch,
     _intra16_mb,
     _intra_recon_scan,
-    _intra_residuals,
     _left_edges,
     _luma_blocks,
     _mbs_to_plane,
@@ -282,13 +281,63 @@ def _int_winner(sads: torch.Tensor, lam: int, group=None):
     Phase 1: zero-anchored rate bias -> per-MB winner; per-stream global
     MV = mode of the winners (raster-earliest on ties).  Phase 2:
     re-select with the rate measured relative to the global vector.
-    Returns (iy0, ix0 [S,R,C], gy, gx [S]).
+    Returns (iy0, ix0 [S,R,C], gy, gx [S]), int32.
 
     group: the process group the MB rows are sharded over (the JAX
     version's axis_name).  The winner mode is a frame-global statistic,
     so a row-sharded call sums the counts over the group; otherwise each
     band would take its own global vector and the phase-2 selection
-    would diverge from the unsharded encode."""
+    would diverge from the unsharded encode.
+
+    CPU tensors take the plain version; CUDA tensors launch K12
+    (csrc/me_winner.cu: phase 1 with the counts, then phase 2, the
+    counts summed over `group` between the two) or raise.  `launches`
+    counts the calls, two CUDA launches each."""
+    if sads.device.type == "cpu":
+        return _int_winner_plain(sads, lam, group)
+    out = _k12_launch(sads, lam, group)
+    _int_winner.launches += 1
+    return out
+
+
+_int_winner.launches = 0  # calls of K12 (two launches each)
+
+
+def _k12_operands(sads: torch.Tensor, lam: int):
+    """K12's operands in its entry's order (csrc/me_winner.cu `win_args`):
+    (input tensors, output tensors, ints without the phase); the counts
+    zeroed, the rest freshly allocated on the table's device."""
+    if sads.dim() != 4 or sads.shape[-1] != _NN or not sads.numel():
+        raise ValueError(f"_int_winner: a SAD table [S, R, C, {_NN}], got "
+                         f"{tuple(sads.shape)}")
+    s, r, c, _ = sads.shape
+    dev = sads.device
+    ins = [sads.to(I32).contiguous()]
+    outs = [torch.zeros((s, _NN), dtype=I32, device=dev)]
+    outs += [torch.empty((s, r, c), dtype=I32, device=dev) for _ in range(2)]
+    outs += [torch.empty(s, dtype=I32, device=dev) for _ in range(2)]
+    return ins, outs, [s, r, c, int(lam)]
+
+
+def _k12_launch(sads: torch.Tensor, lam: int, group=None):
+    """K12's two launches (see `_int_winner`); raises on a bad input or a
+    failed build or launch."""
+    ins, outs, ints = _k12_operands(sads, lam)
+    dev = sads.device
+    cuda_lib.check_inputs("_int_winner", dev, [(ins[0], ins[0].shape)])
+    lib = cuda_lib.load()
+    ptrs = cuda_lib.pointers(ins + outs)
+    for phase in (1, 2):
+        if phase == 2 and group is not None:
+            all_reduce(outs[0], group)
+        err = lib.th264_me_winner(ptrs, cuda_lib.ints(ints + [phase]),
+                                  cuda_lib.stream(dev))
+        cuda_lib.check(err, "th264_me_winner")
+    return tuple(outs[1:])
+
+
+def _int_winner_plain(sads: torch.Tensor, lam: int, group=None):
+    """Plain version of `_int_winner` (same arguments)."""
     dev = sads.device
     s = sads.shape[0]
     cost1 = 4 * sads + lam * tables.get("rate0", dev)
@@ -453,9 +502,76 @@ def _mc_all(planes_l, refs_up, refs_vp, mvx, mvy, refsel):
 
 
 def _references(refs_y, refs_u, refs_v, halo: bool):
-    """Per reference: stacked half-pel planes [4,S,Hp,Wp] and padded
-    chroma.  Without `halo` the frame's edge rows stand in for the halo
-    (the normative Clip3 clamp), so both cases take one path."""
+    """Per reference of the DPB refs_y [N, S, Hs, W], refs_u / refs_v [N,
+    S, Hcs, W/2] (int32 or uint8): the stacked half-pel planes [4, S, Hp,
+    Wp] (G, b, h, j; pad _PE) and the chroma planes [S, Hcp, Wcp] (pad
+    _CP), int32, as three lists.  Without `halo` the frame's edge rows
+    stand in for the halo (the normative Clip3 clamp); with it the
+    references arrive extended by HALO_Y / HALO_C rows a side.
+
+    CPU tensors take the plain version; CUDA tensors launch K11
+    (csrc/halfpel.cu, one launch over all N references: the lists are
+    views of one [N, 4, S, Hp, Wp] and one [N, 2, S, Hcp, Wcp] buffer) or
+    raise."""
+    if refs_y.device.type == "cpu":
+        return _references_plain(refs_y, refs_u, refs_v, halo)
+    out = _k11_launch(refs_y, refs_u, refs_v, halo)
+    _references.launches += 1
+    return out
+
+
+_references.launches = 0  # launches of K11
+
+
+def _k11_operands(refs_y, refs_u, refs_v, halo: bool):
+    """K11's operands in its entry's order (csrc/halfpel.cu `ref_args`):
+    (input tensors, output tensors, ints); the outputs freshly allocated
+    on the inputs' device.  Raises where the three planes disagree."""
+    name = "_references"
+    if refs_y.dim() != 4 or refs_u.dim() != 4 or refs_v.dim() != 4:
+        raise ValueError(f"{name}: references [N, S, H, W], got "
+                         f"{tuple(refs_y.shape)}")
+    n, s, hs, w = refs_y.shape
+    hcs, wc = refs_u.shape[-2:]
+    oy, oyc = (0, 0) if halo else (HALO_Y, HALO_C)
+    h = hs - 2 * (HALO_Y - oy)
+    if (not n * s * hs * w or h <= 0 or h % 2 or w % 2
+            or tuple(refs_u.shape) != (n, s, h // 2 + 2 * (HALO_C - oyc),
+                                       w // 2)
+            or refs_v.shape != refs_u.shape):
+        raise ValueError(f"{name}: references {tuple(refs_y.shape)}, "
+                         f"{tuple(refs_u.shape)}, {tuple(refs_v.shape)} "
+                         f"(halo {halo}) are no DPB")
+    u8 = all(x.dtype == torch.uint8 for x in (refs_y, refs_u, refs_v))
+    ins = [x.contiguous() if u8 else x.to(I32).contiguous()
+           for x in (refs_y, refs_u, refs_v)]
+    dev = refs_y.device
+    outs = [torch.empty((n, 4, s, hs + 2 * oy, w + 2 * _PE), dtype=I32,
+                        device=dev),
+            torch.empty((n, 2, s, hcs + 2 * oyc, wc + 2 * _CP), dtype=I32,
+                        device=dev)]
+    return ins, outs, [n, s, hs, w, oy, hcs, wc, oyc, int(u8)]
+
+
+def _k11_launch(refs_y, refs_u, refs_v, halo: bool):
+    """One launch of K11 (see `_references`); raises on a bad input or a
+    failed build or launch."""
+    ins, outs, ints = _k11_operands(refs_y, refs_u, refs_v, halo)
+    cuda_lib.check_inputs("_references", refs_y.device, [
+        (x, x.shape) for x in ins], dtype=ins[0].dtype)
+    err = cuda_lib.load().th264_halfpel_refs(
+        cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+        cuda_lib.stream(refs_y.device))
+    cuda_lib.check(err, "th264_halfpel_refs")
+    planes, chroma = outs
+    n = planes.shape[0]
+    return ([planes[i] for i in range(n)], [chroma[i, 0] for i in range(n)],
+            [chroma[i, 1] for i in range(n)])
+
+
+def _references_plain(refs_y, refs_u, refs_v, halo: bool):
+    """Plain version of `_references` (same arguments): the edge pad,
+    then per reference `build_halfpel_planes_ext` and `_pad_ref_ext`."""
     if not halo:
         refs_y = _edge_pad(refs_y, HALO_Y, 0)
         refs_u = _edge_pad(refs_u, HALO_C, 0)
@@ -1020,10 +1136,10 @@ def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
     planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v, halo)
     rec_inter, motion = _inter_decode(symbols, planes_l, refs_up, refs_vp,
                                       qp, t8)
-    # ---- intra MBs: batched residuals, then left-neighbour prediction
-    # column by column (inter MBs pass through as left neighbours) ----
+    # ---- intra MBs: their residuals and left-neighbour prediction column
+    # by column (inter MBs pass through as left neighbours) ----
     rec = _intra_recon_scan(symbols.mode.to(I32), symbols.cmode.to(I32),
-                            _intra_residuals(symbols, qp, qpc), rec_inter,
+                            symbols, qp, qpc, rec_inter,
                             symbols.kind == KIND_INTRA)
     recon = tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)
     return recon, motion
