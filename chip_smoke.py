@@ -884,13 +884,22 @@ D2_CASES = [(shape, variant) for shape in D2_SHAPES
 # decode's mix and all intra
 D2_QP_CASES = [(shape, variant, qp) for shape in D2_SHAPES[2:]
                for variant in ("iframe", "half", "intra") for qp in (0, 51)]
+# K5's ring of columns (csrc/intra_recon.cu): all-intra lanes longer than
+# it (C = 61 above, 97 here), P decodes whose lanes alternate runs of
+# intra and `other` columns ("runs": lane l's runs D2_RUNS[l % 5] long,
+# so that the ring drains and refills), and C = 1
+D2_RUNS = (1, 2, 5, 9, 13)
+D2_RING_CASES = [((2, 2, 97), "intra"), ((1, 3, 97), "iframe"),
+                 ((2, 3, 97), "runs"), ((3, 2, 40), "runs"),
+                 ((2, 3, 1), "runs"), ((1, 2, 1), "iframe")]
 
 
 def d2_case(np, shape, variant, qp=D2_QP):
     """Seeded D2 inputs (numpy): (symbols, other, refs, qp).  `symbols`
     holds the P-slice symbol fields (kernels/pframe.py MBSymbolsP's names
-    and layout), the MB kinds by the variant's intra share (the others
-    skip or inter).  Intra MBs take legal modes, column 0 DC (mode 2,
+    and layout), the MB kinds by the variant's intra share, or in runs
+    ("runs", D2_RUNS) (the others skip or inter).  Intra MBs take legal
+    modes, column 0 DC (mode 2,
     cmode 0), but in the "-col0" variants, whose column 0 is all intra
     with lane l's modes D2_COL0[l % 4]; later columns DC or H at random,
     luma and chroma apart.
@@ -903,10 +912,16 @@ def d2_case(np, shape, variant, qp=D2_QP):
     MBs' MVs within +-6 pels.  Both None for "iframe" and "iframe-col0"
     (the I decode)."""
     s, r, c = shape
-    rng = np.random.default_rng([s, r, c, D2_VARIANTS.index(variant)]
+    tag = D2_VARIANTS.index(variant) if variant in D2_SHARE else 99
+    rng = np.random.default_rng([s, r, c, tag]
                                 + ([] if qp == D2_QP else [qp]))
     mb = (s, r, c)
-    intra = rng.random(mb) < D2_SHARE[variant]
+    if variant == "runs":
+        lane = np.arange(s * r).reshape(s, r, 1)
+        run = np.asarray(D2_RUNS)[lane % len(D2_RUNS)]
+        intra = ((np.arange(c) + lane) // run) % 2 == 0
+    else:
+        intra = rng.random(mb) < D2_SHARE[variant]
     if variant == "sparse" and not intra.any():
         intra[tuple(int(rng.integers(0, n)) for n in mb)] = True
     col0 = variant.endswith("col0")
@@ -1372,22 +1387,31 @@ def k11_case(np, shape, n_refs, halo, u8, content):
 
 # K12 (the stage-A winner): tables of noise SADs, of SADs in {0, 4, 8, 12}
 # mirrored in dx (every least phase-1 cost tied with its mirror: the
-# first-index rules),
-# and of a few MBs that each make one candidate the winner ("counts":
-# two candidates won by equally many MBs, the argmax's first index); a
+# first-index rules), of MBs that each make one of two candidates the
+# winner ("counts": alternating, so the two tie in every stream's counts;
+# "split": a stream's first half one, its second half the other, so the
+# tie is split across the blocks of a stream), and of MBs that all win
+# one candidate a stream ("one": a rigid scene's serialised counts); a
 # second table's counts summed in, as a row-sharded `group` gives; lam
-# of QPs 0, 28 and 51.
-K12_SHAPES = ((1, 1, 1), (2, 3, 4), (3, 2, 5), (1, 4, 34))
-K12_CONTENT = ("noise", "tied", "counts")
-K12_CASES = [(shape, content, (0, 28, 51)[(i + j) % 3], (i + j) % 2 == 1)
+# of QPs 0, 28 and 51.  The last field is the most blocks a launch (None:
+# the card's SMs, `pframe._K12_BLOCKS_PER_SM` each): with 1, 2, 3 and 5 a
+# stream spans several blocks' chunks and a chunk several streams
+# ((5, 1, 2) at 2 blocks: three streams in one chunk).
+K12_SHAPES = ((1, 1, 1), (2, 3, 4), (3, 2, 5), (1, 4, 34), (5, 1, 2),
+              (3, 4, 17))
+K12_CONTENT = ("noise", "tied", "counts", "split", "one")
+K12_BLOCKS = (None, 1, 2, 3, 5)
+K12_CASES = [(shape, content, (0, 28, 51)[(i + j) % 3], (i + j) % 2 == 1,
+              K12_BLOCKS[(i + 2 * j) % len(K12_BLOCKS)])
              for i, shape in enumerate(K12_SHAPES)
              for j, content in enumerate(K12_CONTENT)]
 
 
-def k12_case(np, shape, content, qp, group):
+def k12_case(np, shape, content, qp, group, blocks=None):
     """Seeded K12 inputs (numpy): (sads [S, R, C, 289] int32, lam, other),
     `other` a second table whose counts a `group` would sum in (None
-    without `group`)."""
+    without `group`).  `blocks` (the launch's, see K12_CASES) does not
+    change the data."""
     from tpuh264_torch.golden.inter import LAMBDA_ME
 
     s, r, c = shape
@@ -1403,12 +1427,18 @@ def k12_case(np, shape, content, qp, group):
             x = np.where(np.arange(17) < 8, x, x[..., ::-1])
             x[..., 8] = 16000
             return x.reshape(sh).astype(np.int32)
-        # every MB's least SAD at one of two candidates, half each: the
-        # counts tie between them (the later one listed first)
         x = np.full(sh, 16000, np.int32)
-        mbs = x.reshape(-1, 289)
-        wins = np.where(np.arange(len(mbs)) % 2 == 0, 200, 17)
-        mbs[np.arange(len(mbs)), wins] = 0
+        mbs = x.reshape(s, -1, 289)
+        n = mbs.shape[1]
+        if content == "one":  # stream i's MBs all win one candidate
+            wins = rng.integers(0, 289, (s, 1)).repeat(n, 1)
+            wins[0] = 144  # the zero vector, as a static scene's
+        else:  # candidates 200 and 17 half each: their counts tie, the
+            # later one listed first
+            half = (np.arange(n) % 2 if content == "counts"
+                    else np.arange(n) >= n // 2)
+            wins = np.where(half, 17, 200)[None].repeat(s, 0)
+        np.put_along_axis(mbs, wins[..., None], 0, -1)
         return x
 
     return table(), int(LAMBDA_ME[qp]), table() if group else None
@@ -1924,14 +1954,17 @@ def d2_timed(kw, torch, what, card):
 
 
 def d2_edges(dev, torch, np):
-    """D2 on the seeded cases of `d2_case` (every D2_CASES entry)."""
-    for case in D2_CASES:
+    """D2 on the seeded cases of `d2_case` (every D2_CASES and
+    D2_RING_CASES entry)."""
+    for case in D2_CASES + D2_RING_CASES:
         d2_equal(d2_args(torch, d2_case(np, *case), dev), torch,
                  f"edge case {case}")
     print(f"phase 2: K5 (D2) edge cases, {len(D2_CASES)}: (S, R, C) "
           f"{list(D2_SHAPES)} x {list(D2_VARIANTS)} (intra shares 0, ~1%, "
           f"50%, 100%, and the I decode; DC / H mixes, clips at 0 and 255; "
-          f"H modes in column 0): equal to plain")
+          f"H modes in column 0), and {len(D2_RING_CASES)} of the ring "
+          f"(lanes of 97 intra columns, runs of intra and other, C = 1): "
+          f"equal to plain")
 
 
 def d2_rows(dev, torch, np, card, frames):
@@ -2125,6 +2158,47 @@ def k12_bytes(kw) -> int:
     return 4 * (s * r * c * (nn + 2) + 2 * s)
 
 
+def k12_phases(pframe, cuda_lib, kw, blocks=None):
+    """K12's two launches apart on `kw`'s table (`_int_winner`'s
+    arguments), through the entry of the tree whose modules `pframe` and
+    `cuda_lib` are (at `blocks` blocks where given): (phase 1, phase 2)
+    callables on one set of operands, phase 1 run once first so that
+    phase 2 reads real counts (a repeated phase 1 adds to them: the mode
+    stays)."""
+    more = () if blocks is None else (blocks,)
+    ins, outs, ints = pframe._k12_operands(kw["sads"], kw["lam"], *more)
+    lib = cuda_lib.load()
+    ptrs = cuda_lib.pointers(ins + outs)
+    args = {ph: cuda_lib.ints(ints + [ph]) for ph in (1, 2)}
+    stream = cuda_lib.stream(kw["sads"].device)
+
+    def run(ph):
+        cuda_lib.check(lib.th264_me_winner(ptrs, args[ph], stream),
+                       "th264_me_winner")
+        return ins, outs  # held by the closure for as long as it lives
+
+    run(1)
+    return (lambda: run(1)), (lambda: run(2))
+
+
+def k12_phase_line(kw, torch, what, card):
+    """Each K12 phase's ms on `kw` (`k12_phases`) beside the bound of its
+    own bytes (one read of the table; phase 2 also writes the winners):
+    a line, and (phase 1 ms, phase 2 ms)."""
+    from tpuh264_torch.kernels import cuda_lib, pframe
+
+    one, two = k12_phases(pframe, cuda_lib, kw)
+    ms = [timed(one, 20), timed(two, 20)]
+    s, r, c, nn = kw["sads"].shape
+    b1 = bound_ms(4 * (s * r * c * nn + s * nn))
+    b2 = bound_ms(k12_bytes(kw))
+    print(f"phase 2: K12 {what}, by phase: phase 1 {ms[0]:.4f} ms "
+          f"({100 * b1 / ms[0]:.1f}% of its bound {b1:.4f} ms), phase 2 "
+          f"{ms[1]:.4f} ms ({100 * b2 / ms[1]:.1f}% of {b2:.4f} ms) "
+          f"[{card}]")
+    return ms
+
+
 def k11_library(refs_y, refs_u, refs_v, halo):
     """K11's closest formulation in library calls (its table row's
     "library call"; the port never calls it): replicate F.pad, float32
@@ -2175,13 +2249,16 @@ def k11_equal(kw, torch, what) -> int:
                       f"K11 _references ({what})")
 
 
-def k12_equal(kw, torch, what) -> int:
-    """K12 (`_int_winner`) against its plain version on one input."""
+def k12_equal(kw, torch, what, blocks=None) -> int:
+    """K12 (`_int_winner`) against its plain version on one input; with
+    `blocks`, its launches (`_k12_launch`) at that grid instead (a
+    K12_CASES grid)."""
     from tpuh264_torch.kernels import pframe
 
-    return _all_equal(list(pframe._int_winner(**kw)),
-                      list(pframe._int_winner_plain(**kw)), torch,
-                      f"K12 _int_winner ({what})")
+    got = (pframe._int_winner(**kw) if blocks is None
+           else pframe._k12_launch(**kw, blocks=blocks))
+    return _all_equal(list(got), list(pframe._int_winner_plain(**kw)),
+                      torch, f"K12 _int_winner ({what})")
 
 
 def ref_timed(key, kw, torch, what, card):
@@ -2240,7 +2317,7 @@ def ref_edges(dev, torch, np):
                                    lam)
                 pframe.all_reduce = lambda x, g: x.add_(extra.to(x.dtype))
                 kw["group"] = "another band"
-            k12_equal(kw, torch, f"edge case {case}")
+            k12_equal(kw, torch, f"edge case {case}", case[4])
             pframe.all_reduce = reduce
     finally:
         pframe.all_reduce = reduce
@@ -2310,6 +2387,9 @@ def p_rows(dev, torch, np, card):
             card)
         rows.append(dict(kernel_row(key, name, source, replaces, err, ms,
                                     plain, nbytes), library_ms=lib))
+        if key == "K12":
+            k12_phase_line(kw, torch, "1080p x 4 RTC P frame's encode, one "
+                           "reference", card)
     ref_timed("K11", ref_d, torch, "1080p x 4 RTC P frame's decode", card)
     del enc, dec, ref_e, ref_d, win
     got = {}
@@ -2326,8 +2406,9 @@ def p_rows(dev, torch, np, card):
     ref_timed("K11", caps["_references"][-1], torch,
               f"854x480 x 8 default-config P frame's decode, {two}", card)
     for i, kw in enumerate(caps["_int_winner"][-2:]):
-        ref_timed("K12", kw, torch, f"854x480 x 8 default-config P frame, "
-                  f"reference {i} of two", card)
+        what = f"854x480 x 8 default-config P frame, reference {i} of two"
+        ref_timed("K12", kw, torch, what, card)
+        k12_phase_line(kw, torch, what, card)
     del enc, dec, caps, got
     for case in K9_CASES:
         k9_equal(k9_args(torch, k9_case(np, *case), dev), torch,

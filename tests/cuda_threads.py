@@ -342,13 +342,14 @@ int main() {
 
 
 def build_entry(d, csrc: str, source: str, args: str, kernel: str,
-                blocks: str, threads: str) -> str:
+                blocks: str, threads: str, defines=()) -> str:
     """`build` of ENTRY_HARNESS over the source `source` of `csrc`, its
     argument unpacking `args`, kernel `kernel`, grid `blocks` and block
-    `threads`: the executable's path."""
+    `threads`, with the source's macros `defines` ("NAME=VALUE"): the
+    executable's path."""
     return build(d, ENTRY_HARNESS, csrc, os.path.splitext(source)[0],
                  (f'SOURCE="{source}"', f"ARGS={args}", f"KERNEL={kernel}",
-                  f"BLOCKS={blocks}", f"THREADS={threads}"))
+                  f"BLOCKS={blocks}", f"THREADS={threads}", *defines))
 
 
 def _span(t: torch.Tensor) -> bytes:

@@ -383,12 +383,14 @@ def _intra_both(kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(*c, chip_smoke.D2_QP)
-                                  for c in chip_smoke.D2_CASES]
+                                  for c in chip_smoke.D2_CASES
+                                  + chip_smoke.D2_RING_CASES]
                          + chip_smoke.D2_QP_CASES, ids=str)
 def test_intra_recon_kernel_matches_plain_edge_cases(dev, case):
-    """C = 1, 2, 3 and 61, S and R 1 to 4, intra shares 0 / ~1% / 50% /
-    100% and the I decode, DC / H mixes, clips at 0 and 255, levels the
-    cbps mask out, QPs 0, 32 and 51 (chip_smoke phase 2's generator)."""
+    """C = 1, 2, 3, 61 and 97, S and R 1 to 4, intra shares 0 / ~1% / 50%
+    / 100%, runs of intra and `other` columns, and the I decode, DC / H
+    mixes, clips at 0 and 255, levels the cbps mask out, QPs 0, 32 and 51
+    (chip_smoke phase 2's generator)."""
     _intra_both(chip_smoke.d2_args(torch, chip_smoke.d2_case(np, *case),
                                    dev))
 
@@ -512,8 +514,8 @@ def test_int_winner_kernel_matches_plain(dev, case, monkeypatch):
                             lambda x, g: x.add_(extra.to(x.dtype)))
         kw["group"] = "another band"
     before = TP._int_winner.launches
-    chip_smoke.k12_equal(kw, torch, str(case))
-    assert TP._int_winner.launches == before + 1
+    chip_smoke.k12_equal(kw, torch, str(case), case[4])
+    assert TP._int_winner.launches == before + (case[4] is None)
 
 
 @pytest.mark.cuda

@@ -157,15 +157,29 @@ def test_column0_h_modes_match_jax(variant):
         np.testing.assert_array_equal(diff, want)
 
 
+def _build(tmp_path_factory, name, defines=()):
+    return cuda_threads.build_entry(
+        tmp_path_factory.mktemp(name), os.path.dirname(SOURCE),
+        "intra_recon.cu", "k5_args", "intra_recon_kernel", "a.lanes",
+        "kThreads", defines)
+
+
 @pytest.fixture(scope="module")
 def cpu_kernel(tmp_path_factory):
     """csrc/intra_recon.cu (all but its launch entry) built with g++
     against the shims of cuda_threads.py: the kernel's own source, a
-    lane's 32 threads as fibers, its shuffles and warp barriers switching
-    between them."""
-    return cuda_threads.build_entry(
-        tmp_path_factory.mktemp("intra_recon_cpu"), os.path.dirname(SOURCE),
-        "intra_recon.cu", "k5_args", "intra_recon_kernel", "a.lanes", "32")
+    lane's block (the prediction warp and the workers) as fibers, its
+    shuffles, warp barriers and ring waits switching between them."""
+    return _build(tmp_path_factory, "intra_recon_cpu")
+
+
+@pytest.fixture(scope="module")
+def cpu_kernel_small(tmp_path_factory):
+    """The same with a ring of 3 columns and 2 workers (`K5_RING`,
+    `K5_WORKERS`): short lanes wrap the ring many times over, and a
+    worker waits for its slot."""
+    return _build(tmp_path_factory, "intra_recon_cpu_small",
+                  ("K5_RING=3", "K5_WORKERS=2"))
 
 
 def _source_equals_plain(exe, kw, what):
@@ -190,6 +204,45 @@ def test_kernel_source_on_cpu_threads_matches_plain(cpu_kernel, case):
     MBs, levels that the cbps mask out, QPs 0, 32 and 51."""
     _source_equals_plain(cpu_kernel, chip_smoke.d2_args(
         torch, _case(case), "cpu"), str(case))
+
+
+@pytest.mark.parametrize("small", (False, True), ids=("ring8", "ring3"))
+@pytest.mark.parametrize("case", chip_smoke.D2_RING_CASES, ids=str)
+def test_kernel_source_wraps_the_ring(cpu_kernel, cpu_kernel_small, case,
+                                      small):
+    """The prediction warp and the workers meet through the ring of
+    columns (ready counts a slot, one consumed count) as the plain
+    version's column loop: all-intra lanes of 97 columns, runs of intra
+    and `other` columns (a worker leaves the left samples of an `other`
+    column before an intra one), C = 1; with the default ring and with a
+    ring of 3 columns and 2 workers."""
+    exe = cpu_kernel_small if small else cpu_kernel
+    _source_equals_plain(exe, chip_smoke.d2_args(torch, _case(case), "cpu"),
+                         str(case))
+
+
+def test_ring_cases_cover_what_they_claim():
+    """D2_RING_CASES: an all-intra P decode and an I decode of 97 columns
+    (past the ring of 8 and a worker's window of 32 columns); lanes of
+    runs of intra and `other` columns, runs of 1 to 13 (longer than the
+    ring) starting on either kind; C = 1."""
+    seen = set()
+    for case in chip_smoke.D2_RING_CASES:
+        sym, other, _, _ = _case(case)
+        intra = sym["kind"] == 2
+        c = intra.shape[-1]
+        if c == 97 and intra.all():
+            seen.add("iframe" if other is None else "intra")
+        if case[1] == "runs" and c > 1:
+            edges = np.diff(intra.astype(np.int8), axis=-1)
+            assert (edges == 1).any() and (edges == -1).any()
+            assert intra[..., 0].any() and (~intra[..., 0]).any()
+            seen.add("runs")
+            if c >= 2 * max(chip_smoke.D2_RUNS):
+                seen.add("long runs")
+        if c == 1:
+            seen.add("C = 1")
+    assert seen == {"iframe", "intra", "runs", "long runs", "C = 1"}
 
 
 @pytest.mark.parametrize("variant", ("half", "iframe"))

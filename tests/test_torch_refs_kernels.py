@@ -37,12 +37,12 @@ def k11_cpu(tmp_path_factory):
 @pytest.fixture(scope="module")
 def k12_cpu(tmp_path_factory):
     """csrc/me_winner.cu (all but its launch entry) built likewise, a
-    block's warps as fibers, `redux.sync` min / max through their
-    exchanges, the counts' atomics as host atomics."""
+    block's warps as fibers, its block barriers switching between them,
+    `redux.sync` min / max through their exchanges, the shared and global
+    atomics as host atomics; the grid `win_args` plans."""
     return cuda_threads.build_entry(
         tmp_path_factory.mktemp("k12_cpu"), CSRC, "me_winner.cu", "win_args",
-        "me_winner_kernel", "(a.S * a.R * a.C + kWarps - 1) / kWarps",
-        "32 * kWarps")
+        "me_winner_kernel", "a.blocks", "32 * kWarps")
 
 
 def _k11_inputs(case):
@@ -105,14 +105,15 @@ def test_plain_references_match_jax(case):
                                       np.asarray(pad(jnp.asarray(refs_v[n]))))
 
 
-def _k12_source(exe, sads, lam, other=None):
-    """K12's two phases on CPU threads: phase 1 (the counts), the counts
-    of `other` summed in where given (as an all_reduce over a group of
-    two would), phase 2: (iy0, ix0, gy, gx)."""
-    ins, outs, ints = tpf._k12_operands(sads, lam)
+def _k12_source(exe, sads, lam, other=None, blocks=None):
+    """K12's two phases on CPU threads, at most `blocks` blocks a launch:
+    phase 1 (the counts), the counts of `other` summed in where given (as
+    an all_reduce over a group of two would), phase 2: (iy0, ix0, gy,
+    gx)."""
+    ins, outs, ints = tpf._k12_operands(sads, lam, blocks)
     cuda_threads.run_entry(exe, ins, outs, ints + [1], inout=(0,))
     if other is not None:
-        o_ins, o_outs, _ = tpf._k12_operands(other, lam)
+        o_ins, o_outs, _ = tpf._k12_operands(other, lam, blocks)
         cuda_threads.run_entry(exe, o_ins, o_outs, ints + [1], inout=(0,))
         outs[0] += o_outs[0]
     cuda_threads.run_entry(exe, ins, outs, ints + [2], inout=(0,))
@@ -122,10 +123,13 @@ def _k12_source(exe, sads, lam, other=None):
 @pytest.mark.parametrize("case", chip_smoke.K12_CASES, ids=str)
 def test_k12_source_on_cpu_threads_matches_plain(k12_cpu, case,
                                                  monkeypatch):
-    """K12's two phases (lane minima, `redux.sync` first-index rules,
-    counts by atomics, the mode recomputed by every warp, the rate
-    relative to it) equal the plain version on the case; with a group,
-    both sum in the other band's counts between the phases."""
+    """K12's two phases (a block's chunk walked stream segment by segment,
+    forwards then backwards, the next row loaded under the current one,
+    lane minima, `redux.sync` first-index rules, the counts by shared
+    histogram and one global atomic a bin, the mode once a segment, the
+    rate relative to it) equal the plain version on the case, at the
+    case's grid; with a group, both sum in the other band's counts
+    between the phases."""
     sads, lam, other = chip_smoke.k12_case(np, *case)
     sads = torch.from_numpy(sads)
     group = None
@@ -136,30 +140,58 @@ def test_k12_source_on_cpu_threads_matches_plain(k12_cpu, case,
                             lambda t, g: t.add_(extra.to(t.dtype)))
         group = "the other band"
     want = tpf._int_winner_plain(sads, lam, group)
-    got = _k12_source(k12_cpu, sads, lam, other)
+    got = _k12_source(k12_cpu, sads, lam, other, case[4])
     for g, w, name in zip(got, want, ("iy0", "ix0", "gy", "gx")):
         assert g.dtype == w.dtype == torch.int32, name
         np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)
 
 
+def _k12_chunks(shape, blocks):
+    """The streams of each block's chunk as the kernel plans them
+    (`win_args`, the kernel's chunk), `blocks` as `_k12_operands`'."""
+    s, r, c = shape
+    mbs, per = s * r * c, r * c
+    ints = tpf._k12_operands(torch.zeros((s, r, c, tpf._NN),
+                                         dtype=torch.int32), 4, blocks)[2]
+    n_blocks = min(max(ints[4], 1), -(-mbs // 8))
+    chunk = -(-mbs // n_blocks)
+    return [sorted({m // per for m in range(lo, min(mbs, lo + chunk))})
+            for lo in range(0, mbs, chunk)]
+
+
 def test_k12_cases_tie():
     """The "tied" tables tie the phase-1 cost of some MB's best
-    candidates, and the "counts" tables tie two candidates' counts in a
-    stream, the later one won first: the first-index rules decide."""
+    candidates; the "counts" and "split" tables tie two candidates'
+    counts in a stream, the later one won first ("split": the two halves
+    in different blocks); the "one" tables give every MB of a stream one
+    winner.  The grids put a stream across several blocks and several
+    streams (three, once) in one block; the first-index rules decide."""
+    spans = set()
     for case in chip_smoke.K12_CASES:
+        shape, content = case[:2]
         sads, lam, _ = chip_smoke.k12_case(np, *case)
         t = torch.from_numpy(sads)
         cost = (4 * t + lam * tpf.tables.get("rate0", "cpu")).reshape(
             -1, tpf._NN)
         ties = (cost == cost.min(-1, keepdim=True).values).sum(-1)
-        if case[1] == "tied":
+        win = tpf._argmin_first(cost).reshape(t.shape[0], -1)
+        chunks = _k12_chunks(shape, case[4])
+        per = win.shape[1]
+        spans |= {len(x) for x in chunks}
+        if any(sum(s in x for x in chunks) > 1 for s in range(shape[0])):
+            spans.add("stream over blocks")
+        if content == "tied":
             assert (ties > 1).all()
-        if case[1] == "counts" and t[0].numel() // tpf._NN % 2 == 0:
-            win = tpf._argmin_first(cost).reshape(t.shape[0], -1)[0]
-            counts = torch.bincount(win, minlength=tpf._NN)
+        if content in ("counts", "split") and per % 2 == 0:
+            counts = torch.bincount(win[0], minlength=tpf._NN)
             assert counts[17] == counts[200] == counts.max()
-            assert win[0] == 200
+            assert win[0, 0] == 200
             assert tpf._argmax_first(counts[None])[0] == 17
+            if content == "split" and len(chunks) > 1:
+                spans.add("split tie")
+        if content == "one":
+            assert (win == win[:, :1]).all() and (win[0] == 144).all()
+    assert {1, 2, 3, "stream over blocks", "split tie"} <= spans
 
 
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):

@@ -21,7 +21,9 @@ frame 8 frames back (a few intra MBs).  DIR is the root of another tree
 whose package is imported apart as a package of its own: its
 `_references` and `_int_winner` are called with the same arguments, and
 its scan as that tree's P decode calls it (before this one: the
-residuals of `_intra_residuals`, then its `_intra_recon_scan`).  Every
+residuals of `_intra_residuals`, then its `_intra_recon_scan`); K12
+is also timed by phase, each of its two launches apart through the
+tree's own entry (`chip_smoke.k12_phases`).  Every
 way is first held equal to this checkout's plain versions on every
 input.  Each round times the parents, this, this, the parents (CUDA
 events behind a device sleep, chip_smoke.timed) and prints each reading
@@ -40,9 +42,9 @@ import chip_smoke as cs  # noqa: E402
 
 
 def tree_kernels(root: str, alias: str):
-    """(kernels.iframe, kernels.pframe) of the tree at `root`, its package
-    imported as `alias` (its modules import each other relatively, so it
-    stays apart from this checkout's)."""
+    """(kernels.iframe, kernels.pframe, kernels.cuda_lib) of the tree at
+    `root`, its package imported as `alias` (its modules import each
+    other relatively, so it stays apart from this checkout's)."""
     import importlib
     import importlib.util
 
@@ -53,14 +55,16 @@ def tree_kernels(root: str, alias: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[alias] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(f"{alias}.kernels.iframe"),
-            importlib.import_module(f"{alias}.kernels.pframe"))
+    return tuple(importlib.import_module(f"{alias}.kernels.{m}")
+                 for m in ("iframe", "pframe", "cuda_lib"))
 
 
-def tree_ways(tif, tpf):
+def tree_ways(tif, tpf, lib):
     """The tree's route of each stage, called with this checkout's router
-    arguments: {stage: fn(**kw)}.  A tree whose scan takes `res` gets the
-    residuals of its own `_intra_residuals` first."""
+    arguments: {stage: fn(**kw)}, and "K12 phases": fn(**kw) -> K12's
+    launches apart (`chip_smoke.k12_phases` through the tree's entry).  A
+    tree whose scan takes `res` gets the residuals of its own
+    `_intra_residuals` first."""
     import inspect
 
     def scan(mode, cmode, levels, qp, qpc, other=None, is_intra=None,
@@ -71,7 +75,8 @@ def tree_ways(tif, tpf):
         return tif._intra_recon_scan(mode, cmode,
                                      tif._intra_residuals(levels, qp, qpc),
                                      other, is_intra, i44)
-    return {"K11": tpf._references, "K12": tpf._int_winner, "K5": scan}
+    return {"K11": tpf._references, "K12": tpf._int_winner, "K5": scan,
+            "K12 phases": lambda **kw: cs.k12_phases(tpf, lib, kw)}
 
 
 def inputs(dev, torch):
@@ -114,6 +119,61 @@ def inputs(dev, torch):
     return cases
 
 
+def k5_variant(spec: str):
+    """K5's source built alone into the build directory, `spec` "[SRC:]
+    NAME=V,...": this checkout's csrc/intra_recon.cu, or SRC (another
+    version of it, its headers beside it), with those macros (e.g.
+    K5_WORKERS, K5_RING).  K5's route through that build's
+    entry, fn(**router kwargs)."""
+    import ctypes
+    import subprocess
+
+    from tpuh264_torch.kernels import cuda_lib, iframe
+
+    src, _, defines = spec.rpartition(":")
+    src = src or os.path.join(cuda_lib.CSRC, "intra_recon.cu")
+    macros = [d for d in defines.split(",") if d]
+    out = os.path.join(cuda_lib.BUILD, "variants", "k5_" + "_".join(
+        [str(abs(hash(src)))] + macros).replace("=", "") + ".so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([cuda_lib._nvcc(), "-gencode", cuda_lib.ARCH,
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    *(f"-D{d}" for d in macros), "-o", out, src], check=True)
+    lib = ctypes.CDLL(out)
+    entry = lib.th264_intra_recon_rows
+    entry.argtypes = [ctypes.c_void_p] * 3
+    entry.restype = ctypes.c_int
+
+    def scan(mode, cmode, levels, qp, qpc, other=None, is_intra=None,
+             i44=None):
+        ins, outs, ints = iframe._k5_operands(mode, cmode, levels, qp, qpc,
+                                              other, is_intra)
+        err = entry(cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+                    cuda_lib.stream(mode.device))
+        if err:
+            raise RuntimeError(f"K5 variant {spec}: CUDA error {err}")
+        return tuple(outs)
+
+    return scan
+
+
+def k12_blocks(per_sm: int):
+    """K12's route at `per_sm` blocks an SM of the card, and its phases
+    apart: {"K12": fn(**kw), "K12 phases": fn(**kw)}."""
+    import torch
+
+    from tpuh264_torch.kernels import cuda_lib, pframe
+
+    def blocks(sads):
+        return per_sm * torch.cuda.get_device_properties(
+            sads.device).multi_processor_count
+
+    return {"K12": lambda sads, lam, group=None: pframe._k12_launch(
+                sads, lam, group, blocks(sads)),
+            "K12 phases": lambda **kw: cs.k12_phases(
+                pframe, cuda_lib, kw, blocks(kw["sads"]))}
+
+
 def bound(stage, kw):
     return cs.bound_ms({"K11": cs.k11_bytes, "K12": cs.k12_bytes,
                         "K5": cs.k5_bytes}[stage](kw))
@@ -132,6 +192,11 @@ def main() -> None:
     ap.add_argument("--parent", action="append", default=[],
                     help="the root of another tree, e.g. from git archive")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--k5-variant", action="append", default=[],
+                    help="K5 built with these macros, e.g. "
+                    "K5_WORKERS=6,K5_RING=16 (timed as one more way)")
+    ap.add_argument("--k12-blocks", action="append", type=int, default=[],
+                    help="K12 at this many blocks an SM (one more way)")
     a = ap.parse_args()
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
@@ -144,10 +209,17 @@ def main() -> None:
     card = cs.card_line(os.environ["CUDA_VISIBLE_DEVICES"].split(",")[0])
     plain = {"K11": pframe._references_plain, "K12": pframe._int_winner_plain,
              "K5": iframe._intra_recon_scan_plain}
-    ways = [("this checkout", tree_ways(iframe, pframe))]
+    from tpuh264_torch.kernels import cuda_lib
+
+    ways = [("this checkout", tree_ways(iframe, pframe, cuda_lib))]
     for i, root in enumerate(a.parent):
         ways.append((f"tree {root}", tree_ways(*tree_kernels(
             root, f"tree{i}_tpuh264_torch"))))
+    this = ways[0][1]
+    for d in a.k5_variant:
+        ways.append((f"K5 {d}", dict(this, K5=k5_variant(d))))
+    for n in a.k12_blocks:
+        ways.append((f"K12 {n} blocks an SM", dict(this, **k12_blocks(n))))
     cases = inputs(dev, torch)
     for stage, what, kw in cases:
         want = flat(plain[stage](**kw))
@@ -164,6 +236,11 @@ def main() -> None:
                 print(f"round {rnd}: {stage} {what}: {name}: {ms:.4f} ms, "
                       f"{100 * b / ms:.1f}% of the bytes bound {b:.4f} ms "
                       f"[{card}]")
+                if stage == "K12":
+                    one, two = fns["K12 phases"](**kw)
+                    print(f"round {rnd}: K12 {what}: {name}: phase 1 "
+                          f"{cs.timed(one, 20):.4f} ms, phase 2 "
+                          f"{cs.timed(two, 20):.4f} ms [{card}]")
 
 
 if __name__ == "__main__":

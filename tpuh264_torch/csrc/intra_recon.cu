@@ -1,7 +1,7 @@
 // D2: the intra-reconstruction column scan of the decoders (Intra_16x16
 // DC / H luma and DC / H chroma prediction from the left MB, plus the
-// residuals it decodes from the parsed levels, clipped to 0..255), a warp
-// per MB row.
+// residuals it decodes from the parsed levels, clipped to 0..255), a
+// block of warps per MB row.
 //
 // Replaces: the jax.lax.scan of tpuh264/kernels/pframe.py
 // `decode_pframe_rows_multi` (:1021; substep :1167, scan :1218) with its
@@ -39,46 +39,102 @@
 // and the output: 100.7 MB, 0.030 ms, for a 1080p x 4 P frame without
 // intra MBs; ~77 MB, 0.023 ms, for its IDR.
 //
-// Design, around keeping enough bytes in flight with one warp a lane:
+// Design: a block a lane, a team as K8's (wavefront.cu): one prediction
+// warp whose chain is only the prediction, and kWorkers worker warps
+// that run ahead of it.  (The first design, one warp a lane, put each
+// intra MB's residual decode on the chain: ~2,400 cycles a column, 15% of
+// the IDR's bound.)
+//  * Worker w takes columns w, w + kWorkers, ..., kAhead of them loading
+//    ahead in registers (levels if the column is intra, else `other`:
+//    the per-MB flags, 32 columns at a time, one column a thread, a
+//    window ahead, and a shuffle hands column x's flags to the warp).  An
+//    intra column's levels (those its cbps code: two 16-byte loads a
+//    thread) go through the worker's shared staging, a lane decodes one
+//    4x4 block (lanes 0-15 luma, 16-23 chroma: `block_residual`) into the
+//    column's slot of a ring of kRing columns in shared memory.  A
+//    column that takes `other` the worker copies to the output, and where
+//    the next column is intra it leaves its right sample column (the
+//    next MB's left) in the slot.  The ring holds int32: with `other` of
+//    any value a prediction is any int32, and int16 residuals saturated
+//    as K8's would not be exact then.  So the copies of a P frame without
+//    intra MBs keep kWorkers x kAhead = 8 columns in flight a lane.
+//  * Each slot has a ready count (the column + 1, released by its worker
+//    after the slot is written); one consumed count (the columns the
+//    prediction warp is done with) lets a worker reuse slot c % kRing for
+//    column c once column c - kRing is consumed.  The counts are CTA-scope
+//    acquire / release on shared addresses (as generic addresses they
+//    compiled to generic loads and stores: 13% slower on the IDR).  Every
+//    wait is `wait_local`, which the tests run on CPU threads as a fiber
+//    that yields.
+//  * Measured on an H100 (tools/time_refs.py --k5-variant): 4 workers
+//    were the fastest on the IDR (2, 3 and 5 slower, rings of 10-24 no
+//    faster); 6 or 8 workers (in earlier versions) ran 1.6-1.7x slower,
+//    as if a third block no longer fitted an SM (272 lanes, 132 SMs).
+//    What holds the IDR is issue: the workers' residual decode shares
+//    each SM's schedulers with the prediction warps of two or three
+//    lanes.
+//  * The prediction warp walks the columns: for an intra column it takes
+//    the residuals of the slot, the left samples by shuffles from the
+//    threads whose chunks ended the previous MB's rows (t | 12, chroma t
+//    | 4), DC sums by xor-shuffles (luma over t bits 0, 1, 4 and both
+//    chunks; chroma over bits 0, 1), adds, clips, stores; for a column
+//    that takes `other` before an intra one, it reads the left samples
+//    the worker left in the slot.
 //  * A thread owns three 16-byte chunks of every MB: luma chunks t and
 //    t + 32 and chunk t & 15 of chroma plane t >> 4, in the residuals'
 //    4x4-block order (by, bx, y, x).  A chunk is the 4 samples of one
 //    4x4 block row, so it is also 4 adjacent samples of the raster MB:
 //    `other` and the output are read and written at that raster place.
 //    Every global load and store of samples is 16 bytes, a warp's
-//    covering whole 512-byte (luma) and 256-byte (chroma) spans.
-//  * An intra MB's levels arrive as two 16-byte loads a thread (its
-//    luma AC chunk t, and the DC and chroma AC chunks on threads 0-17),
-//    those its cbps mask left out not loaded.  In its column they go
-//    through the warp's shared memory, a lane decodes one 4x4 block
-//    (lanes 0-15 luma, 16-23 chroma: K8's `block_residual`), and each
-//    thread takes back its three chunks of residuals.  The level fields
-//    may be strided views of one record buffer (the GOP decode's
-//    [.., 400] int16 slots): each field comes with its MB stride.
-//  * The chain is a few shuffles in intra columns only: the thread
-//    whose chunk ends an MB row (bx 3, chroma bx 1) holds the left
-//    sample of that row for the next MB; each thread fetches the left of
-//    its rows from it (t | 12, chroma t | 4), and DC sums them with
-//    xor-shuffles (luma over t bits 0, 1, 4 and both chunks; chroma over
-//    bits 0, 1).  The flags of a column are uniform across the warp, so
-//    the branches never diverge; a column that is not intra is a copy.
-//  * Eight columns in flight: a ring of kDepth register slots, column c
-//    + kDepth loading into the slot that column c has just left (the
-//    loop unrolled by kDepth so every slot index is a constant).  Which
-//    input a column loads (levels if intra, else `other`) is known when
-//    it is fetched: the per-MB flags of 32 columns at a time arrive one
-//    column a thread, a window ahead (an intra MB's mode, cmode and cbps
-//    only where is_intra says so), and a shuffle hands column x's packed
-//    flags to the warp.
+//    covering whole 512-byte (luma) and 256-byte (chroma) spans.  The
+//    level fields may be strided views of one record buffer (the GOP
+//    decode's [.., 400] int16 slots): each field comes with its MB stride.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "intra16_common.cuh"  // quantiser, load_levels, block_residual
 
+#ifdef __CUDACC__
+namespace {
+// acquire / release at CTA scope on a flag in shared memory (a shared
+// address: as a generic one, each was a generic load or store), and the
+// pause of a wait loop
+__device__ __forceinline__ unsigned cta_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.cta.shared.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"((unsigned)__cvta_generic_to_shared(p))
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void cta_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.cta.shared.u32 [%0], %1;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(p)),
+               "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ void cl_pause() { __nanosleep(20); }
+}  // namespace
+#endif
+
+// The ring's columns and the worker warps; the tests build the source
+// with a smaller ring and fewer workers, so that short lanes wrap the
+// ring, and tools/time_refs.py times other choices.
+#ifndef K5_RING
+#define K5_RING 8
+#endif
+#ifndef K5_WORKERS
+#define K5_WORKERS 4
+#endif
+
 namespace {
 
-constexpr int kDepth = 8;  // columns in flight a lane
+constexpr int kRing = K5_RING;        // columns in the shared ring
+constexpr int kWorkers = K5_WORKERS;  // worker warps a lane
+constexpr int kAhead = 2;             // a worker's columns loading ahead
+constexpr int kThreads = 32 * (1 + kWorkers);
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const int32_t *mode, *cmode, *cbp_l, *cbp_c;  // [lanes, C], MB-strided
@@ -115,9 +171,10 @@ inline Args k5_args(void* const* p, const int* n) {
 }
 
 // packed per-MB flags: luma DC, chroma DC, intra, and what its cbps
-// code: luma AC, chroma DC, chroma AC
+// code: luma AC, chroma DC, chroma AC; a worker adds whether the next
+// column is intra
 constexpr int kLumaDc = 1, kChromaDc = 2, kIntra = 4, kLumaAc = 8,
-              kCDc = 16, kCAc = 32;
+              kCDc = 16, kCAc = 32, kNextIntra = 64;
 
 __device__ __forceinline__ int load_flags(const Args& a, size_t mb0,
                                           int col) {
@@ -137,12 +194,14 @@ __device__ __forceinline__ int4 add_clip(int4 r, int p) {
 }
 
 // One thread's chunks of a lane: offsets (in int4s) of its luma chunks A
-// and B and its chroma chunk in the residual layout and in the raster
-// layout of one MB, and its chroma plane.
+// and B and its chroma chunk in the raster layout of one MB, its chroma
+// plane, and the rows whose right samples it keeps (the left column's
+// indices: luma 0-15, Cb 16-23, Cr 24-31); `edge`: its chunks end their
+// rows (bx 3, chroma bx 1).
 struct Chunks {
-  int ra, rb, rc;  // residual layout: luma t, t + 32; chroma t & 15
-  int xa, xb, xc;  // raster layout of the same samples
-  bool v;          // chroma plane V (else U)
+  int xa, xb, xc;
+  int ea, eb, ec;
+  bool v, edge_l, edge_c;
 };
 
 __device__ __forceinline__ Chunks chunks(int t) {
@@ -151,44 +210,82 @@ __device__ __forceinline__ Chunks chunks(int t) {
   // row 4 by + y, samples 4 bx ..: raster chunk (4 by + y) * 2 + bx
   const int by = t >> 4, bx = (t >> 2) & 3, y = t & 3;
   const int j = t & 15, cby = j >> 3, cbx = (j >> 2) & 1;
-  return Chunks{t, t + 32, j, (4 * by + y) * 4 + bx,
-                (4 * (by + 2) + y) * 4 + bx, (4 * cby + y) * 2 + cbx,
-                t >= 16};
+  const int p = t >> 4;
+  return Chunks{(4 * by + y) * 4 + bx, (4 * (by + 2) + y) * 4 + bx,
+                (4 * cby + y) * 2 + cbx, 4 * by + y, 4 * by + y + 8,
+                16 + 8 * p + 4 * cby + y, p == 1, bx == 3, cbx == 1};
 }
 
-struct Slot {
-  int4 a, b, c;  // the thread's three chunks of `other`, or of an intra
-                 // MB its luma AC chunk (a) and DC / chroma AC chunk (b)
-  int f;         // its flags
+// A column in the ring: an intra MB's residuals in the block layout
+// (by, bx, y, x), or, for another MB before an intra one, its right
+// sample column (`left` of the next MB: luma 16 | Cb 8 | Cr 8).
+union Slot {
+  struct {
+    int4 ry[64];
+    int4 rc[2][16];
+  } r;
+  int left[32];
 };
 
-// The warp's shared memory: an intra MB's levels (luma AC 16 x 16; luma
-// DC 16 | chroma DC 2 x 4 | chroma AC 2 x 4 x 15), then its residuals in
-// the block layout (by, bx, y, x).
-struct WarpMem {
+// A worker's staging of an intra MB's levels: luma AC 16 x 16; luma DC 16
+// | chroma DC 2 x 4 | chroma AC 2 x 4 x 15.
+struct Stage {
   int4 ac[32];
   int4 misc[18];
-  int4 ry[64];
-  int4 rc[2][16];
+};
+
+struct Mem {
+  Slot ring[kRing];
+  Stage stage[kWorkers];
+  unsigned ready[kRing];  // slot k: the column + 1 last written there
+  unsigned consumed;      // columns the prediction warp is done with
+};
+
+// Until *f >= v (acquire, CTA scope).
+__device__ __forceinline__ void wait_local(const unsigned* f, unsigned v) {
+  while (cta_acquire(f) < v) cl_pause();
+}
+
+// The thread's flag window: column 32 w + t's flags in `cur`, the next
+// window's in `next`; `base` = 32 w.  Columns are asked for in order, none
+// past the next window.
+struct Flags {
+  int cur, next, base;
+  __device__ __forceinline__ int of(const Args& a, size_t mb0, int t,
+                                    int col) {
+    if (col >= base + 32) {  // uniform: the window moves on
+      cur = next;
+      base += 32;
+      next = load_flags(a, mb0, base + 32 + t);
+    }
+    return __shfl_sync(kFull, cur, col & 31);
+  }
 };
 
 __device__ __forceinline__ int4 ld16(const int16_t* p) {
   return *reinterpret_cast<const int4*>(p);
 }
 
-// Column `col` of the lane into slot s: an intra MB's levels (those its
-// cbps code), else `other`.  Columns past the lane's end load nothing.
-__device__ __forceinline__ void fetch(Slot& s, const Args& a,
+// A worker's column in registers: the thread's three chunks of `other`,
+// or of an intra MB its luma AC chunk (a) and DC / chroma AC chunk (b).
+struct Loaded {
+  int4 a, b, c;
+  int f;  // its flags, kNextIntra included
+};
+
+// Column `col` of the lane into l: an intra MB's levels (those its cbps
+// code), else `other`.  Columns past the lane's end load nothing.
+__device__ __forceinline__ void fetch(Loaded& l, const Args& a,
                                       const Chunks& k, size_t mb0, int col,
                                       int flags, int t) {
-  s.f = flags;
+  l.f = flags;
   if (col >= a.C) return;
   const size_t m = mb0 + col;
   if (flags & kIntra) {
     const int4 z = make_int4(0, 0, 0, 0);
-    s.a = (flags & kLumaAc) ? ld16(a.ac + m * a.sac + 8 * t) : z;
+    l.a = (flags & kLumaAc) ? ld16(a.ac + m * a.sac + 8 * t) : z;
     // thread 0-1 the luma DC, 2 the chroma DC, 3-17 the chroma AC
-    s.b = t < 2 ? ld16(a.dc + m * a.sdc + 8 * t)
+    l.b = t < 2 ? ld16(a.dc + m * a.sdc + 8 * t)
           : t == 2 ? ((flags & kCDc) ? ld16(a.cdc + m * a.scdc) : z)
           : (t < 18 && (flags & kCAc)) ? ld16(a.cac + m * a.scac + 8 * (t - 3))
                                        : z;
@@ -196,125 +293,151 @@ __device__ __forceinline__ void fetch(Slot& s, const Args& a,
   }
   const int4* y = reinterpret_cast<const int4*>(a.oy) + 64 * m;
   const int4* c = reinterpret_cast<const int4*>(k.v ? a.ov : a.ou) + 16 * m;
-  s.a = y[k.xa];
-  s.b = y[k.xb];
-  s.c = c[k.xc];
+  l.a = y[k.xa];
+  l.b = y[k.xb];
+  l.c = c[k.xc];
 }
 
-// The thread's flag window: column 32 w + t's flags in `cur`, the next
-// window's in `next`; `base` = 32 w.  Columns are asked for in order.
-struct Flags {
-  int cur, next, base;
-  __device__ __forceinline__ int of(const Args& a, size_t mb0, int t,
-                                    int col) {
-    if (col - base == 32) {  // uniform: the window moves on
-      cur = next;
-      base += 32;
-      next = load_flags(a, mb0, base + 32 + t);
-    }
-    return __shfl_sync(0xffffffffu, cur, col & 31);
-  }
-};
-
-// An intra column's residuals from its levels in slot s: through the
-// warp's shared memory, a 4x4 block a lane, back as the thread's three
-// chunks.
-__device__ __forceinline__ void intra_residuals(Slot& s, WarpMem& w,
-                                                const Quant& ql,
-                                                const Quant& qc, int t) {
-  w.ac[t] = s.a;
-  if (t < 18) w.misc[t] = s.b;
-  __syncwarp();
-  const int16_t* misc = reinterpret_cast<const int16_t*>(w.misc);
-  const int cbc = (s.f & kCAc) ? 2 : (s.f & kCDc) ? 1 : 0;
-  const LevelPart v =
-      load_levels(misc, reinterpret_cast<const int16_t*>(w.ac), misc + 16,
-                  misc + 24, (s.f & kLumaAc) ? 1 : 0, cbc, t);
-  int x[16];
-  if (block_residual(v, ql, qc, t, x)) {
-    int4* o = t < 16 ? w.ry + 4 * t : w.rc[(t - 16) >> 2] + 4 * ((t - 16) & 3);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      o[i] = make_int4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
-  }
-  __syncwarp();
-  s.a = w.ry[t];
-  s.b = w.ry[t + 32];
-  s.c = w.rc[t >> 4][t & 15];
-}
-
-// Column `col` from slot s: decode the residuals, predict and add where
-// intra, else copy; store it and keep its right samples (`last`) for the
-// next column's left.
-__device__ __forceinline__ void column(Slot& s, WarpMem& w, const Args& a,
-                                       const Chunks& k, size_t mb0, int col,
-                                       int t, const Quant& ql,
-                                       const Quant& qc, int4& la, int4& lb,
-                                       int4& lc) {
-  if (s.f & kIntra) {  // uniform across the warp
-    intra_residuals(s, w, ql, qc, t);
-    // column 0: DC 128, H against zeros
-    int pa = (s.f & kLumaDc) ? 128 : 0, pb = pa;
-    int pc = (s.f & kChromaDc) ? 128 : 0;
-    if (col > 0) {
-      // the left samples of this thread's rows, from the threads whose
-      // chunks ended the previous MB's rows
-      pa = __shfl_sync(0xffffffffu, la.w, t | 12);
-      pb = __shfl_sync(0xffffffffu, lb.w, t | 12);
-      pc = __shfl_sync(0xffffffffu, lc.w, t | 4);
-      if (s.f & kLumaDc) {
-        int sum = pa + pb;
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 16);
-        pa = pb = (sum + 8) >> 4;
-      }
-      if (s.f & kChromaDc) {
-        int sum = pc;
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        pc = (sum + 2) >> 2;
-      }
-    }
-    s.a = add_clip(s.a, pa);
-    s.b = add_clip(s.b, pb);
-    s.c = add_clip(s.c, pc);
-  }
-  const size_t m = mb0 + col;
-  int4* y = reinterpret_cast<int4*>(a.y) + 64 * m;
-  y[k.xa] = s.a;
-  y[k.xb] = s.b;
-  (reinterpret_cast<int4*>(k.v ? a.v : a.u) + 16 * m)[k.xc] = s.c;
-  la = s.a;
-  lb = s.b;
-  lc = s.c;
-}
-
-// Block b is lane b: a warp walks its C columns with kDepth in flight.
-__global__ void __launch_bounds__(32)
-    intra_recon_kernel(const __grid_constant__ Args a) {
-  __shared__ WarpMem w;
-  const int t = threadIdx.x;
-  const size_t mb0 = (size_t)blockIdx.x * a.C;
+// Worker w: its columns w, w + kWorkers, ..., kAhead loading ahead.
+__device__ void work(const Args& a, Mem& sm, size_t mb0, int w, int t) {
   const Chunks k = chunks(t);
   const Quant ql = quantiser(a.qp), qc = quantiser(a.qpc);
+  Stage& st = sm.stage[w];
   Flags fl{load_flags(a, mb0, t), load_flags(a, mb0, 32 + t), 0};
-  Slot ring[kDepth];
+  auto flags = [&](int col) {  // col's flags, and whether col + 1 is intra
+    if (col >= a.C) return 0;
+    const int f = fl.of(a, mb0, t, col);
+    return col + 1 < a.C && (fl.of(a, mb0, t, col + 1) & kIntra)
+               ? f | kNextIntra
+               : f;
+  };
+  Loaded ring[kAhead];
 #pragma unroll
-  for (int i = 0; i < kDepth; ++i)
-    fetch(ring[i], a, k, mb0, i, i < a.C ? fl.of(a, mb0, t, i) : 0, t);
-  int4 la = make_int4(0, 0, 0, 0), lb = la, lc = la;
-  for (int c0 = 0; c0 < a.C; c0 += kDepth) {
+  for (int i = 0; i < kAhead; ++i) {
+    const int col = w + kWorkers * i;
+    fetch(ring[i], a, k, mb0, col, flags(col), t);
+  }
+  for (int c0 = w; c0 < a.C; c0 += kAhead * kWorkers) {
 #pragma unroll
-    for (int i = 0; i < kDepth; ++i) {
-      const int col = c0 + i;
+    for (int i = 0; i < kAhead; ++i) {
+      const int col = c0 + kWorkers * i;
       if (col >= a.C) break;
-      column(ring[i], w, a, k, mb0, col, t, ql, qc, la, lb, lc);
-      const int next = col + kDepth;
-      fetch(ring[i], a, k, mb0, next,
-            next < a.C ? fl.of(a, mb0, t, next) : 0, t);
+      Loaded& l = ring[i];
+      Slot& s = sm.ring[col % kRing];
+      const bool intra = l.f & kIntra;  // uniform across the warp
+      if (!intra) {
+        const size_t m = mb0 + col;
+        int4* y = reinterpret_cast<int4*>(a.y) + 64 * m;
+        y[k.xa] = l.a;
+        y[k.xb] = l.b;
+        (reinterpret_cast<int4*>(k.v ? a.v : a.u) + 16 * m)[k.xc] = l.c;
+      }
+      if (intra || (l.f & kNextIntra)) {
+        // the slot's last column (col - kRing) is consumed
+        if (col >= kRing) wait_local(&sm.consumed, col - kRing + 1);
+        if (intra) {
+          st.ac[t] = l.a;
+          if (t < 18) st.misc[t] = l.b;
+          __syncwarp();
+          const int16_t* misc = reinterpret_cast<const int16_t*>(st.misc);
+          const int cbc = (l.f & kCAc) ? 2 : (l.f & kCDc) ? 1 : 0;
+          const LevelPart v = load_levels(
+              misc, reinterpret_cast<const int16_t*>(st.ac), misc + 16,
+              misc + 24, (l.f & kLumaAc) ? 1 : 0, cbc, t);
+          int x[16];
+          if (block_residual(v, ql, qc, t, x)) {
+            int4* o = t < 16 ? s.r.ry + 4 * t
+                             : s.r.rc[(t - 16) >> 2] + 4 * ((t - 16) & 3);
+#pragma unroll
+            for (int i2 = 0; i2 < 4; ++i2)
+              o[i2] = make_int4(x[4 * i2], x[4 * i2 + 1], x[4 * i2 + 2],
+                                x[4 * i2 + 3]);
+          }
+        } else {  // the right sample column, the next MB's left
+          if (k.edge_l) s.left[k.ea] = l.a.w, s.left[k.eb] = l.b.w;
+          if (k.edge_c) s.left[k.ec] = l.c.w;
+        }
+        __syncwarp();  // the slot is written (and the staging read)
+        if (t == 0) cta_release(&sm.ready[col % kRing], (unsigned)col + 1);
+      }
+      const int nx = col + kAhead * kWorkers;
+      fetch(l, a, k, mb0, nx, flags(nx), t);
     }
   }
+}
+
+// The prediction warp: every column in order; an intra one from its
+// slot's residuals and the left samples, another one only its left
+// samples where the next column is intra (the worker stored the MB).
+__device__ void predict(const Args& a, Mem& sm, size_t mb0, int t) {
+  const Chunks k = chunks(t);
+  Flags fl{load_flags(a, mb0, t), load_flags(a, mb0, 32 + t), 0};
+  // the left samples of this thread's rows (luma A, B; chroma)
+  int la = 0, lb = 0, lc = 0;
+  int f = fl.of(a, mb0, t, 0);
+  for (int col = 0; col < a.C; ++col) {
+    const int fn = col + 1 < a.C ? fl.of(a, mb0, t, col + 1) : 0;
+    const unsigned slot = col % kRing;
+    const Slot& s = sm.ring[slot];
+    if (f & kIntra) {  // uniform across the warp
+      wait_local(&sm.ready[slot], (unsigned)col + 1);
+      const int4 ra = s.r.ry[t], rb = s.r.ry[t + 32];
+      const int4 rc = s.r.rc[t >> 4][t & 15];
+      // column 0: DC 128, H against zeros
+      int pa = (f & kLumaDc) ? 128 : 0, pb = pa;
+      int pc = (f & kChromaDc) ? 128 : 0;
+      if (col > 0) {
+        pa = la, pb = lb, pc = lc;
+        if (f & kLumaDc) {
+          int sum = pa + pb;
+          sum += __shfl_xor_sync(kFull, sum, 1);
+          sum += __shfl_xor_sync(kFull, sum, 2);
+          sum += __shfl_xor_sync(kFull, sum, 16);
+          pa = pb = (sum + 8) >> 4;
+        }
+        if (f & kChromaDc) {
+          int sum = pc;
+          sum += __shfl_xor_sync(kFull, sum, 1);
+          sum += __shfl_xor_sync(kFull, sum, 2);
+          pc = (sum + 2) >> 2;
+        }
+      }
+      const int4 oa = add_clip(ra, pa), ob = add_clip(rb, pb);
+      const int4 oc = add_clip(rc, pc);
+      if (fn & kIntra) {  // the next MB's left, from the threads whose
+                          // chunks end these rows
+        la = __shfl_sync(kFull, oa.w, t | 12);
+        lb = __shfl_sync(kFull, ob.w, t | 12);
+        lc = __shfl_sync(kFull, oc.w, t | 4);
+      }
+      const size_t m = mb0 + col;
+      int4* y = reinterpret_cast<int4*>(a.y) + 64 * m;
+      y[k.xa] = oa;
+      y[k.xb] = ob;
+      (reinterpret_cast<int4*>(k.v ? a.v : a.u) + 16 * m)[k.xc] = oc;
+    } else if (fn & kIntra) {
+      wait_local(&sm.ready[slot], (unsigned)col + 1);
+      la = s.left[k.ea], lb = s.left[k.eb], lc = s.left[k.ec];
+    }
+    __syncwarp();  // the slot is read
+    if (t == 0) cta_release(&sm.consumed, (unsigned)col + 1);
+    f = fn;
+  }
+}
+
+// Block b is lane b: warp 0 predicts, warps 1 .. kWorkers work.
+__global__ void __launch_bounds__(kThreads)
+    intra_recon_kernel(const __grid_constant__ Args a) {
+  __shared__ Mem sm;
+  const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x < kRing) sm.ready[threadIdx.x] = 0;
+  if (threadIdx.x == 0) sm.consumed = 0;
+  __syncthreads();
+  const size_t mb0 = (size_t)blockIdx.x * a.C;
+  if (warp == 0)
+    predict(a, sm, mb0, t);
+  else
+    work(a, sm, mb0, warp - 1, t);
 }
 
 }  // namespace
@@ -329,7 +452,7 @@ __global__ void __launch_bounds__(32)
 extern "C" int th264_intra_recon_rows(void* const* p, const int* n,
                                       void* stream) {
   const Args a = k5_args(p, n);
-  intra_recon_kernel<<<a.lanes, 32, 0, (cudaStream_t)stream>>>(a);
+  intra_recon_kernel<<<a.lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -55,6 +55,7 @@ result equals the rows of the unsharded encode.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -303,26 +304,45 @@ def _int_winner(sads: torch.Tensor, lam: int, group=None):
 _int_winner.launches = 0  # calls of K12 (two launches each)
 
 
-def _k12_operands(sads: torch.Tensor, lam: int):
+# K12's grid: blocks an SM of the card (a 256-thread block; the kernel
+# walks a contiguous chunk of MBs a block), and the SMs assumed for a
+# table that is not on a CUDA device (the CPU-thread tests: an H100 SXM's)
+_K12_BLOCKS_PER_SM = 2
+_K12_SMS_OFF_CARD = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _k12_sms(dev: torch.device) -> int:
+    """The SMs of `dev` (`_K12_SMS_OFF_CARD` off a CUDA device)."""
+    if dev.type != "cuda":
+        return _K12_SMS_OFF_CARD
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _k12_operands(sads: torch.Tensor, lam: int, blocks=None):
     """K12's operands in its entry's order (csrc/me_winner.cu `win_args`):
     (input tensors, output tensors, ints without the phase); the counts
-    zeroed, the rest freshly allocated on the table's device."""
+    zeroed, the rest freshly allocated on the table's device.  `blocks`:
+    the most blocks a launch (None: `_K12_BLOCKS_PER_SM` an SM)."""
     if sads.dim() != 4 or sads.shape[-1] != _NN or not sads.numel():
         raise ValueError(f"_int_winner: a SAD table [S, R, C, {_NN}], got "
                          f"{tuple(sads.shape)}")
     s, r, c, _ = sads.shape
     dev = sads.device
+    if blocks is None:
+        blocks = _k12_sms(dev) * _K12_BLOCKS_PER_SM
     ins = [sads.to(I32).contiguous()]
     outs = [torch.zeros((s, _NN), dtype=I32, device=dev)]
     outs += [torch.empty((s, r, c), dtype=I32, device=dev) for _ in range(2)]
     outs += [torch.empty(s, dtype=I32, device=dev) for _ in range(2)]
-    return ins, outs, [s, r, c, int(lam)]
+    return ins, outs, [s, r, c, int(lam), int(blocks)]
 
 
-def _k12_launch(sads: torch.Tensor, lam: int, group=None):
-    """K12's two launches (see `_int_winner`); raises on a bad input or a
-    failed build or launch."""
-    ins, outs, ints = _k12_operands(sads, lam)
+def _k12_launch(sads: torch.Tensor, lam: int, group=None, blocks=None):
+    """K12's two launches (see `_int_winner`; `blocks` as
+    `_k12_operands`'); raises on a bad input or a failed build or
+    launch."""
+    ins, outs, ints = _k12_operands(sads, lam, blocks)
     dev = sads.device
     cuda_lib.check_inputs("_int_winner", dev, [(ins[0], ins[0].shape)])
     lib = cuda_lib.load()
