@@ -307,12 +307,14 @@ def _plain_spy(name, f, calls, exempt=None):
 
 
 class Launches:
-    """The twelve kernels' launch counts (K1, K2, K3, K4 = the deblock D1,
+    """The fourteen kernels' launch counts (K1, K2 and K3: each its two
+    entries' counts summed, K4 = the deblock D1,
     K5 = the intra reconstruction D2, K6 = the Intra_16x16 encode scans
     D3 and D4: its two routers' counts summed, K7 / K8 = the single-slice
     wavefront's encode / decode, K9 = the P encode after stage A, K10 =
     the P decode's inter part, K11 = the reference build, K12 = the
-    stage-A winner: its calls, two launches each), zeroed before and read
+    stage-A winner: its calls, two launches each, K13 = the CAVLC
+    prologue, K14 = the decoder's SSE), zeroed before and read
     after each path the smoke drives; summed over those paths for the
     kernel table.  The plain versions of K1 (`_sad_field`), K3
     (`tree_merge`), K4 (`_deblock_rows_plain`), K5
@@ -321,30 +323,37 @@ class Launches:
     without `intra44`, `_intra_in_p_scan_plain`), K7
     (`_encode_iframe_single_plain`), K8 (`_decode_iframe_single_plain`),
     K9 (`_inter_encode_plain` without `t8`), K10 (`_inter_decode_plain`
-    without `t8`), K11 (`_references_plain`) and K12
-    (`_int_winner_plain`) are counted too: none may run on a path.  The
+    without `t8`), K11 (`_references_plain`), K12 (`_int_winner_plain`),
+    K13 (`_prologue_plain`), K2's and K3's entries on the symbols
+    (`_pack_symbols_plain`, `_merge_slices_plain`) and K14 (`_sse_plain`)
+    are counted too: none may run on a path.  The
     `t8` calls of K9's and K10's plain versions (the CABAC + 8x8 session
     path's eager route) are counted apart and printed."""
 
-    NEEDS = (0, 1, 2, 3, 4, 5, 8, 9, 10, 11)  # a GOP pipeline's kernels
+    NEEDS = (0, 1, 2, 3, 4, 5, 8, 9, 10, 11, 12, 13)  # a GOP pipeline's
 
     def __init__(self):
-        from tpuh264_torch.kernels import (cavlc_cuda, deblock, iframe,
-                                           me_cuda, pframe, wavefront)
+        from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
+                                           iframe, me_cuda, pframe, sse,
+                                           wavefront)
 
-        self.fns = ((me_cuda.sad_field,), (cavlc_cuda.pack_blocks,),
-                    (cavlc_cuda.merge_tree,), (deblock.deblock_frame_rows,),
+        self.fns = ((me_cuda.sad_field,),
+                    (cavlc_cuda.pack_blocks, cavlc_cuda.pack_symbols),
+                    (cavlc_cuda.merge_tree, cavlc_cuda.merge_slices),
+                    (deblock.deblock_frame_rows,),
                     (iframe._intra_recon_scan,),
                     (iframe.encode_iframe_scan, pframe._intra_in_p_scan),
                     (wavefront.encode_iframe_single,),
                     (wavefront.decode_iframe_single,),
                     (pframe._inter_encode,), (pframe._inter_decode,),
-                    (pframe._references,), (pframe._int_winner,))
+                    (pframe._references,), (pframe._int_winner,),
+                    (entropy_gpu.cavlc_prologue,), (sse.sse,))
         self.total = [0] * len(self.fns)
 
     def path(self, name, fn, needs=NEEDS):
-        from tpuh264_torch.kernels import (cavlc_cuda, deblock, iframe,
-                                           me_cuda, pframe, wavefront)
+        from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
+                                           iframe, me_cuda, pframe, sse,
+                                           wavefront)
 
         for fs in self.fns:
             for f in fs:
@@ -359,7 +368,10 @@ class Launches:
                   (pframe, "_inter_encode_plain"),
                   (pframe, "_inter_decode_plain"),
                   (pframe, "_references_plain"),
-                  (pframe, "_int_winner_plain")]
+                  (pframe, "_int_winner_plain"),
+                  (entropy_gpu, "_prologue_plain"),
+                  (cavlc_cuda, "_pack_symbols_plain"),
+                  (cavlc_cuda, "_merge_slices_plain"), (sse, "_sse_plain")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
         t8_calls = [[] for _ in plains]
@@ -387,11 +399,14 @@ class Launches:
               f"K7 (wavefront encode) {counts[6]}, K8 (wavefront decode) "
               f"{counts[7]}, K9 (P encode) {counts[8]}, K10 (P decode) "
               f"{counts[9]}, K11 (references) {counts[10]}, K12 (stage-A "
-              f"winner) {counts[11]}; plain calls K1 {plain[0]}, K3 "
+              f"winner) {counts[11]}, K13 (CAVLC prologue) {counts[12]}, "
+              f"K14 (SSE) {counts[13]}; plain calls K1 {plain[0]}, K3 "
               f"{plain[1]}, K4 {plain[2]}, K5 without i44 {plain[3]}, K6: "
               f"D3 without intra44 {plain[4]}, D4 {plain[5]}, K7 "
               f"{plain[6]}, K8 {plain[7]}, K9 without t8 {plain[8]}, K10 "
-              f"without t8 {plain[9]}, K11 {plain[10]}, K12 {plain[11]}")
+              f"without t8 {plain[9]}, K11 {plain[10]}, K12 {plain[11]}, "
+              f"K13 {plain[12]}, K2's symbols entry {plain[13]}, K3's slice "
+              f"entry {plain[14]}, K14 {plain[15]}")
         if t8_calls[8] or t8_calls[9]:
             print(f"launches [{name}]: the t8 eager route (EXEMPT): K9's "
                   f"plain version {len(t8_calls[8])}, K10's "
@@ -405,7 +420,8 @@ class Launches:
             fail(f"{name}: a kernel of the path was never launched: {counts}")
         if any(plain):
             fail(f"{name}: a plain version ran (K1, K3, K4, K5, K6 D3, K6 "
-                 f"D4, K7, K8, K9, K10, K11, K12: {plain} times)")
+                 f"D4, K7, K8, K9, K10, K11, K12, K13, K2 symbols, K3 "
+                 f"slices, K14: {plain} times)")
         if len(res_calls) != len(t8_calls[3]):
             fail(f"{name}: _intra_residuals ran {len(res_calls)} times, "
                  f"the i44 plain scan {len(t8_calls[3])} times")
@@ -431,6 +447,9 @@ NO_LIBRARY = {
     "K6": "no PyTorch call runs an H.264 intra encode",
     "K7": "no PyTorch call runs an H.264 intra encode",
     "K8": "no PyTorch call runs H.264 intra prediction",
+    "K13": "no PyTorch call derives CAVLC nC, header slots or skip runs",
+    "K14": "timed: float32 F.mse_loss(reduction='none') summed per "
+           "stream; not exact (a float32 sum rounds)",
 }
 
 
@@ -503,64 +522,213 @@ def k3_equal(words, bits, n_out, torch, what) -> int:
     return max(max_abs_err(ko, po), max_abs_err(kb, pb))
 
 
+def k13_bytes(sym) -> int:
+    """K13, what this run's data needs: per MB its eight int32 fields in,
+    the int16 levels of the blocks its masks count (32 B a luma block,
+    the MB's 240 B of chroma AC where the coded cbp_chroma is 2), and 27
+    chunk ints and 12 slot ints out; 8 B a row (the trailing run)."""
+    import torch
+
+    kind, cbp_l = sym.kind.long(), sym.cbp_luma.long()
+    cbp_c = torch.where(kind != 0, sym.cbp_chroma.long(), 0)
+    pop = sum((cbp_l >> g) & 1 for g in range(4))
+    luma = torch.where(kind == 2, (cbp_l == 1).long() * 16,
+                       torch.where(kind == 1, 4 * pop, 0))
+    mbs = kind.numel()
+    return (4 * mbs * (8 + 27 + 12) + 32 * int(luma.sum())
+            + 240 * int((cbp_c == 2).sum()) + 8 * (mbs // kind.shape[-1]))
+
+
+def k2s_bytes(meta, nh, n_w) -> int:
+    """K2's symbols entry: each chunk's int in, the header slots of the
+    MBs whose chunk 0 is present, the levels of the present chunks that
+    code a residual (32 B luma DC and AC, 8 B chroma DC, 30 B chroma AC),
+    and n_w words and a bit length out a chunk."""
+    import torch
+
+    present = (meta >> 14) & 1
+    code = present & ((meta >> 13) & 1)
+    per = torch.tensor([32] * 17 + [8] * 2 + [30] * 8, device=meta.device)
+    return (4 * meta.numel() * (1 + n_w + 1)
+            + 8 * nh * int(present[:, 0].sum()) + int((code * per).sum()))
+
+
+def k3s_bytes(hdr_len, mb_bits, mb_w, n_out, tail) -> int:
+    """K3's slice entry: the header's and MBs' bit lengths and the words
+    they use (<= mb_w an MB), the tail (8 B a slice, P), and n_out words
+    and a byte count out a slice; int32."""
+    lanes = hdr_len.numel()
+    used = (int(((mb_bits.long() + 31) // 32).clamp(0, mb_w).sum())
+            + int(((hdr_len.long() + 31) // 32).sum()))
+    return (4 * (lanes + mb_bits.numel() + used + lanes * (n_out + 1))
+            + (0 if tail is None else 8 * lanes))
+
+
 def k23_rows(sym, torch, what):
-    """K2 and K3 (MB level) against their plain versions on the P symbols
-    `sym` (rows for the kernel table); K3's slice level on the strings
-    `encode_bits_pframe` builds from them, and that call fenced."""
+    """K13, K2 and K3 against their plain versions on the P symbols `sym`
+    (rows for the kernel table): K13 (the prologue), K2's symbols entry
+    (the main path's; its block entry on the same chunks a line), K3 at
+    the MB level (its slice entry a line, and its generic slice-level
+    merge on the joined strings a line), then the stage fenced.  Returns
+    ([K2, K3], K13) rows."""
     from tpuh264_torch.core.params import PPS, SPS
     from tpuh264_torch.core.sliceheader import SLICE_P
     from tpuh264_torch.entropy.device_pack import slice_headers_device
     from tpuh264_torch.kernels import cavlc_cuda, entropy_gpu
 
-    args, code_res, present, _ = entropy_gpu.pframe_pack_inputs(sym)
+    dev = sym.kind.device
+    s, r, c = sym.kind.shape
+    hdr = slice_headers_device(SPS.for_size(16 * c, 16 * r), PPS(), 30, 1,
+                               False, s, slice_type=SLICE_P, deblock_idc=2,
+                               device=dev)
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = entropy_stage(sym, hdr, torch, 1, True, False)
+    want = entropy_stage(sym, hdr, torch, 1, True, True)
+    torch.cuda.synchronize()
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            fail(f"the slice stage's step {i} differs from its plain "
+                 f"version ({what})")
+        errs.append(max_abs_err(g, w))
+    meta, hl, hv, tail, cw, cb, mw, mb = want[:8]
+    k13 = kernel_row(
+        "K13", "cavlc_prologue (nC, header slots, chunk flags, trailing "
+        "skip_run)", "tpuh264_torch/csrc/cavlc_prologue.cu",
+        "tpuh264/kernels/entropy_tpu.py:627", max(errs[:4]),
+        timed(lambda: entropy_gpu.cavlc_prologue(sym, ovf, 1), 20),
+        timed(lambda: entropy_gpu._prologue_plain(sym, ovf, 1), 2),
+        k13_bytes(sym))
+    k2 = kernel_row(
+        "K2", "pack_symbols (CAVLC block symbolise + pack, levels read "
+        "from the symbols)", "tpuh264_torch/csrc/cavlc_pack.cu",
+        "tpuh264/kernels/cavlc_pallas.py:114", max(errs[4:6]),
+        timed(lambda: cavlc_cuda.pack_symbols(sym, meta, hl, hv, 20, ovf),
+              20),
+        timed(lambda: cavlc_cuda._pack_symbols_plain(sym, meta, hl, hv, 20,
+                                                     ovf), 2),
+        k2s_bytes(meta, 6, 20))
+    del got, want
+    mw4, mb4 = cw.reshape(s, r, c, 27, 20), cb.reshape(s, r, c, 27)
+    k3 = kernel_row(
+        "K3", "merge_tree / merge_slices (chunk -> MB and MB -> slice "
+        "bit-string merge)", "tpuh264_torch/csrc/cavlc_merge.cu",
+        "tpuh264/kernels/cavlc_pallas.py:486",
+        k3_equal(mw4, mb4, 128, torch, f"MB level, {what}"),
+        timed(lambda: cavlc_cuda.merge_tree(mw4, mb4, 128), 20),
+        timed(lambda: cavlc_cuda.tree_merge(mw4, mb4, 128), 3),
+        k3_bytes(mb4, 20, 128))
+    del cw, cb, mw4, mb4
+    n_out = entropy_gpu.SLICE_W
+    ms = timed(lambda: cavlc_cuda.merge_slices(*hdr, mw, mb, tail, n_out,
+                                               ovf), 20)
+    plain = timed(lambda: cavlc_cuda._merge_slices_plain(
+        *hdr, mw, mb, tail, n_out, ovf), 2)
+    bound = bound_ms(k3s_bytes(hdr[1], mb, 128, n_out, tail))
+    print(f"phase 2: K3 slice entry (merge_slices), {what}: {s * r} slices "
+          f"of {c} MBs -> {n_out} words: equal to plain (max_abs_err "
+          f"{max(errs[8:])}); kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+          f"bound {bound:.4f} ms (bytes): {100 * bound / ms:.1f}% of the "
+          f"bound")
+    del mw, mb
+
+    # K2's block entry on the same chunks (the host-pack and session
+    # tests' entry), and K3's generic slice level on the joined strings
+    args, code_res, _, _ = entropy_gpu.pframe_pack_inputs(sym)
     kw, kb = cavlc_cuda.pack_blocks(*args, 20, 6, code_residual=code_res)
     pw, pb = cavlc_cuda._pack_blocks_plain(*args, 20, code_res)
     torch.cuda.synchronize()
     if not (torch.equal(kb, pb) and torch.equal(kw, pw)):
         fail("K2 pack_blocks differs from its plain version")
-    k2 = kernel_row(
-        "K2", "pack_blocks (CAVLC block symbolise + pack)",
-        "tpuh264_torch/csrc/cavlc_pack.cu",
-        "tpuh264/kernels/cavlc_pallas.py:114",
-        max(max_abs_err(kw, pw), max_abs_err(kb, pb)),
-        timed(lambda: cavlc_cuda.pack_blocks(*args, 20, 6,
-                                             code_residual=code_res), 20),
-        timed(lambda: cavlc_cuda._pack_blocks_plain(*args, 20, code_res), 2),
-        k2_bytes(kb.numel(), 6, 20))
-    del pw, pb, args
-    cb = torch.where(present, kb, 0).contiguous()
-    cw = torch.where(present[..., None], kw, 0).contiguous()
-    k3 = kernel_row(
-        "K3", "merge_tree (chunk -> MB and MB -> slice bit-string merge)",
-        "tpuh264_torch/csrc/cavlc_merge.cu",
-        "tpuh264/kernels/cavlc_pallas.py:486",
-        k3_equal(cw, cb, 128, torch, f"MB level, {what}"),
-        timed(lambda: cavlc_cuda.merge_tree(cw, cb, 128), 20),
-        timed(lambda: cavlc_cuda.tree_merge(cw, cb, 128), 3),
-        k3_bytes(cb, cw.shape[-1], 128))
-    del kw, kb, cw, cb
-
-    s, r, c = sym.kind.shape
-    hdr = slice_headers_device(SPS.for_size(16 * c, 16 * r), PPS(), 30, 1,
-                               False, s, slice_type=SLICE_P, deblock_idc=2,
-                               device=sym.kind.device)
+    ms = timed(lambda: cavlc_cuda.pack_blocks(*args, 20, 6,
+                                              code_residual=code_res), 20)
+    bound = bound_ms(k2_bytes(kb.numel(), 6, 20))
+    print(f"phase 2: K2 block entry (pack_blocks), {what}: equal to plain "
+          f"(max_abs_err {max(max_abs_err(kw, pw), max_abs_err(kb, pb))}); "
+          f"kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes): "
+          f"{100 * bound / ms:.1f}% of the bound")
+    del kw, kb, pw, pb, args
     parts = entropy_gpu.pframe_slice_parts(sym, *hdr)[:2]
     sw, sb, _ = entropy_gpu.slice_strings(*parts)
     del parts
-    n_out = entropy_gpu.SLICE_W
     err = k3_equal(sw, sb, n_out, torch, f"slice level, {what}")
     ms = timed(lambda: cavlc_cuda.merge_tree(sw, sb, n_out), 20)
     plain = timed(lambda: cavlc_cuda.tree_merge(sw, sb, n_out), 2)
     bound = bound_ms(k3_bytes(sb, sw.shape[-1], n_out))
-    print(f"phase 2: K3 slice level, {what}: {list(sw.shape)} -> "
-          f"{n_out} words: equal to plain (max_abs_err {err}); kernel "
-          f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms (bytes): "
-          f"{100 * bound / ms:.1f}% of the bound")
+    print(f"phase 2: K3 generic slice level (merge_tree), {what}: "
+          f"{list(sw.shape)} -> {n_out} words: equal to plain (max_abs_err "
+          f"{err}); kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+          f"{bound:.4f} ms (bytes): {100 * bound / ms:.1f}% of the bound")
     del sw, sb
     enc = [round(fenced_ms(lambda: entropy_gpu.encode_bits_pframe(
         sym, 30, *hdr)), 3) for _ in range(3)]
     print(f"phase 2: encode_bits_pframe, {what}, one call fenced: {enc} ms")
-    return [k2, k3]
+    return [k2, k3], k13
+
+
+def k14_library(dec, src):
+    """The nearest PyTorch call: F.mse_loss(reduction="none") in float32,
+    summed per stream (not exact: a float32 sum rounds)."""
+    import torch
+
+    d = torch.stack(list(dec)).float()
+    return torch.nn.functional.mse_loss(
+        d, src.float(), reduction="none").sum((-1, -2))
+
+
+K14_CASES = [((4, 4, 1088, 1920), 1, True), ((4, 8, 48, 64), 2, True),
+             ((3, 2, 32, 48), 1, False), ((1, 1, 16, 16), 1, True),
+             ((4, 8, 480, 864), 8, True), ((2, 6, 64, 80), 3, False)]
+
+
+def k14_case(np, shape, fanout, with_src, seed=0):
+    """Seeded K14 inputs (numpy uint8): k decoded planes [k, S, H, W] and
+    the source [k, S / fanout, H, W] (None: measured against zeros),
+    the decoded planes near the source (a codec's error) with saturated
+    0 / 255 patches."""
+    k, s, h, w = shape
+    rng = np.random.default_rng([seed, k, s, h, w, fanout])
+    src = rng.integers(0, 256, (k, s // fanout, h, w)).astype(np.uint8)
+    dec = np.repeat(src, fanout, 1).astype(np.int64)
+    dec += rng.integers(-9, 10, dec.shape)
+    dec[..., :4, :4] = 255
+    dec[..., -4:, -4:] = 0
+    return (np.clip(dec, 0, 255).astype(np.uint8), src if with_src else None)
+
+
+def k14_rows(dev, torch, np, card):
+    """K14 against its plain version: its row at the main path's shapes
+    (an interior 1080p x 4 dispatch's four decoded frames against their
+    sources), then every K14_CASES case (fan-out, no source)."""
+    from tpuh264_torch.kernels import sse
+
+    row = None
+    for case in K14_CASES:
+        d, src = k14_case(np, *case)
+        dec = [t for t in torch.from_numpy(d).to(dev)]
+        src_t = None if src is None else torch.from_numpy(src).to(dev)
+        got = sse.sse(dec, src_t, case[1])
+        want = sse._sse_plain(dec, src_t, case[1])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"K14 sse differs from its plain version on case {case}")
+        if row is None:
+            nbytes = d.nbytes + (0 if src is None else src.nbytes) + got.numel() * 8
+            lib = timed(lambda: k14_library(dec, src_t), 20)
+            row = dict(kernel_row(
+                "K14", "sse (the decoder's per-frame, per-stream SSE, exact "
+                "int64)", "tpuh264_torch/csrc/sse.cu",
+                "tpuh264/engine/devpipe.py:692", max_abs_err(got, want),
+                timed(lambda: sse.sse(dec, src_t, case[1]), 50),
+                timed(lambda: sse._sse_plain(dec, src_t, case[1]), 3),
+                nbytes), library_ms=lib)
+            print(f"phase 2: K14 library call F.mse_loss(float32, "
+                  f"reduction='none').sum per stream {lib:.4f} ms (not "
+                  f"exact) [{card}]")
+        del dec, src_t, got, want
+    print(f"phase 2: K14 equal to its plain version on {len(K14_CASES)} "
+          f"seeded cases (1080p x 4, fan-out 2 / 3 / 8, no source, one MB)")
+    return row
 
 
 def k1_edges(dev, torch, np):
@@ -645,6 +813,148 @@ def k2_edges(dev, torch, np):
     print(f"phase 2: K2 edge cases nh 0..8 x n_w 1/6/20/32, {n} rows each "
           f"(escape levels, 16 nonzeros, chroma DC, code_residual 0): equal "
           f"to plain; {trunc} rows truncated at n_w words")
+
+
+# K13 (the CAVLC prologue), K2's symbols entry and K3's slice entry, on
+# seeded symbols: (lead, R, C) shapes -- one MB, one column, a row of 121
+# MBs (four 32-column passes and one more), a row of 33 -- x MB mixes:
+# "mixed" (skip / inter / intra), "skip" (all-skip rows), "intra"
+# (all-intra rows), "last" (a row's only coded MB its last), "border"
+# (inter and intra MBs alternating, so nC meets both rules across every
+# MB border), "inter"; P slices with nra 1, 2 and 3, and I slices.
+K13_SHAPES = ((1, 1, 1), (2, 3, 1), (1, 2, 121), (3, 2, 5), (2, 1, 33))
+K13_MIX = ("mixed", "skip", "intra", "last", "border", "inter")
+K13_CASES = ([(shape, mix, 1 + (i + j) % 3, True)
+              for i, shape in enumerate(K13_SHAPES)
+              for j, mix in enumerate(K13_MIX)]
+             + [(shape, "intra", 1, False) for shape in K13_SHAPES])
+
+
+def k13_case(np, shape, mix, nra, pslice, seed=0):
+    """Seeded symbols of a K13 case as numpy arrays (MBSymbolsP's fields,
+    or MBSymbols' for an I slice): levels sparse, a few up to escape size;
+    cbps at random (the stage reads them as coded, whatever the levels);
+    mvds +-64; refidx below nra."""
+    lead, r, c = shape
+    mb = (lead, r, c)
+    rng = np.random.default_rng(1000 + seed + 7 * c + 31 * r + 101 * lead
+                                + 13 * K13_MIX.index(mix) + 3 * nra)
+
+    def lv(*sh):
+        x = rng.integers(-3, 4, (*mb, *sh))
+        x[rng.random(x.shape) < 0.7] = 0
+        big = rng.random(x.shape) < 0.01
+        x[big] = rng.integers(-2000, 2001, int(big.sum()))
+        return x.astype(np.int16)
+
+    kind = {"mixed": rng.choice(3, mb, p=[0.5, 0.35, 0.15]),
+            "skip": np.zeros(mb, np.int64), "intra": np.full(mb, 2),
+            "last": np.zeros(mb, np.int64),
+            "border": 1 + (np.arange(c) + np.arange(r)[:, None]) % 2
+            + np.zeros(mb, np.int64),
+            "inter": np.ones(mb, np.int64)}[mix]
+    if mix == "last":
+        kind[..., -1] = rng.choice([1, 2], (lead, r))
+    if mix == "mixed" and r > 1:
+        kind[0, 0] = 0  # an all-skip row
+    intra = kind == 2
+    f = dict(
+        mode=rng.integers(0, 4, mb), cmode=rng.integers(0, 4, mb),
+        cbp_luma=np.where(intra, rng.integers(0, 2, mb),
+                          rng.integers(0, 16, mb)),
+        cbp_chroma=rng.integers(0, 3, mb), luma_dc=lv(16),
+        luma_ac=lv(16, 16), chroma_dc=lv(2, 4), chroma_ac=lv(2, 4, 15))
+    if pslice:
+        f.update(kind=kind, mvdx=rng.integers(-64, 65, mb),
+                 mvdy=rng.integers(-64, 65, mb),
+                 refidx=np.where(kind == 1, rng.integers(0, nra, mb), 0),
+                 t8=np.zeros(mb, np.int64))
+    else:
+        f["cbp_luma"] = rng.integers(0, 2, mb)
+    return {k: v if v.dtype == np.int16 else v.astype(np.int32)
+            for k, v in f.items()}
+
+
+def k13_symbols(torch, case, dev):
+    """A `k13_case` as the port's MBSymbolsP (P) or MBSymbols (I) on
+    `dev`."""
+    from tpuh264_torch.kernels import iframe, pframe
+
+    t = {k: torch.from_numpy(v).to(dev) for k, v in case.items()}
+    if "kind" in t:
+        return pframe.MBSymbolsP(**t)
+    return iframe.MBSymbols(**t)
+
+
+def k13_headers(torch, np, lead, r, dev, seed=0):
+    """Slice headers as K3's slice entry reads them: [lead, R, 4] int32
+    MSB-first words, zero past their bit lengths [lead, R] (20-120)."""
+    rng = np.random.default_rng(77 + seed)
+    bits = rng.integers(20, 121, (lead, r))
+    words = rng.integers(0, 1 << 32, (lead, r, 4), dtype=np.uint64)
+    pos = np.arange(128).reshape(4, 32)
+    keep = pos[None, None] < bits[..., None, None]
+    mask = (keep * (np.uint64(1) << (31 - np.arange(32)).astype(np.uint64))
+            ).sum(-1).astype(np.uint64)
+    words = (words & mask).astype(np.uint32).view(np.int32)
+    return (torch.from_numpy(words).to(dev),
+            torch.from_numpy(bits.astype(np.int32)).to(dev))
+
+
+def entropy_stage(sym, hdr, torch, nra, pslice, plain):
+    """The slice stage's four steps on `sym` and headers `hdr`, each by
+    its kernel (plain False: the routers, CUDA tensors) or its plain
+    version: [chunk ints, slots (len, val), tail, chunk words, bits, MB
+    words, bits, slice words, bytes, overflow flag]."""
+    from tpuh264_torch.kernels import cavlc_cuda, entropy_gpu
+
+    dev = hdr[1].device
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    lead = tuple(sym.mode.shape)
+    if plain:
+        meta, hl, hv, tail = entropy_gpu._prologue_plain(sym, ovf, nra,
+                                                         pslice)
+        if tail is not None:
+            tail = tail.reshape(*lead[:-1], 2)
+        w, b = cavlc_cuda._pack_symbols_plain(sym, meta, hl, hv, 20, ovf)
+        mw, mb = cavlc_cuda.tree_merge(w.reshape(*lead, 27, 20),
+                                       b.reshape(*lead, 27), 128)
+        sw, sb = cavlc_cuda._merge_slices_plain(*hdr, mw, mb, tail, 8192,
+                                                ovf)
+    else:
+        meta, hl, hv, tail = entropy_gpu.cavlc_prologue(sym, ovf, nra, pslice)
+        w, b = cavlc_cuda.pack_symbols(sym, meta, hl, hv, 20, ovf)
+        mw, mb = cavlc_cuda.merge_tree(w.reshape(*lead, 27, 20),
+                                       b.reshape(*lead, 27), 128)
+        sw, sb = cavlc_cuda.merge_slices(*hdr, mw, mb, tail, 8192, ovf)
+    return [meta, hl, hv, tail, w, b, mw, mb, sw, sb, ovf]
+
+
+def k13_edges(dev, torch, np):
+    """K13, K2's symbols entry and K3's slice entry on every K13_CASES
+    case: the stage run by the kernels and by the plain versions, each
+    step's output equal, int for int (so each kernel met its plain
+    version's inputs)."""
+    n_ovf = 0
+    for case in K13_CASES:
+        shape, mix, nra, pslice = case
+        cpu = k13_symbols(torch, k13_case(np, *case), "cpu")
+        gpu = k13_symbols(torch, k13_case(np, *case), dev)
+        hdr = k13_headers(torch, np, shape[0], shape[1], "cpu")
+        want = entropy_stage(cpu, hdr, torch, nra, pslice, True)
+        got = entropy_stage(gpu, tuple(x.to(dev) for x in hdr), torch, nra,
+                            pslice, False)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if (g is None) != (w is None) or (
+                    g is not None and not torch.equal(g.cpu(), w)):
+                fail(f"K13 / K2 / K3 slice stage step {i} differs from its "
+                     f"plain version on case {case}")
+        n_ovf += int(want[-1])
+    print(f"phase 2: K13, K2's symbols entry and K3's slice entry equal to "
+          f"their plain versions on {len(K13_CASES)} seeded cases (one MB, "
+          f"one column, rows of 121 and 33; mixed, all-skip, all-intra, "
+          f"last-MB-only, inter/intra borders, all-inter; nra 1-3; I "
+          f"slices); {n_ovf} raise the overflow flag")
 
 
 K3_LANES = 32 * 16 + 5  # ragged: merge_warp takes 4 lanes a warp, 32 a block
@@ -808,9 +1118,9 @@ def pframe_1080p(dev, torch):
     from tpuh264_torch.kernels import pframe
 
     y, u, v = device_source_gop(1920, 1088, 2, 4, "rigid", 100, dev)
-    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    # the reference as the pipeline passes it: a DPB slot, uint8
     sym, rec, mot = pframe.encode_pframe_rows_multi(
-        y[1], u[1], v[1], *refs, 30, intra_in_p=False)
+        y[1], u[1], v[1], [y[0]], [u[0]], [v[0]], 30, intra_in_p=False)
     return y, u, v, sym, rec, mot
 
 
@@ -1142,6 +1452,9 @@ K9_CASES.append(((1, 2, 3), 6, 0, "motion", 28, "stageA", True, False))
 K9_CASES += [((2, 2, 3), 1, 0, "smooth", 12, "subpel", False, False),
              ((1, 3, 5), 2, 0, "smooth", 20, "subpel", True, False),
              ((1, 3, 5), 1, 1, "smooth", 28, "subpel", False, True)]
+# and a row of 121 MBs (the mvd pass over four 32-column spans and one
+# more)
+K9_CASES.append(((1, 1, 121), 1, 0, "motion", 28, "stageA", False, False))
 K10_MIX = ("mixed", "inter", "skip", "intra")
 K10_CASES = [(shape, 1 + (i + j) % 4, mix, P_QPS[(i + 2 * j) % 3],
               (i + j) % 3 == 1)
@@ -1152,7 +1465,8 @@ K10_CASES = [(shape, 1 + (i + j) % 4, mix, P_QPS[(i + 2 * j) % 3],
 # ("chain": one run of 97), and every MB inter but a skip at column 33
 # and an intra MB at column 64 ("resets": runs of 33, 30 and 32)
 K10_CASES += [((1, 1, 97), 2, "chain", 28, False),
-              ((2, 1, 97), 1, "resets", 12, True)]
+              ((2, 1, 97), 1, "resets", 12, True),
+              ((1, 1, 121), 1, "mixed", 28, False)]
 
 
 def _p_frames(np, rng, n, s, h, w, content, ext=0):
@@ -2013,13 +2327,15 @@ def k9_bytes(kw) -> int:
     so that is what the data needs; the planes' pads and the MC reads of
     the chosen reference add nothing new); per MB 8 int32 fields, 384
     int16 levels and the reconstruction (384 uint8 samples, or int32 with
-    intra-in-P) out."""
+    intra-in-P) out; writing the symbols (`out`), also the mvds, mode,
+    cmode and t8 (int32) and the zero luma_dc (32 B)."""
     src = sum(kw[k].numel() for k in ("y32", "u", "v", "iy0", "ix0", "gy",
                                       "gx"))
     frame = kw["y32"].numel()
     planes = len(kw["planes_l"]) * (4 * frame + 2 * (frame // 4))
     mbs = frame // 256
-    return 4 * (src + planes) + mbs * (32 + 768 + 384 * (
+    sym = 0 if kw.get("out") is None else 5 * 4 + 32  # mvds, zero fields
+    return 4 * (src + planes) + mbs * (32 + sym + 768 + 384 * (
         4 if kw["intra_in_p"] else 1))
 
 
@@ -2061,8 +2377,14 @@ def k9_equal(kw, torch, what) -> int:
 
     flat = lambda o: [*o[:-1], *o.rec]
     return _all_equal(flat(pframe._inter_encode(**kw)),
-                      flat(pframe._inter_encode_plain(**kw)), torch,
-                      f"K9 _inter_encode ({what})")
+                      flat(pframe._inter_encode_plain(**plain_args(kw))),
+                      torch, f"K9 _inter_encode ({what})")
+
+
+def plain_args(kw):
+    """`_inter_encode`'s captured arguments less `out` (the symbol
+    buffers K9 may write; its plain version leaves them to its caller)."""
+    return {k: v for k, v in kw.items() if k != "out"}
 
 
 def k10_equal(kw, torch, what) -> int:
@@ -2120,7 +2442,7 @@ def p_timed(key, kw, torch, what, card):
                                 pframe._inter_decode_plain,
                                 k10_bytes(kw, pframe._inter_decode(**kw)[1]))
     ms = timed(lambda: fn(**kw), 20)
-    plain = timed(lambda: plain_fn(**kw), 2)
+    plain = timed(lambda: plain_fn(**plain_args(kw)), 2)
     bound = bound_ms(nbytes)
     print(f"phase 2: {key} {what}: equal to plain (max_abs_err {err}); "
           f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms "
@@ -2148,7 +2470,8 @@ def k11_bytes(kw) -> int:
     from tpuh264_torch.kernels import pframe
 
     ins, outs, _ = pframe._k11_operands(**kw)
-    return sum(x.numel() * x.element_size() for x in ins + outs)
+    return sum(x.numel() * x.element_size() for x in ins + outs
+               if x is not None)
 
 
 def k12_bytes(kw) -> int:
@@ -2211,6 +2534,8 @@ def k11_library(refs_y, refs_u, refs_v, halo):
 
     from tpuh264_torch.kernels import pframe
 
+    refs_y, refs_u, refs_v = (x if torch.is_tensor(x) else torch.stack(
+        list(x)) for x in (refs_y, refs_u, refs_v))  # a ring's slots
     n, s, hs, w = refs_y.shape
     oy, oyc = (0, 0) if halo else (pframe.HALO_Y, pframe.HALO_C)
     pe, cp = pframe._PE, pframe._CP
@@ -2337,17 +2662,122 @@ def k12_counts(torch, sads, lam):
     return counts.scatter_add_(1, win, torch.ones_like(win))
 
 
+def record_views(sym, torch):
+    """The P symbols `sym` as the GOP decode holds them: strided views of
+    one [.., 9] int32 MB-field record and one [.., 400] int16
+    coefficient-slot record (`devpipe.record_symbols`)."""
+    from tpuh264_torch.engine import devpipe
+
+    lead = sym.kind.shape
+    m = torch.stack([sym.kind, sym.mode, sym.cmode, sym.cbp_luma,
+                     sym.cbp_chroma, sym.mvdx, sym.mvdy, sym.refidx,
+                     torch.zeros_like(sym.kind)], -1).to(torch.int32)
+    cf = torch.cat([sym.luma_dc, sym.luma_ac.reshape(*lead, 256),
+                    sym.chroma_dc.reshape(*lead, 8),
+                    sym.chroma_ac.reshape(*lead, 120)], -1).to(torch.int16)
+    return devpipe.record_symbols(m, cf)
+
+
+def k9_out_equal(kw, torch, what) -> int:
+    """K9 writing the symbols into `empty_symbols` buffers (with its mvd
+    pass) against the fields its plain version gives, the mvds those of
+    its vectors against the left MB's, and mode, cmode, t8, luma_dc 0."""
+    from tpuh264_torch.kernels import pframe
+
+    s, r, c = kw["iy0"].shape[1:]
+    buf = pframe.empty_symbols((s,), r, c, kw["iy0"].device)
+    pframe._inter_encode(**dict(kw, out=buf))
+    p = pframe._inter_encode_plain(**plain_args(kw))
+    left = lambda mv: torch.nn.functional.pad(mv, (1, 0))[..., :-1]
+    zero = torch.zeros_like(p.kind)
+    want = pframe.MBSymbolsP(
+        kind=p.kind, mode=zero, cmode=zero, cbp_luma=p.cbp_luma,
+        cbp_chroma=p.cbp_chroma, mvdx=p.mvx - left(p.mvx),
+        mvdy=p.mvy - left(p.mvy),
+        luma_dc=torch.zeros_like(buf.luma_dc), luma_ac=p.luma_ac,
+        chroma_dc=p.chroma_dc, chroma_ac=p.chroma_ac, refidx=p.refidx,
+        t8=zero)
+    return _all_equal(list(buf), list(want), torch,
+                      f"K9's symbols ({what})")
+
+
+def k9_symbols_check(y, u, v, sym, torch, card):
+    """K9 writing the frame's symbols itself (the main path's route: the
+    fields into `empty_symbols` buffers, the mvd pass, the zero fields)
+    equal, field for field, to the symbols assembled around K9's plain
+    outputs (`sym`, the same frame's encode without them), and the
+    launch timed both ways."""
+    from tpuh264_torch.kernels import pframe
+
+    s, r, c = sym.kind.shape
+    buf = pframe.empty_symbols((s,), r, c, y.device)
+    refs = ([y[0]], [u[0]], [v[0]])
+    kws = capture(pframe, "_inter_encode", lambda: (
+        pframe.encode_pframe_rows_multi(y[1], u[1], v[1], *refs, 30,
+                                        intra_in_p=False, out=buf)))
+    torch.cuda.synchronize()
+    err = _all_equal(list(buf), list(sym), torch,
+                     "K9's symbols (empty_symbols) vs the assembled ones")
+    kw = kws[0]
+    ms = timed(lambda: pframe._inter_encode(**kw), 20)
+    ms0 = timed(lambda: pframe._inter_encode(**dict(kw, out=None)), 20)
+    print(f"phase 2: K9 writing the 1080p x 4 P frame's symbols (13 fields, "
+          f"the mvd pass): equal to the assembled symbols (max_abs_err "
+          f"{err}); K9 {ms:.4f} ms with them, {ms0:.4f} ms without [{card}]")
+
+
+def k10_copy_check(kw, torch, card):
+    """K10 on the record views (no operand copy) against its plain version,
+    and timed beside K10 on contiguous copies of the same symbols."""
+    from tpuh264_torch.kernels import pframe
+
+    err = k10_equal(kw, torch, "1080p x 4 P frame, record views")
+    sym = kw["symbols"]
+    flat = pframe.MBSymbolsP(*[None if x is None else x.contiguous()
+                               for x in sym])
+    copied = dict(kw, symbols=flat)
+    ms = timed(lambda: pframe._inter_decode(**kw), 20)
+    ms_c = timed(lambda: pframe._inter_decode(**copied), 20)
+    ins = pframe._k10_operands(sym, kw["planes_l"], kw["refs_up"],
+                               kw["refs_vp"], kw["qp"])[0]
+    shared = sum(x.data_ptr() == y.data_ptr() for x, y in zip(ins, (
+        sym.kind, sym.mvdx, sym.mvdy, sym.refidx, sym.cbp_luma,
+        sym.cbp_chroma, sym.luma_ac, sym.chroma_dc, sym.chroma_ac)))
+    if shared != 9:
+        fail(f"K10's operands copied {9 - shared} of the record views")
+    print(f"phase 2: K10 on the record views (strided, 9 of 9 fields in "
+          f"place): equal to plain (max_abs_err {err}); {ms:.4f} ms, on "
+          f"contiguous symbols {ms_c:.4f} ms [{card}]")
+
+
+def k11_ring_check(y, u, v, torch, card):
+    """K11 reading the references by pointer from a two-slot uint8 DPB
+    ring whose head is slot 1 (newest first: slots 1, 0) equal to its
+    plain version on the stacked references."""
+    from tpuh264_torch.engine import devpipe
+
+    ring = tuple(torch.stack([p[0], p[1]]) for p in (y, u, v))
+    kw = dict(zip(("refs_y", "refs_u", "refs_v"),
+                  devpipe.dpb_refs(ring, 1, 2)), halo=False)
+    err = k11_equal(kw, torch, "a two-slot ring, head at slot 1")
+    print(f"phase 2: K11 by pointer on a two-slot uint8 ring (head slot 1): "
+          f"equal to plain (max_abs_err {err}) [{card}]")
+
+
 def p_rows(dev, torch, np, card):
     """K9-K12: the rows of the kernel table on the main path's 1080p x 4
-    RTC P frame (one reference: its encode's K9, reference build K11 and
-    stage-A winner K12) and its decode (K10), a line each on that
-    decode's reference build and on the 480p x 8 default-config P frame
-    with two references (its encode's and decode's), then the seeded
-    edge cases (`K9_CASES`, `K10_CASES`, `K11_CASES`, `K12_CASES`)."""
+    RTC P frame (one reference, a uint8 DPB slot: its encode's K9 writing
+    the symbols, reference build K11 and stage-A winner K12) and its
+    decode (K10 on the record views), a line each on K9's symbols, K10's
+    record views, K11 on a two-slot ring, that decode's reference build
+    and the 480p x 8 default-config P frame with two references (its
+    encode's and decode's), then the seeded edge cases (`K9_CASES`, K9
+    also writing the symbols; `K10_CASES`, also on record views;
+    `K11_CASES`, `K12_CASES`)."""
     from tpuh264_torch.kernels import pframe
 
     for src in ("pframe_enc.cu", "pframe_dec.cu", "halfpel.cu",
-                "me_winner.cu"):
+                "me_winner.cu", "cavlc_prologue.cu", "sse.cu"):
         for ln in ptxas_lines(os.path.join(os.path.dirname(
                 os.path.abspath(__file__)), "tpuh264_torch", "csrc", src)):
             print(f"phase 2: {src} ptxas: {ln}")
@@ -2357,11 +2787,19 @@ def p_rows(dev, torch, np, card):
                       lambda: out.append(pframe_1080p(dev, torch)))
     (enc,), (ref_e,), (win,) = (got[n] for n in names)
     y, u, v, sym = out[0][:4]
-    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    k9_symbols_check(y, u, v, sym, torch, card)
+    # K9's row as the main path launches it: writing the symbols
+    enc = dict(enc, out=pframe.empty_symbols(sym.kind.shape[:1],
+                                             *sym.kind.shape[1:], y.device))
+    # the decode as the GOP pipeline runs it: the parsed records' views
+    # (K10 reads them with their MB strides), the reference a DPB slot
+    refs = ([y[0]], [u[0]], [v[0]])
     got = capture_all(pframe, ("_inter_decode", "_references"),
-                      lambda: pframe.decode_pframe_rows_multi(sym, *refs,
-                                                              30))
+                      lambda: pframe.decode_pframe_rows_multi(
+                          record_views(sym, torch), *refs, 30))
     (dec,), (ref_d,) = got["_inter_decode"], got["_references"]
+    k10_copy_check(dec, torch, card)
+    k11_ring_check(y, u, v, torch, card)
     del out, y, u, v, sym, refs
     rows = []
     for key, kw, name, source, replaces in (
@@ -2410,24 +2848,33 @@ def p_rows(dev, torch, np, card):
         ref_timed("K12", kw, torch, what, card)
         k12_phase_line(kw, torch, what, card)
     del enc, dec, caps, got
+    n_out = 0
     for case in K9_CASES:
-        k9_equal(k9_args(torch, k9_case(np, *case), dev), torch,
-                 f"edge case {case}")
+        kw = k9_args(torch, k9_case(np, *case), dev)
+        k9_equal(kw, torch, f"edge case {case}")
+        if not kw["intra_in_p"]:  # the route that writes the symbols
+            k9_out_equal(kw, torch, f"edge case {case}")
+            n_out += 1
     for case in K10_CASES:
-        k10_equal(k10_args(torch, k10_case(np, *case), dev), torch,
-                  f"edge case {case}")
+        kw = k10_args(torch, k10_case(np, *case), dev)
+        k10_equal(kw, torch, f"edge case {case}")
+        k10_equal(dict(kw, symbols=record_views(kw["symbols"], torch)),
+                  torch, f"edge case {case}, record views")
     print(f"phase 2: K9 / K10 equal to their plain versions on "
-          f"{len(K9_CASES)} / {len(K10_CASES)} seeded edge cases")
+          f"{len(K9_CASES)} / {len(K10_CASES)} seeded edge cases (K9 also "
+          f"writing the symbols on the {n_out} without intra-in-P, K10 "
+          f"also on their record views)")
     ref_edges(dev, torch, np)
     return rows
 
 
 def phase_kernels(dev, torch, np, card):
     """Phase 2: K1-K6 against their plain versions at 1080p x 4 and on
-    edge cases, K2/K3 and K6 (D4) on intra-in-P inputs, K4 on t8 symbols
-    and K5 on default-config symbols at 480p x 8; K3 at its MB and slice
-    levels; K7 / K8 at 480p x 8, config 1 and 1080p x 1 and on their edge
-    cases."""
+    edge cases, K13 / K2 / K3 and K6 (D4) on intra-in-P inputs, K4 on t8
+    symbols and K5 on default-config symbols at 480p x 8; K3 at its MB
+    and slice levels; K7 / K8 at 480p x 8, config 1 and 1080p x 1 and on
+    their edge cases; K9-K12 (`p_rows`); K13 and K14 at the main path's
+    shapes and on `K13_CASES` / `K14_CASES`."""
     from tpuh264_torch.kernels import iframe, me_cuda, pframe
 
     w, h, s = 1920, 1088, 4
@@ -2464,7 +2911,8 @@ def phase_kernels(dev, torch, np, card):
     # P dispatch's 16 frame-streams: 3.5 M blocks, 130,560 MBs)
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
-    rows += k23_rows(sym4, torch, "1080p x 4 P symbols x 4 frames")
+    k23, k13 = k23_rows(sym4, torch, "1080p x 4 P symbols x 4 frames")
+    rows += k23
     # K4 (D1): an encoded I frame and P frame at 1080p x 4, the P frame's
     # row in the kernel table, with its cycles a MB column
     sym_i, rec_i = iframe.encode_iframe_rows(y[0], u[0], v[0], 30)
@@ -2511,6 +2959,13 @@ def phase_kernels(dev, torch, np, card):
     for r in p_rows(dev, torch, np, card):
         show(r, "1080p x 4 shapes (RTC P frame, one reference)")
         rows.append(r)
+    # K13 (the CAVLC prologue) on the dispatch's P symbols, K14 (the
+    # decoder's SSE) on an interior dispatch's four frames
+    show(k13, "1080p x 4 P symbols x 4 frames")
+    rows.append(k13)
+    rows.append(k14_rows(dev, torch, np, card))
+    show(rows[-1], "1080p x 4, four decoded frames")
+    k13_edges(dev, torch, np)
     k2_edges(dev, torch, np)
     k3_edges(dev, torch, np)
     d1_edges(dev, torch, np)
@@ -2525,7 +2980,8 @@ def phase_kernels(dev, torch, np, card):
     del p480
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
-    for r in k23_rows(sym4, torch, "intra-in-P 854x480 x 8 x 4 frames"):
+    k23, k13 = k23_rows(sym4, torch, "intra-in-P 854x480 x 8 x 4 frames")
+    for r in k23 + [k13]:
         show(r, f"intra-in-P P symbols at 854x480 x 8 x 4 frames (MB kinds "
                 f"skip/inter/intra {kinds} per frame)")
     return rows
@@ -2761,10 +3217,13 @@ def phase_main(dev, torch, np, card):
     intra reconstruction (K5) 4 times (the decoder's frames), K6 once a
     GOP-start dispatch (its I frame; the RTC preset has no intra-in-P),
     the reference build (K11) once a P encode and once a decoded frame,
-    the stage-A winner (K12) once a P encode (one reference)."""
+    the stage-A winner (K12) once a P encode (one reference), K13 once an
+    entropy call (I and P slices), K14 once a dispatch (the decoder's
+    SSE)."""
     from tpuh264_torch.engine import CodecConfig
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
-    from tpuh264_torch.kernels import cavlc_cuda, deblock, iframe, pframe
+    from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
+                                       iframe, pframe, sse)
 
     cfg = CodecConfig(width=1920, height=1080, streams=4, qp=None,
                       bitrate=4_000_000, intra_in_p=False)
@@ -2772,11 +3231,15 @@ def phase_main(dev, torch, np, card):
                              device=dev)
     spy = SymbolSpy(pipe, torch)
     qps, times, k3, k4, k5, k6, k11, k12 = [], [], [], [], [], [], [], []
+    k13, k14 = [], []
+    k3_count = lambda: (cavlc_cuda.merge_tree.launches
+                        + cavlc_cuda.merge_slices.launches)
     k6_count = lambda: (iframe.encode_iframe_scan.launches
                         + pframe._intra_in_p_scan.launches)
     for i in range(3):
         qps.append(pipe.rc.current_qp())
-        n0 = cavlc_cuda.merge_tree.launches
+        n0 = k3_count()
+        p0, q0 = entropy_gpu.cavlc_prologue.launches, sse.sse.launches
         d0 = deblock.deblock_frame_rows.launches
         r0 = iframe._intra_recon_scan.launches
         e0 = k6_count()
@@ -2784,7 +3247,9 @@ def phase_main(dev, torch, np, card):
         t0 = time.perf_counter()
         pipe.pump_frame()
         times.append(time.perf_counter() - t0)
-        k3.append(cavlc_cuda.merge_tree.launches - n0)
+        k3.append(k3_count() - n0)
+        k13.append(entropy_gpu.cavlc_prologue.launches - p0)
+        k14.append(sse.sse.launches - q0)
         k4.append(deblock.deblock_frame_rows.launches - d0)
         k5.append(iframe._intra_recon_scan.launches - r0)
         k6.append(k6_count() - e0)
@@ -2795,6 +3260,10 @@ def phase_main(dev, torch, np, card):
     if k3 != expect:
         fail(f"1080p: K3 launches per dispatch {k3}, expected {expect} "
              f"(GOP starts {spy.starts})")
+    if k13 != [n // 2 for n in expect] or k14 != [1, 1, 1]:
+        fail(f"1080p: K13 launches per dispatch {k13}, K14 {k14}, expected "
+             f"{[n // 2 for n in expect]} (one an entropy call) and one a "
+             f"dispatch")
     if k4 != [8, 8, 8]:
         fail(f"1080p: deblock launches per dispatch {k4}, expected 8 each")
     if k5 != [4, 4, 4]:  # one a decoded frame, the IDR's included
@@ -2816,7 +3285,7 @@ def phase_main(dev, torch, np, card):
           f"frames), K5 (intra recon) {k5} (4 decoded frames), K6 (intra16 "
           f"encode) {k6} (the I frames), K11 (references) {k11} (P "
           f"encodes and decoded frames), K12 (stage-A winner) {k12} (P "
-          f"encodes); QP {qps}; "
+          f"encodes), K13 (CAVLC prologue) {k13}, K14 (SSE) {k14}; QP {qps}; "
           f"PSNR {pipe.last_psnr_y:.2f} dB; pump_frame s "
           f"{[round(t, 3) for t in times]} [{card}]")
 
@@ -2876,6 +3345,7 @@ class SymbolSpy:
 def phase_intra_in_p(dev, torch, np, card, launches):
     """Phase 6: the reference's operating point with CodecConfig defaults."""
     from tpuh264_torch.engine import CodecConfig
+    from tpuh264_torch.engine import devpipe
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
     from tpuh264_torch.kernels import pframe
 
@@ -2909,7 +3379,7 @@ def phase_intra_in_p(dev, torch, np, card, launches):
     from tpuh264_torch.engine.sources import device_source_gop
 
     y, u, v = device_source_gop(pipe.w16, pipe.h16, 1, 8, "rigid", 100, dev)
-    refs = tuple(p[:1] for p in pipe._dpb_enc)
+    refs = devpipe.dpb_refs(pipe._dpb_enc, pipe._head_enc, 1)
     qp = pipe.rc.current_qp()
     ms = {True: [], False: []}
     for iip in (False, True, True, False, False, True):
@@ -3023,7 +3493,7 @@ def phase_device_pipeline(dev, torch, np, card, launches):
         for _ in range(2):
             pipe.pump_frame()
 
-    launches.path("DevicePipeline 480p x 8", drive, needs=(1, 2, 4, 5))
+    launches.path("DevicePipeline 480p x 8", drive, needs=(1, 2, 4, 5, 12))
     if pipe.fallback_packs:
         fail("DevicePipeline: host repack")
     # the port's own decode of frame 0's bytes (native parse + I scan):
@@ -4179,7 +4649,7 @@ def phase_device_pack(dev, np, card, launches, torch):
         return a, b
 
     gpu, counts = launches.path("device_pack 480p x 8", lambda: pack(dev),
-                                needs=(1, 2))
+                                needs=(1, 2, 12))
     cpu = pack("cpu")
     if gpu != cpu:
         fail("phase 16(d): the card's assembled bytes differ from the CPU's")
@@ -4285,7 +4755,8 @@ def main() -> None:
           f"{launches.total[6]}, K8 (wavefront decode) {launches.total[7]}, "
           f"K9 (P encode) {launches.total[8]}, K10 (P decode) "
           f"{launches.total[9]}, K11 (references) {launches.total[10]}, "
-          f"K12 (stage-A winner) {launches.total[11]}")
+          f"K12 (stage-A winner) {launches.total[11]}, K13 (CAVLC "
+          f"prologue) {launches.total[12]}, K14 (SSE) {launches.total[13]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

@@ -25,7 +25,8 @@ while a slower one still reads the last; every thread of the warp must
 reach each exchange, as the kernels' warp-uniform code does.
 `__reduce_add_sync` (redux.sync) sums such an exchange, and
 `__reduce_min_sync` / `__reduce_max_sync` take its least / greatest;
-`atomicAdd` is an atomic add on the host.  __shared__
+`atomicAdd` (int and 64-bit) and `atomicOr` are atomics on the host,
+`__shfl_up_sync` an exchange like `__shfl_sync`, `__popc` the builtin.  __shared__
 arrays are statics, int2 / int4 / uint2 / uint4 plain structs,
 __grid_constant__ nothing; __vsadu4 is computed byte by byte, __clz by
 the compiler's builtin.  A harness includes the kernel's
@@ -192,6 +193,19 @@ inline int __reduce_max_sync(unsigned, int v) {
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
+}
+// thread x - d's value (its own below d), as every thread offers its own
+inline int __shfl_up_sync(unsigned, int v, unsigned d) {
+  const int l = threadIdx.x & 31;
+  const uint32_t* all = exchange((uint32_t)v);
+  return l >= (int)d ? (int)all[l - d] : v;
+}
 inline unsigned __ballot_sync(unsigned, int p) {
   const uint32_t* all = exchange(p != 0);
   unsigned b = 0;
@@ -264,6 +278,7 @@ inline void run_block_fibers(int n, int block, std::function<void()> body) {
   run_cluster_fibers(n, 1, block, 0, std::move(body));
 }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline unsigned __vsadu4(unsigned a, unsigned b) {
   unsigned s = 0;
   for (int i = 0; i < 32; i += 8) {
@@ -366,7 +381,8 @@ def run_entry(exe: str, ins, outs, ints, inout=()):
     entry's operands: input tensors `ins` (a strided view as the memory it
     spans; None as a null pointer), output
     tensors `outs` (contiguous, filled in place; those whose index is in
-    `inout` sent first as inputs too) and `ints`.  Returns `outs`."""
+    `inout` sent first as inputs too; None a null pointer) and `ints`.
+    Returns `outs`."""
     body = [struct.pack("<i", len(ints)),
             np.asarray(ints, np.int32).tobytes(),
             struct.pack("<i", len(ins) + len(outs))]
@@ -377,6 +393,9 @@ def run_entry(exe: str, ins, outs, ints, inout=()):
         raw = _span(t)
         body += [struct.pack("<qi", len(raw), 1), raw]
     for i, t in enumerate(outs):
+        if t is None:
+            body.append(struct.pack("<qi", 0, 3))
+            continue
         nb = t.numel() * t.element_size()
         if i in inout:
             body += [struct.pack("<qi", nb, 2), t.contiguous().numpy()
@@ -387,6 +406,8 @@ def run_entry(exe: str, ins, outs, ints, inout=()):
                          check=True).stdout
     off = 0
     for t in outs:
+        if t is None:
+            continue
         nb = t.numel() * t.element_size()
         t.copy_(torch.frombuffer(bytearray(raw[off:off + nb]),
                                  dtype=t.dtype).reshape(t.shape))

@@ -137,7 +137,7 @@ def test_check_decode_catches_a_differing_dpb():
                                       device="cpu")
     pipe.pump_frame()
     headline.check_decode(pipe)
-    pipe._dpb_dec[1][0, 1, 3, 5] += 1
+    pipe._dpb_dec[1][pipe._head_dec, 1, 3, 5] += 1  # the newest frame
     with pytest.raises(AssertionError, match="U: decoder DPB"):
         headline.check_decode(pipe)
 

@@ -118,13 +118,16 @@ def _symbols(seed, s=2, h=48, w=64, qp=28):
 
 def test_entropy_reaches_the_merge_only_through_merge_tree(monkeypatch):
     """One encode_bits_pframe (and one encode_bits_iframe) call goes
-    through cavlc_cuda.merge_tree twice: the MB level (128 words) and the
-    slice level (8192 words); the plain tree_merge is reached only from
-    inside it."""
+    through K3 twice: cavlc_cuda.merge_tree at the MB level (128 words)
+    and K3's slice entry, cavlc_cuda.merge_slices, at the slice level
+    (8192 words; the header, the MBs' strings, the P tail and the rbsp
+    trailer read where they lie); the plain tree_merge is reached only
+    from inside those two."""
     sym_i, sym_p = _symbols(3)
     s, r, c = sym_p.kind.shape
     sps = SPS.for_size(16 * c, 16 * r)
     real_merge, real_tree = cavlc_cuda.merge_tree, cavlc_cuda.tree_merge
+    real_slices = cavlc_cuda.merge_slices
     seen, inside = [], []
 
     def merge_spy(words, bits, n_out):
@@ -135,11 +138,23 @@ def test_entropy_reaches_the_merge_only_through_merge_tree(monkeypatch):
         finally:
             inside.pop()
 
+    def slices_spy(hdr_hw, hdr_len, mb_hw, mb_bits, tail, n_out, ovf):
+        # the strings of a slice: header, C MBs, (P) tail, trailer
+        k = 1 + mb_hw.shape[-2] + (tail is not None) + 1
+        seen.append(((*hdr_len.shape, k, mb_hw.shape[-1]), n_out))
+        inside.append(True)
+        try:
+            return real_slices(hdr_hw, hdr_len, mb_hw, mb_bits, tail, n_out,
+                               ovf)
+        finally:
+            inside.pop()
+
     def tree_spy(*a):
         assert inside, "tree_merge reached outside merge_tree"
         return real_tree(*a)
 
     monkeypatch.setattr(cavlc_cuda, "merge_tree", merge_spy)
+    monkeypatch.setattr(cavlc_cuda, "merge_slices", slices_spy)
     monkeypatch.setattr(cavlc_cuda, "tree_merge", tree_spy)
     hdr_p = tdp.slice_headers_device(sps, PPS(), 28, 1, False, s,
                                      slice_type=SLICE_P, deblock_idc=2,

@@ -49,6 +49,14 @@
 //    its string by binary search), so a lane reads its used words, not
 //    K x W.  The tile (32 KB at 8192 words) and the two sums fit 48 KB of
 //    shared memory for K <= 1024.
+// The slice entry (th264_merge_slices), the GOP pipeline's slice
+// level: merge_block's design over strings read where their producers
+// left them (the header, K3's MB-level output, K13's tail word) and the
+// rbsp trailer made in the kernel from the body's total, so no joined
+// [S, R, K, MB_W] buffer is built; it also sets the overflow flag (an MB
+// past its words, a body past 32 * n_out - 64 bits).  Static shared
+// memory (the tile and the two sums, 40 KB), so the CPU-thread tests
+// build it.  Plain version: `cavlc_cuda._merge_slices_plain`.
 // There is no per-thread array indexed at run time and no cap below
 // n_out = 8192.  What still holds it back: a warp still waits through
 // two rounds of latency for its 4 lanes, and a string's words past its
@@ -105,6 +113,139 @@ __device__ __forceinline__ void write_span(int32_t* o, const uint32_t* tile,
   for (int q = head + 4 * n_vec + tid; q < count; q += G)
     o[q] = (int32_t)tile[q];
 }
+
+// The slice entry (th264_merge_slices): lane i is slice i; its strings
+// are read where their producers left them, not from one joined buffer:
+// string 0 the slice header (hdr_w words), 1..C the slice's MBs (K3's MB
+// level: mb_w words each), then (P slices) the trailing skip_run (one
+// word) and last the rbsp trailing bits, a stop bit and zeros up to the
+// byte boundary, whose length comes from the body's total.  It writes the
+// slice's words and its byte count, and sets the overflow flag where an
+// MB string passes mb_w words or the body passes 32 * n_out - 64 bits.
+struct SliceArgs {
+  const int32_t *hdr, *hdr_len;    // [L, hdr_w], [L]
+  const int32_t *mb, *mb_bits;     // [L * C, mb_w], [L * C]
+  const int32_t *tail;             // [L, 2] (word, bits), or null
+  int32_t *out, *out_bytes, *ovf;  // [L, n_out], [L], [1]
+  int L, C, hdr_w, mb_w, n_out;
+};
+
+constexpr int kSlicePtrs = 8;
+constexpr int kSliceInts = 5;
+
+// The arguments from the entry's pointer and int arrays, in the order
+// kernels/cavlc_cuda.py `_k3_slice_operands` builds them.
+inline SliceArgs slice_args(void* const* p, const int* n) {
+  SliceArgs a;
+  auto in = [p](int i) { return static_cast<const int32_t*>(p[i]); };
+  auto out = [p](int i) { return static_cast<int32_t*>(p[i]); };
+  a.hdr = in(0), a.hdr_len = in(1), a.mb = in(2), a.mb_bits = in(3);
+  a.tail = in(4), a.out = out(5), a.out_bytes = out(6), a.ovf = out(7);
+  a.L = n[0], a.C = n[1], a.hdr_w = n[2], a.mb_w = n[3], a.n_out = n[4];
+  return a;
+}
+
+// Word t of lane i's string k (K strings, the last the trailer).
+__device__ __forceinline__ uint32_t slice_word(const SliceArgs& a, int64_t i,
+                                               int k, int t, int K) {
+  if (k == 0) return (uint32_t)a.hdr[i * a.hdr_w + t];
+  if (k <= a.C) return (uint32_t)a.mb[(i * a.C + k - 1) * a.mb_w + t];
+  if (k < K - 1) return (uint32_t)a.tail[2 * i];
+  return 0x80000000u;  // the rbsp stop bit
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+    merge_slices_kernel(const __grid_constant__ SliceArgs a) {
+  __shared__ __align__(16) uint32_t tile[kMaxOut];
+  __shared__ int start[kMaxK + 1], used[kMaxK + 1];
+  const int tid = threadIdx.x;
+  const int64_t i = blockIdx.x;
+  const int n_out = a.n_out, C = a.C;
+  const int K = C + (a.tail ? 3 : 2);
+
+  // 1. zero the tile and stage the body's bit lengths and word budgets
+  // (in start / used); an MB past its budget is an overflow
+  uint4* tile4 = reinterpret_cast<uint4*>(tile);
+  for (int q = tid; q < round4(n_out) / 4; q += kBlockThreads)
+    tile4[q] = make_uint4(0u, 0u, 0u, 0u);
+  for (int k = tid; k < K - 1; k += kBlockThreads) {
+    int lb, w;
+    if (k == 0) {
+      lb = a.hdr_len[i], w = a.hdr_w;
+    } else if (k <= C) {
+      lb = a.mb_bits[i * C + k - 1], w = a.mb_w;
+      if (lb > 32 * a.mb_w) *a.ovf = 1;
+    } else {
+      lb = a.tail[2 * i + 1], w = 1;
+    }
+    start[k] = lb;
+    used[k] = w;
+  }
+  __syncthreads();
+  if (tid < 32) {  // the two exclusive prefix sums, 32 strings at a time
+    int carry_bits = 0, carry_used = 0;
+    for (int k0 = 0; k0 < K - 1; k0 += 32) {
+      const int k = k0 + tid;
+      const int lb = k < K - 1 ? start[k] : 0;
+      const int nw = lb > 0 ? min((lb + 31) >> 5, used[k]) : 0;
+      int sb = lb, su = nw;  // inclusive sums over the warp
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int ub = __shfl_up_sync(kFull, sb, d);
+        const int uu = __shfl_up_sync(kFull, su, d);
+        if (tid >= d) {
+          sb += ub;
+          su += uu;
+        }
+      }
+      __syncwarp();  // every lane has read start / used before they change
+      if (k < K - 1) {
+        start[k] = carry_bits + sb - lb;
+        used[k] = carry_used + su - nw;
+      }
+      carry_bits += __shfl_sync(kFull, sb, 31);
+      carry_used += __shfl_sync(kFull, su, 31);
+    }
+    if (tid == 0) {  // the trailer: stop bit, zeros to the byte boundary
+      start[K - 1] = carry_bits;
+      used[K - 1] = carry_used;
+      start[K] = carry_bits + 1 + ((8 - ((carry_bits + 1) % 8)) % 8);
+      used[K] = carry_used + 1;
+      if (carry_bits > 32 * n_out - 64) *a.ovf = 1;
+    }
+  }
+  __syncthreads();
+
+  // 2. scatter the used words into the tile
+  const int n_used = used[K];
+  for (int j = tid; j < n_used; j += kBlockThreads) {
+    int lo = 0, hi = K - 1;  // the last string k with used[k] <= j
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (used[mid] <= j) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    const int t = j - used[lo];
+    put(tile, slice_word(a, i, lo, t, K), start[lo] + 32 * t, n_out);
+  }
+  __syncthreads();
+
+  // 3. write the row, then the byte count
+  write_span(a.out + i * n_out, tile, n_out, tid, kBlockThreads);
+  if (tid == 0) a.out_bytes[i] = start[K] / 8;
+}
+
+}  // namespace
+
+#ifdef __CUDACC__  // the kernels with dynamic shared memory and the launch
+                   // entries; tests/test_torch_cavlc_prologue.py runs the
+                   // slice kernel above on CPU threads, compiled by g++
+                   // against shims
+
+namespace {
 
 // K <= 32, n_out <= 256: a warp merges kWarpLanes consecutive lanes, whose
 // tiles lie back to back in shared memory as their rows do in out.
@@ -266,3 +407,18 @@ extern "C" int th264_merge_tree(const int32_t* words, const int32_t* bits,
   }
   return (int)cudaGetLastError();
 }
+
+// p: kSlicePtrs device pointers, n: kSliceInts ints, in `slice_args`'
+// order (host arrays); a block of kBlockThreads threads a slice.
+extern "C" int th264_merge_slices(void* const* p, const int* n,
+                                  void* stream) {
+  const SliceArgs a = slice_args(p, n);
+  if (a.L <= 0) return 0;
+  if (a.n_out < 1 || a.n_out > kMaxOut || a.C < 1 ||
+      a.C + 3 > kMaxK || a.hdr_w < 1 || a.mb_w < 1)
+    return (int)cudaErrorInvalidValue;
+  merge_slices_kernel<<<a.L, kBlockThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+#endif  // __CUDACC__

@@ -37,6 +37,19 @@
 // counting every bit), so the words are identical in every case.  The
 // VLC tables are __constant__ arrays generated from the port's
 // entropy/cavlc_tables.py at build time (cavlc_tables.cuh).
+//
+// The symbols entry (th264_pack_symbols), the GOP pipeline's: a
+// row is chunk k of MB m, its 16 levels read straight from the symbols'
+// luma_dc / luma_ac (z-order block, an intra MB's AC from slot 1) /
+// chroma_dc / chroma_ac arrays (16-byte loads for the luma blocks) and
+// its nC, maxc, code_residual and presence from K13's chunk int, the
+// MB's header slots on chunk 0; so no [.., 27, 16] level array is built.
+// An absent chunk writes bit length 0 and zero words (what `_merge_mbs`'
+// masks did), a present one past n_w words sets the overflow flag.
+// Phases 2-4 are the block entry's; its shared memory is static (n_w <=
+// 32), so the CPU-thread tests build it.  Plain version:
+// `cavlc_cuda._pack_symbols_plain`.  Bound: each chunk's int, the coded
+// chunks' levels and the MB headers in, n_w + 1 words a chunk out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,6 +160,174 @@ __device__ void pack_levels(BitOut& o, const int32_t* lv, uint32_t nz,
     }
   }
 }
+
+// z-order chunk j (0-15) -> the raster block by * 4 + bx (blk_scan)
+__device__ __forceinline__ int blk_scan(int j) {
+  const int by = ((j >> 3) << 1) | ((j >> 1) & 1);
+  const int bx = (((j >> 2) & 1) << 1) | (j & 1);
+  return by * 4 + bx;
+}
+
+// The symbols entry (th264_pack_symbols): a row is chunk k of MB m (row
+// 27 m + k), its levels read straight from the MB's symbol arrays, its
+// nC / maxc / code_residual / presence from K13's chunk int, the MB's
+// header slots (K13's) on chunk 0.  An absent chunk writes bit length 0
+// and zero words; a present one longer than n_w words sets the overflow
+// flag.
+struct SymArgs {
+  const int16_t *luma_dc, *luma_ac, *chroma_dc, *chroma_ac;  // [M, 16],
+                                              // [M, 256], [M, 8], [M, 120]
+  const int32_t *meta, *hdr_l, *hdr_v;        // [M, 27], [M, nh] x 2
+  int32_t *words, *bitlen, *ovf;              // [M, 27, n_w], [M, 27], [1]
+  int rows, nh, n_w;                          // rows = 27 M
+};
+
+constexpr int kSymPtrs = 10;
+constexpr int kSymInts = 3;
+constexpr int kMaxWs = 33;  // a row's shared words: n_w | 1, n_w <= 32
+
+// The arguments from the entry's pointer and int arrays, in the order
+// kernels/cavlc_cuda.py `_k2_symbol_operands` builds them.
+inline SymArgs sym_args(void* const* p, const int* n) {
+  SymArgs a;
+  auto lev = [p](int i) { return static_cast<const int16_t*>(p[i]); };
+  auto in = [p](int i) { return static_cast<const int32_t*>(p[i]); };
+  auto out = [p](int i) { return static_cast<int32_t*>(p[i]); };
+  a.luma_dc = lev(0), a.luma_ac = lev(1), a.chroma_dc = lev(2);
+  a.chroma_ac = lev(3), a.meta = in(4), a.hdr_l = in(5), a.hdr_v = in(6);
+  a.words = out(7), a.bitlen = out(8), a.ovf = out(9);
+  a.rows = n[0], a.nh = n[1], a.n_w = n[2];
+  return a;
+}
+
+// The 16 int16 levels of a 16-byte aligned pair of vectors, as ints.
+__device__ __forceinline__ void unpack16(const int16_t* src, int* h) {
+  const int4* v = reinterpret_cast<const int4*>(src);
+  const int4 a = v[0], b = v[1];
+  const int w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    h[2 * i] = (int)(int16_t)(w[i] & 0xffff);
+    h[2 * i + 1] = w[i] >> 16;
+  }
+}
+
+__global__ void __launch_bounds__(kRowsPB)
+    pack_symbols_kernel(const __grid_constant__ SymArgs a) {
+  __shared__ __align__(16) int32_t s_lv[kRowsPB * kLvW];
+  __shared__ uint32_t s_out[kRowsPB * kMaxWs];
+  __shared__ int32_t s_meta[kRowsPB], s_off[kRowsPB], s_work[kRowsPB];
+  __shared__ int32_t s_cnt[1];
+  const int n_w = a.n_w, ws = n_w | 1, nh = a.nh;
+  const int row0 = blockIdx.x * kRowsPB;
+  const int rows = min(kRowsPB, a.rows - row0);
+  const int t = threadIdx.x;
+  const int r = row0 + t, m = r / 27, k = r - 27 * m;
+
+  // 1. the chunk int and the row's levels
+  const int meta = t < rows ? a.meta[r] : 0;
+  const bool present = (meta >> 14) & 1;
+  const bool code = present && ((meta >> 13) & 1);
+  const int nc = (meta & 255) - 1, maxc = (meta >> 8) & 31;
+  int lv[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) lv[i] = 0;
+  if (code) {
+    if (k <= 16) {
+      int h[16];
+      unpack16(k == 0 ? a.luma_dc + (size_t)m * 16
+                      : a.luma_ac + (size_t)m * 256 + 16 * blk_scan(k - 1),
+               h);
+      const bool shift = (meta >> 15) & 1;  // intra AC: slots 1-15
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        lv[i] = shift ? (i < 15 ? h[i + 1] : 0) : h[i];
+    } else if (k <= 18) {
+      const int16_t* src = a.chroma_dc + (size_t)m * 8 + 4 * (k - 17);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lv[i] = src[i];
+    } else {
+      const int16_t* src = a.chroma_ac + (size_t)m * 120 + 15 * (k - 19);
+#pragma unroll
+      for (int i = 0; i < 15; ++i) lv[i] = src[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s_lv[t * kLvW + i] = lv[i];
+  s_meta[t] = meta;
+  for (int i = t; i < rows * ws; i += kRowsPB) s_out[i] = 0u;
+  if (t == 0) s_cnt[0] = 0;
+  __syncthreads();
+
+  // 2. the header slots (chunk 0), the nonzero mask, and the rows
+  // without a level chain
+  bool chain = false;
+  int off = 0;
+  if (t < rows && present) {
+    BitOut o{s_out + t * ws, n_w, 0};
+    if (k == 0)
+      for (int j = 0; j < nh; ++j)
+        o.put((uint32_t)a.hdr_v[(size_t)m * nh + j],
+              a.hdr_l[(size_t)m * nh + j]);
+    if (code) {
+      uint32_t nz = 0u;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) nz |= (lv[j] != 0 ? 1u : 0u) << j;
+      if (nz == 0u) {  // coeff_token of an empty block
+        const int tok = kCT[ct_ctx(nc) * 17 * 4];
+        o.put((uint32_t)(tok & 0xFFFF), tok >> 16);
+      }
+      chain = nz != 0u;
+    }
+    off = o.off;
+  }
+  s_off[t] = off;
+  const unsigned vote = __ballot_sync(0xFFFFFFFFu, chain);
+  const int lane = t & 31;
+  int base = 0;
+  if (lane == 0 && vote) base = atomicAdd(s_cnt, __popc(vote));
+  base = __shfl_sync(0xFFFFFFFFu, base, 0);
+  if (chain) s_work[base + __popc(vote & ((1u << lane) - 1u))] = t;
+  __syncthreads();
+
+  // 3. the level chains, one work-list row per thread
+  if (t < s_cnt[0]) {
+    const int row = s_work[t];
+    const int32_t* l = s_lv + row * kLvW;
+    uint32_t nz = 0u, big = 0u;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      nz |= (l[j] != 0 ? 1u : 0u) << j;
+      big |= (abs(l[j]) > 1 ? 1u : 0u) << j;
+    }
+    const int rm = s_meta[row];
+    BitOut o{s_out + row * ws, n_w, s_off[row]};
+    pack_levels(o, l, nz, big, (rm & 255) - 1, (rm >> 8) & 31);
+    s_off[row] = o.off;
+  }
+  __syncthreads();
+
+  // 4. coalesced write-back of the contiguous [rows, n_w] words
+  int32_t* wo = a.words + (size_t)row0 * n_w;
+  const unsigned inv = ((1u << 20) + n_w - 1) / n_w;  // i / n_w, i < 2^14
+  for (int i = t; i < rows * n_w; i += kRowsPB) {
+    const int q = (int)(((unsigned)i * inv) >> 20);
+    wo[i] = (int32_t)s_out[q * ws + i - q * n_w];
+  }
+  if (t < rows) {
+    a.bitlen[r] = s_off[t];
+    if (s_off[t] > 32 * n_w) *a.ovf = 1;  // K2 truncated the string
+  }
+}
+
+}  // namespace
+
+#ifdef __CUDACC__  // the block entry (dynamic shared memory) and both
+                   // launch entries; tests/test_torch_cavlc_prologue.py
+                   // runs the symbols kernel above on CPU threads,
+                   // compiled by g++ against shims
+
+namespace {
 
 __global__ void __launch_bounds__(kRowsPB) pack_blocks_kernel(
     const int32_t* __restrict__ levels, const int32_t* __restrict__ nc_a,
@@ -291,3 +472,18 @@ extern "C" int th264_pack_blocks(const int32_t* levels, const int32_t* nc,
       n_w);
   return (int)cudaGetLastError();
 }
+
+// p: kSymPtrs device pointers, n: kSymInts ints, in `sym_args`' order
+// (host arrays); a block a kRowsPB rows.
+extern "C" int th264_pack_symbols(void* const* p, const int* n,
+                                  void* stream) {
+  const SymArgs a = sym_args(p, n);
+  if (a.rows <= 0) return 0;
+  if (a.n_w < 1 || a.n_w > 32 || a.nh < 0 || a.nh > 8)
+    return (int)cudaErrorInvalidValue;
+  pack_symbols_kernel<<<(a.rows + kRowsPB - 1) / kRowsPB, kRowsPB, 0,
+                        (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+#endif  // __CUDACC__

@@ -28,7 +28,9 @@
 // Chroma: src[clamp(y - oyc, 0, Hcs - 1)][clamp(x - 8, 0, Wc - 1)], oyc
 // = 8 = HALO_C without `halo`, 0 with it.  The outputs are one [N, 4, S,
 // Hp, Wp] and one [N, 2, S, Hcp, Wcp] buffer, in the layout of the plain
-// version's lists (K1, K9 and K10 read them unchanged).
+// version's lists (K1, K9 and K10 read them unchanged).  Each reference's
+// three planes come by their own pointers, newest first: the GOP
+// pipeline passes the slots of its uint8 DPB rings as they lie.
 //
 // What bounds it on the H100: bytes.  It reads the references (int32 or
 // uint8) and writes four int32 luma planes and two int32 chroma planes a
@@ -61,25 +63,32 @@ constexpr int kThreads = 256;  // a block
 constexpr int kRW = kTX + 5;   // staged columns x0-2 .. x0+kTX+2
 constexpr int kRH = kTY + 5;   // staged rows y0-2 .. y0+kTY+2
 constexpr int kChroma = 8;     // chroma samples a thread
+constexpr int kMaxRefs = 16;   // H.264's most references
 
 struct RefArgs {
-  const void *y, *u, *v;  // [N, S, Hs, W], [N, S, Hcs, Wc] x 2
+  // reference n's planes [S, Hs, W], [S, Hcs, Wc] x 2, newest first (the
+  // DPB's slots by pointer; unused entries null)
+  const void *y[kMaxRefs], *u[kMaxRefs], *v[kMaxRefs];
   int32_t* planes;        // [N, 4, S, Hp, Wp]
   int32_t* chroma;        // [N, 2, S, Hcp, Wcp]
   int N, S, Hs, W, oy, Hcs, Wc, oyc, u8;
   int Hp, Wp, Hcp, Wcp, tiles_x, tiles_y, luma_blocks, blocks;
 };
 
-constexpr int kPtrs = 5;
+constexpr int kPtrs = 3 * kMaxRefs + 2;
 constexpr int kInts = 9;
 
 // The arguments from the entry's pointer and int arrays, in the order
 // kernels/pframe.py `_k11_operands` builds them.
 inline RefArgs ref_args(void* const* p, const int* n) {
   RefArgs a;
-  a.y = p[0], a.u = p[1], a.v = p[2];
-  a.planes = static_cast<int32_t*>(p[3]);
-  a.chroma = static_cast<int32_t*>(p[4]);
+  for (int k = 0; k < kMaxRefs; ++k) {
+    a.y[k] = p[k];
+    a.u[k] = p[kMaxRefs + k];
+    a.v[k] = p[2 * kMaxRefs + k];
+  }
+  a.planes = static_cast<int32_t*>(p[3 * kMaxRefs]);
+  a.chroma = static_cast<int32_t*>(p[3 * kMaxRefs + 1]);
   a.N = n[0], a.S = n[1], a.Hs = n[2], a.W = n[3], a.oy = n[4];
   a.Hcs = n[5], a.Wc = n[6], a.oyc = n[7], a.u8 = n[8];
   a.Hp = a.Hs + 2 * a.oy, a.Wp = a.W + 2 * kPE;
@@ -109,12 +118,14 @@ __device__ void luma_tile(const RefArgs& a, int pl, int t) {
   __shared__ int sr[kRH][kRW];  // R(y0 - 2 + i, x0 - 2 + j)
   __shared__ int sb[kRH][kTX];  // B1(y0 - 2 + i, x0 + j)
   const int y0 = (t / a.tiles_x) * kTY, x0 = (t % a.tiles_x) * kTX;
-  const size_t src = (size_t)pl * a.Hs * a.W;
+  const int n = pl / a.S, s = pl - n * a.S;
+  const void* ref = a.y[n];
+  const size_t src = (size_t)s * a.Hs * a.W;
   for (int i = threadIdx.x; i < kRH * kRW; i += kThreads) {
     const int ry = i / kRW, rx = i - ry * kRW;
     const int sy = min(max(y0 - 2 + ry - a.oy, 0), a.Hs - 1);
     const int sx = min(max(x0 - 2 + rx - kPE, 0), a.W - 1);
-    sr[ry][rx] = src_at(a.y, a.u8, src + (size_t)sy * a.W + sx);
+    sr[ry][rx] = src_at(ref, a.u8, src + (size_t)sy * a.W + sx);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kRH * kTX; i += kThreads) {
@@ -125,7 +136,6 @@ __device__ void luma_tile(const RefArgs& a, int pl, int t) {
   __syncthreads();
   const int lx = threadIdx.x % kTX, x = x0 + lx;
   if (x >= a.Wp) return;
-  const int n = pl / a.S, s = pl - n * a.S;
   const size_t plane = (size_t)a.Hp * a.Wp, step = (size_t)a.S * plane;
   int32_t* o = a.planes + (size_t)n * 4 * step + s * plane + x;
   for (int ly = threadIdx.x / kTX; ly < kTY && y0 + ly < a.Hp;
@@ -162,9 +172,8 @@ __device__ void chroma_part(const RefArgs& a, int cb) {
     const int s = (int)(pl % a.S), nc = (int)(pl / a.S);
     const int sy = min(max(y - a.oyc, 0), a.Hcs - 1);
     const int sx = min(max(x - kCP, 0), a.Wc - 1);
-    const size_t i = ((size_t)(nc >> 1) * a.S + s) * a.Hcs * a.Wc +
-                     (size_t)sy * a.Wc + sx;
-    a.chroma[e] = src_at(nc & 1 ? a.v : a.u, a.u8, i);
+    const size_t i = (size_t)s * a.Hcs * a.Wc + (size_t)sy * a.Wc + sx;
+    a.chroma[e] = src_at((nc & 1 ? a.v : a.u)[nc >> 1], a.u8, i);
   }
 }
 

@@ -57,7 +57,10 @@
 // Where trouble is likely: negative shifts and masks (mv >> 2, & 3, >> 3,
 // & 7) stay int arithmetic, as torch's; the half-pel planes' loads are
 // scalar (their rows are not 16-byte aligned); the levels are 16-byte
-// aligned (the wrapper clones a level array that is not).
+// aligned (the wrapper clones a level array that is not).  Each symbol
+// field is read with its own MB stride: the GOP decode's record
+// views (MB fields 9 ints apart, level slots 400 int16 apart) go as they
+// lie, with no operand copy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,10 +81,13 @@ struct DecArgs {
   int32_t *ry, *ru, *rv;                       // [S,R,C,16,16], [.,8,8] x 2
   int32_t *mvx, *mvy;                          // [S, R, C]
   int S, R, C, N, Hp, Wp, Hcp, Wcp, pe, cp, qp, qpc;
+  // each field's MB stride in elements (the record views' 9 and 400, or
+  // a contiguous field's own size)
+  int sk, smx, smy, sri, scl, scc, sla, scd, sca;
 };
 
 constexpr int kPtrs = 9 + 3 * kMaxRefs + 5;  // 62
-constexpr int kInts = 12;
+constexpr int kInts = 21;
 
 // The arguments from the entry's pointer and int arrays, in the order
 // kernels/pframe.py `_k10_launch` builds them.
@@ -104,6 +110,8 @@ inline DecArgs dec_args(void* const* p, const int* n) {
   a.S = n[0], a.R = n[1], a.C = n[2], a.N = n[3], a.Hp = n[4], a.Wp = n[5];
   a.Hcp = n[6], a.Wcp = n[7], a.pe = n[8], a.cp = n[9], a.qp = n[10];
   a.qpc = n[11];
+  a.sk = n[12], a.smx = n[13], a.smy = n[14], a.sri = n[15], a.scl = n[16];
+  a.scc = n[17], a.sla = n[18], a.scd = n[19], a.sca = n[20];
   return a;
 }
 
@@ -122,12 +130,12 @@ __device__ __forceinline__ int2 mv_lookback(const DecArgs& a, size_t row0,
   int vx = 0, vy = 0;
   for (int end = c;; end -= 32) {
     const int cc = end - 31 + lane;
-    const bool inter = cc >= 0 && a.kind[row0 + cc] == 1;
+    const bool inter = cc >= 0 && a.kind[(row0 + cc) * a.sk] == 1;
     const unsigned resets = __ballot_sync(kFull, !inter);
     const int last = resets ? 31 - __clz((int)resets) : -1;  // the last reset
     const bool run = lane > last;  // after it: the run that reaches c
-    vx += (int)__reduce_add_sync(kFull, run ? (unsigned)a.mvdx[row0 + cc] : 0u);
-    vy += (int)__reduce_add_sync(kFull, run ? (unsigned)a.mvdy[row0 + cc] : 0u);
+    vx += (int)__reduce_add_sync(kFull, run ? (unsigned)a.mvdx[(row0 + cc) * a.smx] : 0u);
+    vy += (int)__reduce_add_sync(kFull, run ? (unsigned)a.mvdy[(row0 + cc) * a.smy] : 0u);
     if (resets) return make_int2(vx, vy);
   }
 }
@@ -179,14 +187,15 @@ __global__ void __launch_bounds__(32 * kWarps)
   const int mvx = mv.x, mvy = mv.y;
   if (lane == 0) a.mvx[m] = mvx, a.mvy[m] = mvy;
 
-  const int kind = a.kind[m], ri = a.refidx[m];
+  const int kind = a.kind[m * a.sk], ri = a.refidx[m * a.sri];
   const int ref = ri >= 1 && ri < a.N ? ri : 0;
   const bool skip = kind == 0;
-  const int cbp_l = skip ? 0 : a.cbp_l[m], cbp_c = skip ? 0 : a.cbp_c[m];
+  const int cbp_l = skip ? 0 : a.cbp_l[m * a.scl];
+  const int cbp_c = skip ? 0 : a.cbp_c[m * a.scc];
   // the chroma AC levels into shared memory, 16 bytes a lane
   if (lane < 15)
     reinterpret_cast<int4*>(w.cac)[lane] =
-        reinterpret_cast<const int4*>(a.chroma_ac + m * 120)[lane];
+        reinterpret_cast<const int4*>(a.chroma_ac + m * a.sca)[lane];
   {
     const int row = lane >> 1, col = (lane & 1) * 8;
     const int y0 = 16 * r + (mvy >> 2) + a.pe, x0 = 16 * c + (mvx >> 2) + a.pe;
@@ -214,7 +223,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   int d[16];
   if (luma) {
     const bool coded = (cbp_l >> (((by >> 1) << 1) | (bx >> 1))) & 1;
-    const int4* lp = reinterpret_cast<const int4*>(a.luma_ac + m * 256 + 16 * lane);
+    const int4* lp = reinterpret_cast<const int4*>(a.luma_ac + m * a.sla + 16 * lane);
     const int4 h0 = lp[0], h1 = lp[1];
     const int words[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
 #pragma unroll
@@ -224,7 +233,7 @@ __global__ void __launch_bounds__(32 * kWarps)
       d[i] = coded ? dq_ac(Q, lv, pos_class(i)) : 0;
     }
   } else {
-    const int16_t* dc = a.chroma_dc + m * 8 + 4 * cpl;
+    const int16_t* dc = a.chroma_dc + m * a.scd + 4 * cpl;
     const int lvl[4] = {dc[0], dc[1], dc[2], dc[3]};
     d[0] = cbp_c >= 1 ? dq_cdc(Q, had2(lvl, cb)) : 0;
     const int16_t* lv = w.cac + 60 * cpl + 15 * cb;

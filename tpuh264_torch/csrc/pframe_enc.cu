@@ -45,7 +45,14 @@
 // int16 levels [S,R,C,16,16], [S,R,C,2,4], [S,R,C,2,4,15] (the MBSymbolsP
 // layouts), and the reconstruction: int32 MBs [S,R,C,16,16], [S,R,C,8,8]
 // x 2 with intra-in-P (K6's D4 takes them as rec_inter), else the uint8
-// planes [S,H,W], [S,H/2,W/2] x 2.
+// planes [S,H,W], [S,H/2,W/2] x 2.  Given the pointers (the GOP
+// pipeline's route, `out` views of a dispatch's [P * S, R, C] symbol
+// buffers), lane 0 also writes mode, cmode and t8 0 and lanes 0-1 the
+// zero luma_dc, and a second kernel of the same entry, `pframe_mvd_kernel`
+// (a thread an MB), the mvds against the left MB's vector, zero at column
+// 0: the left vector is another warp's, known once every MB's search is
+// done.  No MB of this route is intra (intra-in-P overlays its symbols
+// after K9, in PyTorch).
 //
 // What bounds it on the H100: bytes.  Every MB searches every reference,
 // and its windows of the four half-pel planes tile each plane, so at
@@ -139,11 +146,15 @@ struct EncArgs {
   int32_t *mvx, *mvy, *refsel, *sad, *kind, *refidx, *cbp_l, *cbp_c;
   int16_t *luma_ac, *chroma_dc, *chroma_ac;
   void *ry, *ru, *rv;                  // int32 MBs (mb_out) or uint8 planes
+  // the rest of MBSymbolsP, written where non-null: the mvds against the
+  // left MB's vector (the second pass), and mode, cmode, t8 and luma_dc 0
+  int32_t *mvdx, *mvdy, *mode, *cmode, *t8;
+  int16_t *luma_dc;
   int S, R, C, N, Hp, Wp, Hcp, Wcp, pe, cp, qp, qpc, lam, ref_base, mb_out;
   int ref_cost[kMaxRefs];              // lam * ref_idx_bits of reference n
 };
 
-constexpr int kPtrs = 3 + 4 + 3 * kMaxRefs + 8 + 3 + 3;  // 69
+constexpr int kPtrs = 3 + 4 + 3 * kMaxRefs + 8 + 3 + 3 + 6;  // 75
 constexpr int kInts = 15 + kMaxRefs;                      // 31
 
 // The arguments from the entry's pointer and int arrays, in the order
@@ -166,13 +177,15 @@ inline EncArgs enc_args(void* const* p, const int* n) {
   a.cbp_l = out(o + 6), a.cbp_c = out(o + 7);
   a.luma_ac = lev(o + 8), a.chroma_dc = lev(o + 9), a.chroma_ac = lev(o + 10);
   a.ry = p[o + 11], a.ru = p[o + 12], a.rv = p[o + 13];
+  a.mvdx = out(o + 14), a.mvdy = out(o + 15), a.mode = out(o + 16);
+  a.cmode = out(o + 17), a.t8 = out(o + 18), a.luma_dc = lev(o + 19);
   a.S = n[0], a.R = n[1], a.C = n[2], a.N = n[3], a.Hp = n[4], a.Wp = n[5];
   a.Hcp = n[6], a.Wcp = n[7], a.pe = n[8], a.cp = n[9], a.qp = n[10];
   a.qpc = n[11], a.lam = n[12], a.ref_base = n[13], a.mb_out = n[14];
   for (int k = 0; k < kMaxRefs; ++k) a.ref_cost[k] = n[15 + k];
   return a;
 }
-static_assert(7 + 3 * kMaxRefs + 14 == kPtrs, "pointer count");
+static_assert(7 + 3 * kMaxRefs + 20 == kPtrs, "pointer count");
 
 // A warp's shared memory (4,288 bytes), every sample a byte: two
 // references' four windows, the best so far and the one searched (word i
@@ -470,7 +483,25 @@ __global__ void __launch_bounds__(32 * kWarps)
     a.sad[m] = best_sad, a.kind[m] = skip ? 0 : 1;
     a.refidx[m] = skip ? 0 : best_ref + a.ref_base;
     a.cbp_l[m] = cbp_l, a.cbp_c[m] = cbp_c;
+    if (a.mode) a.mode[m] = 0, a.cmode[m] = 0, a.t8[m] = 0;
   }
+  if (a.luma_dc && lane < 2)
+    reinterpret_cast<int4*>(a.luma_dc + (size_t)m * 16)[lane] =
+        make_int4(0, 0, 0, 0);
+}
+
+constexpr int kMvdThreads = 256;
+
+// The symbols' second pass: each MB's mvd against its left MB's vector
+// (zero left of column 0), a thread an MB, once every vector is known.
+// No MB of this route is intra, so none zeroes its mvd.
+__global__ void __launch_bounds__(kMvdThreads)
+    pframe_mvd_kernel(const __grid_constant__ EncArgs a) {
+  const int m = blockIdx.x * kMvdThreads + threadIdx.x;
+  if (m >= a.S * a.R * a.C) return;
+  const bool col0 = m % a.C == 0;
+  a.mvdx[m] = a.mvx[m] - (col0 ? 0 : a.mvx[m - 1]);
+  a.mvdy[m] = a.mvy[m] - (col0 ? 0 : a.mvy[m - 1]);
 }
 
 }  // namespace
@@ -487,6 +518,9 @@ extern "C" int th264_pframe_encode(void* const* p, const int* n,
   const int mbs = a.S * a.R * a.C;
   pframe_encode_kernel<<<(mbs + kWarps - 1) / kWarps, 32 * kWarps, 0,
                          (cudaStream_t)stream>>>(a);
+  if (a.mvdx)
+    pframe_mvd_kernel<<<(mbs + kMvdThreads - 1) / kMvdThreads, kMvdThreads,
+                        0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -21,8 +21,12 @@ intra-in-P).  Per dispatch:
   device  record scatter -> P decode (intra records for the I frame) ->
           deblock on an independent decoder DPB (S * N streams) -> SSE
 
-Both DPBs ([N, S, H, W] newest first) stay on the device across
-dispatches.  Eager PyTorch compiles nothing per shape, so the JAX
+Both DPBs stay on the device across dispatches, each plane one uint8
+[N, S, H, W] tensor used as a ring (`dpb_refs`, `dpb_push`, `dpb_fill`):
+the newest frame in slot `_head_enc` / `_head_dec`, older ones after it;
+with one reference (the RTC preset) the ring is one slot.  K11 reads the
+slots by pointer, newest first.  The decoder's SSE (K14, exact int64)
+reads the source frames the encode of the same dispatch built.  Eager PyTorch compiles nothing per shape, so the JAX
 version's sticky payload budgets, record-cap buckets, `freeze_shapes`
 and DevicePipeline's fixed-size wire bucket (`BUCKET_W`, with its
 full-slab fallback) are gone: every payload is compacted to its exact
@@ -51,6 +55,7 @@ from ..entropy import native as entropy_native
 from ..entropy.device_pack import slice_headers_device
 from ..kernels import deblock as kdeblock
 from ..kernels import entropy_gpu, iframe, pframe
+from ..kernels import sse as ksse
 from .config import CodecConfig
 from .metrics import StatsWindow
 from .ratecontrol import RateController
@@ -145,6 +150,38 @@ def record_symbols(m: torch.Tensor, cf: torch.Tensor) -> pframe.MBSymbolsP:
         chroma_dc=cf[..., 272:280].reshape(*lead, 2, 4),
         chroma_ac=cf[..., 280:400].reshape(*lead, 2, 4, 15),
         refidx=m[..., 7], t8=torch.zeros_like(m[..., 0]))
+
+
+def dpb_refs(dpb, head: int, n: int):
+    """The n newest references of a DPB ring (three uint8 planes [N, S,
+    H, W], the newest in slot `head`, older ones after it): per plane the
+    list of slot views [S, H, W], newest first."""
+    slots = [(head + i) % dpb[0].shape[0] for i in range(n)]
+    return tuple([p[i] for i in slots] for p in dpb)
+
+
+def dpb_push(dpb, head: int, planes) -> int:
+    """Write a frame's planes over the ring's oldest slot, which becomes
+    the newest: one uint8 copy a plane.  Returns the new head."""
+    head = (head - 1) % dpb[0].shape[0]
+    for p, x in zip(dpb, planes):
+        p[head].copy_(x)
+    return head
+
+
+def dpb_fill(dpb, planes) -> int:
+    """An IDR: the frame's planes into every slot (the never-selected
+    extra references stay well-formed).  Returns the head, 0."""
+    for p, x in zip(dpb, planes):
+        p.copy_(x[None].expand_as(p))
+    return 0
+
+
+def _snapshot(slot: torch.Tensor) -> np.ndarray:
+    """A DPB slot as an int32 numpy copy (the planes' values, as the JAX
+    pipeline returns them), which later pushes into the ring leave as it
+    is."""
+    return slot.cpu().numpy().astype(np.int32)
 
 
 def _psnr(sse: float, npix: int) -> float:
@@ -403,10 +440,11 @@ class GOPDevicePipeline:
         self.qp_mismatches = 0   # slice-header QP != pipeline QP (stats)
         self._dpb_enc = self._zero_dpb(config.streams)
         self._dpb_dec = self._zero_dpb(self.s_dec)
+        self._head_enc = self._head_dec = 0  # the rings' newest slots
         self._host_frames = None  # pending host YUV (source_kind "host")
         self._staging: Dict[int, torch.Tensor] = {}  # pinned, per plane
         self.last_copy_ms = 0.0
-        self._sse_dev = None  # decode-side SSE [k, S*fanout] (device)
+        self._sse_dev = None  # decode-side SSE [k, S*fanout] int64
         self.rc = RateController(config)
         self._cuda = self.device.type == "cuda"
         self._side = torch.cuda.Stream(self.device) if self._cuda else None
@@ -415,8 +453,8 @@ class GOPDevicePipeline:
                          "enc_dispatch": 0.0, "copy": 0.0, "n": 0}
 
     def _zero_dpb(self, s: int):
-        z = lambda h, w: torch.zeros((self.n_refs, s, h, w), dtype=I32,
-                                     device=self.device)
+        z = lambda h, w: torch.zeros((self.n_refs, s, h, w),
+                                     dtype=torch.uint8, device=self.device)
         return (z(self.h16, self.w16), z(self.h16 // 2, self.w16 // 2),
                 z(self.h16 // 2, self.w16 // 2))
 
@@ -446,55 +484,50 @@ class GOPDevicePipeline:
     def _encode(self, start: bool, t: int, qp: int, hdr_i, hdr_p,
                 frames=None):
         """The dispatch's device work on `frames` (the uploaded host
-        frames, or None for the device source at time t): returns
-        (sym_i, syms_p, hw_i, hw_p, meta, new encoder DPB).  meta =
-        [entropy overflow | I slice bytes (S*R, GOP start only) | P slice
-        bytes (P*S*R)] int32."""
+        frames, or None for the device source at time t), advancing the
+        encoder DPB ring: returns (sym_i, syms_p, hw_i, hw_p, meta, the
+        source luma y [k, S, H, W] uint8).  meta = [entropy overflow | I
+        slice bytes (S*R, GOP start only) | P slice bytes (P*S*R)] int32.
+        The P frames' symbols land in one dispatch-wide MBSymbolsP [P*S,
+        R, C] (K9 writes them there on the card), which the slice stage
+        reads in place."""
         k = self.FRAMES_PER_DISPATCH
+        s = self.config.streams
         if frames is None:
-            frames = device_source_gop(self.w16, self.h16, k,
-                                       self.config.streams, self.source_kind,
-                                       t, self.device)
+            frames = device_source_gop(self.w16, self.h16, k, s,
+                                       self.source_kind, t, self.device)
         y, u, v = frames
-        n_refs = self.n_refs
-        cur = self._dpb_enc
+        dpb = self._dpb_enc
         sym_i = hw_i = bytes_i = None
-        ovf = torch.zeros((), dtype=torch.bool, device=self.device)
+        ovf = torch.zeros(1, dtype=I32, device=self.device)
         if start:
             sym_i, recon = iframe.encode_iframe_rows(y[0], u[0], v[0], qp)
-            db = tuple(x.to(I32) for x in kdeblock.deblock_i(recon, qp))
-            # IDR resets the DPB; unfilled slots mirror slot 0 so the
-            # (never-selected) extra references stay well-formed
-            cur = tuple(p[None].expand(n_refs, *p.shape).contiguous()
-                        for p in db)
-            hw_i, bytes_i, ovf_i = entropy_gpu.encode_bits_iframe(
-                sym_i, qp, *hdr_i)
-            ovf = ovf | ovf_i
+            # IDR resets the DPB
+            self._head_enc = dpb_fill(dpb, kdeblock.deblock_i(recon, qp))
+            hw_i, bytes_i, _ = entropy_gpu.encode_bits_iframe(
+                sym_i, qp, *hdr_i, ovf=ovf)
         # the dispatch right after an IDR caps ref_idx at the refs that
         # exist in a conformant decoder's DPB (1 after the IDR)
-        nra = 1 if start else n_refs
-        syms = []
-        for f in range(1 if start else 0, k):
+        nra = 1 if start else self.n_refs
+        f0 = 1 if start else 0
+        syms_p = pframe.empty_symbols((s * (k - f0),), self.h16 // 16,
+                                      self.w16 // 16, self.device)
+        for f in range(f0, k):
+            out = pframe.MBSymbolsP(*(x[(f - f0) * s:(f - f0 + 1) * s]
+                                      for x in syms_p))
             sym, recon, motion = pframe.encode_pframe_rows_multi(
-                y[f], u[f], v[f], cur[0][:nra], cur[1][:nra], cur[2][:nra],
-                qp, intra_in_p=self.config.intra_in_p)
-            db = tuple(x.to(I32)
-                       for x in kdeblock.deblock_p(recon, sym, motion, qp))
-            cur = tuple(torch.cat([db[i][None], cur[i][:-1]], 0)
-                        for i in range(3))
-            syms.append(sym)
-        # [P, S, ...] -> [P*S, ...] for the entropy stage
-        syms_p = pframe.MBSymbolsP(*[
-            torch.cat([getattr(sm, name) for sm in syms], 0)
-            for name in pframe.MBSymbolsP._fields])
-        hw_p, bytes_p, ovf_p = entropy_gpu.encode_bits_pframe(
-            syms_p, qp, *hdr_p, nra=nra)
-        ovf = ovf | ovf_p
-        parts = [ovf.to(I32).reshape(1)]
+                y[f], u[f], v[f], *dpb_refs(dpb, self._head_enc, nra), qp,
+                intra_in_p=self.config.intra_in_p, out=out)
+            self._head_enc = dpb_push(
+                dpb, self._head_enc,
+                kdeblock.deblock_p(recon, sym, motion, qp))
+        hw_p, bytes_p, _ = entropy_gpu.encode_bits_pframe(
+            syms_p, qp, *hdr_p, nra=nra, ovf=ovf)
+        parts = [ovf]
         if start:
             parts.append(bytes_i.reshape(-1))
         parts.append(bytes_p.reshape(-1))
-        return sym_i, syms_p, hw_i, hw_p, torch.cat(parts), cur
+        return sym_i, syms_p, hw_i, hw_p, torch.cat(parts), y
 
     # -- decode-from-bits -------------------------------------------------
 
@@ -509,11 +542,15 @@ class GOPDevicePipeline:
         return ((kk[:, None] * self.s_dec + ss[:, None] * fan + fi) * unit
                 + pp[:, None]).reshape(-1)
 
-    def _decode_dispatch(self, frames_k, t: int, qp: int,
-                         start: bool = False) -> None:
+    def _decode_dispatch(self, frames_k, qp: int, start: bool = False,
+                         src=None) -> None:
         """Entropy-decode the dispatch's annex-B bytes (native threaded
         CAVLC front end) and reconstruct on the device from the parsed
-        records, advancing the decoder DPB chain."""
+        records, advancing the decoder DPB ring; then the SSE of each
+        decoded luma plane against `src` (the source luma [k, S, H, W]
+        uint8 the dispatch's encode read; decode stream d against encoded
+        stream d // fanout), or against zeros for host-fed frames, whose
+        quality the caller measures."""
         t0 = time.perf_counter()
         flat = [b for fr in frames_k for b in fr]
         r, c = self.h16 // 16, self.w16 // 16
@@ -539,39 +576,24 @@ class GOPDevicePipeline:
         mbf, coef = scatter_records(mb_pos, mb_fields, cpos, cval, (k, s),
                                     r, c, self._upload, dev)
 
-        if self.source_kind == "host":
-            # host-fed frames: quality is measured host-side by the
-            # caller; the SSE is taken against zeros, as in tpuh264
-            y = torch.zeros((k, s, self.h16, self.w16), dtype=torch.uint8,
-                            device=dev)
-        else:
-            y = device_source_gop(self.w16, self.h16, k, self.config.streams,
-                                  self.source_kind, t, dev)[0]
-            if fan > 1:
-                # each decode stream's source is its encoded stream's
-                y = y.repeat_interleave(fan, dim=1)
-        cur = self._dpb_dec
-        sse = []
+        dpb, n_refs = self._dpb_dec, self.n_refs
+        dec_y = []
         for f in range(k):
             sym = record_symbols(mbf[f], coef[f])
             recon, motion = pframe.decode_pframe_rows_multi(
-                sym, cur[0], cur[1], cur[2], qp)
-            db = tuple(x.to(I32)
-                       for x in kdeblock.deblock_p(recon, sym, motion, qp))
-            # DPB update mirrors the encoder: an IDR resets the stack to
-            # copies of itself, other frames push front (newest first)
+                sym, *dpb_refs(dpb, self._head_dec, n_refs), qp)
+            db = kdeblock.deblock_p(recon, sym, motion, qp)
+            # the DPB mirrors the encoder's: an IDR fills the ring, other
+            # frames take the oldest slot
             if f == 0 and start:
-                cur = tuple(p[None].expand_as(cur[i]).contiguous()
-                            for i, p in enumerate(db))
+                self._head_dec = dpb_fill(dpb, db)
             else:
-                cur = tuple(torch.cat([db[i][None], cur[i][:-1]], 0)
-                            for i in range(3))
-            d = (db[0] - y[f].to(I32)).to(torch.float32).reshape(s, -1)
-            sse.append((d * d).sum(-1))
+                self._head_dec = dpb_push(dpb, self._head_dec, db)
+            dec_y.append(db[0])
         self.stage_ms["parse"] += (t1 - t0) * 1e3
         self.stage_ms["dec_dispatch"] += (time.perf_counter() - t1) * 1e3
-        self._dpb_dec = cur
-        self._sse_dev = torch.stack(sse)
+        self._sse_dev = ksse.sse(
+            dec_y, None if self.source_kind == "host" else src, fan)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
@@ -626,7 +648,7 @@ class GOPDevicePipeline:
         hdr_i, hdr_p = self._headers(pos, qp)
         frames = (self._take_host_frames() if self.source_kind == "host"
                   else None)
-        sym_i, syms_p, hw_i, hw_p, meta, self._dpb_enc = self._encode(
+        sym_i, syms_p, hw_i, hw_p, meta, src = self._encode(
             start, t, qp, hdr_i, hdr_p, frames)
         done = None
         if self._cuda:
@@ -635,7 +657,8 @@ class GOPDevicePipeline:
         self.dispatch_index += 1
         self._gop_pos += 1
         self.stats.on_input(self.FRAMES_PER_DISPATCH)
-        return start, pos, t, sym_i, syms_p, hw_i, hw_p, meta, qp, done
+        return (start, pos, t, sym_i, syms_p, hw_i, hw_p, meta, qp, done,
+                src)
 
     def force_idr(self) -> None:
         """Restart the GOP at the next dispatch (ForceIntraFrame analog)."""
@@ -652,7 +675,7 @@ class GOPDevicePipeline:
         """Wait for the dispatch's encode, then download its metadata and
         its exact-size compacted payload.  Returns (meta, payload_i,
         payload_p) as numpy; payloads are None after an entropy overflow."""
-        start, _, _, _, _, hw_i, hw_p, meta_dev, _, done = handles
+        start, _, _, _, _, hw_i, hw_p, meta_dev, _, done, _ = handles
         t0 = time.perf_counter()
         if done is not None:
             done.synchronize()  # this dispatch's encode (not later work)
@@ -680,7 +703,7 @@ class GOPDevicePipeline:
         to self.frame_streams ([(stream0, ..., streamS-1), ...]) and
         returns that k-frame list.  Device-entropy overflow (MB / slice
         bit caps) repacks on the host from the symbol tensors."""
-        start, pos, _, sym_i, syms_p, _, _, _, qp, _ = handles
+        start, pos, _, sym_i, syms_p, _, _, _, qp, _, _ = handles
         meta, pay_i, pay_p = self._download(handles)
         k = self.FRAMES_PER_DISPATCH
         s = self.config.streams
@@ -815,8 +838,8 @@ class GOPDevicePipeline:
         t0 = time.perf_counter()
         handles = self._dispatch()
         frames_k = self._consume(handles)
-        self._decode_dispatch(frames_k, handles[2], handles[8],
-                              start=handles[0])
+        self._decode_dispatch(frames_k, handles[8], start=handles[0],
+                              src=handles[10])
         sse = self._sse_dev.cpu().numpy()
         dt = (time.perf_counter() - t0) * 1e3
         self.last_psnr_y = _psnr(float(sse[-1, 0]), self.w16 * self.h16)
@@ -826,13 +849,14 @@ class GOPDevicePipeline:
 
     def decoded_planes(self):
         """The decoder chain's current reconstruction as numpy (post-
-        deblock planes of the last decoded frame, all S*fanout streams)."""
-        return tuple(p[0].cpu().numpy() for p in self._dpb_dec)
+        deblock planes of the last decoded frame, all S*fanout streams,
+        int32; a copy)."""
+        return tuple(_snapshot(p[self._head_dec]) for p in self._dpb_dec)
 
     def encoder_planes(self):
         """The encoder DPB head as numpy, S streams (decoded_planes of
         decode stream ss*fanout+fi must equal its stream ss)."""
-        return tuple(p[0].cpu().numpy() for p in self._dpb_enc)
+        return tuple(_snapshot(p[self._head_enc]) for p in self._dpb_enc)
 
     def stream_bytes(self, stream_index: int = 0) -> bytes:
         """Concatenated annex-B bitstream of one stream so far."""
@@ -865,15 +889,15 @@ class GOPDevicePipeline:
                 tw = time.perf_counter()
                 frames_k = self._consume(pending)
                 self.stage_ms["wire"] += (time.perf_counter() - tw) * 1e3
-                self._decode_dispatch(frames_k, pending[2], pending[8],
-                                      start=pending[0])
+                self._decode_dispatch(frames_k, pending[8],
+                                      start=pending[0], src=pending[10])
                 n += k
                 self.stage_ms["n"] += 1
             pending = handles
         if pending is not None:
             frames_k = self._consume(pending)
-            self._decode_dispatch(frames_k, pending[2], pending[8],
-                                  start=pending[0])
+            self._decode_dispatch(frames_k, pending[8], start=pending[0],
+                                  src=pending[10])
             n += k
         if self._sse_dev is not None:
             self.last_psnr_y = _psnr(float(self._sse_dev[-1, 0]),

@@ -55,6 +55,8 @@ tables.register("tz", lambda: tbl.total_zeros_dense().astype(np.int64)
 tables.register("tzc", lambda: _tzc_dense().reshape(-1))   # [3*4]
 tables.register("rb", lambda: tbl.run_before_dense().astype(np.int64)
                 .reshape(-1))                               # [7*15]
+tables.register("blk_scan", lambda: np.asarray(
+    [0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15], np.int64))
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -367,3 +369,187 @@ def merge_tree(words: torch.Tensor, bits: torch.Tensor, n_out: int
 
 
 merge_tree.launches = 0  # launches of the K3 kernel
+
+
+# ---------------------------------------------------------------------------
+# K2's symbols entry and K3's slice entry: the P / I slice stage reads the
+# symbols and K13's chunk ints in place (entropy_gpu.encode_bits_*).
+# ---------------------------------------------------------------------------
+
+NCHUNK = 27  # chunks an MB: luma DC / header, 16 luma AC, 2 + 8 chroma
+
+
+def chunk_fields(meta: torch.Tensor):
+    """K13's chunk ints [..., 27] -> (nc, maxc, code_residual, present,
+    shift) int32 tensors: bits 0-7 nC + 1, 8-12 maxc, 13 code_residual,
+    14 present, 15 the intra AC shift (levels from slot 1)."""
+    return ((meta & 255) - 1, (meta >> 8) & 31, (meta >> 13) & 1,
+            (meta >> 14) & 1, (meta >> 15) & 1)
+
+
+def chunk_levels(symbols, shift: torch.Tensor) -> torch.Tensor:
+    """The 27 chunks' levels [M, 27, 16] int32 of every MB of `symbols`
+    (MB-major, [M] = the symbols' leading MB axes flattened): the luma DC,
+    the luma AC blocks in z-order (an MB whose chunk shift bit is set
+    codes slots 1-15, as Intra_16x16 AC), the chroma DC and AC zero
+    padded to 16."""
+    m = shift.shape[0]
+    scan = tables.get("blk_scan", shift.device)
+    lac = symbols.luma_ac.reshape(m, 16, 16).to(I32)[:, scan]
+    sh = shift[:, 1:17, None] == 1
+    ac = torch.where(sh, torch.nn.functional.pad(lac[..., 1:], (0, 1)), lac)
+    pad = lambda x, n, w: torch.nn.functional.pad(
+        x.reshape(m, n, w).to(I32), (0, 16 - w))
+    return torch.cat([symbols.luma_dc.reshape(m, 1, 16).to(I32), ac,
+                      pad(symbols.chroma_dc, 2, 4),
+                      pad(symbols.chroma_ac, 8, 15)], 1)
+
+
+def _pack_symbols_plain(symbols, meta, hdr_len, hdr_val, n_w: int, ovf):
+    """Plain version of `pack_symbols` (same arguments): `chunk_levels`,
+    then `_pack_blocks_plain` with the header slots on chunk 0, absent
+    chunks emptied."""
+    m, nh = hdr_len.shape
+    nc, maxc, code, present, shift = chunk_fields(meta)
+    hl = torch.zeros((m, NCHUNK, nh), dtype=I32, device=meta.device)
+    hv = torch.zeros_like(hl)
+    hl[:, 0] = hdr_len
+    hv[:, 0] = hdr_val
+    words, bits = _pack_blocks_plain(chunk_levels(symbols, shift), nc, maxc,
+                                     hl, hv, n_w, code)
+    bits = torch.where(present == 1, bits, 0)
+    words = torch.where(present[..., None] == 1, words, 0)
+    ovf |= (bits > 32 * n_w).any().to(I32)
+    return words, bits
+
+
+def _level_arrays(symbols, m: int):
+    """The symbols' four level arrays as K2's and K13's kernels read them:
+    int16, [M, n] contiguous, 16-byte aligned (a copy only where a tensor
+    is not so)."""
+    out = []
+    for f, n in (("luma_dc", 16), ("luma_ac", 256), ("chroma_dc", 8),
+                 ("chroma_ac", 120)):
+        x = getattr(symbols, f).to(torch.int16).reshape(m, n).contiguous()
+        out.append(x if x.data_ptr() % 16 == 0 else x.clone())
+    return out
+
+
+def _k2_symbol_operands(symbols, meta, hdr_len, hdr_val, n_w: int, ovf):
+    """K2's symbols entry's operands in its order (csrc/cavlc_pack.cu
+    `sym_args`): (input tensors, output tensors, ints); the outputs
+    freshly allocated, `ovf` last (set to 1 on an overflow)."""
+    m, nh = hdr_len.shape
+    dev = meta.device
+    ins = _level_arrays(symbols, m) + [meta, hdr_len, hdr_val]
+    outs = [torch.empty((m, NCHUNK, n_w), dtype=I32, device=dev),
+            torch.empty((m, NCHUNK), dtype=I32, device=dev), ovf]
+    return ins, outs, [m * NCHUNK, nh, n_w]
+
+
+def pack_symbols(symbols, meta: torch.Tensor, hdr_len: torch.Tensor,
+                 hdr_val: torch.Tensor, n_w: int, ovf: torch.Tensor):
+    """K2 on the symbols: every MB's 27 chunks (levels straight from the
+    symbols' level arrays, nC / maxc / code_residual / presence from K13's
+    chunk ints `meta` [M, 27], the MB's header slots `hdr_len` / `hdr_val`
+    [M, nh] on chunk 0) packed to (words [M, 27, n_w] int32, bits [M,
+    27] int32), an absent chunk empty; `ovf` (int32 [1]) is set to 1 where
+    a chunk passes n_w words.  CPU tensors take the plain version, CUDA
+    tensors launch the kernel or raise."""
+    m = meta.shape[0]
+    if meta.device.type == "cpu":
+        return _pack_symbols_plain(symbols, meta, hdr_len, hdr_val, n_w, ovf)
+    nh = hdr_len.shape[-1]
+    if not 1 <= n_w <= 32 or not 0 <= nh <= 8:
+        raise ValueError("pack_symbols: kernel takes n_w <= 32, nh <= 8")
+    ins, outs, ints = _k2_symbol_operands(symbols, meta, hdr_len, hdr_val,
+                                          n_w, ovf)
+    cuda_lib.check_inputs("pack_symbols", meta.device, [
+        (meta, (m, NCHUNK)), (hdr_len, (m, nh)), (hdr_val, (m, nh)),
+        (ovf, (1,))])
+    cuda_lib.check_inputs("pack_symbols", meta.device, [
+        (x, (m, n)) for x, n in zip(ins[:4], (16, 256, 8, 120))],
+        dtype=torch.int16)
+    err = cuda_lib.load().th264_pack_symbols(
+        cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+        cuda_lib.stream(meta.device))
+    cuda_lib.check(err, "th264_pack_symbols")
+    pack_symbols.launches += 1
+    return outs[0], outs[1]
+
+
+pack_symbols.launches = 0  # launches of K2's symbols entry
+
+
+def _merge_slices_plain(hdr_hw, hdr_len, mb_hw, mb_bits, tail, n_out: int,
+                        ovf):
+    """Plain version of `merge_slices` (same arguments): the parts joined
+    with the rbsp trailer (`entropy_gpu.slice_strings`), then
+    `tree_merge`."""
+    from .entropy_gpu import _slice_parts, slice_strings
+
+    mb_w = mb_hw.shape[-1]
+    t = None
+    if tail is not None:
+        t_hw = torch.zeros((*tail.shape[:-1], mb_w), dtype=I32,
+                           device=tail.device)
+        t_hw[..., 0] = tail[..., 0]
+        t = (t_hw, tail[..., 1])
+    parts_w, parts_b = _slice_parts(mb_hw, mb_bits, hdr_hw, hdr_len, t)
+    words, bits, over = slice_strings(parts_w, parts_b)
+    ovf |= (over | (mb_bits > 32 * mb_w).any()).to(I32)
+    out, out_bits = tree_merge(words, bits, n_out)
+    return out, (out_bits // 8).to(I32)
+
+
+def _k3_slice_operands(hdr_hw, hdr_len, mb_hw, mb_bits, tail, n_out: int,
+                       ovf):
+    """K3's slice entry's operands in its order (csrc/cavlc_merge.cu
+    `slice_args`): (input tensors, output tensors, ints)."""
+    lead = hdr_len.shape
+    c, mb_w = mb_hw.shape[-2:]
+    dev = hdr_len.device
+    outs = [torch.empty((*lead, n_out), dtype=I32, device=dev),
+            torch.empty(lead, dtype=I32, device=dev), ovf]
+    ins = [hdr_hw, hdr_len, mb_hw, mb_bits, tail]
+    return ins, outs, [int(np.prod(lead)), c, hdr_hw.shape[-1], mb_w, n_out]
+
+
+def merge_slices(hdr_hw: torch.Tensor, hdr_len: torch.Tensor,
+                 mb_hw: torch.Tensor, mb_bits: torch.Tensor,
+                 tail: Optional[torch.Tensor], n_out: int,
+                 ovf: torch.Tensor):
+    """K3 at the slice level, each slice's strings read where they lie:
+    its header hdr_hw [..., hdr_w] (hdr_len [...] bits), its C MB strings
+    mb_hw [..., C, mb_w] (mb_bits [..., C]), the trailing skip_run tail
+    [..., 2] (word, bits; None for I slices) and the rbsp trailing bits ->
+    (slice words [..., n_out] int32, slice bytes [...] int32); `ovf`
+    (int32 [1]) is set to 1 where an MB passes mb_w words or a body 32 *
+    n_out - 64 bits.  CPU tensors take the plain version, CUDA tensors
+    launch the kernel or raise."""
+    if not 1 <= n_out <= MERGE_MAX_OUT:
+        raise ValueError(f"merge_slices: n_out {n_out} outside 1.."
+                         f"{MERGE_MAX_OUT}")
+    if hdr_len.device.type == "cpu":
+        return _merge_slices_plain(hdr_hw, hdr_len, mb_hw, mb_bits, tail,
+                                   n_out, ovf)
+    lead = tuple(hdr_len.shape)
+    c, mb_w = mb_hw.shape[-2:]
+    if not 1 <= c <= MERGE_MAX_K - 3:
+        raise ValueError(f"merge_slices: kernel takes 1 <= C <= "
+                         f"{MERGE_MAX_K - 3} MBs a slice, got {c}")
+    ins, outs, ints = _k3_slice_operands(hdr_hw, hdr_len, mb_hw, mb_bits,
+                                         tail, n_out, ovf)
+    cuda_lib.check_inputs("merge_slices", hdr_len.device, [
+        (hdr_hw, (*lead, hdr_hw.shape[-1])), (hdr_len, lead),
+        (mb_hw, (*lead, c, mb_w)), (mb_bits, (*lead, c)), (ovf, (1,)),
+        *([] if tail is None else [(tail, (*lead, 2))])])
+    err = cuda_lib.load().th264_merge_slices(
+        cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+        cuda_lib.stream(hdr_len.device))
+    cuda_lib.check(err, "th264_merge_slices")
+    merge_slices.launches += 1
+    return outs[0], outs[1]
+
+
+merge_slices.launches = 0  # launches of K3's slice entry

@@ -1,21 +1,36 @@
 """On-device CAVLC: symbol tensors -> slice payload bits, on the GPU.
 
-Port of tpuh264/kernels/entropy_tpu.py (its counterpart on the TPU):
+Port of tpuh264/kernels/entropy_tpu.py (its counterpart on the TPU).
+The stage (`encode_slices`, under `encode_bits_iframe` /
+`encode_bits_pframe`) reads the symbols where they lie, in four launches:
 
-  1. nC grids from per-block total_coeff counts (row-slice neighbour
-     rules: left block, top block only within the MB);
-  2. per MB, 27 chunks (MB header + I16 luma DC, 16 luma AC in z-order,
-     2 chroma DC, 8 chroma AC), each symbolised and packed by K2
-     (`cavlc_cuda.pack_blocks`);
-  3. the 27 chunk strings of every MB merged into one by K3
-     (`cavlc_cuda.merge_tree`);
-  4. per slice (one MB row), header + MBs (+ the trailing P skip_run) +
-     the rbsp trailing bits merged by K3 again, in one call.
+  1. K13, `cavlc_prologue` (csrc/cavlc_prologue.cu): per chunk of every
+     MB (MB header + I16 luma DC, 16 luma AC in z-order, 2 chroma DC, 8
+     chroma AC) its nC (row-slice neighbour rules: left block, top block
+     only within the MB), maxc, code_residual and presence, the MB's
+     header slots, and each P row's trailing skip_run;
+  2. K2's symbols entry, `cavlc_cuda.pack_symbols`: each chunk
+     symbolised and packed from the symbols' level arrays;
+  3. K3, `cavlc_cuda.merge_tree`: the 27 chunk strings of every MB
+     merged into one;
+  4. K3's slice entry, `cavlc_cuda.merge_slices`: per slice (one MB
+     row), header + MBs (+ the trailing P skip_run) + the rbsp trailing
+     bits, each read from its own buffer.
+
+Each router takes its plain version for CPU tensors: `_prologue_plain`
+(on `pframe_pack_inputs` / `iframe_pack_inputs`, the joined-buffer
+stage's inputs), `_pack_symbols_plain`, `tree_merge`,
+`_merge_slices_plain`.  The joined-buffer stage itself
+(`pframe_slice_parts` / `iframe_slice_parts`, `_finish_slices`: K2's
+block entry and K3 over [.., 27, 16] levels and joined slice strings)
+stays for the tests and the smoke's K2 / K3 comparisons.
 
 Byte-identical to the JAX version and to the host packers
-(tests/test_torch_cavlc.py).  Capacity caps (BLOCK_W / MB_W / SLICE_W
-words) are enforced by overflow flags, returned as a device tensor; an
-overflowing dispatch is repacked on the host by the pipeline.
+(tests/test_torch_cavlc.py, tests/test_torch_cavlc_prologue.py).
+Capacity caps (BLOCK_W / MB_W / SLICE_W words) are enforced by one
+overflow flag a dispatch (int32 [1], set by the kernels), returned as a
+device tensor; an overflowing dispatch is repacked on the host by the
+pipeline.
 """
 
 from __future__ import annotations
@@ -24,7 +39,7 @@ import numpy as np
 import torch
 
 from ..entropy import cavlc_tables as tbl
-from . import cavlc_cuda, tables
+from . import cavlc_cuda, cuda_lib, tables
 from .cavlc_cuda import M32, _bit_length, _i32, pack_blocks
 
 I32 = torch.int32
@@ -32,8 +47,6 @@ BLOCK_W = 20    # 640 bits per residual block (incl. MB header slots)
 MB_W = 128      # 4096 bits per MB
 SLICE_W = 8192  # 32 KB per slice
 
-tables.register("blk_scan", lambda: np.asarray(
-    [0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15], np.int64))
 tables.register("cbp_inter_inv", lambda: np.asarray(
     [tbl.CBP_INTER_INV[i] for i in range(48)], np.int64))
 tables.register("maxc27_i", lambda: np.asarray(
@@ -149,14 +162,9 @@ def _slice_parts(mb_hw, mb_bits, hdr_hw, hdr_len, tail=None):
     return parts_w, parts_b
 
 
-def encode_bits_iframe(symbols, qp: int, hdr_hw, hdr_len):
-    """I-slice payload bits on the device.
-
-    symbols: iframe.MBSymbols [S, R, C, ...]; hdr_hw [S, R, 4] int32
-    MSB-aligned words of each slice header, hdr_len [S, R] bit counts.
-    Returns (slice_hw [S, R, SLICE_W] int32, slice_bytes [S, R] int32,
-    overflow bool tensor)."""
-    del qp  # slice QP lives in the header; mb_qp_delta is always 0
+def iframe_pack_inputs(symbols):
+    """K2's inputs for I slices: ((levels27, nc27, maxc27, hdr_l, hdr_v),
+    code_residual, chunk presence [S,R,C,27])."""
     s, r, c = symbols.mode.shape
     dev = symbols.mode.device
     lac = symbols.luma_ac.to(I32).reshape(s, r, c, 4, 4, 16)
@@ -181,20 +189,26 @@ def encode_bits_iframe(symbols, qp: int, hdr_hw, hdr_len):
         s, r, c, symbols.luma_dc.to(I32), _shift_ac(lac[..., 1:]),
         symbols.chroma_dc.to(I32), cac, nc_y, nc_u, nc_v)
     maxc27 = tables.get("maxc27_i", dev).expand(s, r, c, 27).contiguous()
-    chunks_hw, chunks_bits = pack_blocks(levels27, nc27, maxc27, hdr_l,
-                                         hdr_v, BLOCK_W, 3)
-    del levels27, nc27, hdr_l, hdr_v
-
+    code_res = torch.ones((s, r, c, 27), dtype=I32, device=dev)
     present = torch.cat([
         torch.ones((s, r, c, 1), dtype=torch.bool, device=dev),
         (cbp_l == 1)[..., None].expand(s, r, c, 16),
         (cbp_c >= 1)[..., None].expand(s, r, c, 2),
         (cbp_c == 2)[..., None].expand(s, r, c, 8),
     ], -1)
+    return (levels27, nc27, maxc27, hdr_l, hdr_v), code_res, present
+
+
+def iframe_slice_parts(symbols, hdr_hw, hdr_len):
+    """K2 and the MB-level K3 on I symbols, then each slice's parts
+    (`_slice_parts`) -> (parts_w, parts_b, overflow bool tensor)."""
+    args, code_res, present = iframe_pack_inputs(symbols)
+    chunks_hw, chunks_bits = pack_blocks(*args, BLOCK_W, 3,
+                                         code_residual=code_res)
+    del args
     mb_hw, mb_bits, overflow = _merge_mbs(chunks_hw, chunks_bits, present)
-    slice_hw, slice_bytes, ovf2 = _finish_slices(
-        *_slice_parts(mb_hw, mb_bits, hdr_hw, hdr_len))
-    return slice_hw, slice_bytes, overflow | ovf2
+    parts_w, parts_b = _slice_parts(mb_hw, mb_bits, hdr_hw, hdr_len)
+    return parts_w, parts_b, overflow
 
 
 def pframe_pack_inputs(symbols, nra: int = 1):
@@ -304,30 +318,165 @@ def pframe_slice_parts(symbols, hdr_hw, hdr_len, nra: int = 1):
     del args, code_res
     mb_hw, mb_bits, overflow = _merge_mbs(chunks_hw, chunks_bits, present)
 
-    # ---- trailing skip_run chunk per slice ----
-    trail = c - 1 - marked.amax(-1)  # [S,R]
-    tll, tlv = _ue_slot(trail)
-    tll = torch.where(trail > 0, tll, 0)
+    t_word, tll = _trailing_run(marked, c)
     # single-word emission caps rows at 65534 MBs (ue > 32 bits)
     overflow = overflow | (tll > 32).any()
-    t_hw = torch.zeros((s, r, MB_W), dtype=torch.int64, device=dev)
-    t_hw[..., 0] = torch.where(
-        trail > 0, (tlv.long() << torch.clamp(32 - tll, 0, 31).long()) & M32,
-        0)
+    t_hw = torch.zeros((s, r, MB_W), dtype=I32, device=dev)
+    t_hw[..., 0] = t_word
     parts_w, parts_b = _slice_parts(mb_hw, mb_bits, hdr_hw, hdr_len,
-                                    tail=(_i32(t_hw), tll))
+                                    tail=(t_hw, tll))
     return parts_w, parts_b, overflow
 
 
-def encode_bits_pframe(symbols, qp: int, hdr_hw, hdr_len, nra: int = 1):
+def _trailing_run(marked, c: int):
+    """Each slice's trailing skip_run from its coded-MB marks [..., C]
+    (the column, -1 where skipped): (its ue(v) string as one MSB-first
+    int32 word, its bit length) [...], both 0 where the last MB is
+    coded."""
+    trail = c - 1 - marked.amax(-1)
+    tll, tlv = _ue_slot(trail)
+    tll = torch.where(trail > 0, tll, 0)
+    word = torch.where(
+        trail > 0, (tlv.long() << torch.clamp(32 - tll, 0, 31).long()) & M32,
+        0)
+    return _i32(word), tll
+
+
+def _prologue_plain(symbols, ovf, nra: int = 1, pslice: bool = True):
+    """Plain version of `cavlc_prologue` (same arguments):
+    `pframe_pack_inputs` / `iframe_pack_inputs` and `_trailing_run`, their
+    chunk fields packed into the chunk ints."""
+    if pslice:
+        args, code_res, present, marked = pframe_pack_inputs(symbols, nra)
+        intra = (symbols.kind == 2).to(I32)[..., None]
+    else:
+        args, code_res, present = iframe_pack_inputs(symbols)
+        intra = torch.ones_like(code_res[..., :1])
+    _, nc27, maxc27, hdr_l, hdr_v = args
+    lead = code_res.shape[:-1]
+    m = int(np.prod(lead))
+    shift = torch.nn.functional.pad(intra.expand(*lead, 16), (1, 10))
+    meta = ((nc27 + 1) | (maxc27 << 8) | (code_res << 13)
+            | (present.to(I32) << 14) | (shift << 15))
+    nh = hdr_l.shape[-1]
+    tail = None
+    if pslice:
+        word, tll = _trailing_run(marked, lead[-1])
+        ovf |= (tll > 32).any().to(I32)
+        tail = torch.stack([word, tll.to(I32)], -1)
+    return (meta.reshape(m, 27), hdr_l[..., 0, :].reshape(m, nh).contiguous(),
+            hdr_v[..., 0, :].reshape(m, nh).contiguous(), tail)
+
+
+_PRO_FIELDS = ("kind", "mode", "cmode", "cbp_luma", "cbp_chroma", "mvdx",
+               "mvdy", "refidx")
+
+
+def _k13_operands(symbols, ovf, nra: int = 1, pslice: bool = True):
+    """K13's operands in its entry's order (csrc/cavlc_prologue.cu
+    `pro_args`): (input tensors, output tensors, ints); the outputs
+    freshly allocated, `ovf` last (set to 1 on an overflow).  I symbols
+    have no kind, mvds and refidx (null pointers)."""
+    lead = tuple(symbols.mode.shape)
+    rows, c = int(np.prod(lead[:-1])), lead[-1]
+    m = rows * c
+    dev = symbols.mode.device
+    fields = [getattr(symbols, f, None) for f in _PRO_FIELDS]
+    if not pslice:  # MBSymbols: no kind, mvds or refidx
+        fields = [None, *fields[1:5], None, None, None]
+    ins = [None if x is None else x.to(I32).reshape(m).contiguous()
+           for x in fields]
+    levels = cavlc_cuda._level_arrays(symbols, m)
+    ins += [levels[1], levels[3]]
+    nh = 6 if pslice else 3
+    outs = [torch.empty((m, 27), dtype=I32, device=dev),
+            torch.empty((m, nh), dtype=I32, device=dev),
+            torch.empty((m, nh), dtype=I32, device=dev),
+            torch.empty((rows, 2), dtype=I32, device=dev), ovf]
+    return ins, outs, [rows, c, int(pslice), nra]
+
+
+def cavlc_prologue(symbols, ovf: torch.Tensor, nra: int = 1,
+                   pslice: bool = True):
+    """K13: the CAVLC prologue of P (`pslice`, MBSymbolsP) or I
+    (MBSymbols) slices [..., R, C] -> (chunk ints [M, 27] int32 (nC + 1,
+    maxc, code_residual, presence, the intra AC shift; `cavlc_cuda.
+    chunk_fields`), header slot lengths and values [M, nh] (6 P, 3 I),
+    trailing skip_runs [..., R, 2] (word, bits; None for I)); `ovf` (int32
+    [1]) is set to 1 where a trailing run passes 32 bits.  CPU tensors
+    take the plain version, CUDA tensors launch the kernel
+    (csrc/cavlc_prologue.cu) or raise."""
+    lead = tuple(symbols.mode.shape)
+    if symbols.mode.device.type == "cpu":
+        out = _prologue_plain(symbols, ovf, nra, pslice)
+        return (*out[:3], None if out[3] is None
+                else out[3].reshape(*lead[:-1], 2))
+    dev = symbols.mode.device
+    if pslice and not 1 <= nra <= 16:
+        raise ValueError(f"cavlc_prologue: nra {nra} outside 1..16")
+    ins, outs, ints = _k13_operands(symbols, ovf, nra, pslice)
+    cuda_lib.check_inputs("cavlc_prologue", dev, [
+        (x, x.shape) for x in ins[:8] if x is not None] + [(ovf, (1,))])
+    cuda_lib.check_inputs("cavlc_prologue", dev, [
+        (x, x.shape) for x in ins[8:]], dtype=torch.int16)
+    err = cuda_lib.load().th264_cavlc_prologue(
+        cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+        cuda_lib.stream(dev))
+    cuda_lib.check(err, "th264_cavlc_prologue")
+    cavlc_prologue.launches += 1
+    return (*outs[:3], outs[3].reshape(*lead[:-1], 2) if pslice else None)
+
+
+cavlc_prologue.launches = 0  # launches of K13
+
+
+def encode_slices(symbols, hdr_hw, hdr_len, ovf, nra: int = 1,
+                  pslice: bool = True):
+    """The slice stage on the symbols in place: K13, K2's symbols entry,
+    K3 at the MB level, K3's slice entry -> (slice_hw [..., R, SLICE_W]
+    int32, slice_bytes [..., R] int32); `ovf` (int32 [1]) is set to 1
+    where a cap is passed (the caller repacks on the host)."""
+    lead = tuple(symbols.mode.shape)
+    meta, hl, hv, tail = cavlc_prologue(symbols, ovf, nra, pslice)
+    words, bits = cavlc_cuda.pack_symbols(symbols, meta, hl, hv, BLOCK_W,
+                                          ovf)
+    del meta, hl, hv
+    mb_hw, mb_bits = cavlc_cuda.merge_tree(
+        words.reshape(*lead, 27, BLOCK_W), bits.reshape(*lead, 27), MB_W)
+    del words, bits
+    return cavlc_cuda.merge_slices(hdr_hw, hdr_len, mb_hw, mb_bits, tail,
+                                   SLICE_W, ovf)
+
+
+def _flagged(symbols, hdr_hw, hdr_len, nra, pslice, ovf):
+    if ovf is not None:
+        return (*encode_slices(symbols, hdr_hw, hdr_len, ovf, nra, pslice),
+                ovf)
+    ovf = torch.zeros(1, dtype=I32, device=hdr_len.device)
+    out = encode_slices(symbols, hdr_hw, hdr_len, ovf, nra, pslice)
+    return (*out, ovf[0] != 0)
+
+
+def encode_bits_iframe(symbols, qp: int, hdr_hw, hdr_len, ovf=None):
+    """I-slice payload bits on the device.
+
+    symbols: iframe.MBSymbols [S, R, C, ...]; hdr_hw [S, R, 4] int32
+    MSB-aligned words of each slice header, hdr_len [S, R] bit counts.
+    Returns (slice_hw [S, R, SLICE_W] int32, slice_bytes [S, R] int32,
+    overflow bool tensor); given `ovf` (int32 [1], a dispatch's flag), the
+    stage sets it to 1 on an overflow and returns it as the third."""
+    del qp  # slice QP lives in the header; mb_qp_delta is always 0
+    return _flagged(symbols, hdr_hw, hdr_len, 1, False, ovf)
+
+
+def encode_bits_pframe(symbols, qp: int, hdr_hw, hdr_len, nra: int = 1,
+                       ovf=None):
     """P-slice payload bits on the device (rows slice mode), bit for bit
     the entropy/packp.py emission: per coded MB a skip_run, then
     Intra_16x16-in-P or P_L0_16x16 syntax (ref_idx_l0 as te(v) when
     nra > 1), plus each slice's trailing skip_run.  The skip runs -- the
-    only cross-MB sequential syntax -- come from a running maximum of
-    each row's coded-MB indices."""
+    only cross-MB sequential syntax -- are K13's row scan (its plain
+    version a running maximum of each row's coded-MB indices).  `ovf` as
+    in `encode_bits_iframe`."""
     del qp
-    parts_w, parts_b, overflow = pframe_slice_parts(symbols, hdr_hw, hdr_len,
-                                                    nra)
-    slice_hw, slice_bytes, ovf2 = _finish_slices(parts_w, parts_b)
-    return slice_hw, slice_bytes, overflow | ovf2
+    return _flagged(symbols, hdr_hw, hdr_len, nra, True, ovf)

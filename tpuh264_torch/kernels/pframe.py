@@ -30,6 +30,10 @@ tests/test_torch_pframe_kernel.py):
      `_intra_in_p_scan`, K6 on the card (csrc/intra16_enc.cu, the I
      encode's kernel), its plain version `_intra_in_p_scan_plain` (a
      Python loop over the MB columns) for CPU tensors.
+  4. the symbols: given `out` buffers (`empty_symbols`, the GOP
+     pipeline's dispatch-wide ones), K9 writes every MBSymbolsP field
+     there itself, the mvds by a second pass; the other routes assemble
+     them in PyTorch and copy them in.
 
 In the plain versions, per-MB windows and the motion-compensated
 predictions are gathers from the padded planes at per-MB origins (the
@@ -37,8 +41,12 @@ JAX version's masked sums over static shifts were a TPU workaround).
 Ties keep the first candidate in raster order everywhere
 (`_argmin_first`), on every backend.
 
+The references come as [N, S, H, W] tensors or as the N references'
+planes newest first (a DPB ring's slots), which K11 reads by pointer.
+
 The decoder's inter part, `_inter_decode` (K10 on the card,
-csrc/pframe_dec.cu; `_inter_decode_plain` for CPU tensors and `t8`),
+csrc/pframe_dec.cu, reading each symbol field with its MB stride;
+`_inter_decode_plain` for CPU tensors and `t8`),
 resolves the MV chain mv_c = g_c * (mv_{c-1} + mvd_c) (the plain
 version with a cumulative sum and a running reset index, the JAX
 associative_scan) and reconstructs every MB as inter; then the
@@ -86,6 +94,7 @@ from .iframe import (
     _intra16_mb,
     _intra_recon_scan,
     _left_edges,
+    _mb_strided,
     _luma_blocks,
     _mbs_to_plane,
     _plane_to_mbs,
@@ -523,17 +532,19 @@ def _mc_all(planes_l, refs_up, refs_vp, mvx, mvy, refsel):
 
 def _references(refs_y, refs_u, refs_v, halo: bool):
     """Per reference of the DPB refs_y [N, S, Hs, W], refs_u / refs_v [N,
-    S, Hcs, W/2] (int32 or uint8): the stacked half-pel planes [4, S, Hp,
-    Wp] (G, b, h, j; pad _PE) and the chroma planes [S, Hcp, Wcp] (pad
-    _CP), int32, as three lists.  Without `halo` the frame's edge rows
-    stand in for the halo (the normative Clip3 clamp); with it the
-    references arrive extended by HALO_Y / HALO_C rows a side.
+    S, Hcs, W/2] (int32 or uint8; or each a sequence of the N references'
+    [S, ...] planes, newest first, e.g. the slots of a DPB ring): the
+    stacked half-pel planes [4, S, Hp, Wp] (G, b, h, j; pad _PE) and the
+    chroma planes [S, Hcp, Wcp] (pad _CP), int32, as three lists.  Without
+    `halo` the frame's edge rows stand in for the halo (the normative Clip3
+    clamp); with it the references arrive extended by HALO_Y / HALO_C rows
+    a side.
 
     CPU tensors take the plain version; CUDA tensors launch K11
-    (csrc/halfpel.cu, one launch over all N references: the lists are
-    views of one [N, 4, S, Hp, Wp] and one [N, 2, S, Hcp, Wcp] buffer) or
-    raise."""
-    if refs_y.device.type == "cpu":
+    (csrc/halfpel.cu, one launch over all N references, each read by its
+    own pointer: the lists are views of one [N, 4, S, Hp, Wp] and one [N,
+    2, S, Hcp, Wcp] buffer) or raise."""
+    if refs_y[0].device.type == "cpu":
         return _references_plain(refs_y, refs_u, refs_v, halo)
     out = _k11_launch(refs_y, refs_u, refs_v, halo)
     _references.launches += 1
@@ -545,27 +556,33 @@ _references.launches = 0  # launches of K11
 
 def _k11_operands(refs_y, refs_u, refs_v, halo: bool):
     """K11's operands in its entry's order (csrc/halfpel.cu `ref_args`):
-    (input tensors, output tensors, ints); the outputs freshly allocated
-    on the inputs' device.  Raises where the three planes disagree."""
+    (input tensors -- _MAX_REFS of each plane, None past the N references
+    --, output tensors, ints); the outputs freshly allocated on the
+    inputs' device.  Raises where the planes disagree."""
     name = "_references"
-    if refs_y.dim() != 4 or refs_u.dim() != 4 or refs_v.dim() != 4:
-        raise ValueError(f"{name}: references [N, S, H, W], got "
-                         f"{tuple(refs_y.shape)}")
-    n, s, hs, w = refs_y.shape
-    hcs, wc = refs_u.shape[-2:]
+    ys, us, vs = list(refs_y), list(refs_u), list(refs_v)
+    n = len(ys)
+    if not 1 <= n <= _MAX_REFS or len(us) != n or len(vs) != n or any(
+            x.dim() != 3 for x in ys + us + vs):
+        raise ValueError(f"{name}: 1 to {_MAX_REFS} references of [S, H, "
+                         f"W] planes, got {[tuple(x.shape) for x in ys]}")
+    s, hs, w = ys[0].shape
+    hcs, wc = us[0].shape[-2:]
     oy, oyc = (0, 0) if halo else (HALO_Y, HALO_C)
     h = hs - 2 * (HALO_Y - oy)
     if (not n * s * hs * w or h <= 0 or h % 2 or w % 2
-            or tuple(refs_u.shape) != (n, s, h // 2 + 2 * (HALO_C - oyc),
-                                       w // 2)
-            or refs_v.shape != refs_u.shape):
-        raise ValueError(f"{name}: references {tuple(refs_y.shape)}, "
-                         f"{tuple(refs_u.shape)}, {tuple(refs_v.shape)} "
-                         f"(halo {halo}) are no DPB")
-    u8 = all(x.dtype == torch.uint8 for x in (refs_y, refs_u, refs_v))
-    ins = [x.contiguous() if u8 else x.to(I32).contiguous()
-           for x in (refs_y, refs_u, refs_v)]
-    dev = refs_y.device
+            or tuple(us[0].shape) != (s, h // 2 + 2 * (HALO_C - oyc),
+                                      w // 2)
+            or any(x.shape != ys[0].shape for x in ys)
+            or any(x.shape != us[0].shape for x in us + vs)):
+        raise ValueError(f"{name}: references {[tuple(x.shape) for x in ys]}"
+                         f", {[tuple(x.shape) for x in us + vs]} (halo "
+                         f"{halo}) are no DPB")
+    u8 = all(x.dtype == torch.uint8 for x in ys + us + vs)
+    fill = [None] * (_MAX_REFS - n)
+    ins = [None if x is None else x.contiguous() if u8
+           else x.to(I32).contiguous() for p in (ys, us, vs) for x in p + fill]
+    dev = ys[0].device
     outs = [torch.empty((n, 4, s, hs + 2 * oy, w + 2 * _PE), dtype=I32,
                         device=dev),
             torch.empty((n, 2, s, hcs + 2 * oyc, wc + 2 * _CP), dtype=I32,
@@ -577,11 +594,12 @@ def _k11_launch(refs_y, refs_u, refs_v, halo: bool):
     """One launch of K11 (see `_references`); raises on a bad input or a
     failed build or launch."""
     ins, outs, ints = _k11_operands(refs_y, refs_u, refs_v, halo)
-    cuda_lib.check_inputs("_references", refs_y.device, [
-        (x, x.shape) for x in ins], dtype=ins[0].dtype)
+    live = [x for x in ins if x is not None]
+    cuda_lib.check_inputs("_references", live[0].device, [
+        (x, x.shape) for x in live], dtype=live[0].dtype)
     err = cuda_lib.load().th264_halfpel_refs(
         cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
-        cuda_lib.stream(refs_y.device))
+        cuda_lib.stream(live[0].device))
     cuda_lib.check(err, "th264_halfpel_refs")
     planes, chroma = outs
     n = planes.shape[0]
@@ -590,8 +608,11 @@ def _k11_launch(refs_y, refs_u, refs_v, halo: bool):
 
 
 def _references_plain(refs_y, refs_u, refs_v, halo: bool):
-    """Plain version of `_references` (same arguments): the edge pad,
-    then per reference `build_halfpel_planes_ext` and `_pad_ref_ext`."""
+    """Plain version of `_references` (same arguments): the references
+    stacked newest first, the edge pad, then per reference
+    `build_halfpel_planes_ext` and `_pad_ref_ext`."""
+    refs_y, refs_u, refs_v = (x if torch.is_tensor(x) else torch.stack(
+        list(x)) for x in (refs_y, refs_u, refs_v))
     if not halo:
         refs_y = _edge_pad(refs_y, HALO_Y, 0)
         refs_u = _edge_pad(refs_u, HALO_C, 0)
@@ -748,8 +769,8 @@ class InterEnc(NamedTuple):
 
 
 def _inter_encode(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
-                  qp: int, ref_base: int, t8: bool, intra_in_p: bool
-                  ) -> InterEnc:
+                  qp: int, ref_base: int, t8: bool, intra_in_p: bool,
+                  out: Optional[MBSymbolsP] = None) -> InterEnc:
     """The P encode after stage A, over every reference at once: from the
     stage-A winners iy0, ix0 [N, S, R, C] and global vectors gy, gx [N, S]
     (int32), the source y32 [S, H, W] int32, u, v and the references'
@@ -759,15 +780,19 @@ def _inter_encode(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
 
     CPU tensors, and every call with `t8` (the 8x8 transform's choice,
     the CABAC + 8x8 session path), take the plain version; CUDA tensors
-    without `t8` launch K9 (csrc/pframe_enc.cu) or raise."""
+    without `t8` launch K9 (csrc/pframe_enc.cu) or raise.  With `out`
+    (views of the frame's symbols, `empty_symbols`), K9 writes its fields
+    there and completes them: the mvds, mode, cmode, t8 and luma_dc; the
+    result's fields are then out's own tensors.  The plain version leaves
+    `out` to its caller."""
     if y32.device.type == "cpu" or t8:
         return _inter_encode_plain(y32, u, v, planes_l, refs_up, refs_vp,
                                    iy0, ix0, gy, gx, qp, ref_base, t8,
                                    intra_in_p)
-    out = _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy,
-                     gx, qp, ref_base, intra_in_p)
+    res = _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy,
+                     gx, qp, ref_base, intra_in_p, out)
     _inter_encode.launches += 1
-    return out
+    return res
 
 
 _inter_encode.launches = 0  # launches of K9
@@ -797,10 +822,13 @@ def _check_refs(name, dev, planes_l, refs_up, refs_vp, s, h: int, w: int):
 
 
 def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
-                 qp: int, ref_base: int, intra_in_p: bool):
+                 qp: int, ref_base: int, intra_in_p: bool,
+                 out: Optional[MBSymbolsP] = None):
     """K9's operands in its entry's order (csrc/pframe_enc.cu `enc_args`):
     (input tensors, output tensors, ints); the outputs freshly allocated
-    on the inputs' device."""
+    on the inputs' device, or, with `out`, the symbol fields out's
+    tensors (then also its mvdx, mvdy, mode, cmode, t8 and luma_dc; else
+    those six are None, null pointers)."""
     s, h, w = y32.shape
     r, c = h // 16, w // 16
     n = len(planes_l)
@@ -810,6 +838,9 @@ def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
     lev = lambda *sh: torch.empty((*mb, *sh), dtype=torch.int16, device=dev)
     outs = [i32(*mb) for _ in range(8)] + [lev(16, 16), lev(2, 4),
                                            lev(2, 4, 15)]
+    if out is not None:
+        outs[4:] = [out.kind, out.refidx, out.cbp_luma, out.cbp_chroma,
+                    out.luma_ac, out.chroma_dc, out.chroma_ac]
     if intra_in_p:
         outs += [i32(*mb, 16, 16), i32(*mb, 8, 8), i32(*mb, 8, 8)]
     else:
@@ -824,11 +855,14 @@ def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
     ints = [s, r, c, n, h + 2 * _PE, w + 2 * _PE, h // 2 + 2 * _CP,
             w // 2 + 2 * _CP, _PE, _CP, qp, T.chroma_qp_from_luma(qp), lam,
             ref_base, int(intra_in_p), *ref_cost]
+    outs += ([None] * 6 if out is None else [
+        out.mvdx, out.mvdy, out.mode, out.cmode, out.t8, out.luma_dc])
     return ins, outs, ints
 
 
 def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
-               qp: int, ref_base: int, intra_in_p: bool) -> InterEnc:
+               qp: int, ref_base: int, intra_in_p: bool,
+               out: Optional[MBSymbolsP] = None) -> InterEnc:
     """One launch of K9 (see `_inter_encode`); raises on a bad input or a
     failed build or launch."""
     name = "encode_pframe_rows_multi"
@@ -842,8 +876,10 @@ def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
     _check_refs(name, dev, planes_l, refs_up, refs_vp, s, h, w)
     ins, outs, ints = _k9_operands(y32, u, v, planes_l, refs_up, refs_vp,
                                    iy0, ix0, gy, gx, qp, ref_base,
-                                   intra_in_p)
+                                   intra_in_p, out)
     n, mb = len(planes_l), (s, r, c)
+    if out is not None:
+        _check_symbols(name, dev, out, mb)
     cuda_lib.check_inputs(name, dev, [
         (ins[0], (s, h, w)), (ins[1], (s, h // 2, w // 2)),
         (ins[2], (s, h // 2, w // 2)), (iy0, (n, *mb)), (ix0, (n, *mb)),
@@ -852,7 +888,42 @@ def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
         cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
         cuda_lib.stream(dev))
     cuda_lib.check(err, "th264_pframe_encode")
-    return InterEnc(*outs[:11], torch.zeros_like(outs[0]), tuple(outs[11:]))
+    return InterEnc(*outs[:11],
+                    torch.zeros_like(outs[0]) if out is None else out.t8,
+                    tuple(outs[11:14]))
+
+
+def empty_symbols(lead, r: int, c: int, device) -> MBSymbolsP:
+    """Uninitialised MBSymbolsP buffers [*lead, R, C, ...] (every field,
+    refidx and t8 included) in their final types, e.g. a dispatch's P
+    frames' [P * S, R, C] that the P encode fills frame by frame."""
+    mb = (*lead, r, c)
+    i32 = lambda: torch.empty(mb, dtype=I32, device=device)
+    lev = lambda *sh: torch.empty((*mb, *sh), dtype=torch.int16,
+                                  device=device)
+    return MBSymbolsP(
+        kind=i32(), mode=i32(), cmode=i32(), cbp_luma=i32(),
+        cbp_chroma=i32(), mvdx=i32(), mvdy=i32(), luma_dc=lev(16),
+        luma_ac=lev(16, 16), chroma_dc=lev(2, 4), chroma_ac=lev(2, 4, 15),
+        refidx=i32(), t8=i32())
+
+
+_SYM_INNER = dict(luma_dc=(16,), luma_ac=(16, 16), chroma_dc=(2, 4),
+                  chroma_ac=(2, 4, 15))
+
+
+def _check_symbols(name, dev, out: MBSymbolsP, mb) -> None:
+    """Raise unless `out` holds every MBSymbolsP field for the MBs `mb` as
+    `empty_symbols` makes them: contiguous, int32 or int16, the level
+    arrays 16-byte aligned (K9 stores them 16 bytes at a time)."""
+    cuda_lib.check_inputs(name, dev, [
+        (getattr(out, f), mb) for f in MBSymbolsP._fields
+        if f not in _SYM_INNER])
+    lev = [(getattr(out, f), (*mb, *sh)) for f, sh in _SYM_INNER.items()]
+    cuda_lib.check_inputs(name, dev, lev, dtype=torch.int16)
+    if any(x.data_ptr() % 16 for x, _ in lev):
+        raise ValueError(f"{name}: the symbols' level arrays must be "
+                         "16-byte aligned")
 
 
 def _inter_encode_plain(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0,
@@ -930,7 +1001,7 @@ def _inter_encode_plain(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0,
 def encode_pframe_rows_multi(
     y, u, v, refs_y, refs_u, refs_v, qp: int, ref_base: int = 0,
     halo: bool = False, t8: bool = False, intra_in_p: bool = True,
-    group=None,
+    group=None, out: Optional[MBSymbolsP] = None,
 ) -> Tuple[MBSymbolsP, Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
     """Encode P frames [S, H, W] against a DPB refs_* [N, S, H, W]
     (newest first).  Per MB every reference is searched; the lowest
@@ -946,9 +1017,14 @@ def encode_pframe_rows_multi(
     encode.
 
     Stage A (K1 and `_int_winner`) runs for every reference first, then
-    the rest at once (`_inter_encode`: K9 on the card without `t8`)."""
+    the rest at once (`_inter_encode`: K9 on the card without `t8`).
+
+    `out` (`empty_symbols` buffers [S, R, C, ...], e.g. views of a
+    dispatch's) receives the symbols, which are then returned: on the
+    card without `t8` and `intra_in_p` K9 writes them there itself; on
+    the other routes they are assembled as before and copied in."""
     qpc = T.chroma_qp_from_luma(qp)
-    n_refs = refs_y.shape[0]
+    n_refs = len(refs_y)
     s, h, w = y.shape
     r, c = h // 16, w // 16
     lam = int(LAMBDA_ME[min(max(qp, 0), 51)])
@@ -960,7 +1036,10 @@ def encode_pframe_rows_multi(
         _int_winner(me_cuda.sad_field(y32, planes_l[n][0]), lam, group)
         for n in range(n_refs)]))
     o = _inter_encode(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy,
-                      gx, qp, ref_base, t8, intra_in_p)
+                      gx, qp, ref_base, t8, intra_in_p,
+                      None if intra_in_p else out)
+    if out is not None and o.kind is out.kind:  # K9 wrote every field
+        return out, o.rec, (o.mvx, o.mvy)
 
     zero = torch.zeros_like(o.mvx)
     fields = dict(kind=o.kind, mode=zero, cmode=zero, cbp_luma=o.cbp_luma,
@@ -1012,6 +1091,10 @@ def encode_pframe_rows_multi(
         refidx=fields["refidx"].to(I32),
         t8=fields["t8"].to(I32),
     )
+    if out is not None:
+        for dst, src in zip(out, symbols):
+            dst.copy_(src)
+        symbols = out
     return symbols, rec, (mvx.to(I32), mvy.to(I32))
 
 
@@ -1050,25 +1133,30 @@ _inter_decode.launches = 0  # launches of K10
 def _k10_operands(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
                   qp: int):
     """K10's operands in its entry's order (csrc/pframe_dec.cu
-    `dec_args`): (input tensors, output tensors, ints)."""
+    `dec_args`): (input tensors, output tensors, ints).  Each symbol field
+    goes as it lies with its MB stride (`iframe._mb_strided`: the GOP
+    decode's record views, MB fields [.., 9] int32 and level slots [..,
+    400] int16, take no copy), a copy only where a field is not so laid
+    out, not of the kernel's type or not aligned (4 bytes, the levels 16)."""
     s, r, c = mb = tuple(symbols.kind.shape)
     dev = symbols.kind.device
     refidx = (symbols.refidx if symbols.refidx is not None
               else torch.zeros(mb, dtype=I32, device=dev))
-    ins = [x.to(I32).contiguous() for x in (
+    fields = [_mb_strided(x, mb, (), I32, 4) for x in (
         symbols.kind, symbols.mvdx, symbols.mvdy, refidx, symbols.cbp_luma,
         symbols.cbp_chroma)]
-    ins += [x if x.data_ptr() % 16 == 0 else x.clone()  # 16-byte loads
-            for x in (y.to(torch.int16).contiguous() for y in (
-                symbols.luma_ac, symbols.chroma_dc, symbols.chroma_ac))]
-    ins += _ref_planes(planes_l, refs_up, refs_vp)
+    fields += [_mb_strided(x, mb, inner, torch.int16, 16)
+               for x, inner in ((symbols.luma_ac, (16, 16)),
+                                (symbols.chroma_dc, (2, 4)),
+                                (symbols.chroma_ac, (2, 4, 15)))]
+    ins = [x for x, _ in fields] + _ref_planes(planes_l, refs_up, refs_vp)
     outs = [torch.empty((*mb, k, k), dtype=I32, device=dev)
             for k in (16, 8, 8)]
     outs += [torch.empty(mb, dtype=I32, device=dev) for _ in range(2)]
     h, w = 16 * r, 16 * c
     ints = [s, r, c, len(planes_l), h + 2 * _PE, w + 2 * _PE,
             h // 2 + 2 * _CP, w // 2 + 2 * _CP, _PE, _CP, qp,
-            T.chroma_qp_from_luma(qp)]
+            T.chroma_qp_from_luma(qp), *[k for _, k in fields]]
     return ins, outs, ints
 
 
@@ -1084,9 +1172,9 @@ def _k10_launch(symbols: MBSymbolsP, planes_l, refs_up, refs_vp, qp: int):
     dev = symbols.kind.device
     _check_refs(name, dev, planes_l, refs_up, refs_vp, s, 16 * r, 16 * c)
     ins, outs, ints = _k10_operands(symbols, planes_l, refs_up, refs_vp, qp)
-    cuda_lib.check_inputs(name, dev, [(x, mb) for x in ins[:6]])
-    cuda_lib.check_inputs(name, dev, zip(ins[6:9], [
-        (*mb, 16, 16), (*mb, 2, 4), (*mb, 2, 4, 15)]), dtype=torch.int16)
+    for x in ins[:9]:
+        if x.device != dev:
+            raise ValueError(f"{name}: symbols on {x.device}, not {dev}")
     err = cuda_lib.load().th264_pframe_decode(
         cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
         cuda_lib.stream(dev))

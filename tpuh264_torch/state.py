@@ -41,19 +41,25 @@ def load_jax_state(port_pipe, dpb_enc: Sequence[np.ndarray],
     time_offset: the JAX pipeline's `_gop_pos` / `dispatch_index` /
     `time_offset` (frames dropped so far); rc_state:
     `rc_state_of(jax_pipe.rc)`."""
-    dev = port_pipe.device
-
-    def planes(dpb, ref):
+    def planes(dpb, ring):
         out = []
-        for p, r in zip(dpb, ref):
+        for p, r in zip(dpb, ring):
             a = np.asarray(p)
             if a.shape != tuple(r.shape):
                 raise ValueError(f"DPB plane {a.shape} != {tuple(r.shape)}")
-            out.append(torch.from_numpy(a.astype(np.int32)).to(dev))
-        return tuple(out)
+            if a.size and (a.min() < 0 or a.max() > 255):
+                raise ValueError(f"DPB plane values {a.min()}..{a.max()} "
+                                 "outside 0..255")
+            out.append(torch.from_numpy(a.astype(np.uint8)))
+        return out
 
-    port_pipe._dpb_enc = planes(dpb_enc, port_pipe._dpb_enc)
-    port_pipe._dpb_dec = planes(dpb_dec, port_pipe._dpb_dec)
+    # every plane is checked before any slot changes
+    loads = [(r, a) for dpb, rings in (
+        (dpb_enc, port_pipe._dpb_enc), (dpb_dec, port_pipe._dpb_dec))
+        for r, a in zip(rings, planes(dpb, rings))]
+    for r, a in loads:
+        r.copy_(a)  # slot i the i-th newest: the rings' heads are 0
+    port_pipe._head_enc = port_pipe._head_dec = 0
     port_pipe._gop_pos = int(gop_pos)
     port_pipe.dispatch_index = int(dispatch_index)
     port_pipe.time_offset = int(time_offset)
