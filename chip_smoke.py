@@ -435,7 +435,7 @@ NO_LIBRARY = {
     "K10": "no PyTorch call runs H.264 motion compensation and inter "
            "reconstruction",
     "K11": "timed: replicate F.pad + float32 conv2d with the 6-tap "
-           "filters, rounded and clamped",
+           "filters, rounded, clamped and narrowed to uint8",
     "K12": "no single PyTorch call: the winners' mode and the rate "
            "relative to it sit between two argmins",
     "K1": "no single PyTorch call: torch.cdist(p=1) would first need the "
@@ -478,13 +478,26 @@ def show(r, where):
 
 
 def k1_bytes(s, h, w) -> int:
-    """The even source samples, the window of the G plane that the +-R
-    candidates reach ((h + 2R - 1) x (w + 2R - 1) samples, not the whole
-    padded plane), and the table, int32."""
+    """The even source samples (int32), the window of the uint8 G plane
+    that the +-R candidates reach ((h + 2R - 1) x (w + 2R - 1) samples,
+    not the whole padded plane) and the int32 table."""
     from tpuh264_torch.golden.inter import SEARCH_RANGE as R
 
-    return 4 * s * ((h // 2) * (w // 2) + (h + 2 * R - 1) * (w + 2 * R - 1)
-                    + (h // 16) * (w // 16) * (2 * R + 1) ** 2)
+    return s * (4 * (h // 2) * (w // 2) + (h + 2 * R - 1) * (w + 2 * R - 1)
+                + 4 * (h // 16) * (w // 16) * (2 * R + 1) ** 2)
+
+
+def k1_plane(torch, ref):
+    """The G plane K1 reads for uint8 (or 0..255 int32) reference frames
+    ref [S, H, W]: the first plane of `_references` (K11 for a card
+    tensor), in its layout: uint8, rows 16-byte aligned."""
+    from tpuh264_torch.kernels import pframe
+
+    s, h, w = ref.shape
+    c = torch.zeros((s, h // 2, w // 2), dtype=torch.uint8,
+                    device=ref.device)
+    return pframe._references([ref.to(torch.uint8)], [c], [c],
+                              False)[0][0][0]
 
 
 def k4_bytes(args, kw) -> int:
@@ -733,8 +746,9 @@ def k14_rows(dev, torch, np, card):
 
 def k1_edges(dev, torch, np):
     """K1 on seeded edge cases: samples only 0 and 255, the maximum SAD
-    (16,320 everywhere), ragged tiles (864 and 80 wide), S = 1 and 4."""
-    from tpuh264_torch.kernels import me_cuda, pframe
+    (16,320 everywhere), ragged tiles (864 and 80 wide), S = 1 and 4,
+    from the uint8 G plane K11 writes (`k1_plane`)."""
+    from tpuh264_torch.kernels import me_cuda
 
     rng = np.random.default_rng(11)
     for s, h, w, kind in ((4, 1088, 1920, "0/255"), (1, 480, 864, "0/255"),
@@ -748,7 +762,7 @@ def k1_edges(dev, torch, np):
         else:
             y, ref = rng.integers(0, 256, (2, s, h, w)).astype(np.int32)
         yd = torch.from_numpy(y).to(dev)
-        g = pframe.build_halfpel_planes(torch.from_numpy(ref).to(dev))[0]
+        g = k1_plane(torch, torch.from_numpy(ref).to(dev))
         k = me_cuda.sad_field(yd, g)
         p = me_cuda._sad_field(yd[:, ::2, ::2], g, h, w)
         torch.cuda.synchronize()
@@ -1670,10 +1684,13 @@ def k10_args(torch, case, dev):
 
 
 # K11 (the reference build): S = 1 and 3; one MB, a row, a column, a 2 x 3
-# frame, and a row of 97 columns (past the 64-column tiles); N = 1, 2 and
-# 4; without and with `halo`; int32 and uint8 references; noise, flat and
-# 0 / 255 content (the 6-tap sums at their extremes, the clips).
-K11_SHAPES = ((1, 1, 1), (3, 1, 4), (1, 4, 1), (3, 2, 3), (1, 1, 97))
+# frame, a row of 97 columns (13 strips of 128 output columns) and a
+# frame of 7 columns (its second strip starts past the frame's last
+# sample: every staged chunk there is the clamp); N = 1, 2 and 4; without
+# and with `halo`; int32 and uint8 references; noise, flat and 0 / 255
+# content (the 6-tap sums at their extremes, the clips).
+K11_SHAPES = ((1, 1, 1), (3, 1, 4), (1, 4, 1), (3, 2, 3), (1, 1, 97),
+              (1, 2, 7))
 K11_CONTENT = ("noise", "flat", "saturate")
 K11_CASES = [(shape, (1, 2, 4)[(i + h) % 3], bool(h), bool((i + h) % 2),
               K11_CONTENT[(i + 2 * h) % 3])
@@ -2321,8 +2338,9 @@ def d2_rows(dev, torch, np, card, frames):
 
 def k9_bytes(kw) -> int:
     """K9: the int32 source (y, u, v) and stage A's winners and global
-    vectors in; for every reference the four int32 half-pel planes and
-    the two chroma planes over the frame's area (every MB searches every
+    vectors in; for every reference the four uint8 half-pel planes and
+    the two uint8 chroma planes over the frame's area (every MB searches
+    every
     reference, and its 18x18 windows of the four planes tile the plane,
     so that is what the data needs; the planes' pads and the MC reads of
     the chosen reference add nothing new); per MB 8 int32 fields, 384
@@ -2335,7 +2353,7 @@ def k9_bytes(kw) -> int:
     planes = len(kw["planes_l"]) * (4 * frame + 2 * (frame // 4))
     mbs = frame // 256
     sym = 0 if kw.get("out") is None else 5 * 4 + 32  # mvds, zero fields
-    return 4 * (src + planes) + mbs * (32 + sym + 768 + 384 * (
+    return 4 * src + planes + mbs * (32 + sym + 768 + 384 * (
         4 if kw["intra_in_p"] else 1))
 
 
@@ -2343,8 +2361,8 @@ def k10_bytes(kw, motion) -> int:
     """K10, what this run's data needs: per MB six int32 flags and 384
     int16 levels in, and from its reference the half-pel planes its
     quarter-pel fraction reads (G alone for a whole-pel vector, else the
-    planes of its two components), a 16x16 int32 window each, and the two
-    8x8 int32 chroma windows; per MB the int32 reconstruction (384
+    planes of its two components), a 16x16 uint8 window each, and the two
+    8x8 uint8 chroma windows; per MB the int32 reconstruction (384
     samples) and the two int32 MV components out.  `motion`: the call's
     (mvx, mvy)."""
     import torch
@@ -2356,7 +2374,7 @@ def k10_bytes(kw, motion) -> int:
     mvx, mvy = motion
     reads = int(n_planes[((mvy & 3) * 4 + (mvx & 3)).long()].sum())
     mbs = mvx.numel()
-    return 4 * 256 * reads + mbs * (2 * 4 * 64 + 24 + 768 + 1536 + 8)
+    return 256 * reads + mbs * (2 * 64 + 24 + 768 + 1536 + 8)
 
 
 def _all_equal(k, p, torch, what) -> int:
@@ -2465,13 +2483,15 @@ def capture_all(module, names, fn):
 
 def k11_bytes(kw) -> int:
     """K11: the references in (int32 or uint8, each sample read once), the
-    four int32 half-pel planes and the two int32 chroma planes of each
-    out."""
+    samples of the four uint8 half-pel planes and the two uint8 chroma
+    planes of each out (not their pitch bytes)."""
     from tpuh264_torch.kernels import pframe
 
-    ins, outs, _ = pframe._k11_operands(**kw)
-    return sum(x.numel() * x.element_size() for x in ins + outs
-               if x is not None)
+    ins, _, ints = pframe._k11_operands(**kw)
+    n, s, hs, w, oy, hcs, wc, oyc = ints[:8]
+    return (sum(x.numel() * x.element_size() for x in ins if x is not None)
+            + n * s * (4 * (hs + 2 * oy) * (w + 2 * pframe._PE)
+                       + 2 * (hcs + 2 * oyc) * (wc + 2 * pframe._CP)))
 
 
 def k12_bytes(kw) -> int:
@@ -2526,9 +2546,10 @@ def k11_library(refs_y, refs_u, refs_v, halo):
     """K11's closest formulation in library calls (its table row's
     "library call"; the port never calls it): replicate F.pad, float32
     conv2d with the 6-tap filters (b and h from the samples, j from b's
-    unrounded sums; TF32 off, so exact), rounded and clamped; chroma
-    replicate F.pad.  Returns ([N, 4, S, Hp, Wp], [N, 2, S, Hcp, Wcp])
-    int32."""
+    unrounded sums; TF32 off, so exact), rounded, clamped and narrowed to
+    uint8, as K11's planes are; chroma replicate F.pad.  Returns ([N, 4,
+    S, Hp, Wp], [N, 2, S, Hcp, Wcp]) uint8 (contiguous rows: no library
+    call writes a pitch)."""
     import torch
     import torch.nn.functional as F
 
@@ -2554,24 +2575,29 @@ def k11_library(refs_y, refs_u, refs_v, halo):
     b = ((b1[..., 3:-3, 1:] + 16) / 32).floor().clamp(0, 255)
     h = ((h1[..., 1:, 3:-3] + 16) / 32).floor().clamp(0, 255)
     j = ((j1[..., 1:, 1:] + 512) / 1024).floor().clamp(0, 255)
-    planes = torch.stack([g, b, h, j], 1).to(torch.int32)
+    planes = torch.stack([g, b, h, j], 1).to(torch.uint8)
     hp, wp = planes.shape[-2:]
     c = torch.stack([F.pad(p.reshape(n * s, 1, *p.shape[-2:]).float(),
                            (cp, cp, oyc, oyc), mode="replicate")
-                     for p in (refs_u, refs_v)], 1).to(torch.int32)
+                     for p in (refs_u, refs_v)], 1).to(torch.uint8)
     return (planes.reshape(n, s, 4, hp, wp).transpose(1, 2),
             c.reshape(n, s, 2, *c.shape[-2:]).transpose(1, 2))
 
 
 def k11_equal(kw, torch, what) -> int:
     """K11 (`_references`) against its plain version on one input, every
-    plane of every reference."""
+    plane of every reference, and in its layout: uint8, the same row
+    pitch (a multiple of 16 bytes) and every plane 16-byte aligned."""
     from tpuh264_torch.kernels import pframe
 
     flat = lambda o: [*o[0], *o[1], *o[2]]
-    return _all_equal(flat(pframe._references(**kw)),
-                      flat(pframe._references_plain(**kw)), torch,
-                      f"K11 _references ({what})")
+    got = flat(pframe._references(**kw))
+    want = flat(pframe._references_plain(**kw))
+    if any(a.stride() != b.stride() or a.stride(-2) % 16
+           or a.data_ptr() % 16 for a, b in zip(got, want)):
+        fail(f"K11 _references ({what}): planes not in the plain "
+             f"version's layout: {[a.stride() for a in got]}")
+    return _all_equal(got, want, torch, f"K11 _references ({what})")
 
 
 def k12_equal(kw, torch, what, blocks=None) -> int:
@@ -2879,8 +2905,8 @@ def phase_kernels(dev, torch, np, card):
 
     w, h, s = 1920, 1088, 4
     y, u, v, sym, rec_p, mot = pframe_1080p(dev, torch)
-    y0, y1 = y[0].to(torch.int32), y[1].to(torch.int32).contiguous()
-    gplane = pframe.build_halfpel_planes(y0)[0]
+    y1 = y[1].to(torch.int32).contiguous()
+    gplane = k1_plane(torch, y[0])
     rows = []
 
     k1 = me_cuda.sad_field(y1, gplane)

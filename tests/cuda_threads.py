@@ -4,34 +4,36 @@ runs on CPU threads in the tests, where there is no card and no nvcc.
 A block's threads run as std::threads, one block at a time; each warp's
 __syncwarp is a std::barrier among its 32 threads (`g_warp[w]`, set by
 the harness), and __syncthreads a std::barrier among the block's threads
-(`g_block`, set by a harness whose kernel calls it).  Or, where the
+(`g_block`, set by a harness whose kernel calls it). Or, where the
 harness runs a block by `run_block_fibers`, its threads are ucontext
 fibers on one OS thread and the barriers switch between them, each fiber
 resumed once the barrier it waits at opens: for blocks of many warps,
-far cheaper than as many OS threads.  `run_cluster_fibers` runs the CTAs
+far cheaper than as many OS threads. `run_cluster_fibers` runs the CTAs
 of one thread-block cluster together so, each with its own warp barriers
 and its own dynamic shared memory (`cl_smem`, filled with a pattern
-first so that a kernel that reads what it never wrote fails); `cl_map` is
-DSMEM (the same offset in a sibling CTA's buffer), `cl_sync` the cluster
-barrier, `cl_acquire` / `cl_release` (and `cta_acquire` /
-`cta_release`) plain loads and stores of a flag,
-and `cl_pause`, the body of a kernel's wait loop, yields the fiber.  A
-run in which every live fiber only waits (no barrier reached, no flag
-released) is a deadlock and aborts.  A warp shuffle or
-ballot is an exchange through a per-warp array after one such warp
-barrier: the arrays alternate between two copies from one exchange to
-the next (each thread counts its own), so a thread may write the next
-while a slower one still reads the last; every thread of the warp must
-reach each exchange, as the kernels' warp-uniform code does.
-`__reduce_add_sync` (redux.sync) sums such an exchange, and
-`__reduce_min_sync` / `__reduce_max_sync` take its least / greatest;
-`atomicAdd` (int and 64-bit) and `atomicOr` are atomics on the host,
-`__shfl_up_sync` an exchange like `__shfl_sync`, `__popc` the builtin.  __shared__
-arrays are statics, int2 / int4 / uint2 / uint4 plain structs,
-__grid_constant__ nothing; __vsadu4 is computed byte by byte, __clz by
-the compiler's builtin.  A harness includes the kernel's
-source after this header (as cuda_runtime.h); the source's launch entry
-is guarded by __CUDACC__, which g++ does not define.
+first so that a kernel that reads what it never wrote fails); `cl_map`
+is DSMEM (the same offset in a sibling CTA's buffer), `cl_sync` the
+cluster barrier, `cl_acquire` / `cl_release` (and `cta_acquire` /
+`cta_release`) plain loads and stores of a flag, and `cl_pause`, the
+body of a kernel's wait loop, yields the fiber. A run in which every
+live fiber only waits (no barrier reached, no flag released) is a
+deadlock and aborts. A warp shuffle or ballot is an exchange through a
+per-warp array after one such warp barrier: the arrays alternate between
+two copies from one exchange to the next (each thread counts its own),
+so a thread may write the next while a slower one still reads the last;
+every thread of the warp must reach each exchange, as the kernels' warp-
+uniform code does. `__reduce_add_sync` (redux.sync) sums such an
+exchange, and `__reduce_min_sync` / `__reduce_max_sync` take its least /
+greatest; `atomicAdd` (int and 64-bit) and `atomicOr` are atomics on the
+host, `__shfl_up_sync` an exchange like `__shfl_sync`, `__popc` the
+builtin. __shared__ arrays are statics, int2 / int4 / uint2 / uint4
+plain structs, __grid_constant__ nothing; __vsadu4 is computed byte by
+byte, __clz by the compiler's builtin; `__byte_perm`, `__funnelshift_r`,
+the DPX `__vimin_s16x2_relu` and the bit casts are their definitions in
+plain C++, `__fmaf_rd` the double sum rounded down to a float. A harness
+includes the kernel's source after this header (as cuda_runtime.h); the
+source's launch entry is guarded by __CUDACC__, which g++ does not
+define.
 """
 
 import os
@@ -47,10 +49,12 @@ SHIMS = r"""
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <functional>
+#include <cstring>
 #include <memory>
 #include <vector>
 #include <ucontext.h>
@@ -279,6 +283,44 @@ inline void run_block_fibers(int n, int block, std::function<void()> body) {
 }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// prmt: byte i of the result is byte (s >> 4i) & 7 of y:x (x lowest)
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 255u) << (8 * i);
+  return r;
+}
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t sh) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (sh & 31));
+}
+inline float __int_as_float(int x) {
+  float f;
+  std::memcpy(&f, &x, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t x;
+  std::memcpy(&x, &f, 4);
+  return x;
+}
+// a * b + c rounded toward minus infinity (exact where a * b + c is exact
+// in double, as in every kernel use: float products, sums below 2^24)
+inline float __fmaf_rd(float a, float b, float c) {
+  const double d = (double)a * b + c;
+  float f = (float)d;
+  if ((double)f > d) f = std::nextafterf(f, -INFINITY);
+  return f;
+}
+// DPX: per 16-bit half, max(min(a, b), 0) of signed halves
+inline uint32_t __vimin_s16x2_relu(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+  for (int i = 0; i < 32; i += 16) {
+    const int x = (int16_t)(a >> i), y = (int16_t)(b >> i);
+    r |= (uint32_t)(uint16_t)std::max(std::min(x, y), 0) << i;
+  }
+  return r;
+}
 inline unsigned __vsadu4(unsigned a, unsigned b) {
   unsigned s = 0;
   for (int i = 0; i < 32; i += 8) {

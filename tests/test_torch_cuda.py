@@ -83,7 +83,7 @@ def test_sad_field_kernel_matches_plain(dev, s, h, w):
     y = torch.from_numpy(rng.integers(0, 256, (s, h, w)).astype(np.int32))
     ref = torch.from_numpy(rng.integers(0, 256, (s, h, w)).astype(np.int32))
     yd = y.to(dev)
-    g = TP.build_halfpel_planes(ref.to(dev))[0]
+    g = chip_smoke.k1_plane(torch, ref.to(dev))
     got = me_cuda.sad_field(yd, g)
     plain = me_cuda._sad_field(yd[:, ::2, ::2], g, h, w)
     torch.cuda.synchronize()
@@ -140,7 +140,7 @@ def test_sad_field_edge_cases_on_card(dev, s, h, w, kind):
     else:
         y, ref = rng.integers(0, 256, (2, s, h, w)).astype(np.int32)
     yd = torch.from_numpy(y).to(dev)
-    g = TP.build_halfpel_planes(torch.from_numpy(ref).to(dev))[0]
+    g = chip_smoke.k1_plane(torch, torch.from_numpy(ref).to(dev))
     got = me_cuda.sad_field(yd, g)
     plain = me_cuda._sad_field(yd[:, ::2, ::2], g, h, w)
     torch.cuda.synchronize()
@@ -282,13 +282,18 @@ def test_merge_tree_rejects_n_out_outside_range():
 @pytest.mark.cuda
 def test_wrappers_check_inputs_on_card(dev):
     y = torch.zeros((1, 32, 32), dtype=torch.int32, device=dev)
-    g = torch.zeros((1, 58, 58), dtype=torch.int32, device=dev)
+    g = chip_smoke.k1_plane(torch, y)
     with pytest.raises(TypeError):
         me_cuda.sad_field(y.to(torch.int16), g)
     with pytest.raises(ValueError):
         me_cuda.sad_field(y, g[:, :57])
     with pytest.raises(ValueError):
         me_cuda.sad_field(y, g.transpose(1, 2).contiguous().transpose(1, 2))
+    # the G plane in another layout: int32, or uint8 rows without the pitch
+    with pytest.raises(TypeError):
+        me_cuda.sad_field(y, g.to(torch.int32))
+    with pytest.raises(ValueError):
+        me_cuda.sad_field(y, g.contiguous())
     words = torch.zeros((4, 3, 2), dtype=torch.int32, device=dev)
     bits = torch.zeros((4, 3), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
@@ -975,7 +980,7 @@ def _p_both(kw, enc: bool):
     plain = TP._inter_encode_plain if enc else TP._inter_decode_plain
     flat = _flat_enc if enc else (lambda o: [*o[0], *o[1]])
     before = fn.launches
-    got, want = flat(fn(**kw)), flat(plain(**kw))
+    got, want = flat(fn(**kw)), flat(plain(**chip_smoke.plain_args(kw)))
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     for a, b in zip(got, want):
@@ -1040,6 +1045,14 @@ def test_pframe_wrappers_check_inputs_on_card(dev):
         TP._inter_decode(**{**dkw, "refs_up": dkw["refs_up"][:0]})
     with pytest.raises(TypeError):
         TP._inter_decode(**{**dkw, "planes_l": [p.float() for p in
+                                                dkw["planes_l"]]})
+    # planes of `_references`' shapes in another layout: int32, or uint8
+    # rows without the 16-byte pitch
+    with pytest.raises(TypeError):
+        TP._inter_encode(**{**kw, "planes_l": [p.to(torch.int32) for p in
+                                               kw["planes_l"]]})
+    with pytest.raises(ValueError):
+        TP._inter_decode(**{**dkw, "planes_l": [p.contiguous() for p in
                                                 dkw["planes_l"]]})
     assert (TP._inter_encode.launches, TP._inter_decode.launches) == before
 

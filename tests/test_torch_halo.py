@@ -144,3 +144,22 @@ def test_edge_halo_in_place_of_real_rows_changes_the_result():
     assert not all(torch.equal(getattr(sym_a, f)[:, edge],
                                getattr(sym_b, f)[:, edge])
                    for f in ("kind", "mvdx", "mvdy", "luma_ac"))
+
+
+def test_halo_references_are_byte_planes_equal_to_jax():
+    """The halo band's references through `_references(halo=True)` (the
+    route of K11's halo geometry: oy = 0, the 3 margin rows replicated)
+    are uint8 planes with 16-byte-aligned rows whose samples, cast to
+    int32, equal the JAX package's `build_halfpel_planes_ext` and
+    `_pad_ref_ext` of the same extended band, every reference."""
+    _, refs = _inputs(2)
+    planes, up, vp = TP._references(*_t(refs), True)
+    for n in range(2):
+        want = JP.build_halfpel_planes_ext(refs[0][n])
+        for k in range(4):
+            _eq(want[k], planes[n][k].to(torch.int32), f"plane {k}")
+        for got, ref in ((up[n], refs[1][n]), (vp[n], refs[2][n])):
+            _eq(JP._pad_ref_ext(ref, TP._CP), got.to(torch.int32), "chroma")
+        for t in (planes[n], up[n], vp[n]):
+            assert t.dtype == torch.uint8 and t.data_ptr() % 16 == 0
+            assert t.stride(-2) % 16 == 0 and t.stride(-2) >= t.shape[-1]

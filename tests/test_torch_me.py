@@ -84,3 +84,66 @@ def test_argmin_first_ties():
     np.testing.assert_array_equal(TP._argmin_first(x).numpy(), [1, 0, 1])
     np.testing.assert_array_equal(TP._argmax_first(x).numpy(), [0, 0, 0])
 
+
+
+# K1's source on CPU threads: (S, H, W, content); W = 80 and 144 leave
+# ragged 8-MB tiles (5 and 9 MB columns), H = 48 an odd MB row count.
+K1_CPU_CASES = [(1, 48, 80, "noise"), (2, 32, 144, "0/255"),
+                (1, 48, 144, "max"), (2, 64, 128, "noise")]
+
+
+@pytest.fixture(scope="module")
+def k1_cpu(tmp_path_factory):
+    """csrc/me_sad.cu (all but its launch entries) built with g++ against
+    the shims of tests/cuda_threads.py: a block's 288 threads as fibers."""
+    import os
+
+    import cuda_threads
+    from tpuh264_torch.kernels import cuda_lib
+
+    return cuda_threads.build_entry(
+        tmp_path_factory.mktemp("k1_cpu"),
+        os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc"),
+        "me_sad.cu", "sad_args", "sad_field_kernel", "a.blocks", "kThreads")
+
+
+def _k1_case(s, h, w, content):
+    """K1's inputs: the int32 source and the G plane of a uint8 reference
+    as `pframe._references` lays it out, its pitch bytes set to 0x5a (no
+    sample may read them)."""
+    rng = np.random.default_rng([s, h, w, len(content)])
+    if content == "max":
+        y = np.full((s, h, w), 255, np.int32)
+        ref = np.zeros((s, h, w), np.uint8)
+    elif content == "0/255":
+        y, ref = (rng.integers(0, 2, (2, s, h, w)) * 255)
+    else:
+        y, ref = rng.integers(0, 256, (2, s, h, w))
+    g = TP._references_plain(*[torch.from_numpy(
+        np.ascontiguousarray(x, np.uint8))[None] for x in (
+            ref, ref[:, ::2, ::2], ref[:, ::2, ::2])], False)[0][0][0]
+    buf = torch.full((s, g.shape[1], TP._pitch(g.shape[2])), 0x5A,
+                     dtype=torch.uint8)
+    buf[..., :g.shape[2]] = g
+    return torch.from_numpy(np.asarray(y, np.int32)), buf[..., :g.shape[2]]
+
+
+@pytest.mark.parametrize("case", K1_CPU_CASES, ids=str)
+def test_k1_source_on_cpu_threads_matches_plain(k1_cpu, case):
+    """K1's staging of the byte plane (16- and 8-byte loads at aligned
+    columns, the phase split by byte permutes, the columns past the
+    plane's width zeroed), its SIMD SADs and its coalesced table, a block
+    at a time, equal the plain version on the case, from the uint8 G
+    plane with 16-byte-aligned rows that K11 writes."""
+    import cuda_threads
+
+    y, g = _k1_case(*case)
+    s, h, w = y.shape
+    assert g.dtype == torch.uint8 and g.stride(1) % 16 == 0
+    out = torch.empty((s, h // 16, w // 16, me_cuda.NN), dtype=torch.int32)
+    cuda_threads.run_entry(k1_cpu, [y, g], [out], me_cuda._k1_ints(y, g))
+    want = me_cuda.sad_field(y, g)
+    assert want.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    if case[3] == "max":
+        assert (want == 16320).all()

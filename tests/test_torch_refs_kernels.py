@@ -27,8 +27,8 @@ CSRC = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc")
 @pytest.fixture(scope="module")
 def k11_cpu(tmp_path_factory):
     """csrc/halfpel.cu (all but its launch entry) built with g++ against
-    the shims of cuda_threads.py: a block's 256 threads as fibers, its
-    block barriers switching between them."""
+    the shims of cuda_threads.py: a block's 128 threads as fibers, its
+    warp barriers switching between them."""
     return cuda_threads.build_entry(tmp_path_factory.mktemp("k11_cpu"),
                                     CSRC, "halfpel.cu", "ref_args",
                                     "halfpel_kernel", "a.blocks", "kThreads")
@@ -53,18 +53,22 @@ def _k11_inputs(case):
 
 @pytest.mark.parametrize("case", chip_smoke.K11_CASES, ids=str)
 def test_k11_source_on_cpu_threads_matches_plain(k11_cpu, case):
-    """K11's staged tiles, clamps, 6-tap passes over shared rows and
-    chroma copies, a block at a time, equal the plain version on the
-    case: every plane of every reference."""
+    """K11's strips (16-byte source chunks staged a row at a time, the
+    clamps, the 6-tap history in registers, the fp32 roundings, the
+    16-byte stores of the four planes) and chroma chunks, a block at a
+    time, equal the plain version on the case: every plane of every
+    reference, in the plain version's layout."""
     args = _k11_inputs(case)
     planes, up, vp = tpf._references_plain(*args)
     ins, outs, ints = tpf._k11_operands(*args)
-    got_l, got_c = cuda_threads.run_entry(k11_cpu, ins, outs, ints)
-    for n in range(len(planes)):
-        np.testing.assert_array_equal(got_l[n].numpy(), planes[n].numpy(),
-                                      err_msg=f"luma planes, reference {n}")
-        np.testing.assert_array_equal(got_c[n, 0].numpy(), up[n].numpy())
-        np.testing.assert_array_equal(got_c[n, 1].numpy(), vp[n].numpy())
+    got = tpf._plane_views(*cuda_threads.run_entry(k11_cpu, ins, outs, ints),
+                           ints[3] + 2 * tpf._PE, ints[6] + 2 * tpf._CP)
+    for want_l, got_l in zip((planes, up, vp), got):
+        for n, (w, g) in enumerate(zip(want_l, got_l)):
+            assert g.dtype == w.dtype == torch.uint8
+            assert g.stride() == w.stride(), f"reference {n}"
+            np.testing.assert_array_equal(g.numpy(), w.numpy(),
+                                          err_msg=f"reference {n}")
 
 
 def test_k11_cases_cover_what_they_claim():
@@ -94,15 +98,117 @@ def test_plain_references_match_jax(case):
         pad = lambda x: jpf._pad_ref_ext(x, tpf._CP)
     else:
         pad = lambda x: jpf._pad_ref(x, tpf._CP)
+    i32 = lambda t: t.to(torch.int32).numpy()
     for n in range(refs_y.shape[0]):
         want = build(jnp.asarray(refs_y[n]))
         for k in range(4):
-            np.testing.assert_array_equal(planes[n][k].numpy(),
+            np.testing.assert_array_equal(i32(planes[n][k]),
                                           np.asarray(want[k]))
-        np.testing.assert_array_equal(up[n].numpy(),
+        np.testing.assert_array_equal(i32(up[n]),
                                       np.asarray(pad(jnp.asarray(refs_u[n]))))
-        np.testing.assert_array_equal(vp[n].numpy(),
+        np.testing.assert_array_equal(i32(vp[n]),
                                       np.asarray(pad(jnp.asarray(refs_v[n]))))
+
+
+@pytest.mark.parametrize("case", chip_smoke.K11_CASES, ids=str)
+def test_references_layout(case):
+    """`_references` on the CPU returns the kernel's layout: uint8 views
+    of one luma and one chroma buffer, every plane's base 16-byte
+    aligned, its rows a pitch apart that is a multiple of 16 and the
+    width rounded up to 16 (luma Wp = W + 26 is 10 mod 16: Wp + 6;
+    chroma Wcp = W/2 + 16 is 8 mod 16 for an odd MB column count), its
+    planes and streams one after another; odd and even MB column
+    counts."""
+    args = _k11_inputs(case)
+    planes, up, vp = tpf._references(*args)
+    w = args[0].shape[-1]
+    wp, wcp = w + 2 * tpf._PE, w // 2 + 2 * tpf._CP
+    assert wp % 16 == 10 and (wcp % 16 == 8) == (w // 16) % 2
+    lp, cp = wp + 6, wcp + (8 if (w // 16) % 2 else 0)
+    bases = set()
+    for t, width, pitch in [(p, wp, lp) for p in planes] + [
+            (p, wcp, cp) for p in up + vp]:
+        assert t.dtype == torch.uint8 and t.shape[-1] == width
+        assert pitch % 16 == 0 and t.stride(-2) == pitch
+        assert t.stride(-3) == pitch * t.shape[-2]
+        if t.dim() == 4:
+            assert t.stride(0) == t.stride(1) * t.shape[1]
+        assert t.data_ptr() % 16 == 0
+        bases.add(t.untyped_storage().data_ptr())
+    assert len(bases) == 2  # one luma and one chroma buffer
+
+
+def _consumers(planes, up, mvx, mvy, iy, ix, src):
+    """What the plain consumers make of the planes: `_mc_luma`,
+    `_mc_chroma`, `_extract_w2`, `_int_refine` and `_sad_field`."""
+    from tpuh264_torch.kernels import me_cuda
+
+    s, h, w = src.shape
+    src_mbs = tpf._plane_to_mbs(src, 16)
+    gq = torch.zeros((s, 1, 1), dtype=torch.int32)
+    return [tpf._mc_luma(planes, mvx, mvy), tpf._mc_chroma(up, mvx, mvy),
+            tpf._extract_w2(planes, iy, ix),
+            *tpf._int_refine(planes[0], src_mbs, iy, ix, 20, gq, gq),
+            me_cuda._sad_field(src[:, ::2, ::2], planes[0], h, w)]
+
+
+def test_plain_consumers_widen_uint8_planes():
+    """On "saturate" planes (samples 0 and 255: sums of two components
+    past 255, which uint8 arithmetic would wrap) every plain consumer of
+    the uint8 planes gives int32 results equal to its results on int32
+    copies of the same planes."""
+    case = next(c for c in chip_smoke.K11_CASES if c[4] == "saturate"
+                and c[0][1] * c[0][2] > 1)
+    args = _k11_inputs(case)
+    planes, up, _ = tpf._references(*args)
+    assert (planes[0] == 255).any() and (planes[0] == 0).any()
+    s, r, c = args[0].shape[1], *case[0][1:]
+    rng = np.random.default_rng(7)
+    t = lambda lo, hi: torch.from_numpy(rng.integers(lo, hi, (s, r, c))
+                                        .astype(np.int32))
+    mvx, mvy, iy, ix = t(-40, 40), t(-40, 40), t(-8, 9), t(-8, 9)
+    src = torch.from_numpy(rng.choice([0, 255], (s, 16 * r, 16 * c))
+                           .astype(np.int32))
+    got = _consumers(planes[0], up[0], mvx, mvy, iy, ix, src)
+    want = _consumers(planes[0].to(torch.int32), up[0].to(torch.int32),
+                      mvx, mvy, iy, ix, src)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.int32
+        assert torch.equal(g, w)
+    # the means of two 255 components stay 255 (uint8 sums would wrap)
+    assert (got[0] == 255).any()
+
+
+_MUTANTS = {
+    "j rounding off by one": ("1.f / 1024)", "1.f / 1024) + 1u"),
+    "row pitch off by one": ("out + (size_t)y * a.lp)",
+                             "out + (size_t)y * (a.lp - 1))"),
+}
+
+
+@pytest.mark.parametrize("mutant", sorted(_MUTANTS))
+def test_k11_mutant_fails_a_case(mutant, tmp_path):
+    """A copy of K11's source whose j rounding, or whose output row pitch,
+    is off by one differs from the plain version on a seeded case: the
+    CPU-thread comparison sees both."""
+    old, new = _MUTANTS[mutant]
+    src = open(os.path.join(CSRC, "halfpel.cu")).read()
+    assert src.count(old) == 1
+    (tmp_path / "halfpel.cu").write_text(src.replace(old, new))
+    exe = cuda_threads.build_entry(tmp_path, str(tmp_path), "halfpel.cu",
+                                   "ref_args", "halfpel_kernel", "a.blocks",
+                                   "kThreads")
+    for case in chip_smoke.K11_CASES:
+        args = _k11_inputs(case)
+        want = tpf._references_plain(*args)
+        ins, outs, ints = tpf._k11_operands(*args)
+        got = tpf._plane_views(*cuda_threads.run_entry(exe, ins, outs, ints),
+                               ints[3] + 2 * tpf._PE, ints[6] + 2 * tpf._CP)
+        if not all(torch.equal(g, w) for a, b in zip(got, want)
+                   for g, w in zip(a, b)):
+            return
+    pytest.fail(f"the mutant ({mutant}) equals the plain version on every "
+                "case")
 
 
 def _k12_source(exe, sads, lam, other=None, blocks=None):

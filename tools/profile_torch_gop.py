@@ -11,7 +11,9 @@ Runs warm-up dispatches, then:
      decoder), entropy (I / P), wire download, native parse, P decode,
      and inside them their sub-stages (also counted in the stage that
      calls them): the reference build of the P encode and of the P
-     decode (`p_encode.references`, `p_decode.references`: K11), the
+     decode (`p_encode.references`, `p_decode.references`: K11, which
+     writes the uint8 half-pel planes, rows 16-byte aligned, that K1, K9
+     and K10 read as bytes in `p_encode` and `p_decode`), the
      stage-A winner (`p_encode.winner`: K12) and the decode's intra
      reconstruction (`p_decode.intra_scan`: K5);
   2. the same for one GOP-start dispatch (`force_idr()`: an I frame and

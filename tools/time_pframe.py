@@ -11,23 +11,26 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 The inputs are phase 2's: the 1920x1080 x 4 RTC P frame (one reference)
 and its decode, and the 854x480 x 8 default-config P frame with two
 references and its decode, as the P encode and decode pass them to their
-routers `_inter_encode` / `_inter_decode`.  DIR is a directory holding
-another build's pframe_enc.cu and pframe_dec.cu with the headers they
-include (e.g. an earlier commit's tpuh264_torch/csrc from `git archive`,
-unpacked into a git-ignored directory); both are built with nvcc into
-tpuh264_torch/build/ as a library of their own and called through this
-checkout's routers.  --variants adds K9 variants made from this
-checkout's source by the text edits of VARIANTS (each undoes one part of
-the design, so that its time says what that part bought).  Every build
-is first held equal to the plain versions on every input.  Each round
-times the others, this, this, the others (CUDA events behind a device
-sleep, 20 calls: chip_smoke.timed) and prints each reading's ms and its
-share of the bytes bound (chip_smoke.k9_bytes / k10_bytes) beside the
-card's name and power limit; then ptxas's registers, stack, spills and
-shared memory of each build.  --phases first prints K9's cycles a MB by
-phase: a build with clock64() read at each phase's end (PHASE_EDITS),
-each warp's cycles written in place of its int32 fields, the mean over
-the MBs; the SM clock read under load beside them.
+routers `_inter_encode` / `_inter_decode` (the planes K11's uint8
+layout, the 1080p decode's reference a uint8 DPB slot). DIR is a
+directory holding another build's pframe_enc.cu and pframe_dec.cu with
+the headers they include, built for this checkout's operands (the same
+entry arguments and plane layout; a tree of another layout is timed
+against this one by tools/time_refs.py --parent, through its own
+routers); both are built with nvcc into tpuh264_torch/build/ as a
+library of their own and called through this checkout's routers.
+--variants adds K9 variants made from this checkout's source by the text
+edits of VARIANTS (each undoes one part of the design, so that its time
+says what that part bought). Every build is first held equal to the
+plain versions on every input. Each round times the others, this, this,
+the others (CUDA events behind a device sleep, 20 calls:
+chip_smoke.timed) and prints each reading's ms and its share of the
+bytes bound (chip_smoke.k9_bytes / k10_bytes) beside the card's name and
+power limit; then ptxas's registers, stack, spills and shared memory of
+each build. --phases first prints K9's cycles a MB by phase: a build
+with clock64() read at each phase's end (PHASE_EDITS), each warp's
+cycles written in place of its int32 fields, the mean over the MBs; the
+SM clock read under load beside them.
 """
 
 import argparse
@@ -229,7 +232,7 @@ def inputs(dev, torch):
     enc, = cs.capture(pframe, "_inter_encode",
                       lambda: out.append(cs.pframe_1080p(dev, torch)))
     y, u, v, sym = out[0][:4]
-    refs = tuple(p[0].to(torch.int32)[None] for p in (y, u, v))
+    refs = ([y[0]], [u[0]], [v[0]])  # a uint8 DPB slot, as the pipeline's
     dec, = cs.capture(pframe, "_inter_decode",
                       lambda: pframe.decode_pframe_rows_multi(sym, *refs, 30))
     enc2, dec2, kinds = cs.pframe_480p_2ref(dev, torch)

@@ -4,7 +4,9 @@
 // eighth-pel chroma motion compensation, packed-byte helpers and the
 // motion vector rate.  Each bit-exact with the torch code of
 // kernels/transform.py and kernels/pframe.py; on top of
-// intra16_common.cuh's tables and integer quant / dequant forms.
+// intra16_common.cuh's tables and integer quant / dequant forms.  The
+// reference planes are K11's: uint8, rows 16-byte aligned and a pitch of
+// a multiple of 16 bytes apart (kernels/pframe.py `_references`).
 //
 // Arithmetic: `>>` of a negative int is arithmetic and `&` two's
 // complement, as torch's on int32, so `mvy >> 2`, `mvy & 3`, `mvy >> 3`
@@ -102,11 +104,13 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-// sample (y, x) of an h x w plane at indices clamped into it, as the plain
-// version's `_gather_win` clamps them (legal motion never reaches it)
-__device__ __forceinline__ int at(const int32_t* p, int y, int x, int h,
-                                  int w) {
-  return p[(size_t)clampi(y, 0, h - 1) * w + clampi(x, 0, w - 1)];
+// sample (y, x) of an h x w byte plane, rows `pitch` bytes apart, at
+// indices clamped into it (never into the pitch bytes past w), as the
+// plain version's `_gather_win` clamps them (legal motion never reaches
+// it)
+__device__ __forceinline__ int at(const uint8_t* p, int y, int x, int h,
+                                  int w, int pitch) {
+  return p[(size_t)clampi(y, 0, h - 1) * pitch + clampi(x, 0, w - 1)];
 }
 
 // four 0..255 ints as the bytes of a word, the first lowest
@@ -123,24 +127,32 @@ __device__ __forceinline__ uint32_t avg4(uint32_t a, uint32_t b) {
 }
 
 // Four eighth-pel bilinear chroma samples (8.4.2.2.2), row yy and
-// columns xx .. xx + 3 of a chroma MB, from plane c (hc x wc, int32) at
-// origin (y0, x0) = chroma MB origin + (mv >> 3) + cp, fractions (xf, yf)
-// = mv & 7, as the bytes of a word.  `inside`: the MB's 9x9 window lies
-// in the plane, so no index needs the clamp.
-__device__ __forceinline__ uint32_t mc_chroma4(const int32_t* c, int hc,
-                                               int wc, int y0, int x0,
-                                               int xf, int yf, int yy,
-                                               int xx, bool inside) {
+// columns xx .. xx + 3 of a chroma MB, from byte plane c (hc x wc, rows
+// `pitch` bytes apart) at origin (y0, x0) = chroma MB origin + (mv >> 3)
+// + cp, fractions (xf, yf) = mv & 7, as the bytes of a word.  `inside`:
+// the MB's 9x9 window lies in the plane, so no index needs the clamp and
+// a row's 5 samples come from the two aligned words that hold them (the
+// second starts before column x0 + 9 <= wc: never past the row).
+__device__ __forceinline__ uint32_t mc_chroma4(const uint8_t* c, int hc,
+                                               int wc, int pitch, int y0,
+                                               int x0, int xf, int yf,
+                                               int yy, int xx, bool inside) {
   int t[2][5];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (inside) {
-      const int32_t* p = c + (size_t)(y0 + yy + i) * wc + x0 + xx;
+      const int x = x0 + xx, off = x & 3;
+      const uint32_t* p = reinterpret_cast<const uint32_t*>(
+          c + (size_t)(y0 + yy + i) * pitch + x - off);
+      const uint32_t w0 = p[0], w1 = p[1];
+      const uint32_t lo = __funnelshift_r(w0, w1, 8 * off);
 #pragma unroll
-      for (int j = 0; j < 5; ++j) t[i][j] = p[j];
+      for (int j = 0; j < 4; ++j) t[i][j] = byte_of(lo, j);
+      t[i][4] = byte_of(w1, off);
     } else {
 #pragma unroll
-      for (int j = 0; j < 5; ++j) t[i][j] = at(c, y0 + yy + i, x0 + xx + j, hc, wc);
+      for (int j = 0; j < 5; ++j)
+        t[i][j] = at(c, y0 + yy + i, x0 + xx + j, hc, wc, pitch);
     }
   }
   const int w00 = (8 - xf) * (8 - yf), w01 = xf * (8 - yf);

@@ -30,9 +30,9 @@
 // What bounds it on the H100: bytes, as many as the data asks for.  An
 // MB reads from its reference the half-pel planes its quarter-pel
 // fraction needs (G alone for a whole-pel vector, at most two planes), a
-// 16x16 int32 window each, and two 8x8 int32 chroma windows, with 792
+// 16x16 byte window each, and two 8x8 byte chroma windows, with 792
 // bytes of symbols, and writes 1,544 bytes (int32 reconstruction and
-// motion): at most 4.9 KB a MB, 160 MB or 0.048 ms at 1080p x 4.  Its
+// motion): at most 2,976 bytes a MB, 97 MB or 0.029 ms at 1080p x 4.  Its
 // arithmetic is small.  The first design (d893870) ran a block of 8 warps
 // a MB row behind a block barrier every 32 columns: 272 blocks at 1080p
 // x 4, two or three rows an SM, each warp's MBs one after another.
@@ -47,16 +47,21 @@
 //    any number of columns: the sum restarts where the plain version's
 //    running reset index does.
 //  * MC: all 32 lanes, the luma 8 samples a lane (row lane / 2), the
-//    chroma 4 (plane lane / 16), straight from the int32 planes; a window
-//    inside the plane (every MB whose vector stays within the pad) takes
-//    no clamp.  The prediction goes to shared memory as bytes.
+//    chroma 4 (plane lane / 16), straight from K11's byte planes: a
+//    component's 8 bytes from the two or three aligned words that hold
+//    them, funnel-shifted into place and averaged four bytes at a time; a
+//    window inside the plane (every MB whose vector stays within the pad)
+//    takes no clamp, one that touches the border clamps byte by byte.
+//    The prediction goes to shared memory as bytes.
 //  * The residuals: lanes 0-15 a luma 4x4 block each, their levels two
 //    16-byte loads, lanes 16-23 a chroma block each, the chroma AC
 //    levels staged through shared memory by 16-byte loads; the int32
 //    reconstruction leaves as 16-byte stores, a block row each.
 // Where trouble is likely: negative shifts and masks (mv >> 2, & 3, >> 3,
-// & 7) stay int arithmetic, as torch's; the half-pel planes' loads are
-// scalar (their rows are not 16-byte aligned); the levels are 16-byte
+// & 7) stay int arithmetic, as torch's; the planes are uint8 with rows
+// 16-byte aligned, `lp` / `cpitch` bytes apart (the wrapper raises on
+// another layout), and no word is read past a row's pitch (an inside
+// window's last word starts before Wp <= lp); the levels are 16-byte
 // aligned (the wrapper clones a level array that is not).  Each symbol
 // field is read with its own MB stride: the GOP decode's record
 // views (MB fields 9 ints apart, level slots 400 int16 apart) go as they
@@ -76,18 +81,19 @@ constexpr unsigned kFull = 0xffffffffu;
 struct DecArgs {
   const int32_t *kind, *mvdx, *mvdy, *refidx, *cbp_l, *cbp_c;  // [S,R,C]
   const int16_t *luma_ac, *chroma_dc, *chroma_ac;  // [.,16,16] [.,2,4] [.,2,4,15]
-  const int32_t *pl[kMaxRefs];                 // half-pel planes [4,S,Hp,Wp]
-  const int32_t *pu[kMaxRefs], *pv[kMaxRefs];  // chroma [S, Hcp, Wcp]
+  const uint8_t *pl[kMaxRefs];                 // half-pel planes [4,S,Hp,lp]
+  const uint8_t *pu[kMaxRefs], *pv[kMaxRefs];  // chroma [S, Hcp, cpitch]
   int32_t *ry, *ru, *rv;                       // [S,R,C,16,16], [.,8,8] x 2
   int32_t *mvx, *mvy;                          // [S, R, C]
   int S, R, C, N, Hp, Wp, Hcp, Wcp, pe, cp, qp, qpc;
+  int lp, cpitch;  // the planes' row pitches, bytes
   // each field's MB stride in elements (the record views' 9 and 400, or
   // a contiguous field's own size)
   int sk, smx, smy, sri, scl, scc, sla, scd, sca;
 };
 
 constexpr int kPtrs = 9 + 3 * kMaxRefs + 5;  // 62
-constexpr int kInts = 21;
+constexpr int kInts = 23;
 
 // The arguments from the entry's pointer and int arrays, in the order
 // kernels/pframe.py `_k10_launch` builds them.
@@ -99,19 +105,20 @@ inline DecArgs dec_args(void* const* p, const int* n) {
   a.kind = in(0), a.mvdx = in(1), a.mvdy = in(2), a.refidx = in(3);
   a.cbp_l = in(4), a.cbp_c = in(5);
   a.luma_ac = lev(6), a.chroma_dc = lev(7), a.chroma_ac = lev(8);
+  auto pln = [p](int i) { return static_cast<const uint8_t*>(p[i]); };
   for (int k = 0; k < kMaxRefs; ++k) {
-    a.pl[k] = in(9 + k);
-    a.pu[k] = in(9 + kMaxRefs + k);
-    a.pv[k] = in(9 + 2 * kMaxRefs + k);
+    a.pl[k] = pln(9 + k);
+    a.pu[k] = pln(9 + kMaxRefs + k);
+    a.pv[k] = pln(9 + 2 * kMaxRefs + k);
   }
   const int o = 9 + 3 * kMaxRefs;
   a.ry = out(o), a.ru = out(o + 1), a.rv = out(o + 2);
   a.mvx = out(o + 3), a.mvy = out(o + 4);
   a.S = n[0], a.R = n[1], a.C = n[2], a.N = n[3], a.Hp = n[4], a.Wp = n[5];
   a.Hcp = n[6], a.Wcp = n[7], a.pe = n[8], a.cp = n[9], a.qp = n[10];
-  a.qpc = n[11];
-  a.sk = n[12], a.smx = n[13], a.smy = n[14], a.sri = n[15], a.scl = n[16];
-  a.scc = n[17], a.sla = n[18], a.scd = n[19], a.sca = n[20];
+  a.qpc = n[11], a.lp = n[12], a.cpitch = n[13];
+  a.sk = n[14], a.smx = n[15], a.smy = n[16], a.sri = n[17], a.scl = n[18];
+  a.scc = n[19], a.sla = n[20], a.scd = n[21], a.sca = n[22];
   return a;
 }
 
@@ -140,37 +147,43 @@ __device__ __forceinline__ int2 mv_lookback(const DecArgs& a, size_t row0,
   }
 }
 
+// 8 samples of row y of byte plane p (hp x wp, rows lp bytes apart)
+// from column x, as bytes: `inside` (the row's 8 lie in the plane) from
+// the two or three aligned words that hold them, else clamped one by one.
+__device__ __forceinline__ uint2 row8(const uint8_t* p, int y, int x, int hp,
+                                      int wp, int lp, bool inside) {
+  if (inside) {
+    const int off = x & 3;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(
+        p + (size_t)y * lp + x - off);
+    const uint32_t w0 = w[0], w1 = w[1], w2 = off ? w[2] : 0u;
+    return make_uint2(__funnelshift_r(w0, w1, 8 * off),
+                      __funnelshift_r(w1, w2, 8 * off));
+  }
+  int v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = at(p, y, x + j, hp, wp, lp);
+  return make_uint2(pack_bytes(v[0], v[1], v[2], v[3]),
+                    pack_bytes(v[4], v[5], v[6], v[7]));
+}
+
 // The lane's 8 luma prediction samples (MB row `row`, columns col ..
 // col + 7) from stream s's G plane `g` (the others lstride on) at the
 // integer origin (y0, x0) = MB origin + (mv >> 2) + pe and fraction f =
-// (mvy & 3) * 4 + (mvx & 3), as bytes; `inside` when the 17x17 reach
-// lies in the plane.
-__device__ __forceinline__ uint2 mc_luma8(const int32_t* g, size_t lstride,
-                                          int hp, int wp, int y0, int x0,
-                                          int f, int row, int col,
+// (mvy & 3) * 4 + (mvx & 3), as bytes: the rounded mean of the
+// fraction's two components, four bytes at a time; `inside` when the
+// 17x17 reach lies in the plane.
+__device__ __forceinline__ uint2 mc_luma8(const uint8_t* g, size_t lstride,
+                                          int hp, int wp, int lp, int y0,
+                                          int x0, int f, int row, int col,
                                           bool inside) {
-  int v[8];
   const int c1 = kQpel[f][0], c2 = kQpel[f][1];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int id = k ? c2 : c1;
-    if (k && c1 == c2) break;  // one component: (a + a + 1) >> 1 = a
-    const int32_t* p = g + kCompPl[id] * lstride;
-    const int y = y0 + kCompDy[id] + row, x = x0 + kCompDx[id] + col;
-    int t[8];
-    if (inside) {
-      const int32_t* q = p + (size_t)y * wp + x;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) t[j] = q[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) t[j] = at(p, y, x + j, hp, wp);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = k ? (v[j] + t[j] + 1) >> 1 : t[j];
-  }
-  return make_uint2(pack_bytes(v[0], v[1], v[2], v[3]),
-                    pack_bytes(v[4], v[5], v[6], v[7]));
+  const uint2 a = row8(g + kCompPl[c1] * lstride, y0 + kCompDy[c1] + row,
+                       x0 + kCompDx[c1] + col, hp, wp, lp, inside);
+  if (c1 == c2) return a;  // one component: (a + a + 1) >> 1 = a
+  const uint2 b = row8(g + kCompPl[c2] * lstride, y0 + kCompDy[c2] + row,
+                       x0 + kCompDx[c2] + col, hp, wp, lp, inside);
+  return make_uint2(avg4(a.x, b.x), avg4(a.y, b.y));
 }
 
 __global__ void __launch_bounds__(32 * kWarps)
@@ -200,16 +213,16 @@ __global__ void __launch_bounds__(32 * kWarps)
     const int row = lane >> 1, col = (lane & 1) * 8;
     const int y0 = 16 * r + (mvy >> 2) + a.pe, x0 = 16 * c + (mvx >> 2) + a.pe;
     const bool inside = y0 >= 0 && x0 >= 0 && y0 + 17 <= a.Hp && x0 + 17 <= a.Wp;
-    const uint2 p = mc_luma8(a.pl[ref] + (size_t)s * a.Hp * a.Wp,
-                             (size_t)a.S * a.Hp * a.Wp, a.Hp, a.Wp, y0, x0,
-                             (mvy & 3) * 4 + (mvx & 3), row, col, inside);
+    const uint2 p = mc_luma8(a.pl[ref] + (size_t)s * a.Hp * a.lp,
+                             (size_t)a.S * a.Hp * a.lp, a.Hp, a.Wp, a.lp, y0,
+                             x0, (mvy & 3) * 4 + (mvx & 3), row, col, inside);
     w.pred[2 * lane] = p.x, w.pred[2 * lane + 1] = p.y;
     const int y8 = 8 * r + (mvy >> 3) + a.cp, x8 = 8 * c + (mvx >> 3) + a.cp;
     const bool cin = y8 >= 0 && x8 >= 0 && y8 + 9 <= a.Hcp && x8 + 9 <= a.Wcp;
-    const int32_t* cref =
-        (lane >> 4 ? a.pv : a.pu)[ref] + (size_t)s * a.Hcp * a.Wcp;
+    const uint8_t* cref =
+        (lane >> 4 ? a.pv : a.pu)[ref] + (size_t)s * a.Hcp * a.cpitch;
     (lane >> 4 ? w.pv : w.pu)[lane & 15] =
-        mc_chroma4(cref, a.Hcp, a.Wcp, y8, x8, mvx & 7, mvy & 7,
+        mc_chroma4(cref, a.Hcp, a.Wcp, a.cpitch, y8, x8, mvx & 7, mvy & 7,
                    (lane & 15) >> 1, (lane & 1) * 4, cin);
   }
   __syncwarp();

@@ -56,16 +56,18 @@
 //
 // What bounds it on the H100: bytes.  Every MB searches every reference,
 // and its windows of the four half-pel planes tile each plane, so at
-// 1080p x 4 with one reference it must read the four int32 half-pel
-// planes and the two chroma planes over the frame's area (150.4 MB) and
-// the int32 source (50.1 MB), and write 1,184 bytes a MB (38.6 MB):
-// about 239 MB, 0.071 ms at 3.35 TB/s.  Its arithmetic, 25 candidate SADs
-// of 256 samples a MB and reference on packed bytes, is far under the
-// card's rate.  What holds it is the latency of the window loads: a
-// warp spends ~60% of its time on them (tools/time_pframe.py --phases).
-// The first design (d893870) also lost time to issue: 58 SADs of int32
-// samples from shared memory, each ending in a 5-step shuffle chain,
-// behind two dependent rounds of window loads, at 24 warps an SM.
+// 1080p x 4 with one reference it must read the four uint8 half-pel
+// planes and the two chroma planes over the frame's area (37.6 MB) and
+// the int32 source (50.1 MB), and write 1,184 bytes a MB (38.6 MB, 52
+// bytes more a MB where it writes the symbols): about 126 MB, 0.038 ms
+// at 3.35 TB/s.  Its arithmetic, 25 candidate SADs of 256 samples a MB
+// and reference on packed bytes, is far under the card's rate.  The
+// window loads are the latency to hide: read as scalar int32 samples they
+// took ~60% of a warp's time (tools/time_pframe.py --phases), hence the
+// 16-byte chunks below.  The first design (d893870) also lost time to
+// issue: 58 SADs of int32 samples from shared memory, each ending in a
+// 5-step shuffle chain, behind two dependent rounds of window loads, at
+// 24 warps an SM.
 //
 // Design: a warp per MB, kWarps MBs a block (no block barrier: a warp
 // past the last MB returns).
@@ -75,13 +77,15 @@
 //  * Per reference, one load before stage B: the 20x20 windows at (iy0 -
 //    2, ix0 - 2) of the four half-pel planes, which hold stage B's +-1
 //    and every sub-pel position around any refined vector, as bytes in
-//    shared memory (1.6 KB a reference; every half-pel sample is 0..255:
-//    G is the reference, build_halfpel_planes_ext clips b, h, j).  Each
-//    lane packs four int32 samples into a word, 16 loads at a time (all
-//    64 at once took 72 registers and ran slower); a window inside the
-//    plane (every legal vector's) takes no clamp, one that touches the
-//    border clamps every index.  Two buffers: the best reference's
-//    windows stay while the next reference's load into the other.
+//    shared memory (1.6 KB a reference).  The planes are K11's bytes,
+//    rows 16-byte aligned: a lane takes a window row of a plane (80 rows,
+//    lanes l, l + 32, l + 64), reads the 20 bytes as the two or three
+//    16-byte chunks that hold them and shifts them into the row's five
+//    words (a funnel shift by the window's column offset, the same for
+//    the whole warp).  A window inside the plane (every legal vector's)
+//    takes no clamp; one that touches the border clamps every index and
+//    reads byte by byte.  Two buffers: the best reference's windows stay
+//    while the next reference's load into the other.
 //  * Each phase (stage B's 9, the 8 half-pel, the 8 quarter-pel
 //    candidates) computes its candidates' partial SADs together, 8
 //    samples a lane: the window row's words shifted to the candidate's
@@ -108,10 +112,12 @@
 //    the static_assert below bounds the refined vectors at 71;
 //  * negative shifts and masks: mv >> 2, & 3, >> 3, & 7 stay int
 //    arithmetic (floor, two's complement), as torch's;
-//  * alignment: the half-pel planes are [S, Hp, Wp] int32 with Wp not a
-//    multiple of 4, so their loads are scalar; the source, the levels and
-//    the reconstruction are 16-byte aligned (the wrapper clones a source
-//    plane that is not);
+//  * alignment: the half-pel planes are uint8 [S, Hp, lp] with lp a
+//    multiple of 16 and every row 16-byte aligned (the wrapper raises on
+//    another layout); a chunk is never read past a row's pitch (a window
+//    inside the plane ends before Wp <= lp); the pitch bytes are never
+//    samples.  The source, the levels and the reconstruction are 16-byte
+//    aligned (the wrapper clones a source plane that is not);
 //  * multi-reference: up to sixteen references' pointers (unused ones
 //    repeat reference 0's), a reference's winners at [n, S, R, C]; N is 1
 //    right after an IDR, and ref_base is the temporal-layer session's
@@ -141,8 +147,8 @@ struct EncArgs {
   const int32_t *y, *u, *v;            // source [S,H,W], [S,H/2,W/2] x 2
   const int32_t *iy0, *ix0;            // stage A winners [N, S, R, C]
   const int32_t *gy, *gx;              // global vectors [N, S]
-  const int32_t *pl[kMaxRefs];         // half-pel planes [4, S, Hp, Wp]
-  const int32_t *pu[kMaxRefs], *pv[kMaxRefs];  // chroma [S, Hcp, Wcp]
+  const uint8_t *pl[kMaxRefs];         // half-pel planes [4, S, Hp, lp]
+  const uint8_t *pu[kMaxRefs], *pv[kMaxRefs];  // chroma [S, Hcp, cp]
   int32_t *mvx, *mvy, *refsel, *sad, *kind, *refidx, *cbp_l, *cbp_c;
   int16_t *luma_ac, *chroma_dc, *chroma_ac;
   void *ry, *ru, *rv;                  // int32 MBs (mb_out) or uint8 planes
@@ -151,11 +157,12 @@ struct EncArgs {
   int32_t *mvdx, *mvdy, *mode, *cmode, *t8;
   int16_t *luma_dc;
   int S, R, C, N, Hp, Wp, Hcp, Wcp, pe, cp, qp, qpc, lam, ref_base, mb_out;
+  int lp, cpitch;                      // the planes' row pitches, bytes
   int ref_cost[kMaxRefs];              // lam * ref_idx_bits of reference n
 };
 
 constexpr int kPtrs = 3 + 4 + 3 * kMaxRefs + 8 + 3 + 3 + 6;  // 75
-constexpr int kInts = 15 + kMaxRefs;                      // 31
+constexpr int kInts = 17 + kMaxRefs;                      // 33
 
 // The arguments from the entry's pointer and int arrays, in the order
 // kernels/pframe.py `_k9_launch` builds them.
@@ -164,12 +171,13 @@ inline EncArgs enc_args(void* const* p, const int* n) {
   auto in = [p](int i) { return static_cast<const int32_t*>(p[i]); };
   auto out = [p](int i) { return static_cast<int32_t*>(p[i]); };
   auto lev = [p](int i) { return static_cast<int16_t*>(p[i]); };
+  auto pln = [p](int i) { return static_cast<const uint8_t*>(p[i]); };
   a.y = in(0), a.u = in(1), a.v = in(2);
   a.iy0 = in(3), a.ix0 = in(4), a.gy = in(5), a.gx = in(6);
   for (int k = 0; k < kMaxRefs; ++k) {
-    a.pl[k] = in(7 + k);
-    a.pu[k] = in(7 + kMaxRefs + k);
-    a.pv[k] = in(7 + 2 * kMaxRefs + k);
+    a.pl[k] = pln(7 + k);
+    a.pu[k] = pln(7 + kMaxRefs + k);
+    a.pv[k] = pln(7 + 2 * kMaxRefs + k);
   }
   const int o = 7 + 3 * kMaxRefs;  // the outputs
   a.mvx = out(o), a.mvy = out(o + 1), a.refsel = out(o + 2);
@@ -182,7 +190,8 @@ inline EncArgs enc_args(void* const* p, const int* n) {
   a.S = n[0], a.R = n[1], a.C = n[2], a.N = n[3], a.Hp = n[4], a.Wp = n[5];
   a.Hcp = n[6], a.Wcp = n[7], a.pe = n[8], a.cp = n[9], a.qp = n[10];
   a.qpc = n[11], a.lam = n[12], a.ref_base = n[13], a.mb_out = n[14];
-  for (int k = 0; k < kMaxRefs; ++k) a.ref_cost[k] = n[15 + k];
+  a.lp = n[15], a.cpitch = n[16];
+  for (int k = 0; k < kMaxRefs; ++k) a.ref_cost[k] = n[17 + k];
   return a;
 }
 static_assert(7 + 3 * kMaxRefs + 20 == kPtrs, "pointer count");
@@ -202,32 +211,59 @@ struct WarpMem {
   alignas(16) int16_t cac[120];
 };
 
+// A window row's five words from the chunks c[0..11] that hold it: the
+// row starts at byte 4Q + sh / 8 of c (Q the word, sh its bit offset).
+template <int Q>
+__device__ __forceinline__ void shift_row(const uint32_t* c, int sh,
+                                          uint32_t* dst) {
+#pragma unroll
+  for (int i = 0; i < kWinWords; ++i)
+    dst[i] = __funnelshift_r(c[Q + i], c[Q + i + 1], sh);
+}
+
 // The 20x20 windows of one reference's four half-pel planes (stream s's
-// G plane `g`, the others lstride on) at plane-space (y0, x0), into
-// `win` as bytes: lane l packs words l, l + 32, .. of each plane's 100.
-// A window inside the plane reads without the clamp.
-__device__ __forceinline__ void load_windows(uint32_t* win, const int32_t* g,
+// G plane `g`, the others lstride on, rows lp bytes apart) at
+// plane-space (y0, x0), into `win` as bytes: job j is row j % 20 of plane
+// j / 20, lane l takes jobs l, l + 32, l + 64 of the 80.  A window inside
+// the plane reads a row as the 16-byte chunks from column x0 & ~15 that
+// hold it (a third only where the row reaches it: never past Wp <= lp)
+// and shifts them into place; one that touches the border clamps every
+// index and reads byte by byte.
+__device__ __forceinline__ void load_windows(uint32_t* win, const uint8_t* g,
                                              size_t lstride, int y0, int x0,
-                                             int hp, int wp, int lane) {
+                                             int hp, int wp, int lp,
+                                             int lane) {
   const bool inside = y0 >= 0 && x0 >= 0 && y0 + kWin <= hp && x0 + kWin <= wp;
+  const int q = (x0 >> 2) & 3, sh = 8 * (x0 & 3);
+  const bool third = (x0 & 15) + kWin > 32;
 #pragma unroll 1  // unrolled, its loads would take as many registers
-  for (int k = 0; k < 4; ++k) {
-    const int i = lane + 32 * k;
-    if (i < kPlaneWords) {
-      const int y = y0 + i / kWinWords, x = x0 + 4 * (i % kWinWords);
+  for (int k = 0; k < 3; ++k) {
+    const int job = lane + 32 * k;
+    if (job >= 4 * kWin) break;
+    const int p = job / kWin, y = job - p * kWin;
+    const uint8_t* pg = g + p * lstride;
+    uint32_t* dst = win + p * kPlaneWords + y * kWinWords;
+    if (inside) {
+      const uint4* r = reinterpret_cast<const uint4*>(
+          pg + (size_t)(y0 + y) * lp + (x0 & ~15));
+      const uint4 a = r[0], b = r[1];
+      const uint4 e = third ? r[2] : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t c[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                              b.z, b.w, e.x, e.y, e.z, e.w};
+      switch (q) {  // the same for the whole warp
+        case 0: shift_row<0>(c, sh, dst); break;
+        case 1: shift_row<1>(c, sh, dst); break;
+        case 2: shift_row<2>(c, sh, dst); break;
+        default: shift_row<3>(c, sh, dst); break;
+      }
+    } else {
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const int32_t* q = g + p * lstride;
-        int v[4];
-        if (inside) {
-          const int32_t* r = q + (size_t)y * wp + x;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = r[j];
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = at(q, y, x + j, hp, wp);
-        }
-        win[p * kPlaneWords + i] = pack_bytes(v[0], v[1], v[2], v[3]);
+      for (int i = 0; i < kWinWords; ++i) {
+        const int x = x0 + 4 * i;
+        dst[i] = pack_bytes(at(pg, y0 + y, x, hp, wp, lp),
+                            at(pg, y0 + y, x + 1, hp, wp, lp),
+                            at(pg, y0 + y, x + 2, hp, wp, lp),
+                            at(pg, y0 + y, x + 3, hp, wp, lp));
       }
     }
   }
@@ -277,8 +313,9 @@ __global__ void __launch_bounds__(32 * kWarps)
   WarpMem& w = smem[warp];
   const int s = m / rc, r = (m % rc) / a.C, c = m % a.C;
   const int H = 16 * a.R, W = 16 * a.C, Hc = H / 2, Wc = W / 2;
-  const size_t lstride = (size_t)a.S * a.Hp * a.Wp;
-  const size_t lso = (size_t)s * a.Hp * a.Wp, cso = (size_t)s * a.Hcp * a.Wcp;
+  const size_t lstride = (size_t)a.S * a.Hp * a.lp;
+  const size_t lso = (size_t)s * a.Hp * a.lp;
+  const size_t cso = (size_t)s * a.Hcp * a.cpitch;
   const int row = lane >> 1, col = (lane & 1) * 8;  // the lane's 8 samples
   const int crow = (lane & 15) >> 1, ccol = (lane & 1) * 4;  // its chroma 4
 
@@ -305,7 +342,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     const uint32_t* win = w.win[cur];
     __syncwarp();  // the reads of the windows there are done
     load_windows(w.win[cur], a.pl[n] + lso, lstride, 16 * r + iy0 - 2 + a.pe,
-                 16 * c + ix0 - 2 + a.pe, a.Hp, a.Wp, lane);
+                 16 * c + ix0 - 2 + a.pe, a.Hp, a.Wp, a.lp, lane);
     __syncwarp();
 
     // stage B: 3x3 full-pel refine on G, raster order, strict <
@@ -367,10 +404,10 @@ __global__ void __launch_bounds__(32 * kWarps)
     const int y8 = 8 * r + (mvy >> 3) + a.cp, x8 = 8 * c + (mvx >> 3) + a.cp;
     const bool inside =
         y8 >= 0 && x8 >= 0 && y8 + 9 <= a.Hcp && x8 + 9 <= a.Wcp;
-    const int32_t* cref = (lane >> 4 ? a.pv : a.pu)[best_ref] + cso;
+    const uint8_t* cref = (lane >> 4 ? a.pv : a.pu)[best_ref] + cso;
     (lane >> 4 ? w.pv : w.pu)[lane & 15] =
-        mc_chroma4(cref, a.Hcp, a.Wcp, y8, x8, mvx & 7, mvy & 7, crow, ccol,
-                   inside);
+        mc_chroma4(cref, a.Hcp, a.Wcp, a.cpitch, y8, x8, mvx & 7, mvy & 7,
+                   crow, ccol, inside);
   }
   __syncwarp();
 

@@ -112,7 +112,6 @@ def load() -> ctypes.CDLL:
                                         _deps(), _command)
         lib = ctypes.CDLL(LIB)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.th264_sad_field.argtypes = [p, p, p, i, i, i, p]
         lib.th264_pack_blocks.argtypes = [p, p, p, p, p, p, p, p, i64, i, i, p]
         lib.th264_merge_tree.argtypes = [p, p, p, p, i64, i, i, i, p]
         lib.th264_deblock_rows.argtypes = [p] * 12 + [i, i, i, i, p]
@@ -124,16 +123,17 @@ def load() -> ctypes.CDLL:
             [p] * 3 + [i] + [p] * 12 + [i] * 5 + [p])
         lib.th264_wavefront_decode.argtypes = [p] * 11 + [i] * 5 + [p]
         lib.th264_wavefront_plan.argtypes = [i, i, p]
-        # K5, K9-K14 and the K2 / K3 entries on the symbols: a host array
-        # of device pointers, one of ints, the stream
-        arrays = (lib.th264_intra_recon_rows, lib.th264_pframe_encode,
-                  lib.th264_pframe_decode, lib.th264_halfpel_refs,
-                  lib.th264_me_winner, lib.th264_cavlc_prologue,
+        # K1, K5, K9-K14 and the K2 / K3 entries on the symbols: a host
+        # array of device pointers, one of ints, the stream
+        arrays = (lib.th264_sad_field, lib.th264_intra_recon_rows,
+                  lib.th264_pframe_encode, lib.th264_pframe_decode,
+                  lib.th264_halfpel_refs, lib.th264_me_winner,
+                  lib.th264_cavlc_prologue,
                   lib.th264_pack_symbols, lib.th264_merge_slices,
                   lib.th264_sse)
         for fn in arrays:
             fn.argtypes = [p, p, p]
-        for fn in (lib.th264_sad_field, lib.th264_pack_blocks,
+        for fn in (lib.th264_pack_blocks,
                    lib.th264_merge_tree, lib.th264_deblock_rows,
                    lib.th264_intra16_encode_rows,
                    lib.th264_intra16_in_p_rows, lib.th264_wavefront_encode,
@@ -166,6 +166,31 @@ def check_inputs(name: str, device, specs, dtype=torch.int32) -> None:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def check_plane(name: str, device, t: torch.Tensor, shape) -> int:
+    """Raise unless `t` is a plane as `pframe._references` lays it out: on
+    the CUDA `device`, uint8, of `shape` ([4, S, Hp, Wp], [S, Hp, Wp] or
+    [S, Hcp, Wcp]), its rows a pitch of a multiple of 16 bytes (at least
+    the width) apart, its planes and streams one after another, its base
+    16-byte aligned.  Returns the pitch."""
+    if t.device != device or t.device.type != "cuda":
+        raise ValueError(f"{name}: every plane must be on one CUDA device "
+                         f"({device}), got {t.device}")
+    if t.dtype != torch.uint8:
+        raise TypeError(f"{name}: planes must be uint8, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: plane shape {tuple(t.shape)} != {shape}")
+    pitch = t.stride(-2)
+    want = [1, pitch]
+    for k in range(t.dim() - 2, 0, -1):
+        want.append(want[-1] * t.shape[k])
+    if (tuple(t.stride()) != tuple(reversed(want)) or pitch % 16
+            or pitch < t.shape[-1] or t.data_ptr() % 16):
+        raise ValueError(f"{name}: a plane of strides {t.stride()} at "
+                         f"{t.data_ptr() % 16} past 16-byte alignment is "
+                         "not laid out as `pframe._references` lays it out")
+    return pitch
 
 
 def stream(device) -> ctypes.c_void_p:

@@ -48,11 +48,13 @@ def sad_field(y: torch.Tensor, gplane: torch.Tensor) -> torch.Tensor:
     """Stage-A SAD table [S, R, C, 289] int32.
 
     y [S, h, w] int32, the full-resolution source (even rows and columns
-    are read); gplane [S, h+26, w+26] int32, the G half-pel plane.
+    are read); gplane [S, h+26, w+26], the G half-pel plane: on the card
+    the uint8 view `pframe._references` returns (rows 16-byte aligned, a
+    pitch of a multiple of 16 bytes: the kernel reads it 16 bytes at a
+    time; any other layout raises), on the CPU any integer plane.
 
-    Precondition of the kernel: every sample of y and gplane lies in
-    [0, 255] -- true of every plane the P path builds (uint8 sources,
-    half-pel planes clamped in `pframe.build_halfpel_planes`); the kernel
+    Precondition of the kernel: every sample of y lies in [0, 255] --
+    true of every source the P path encodes (uint8 pictures); the kernel
     packs samples four to a 32-bit word (csrc/me_sad.cu).  The plain
     version takes any int32."""
     s, h, w = y.shape
@@ -60,16 +62,24 @@ def sad_field(y: torch.Tensor, gplane: torch.Tensor) -> torch.Tensor:
         return _sad_field(y[:, ::2, ::2], gplane, h, w)
     if h % 16 or w % 16:
         raise ValueError(f"sad_field: frame {h}x{w} is not whole MBs")
-    cuda_lib.check_inputs("sad_field", y.device, [
-        (y, (s, h, w)), (gplane, (s, h + 2 * PE, w + 2 * PE))])
+    cuda_lib.check_inputs("sad_field", y.device, [(y, (s, h, w))])
+    cuda_lib.check_plane("sad_field", y.device, gplane,
+                         (s, h + 2 * PE, w + 2 * PE))
     out = torch.empty((s, h // 16, w // 16, NN), dtype=torch.int32,
                       device=y.device)
     err = cuda_lib.load().th264_sad_field(
-        y.data_ptr(), gplane.data_ptr(), out.data_ptr(), s, h, w,
-        cuda_lib.stream(y.device))
+        cuda_lib.pointers([y, gplane, out]), cuda_lib.ints(
+            _k1_ints(y, gplane)), cuda_lib.stream(y.device))
     cuda_lib.check(err, "th264_sad_field")
     sad_field.launches += 1
     return out
 
 
 sad_field.launches = 0  # launches of the K1 kernel
+
+
+def _k1_ints(y: torch.Tensor, gplane: torch.Tensor) -> list:
+    """K1's ints in its entry's order (csrc/me_sad.cu `sad_args`): S, H,
+    W and the G plane's pitch."""
+    s, h, w = y.shape
+    return [s, h, w, gplane.stride(-2)]

@@ -43,6 +43,10 @@ Ties keep the first candidate in raster order everywhere
 
 The references come as [N, S, H, W] tensors or as the N references'
 planes newest first (a DPB ring's slots), which K11 reads by pointer.
+Their half-pel and chroma planes (`_references`) are uint8 with every row
+16-byte aligned, its pitch the width rounded up to 16 bytes: K1, K9 and
+K10 read them as bytes, 16 (or 4) at a time, and take the pitches as
+arguments; the plain versions widen them to int32 before any sum.
 
 The decoder's inter part, `_inter_decode` (K10 on the card,
 csrc/pframe_dec.cu, reading each symbol field with its MB stride;
@@ -233,17 +237,17 @@ def _mb_origin(s, r, c, mb, device):
 
 def _gather_win(planes: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
                 win: int) -> torch.Tensor:
-    """Per-MB windows: planes [P, S, Hp, Wp]; y0/x0 [S,R,C] plane-space
-    top-left corners -> [P, S, R, C, win, win] (indices clamped in-plane;
-    legal motion never reaches the clamp)."""
+    """Per-MB windows: planes [P, S, Hp, Wp] (any strides: the uint8 views
+    `_references` returns); y0/x0 [S,R,C] plane-space top-left corners ->
+    int32 [P, S, R, C, win, win] (indices clamped in-plane; legal motion
+    never reaches the clamp)."""
     p, s, hp, wp = planes.shape
     dev = planes.device
     k = torch.arange(win, device=dev)
     rows = (y0.long()[..., None] + k).clamp(0, hp - 1)        # [S,R,C,win]
     cols = (x0.long()[..., None] + k).clamp(0, wp - 1)
-    base = (torch.arange(s, device=dev) * (hp * wp)).view(s, 1, 1, 1, 1)
-    flat = base + rows[..., :, None] * wp + cols[..., None, :]
-    return planes.reshape(p, -1)[:, flat]
+    sidx = torch.arange(s, device=dev).view(s, 1, 1, 1, 1)
+    return planes[:, sidx, rows[..., :, None], cols[..., None, :]].to(I32)
 
 
 def _luma_win(planes, iy, ix, off: int, win: int):
@@ -476,7 +480,8 @@ def _subpel_refine(w2, src_mbs, iy, ix, lam: int, gqx, gqy):
 def _mc_luma(planes4, mvx, mvy):
     """Quarter-pel luma prediction [S,R,C,16,16]: each sample is the
     rounded average of two half-pel plane components (8.4.2.2.1), read
-    by per-MB gathers at the (plane, offset) the fraction selects."""
+    by per-MB gathers at the (plane, offset) the fraction selects and
+    widened to int32 before the sum (the planes are uint8)."""
     s, r, c = mvx.shape
     _, _, hp, wp = planes4.shape
     dev = mvx.device
@@ -485,17 +490,14 @@ def _mc_luma(planes4, mvx, mvy):
     y0 = oy + (mvy >> 2).long() + _PE
     x0 = ox + (mvx >> 2).long() + _PE
     k = torch.arange(16, device=dev)
-    flat_planes = planes4.reshape(-1)
-    sbase = (torch.arange(s, device=dev) * (hp * wp)).view(s, 1, 1)
+    sidx = torch.arange(s, device=dev).view(s, 1, 1, 1, 1)
     comps = []
     for i in range(2):
         pl, dy, dx = lut[..., i, 0], lut[..., i, 1], lut[..., i, 2]
-        base = pl * (s * hp * wp) + sbase
         rows = ((y0 + dy)[..., None] + k).clamp(0, hp - 1)
         cols = ((x0 + dx)[..., None] + k).clamp(0, wp - 1)
-        flat = (base[..., None, None] + rows[..., :, None] * wp
-                + cols[..., None, :])
-        comps.append(flat_planes[flat])
+        comps.append(planes4[pl[..., None, None], sidx, rows[..., :, None],
+                             cols[..., None, :]].to(I32))
     return (comps[0] + comps[1] + 1) >> 1
 
 
@@ -532,18 +534,22 @@ def _mc_all(planes_l, refs_up, refs_vp, mvx, mvy, refsel):
 
 def _references(refs_y, refs_u, refs_v, halo: bool):
     """Per reference of the DPB refs_y [N, S, Hs, W], refs_u / refs_v [N,
-    S, Hcs, W/2] (int32 or uint8; or each a sequence of the N references'
-    [S, ...] planes, newest first, e.g. the slots of a DPB ring): the
-    stacked half-pel planes [4, S, Hp, Wp] (G, b, h, j; pad _PE) and the
-    chroma planes [S, Hcp, Wcp] (pad _CP), int32, as three lists.  Without
-    `halo` the frame's edge rows stand in for the halo (the normative Clip3
-    clamp); with it the references arrive extended by HALO_Y / HALO_C rows
-    a side.
+    S, Hcs, W/2] (int32 or uint8, samples 0..255; or each a sequence of
+    the N references' [S, ...] planes, newest first, e.g. the slots of a
+    DPB ring): the stacked half-pel planes [4, S, Hp, Wp] (G, b, h, j; pad
+    _PE) and the chroma planes [S, Hcp, Wcp] (pad _CP), as three lists.
+    Without `halo` the frame's edge rows stand in for the halo (the
+    normative Clip3 clamp); with it the references arrive extended by
+    HALO_Y / HALO_C rows a side.
+
+    The planes are uint8 views of one [N, 4, S, Hp, pitch] and one [N, 2,
+    S, Hcp, pitch_c] buffer (`_plane_buffers`): every row starts 16-byte
+    aligned, its pitch the plane's width rounded up to 16 bytes; the bytes
+    past the width are no samples.  Both routes return that layout.
 
     CPU tensors take the plain version; CUDA tensors launch K11
     (csrc/halfpel.cu, one launch over all N references, each read by its
-    own pointer: the lists are views of one [N, 4, S, Hp, Wp] and one [N,
-    2, S, Hcp, Wcp] buffer) or raise."""
+    own pointer) or raise."""
     if refs_y[0].device.type == "cpu":
         return _references_plain(refs_y, refs_u, refs_v, halo)
     out = _k11_launch(refs_y, refs_u, refs_v, halo)
@@ -554,11 +560,36 @@ def _references(refs_y, refs_u, refs_v, halo: bool):
 _references.launches = 0  # launches of K11
 
 
+def _pitch(width: int) -> int:
+    """A plane row's bytes: `width` rounded up to a multiple of 16."""
+    return -(-width // 16) * 16
+
+
+def _plane_buffers(n: int, s: int, hp: int, wp: int, hcp: int, wcp: int,
+                   device):
+    """The uninitialised uint8 buffers of N references' planes: luma [N,
+    4, S, Hp, _pitch(Wp)] and chroma [N, 2, S, Hcp, _pitch(Wcp)]."""
+    u8 = torch.uint8
+    return (torch.empty((n, 4, s, hp, _pitch(wp)), dtype=u8, device=device),
+            torch.empty((n, 2, s, hcp, _pitch(wcp)), dtype=u8, device=device))
+
+
+def _plane_views(luma: torch.Tensor, chroma: torch.Tensor, wp: int,
+                 wcp: int):
+    """`_references`' three lists: the views of `_plane_buffers`' buffers
+    that hold samples (the first wp / wcp bytes of every row)."""
+    n = luma.shape[0]
+    return ([luma[i, ..., :wp] for i in range(n)],
+            [chroma[i, 0, :, :, :wcp] for i in range(n)],
+            [chroma[i, 1, :, :, :wcp] for i in range(n)])
+
+
 def _k11_operands(refs_y, refs_u, refs_v, halo: bool):
     """K11's operands in its entry's order (csrc/halfpel.cu `ref_args`):
     (input tensors -- _MAX_REFS of each plane, None past the N references
-    --, output tensors, ints); the outputs freshly allocated on the
-    inputs' device.  Raises where the planes disagree."""
+    --, output tensors -- `_plane_buffers`' two --, ints); the outputs
+    freshly allocated on the inputs' device.  Raises where the planes
+    disagree."""
     name = "_references"
     ys, us, vs = list(refs_y), list(refs_u), list(refs_v)
     n = len(ys)
@@ -570,7 +601,7 @@ def _k11_operands(refs_y, refs_u, refs_v, halo: bool):
     hcs, wc = us[0].shape[-2:]
     oy, oyc = (0, 0) if halo else (HALO_Y, HALO_C)
     h = hs - 2 * (HALO_Y - oy)
-    if (not n * s * hs * w or h <= 0 or h % 2 or w % 2
+    if (not n * s * hs * w or h <= 0 or h % 2 or w % 16
             or tuple(us[0].shape) != (s, h // 2 + 2 * (HALO_C - oyc),
                                       w // 2)
             or any(x.shape != ys[0].shape for x in ys)
@@ -582,46 +613,50 @@ def _k11_operands(refs_y, refs_u, refs_v, halo: bool):
     fill = [None] * (_MAX_REFS - n)
     ins = [None if x is None else x.contiguous() if u8
            else x.to(I32).contiguous() for p in (ys, us, vs) for x in p + fill]
-    dev = ys[0].device
-    outs = [torch.empty((n, 4, s, hs + 2 * oy, w + 2 * _PE), dtype=I32,
-                        device=dev),
-            torch.empty((n, 2, s, hcs + 2 * oyc, wc + 2 * _CP), dtype=I32,
-                        device=dev)]
-    return ins, outs, [n, s, hs, w, oy, hcs, wc, oyc, int(u8)]
+    hp, wp, hcp, wcp = hs + 2 * oy, w + 2 * _PE, hcs + 2 * oyc, wc + 2 * _CP
+    outs = list(_plane_buffers(n, s, hp, wp, hcp, wcp, ys[0].device))
+    return ins, outs, [n, s, hs, w, oy, hcs, wc, oyc, int(u8),
+                       outs[0].shape[-1], outs[1].shape[-1]]
 
 
 def _k11_launch(refs_y, refs_u, refs_v, halo: bool):
-    """One launch of K11 (see `_references`); raises on a bad input or a
-    failed build or launch."""
+    """One launch of K11 (see `_references`); raises on a bad input (a
+    reference plane not 16-byte aligned among them: the kernel reads
+    them 8 and 16 bytes at a time) or a failed build or launch."""
     ins, outs, ints = _k11_operands(refs_y, refs_u, refs_v, halo)
     live = [x for x in ins if x is not None]
     cuda_lib.check_inputs("_references", live[0].device, [
         (x, x.shape) for x in live], dtype=live[0].dtype)
+    if any(x.data_ptr() % 16 for x in live):
+        raise ValueError("_references: every reference plane must be "
+                         "16-byte aligned")
     err = cuda_lib.load().th264_halfpel_refs(
         cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
         cuda_lib.stream(live[0].device))
     cuda_lib.check(err, "th264_halfpel_refs")
-    planes, chroma = outs
-    n = planes.shape[0]
-    return ([planes[i] for i in range(n)], [chroma[i, 0] for i in range(n)],
-            [chroma[i, 1] for i in range(n)])
+    return _plane_views(*outs, ints[3] + 2 * _PE, ints[6] + 2 * _CP)
 
 
 def _references_plain(refs_y, refs_u, refs_v, halo: bool):
     """Plain version of `_references` (same arguments): the references
     stacked newest first, the edge pad, then per reference
-    `build_halfpel_planes_ext` and `_pad_ref_ext`."""
+    `build_halfpel_planes_ext` and `_pad_ref_ext` in int32, narrowed to
+    uint8 into `_plane_buffers`' layout."""
     refs_y, refs_u, refs_v = (x if torch.is_tensor(x) else torch.stack(
         list(x)) for x in (refs_y, refs_u, refs_v))
     if not halo:
         refs_y = _edge_pad(refs_y, HALO_Y, 0)
         refs_u = _edge_pad(refs_u, HALO_C, 0)
         refs_v = _edge_pad(refs_v, HALO_C, 0)
-    n_refs = refs_y.shape[0]
-    return ([torch.stack(build_halfpel_planes_ext(refs_y[n]), 0)
-             for n in range(n_refs)],
-            [_pad_ref_ext(refs_u[n], _CP) for n in range(n_refs)],
-            [_pad_ref_ext(refs_v[n], _CP) for n in range(n_refs)])
+    n, s, hp, w = refs_y.shape
+    hcp, wc = refs_u.shape[-2:]
+    wp, wcp = w + 2 * _PE, wc + 2 * _CP
+    luma, chroma = _plane_buffers(n, s, hp, wp, hcp, wcp, refs_y.device)
+    for i in range(n):
+        luma[i, ..., :wp] = torch.stack(build_halfpel_planes_ext(refs_y[i]))
+        chroma[i, 0, ..., :wcp] = _pad_ref_ext(refs_u[i], _CP)
+        chroma[i, 1, ..., :wcp] = _pad_ref_ext(refs_v[i], _CP)
+    return _plane_views(luma, chroma, wp, wcp)
 
 
 # ---------------------------------------------------------------------------
@@ -810,15 +845,20 @@ def _ref_planes(planes_l, refs_up, refs_vp):
 
 def _check_refs(name, dev, planes_l, refs_up, refs_vp, s, h: int, w: int):
     """Raise unless there are 1 to _MAX_REFS references whose planes have
-    the geometry `_references` gives (pads _PE and _CP) for [s, h, w]
-    frames."""
+    the geometry and the layout `_references` gives (pads _PE and _CP,
+    uint8, 16-byte aligned rows, one pitch for every luma plane and one
+    for every chroma plane) for [s, h, w] frames."""
     n = len(planes_l)
     if not 1 <= n <= _MAX_REFS or len(refs_up) != n or len(refs_vp) != n:
         raise ValueError(f"{name}: 1 to {_MAX_REFS} references, got {n}")
-    cuda_lib.check_inputs(name, dev, [
-        *[(p, (4, s, h + 2 * _PE, w + 2 * _PE)) for p in planes_l],
-        *[(p, (s, h // 2 + 2 * _CP, w // 2 + 2 * _CP))
-          for p in (*refs_up, *refs_vp)]])
+    luma = (4, s, h + 2 * _PE, w + 2 * _PE)
+    chroma = (s, h // 2 + 2 * _CP, w // 2 + 2 * _CP)
+    lp = {cuda_lib.check_plane(name, dev, p, luma) for p in planes_l}
+    cp = {cuda_lib.check_plane(name, dev, p, chroma)
+          for p in (*refs_up, *refs_vp)}
+    if len(lp) != 1 or len(cp) != 1:
+        raise ValueError(f"{name}: the references' planes differ in pitch "
+                         f"(luma {sorted(lp)}, chroma {sorted(cp)})")
 
 
 def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
@@ -854,7 +894,8 @@ def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
     ins = [*src, iy0, ix0, gy, gx, *_ref_planes(planes_l, refs_up, refs_vp)]
     ints = [s, r, c, n, h + 2 * _PE, w + 2 * _PE, h // 2 + 2 * _CP,
             w // 2 + 2 * _CP, _PE, _CP, qp, T.chroma_qp_from_luma(qp), lam,
-            ref_base, int(intra_in_p), *ref_cost]
+            ref_base, int(intra_in_p), planes_l[0].stride(-2),
+            refs_up[0].stride(-2), *ref_cost]
     outs += ([None] * 6 if out is None else [
         out.mvdx, out.mvdy, out.mode, out.cmode, out.t8, out.luma_dc])
     return ins, outs, ints
@@ -1156,7 +1197,8 @@ def _k10_operands(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
     h, w = 16 * r, 16 * c
     ints = [s, r, c, len(planes_l), h + 2 * _PE, w + 2 * _PE,
             h // 2 + 2 * _CP, w // 2 + 2 * _CP, _PE, _CP, qp,
-            T.chroma_qp_from_luma(qp), *[k for _, k in fields]]
+            T.chroma_qp_from_luma(qp), planes_l[0].stride(-2),
+            refs_up[0].stride(-2), *[k for _, k in fields]]
     return ins, outs, ints
 
 
