@@ -18,8 +18,10 @@ tpuh264_torch/csrc, then:
      MB rows pipelined), K9 (the P encode after stage A: refinement,
      reference choice, MC, inter coding), K10 (the P decode's MV
      chain, MC and inter residuals), K11 (the reference build: half-pel
-     planes and padded chroma) and K12 (the stage-A winner) against their
-     plain
+     planes and padded chroma), K12 (the stage-A winner) and K15 (the
+     device source, each kind, also on `K15_EDGES`: one MB, an odd MB
+     count, S = 1, k = 1 and 4, t = 0 and past sinf's fast path) against
+     their plain
      PyTorch versions on the card (exact equality) at the main path's
      1920x1080 x 4 shapes (K4: an encoded I frame and P frame; K5: the
      decoders' own inputs of that P frame and of its IDR, the residuals
@@ -36,7 +38,11 @@ tpuh264_torch/csrc, then:
      K = 57); K4 on seeded edge cases (`d1_case`: C = 1, odd S / R / C,
      an even C of 16, MV steps 3 / 4 / 5, refidx 0..3, random t8,
      all-intra, qp 0 .. 51) and on config-3 symbols (the 8x8 transform,
-     intra-in-P) at 854x480 x 8; K5 on seeded cases (`d2_case`: C = 1,
+     intra-in-P) at 854x480 x 8, its ring entry (uint8 planes in, a ring
+     slot out, the coded 4x4 blocks from the levels) on those frames, on
+     the P frame's record views and on every D1 case (`d1_ring_args`:
+     the fields as record views and apart), held
+     to the plain deblock on `deblock_nnz`'s grid; K5 on seeded cases (`d2_case`: C = 1,
      2, 3 and 61, intra shares 0 / ~1% / 50% / 100% and the I decode, DC
      and H mixes, clips at 0 and 255, H modes in column 0, which no legal
      stream codes, levels the cbps mask out, QPs 0, 32 and 51) and on a
@@ -90,9 +96,12 @@ tpuh264_torch/csrc, then:
   4. drives the main path -- GOPDevicePipeline, 1920x1080 x 4 streams, CBR
      4 Mbps, RTC preset, gop 8, "rigid" source -- for 3 dispatches
      (crossing an IDR): after every dispatch the decode-from-bits DPB
-     equals the encoder DPB bit for bit (both sides deblock with K4), K3
+     equals the encoder DPB bit for bit (both sides deblock with K4), K15
+     once a dispatch, K3
      launched twice (MB and slice level) per entropy call: 4 times per
-     IDR dispatch, 2 per interior one, K4 8 times per dispatch, K5
+     IDR dispatch, 2 per interior one, K4's ring entry 8 times per
+     dispatch (each frame into its ring slot), K14 4 times (a decoded
+     frame each), K5
      4 times (once a decoded frame, the IDR's included) and K6 once a
      GOP-start dispatch (its I frame);
   5. runs `run()` briefly at that configuration and at 854x480 x 8 streams
@@ -183,8 +192,9 @@ tpuh264_torch/csrc, then:
 
 Every path of phases 4 and 6-16 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
-launched every kernel it runs (phase 12 and the general stream have no
-P frame on the fast path, so no K1; K7 and K8 run on phase 12 alone
+launched every kernel it runs (K15 on every path with a device source:
+phases 4, 6, 7, 9, 10, 14, 15's flagship and 16(e); phase 12 and the
+general stream have no P frame on the fast path, so no K1; K7 and K8 run on phase 12 alone
 (and in phase 3's single-slice session case); the deblock runs on every GOP
 pipeline and on the sessions with `deblock=True`; K5 on every path that
 decodes but the wavefront's, phase 16(a)'s halo decodes too; K6 on
@@ -193,8 +203,8 @@ intra-in-P, phase 16(a)'s ranks too; K9 on every path that encodes a P
 frame and K10 on every path that decodes one, but config 3's; K11 on every
 path that encodes or decodes a P frame, K12 on every one that encodes
 one, config 3 and phase 16(a)'s halo ranks included), and none may
-reach the plain version of K1, K3, K4, K5, K6, K7, K8, K9, K10, K11 or
-K12
+reach the plain version of K1, K3, K4 (either entry), K5, K6, K7, K8, K9,
+K10, K11, K12, K13, K14 or K15, nor `deblock_nnz` or a plane copy for K4
 (K5's plain version with `i44`, the Intra_4x4 reconstruction, and D3's
 with `intra44`, the Intra_4x4 trial, are the session path's own; K9's
 and K10's with `t8`, the 8x8 transform's choice of config 3, too, and
@@ -307,16 +317,18 @@ def _plain_spy(name, f, calls, exempt=None):
 
 
 class Launches:
-    """The fourteen kernels' launch counts (K1, K2 and K3: each its two
-    entries' counts summed, K4 = the deblock D1,
+    """The fifteen kernels' launch counts (K1, K2, K3 and K4: each its two
+    entries' counts summed, K4 = the deblock D1 (its counts entry
+    `deblock_frame_rows` and its ring entry `deblock_ring`, the one every
+    path takes, printed apart),
     K5 = the intra reconstruction D2, K6 = the Intra_16x16 encode scans
     D3 and D4: its two routers' counts summed, K7 / K8 = the single-slice
     wavefront's encode / decode, K9 = the P encode after stage A, K10 =
     the P decode's inter part, K11 = the reference build, K12 = the
     stage-A winner: its calls, two launches each, K13 = the CAVLC
-    prologue, K14 = the decoder's SSE), zeroed before and read
-    after each path the smoke drives; summed over those paths for the
-    kernel table.  The plain versions of K1 (`_sad_field`), K3
+    prologue, K14 = the decoder's SSE, K15 = the device source), zeroed
+    before and read after each path the smoke drives; summed over those
+    paths for the kernel table.  The plain versions of K1 (`_sad_field`), K3
     (`tree_merge`), K4 (`_deblock_rows_plain`), K5
     (`_intra_recon_scan_plain` without `i44`; with it, the Intra_4x4
     reconstruction, it is the path's own), K6 (`_encode_iframe_scan_plain`
@@ -325,14 +337,20 @@ class Launches:
     K9 (`_inter_encode_plain` without `t8`), K10 (`_inter_decode_plain`
     without `t8`), K11 (`_references_plain`), K12 (`_int_winner_plain`),
     K13 (`_prologue_plain`), K2's and K3's entries on the symbols
-    (`_pack_symbols_plain`, `_merge_slices_plain`) and K14 (`_sse_plain`)
-    are counted too: none may run on a path.  The
+    (`_pack_symbols_plain`, `_merge_slices_plain`), K14 (`_sse_plain`),
+    K15 (`_device_source_gop_plain`) and K4's ring entry
+    (`_deblock_ring_plain`) are counted too, and so are `deblock_nnz` and
+    `_plane_copy` (the deblock's eager coded-count grid and plane cast,
+    which K4's ring entry replaced): none may run on a path.  The
     `t8` calls of K9's and K10's plain versions (the CABAC + 8x8 session
     path's eager route) are counted apart and printed."""
 
     NEEDS = (0, 1, 2, 3, 4, 5, 8, 9, 10, 11, 12, 13)  # a GOP pipeline's
+    NEEDS_SRC = NEEDS + (14,)  # ... with the device source
+    KEYS = tuple(f"K{i}" for i in range(1, 16))
 
     def __init__(self):
+        from tpuh264_torch.engine import sources
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
                                            iframe, me_cuda, pframe, sse,
                                            wavefront)
@@ -340,17 +358,23 @@ class Launches:
         self.fns = ((me_cuda.sad_field,),
                     (cavlc_cuda.pack_blocks, cavlc_cuda.pack_symbols),
                     (cavlc_cuda.merge_tree, cavlc_cuda.merge_slices),
-                    (deblock.deblock_frame_rows,),
+                    (deblock.deblock_frame_rows, deblock.deblock_ring),
                     (iframe._intra_recon_scan,),
                     (iframe.encode_iframe_scan, pframe._intra_in_p_scan),
                     (wavefront.encode_iframe_single,),
                     (wavefront.decode_iframe_single,),
                     (pframe._inter_encode,), (pframe._inter_decode,),
                     (pframe._references,), (pframe._int_winner,),
-                    (entropy_gpu.cavlc_prologue,), (sse.sse,))
+                    (entropy_gpu.cavlc_prologue,), (sse.sse,),
+                    (sources.device_source_gop,))
         self.total = [0] * len(self.fns)
 
+    def by_key(self) -> dict:
+        """The launch totals by kernel key ("K1" .. "K15")."""
+        return dict(zip(self.KEYS, self.total))
+
     def path(self, name, fn, needs=NEEDS):
+        from tpuh264_torch.engine import sources
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
                                            iframe, me_cuda, pframe, sse,
                                            wavefront)
@@ -371,7 +395,10 @@ class Launches:
                   (pframe, "_int_winner_plain"),
                   (entropy_gpu, "_prologue_plain"),
                   (cavlc_cuda, "_pack_symbols_plain"),
-                  (cavlc_cuda, "_merge_slices_plain"), (sse, "_sse_plain")]
+                  (cavlc_cuda, "_merge_slices_plain"), (sse, "_sse_plain"),
+                  (sources, "_device_source_gop_plain"),
+                  (deblock, "_deblock_ring_plain"), (deblock, "deblock_nnz"),
+                  (deblock, "_plane_copy")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
         t8_calls = [[] for _ in plains]
@@ -391,6 +418,7 @@ class Launches:
         counts = [sum(f.launches for f in fs) for fs in self.fns]
         for i, n in enumerate(counts):
             self.total[i] += n
+        k4_rows = deblock.deblock_frame_rows.launches
         plain = [len(c) for c in calls]
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
               f"K3 {counts[2]}, K4 (deblock) {counts[3]}, K5 (intra "
@@ -406,7 +434,12 @@ class Launches:
               f"{plain[6]}, K8 {plain[7]}, K9 without t8 {plain[8]}, K10 "
               f"without t8 {plain[9]}, K11 {plain[10]}, K12 {plain[11]}, "
               f"K13 {plain[12]}, K2's symbols entry {plain[13]}, K3's slice "
-              f"entry {plain[14]}, K14 {plain[15]}")
+              f"entry {plain[14]}, K14 {plain[15]}, K15 {plain[16]}, K4's "
+              f"ring entry {plain[17]}, deblock_nnz {plain[18]}, K4 plane "
+              f"copies {plain[19]}")
+        print(f"launches [{name}]: K15 (device source) {counts[14]}; K4: "
+              f"ring entry {counts[3] - k4_rows}, counts entry "
+              f"(deblock_frame_rows) {k4_rows}")
         if t8_calls[8] or t8_calls[9]:
             print(f"launches [{name}]: the t8 eager route (EXEMPT): K9's "
                   f"plain version {len(t8_calls[8])}, K10's "
@@ -421,7 +454,8 @@ class Launches:
         if any(plain):
             fail(f"{name}: a plain version ran (K1, K3, K4, K5, K6 D3, K6 "
                  f"D4, K7, K8, K9, K10, K11, K12, K13, K2 symbols, K3 "
-                 f"slices, K14: {plain} times)")
+                 f"slices, K14, K15, K4 ring, deblock_nnz, K4 plane copies: "
+                 f"{plain} times)")
         if len(res_calls) != len(t8_calls[3]):
             fail(f"{name}: _intra_residuals ran {len(res_calls)} times, "
                  f"the i44 plain scan {len(t8_calls[3])} times")
@@ -450,7 +484,28 @@ NO_LIBRARY = {
     "K13": "no PyTorch call derives CAVLC nC, header slots or skip runs",
     "K14": "timed: float32 F.mse_loss(reduction='none') summed per "
            "stream; not exact (a float32 sum rounds)",
+    "K15": "no PyTorch call evaluates this field in one op",
 }
+# K15's instruction issue a sample (luma, chroma; a chroma sample of U or
+# V), counted in the SASS of csrc/source.cu (sm_90a, nvcc 12.8): sinf's
+# fast path 24 instructions (range reduction, its |x| test, polynomial,
+# quadrant), the rigid luma sample 13 more (table reads, six float ops,
+# clamp, conversion, packing), a hash 6 (multiply-adds, shifts, xors) and
+# its packing 2: the least the kernel issues for a frame, beside the bytes
+# it writes
+K15_SINF = 24
+K15_INSTR = {"rigid": (K15_SINF + 13, 5), "noise": (8, 8),
+             "moving_gradient": (3, 2)}
+ISSUE_LANES = 132 * 4 * 32  # H100 SXM: SMs x schedulers x lanes a cycle
+
+
+def k15_issue_ms(kind, w, h, k, s, mhz) -> float:
+    """Least ms K15 takes to issue its sample loops' instructions
+    (K15_INSTR) for k frames of S streams of w x h at an SM clock of
+    `mhz`, every lane of every scheduler busy."""
+    luma, chroma = K15_INSTR[kind]
+    n = k * s * h * w
+    return (luma * n + chroma * n // 2) / (ISSUE_LANES * mhz * 1e3)
 
 
 def bound_ms(nbytes: int) -> float:
@@ -1052,6 +1107,111 @@ def d1_case(np, shape, variant, qp):
     return y, u, v, kind, mvx, mvy, nnz.astype(np.int32), ref, t8
 
 
+# K4's ring entry takes the per-MB fields as the GOP decode's record views
+# ("records") or as separate tensors ("contiguous")
+D1_RING_LAYOUTS = ("records", "contiguous")
+
+
+def d1_levels(np, rng, nnz):
+    """luma_ac levels [S, R, C, 16, 16] int16 whose 4x4 block 4 by + bx
+    holds nnz[..., by, bx] nonzero levels (+-1 .. +-59 at random
+    positions); of every 7 MBs one (0, 7, ...) is not coded at all and
+    one (3, 10, ...) is coded in one 4x4 block alone: one level of block
+    (MB index % 16)."""
+    mb = nnz.shape[:3]
+    rank = rng.random((*mb, 16, 16)).argsort(-1).argsort(-1)
+    vals = (rng.integers(1, 60, (*mb, 16, 16))
+            * rng.choice(np.array([-1, 1]), (*mb, 16, 16)))
+    lev = np.where(rank < nnz.reshape(*mb, 16, 1), vals, 0).astype(np.int16)
+    flat = lev.reshape(-1, 16, 16)
+    flat[np.arange(len(flat)) % 7 == 0] = 0
+    ids = np.flatnonzero(np.arange(len(flat)) % 7 == 3)
+    flat[ids] = 0
+    flat[ids, ids % 16, (5 * ids) % 16] = 9
+    return lev
+
+
+def d1_ring_case(np, case, layout):
+    """`d1_case`'s inputs as K4's ring entry takes them (numpy): (y, u, v,
+    fields, levels, names).  "records": kind, mvx, mvy, refidx and t8 in
+    columns 0, 5, 6, 7 and 8 of one [S, R, C, 9] int32 record, the levels
+    of `d1_levels` in slots 16:272 of one [S, R, C, 400] int16 record whose
+    other slots (the luma DC first) are nonzero noise, as the GOP decode
+    holds them; "contiguous": the fields [5, S, R, C] and the levels [S, R,
+    C, 16, 16] apart.  names: the fields the variant has (no refidx for
+    "intra", t8 only for "t8")."""
+    y, u, v, kind, mvx, mvy, nnz, ref, t8 = d1_case(np, *case)
+    rng = np.random.default_rng([7, *case[0], case[2]])
+    lev = d1_levels(np, rng, nnz)
+    zero = np.zeros_like(kind)
+    names = ("kind", "mvx", "mvy") + ("refidx",) * (ref is not None) + (
+        "t8",) * (t8 is not None)
+    cols = [kind, mvx, mvy, zero if ref is None else ref,
+            zero if t8 is None else t8]
+    if layout == "contiguous":
+        return y, u, v, np.stack(cols), lev, names
+    rec = rng.integers(-9, 10, (*kind.shape, 9)).astype(np.int32)
+    for c, x in zip((0, 5, 6, 7, 8), cols):
+        rec[..., c] = x
+    slots = rng.integers(-9, 10, (*kind.shape, 400)).astype(np.int16)
+    slots[..., 16:272] = lev.reshape(*kind.shape, 256)
+    return y, u, v, rec, slots, names
+
+
+def d1_ring_args(torch, np, case, layout, u8, dev):
+    """`deblock_ring`'s arguments (args, keyword args) for `d1_ring_case`
+    on `dev`: the planes uint8 (`u8`; int32 otherwise, which the router
+    narrows first), the fields and levels as views of the layout's
+    buffers there; the "intra" variant as
+    `deblock_i` passes it (kind None: every MB intra)."""
+    y, u, v, fields, levels, names = d1_ring_case(np, case, layout)
+    planes = [torch.from_numpy(p.astype(np.uint8 if u8 else np.int32))
+              .to(dev) for p in (y, u, v)]
+    qp = case[2]
+    if case[1] == "intra":
+        return (*planes, None, None, None, None, qp), {}
+    f, lv = torch.from_numpy(fields).to(dev), torch.from_numpy(levels).to(dev)
+    if layout == "records":
+        mb = f.shape[:-1]
+        col = dict(zip(("kind", "mvx", "mvy", "refidx", "t8"), (0, 5, 6, 7,
+                                                               8)))
+        get = lambda n: f[..., col[n]]
+        lac = lv[..., 16:272].reshape(*mb, 16, 16)
+    else:
+        get = lambda n: f[("kind", "mvx", "mvy", "refidx", "t8").index(n)]
+        lac = lv
+    kw = {n: get(n) for n in ("refidx", "t8") if n in names}
+    return (*planes, get("kind"), get("mvx"), get("mvy"), lac, qp), kw
+
+
+def d1_ring_plain(args, kw):
+    """The plain deblock the ring entry must equal on (args, kw):
+    `_deblock_rows_plain` on `deblock_nnz`'s grid of the levels (the 8x8
+    rule where t8 is given), or deblock_i's plain version for an
+    all-intra call (kind None)."""
+    import types
+
+    from tpuh264_torch.kernels import deblock
+
+    y, u, v, kind, mvx, mvy, lac, qp = args
+    if kind is None:
+        return deblock._deblock_ring_plain(*args, **kw)
+    t8 = kw.get("t8")
+    nnz = deblock.deblock_nnz(types.SimpleNamespace(luma_ac=lac, t8=t8),
+                              t8 is not None)
+    return deblock._deblock_rows_plain(y, u, v, kind, mvx, mvy, nnz, qp,
+                                       kw.get("refidx"), t8)
+
+
+# K15 (the device source): (W, H, k, S, t) -- one MB; an odd MB count (3
+# x 2: chroma rows of 24 bytes, not 16-byte aligned); S = 1; k = 1 and
+# 4; two tiles across; t = 0 and times whose arguments take CUDA's slow
+# path of sinf / cosf (|x| past 105,615: t = 400,000 and 2,000,000)
+K15_EDGES = ((16, 16, 1, 1, 0), (48, 32, 4, 3, 0), (64, 48, 4, 1, 400_000),
+             (144, 80, 1, 2, 123), (80, 48, 4, 2, 2_000_000))
+K15_MAIN = (1920, 1088, 4, 4, 100)  # the main path's: 1080p x 4, k = 4
+
+
 def k3_edges(dev, torch, np):
     """K3 on seeded edge cases: K 1 / 27 / 123 x W 1 / 20 / 128 x n_out 1
     / 16 / 128 / 8192, K3_LANES lanes each."""
@@ -1124,6 +1284,134 @@ def d1_cycles(ms: float, mhz: int, c: int) -> float:
     return ms * mhz * 1e3 / c
 
 
+def ring_call_args(rec, qp, sym=None, motion=None, t8=False):
+    """`deblock_ring`'s arguments as deblock_i (no symbols: kind None) or
+    deblock_p passes them: (args, keyword args)."""
+    if sym is None:
+        return (*rec, None, None, None, None, qp), {}
+    return ((*rec, sym.kind, motion[0], motion[1], sym.luma_ac, qp),
+            dict(refidx=sym.refidx, t8=sym.t8 if t8 else None))
+
+
+def k4_ring_equal(args, kw, torch, what) -> int:
+    """K4's ring entry writing slot 1 of a two-slot ring against
+    `d1_ring_plain` (`_deblock_rows_plain` on `deblock_nnz`'s grid); fails
+    unless equal and slot 0 untouched."""
+    from tpuh264_torch.kernels import deblock
+
+    ring = [torch.zeros((2, *p.shape), dtype=torch.uint8, device=p.device)
+            for p in args[:3]]
+    got = deblock.deblock_ring(*args, out=tuple(r[1] for r in ring), **kw)
+    want = d1_ring_plain(args, kw)
+    torch.cuda.synchronize()
+    if (not all(torch.equal(a, b) for a, b in zip(got, want))
+            or any(bool(r[0].any()) for r in ring)):
+        fail(f"K4's ring entry differs from the plain deblock ({what})")
+    return max(max_abs_err(a, b) for a, b in zip(got, want))
+
+
+def k4_ring_bytes(args, kw) -> int:
+    """K4's ring entry: the planes in as they are (uint8 a byte a sample),
+    the uint8 planes out, the per-MB fields it reads (kind, mvx, mvy and
+    refidx / t8 where given, 4 bytes each) and the inter MBs' levels (512
+    bytes each: an intra MB's bS needs none); the planes alone for an
+    all-intra call."""
+    n = sum(p.numel() for p in args[:3])
+    nbytes = n * args[0].element_size() + n
+    kind = args[3]
+    if kind is None:
+        return nbytes
+    fields = 3 + sum(kw.get(f) is not None for f in ("refidx", "t8"))
+    return (nbytes + 4 * fields * kind.numel()
+            + 512 * int((kind != 2).sum()))
+
+
+def k4_ring_row(args, kw, torch, what, mhz):
+    """K4's ring entry equal to the plain deblock on (args, kw), timed
+    into a preallocated slot beside the plain version: the kernel table's
+    K4 row, with its cycles a MB column."""
+    from tpuh264_torch.kernels import deblock
+
+    out = [torch.empty(p.shape, dtype=torch.uint8, device=p.device)
+           for p in args[:3]]
+    r = kernel_row(
+        "K4", "deblock_ring (D1, the in-loop deblocking filter: its ring "
+        "entry, uint8 planes in, the DPB slot out, coded 4x4 blocks from "
+        "the levels)", "tpuh264_torch/csrc/deblock.cu",
+        "tpuh264/kernels/deblock.py:130", k4_ring_equal(args, kw, torch, what),
+        timed(lambda: deblock.deblock_ring(*args, out=out, **kw), 20),
+        timed(lambda: d1_ring_plain(args, kw), 1), k4_ring_bytes(args, kw))
+    r["cycles_col"] = d1_cycles(r["ms"], mhz, args[0].shape[-1] // 16)
+    return r
+
+
+def d1_ring_edges(dev, torch, np, card):
+    """K4's ring entry on every D1 case, the fields as record views and
+    apart, from uint8 planes; timed on each D1 shape's "inter" case at QP
+    30 from the record views (ms, bytes bound, share)."""
+    from tpuh264_torch.kernels import deblock
+
+    for case in D1_CASES:
+        for layout in D1_RING_LAYOUTS:
+            args, kw = d1_ring_args(torch, np, case, layout, True, dev)
+            k4_ring_equal(args, kw, torch, f"edge case {case} {layout}")
+    for shape in D1_SHAPES:
+        args, kw = d1_ring_args(torch, np, (shape, "inter", 30), "records",
+                                True, dev)
+        ms = timed(lambda: deblock.deblock_ring(*args, **kw), 20)
+        bound = bound_ms(k4_ring_bytes(args, kw))
+        print(f"phase 2: K4's ring entry, D1 shape (S, H, W) {shape}, inter, "
+              f"QP 30, record views: {ms:.4f} ms, bound {bound:.5f} ms "
+              f"(bytes), {100 * bound / ms:.1f}% of the bound [{card}]")
+    print(f"phase 2: K4's ring entry, {2 * len(D1_CASES)} edge cases: "
+          f"D1_CASES x the fields {list(D1_RING_LAYOUTS)} (inter MBs coded in "
+          f"one 4x4 alone, uncoded ones, t8 MBs, all-intra frames without "
+          f"fields): equal to the plain deblock on deblock_nnz's grid, "
+          f"written into a ring slot")
+
+
+def k15_rows(dev, torch, card, mhz):
+    """K15 against its plain version at the main path's 1080p x 4, k = 4,
+    for each kind (rigid first: the main path's), then on every
+    K15_EDGES case: exact (max_abs_err 0) or the run fails."""
+    from tpuh264_torch.engine import sources
+
+    w, h, k, s, t = K15_MAIN
+    rows = []
+    for kind in sources.KINDS:
+        call = lambda: sources.device_source_gop(w, h, k, s, kind, t, dev)
+        plain = lambda: sources._device_source_gop_plain(w, h, k, s, kind,
+                                                         t, dev)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        if err:
+            fail(f"K15 differs from its plain version ({kind}, 1080p x 4)")
+        del got, want
+        r = kernel_row(
+            "K15", f"device_source_gop (the device source, '{kind}')",
+            "tpuh264_torch/csrc/source.cu", "tpuh264/engine/sources.py:143",
+            err, timed(call, 20), timed(plain, 3), 3 * k * s * h * w // 2)
+        r["issue_ms"] = k15_issue_ms(kind, w, h, k, s, mhz)
+        print(f"phase 2: K15 '{kind}': bytes bound {r['bound_ms']:.4f} ms, "
+              f"issue bound {r['issue_ms']:.4f} ms ({K15_INSTR[kind]} "
+              f"instructions a luma / chroma sample at {mhz} MHz) [{card}]")
+        if r["issue_ms"] > r["bound_ms"]:
+            r["bound_ms"], r["bound_by"] = r["issue_ms"], "operations"
+        rows.append(r)
+    for case in K15_EDGES:
+        for kind in sources.KINDS:
+            got = sources.device_source_gop(*case[:4], kind, case[4], dev)
+            want = sources._device_source_gop_plain(*case[:4], kind, case[4],
+                                                    dev)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"K15 differs from its plain version ({kind}, {case})")
+    print(f"phase 2: K15 on {len(K15_EDGES)} edge cases (W, H, k, S, t) "
+          f"{list(K15_EDGES)} x {list(sources.KINDS)}: equal to plain "
+          f"(max_abs_err 0)")
+    return rows
+
+
 def pframe_1080p(dev, torch):
     """Phase 2's 1920x1080 x 4 input (1088 rows): two "rigid" frames and
     the second encoded as a P frame against the first: y, u, v, the P
@@ -1173,11 +1461,21 @@ def d1_edges(dev, torch, np):
 
 def d1_t8_480p(dev, torch, mhz, card):
     """D1 on `pframe_480p`'s I frame and t8 P frame; t8 MBs required."""
+    from tpuh264_torch.kernels import deblock
+
     rec_i, _, sym, rec, mot = pframe_480p(dev, torch, t8=True)
     d1_equal(*d1_args(torch, rec_i, 30), torch, "480p x 8 I frame")
     n8 = int((sym.t8 == 1).sum())
     if n8 == 0:
         fail("D1 480p x 8: no MB chose the 8x8 transform")
+    rargs, rkw = ring_call_args(rec, 30, sym, mot, t8=True)
+    k4_ring_equal(rargs, rkw, torch, "480p x 8 t8 P frame")
+    ms = timed(lambda: deblock.deblock_ring(*rargs, **rkw), 20)
+    bound = bound_ms(k4_ring_bytes(rargs, rkw))
+    print(f"phase 2: K4's ring entry, 854x480 x 8 t8 P frame: {ms:.4f} ms, "
+          f"bound {bound:.4f} ms (bytes), {100 * bound / ms:.1f}% of the "
+          f"bound; {d1_cycles(ms, mhz, 54):.0f} cycles a MB column at {mhz} "
+          f"MHz [{card}]")
     r = d1_row(*d1_args(torch, rec, 30, sym, mot, t8=True), torch,
                "480p x 8 t8 P frame", mhz)
     print(f"phase 2: K4 (D1) 854x480 x 8 (864 wide) 'meeting' I frame and "
@@ -2901,7 +3199,7 @@ def phase_kernels(dev, torch, np, card):
     and slice levels; K7 / K8 at 480p x 8, config 1 and 1080p x 1 and on
     their edge cases; K9-K12 (`p_rows`); K13 and K14 at the main path's
     shapes and on `K13_CASES` / `K14_CASES`."""
-    from tpuh264_torch.kernels import iframe, me_cuda, pframe
+    from tpuh264_torch.kernels import deblock, iframe, me_cuda, pframe
 
     w, h, s = 1920, 1088, 4
     y, u, v, sym, rec_p, mot = pframe_1080p(dev, torch)
@@ -2943,15 +3241,38 @@ def phase_kernels(dev, torch, np, card):
     # row in the kernel table, with its cycles a MB column
     sym_i, rec_i = iframe.encode_iframe_rows(y[0], u[0], v[0], 30)
     d1_equal(*d1_args(torch, rec_i, 30), torch, "1080p x 4 I frame")
+    k4_ring_equal(*ring_call_args(rec_i, 30), torch,
+                  "1080p x 4 I frame, as deblock_i")
     del rec_i
     mhz = busy_sm_clock()
     print(f"phase 2: SM clock under load {mhz} MHz (nvidia-smi clocks.sm) "
           f"[{card}]")
-    rows.append(d1_row(*d1_args(torch, rec_p, 30, sym, mot), torch,
-                       "1080p x 4 P frame", mhz))
-    del rec_p, mot
-    print(f"phase 2: K4 (D1) 1080p x 4 P frame: {rows[-1]['cycles_col']:.0f} "
-          f"cycles a MB column (120 columns) at {mhz} MHz [{card}]")
+    # the ring entry (the main path's) is the K4 row; the counts entry,
+    # from int32 planes and deblock_nnz's grid, is printed beside it
+    rows.append(k4_ring_row(*ring_call_args(rec_p, 30, sym, mot), torch,
+                            "1080p x 4 P frame", mhz))
+    cargs, ckw = d1_args(torch, rec_p, 30, sym, mot)
+    d1_equal(cargs, ckw, torch, "1080p x 4 P frame, counts entry")
+    c_ms = timed(lambda: deblock.deblock_frame_rows(*cargs, **ckw), 20)
+    print(f"phase 2: K4 deblock_frame_rows (D1's counts entry: int32 planes, "
+          f"deblock_nnz's grid), 1080p x 4 P frame: equal to plain; kernel "
+          f"{c_ms:.4f} ms, bound {bound_ms(k4_bytes(cargs, ckw)):.4f} ms "
+          f"(bytes), {d1_cycles(c_ms, mhz, 120):.0f} cycles a MB column "
+          f"[{card}]")
+    del cargs, ckw
+    rargs, rkw = ring_call_args(rec_p, 30, record_views(sym, torch), mot)
+    rec_ms = timed(lambda: deblock.deblock_ring(*rargs, **rkw), 20)
+    k4_ring_equal(rargs, rkw, torch, "1080p x 4 P frame, record views")
+    del rec_p, mot, rargs, rkw
+    print(f"phase 2: K4 (D1) 1080p x 4 P frame: ring entry "
+          f"{rows[-1]['cycles_col']:.0f} cycles a MB column (120 columns) "
+          f"at {mhz} MHz; from the "
+          f"record views (fields with MB stride 9, levels 400) {rec_ms:.4f} "
+          f"ms [{card}]")
+    k15 = k15_rows(dev, torch, card, mhz)
+    rows.append(k15[0])  # the main path's kind, "rigid"
+    for r in k15[1:]:
+        show(r, "1080p x 4, k = 4 (not the main path's kind)")
     # K5 (D2): the decoders' inputs of the P frame and the IDR, then 480p
     rows.append(d2_rows(dev, torch, np, card, (y, u, v, sym, sym_i)))
     # K6 (D3): the 1080p x 4 I frame (the main path's GOP start), from
@@ -2995,6 +3316,7 @@ def phase_kernels(dev, torch, np, card):
     k2_edges(dev, torch, np)
     k3_edges(dev, torch, np)
     d1_edges(dev, torch, np)
+    d1_ring_edges(dev, torch, np, card)
     d1_t8_480p(dev, torch, mhz, card)
     d3_edges(dev, torch, np)
 
@@ -3238,15 +3560,17 @@ def check_dpbs(pipe, np, what, i):
 
 def phase_main(dev, torch, np, card):
     """Phase 4: the main path, 3 dispatches, enc DPB == dec DPB each time;
+    the device source (K15) once a dispatch,
     K3 launched twice per entropy call (MB and slice level), the deblock
-    (K4) 8 times per dispatch (4 encoder frames, 4 decoder frames), the
+    (K4's ring entry) 8 times per dispatch (4 encoder frames, 4 decoder
+    frames, each into its DPB ring slot), the
     intra reconstruction (K5) 4 times (the decoder's frames), K6 once a
     GOP-start dispatch (its I frame; the RTC preset has no intra-in-P),
     the reference build (K11) once a P encode and once a decoded frame,
     the stage-A winner (K12) once a P encode (one reference), K13 once an
-    entropy call (I and P slices), K14 once a dispatch (the decoder's
-    SSE)."""
-    from tpuh264_torch.engine import CodecConfig
+    entropy call (I and P slices), K14 once a decoded frame (its SSE,
+    taken before a later frame's deblock reuses its ring slot)."""
+    from tpuh264_torch.engine import CodecConfig, sources
     from tpuh264_torch.engine.devpipe import GOPDevicePipeline
     from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
                                        iframe, pframe, sse)
@@ -3257,7 +3581,9 @@ def phase_main(dev, torch, np, card):
                              device=dev)
     spy = SymbolSpy(pipe, torch)
     qps, times, k3, k4, k5, k6, k11, k12 = [], [], [], [], [], [], [], []
-    k13, k14 = [], []
+    k13, k14, k15 = [], [], []
+    k4_count = lambda: (deblock.deblock_frame_rows.launches
+                        + deblock.deblock_ring.launches)
     k3_count = lambda: (cavlc_cuda.merge_tree.launches
                         + cavlc_cuda.merge_slices.launches)
     k6_count = lambda: (iframe.encode_iframe_scan.launches
@@ -3266,7 +3592,7 @@ def phase_main(dev, torch, np, card):
         qps.append(pipe.rc.current_qp())
         n0 = k3_count()
         p0, q0 = entropy_gpu.cavlc_prologue.launches, sse.sse.launches
-        d0 = deblock.deblock_frame_rows.launches
+        d0, s0 = k4_count(), sources.device_source_gop.launches
         r0 = iframe._intra_recon_scan.launches
         e0 = k6_count()
         f0, w0 = pframe._references.launches, pframe._int_winner.launches
@@ -3276,7 +3602,8 @@ def phase_main(dev, torch, np, card):
         k3.append(k3_count() - n0)
         k13.append(entropy_gpu.cavlc_prologue.launches - p0)
         k14.append(sse.sse.launches - q0)
-        k4.append(deblock.deblock_frame_rows.launches - d0)
+        k4.append(k4_count() - d0)
+        k15.append(sources.device_source_gop.launches - s0)
         k5.append(iframe._intra_recon_scan.launches - r0)
         k6.append(k6_count() - e0)
         k11.append(pframe._references.launches - f0)
@@ -3286,10 +3613,11 @@ def phase_main(dev, torch, np, card):
     if k3 != expect:
         fail(f"1080p: K3 launches per dispatch {k3}, expected {expect} "
              f"(GOP starts {spy.starts})")
-    if k13 != [n // 2 for n in expect] or k14 != [1, 1, 1]:
-        fail(f"1080p: K13 launches per dispatch {k13}, K14 {k14}, expected "
-             f"{[n // 2 for n in expect]} (one an entropy call) and one a "
-             f"dispatch")
+    if (k13 != [n // 2 for n in expect] or k14 != [4, 4, 4]
+            or k15 != [1, 1, 1]):
+        fail(f"1080p: K13 launches per dispatch {k13}, K14 {k14}, K15 "
+             f"{k15}, expected {[n // 2 for n in expect]} (one an entropy "
+             f"call), four (one a decoded frame) and one")
     if k4 != [8, 8, 8]:
         fail(f"1080p: deblock launches per dispatch {k4}, expected 8 each")
     if k5 != [4, 4, 4]:  # one a decoded frame, the IDR's included
@@ -3311,7 +3639,8 @@ def phase_main(dev, torch, np, card):
           f"frames), K5 (intra recon) {k5} (4 decoded frames), K6 (intra16 "
           f"encode) {k6} (the I frames), K11 (references) {k11} (P "
           f"encodes and decoded frames), K12 (stage-A winner) {k12} (P "
-          f"encodes), K13 (CAVLC prologue) {k13}, K14 (SSE) {k14}; QP {qps}; "
+          f"encodes), K13 (CAVLC prologue) {k13}, K14 (SSE) {k14} (a "
+          f"decoded frame each), K15 (device source) {k15}; QP {qps}; "
           f"PSNR {pipe.last_psnr_y:.2f} dB; pump_frame s "
           f"{[round(t, 3) for t in times]} [{card}]")
 
@@ -3391,7 +3720,7 @@ def phase_intra_in_p(dev, torch, np, card, launches):
             times.append(time.perf_counter() - t0)
             check_dpbs(pipe, np, "480p intra-in-P", i)
 
-    launches.path("480p x 8 intra-in-P", drive)
+    launches.path("480p x 8 intra-in-P", drive, needs=Launches.NEEDS_SRC)
     kinds, _ = spy.shares()
     n_p = sum(kinds)
     print(f"phase 6: 854x480 x 8, CodecConfig defaults (intra-in-P, CBR 1 "
@@ -3435,7 +3764,8 @@ def phase_multiref(dev, torch, np, card, launches):
             pipe.pump_frame()
             check_dpbs(pipe, np, "480p 2 refs", i)
 
-    _, counts = launches.path("480p x 8, 2 references", drive)
+    _, counts = launches.path("480p x 8, 2 references", drive,
+                              needs=Launches.NEEDS_SRC)
     # one K1 launch per active reference per P frame: the 3 P frames of a
     # GOP-start dispatch have one (only the IDR is in a decoder's DPB),
     # the 4 of an interior dispatch have both
@@ -3519,7 +3849,8 @@ def phase_device_pipeline(dev, torch, np, card, launches):
         for _ in range(2):
             pipe.pump_frame()
 
-    launches.path("DevicePipeline 480p x 8", drive, needs=(1, 2, 4, 5, 12))
+    launches.path("DevicePipeline 480p x 8", drive,
+                  needs=(1, 2, 4, 5, 12, 14))
     if pipe.fallback_packs:
         fail("DevicePipeline: host repack")
     # the port's own decode of frame 0's bytes (native parse + I scan):
@@ -3576,7 +3907,7 @@ def phase_app(dev, card, launches):
         box["stop_s"] = time.perf_counter() - t0
         box["pipe"] = pipe
 
-    launches.path("App tpu_gop 480p x 8", drive)
+    launches.path("App tpu_gop 480p x 8", drive, needs=Launches.NEEDS_SRC)
     stats, pipe = box["stats"], box["pipe"]
     if app.error is not None:
         fail(f"App: the pump thread failed: {app.error!r}")
@@ -3963,7 +4294,7 @@ def phase_gate(dev, np, card, launches):
         box["shapes"] = gate.run_gate(device=dev)
         box["extended"] = gate.run_gate_extended(device=dev)
 
-    launches.path("conformance gate", drive)
+    launches.path("conformance gate", drive, needs=Launches.NEEDS_SRC)
     a, b = box["shapes"], box["extended"]
     print(f"phase 14: conformance gate, oracle {a['oracle']}: GATE_SHAPES "
           f"{[s[:3] for s in gate.GATE_SHAPES]} x 2 dispatches, "
@@ -4140,7 +4471,7 @@ def phase_config3(dev, np, card, launches):
     line, _ = launches.path("config 3 flagship 1080p x 4, 2 references",
                             lambda: config3.flagship_multiref(
                                 w, h, 2.0, device=dev),
-                            needs=(0, 1, 2, 3, 4, 8, 9, 10, 11))
+                            needs=(0, 1, 2, 3, 4, 8, 9, 10, 11, 14))
     print(f"phase 15: bench.config3.flagship_multiref, 2 s, decoder DPB == "
           f"encoder DPB after it: {json.dumps(line)}")
 
@@ -4702,7 +5033,7 @@ def phase_bench(dev, card, launches):
     rows, counts = launches.path(
         "bench harness 480p x 8", lambda: harness.run_matrix(
             resolutions=("480p",), streams=(8,), impls=("tpu_gop", "tpu"),
-            duration_s=5, device=dev))
+            duration_s=5, device=dev), needs=Launches.NEEDS_SRC)
     if any(r["frames"] <= 0 for r in rows):
         fail(f"phase 16(e): a harness run counted no frame: {rows}")
     info = harness.machine_info()
@@ -4758,7 +5089,8 @@ def main() -> None:
 
     launches = Launches()
     launches.path("main path 1080p x 4",
-                  lambda: phase_main(dev, torch, np, card))
+                  lambda: phase_main(dev, torch, np, card),
+                  needs=Launches.NEEDS_SRC)
     phase_runs(dev, card)
     phase_intra_in_p(dev, torch, np, card, launches)
     phase_multiref(dev, torch, np, card, launches)
@@ -4772,8 +5104,9 @@ def main() -> None:
     phase_config3(dev, np, card, launches)
     phase_dist(dev, np, card, launches)
 
-    for r, n in zip(rows, launches.total):
-        r["launches"] = n
+    totals = launches.by_key()
+    for r in rows:
+        r["launches"] = totals[r["key"]]
     print(f"launches summed over the driven paths: K1 {launches.total[0]}, "
           f"K2 {launches.total[1]}, K3 {launches.total[2]}, K4 (deblock) "
           f"{launches.total[3]}, K5 (intra recon) {launches.total[4]}, K6 "
@@ -4782,7 +5115,8 @@ def main() -> None:
           f"K9 (P encode) {launches.total[8]}, K10 (P decode) "
           f"{launches.total[9]}, K11 (references) {launches.total[10]}, "
           f"K12 (stage-A winner) {launches.total[11]}, K13 (CAVLC "
-          f"prologue) {launches.total[12]}, K14 (SSE) {launches.total[13]}")
+          f"prologue) {launches.total[12]}, K14 (SSE) {launches.total[13]}, "
+          f"K15 (device source) {launches.total[14]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

@@ -30,7 +30,10 @@ builtin. __shared__ arrays are statics, int2 / int4 / uint2 / uint4
 plain structs, __grid_constant__ nothing; __vsadu4 is computed byte by
 byte, __clz by the compiler's builtin; `__byte_perm`, `__funnelshift_r`,
 the DPX `__vimin_s16x2_relu` and the bit casts are their definitions in
-plain C++, `__fmaf_rd` the double sum rounded down to a float. A harness
+plain C++, `__fmaf_rd` the double sum rounded down to a float, `__fmul_rn`
+/ `__fadd_rn` / `__fsub_rn` and the int / float conversions the host's
+float32 operations (sinf / cosf are the host's: within an ulp of the
+card's, not equal). A harness
 includes the kernel's source after this header (as cuda_runtime.h); the
 source's launch entry is guarded by __CUDACC__, which g++ does not
 define.
@@ -321,6 +324,13 @@ inline uint32_t __vimin_s16x2_relu(uint32_t a, uint32_t b) {
   }
   return r;
 }
+// IEEE float32 operations, each rounded once (never contracted: g++
+// compiles ISO C++ with -ffp-contract=off), and the conversions
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __int2float_rn(int x) { return (float)x; }
+inline int __float2int_rz(float f) { return (int)f; }
 inline unsigned __vsadu4(unsigned a, unsigned b) {
   unsigned s = 0;
   for (int i = 0; i < 32; i += 8) {

@@ -1,9 +1,9 @@
-"""The port's CUDA kernels (K1, K2, K3, the deblock D1, the intra
-reconstruction D2, the Intra_16x16 encode scans D3 / D4, the single-slice
-wavefront's encode K7 and decode K8, the P encode after stage A K9,
-the P decode's inter part K10, the reference build K11 and the stage-A
-winner K12) against their plain PyTorch versions, on the card, plus the
-wrappers' no-fallback rule.
+"""The port's CUDA kernels (K1, K2, K3, the deblock D1 and its ring entry,
+the intra reconstruction D2, the Intra_16x16 encode scans D3 / D4, the
+single-slice wavefront's encode K7 and decode K8, the P encode after
+stage A K9, the P decode's inter part K10, the reference build K11, the
+stage-A winner K12 and the device source K15) against their plain
+PyTorch versions, on the card, plus the wrappers' no-fallback rule.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed.  On a machine with a card and nvcc:
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tpuh264_torch.engine import sources
 from tpuh264_torch.kernels import cavlc_cuda, cuda_lib, me_cuda
 from tpuh264_torch.kernels import deblock as DB
 from tpuh264_torch.kernels import iframe as IF
@@ -34,14 +35,16 @@ def _launches():
     return {"K1": me_cuda.sad_field.launches,
             "K2": cavlc_cuda.pack_blocks.launches,
             "K3": cavlc_cuda.merge_tree.launches,
-            "K4": DB.deblock_frame_rows.launches,
+            "K4": (DB.deblock_frame_rows.launches
+                   + DB.deblock_ring.launches),
             "K5": IF._intra_recon_scan.launches,
             "D3": IF.encode_iframe_scan.launches,
             "D4": TP._intra_in_p_scan.launches,
             "K9": TP._inter_encode.launches,
             "K10": TP._inter_decode.launches,
             "K11": TP._references.launches,
-            "K12": TP._int_winner.launches}
+            "K12": TP._int_winner.launches,
+            "K15": sources.device_source_gop.launches}
 
 
 @pytest.fixture
@@ -345,6 +348,42 @@ def test_deblock_kernel_matches_plain_480p(dev, variant):
     got, plain = _deblock_both(dev, ((2, 480, 864), variant, 30))
     for a, b in zip(got, plain):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", chip_smoke.D1_RING_LAYOUTS)
+@pytest.mark.parametrize("variant", chip_smoke.D1_VARIANTS)
+def test_deblock_ring_matches_plain(dev, variant, layout):
+    """K4's ring entry on every D1 case of the variant, the fields laid
+    out as record views or apart, uint8 planes and int32 ones (narrowed
+    first by the router): equal to the plain deblock on deblock_nnz's
+    grid, written into a ring slot (the other slot untouched), one launch
+    each."""
+    for case in chip_smoke.D1_CASES:
+        if case[1] != variant:
+            continue
+        for u8 in (True, False):
+            args, kw = chip_smoke.d1_ring_args(torch, np, case, layout, u8,
+                                               dev)
+            before = DB.deblock_ring.launches
+            chip_smoke.k4_ring_equal(args, kw, torch, str(case))
+            assert DB.deblock_ring.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rigid", "noise", "moving_gradient"])
+def test_source_kernel_matches_plain(dev, kind):
+    """K15 against the plain version's chain of ATen ops on the card,
+    sample for sample (the float kinds too), at the main path's 1080p x 4,
+    k = 4, and on every K15_EDGES case."""
+    for case in (chip_smoke.K15_MAIN,) + chip_smoke.K15_EDGES:
+        before = sources.device_source_gop.launches
+        got = sources.device_source_gop(*case[:4], kind, case[4], dev)
+        want = sources._device_source_gop_plain(*case[:4], kind, case[4],
+                                                dev)
+        assert sources.device_source_gop.launches == before + 1
+        for a, b in zip(got, want):
+            assert a.dtype == torch.uint8 and torch.equal(a, b), case
 
 
 @pytest.mark.cuda

@@ -95,10 +95,11 @@ int main() {
   for (auto* a : {&y, &u, &v, &kind, &mvx, &mvy, &ref, &t8, &nnz})
     if (fread(a->data(), 4, a->size(), stdin) != a->size()) return 3;
   std::vector<uint8_t> o(n + 2 * nc);
-  const Args args{y.data(), u.data(), v.data(), kind.data(), mvx.data(),
-                  mvy.data(), has_ref ? ref.data() : nullptr,
-                  has_t8 ? t8.data() : nullptr, nnz.data(), o.data(),
-                  o.data() + n, o.data() + n + nc, S * R, C};
+  const Args args = rows_args(
+      y.data(), u.data(), v.data(), kind.data(), mvx.data(), mvy.data(),
+      has_ref ? ref.data() : nullptr, has_t8 ? t8.data() : nullptr,
+      nnz.data(), o.data(), o.data() + n, o.data() + n + nc, S * R, C, qp,
+      qpc);
   std::barrier<> luma(32), chroma(32);
   g_warp[0] = &luma;
   g_warp[1] = &chroma;
@@ -108,7 +109,7 @@ int main() {
       block.emplace_back([&, t, b] {
         threadIdx.x = t;
         blockIdx.x = b;
-        deblock_rows_kernel(args, qp, qpc);
+        deblock_rows_kernel<int32_t, false>(args);
       });
     for (auto& th : block) th.join();
   }

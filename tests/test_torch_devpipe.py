@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 
+from pipeline_checks import assert_rings_and_sse_match_jax
 from tpuh264.engine import CodecConfig as JaxConfig
 from tpuh264.engine.devpipe import GOPDevicePipeline as JaxPipe
 from tpuh264.golden import codec as gcodec
@@ -62,6 +63,14 @@ def test_bytes_planes_and_qp_match_jax(runs):
         np.testing.assert_array_equal(np.asarray(a), b)
     assert port.fallback_packs == jax_pipe.fallback_packs == 0
     assert abs(port.last_psnr_y - jax_pipe.last_psnr_y) < 1e-3
+
+
+def test_rings_and_sse_match_jax(runs):
+    """K4 deblocks each frame straight into its DPB ring slot (an IDR into
+    slot 0) and K14 takes each decoded frame's SSE right after: both rings
+    and the last dispatch's per-frame SSE equal the JAX pipeline's."""
+    _, jax_pipe, port, _, _ = runs
+    assert_rings_and_sse_match_jax(jax_pipe, port)
 
 
 def test_port_streams_decode_to_its_decoder_dpb(runs):

@@ -1,7 +1,7 @@
 """The uint8 DPB rings of the GOP pipeline, K9 writing the P symbols and
 K10 reading the record views in place.
 
-The rings' helpers (`devpipe.dpb_refs` / `dpb_push` / `dpb_fill`) against
+The rings' helpers (`devpipe.dpb_refs` / `dpb_advance` / `dpb_fill`) against
 the stacks the pipeline pushed before (newest first, `torch.cat`), the
 state hand-over into the rings, the plane getters' copies; K9's source on
 CPU threads writing MBSymbolsP's fields into `empty_symbols` views and
@@ -36,13 +36,17 @@ def test_ring_matches_the_pushed_stack(n):
     """After an IDR and six frames, the ring's references newest first
     equal the stack the pipeline used to build (the IDR copied into every
     slot, each frame pushed in front, the oldest dropped), at every step
-    and for every prefix nra."""
+    and for every prefix nra: the IDR written into slot 0 and `dpb_fill`
+    copying it on, each frame written into the slot `dpb_advance` names
+    (as the deblock writes it there)."""
     rng = np.random.default_rng(n)
     s, h, w = 2, 32, 48
     ring = tuple(torch.zeros((n, s, hh, ww), dtype=torch.uint8)
                  for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
     idr = _planes(rng, s, h, w)
-    head = devpipe.dpb_fill(ring, idr)
+    for p, x in zip(ring, idr):
+        p[0].copy_(x)
+    head = devpipe.dpb_fill(ring)
     stack = tuple(p[None].expand(n, *p.shape).clone() for p in idr)
     for step in range(7):
         for nra in range(1, n + 1):
@@ -52,7 +56,9 @@ def test_ring_matches_the_pushed_stack(n):
                 torch.testing.assert_close(torch.stack(got), want[:nra],
                                            rtol=0, atol=0)
         frame = _planes(rng, s, h, w)
-        head = devpipe.dpb_push(ring, head, frame)
+        head, slot = devpipe.dpb_advance(ring, head)
+        for p, x in zip(slot, frame):
+            p.copy_(x)
         stack = tuple(torch.cat([f[None], p[:-1]]) for f, p in
                       zip(frame, stack))
 

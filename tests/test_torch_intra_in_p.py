@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from pipeline_checks import assert_rings_and_sse_match_jax
 from tpuh264.engine import CodecConfig as JaxConfig
 from tpuh264.engine.devpipe import GOPDevicePipeline as JaxPipe
 from tpuh264.engine.devpipe import _deblock_i as jax_deblock_i
@@ -243,6 +244,14 @@ def test_fanout_matches_jax(fan_runs):
     # the decode-side SSE is taken against each decode stream's source
     assert abs(port.last_psnr_y - jax_pipe.last_psnr_y) < 1e-3
     assert port.time_offset == 3
+
+
+def test_fanout_rings_and_sse_match_jax(fan_runs):
+    """Fan-out 2: the decoder ring is S * 2 streams wide; both rings and
+    the per-frame SSE (decode stream d against source stream d // 2)
+    equal the JAX pipeline's."""
+    jax_pipe, port, _, _, _ = fan_runs
+    assert_rings_and_sse_match_jax(jax_pipe, port)
 
 
 def test_fanout_decode_streams_equal_encoder(fan_runs):

@@ -12,6 +12,7 @@ port pipeline mid-GOP.
 import numpy as np
 import pytest
 
+from pipeline_checks import assert_rings_and_sse_match_jax
 from tpuh264.engine import CodecConfig as JaxConfig
 from tpuh264.engine.devpipe import GOPDevicePipeline as JaxPipe
 from tpuh264.golden import codec as gcodec
@@ -85,6 +86,15 @@ def test_multiref_pipeline_matches_jax(runs):
     # with intra-in-P, intra MBs are coded in every dispatch's P frames
     intra = [int((k == TP.KIND_INTRA).sum()) for k in spy.kinds]
     assert all(intra) if iip else not any(intra), intra
+
+
+def test_multiref_rings_and_sse_match_jax(runs):
+    """With N references the deblock writes the ring's oldest slot, whose
+    reference planes K11 built first, and an IDR fills slot 0 then copies
+    it on: every slot of both rings, newest first, and the per-frame SSE
+    equal the JAX pipeline's."""
+    _, _, jax_pipe, port, _, _, _ = runs
+    assert_rings_and_sse_match_jax(jax_pipe, port)
 
 
 def test_multiref_stream_decodes_to_decoder_dpb(runs):

@@ -20,6 +20,26 @@
 // [0, 255] (every reconstruction the callers pass); the arithmetic is
 // int32 as the plain version's, and the outputs are its uint8 planes.
 //
+// Two entries.  `th264_deblock_rows` (`deblock_frame_rows`) takes int32
+// planes, contiguous int32 side fields and the per-4x4 coded counts of
+// `deblock_nnz`.  `th264_deblock_ring` (`deblock_ring`, the GOP pipeline's
+// and the sessions' `deblock_i` / `deblock_p`) reads uint8 planes, 16
+// and 8 bytes a row (the reconstructions as the codec's kernels write
+// them), kind, mvx, mvy, refidx and t8 in place, each with its own MB
+// stride (the GOP decode's record views), works out the coded 4x4 blocks
+// itself from the MBs' luma_ac levels (int16, a 4x4 block coded iff one
+// of its 16 levels is nonzero; for a t8 MB iff its 8x8 block has one, as
+// `deblock_nnz`), takes a null kind as "every MB intra" (an IDR: only the
+// planes are read), and writes the filtered planes wherever the caller
+// says: the GOP pipeline's DPB ring slot.  The coded state costs the
+// column chain one ballot: thread 16 h + j of either warp loads the 32
+// bytes of 4x4 block j of its lane's MB two columns ahead, with the
+// samples, and at the column one ballot gives every thread the MB's 16
+// coded bits.  The two entries share one kernel, a template on the plane
+// type and on where the coded state comes from, so that neither pays for
+// the other's choice at run time (a build that chose at run time, with
+// null-field branches and 64-bit strided addresses, ran 22% slower).
+//
 // What bounds it on the H100: one lane's chain, not bytes.  Row slices
 // never filter across MB rows, so the S x R MB rows are independent
 // lanes (272 at 1080p x 4), but inside a lane the C columns are strictly
@@ -209,47 +229,106 @@ __device__ __forceinline__ void filter_chroma(int p1, int& p0, int& q0,
 }
 
 // The kernel's inputs and outputs: lanes = S * R MB rows of C columns.
+// Planes are uint8 (the ring entry) or int32 (the counts entry): the
+// kernel's P.  Every per-MB field is read
+// in place, MB m at element m * its stride (the GOP decode's record views
+// have stride 9; a field the caller does not give is read from kZeros,
+// kind from kIntra, with stride 0).  The coded 4x4 blocks come from `lev`
+// (the kernel's kLev: luma_ac [.., 16, 16] int16, nonzero coded; with
+// the 8x8 rule for t8 MBs) or from `nnz` (counts [.., 16], > 0 coded).
 struct Args {
-  const int32_t *y, *u, *v, *kind, *mvx, *mvy, *ref, *t8, *nnz;
+  const void *y, *u, *v;
+  const int32_t *kind, *mvx, *mvy, *ref, *t8, *nnz;
+  const int16_t* lev;
   uint8_t *oy, *ou, *ov;
-  int lanes, C;
+  int lanes, C, qp, qpc;
+  int sk, smx, smy, sref, st8, slev;  // MB strides, in elements
 };
 
-// One MB's side information as a thread needs it; g is the thread's
-// 4x4-block group (luma row / column r / 4, chroma k / 2).
-struct Side {
+// What a field or the levels read where the caller gives none (stride 0):
+// zeros (512 bytes: a MB's luma levels), and kind 2, intra.
+__device__ int32_t kZeros[128];
+__device__ int32_t kIntra[1] = {2};
+
+// One MB's side information as it is loaded: the fields, and the raw
+// coded state of the thread's 4x4 block (its 16 levels; or its count in
+// lv[0].x).
+struct SideIn {
   int kind, mvx, mvy, ref, t8;
-  int row[4];  // nnz[g][0..3]: the blocks along its rows (vertical edges)
-  int col[4];  // nnz[0..3][g]: along its columns (horizontal edges)
+  int4 lv[2];
 };
 
-__device__ __forceinline__ Side load_side(const Args& a, size_t mb, int g) {
-  Side s;
-  s.kind = a.kind[mb];
-  s.mvx = a.mvx[mb];
-  s.mvy = a.mvy[mb];
-  s.ref = a.ref ? a.ref[mb] : 0;
-  s.t8 = a.t8 ? a.t8[mb] : 0;
-  const int32_t* nz = a.nnz + 16 * mb;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    s.row[j] = nz[4 * g + j];
-    s.col[j] = nz[4 * j + g];
+// ... and as the bS needs it: m holds the MB's coded 4x4 blocks, bit
+// 4 by + bx.
+struct Side {
+  int kind, mvx, mvy, ref;
+  unsigned m;
+};
+
+// MB mb's side information; j is the 4x4 block (raster) whose coded state
+// this thread loads.  Element offsets are 32-bit: a frame's MBs times a
+// record's 400 slots stay far below 2^31.
+template <bool kLev>
+__device__ __forceinline__ SideIn load_side(const Args& a, int mb, int j) {
+  SideIn s;
+  s.kind = a.kind[mb * a.sk];
+  s.mvx = a.mvx[mb * a.smx];
+  s.mvy = a.mvy[mb * a.smy];
+  s.ref = a.ref[mb * a.sref];
+  s.t8 = a.t8[mb * a.st8];
+  if constexpr (kLev) {
+    const int4* q = reinterpret_cast<const int4*>(a.lev + mb * a.slev + 16 * j);
+    s.lv[0] = q[0];
+    s.lv[1] = q[1];
+  } else {
+    s.lv[0] = make_int4(a.nnz[16 * mb + j], 0, 0, 0);
+    s.lv[1] = make_int4(0, 0, 0, 0);
   }
   return s;
 }
 
-// bS of the left MB edge: p the left MB, c this one
-__device__ __forceinline__ int bs_left(const Side& p, const Side& c) {
+// The 8x8 rule (8.7.2.1): a 4x4 block of an 8x8-transform MB counts as
+// coded iff its 8x8 block has a coefficient.  The levels of 8x8 block q
+// (raster) are the 64 of luma_ac[4q .. 4q + 3], so its bit group is m's
+// bits 4q .. 4q + 3; its 4x4 blocks are raster bits kQuad[q].
+__device__ __forceinline__ unsigned rule8x8(unsigned m) {
+  const unsigned kQuad[4] = {0x0033u, 0x00ccu, 0x3300u, 0xcc00u};
+  unsigned e = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) e |= ((m >> (4 * q)) & 15u) ? kQuad[q] : 0u;
+  return e;
+}
+
+// The column's side information from what was loaded: the coded state of
+// the 16 blocks of the thread's MB, one block a thread of its half warp,
+// by one ballot of the whole warp (both halves' lanes).
+template <bool kLev>
+__device__ __forceinline__ Side side_of(const SideIn& in, int half) {
+  const int4 p = in.lv[0], q = in.lv[1];
+  const bool coded =
+      kLev ? ((p.x | p.y | p.z | p.w | q.x | q.y | q.z | q.w) != 0)
+           : (p.x > 0);
+  unsigned m = (__ballot_sync(0xffffffffu, coded) >> (16 * half)) & 0xffffu;
+  if (kLev && in.t8 == 1) m = rule8x8(m);
+  return Side{in.kind, in.mvx, in.mvy, in.ref, m};
+}
+
+__device__ __forceinline__ int bit(unsigned m, int k) {
+  return (int)((m >> k) & 1u);
+}
+
+// bS of the left MB edge in the thread's 4x4-block group g: p the left
+// MB, c this one
+__device__ __forceinline__ int bs_left(const Side& p, const Side& c, int g) {
   const int moved = (abs(c.mvx - p.mvx) >= 4) | (abs(c.mvy - p.mvy) >= 4) |
                     (c.ref != p.ref);
-  const int coded = ((p.row[3] > 0) | (c.row[0] > 0)) ? 2 : moved;
+  const int coded = (bit(p.m, 4 * g + 3) | bit(c.m, 4 * g)) ? 2 : moved;
   return ((c.kind == 2) | (p.kind == 2)) ? 4 : coded;
 }
 
-// bS of an internal edge between 4x4 blocks with counts a and b
+// bS of an internal edge between 4x4 blocks coded a and b
 __device__ __forceinline__ int bs_internal(const Side& s, int a, int b) {
-  return s.kind == 2 ? 3 : (((a > 0) | (b > 0)) ? 2 : 0);
+  return s.kind == 2 ? 3 : ((a | b) ? 2 : 0);
 }
 
 __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
@@ -290,6 +369,46 @@ __device__ __forceinline__ void unpack_row(int (&m)[N],
   }
 }
 
+__device__ __forceinline__ void unpack_word(int* m, uint32_t w) {
+  m[0] = (int)(w & 255u);
+  m[1] = (int)((w >> 8) & 255u);
+  m[2] = (int)((w >> 16) & 255u);
+  m[3] = (int)(w >> 24);
+}
+
+// One line's row of one MB as it is loaded: N samples of the plane type P
+// (int32: N / 4 int4; uint8: one 16- or 8-byte vector).
+template <typename P, int N>
+struct Raw {
+  int4 w[N / 4];
+  __device__ void load(const int32_t* src) { load_row<N>(w, src); }
+  __device__ void unpack(int (&m)[N]) const { unpack_row<N>(m, w); }
+};
+template <>
+struct Raw<uint8_t, 16> {
+  uint4 w;
+  __device__ void load(const uint8_t* src) {
+    w = *reinterpret_cast<const uint4*>(src);
+  }
+  __device__ void unpack(int (&m)[16]) const {
+    unpack_word(m, w.x);
+    unpack_word(m + 4, w.y);
+    unpack_word(m + 8, w.z);
+    unpack_word(m + 12, w.w);
+  }
+};
+template <>
+struct Raw<uint8_t, 8> {
+  uint2 w;
+  __device__ void load(const uint8_t* src) {
+    w = *reinterpret_cast<const uint2*>(src);
+  }
+  __device__ void unpack(int (&m)[8]) const {
+    unpack_word(m, w.x);
+    unpack_word(m + 4, w.y);
+  }
+};
+
 // Exchange 1: thread i writes its row i of an N x N block (row stride
 // S), then reads column i into m.  Exchange 2 writes column i of m and
 // reads row i into row.
@@ -317,22 +436,24 @@ __device__ __forceinline__ void cols_to_rows(const int (&m)[N], int (&row)[N],
 
 // One thread's line through a lane: its row of every MB (N = 16 luma,
 // 8 chroma), the side information's group g, its exchange buffer and
-// its row / column index i there.
+// its row / column index i there; j the 4x4 block whose coded state it
+// loads, half its lane's half of the warp.
+template <typename P>
 struct Line {
-  const int32_t* src;
+  const P* src;
   uint8_t* dst;
-  size_t mb0;  // the lane's first MB
-  int g, i;
+  int mb0;  // the lane's first MB
+  int g, i, j, half;
   int* buf;
   bool valid;  // false: a missing lane's stand-in, which stores nothing
 };
 
 // One column's inputs in flight: the line's N samples and its side
 // information.
-template <int N>
+template <typename P, int N>
 struct In {
-  int4 s[N / 4];
-  Side sd;
+  Raw<P, N> s;
+  SideIn sd;
 };
 
 // a hint that brings p's line into L2 (nothing where the source runs on
@@ -343,38 +464,49 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 #endif
 }
 
-template <int N>
-__device__ __forceinline__ void load_in(In<N>& in, const Args& a,
-                                        const Line& l, int col) {
-  load_row<N>(in.s, l.src + N * col);
-  in.sd = load_side(a, l.mb0 + col, l.g);
+template <typename P, bool kLev, int N>
+__device__ __forceinline__ void load_in(In<P, N>& in, const Args& a,
+                                        const Line<P>& l, int col) {
+  in.s.load(l.src + N * col);
+  in.sd = load_side<kLev>(a, l.mb0 + col, l.j);
 }
 
 // MB column col of the line, from `in`, which then takes column col + 2
 // (the last column again at the end) while column col + 4's rows go to
 // L2.  prev holds the line's row of the MB to the left and ps its side
 // information; both become this MB's.
-template <int N>
-__device__ __forceinline__ void column(In<N>& in, int col, const Args& a,
-                                       const Line& l, int (&prev)[N],
+template <typename P, bool kLev, int N>
+__device__ __forceinline__ void column(In<P, N>& in, int col, const Args& a,
+                                       const Line<P>& l, int (&prev)[N],
                                        Side& ps, const Params& f) {
   int m[N];
-  unpack_row<N>(m, in.s);
-  const Side cs = in.sd;
-  load_in<N>(in, a, l, min(col + 2, a.C - 1));
+  in.s.unpack(m);
+  const Side cs = side_of<kLev>(in.sd, l.half);
+  const bool t8 = in.sd.t8 == 1;  // 8x8 transform: no luma edges 4, 12
+  load_in<P, kLev, N>(in, a, l, min(col + 2, a.C - 1));
   const int pc = min(col + 4, a.C - 1);
+  const int pm = l.mb0 + pc;
   prefetch_l2(l.src + N * pc);
-  prefetch_l2(a.nnz + 16 * (l.mb0 + pc) + l.g);
+  if constexpr (kLev)
+    prefetch_l2(a.lev + pm * a.slev + 16 * l.j);
+  else
+    prefetch_l2(a.nnz + 16 * pm + l.j);
 
   // the bS of the line's edges, from the side information alone
-  const int bl = col > 0 ? bs_left(ps, cs) : 0;
+  const int g = l.g;
+  const int bl = col > 0 ? bs_left(ps, cs, g) : 0;
   if constexpr (N == 16) {
-    const bool t8 = cs.t8 == 1;  // 8x8 transform: no edges 4 and 12
     int bv[3], bh[3];
 #pragma unroll
     for (int e = 0; e < 3; ++e) {
-      bv[e] = t8 & (e != 1) ? 0 : bs_internal(cs, cs.row[e], cs.row[e + 1]);
-      bh[e] = t8 & (e != 1) ? 0 : bs_internal(cs, cs.col[e], cs.col[e + 1]);
+      bv[e] = t8 & (e != 1)
+                  ? 0
+                  : bs_internal(cs, bit(cs.m, 4 * g + e),
+                                bit(cs.m, 4 * g + e + 1));
+      bh[e] = t8 & (e != 1)
+                  ? 0
+                  : bs_internal(cs, bit(cs.m, 4 * e + g),
+                                bit(cs.m, 4 * e + 4 + g));
     }
     // the left MB edge; then the left MB's row is final (in column 0 a
     // dummy row, which column 1 or the last store overwrites)
@@ -395,8 +527,8 @@ __device__ __forceinline__ void column(In<N>& in, int col, const Args& a,
     cols_to_rows<16, kLS>(m, prev, l.buf, l.i);
   } else {
     // luma group g's bS: left edge, edge 8 each way (never t8-masked)
-    const int bv = bs_internal(cs, cs.row[1], cs.row[2]);
-    const int bh = bs_internal(cs, cs.col[1], cs.col[2]);
+    const int bv = bs_internal(cs, bit(cs.m, 4 * g + 1), bit(cs.m, 4 * g + 2));
+    const int bh = bs_internal(cs, bit(cs.m, 4 + g), bit(cs.m, 8 + g));
     filter_chroma<true>(prev[6], prev[7], m[0], m[1], bl, f);
     if (l.valid) store_row<8>(l.dst + 8 * max(col - 1, 0), prev);
     filter_chroma<false>(m[2], m[3], m[4], m[5], bv, f);
@@ -410,19 +542,19 @@ __device__ __forceinline__ void column(In<N>& in, int col, const Args& a,
 // The line through all C columns.  Two input slots alternate (even
 // columns in A, odd in B), so each load lands in the registers the
 // column two back has just left and no value is copied.
-template <int N>
-__device__ __forceinline__ void lane_line(const Args& a, const Line& l,
+template <typename P, bool kLev, int N>
+__device__ __forceinline__ void lane_line(const Args& a, const Line<P>& l,
                                           const Params& f) {
   const int C = a.C;
-  In<N> A, B;
-  load_in<N>(A, a, l, 0);
-  load_in<N>(B, a, l, min(1, C - 1));
+  In<P, N> A, B;
+  load_in<P, kLev, N>(A, a, l, 0);
+  load_in<P, kLev, N>(B, a, l, min(1, C - 1));
   int prev[N] = {};
-  Side ps = A.sd;
+  Side ps{};
   for (int col = 0;; col += 2) {
-    column<N>(A, col, a, l, prev, ps, f);
+    column<P, kLev, N>(A, col, a, l, prev, ps, f);
     if (col + 1 == C) break;
-    column<N>(B, col + 1, a, l, prev, ps, f);
+    column<P, kLev, N>(B, col + 1, a, l, prev, ps, f);
     if (col + 2 == C) break;
   }
   if (l.valid) store_row<N>(l.dst + N * (C - 1), prev);  // the last MB
@@ -431,45 +563,137 @@ __device__ __forceinline__ void lane_line(const Args& a, const Line& l,
 // Block b: lanes 2b and 2b + 1 (a missing second lane recomputes the
 // last one and stores nothing).  Warp 0 luma: thread 16 h + r is row r
 // of lane 2b + h.  Warp 1 chroma: thread 16 h + 8 p + k is row k of
-// plane p (U, V) of lane 2b + h.
+// plane p (U, V) of lane 2b + h.  Thread 16 h + j of either warp loads
+// the coded state of 4x4 block j of its lane's MB.  P: the planes' type;
+// kLev: the coded blocks from the levels (the ring entry), else from the
+// counts.
+template <typename P, bool kLev>
 __global__ void __launch_bounds__(64)
-    deblock_rows_kernel(Args a, int qp, int qpc) {
+    deblock_rows_kernel(const __grid_constant__ Args a) {
   __shared__ __align__(16) int L[2 * kLLane];
   __shared__ __align__(16) int Ch[4 * kCPlane];
   const int t = threadIdx.x & 31, h = t >> 4;
   const int lane = 2 * blockIdx.x + h;
   const bool valid = lane < a.lanes;
   const int at = valid ? lane : a.lanes - 1;
-  const size_t mb0 = (size_t)at * a.C;
+  const int mb0 = at * a.C;
+  const P* y = static_cast<const P*>(a.y);
   if (threadIdx.x < 32) {
     const int r = t & 15;
     const size_t row = (size_t)(16 * at + r) * 16 * a.C;
-    lane_line<16>(a, Line{a.y + row, a.oy + row, mb0, r >> 2, r,
-                          L + h * kLLane, valid}, params(qp));
+    lane_line<P, kLev, 16>(a, Line<P>{y + row, a.oy + row, mb0, r >> 2, r,
+                                      r, h, L + h * kLLane, valid},
+                           params(a.qp));
   } else {
     const int p = (t >> 3) & 1, k = t & 7;
     const size_t row = (size_t)(8 * at + k) * 8 * a.C;
-    lane_line<8>(a, Line{(p ? a.v : a.u) + row, (p ? a.ov : a.ou) + row,
-                         mb0, k >> 1, k, Ch + (t >> 3) * kCPlane, valid},
-                 params(qpc));
+    const P* c = static_cast<const P*>(p ? a.v : a.u);
+    lane_line<P, kLev, 8>(a, Line<P>{c + row, (p ? a.ov : a.ou) + row,
+                                     mb0, k >> 1, k, t & 15, h,
+                                     Ch + (t >> 3) * kCPlane, valid},
+                          params(a.qpc));
   }
+}
+
+// The device addresses of kZeros and kIntra (on CPU threads, where the
+// source runs in the tests, their own).
+inline const int32_t* zeros_addr() {
+#ifdef __CUDACC__
+  void* p = nullptr;
+  cudaGetSymbolAddress(&p, kZeros);
+  return static_cast<const int32_t*>(p);
+#else
+  return kZeros;
+#endif
+}
+
+inline const int32_t* intra_addr() {
+#ifdef __CUDACC__
+  void* p = nullptr;
+  cudaGetSymbolAddress(&p, kIntra);
+  return static_cast<const int32_t*>(p);
+#else
+  return kIntra;
+#endif
+}
+
+// A null field or level array read as zeros (kind: as every MB intra),
+// with stride 0.
+inline Args with_defaults(Args a) {
+  const int32_t* z = zeros_addr();
+  if (!a.kind) a.kind = intra_addr(), a.sk = 0;
+  if (!a.mvx) a.mvx = z, a.smx = 0;
+  if (!a.mvy) a.mvy = z, a.smy = 0;
+  if (!a.ref) a.ref = z, a.sref = 0;
+  if (!a.t8) a.t8 = z, a.st8 = 0;
+  if (!a.lev) a.lev = reinterpret_cast<const int16_t*>(z), a.slev = 0;
+  return a;
+}
+
+// The arguments of the counts entry: int32 planes, contiguous fields, the
+// per-4x4 counts; ref and t8 may be null (all 0).
+inline Args rows_args(const int32_t* y, const int32_t* u, const int32_t* v,
+                      const int32_t* kind, const int32_t* mvx,
+                      const int32_t* mvy, const int32_t* ref,
+                      const int32_t* t8, const int32_t* nnz, uint8_t* oy,
+                      uint8_t* ou, uint8_t* ov, int lanes, int C, int qp,
+                      int qpc) {
+  return with_defaults(Args{y, u, v, kind, mvx, mvy, ref, t8, nnz, nullptr,
+                            oy, ou, ov, lanes, C, qp, qpc, 1, 1, 1, 1, 1,
+                            0});
+}
+
+constexpr int kPtrs = 13;
+constexpr int kInts = 10;
+
+// The ring entry's arguments from its pointer and int arrays, in the
+// order kernels/deblock.py `_k4_ring_operands` builds them: y, u, v,
+// kind, mvx, mvy, ref, t8, nnz, lev, oy, ou, ov; lanes, C, qp, qpc, then
+// the strides of kind, mvx, mvy, ref, t8 and lev.  The planes are uint8.
+inline Args ring_args(void* const* p, const int* n) {
+  return with_defaults(Args{p[0], p[1], p[2],
+              static_cast<const int32_t*>(p[3]),
+              static_cast<const int32_t*>(p[4]),
+              static_cast<const int32_t*>(p[5]),
+              static_cast<const int32_t*>(p[6]),
+              static_cast<const int32_t*>(p[7]),
+              static_cast<const int32_t*>(p[8]),
+              static_cast<const int16_t*>(p[9]),
+              static_cast<uint8_t*>(p[10]), static_cast<uint8_t*>(p[11]),
+              static_cast<uint8_t*>(p[12]),
+              n[0], n[1], n[2], n[3], n[4], n[5], n[6], n[7], n[8],
+              n[9]});
 }
 
 }  // namespace
 
-#ifdef __CUDACC__  // the entry; tests/test_torch_deblock.py runs the rest
-                   // above on CPU threads, compiled by g++ against shims
+#ifdef __CUDACC__  // the entries; tests/test_torch_deblock.py runs the
+                   // rest above on CPU threads, compiled by g++ against
+                   // shims
 
-// lanes = S * R MB rows of C MB columns; ref and t8 may be null (all 0).
+// The counts entry (`deblock_frame_rows`): lanes = S * R MB rows of C MB
+// columns; ref and t8 may be null (all 0).
 extern "C" int th264_deblock_rows(
     const int32_t* y, const int32_t* u, const int32_t* v,
     const int32_t* kind, const int32_t* mvx, const int32_t* mvy,
     const int32_t* ref, const int32_t* t8, const int32_t* nnz, uint8_t* oy,
     uint8_t* ou, uint8_t* ov, int lanes, int C, int qp, int qpc,
     void* stream) {
-  const Args a{y, u, v, kind, mvx, mvy, ref, t8, nnz, oy, ou, ov, lanes, C};
-  deblock_rows_kernel<<<(lanes + 1) / 2, 64, 0, (cudaStream_t)stream>>>(
-      a, qp, qpc);
+  const Args a = rows_args(y, u, v, kind, mvx, mvy, ref, t8, nnz, oy, ou, ov,
+                           lanes, C, qp, qpc);
+  deblock_rows_kernel<int32_t, false>
+      <<<(lanes + 1) / 2, 64, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The ring entry (`deblock_ring`): p kPtrs device pointers, n kInts ints
+// (host arrays, `ring_args`' order).
+extern "C" int th264_deblock_ring(void* const* p, const int* n,
+                                  void* stream) {
+  const Args a = ring_args(p, n);
+  if (a.lanes < 1 || a.C < 1) return (int)cudaErrorInvalidValue;
+  deblock_rows_kernel<uint8_t, true>
+      <<<(a.lanes + 1) / 2, 64, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

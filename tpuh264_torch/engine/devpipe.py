@@ -22,11 +22,17 @@ intra-in-P).  Per dispatch:
           deblock on an independent decoder DPB (S * N streams) -> SSE
 
 Both DPBs stay on the device across dispatches, each plane one uint8
-[N, S, H, W] tensor used as a ring (`dpb_refs`, `dpb_push`, `dpb_fill`):
-the newest frame in slot `_head_enc` / `_head_dec`, older ones after it;
-with one reference (the RTC preset) the ring is one slot.  K11 reads the
-slots by pointer, newest first.  The decoder's SSE (K14, exact int64)
-reads the source frames the encode of the same dispatch built.  Eager PyTorch compiles nothing per shape, so the JAX
+[N, S, H, W] tensor used as a ring (`dpb_refs`, `dpb_advance`,
+`dpb_fill`): the newest frame in slot `_head_enc` / `_head_dec`, older
+ones after it; with one reference (the RTC preset) the ring is one slot.
+K11 reads the slots by pointer, newest first; the deblock (K4's ring
+entry) writes each frame straight into the oldest slot, which becomes the
+newest -- free by then, as K11 has already built the frame's reference
+planes from it, and K1 / K9 / K10 read those planes, never the slot.
+The decoder's SSE (K14, exact int64) reads each decoded frame's slot
+right after its deblock, before a later frame of the dispatch takes the
+slot, against the source frames the encode of the same dispatch built.
+Eager PyTorch compiles nothing per shape, so the JAX
 version's sticky payload budgets, record-cap buckets, `freeze_shapes`
 and DevicePipeline's fixed-size wire bucket (`BUCKET_W`, with its
 full-slab fallback) are gone: every payload is compacted to its exact
@@ -160,20 +166,21 @@ def dpb_refs(dpb, head: int, n: int):
     return tuple([p[i] for i in slots] for p in dpb)
 
 
-def dpb_push(dpb, head: int, planes) -> int:
-    """Write a frame's planes over the ring's oldest slot, which becomes
-    the newest: one uint8 copy a plane.  Returns the new head."""
+def dpb_advance(dpb, head: int):
+    """The ring's oldest slot, which becomes the newest: (the new head,
+    the slot's three plane views [S, H, W]), for the next frame to be
+    written into (the deblock writes it there)."""
     head = (head - 1) % dpb[0].shape[0]
-    for p, x in zip(dpb, planes):
-        p[head].copy_(x)
-    return head
+    return head, tuple(p[head] for p in dpb)
 
 
-def dpb_fill(dpb, planes) -> int:
-    """An IDR: the frame's planes into every slot (the never-selected
-    extra references stay well-formed).  Returns the head, 0."""
-    for p, x in zip(dpb, planes):
-        p.copy_(x[None].expand_as(p))
+def dpb_fill(dpb) -> int:
+    """An IDR, which slot 0 holds: its planes copied into every other
+    slot (the never-selected extra references stay well-formed; no copy
+    with one slot).  Returns the head, 0."""
+    for p in dpb:
+        if p.shape[0] > 1:
+            p[1:].copy_(p[0][None].expand_as(p[1:]))
     return 0
 
 
@@ -502,8 +509,9 @@ class GOPDevicePipeline:
         ovf = torch.zeros(1, dtype=I32, device=self.device)
         if start:
             sym_i, recon = iframe.encode_iframe_rows(y[0], u[0], v[0], qp)
-            # IDR resets the DPB
-            self._head_enc = dpb_fill(dpb, kdeblock.deblock_i(recon, qp))
+            # IDR resets the DPB: deblocked into slot 0, then copied on
+            kdeblock.deblock_i(recon, qp, out=tuple(p[0] for p in dpb))
+            self._head_enc = dpb_fill(dpb)
             hw_i, bytes_i, _ = entropy_gpu.encode_bits_iframe(
                 sym_i, qp, *hdr_i, ovf=ovf)
         # the dispatch right after an IDR caps ref_idx at the refs that
@@ -518,9 +526,10 @@ class GOPDevicePipeline:
             sym, recon, motion = pframe.encode_pframe_rows_multi(
                 y[f], u[f], v[f], *dpb_refs(dpb, self._head_enc, nra), qp,
                 intra_in_p=self.config.intra_in_p, out=out)
-            self._head_enc = dpb_push(
-                dpb, self._head_enc,
-                kdeblock.deblock_p(recon, sym, motion, qp))
+            # deblocked into the oldest slot: its reference planes are
+            # built, nothing reads the slot again
+            self._head_enc, slot = dpb_advance(dpb, self._head_enc)
+            kdeblock.deblock_p(recon, sym, motion, qp, out=slot)
         hw_p, bytes_p, _ = entropy_gpu.encode_bits_pframe(
             syms_p, qp, *hdr_p, nra=nra, ovf=ovf)
         parts = [ovf]
@@ -577,23 +586,25 @@ class GOPDevicePipeline:
                                     r, c, self._upload, dev)
 
         dpb, n_refs = self._dpb_dec, self.n_refs
-        dec_y = []
+        ref = None if self.source_kind == "host" else src
+        sse = torch.empty((k, s), dtype=torch.int64, device=dev)
         for f in range(k):
             sym = record_symbols(mbf[f], coef[f])
             recon, motion = pframe.decode_pframe_rows_multi(
                 sym, *dpb_refs(dpb, self._head_dec, n_refs), qp)
-            db = kdeblock.deblock_p(recon, sym, motion, qp)
-            # the DPB mirrors the encoder's: an IDR fills the ring, other
-            # frames take the oldest slot
-            if f == 0 and start:
-                self._head_dec = dpb_fill(dpb, db)
-            else:
-                self._head_dec = dpb_push(dpb, self._head_dec, db)
-            dec_y.append(db[0])
+            # the DPB mirrors the encoder's: an IDR into slot 0 and on
+            # into every slot, other frames into the oldest slot
+            idr = f == 0 and start
+            head, slot = ((0, tuple(p[0] for p in dpb)) if idr
+                          else dpb_advance(dpb, self._head_dec))
+            kdeblock.deblock_p(recon, sym, motion, qp, out=slot)
+            self._head_dec = dpb_fill(dpb) if idr else head
+            # the frame's SSE before a later frame's deblock takes the slot
+            ksse.sse([slot[0]], None if ref is None else ref[f:f + 1], fan,
+                     out=sse[f:f + 1])
         self.stage_ms["parse"] += (t1 - t0) * 1e3
         self.stage_ms["dec_dispatch"] += (time.perf_counter() - t1) * 1e3
-        self._sse_dev = ksse.sse(
-            dec_y, None if self.source_kind == "host" else src, fan)
+        self._sse_dev = sse
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr))

@@ -13,6 +13,13 @@ reproduced in int64 arithmetic), so pipeline parity tests run on it.
 "rigid" and "moving_gradient" use float32 sin/cos: different math
 libraries (XLA's CPU, PyTorch's CPU, CUDA's sinf) may differ by an ulp,
 which can flip a truncated uint8 by one level on a few pixels.
+
+`device_source_gop` is a router: CPU tensors take the plain version
+`_device_source_gop_plain` (the eager formulas), a CUDA device launches
+K15 (csrc/source.cu), one launch for every frame and plane, equal on the
+card to the plain version's chain of float32 ATen ops sample for sample;
+any other device raises.  `device_source_frames` (the DevicePipeline's
+source) is `device_source_gop` with one stream.
 """
 
 from __future__ import annotations
@@ -22,7 +29,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..kernels import cuda_lib
+
 _M32 = (1 << 32) - 1
+KINDS = ("rigid", "noise", "moving_gradient")  # K15's kind codes 0, 1, 2
 
 
 def _wrap32(h: torch.Tensor) -> torch.Tensor:
@@ -41,11 +51,11 @@ def _hash_noise(*terms: torch.Tensor) -> torch.Tensor:
     return (h & 255).to(torch.uint8)
 
 
-def device_source_gop(width: int, height: int, k: int, streams: int,
-                      kind: str, t: int, device
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Frames t..t+k-1 of every stream: [k, streams, H, W] uint8 planes
-    (chroma [k, streams, H/2, W/2]), as tpuh264's _device_source_gop."""
+def _device_source_gop_plain(width: int, height: int, k: int, streams: int,
+                             kind: str, t: int, device
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain version of `device_source_gop` (same arguments)."""
     i32, f32 = torch.int32, torch.float32
     ti = (t + torch.arange(k, dtype=i32, device=device))[:, None, None, None]
     si = torch.arange(streams, dtype=i32, device=device)[None, :, None, None]
@@ -85,30 +95,62 @@ def device_source_gop(width: int, height: int, k: int, streams: int,
             u.expand(shape2).contiguous(), v.expand(shape2).contiguous())
 
 
+def _k15_operands(width: int, height: int, k: int, streams: int, kind: str,
+                  t: int, device):
+    """K15's operands in its entry's order (csrc/source.cu
+    `source_args`): (input tensors (none), output tensors -- the luma and
+    the two chroma planes, fresh --, ints)."""
+    outs = [torch.empty(sh, dtype=torch.uint8, device=device) for sh in (
+        (k, streams, height, width),
+        (k, streams, height // 2, width // 2),
+        (k, streams, height // 2, width // 2))]
+    return [], outs, [width, height, streams, k, t, KINDS.index(kind)]
+
+
+def device_source_gop(width: int, height: int, k: int, streams: int,
+                      kind: str, t: int, device
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Frames t..t+k-1 of every stream: [k, streams, H, W] uint8 planes
+    (chroma [k, streams, H/2, W/2]), as tpuh264's _device_source_gop:
+    the plain version on the CPU, K15 on a CUDA device."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _device_source_gop_plain(width, height, k, streams, kind, t,
+                                        device)
+    if kind not in KINDS:
+        raise ValueError(f"unknown device source kind {kind!r}")
+    if device.type != "cuda":
+        raise ValueError(f"device_source_gop: device {device}, neither the "
+                         f"CPU nor a CUDA device")
+    if (width < 2 or height < 2 or width % 2 or height % 2 or streams < 1
+            or k < 1 or not -(1 << 31) <= t <= (1 << 31) - k):
+        raise ValueError(f"device_source_gop: {k} frames of {width}x{height}"
+                         f" x {streams} from t = {t}: K15 takes even sizes "
+                         f"and int32 times")
+    ins, outs, ints = _k15_operands(width, height, k, streams, kind, t,
+                                    device)
+    err = cuda_lib.load().th264_source(
+        cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+        cuda_lib.stream(device))
+    cuda_lib.check(err, "th264_source")
+    device_source_gop.launches += 1
+    return tuple(outs)
+
+
+device_source_gop.launches = 0  # launches of K15
+
+
 def device_source_frames(width: int, height: int, k: int, kind: str, t: int,
                          device) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """Frames t..t+k-1 of one stream, the batch axis being TIME: [k, H, W]
     uint8 planes (chroma [k, H/2, W/2]), as tpuh264's
     _device_source_frames ("noise", or the moving gradient for any other
-    kind)."""
-    i32 = torch.int32
-    s = (t + torch.arange(k, dtype=i32, device=device))[:, None, None]
-    yy = torch.arange(height, dtype=i32, device=device)[None, :, None]
-    xx = torch.arange(width, dtype=i32, device=device)[None, None, :]
-    if kind == "noise":
-        y = _hash_noise(xx, yy, s)
-        u = _hash_noise(xx[:, :, ::2] + 7, yy[:, ::2, :] + 3, s)
-        v = _hash_noise(xx[:, :, ::2] + 13, yy[:, ::2, :] + 11, s)
-    else:
-        y = ((xx * 2 + yy + s * 7) % 256).to(torch.uint8)
-        u = (128 + 47 * torch.sin((xx[:, :, ::2] + s * 3) / 37.0)).to(
-            torch.uint8)
-        v = (128 + 47 * torch.cos((yy[:, ::2, :] - s * 5) / 29.0)).to(
-            torch.uint8)
-    shape2 = (k, height // 2, width // 2)
-    return (y.expand(k, height, width).contiguous(),
-            u.expand(shape2).contiguous(), v.expand(shape2).contiguous())
+    kind): `device_source_gop` with one stream, whose stream terms then
+    vanish."""
+    kind = "noise" if kind == "noise" else "moving_gradient"
+    return tuple(p[:, 0] for p in device_source_gop(width, height, k, 1,
+                                                    kind, t, device))
 
 
 # -- host sources: numpy copies of tpuh264/engine/sources.py ----------------

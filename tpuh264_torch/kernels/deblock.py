@@ -19,7 +19,19 @@ skipped outright.  For MBs coded with the 8x8 transform (`t8`) the
 the bS of luma edge 2.
 
 `deblock_frame_rows` takes the plain version only for tensors on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+CPU; for a CUDA tensor it launches the kernel or raises.  It takes the
+per-4x4 coded counts of `deblock_nnz` and int32 planes (the kernel's
+first entry).
+
+`deblock_ring` is the kernel's second entry, which every caller of
+`deblock_i` / `deblock_p` reaches: uint8 planes, as every reconstruction
+of the codec's paths is, the per-MB fields read in place with their MB
+strides, the coded
+4x4 blocks worked out by the kernel from the MBs' luma_ac levels (the
+8x8 rule for t8 MBs), no fields at all for an all-intra frame, and the
+filtered planes written into a caller-given output (the GOP pipeline's
+DPB ring slot).  Its plain version `_deblock_ring_plain` is
+`_deblock_rows_plain` on `deblock_nnz`'s grid, copied into that output.
 
 Also home of `deblock_nnz` (was engine/encoder.py `_deblock_nnz`) and of
 the pipeline's two call shapes `deblock_i` / `deblock_p`.
@@ -39,7 +51,7 @@ import torch
 from ..golden.deblock import ALPHA, BETA, TC0
 from . import cuda_lib, tables
 from . import transform as T
-from .iframe import _mb_view, _mbs_to_plane
+from .iframe import _mb_strided, _mb_view, _mbs_to_plane
 
 I32 = torch.int32
 tables.register("tc0", lambda: np.asarray(TC0, np.int32))  # [52, 3]
@@ -263,36 +275,158 @@ def deblock_frame_rows(y, u, v, kind, mvx, mvy, nnz, qp: int,
 deblock_frame_rows.launches = 0  # launches of the D1 kernel
 
 
+def _levels_nnz(luma_ac: torch.Tensor, t8=None) -> torch.Tensor:
+    """Per-4x4 coded-coefficient grid [S, R, C, 4, 4] from the MBs' luma
+    AC levels [S, R, C, 16, 16]: each 4x4 block's count of nonzero
+    levels; where `t8` [S, R, C] is given, a 4x4 cell of an 8x8-transform
+    MB (t8 == 1) counts as coded iff its covering 8x8 block has any
+    coefficient (8.7.2.1; the 64 levels of 8x8 block q are luma_ac[4q ..
+    4q + 3])."""
+    sh = luma_ac.shape[:-2]
+    nnz4 = luma_ac.ne(0).sum(-1, dtype=I32).reshape(*sh, 4, 4)
+    if t8 is None:
+        return nnz4
+    any8 = luma_ac.reshape(*sh, 4, 64).ne(0).any(-1).to(I32).reshape(
+        *sh, 2, 2)
+    cells8 = any8.repeat_interleave(2, dim=-1).repeat_interleave(2, dim=-2)
+    return torch.where((t8 == 1)[..., None, None], cells8, nnz4)
+
+
 def deblock_nnz(symbols, t8_enabled: bool = False) -> torch.Tensor:
     """Per-4x4 coded-coefficient grid [S, R, C, 4, 4] for the bS
     derivation (port of engine/encoder.py `_deblock_nnz`).  With
     `t8_enabled`, a 4x4 cell of an 8x8-transform MB counts as coded iff
     its covering 8x8 block has any coefficient (8.7.2.1)."""
-    sh = symbols.kind.shape
-    lac = symbols.luma_ac
-    nnz4 = lac.ne(0).sum(-1, dtype=I32).reshape(*sh, 4, 4)
-    if not t8_enabled or symbols.t8 is None:
-        return nnz4
-    any8 = lac.reshape(*sh, 4, 64).ne(0).any(-1).to(I32).reshape(*sh, 2, 2)
-    cells8 = any8.repeat_interleave(2, dim=-1).repeat_interleave(2, dim=-2)
-    return torch.where((symbols.t8 == 1)[..., None, None], cells8, nnz4)
+    return _levels_nnz(symbols.luma_ac,
+                       symbols.t8 if t8_enabled else None)
 
 
-def deblock_i(recon, qp: int):
-    """In-loop deblock of an all-intra frame (every MB intra, bS 3/4)."""
-    y = recon[0]
+def _deblock_ring_plain(y, u, v, kind, mvx, mvy, luma_ac, qp: int,
+                        refidx=None, t8=None, out=None):
+    """Plain version of `deblock_ring` (same arguments):
+    `_deblock_rows_plain` on `_levels_nnz`'s grid (zero grids and every
+    MB intra where `kind` is None), copied into `out` where given."""
+    if kind is None:
+        s, h, w = y.shape
+        sh = (s, h // 16, w // 16)
+        mvx = mvy = torch.zeros(sh, dtype=I32, device=y.device)
+        kind = torch.full(sh, 2, dtype=I32, device=y.device)
+        nnz = torch.zeros((*sh, 4, 4), dtype=I32, device=y.device)
+        refidx = t8 = None
+    else:
+        nnz = _levels_nnz(luma_ac, t8)
+    planes = _deblock_rows_plain(y, u, v, kind, mvx, mvy, nnz, qp, refidx,
+                                 t8)
+    if out is None:
+        return planes
+    for o, p in zip(out, planes):
+        o.copy_(p)
+    return tuple(out)
+
+
+def _ring_ready(p: torch.Tensor) -> bool:
+    """True where the ring entry reads plane p as it is: uint8,
+    contiguous, 16-byte aligned (every reconstruction the codec's paths
+    pass)."""
+    return (p.dtype == torch.uint8 and p.is_contiguous()
+            and p.data_ptr() % 16 == 0)
+
+
+def _plane_copy(p: torch.Tensor) -> torch.Tensor:
+    """A copy of plane p as the ring entry reads it (see `_ring_ready`):
+    samples in [0, 255] narrowed to uint8."""
+    p = p.to(torch.uint8).contiguous()
+    return p if p.data_ptr() % 16 == 0 else p.clone()
+
+
+def _k4_ring_operands(planes, kind, mvx, mvy, luma_ac, qp: int, refidx,
+                      t8, out):
+    """The ring entry's operands in its order (csrc/deblock.cu
+    `ring_args`): (input tensors, output tensors, ints).  Each per-MB
+    field goes as it lies with its MB stride (`iframe._mb_strided`: the
+    GOP decode's record views take no copy); a missing field as None (a
+    null pointer), every field None for an all-intra frame."""
+    s, h, w = planes[0].shape
+    mb = (s, h // 16, w // 16)
+    if kind is None:
+        fields = [(None, 0)] * 5
+        lev = (None, 0)
+    else:
+        fields = [(None, 0) if x is None else _mb_strided(x, mb, (), I32, 4)
+                  for x in (kind, mvx, mvy, refidx, t8)]
+        lev = _mb_strided(luma_ac, mb, (16, 16), torch.int16, 16)
+    ins = list(planes) + [x for x, _ in fields] + [None, lev[0]]
+    ints = [s * mb[1], mb[2], qp, T.chroma_qp_from_luma(qp),
+            *[k for _, k in fields], lev[1]]
+    return ins, list(out), ints
+
+
+def deblock_ring(y, u, v, kind, mvx, mvy, luma_ac, qp: int, refidx=None,
+                 t8=None, out=None) -> Tuple[torch.Tensor, ...]:
+    """Filter [S, H, W] frames in row-slice (idc=2) mode into `out` (three
+    uint8 planes of their shapes, e.g. a DPB ring slot's views; fresh
+    planes where None), returned.  kind/mvx/mvy/refidx/t8 [S, R, C] (any
+    int dtype and strides), luma_ac [S, R, C, 16, 16] the MBs' luma
+    levels, whose nonzero ones make a 4x4 block coded (with `t8` given,
+    by the 8x8 rule for its MBs, as `deblock_nnz(symbols, True)`).
+    `kind` None: every MB intra (an IDR; mvx, mvy, luma_ac, refidx and t8
+    are not read).  Samples in [0, 255]; the kernel reads uint8 planes
+    (a plane of another dtype is narrowed first, `_plane_copy`).  CPU
+    tensors take `_deblock_ring_plain`; CUDA tensors launch the kernel's
+    ring entry; anything else raises."""
+    if y.device.type == "cpu":
+        return _deblock_ring_plain(y, u, v, kind, mvx, mvy, luma_ac, qp,
+                                   refidx, t8, out)
+    name = "deblock_ring"
+    if y.device.type != "cuda":
+        raise ValueError(f"{name}: planes on {y.device}, neither the CPU "
+                         f"nor a CUDA device")
     s, h, w = y.shape
-    sh = (s, h // 16, w // 16)
-    z = torch.zeros(sh, dtype=I32, device=y.device)
-    return deblock_frame_rows(
-        recon[0], recon[1], recon[2], torch.full_like(z, 2), z, z,
-        torch.zeros((*sh, 4, 4), dtype=I32, device=y.device), qp)
+    if h % 16 or w % 16 or not s * h * w:
+        raise ValueError(f"{name}: frame {h}x{w} x {s} is not whole MBs")
+    qp = int(qp)
+    if not 0 <= qp <= 51:
+        raise ValueError(f"{name}: qp {qp} outside 0..51")
+    planes = [p if _ring_ready(p) else _plane_copy(p) for p in (y, u, v)]
+    shapes = [(s, h, w), (s, h // 2, w // 2), (s, h // 2, w // 2)]
+    if out is None:
+        out = [torch.empty(sh, dtype=torch.uint8, device=y.device)
+               for sh in shapes]
+    cuda_lib.check_inputs(name, y.device, list(zip(planes, shapes)),
+                          dtype=torch.uint8)
+    cuda_lib.check_inputs(name, y.device, list(zip(out, shapes)),
+                          dtype=torch.uint8)
+    if any(p.data_ptr() % 16 for p in list(out)):
+        raise ValueError(f"{name}: output planes must be 16-byte aligned")
+    others = [x for x in (kind, mvx, mvy, luma_ac, refidx, t8)
+              if x is not None]
+    if any(x.device != y.device for x in others):
+        raise ValueError(f"{name}: every input must be on {y.device}")
+    ins, outs, ints = _k4_ring_operands(planes, kind, mvx, mvy, luma_ac, qp,
+                                        refidx, t8, out)
+    err = cuda_lib.load().th264_deblock_ring(
+        cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
+        cuda_lib.stream(y.device))
+    cuda_lib.check(err, "th264_deblock_ring")
+    deblock_ring.launches += 1
+    return tuple(out)
 
 
-def deblock_p(recon, sym, motion, qp: int, t8: bool = False):
+deblock_ring.launches = 0  # launches of the D1 kernel's ring entry
+
+
+def deblock_i(recon, qp: int, out=None):
+    """In-loop deblock of an all-intra frame (every MB intra, bS 3/4),
+    into `out` where given (see `deblock_ring`)."""
+    return deblock_ring(recon[0], recon[1], recon[2], None, None, None,
+                        None, qp, out=out)
+
+
+def deblock_p(recon, sym, motion, qp: int, t8: bool = False, out=None):
     """In-loop deblock of a P frame from its symbols and motion field;
-    `t8` where the stream enables the 8x8 transform."""
-    return deblock_frame_rows(
+    `t8` where the stream enables the 8x8 transform; into `out` where
+    given (see `deblock_ring`)."""
+    return deblock_ring(
         recon[0], recon[1], recon[2], sym.kind, motion[0], motion[1],
-        deblock_nnz(sym, t8), qp, refidx=sym.refidx,
-        t8=sym.t8 if t8 else None)
+        sym.luma_ac, qp, refidx=sym.refidx, t8=sym.t8 if t8 else None,
+        out=out)

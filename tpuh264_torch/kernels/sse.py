@@ -32,25 +32,30 @@ def _sse_plain(dec: Sequence[torch.Tensor], src: Optional[torch.Tensor],
 
 
 def _k14_operands(dec: Sequence[torch.Tensor], src: Optional[torch.Tensor],
-                  fanout: int = 1):
+                  fanout: int = 1, out: Optional[torch.Tensor] = None):
     """K14's operands in its entry's order (csrc/sse.cu `sse_args`):
     (input tensors -- MAX_FRAMES decoded planes, None past k, then the
-    source --, output tensors, ints); the totals freshly allocated."""
+    source --, output tensors, ints); the totals `out`, or freshly
+    allocated."""
     k = len(dec)
     s, h, w = dec[0].shape
     ins = list(dec) + [None] * (MAX_FRAMES - k) + [src]
-    outs = [torch.empty((k, s), dtype=I64, device=dec[0].device)]
-    return ins, outs, [k, s, fanout, h * w]
+    if out is None:
+        out = torch.empty((k, s), dtype=I64, device=dec[0].device)
+    return ins, [out], [k, s, fanout, h * w]
 
 
 def sse(dec: Sequence[torch.Tensor], src: Optional[torch.Tensor],
-        fanout: int = 1) -> torch.Tensor:
+        fanout: int = 1, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per frame f and decode stream d, sum((dec[f][d] - src[f, d //
     fanout])^2) over the plane, int64 [k, S]: dec the k decoded luma
     planes [S, H, W] uint8, src the source frames [k, S / fanout, H, W]
-    uint8, or None to measure against zeros."""
+    uint8, or None to measure against zeros.  The totals land in `out`
+    (an int64 [k, S] tensor, e.g. row f of a dispatch's) where given,
+    which is returned."""
     if dec[0].device.type == "cpu":
-        return _sse_plain(dec, src, fanout)
+        got = _sse_plain(dec, src, fanout)
+        return got if out is None else out.copy_(got)
     k = len(dec)
     s, h, w = dec[0].shape
     if not 1 <= k <= MAX_FRAMES or fanout < 1 or s % fanout or (h * w) % 16:
@@ -64,7 +69,9 @@ def sse(dec: Sequence[torch.Tensor], src: Optional[torch.Tensor],
     cuda_lib.check_inputs("sse", dev, specs, dtype=torch.uint8)
     if any(x.data_ptr() % 16 for x, _ in specs):
         raise ValueError("sse: planes must be 16-byte aligned")
-    ins, outs, ints = _k14_operands(dec, src, fanout)
+    if out is not None:
+        cuda_lib.check_inputs("sse", dev, [(out, (k, s))], dtype=I64)
+    ins, outs, ints = _k14_operands(dec, src, fanout, out)
     err = cuda_lib.load().th264_sse(cuda_lib.pointers(ins + outs),
                                     cuda_lib.ints(ints), cuda_lib.stream(dev))
     cuda_lib.check(err, "th264_sse")
