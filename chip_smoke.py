@@ -80,7 +80,12 @@ tpuh264_torch/csrc, then:
      bytes it must move over the card's 3.35 TB/s), K4 and K6 also in
      cycles a MB column, K7 and K8 in cycles a wave, at the SM clock read
      under load, and one fenced
-     `encode_bits_pframe` call;
+     `encode_bits_pframe` call; P1 and P2 (the toolchain probe's bit
+     operations and slab sum) against their plain versions at the
+     probe's shapes, on `P1_CASES` / `P2_CASES` (tails, offset views
+     aligned and not, ragged M * L, edge values, sums that wrap) and at
+     a shape where bytes bind (16,777,216 int32; [16, 1024, 1024]),
+     P2 beside torch.sum(dtype=torch.int32);
   3. at 64x48 x 2 the GPU emits the CPU's bytes (plain versions) and
      decoder DPB on every path: the RTC preset, intra-in-P, two
      references, host ingest with fan-out 2 and a drop_frames, and the
@@ -188,9 +193,12 @@ tpuh264_torch/csrc, then:
      card bytes == CPU bytes, the golden decode == recon; (e)
      `bench.harness.run_matrix` at 480p x 8 ("tpu_gop", "tpu"), its
      table and charts.  Every spawned process has a timeout; on a failure
-     all are killed and the run fails.
+     all are killed and the run fails;
+ 17. the toolchain probe (`python -m tpuh264_torch.kernels.probe`, the
+     counterpart of tools/pallas_smoke.py) on the card: both its match
+     lines True, P1 and P2 launched once each.
 
-Every path of phases 4 and 6-16 is driven with the kernels' launch
+Every path of phases 4 and 6-17 is driven with the kernels' launch
 counts set to 0 just before it and read just after; each must have
 launched every kernel it runs (K15 on every path with a device source:
 phases 4, 6, 7, 9, 10, 14, 15's flagship and 16(e); phase 12 and the
@@ -202,9 +210,10 @@ every path that encodes an I frame without Intra_4x4 or a P frame with
 intra-in-P, phase 16(a)'s ranks too; K9 on every path that encodes a P
 frame and K10 on every path that decodes one, but config 3's; K11 on every
 path that encodes or decodes a P frame, K12 on every one that encodes
-one, config 3 and phase 16(a)'s halo ranks included), and none may
+one, config 3 and phase 16(a)'s halo ranks included; P1 and P2 on phase
+17 alone, once each), and none may
 reach the plain version of K1, K3, K4 (either entry), K5, K6, K7, K8, K9,
-K10, K11, K12, K13, K14 or K15, nor `deblock_nnz` or a plane copy for K4
+K10, K11, K12, K13, K14, K15, P1 or P2, nor `deblock_nnz` or a plane copy for K4
 (K5's plain version with `i44`, the Intra_4x4 reconstruction, and D3's
 with `intra44`, the Intra_4x4 trial, are the session path's own; K9's
 and K10's with `t8`, the 8x8 transform's choice of config 3, too, and
@@ -317,7 +326,7 @@ def _plain_spy(name, f, calls, exempt=None):
 
 
 class Launches:
-    """The fifteen kernels' launch counts (K1, K2, K3 and K4: each its two
+    """The seventeen kernels' launch counts (K1, K2, K3 and K4: each its two
     entries' counts summed, K4 = the deblock D1 (its counts entry
     `deblock_frame_rows` and its ring entry `deblock_ring`, the one every
     path takes, printed apart),
@@ -326,7 +335,8 @@ class Launches:
     wavefront's encode / decode, K9 = the P encode after stage A, K10 =
     the P decode's inter part, K11 = the reference build, K12 = the
     stage-A winner: its calls, two launches each, K13 = the CAVLC
-    prologue, K14 = the decoder's SSE, K15 = the device source), zeroed
+    prologue, K14 = the decoder's SSE, K15 = the device source, P1 / P2 =
+    the toolchain probe's bit operations and slab sum), zeroed
     before and read after each path the smoke drives; summed over those
     paths for the kernel table.  The plain versions of K1 (`_sad_field`), K3
     (`tree_merge`), K4 (`_deblock_rows_plain`), K5
@@ -338,22 +348,25 @@ class Launches:
     without `t8`), K11 (`_references_plain`), K12 (`_int_winner_plain`),
     K13 (`_prologue_plain`), K2's and K3's entries on the symbols
     (`_pack_symbols_plain`, `_merge_slices_plain`), K14 (`_sse_plain`),
-    K15 (`_device_source_gop_plain`) and K4's ring entry
-    (`_deblock_ring_plain`) are counted too, and so are `deblock_nnz` and
+    K15 (`_device_source_gop_plain`), K4's ring entry
+    (`_deblock_ring_plain`), P1 (`_probe_bits_plain`) and P2
+    (`_slab_sum_plain`) are counted too, and so are `deblock_nnz` and
     `_plane_copy` (the deblock's eager coded-count grid and plane cast,
     which K4's ring entry replaced): none may run on a path.  The
     `t8` calls of K9's and K10's plain versions (the CABAC + 8x8 session
-    path's eager route) are counted apart and printed."""
+    path's eager route) are counted apart and printed.  P1 and P2 run on
+    the probe's path alone: any other path that launches one fails."""
 
     NEEDS = (0, 1, 2, 3, 4, 5, 8, 9, 10, 11, 12, 13)  # a GOP pipeline's
     NEEDS_SRC = NEEDS + (14,)  # ... with the device source
-    KEYS = tuple(f"K{i}" for i in range(1, 16))
+    PROBE = (15, 16)  # the toolchain probe's path
+    KEYS = tuple(f"K{i}" for i in range(1, 16)) + ("P1", "P2")
 
     def __init__(self):
         from tpuh264_torch.engine import sources
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
-                                           iframe, me_cuda, pframe, sse,
-                                           wavefront)
+                                           iframe, me_cuda, pframe, probe,
+                                           sse, wavefront)
 
         self.fns = ((me_cuda.sad_field,),
                     (cavlc_cuda.pack_blocks, cavlc_cuda.pack_symbols),
@@ -366,18 +379,19 @@ class Launches:
                     (pframe._inter_encode,), (pframe._inter_decode,),
                     (pframe._references,), (pframe._int_winner,),
                     (entropy_gpu.cavlc_prologue,), (sse.sse,),
-                    (sources.device_source_gop,))
+                    (sources.device_source_gop,), (probe.probe_bits,),
+                    (probe.slab_sum,))
         self.total = [0] * len(self.fns)
 
     def by_key(self) -> dict:
-        """The launch totals by kernel key ("K1" .. "K15")."""
+        """The launch totals by kernel key ("K1" .. "K15", "P1", "P2")."""
         return dict(zip(self.KEYS, self.total))
 
     def path(self, name, fn, needs=NEEDS):
         from tpuh264_torch.engine import sources
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
-                                           iframe, me_cuda, pframe, sse,
-                                           wavefront)
+                                           iframe, me_cuda, pframe, probe,
+                                           sse, wavefront)
 
         for fs in self.fns:
             for f in fs:
@@ -398,7 +412,8 @@ class Launches:
                   (cavlc_cuda, "_merge_slices_plain"), (sse, "_sse_plain"),
                   (sources, "_device_source_gop_plain"),
                   (deblock, "_deblock_ring_plain"), (deblock, "deblock_nnz"),
-                  (deblock, "_plane_copy")]
+                  (deblock, "_plane_copy"), (probe, "_probe_bits_plain"),
+                  (probe, "_slab_sum_plain")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
         t8_calls = [[] for _ in plains]
@@ -436,10 +451,11 @@ class Launches:
               f"K13 {plain[12]}, K2's symbols entry {plain[13]}, K3's slice "
               f"entry {plain[14]}, K14 {plain[15]}, K15 {plain[16]}, K4's "
               f"ring entry {plain[17]}, deblock_nnz {plain[18]}, K4 plane "
-              f"copies {plain[19]}")
+              f"copies {plain[19]}, P1 {plain[20]}, P2 {plain[21]}")
         print(f"launches [{name}]: K15 (device source) {counts[14]}; K4: "
               f"ring entry {counts[3] - k4_rows}, counts entry "
-              f"(deblock_frame_rows) {k4_rows}")
+              f"(deblock_frame_rows) {k4_rows}; P1 (probe bits) "
+              f"{counts[15]}, P2 (probe slab sum) {counts[16]}")
         if t8_calls[8] or t8_calls[9]:
             print(f"launches [{name}]: the t8 eager route (EXEMPT): K9's "
                   f"plain version {len(t8_calls[8])}, K10's "
@@ -451,11 +467,14 @@ class Launches:
                   f"{len(t8_calls[4])}")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
+        if any(counts[i] for i in self.PROBE if i not in needs):
+            fail(f"{name}: the probe's P1 / P2 launched off its path: "
+                 f"{counts}")
         if any(plain):
             fail(f"{name}: a plain version ran (K1, K3, K4, K5, K6 D3, K6 "
                  f"D4, K7, K8, K9, K10, K11, K12, K13, K2 symbols, K3 "
-                 f"slices, K14, K15, K4 ring, deblock_nnz, K4 plane copies: "
-                 f"{plain} times)")
+                 f"slices, K14, K15, K4 ring, deblock_nnz, K4 plane copies, "
+                 f"P1, P2: {plain} times)")
         if len(res_calls) != len(t8_calls[3]):
             fail(f"{name}: _intra_residuals ran {len(res_calls)} times, "
                  f"the i44 plain scan {len(t8_calls[3])} times")
@@ -485,6 +504,9 @@ NO_LIBRARY = {
     "K14": "timed: float32 F.mse_loss(reduction='none') summed per "
            "stream; not exact (a float32 sum rounds)",
     "K15": "no PyTorch call evaluates this field in one op",
+    "P1": "no PyTorch call counts leading zeros",
+    "P2": "timed: torch.sum(dim=0, dtype=torch.int32), the same sum mod "
+          "2^32",
 }
 # K15's instruction issue a sample (luma, chroma; a chroma sample of U or
 # V), counted in the SASS of csrc/source.cu (sm_90a, nvcc 12.8): sinf's
@@ -3088,6 +3110,148 @@ def k11_ring_check(y, u, v, torch, card):
           f"equal to plain (max_abs_err {err}) [{card}]")
 
 
+# P1 (the probe's bit operations): values at the edges of every term -- the
+# signed compare's 5 / 6, the shift's 0..8, the sign bit, INT_MIN /
+# INT_MAX, values whose left shift drops set bits and whose sum wraps
+# (0x3FFFFFFF passes INT_MAX, 0x7FFFFFFF 2^32) --, every value of
+# [-64, 64] and 2^k - 1, 2^k, 2^k + 1 and their negations
+P1_EDGES = tuple(sorted(
+    {0, 1, 5, 6, 7, 8, -1, -8, -2**31, 2**31 - 1, 0x3FFFFFFF, 0x00FFFFFF,
+     0x01000007, -2**31 + 7}
+    | set(range(-64, 65))
+    | {((s * ((1 << k) + d) + 2**31) % 2**32) - 2**31
+       for k in range(32) for d in (-1, 0, 1) for s in (1, -1)}))
+# (name, shape, view offset in elements, grid cap on CPU threads): the
+# script's input; tails of 1-3 elements past the 16-byte chunks; fewer
+# elements than a chunk; offset views (4: still 16-byte aligned; 1, 3:
+# the scalar route on the card); a grid of one block, so that the
+# grid-stride loop turns
+P1_CASES = [("script", (8, 128), 0, 8), ("edges", (1, 1027), 0, 8),
+            ("random", (64, 128), 0, 8), ("tail", (4097,), 0, 8),
+            ("tail", (4098,), 0, 8), ("short", (3,), 0, 8),
+            ("offset", (1031,), 4, 8), ("offset", (1030,), 1, 8),
+            ("offset", (1029,), 3, 8), ("grid", (12291,), 0, 1)]
+# P2 (the slab sum), (name, (M, L), view offset, grid cap): the script's
+# input; full-range values; values near +-2^31, so that every sum wraps;
+# ragged M * L (not a multiple of 4: the scalar route); offset views; a
+# grid of one block
+P2_CASES = [("script", (32, 128), 0, 8), ("random", (32, 128), 0, 8),
+            ("wrap", (32, 128), 0, 8), ("ragged", (3, 5), 0, 8),
+            ("ragged", (1, 1), 0, 8), ("ragged", (7, 9), 0, 8),
+            ("offset", (8, 128), 4, 8), ("offset", (8, 128), 1, 8),
+            ("grid", (40, 128), 0, 1)]
+
+
+def p1_case(np, name, shape, seed=0):
+    """Seeded P1 input (numpy int32 of `shape`): the script's arange, or
+    full-range values with P1_EDGES first."""
+    n = int(np.prod(shape))
+    if name == "script":
+        return np.arange(n, dtype=np.int32).reshape(shape)
+    rng = np.random.default_rng([seed, n])
+    x = rng.integers(-2**31, 2**31, n)
+    e = np.array(P1_EDGES[:n])
+    x[:e.size] = e
+    return x.astype(np.int32).reshape(shape)
+
+
+def p2_case(np, name, ml, seed=0):
+    """Seeded P2 input (numpy int32 [16, M, L]): the script's arange,
+    full-range values, or values within 2^24 of +-2^31."""
+    m, l = ml
+    if name == "script":
+        return np.arange(16 * m * l, dtype=np.int32).reshape(16, m, l)
+    rng = np.random.default_rng([seed, m, l])
+    if name == "wrap":
+        x = rng.integers(2**31 - 2**24, 2**31 + 2**24, (16, m, l))
+        x = np.where(rng.random(x.shape) < 0.5, x, -x)
+        return ((x + 2**31) % 2**32 - 2**31).astype(np.int32)
+    return rng.integers(-2**31, 2**31, (16, m, l)).astype(np.int32)
+
+
+def offset_view(torch, a, offset, dev):
+    """numpy `a` as a tensor on `dev` that starts `offset` elements into
+    its storage (contiguous)."""
+    flat = torch.zeros(a.size + offset + 8, dtype=torch.int32, device=dev)
+    flat[offset:offset + a.size] = torch.from_numpy(a.reshape(-1)).to(dev)
+    return flat[offset:offset + a.size].view(a.shape)
+
+
+P1_BOUND_N = 1 << 24  # P1's byte-bound shape: 64 MiB in, 64 MiB out
+P2_BOUND_ML = (1024, 1024)  # P2's: [16, 1024, 1024], 64 MiB in, 4 MiB out
+
+
+def probe_rows(dev, torch, np, card):
+    """P1 and P2 against their plain versions on the card (max_abs_err 0)
+    at the probe's shapes, on every P1_CASES / P2_CASES case and at a
+    shape where bytes bind (P1_BOUND_N, P2_BOUND_ML: seeded full-range
+    values made on the card); their rows of the kernel table at the
+    byte-bound shapes, the probe's shapes printed beside them.  P2's
+    library call is torch.sum(lv, 0, dtype=torch.int32)."""
+    from tpuh264_torch.kernels import probe
+
+    for ln in ptxas_lines(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tpuh264_torch", "csrc",
+            "probe.cu")):
+        print(f"phase 2: probe.cu ptxas: {ln}")
+    fns = {"P1": (probe.probe_bits, probe._probe_bits_plain),
+           "P2": (probe.slab_sum, probe._slab_sum_plain)}
+
+    def equal(key, x, what):
+        kernel, plain = fns[key]
+        got, want = kernel(x), plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{key} differs from its plain version on {what}")
+        return max_abs_err(got, want)
+
+    for key, cases, make in (("P1", P1_CASES, p1_case),
+                             ("P2", P2_CASES, p2_case)):
+        for case in cases:
+            equal(key, offset_view(torch, make(np, *case[:2]), case[2], dev),
+                  f"case {case[:3]}")
+    g = torch.Generator(device=dev).manual_seed(0)
+    big = {"P1": (P1_BOUND_N,), "P2": (16, *P2_BOUND_ML)}
+    probe_in = {"P1": (8, 128), "P2": (16, 32, 128)}
+    names = {"P1": "probe_bits (the probe's bit operations)",
+             "P2": "slab_sum (the probe's sum of 16 slabs)"}
+    rows = []
+    for key in ("P1", "P2"):
+        kernel, plain = fns[key]
+        n = int(np.prod(probe_in[key]))
+        small = torch.arange(n, dtype=torch.int32,
+                             device=dev).reshape(probe_in[key])
+        x = torch.randint(-2**31, 2**31, big[key], generator=g, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+        rs = []
+        for t, what in ((x, f"{list(x.shape)} int32"),
+                        (small, f"the probe's {list(small.shape)}")):
+            out_bytes = 4 * (t.numel() if key == "P1" else t[0].numel())
+            r = kernel_row(key, f"{names[key]}, {what}",
+                           "tpuh264_torch/csrc/probe.cu",
+                           "tools/pallas_smoke.py:18" if key == "P1"
+                           else "tools/pallas_smoke.py:41",
+                           equal(key, t, what), timed(lambda: kernel(t), 50),
+                           timed(lambda: plain(t), 5),
+                           4 * t.numel() + out_bytes)
+            if key == "P2":
+                lib = torch.sum(t, 0, dtype=torch.int32)
+                if not torch.equal(lib, plain(t)):
+                    fail(f"P2's library call differs on {what}")
+                r["library_ms"] = timed(
+                    lambda: torch.sum(t, 0, dtype=torch.int32), 50)
+            rs.append(r)
+        del x, small
+        show(rs[0], f"a byte-bound shape [{card}]")
+        show(rs[1], f"the probe's own shape, launch latency [{card}]")
+        rows.append(rs[0])
+    print(f"phase 2: P1 / P2 equal to their plain versions on "
+          f"{len(P1_CASES)} / {len(P2_CASES)} seeded cases (tails, fewer "
+          f"elements than a chunk, offset views 16-byte aligned and not, "
+          f"ragged M * L, edge values and sums that wrap)")
+    return rows
+
+
 def p_rows(dev, torch, np, card):
     """K9-K12: the rows of the kernel table on the main path's 1080p x 4
     RTC P frame (one reference, a uint8 DPB slot: its encode's K9 writing
@@ -3312,6 +3476,7 @@ def phase_kernels(dev, torch, np, card):
     rows.append(k13)
     rows.append(k14_rows(dev, torch, np, card))
     show(rows[-1], "1080p x 4, four decoded frames")
+    rows += probe_rows(dev, torch, np, card)  # P1 / P2, the probe's
     k13_edges(dev, torch, np)
     k2_edges(dev, torch, np)
     k3_edges(dev, torch, np)
@@ -5049,6 +5214,34 @@ def phase_bench(dev, card, launches):
         print(f"phase 16(e): {line} [{card}]")
 
 
+def phase_probe(card, launches) -> None:
+    """Phase 17: the toolchain probe's own entry point on the card, `python
+    -m tpuh264_torch.kernels.probe`'s body: both match lines True, P1 and
+    P2 launched once each, neither plain version called."""
+    import contextlib
+    import io
+
+    from tpuh264_torch.kernels import probe
+
+    out = io.StringIO()
+
+    def drive():
+        with contextlib.redirect_stdout(out):
+            return probe.main(["--device", "cuda"])
+
+    rc, counts = launches.path("toolchain probe", drive,
+                               needs=Launches.PROBE)
+    lines = out.getvalue().splitlines()
+    if rc != 0 or lines != ["match: True", "grid sum match: True"]:
+        fail(f"phase 17: the probe returned {rc} and printed {lines}")
+    if [counts[i] for i in Launches.PROBE] != [1, 1]:
+        fail(f"phase 17: the probe launched P1 / P2 "
+             f"{[counts[i] for i in Launches.PROBE]} times, not once each")
+    print(f"phase 17: the toolchain probe (tpuh264_torch.kernels.probe "
+          f"--device cuda) printed {lines}; P1 and P2 launched once each "
+          f"[{card}]")
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpuh264_torch", "csrc")):
@@ -5103,6 +5296,7 @@ def main() -> None:
     phase_gate(dev, np, card, launches)
     phase_config3(dev, np, card, launches)
     phase_dist(dev, np, card, launches)
+    phase_probe(card, launches)
 
     totals = launches.by_key()
     for r in rows:
@@ -5116,7 +5310,8 @@ def main() -> None:
           f"{launches.total[9]}, K11 (references) {launches.total[10]}, "
           f"K12 (stage-A winner) {launches.total[11]}, K13 (CAVLC "
           f"prologue) {launches.total[12]}, K14 (SSE) {launches.total[13]}, "
-          f"K15 (device source) {launches.total[14]}")
+          f"K15 (device source) {launches.total[14]}, P1 (probe bits) "
+          f"{launches.total[15]}, P2 (probe slab sum) {launches.total[16]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

@@ -2,8 +2,9 @@
 the intra reconstruction D2, the Intra_16x16 encode scans D3 / D4, the
 single-slice wavefront's encode K7 and decode K8, the P encode after
 stage A K9, the P decode's inter part K10, the reference build K11, the
-stage-A winner K12 and the device source K15) against their plain
-PyTorch versions, on the card, plus the wrappers' no-fallback rule.
+stage-A winner K12, the device source K15 and the toolchain probe's P1
+and P2) against their plain PyTorch versions, on the card, plus the
+wrappers' no-fallback rule.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed.  On a machine with a card and nvcc:
@@ -26,6 +27,7 @@ from tpuh264_torch.kernels import cavlc_cuda, cuda_lib, me_cuda
 from tpuh264_torch.kernels import deblock as DB
 from tpuh264_torch.kernels import iframe as IF
 from tpuh264_torch.kernels import pframe as TP
+from tpuh264_torch.kernels import probe
 from tpuh264_torch.kernels import wavefront as WF
 
 
@@ -1142,3 +1144,47 @@ def test_pframe_raises_without_fallback(dev, monkeypatch):
     TP._inter_encode(**{**kw, "t8": True})
     TP._inter_decode(**{**dkw, "t8": True})
     assert plain == [1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,case", [("P1", c) for c in chip_smoke.P1_CASES]
+                         + [("P2", c) for c in chip_smoke.P2_CASES], ids=str)
+def test_probe_kernels_match_plain_cases(dev, kind, case):
+    """P1 / P2 on the card == their plain versions on every seeded case:
+    tails, offset views (16-byte aligned and not: the scalar route),
+    ragged M * L, edge values, sums that wrap."""
+    kernel, plain, make = ((probe.probe_bits, probe._probe_bits_plain,
+                            chip_smoke.p1_case) if kind == "P1" else
+                           (probe.slab_sum, probe._slab_sum_plain,
+                            chip_smoke.p2_case))
+    x = chip_smoke.offset_view(torch, make(np, *case[:2]), case[2], dev)
+    assert torch.equal(kernel(x).cpu(), plain(x.cpu()))
+
+
+@pytest.mark.cuda
+def test_probe_entry_point_on_card(dev, capsys):
+    """The probe's entry point on the card: both match lines, P1 and P2
+    launched once each."""
+    before = (probe.probe_bits.launches, probe.slab_sum.launches)
+    assert probe.main(["--device", "cuda"]) == 0
+    assert capsys.readouterr().out.splitlines() == [
+        "match: True", "grid sum match: True"]
+    assert (probe.probe_bits.launches - before[0],
+            probe.slab_sum.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_check_inputs_on_card(dev):
+    """Another dtype, a strided view or another slab count raises before
+    any launch."""
+    x = torch.arange(64, dtype=torch.int32, device=dev)
+    before = (probe.probe_bits.launches, probe.slab_sum.launches)
+    with pytest.raises(TypeError):
+        probe.probe_bits(x.long())
+    with pytest.raises(ValueError):
+        probe.probe_bits(x[::2])
+    with pytest.raises(ValueError):
+        probe.slab_sum(x.view(4, 4, 4))
+    with pytest.raises(TypeError):
+        probe.slab_sum(x.repeat(4).view(16, 4, 4).float())
+    assert (probe.probe_bits.launches, probe.slab_sum.launches) == before

@@ -13,7 +13,8 @@ with the generated header `cavlc_tables.cuh` (the CAVLC VLC tables of
 the port's entropy/cavlc_tables.py as __constant__ arrays).  The
 library has a plain C interface and is loaded with ctypes: every entry
 takes device pointers and the CUDA stream as void* (K5's, K9-K15's, K4's
-ring entry and K2's / K3's entries on the symbols take their pointers and
+ring entry, K2's / K3's entries on the symbols and the probe's P1
+`th264_probe_bits` and P2 `th264_probe_slab_sum` take their pointers and
 ints as host arrays, `pointers` and `ints`), launches
 on that stream and returns cudaGetLastError().  A missing nvcc or a failed build raises.
 """
@@ -123,14 +124,16 @@ def load() -> ctypes.CDLL:
             [p] * 3 + [i] + [p] * 12 + [i] * 5 + [p])
         lib.th264_wavefront_decode.argtypes = [p] * 11 + [i] * 5 + [p]
         lib.th264_wavefront_plan.argtypes = [i, i, p]
-        # K1, K5, K9-K15, K4's ring entry and the K2 / K3 entries on the
-        # symbols: a host array of device pointers, one of ints, the stream
+        # K1, K5, K9-K15, K4's ring entry, the K2 / K3 entries on the
+        # symbols and the probe's P1 / P2: a host array of device pointers,
+        # one of ints, the stream
         arrays = (lib.th264_sad_field, lib.th264_intra_recon_rows,
                   lib.th264_pframe_encode, lib.th264_pframe_decode,
                   lib.th264_halfpel_refs, lib.th264_me_winner,
                   lib.th264_cavlc_prologue,
                   lib.th264_pack_symbols, lib.th264_merge_slices,
-                  lib.th264_sse, lib.th264_source, lib.th264_deblock_ring)
+                  lib.th264_sse, lib.th264_source, lib.th264_deblock_ring,
+                  lib.th264_probe_bits, lib.th264_probe_slab_sum)
         for fn in arrays:
             fn.argtypes = [p, p, p]
         for fn in (lib.th264_pack_blocks,
