@@ -68,7 +68,14 @@ tpuh264_torch/csrc, then:
      columns; noise, motion, flat and 0 / 255 content; QPs 0, 28, 51;
      1-4 and 6 references, ref_base 0 / 1, stage-A winners at +-8, halo and
      intra-in-P on and off; decode symbols of skip, inter and intra MBs
-     with chains that restart and run past the planes' pad); K11 / K12 on
+     with chains that restart and run past the planes' pad); K9's and
+     K10's t8 routes (the 8x8 transform's choice and decode, config 3's)
+     on config 3's 1920x1080 x 1 P frame with two references (their rows
+     of the kernel table, "K9-t8" and "K10-t8"), on part B's 854x480 x 8
+     with two references, and on seeded cases (`K9_T8_CASES`,
+     `K10_T8_CASES`: QPs 0, 5, 6, 11, 12 .. 51, J ties, an 8x8 coding
+     of no level, t8 on skip and intra MBs and levels outside
+     cbp_luma); K11 / K12 on
      that P frame's encode (and K11 its decode) and the 480p frame's two
      references, and on seeded cases (`k11_case`: S 1 / 3, one MB, a
      row, a column, 97 columns, N 1 / 2 / 4, halo on and off, uint8 and
@@ -167,7 +174,8 @@ tpuh264_torch/csrc, then:
      the 8x8 transform and with reference 1 required; K1 launched once
      per P frame and searched reference (1 + 2 x 4 = 9); the whole
      stream decoded by the golden decoder in a spawned worker == the
-     recon of every frame, beside part B: 854x480 x 8 from RGBA, CABAC +
+     recon of every frame, K9 and K10 launched on their t8 routes only,
+     beside part B: 854x480 x 8 from RGBA, CABAC +
      8x8 transform + deblock, 2 references, CBR 1 Mbps, gop 8, 4 frames
      through DecoderPool.decode_batch (per session: CABAC does not
      batch) == the recon, and its stream 0 decoded by the golden decoder
@@ -208,15 +216,15 @@ pipeline and on the sessions with `deblock=True`; K5 on every path that
 decodes but the wavefront's, phase 16(a)'s halo decodes too; K6 on
 every path that encodes an I frame without Intra_4x4 or a P frame with
 intra-in-P, phase 16(a)'s ranks too; K9 on every path that encodes a P
-frame and K10 on every path that decodes one, but config 3's; K11 on every
+frame and K10 on every path that decodes one, config 3's on their t8
+routes; K11 on every
 path that encodes or decodes a P frame, K12 on every one that encodes
 one, config 3 and phase 16(a)'s halo ranks included; P1 and P2 on phase
 17 alone, once each), and none may
 reach the plain version of K1, K3, K4 (either entry), K5, K6, K7, K8, K9,
 K10, K11, K12, K13, K14, K15, P1 or P2, nor `deblock_nnz` or a plane copy for K4
 (K5's plain version with `i44`, the Intra_4x4 reconstruction, and D3's
-with `intra44`, the Intra_4x4 trial, are the session path's own; K9's
-and K10's with `t8`, the 8x8 transform's choice of config 3, too, and
+with `intra44`, the Intra_4x4 trial, are the session path's own, and
 their calls are printed apart).  Encoder DPB == decoder DPB does not
 check K4 (both sides run it): phase 14's gate against the oracle and
 phase 15's golden decode do.  No session of the engine's own streams (phases
@@ -303,12 +311,9 @@ def max_abs_err(x, y) -> int:
 
 # the plain versions a path may call with an argument (name, position):
 # K5's with `i44` and D3's with `intra44` are the Intra_4x4 path's own
-# (D5's work); K9's and K10's with `t8` are the CABAC + 8x8 session path's
-# own (the 8x8 transform's choice, config 3), counted and printed apart
+# (D5's work), counted and printed apart
 EXEMPT = {"_intra_recon_scan_plain": ("i44", 7),
-          "_encode_iframe_scan_plain": ("intra44", 4),
-          "_inter_encode_plain": ("t8", 12),
-          "_inter_decode_plain": ("t8", 5)}
+          "_encode_iframe_scan_plain": ("intra44", 4)}
 
 
 def _plain_spy(name, f, calls, exempt=None):
@@ -344,18 +349,19 @@ class Launches:
     reconstruction, it is the path's own), K6 (`_encode_iframe_scan_plain`
     without `intra44`, `_intra_in_p_scan_plain`), K7
     (`_encode_iframe_single_plain`), K8 (`_decode_iframe_single_plain`),
-    K9 (`_inter_encode_plain` without `t8`), K10 (`_inter_decode_plain`
-    without `t8`), K11 (`_references_plain`), K12 (`_int_winner_plain`),
+    K9 (`_inter_encode_plain`), K10 (`_inter_decode_plain`), K11
+    (`_references_plain`), K12 (`_int_winner_plain`),
     K13 (`_prologue_plain`), K2's and K3's entries on the symbols
     (`_pack_symbols_plain`, `_merge_slices_plain`), K14 (`_sse_plain`),
     K15 (`_device_source_gop_plain`), K4's ring entry
     (`_deblock_ring_plain`), P1 (`_probe_bits_plain`) and P2
     (`_slab_sum_plain`) are counted too, and so are `deblock_nnz` and
     `_plane_copy` (the deblock's eager coded-count grid and plane cast,
-    which K4's ring entry replaced): none may run on a path.  The
-    `t8` calls of K9's and K10's plain versions (the CABAC + 8x8 session
-    path's eager route) are counted apart and printed.  P1 and P2 run on
-    the probe's path alone: any other path that launches one fails."""
+    which K4's ring entry replaced): none may run on a path.  K9's and
+    K10's launches of their t8 routes (the CABAC + 8x8 session path's)
+    are also counted apart (`t8_total`, keys "K9-t8" and "K10-t8").  P1
+    and P2 run on the probe's path alone: any other path that launches
+    one fails."""
 
     NEEDS = (0, 1, 2, 3, 4, 5, 8, 9, 10, 11, 12, 13)  # a GOP pipeline's
     NEEDS_SRC = NEEDS + (14,)  # ... with the device source
@@ -382,10 +388,13 @@ class Launches:
                     (sources.device_source_gop,), (probe.probe_bits,),
                     (probe.slab_sum,))
         self.total = [0] * len(self.fns)
+        self.t8_total = [0, 0]  # K9's and K10's t8 routes
 
     def by_key(self) -> dict:
-        """The launch totals by kernel key ("K1" .. "K15", "P1", "P2")."""
-        return dict(zip(self.KEYS, self.total))
+        """The launch totals by kernel key ("K1" .. "K15", "P1", "P2", and
+        "K9-t8", "K10-t8": K9's and K10's t8 routes, also in theirs)."""
+        return dict(zip(self.KEYS, self.total), **{
+            "K9-t8": self.t8_total[0], "K10-t8": self.t8_total[1]})
 
     def path(self, name, fn, needs=NEEDS):
         from tpuh264_torch.engine import sources
@@ -396,6 +405,9 @@ class Launches:
         for fs in self.fns:
             for f in fs:
                 f.launches = 0
+        t8_fns = (pframe._inter_encode, pframe._inter_decode)
+        for f in t8_fns:
+            f.t8_launches = 0
         plains = [(me_cuda, "_sad_field"), (cavlc_cuda, "tree_merge"),
                   (deblock, "_deblock_rows_plain"),
                   (iframe, "_intra_recon_scan_plain"),
@@ -416,8 +428,8 @@ class Launches:
                   (probe, "_slab_sum_plain")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
-        t8_calls = [[] for _ in plains]
-        for (m, a), f, c, e in zip(plains, saved, calls, t8_calls):
+        exempt_calls = [[] for _ in plains]
+        for (m, a), f, c, e in zip(plains, saved, calls, exempt_calls):
             setattr(m, a, _plain_spy(a, f, c, e))
         # the eager intra residuals: K5 decodes them; only the EXEMPT
         # plain scan (`i44`) may still call them, once a call
@@ -433,6 +445,8 @@ class Launches:
         counts = [sum(f.launches for f in fs) for fs in self.fns]
         for i, n in enumerate(counts):
             self.total[i] += n
+        t8 = [f.t8_launches for f in t8_fns]
+        self.t8_total = [a + b for a, b in zip(self.t8_total, t8)]
         k4_rows = deblock.deblock_frame_rows.launches
         plain = [len(c) for c in calls]
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
@@ -455,16 +469,13 @@ class Launches:
         print(f"launches [{name}]: K15 (device source) {counts[14]}; K4: "
               f"ring entry {counts[3] - k4_rows}, counts entry "
               f"(deblock_frame_rows) {k4_rows}; P1 (probe bits) "
-              f"{counts[15]}, P2 (probe slab sum) {counts[16]}")
-        if t8_calls[8] or t8_calls[9]:
-            print(f"launches [{name}]: the t8 eager route (EXEMPT): K9's "
-                  f"plain version {len(t8_calls[8])}, K10's "
-                  f"{len(t8_calls[9])} calls")
-        if t8_calls[3] or t8_calls[4]:
+              f"{counts[15]}, P2 (probe slab sum) {counts[16]}; the t8 "
+              f"routes: K9 {t8[0]}, K10 {t8[1]}")
+        if exempt_calls[3] or exempt_calls[4]:
             print(f"launches [{name}]: the Intra_4x4 eager route (EXEMPT): "
-                  f"K5's plain version with i44 {len(t8_calls[3])} calls "
+                  f"K5's plain version with i44 {len(exempt_calls[3])} calls "
                   f"(as many of _intra_residuals), D3's with intra44 "
-                  f"{len(t8_calls[4])}")
+                  f"{len(exempt_calls[4])}")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
         if any(counts[i] for i in self.PROBE if i not in needs):
@@ -475,9 +486,9 @@ class Launches:
                  f"D4, K7, K8, K9, K10, K11, K12, K13, K2 symbols, K3 "
                  f"slices, K14, K15, K4 ring, deblock_nnz, K4 plane copies, "
                  f"P1, P2: {plain} times)")
-        if len(res_calls) != len(t8_calls[3]):
+        if len(res_calls) != len(exempt_calls[3]):
             fail(f"{name}: _intra_residuals ran {len(res_calls)} times, "
-                 f"the i44 plain scan {len(t8_calls[3])} times")
+                 f"the i44 plain scan {len(exempt_calls[3])} times")
         return out, counts
 
 
@@ -487,6 +498,10 @@ NO_LIBRARY = {
           "and inter coding",
     "K10": "no PyTorch call runs H.264 motion compensation and inter "
            "reconstruction",
+    "K9-t8": "no PyTorch call runs H.264 motion refinement, compensation "
+             "and inter coding with the 8x8 transform's choice",
+    "K10-t8": "no PyTorch call runs H.264 motion compensation and the 8x8 "
+              "inverse transform's reconstruction",
     "K11": "timed: replicate F.pad + float32 conv2d with the 6-tap "
            "filters, rounded, clamped and narrowed to uint8",
     "K12": "no single PyTorch call: the winners' mode and the rate "
@@ -1802,6 +1817,32 @@ K10_CASES += [((1, 1, 97), 2, "chain", 28, False),
               ((2, 1, 97), 1, "resets", 12, True),
               ((1, 1, 121), 1, "mixed", 28, False)]
 
+# The t8 routes (the 8x8 transform's choice in K9, its decode in K10), at
+# the QPs of dequant8x8's branches (0, 5, 6, 11 below 12; 12, 51) and
+# between, 1 and 2 references, intra-in-P on and off.  K9's "sparse"
+# content (`_sparse_frame`: flat references, a source of sparse faint
+# 4x4 noise, 8x8 offsets and row bumps) meets the choice's corners: J
+# ties at QP 0 (they keep 4x4), an 8x8 coding of no level that would be
+# cheaper (cbp8 == 0 keeps 4x4) and MBs whose 4x4 coding codes nothing
+# while their 8x8 one wins (tests/test_torch_pframe_kernel.py counts
+# them and asserts the cases meet each);
+# "motion" and "noise" the route on real and random content.
+K9_T8_CASES = [((2, 4, 8), 1 + i % 2, 0, "sparse", qp, "stageA",
+                bool(i % 3 == 1), False)
+               for i, qp in enumerate((0, 5, 6, 11, 12, 14, 16, 28, 40, 51))]
+K9_T8_CASES += [((1, 2, 3), 2, 0, "motion", 0, "stageA", True, False),
+                ((2, 2, 3), 2, 1, "motion", 28, "stageA", False, True),
+                ((1, 3, 5), 1, 0, "noise", 51, "edge", False, False),
+                ((3, 1, 2), 2, 0, "saturate", 12, "stageA", True, False)]
+# K10's: symbols whose t8 is 1 on MBs of every kind (skip and intra MBs
+# too: the plain version reconstructs every t8 MB through the 8x8
+# transform, whatever its kind and cbp_luma), levels outside cbp_luma
+K10_T8_CASES = [(shape, 1 + (i + j) % 2, mix, qp, (i + j) % 3 == 2)
+                for i, shape in enumerate(((1, 1, 1), (2, 2, 3), (1, 3, 5)))
+                for j, (mix, qp) in enumerate(
+                    (("mixed", 0), ("inter", 5), ("skip", 6), ("intra", 11),
+                     ("mixed", 12), ("mixed", 51)))]
+
 
 def _p_frames(np, rng, n, s, h, w, content, ext=0):
     """n uint8 frames [n, s, h + 2 ext, w] of the content (`ext` rows of
@@ -1835,19 +1876,26 @@ def k9_case(np, shape, n_refs, ref_base, content, qp, winners, iip, halo):
 
     s, r, c = shape
     rng = np.random.default_rng([s, r, c, n_refs, ref_base,
-                                 (*P_CONTENT, "smooth").index(content), qp,
+                                 (*P_CONTENT, "smooth", "sparse").index(
+                                     content), qp,
                                  ("stageA", "edge", "subpel").index(winners),
                                  iip, halo])
     h, w = 16 * r, 16 * c
     ey, ec = (pframe.HALO_Y, pframe.HALO_C) if halo else (0, 0)
     if winners == "subpel":
         return _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo)
-    src = [_p_frames(np, rng, 1, s, h, w, content)[0],
-           _p_frames(np, rng, 1, s, h // 2, w // 2, content)[0],
-           _p_frames(np, rng, 1, s, h // 2, w // 2, content)[0]]
-    refs = [_p_frames(np, rng, n_refs, s, h, w, content, ey),
-            _p_frames(np, rng, n_refs, s, h // 2, w // 2, content, ec),
-            _p_frames(np, rng, n_refs, s, h // 2, w // 2, content, ec)]
+    if content == "sparse":
+        src = [_sparse_frame(np, rng, s, h, w),
+               _sparse_frame(np, rng, s, h // 2, w // 2),
+               _sparse_frame(np, rng, s, h // 2, w // 2)]
+    else:
+        src = [_p_frames(np, rng, 1, s, h, w, content)[0],
+               _p_frames(np, rng, 1, s, h // 2, w // 2, content)[0],
+               _p_frames(np, rng, 1, s, h // 2, w // 2, content)[0]]
+    kind = "flat" if content == "sparse" else content
+    refs = [_p_frames(np, rng, n_refs, s, h, w, kind, ey),
+            _p_frames(np, rng, n_refs, s, h // 2, w // 2, kind, ec),
+            _p_frames(np, rng, n_refs, s, h // 2, w // 2, kind, ec)]
     win = None
     if winners == "edge":
         mb = (n_refs, s, r, c)
@@ -1859,6 +1907,25 @@ def k9_case(np, shape, n_refs, ref_base, content, qp, winners, iip, halo):
     return dict(y=src[0], u=src[1], v=src[2], refs_y=refs[0],
                 refs_u=refs[1], refs_v=refs[2], winners=win, qp=qp,
                 ref_base=ref_base, intra_in_p=iip, halo=halo)
+
+
+def _sparse_frame(np, rng, s, h, w):
+    """A uint8 [s, h, w] frame for the t8 cases: 128 plus faint noise in
+    a tenth of the 4x4 blocks (amplitude 2, 3, 6 or 20 a MB, mostly 2),
+    an offset of up to +-8 on a fifth of the 8x8 blocks and a dip of 2 to
+    60 on the top row of another fifth."""
+    amp = np.kron(rng.choice([2, 2, 3, 6, 20], (s, h // 16, w // 16)),
+                  np.ones((16, 16), np.int64))
+    x = (rng.random((s, h, w)) * (2 * amp + 1)).astype(np.int64) - amp
+    x *= np.kron(rng.random((s, h // 4, w // 4)) < 0.1,
+                 np.ones((4, 4), np.int64))
+    b8 = (s, h // 8, w // 8)
+    x += np.kron(rng.integers(-8, 9, b8) * (rng.random(b8) < 0.2),
+                 np.ones((8, 8), np.int64))
+    row = np.zeros((s, h // 8, 8, w // 8, 8), np.int64)
+    row[:, :, 0] = (-rng.integers(2, 61, b8)
+                    * (rng.random(b8) < 0.2))[..., None]
+    return np.clip(128 + x + row.reshape(s, h, w), 0, 255).astype(np.uint8)
 
 
 def _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo):
@@ -1916,11 +1983,11 @@ def _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo):
                 ref_base=ref_base, intra_in_p=iip, halo=halo)
 
 
-def k9_args(torch, case, dev):
-    """`_inter_encode`'s arguments (a dict, t8 False) for a `k9_case`
-    result on `dev`: the references' planes from `_references`, the
-    stage-A winners the case gives or the real stage A's (K1 and the
-    winner selection on `dev`)."""
+def k9_args(torch, case, dev, t8=False):
+    """`_inter_encode`'s arguments (a dict) for a `k9_case` result on
+    `dev`: the references' planes from `_references`, the stage-A
+    winners the case gives or the real stage A's (K1 and the winner
+    selection on `dev`)."""
     from tpuh264_torch.golden.inter import LAMBDA_ME
     from tpuh264_torch.kernels import me_cuda, pframe
 
@@ -1939,22 +2006,25 @@ def k9_args(torch, case, dev):
     return dict(y32=y32, u=t(case["u"]), v=t(case["v"]), planes_l=planes_l,
                 refs_up=refs_up, refs_vp=refs_vp, iy0=win[0], ix0=win[1],
                 gy=win[2], gx=win[3], qp=case["qp"],
-                ref_base=case["ref_base"], t8=False,
+                ref_base=case["ref_base"], t8=t8,
                 intra_in_p=case["intra_in_p"])
 
 
-def k10_case(np, shape, n_refs, mix, qp, halo):
+
+def k10_case(np, shape, n_refs, mix, qp, halo, t8=False):
     """Seeded K10 inputs (numpy): (symbols, refs, qp, halo), `symbols`
     the MBSymbolsP fields (int32 flags, int16 levels) of MBs of the mix
     (the kinds skip 0 / inter 1 / intra 2), inter MBs' mvds in +-24
     quarter-pels (chains past the planes' pad where they run long: the
     clamp), references and cbps at random; refs [N, S, H, W] x 3 uint8
-    random (with `halo`, HALO_Y / HALO_C more rows a side)."""
+    random (with `halo`, HALO_Y / HALO_C more rows a side).  With `t8`,
+    symbols.t8 is 1 on about half the MBs, of any kind (K10_T8_CASES);
+    else 0."""
     from tpuh264_torch.kernels import pframe
 
     s, r, c = shape
     rng = np.random.default_rng([s, r, c, n_refs, (
-        *K10_MIX, "chain", "resets").index(mix), qp, halo])
+        *K10_MIX, "chain", "resets").index(mix), qp, halo] + [1] * t8)
     mb = (s, r, c)
     kind = {"mixed": rng.integers(0, 3, mb), "inter": np.where(
         rng.random(mb) < 0.85, 1, rng.integers(0, 3, mb)),
@@ -1983,16 +2053,16 @@ def k10_case(np, shape, n_refs, mix, qp, halo):
         chroma_dc=levels((*mb, 2, 4), 30, 0.4),
         chroma_ac=levels((*mb, 2, 4, 15), 8, 0.7),
         refidx=i32(np.where(inter, rng.integers(0, n_refs, mb), 0)),
-        t8=i32(np.zeros(mb)))
+        t8=i32(rng.random(mb) < 0.5 if t8 else np.zeros(mb)))
     ey, ec = (pframe.HALO_Y, pframe.HALO_C) if halo else (0, 0)
     refs = tuple(rng.integers(0, 256, (n_refs, s, n * r + 2 * e, n * c))
                  .astype(np.uint8) for n, e in ((16, ey), (8, ec), (8, ec)))
     return sym, refs, qp, halo
 
 
-def k10_args(torch, case, dev):
-    """`_inter_decode`'s arguments (a dict, t8 False) for a `k10_case`
-    result on `dev`."""
+def k10_args(torch, case, dev, t8=False):
+    """`_inter_decode`'s arguments (a dict) for a `k10_case` result on
+    `dev`."""
     from tpuh264_torch.kernels import pframe
 
     sym, refs, qp, halo = case
@@ -2000,7 +2070,7 @@ def k10_args(torch, case, dev):
         *[torch.from_numpy(x).to(dev) for x in refs], halo)
     return dict(symbols=pframe.MBSymbolsP(**{
         k: torch.from_numpy(v).to(dev) for k, v in sym.items()}),
-        planes_l=planes_l, refs_up=refs_up, refs_vp=refs_vp, qp=qp, t8=False)
+        planes_l=planes_l, refs_up=refs_up, refs_vp=refs_vp, qp=qp, t8=t8)
 
 
 # K11 (the reference build): S = 1 and 3; one MB, a row, a column, a 2 x 3
@@ -2108,13 +2178,15 @@ def capture(module, name, fn):
         calls.append(dict(sig.bind(*a, **kw).arguments))
         return real(*a, **kw)
 
-    spy.launches = real.launches
+    # the router counts its launches (and K9's / K10's those of their t8
+    # routes) on the function its module names
+    spy.__dict__.update(real.__dict__)
     setattr(module, name, spy)
     try:
         fn()
     finally:
         setattr(module, name, real)
-        real.launches = spy.launches
+        real.__dict__.update(spy.__dict__)
     return calls
 
 
@@ -2666,13 +2738,16 @@ def k9_bytes(kw) -> int:
     the chosen reference add nothing new); per MB 8 int32 fields, 384
     int16 levels and the reconstruction (384 uint8 samples, or int32 with
     intra-in-P) out; writing the symbols (`out`), also the mvds, mode,
-    cmode and t8 (int32) and the zero luma_dc (32 B)."""
+    cmode and t8 (int32) and the zero luma_dc (32 B); on the t8 route
+    without `out`, t8 (int32).  The 8x8 trial reads nothing more: the
+    source and the prediction are the 4x4 coding's."""
     src = sum(kw[k].numel() for k in ("y32", "u", "v", "iy0", "ix0", "gy",
                                       "gx"))
     frame = kw["y32"].numel()
     planes = len(kw["planes_l"]) * (4 * frame + 2 * (frame // 4))
     mbs = frame // 256
-    sym = 0 if kw.get("out") is None else 5 * 4 + 32  # mvds, zero fields
+    sym = (5 * 4 + 32 if kw.get("out") is not None  # mvds, zero fields
+           else 4 if kw.get("t8") else 0)
     return 4 * src + planes + mbs * (32 + sym + 768 + 384 * (
         4 if kw["intra_in_p"] else 1))
 
@@ -2683,8 +2758,8 @@ def k10_bytes(kw, motion) -> int:
     quarter-pel fraction reads (G alone for a whole-pel vector, else the
     planes of its two components), a 16x16 uint8 window each, and the two
     8x8 uint8 chroma windows; per MB the int32 reconstruction (384
-    samples) and the two int32 MV components out.  `motion`: the call's
-    (mvx, mvy)."""
+    samples) and the two int32 MV components out; on the t8 route also
+    the int32 t8 flag in.  `motion`: the call's (mvx, mvy)."""
     import torch
 
     from tpuh264_torch.kernels import pframe
@@ -2694,7 +2769,8 @@ def k10_bytes(kw, motion) -> int:
     mvx, mvy = motion
     reads = int(n_planes[((mvy & 3) * 4 + (mvx & 3)).long()].sum())
     mbs = mvx.numel()
-    return 256 * reads + mbs * (2 * 64 + 24 + 768 + 1536 + 8)
+    return 256 * reads + mbs * (2 * 64 + 24 + 768 + 1536 + 8
+                                + 4 * bool(kw.get("t8")))
 
 
 def _all_equal(k, p, torch, what) -> int:
@@ -2736,33 +2812,58 @@ def k10_equal(kw, torch, what) -> int:
                       f"K10 _inter_decode ({what})")
 
 
-def pframe_480p_2ref(dev, torch):
-    """A 854x480 x 8 (864 wide) default-config P frame with two references:
-    the "meeting" clip at QP 30, an I frame, a P frame against it, then a
-    P frame against both (newest first), all with intra-in-P, each
-    reference deblocked.  Returns the last encode's and its decode's
-    arguments of `_inter_encode` / `_inter_decode` (dicts) and its MB
-    kinds (skip, inter, intra)."""
+def pframe_2ref(frames, qp, torch, t8=False, deblocked=True):
+    """Three frames ([y, u, v] tensors on the card) at QP `qp`: an I frame,
+    a P frame against it, then a P frame against both (newest first), all
+    with intra-in-P and, where `t8`, the 8x8 transform's choice; each
+    reference deblocked where `deblocked`.  Returns the last encode's and
+    its decode's arguments of `_inter_encode` / `_inter_decode` (dicts),
+    its MB kinds (skip, inter, intra) and its count of t8 MBs."""
     from tpuh264_torch.kernels import deblock, iframe, pframe
 
-    frames = [[torch.from_numpy(p).to(dev) for p in f]
-              for f in clip_streams(864, 480, 3, 8)]
-    _, rec = iframe.encode_iframe_rows(*frames[0], 30)
-    dpb = [[p.to(torch.int32) for p in deblock.deblock_i(rec, 30)]]
+    _, rec = iframe.encode_iframe_rows(*frames[0], qp)
+    if deblocked:
+        rec = deblock.deblock_i(rec, qp)
+    dpb = [[p.to(torch.int32) for p in rec]]
     sym, rec, mot = pframe.encode_pframe_rows_multi(
-        *frames[1], *(p[None] for p in dpb[0]), 30, intra_in_p=True)
-    dpb.insert(0, [p.to(torch.int32)
-                   for p in deblock.deblock_p(rec, sym, mot, 30)])
+        *frames[1], *(p[None] for p in dpb[0]), qp, t8=t8, intra_in_p=True)
+    if deblocked:
+        rec = deblock.deblock_p(rec, sym, mot, qp, t8=t8)
+    dpb.insert(0, [p.to(torch.int32) for p in rec])
     refs = [torch.stack(p) for p in zip(*dpb)]
     out = []
     enc, = capture(pframe, "_inter_encode", lambda: out.append(
-        pframe.encode_pframe_rows_multi(*frames[2], *refs, 30,
+        pframe.encode_pframe_rows_multi(*frames[2], *refs, qp, t8=t8,
                                         intra_in_p=True)))
     sym = out[0][0]
     dec, = capture(pframe, "_inter_decode",
-                   lambda: pframe.decode_pframe_rows_multi(sym, *refs, 30))
+                   lambda: pframe.decode_pframe_rows_multi(sym, *refs, qp,
+                                                           t8=t8))
     kinds = torch.bincount(sym.kind.reshape(-1), minlength=3).tolist()
-    return enc, dec, kinds
+    return enc, dec, kinds, int((sym.t8 == 1).sum())
+
+
+def pframe_480p_2ref(dev, torch, t8=False):
+    """A 854x480 x 8 (864 wide) default-config P frame with two references
+    (`pframe_2ref`): the "meeting" clip at QP 30, each reference
+    deblocked; with `t8`, config 3 part B's toolset.  Returns the last
+    encode's and its decode's arguments of `_inter_encode` /
+    `_inter_decode` (dicts) and its MB kinds (skip, inter, intra)."""
+    frames = [[torch.from_numpy(p).to(dev) for p in f]
+              for f in clip_streams(864, 480, 3, 8)]
+    return pframe_2ref(frames, 30, torch, t8)[:3]
+
+
+def pframe_config3(dev, torch):
+    """BASELINE config 3's P frame at its shapes (`pframe_2ref` with t8):
+    1920x1080 x 1 (1088 rows) of "rigid" at QP 30, two references, no
+    deblock (config 3's session codes none).  Returns the encode's and
+    decode's arguments, the MB kinds and the count of t8 MBs."""
+    from tpuh264_torch.engine.sources import device_source_gop
+
+    y, u, v = device_source_gop(1920, 1088, 3, 1, "rigid", 0, dev)
+    return pframe_2ref([[y[t], u[t], v[t]] for t in range(3)], 30, torch,
+                       t8=True, deblocked=False)
 
 
 def p_timed(key, kw, torch, what, card):
@@ -3026,8 +3127,9 @@ def record_views(sym, torch):
 
 def k9_out_equal(kw, torch, what) -> int:
     """K9 writing the symbols into `empty_symbols` buffers (with its mvd
-    pass) against the fields its plain version gives, the mvds those of
-    its vectors against the left MB's, and mode, cmode, t8, luma_dc 0."""
+    pass) against the fields its plain version gives (t8 too: 0 but on
+    the t8 route), the mvds those of its vectors against the left MB's,
+    and mode, cmode, luma_dc 0."""
     from tpuh264_torch.kernels import pframe
 
     s, r, c = kw["iy0"].shape[1:]
@@ -3042,7 +3144,7 @@ def k9_out_equal(kw, torch, what) -> int:
         mvdy=p.mvy - left(p.mvy),
         luma_dc=torch.zeros_like(buf.luma_dc), luma_ac=p.luma_ac,
         chroma_dc=p.chroma_dc, chroma_ac=p.chroma_ac, refidx=p.refidx,
-        t8=zero)
+        t8=p.t8)
     return _all_equal(list(buf), list(want), torch,
                       f"K9's symbols ({what})")
 
@@ -3336,6 +3438,7 @@ def p_rows(dev, torch, np, card):
         ref_timed("K12", kw, torch, what, card)
         k12_phase_line(kw, torch, what, card)
     del enc, dec, caps, got
+    rows += t8_rows(dev, torch, np, card)
     n_out = 0
     for case in K9_CASES:
         kw = k9_args(torch, k9_case(np, *case), dev)
@@ -3353,6 +3456,63 @@ def p_rows(dev, torch, np, card):
           f"writing the symbols on the {n_out} without intra-in-P, K10 "
           f"also on their record views)")
     ref_edges(dev, torch, np)
+    return rows
+
+
+def t8_rows(dev, torch, np, card):
+    """K9's and K10's t8 routes (the 8x8 transform's choice and decode,
+    config 3's CABAC + 8x8 sessions): their rows of the kernel table on
+    config 3's 1920x1080 x 1 P frame with two references
+    (`pframe_config3`), a line each on part B's 854x480 x 8 P frame with
+    two references (`pframe_480p_2ref` with t8), then the seeded cases
+    (`K9_T8_CASES`, K9 also writing the symbols; `K10_T8_CASES`).  Each
+    kernel is also timed on config 3's frame without t8, for what the
+    route adds."""
+    from tpuh264_torch.kernels import pframe
+
+    enc, dec, kinds, n8 = pframe_config3(dev, torch)
+    if not n8:
+        fail("config 3's P frame coded no MB with the 8x8 transform")
+    what = (f"config 3 1920x1080 x 1 P frame, two references, t8 (MB kinds "
+            f"skip/inter/intra {kinds}, {n8} with the 8x8 transform)")
+    rows = []
+    for key, kw, name, source, replaces in (
+            ("K9-t8", enc, "encode_pframe_rows_multi after stage A, its t8 "
+             "route (_inter_encode with the 8x8 transform's choice)",
+             "tpuh264_torch/csrc/pframe_enc.cu",
+             "tpuh264/kernels/pframe.py:747"),
+            ("K10-t8", dec, "decode_pframe_rows_multi's inter part, its t8 "
+             "route (_inter_decode, the 8x8 inverse of t8 MBs)",
+             "tpuh264_torch/csrc/pframe_dec.cu",
+             "tpuh264/kernels/pframe.py:1101")):
+        rows.append(kernel_row(key, name, source, replaces, *p_timed(
+            key[:-3], kw, torch, what, card)))
+        fn = pframe._inter_encode if key == "K9-t8" else pframe._inter_decode
+        ms0 = timed(lambda: fn(**dict(kw, t8=False)), 20)
+        print(f"phase 2: {key[:-3]} on the same frame without t8 (the route "
+              f"without the 8x8 transform): {ms0:.4f} ms, against "
+              f"{rows[-1]['ms']:.4f} ms with it [{card}]")
+    del enc, dec
+    enc, dec, kinds = pframe_480p_2ref(dev, torch, t8=True)
+    for key, kw in (("K9", enc), ("K10", dec)):
+        p_timed(key, kw, torch, f"config 3 part B 854x480 x 8 P frame, two "
+                f"references, t8 (MB kinds skip/inter/intra {kinds})", card)
+    del enc, dec
+    n_out = 0
+    for case in K9_T8_CASES:
+        kw = k9_args(torch, k9_case(np, *case), dev, t8=True)
+        k9_equal(kw, torch, f"t8 case {case}")
+        if not kw["intra_in_p"]:  # the route that writes the symbols
+            k9_out_equal(kw, torch, f"t8 case {case}")
+            n_out += 1
+    for case in K10_T8_CASES:
+        k10_equal(k10_args(torch, k10_case(np, *case, t8=True), dev,
+                           t8=True), torch, f"t8 case {case}")
+    print(f"phase 2: K9's / K10's t8 routes equal to their plain versions "
+          f"on {len(K9_T8_CASES)} / {len(K10_T8_CASES)} seeded t8 cases "
+          f"(K9 also writing the symbols on the {n_out} without "
+          f"intra-in-P; QPs 0, 5, 6, 11, 12 and up to 51, J ties, cbp8 0, "
+          f"t8 on skip and intra MBs)")
     return rows
 
 
@@ -3468,7 +3628,9 @@ def phase_kernels(dev, torch, np, card):
     # winner): the 1080p x 4 P frame, 480p x 8 with two references and
     # intra-in-P, the edge cases
     for r in p_rows(dev, torch, np, card):
-        show(r, "1080p x 4 shapes (RTC P frame, one reference)")
+        show(r, "config 3's 1920x1080 x 1 P frame, two references"
+             if r["key"].endswith("-t8")
+             else "1080p x 4 shapes (RTC P frame, one reference)")
         rows.append(r)
     # K13 (the CAVLC prologue) on the dispatch's P symbols, K14 (the
     # decoder's SSE) on an interior dispatch's four frames
@@ -4583,7 +4745,9 @@ def phase_config3(dev, np, card, launches):
                 entropy_ms=round(tm["entropy_ms"], 1),
                 decode_ms=round(dec_ms, 1)))
 
-    _, counts = launches.path("config 3 1080p", drive, needs=(0, 4, 5, 10, 11))
+    _, counts = launches.path("config 3 1080p", drive,
+                              needs=(0, 4, 5, 8, 9, 10, 11))
+    t8_routes(counts, "config 3")
     intra, t8, ref1 = spy.shares()
     if spy.searched != [1, 2, 2, 2, 2] or counts[0] != sum(spy.searched):
         fail(f"config 3: K1 launched {counts[0]} times for the references "
@@ -4641,6 +4805,17 @@ def phase_config3(dev, np, card, launches):
           f"encoder DPB after it: {json.dumps(line)}")
 
 
+def t8_routes(counts, what):
+    """Every K9 and K10 launch of the path just driven (`counts`) took the
+    t8 route (a CABAC + 8x8 session's P frames): fails unless so."""
+    from tpuh264_torch.kernels import pframe
+
+    t8 = (pframe._inter_encode.t8_launches, pframe._inter_decode.t8_launches)
+    if t8 != (counts[8], counts[9]):
+        fail(f"{what}: K9 / K10 launched {counts[8]} / {counts[9]} times, "
+             f"{t8[0]} / {t8[1]} of them on the t8 route")
+
+
 def part_b(dev, np, card, launches, torch):
     """Phase 15 part B: 854x480 x 8 from RGBA (the "meeting" clip), CABAC +
     8x8 transform + deblock, 2 references, CBR 1 Mbps, gop 8, 4 frames;
@@ -4682,7 +4857,8 @@ def part_b(dev, np, card, launches, torch):
                          round(tm["entropy_ms"], 1), round(dec_ms, 1)))
 
     _, counts = launches.path("config 3 part B 480p x 8", drive,
-                              needs=(0, 3, 4, 5, 10, 11))
+                              needs=(0, 3, 4, 5, 8, 9, 10, 11))
+    t8_routes(counts, "config 3 part B")
     stay_fast([pool[i] for i in range(s)], "config 3 part B")
     intra, t8, ref1 = spy.shares()
     if counts[0] != sum(spy.searched) or t8 <= 0:
@@ -5311,7 +5487,9 @@ def main() -> None:
           f"K12 (stage-A winner) {launches.total[11]}, K13 (CAVLC "
           f"prologue) {launches.total[12]}, K14 (SSE) {launches.total[13]}, "
           f"K15 (device source) {launches.total[14]}, P1 (probe bits) "
-          f"{launches.total[15]}, P2 (probe slab sum) {launches.total[16]}")
+          f"{launches.total[15]}, P2 (probe slab sum) {launches.total[16]}; "
+          f"of K9's and K10's, their t8 routes {launches.t8_total[0]} / "
+          f"{launches.t8_total[1]}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

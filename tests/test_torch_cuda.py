@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1, K2, K3, the deblock D1 and its ring entry,
 the intra reconstruction D2, the Intra_16x16 encode scans D3 / D4, the
 single-slice wavefront's encode K7 and decode K8, the P encode after
-stage A K9, the P decode's inter part K10, the reference build K11, the
+stage A K9 and the P decode's inter part K10 (each also on its t8
+route, the 8x8 transform's), the reference build K11, the
 stage-A winner K12, the device source K15 and the toolchain probe's P1
 and P2) against their plain PyTorch versions, on the card, plus the
 wrappers' no-fallback rule.
@@ -1043,6 +1044,25 @@ def test_pframe_decode_kernel_matches_plain_cases(dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.K9_T8_CASES, ids=str)
+def test_pframe_encode_t8_route_matches_plain_cases(dev, case):
+    """K9's t8 route (the 8x8 transform's choice) == its plain version,
+    and, without intra-in-P, writing the symbols (t8 among them)."""
+    kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), dev,
+                            t8=True)
+    _p_both(kw, True)
+    if not kw["intra_in_p"]:
+        chip_smoke.k9_out_equal(kw, torch, f"t8 case {case}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.K10_T8_CASES, ids=str)
+def test_pframe_decode_t8_route_matches_plain_cases(dev, case):
+    _p_both(chip_smoke.k10_args(torch, chip_smoke.k10_case(
+        np, *case, t8=True), dev, t8=True), False)
+
+
+@pytest.mark.cuda
 def test_pframe_kernels_match_plain_1080p(dev):
     """The 1080p x 4 RTC P frame: its encode makes one K9 launch and its
     decode one K10 launch, neither calls a plain version, and each
@@ -1101,8 +1121,8 @@ def test_pframe_wrappers_check_inputs_on_card(dev):
 @pytest.mark.cuda
 def test_pframe_raises_without_fallback(dev, monkeypatch):
     """A kernel library that cannot be built, or an entry that reports a
-    CUDA error at launch, raises: the plain versions are never taken;
-    with t8 both take them by argument (the CABAC + 8x8 route)."""
+    CUDA error at launch, raises: the plain versions are never taken,
+    with t8 (the CABAC + 8x8 route) neither."""
     kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(
         np, *chip_smoke.K9_CASES[20]), dev)
     dkw = chip_smoke.k10_args(torch, chip_smoke.k10_case(
@@ -1122,6 +1142,8 @@ def test_pframe_raises_without_fallback(dev, monkeypatch):
         TP._inter_encode(**kw)
     with pytest.raises(RuntimeError, match="nvcc"):
         TP._inter_decode(**dkw)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        TP._inter_encode(**{**kw, "t8": True})
 
     class Refusing:
         def __getattr__(self, name):
@@ -1140,10 +1162,11 @@ def test_pframe_raises_without_fallback(dev, monkeypatch):
         TP._inter_encode(**kw)
     with pytest.raises(RuntimeError, match="th264_pframe_decode"):
         TP._inter_decode(**dkw)
+    with pytest.raises(RuntimeError, match="th264_pframe_encode"):
+        TP._inter_encode(**{**kw, "t8": True})
+    with pytest.raises(RuntimeError, match="th264_pframe_decode"):
+        TP._inter_decode(**{**dkw, "t8": True})
     assert not plain
-    TP._inter_encode(**{**kw, "t8": True})
-    TP._inter_decode(**{**dkw, "t8": True})
-    assert plain == [1, 1]
 
 
 @pytest.mark.cuda

@@ -1,13 +1,16 @@
 """K9 (the P encode after stage A) and K10 (the P decode's inter part):
-their sources run on CPU threads against the plain versions, the plain
-paths against the JAX package's P encode and decode, and the routers.
+their sources run on CPU threads against the plain versions, both
+routes (the 8x8 transform's, t8, too), the plain paths against the JAX
+package's P encode and decode, and the routers.
 
 The kernels' inputs come from `chip_smoke.k9_case` / `k10_case`, the
 generators chip_smoke.py phase 2 holds the kernels to their plain
-versions with on the card.  Every comparison is exact (array_equal):
-this is an integer codec.
+versions with on the card (`K9_CASES`, `K10_CASES`, and for t8
+`K9_T8_CASES`, `K10_T8_CASES`).  Every comparison is exact
+(array_equal): this is an integer codec.
 """
 
+import concurrent.futures
 import os
 
 import numpy as np
@@ -17,28 +20,81 @@ import torch
 import chip_smoke
 import cuda_threads
 from tpuh264.kernels import pframe as jpf
-from tpuh264_torch.kernels import cuda_lib
+from tpuh264_torch.kernels import cuda_lib, iframe
 from tpuh264_torch.kernels import pframe as tpf
+from tpuh264_torch.kernels import transform8 as T8
 
 CSRC = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc")
 
-KERNELS = {
-    "k9": ("pframe_enc.cu", "enc_args", "pframe_encode_kernel",
-           "(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps"),
-    "k10": ("pframe_dec.cu", "dec_args", "pframe_decode_kernel",
-            "(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps"),
+GRID = ("(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps")
+KERNELS = {  # each route is a template instance of its kernel
+    "k9": ("pframe_enc.cu", "enc_args", "pframe_encode_kernel<false>", *GRID),
+    "k9t8": ("pframe_enc.cu", "enc_args", "pframe_encode_kernel<true>", *GRID),
+    "k10": ("pframe_dec.cu", "dec_args", "pframe_decode_kernel<false>",
+            *GRID),
+    "k10t8": ("pframe_dec.cu", "dec_args", "pframe_decode_kernel<true>",
+              *GRID),
 }
+
+# mutants of the t8 routes, each a replacement in a source and built as
+# that route: a J tie taking the 8x8 transform; the 8x8 transform taken
+# where it codes no level; K9 storing an 8x8 MB's levels, and K10 loading
+# them, as the 4x4 layout would (4x4 block 4 by + bx's 16 in row 4 by +
+# bx), not block k // 4's 16 consecutive zigzag levels in row k
+MUTANTS = {
+    "j8 <= j4": ("k9t8", "use8 = t.j8 < j4 && t.cbp8 > 0;",
+                 "use8 = t.j8 <= j4 && t.cbp8 > 0;"),
+    "cbp8 > 0 dropped": ("k9t8", "use8 = t.j8 < j4 && t.cbp8 > 0;",
+                         "use8 = t.j8 < j4;"),
+    "K9 4x4 level layout": (
+        "k9t8", "const int blk = lane >> 3, z0 = 8 * (lane & 7);",
+        "const int blk = ((lane >> 4) << 1) | ((lane >> 2) & 1), z0 = 16 * "
+        "(((lane >> 3) & 1) * 2 + ((lane >> 1) & 1)) + 8 * (lane & 1);"),
+    "K10 4x4 level layout": (
+        "k10t8", "a.luma_ac + m * a.sla + 64 * b + z0);",
+        "a.luma_ac + m * a.sla + 16 * (4 * (2 * (b >> 1) + (i >> 2)) + 2 * "
+        "(b & 1) + ((i >> 1) & 1)) + 8 * (i & 1));"),
+}
+
+
+def _build(tmp_path_factory, jobs):
+    """{name: executable} of (name, key, csrc) jobs, KERNELS[key] built from
+    the sources in csrc, all at once (the build directories made first:
+    tmp_path_factory is not thread-safe)."""
+    dirs = [tmp_path_factory.mktemp("build") for _ in jobs]
+
+    def one(job, d):
+        name, key, csrc = job
+        return name, cuda_threads.build_entry(d, csrc, *KERNELS[key])
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        return dict(ex.map(one, jobs, dirs))
 
 
 @pytest.fixture(scope="module")
 def cpu_kernels(tmp_path_factory):
     """csrc/pframe_enc.cu and pframe_dec.cu (all but their launch entries)
-    built with g++ against the shims of cuda_threads.py: each block's
-    warps as fibers (`run_block_fibers`), its shuffles, ballots and block
-    barriers switching between them."""
-    return {key: cuda_threads.build_entry(
-        tmp_path_factory.mktemp(f"{key}_cpu"), CSRC, *spec)
-        for key, spec in KERNELS.items()}
+    built with g++ against the shims of cuda_threads.py, each route (t8
+    and not): each block's warps as fibers (`run_block_fibers`), its
+    shuffles, ballots and block barriers switching between them."""
+    return _build(tmp_path_factory, [(k, k, CSRC) for k in KERNELS])
+
+
+@pytest.fixture(scope="module")
+def mutants(tmp_path_factory):
+    """The t8 routes' MUTANTS, each source a copy with its replacement."""
+    jobs = []
+    for name, (key, old, new) in MUTANTS.items():
+        d = tmp_path_factory.mktemp("t8_mutant_src")
+        for f in os.listdir(CSRC):
+            with open(os.path.join(CSRC, f)) as src:
+                text = src.read()
+            if f == KERNELS[key][0]:
+                assert text.count(old) == 1, name
+                text = text.replace(old, new)
+            (d / f).write_text(text)
+        jobs.append((name, key, str(d)))
+    return _build(tmp_path_factory, jobs)
 
 
 def _eq(got, want, what):
@@ -62,6 +118,130 @@ def test_k9_source_on_cpu_threads_matches_plain(cpu_kernels, case):
     assert not want.t8.any()
     for i, (got, w) in enumerate(zip(outs[11:], want.rec)):
         _eq(got, w, f"rec {i}")
+
+
+def _k9_t8(exe, case):
+    """K9's t8 route (`exe`) and its plain version on a K9_T8_CASES case:
+    (the kernel's InterEnc fields, t8 and recon; the plain version's)."""
+    kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu",
+                            t8=True)
+    want = tpf._inter_encode_plain(**kw)
+    outs = cuda_threads.run_entry(exe, *tpf._k9_operands(**kw))
+    return [*outs[:11], outs[18], *outs[11:14]], [*want[:12], *want.rec]
+
+
+def _k10_t8(exe, case):
+    """K10's t8 route (`exe`) and its plain version on a K10_T8_CASES
+    case: (the kernel's recon and motion; the plain version's)."""
+    kw = chip_smoke.k10_args(torch, chip_smoke.k10_case(np, *case, t8=True),
+                             "cpu", t8=True)
+    rec, mv = tpf._inter_decode_plain(**kw)
+    outs = cuda_threads.run_entry(exe, *tpf._k10_operands(**kw))
+    return outs, [*rec, *mv]
+
+
+@pytest.mark.parametrize("case", chip_smoke.K9_T8_CASES, ids=str)
+def test_k9_t8_source_on_cpu_threads_matches_plain(cpu_kernels, case):
+    """K9's t8 route (the 8x8 trial of every MB: forward8x8, quant8x8,
+    zigzag8, cbp8, the recon through dequant8x8 and the inverse, J of
+    both codings, the choice, the levels in the 8x8 layout) equals the
+    plain version (`_t8_choice`) on the case: every field, t8 and the
+    recon."""
+    got, want = _k9_t8(cpu_kernels["k9t8"], case)
+    names = [*tpf.InterEnc._fields[:12], "rec y", "rec u", "rec v"]
+    for name, g, w in zip(names, got, want):
+        _eq(g, w.to(g.dtype) if name == "t8" else w, name)
+
+
+def _t8_corners(kw) -> dict:
+    """The corners of the 8x8 choice that `_inter_encode_plain` (t8) meets
+    on `k9_args(..., t8=True)`: counts of the MBs where J8 == J4 with a
+    coded 8x8 level ("tie", 4x4 kept), J8 < J4 with none ("cbp8 0", 4x4
+    kept), and the 8x8 chosen where the 4x4 coding codes nothing ("8x8
+    only"), from `_t8_choice`'s own inputs."""
+    got = {}
+    choice = tpf._t8_choice
+
+    def spy(src, pred, qp, l_zz, cbp4, rec4):
+        z8 = T8.quant8x8(T8.forward8x8(tpf._to8(src - pred)), qp)
+        zz8 = T8.zigzag8(z8)
+        cbp8 = (zz8 != 0).any(-1).flatten(-2).any(-1)
+        rec8 = tpf._from8(T8.idct8_add(tpf._to8(pred), T8.dequant8x8(z8, qp)))
+        lam8 = iframe._LAMBDA8[qp]
+        ssd = lambda d: 8 * (d * d).sum((-1, -2), dtype=torch.int32)
+        j4 = ssd(rec4 - src) + lam8 * iframe._rate_bits(l_zz, (-1, -2, -3))
+        j8 = ssd(rec8 - src) + lam8 * (iframe._rate_bits(zz8, (-1, -2, -3))
+                                       + 1)
+        got.update({"tie": int(((j8 == j4) & cbp8).sum()),
+                    "cbp8 0": int(((j8 < j4) & ~cbp8).sum()),
+                    "8x8 only": int(((j8 < j4) & cbp8 & (cbp4 == 0)).sum())})
+        return choice(src, pred, qp, l_zz, cbp4, rec4)
+
+    tpf._t8_choice = spy
+    try:
+        tpf._inter_encode_plain(**kw)
+    finally:
+        tpf._t8_choice = choice
+    return got
+
+
+def test_k9_t8_cases_meet_the_corners():
+    """Over K9_T8_CASES the plain version meets each corner of the choice
+    that a mutant below gets wrong: J ties with a coded 8x8 level, an 8x8
+    coding of no level at a lower J, and the 8x8 transform chosen where
+    the 4x4 one codes nothing; and both choices, with and without
+    intra-in-P, at QPs on both sides of dequant8x8's branch."""
+    seen, chose = {}, set()
+    for case in chip_smoke.K9_T8_CASES:
+        kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu",
+                                t8=True)
+        for k, n in _t8_corners(kw).items():
+            seen[k] = seen.get(k, 0) + n
+        if tpf._inter_encode_plain(**kw).t8.any():
+            chose.add((case[4] >= 12, case[6]))
+    assert all(seen[k] for k in ("tie", "cbp8 0", "8x8 only")), seen
+    assert chose == {(a, b) for a in (False, True) for b in (False, True)}
+
+
+@pytest.mark.parametrize("case", chip_smoke.K10_T8_CASES, ids=str)
+def test_k10_t8_source_on_cpu_threads_matches_plain(cpu_kernels, case):
+    """K10's t8 route (a t8 MB's luma through inverse_zigzag8,
+    dequant8x8 and the 8x8 inverse, no cbp mask, whatever its kind; the
+    others as the route without t8) equals the plain version on the
+    case: the recon and the motion."""
+    got, want = _k10_t8(cpu_kernels["k10t8"], case)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _eq(g, w, f"output {i}")
+
+
+def test_k10_t8_cases_cover_the_kinds():
+    """K10_T8_CASES put t8 on skip, inter and intra MBs, with levels of a
+    t8 MB's 8x8 blocks outside its cbp_luma, at QPs on both sides of
+    dequant8x8's branch."""
+    kinds, outside, qps = set(), False, set()
+    for case in chip_smoke.K10_T8_CASES:
+        sym = chip_smoke.k10_case(np, *case, t8=True)[0]
+        t8 = sym["t8"] == 1
+        kinds |= set(sym["kind"][t8].tolist())
+        blocks = sym["luma_ac"].reshape(*t8.shape, 4, 64) != 0
+        coded = (sym["cbp_luma"][..., None] >> np.arange(4)) & 1
+        outside |= bool((blocks.any(-1) & (coded == 0) & t8[..., None]).any())
+        qps.add(case[3] >= 12)
+    assert kinds == {0, 1, 2} and outside and qps == {False, True}
+
+
+@pytest.mark.parametrize("name", MUTANTS)
+def test_t8_mutants_fail(mutants, name):
+    """Each mutant of the t8 routes differs from the plain version on some
+    case of its kernel's t8 cases."""
+    key = MUTANTS[name][0]
+    run, cases = ((_k9_t8, chip_smoke.K9_T8_CASES) if key == "k9t8"
+                  else (_k10_t8, chip_smoke.K10_T8_CASES))
+    for case in cases:
+        got, want = run(mutants[name], case)
+        if any(not torch.equal(g, w.to(g.dtype)) for g, w in zip(got, want)):
+            return
+    pytest.fail(f"mutant {name!r} passed every case")
 
 
 @pytest.mark.parametrize("case", [c for c in chip_smoke.K9_CASES
@@ -207,37 +387,59 @@ def _meta(kw):
     return {k: on(v) for k, v in kw.items()}
 
 
-def test_t8_routes_to_the_plain_versions(monkeypatch):
-    """With `t8` (the CABAC + 8x8 session path) both routers take the
-    plain versions by argument, on any device, without loading the kernel
-    library; without it a tensor off the CPU never reaches a plain
-    version: on a device the kernels cannot take, or at a QP outside
-    0..51, it raises before any launch."""
-    calls = []
+def test_t8_calls_reach_the_kernels(monkeypatch):
+    """With `t8` (the CABAC + 8x8 session path) a tensor off the CPU
+    never reaches a plain version: on a device the kernels cannot take,
+    or at a QP outside 0..51, both routers raise before any launch; where
+    the device checks pass, each reaches its kernel's entry with the t8
+    route's operands (K9: the flag and lam8; K10: symbols.t8) and counts
+    a launch of that route."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran off the CPU")
 
-    def plain(*a, **kw):
-        calls.append(kw.get("t8", a[12] if len(a) > 12 else a[-1]))
-        return "plain"
-
-    def refuse():
-        raise AssertionError("the kernel library was loaded")
-
-    monkeypatch.setattr(tpf, "_inter_encode_plain", plain)
-    monkeypatch.setattr(tpf, "_inter_decode_plain", plain)
-    monkeypatch.setattr(cuda_lib, "load", refuse)
+    monkeypatch.setattr(tpf, "_inter_encode_plain", refuse)
+    monkeypatch.setattr(tpf, "_inter_decode_plain", refuse)
+    enc = {**_meta(chip_smoke.k9_args(torch, chip_smoke.k9_case(
+        np, *chip_smoke.K9_CASES[12]), "cpu")), "t8": True}
+    dec = {**_meta(chip_smoke.k10_args(torch, chip_smoke.k10_case(
+        np, *chip_smoke.K10_T8_CASES[4], t8=True), "cpu")), "t8": True}
     before = (tpf._inter_encode.launches, tpf._inter_decode.launches)
-    enc = _meta(chip_smoke.k9_args(torch, chip_smoke.k9_case(
-        np, *chip_smoke.K9_CASES[12]), "cpu"))
-    dec = _meta(chip_smoke.k10_args(torch, chip_smoke.k10_case(
-        np, *chip_smoke.K10_CASES[6]), "cpu"))
-    assert tpf._inter_encode(**{**enc, "t8": True}) == "plain"
-    assert tpf._inter_decode(**{**dec, "t8": True}) == "plain"
-    assert len(calls) == 2
     for fn, kw in ((tpf._inter_encode, enc), (tpf._inter_decode, dec)):
         with pytest.raises(ValueError):
             fn(**kw)
         with pytest.raises(ValueError):
             fn(**{**kw, "qp": 52})
-    assert len(calls) == 2
     assert (tpf._inter_encode.launches,
             tpf._inter_decode.launches) == before
+    # past the device checks (meta tensors standing in for the card's),
+    # each call reaches its entry
+    entries = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda p, n, stream: entries.append((name, list(n))) or 0
+
+    ops = {}
+    for name in ("_k9_operands", "_k10_operands"):
+        real = getattr(tpf, name)
+        monkeypatch.setattr(tpf, name, lambda *a, _f=real, _n=name, **kw: (
+            ops.setdefault(_n, _f(*a, **kw))))
+    monkeypatch.setattr(cuda_lib, "load", Lib)
+    monkeypatch.setattr(cuda_lib, "check_inputs", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda_lib, "check_plane",
+                        lambda name, dev, t, shape: t.stride(-2))
+    monkeypatch.setattr(cuda_lib, "stream", lambda dev: None)
+    t8_before = (tpf._inter_encode.t8_launches,
+                 tpf._inter_decode.t8_launches)
+    tpf._inter_encode(**enc)
+    tpf._inter_decode(**dec)
+    assert [e[0] for e in entries] == ["th264_pframe_encode",
+                                       "th264_pframe_decode"]
+    assert entries[0][1][-2:] == [1, tpf._LAMBDA8[enc["qp"]]]
+    assert ops["_k10_operands"][0][-1] is dec["symbols"].t8
+    assert ops["_k9_operands"][1][18] is not None  # the t8 field written
+    assert (tpf._inter_encode.launches, tpf._inter_decode.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert (tpf._inter_encode.t8_launches,
+            tpf._inter_decode.t8_launches) == (t8_before[0] + 1,
+                                               t8_before[1] + 1)

@@ -1,9 +1,11 @@
 // The device helpers K9 (pframe_enc.cu) and K10 (pframe_dec.cu) share:
 // the inter quantiser, the 4x4 forward and inverse core transforms, the
 // 2x2 chroma DC Hadamard, the quarter-pel component tables, the
-// eighth-pel chroma motion compensation, packed-byte helpers and the
-// motion vector rate.  Each bit-exact with the torch code of
-// kernels/transform.py and kernels/pframe.py; on top of
+// eighth-pel chroma motion compensation, packed-byte helpers, the
+// motion vector rate, and the 8x8 transform's passes, quantiser, scales,
+// zigzag and level rate of the t8 routes.  Each bit-exact with the torch
+// code of kernels/transform.py, transform8.py, iframe.py and
+// kernels/pframe.py; on top of
 // intra16_common.cuh's tables and integer quant / dequant forms.  The
 // reference planes are K11's: uint8, rows 16-byte aligned and a pitch of
 // a multiple of 16 bytes apart (kernels/pframe.py `_references`).
@@ -177,6 +179,89 @@ __device__ __forceinline__ int ue_len(int v) {
 }
 __device__ __forceinline__ int rate_q(int vx, int vy) {
   return ue_len(vx) + ue_len(vy);
+}
+
+// ---- the 8x8 transform of the t8 routes (K9's trial, K10's decode):
+// kernels/transform8.py, whose tables are golden/transform8.py's.  An 8x8
+// block's coefficients lie as transform8.py's forward8x8 returns them,
+// [u][v] with u the frequency along x (its first pass) and v along y.
+
+// the position classes of the scales (_DQ8_SCAN), the dequant scales
+// (_DQ8_INIT, levelScale8x8) and the forward multipliers (_MF8_INIT) of
+// class c at qp % 6
+__constant__ int kCls8[16] = {0, 3, 4, 3, 3, 1, 5, 1, 4, 5, 2, 5, 3, 1, 5, 1};
+__constant__ int kV8[6][6] = {{20, 18, 32, 19, 25, 24}, {22, 19, 35, 21, 28, 26},
+                              {26, 23, 42, 24, 33, 31}, {28, 25, 45, 26, 35, 33},
+                              {32, 28, 51, 30, 40, 38}, {36, 32, 58, 34, 46, 43}};
+__constant__ int kMF8[6][6] = {
+    {13107, 11428, 20972, 12222, 16777, 15481},
+    {11916, 10826, 19174, 11058, 14980, 14290},
+    {10082, 8943, 15978, 9675, 12710, 11985},
+    {9362, 8228, 14913, 8931, 11984, 11259},
+    {8192, 7346, 13159, 7740, 10486, 9777},
+    {7282, 6428, 11570, 6830, 9118, 8640}};
+// ZIGZAG8: level k's coefficient, 8 u + v
+__constant__ int kZz8[64] = {
+    0,  8,  1,  2,  9,  16, 24, 17, 10, 3,  4,  11, 18, 25, 32, 40,
+    33, 26, 19, 12, 5,  6,  13, 20, 27, 34, 41, 48, 56, 49, 42, 35,
+    28, 21, 14, 7,  15, 22, 29, 36, 43, 50, 57, 58, 51, 44, 37, 30,
+    23, 31, 38, 45, 52, 59, 60, 53, 46, 39, 47, 54, 61, 62, 55, 63};
+
+__device__ __forceinline__ int cls8(int u, int v) {
+  return kCls8[(u & 3) * 4 + (v & 3)];
+}
+
+// one forward 1-D pass (transform8.py `_fwd_stage`), in place
+__device__ __forceinline__ void fwd8(int* x) {
+  const int s07 = x[0] + x[7], d07 = x[0] - x[7];
+  const int s16 = x[1] + x[6], d16 = x[1] - x[6];
+  const int s25 = x[2] + x[5], d25 = x[2] - x[5];
+  const int s34 = x[3] + x[4], d34 = x[3] - x[4];
+  const int a0 = s07 + s34, a1 = s16 + s25, a2 = s07 - s34, a3 = s16 - s25;
+  const int a4 = d16 + d25 + (d07 + (d07 >> 1));
+  const int a5 = d07 - d34 - (d25 + (d25 >> 1));
+  const int a6 = d07 + d34 - (d16 + (d16 >> 1));
+  const int a7 = d16 - d25 + (d34 + (d34 >> 1));
+  x[0] = a0 + a1, x[1] = a4 + (a7 >> 2), x[2] = a2 + (a3 >> 1);
+  x[3] = a5 + (a6 >> 2), x[4] = a0 - a1, x[5] = a6 - (a5 >> 2);
+  x[6] = (a2 >> 1) - a3, x[7] = (a4 >> 2) - a7;
+}
+
+// one inverse 1-D pass (transform8.py `_inv_stage`, 8.5.13), in place
+__device__ __forceinline__ void inv8(int* x) {
+  const int a0 = x[0] + x[4], a4 = x[0] - x[4];
+  const int a2 = (x[2] >> 1) - x[6], a6 = x[2] + (x[6] >> 1);
+  const int b0 = a0 + a6, b2 = a4 + a2, b4 = a4 - a2, b6 = a0 - a6;
+  const int a1 = -x[3] + x[5] - x[7] - (x[7] >> 1);
+  const int a3 = x[1] + x[7] - x[3] - (x[3] >> 1);
+  const int a5 = -x[1] + x[7] + x[5] + (x[5] >> 1);
+  const int a7 = x[3] + x[5] + x[1] + (x[1] >> 1);
+  const int b1 = a1 + (a7 >> 2), b7 = a7 - (a1 >> 2);
+  const int b3 = a3 + (a5 >> 2), b5 = (a3 >> 2) - a5;
+  x[0] = b0 + b7, x[1] = b2 + b5, x[2] = b4 + b3, x[3] = b6 + b1;
+  x[4] = b6 - b1, x[5] = b4 - b3, x[6] = b2 - b5, x[7] = b0 - b7;
+}
+
+// quant8x8(intra=False) of coefficient w at multiplier mf: sign(w) *
+// ((|w| mf + f) >> qbits), f = 2^qbits / 6, qbits = 16 + qp / 6
+__device__ __forceinline__ int q8(int w, int mf, int f, int qbits) {
+  const int l = (abs(w) * mf + f) >> qbits;
+  return w < 0 ? -l : l;
+}
+
+// dequant8x8 of level z at scale v: << (qp / 6 - 2) from QP 12 on,
+// below it the rounded >> (2 - qp / 6)
+__device__ __forceinline__ int dq8(int z, int v, int qp) {
+  const int zv = z * v;
+  return qp >= 12 ? zv * (1 << (qp / 6 - 2))  // the shift, defined for zv < 0
+                  : (zv + (1 << (1 - qp / 6))) >> (2 - qp / 6);
+}
+
+// kernels/iframe.py `_rate_bits` of one level: 2 bit_length(|l|) + 1,
+// the length counted against the powers up to 2^15 (so at most 16), 0
+// for a zero level
+__device__ __forceinline__ int rate_bits(int l) {
+  return l ? 2 * min(32 - __clz(abs(l)), 16) + 1 : 0;
 }
 
 }  // namespace

@@ -1,12 +1,13 @@
 // K10: the P decode's inter reconstruction -- the MV chain, motion
-// compensation and the inter residuals -- a warp per MB.
+// compensation and the inter residuals -- a warp per MB; with the t8
+// route also the 8x8 inverse transform of the MBs whose t8 is 1.
 //
 // Replaces: the XLA program of tpuh264/kernels/pframe.py
 // `decode_pframe_rows_multi` (:1021) before its intra scan, not a
 // pallas_call: the MV chain `comb` :1078, `_mc_all` :1091, `q_from_zz`
-// :1118 with the luma dequant and inverse transforms, and `chroma_res`
-// :1139.  Its plain PyTorch version is `kernels/pframe.py`
-// `_inter_decode_plain` (called with t8 False).
+// :1118 with the luma dequant and inverse transforms, the 8x8 luma with
+// t8 :1101-1110, and `chroma_res` :1139.  Its plain PyTorch version is
+// `kernels/pframe.py` `_inter_decode_plain`.
 //
 // What it computes, exactly as the plain version, from the parsed
 // symbols as MBSymbolsP holds them (int32 kind, mvd, refidx and cbps,
@@ -21,7 +22,15 @@
 //    cbp_luma (0 for a skip) dropped, dequantised, inverse 4x4, (+ 32) >>
 //    6, added to the prediction and clipped; chroma: the DC levels through
 //    the 2x2 Hadamard and dequant where cbp_chroma >= 1, the AC levels
-//    where it is 2 (0 for a skip), the inverse transform likewise.
+//    where it is 2 (0 for a skip), the inverse transform likewise;
+//  * the t8 route (the template's kT8; config 3's CABAC + 8x8 sessions):
+//    where symbols.t8 is 1, the luma is idct8_add(pred,
+//    dequant8x8(inverse_zigzag8(levels))) of the four 8x8 blocks, block k
+//    / 4's 64 zigzag levels in rows k of the [16, 16] levels, without the
+//    cbp mask and whatever the MB's kind, as the plain version does; all
+//    32 lanes take it (`luma8`: lane l a row, then a column, of block l
+//    >> 3, through the staging in shared memory), and the chroma lanes
+//    go on as without t8.
 // Every MB is reconstructed so, intra MBs too (their motion is 0): K5
 // (`_intra_recon_scan`) takes this int32 [S,R,C,16,16], [S,R,C,8,8] x 2
 // as `other` and replaces the intra MBs.  It writes (mvx, mvy) [S,R,C],
@@ -70,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "inter_common.cuh"  // dequant, inverse transforms, MC
 
 namespace {
@@ -83,17 +94,19 @@ struct DecArgs {
   const int16_t *luma_ac, *chroma_dc, *chroma_ac;  // [.,16,16] [.,2,4] [.,2,4,15]
   const uint8_t *pl[kMaxRefs];                 // half-pel planes [4,S,Hp,lp]
   const uint8_t *pu[kMaxRefs], *pv[kMaxRefs];  // chroma [S, Hcp, cpitch]
+  const int32_t* t8;  // [S,R,C] 1: the 8x8 transform (null: no t8 route)
   int32_t *ry, *ru, *rv;                       // [S,R,C,16,16], [.,8,8] x 2
   int32_t *mvx, *mvy;                          // [S, R, C]
   int S, R, C, N, Hp, Wp, Hcp, Wcp, pe, cp, qp, qpc;
   int lp, cpitch;  // the planes' row pitches, bytes
+  int st8;         // t8's MB stride
   // each field's MB stride in elements (the record views' 9 and 400, or
   // a contiguous field's own size)
   int sk, smx, smy, sri, scl, scc, sla, scd, sca;
 };
 
-constexpr int kPtrs = 9 + 3 * kMaxRefs + 5;  // 62
-constexpr int kInts = 23;
+constexpr int kPtrs = 9 + 3 * kMaxRefs + 1 + 5;  // 63
+constexpr int kInts = 24;
 
 // The arguments from the entry's pointer and int arrays, in the order
 // kernels/pframe.py `_k10_launch` builds them.
@@ -111,22 +124,28 @@ inline DecArgs dec_args(void* const* p, const int* n) {
     a.pu[k] = pln(9 + kMaxRefs + k);
     a.pv[k] = pln(9 + 2 * kMaxRefs + k);
   }
-  const int o = 9 + 3 * kMaxRefs;
+  a.t8 = in(9 + 3 * kMaxRefs);
+  const int o = 10 + 3 * kMaxRefs;
   a.ry = out(o), a.ru = out(o + 1), a.rv = out(o + 2);
   a.mvx = out(o + 3), a.mvy = out(o + 4);
   a.S = n[0], a.R = n[1], a.C = n[2], a.N = n[3], a.Hp = n[4], a.Wp = n[5];
   a.Hcp = n[6], a.Wcp = n[7], a.pe = n[8], a.cp = n[9], a.qp = n[10];
-  a.qpc = n[11], a.lp = n[12], a.cpitch = n[13];
-  a.sk = n[14], a.smx = n[15], a.smy = n[16], a.sri = n[17], a.scl = n[18];
-  a.scc = n[19], a.sla = n[20], a.scd = n[21], a.sca = n[22];
+  a.qpc = n[11], a.lp = n[12], a.cpitch = n[13], a.st8 = n[14];
+  a.sk = n[15], a.smx = n[16], a.smy = n[17], a.sri = n[18], a.scl = n[19];
+  a.scc = n[20], a.sla = n[21], a.scd = n[22], a.sca = n[23];
   return a;
 }
 
 // A warp's shared memory: its MB's prediction as bytes (luma 4 words a
-// row, chroma 2) and its chroma AC levels.
+// row, chroma 2) and its chroma AC levels; with the t8 route also the 8x8
+// blocks' staging (the dequantised coefficients, the transposes, then
+// the recon).
 struct WarpMem {
   uint32_t pred[64], pu[16], pv[16];
   alignas(16) int16_t cac[120];
+};
+struct WarpMem8 : WarpMem {
+  alignas(16) int st[256];
 };
 
 // The motion of MB column c of the row whose first MB is `row0`: the sum
@@ -186,14 +205,68 @@ __device__ __forceinline__ uint2 mc_luma8(const uint8_t* g, size_t lstride,
   return make_uint2(avg4(a.x, b.x), avg4(a.y, b.y));
 }
 
+// The luma of a t8 MB (the plain version's rec8: idct8_add(pred,
+// dequant8x8(inverse_zigzag8(levels))) of the four 8x8 blocks, no cbp
+// mask), all 32 lanes: lane l loads zigzag levels 8 (l & 7) .. of 8x8
+// block b = l >> 3 (16 bytes: the block's 64 levels lie in rows 4 b ..
+// 4 b + 3 of the [16, 16] levels), puts them dequantised at their
+// coefficient [u][v] in `st`, then inverts along u (lane: column v) and
+// along v (lane: column x of the block), adds the prediction and clips;
+// the MB's recon leaves through `st` as 16-byte stores.
+__device__ __forceinline__ void luma8(const DecArgs& a, const uint32_t* pred,
+                                      int* st, size_t m, int lane) {
+  const int b = lane >> 3, i = lane & 7, y8 = 8 * (b >> 1), xw = 2 * (b & 1);
+  int* const sb = st + 64 * b;
+  const int m6 = a.qp % 6;
+  {
+    const int z0 = 8 * i;  // block b's levels z0 .. z0 + 7
+    const int4 h = *reinterpret_cast<const int4*>(
+        a.luma_ac + m * a.sla + 64 * b + z0);
+    const int words[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int lv = (int)(int16_t)(words[k >> 1] >> (16 * (k & 1)));
+      const int p = kZz8[z0 + k];
+      sb[p] = dq8(lv, kV8[m6][cls8(p >> 3, p & 7)], a.qp);
+    }
+  }
+  __syncwarp();
+  int x[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) x[u] = sb[8 * u + i];
+  __syncwarp();
+  inv8(x);  // [v = i][x]
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sb[8 * i + k] = x[k];
+  __syncwarp();
+#pragma unroll
+  for (int v = 0; v < 8; ++v) x[v] = sb[8 * v + i];
+  __syncwarp();
+  inv8(x);  // column i of the block's residual, rows y
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+    const int o = 4 * (y8 + y) + xw + (i >> 2);
+    st[16 * (y8 + y) + 4 * xw + i] =
+        clip255(byte_of(pred[o], i & 3) + ((x[y] + 32) >> 6));
+  }
+  __syncwarp();
+  int4* const out = reinterpret_cast<int4*>(a.ry + m * 256);
+  out[lane] = reinterpret_cast<const int4*>(st)[lane];
+  out[lane + 32] = reinterpret_cast<const int4*>(st)[lane + 32];
+}
+
+// kT8: the t8 route (config 3's CABAC + 8x8 sessions), where a MB whose
+// t8 is 1 takes `luma8`; without it the kernel is the other routes' own.
+template <bool kT8 = false>
 __global__ void __launch_bounds__(32 * kWarps)
     pframe_decode_kernel(const __grid_constant__ DecArgs a) {
-  __shared__ WarpMem smem[kWarps];
+  using Mem = typename std::conditional<kT8, WarpMem8, WarpMem>::type;
+  __shared__ Mem smem[kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rc = a.R * a.C, mbs = a.S * rc;
   const int mi = blockIdx.x * kWarps + warp;
   if (mi >= mbs) return;  // the whole warp: no block barrier follows
-  WarpMem& w = smem[warp];
+  Mem& w = smem[warp];
   const size_t m = mi;
   const int s = mi / rc, r = (mi % rc) / a.C, c = mi % a.C;
   const int2 mv = mv_lookback(a, m - c, c, lane);
@@ -227,7 +300,12 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
   __syncwarp();
 
-  const bool luma = lane < 16, chroma = lane >= 16 && lane < 24;
+  bool t8mb = false;  // the MB's luma through the 8x8 transform
+  if constexpr (kT8) {
+    t8mb = a.t8[m * a.st8] == 1;
+    if (t8mb) luma8(a, w.pred, w.st, m, lane);
+  }
+  const bool luma = lane < 16 && !t8mb, chroma = lane >= 16 && lane < 24;
   if (!luma && !chroma) return;
   const int cl = lane - 16, cpl = cl >> 2, cb = cl & 3;
   const int by = luma ? lane >> 2 : cb >> 1, bx = luma ? lane & 3 : cb & 1;
@@ -281,8 +359,13 @@ extern "C" int th264_pframe_decode(void* const* p, const int* n,
                                    void* stream) {
   const DecArgs a = dec_args(p, n);
   const int mbs = a.S * a.R * a.C;
-  pframe_decode_kernel<<<(mbs + kWarps - 1) / kWarps, 32 * kWarps, 0,
-                         (cudaStream_t)stream>>>(a);
+  const int blocks = (mbs + kWarps - 1) / kWarps;
+  if (a.t8)
+    pframe_decode_kernel<true>
+        <<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(a);
+  else
+    pframe_decode_kernel<false>
+        <<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

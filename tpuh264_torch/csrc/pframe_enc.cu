@@ -1,15 +1,17 @@
 // K9: the P encode after stage A -- per MB and reference the full-pel and
 // quarter-pel refinement, the reference choice, motion compensation, the
 // inter luma and chroma transforms, quantisation and reconstruction, and
-// P_Skip -- a warp per MB.
+// P_Skip -- a warp per MB; with the t8 route also the 8x8 transform's
+// trial and choice of every MB.
 //
 // Replaces: the XLA program of tpuh264/kernels/pframe.py
 // `encode_pframe_rows_multi` (:638) after its stage A, not a pallas_call:
 // `_int_refine` :381, `_extract_w2` :421, `_subpel_refine` :433, the
 // reference choice :700-740, `_mc_all` :610, `_transform_inter_luma` :541,
-// `_recon_inter_luma` :558, `_chroma_fwd` :565, `_recon_chroma` :573,
-// P_Skip and the batched symbols :810-845.  Its plain PyTorch version is
-// `kernels/pframe.py` `_inter_encode_plain` (called with t8 False).
+// `_recon_inter_luma` :558, the 8x8 choice with t8 :747-785,
+// `_chroma_fwd` :565, `_recon_chroma` :573, P_Skip and the batched
+// symbols :810-845.  Its plain PyTorch version is `kernels/pframe.py`
+// `_inter_encode_plain` (the t8 route's with t8 True: `_t8_choice`).
 //
 // What it computes, exactly as the plain version, per MB of stream s and
 // per reference n < N (1-16), from stage A's winner (iy0, ix0) and the
@@ -39,16 +41,27 @@
 //    reconstruction with the uncoded groups' levels masked; chroma at
 //    qpc: the 2x2 DC Hadamard and its quantisation, the AC levels, cbp
 //    (2 any AC, 1 any DC, else 0) and the reconstruction;
-//  * P_Skip: luma and chroma cbp 0, motion 0 and reference index
-//    refsel + ref_base 0; refidx is 0 for a skip, else refsel + ref_base.
+//  * the t8 route (the template's kT8; config 3's CABAC + 8x8 sessions):
+//    the 8x8 coding of the MB beside the 4x4 one -- forward8x8 of the
+//    four 8x8 residuals, quant8x8 (inter rounding 2^qbits / 6), zigzag8,
+//    cbp8 from the blocks' levels, the recon through dequant8x8 (its
+//    rounded shift below QP 12) and the 8x8 inverse -- and J = 8 SSD +
+//    lam8 rate of each (rate: 2 bit_length + 1 a nonzero level, the 8x8
+//    one a bit more); the 8x8 coding is chosen when its J is strictly
+//    lower and it codes a level (a tie, or cbp8 0, keeps 4x4), and then
+//    gives the MB its cbp, recon and levels: block k / 4's 64 zigzag
+//    levels in rows k of the [16, 16] (zz8.reshape(4, 64));
+//  * P_Skip: luma (the chosen) and chroma cbp 0, motion 0 and reference
+//    index refsel + ref_base 0; refidx is 0 for a skip, else refsel +
+//    ref_base; t8 is 0 for a skip, else the choice.
 // It writes mvx, mvy, refsel, inter SAD, kind, refidx, both cbps and the
 // int16 levels [S,R,C,16,16], [S,R,C,2,4], [S,R,C,2,4,15] (the MBSymbolsP
 // layouts), and the reconstruction: int32 MBs [S,R,C,16,16], [S,R,C,8,8]
 // x 2 with intra-in-P (K6's D4 takes them as rec_inter), else the uint8
-// planes [S,H,W], [S,H/2,W/2] x 2.  Given the pointers (the GOP
-// pipeline's route, `out` views of a dispatch's [P * S, R, C] symbol
-// buffers), lane 0 also writes mode, cmode and t8 0 and lanes 0-1 the
-// zero luma_dc, and a second kernel of the same entry, `pframe_mvd_kernel`
+// planes [S,H,W], [S,H/2,W/2] x 2; t8 where its pointer is given.  Given
+// the pointers (the GOP pipeline's route, `out` views of a dispatch's [P *
+// S, R, C] symbol buffers), lane 0 also writes mode and cmode 0 and lanes
+// 0-1 the zero luma_dc, and a second kernel of the same entry, `pframe_mvd_kernel`
 // (a thread an MB), the mvds against the left MB's vector, zero at column
 // 0: the left vector is another warp's, known once every MB's search is
 // done.  No MB of this route is intra (intra-in-P overlays its symbols
@@ -103,6 +116,15 @@
 //    every store is 16 bytes a lane (the luma levels, the chroma levels
 //    staged in shared memory, the int32 reconstruction) or 4 (the uint8
 //    planes' rows).
+//  * The t8 route's trial (`trial8`) takes all 32 lanes, lane l row, then
+//    column, l & 7 of 8x8 block l >> 3, its 8 values in registers; the
+//    three transposes, the levels and the 8x8 recon go through the window
+//    buffers, free once MC is done.  J and cbp8 come from one ballot and
+//    two redux.sync, so every lane makes the same choice; the 4x4 levels
+//    wait in registers until it is made, and a chosen 8x8 MB's levels
+//    leave as 16 bytes a lane.  The route is a template instance of its
+//    own, so the routes without it keep their code, registers and
+//    occupancy.
 // Where trouble is likely, and what is done about it:
 //  * tie order: every selection is the plain version's sequential strict
 //    < in its own order (stage B raster, half then quarter, references by
@@ -159,10 +181,11 @@ struct EncArgs {
   int S, R, C, N, Hp, Wp, Hcp, Wcp, pe, cp, qp, qpc, lam, ref_base, mb_out;
   int lp, cpitch;                      // the planes' row pitches, bytes
   int ref_cost[kMaxRefs];              // lam * ref_idx_bits of reference n
+  int t8on, lam8;  // the 8x8 trial (the launch's template), its lambda
 };
 
 constexpr int kPtrs = 3 + 4 + 3 * kMaxRefs + 8 + 3 + 3 + 6;  // 75
-constexpr int kInts = 17 + kMaxRefs;                      // 33
+constexpr int kInts = 17 + kMaxRefs + 2;                  // 35
 
 // The arguments from the entry's pointer and int arrays, in the order
 // kernels/pframe.py `_k9_launch` builds them.
@@ -192,6 +215,7 @@ inline EncArgs enc_args(void* const* p, const int* n) {
   a.qpc = n[11], a.lam = n[12], a.ref_base = n[13], a.mb_out = n[14];
   a.lp = n[15], a.cpitch = n[16];
   for (int k = 0; k < kMaxRefs; ++k) a.ref_cost[k] = n[17 + k];
+  a.t8on = n[17 + kMaxRefs], a.lam8 = n[18 + kMaxRefs];
   return a;
 }
 static_assert(7 + 3 * kMaxRefs + 20 == kPtrs, "pointer count");
@@ -303,6 +327,89 @@ __device__ __forceinline__ unsigned sad8(uint2 s, uint2 p) {
 // left out
 __device__ __forceinline__ int ring(int k) { return k + (k >= 4); }
 
+// the t8 trial's staging, ints of the window buffers (free once MC is
+// done): the transposes, the levels ([block][8 u + v]) and the recon (MB
+// raster)
+constexpr int kT8St = 0, kT8Lev = 256, kT8Rec = 512;
+static_assert(sizeof(WarpMem::win) >= 768 * sizeof(int),
+              "the t8 trial's staging fits the window buffers");
+
+struct Trial8 {
+  int j8, cbp8;  // J = 8 SSD + lam8 (rate + 1) and the 4-bit cbp
+};
+
+// The 8x8 coding of the MB (`_t8_choice`'s z8, zz8, cbp8, rec8 and J8),
+// all 32 lanes: lane l takes row l & 7, then column l & 7, of 8x8 block
+// b = l >> 3 (raster, by8 * 2 + bx8), its 8 values in registers and the
+// three transposes through `t`: the residual's rows forward, the columns
+// forward (the lane then holds coefficient row u = l & 7, [u][v] as
+// forward8x8 lays them), quantised (their levels to t + kT8Lev) and
+// dequantised, inverse along u (lane: column v), inverse along v (lane:
+// column x of the block), added to the prediction and clipped (the recon
+// to t + kT8Rec).  J8 and cbp8 come back the same on every lane.
+__device__ __forceinline__ Trial8 trial8(const WarpMem& w, int* t, int qp,
+                                         int lam8, int lane) {
+  const int b = lane >> 3, i = lane & 7, y8 = 8 * (b >> 1), xw = 2 * (b & 1);
+  int* const st = t + kT8St + 64 * b;
+  int x[8];
+  {  // residual row i, columns 8 bx8 .. of the block
+    const int o = 4 * (y8 + i) + xw;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x[j] = byte_of(w.src[o + (j >> 2)], j & 3) -
+             byte_of(w.pred[o + (j >> 2)], j & 3);
+  }
+  fwd8(x);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) st[8 * i + u] = x[u];
+  __syncwarp();
+#pragma unroll
+  for (int y = 0; y < 8; ++y) x[y] = st[8 * y + i];
+  __syncwarp();
+  fwd8(x);  // coefficients [u = i][v]
+  const int qbits = 16 + qp / 6, f = (1 << qbits) / 6, m6 = qp % 6;
+  int rate = 0;
+  bool nz = false;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const int cl = cls8(i, v);
+    const int lv = q8(x[v], kMF8[m6][cl], f, qbits);
+    nz |= lv != 0;
+    rate += rate_bits(lv);
+    t[kT8Lev + 64 * b + 8 * i + v] = lv;
+    st[8 * i + v] = dq8(lv, kV8[m6][cl], qp);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < 8; ++u) x[u] = st[8 * u + i];
+  __syncwarp();
+  inv8(x);  // [v = i][x]
+#pragma unroll
+  for (int k = 0; k < 8; ++k) st[8 * i + k] = x[k];
+  __syncwarp();
+#pragma unroll
+  for (int v = 0; v < 8; ++v) x[v] = st[8 * v + i];
+  inv8(x);  // column i of the block's residual, rows y
+  int ssd = 0;
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+    const int o = 4 * (y8 + y) + xw + (i >> 2);
+    const int r = clip255(byte_of(w.pred[o], i & 3) + ((x[y] + 32) >> 6));
+    const int d = r - byte_of(w.src[o], i & 3);
+    ssd += d * d;
+    t[kT8Rec + 16 * (y8 + y) + 4 * xw + i] = r;
+  }
+  const unsigned nzb = __ballot_sync(kFull, nz);
+  const int ssd8 = (int)__reduce_add_sync(kFull, (unsigned)ssd);
+  const int rate8 = (int)__reduce_add_sync(kFull, (unsigned)rate);
+  return {8 * ssd8 + lam8 * (rate8 + 1),
+          ((nzb & 0xffu) ? 1 : 0) | ((nzb & 0xff00u) ? 2 : 0) |
+              ((nzb & 0xff0000u) ? 4 : 0) | ((nzb & 0xff000000u) ? 8 : 0)};
+}
+
+// kT8: the 8x8 transform's trial (the t8 route, config 3's CABAC + 8x8
+// sessions); without it the kernel is the RTC and default routes' own.
+template <bool kT8 = false>
 __global__ void __launch_bounds__(32 * kWarps)
     pframe_encode_kernel(const __grid_constant__ EncArgs a) {
   __shared__ WarpMem smem[kWarps];
@@ -423,6 +530,8 @@ __global__ void __launch_bounds__(32 * kWarps)
   const int o0 = 4 * by * (luma ? 4 : 2) + bx, wpr = luma ? 4 : 2;
   int x[16];  // the coefficients, then their dequantised levels
   bool nz_ac = false;
+  int rate4 = 0;          // kT8: the block's `_rate_bits`
+  uint32_t lkeep[2][4];   // kT8: its levels, stored once the choice is made
   if (luma || chroma) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -447,15 +556,20 @@ __global__ void __launch_bounds__(32 * kWarps)
         }
         const int lv = q_ac(Q, x[i], cls);
         nz_ac |= lv != 0;
+        if constexpr (kT8) rate4 += rate_bits(lv);
         if (luma)
           lw[(k >> 1) & 3] |= (uint32_t)(uint16_t)lv << (16 * (k & 1));
         else
           w.cac[60 * cpl + 15 * cb + k - 1] = (int16_t)lv;
         x[i] = dq_ac(Q, lv, cls);
       }
-      if (luma)
+      if constexpr (kT8) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) lkeep[half][j] = lw[j];
+      } else if (luma) {
         reinterpret_cast<int4*>(a.luma_ac + (size_t)m * 256 + 16 * lane)[half] =
             make_int4((int)lw[0], (int)lw[1], (int)lw[2], (int)lw[3]);
+      }
     }
   }
   __syncwarp();
@@ -473,8 +587,8 @@ __global__ void __launch_bounds__(32 * kWarps)
   const unsigned nzl = __ballot_sync(kFull, luma && nz_ac);
   const unsigned anyac = __ballot_sync(kFull, chroma && nz_ac);
   const unsigned anydc = __ballot_sync(kFull, chroma && dcq != 0);
-  const int cbp_l = ((nzl & 0x33u) ? 1 : 0) | ((nzl & 0xCCu) ? 2 : 0) |
-                    ((nzl & 0x3300u) ? 4 : 0) | ((nzl & 0xCC00u) ? 8 : 0);
+  int cbp_l = ((nzl & 0x33u) ? 1 : 0) | ((nzl & 0xCCu) ? 2 : 0) |
+              ((nzl & 0x3300u) ? 4 : 0) | ((nzl & 0xCC00u) ? 8 : 0);
   const int cbp_c = anyac ? 2 : anydc ? 1 : 0;
 
   // the reconstruction: uncoded 8x8 groups' and chroma's cbp-masked
@@ -492,6 +606,51 @@ __global__ void __launch_bounds__(32 * kWarps)
     const uint32_t pw[4] = {pp[o0], pp[o0 + wpr], pp[o0 + 2 * wpr],
                             pp[o0 + 3 * wpr]};
     inv4_add(x, pw);
+  }
+  int use8 = 0;  // the t8 symbol before P_Skip
+  if constexpr (kT8) {
+    // the 4x4 coding's J (8 SSD of its recon + lam8 rate of its levels)
+    // against the 8x8 trial's: the 8x8 coding wins when strictly cheaper
+    // and it codes a level; it then takes the cbp, recon and levels
+    int ssd4 = 0;
+    if (luma) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int d = x[i] - byte_of(sw[o0 + (i >> 2) * wpr], i & 3);
+        ssd4 += d * d;
+      }
+    }
+    const int j4 =
+        8 * (int)__reduce_add_sync(kFull, (unsigned)ssd4) +
+        a.lam8 * (int)__reduce_add_sync(kFull, luma ? (unsigned)rate4 : 0u);
+    int* const t8m = reinterpret_cast<int*>(&w.win[0][0]);
+    const Trial8 t = trial8(w, t8m, a.qp, a.lam8, lane);
+    use8 = t.j8 < j4 && t.cbp8 > 0;
+    __syncwarp();  // the trial's levels and recon, from every lane
+    if (use8) {
+      cbp_l = t.cbp8;
+      if (luma) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          x[i] = t8m[kT8Rec + 16 * (4 * by + (i >> 2)) + 4 * bx + (i & 3)];
+      }
+      // the levels' row lane / 2 of [16, 16], half lane & 1: block blk's
+      // 64 zigzag levels in raster block order (zz8.reshape(4, 64))
+      const int blk = lane >> 3, z0 = 8 * (lane & 7);
+      const int* zb = t8m + kT8Lev + 64 * blk;
+      uint32_t lw[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        lw[j] = pack16(zb[kZz8[z0 + 2 * j]], zb[kZz8[z0 + 2 * j + 1]]);
+      reinterpret_cast<int4*>(a.luma_ac + (size_t)m * 256)[lane] =
+          make_int4((int)lw[0], (int)lw[1], (int)lw[2], (int)lw[3]);
+    } else if (luma) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        reinterpret_cast<int4*>(a.luma_ac + (size_t)m * 256 + 16 * lane)[half] =
+            make_int4((int)lkeep[half][0], (int)lkeep[half][1],
+                      (int)lkeep[half][2], (int)lkeep[half][3]);
+    }
   }
   if (luma || chroma) {
     const int n = luma ? 16 : 8;
@@ -520,7 +679,8 @@ __global__ void __launch_bounds__(32 * kWarps)
     a.sad[m] = best_sad, a.kind[m] = skip ? 0 : 1;
     a.refidx[m] = skip ? 0 : best_ref + a.ref_base;
     a.cbp_l[m] = cbp_l, a.cbp_c[m] = cbp_c;
-    if (a.mode) a.mode[m] = 0, a.cmode[m] = 0, a.t8[m] = 0;
+    if (a.mode) a.mode[m] = 0, a.cmode[m] = 0;
+    if (a.t8) a.t8[m] = skip ? 0 : use8;
   }
   if (a.luma_dc && lane < 2)
     reinterpret_cast<int4*>(a.luma_dc + (size_t)m * 16)[lane] =
@@ -553,8 +713,13 @@ extern "C" int th264_pframe_encode(void* const* p, const int* n,
                                    void* stream) {
   const EncArgs a = enc_args(p, n);
   const int mbs = a.S * a.R * a.C;
-  pframe_encode_kernel<<<(mbs + kWarps - 1) / kWarps, 32 * kWarps, 0,
-                         (cudaStream_t)stream>>>(a);
+  const int blocks = (mbs + kWarps - 1) / kWarps;
+  if (a.t8on)
+    pframe_encode_kernel<true>
+        <<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(a);
+  else
+    pframe_encode_kernel<false>
+        <<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(a);
   if (a.mvdx)
     pframe_mvd_kernel<<<(mbs + kMvdThreads - 1) / kMvdThreads, kMvdThreads,
                         0, (cudaStream_t)stream>>>(a);

@@ -14,8 +14,8 @@ tests/test_torch_pframe_kernel.py):
      `group`, the winner counts are summed over it first: a row-sharded
      band takes the frame's vector, dist/mesh.py);
   2. then over all references at once, `_inter_encode`: K9 on the card
-     (csrc/pframe_enc.cu), its plain version `_inter_encode_plain` for
-     CPU tensors and for `t8`:
+     (csrc/pframe_enc.cu, `t8` its second route), its plain version
+     `_inter_encode_plain` for CPU tensors:
      a. stage B: a 3x3 full-resolution refine around the winner;
      b. stages C/D: the normative half -> quarter selection (the plain
         version tabulates all 49 reachable quarter-pel positions of an
@@ -49,8 +49,8 @@ K10 read them as bytes, 16 (or 4) at a time, and take the pitches as
 arguments; the plain versions widen them to int32 before any sum.
 
 The decoder's inter part, `_inter_decode` (K10 on the card,
-csrc/pframe_dec.cu, reading each symbol field with its MB stride;
-`_inter_decode_plain` for CPU tensors and `t8`),
+csrc/pframe_dec.cu, reading each symbol field with its MB stride,
+`t8` its second route; `_inter_decode_plain` for CPU tensors),
 resolves the MV chain mv_c = g_c * (mv_{c-1} + mvd_c) (the plain
 version with a cumulative sum and a running reset index, the JAX
 associative_scan) and reconstructs every MB as inter; then the
@@ -813,24 +813,26 @@ def _inter_encode(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
     choice, MC, the inter transforms, the reconstruction (int32 MBs with
     `intra_in_p`, for the intra-in-P scan; else uint8 planes) and P_Skip.
 
-    CPU tensors, and every call with `t8` (the 8x8 transform's choice,
-    the CABAC + 8x8 session path), take the plain version; CUDA tensors
-    without `t8` launch K9 (csrc/pframe_enc.cu) or raise.  With `out`
-    (views of the frame's symbols, `empty_symbols`), K9 writes its fields
-    there and completes them: the mvds, mode, cmode, t8 and luma_dc; the
+    CPU tensors take the plain version; CUDA tensors launch K9
+    (csrc/pframe_enc.cu; with `t8`, the 8x8 transform's choice of the
+    CABAC + 8x8 session path, its t8 route) or raise.  With `out` (views
+    of the frame's symbols, `empty_symbols`), K9 writes its fields there
+    and completes them: the mvds, mode, cmode, t8 and luma_dc; the
     result's fields are then out's own tensors.  The plain version leaves
     `out` to its caller."""
-    if y32.device.type == "cpu" or t8:
+    if y32.device.type == "cpu":
         return _inter_encode_plain(y32, u, v, planes_l, refs_up, refs_vp,
                                    iy0, ix0, gy, gx, qp, ref_base, t8,
                                    intra_in_p)
     res = _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy,
-                     gx, qp, ref_base, intra_in_p, out)
+                     gx, qp, ref_base, intra_in_p, out, t8)
     _inter_encode.launches += 1
+    _inter_encode.t8_launches += int(t8)
     return res
 
 
 _inter_encode.launches = 0  # launches of K9
+_inter_encode.t8_launches = 0  # ... of them its t8 route
 
 
 _MAX_REFS = 16  # the kernels' kMaxRefs: H.264's most references
@@ -863,12 +865,13 @@ def _check_refs(name, dev, planes_l, refs_up, refs_vp, s, h: int, w: int):
 
 def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
                  qp: int, ref_base: int, intra_in_p: bool,
-                 out: Optional[MBSymbolsP] = None):
+                 out: Optional[MBSymbolsP] = None, t8: bool = False):
     """K9's operands in its entry's order (csrc/pframe_enc.cu `enc_args`):
     (input tensors, output tensors, ints); the outputs freshly allocated
     on the inputs' device, or, with `out`, the symbol fields out's
     tensors (then also its mvdx, mvdy, mode, cmode, t8 and luma_dc; else
-    those six are None, null pointers)."""
+    those six are None, null pointers, but t8, which the t8 route writes
+    into a tensor of its own).  `t8` and lam8 are the last two ints."""
     s, h, w = y32.shape
     r, c = h // 16, w // 16
     n = len(planes_l)
@@ -896,14 +899,17 @@ def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
             w // 2 + 2 * _CP, _PE, _CP, qp, T.chroma_qp_from_luma(qp), lam,
             ref_base, int(intra_in_p), planes_l[0].stride(-2),
             refs_up[0].stride(-2), *ref_cost]
-    outs += ([None] * 6 if out is None else [
-        out.mvdx, out.mvdy, out.mode, out.cmode, out.t8, out.luma_dc])
+    outs += ([None] * 4 + [i32(*mb) if t8 else None, None] if out is None
+             else [out.mvdx, out.mvdy, out.mode, out.cmode, out.t8,
+                   out.luma_dc])
+    ints += [int(t8), _LAMBDA8[min(max(qp, 0), 51)]]
     return ins, outs, ints
 
 
 def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
                qp: int, ref_base: int, intra_in_p: bool,
-               out: Optional[MBSymbolsP] = None) -> InterEnc:
+               out: Optional[MBSymbolsP] = None,
+               t8: bool = False) -> InterEnc:
     """One launch of K9 (see `_inter_encode`); raises on a bad input or a
     failed build or launch."""
     name = "encode_pframe_rows_multi"
@@ -917,7 +923,7 @@ def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
     _check_refs(name, dev, planes_l, refs_up, refs_vp, s, h, w)
     ins, outs, ints = _k9_operands(y32, u, v, planes_l, refs_up, refs_vp,
                                    iy0, ix0, gy, gx, qp, ref_base,
-                                   intra_in_p, out)
+                                   intra_in_p, out, t8)
     n, mb = len(planes_l), (s, r, c)
     if out is not None:
         _check_symbols(name, dev, out, mb)
@@ -930,8 +936,8 @@ def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
         cuda_lib.stream(dev))
     cuda_lib.check(err, "th264_pframe_encode")
     return InterEnc(*outs[:11],
-                    torch.zeros_like(outs[0]) if out is None else out.t8,
-                    tuple(outs[11:14]))
+                    torch.zeros_like(outs[0]) if outs[18] is None
+                    else outs[18], tuple(outs[11:14]))
 
 
 def empty_symbols(lead, r: int, c: int, device) -> MBSymbolsP:
@@ -1058,11 +1064,11 @@ def encode_pframe_rows_multi(
     encode.
 
     Stage A (K1 and `_int_winner`) runs for every reference first, then
-    the rest at once (`_inter_encode`: K9 on the card without `t8`).
+    the rest at once (`_inter_encode`: K9 on the card).
 
     `out` (`empty_symbols` buffers [S, R, C, ...], e.g. views of a
     dispatch's) receives the symbols, which are then returned: on the
-    card without `t8` and `intra_in_p` K9 writes them there itself; on
+    card without `intra_in_p` K9 writes them there itself; on
     the other routes they are assembled as before and copied in."""
     qpc = T.chroma_qp_from_luma(qp)
     n_refs = len(refs_y)
@@ -1157,28 +1163,33 @@ def _inter_decode(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
     `_intra_recon_scan`'s `other`; (mvx, mvy) [S, R, C], zero for skip
     and intra MBs).
 
-    CPU tensors, and every call with `t8` (the CABAC + 8x8 session
-    path), take the plain version; CUDA tensors without `t8` launch K10
-    (csrc/pframe_dec.cu) or raise."""
-    if symbols.kind.device.type == "cpu" or t8:
+    CPU tensors take the plain version; CUDA tensors launch K10
+    (csrc/pframe_dec.cu; with `t8`, the CABAC + 8x8 session path, its t8
+    route) or raise."""
+    if symbols.kind.device.type == "cpu":
         return _inter_decode_plain(symbols, planes_l, refs_up, refs_vp, qp,
                                    t8)
-    out = _k10_launch(symbols, planes_l, refs_up, refs_vp, qp)
+    out = _k10_launch(symbols, planes_l, refs_up, refs_vp, qp, t8)
     _inter_decode.launches += 1
+    _inter_decode.t8_launches += int(t8)
     return out
 
 
 _inter_decode.launches = 0  # launches of K10
+_inter_decode.t8_launches = 0  # ... of them its t8 route
 
 
 def _k10_operands(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
-                  qp: int):
+                  qp: int, t8: bool = False):
     """K10's operands in its entry's order (csrc/pframe_dec.cu
     `dec_args`): (input tensors, output tensors, ints).  Each symbol field
     goes as it lies with its MB stride (`iframe._mb_strided`: the GOP
     decode's record views, MB fields [.., 9] int32 and level slots [..,
     400] int16, take no copy), a copy only where a field is not so laid
-    out, not of the kernel's type or not aligned (4 bytes, the levels 16)."""
+    out, not of the kernel's type or not aligned (4 bytes, the levels 16).
+    symbols.t8 is the last input (None, a null pointer, without `t8` or
+    where the symbols hold none: the kernel then takes its route without
+    t8), its MB stride int 14."""
     s, r, c = mb = tuple(symbols.kind.shape)
     dev = symbols.kind.device
     refidx = (symbols.refidx if symbols.refidx is not None
@@ -1190,7 +1201,10 @@ def _k10_operands(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
                for x, inner in ((symbols.luma_ac, (16, 16)),
                                 (symbols.chroma_dc, (2, 4)),
                                 (symbols.chroma_ac, (2, 4, 15)))]
-    ins = [x for x, _ in fields] + _ref_planes(planes_l, refs_up, refs_vp)
+    t8f, st8 = ((None, 1) if not t8 or symbols.t8 is None
+                else _mb_strided(symbols.t8, mb, (), I32, 4))
+    ins = ([x for x, _ in fields] + _ref_planes(planes_l, refs_up, refs_vp)
+           + [t8f])
     outs = [torch.empty((*mb, k, k), dtype=I32, device=dev)
             for k in (16, 8, 8)]
     outs += [torch.empty(mb, dtype=I32, device=dev) for _ in range(2)]
@@ -1198,11 +1212,12 @@ def _k10_operands(symbols: MBSymbolsP, planes_l, refs_up, refs_vp,
     ints = [s, r, c, len(planes_l), h + 2 * _PE, w + 2 * _PE,
             h // 2 + 2 * _CP, w // 2 + 2 * _CP, _PE, _CP, qp,
             T.chroma_qp_from_luma(qp), planes_l[0].stride(-2),
-            refs_up[0].stride(-2), *[k for _, k in fields]]
+            refs_up[0].stride(-2), st8, *[k for _, k in fields]]
     return ins, outs, ints
 
 
-def _k10_launch(symbols: MBSymbolsP, planes_l, refs_up, refs_vp, qp: int):
+def _k10_launch(symbols: MBSymbolsP, planes_l, refs_up, refs_vp, qp: int,
+                t8: bool = False):
     """One launch of K10 (see `_inter_decode`); raises on a bad input or a
     failed build or launch."""
     name = "decode_pframe_rows_multi"
@@ -1213,8 +1228,9 @@ def _k10_launch(symbols: MBSymbolsP, planes_l, refs_up, refs_vp, qp: int):
         raise ValueError(f"{name}: QP {qp} outside 0..51")
     dev = symbols.kind.device
     _check_refs(name, dev, planes_l, refs_up, refs_vp, s, 16 * r, 16 * c)
-    ins, outs, ints = _k10_operands(symbols, planes_l, refs_up, refs_vp, qp)
-    for x in ins[:9]:
+    ins, outs, ints = _k10_operands(symbols, planes_l, refs_up, refs_vp, qp,
+                                    t8)
+    for x in ins[:9] + [y for y in ins[-1:] if y is not None]:
         if x.device != dev:
             raise ValueError(f"{name}: symbols on {x.device}, not {dev}")
     err = cuda_lib.load().th264_pframe_decode(
@@ -1280,7 +1296,7 @@ def decode_pframe_rows_multi(symbols: MBSymbolsP, refs_y, refs_u, refs_v,
     MBs whose symbols.t8 is 1 reconstruct through the 8x8 transform).
     Returns (uint8 recon planes, (mvx, mvy)).  `halo`: the references
     arrive vertically pre-extended (a row-sharded DPB).  The inter part
-    is `_inter_decode` (K10 on the card without `t8`), the intra MBs'
+    is `_inter_decode` (K10 on the card), the intra MBs'
     column scan `_intra_recon_scan` (K5)."""
     qpc = T.chroma_qp_from_luma(qp)
     planes_l, refs_up, refs_vp = _references(refs_y, refs_u, refs_v, halo)
