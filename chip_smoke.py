@@ -47,7 +47,13 @@ tpuh264_torch/csrc, then:
      and H mixes, clips at 0 and 255, H modes in column 0, which no legal
      stream codes, levels the cbps mask out, QPs 0, 32 and 51) and on a
      default-config (intra-in-P)
-     P frame of "meeting" at 854x480 x 8, intra MBs required; K6 on the
+     P frame of "meeting" at 854x480 x 8, intra MBs required; K5's
+     Intra_4x4 route (`i44`, its "K5-i44" row) on a 1920x1080 (1088) x 4
+     IDR whose MBs are all Intra_4x4, on the IDR of phase 11's
+     "meeting" session at 854x480 x 8 (the decoders' own inputs) and on
+     seeded cases (`d2_i44_case`: all-Intra_4x4 and mixed columns,
+     beside `other` too, every mode at every block, modes outside 0..8,
+     levels outside cbp_luma, QPs 0, 12, 32, 51, lanes past the ring); K6 on the
      1080p x 4 I frame (D3), on the intra-in-P P frame at 854x480 x 8
      (D4, the P encode's own inputs of its scan) and on seeded cases
      (`d3_case`, `d4_args`: C = 1, 2, 3 and 61; flat, noise, rows and
@@ -221,11 +227,12 @@ routes; K11 on every
 path that encodes or decodes a P frame, K12 on every one that encodes
 one, config 3 and phase 16(a)'s halo ranks included; P1 and P2 on phase
 17 alone, once each), and none may
-reach the plain version of K1, K3, K4 (either entry), K5, K6, K7, K8, K9,
-K10, K11, K12, K13, K14, K15, P1 or P2, nor `deblock_nnz` or a plane copy for K4
-(K5's plain version with `i44`, the Intra_4x4 reconstruction, and D3's
-with `intra44`, the Intra_4x4 trial, are the session path's own, and
-their calls are printed apart).  Encoder DPB == decoder DPB does not
+reach the plain version of K1, K3, K4 (either entry), K5 (its Intra_4x4
+route included: the sessions with `intra44` must launch it), K6, K7, K8, K9,
+K10, K11, K12, K13, K14, K15, P1 or P2, nor `deblock_nnz` or a plane copy for K4,
+nor the eager intra residuals (D3's plain version with `intra44`, the
+Intra_4x4 trial, is the session path's own, and its calls are printed
+apart).  Encoder DPB == decoder DPB does not
 check K4 (both sides run it): phase 14's gate against the oracle and
 phase 15's golden decode do.  No session of the engine's own streams (phases
 11-13 and 15) may leave the fast path for the golden decoder.
@@ -310,10 +317,9 @@ def max_abs_err(x, y) -> int:
 
 
 # the plain versions a path may call with an argument (name, position):
-# K5's with `i44` and D3's with `intra44` are the Intra_4x4 path's own
-# (D5's work), counted and printed apart
-EXEMPT = {"_intra_recon_scan_plain": ("i44", 7),
-          "_encode_iframe_scan_plain": ("intra44", 4)}
+# D3's with `intra44` is the Intra_4x4 trial's own (D5's work), counted
+# and printed apart
+EXEMPT = {"_encode_iframe_scan_plain": ("intra44", 4)}
 
 
 def _plain_spy(name, f, calls, exempt=None):
@@ -335,7 +341,8 @@ class Launches:
     entries' counts summed, K4 = the deblock D1 (its counts entry
     `deblock_frame_rows` and its ring entry `deblock_ring`, the one every
     path takes, printed apart),
-    K5 = the intra reconstruction D2, K6 = the Intra_16x16 encode scans
+    K5 = the intra reconstruction D2 (its Intra_4x4 route's launches also
+    apart, `i44_total`, key "K5-i44"), K6 = the Intra_16x16 encode scans
     D3 and D4: its two routers' counts summed, K7 / K8 = the single-slice
     wavefront's encode / decode, K9 = the P encode after stage A, K10 =
     the P decode's inter part, K11 = the reference build, K12 = the
@@ -345,9 +352,9 @@ class Launches:
     before and read after each path the smoke drives; summed over those
     paths for the kernel table.  The plain versions of K1 (`_sad_field`), K3
     (`tree_merge`), K4 (`_deblock_rows_plain`), K5
-    (`_intra_recon_scan_plain` without `i44`; with it, the Intra_4x4
-    reconstruction, it is the path's own), K6 (`_encode_iframe_scan_plain`
-    without `intra44`, `_intra_in_p_scan_plain`), K7
+    (`_intra_recon_scan_plain`, and the eager `_intra_residuals`), K6
+    (`_encode_iframe_scan_plain` without `intra44`,
+    `_intra_in_p_scan_plain`), K7
     (`_encode_iframe_single_plain`), K8 (`_decode_iframe_single_plain`),
     K9 (`_inter_encode_plain`), K10 (`_inter_decode_plain`), K11
     (`_references_plain`), K12 (`_int_winner_plain`),
@@ -389,14 +396,20 @@ class Launches:
                     (probe.slab_sum,))
         self.total = [0] * len(self.fns)
         self.t8_total = [0, 0]  # K9's and K10's t8 routes
+        self.i44_total = 0  # K5's Intra_4x4 route
 
     def by_key(self) -> dict:
         """The launch totals by kernel key ("K1" .. "K15", "P1", "P2", and
-        "K9-t8", "K10-t8": K9's and K10's t8 routes, also in theirs)."""
+        "K9-t8", "K10-t8", "K5-i44": K9's and K10's t8 routes and K5's
+        Intra_4x4 route, also in theirs)."""
         return dict(zip(self.KEYS, self.total), **{
-            "K9-t8": self.t8_total[0], "K10-t8": self.t8_total[1]})
+            "K9-t8": self.t8_total[0], "K10-t8": self.t8_total[1],
+            "K5-i44": self.i44_total})
 
-    def path(self, name, fn, needs=NEEDS):
+    def path(self, name, fn, needs=NEEDS, i44=False):
+        """Drive `fn()` with the counts zeroed and read after; fails unless
+        every kernel of `needs` launched (and K5's Intra_4x4 route, where
+        `i44`) and no plain version ran."""
         from tpuh264_torch.engine import sources
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
                                            iframe, me_cuda, pframe, probe,
@@ -408,6 +421,7 @@ class Launches:
         t8_fns = (pframe._inter_encode, pframe._inter_decode)
         for f in t8_fns:
             f.t8_launches = 0
+        iframe._intra_recon_scan.i44_launches = 0
         plains = [(me_cuda, "_sad_field"), (cavlc_cuda, "tree_merge"),
                   (deblock, "_deblock_rows_plain"),
                   (iframe, "_intra_recon_scan_plain"),
@@ -431,8 +445,8 @@ class Launches:
         exempt_calls = [[] for _ in plains]
         for (m, a), f, c, e in zip(plains, saved, calls, exempt_calls):
             setattr(m, a, _plain_spy(a, f, c, e))
-        # the eager intra residuals: K5 decodes them; only the EXEMPT
-        # plain scan (`i44`) may still call them, once a call
+        # the eager intra residuals: K5 decodes them, they never run on
+        # the card
         residuals, res_calls = iframe._intra_residuals, []
         iframe._intra_residuals = (
             lambda *a, **kw: res_calls.append(1) or residuals(*a, **kw))
@@ -447,6 +461,8 @@ class Launches:
             self.total[i] += n
         t8 = [f.t8_launches for f in t8_fns]
         self.t8_total = [a + b for a, b in zip(self.t8_total, t8)]
+        n_i44 = iframe._intra_recon_scan.i44_launches
+        self.i44_total += n_i44
         k4_rows = deblock.deblock_frame_rows.launches
         plain = [len(c) for c in calls]
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
@@ -458,7 +474,7 @@ class Launches:
               f"{counts[9]}, K11 (references) {counts[10]}, K12 (stage-A "
               f"winner) {counts[11]}, K13 (CAVLC prologue) {counts[12]}, "
               f"K14 (SSE) {counts[13]}; plain calls K1 {plain[0]}, K3 "
-              f"{plain[1]}, K4 {plain[2]}, K5 without i44 {plain[3]}, K6: "
+              f"{plain[1]}, K4 {plain[2]}, K5 {plain[3]}, K6: "
               f"D3 without intra44 {plain[4]}, D4 {plain[5]}, K7 "
               f"{plain[6]}, K8 {plain[7]}, K9 without t8 {plain[8]}, K10 "
               f"without t8 {plain[9]}, K11 {plain[10]}, K12 {plain[11]}, "
@@ -470,14 +486,16 @@ class Launches:
               f"ring entry {counts[3] - k4_rows}, counts entry "
               f"(deblock_frame_rows) {k4_rows}; P1 (probe bits) "
               f"{counts[15]}, P2 (probe slab sum) {counts[16]}; the t8 "
-              f"routes: K9 {t8[0]}, K10 {t8[1]}")
-        if exempt_calls[3] or exempt_calls[4]:
-            print(f"launches [{name}]: the Intra_4x4 eager route (EXEMPT): "
-                  f"K5's plain version with i44 {len(exempt_calls[3])} calls "
-                  f"(as many of _intra_residuals), D3's with intra44 "
-                  f"{len(exempt_calls[4])}")
+              f"routes: K9 {t8[0]}, K10 {t8[1]}; K5's Intra_4x4 route "
+              f"{n_i44}; eager intra residuals {len(res_calls)}")
+        if exempt_calls[4]:
+            print(f"launches [{name}]: the Intra_4x4 trial's eager route "
+                  f"(EXEMPT): D3's plain version with intra44 "
+                  f"{len(exempt_calls[4])} calls")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
+        if i44 and n_i44 <= 0:
+            fail(f"{name}: K5's Intra_4x4 route was never launched")
         if any(counts[i] for i in self.PROBE if i not in needs):
             fail(f"{name}: the probe's P1 / P2 launched off its path: "
                  f"{counts}")
@@ -486,9 +504,9 @@ class Launches:
                  f"D4, K7, K8, K9, K10, K11, K12, K13, K2 symbols, K3 "
                  f"slices, K14, K15, K4 ring, deblock_nnz, K4 plane copies, "
                  f"P1, P2: {plain} times)")
-        if len(res_calls) != len(exempt_calls[3]):
-            fail(f"{name}: _intra_residuals ran {len(res_calls)} times, "
-                 f"the i44 plain scan {len(exempt_calls[3])} times")
+        if res_calls:
+            fail(f"{name}: the eager _intra_residuals ran {len(res_calls)} "
+                 f"times on the card")
         return out, counts
 
 
@@ -512,6 +530,7 @@ NO_LIBRARY = {
     "K3": "no PyTorch call concatenates variable-length bit strings",
     "K4": "no PyTorch call runs the H.264 deblocking filter",
     "K5": "no PyTorch call runs H.264 intra prediction",
+    "K5-i44": "no PyTorch call runs H.264 Intra_4x4 prediction",
     "K6": "no PyTorch call runs an H.264 intra encode",
     "K7": "no PyTorch call runs an H.264 intra encode",
     "K8": "no PyTorch call runs H.264 intra prediction",
@@ -1626,10 +1645,71 @@ def d2_case(np, shape, variant, qp=D2_QP):
     return sym, other, refs, qp
 
 
+# K5's Intra_4x4 route (`i44`): every MB of mode 4 ("i44"), Intra_16x16
+# (DC or H) and Intra_4x4 MBs mixed column by column ("mix"), both I
+# decodes, and the P decode's mix of those with `other` ("p-i44"); C = 1,
+# 3, 9 and 61, S and R 1 to 4; QPs 0, 12, 32 and 51, each variant meeting
+# every one across the shapes; then lanes of 97 and 40 columns that wrap
+# the ring (and the small build's ring of 3)
+D2_I44_SHAPES = ((1, 1, 1), (3, 2, 3), (2, 4, 9), (2, 2, 61))
+D2_I44_VARIANTS = ("i44", "mix", "p-i44")
+D2_I44_QPS = (0, 12, 32, 51)
+D2_I44_CASES = [(shape, variant, D2_I44_QPS[(i + j) % len(D2_I44_QPS)])
+                for i, shape in enumerate(D2_I44_SHAPES)
+                for j, variant in enumerate(D2_I44_VARIANTS)]
+D2_I44_RING_CASES = [((1, 2, 97), "i44", 28), ((1, 3, 40), "p-i44", 36)]
+# block modes outside 0..8, which the reconstruction clamps
+D2_I44_WILD = (-32768, -9, -1, 9, 15, 255, 32767)
+
+
+def d2_i44_case(np, shape, variant, qp=D2_QP):
+    """Seeded inputs of K5's Intra_4x4 route, as `d2_case`'s: (symbols,
+    other, None, qp), `symbols` with `i4modes` [S, R, C, 16] int16.  Every
+    field is drawn whatever the MB's mode: the block modes 0..8 (~8%
+    D2_I44_WILD), all 16 zigzag luma levels of every block (slot 0 too)
+    whatever the 4-bit cbp_luma, luma DC levels, and luma / chroma modes
+    DC or H in any column, column 0 included.  "p-i44": half the MBs
+    intra, the rest taking `other` (samples -300..600, so that
+    predictions from them leave 0..255)."""
+    s, r, c = mb = shape
+    rng = np.random.default_rng([s, r, c, 44, D2_I44_VARIANTS.index(variant),
+                                 qp])
+    p = variant == "p-i44"
+    intra = rng.random(mb) < 0.5 if p else np.ones(mb, bool)
+    mode = (np.full(mb, 4) if variant == "i44"
+            else rng.choice([1, 2, 4, 4], mb))
+    mode = np.where(intra, mode, 0)
+    kind = np.where(intra, 2, rng.integers(0, 2, mb))
+    i4m = rng.integers(0, 9, (*mb, 16))
+    wild = rng.random(i4m.shape) < 0.08
+    i4m[wild] = rng.choice(D2_I44_WILD, int(wild.sum()))
+
+    def levels(sh, amp, zero):
+        x = rng.integers(-amp, amp + 1, sh)
+        x[rng.random(sh) < zero] = 0
+        return x.astype(np.int16)
+
+    i32 = lambda x: x.astype(np.int32)
+    sym = dict(kind=i32(kind), mode=i32(mode),
+               cmode=i32(np.where(intra, rng.integers(0, 2, mb), 0)),
+               cbp_luma=i32(np.where(mode == 4, rng.integers(0, 16, mb),
+                                     rng.integers(0, 2, mb))),
+               cbp_chroma=i32(np.where(kind == 0, 0, rng.integers(0, 3, mb))),
+               luma_dc=levels((*mb, 16), 40, 0.5),
+               luma_ac=levels((*mb, 16, 16), 12, 0.7),
+               chroma_dc=levels((*mb, 2, 4), 30, 0.5),
+               chroma_ac=levels((*mb, 2, 4, 15), 6, 0.8),
+               i4modes=i4m.astype(np.int16))
+    other = (tuple(i32(rng.integers(-300, 601, (*mb, n, n)))
+                   for n in (16, 8, 8)) if p else None)
+    return sym, other, None, qp
+
+
 def d2_args(torch, case, dev):
-    """`_intra_recon_scan`'s arguments (a dict) for a `d2_case` result on
-    `dev`: the symbols as `levels`, qp and its chroma QP, `other` and
-    is_intra (kind == 2) where the case has them."""
+    """`_intra_recon_scan`'s arguments (a dict) for a `d2_case` or
+    `d2_i44_case` result on `dev`: the symbols as `levels`, qp and its
+    chroma QP, `other` and is_intra (kind == 2) where the case has them,
+    and `i44` (luma_ac, i4modes, qp) where it has i4modes."""
     import types
 
     from tpuh264_torch.kernels.transform import chroma_qp_from_luma
@@ -1639,6 +1719,8 @@ def d2_args(torch, case, dev):
                                  for k, v in sym.items()})
     kw = dict(mode=t.mode, cmode=t.cmode, levels=t, qp=qp,
               qpc=chroma_qp_from_luma(qp))
+    if "i4modes" in sym:
+        kw["i44"] = (t.luma_ac, t.i4modes, qp)
     if other is None:
         return kw
     return dict(kw, other=tuple(torch.as_tensor(p, device=dev)
@@ -1660,14 +1742,15 @@ def d2_capture(fn):
         calls.append(dict(sig.bind(*a, **kw).arguments))
         return real(*a, **kw)
 
-    # the router counts its launches on the function its module names
-    spy.launches = real.launches
+    # the router counts its launches (and its Intra_4x4 route's) on the
+    # function its module names
+    spy.__dict__.update(real.__dict__)
     iframe._intra_recon_scan = pframe._intra_recon_scan = spy
     try:
         fn()
     finally:
         iframe._intra_recon_scan = pframe._intra_recon_scan = real
-        real.launches = spy.launches
+        real.__dict__.update(spy.__dict__)
     return calls
 
 
@@ -2295,8 +2378,9 @@ def k6_bytes(planes, kw=None, n_intra=0) -> int:
 
 def ptxas_lines(src: str) -> list:
     """`src` (a kernel source) compiled alone by nvcc with -Xptxas -v into
-    tpuh264_torch/build/: ptxas's lines on each kernel's registers, stack,
-    spills and shared memory (empty where the build prints none)."""
+    tpuh264_torch/build/: ptxas's lines naming each kernel (template
+    instances apart) and on its registers, stack, spills and shared
+    memory (empty where the build prints none)."""
     from tpuh264_torch.kernels import cuda_lib
 
     os.makedirs(cuda_lib.BUILD, exist_ok=True)
@@ -2307,7 +2391,7 @@ def ptxas_lines(src: str) -> list:
     if res.returncode != 0:
         fail(f"nvcc -Xptxas -v {src}: {res.stdout}{res.stderr}")
     return [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
-            if "spill" in ln or "Used" in ln]
+            if "spill" in ln or "Used" in ln or "entry function" in ln]
 
 
 def k6_cycles(ms: float, mhz: int, c: int) -> float:
@@ -2630,14 +2714,20 @@ def k5_bytes(kw) -> int:
     byte an MB, where given); an intra MB's mode, cmode and cbps (16 B)
     and the levels its cbps code (luma DC 32 B, luma AC 512 B where
     cbp_luma is 1, chroma DC 16 B where cbp_chroma >= 1, chroma AC 240 B
-    where it is 2); another MB's 1,536 bytes of `other` (the result
-    depends on nothing else); every MB's 1,536 bytes of int32 output."""
+    where it is 2), but with `i44` an Intra_4x4 MB's every luma level
+    (512 B) and its 16 int16 block modes (32 B) in place of the luma DC
+    and AC, and the 576 B of tap words once; another MB's 1,536 bytes of
+    `other` (the result depends on nothing else); every MB's 1,536 bytes
+    of int32 output."""
     lev, n = kw["levels"], kw["mode"].numel()
     given = kw.get("is_intra") is not None
     intra = kw["is_intra"].bool() if given else kw["mode"] >= 0
-    cbl, cbc = lev.cbp_luma[intra], lev.cbp_chroma[intra]
-    n_intra = int(intra.sum())
-    levels = (32 * n_intra + 512 * int((cbl == 1).sum())
+    i44 = kw.get("i44") is not None
+    i4 = intra & (kw["mode"] == 4) if i44 else intra & False
+    cbl, cbc = lev.cbp_luma[intra & ~i4], lev.cbp_chroma[intra]
+    n_intra, n_i4 = int(intra.sum()), int(i4.sum())
+    levels = (32 * (n_intra - n_i4) + 512 * int((cbl == 1).sum())
+              + 544 * n_i4 + 576 * i44
               + 16 * int((cbc >= 1).sum()) + 240 * int((cbc == 2).sum()))
     return (n if given else 0) + 16 * n_intra + levels + (
         n - n_intra) * 1536 + n * 1536
@@ -2725,6 +2815,66 @@ def d2_rows(dev, torch, np, card, frames):
              "frames on", card)
     del p480
     d2_edges(dev, torch, np)
+    return row
+
+
+def session_idr_i44(dev, np):
+    """The decoders' own K5 inputs of phase 11's IDR (EncoderSession
+    854x480 x 8 from RGBA, "meeting", intra44 + deblock, gop 8, CBR 1
+    Mbps: frame 0 through DecoderPool.decode_batch), its Intra_4x4 MB
+    share, and (the IDR's access units, the encoder's recon planes)."""
+    from tpuh264_torch.engine import CodecConfig, DecoderPool, EncoderSession
+    from tpuh264_torch.entropy import native
+
+    w, h, s = 854, 480, 8
+    enc = EncoderSession(CodecConfig(width=w, height=h, streams=s,
+                                     intra44=True, deblock=True, gop_size=8,
+                                     bitrate=1_000_000), device=dev)
+    out = enc.encode_frame(clip_rgba(dev, w, h, 1, s)[0])
+    pool = DecoderPool(device=dev)
+    for i in range(s):
+        pool.init_decoder(i)
+    calls = d2_capture(lambda: pool.decode_batch(
+        [(i, f.data) for i, f in enumerate(out)]))
+    calls = [kw for kw in calls if kw.get("i44") is not None]
+    if not out[0].is_idr or not calls:
+        fail("D2 i44: the session's IDR decode made no call of K5's "
+             "Intra_4x4 route")
+    mb = [native.parse_iframe(f.data)[3][:, 0] for f in out]
+    share = sum(int((m == 4).sum()) for m in mb) / sum(m.size for m in mb)
+    if share <= 0:
+        fail("D2 i44: the session's IDR coded no Intra_4x4 MB")
+    return (max(calls, key=lambda kw: kw["mode"].numel()), share,
+            ([(i, f.data) for i, f in enumerate(out)],
+             [p.cpu().numpy() for p in enc.recon]))
+
+
+def d2_i44_rows(dev, torch, np, card):
+    """K5's Intra_4x4 route (`i44`) against its plain version: a 1920x1080
+    (1088) x 4 IDR whose MBs are all Intra_4x4 (`d2_i44_case`, the row of
+    the kernel table), the IDR of phase 11's session (the decoders' own
+    inputs, `session_idr_i44`), and every D2_I44 case."""
+    kw = d2_args(torch, d2_i44_case(np, (4, 68, 120), "i44", 30), dev)
+    err, ms, plain = d2_timed(kw, torch, "1080p x 4 IDR, every MB "
+                              "Intra_4x4 (the i44 route)", card)
+    row = kernel_row(
+        "K5-i44", "_intra_recon_scan with i44 (D2's Intra_4x4 route, "
+        "decode_iframe_scan with intra44)",
+        "tpuh264_torch/csrc/intra_recon.cu", "tpuh264/kernels/iframe.py:372",
+        err, ms, plain, k5_bytes(kw))
+    del kw
+    kw, share, _ = session_idr_i44(dev, np)
+    d2_timed(kw, torch, f"854x480 x 8 'meeting' session IDR, Intra_4x4 "
+             f"share {share:.4f} (the i44 route)", card)
+    del kw
+    for case in D2_I44_CASES + D2_I44_RING_CASES:
+        d2_equal(d2_args(torch, d2_i44_case(np, *case), dev), torch,
+                 f"i44 case {case}")
+    print(f"phase 2: K5's Intra_4x4 route, {len(D2_I44_CASES)} + "
+          f"{len(D2_I44_RING_CASES)} seeded cases (all-Intra_4x4 and mixed "
+          f"columns, beside `other` too, modes outside 0..8, levels outside "
+          f"cbp_luma, QPs {sorted(set(D2_I44_QPS))}, lanes past the ring): "
+          f"equal to plain")
     return row
 
 
@@ -3597,8 +3747,10 @@ def phase_kernels(dev, torch, np, card):
     rows.append(k15[0])  # the main path's kind, "rigid"
     for r in k15[1:]:
         show(r, "1080p x 4, k = 4 (not the main path's kind)")
-    # K5 (D2): the decoders' inputs of the P frame and the IDR, then 480p
+    # K5 (D2): the decoders' inputs of the P frame and the IDR, then 480p;
+    # its Intra_4x4 route
     rows.append(d2_rows(dev, torch, np, card, (y, u, v, sym, sym_i)))
+    rows.append(d2_i44_rows(dev, torch, np, card))
     # K6 (D3): the 1080p x 4 I frame (the main path's GOP start), from
     # its uint8 planes; the row of the kernel table, with its cycles, and
     # ptxas's registers, spills and shared memory of its source
@@ -3837,10 +3989,24 @@ def phase_small_sessions(dev, np):
     the CPU's bytes (plain versions) and recon, and the GPU decoders equal
     the encoder recon after every frame."""
     from tpuh264_torch.entropy import cabac_pack, native
+    from tpuh264_torch.kernels import iframe
 
     frames = session_frames(6)
     for name, kw, need_i4 in session_cases():
-        g_data, g_rec, g_dec, idr = run_session_case(kw, dev, frames, True)
+        # on the card no plain K5: the Intra_4x4 IDRs take its i44 route
+        real, plain = iframe._intra_recon_scan_plain, []
+        i44_0 = iframe._intra_recon_scan.i44_launches
+        iframe._intra_recon_scan_plain = (
+            lambda *a, **k: plain.append(1) or real(*a, **k))
+        try:
+            g_data, g_rec, g_dec, idr = run_session_case(kw, dev, frames,
+                                                         True)
+        finally:
+            iframe._intra_recon_scan_plain = real
+        n_i44 = iframe._intra_recon_scan.i44_launches - i44_0
+        if plain or (need_i4 and n_i44 <= 0):
+            fail(f"64x48 session, {name}: K5's plain version ran "
+                 f"{len(plain)} times, its Intra_4x4 route {n_i44} times")
         c_data, c_rec, _, c_idr = run_session_case(kw, "cpu", frames, False)
         if idr != c_idr or len(idr) < 2:
             fail(f"64x48 session, {name}: IDR frames {idr} / {c_idr}")
@@ -3868,7 +4034,9 @@ def phase_small_sessions(dev, np):
               f"(IDR at {idr}): GPU bytes == CPU bytes "
               f"({sum(len(b) for d in g_data for b in d)} B), GPU recon == "
               f"CPU recon, GPU DecoderPool == encoder recon after every "
-              f"frame; Intra_4x4 MBs in stream 0's IDR frames: {i4}")
+              f"frame; Intra_4x4 MBs in stream 0's IDR frames: {i4}; "
+              f"launches: K5's Intra_4x4 route {n_i44}, K5's plain version "
+              f"0")
 
 
 def check_dpbs(pipe, np, what, i):
@@ -4348,7 +4516,7 @@ def phase_sessions(dev, np, card, launches):
                              decode_ms=round(dec_ms, 1)))
 
     launches.path("EncoderSession + DecoderPool 480p x 8", drive,
-                  needs=(0, 3, 4, 5, 8, 9, 10, 11))
+                  needs=(0, 3, 4, 5, 8, 9, 10, 11), i44=True)
     stay_fast([pool[i] for i in range(s)], "480p sessions")
     if len(i4) != 2 or min(i4) <= 0:
         fail(f"480p sessions: Intra_4x4 share of the IDR frames {i4}")
@@ -5489,7 +5657,8 @@ def main() -> None:
           f"K15 (device source) {launches.total[14]}, P1 (probe bits) "
           f"{launches.total[15]}, P2 (probe slab sum) {launches.total[16]}; "
           f"of K9's and K10's, their t8 routes {launches.t8_total[0]} / "
-          f"{launches.t8_total[1]}")
+          f"{launches.t8_total[1]}; of K5's, its Intra_4x4 route "
+          f"{launches.i44_total}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

@@ -443,6 +443,20 @@ def test_intra_recon_kernel_matches_plain_edge_cases(dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.D2_I44_CASES
+                         + chip_smoke.D2_I44_RING_CASES, ids=str)
+def test_intra_recon_i44_route_matches_plain(dev, case):
+    """The Intra_4x4 route (`i44`) on every `d2_i44_case`: all-Intra_4x4
+    and mixed columns, beside `other` too, modes outside 0..8, levels
+    outside cbp_luma, QPs 0, 12, 32 and 51, lanes past the ring; one
+    launch each, counted as the route's."""
+    before = IF._intra_recon_scan.i44_launches
+    _intra_both(chip_smoke.d2_args(torch, chip_smoke.d2_i44_case(np, *case),
+                                   dev))
+    assert IF._intra_recon_scan.i44_launches == before + 1
+
+
+@pytest.mark.cuda
 def test_intra_recon_kernel_matches_plain_1080p(dev):
     """The P decode's and the I decode's own inputs of the scan at 1080p
     x 4: a pipeline P frame of "rigid" and its I frame."""

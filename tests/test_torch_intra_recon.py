@@ -1,14 +1,17 @@
 """The decoders' intra-reconstruction column scan (D2): the port's
 decoders against the JAX package's on seeded symbols, the kernel's
-source run on CPU threads against the plain version, and the router's
-routes.
+source run on CPU threads against the plain version (its Intra_4x4 route
+too), and the router's routes.
 
-The inputs come from `chip_smoke.d2_case`, the generator chip_smoke.py
-phase 2 holds the kernel to its plain version with on the card.  Every
-comparison is exact (array_equal): this is an integer codec.
+The inputs come from `chip_smoke.d2_case` and `d2_i44_case`, the
+generators chip_smoke.py phase 2 holds the kernel to its plain version
+with on the card.  Every comparison is exact (array_equal): this is an
+integer codec.
 """
 
+import concurrent.futures
 import os
+import subprocess
 import types
 
 import numpy as np
@@ -21,11 +24,16 @@ from tpuh264.kernels import iframe as jif
 from tpuh264.kernels import pframe as jpf
 from tpuh264_torch.kernels import cuda_lib
 from tpuh264_torch.kernels import iframe as tif
+from tpuh264_torch.kernels import intra44 as I44
 from tpuh264_torch.kernels import pframe as tpf
 
 SOURCE = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc",
                       "intra_recon.cu")
+CSRC = os.path.dirname(SOURCE)
 I_FIELDS = [f for f in tif.MBSymbols._fields if f != "i4modes"]
+# the instance the entry launches: the Intra_4x4 route where i4modes is
+# given
+KERNEL = "(a.i4m ? intra_recon_kernel<true> : intra_recon_kernel<false>)"
 
 
 def _case(case):
@@ -157,11 +165,10 @@ def test_column0_h_modes_match_jax(variant):
         np.testing.assert_array_equal(diff, want)
 
 
-def _build(tmp_path_factory, name, defines=()):
+def _build(tmp_path_factory, name, defines=(), csrc=CSRC):
     return cuda_threads.build_entry(
-        tmp_path_factory.mktemp(name), os.path.dirname(SOURCE),
-        "intra_recon.cu", "k5_args", "intra_recon_kernel", "a.lanes",
-        "kThreads", defines)
+        tmp_path_factory.mktemp(name), csrc, "intra_recon.cu", "k5_args",
+        KERNEL, "a.lanes", "kThreads", defines)
 
 
 @pytest.fixture(scope="module")
@@ -265,7 +272,7 @@ def test_kernel_source_reads_record_slots(cpu_kernel, variant):
     sym = devpipe.record_symbols(m.contiguous(), cf.contiguous())
     kw = dict(kw, mode=sym.mode, cmode=sym.cmode, levels=sym)
     ins, _, ints = tif._k5_operands(**kw)
-    assert ints[4:] == [9, 9, 9, 9, 400, 400, 400, 400]
+    assert ints[4:12] == [9, 9, 9, 9, 400, 400, 400, 400]
     assert ins[0].data_ptr() == sym.mode.data_ptr()
     assert ins[6].data_ptr() == sym.luma_ac.data_ptr()
     _source_equals_plain(cpu_kernel, kw, variant)
@@ -297,7 +304,7 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
 def _meta(case):
     def on(v):
         if isinstance(v, tuple):
-            return tuple(x.to("meta") for x in v)
+            return tuple(on(x) for x in v)
         if isinstance(v, types.SimpleNamespace):
             return types.SimpleNamespace(**{k: on(x)
                                             for k, x in vars(v).items()})
@@ -306,31 +313,261 @@ def _meta(case):
                                                     "cpu").items()}
 
 
-def test_i44_goes_to_the_plain_version(monkeypatch):
-    """With `i44` (the Intra_4x4 reconstruction, D5's work) the router
-    takes the plain version by argument, on any device, without loading
-    the kernel library; without it, a tensor off the CPU never reaches
-    the plain version: on a device the kernel cannot take it raises."""
-    calls = []
+def test_i44_calls_reach_the_kernel(monkeypatch):
+    """With `i44` (the Intra_4x4 reconstruction) a tensor off the CPU
+    never reaches the plain version: on a device the kernel cannot take,
+    or at a QP outside 0..51 (the scan's or i44's), the router raises
+    before any launch; where the device checks pass, it reaches K5's entry
+    with the route's operands (i4modes, the i44 levels, the tap words, the
+    i44 QP and strides) and counts a launch of the route."""
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran off the CPU")
 
-    def plain(*a, **kw):
-        calls.append(a)
-        return "plain"
-
-    def refuse():
-        raise AssertionError("the kernel library was loaded")
-
-    monkeypatch.setattr(tif, "_intra_recon_scan_plain", plain)
-    monkeypatch.setattr(cuda_lib, "load", refuse)
-    before = tif._intra_recon_scan.launches
-    kw = _meta(_case(((1, 2, 3), "iframe")))
-    s, r, c = kw["mode"].shape
-    i44 = (torch.zeros((s, r, c, 16, 16), dtype=torch.int32, device="meta"),
-           torch.zeros((s, r, c, 16), dtype=torch.int32, device="meta"), 30)
-    assert tif._intra_recon_scan(**kw, i44=i44) == "plain"
-    assert len(calls) == 1 and calls[0][7] is i44
-    for k in (kw, _meta(_case(((1, 2, 3), "half")))):
+    monkeypatch.setattr(tif, "_intra_recon_scan_plain", refuse)
+    kw = _meta(_i44_case(((1, 2, 3), "mix", 30)))
+    before = (tif._intra_recon_scan.launches,
+              tif._intra_recon_scan.i44_launches)
+    coef, i4m, _ = kw["i44"]
+    for bad in (kw, dict(kw, qp=52), dict(kw, i44=(coef, i4m, -1))):
         with pytest.raises(ValueError):
-            tif._intra_recon_scan(**k)
-    assert len(calls) == 1
-    assert tif._intra_recon_scan.launches == before
+            tif._intra_recon_scan(**bad)
+    # past the device checks (meta tensors standing in for the card's)
+    entries, ops = [], []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda p, n, stream: entries.append((name, list(n))) or 0
+
+    real = tif._k5_operands
+    monkeypatch.setattr(tif, "_k5_operands", lambda *a, **k: (
+        ops.append(real(*a, **k)) or ops[-1]))
+    monkeypatch.setattr(cuda_lib, "load", Lib)
+    monkeypatch.setattr(cuda_lib, "check_devices", lambda *a: None)
+    monkeypatch.setattr(cuda_lib, "stream", lambda dev: None)
+    tif._intra_recon_scan(**dict(kw, i44=(coef, i4m, 29)))
+    ins, _, ints = ops[0]
+    assert [e[0] for e in entries] == ["th264_intra_recon_rows"]
+    assert ins[12] is i4m and ins[13] is coef and ins[14] is not None
+    assert ints[12:] == [29, 16, 256]
+    assert (tif._intra_recon_scan.launches,
+            tif._intra_recon_scan.i44_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+
+
+# -- the Intra_4x4 route (`i44`) ---------------------------------------------
+
+def _i44_case(case):
+    return chip_smoke.d2_i44_case(np, *case)
+
+
+def _i44_args(case):
+    return chip_smoke.d2_args(torch, _i44_case(case), "cpu")
+
+
+@pytest.mark.parametrize("case", chip_smoke.D2_I44_CASES, ids=str)
+def test_i44_source_on_cpu_threads_matches_plain(cpu_kernel, case):
+    """The Intra_4x4 route's source on CPU threads (every luma level of a
+    mode-4 MB loaded whatever its cbps, the block modes clamped, the 16
+    blocks walked in z-scan order through shared memory, their neighbours,
+    taps and DC by shuffles) equals `_intra_recon_scan_plain` with `i44`:
+    every MB of mode 4, Intra_16x16 and Intra_4x4 mixed, both beside
+    `other`, at QPs 0, 12, 32 and 51."""
+    _source_equals_plain(cpu_kernel, _i44_args(case), str(case))
+
+
+@pytest.mark.parametrize("small", (False, True), ids=("ring8", "ring3"))
+@pytest.mark.parametrize("case", chip_smoke.D2_I44_RING_CASES, ids=str)
+def test_i44_source_wraps_the_ring(cpu_kernel, cpu_kernel_small, case,
+                                   small):
+    """The route through the ring of columns (each slot's block modes
+    beside its residuals): lanes of 97 and 40 columns, with the default
+    ring and with a ring of 3 columns and 2 workers."""
+    _source_equals_plain(cpu_kernel_small if small else cpu_kernel,
+                         _i44_args(case), str(case))
+
+
+def test_i44_source_takes_i4modes_of_any_type(cpu_kernel):
+    """int32 block modes, beyond int16 too: the router clamps them before
+    the kernel reads them as int16, as the plain version's `_select`
+    clamps, and the results are equal."""
+    kw = _i44_args(((2, 2, 9), "mix", 30))
+    coef, i4m, qp = kw["i44"]
+    i4m = i4m.to(torch.int32)
+    i4m[..., ::5] = torch.tensor([70000, -70000, 8, 65536])[
+        torch.arange(i4m[..., ::5].numel()) % 4].reshape(i4m[..., ::5].shape)
+    _source_equals_plain(cpu_kernel, dict(kw, i44=(coef, i4m, qp)),
+                         "int32 i4modes")
+
+
+def test_i44_source_matches_jax(cpu_kernel):
+    """The route's source on CPU threads equals JAX's
+    `decode_iframe_scan(intra44=True)` on the same symbols (modes in 0..8:
+    JAX does not clamp), Intra_16x16 and Intra_4x4 MBs mixed."""
+    sym, _, _, qp = _i44_case(((3, 2, 3), "mix", 32))
+    sym = dict(sym, i4modes=np.clip(sym["i4modes"], 0, 8))
+    want = jif.decode_iframe_scan(jif.MBSymbols(
+        **{f: sym[f] for f in tif.MBSymbols._fields}), qp, intra44=True)
+    kw = chip_smoke.d2_args(torch, (sym, None, None, qp), "cpu")
+    got = cuda_threads.run_entry(cpu_kernel, *tif._k5_operands(**kw))
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(
+            np.asarray(a), tif._mbs_to_plane(b.to(torch.uint8)).numpy())
+
+
+def test_i44_cases_cover_what_they_claim():
+    """D2_I44_CASES and D2_I44_RING_CASES: all-Intra_4x4 lanes and columns
+    mixing Intra_16x16 and Intra_4x4 MBs, with and without `other`; mode
+    4 in column 0; every mode 0-8 at every block position among the mode-4
+    MBs (the top row, where T is zero, included) and modes outside 0..8;
+    DC where only T is available (column 0, blocks below the top row);
+    nonzero levels in blocks that the 4-bit cbp_luma does not code, slot 0
+    included; QPs 0, 12 and 51; recon at 0 and 255; lanes past the ring."""
+    seen, pairs, qps, clipped = set(), set(), set(), set()
+    for case in chip_smoke.D2_I44_CASES + chip_smoke.D2_I44_RING_CASES:
+        sym, other, _, qp = _i44_case(case)
+        qps.add(qp)
+        i4 = sym["mode"] == 4
+        m = sym["i4modes"][i4]
+        for bi in range(16):
+            pairs |= {(bi, int(x)) for x in np.unique(m[:, bi]) if 0 <= x <= 8}
+        if ((m < 0) | (m > 8)).any():
+            seen.add("wild")
+        if i4.all():
+            seen.add("all i4")
+        if (i4.any(axis=(0, 1)) & (~i4 & (sym["kind"] == 2)).any(
+                axis=(0, 1))).any():
+            seen.add("mixed column")
+        if other is not None and i4.any():
+            seen.add("other")
+        if i4[..., 0].any():
+            seen.add("column 0")
+        dc_t = sym["i4modes"][..., 0, :][i4[..., 0]][:, [2, 3, 8, 10]] == 2
+        if dc_t.any():  # z-scan blocks 2, 3, 8, 10: bx 0, by > 0
+            seen.add("DC from T alone")
+        blk = np.arange(16)  # raster 4 by + bx, in 8x8 (by >> 1, bx >> 1)
+        i8 = ((blk >> 3) << 1) | ((blk >> 1) & 1)
+        coded = (sym["cbp_luma"][i4][:, None] >> i8) & 1
+        if ((sym["luma_ac"][i4] != 0).any(-1) & (coded == 0)).any():
+            seen.add("levels outside cbp")
+        if (sym["luma_ac"][i4][..., 0] != 0).any():
+            seen.add("slot 0")
+        if case[0][2] > 8:
+            seen.add("past the ring")
+        out = tif._intra_recon_scan_plain(**chip_smoke.d2_args(
+            torch, (sym, other, None, qp), "cpu"))[0].numpy()[i4]
+        clipped |= {v for v in (0, 255) if (out == v).any()}
+    assert pairs == {(bi, m) for bi in range(16) for m in range(9)}
+    assert seen == {"wild", "all i4", "mixed column", "other", "column 0",
+                    "DC from T alone", "levels outside cbp", "slot 0",
+                    "past the ring"}
+    assert {0, 12, 51} <= qps and clipped == {0, 255}
+
+
+def test_tap_words_are_the_tables():
+    """The tap words the kernel takes as its operand (`intra44.tap_words`)
+    decode to the port's own W, R and S of the eight directional modes
+    (`_build_tables`), and mode 2 (DC) to nothing."""
+    w = I44.tap_words().astype(np.int64).reshape(9, 16)
+    m, p = np.meshgrid(np.arange(9), np.arange(16), indexing="ij")
+    W = np.zeros((9, 16, 13), np.int64)
+    for j in range(3):
+        np.add.at(W, (m, p, (w >> (4 * j)) & 15), (w >> (12 + 2 * j)) & 3)
+    np.testing.assert_array_equal(W, I44._W_NP)
+    np.testing.assert_array_equal((w >> 18) & 3, I44._R_NP)
+    np.testing.assert_array_equal((w >> 20) & 3, I44._S_NP)
+    assert not w[2].any() and not (w >> 22).any()
+
+
+def test_header_block_rules_are_the_plain_versions(tmp_path):
+    """intra44_common.cuh's z-scan position, top-right kind and neighbour
+    samples of every block, compiled by g++ against the shims, are
+    BLK_SCAN, `_static_tr_kind` and the samples `_gather_neighbors`
+    reads (L, X, T, TR; row -1 the zeros above the slice)."""
+    harness = (
+        "#include <cuda_runtime.h>\n#include <cstdio>\n"
+        '#include "intra44_common.cuh"\n'
+        "int main() {\n  for (int bi = 0; bi < 16; ++bi) {\n"
+        '    printf("%d %d %d", blk_x(bi), blk_y(bi), (int)tr_real(bi));\n'
+        '    for (int k = 0; k < 13; ++k) printf(" %d", i44_neighbour(bi, k));\n'
+        '    printf("\\n");\n  }\n}\n')
+    exe = cuda_threads.build(tmp_path, harness, CSRC, "i44_rules")
+    rows = subprocess.run([exe], capture_output=True, check=True,
+                          text=True).stdout.split("\n")
+    at = lambda x, y: (y + 1) * 20 + x + 4
+    for bi, (bx, by) in enumerate(I44.BLK_SCAN):
+        real = I44._static_tr_kind(bi) == "real"
+        x0, y0 = 4 * bx, 4 * by
+        want = ([bx, by, int(real)]
+                + [at(x0 - 1, y0 + k) for k in range(4)]
+                + [at(x0 - 1, y0 - 1)] + [at(x0 + k, y0 - 1) for k in range(4)]
+                + [at(x0 + (4 + k if real else 3), y0 - 1) for k in range(4)])
+        assert list(map(int, rows[bi].split())) == want, bi
+
+
+# mutants of the Intra_4x4 route, each a replacement in a source: TR
+# real where `_static_tr_kind` repeats T3; DC of 128 where only T is
+# available; the blocks walked in raster order, not z-scan; the 4-bit
+# cbp_luma masking a mode-4 MB's levels
+I44_MUTANTS = {
+    "TR real where repeated": (
+        "intra44_common.cuh",
+        "  return blk_y(bi) > 0 && blk_x(bi) < 3 &&\n"
+        "         blk_z(blk_x(bi) + 1, blk_y(bi) - 1) < bi;",
+        "  return blk_y(bi) > 0 && blk_x(bi) < 3;"),
+    "DC 128 with T alone": (
+        "intra44_common.cuh", "if (l_ok || t_ok) return (int)(s + 2u) >> 2;",
+        "if (l_ok) return (int)(s + 2u) >> 2;"),
+    "raster order": (
+        "intra44_common.cuh",
+        "  return (bi & 1) | ((bi >> 1) & 2);\n}\n"
+        "__host__ __device__ constexpr int blk_y(int bi) {\n"
+        "  return ((bi >> 1) & 1) | ((bi >> 2) & 2);",
+        "  return bi & 3;\n}\n"
+        "__host__ __device__ constexpr int blk_y(int bi) {\n"
+        "  return bi >> 2;"),
+    "cbp_luma mask": (
+        "intra_recon.cu", "i4 ? ld16(a.ac44 + m * a.sac44 + 8 * t)",
+        "i4 ? (((a.cbp_l[m * a.scl] >> (((t >> 4) << 1) | ((t >> 2) & 1)))"
+        " & 1) ? ld16(a.ac44 + m * a.sac44 + 8 * t) : z)"),
+}
+
+
+@pytest.fixture(scope="module")
+def i44_mutants(tmp_path_factory):
+    """The I44_MUTANTS, each a copy of csrc with its replacement, built
+    all at once (the directories made first: tmp_path_factory is not
+    thread-safe)."""
+    jobs = []
+    for name, (src, old, new) in I44_MUTANTS.items():
+        d = tmp_path_factory.mktemp("i44_mutant_src")
+        for f in os.listdir(CSRC):
+            with open(os.path.join(CSRC, f)) as fh:
+                text = fh.read()
+            if f == src:
+                assert text.count(old) == 1, name
+                text = text.replace(old, new)
+            (d / f).write_text(text)
+        jobs.append((name, tmp_path_factory.mktemp("i44_mutant"), str(d)))
+
+    def one(job):
+        name, out, csrc = job
+        return name, cuda_threads.build_entry(
+            out, csrc, "intra_recon.cu", "k5_args", KERNEL, "a.lanes",
+            "kThreads")
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        return dict(ex.map(one, jobs))
+
+
+@pytest.mark.parametrize("name", I44_MUTANTS)
+def test_i44_mutants_fail(i44_mutants, name):
+    """Each mutant of the Intra_4x4 route differs from the plain version
+    on some case of D2_I44_CASES."""
+    for case in chip_smoke.D2_I44_CASES:
+        kw = _i44_args(case)
+        got = cuda_threads.run_entry(i44_mutants[name], *tif._k5_operands(
+            **kw))
+        want = tif._intra_recon_scan_plain(**kw)
+        if any(not torch.equal(g, w) for g, w in zip(got, want)):
+            return
+    pytest.fail(f"mutant {name!r} passed every case")

@@ -171,3 +171,21 @@ def test_cuda_library_covers_every_source_and_header(tmp_path, monkeypatch):
     assert not libbuild.stale(str(lib), str(header), "tables", [
         p for p in older if os.path.getmtime(p) < t - 10])
     assert libbuild.stale(str(lib), str(header), "tables", cuda_lib._deps())
+
+
+def test_intra44_header_makes_the_library_stale(tmp_path):
+    """K5's Intra_4x4 predictor lives in csrc/intra44_common.cuh, which
+    intra_recon.cu includes: it is one of the library's dependencies, and
+    a library older than it is rebuilt."""
+    shared = os.path.join(cuda_lib.CSRC, "intra44_common.cuh")
+    assert shared in cuda_lib._deps()
+    with open(os.path.join(cuda_lib.CSRC, "intra_recon.cu")) as f:
+        assert '#include "intra44_common.cuh"' in f.read()
+    lib, header = tmp_path / "lib.so", tmp_path / "tables.cuh"
+    lib.write_text("lib")
+    header.write_text("tables")
+    t = os.path.getmtime(shared)
+    os.utime(lib, (t - 10, t - 10))
+    assert libbuild.stale(str(lib), str(header), "tables", cuda_lib._deps())
+    os.utime(lib, (t + 10, t + 10))
+    assert not libbuild.stale(str(lib), str(header), "tables", [shared])

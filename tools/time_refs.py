@@ -4,8 +4,9 @@ the kernels that read its planes (K1, csrc/me_sad.cu; K9,
 csrc/pframe_enc.cu; K10, csrc/pframe_dec.cu), its stage-A winner (K12,
 csrc/me_winner.cu) and the decoders' intra reconstruction (K5,
 csrc/intra_recon.cu, which decodes the intra MBs' residuals from the
-levels) at chip_smoke.py phase 2's inputs, in turns with other trees'
-routes for the same stages.
+levels; "K5-i44" its Intra_4x4 route, and "D-i44" the session decoders'
+whole IDR decode around it) at chip_smoke.py phase 2's inputs, in turns
+with other trees' routes for the same stages.
 
     python3 tools/time_refs.py [--parent DIR ...] [--rounds N]
                                [--only K11,K9,...]
@@ -19,7 +20,13 @@ frame's IDR (`decode_iframe_scan`: every MB intra), the 854x480 x 8
 "meeting" default-config P frame with two references (its encode's
 `_references` and both `_int_winner` calls, its decode's `_references`),
 and the scan of a 854x480 x 8 default-config P frame coded against the
-frame 8 frames back (a few intra MBs); K1, K9 (writing the symbols, as
+frame 8 frames back (a few intra MBs); K5's Intra_4x4 route ("K5-i44")
+on a 1920x1080 x 4 IDR whose MBs are all Intra_4x4 (`d2_i44_case`) and
+on the IDR of phase 11's session (854x480 x 8 "meeting" from RGBA,
+intra44 + deblock: the decoders' own inputs, `session_idr_i44`), and
+that IDR's 8 access units through each tree's
+`DecoderPool.decode_batch` ("D-i44": host wall of the fenced call,
+parse and deblock included; equal to the encoder's recon); K1, K9 (writing the symbols, as
 the GOP pipeline's P encode does) and K10 (on the parsed records' views)
 at the 1080p frame's encode and decode, and K1, K9 and K10 at the 480p
 frame with two references. Each tree's K1, K9 and K10 read the planes
@@ -51,9 +58,9 @@ import chip_smoke as cs  # noqa: E402
 
 
 def tree_kernels(root: str, alias: str):
-    """(kernels.iframe, kernels.pframe, kernels.cuda_lib, kernels.me_cuda)
-    of the tree at `root`, its package imported as `alias` (its modules
-    import each other relatively, so it stays apart from this
+    """(kernels.iframe, kernels.pframe, kernels.cuda_lib, kernels.me_cuda,
+    engine) of the tree at `root`, its package imported as `alias` (its
+    modules import each other relatively, so it stays apart from this
     checkout's)."""
     import importlib
     import importlib.util
@@ -66,17 +73,20 @@ def tree_kernels(root: str, alias: str):
     sys.modules[alias] = mod
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{alias}.kernels.{m}")
-                 for m in ("iframe", "pframe", "cuda_lib", "me_cuda"))
+                 for m in ("iframe", "pframe", "cuda_lib", "me_cuda")) + (
+        importlib.import_module(f"{alias}.engine"),)
 
 
-def tree_ways(tif, tpf, lib, tme):
+def tree_ways(tif, tpf, lib, tme, eng):
     """The tree's route of each stage, called with this checkout's router
     arguments: {stage: fn(**kw)}, and "K12 phases": fn(**kw) -> K12's
     launches apart (`chip_smoke.k12_phases` through the tree's entry).  A
     tree whose scan takes `res` gets the residuals of its own
     `_intra_residuals` first.  K1, K9 and K10 take `refs` (the captured
     `_references` arguments) besides: the tree's own planes of them,
-    built at the first call and kept, replace this checkout's."""
+    built at the first call and kept, replace this checkout's.  "D-i44"
+    takes access units: the tree's DecoderPool (made at the first call)
+    decodes them in one batch."""
     import inspect
 
     def scan(mode, cmode, levels, qp, qpc, other=None, is_intra=None,
@@ -96,7 +106,17 @@ def tree_ways(tif, tpf, lib, tme):
         return dict(zip(("planes_l", "refs_up", "refs_vp"),
                         built[id(refs)][1]))
 
+    pools = []
+
+    def decode(aus):
+        if not pools:
+            pools.append(eng.DecoderPool(device="cuda"))
+            for i, _ in aus:
+                pools[0].init_decoder(i)
+        return pools[0].decode_batch(aus)
+
     return {"K11": tpf._references, "K12": tpf._int_winner, "K5": scan,
+            "K5-i44": scan, "D-i44": decode,
             "K12 phases": lambda **kw: cs.k12_phases(tpf, lib, kw),
             "K1": lambda refs, y, n: tme.sad_field(
                 y, planes(refs)["planes_l"][n][0]),
@@ -118,9 +138,12 @@ def plain_of(stage, kw):
     if "refs" in kw:
         args.update(zip(("planes_l", "refs_up", "refs_vp"),
                         pframe._references_plain(**kw["refs"])))
+    if stage == "D-i44":  # the encoder's recon, stream by stream
+        return [p[i] for i, _ in kw["aus"] for p in kw["recon"]]
     return {"K11": pframe._references_plain,
             "K12": pframe._int_winner_plain,
             "K5": iframe._intra_recon_scan_plain,
+            "K5-i44": iframe._intra_recon_scan_plain,
             "K9": pframe._inter_encode_plain,
             "K10": pframe._inter_decode_plain}[stage](**args)
 
@@ -193,6 +216,17 @@ def inputs(dev, torch):
                   "(defaults, intra-in-P)", cs.d2_capture(
                       lambda: pframe.decode_pframe_rows_multi(sym, *refs,
                                                               30))[0]))
+    del refs, sym
+    import numpy as np
+
+    cases.append(("K5-i44", "1080p x 4 IDR, every MB Intra_4x4",
+                  cs.d2_args(torch, cs.d2_i44_case(np, (4, 68, 120), "i44",
+                                                   30), dev)))
+    kw, share, (aus, recon) = cs.session_idr_i44(dev, np)
+    what = f"854x480 x 8 meeting session IDR, Intra_4x4 share {share:.4f}"
+    cases += [("K5-i44", what, kw),
+              ("D-i44", f"{what}: DecoderPool.decode_batch",
+               dict(aus=aus, recon=recon))]
     return cases
 
 
@@ -272,16 +306,32 @@ def bound(stage, kw):
             return cs.bound_ms(cs.k9_bytes(full))
         return cs.bound_ms(cs.k10_bytes(full,
                                         pframe._inter_decode(**full)[1]))
+    if stage == "D-i44":  # host work: no device bound
+        return None
     return cs.bound_ms({"K11": cs.k11_bytes, "K12": cs.k12_bytes,
-                        "K5": cs.k5_bytes}[stage](kw))
+                        "K5": cs.k5_bytes, "K5-i44": cs.k5_bytes}[stage](kw))
 
 
 def flat(out):
-    """A stage's output as a list of tensors."""
+    """A stage's output as a list of tensors (a decode's dict of planes
+    by stream: each stream's, in stream order, as tensors)."""
+    import torch
+
+    if isinstance(out, dict):
+        return [torch.as_tensor(p) for i in sorted(out) for p in out[i]]
     items = []
     for x in out:
         items += list(x) if isinstance(x, (list, tuple)) else [x]
-    return items
+    return [torch.as_tensor(x) for x in items]
+
+
+def reading(fn, stage) -> float:
+    """ms a call of fn: CUDA events over 20 calls behind a device sleep
+    (chip_smoke.timed), 2 for a way slower than 50 ms a call (the plain
+    routes); "D-i44", host work, the least of 3 fenced calls."""
+    if stage == "D-i44":
+        return min(cs.fenced_ms(fn) for _ in range(3))
+    return cs.timed(fn, 2 if cs.fenced_ms(fn) > 50 else 20)
 
 
 def main() -> None:
@@ -294,7 +344,7 @@ def main() -> None:
                     "K5_WORKERS=6,K5_RING=16 (timed as one more way)")
     ap.add_argument("--k12-blocks", action="append", type=int, default=[],
                     help="K12 at this many blocks an SM (one more way)")
-    ap.add_argument("--only", default="K1,K5,K9,K10,K11,K12",
+    ap.add_argument("--only", default="K1,K5,K5-i44,D-i44,K9,K10,K11,K12",
                     help="the stages to time, e.g. K11,K9")
     a = ap.parse_args()
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -308,7 +358,10 @@ def main() -> None:
     card = cs.card_line(os.environ["CUDA_VISIBLE_DEVICES"].split(",")[0])
     from tpuh264_torch.kernels import cuda_lib, me_cuda
 
-    ways = [("this checkout", tree_ways(iframe, pframe, cuda_lib, me_cuda))]
+    from tpuh264_torch import engine
+
+    ways = [("this checkout", tree_ways(iframe, pframe, cuda_lib, me_cuda,
+                                        engine))]
     for i, root in enumerate(a.parent):
         ways.append((f"tree {root}", tree_ways(*tree_kernels(
             root, f"tree{i}_tpuh264_torch"))))
@@ -321,11 +374,15 @@ def main() -> None:
     for stage, what, kw in cases:
         want = flat(plain_of(stage, kw))
         for name, fns in ways:
-            got = flat(fns[stage](**kw))
+            if stage == "D-i44":  # cropped planes against the recon
+                got = [x.long() for x in flat(fns[stage](kw["aus"]))]
+                want_s = [w[:g.shape[0], :g.shape[1]].long()
+                          for g, w in zip(got, want)]
+            else:
+                got = flat(fns[stage](**kw))
+                want_s = want
             if stage == "K11":  # the planes' type is a tree's layout
                 got, want_s = [x.long() for x in got], [x.long() for x in want]
-            else:
-                want_s = want
             cs._all_equal(got, want_s, torch, f"{name}: {stage} ({what})")
     print(f"{card}; every way equal to the plain versions on every input")
     order = ways[:0:-1] + ways[:1] * 2 + ways[1:]
@@ -333,7 +390,12 @@ def main() -> None:
     for rnd in range(a.rounds):
         for (stage, what, kw), b in zip(cases, bounds):
             for name, fns in order:
-                ms = cs.timed(lambda: fns[stage](**kw), 20)
+                if stage == "D-i44":
+                    ms = reading(lambda: fns[stage](kw["aus"]), stage)
+                    print(f"round {rnd}: {stage} {what}: {name}: {ms:.1f} "
+                          f"ms (host wall, fenced) [{card}]")
+                    continue
+                ms = reading(lambda: fns[stage](**kw), stage)
                 print(f"round {rnd}: {stage} {what}: {name}: {ms:.4f} ms, "
                       f"{100 * b / ms:.1f}% of the bytes bound {b:.4f} ms "
                       f"[{card}]")

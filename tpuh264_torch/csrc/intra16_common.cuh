@@ -218,4 +218,19 @@ __device__ __forceinline__ bool block_residual(const LevelPart& v,
   return true;
 }
 
+// The residual 4x4 block of an Intra_4x4 MB's luma, exactly as
+// kernels/intra44.py `decode_mb`: its 16 zigzag levels (ac0 / ac1 as
+// `load_levels` gives a luma lane: slot 0 a level too), every position
+// dequantised as AC (`dequant_flat`), no DC and no cbp mask.  x: the 16
+// residuals, raster, (inverse + 32) >> 6 in int32.
+__device__ __forceinline__ void block_residual44(const LevelPart& v,
+                                                 const Quant& q, int* x) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    x[zz(k)] = dq_ac(q, level_at(v.ac0, v.ac1, k), pos_class(zz(k)));
+  inverse4x4(x);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[i] = (x[i] + 32) >> 6;
+}
+
 }  // namespace

@@ -80,6 +80,24 @@
 //    chunks; chroma over bits 0, 1), adds, clips, stores; for a column
 //    that takes `other` before an intra one, it reads the left samples
 //    the worker left in the slot.
+//  * The Intra_4x4 route (`i44`, the decoders of sessions with
+//    `intra44`): the template instance kI44, picked by the entry where
+//    i4modes is given, so that the instance without it keeps its code and
+//    registers.  Its plain version is `_intra_recon_scan_plain` with i44:
+//    kernels/intra44.py `decode_mb`, replacing the luma of every MB whose
+//    mode is 4 (tpuh264/kernels/iframe.py :372-376; intra44.py:338).  A
+//    worker loads such an MB's 16 luma blocks of levels whatever its cbps
+//    say (slot 0 a level too; from the i44 levels, `ac44`) and its 16
+//    block modes in place of the luma DC, decodes the blocks'
+//    residuals as ever (`block_residual44`: every position dequantised as
+//    AC at the i44 QP) and leaves the modes, clamped to 0..8 as `_select`
+//    clamps them, beside the slot.  The prediction warp walks the 16
+//    blocks in z-scan order through the MB's samples in shared memory
+//    (intra44_common.cuh): lanes 0-12 read the 13 neighbours, every lane
+//    its pixel's taps by shuffles (DC by redux.sync), lanes 0-15 add the
+//    residual, clip and store; then each thread reads its two luma chunks
+//    back.  Chroma is as for any intra MB.  The chain is 16 dependent
+//    steps an MB, not bytes.
 //  * A thread owns three 16-byte chunks of every MB: luma chunks t and
 //    t + 32 and chunk t & 15 of chroma plane t >> 4, in the residuals'
 //    4x4-block order (by, bx, y, x).  A chunk is the 4 samples of one
@@ -94,6 +112,7 @@
 #include <stdint.h>
 
 #include "intra16_common.cuh"  // quantiser, load_levels, block_residual
+#include "intra44_common.cuh"  // the Intra_4x4 neighbours and predictor
 
 #ifdef __CUDACC__
 namespace {
@@ -142,15 +161,20 @@ struct Args {
                              // (then `other` is too)
   const int16_t *dc, *ac, *cdc, *cac;  // levels, MBSymbols' layouts
   const int32_t *oy, *ou, *ov;         // other, raster; may be null
+  // the Intra_4x4 route's: i4modes [lanes, C, 16] int16 (null: no route),
+  // the luma levels of its MBs [lanes, C, 16, 16] int16, the tap words
+  const int16_t *i4m, *ac44;
+  const uint32_t* taps;
   int32_t *y, *u, *v;                  // output, raster
   int lanes, C, qp, qpc;
   // MB strides in elements: of mode, cmode, cbp_l, cbp_c, dc, ac, cdc,
   // cac (the level strides multiples of 8: 16-byte loads)
   int sm, scm, scl, scc, sdc, sac, scdc, scac;
+  int qp44, si4, sac44;  // the i44 QP; the MB strides of i4m and ac44
 };
 
-constexpr int kPtrs = 15;
-constexpr int kInts = 12;
+constexpr int kPtrs = 18;
+constexpr int kInts = 15;
 
 // The arguments from the entry's pointer and int arrays, in the order
 // kernels/iframe.py `_k5_operands` builds them.
@@ -163,29 +187,36 @@ inline Args k5_args(void* const* p, const int* n) {
   a.is_intra = static_cast<const uint8_t*>(p[4]);
   a.dc = lev(5), a.ac = lev(6), a.cdc = lev(7), a.cac = lev(8);
   a.oy = i32(9), a.ou = i32(10), a.ov = i32(11);
-  a.y = out(12), a.u = out(13), a.v = out(14);
+  a.i4m = lev(12), a.ac44 = lev(13);
+  a.taps = static_cast<const uint32_t*>(p[14]);
+  a.y = out(15), a.u = out(16), a.v = out(17);
   a.lanes = n[0], a.C = n[1], a.qp = n[2], a.qpc = n[3];
   a.sm = n[4], a.scm = n[5], a.scl = n[6], a.scc = n[7];
   a.sdc = n[8], a.sac = n[9], a.scdc = n[10], a.scac = n[11];
+  a.qp44 = n[12], a.si4 = n[13], a.sac44 = n[14];
   return a;
 }
 
 // packed per-MB flags: luma DC, chroma DC, intra, and what its cbps
 // code: luma AC, chroma DC, chroma AC; a worker adds whether the next
-// column is intra
+// column is intra; the kI44 instance marks an intra MB of mode 4
 constexpr int kLumaDc = 1, kChromaDc = 2, kIntra = 4, kLumaAc = 8,
-              kCDc = 16, kCAc = 32, kNextIntra = 64;
+              kCDc = 16, kCAc = 32, kNextIntra = 64, kI4 = 128;
 
+template <bool kI44>
 __device__ __forceinline__ int load_flags(const Args& a, size_t mb0,
                                           int col) {
   if (col >= a.C) return 0;
   const size_t m = mb0 + col;
   if (a.is_intra != nullptr && !a.is_intra[m]) return 0;
   const int cbc = a.cbp_c[m * a.scc];
-  return kIntra | (a.mode[m * a.sm] == 2 ? kLumaDc : 0) |
-         (a.cmode[m * a.scm] == 0 ? kChromaDc : 0) |
-         (a.cbp_l[m * a.scl] == 1 ? kLumaAc : 0) | (cbc >= 1 ? kCDc : 0) |
-         (cbc == 2 ? kCAc : 0);
+  const int mode = a.mode[m * a.sm];
+  int f = kIntra | (mode == 2 ? kLumaDc : 0) |
+          (a.cmode[m * a.scm] == 0 ? kChromaDc : 0) |
+          (a.cbp_l[m * a.scl] == 1 ? kLumaAc : 0) | (cbc >= 1 ? kCDc : 0) |
+          (cbc == 2 ? kCAc : 0);
+  if constexpr (kI44) f |= mode == 4 ? kI4 : 0;
+  return f;
 }
 
 __device__ __forceinline__ int4 add_clip(int4 r, int p) {
@@ -234,11 +265,23 @@ struct Stage {
   int4 misc[18];
 };
 
-struct Mem {
+struct MemBase {
   Slot ring[kRing];
   Stage stage[kWorkers];
   unsigned ready[kRing];  // slot k: the column + 1 last written there
   unsigned consumed;      // columns the prediction warp is done with
+};
+
+template <bool kI44>
+struct Mem : MemBase {};
+
+// The Intra_4x4 route's besides: the prediction warp's MB samples
+// (intra44_common.cuh's layout) and tap words; each slot's block modes
+template <>
+struct Mem<true> : MemBase {
+  __align__(16) int pix[kI44Pix];
+  uint32_t taps[kI44Taps];
+  uint8_t m4[kRing][16];
 };
 
 // Until *f >= v (acquire, CTA scope).
@@ -249,14 +292,19 @@ __device__ __forceinline__ void wait_local(const unsigned* f, unsigned v) {
 // The thread's flag window: column 32 w + t's flags in `cur`, the next
 // window's in `next`; `base` = 32 w.  Columns are asked for in order, none
 // past the next window.
+template <bool kI44>
 struct Flags {
   int cur, next, base;
+  __device__ __forceinline__ Flags(const Args& a, size_t mb0, int t)
+      : cur(load_flags<kI44>(a, mb0, t)),
+        next(load_flags<kI44>(a, mb0, 32 + t)),
+        base(0) {}
   __device__ __forceinline__ int of(const Args& a, size_t mb0, int t,
                                     int col) {
     if (col >= base + 32) {  // uniform: the window moves on
       cur = next;
       base += 32;
-      next = load_flags(a, mb0, base + 32 + t);
+      next = load_flags<kI44>(a, mb0, base + 32 + t);
     }
     return __shfl_sync(kFull, cur, col & 31);
   }
@@ -274,7 +322,10 @@ struct Loaded {
 };
 
 // Column `col` of the lane into l: an intra MB's levels (those its cbps
-// code), else `other`.  Columns past the lane's end load nothing.
+// code; of an Intra_4x4 MB every luma level and, in place of the luma DC,
+// its 16 block modes), else `other`.  Columns past the lane's end load
+// nothing.
+template <bool kI44>
 __device__ __forceinline__ void fetch(Loaded& l, const Args& a,
                                       const Chunks& k, size_t mb0, int col,
                                       int flags, int t) {
@@ -283,9 +334,14 @@ __device__ __forceinline__ void fetch(Loaded& l, const Args& a,
   const size_t m = mb0 + col;
   if (flags & kIntra) {
     const int4 z = make_int4(0, 0, 0, 0);
-    l.a = (flags & kLumaAc) ? ld16(a.ac + m * a.sac + 8 * t) : z;
-    // thread 0-1 the luma DC, 2 the chroma DC, 3-17 the chroma AC
-    l.b = t < 2 ? ld16(a.dc + m * a.sdc + 8 * t)
+    const bool i4 = kI44 && (flags & kI4);
+    l.a = i4 ? ld16(a.ac44 + m * a.sac44 + 8 * t)
+          : (flags & kLumaAc) ? ld16(a.ac + m * a.sac + 8 * t)
+                              : z;
+    // thread 0-1 the luma DC (an Intra_4x4 MB's modes), 2 the chroma DC,
+    // 3-17 the chroma AC
+    const int16_t* lo = i4 ? a.i4m + m * a.si4 : a.dc + m * a.sdc;
+    l.b = t < 2 ? ld16(lo + 8 * t)
           : t == 2 ? ((flags & kCDc) ? ld16(a.cdc + m * a.scdc) : z)
           : (t < 18 && (flags & kCAc)) ? ld16(a.cac + m * a.scac + 8 * (t - 3))
                                        : z;
@@ -299,11 +355,13 @@ __device__ __forceinline__ void fetch(Loaded& l, const Args& a,
 }
 
 // Worker w: its columns w, w + kWorkers, ..., kAhead loading ahead.
-__device__ void work(const Args& a, Mem& sm, size_t mb0, int w, int t) {
+template <bool kI44>
+__device__ void work(const Args& a, Mem<kI44>& sm, size_t mb0, int w,
+                     int t) {
   const Chunks k = chunks(t);
   const Quant ql = quantiser(a.qp), qc = quantiser(a.qpc);
   Stage& st = sm.stage[w];
-  Flags fl{load_flags(a, mb0, t), load_flags(a, mb0, 32 + t), 0};
+  Flags<kI44> fl(a, mb0, t);
   auto flags = [&](int col) {  // col's flags, and whether col + 1 is intra
     if (col >= a.C) return 0;
     const int f = fl.of(a, mb0, t, col);
@@ -315,7 +373,7 @@ __device__ void work(const Args& a, Mem& sm, size_t mb0, int w, int t) {
 #pragma unroll
   for (int i = 0; i < kAhead; ++i) {
     const int col = w + kWorkers * i;
-    fetch(ring[i], a, k, mb0, col, flags(col), t);
+    fetch<kI44>(ring[i], a, k, mb0, col, flags(col), t);
   }
   for (int c0 = w; c0 < a.C; c0 += kAhead * kWorkers) {
 #pragma unroll
@@ -345,7 +403,15 @@ __device__ void work(const Args& a, Mem& sm, size_t mb0, int w, int t) {
               misc, reinterpret_cast<const int16_t*>(st.ac), misc + 16,
               misc + 24, (l.f & kLumaAc) ? 1 : 0, cbc, t);
           int x[16];
-          if (block_residual(v, ql, qc, t, x)) {
+          bool has = false;
+          if constexpr (kI44) {
+            if ((l.f & kI4) && t < 16) {  // block t's residual, its mode
+              block_residual44(v, quantiser(a.qp44), x);
+              sm.m4[col % kRing][t] = (uint8_t)min(max((int)misc[t], 0), 8);
+              has = true;
+            }
+          }
+          if (has || block_residual(v, ql, qc, t, x)) {
             int4* o = t < 16 ? s.r.ry + 4 * t
                              : s.r.rc[(t - 16) >> 2] + 4 * ((t - 16) & 3);
 #pragma unroll
@@ -361,17 +427,52 @@ __device__ void work(const Args& a, Mem& sm, size_t mb0, int w, int t) {
         if (t == 0) cta_release(&sm.ready[col % kRing], (unsigned)col + 1);
       }
       const int nx = col + kAhead * kWorkers;
-      fetch(l, a, k, mb0, nx, flags(nx), t);
+      fetch<kI44>(l, a, k, mb0, nx, flags(nx), t);
     }
   }
+}
+
+// The Intra_4x4 luma of the MB in `slot` (kernels/intra44.py
+// `decode_mb`): its 16 blocks in z-scan order through the MB's samples in
+// shared memory, then the thread's chunks A and B.  la / lb: the left
+// samples of the thread's rows; col > 0: the left MB is available.
+__device__ __forceinline__ void walk44(Mem<true>& sm, const Slot& s,
+                                       unsigned slot, int la, int lb,
+                                       bool l_mb, int t, int4& oa,
+                                       int4& ob) {
+  int* pix = sm.pix;
+  const int row = 4 * (t >> 4) + (t & 3), bx = (t >> 2) & 3;
+  if (bx == 0) pix[i44_at(-1, row)] = la, pix[i44_at(-1, row + 8)] = lb;
+  // lane p < 16: pixel (p & 3, p >> 2) of every block; its residuals
+  const int p = t & 15;
+  const int* res = reinterpret_cast<const int*>(s.r.ry);
+  int r[16];
+#pragma unroll
+  for (int bi = 0; bi < 16; ++bi)
+    r[bi] = res[4 * (16 * blk_y(bi) + 4 * blk_x(bi) + (p >> 2)) + (p & 3)];
+  __syncwarp();  // the left column is written
+#pragma unroll
+  for (int bi = 0; bi < 16; ++bi) {
+    const int x0 = 4 * blk_x(bi), y0 = 4 * blk_y(bi);
+    const int nv = pix[i44_neighbour(bi, t)];
+    const int pred = i44_predict(sm.taps, sm.m4[slot][bi], nv, t,
+                                 x0 > 0 || l_mb, y0 > 0);
+    if (t < 16)
+      pix[i44_at(x0 + (p & 3), y0 + (p >> 2))] =
+          clip255((int)((unsigned)pred + (unsigned)r[bi]));
+    __syncwarp();  // the block is written
+  }
+  oa = ld4(pix + i44_at(4 * bx, row));
+  ob = ld4(pix + i44_at(4 * bx, row + 8));
 }
 
 // The prediction warp: every column in order; an intra one from its
 // slot's residuals and the left samples, another one only its left
 // samples where the next column is intra (the worker stored the MB).
-__device__ void predict(const Args& a, Mem& sm, size_t mb0, int t) {
+template <bool kI44>
+__device__ void predict(const Args& a, Mem<kI44>& sm, size_t mb0, int t) {
   const Chunks k = chunks(t);
-  Flags fl{load_flags(a, mb0, t), load_flags(a, mb0, 32 + t), 0};
+  Flags<kI44> fl(a, mb0, t);
   // the left samples of this thread's rows (luma A, B; chroma)
   int la = 0, lb = 0, lc = 0;
   int f = fl.of(a, mb0, t, 0);
@@ -402,8 +503,11 @@ __device__ void predict(const Args& a, Mem& sm, size_t mb0, int t) {
           pc = (sum + 2) >> 2;
         }
       }
-      const int4 oa = add_clip(ra, pa), ob = add_clip(rb, pb);
+      int4 oa = add_clip(ra, pa), ob = add_clip(rb, pb);
       const int4 oc = add_clip(rc, pc);
+      if constexpr (kI44) {
+        if (f & kI4) walk44(sm, s, slot, la, lb, col > 0, t, oa, ob);
+      }
       if (fn & kIntra) {  // the next MB's left, from the threads whose
                           // chunks end these rows
         la = __shfl_sync(kFull, oa.w, t | 12);
@@ -425,19 +529,26 @@ __device__ void predict(const Args& a, Mem& sm, size_t mb0, int t) {
   }
 }
 
-// Block b is lane b: warp 0 predicts, warps 1 .. kWorkers work.
+// Block b is lane b: warp 0 predicts, warps 1 .. kWorkers work.  kI44:
+// the Intra_4x4 route (i4modes given).
+template <bool kI44>
 __global__ void __launch_bounds__(kThreads)
     intra_recon_kernel(const __grid_constant__ Args a) {
-  __shared__ Mem sm;
+  __shared__ Mem<kI44> sm;
   const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x < kRing) sm.ready[threadIdx.x] = 0;
   if (threadIdx.x == 0) sm.consumed = 0;
+  if constexpr (kI44) {  // row -1 and the corner stay zero; the taps
+    for (int i = threadIdx.x; i < kI44Pix; i += kThreads) sm.pix[i] = 0;
+    for (int i = threadIdx.x; i < kI44Taps; i += kThreads)
+      sm.taps[i] = a.taps[i];
+  }
   __syncthreads();
   const size_t mb0 = (size_t)blockIdx.x * a.C;
   if (warp == 0)
-    predict(a, sm, mb0, t);
+    predict<kI44>(a, sm, mb0, t);
   else
-    work(a, sm, mb0, warp - 1, t);
+    work<kI44>(a, sm, mb0, warp - 1, t);
 }
 
 }  // namespace
@@ -448,11 +559,18 @@ __global__ void __launch_bounds__(kThreads)
 
 // p: kPtrs device pointers, n: kInts ints, in `k5_args`' order (host
 // arrays); lanes = S * R MB rows of C MB columns; is_intra and the three
-// `other` planes are all given or all null (then every MB is intra).
+// `other` planes are all given or all null (then every MB is intra);
+// i4modes, the i44 levels and the tap words all given (the Intra_4x4
+// route) or all null.
 extern "C" int th264_intra_recon_rows(void* const* p, const int* n,
                                       void* stream) {
   const Args a = k5_args(p, n);
-  intra_recon_kernel<<<a.lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (a.i4m != nullptr)
+    intra_recon_kernel<true>
+        <<<a.lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
+  else
+    intra_recon_kernel<false>
+        <<<a.lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -156,6 +156,14 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+def check_devices(name: str, device, tensors) -> None:
+    """Raise unless every tensor lies on the CUDA `device`."""
+    for t in tensors:
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name}: every input must be on one CUDA "
+                             f"device ({device}), got {t.device}")
+
+
 def check_inputs(name: str, device, specs, dtype=torch.int32) -> None:
     """Validate (tensor, shape) pairs before their pointers reach a kernel:
     each on the CUDA `device`, of `dtype`, of that shape, contiguous."""

@@ -24,10 +24,10 @@ of pframe.py (D4, the same kernel), and `_intra_residuals` /
 `_intra_recon_scan` (the decode) with the P decoder's intra MBs.
 
 The decode's column scan, `_intra_recon_scan`, is D2, a CUDA kernel
-(K5, csrc/intra_recon.cu: a warp per MB row, decoding the intra MBs'
-residuals from the levels itself) for CUDA tensors, with its plain
-version `_intra_recon_scan_plain` (`_intra_residuals`, then the column
-loop) for CPU tensors and for the Intra_4x4 reconstruction (`i44`).
+(K5, csrc/intra_recon.cu: a block per MB row, decoding the intra MBs'
+residuals from the levels itself; with `i44`, its Intra_4x4 route) for
+CUDA tensors, with its plain version `_intra_recon_scan_plain`
+(`_intra_residuals`, then the column loop) for CPU tensors.
 
 Bit-exact with the JAX version (tests/test_torch_transform_iframe_deblock.py,
 tests/test_torch_intra44.py, tests/test_torch_intra_recon.py,
@@ -483,37 +483,38 @@ def _intra_recon_scan(mode, cmode, levels, qp: int, qpc: int, other=None,
     i4modes [S,R,C,16], qp) the MBs of mode 4 take the causal Intra_4x4
     reconstruction.  Returns int32 [S,R,C,16,16], [S,R,C,8,8] x 2.
 
-    CPU tensors, and every call with `i44`, take the plain version; CUDA
-    tensors without `i44` launch the D2 kernel (csrc/intra_recon.cu,
-    which decodes the residuals of the intra MBs itself) or raise."""
-    if mode.device.type == "cpu" or i44 is not None:
+    CPU tensors take the plain version; CUDA tensors launch the D2 kernel
+    (csrc/intra_recon.cu, which decodes the residuals of the intra MBs
+    itself; with `i44`, its Intra_4x4 route, `other` or not) or raise."""
+    if mode.device.type == "cpu":
         return _intra_recon_scan_plain(mode, cmode, levels, qp, qpc, other,
                                        is_intra, i44)
     s, r, c = mode.shape
     if not s * r * c:
         raise ValueError(f"_intra_recon_scan: no MB ({s}, {r}, {c})")
-    if not (0 <= qp <= 51 and 0 <= qpc <= 51):
-        raise ValueError(f"_intra_recon_scan: QP {qp} / {qpc} outside 0..51")
+    qps = (qp, qpc) + (() if i44 is None else (i44[2],))
+    if not all(0 <= q <= 51 for q in qps):
+        raise ValueError(f"_intra_recon_scan: QPs {qps} outside 0..51")
     if (other is None) != (is_intra is None):
         raise ValueError("_intra_recon_scan: `other` and `is_intra` go "
                          "together")
-    dev = mode.device
-    for x in (mode, cmode, *(getattr(levels, f) for f in _LEVELS),
-              *(() if other is None else (*other, is_intra))):
-        if x.device != dev or dev.type != "cuda":
-            raise ValueError(f"_intra_recon_scan: every input must be on "
-                             f"one CUDA device ({dev}), got {x.device}")
+    cuda_lib.check_devices("_intra_recon_scan", mode.device, (
+        mode, cmode, *(getattr(levels, f) for f in _LEVELS),
+        *(() if other is None else (*other, is_intra)),
+        *(() if i44 is None else i44[:2])))
     ins, outs, ints = _k5_operands(mode, cmode, levels, qp, qpc, other,
-                                   is_intra)
+                                   is_intra, i44)
     err = cuda_lib.load().th264_intra_recon_rows(
         cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
         cuda_lib.stream(mode.device))
     cuda_lib.check(err, "th264_intra_recon_rows")
     _intra_recon_scan.launches += 1
+    _intra_recon_scan.i44_launches += i44 is not None
     return tuple(outs)
 
 
 _intra_recon_scan.launches = 0  # launches of the D2 kernel
+_intra_recon_scan.i44_launches = 0  # of them, its Intra_4x4 route's
 
 
 # the fields of `levels` K5 reads: the cbps, then the levels
@@ -556,12 +557,16 @@ def _mb_strided(x: torch.Tensor, mb, inner, dtype, align: int):
 
 
 def _k5_operands(mode, cmode, levels, qp: int, qpc: int, other=None,
-                 is_intra=None):
+                 is_intra=None, i44=None):
     """K5's operands in its entry's order (csrc/intra_recon.cu `k5_args`):
     (input tensors, output tensors, ints).  The per-MB flags and levels
     go as the views they are where the kernel can read them so (each
     with its MB stride), else as contiguous copies; a missing `other` /
-    `is_intra` as None (a null pointer)."""
+    `is_intra` as None (a null pointer), and so a missing `i44` (its
+    i4modes, levels and the tap words of the Intra_4x4 predictor).
+    i4modes go as int16: another type is first clamped to -1..8, which
+    changes no mode the reconstruction reads (`intra44._select` clamps
+    to 0..8)."""
     s, r, c = mb = tuple(mode.shape)
     dev = mode.device
     flags = [_mb_strided(x, mb, (), I32, 4)
@@ -585,9 +590,22 @@ def _k5_operands(mode, cmode, levels, qp: int, qpc: int, other=None,
         side = [is_intra.to(torch.bool).contiguous().view(torch.uint8),
                 *[x if x.data_ptr() % 16 == 0 else x.clone()
                   for x in planes]]
+    if i44 is None:
+        i4, i44_ints = [None] * 3, [0, 0, 0]
+    else:
+        coef, i4m, qp44 = i44
+        if i4m.dtype != torch.int16:
+            i4m = i4m.clamp(-1, 8)
+        (i4m, si4), (ac44, sac44) = (
+            _mb_strided(i4m, mb, (16,), torch.int16, 16),
+            _mb_strided(coef, mb, (16, 16), torch.int16, 16))
+        i4 = [i4m, ac44, tables.get("i44_taps", dev)]
+        i44_ints = [qp44, si4, sac44]
     outs = [torch.empty(sh, dtype=I32, device=dev) for sh in shapes]
-    ins = [x for x, _ in flags] + side[:1] + [x for x, _ in lev] + side[1:]
-    return ins, outs, [s * r, c, qp, qpc, *[k for _, k in flags + lev]]
+    ins = ([x for x, _ in flags] + side[:1] + [x for x, _ in lev] + side[1:]
+           + i4)
+    return ins, outs, [s * r, c, qp, qpc, *[k for _, k in flags + lev],
+                       *i44_ints]
 
 
 def _intra_recon_scan_plain(mode, cmode, levels, qp: int, qpc: int,
@@ -644,8 +662,7 @@ def decode_iframe_scan(symbols: MBSymbols, qp: int, intra44: bool = False
     encode scan; `intra44`: some MBs may be Intra_4x4): uint8 (recon_y,
     recon_u, recon_v), exactly as tpuh264.kernels.iframe.decode_iframe_scan."""
     qpc = T.chroma_qp_from_luma(qp)
-    i44 = ((symbols.luma_ac, symbols.i4modes.to(I32), qp) if intra44
-           else None)
+    i44 = (symbols.luma_ac, symbols.i4modes, qp) if intra44 else None
     rec = _intra_recon_scan(symbols.mode.to(I32), symbols.cmode.to(I32),
                             symbols, qp, qpc, i44=i44)
     return tuple(_mbs_to_plane(x.to(torch.uint8)) for x in rec)

@@ -181,6 +181,27 @@ tables.register("i44_s", lambda: _S_NP)
 tables.register("i44_dc", lambda: (np.arange(9) == 2).astype(np.int32)[:, None])
 
 
+def tap_words() -> np.ndarray:
+    """W, R and S as the kernels read them (csrc/intra44_common.cuh): one
+    word a (mode, pixel), int32 [9 * 16]; its at most three nonzero taps'
+    neighbour indices in bits 0-3, 4-7, 8-11, their weights in 12-13,
+    14-15, 16-17, then R in 18-19 and S in 20-21.  Mode 2 (DC) is zero."""
+    words = np.zeros((9, 16), np.int64)
+    for m in range(9):
+        for p in range(16):
+            taps = np.flatnonzero(_W_NP[m, p])
+            assert len(taps) <= 3 and _W_NP[m, p].max(initial=0) <= 3
+            assert 0 <= _R_NP[m, p] <= 3 and 0 <= _S_NP[m, p] <= 3
+            for j, k in enumerate(taps):
+                words[m, p] |= (int(k) << (4 * j)
+                                | int(_W_NP[m, p, k]) << (12 + 2 * j))
+            words[m, p] |= int(_R_NP[m, p]) << 18 | int(_S_NP[m, p]) << 20
+    return words.reshape(-1).astype(np.int32)
+
+
+tables.register("i44_taps", tap_words)
+
+
 def argmin_first(x: torch.Tensor) -> torch.Tensor:
     """argmin over the last axis (< 16 entries, values < 2^40), the first
     index on ties, on any device."""
