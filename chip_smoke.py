@@ -59,7 +59,12 @@ tpuh264_torch/csrc, then:
      (`d3_case`, `d4_args`: C = 1, 2, 3 and 61; flat, noise, rows and
      0 / 255 content; QPs 0, 11, 12, 28, 51; D3 from uint8 and int32
      planes; D4 intra shares 0 / ~1% / 50% / 100% and exact SAD ties);
-     K7 / K8 on one frame of phase 12's 854x480 x 8, of BASELINE config
+     K6's Intra_4x4 route (`intra44`, its "K6-i44" row: the trial and the
+     I16-vs-I4x4 choice) on that 1080p x 4 I frame, on the IDR of phase
+     11's session (its own int32 planes, QP 34) and on seeded cases
+     (`d3_i44_case`: C = 1, 2, 3 and 61; stripes where Intra_4x4 wins a
+     share, flat content where mode SADs and J tie, noise, 0 / 255; QPs
+     0, 12, 28, 51; uint8 and int32 planes); K7 / K8 on one frame of phase 12's 854x480 x 8, of BASELINE config
      1's 640x360 (368) x 1 and of 1920x1080 (1088) x 1 (the "meeting"
      clip, QP 28), and on seeded cases (`wave_case`: one MB, one row, one
      column, R > C, several rows a CTA; noise, ramps, mixed MB kinds,
@@ -220,19 +225,19 @@ general stream have no P frame on the fast path, so no K1; K7 and K8 run on phas
 (and in phase 3's single-slice session case); the deblock runs on every GOP
 pipeline and on the sessions with `deblock=True`; K5 on every path that
 decodes but the wavefront's, phase 16(a)'s halo decodes too; K6 on
-every path that encodes an I frame without Intra_4x4 or a P frame with
-intra-in-P, phase 16(a)'s ranks too; K9 on every path that encodes a P
+every path that encodes an I frame or a P frame with intra-in-P, phase
+16(a)'s ranks too, its Intra_4x4 route on the sessions with `intra44`;
+K9 on every path that encodes a P
 frame and K10 on every path that decodes one, config 3's on their t8
 routes; K11 on every
 path that encodes or decodes a P frame, K12 on every one that encodes
 one, config 3 and phase 16(a)'s halo ranks included; P1 and P2 on phase
 17 alone, once each), and none may
-reach the plain version of K1, K3, K4 (either entry), K5 (its Intra_4x4
-route included: the sessions with `intra44` must launch it), K6, K7, K8, K9,
-K10, K11, K12, K13, K14, K15, P1 or P2, nor `deblock_nnz` or a plane copy for K4,
-nor the eager intra residuals (D3's plain version with `intra44`, the
-Intra_4x4 trial, is the session path's own, and its calls are printed
-apart).  Encoder DPB == decoder DPB does not
+reach the plain version of K1, K3, K4 (either entry), K5 or K6 (their
+Intra_4x4 routes included: the sessions with `intra44` must launch both),
+K7, K8, K9, K10, K11, K12, K13, K14, K15, P1 or P2, nor `deblock_nnz` or
+a plane copy for K4, nor the eager intra residuals.  Encoder DPB ==
+decoder DPB does not
 check K4 (both sides run it): phase 14's gate against the oracle and
 phase 15's golden decode do.  No session of the engine's own streams (phases
 11-13 and 15) may leave the fast path for the golden decoder.
@@ -316,22 +321,10 @@ def max_abs_err(x, y) -> int:
     return int((x.long() - y.long()).abs().max().item()) if x.numel() else 0
 
 
-# the plain versions a path may call with an argument (name, position):
-# D3's with `intra44` is the Intra_4x4 trial's own (D5's work), counted
-# and printed apart
-EXEMPT = {"_encode_iframe_scan_plain": ("intra44", 4)}
-
-
-def _plain_spy(name, f, calls, exempt=None):
-    """`f` counting its calls into `calls`, but those with its EXEMPT
-    argument set (into `exempt`, where given)."""
-    arg, pos = EXEMPT.get(name, (None, 0))
-
+def _plain_spy(name, f, calls):
+    """`f` (the plain version `name`) counting its calls into `calls`."""
     def call(*a, **kw):
-        if arg is None or not kw.get(arg, a[pos] if len(a) > pos else None):
-            calls.append(1)
-        elif exempt is not None:
-            exempt.append(1)
+        calls.append(name)
         return f(*a, **kw)
     return call
 
@@ -343,7 +336,8 @@ class Launches:
     path takes, printed apart),
     K5 = the intra reconstruction D2 (its Intra_4x4 route's launches also
     apart, `i44_total`, key "K5-i44"), K6 = the Intra_16x16 encode scans
-    D3 and D4: its two routers' counts summed, K7 / K8 = the single-slice
+    D3 and D4: its two routers' counts summed (D3's Intra_4x4 route's also
+    apart, `k6_i44_total`, key "K6-i44"), K7 / K8 = the single-slice
     wavefront's encode / decode, K9 = the P encode after stage A, K10 =
     the P decode's inter part, K11 = the reference build, K12 = the
     stage-A winner: its calls, two launches each, K13 = the CAVLC
@@ -353,7 +347,7 @@ class Launches:
     paths for the kernel table.  The plain versions of K1 (`_sad_field`), K3
     (`tree_merge`), K4 (`_deblock_rows_plain`), K5
     (`_intra_recon_scan_plain`, and the eager `_intra_residuals`), K6
-    (`_encode_iframe_scan_plain` without `intra44`,
+    (`_encode_iframe_scan_plain`, with `intra44` or without,
     `_intra_in_p_scan_plain`), K7
     (`_encode_iframe_single_plain`), K8 (`_decode_iframe_single_plain`),
     K9 (`_inter_encode_plain`), K10 (`_inter_decode_plain`), K11
@@ -397,19 +391,20 @@ class Launches:
         self.total = [0] * len(self.fns)
         self.t8_total = [0, 0]  # K9's and K10's t8 routes
         self.i44_total = 0  # K5's Intra_4x4 route
+        self.k6_i44_total = 0  # K6's
 
     def by_key(self) -> dict:
         """The launch totals by kernel key ("K1" .. "K15", "P1", "P2", and
-        "K9-t8", "K10-t8", "K5-i44": K9's and K10's t8 routes and K5's
-        Intra_4x4 route, also in theirs)."""
+        "K9-t8", "K10-t8", "K5-i44", "K6-i44": K9's and K10's t8 routes and
+        K5's and K6's Intra_4x4 routes, also in theirs)."""
         return dict(zip(self.KEYS, self.total), **{
             "K9-t8": self.t8_total[0], "K10-t8": self.t8_total[1],
-            "K5-i44": self.i44_total})
+            "K5-i44": self.i44_total, "K6-i44": self.k6_i44_total})
 
     def path(self, name, fn, needs=NEEDS, i44=False):
         """Drive `fn()` with the counts zeroed and read after; fails unless
-        every kernel of `needs` launched (and K5's Intra_4x4 route, where
-        `i44`) and no plain version ran."""
+        every kernel of `needs` launched (and K5's and K6's Intra_4x4
+        routes, where `i44`) and no plain version ran."""
         from tpuh264_torch.engine import sources
         from tpuh264_torch.kernels import (cavlc_cuda, deblock, entropy_gpu,
                                            iframe, me_cuda, pframe, probe,
@@ -422,6 +417,7 @@ class Launches:
         for f in t8_fns:
             f.t8_launches = 0
         iframe._intra_recon_scan.i44_launches = 0
+        iframe.encode_iframe_scan.i44_launches = 0
         plains = [(me_cuda, "_sad_field"), (cavlc_cuda, "tree_merge"),
                   (deblock, "_deblock_rows_plain"),
                   (iframe, "_intra_recon_scan_plain"),
@@ -442,9 +438,8 @@ class Launches:
                   (probe, "_slab_sum_plain")]
         saved = [getattr(m, a) for m, a in plains]
         calls = [[] for _ in plains]
-        exempt_calls = [[] for _ in plains]
-        for (m, a), f, c, e in zip(plains, saved, calls, exempt_calls):
-            setattr(m, a, _plain_spy(a, f, c, e))
+        for (m, a), f, c in zip(plains, saved, calls):
+            setattr(m, a, _plain_spy(a, f, c))
         # the eager intra residuals: K5 decodes them, they never run on
         # the card
         residuals, res_calls = iframe._intra_residuals, []
@@ -463,19 +458,22 @@ class Launches:
         self.t8_total = [a + b for a, b in zip(self.t8_total, t8)]
         n_i44 = iframe._intra_recon_scan.i44_launches
         self.i44_total += n_i44
+        k6_i44 = iframe.encode_iframe_scan.i44_launches
+        self.k6_i44_total += k6_i44
         k4_rows = deblock.deblock_frame_rows.launches
         plain = [len(c) for c in calls]
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
               f"K3 {counts[2]}, K4 (deblock) {counts[3]}, K5 (intra "
               f"recon) {counts[4]}, K6 (intra16 encode) {counts[5]} (D3 "
-              f"{self.fns[5][0].launches}, D4 {self.fns[5][1].launches}), "
+              f"{self.fns[5][0].launches}, of them its Intra_4x4 route "
+              f"{k6_i44}, D4 {self.fns[5][1].launches}), "
               f"K7 (wavefront encode) {counts[6]}, K8 (wavefront decode) "
               f"{counts[7]}, K9 (P encode) {counts[8]}, K10 (P decode) "
               f"{counts[9]}, K11 (references) {counts[10]}, K12 (stage-A "
               f"winner) {counts[11]}, K13 (CAVLC prologue) {counts[12]}, "
               f"K14 (SSE) {counts[13]}; plain calls K1 {plain[0]}, K3 "
               f"{plain[1]}, K4 {plain[2]}, K5 {plain[3]}, K6: "
-              f"D3 without intra44 {plain[4]}, D4 {plain[5]}, K7 "
+              f"D3 {plain[4]}, D4 {plain[5]}, K7 "
               f"{plain[6]}, K8 {plain[7]}, K9 without t8 {plain[8]}, K10 "
               f"without t8 {plain[9]}, K11 {plain[10]}, K12 {plain[11]}, "
               f"K13 {plain[12]}, K2's symbols entry {plain[13]}, K3's slice "
@@ -488,14 +486,11 @@ class Launches:
               f"{counts[15]}, P2 (probe slab sum) {counts[16]}; the t8 "
               f"routes: K9 {t8[0]}, K10 {t8[1]}; K5's Intra_4x4 route "
               f"{n_i44}; eager intra residuals {len(res_calls)}")
-        if exempt_calls[4]:
-            print(f"launches [{name}]: the Intra_4x4 trial's eager route "
-                  f"(EXEMPT): D3's plain version with intra44 "
-                  f"{len(exempt_calls[4])} calls")
         if any(counts[i] <= 0 for i in needs):
             fail(f"{name}: a kernel of the path was never launched: {counts}")
-        if i44 and n_i44 <= 0:
-            fail(f"{name}: K5's Intra_4x4 route was never launched")
+        if i44 and min(n_i44, k6_i44) <= 0:
+            fail(f"{name}: K5's / K6's Intra_4x4 routes launched {n_i44} / "
+                 f"{k6_i44} times")
         if any(counts[i] for i in self.PROBE if i not in needs):
             fail(f"{name}: the probe's P1 / P2 launched off its path: "
                  f"{counts}")
@@ -532,6 +527,8 @@ NO_LIBRARY = {
     "K5": "no PyTorch call runs H.264 intra prediction",
     "K5-i44": "no PyTorch call runs H.264 Intra_4x4 prediction",
     "K6": "no PyTorch call runs an H.264 intra encode",
+    "K6-i44": "no PyTorch call runs an H.264 Intra_4x4 mode decision and "
+              "encode",
     "K7": "no PyTorch call runs an H.264 intra encode",
     "K8": "no PyTorch call runs H.264 intra prediction",
     "K13": "no PyTorch call derives CAVLC nC, header slots or skip runs",
@@ -1803,6 +1800,59 @@ def d3_case(np, shape, content, qp):
     return plane(16), plane(8), plane(8), qp
 
 
+# K6's Intra_4x4 route (`intra44`): the D3 shapes of C = 1, 2, 3 and 61;
+# content "stripes" (each MB stripes of its own direction, period and
+# levels over noise: Intra_4x4 wins a share of the MBs, every mode 0-8 is
+# chosen somewhere, column 0 too), "flat" (every mode predicts alike: mode
+# SADs tie, and at QP 0 J ties exactly, both recons exact), "noise"
+# (Intra_16x16 wins nearly everywhere) and "saturate" (0 and 255); QPs 0,
+# 12, 28 and 51, each content meeting every one across the shapes.  Each
+# case runs from uint8 and from int32 planes.
+D3_I44_SHAPES = ((1, 1, 1), (2, 4, 2), (3, 2, 3), (2, 2, 61))
+D3_I44_CONTENT = ("flat", "stripes", "noise", "saturate")
+D3_I44_QPS = (0, 12, 28, 51)
+D3_I44_CASES = [(shape, content, D3_I44_QPS[(i + j) % len(D3_I44_QPS)])
+                for i, shape in enumerate(D3_I44_SHAPES)
+                for j, content in enumerate(D3_I44_CONTENT)]
+# the stripes' directions (x, y weights of a sample's phase): vertical,
+# horizontal and the diagonals of the eight directional modes
+D3_I44_DIRS = ((1, 0), (0, 1), (1, 1), (1, -1), (2, 1), (1, 2), (2, -1),
+               (1, -2))
+
+
+def d3_i44_case(np, shape, content, qp):
+    """Seeded source frames (numpy uint8 y [S,H,W], u, v [S,H/2,W/2]) of a
+    D3_I44 case, and its qp: `d3_case`'s but for "stripes", where every MB
+    holds two levels in stripes of a direction of D3_I44_DIRS, a period of
+    3-8 samples and a phase of its own, over noise of -6..6 or none (then
+    blocks inside a stripe predict alike by every mode); its chroma is a
+    level an MB over the same noise."""
+    if content != "stripes":
+        return d3_case(np, shape, content, qp)
+    s, r, c = mb = shape
+    rng = np.random.default_rng([s, r, c, 44, qp])
+    up = lambda x, n: np.repeat(np.repeat(x, n, 1), n, 2)
+    dirs = np.asarray(D3_I44_DIRS)[rng.integers(0, len(D3_I44_DIRS), mb)]
+    yy, xx = np.mgrid[0:16 * r, 0:16 * c]
+    phase = (up(dirs[..., 0], 16) * xx + up(dirs[..., 1], 16) * yy
+             + up(rng.integers(0, 16, mb), 16)) // up(rng.integers(3, 9, mb),
+                                                      16)
+    lo, hi = up(rng.integers(16, 110, mb), 16), up(rng.integers(140, 240, mb),
+                                                    16)
+    amp = rng.integers(0, 2, mb) * 6
+
+    def noise(n):
+        return (rng.integers(-6, 7, (s, n * r, n * c)) * up(amp, n)) // 6
+
+    y = np.where(phase % 2, hi, lo) + noise(16)
+
+    def chroma():
+        x = up(rng.integers(40, 216, mb), 8) + noise(8)
+        return np.clip(x, 0, 255).astype(np.uint8)
+
+    return np.clip(y, 0, 255).astype(np.uint8), chroma(), chroma(), qp
+
+
 def d4_args(torch, case, dev):
     """`_intra_in_p_scan`'s arguments (a dict) for a D4_CASES entry on
     `dev`: the case's source as MB views of int32 planes, `rec_inter`
@@ -2514,6 +2564,90 @@ def d3_edges(dev, torch, np):
           f"(S, R, C) {list(D3_SHAPES)} x {list(D3_CONTENT)}, QPs "
           f"{list(D3_QPS)}; D4 {len(D4_CASES)}, intra shares "
           f"{list(D4_SHARE)}: equal to plain")
+
+
+def meeting_idr(dev, torch):
+    """Phase 11's IDR input: the first frame of the 854x480 x 8 "meeting"
+    clip from RGBA through the session's own padding and colour
+    conversion (int32 planes [8, 480, 864], [8, 240, 432] x 2)."""
+    from tpuh264_torch.engine.encoder import _pad_multiple
+    from tpuh264_torch.kernels import color
+
+    rgba = clip_rgba(dev, 854, 480, 1, 8)[0]
+    return color.rgba_to_yuv420(torch.from_numpy(
+        _pad_multiple(rgba, 16, axes=(1, 2))).to(dev))
+
+
+def k6_i44_bytes(planes) -> int:
+    """K6's Intra_4x4 route: D3's bytes (`k6_bytes`: the trial reads no
+    more and writes the same fields) and the 576 B of tap words once."""
+    return k6_bytes(planes) + 576
+
+
+def d3_i44_equal(planes, qp, torch, what):
+    """K6's Intra_4x4 route against its plain version on one frame batch;
+    fails unless every field and the recon are equal.  Returns
+    (max_abs_err, the Intra_4x4 share of the MBs)."""
+    from tpuh264_torch.kernels import iframe
+
+    k = iframe.encode_iframe_scan(*planes, qp, intra44=True)
+    p = iframe._encode_iframe_scan_plain(*planes, qp, True)
+    torch.cuda.synchronize()
+    pairs = list(zip((*k[0], *k[1]), (*p[0], *p[1])))
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        fail(f"K6-i44 encode_iframe_scan(intra44=True) differs from its "
+             f"plain version ({what})")
+    return (max(max_abs_err(a, b) for a, b in pairs),
+            (k[0].mode == 4).float().mean().item())
+
+
+def d3_i44_timed(planes, qp, torch, what, card, mhz):
+    """K6's Intra_4x4 route equal to its plain version on `planes`, timed
+    beside it: a line, and (max_abs_err, kernel ms, plain ms, bytes)."""
+    from tpuh264_torch.kernels import iframe
+
+    err, share = d3_i44_equal(planes, qp, torch, what)
+    ms = timed(lambda: iframe.encode_iframe_scan(*planes, qp, intra44=True),
+               20)
+    plain = timed(lambda: iframe._encode_iframe_scan_plain(*planes, qp,
+                                                           True), 1)
+    nbytes = k6_i44_bytes(planes)
+    bound = bound_ms(nbytes)
+    c = planes[0].shape[2] // 16
+    print(f"phase 2: K6-i44 {what} ({list(planes[0].shape)} "
+          f"{planes[0].dtype}, QP {qp}, Intra_4x4 share {share:.4f}): equal "
+          f"to plain (max_abs_err {err}); kernel {ms:.4f} ms, plain "
+          f"{plain:.3f} ms, bound {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} "
+          f"MB): {100 * bound / ms:.2f}% of the bound; "
+          f"{k6_cycles(ms, mhz, c):.0f} cycles a MB column ({c} columns) at "
+          f"{mhz} MHz [{card}]")
+    return err, ms, plain, nbytes
+
+
+def d3_i44_rows(dev, torch, np, card, mhz, planes):
+    """K6's Intra_4x4 route (`intra44`) against its plain version: the
+    1080p x 4 I frame `planes` (the row of the kernel table), phase 11's
+    IDR (`meeting_idr`, QP 34: the session's own int32 planes) and every
+    D3_I44 case from uint8 and int32 planes."""
+    err, ms, plain, nbytes = d3_i44_timed(planes, 30, torch,
+                                          "1080p x 4 I frame", card, mhz)
+    row = kernel_row(
+        "K6-i44", "encode_iframe_scan with intra44 (D3's Intra_4x4 route: "
+        "the trial and the I16-vs-I4x4 choice)",
+        "tpuh264_torch/csrc/intra16_enc.cu", "tpuh264/kernels/iframe.py:233",
+        err, ms, plain, nbytes)
+    d3_i44_timed(meeting_idr(dev, torch), 34, torch,
+                 "854x480 x 8 'meeting' session IDR", card, mhz)
+    for case in D3_I44_CASES:
+        y, u, v, qp = d3_i44_case(np, *case)
+        pl = [torch.from_numpy(x).to(dev) for x in (y, u, v)]
+        d3_i44_equal(pl, qp, torch, f"i44 case {case}")
+        d3_i44_equal([x.to(torch.int32) for x in pl], qp, torch,
+                     f"i44 case {case}, int32")
+    print(f"phase 2: K6's Intra_4x4 route, {len(D3_I44_CASES)} seeded cases x "
+          f"(uint8, int32): (S, R, C) {list(D3_I44_SHAPES)} x "
+          f"{list(D3_I44_CONTENT)}, QPs {list(D3_I44_QPS)}: equal to plain")
+    return row
 
 
 def k7_bytes(planes) -> int:
@@ -3764,6 +3898,8 @@ def phase_kernels(dev, torch, np, card):
         "K6", "encode_iframe_scan / _intra_in_p_scan (D3, D4, Intra_16x16 "
         "encode column scan)", "tpuh264_torch/csrc/intra16_enc.cu",
         "tpuh264/kernels/iframe.py:219", err, ms, plain, nbytes))
+    # its Intra_4x4 route (the encoders of intra44 sessions)
+    rows.append(d3_i44_rows(dev, torch, np, card, mhz, (y[0], u[0], v[0])))
     for r in rows:
         show(r, "1080p x 4 shapes")
     del sym, sym4, sym_i
@@ -3993,20 +4129,25 @@ def phase_small_sessions(dev, np):
 
     frames = session_frames(6)
     for name, kw, need_i4 in session_cases():
-        # on the card no plain K5: the Intra_4x4 IDRs take its i44 route
-        real, plain = iframe._intra_recon_scan_plain, []
-        i44_0 = iframe._intra_recon_scan.i44_launches
-        iframe._intra_recon_scan_plain = (
-            lambda *a, **k: plain.append(1) or real(*a, **k))
+        # on the card no plain K5 or K6: the Intra_4x4 IDRs take their i44
+        # routes
+        names = ("_intra_recon_scan_plain", "_encode_iframe_scan_plain")
+        real, plain = [getattr(iframe, a) for a in names], []
+        i44_0 = (iframe._intra_recon_scan.i44_launches,
+                 iframe.encode_iframe_scan.i44_launches)
+        for a, f in zip(names, real):
+            setattr(iframe, a, _plain_spy(a, f, plain))
         try:
             g_data, g_rec, g_dec, idr = run_session_case(kw, dev, frames,
                                                          True)
         finally:
-            iframe._intra_recon_scan_plain = real
-        n_i44 = iframe._intra_recon_scan.i44_launches - i44_0
-        if plain or (need_i4 and n_i44 <= 0):
-            fail(f"64x48 session, {name}: K5's plain version ran "
-                 f"{len(plain)} times, its Intra_4x4 route {n_i44} times")
+            for a, f in zip(names, real):
+                setattr(iframe, a, f)
+        n_i44 = iframe._intra_recon_scan.i44_launches - i44_0[0]
+        n6_i44 = iframe.encode_iframe_scan.i44_launches - i44_0[1]
+        if plain or (need_i4 and min(n_i44, n6_i44) <= 0):
+            fail(f"64x48 session, {name}: plain versions ran {plain}; "
+                 f"the Intra_4x4 routes of K5 {n_i44}, K6 {n6_i44} times")
         c_data, c_rec, _, c_idr = run_session_case(kw, "cpu", frames, False)
         if idr != c_idr or len(idr) < 2:
             fail(f"64x48 session, {name}: IDR frames {idr} / {c_idr}")
@@ -4035,8 +4176,8 @@ def phase_small_sessions(dev, np):
               f"({sum(len(b) for d in g_data for b in d)} B), GPU recon == "
               f"CPU recon, GPU DecoderPool == encoder recon after every "
               f"frame; Intra_4x4 MBs in stream 0's IDR frames: {i4}; "
-              f"launches: K5's Intra_4x4 route {n_i44}, K5's plain version "
-              f"0")
+              f"launches: the Intra_4x4 routes of K5 {n_i44} and K6 "
+              f"{n6_i44}, the plain versions of K5 and K6 none")
 
 
 def check_dpbs(pipe, np, what, i):
@@ -5657,8 +5798,8 @@ def main() -> None:
           f"K15 (device source) {launches.total[14]}, P1 (probe bits) "
           f"{launches.total[15]}, P2 (probe slab sum) {launches.total[16]}; "
           f"of K9's and K10's, their t8 routes {launches.t8_total[0]} / "
-          f"{launches.t8_total[1]}; of K5's, its Intra_4x4 route "
-          f"{launches.i44_total}")
+          f"{launches.t8_total[1]}; of K5's and K6's, their Intra_4x4 "
+          f"routes {launches.i44_total} / {launches.k6_i44_total}")
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "tpuh264"))
     if banned:

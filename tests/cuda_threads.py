@@ -5,10 +5,14 @@ A block's threads run as std::threads, one block at a time; each warp's
 __syncwarp is a std::barrier among its 32 threads (`g_warp[w]`, set by
 the harness), and __syncthreads a std::barrier among the block's threads
 (`g_block`, set by a harness whose kernel calls it). Or, where the
-harness runs a block by `run_block_fibers`, its threads are ucontext
-fibers on one OS thread and the barriers switch between them, each fiber
-resumed once the barrier it waits at opens: for blocks of many warps,
-far cheaper than as many OS threads. `run_cluster_fibers` runs the CTAs
+harness runs a block by `run_block_fibers`, its threads are fibers on
+one OS thread and the barriers switch between them, each fiber resumed
+once the barrier it waits at opens: for blocks of many warps, far
+cheaper than as many OS threads. A fiber is entered by swapcontext; it
+switches by swapcontext too, or, where `fast_switch()` (a one-time probe
+build) found it to work, by _setjmp / _longjmp, which make no system
+call (`CT_LONGJMP`: jumping between stacks is outside what C promises,
+and a shadow stack or a checked longjmp refuses it). `run_cluster_fibers` runs the CTAs
 of one thread-block cluster together so, each with its own warp barriers
 and its own dynamic shared memory (`cl_smem`, filled with a pattern
 first so that a kernel that reads what it never wrote fails); `cl_map`
@@ -17,8 +21,10 @@ cluster barrier, `cl_acquire` / `cl_release` (and `cta_acquire` /
 `cta_release`) plain loads and stores of a flag, and `cl_pause`, the
 body of a kernel's wait loop, yields the fiber. A run in which every
 live fiber only waits (no barrier reached, no flag released) is a
-deadlock and aborts. A warp shuffle or ballot is an exchange through a
-per-warp array after one such warp barrier: the arrays alternate between
+deadlock and aborts. `bar_wait` / `bar_arrive` are a kernel's named
+barriers (bar.sync / bar.arrive id, n) among its fibers. A warp shuffle
+or ballot is an exchange through a per-warp array after one such warp
+barrier: the arrays alternate between
 two copies from one exchange to the next (each thread counts its own),
 so a thread may write the next while a slower one still reads the last;
 every thread of the warp must reach each exchange, as the kernels' warp-
@@ -60,6 +66,7 @@ SHIMS = r"""
 #include <cstring>
 #include <memory>
 #include <vector>
+#include <setjmp.h>
 #include <ucontext.h>
 using std::abs; using std::max; using std::min;
 #define __global__
@@ -94,7 +101,9 @@ struct FiberBar {
   unsigned gen = 0;
 };
 struct Fiber {
-  ucontext_t ctx;
+  ucontext_t ctx;  // its first entry
+  jmp_buf jb;      // where it left off since
+  bool started = false;
   unsigned xcount = 0;
   FiberBar* bar = nullptr;  // the barrier it waits at, of generation gen
   unsigned gen = 0;
@@ -107,6 +116,18 @@ inline Fiber* g_fiber;  // the running one
 inline int g_cta = 0;   // its CTA in the cluster (0 outside fiber mode)
 inline unsigned long g_progress = 0;  // barrier arrivals, flag releases
 inline ucontext_t g_sched;
+inline jmp_buf g_sched_jb;
+// Back to the scheduler.  With CT_LONGJMP every switch after a fiber's
+// first entry is an _setjmp / _longjmp pair, which saves no signal mask:
+// swapcontext makes a system call for it on every switch, several times
+// the cost.
+inline void to_sched() {
+#ifdef CT_LONGJMP
+  if (!_setjmp(g_fiber->jb)) _longjmp(g_sched_jb, 1);
+#else
+  swapcontext(&g_fiber->ctx, &g_sched);
+#endif
+}
 inline void fiber_wait(FiberBar& b) {
   ++g_progress;
   if (++b.count == b.expected) {
@@ -116,7 +137,7 @@ inline void fiber_wait(FiberBar& b) {
   }
   g_fiber->bar = &b;
   g_fiber->gen = b.gen;
-  swapcontext(&g_fiber->ctx, &g_sched);
+  to_sched();
 }
 inline void __syncwarp() {
   if (g_fibers)
@@ -129,6 +150,25 @@ inline void __syncthreads() {
     fiber_wait(g_fblock[g_cta]);
   else
     g_block->arrive_and_wait();
+}
+// A named barrier `id` of `n` threads (fiber mode): `bar_wait` (bar.sync
+// id, n) waits for it; `bar_arrive` (bar.arrive id, n) counts towards it
+// and goes on.
+inline FiberBar g_fnamed[kMaxCta][16];
+inline void bar_arrive(int id, int n) {
+  if (!g_fibers) abort();
+  FiberBar& b = g_fnamed[g_cta][id];
+  b.expected = n;
+  ++g_progress;
+  if (++b.count == b.expected) {
+    b.count = 0;
+    ++b.gen;
+  }
+}
+inline void bar_wait(int id, int n) {
+  if (!g_fibers) abort();
+  g_fnamed[g_cta][id].expected = n;
+  fiber_wait(g_fnamed[g_cta][id]);
 }
 // Clusters (run_cluster_fibers): each CTA's dynamic shared memory, DSMEM,
 // the cluster barrier, flags and the yield of a wait loop.
@@ -151,7 +191,7 @@ inline unsigned cta_acquire(const unsigned* p) { return cl_acquire(p); }
 inline void cta_release(unsigned* p, unsigned v) { cl_release(p, v); }
 inline void cl_pause() {
   g_fiber->bar = nullptr;
-  swapcontext(&g_fiber->ctx, &g_sched);
+  to_sched();
 }
 inline uint32_t g_xchg[kMaxCta][32][2][32];
 inline thread_local unsigned g_xcount;
@@ -227,6 +267,9 @@ inline void fiber_entry() {
   g_fiber_body();
   ++g_progress;
   g_fiber->done = true;
+#ifdef CT_LONGJMP
+  _longjmp(g_sched_jb, 1);  // never returns through uc_link
+#endif
 }
 inline void run_cluster_fibers(int n, int ctas, int first_block, size_t smem,
                                std::function<void()> body) {
@@ -267,7 +310,15 @@ inline void run_cluster_fibers(int n, int ctas, int first_block, size_t smem,
       g_cta = f.cta;
       g_xcount = f.xcount;
       g_fiber = &f;
+#ifdef CT_LONGJMP
+      if (!_setjmp(g_sched_jb)) {
+        if (f.started) _longjmp(f.jb, 1);
+        f.started = true;
+        swapcontext(&g_sched, &f.ctx);
+      }
+#else
       swapcontext(&g_sched, &f.ctx);
+#endif
       f.xcount = g_xcount;
       live -= f.done;
     }
@@ -342,21 +393,78 @@ inline unsigned __vsadu4(unsigned a, unsigned b) {
 """
 
 
+def _gxx(gxx, d, defines, csrc, exe, src, **kw):
+    # -U_FORTIFY_SOURCE: with CT_LONGJMP, _longjmp between fiber stacks
+    # must not be the checked longjmp
+    return subprocess.run([gxx, "-std=c++20", "-O1", "-fno-strict-aliasing",
+                           "-U_FORTIFY_SOURCE", "-pthread",
+                           *(f"-D{x}" for x in defines), "-I", str(d),
+                           "-I", csrc, "-o", str(exe), str(src)], **kw)
+
+
+# Fibers of two warps that meet at warp and block barriers and exchange
+# by shuffles many times, each summing what it saw: 0 where every sum is
+# right.
+_PROBE = r"""
+#include <cuda_runtime.h>
+int main() {
+  static int got[64];
+  for (int b = 0; b < 3; ++b)
+    run_block_fibers(64, b, [&] {
+      const int t = threadIdx.x;
+      int acc = 0;
+      for (int i = 0; i < 200; ++i) {
+        acc += __shfl_sync(~0u, t + i, (t + 1) & 31);
+        __syncthreads();
+      }
+      got[t] = acc;
+    });
+  for (int t = 0; t < 64; ++t) {
+    int want = 0;
+    for (int i = 0; i < 200; ++i) want += (t & 32) + ((t + 1) & 31) + i;
+    if (got[t] != want) return 1;
+  }
+  return 0;
+}
+"""
+_FAST = []
+
+
+def fast_switch(gxx: str, d) -> bool:
+    """Whether fibers may switch by _setjmp / _longjmp (CT_LONGJMP) with
+    this compiler and C library: a probe built and run once a process, in
+    directory `d`; any failure (a shadow stack, a checked longjmp, a
+    crash) keeps swapcontext."""
+    if not _FAST:
+        src = d / "switch_probe.cpp"
+        src.write_text(_PROBE)
+        exe = d / "switch_probe"
+        try:
+            ok = (_gxx(gxx, d, ("CT_LONGJMP",), str(d), exe, src,
+                       capture_output=True).returncode == 0
+                  and subprocess.run([os.path.abspath(exe)],
+                                     capture_output=True,
+                                     timeout=60).returncode == 0)
+        except (OSError, subprocess.TimeoutExpired):
+            ok = False
+        _FAST.append(ok)
+    return _FAST[0]
+
+
 def build(d, harness: str, csrc: str, name: str, defines=()) -> str:
     """Compile `harness` (C++ that includes a kernel source of `csrc`)
     against the shims, in directory `d`, with the macros `defines`
-    ("NAME=VALUE"): the executable's path.  Skips the test where there is
-    no g++."""
+    ("NAME=VALUE") and CT_LONGJMP where `fast_switch` allows it: the
+    executable's path.  Skips the test where there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ (C++20) to run the kernel source on the CPU")
     (d / "cuda_runtime.h").write_text(SHIMS)
     (d / "harness.cpp").write_text(harness)
     exe = d / name
-    subprocess.run([gxx, "-std=c++20", "-O1", "-fno-strict-aliasing",
-                    "-pthread", *(f"-D{x}" for x in defines), "-I", str(d),
-                    "-I", csrc, "-o", str(exe), str(d / "harness.cpp")],
-                   check=True)
+    fast = ("CT_LONGJMP",) if fast_switch(gxx, d) else ()
+    _gxx(gxx, d, (*fast, *defines), csrc, exe, d / "harness.cpp",
+         check=True)
     return str(exe)
 
 

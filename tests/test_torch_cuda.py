@@ -604,13 +604,17 @@ def test_refs_and_winner_raise_without_fallback(dev, monkeypatch):
     assert not plain
 
 
-def _i16_both(planes, qp):
-    """K6 as the I encode's scan (D3) and its plain version, one input."""
-    before = IF.encode_iframe_scan.launches
-    got = IF.encode_iframe_scan(*planes, qp)
-    want = IF._encode_iframe_scan_plain(*planes, qp)
+def _i16_both(planes, qp, intra44=False):
+    """K6 as the I encode's scan (D3; with `intra44`, its Intra_4x4 route)
+    and its plain version, one input."""
+    before = (IF.encode_iframe_scan.launches,
+              IF.encode_iframe_scan.i44_launches)
+    got = IF.encode_iframe_scan(*planes, qp, intra44=intra44)
+    want = IF._encode_iframe_scan_plain(*planes, qp, intra44)
     torch.cuda.synchronize()
-    assert IF.encode_iframe_scan.launches == before + 1
+    assert (IF.encode_iframe_scan.launches,
+            IF.encode_iframe_scan.i44_launches) == (before[0] + 1,
+                                                    before[1] + intra44)
     for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
@@ -650,6 +654,25 @@ def test_intra16_kernel_matches_plain_d4_cases(dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.D3_I44_CASES)
+def test_intra16_i44_route_matches_plain_cases(dev, case):
+    """D3's Intra_4x4 route on chip_smoke phase 2's seeded frames (C = 1,
+    2, 3 and 61; stripes, flat, noise, 0 / 255; QPs 0, 12, 28, 51), uint8
+    and int32."""
+    y, u, v, qp = chip_smoke.d3_i44_case(np, *case)
+    planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
+    _i16_both(planes, qp, True)
+    _i16_both([p.to(torch.int32) for p in planes], qp, True)
+
+
+@pytest.mark.cuda
+def test_intra16_i44_route_matches_plain_session_idr(dev):
+    """D3's Intra_4x4 route on phase 11's IDR: the 854x480 x 8 "meeting"
+    session's own int32 planes at QP 34."""
+    _i16_both(chip_smoke.meeting_idr(dev, torch), 34, True)
+
+
+@pytest.mark.cuda
 def test_intra16_kernel_matches_plain_1080p(dev):
     """D3 on a 1080p x 4 frame of "rigid", and D4 on the intra-in-P P
     encode's own inputs of the scan at 480p x 8."""
@@ -664,8 +687,8 @@ def test_intra16_kernel_matches_plain_1080p(dev):
 @pytest.mark.cuda
 def test_intra16_raises_without_fallback(dev, monkeypatch):
     """A kernel library that cannot be built, or an entry that reports a
-    CUDA error at launch, raises: the plain versions are never taken;
-    with intra44 the I encode takes its plain version by argument."""
+    CUDA error at launch, raises: the plain versions are never taken,
+    with intra44 neither."""
     y, u, v, qp = chip_smoke.d3_case(np, (2, 2, 3), "noise", 28)
     planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
     kw = chip_smoke.d4_args(torch, chip_smoke.D4_CASES[7], dev)
@@ -684,6 +707,8 @@ def test_intra16_raises_without_fallback(dev, monkeypatch):
         IF.encode_iframe_scan(*planes, qp)
     with pytest.raises(RuntimeError, match="nvcc"):
         TP._intra_in_p_scan(**kw)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        IF.encode_iframe_scan(*planes, qp, intra44=True)
 
     class Refusing:
         def __getattr__(self, name):
@@ -697,14 +722,18 @@ def test_intra16_raises_without_fallback(dev, monkeypatch):
         def th264_intra16_in_p_rows(*args):
             return 9
 
+        @staticmethod
+        def th264_intra44_encode_rows(*args):
+            return 9
+
     monkeypatch.setattr(cuda_lib, "load", lambda: Refusing())
     with pytest.raises(RuntimeError, match="th264_intra16_encode_rows"):
         IF.encode_iframe_scan(*planes, qp)
     with pytest.raises(RuntimeError, match="th264_intra16_in_p_rows"):
         TP._intra_in_p_scan(**kw)
+    with pytest.raises(RuntimeError, match="th264_intra44_encode_rows"):
+        IF.encode_iframe_scan(*planes, qp, intra44=True)
     assert not plain
-    IF.encode_iframe_scan(*planes, qp, intra44=True)
-    assert plain == [1]
 
 
 def _wave_both(planes, qp):

@@ -9,6 +9,7 @@ chip_smoke.py phase 2 holds the kernel to its plain versions with on the
 card.  Every comparison is exact (array_equal): this is an integer codec.
 """
 
+import concurrent.futures
 import os
 import subprocess
 
@@ -22,6 +23,7 @@ from tpuh264.kernels import iframe as jif
 from tpuh264.kernels import pframe as jpf
 from tpuh264_torch.kernels import cuda_lib
 from tpuh264_torch.kernels import iframe as tif
+from tpuh264_torch.kernels import intra44 as I44
 from tpuh264_torch.kernels import pframe as tpf
 from tpuh264_torch.kernels import transform as T
 
@@ -145,9 +147,10 @@ def test_cases_cover_what_they_claim():
     assert ties >= long[0] * long[1]  # each lane's first tie at least
 
 
-# Reads int32 lanes C qp qpc src_u8 d4, then the source planes y u v
-# (uint8 where src_u8, else int32) and, where d4, the int32 inter SAD and
-# rec_inter y u v; writes every output in the entry's order.
+# Reads int32 lanes C qp qpc src_u8 d4 i44 lam8, then the source planes y
+# u v (uint8 where src_u8, else int32), where d4 the int32 inter SAD and
+# rec_inter y u v, and where i44 the 144 tap words; runs the kI44 instance
+# where i44; writes every output in the entry's order.
 HARNESS = r"""
 #include <cuda_runtime.h>
 #include <cstdio>
@@ -160,16 +163,17 @@ template <typename T> void wr(const std::vector<T>& x) {
   fwrite(x.data(), sizeof(T), x.size(), stdout);
 }
 int main() {
-  int32_t h[6];
-  if (fread(h, 4, 6, stdin) != 6) return 2;
+  int32_t h[8];
+  if (fread(h, 4, 8, stdin) != 8) return 2;
   const int lanes = h[0], C = h[1], qp = h[2], qpc = h[3], u8 = h[4],
-            d4 = h[5];
+            d4 = h[5], i44 = h[6], lam8 = h[7];
   const size_t m = (size_t)lanes * C, es = u8 ? 1 : 4;
   std::vector<uint8_t> sy(256 * m * es), su(64 * m * es), sv(64 * m * es);
   std::vector<int32_t> isad(d4 ? m : 0), iy(d4 ? 256 * m : 0),
       iu(d4 ? 64 * m : 0), iv(d4 ? 64 * m : 0);
+  std::vector<uint32_t> taps(i44 ? 144 : 0);
   if (!rd(sy) || !rd(su) || !rd(sv) || !rd(isad) || !rd(iy) || !rd(iu) ||
-      !rd(iv))
+      !rd(iv) || !rd(taps))
     return 3;
   std::vector<int32_t> mode(m), cmode(m), cbl(m), cbc(m), sad(d4 ? m : 0);
   std::vector<uint8_t> use(d4 ? m : 0);
@@ -184,9 +188,14 @@ int main() {
                   p(iu), p(iv), mode.data(), cmode.data(), cbl.data(),
                   cbc.data(), p(sad), p(use), dc.data(), ac.data(),
                   cdc.data(), cac.data(), p(i4), p(ry8), p(ru8), p(rv8),
-                  p(ry), p(ru), p(rv), lanes, C, qp, qpc};
+                  p(ry), p(ru), p(rv), lanes, C, qp, qpc, p(taps), lam8};
   for (int b = 0; b < lanes; ++b)
-    run_block_fibers(kThreads, b, [&] { intra16_enc_kernel(args); });
+    run_block_fibers(kThreads, b, [&] {
+      if (i44)
+        intra16_enc_kernel<true>(args);
+      else
+        intra16_enc_kernel<false>(args);
+    });
   wr(mode), wr(cmode), wr(cbl), wr(cbc), wr(sad), wr(use), wr(dc), wr(ac);
   wr(cdc), wr(cac), wr(i4), wr(ry8), wr(ru8), wr(rv8), wr(ry), wr(ru);
   wr(rv);
@@ -207,16 +216,20 @@ def cpu_kernel(tmp_path_factory):
                               "intra16_enc_cpu")
 
 
-def _run(exe, planes, qp, d4=None):
+def _run(exe, planes, qp, d4=None, i44=False):
     """K6's source on CPU threads: its outputs as a dict of numpy arrays
     (the K6Out names; recon rec_y, rec_u, rec_v), planes uint8 or int32
-    [S, H, W] x 3."""
+    [S, H, W] x 3; `i44`: the Intra_4x4 route (the kI44 instance, with
+    the tap words and lam8 the router passes)."""
     s, h, w = planes[0].shape
     r, c = h // 16, w // 16
     m, u8 = s * r * c, planes[0].dtype == torch.uint8
     qpc = tif.T.chroma_qp_from_luma(qp)
-    head = np.array([s * r, c, qp, qpc, u8, d4 is not None], np.int32)
+    head = np.array([s * r, c, qp, qpc, u8, d4 is not None, i44,
+                     tif._LAMBDA8[qp]], np.int32)
     ins = list(planes) + ([] if d4 is None else [d4[0], *d4[1]])
+    if i44:
+        ins.append(torch.from_numpy(I44.tap_words()))
     body = head.tobytes() + b"".join(
         x.contiguous().numpy().tobytes() for x in ins)
     out = subprocess.run([exe], input=body, capture_output=True,
@@ -416,35 +429,261 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
             tpf._intra_in_p_scan.launches) == before
 
 
-def test_intra44_goes_to_the_plain_version(monkeypatch):
-    """With `intra44` (its trial sits on the chain: D5's work) the router
-    takes the plain version by argument, on any device, without loading
-    the kernel library; without it, a tensor off the CPU never reaches
-    the plain versions: on a device the kernel cannot take, both routers
-    raise."""
-    calls = []
+def test_intra44_calls_reach_the_kernel(monkeypatch):
+    """With `intra44` a tensor off the CPU never reaches the plain version:
+    past the device checks the router reaches K6's Intra_4x4 entry with
+    the tap words and lam8 = _LAMBDA8[qp] and counts a launch of the
+    route; CPU tensors still take the plain version without loading the
+    kernel library; on a device the kernel cannot take, or at a QP outside
+    0..51, the router raises before any launch, and so does D4's router
+    (`_intra_in_p_scan`) on a device the kernel cannot take."""
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran off the CPU")
 
-    def plain(*a, **kw):
-        calls.append(a)
-        return "plain"
-
-    monkeypatch.setattr(tif, "_encode_iframe_scan_plain", plain)
-    monkeypatch.setattr(tpf, "_intra_in_p_scan_plain", plain)
+    # CPU tensors: the plain version, by the device alone
     monkeypatch.setattr(cuda_lib, "load", _refuse)
+    planes, qp = _frames(chip_smoke.D3_CASES[6])
+    planes = [torch.from_numpy(p) for p in planes]
     before = (tif.encode_iframe_scan.launches,
-              tpf._intra_in_p_scan.launches)
+              tif.encode_iframe_scan.i44_launches)
+    got = tif.encode_iframe_scan(*planes, qp, intra44=True)
+    want = tif._encode_iframe_scan_plain(*planes, qp, True)
+    for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        assert torch.equal(a, b)
+    assert (tif.encode_iframe_scan.launches,
+            tif.encode_iframe_scan.i44_launches) == before
+    # off the CPU: never the plain version; a bad device or QP raises
+    monkeypatch.setattr(tif, "_encode_iframe_scan_plain", refuse)
     meta = [torch.zeros(sh, dtype=torch.uint8, device="meta")
             for sh in ((2, 32, 48), (2, 16, 24), (2, 16, 24))]
-    assert tif.encode_iframe_scan(*meta, 30, intra44=True) == "plain"
-    assert len(calls) == 1 and calls[0][4] is True
-    with pytest.raises(ValueError):
-        tif.encode_iframe_scan(*meta, 30)
+    for bad_qp in (30, 52, -1):
+        with pytest.raises(ValueError):
+            tif.encode_iframe_scan(*meta, bad_qp, intra44=True)
+    # D4's router likewise: off the CPU it raises, never the plain version
+    monkeypatch.setattr(tpf, "_intra_in_p_scan_plain", refuse)
     kw = {k: (x.to("meta") if torch.is_tensor(x) else
               tuple(p.to("meta") for p in x) if isinstance(x, tuple) else x)
           for k, x in chip_smoke.d4_args(
               torch, chip_smoke.D4_CASES[7], "cpu").items()}
     with pytest.raises(ValueError):
         tpf._intra_in_p_scan(**kw)
-    assert len(calls) == 1
+    # past the device checks (meta tensors standing in for the card's)
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *a: calls.append((name, a)) or 0
+
+    taps = torch.from_numpy(I44.tap_words())
+    monkeypatch.setattr(cuda_lib, "load", Lib)
+    monkeypatch.setattr(cuda_lib, "check_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "stream", lambda dev: None)
+    monkeypatch.setattr(tif.tables, "get", lambda name, dev: (
+        taps if name == "i44_taps" else None))
+    for qp in (0, 30, 51):
+        tif.encode_iframe_scan(*meta, qp, intra44=True)
+        name, args = calls[-1]
+        assert name == "th264_intra44_encode_rows"
+        # lanes, columns, QPs, then the tap words and lam8, then the stream
+        assert args[16:] == (2 * 2, 3, qp, T.chroma_qp_from_luma(qp),
+                             taps.data_ptr(), tif._LAMBDA8[qp], None)
+    tif.encode_iframe_scan(*meta, 30)
+    assert calls[-1][0] == "th264_intra16_encode_rows"
     assert (tif.encode_iframe_scan.launches,
-            tpf._intra_in_p_scan.launches) == before
+            tif.encode_iframe_scan.i44_launches) == (before[0] + 4,
+                                                     before[1] + 3)
+
+
+# -- the Intra_4x4 route (`intra44`, the kI44 instance) ----------------------
+
+# each D3_I44 case from uint8 and from int32 planes
+I44_RUNS = [(case, dt) for case in chip_smoke.D3_I44_CASES
+            for dt in ("uint8", "int32")]
+_PLAIN44 = {}
+
+
+def _i44_planes(case, dtype="uint8"):
+    y, u, v, qp = chip_smoke.d3_i44_case(np, *case)
+    return [torch.from_numpy(p).to(getattr(torch, dtype))
+            for p in (y, u, v)], qp
+
+
+def _plain44(case):
+    """`_encode_iframe_scan_plain(intra44=True)` of a D3_I44 case (its
+    symbols and recon), once a module."""
+    if case not in _PLAIN44:
+        planes, qp = _i44_planes(case)
+        _PLAIN44[case] = tif._encode_iframe_scan_plain(*planes, qp, True)
+    return _PLAIN44[case]
+
+
+def _equal44(got, case):
+    sym, rec = _plain44(case)
+    return (all(np.array_equal(got[f], getattr(sym, f).numpy())
+                for f in tif.MBSymbols._fields)
+            and all(np.array_equal(got[f], w.numpy())
+                    for f, w in zip(("rec_y", "rec_u", "rec_v"), rec)))
+
+
+@pytest.mark.parametrize("case,dtype", I44_RUNS, ids=str)
+def test_i44_source_on_cpu_threads_matches_plain(cpu_kernel, case, dtype):
+    """The Intra_4x4 route's source on CPU threads (the trial warp's 16
+    block steps a column: neighbours from the MB's samples in shared
+    memory, DC and the tap words' predictions two modes a pass, packed SAD
+    reductions, the first least available mode, the transforms by
+    shuffles; the luma warp's Intra_16x16 candidate with its SSD and rate,
+    the named barrier, the choice and the stores) equals
+    `_encode_iframe_scan_plain(intra44=True)` on every field and plane."""
+    planes, qp = _i44_planes(case, dtype)
+    got = _run(cpu_kernel, planes, qp, i44=True)
+    sym, rec = _plain44(case)
+    for f in tif.MBSymbols._fields:
+        _eq(got[f], getattr(sym, f).numpy(), f)
+    for f, want in zip(("rec_y", "rec_u", "rec_v"), rec):
+        _eq(got[f], want.numpy(), f)
+
+
+def test_i44_source_matches_jax(cpu_kernel):
+    """The route's source on CPU threads equals JAX's
+    `encode_iframe_scan(intra44=True)` on a case where Intra_4x4 wins a
+    share of the MBs."""
+    case = ((2, 4, 2), "stripes", 28)
+    planes, qp = _i44_planes(case)
+    jsym, jrec = jif.encode_iframe_scan(*(p.numpy() for p in planes), qp,
+                                        intra44=True)
+    got = _run(cpu_kernel, planes, qp, i44=True)
+    assert 0 < (got["mode"] == 4).mean() < 1
+    for f in tif.MBSymbols._fields:
+        _eq(np.asarray(getattr(jsym, f)), got[f], f)
+    for a, f in zip(jrec, ("rec_y", "rec_u", "rec_v")):
+        _eq(np.asarray(a), got[f], f)
+
+
+def _j_ties(case):
+    """The MBs of a D3_I44 case whose J = 8 SSD + lam8 rate is the same for
+    Intra_16x16 and Intra_4x4 (recomputed beside the plain scan's own
+    choice, `_intra44_choice`, from its arguments)."""
+    ties, real = [], tif._intra44_choice
+
+    def spy(m, ymb, left_y, first, qp):
+        lead = ymb.shape[:2]
+        left = torch.zeros((*lead, 16), dtype=torch.int32) if first else left_y
+        _, _, coef, _, rec = I44.encode_mb(ymb, left, torch.full(
+            lead, not first), qp)
+        ssd = lambda r: ((r - ymb) ** 2).sum((-1, -2))
+        j16 = 8 * ssd(m.rec[0]) + tif._LAMBDA8[qp] * (
+            8 + tif._rate_bits(m.dc_zz, (-1,))
+            + tif._rate_bits(m.ac_zz, (-1, -2, -3)))
+        j44 = 8 * ssd(rec) + tif._LAMBDA8[qp] * (
+            96 + tif._rate_bits(coef, (-1, -2)))
+        ties.append(int((j16 == j44).sum()))
+        return real(m, ymb, left_y, first, qp)
+
+    tif._intra44_choice = spy
+    try:
+        planes, qp = _i44_planes(case)
+        tif._encode_iframe_scan_plain(*planes, qp, True)
+    finally:
+        tif._intra44_choice = real
+    return sum(ties)
+
+
+def test_i44_cases_cover_what_they_claim():
+    """D3_I44_CASES: C = 1, 2, 3 and 61; every content meets every QP;
+    Intra_4x4 wins a share strictly between 0 and
+    1 of some case's MBs, and an MB of column 0; every mode 0-8 is chosen
+    somewhere; an exact J tie (Intra_16x16 must win it) in a small case.
+    No case can tell a level's bit length capped at 16 from 32 - clz:
+    every level is below 2^13 (an Intra_4x4 level at most (36 * 255 *
+    5243 + 2^15 / 3) >> 15, a luma DC level (16 * 4080 * 13107 + 2^17 /
+    3) >> 17)."""
+    assert {c for _, _, c in chip_smoke.D3_I44_SHAPES} == {1, 2, 3, 61}
+    assert {(c, q) for _, c, q in chip_smoke.D3_I44_CASES} == {
+        (c, q) for c in chip_smoke.D3_I44_CONTENT
+        for q in chip_smoke.D3_I44_QPS}
+    shares, modes, col0 = [], set(), False
+    for case in chip_smoke.D3_I44_CASES:
+        sym, _ = _plain44(case)
+        i4 = sym.mode == 4
+        shares.append(i4.float().mean().item())
+        modes |= set(sym.i4modes[i4].unique().tolist())
+        col0 |= bool(i4[..., 0].any())
+        assert (sym.i4modes[~i4] == -1).all()
+        assert (sym.luma_dc[i4] == 0).all()
+        for f in ("luma_dc", "luma_ac"):
+            assert getattr(sym, f).abs().max() < 1 << 13
+    assert any(0 < x < 1 for x in shares) and col0
+    assert modes == set(range(9))
+    assert _j_ties(chip_smoke.D3_I44_CASES[0]) > 0
+
+
+# mutants of the Intra_4x4 route, each a replacement in a source: J's
+# strict comparison (Intra_16x16 wins a tie) made <=; the last of tied
+# modes winning; TR real where `_static_tr_kind` repeats T3; i4modes
+# stored in raster order; slot 0 of an Intra_4x4 block's levels zeroed
+I44_MUTANTS = {
+    "J tie to Intra_4x4": (
+        "intra16_enc.cu",
+        "8 * tr.ssd + a.lam8 * tr.rate < 8 * ssd16 + a.lam8 * r16",
+        "8 * tr.ssd + a.lam8 * tr.rate <= 8 * ssd16 + a.lam8 * r16"),
+    "last tied mode": (
+        "intra44_common.cuh",
+        "0xffffu) * 16 + m\n"
+        "                 : 0x7fffffff;\n"
+        "  const int a = min(min(key[0], key[1]), min(key[2], key[3]));\n"
+        "  const int b = min(min(key[4], key[5]), min(key[6], key[7]));\n"
+        "  return min(min(a, b), key[8]) & 15;",
+        "0xffffu) * 16 + 8 - m\n"
+        "                 : 0x7fffffff;\n"
+        "  const int a = min(min(key[0], key[1]), min(key[2], key[3]));\n"
+        "  const int b = min(min(key[4], key[5]), min(key[6], key[7]));\n"
+        "  return 8 - (min(min(a, b), key[8]) & 15);"),
+    "TR real where repeated": (
+        "intra44_common.cuh",
+        "  return blk_y(bi) > 0 && blk_x(bi) < 3 &&\n"
+        "         blk_z(blk_x(bi) + 1, blk_y(bi) - 1) < bi;",
+        "  return blk_y(bi) > 0 && blk_x(bi) < 3;"),
+    "i4modes in raster order": (
+        "intra16_enc.cu", "tr.modes[bi] = (int16_t)best;",
+        "tr.modes[4 * by + bx] = (int16_t)best;"),
+    "slot 0 zeroed": (
+        "intra16_enc.cu", "tr.coef[4 * by + bx][ln.slot] = (int16_t)z;",
+        "tr.coef[4 * by + bx][ln.slot] = (int16_t)(ln.slot ? z : 0);"),
+}
+
+
+@pytest.fixture(scope="module")
+def i44_mutants(tmp_path_factory):
+    """The I44_MUTANTS, each a copy of csrc with its replacement, built
+    all at once (the directories made first: tmp_path_factory is not
+    thread-safe)."""
+    csrc = os.path.dirname(SOURCE)
+    jobs = []
+    for name, (src, old, new) in I44_MUTANTS.items():
+        d = tmp_path_factory.mktemp("k6_i44_mutant_src")
+        for f in os.listdir(csrc):
+            with open(os.path.join(csrc, f)) as fh:
+                text = fh.read()
+            if f == src:
+                assert text.count(old) == 1, name
+                text = text.replace(old, new)
+            (d / f).write_text(text)
+        jobs.append((name, tmp_path_factory.mktemp("k6_i44_mutant"), str(d)))
+
+    def one(job):
+        name, out, csrc = job
+        return name, cuda_threads.build(out, HARNESS, csrc, "k6_i44_mutant")
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        return dict(ex.map(one, jobs))
+
+
+@pytest.mark.parametrize("name", I44_MUTANTS)
+def test_i44_mutants_fail(i44_mutants, name):
+    """Each mutant of the Intra_4x4 route differs from the plain version
+    on some case of D3_I44_CASES."""
+    for case in chip_smoke.D3_I44_CASES:
+        planes, qp = _i44_planes(case)
+        if not _equal44(_run(i44_mutants[name], planes, qp, i44=True), case):
+            return
+    pytest.fail(f"mutant {name!r} passed every case")

@@ -3,10 +3,10 @@
 // 2x2 chroma DC Hadamard, the quarter-pel component tables, the
 // eighth-pel chroma motion compensation, packed-byte helpers, the
 // motion vector rate, and the 8x8 transform's passes, quantiser, scales,
-// zigzag and level rate of the t8 routes.  Each bit-exact with the torch
-// code of kernels/transform.py, transform8.py, iframe.py and
-// kernels/pframe.py; on top of
-// intra16_common.cuh's tables and integer quant / dequant forms.  The
+// zigzag of the t8 routes.  Each bit-exact with the torch code of
+// kernels/transform.py, transform8.py, iframe.py and kernels/pframe.py;
+// on top of intra16_common.cuh's tables, integer quant / dequant forms
+// and level rate (`rate_bits`).  The
 // reference planes are K11's: uint8, rows 16-byte aligned and a pitch of
 // a multiple of 16 bytes apart (kernels/pframe.py `_references`).
 //
@@ -255,13 +255,6 @@ __device__ __forceinline__ int dq8(int z, int v, int qp) {
   const int zv = z * v;
   return qp >= 12 ? zv * (1 << (qp / 6 - 2))  // the shift, defined for zv < 0
                   : (zv + (1 << (1 - qp / 6))) >> (2 - qp / 6);
-}
-
-// kernels/iframe.py `_rate_bits` of one level: 2 bit_length(|l|) + 1,
-// the length counted against the powers up to 2^15 (so at most 16), 0
-// for a zero level
-__device__ __forceinline__ int rate_bits(int l) {
-  return l ? 2 * min(32 - __clz(abs(l)), 16) + 1 : 0;
 }
 
 }  // namespace

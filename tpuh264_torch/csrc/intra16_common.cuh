@@ -1,8 +1,9 @@
 // The device helpers K6 (intra16_enc.cu), K7 / K8 (wavefront.cu) and K5
 // (intra_recon.cu) share: the H.264 quantiser tables and their integer
 // quant / dequant forms, zigzag and Hadamard indexing, small vector
-// helpers, and the Intra_16x16 residual decode of K8 and K5 from the
-// parsed levels (`load_levels`, `block_residual`).  Each
+// helpers, the level rate of the Intra_4x4 and 8x8 choices (`rate_bits`),
+// and the Intra_16x16 residual decode of K8 and K5 from the parsed levels
+// (`load_levels`, `block_residual`).  Each
 // bit-exact with the torch code of kernels/transform.py (itself with
 // golden/transform.py): every `>>` of a negative value is arithmetic, and
 // a dequant `(z * v) << k` is written as a multiply by 1 << k (a left
@@ -106,6 +107,13 @@ __device__ __forceinline__ uint32_t pack16(int lo, int hi) {
 __device__ __forceinline__ uint32_t pack4(int4 v) {
   return (uint32_t)(v.x & 255) | ((uint32_t)(v.y & 255) << 8) |
          ((uint32_t)(v.z & 255) << 16) | ((uint32_t)(v.w & 255) << 24);
+}
+
+// kernels/iframe.py `_rate_bits` of one level: 2 bit_length(|l|) + 1,
+// the length counted against the powers up to 2^15 (so at most 16), 0
+// for a zero level
+__device__ __forceinline__ int rate_bits(int l) {
+  return l ? 2 * min(32 - __clz(abs(l)), 16) + 1 : 0;
 }
 
 __device__ __forceinline__ int clip16(int x) {

@@ -1,13 +1,15 @@
-// K6: the encoder's Intra_16x16 column scans (D3, the I encode, and D4,
-// the intra-in-P trial of the P encode): a block of six warps per MB
-// row, with only the prediction-dependent work on the column chain.
+// K6: the encoder's intra column scans (D3, the I encode, with its
+// Intra_4x4 route for `intra44`, and D4, the intra-in-P trial of the P
+// encode): a block of six warps per MB row, with only the
+// prediction-dependent work on the column chain.
 //
 // Replaces: the jax.lax.scan of tpuh264/kernels/iframe.py
-// `encode_iframe_scan` (:199; step :219, scan :308) and the intra-in-P
-// scan of tpuh264/kernels/pframe.py `encode_pframe_rows_multi` (:638;
-// `_intra16_costs` :531, substep :866, scan :989), not pallas_calls.
-// Its plain PyTorch versions are `kernels/iframe.py`
-// `_encode_iframe_scan_plain` (called without intra44) and
+// `encode_iframe_scan` (:199; step :219, its Intra_4x4 trial and choice
+// :233-260 with tpuh264/kernels/intra44.py `encode_mb` :289, scan :308)
+// and the intra-in-P scan of tpuh264/kernels/pframe.py
+// `encode_pframe_rows_multi` (:638; `_intra16_costs` :531, substep :866,
+// scan :989), not pallas_calls.  Its plain PyTorch versions are
+// `kernels/iframe.py` `_encode_iframe_scan_plain` and
 // `kernels/pframe.py` `_intra_in_p_scan_plain`.
 //
 // What it computes, exactly as the plain versions (`_intra16_mb` a
@@ -99,12 +101,66 @@
 //    the levels at 4, 8, 12 (their zigzag slots), the dequantised DC, the
 //    column passes, the reconstruction, cbp by ballots, the DC levels,
 //    modes, SAD and choice; D4 copies rec_inter where inter wins.
+//
+// The Intra_4x4 route (`intra44`, the entry th264_intra44_encode_rows):
+// the template instance kI44, so that the D3 and D4 instances keep their
+// code and registers.  Per MB (kernels/iframe.py `_intra44_choice`) the
+// Intra_16x16 candidate above and the causal Intra_4x4 trial
+// (kernels/intra44.py `encode_mb`: the 16 blocks in z-scan order, each
+// predicted by the first available mode of least SAD from the samples the
+// blocks before it reconstructed, its 16 levels quant4x4 (intra) of
+// forward4x4, its samples idct_add); the MB keeps the one of lower J = 8
+// SSD + lam8 rate (rate: 8 + the DC and AC levels' 2 bit_length + 1 for
+// Intra_16x16, 96 + the levels' for Intra_4x4; Intra_16x16 on a tie), and
+// its luma right column is the next MB's left.  Chroma does not depend on
+// the choice.  The next left now needs the whole candidate (its SSD and
+// rate) and the trial's 16 dependent block steps, so D3's split of the
+// luma chain does not carry over: the instance re-schedules the luma
+// roles, at step k column k - 1:
+//  * warp 0 walks the trial through the MB's samples in shared memory
+//    (intra44_common.cuh's layout, the left column beside them): a block
+//    step reads the 13 neighbours and DC's samples, the other modes two a
+//    pass from their tap words (lanes 0-15 modes 0, 2, 4, 6, 8, lanes
+//    16-31 1, 3, 5, 7), the passes' SADs two a word by one redux each, the
+//    first least available mode from keys in registers, forward4x4,
+//    quant, dequant and inverse4x4 by shuffles along rows and columns;
+//    lanes 0-15 store the samples and levels.  Then its SSD, rate and
+//    cbp, and bar.arrive on named barrier 1.
+//  * warp 4 meanwhile runs the chain's Intra_16x16 choice and finish's
+//    levels and reconstruction of the same column, with its SSD and rate;
+//    then bar.sync on barrier 1, the choice, every luma store of the
+//    winner, and the next column's left.
+//  * prep (warps 2, 3), the chroma chain (warp 1) and the chroma finish
+//    (warp 5) are D3's.
+// It is bound by the trial warp's instruction stream: a block step is some
+// 300 dependent instructions of one warp (~1,100 cycles on the H100); the
+// block's other warps wait on it.  Its 16 steps are unrolled: ptxas keeps
+// the instance at 96 registers for three blocks an SM, and a loop of one
+// step a pass, or SADs summed by xor shuffles, ran 1.5-2x longer.  Every
+// J stays within int32 (luma44_column).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "intra16_common.cuh"  // the quantiser, zigzag and Hadamard
                                 // helpers K6 shares with K7 / K8
+#include "intra44_common.cuh"  // the Intra_4x4 neighbours, predictor and
+                                // mode choice K6 shares with K5
+
+#ifdef __CUDACC__
+namespace {
+// bar.arrive / bar.sync on the named barrier `id` of `n` threads: the
+// kI44 instance's hand-over from its trial warp to its luma warp (the
+// arrive orders the trial's shared-memory stores before the wait's
+// return)
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_wait(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+}  // namespace
+#endif
 
 namespace {
 
@@ -126,6 +182,8 @@ struct Args {
   uint8_t *ry8, *ru8, *rv8;    // D3: uint8 recon planes, raster
   int32_t *ry, *ru, *rv;       // D4: int32 final recon, MB layout
   int lanes, C, qp, qpc;
+  const uint32_t* taps;        // kI44: the Intra_4x4 tap words
+  int lam8;                    // kI44: iframe.py _LAMBDA8[qp]
 };
 
 // One MB column of the lane.  Blocks 0-15 are luma (by * 4 + bx), 16-19
@@ -287,7 +345,7 @@ __device__ void prep_dc(Slot& s, bool luma, int t, const Quant& q) {
   }
 }
 
-// The luma prep of column col (warp 1): thread t, rows 2h, 2h + 1 of
+// The luma prep of column col (warp 2): thread t, rows 2h, 2h + 1 of
 // block t >> 1.
 __device__ void prep_luma(const Args& a, Slot& s, const Next& nx,
                           const Block& k, size_t lane, int col, int t,
@@ -353,7 +411,7 @@ __device__ void prep_luma(const Args& a, Slot& s, const Next& nx,
   prep_dc(s, true, t, q);
 }
 
-// The chroma prep of column col (warp 2): thread t, row r = t & 3 of
+// The chroma prep of column col (warp 3): thread t, row r = t & 3 of
 // block 16 + (t >> 2); `stage` holds the chroma AC levels in their output
 // order; qm / qv the quantiser / dequantiser factors of the row's
 // positions 1-3.
@@ -420,7 +478,11 @@ __device__ __forceinline__ int4 k_of(const Slot& s, int b) {
 // The luma chain, column col (warp 0; see the note above): lane t takes
 // right column row y = t & 15 (lanes 16-31 repeat 0-15) and SAD row t >>
 // 1; `ir` / `isad` D4's rec_inter right sample of row y and inter SAD,
-// of this column on entry and of the next on return.
+// of this column on entry and of the next on return.  kI44 (warp 4 of
+// that instance): the Intra_16x16 candidate's choice alone; the next
+// column's left waits for the choice against the trial (its right
+// samples here go unused, and the compiler drops them).
+template <bool kI44>
 __device__ void luma_column(const Args& a, Slot& s, Slot& next, size_t lane,
                             int col, int t, const Quant& q, bool d4, int4 sy,
                             const RowOf& w, int& ir, int& isad) {
@@ -475,7 +537,7 @@ __device__ void luma_column(const Args& a, Slot& s, Slot& next, size_t lane,
   const bool dc = first || sad_dc <= sad_h;
   const int sad = dc ? sad_dc : sad_h;
   const bool use = !d4 || sad < isad_now;
-  if (t < 16 && col + 1 < a.C)
+  if (!kI44 && t < 16 && col + 1 < a.C)
     next.lft[y] = use ? (dc ? rec_dc : rec_h) : ir_now;
   if (t < 4)  // the DC levels at (i, 0), for finish
     s.zl0[t] = pick4(dc ? make_int4(zd0, zd1, zd2, zd3)
@@ -546,8 +608,12 @@ __device__ void chroma_column(const Args& a, const Slot& pv, Slot& s,
   if (t == 0) s.cmode = dc ? 0 : 1;
 }
 
-// The luma finish of column col (warp 3): thread t, columns 2h, 2h + 1
+// The luma finish of column col (warp 4): thread t, columns 2h, 2h + 1
 // of block t >> 1; sy, sx its Hadamard signs h(by, i), h(j, bx).
+// `luma16` / `store16` below are its twin for the kI44 instance: a change
+// of the Intra_16x16 arithmetic or stores goes into both.  (One body for
+// both, with the stores in this order or after the recon, gave the D3 /
+// D4 instance 88 registers and made D3 1-8% slower on an H100.)
 __device__ void finish_luma(const Args& a, const Slot& s, const Block& k,
                             size_t lane, int col, int t, const Quant& q,
                             bool d4, int4 sy, int4 sx) {
@@ -625,7 +691,87 @@ __device__ void finish_luma(const Args& a, const Slot& s, const Block& k,
   }
 }
 
-// The chroma finish of column col (warp 4): thread t, column x = t & 3
+// The Intra_16x16 candidate of a luma thread of the kI44 instance (warp
+// 4): finish_luma's work on columns 2h, 2h + 1 of block k.b, its levels at
+// 4, 8, 12 and the reconstruction rec[x][row], then, where it wins,
+// finish_luma's D3 stores (`store16`).  finish_luma keeps its own copy,
+// so that the D3 and D4 instances keep their code and registers: an edit
+// to one of the twins goes into the other.
+struct Luma16 {
+  int q4, q8, q12;
+  int rec[2][4];
+};
+
+__device__ __forceinline__ Luma16 luma16(const Slot& s, const Block& k,
+                                         const Quant& q, int4 sy, int4 sx) {
+  Luma16 o;
+  const int h = k.h;
+  const int4 pr = s.mode == 2 ? splat(s.pdc) : ld4(s.lft + 4 * k.by);
+  const int4 v = vert(pr);  // zero but v.x for a DC prediction
+  const int16_t* lv = s.lv[k.b];
+  o.q4 = q_ac(q, lv[4] - 4 * v.y, 2);
+  o.q8 = q_ac(q, lv[8] - 4 * v.z, 0);
+  o.q12 = q_ac(q, lv[12] - 4 * v.w, 2);
+  // the dequantised DC: element (by, bx) of the inverse Hadamard
+  const int4 zi = ld4(s.zl0);
+  int g = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int4 z = ld4(s.zl + 4 * i);
+    g += pick4(sy, i) * (pick4(zi, i) + z.y * sx.y + z.z * sx.z + z.w * sx.w);
+  }
+  const int d0[4] = {dq_ldc(q, g), dq_ac(q, o.q4, 2), dq_ac(q, o.q8, 0),
+                     dq_ac(q, o.q12, 2)};
+  // columns 2h, 2h + 1: e[r] = d0_r + P[r][x], the column pass
+#pragma unroll
+  for (int xx = 0; xx < 2; ++xx) {
+    int e[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) e[r] = d0[r] + s.P[k.b][4 * r + 2 * h + xx];
+    const int4 c = column(e[0], e[1], e[2], e[3], pr);
+    o.rec[xx][0] = c.x, o.rec[xx][1] = c.y, o.rec[xx][2] = c.z;
+    o.rec[xx][3] = c.w;
+  }
+  return o;
+}
+
+// The level of zigzag slot t (< 16) of the MB's luma DC.
+__device__ __forceinline__ int dc_level(const Slot& s, int t) {
+  const int zr = zz(t);
+  return (zr & 3) ? s.zl[zr] : s.zl0[zr >> 2];
+}
+
+__device__ __forceinline__ void store16(const Args& a, const Slot& s,
+                                        const Block& k, size_t lane, int col,
+                                        int t, const Luma16& o) {
+  const size_t m = lane * a.C + col;
+  const int h = k.h;
+  // zigzag slots 2, 3 (rasters 4, 8; h 0) and 9 (raster 12; h 1)
+  int16_t* ol = a.ac + m * 256 + 16 * k.b;
+  if (h) {
+    ol[9] = (int16_t)o.q12;
+  } else {
+    ol[2] = (int16_t)o.q4;
+    ol[3] = (int16_t)o.q8;
+  }
+  const size_t w = (size_t)a.C * 16;
+  uint8_t* op = a.ry8 + (lane * 16 + 4 * k.by) * w + (size_t)col * 16 +
+                4 * k.bx + 2 * h;
+#pragma unroll
+  for (int y = 0; y < 4; ++y)
+    *reinterpret_cast<uint16_t*>(op + y * w) =
+        (uint16_t)(o.rec[0][y] | (o.rec[1][y] << 8));
+  const uint32_t nzb =
+      __ballot_sync(0xffffffffu, (h ? o.q12 : o.q4 | o.q8) != 0);
+  if (t < 2) reinterpret_cast<int4*>(a.i4 + m * 16)[t] = splat(-1);
+  if (t < 16) a.dc[m * 16 + t] = (int16_t)dc_level(s, t);
+  if (t == 0) {
+    a.mode[m] = s.mode;
+    a.cbp_l[m] = nzb != 0 || s.nzy;
+  }
+}
+
+// The chroma finish of column col (warp 5): thread t, column x = t & 3
 // of block 16 + (t >> 2).
 __device__ void finish_chroma(const Args& a, const Slot& s, const Block& k,
                               size_t lane, int col, int t, const Quant& q,
@@ -717,8 +863,8 @@ __device__ void luma_chain(const Args& a, Slot* ring, size_t lane, int t,
   }
   for (int c = 0, i = kSlots - 1; c < a.C + 2; ++c, i = next_slot(i)) {
     if (c >= 1 && c <= a.C)
-      luma_column(a, ring[i], ring[next_slot(i)], lane, c - 1, t, q, d4, sy,
-                  w, ir, isad);
+      luma_column<false>(a, ring[i], ring[next_slot(i)], lane, c - 1, t, q,
+                         d4, sy, w, ir, isad);
     step_end();
   }
 }
@@ -799,22 +945,284 @@ __device__ void finish_loop(const Args& a, Slot* ring, size_t lane, int t,
   }
 }
 
+// -- the Intra_4x4 route (the kI44 instance) ---------------------------
+
+// The trial's shared memory: the MB's samples as the trial reconstructs
+// them (intra44_common.cuh's layout: row -1 and the corner stay zero,
+// column -1 the left column), and the trial's results: its
+// levels (raster block 4 by + bx x zigzag slot), its block modes (z-scan),
+// SSD, rate (96 + the levels' `rate_bits`) and 4-bit cbp.
+struct Trial {
+  __align__(16) int pix[kI44Pix];
+  __align__(16) int16_t coef[16][16];
+  __align__(16) int16_t modes[16];
+  int ssd, rate, cbp;
+};
+
+// forward4x4's weights, row i of its matrix ((1, 1, 1, 1), (2, 1, -1, -2),
+// (1, -1, -1, 1), (1, -2, 2, -1))
+__device__ __forceinline__ int4 fwd_row(int i) {
+  return i == 0   ? make_int4(1, 1, 1, 1)
+         : i == 1 ? make_int4(2, 1, -1, -2)
+         : i == 2 ? make_int4(1, -1, -1, 1)
+                  : make_int4(1, -2, 2, -1);
+}
+
+// Output i of inverse4x4's butterfly of d0 .. d3 (a row or a column).
+__device__ __forceinline__ int inv_out(int d0, int d1, int d2, int d3,
+                                       int i) {
+  const int e0 = d0 + d2, e1 = d0 - d2;
+  const int e2 = (d1 >> 1) - d3, e3 = d1 + (d3 >> 1);
+  return i == 0 ? e0 + e3 : i == 1 ? e1 + e2 : i == 2 ? e1 - e2 : e0 - e3;
+}
+
+// A trial lane's constants: its pixel p = t & 15, (x, y) = (p & 3, p >>
+// 2), of every block (lanes 16-31 repeat 0-15); the first lanes of its row
+// and of its column; forward4x4's weights of its x and y; the quantiser
+// and dequantiser factors of its position's class; its level's zigzag
+// slot; its neighbour's offset from a block's first sample (the block's
+// sample (0, 0)) where the block's TR is real and where it is T3 repeated
+// (`i44_neighbour` of blocks 6 and 3: the rule moves with the block but
+// for TR); the tap words of its pixel by its five modes, 2j + (t >> 4)
+// (mode 8 twice on lanes 16-31; DC's word is 0).
+struct Lane44 {
+  int row, colm;
+  int4 wx, wy;
+  int mf, vs, slot;
+  int nb_real, nb_repl;
+  uint32_t tw[5];
+};
+
+__device__ __forceinline__ Lane44 lane44(const Args& a, int t,
+                                         const Quant& q) {
+  const int p = t & 15, c = pos_class(p);
+  int slot = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) slot = zz(k) == p ? k : slot;
+  Lane44 ln{t & ~3, t & ~12, fwd_row(p & 3), fwd_row(p >> 2), q.mf[c],
+            q.vs[c] * q.scale, slot, i44_neighbour(6, t) - i44_at(8, 4),
+            i44_neighbour(3, t) - i44_at(4, 4), {}};
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+    ln.tw[j] = a.taps[16 * min(2 * j + (t >> 4), 8) + p];
+  return ln;
+}
+
+// The four values of the lane's row (`stride` 1, lanes from `first`) or
+// column (4) of the 4x4 block the lanes hold.
+__device__ __forceinline__ int4 gather4(int v, int first, int stride) {
+  return make_int4(__shfl_sync(0xffffffffu, v, first),
+                   __shfl_sync(0xffffffffu, v, first + stride),
+                   __shfl_sync(0xffffffffu, v, first + 2 * stride),
+                   __shfl_sync(0xffffffffu, v, first + 3 * stride));
+}
+
+// One pass of forward4x4 (the lane's weights w) and of inverse4x4
+// (output i) along a row or a column.
+__device__ __forceinline__ int fwd_pass(int v, int first, int stride,
+                                        int4 w) {
+  const int4 g = gather4(v, first, stride);
+  return w.x * g.x + w.y * g.y + w.z * g.z + w.w * g.w;
+}
+
+__device__ __forceinline__ int inv_pass(int v, int first, int stride,
+                                        int i) {
+  const int4 g = gather4(v, first, stride);
+  return inv_out(g.x, g.y, g.z, g.w, i);
+}
+
+// The Intra_4x4 trial of column col (warp 0; kernels/intra44.py
+// `encode_mb`): the MB's 16 blocks in z-scan order through the samples in
+// shared memory.  A block step: lanes 0-12 read the 13 neighbours, every
+// lane the block's L and T samples for DC; five passes of two modes
+// (lanes 0-15 modes 0, 2, 4, 6, 8, lanes 16-31 1, 3, 5, 7), each
+// prediction by its tap word (kept in registers); the passes' SADs two a
+// word by one redux each; the first least available mode from keys in
+// registers; its prediction from the lane (or the lane 16 above) that
+// made it; the residual's forward4x4 by shuffles (rows, then columns),
+// quant4x4 (intra), dequant, inverse4x4 (rows, then columns), clip; lanes
+// 0-15 store the samples and levels.  Then the SSD, rate and cbp, and the
+// hand-over to warp 4.
+__device__ __forceinline__ void trial_column(const Slot& s, Trial& tr,
+                                             int col, int t, const Quant& q,
+                                             const Lane44& ln) {
+  const int p = t & 15, x = p & 3, y = p >> 2;
+  const bool hi = t >= 16, l_mb = col > 0;
+  if (t < 16) tr.pix[i44_at(-1, t)] = s.lft[t];  // zeros in column 0
+  int ssd = 0, rate = 0, cbp = 0;
+  __syncwarp();
+  // all 16 steps unrolled: constant neighbour offsets, and one step's
+  // loads overlap the last one's chain (1.48 -> 1.07 ms, 1080p x 4, H100)
+#pragma unroll
+  for (int bi = 0; bi < 16; ++bi) {
+    const int bx = blk_x(bi), by = blk_y(bi);
+    const int* pb = tr.pix + i44_at(4 * bx, 4 * by);
+    const int nv = pb[tr_real(bi) ? ln.nb_real : ln.nb_repl];
+    const int src = (s.ys[(4 * by + y) * 4 + bx] >> (8 * x)) & 255;
+    const bool l_ok = bx > 0 || l_mb, t_ok = by > 0;
+    const int dc = i44_dc_at(pb, l_ok, t_ok);
+    int pr[5];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const int tap = i44_tap(ln.tw[j], nv);  // every lane shuffles
+      pr[j] = j == 1 && !hi ? dc : tap;       // mode 2: DC
+    }
+    const int best = i44_best(i44_sads(src, pr, t), l_ok, t_ok);
+    int mine = pr[0];
+#pragma unroll
+    for (int j = 1; j < 5; ++j) mine = (best >> 1) == j ? pr[j] : mine;
+    const int pred = __shfl_sync(0xffffffffu, mine, p + 16 * (best & 1));
+    // forward4x4 of the residual, quant, dequant, inverse4x4, clip
+    int w = fwd_pass(src - pred, ln.row, 1, ln.wx);
+    w = fwd_pass(w, ln.colm, 4, ln.wy);
+    const int z = quant(w, ln.mf, q.fq, q.qbits);
+    int d = inv_pass(z * ln.vs, ln.row, 1, x);
+    d = inv_pass(d, ln.colm, 4, y);
+    const int rec = clip255(pred + ((d + 32) >> 6));
+    if (t < 16) {
+      tr.pix[i44_at(4 * bx + x, 4 * by + y)] = rec;
+      tr.coef[4 * by + bx][ln.slot] = (int16_t)z;
+    }
+    if (t == 0) tr.modes[bi] = (int16_t)best;
+    ssd += (rec - src) * (rec - src);
+    rate += rate_bits(z);
+    cbp |= __ballot_sync(0xffffffffu, z != 0) ? 1 << (bi >> 2) : 0;
+    __syncwarp();  // the block's samples are written
+  }
+  // at most 256 * 255^2 and 96 + 256 * 33: no int32 sum wraps
+  ssd = (int)warp_sum(hi ? 0u : (unsigned)ssd);
+  rate = (int)warp_sum(hi ? 0u : (unsigned)rate);
+  if (t == 0) tr.ssd = ssd, tr.rate = 96 + rate, tr.cbp = cbp;
+  bar_arrive(1, 64);  // to warp 4: the trial of this column is done
+}
+
+// The trial's loop (warp 0 of the kI44 instance): at step c, column c - 1.
+__device__ void trial_loop(const Args& a, Slot* ring, Trial& tr, int t) {
+  const Quant q = quantiser(a.qp);
+  const Lane44 ln = lane44(a, t, q);
+  for (int i = t; i < kI44Pix; i += 32) tr.pix[i] = 0;
+  __syncwarp();
+  for (int c = 0, i = kSlots - 1; c < a.C + 2; ++c, i = next_slot(i)) {
+    if (c >= 1 && c <= a.C) trial_column(ring[i], tr, c - 1, t, q, ln);
+    step_end();
+  }
+}
+
+// The luma of column col in the kI44 instance (warp 4): the Intra_16x16
+// candidate (the chain's choice, then finish's levels and reconstruction)
+// with its SSD and rate (`_intra44_choice`: r16 = 8 + the DC and AC
+// levels' `rate_bits`), in the shadow of the trial; then, the trial done,
+// the choice J = 8 SSD + lam8 rate, Intra_16x16 on a tie, and every luma
+// store of the winner; its right sample column is the next one's left.
+// Every J stays within int32: 8 SSD <= 8 * 256 * 255^2 < 2^27, lam8 <=
+// 55,705 and a rate below 6,000 (a level's `rate_bits` <= 27 here:
+// |level| < 2^13), so lam8 rate < 2^29.
+__device__ void luma44_column(const Args& a, Slot& s, Slot& next,
+                              const Trial& tr, const Block& k, size_t lane,
+                              int col, int t, const Quant& q, int4 csy,
+                              const RowOf& w, int4 sy, int4 sx) {
+  int ir = 0, isad = 0;
+  luma_column<true>(a, s, next, lane, col, t, q, false, csy, w, ir, isad);
+  __syncwarp();  // its mode, DC prediction and DC levels
+  const Luma16 o = luma16(s, k, q, sy, sx);
+  const int h = k.h;
+  int e = 0, r = h ? rate_bits(o.q12) : rate_bits(o.q4) + rate_bits(o.q8);
+#pragma unroll
+  for (int yy = 0; yy < 4; ++yy) {
+    const uint32_t src = s.ys[(4 * k.by + yy) * 4 + k.bx] >> (16 * h);
+#pragma unroll
+    for (int xx = 0; xx < 2; ++xx) {
+      const int d = o.rec[xx][yy] - (int)((src >> (8 * xx)) & 255);
+      e += d * d;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)  // rows 2h, 2h + 1, columns 1-3: prep's
+    if (i & 3) r += rate_bits(s.lv[k.b][8 * h + i]);
+  if (t < 16) r += rate_bits(dc_level(s, t));
+  const int ssd16 = (int)warp_sum((unsigned)e);
+  const int r16 = 8 + (int)warp_sum((unsigned)r);
+  bar_wait(1, 64);  // the trial of this column is done
+  const bool i4 =
+      8 * tr.ssd + a.lam8 * tr.rate < 8 * ssd16 + a.lam8 * r16;
+  const size_t m = lane * a.C + col;
+  if (!i4) {
+    store16(a, s, k, lane, col, t, o);
+    if (k.bx == 3 && h == 1 && col + 1 < a.C)
+#pragma unroll
+      for (int yy = 0; yy < 4; ++yy) next.lft[4 * k.by + yy] = o.rec[1][yy];
+    return;
+  }
+  // Intra_4x4: its levels (slot 0 too), block modes, recon; no DC levels
+  reinterpret_cast<int4*>(a.ac + m * 256)[t] =
+      reinterpret_cast<const int4*>(tr.coef)[t];
+  if (t < 2)
+    reinterpret_cast<int4*>(a.i4 + m * 16)[t] =
+        reinterpret_cast<const int4*>(tr.modes)[t];
+  if (t < 16) a.dc[m * 16 + t] = 0;
+  const int y = t >> 1, x0 = 8 * (t & 1);
+  const int* px = tr.pix + i44_at(x0, y);
+  *reinterpret_cast<uint2*>(a.ry8 + (lane * 16 + y) * ((size_t)a.C * 16) +
+                            (size_t)col * 16 + x0) =
+      make_uint2(pack4(ld4(px)), pack4(ld4(px + 4)));
+  if (t == 0) a.mode[m] = 4, a.cbp_l[m] = tr.cbp;
+  if (t < 16 && col + 1 < a.C) next.lft[t] = tr.pix[i44_at(15, t)];
+}
+
+// The luma loop of the kI44 instance (warp 4): at step c, column c - 1.
+__device__ void luma44_loop(const Args& a, Slot* ring, const Trial& tr,
+                            size_t lane, int t) {
+  const Quant q = quantiser(a.qp);
+  const Block k = block_of(true, t);
+  const int cby = (t & 15) >> 2;  // the chain's: its row's right block
+  const int4 csy = make_int4(h4(cby, 0), h4(cby, 1), h4(cby, 2), h4(cby, 3));
+  const RowOf w = row_of(t & 3);
+  const int4 sy = make_int4(h4(k.by, 0), h4(k.by, 1), h4(k.by, 2),
+                            h4(k.by, 3));
+  const int4 sx = make_int4(h4(0, k.bx), h4(1, k.bx), h4(2, k.bx),
+                            h4(3, k.bx));
+  if (t < 16) ring[0].lft[t] = 0;  // column 0's left, which the trial reads
+  for (int c = 0, i = kSlots - 1; c < a.C + 2; ++c, i = next_slot(i)) {
+    if (c >= 1 && c <= a.C)
+      luma44_column(a, ring[i], ring[next_slot(i)], tr, k, lane, c - 1, t, q,
+                    csy, w, sy, sx);
+    step_end();
+  }
+}
+
 // Block b is lane b: its six warps walk the C columns in C + 2 steps.
 // At 96 registers (ptxas) three blocks fit an SM: 272 lanes at 1080p x 4
-// on 132 SMs run in one wave.
-__global__ void __launch_bounds__(kThreads, 2) intra16_enc_kernel(Args a) {
+// on 132 SMs run in one wave.  kI44 (the Intra_4x4 route): warp 0 runs
+// the trial and warp 4 the luma of the same column (see the note above);
+// its launch bounds ask for three blocks an SM too (two were slower,
+// 1.66 against 1.07 ms, 1080p x 4, H100).
+template <bool kI44>
+__global__ void __launch_bounds__(kThreads, kI44 ? 3 : 2)
+    intra16_enc_kernel(Args a) {
   __shared__ Slot ring[kSlots];
   __shared__ __align__(16) int16_t stage[120];
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
   const size_t lane = blockIdx.x;
-  const bool d4 = a.inter_sad != nullptr;
-  switch (warp) {
-    case kLuma: luma_chain(a, ring, lane, t, d4); break;
-    case kChroma: chroma_chain(a, ring, lane, t, d4); break;
-    case kPrepY: prep_loop(a, ring, stage, lane, t, true); break;
-    case kPrepC: prep_loop(a, ring, stage, lane, t, false); break;
-    case kFinY: finish_loop(a, ring, lane, t, true, d4); break;
-    default: finish_loop(a, ring, lane, t, false, d4);
+  if constexpr (kI44) {
+    __shared__ Trial tr;
+    switch (warp) {
+      case kLuma: trial_loop(a, ring, tr, t); break;
+      case kChroma: chroma_chain(a, ring, lane, t, false); break;
+      case kPrepY: prep_loop(a, ring, stage, lane, t, true); break;
+      case kPrepC: prep_loop(a, ring, stage, lane, t, false); break;
+      case kFinY: luma44_loop(a, ring, tr, lane, t); break;
+      default: finish_loop(a, ring, lane, t, false, false);
+    }
+  } else {
+    const bool d4 = a.inter_sad != nullptr;
+    switch (warp) {
+      case kLuma: luma_chain(a, ring, lane, t, d4); break;
+      case kChroma: chroma_chain(a, ring, lane, t, d4); break;
+      case kPrepY: prep_loop(a, ring, stage, lane, t, true); break;
+      case kPrepC: prep_loop(a, ring, stage, lane, t, false); break;
+      case kFinY: finish_loop(a, ring, lane, t, true, d4); break;
+      default: finish_loop(a, ring, lane, t, false, d4);
+    }
   }
 }
 
@@ -836,7 +1244,25 @@ extern "C" int th264_intra16_encode_rows(
                mode, cmode, cbp_l, cbp_c, nullptr, nullptr, dc, ac, cdc,
                cac, i4, ry, ru, rv, nullptr, nullptr, nullptr, lanes, C, qp,
                qpc};
-  intra16_enc_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
+  intra16_enc_kernel<false>
+      <<<lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// D3 with the Intra_4x4 trial (`intra44`): the same operands (i4 given),
+// then the tap words (kernels/intra44.py `tap_words`, 144 uint32) and
+// lam8, kernels/iframe.py _LAMBDA8[qp].
+extern "C" int th264_intra44_encode_rows(
+    const void* sy, const void* su, const void* sv, int src_u8,
+    int32_t* mode, int32_t* cmode, int32_t* cbp_l, int32_t* cbp_c,
+    int16_t* dc, int16_t* ac, int16_t* cdc, int16_t* cac, int16_t* i4,
+    uint8_t* ry, uint8_t* ru, uint8_t* rv, int lanes, int C, int qp,
+    int qpc, const uint32_t* taps, int lam8, void* stream) {
+  const Args a{sy, su, sv, src_u8, nullptr, nullptr, nullptr, nullptr,
+               mode, cmode, cbp_l, cbp_c, nullptr, nullptr, dc, ac, cdc,
+               cac, i4, ry, ru, rv, nullptr, nullptr, nullptr, lanes, C, qp,
+               qpc, taps, lam8};
+  intra16_enc_kernel<true><<<lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -853,7 +1279,8 @@ extern "C" int th264_intra16_in_p_rows(
   const Args a{sy, su, sv, src_u8, inter_sad, iy, iu, iv, mode, cmode,
                cbp_l, cbp_c, sad, use, dc, ac, cdc, cac, nullptr, nullptr,
                nullptr, nullptr, ry, ru, rv, lanes, C, qp, qpc};
-  intra16_enc_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
+  intra16_enc_kernel<false>
+      <<<lanes, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

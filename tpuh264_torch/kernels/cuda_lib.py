@@ -120,6 +120,8 @@ def load() -> ctypes.CDLL:
             [p] * 3 + [i] + [p] * 12 + [i, i, i, i, p])
         lib.th264_intra16_in_p_rows.argtypes = (
             [p] * 3 + [i] + [p] * 17 + [i, i, i, i, p])
+        lib.th264_intra44_encode_rows.argtypes = (
+            [p] * 3 + [i] + [p] * 12 + [i, i, i, i, p, i, p])
         lib.th264_wavefront_encode.argtypes = (
             [p] * 3 + [i] + [p] * 12 + [i] * 5 + [p])
         lib.th264_wavefront_decode.argtypes = [p] * 11 + [i] * 5 + [p]
@@ -139,7 +141,8 @@ def load() -> ctypes.CDLL:
         for fn in (lib.th264_pack_blocks,
                    lib.th264_merge_tree, lib.th264_deblock_rows,
                    lib.th264_intra16_encode_rows,
-                   lib.th264_intra16_in_p_rows, lib.th264_wavefront_encode,
+                   lib.th264_intra16_in_p_rows, lib.th264_intra44_encode_rows,
+                   lib.th264_wavefront_encode,
                    lib.th264_wavefront_decode, lib.th264_wavefront_plan,
                    *arrays):
             fn.restype = ctypes.c_int

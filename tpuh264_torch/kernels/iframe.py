@@ -11,13 +11,13 @@ carry, takes DC at 128 where its mode says DC and 0 (H against zeros)
 where it says H, which no legal stream codes there.
 
 The encode's column scan, `encode_iframe_scan`, is D3: K6
-(csrc/intra16_enc.cu, `_intra16_launch`) for CUDA tensors without
-`intra44`; its plain version `_encode_iframe_scan_plain` (`_intra16_mb`
-a column) takes CPU tensors and every call with `intra44`.  With
-`intra44` every column also runs the causal Intra_4x4 trial
-(intra44.py) and keeps, per MB, whichever of Intra_16x16 and Intra_4x4
-has the lower Lagrangian cost J = 8*SSD + lam8[qp]*rate, with the JAX
-module's integer `_LAMBDA8` table and rate proxy `_rate_bits`.
+(csrc/intra16_enc.cu, `_intra16_launch`) for CUDA tensors, with
+`intra44` its Intra_4x4 route (the kernel's kI44 instance); its plain
+version `_encode_iframe_scan_plain` (`_intra16_mb` a column) takes CPU
+tensors.  With `intra44` every column also runs the causal Intra_4x4
+trial (intra44.py) and keeps, per MB, whichever of Intra_16x16 and
+Intra_4x4 has the lower Lagrangian cost J = 8*SSD + lam8[qp]*rate, with
+the JAX module's integer `_LAMBDA8` table and rate proxy `_rate_bits`.
 
 `_intra16_mb` and `_intra16_launch` are shared with the intra-in-P scan
 of pframe.py (D4, the same kernel), and `_intra_residuals` /
@@ -313,13 +313,15 @@ class K6Out(NamedTuple):
 
 
 def _intra16_launch(name: str, planes, qp: int, qpc: int, inter_sad=None,
-                    rec_inter=None) -> K6Out:
+                    rec_inter=None, i44: bool = False) -> K6Out:
     """One launch of K6 (csrc/intra16_enc.cu) over source planes y [S, H,
     W], u, v [S, H/2, W/2] on the card (uint8, else taken as int32) at
-    luma / chroma QPs qp, qpc: the I encode's scan (D3) or, with
-    `inter_sad` [S, R, C] and `rec_inter` (int32 [S,R,C,16,16],
-    [S,R,C,8,8] x 2), the intra-in-P scan (D4).  Raises on a bad input
-    or a failed build or launch; the caller counts the launch."""
+    luma / chroma QPs qp, qpc: the I encode's scan (D3; with `i44`, its
+    Intra_4x4 route, which takes the tap words of intra44.py and
+    `_LAMBDA8[qp]`) or, with `inter_sad` [S, R, C] and `rec_inter` (int32
+    [S,R,C,16,16], [S,R,C,8,8] x 2), the intra-in-P scan (D4).  Raises on
+    a bad input or a failed build or launch; the caller counts the
+    launch."""
     y = planes[0]
     s, h, w = y.shape
     r, c = h // 16, w // 16
@@ -336,6 +338,8 @@ def _intra16_launch(name: str, planes, qp: int, qpc: int, inter_sad=None,
     d4 = inter_sad is not None
     if d4 != (rec_inter is not None):
         raise ValueError(f"{name}: `inter_sad` and `rec_inter` go together")
+    if d4 and i44:
+        raise ValueError(f"{name}: the Intra_4x4 route is the I encode's")
     side = []
     if d4:
         side = [x.to(I32).contiguous() for x in (inter_sad, *rec_inter)]
@@ -373,11 +377,15 @@ def _intra16_launch(name: str, planes, qp: int, qpc: int, inter_sad=None,
     else:
         out.update(i4modes=new((*mb, 16), i16),
                    rec=tuple(new(sh, torch.uint8) for sh in shapes))
-        err = lib.th264_intra16_encode_rows(
-            *map(ptr, planes), int(u8),
-            *map(ptr, [*fields, *levels, out["i4modes"], *out["rec"]]),
-            s * r, c, qp, qpc, cuda_lib.stream(dev))
-        entry = "th264_intra16_encode_rows"
+        args = [*map(ptr, planes), int(u8),
+                *map(ptr, [*fields, *levels, out["i4modes"], *out["rec"]]),
+                s * r, c, qp, qpc]
+        if i44:
+            entry = "th264_intra44_encode_rows"
+            args += [ptr(tables.get("i44_taps", dev)), _LAMBDA8[qp]]
+        else:
+            entry = "th264_intra16_encode_rows"
+        err = getattr(lib, entry)(*args, cuda_lib.stream(dev))
     cuda_lib.check(err, entry)
     return K6Out(**out)
 
@@ -389,18 +397,20 @@ def encode_iframe_scan(y, u, v, qp: int, intra44: bool = False
     (symbols, (recon_y, recon_u, recon_v)) with uint8 recon, exactly as
     tpuh264.kernels.iframe.encode_iframe_scan.
 
-    CPU tensors, and every call with `intra44` (its trial sits on the
-    chain: D5's work), take the plain version; CUDA tensors without it
-    launch K6 (csrc/intra16_enc.cu) or raise."""
-    if y.device.type == "cpu" or intra44:
+    CPU tensors take the plain version; CUDA tensors launch K6
+    (csrc/intra16_enc.cu; with `intra44`, its Intra_4x4 route) or
+    raise."""
+    if y.device.type == "cpu":
         return _encode_iframe_scan_plain(y, u, v, qp, intra44)
     o = _intra16_launch("encode_iframe_scan", (y, u, v), qp,
-                        T.chroma_qp_from_luma(qp))
+                        T.chroma_qp_from_luma(qp), i44=intra44)
     encode_iframe_scan.launches += 1
+    encode_iframe_scan.i44_launches += bool(intra44)
     return MBSymbols(*o[:9]), o.rec
 
 
 encode_iframe_scan.launches = 0  # launches of K6 for D3
+encode_iframe_scan.i44_launches = 0  # of them, its Intra_4x4 route's
 
 
 def _encode_iframe_scan_plain(y, u, v, qp: int, intra44: bool = False
