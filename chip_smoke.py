@@ -1655,6 +1655,13 @@ D2_I44_CASES = [(shape, variant, D2_I44_QPS[(i + j) % len(D2_I44_QPS)])
                 for i, shape in enumerate(D2_I44_SHAPES)
                 for j, variant in enumerate(D2_I44_VARIANTS)]
 D2_I44_RING_CASES = [((1, 2, 97), "i44", 28), ((1, 3, 40), "p-i44", 36)]
+# the two-block levels of the blocks' dependency levels (z-scan indices;
+# csrc/intra44_common.cuh `i44_level_block`), which the Intra_4x4 routes
+# walk a half-warp a block
+I44_LEVEL_PAIRS = ((2, 4), (3, 5), (6, 8), (7, 9), (10, 12), (11, 13))
+# every MB of mode 4, the two blocks of every two-block level of every MB
+# of different modes (DC beside a directional mode too)
+D2_I44_LEVEL_CASE = ((2, 3, 9), "levels", 20)
 # block modes outside 0..8, which the reconstruction clamps
 D2_I44_WILD = (-32768, -9, -1, 9, 15, 255, 32767)
 
@@ -1667,19 +1674,26 @@ def d2_i44_case(np, shape, variant, qp=D2_QP):
     whatever the 4-bit cbp_luma, luma DC levels, and luma / chroma modes
     DC or H in any column, column 0 included.  "p-i44": half the MBs
     intra, the rest taking `other` (samples -300..600, so that
-    predictions from them leave 0..255)."""
+    predictions from them leave 0..255).  "levels" (D2_I44_LEVEL_CASE):
+    every MB of mode 4, its block modes in 0..8, the second block of each
+    two-block level (I44_LEVEL_PAIRS) of another mode than the first."""
     s, r, c = mb = shape
-    rng = np.random.default_rng([s, r, c, 44, D2_I44_VARIANTS.index(variant),
+    rng = np.random.default_rng([s, r, c, 44, (D2_I44_VARIANTS
+                                               + ("levels",)).index(variant),
                                  qp])
     p = variant == "p-i44"
     intra = rng.random(mb) < 0.5 if p else np.ones(mb, bool)
-    mode = (np.full(mb, 4) if variant == "i44"
+    mode = (np.full(mb, 4) if variant in ("i44", "levels")
             else rng.choice([1, 2, 4, 4], mb))
     mode = np.where(intra, mode, 0)
     kind = np.where(intra, 2, rng.integers(0, 2, mb))
     i4m = rng.integers(0, 9, (*mb, 16))
-    wild = rng.random(i4m.shape) < 0.08
-    i4m[wild] = rng.choice(D2_I44_WILD, int(wild.sum()))
+    if variant == "levels":
+        for a, b in I44_LEVEL_PAIRS:
+            i4m[..., b] = (i4m[..., a] + rng.integers(1, 9, mb)) % 9
+    else:
+        wild = rng.random(i4m.shape) < 0.08
+        i4m[wild] = rng.choice(D2_I44_WILD, int(wild.sum()))
 
     def levels(sh, amp, zero):
         x = rng.integers(-amp, amp + 1, sh)
@@ -1818,6 +1832,10 @@ D3_I44_CASES = [(shape, content, D3_I44_QPS[(i + j) % len(D3_I44_QPS)])
 # horizontal and the diagonals of the eight directional modes
 D3_I44_DIRS = ((1, 0), (0, 1), (1, 1), (1, -1), (2, 1), (1, 2), (2, -1),
                (1, -2))
+# stripes of four directions a MB, one an 8x8 quadrant: each two-block
+# level's blocks lie in two quadrants, and where Intra_4x4 wins they
+# mostly take different modes (the tests count them)
+D3_I44_LEVEL_CASE = ((2, 3, 8), "quadrants", 28)
 
 
 def d3_i44_case(np, shape, content, qp):
@@ -1826,7 +1844,12 @@ def d3_i44_case(np, shape, content, qp):
     holds two levels in stripes of a direction of D3_I44_DIRS, a period of
     3-8 samples and a phase of its own, over noise of -6..6 or none (then
     blocks inside a stripe predict alike by every mode); its chroma is a
-    level an MB over the same noise."""
+    level an MB over the same noise.  "quadrants" (D3_I44_LEVEL_CASE):
+    stripes of four different directions a MB, one an 8x8 quadrant (a
+    period of 4-11, a phase and two levels of its own), no noise; chroma
+    a level an MB."""
+    if content == "quadrants":
+        return _i44_quadrants(np, shape, qp)
     if content != "stripes":
         return d3_case(np, shape, content, qp)
     s, r, c = mb = shape
@@ -1851,6 +1874,25 @@ def d3_i44_case(np, shape, content, qp):
         return np.clip(x, 0, 255).astype(np.uint8)
 
     return np.clip(y, 0, 255).astype(np.uint8), chroma(), chroma(), qp
+
+
+def _i44_quadrants(np, shape, qp):
+    """`d3_i44_case`'s "quadrants" frames."""
+    s, r, c = shape
+    rng = np.random.default_rng([s, r, c, 4444, qp])
+    nq = (s, 2 * r, 2 * c)
+    up = lambda x, n: np.repeat(np.repeat(x, n, 1), n, 2)
+    d = np.stack([rng.permutation(len(D3_I44_DIRS))[:4]
+                  for _ in range(s * r * c)]).reshape(s, r, c, 2, 2)
+    dirs = np.asarray(D3_I44_DIRS)[d.transpose(0, 1, 3, 2, 4).reshape(nq)]
+    yy, xx = np.mgrid[0:16 * r, 0:16 * c]
+    phase = (up(dirs[..., 0], 8) * xx + up(dirs[..., 1], 8) * yy
+             + up(rng.integers(0, 16, nq), 8)) // up(rng.integers(4, 12, nq),
+                                                     8)
+    y = np.where(phase % 2, up(rng.integers(140, 240, nq), 8),
+                 up(rng.integers(16, 110, nq), 8))
+    chroma = lambda: up(rng.integers(40, 216, (s, r, c)), 8).astype(np.uint8)
+    return y.astype(np.uint8), chroma(), chroma(), qp
 
 
 def d4_args(torch, case, dev):
@@ -2628,7 +2670,10 @@ def d3_i44_rows(dev, torch, np, card, mhz, planes):
     """K6's Intra_4x4 route (`intra44`) against its plain version: the
     1080p x 4 I frame `planes` (the row of the kernel table), phase 11's
     IDR (`meeting_idr`, QP 34: the session's own int32 planes) and every
-    D3_I44 case from uint8 and int32 planes."""
+    D3_I44 case and D3_I44_LEVEL_CASE from uint8 and int32 planes; then
+    ptxas of K5's and K6's instances."""
+    from tpuh264_torch.kernels import iframe
+
     err, ms, plain, nbytes = d3_i44_timed(planes, 30, torch,
                                           "1080p x 4 I frame", card, mhz)
     row = kernel_row(
@@ -2647,7 +2692,48 @@ def d3_i44_rows(dev, torch, np, card, mhz, planes):
     print(f"phase 2: K6's Intra_4x4 route, {len(D3_I44_CASES)} seeded cases x "
           f"(uint8, int32): (S, R, C) {list(D3_I44_SHAPES)} x "
           f"{list(D3_I44_CONTENT)}, QPs {list(D3_I44_QPS)}: equal to plain")
+    y, u, v, qp = d3_i44_case(np, *D3_I44_LEVEL_CASE)
+    pl = [torch.from_numpy(x).to(dev) for x in (y, u, v)]
+    err, _ = d3_i44_equal(pl, qp, torch, f"i44 level case {D3_I44_LEVEL_CASE}")
+    d3_i44_equal([x.to(torch.int32) for x in pl], qp, torch,
+                 f"i44 level case {D3_I44_LEVEL_CASE}, int32")
+    sym = iframe.encode_iframe_scan(*pl, qp, intra44=True)[0]
+    i4 = sym.mode == 4
+    m = sym.i4modes[i4]
+    six = torch.stack([m[:, a] != m[:, b] for a, b in I44_LEVEL_PAIRS],
+                      -1).all(-1)
+    print(f"phase 2: K6's Intra_4x4 route, level case {D3_I44_LEVEL_CASE} "
+          f"(uint8, int32): {int(i4.sum())} of {i4.numel()} MBs Intra_4x4, "
+          f"{int(six.sum())} of them with the two blocks of every two-block "
+          f"level of different modes: equal to plain (max_abs_err {err})")
+    i44_ptxas()
     return row
+
+
+# the template instances of K5's and K6's sources, by their mangled names
+I44_INSTANCES = (("intra16_enc.cu", "intra16_enc_kernelILb0", "K6 (D3, D4)"),
+                 ("intra16_enc.cu", "intra16_enc_kernelILb1", "K6-i44"),
+                 ("intra_recon.cu", "intra_recon_kernelILb0", "K5"),
+                 ("intra_recon.cu", "intra_recon_kernelILb1", "K5-i44"))
+
+
+def i44_ptxas() -> None:
+    """ptxas's registers, stack, spills and shared memory of the four
+    instances of K5's and K6's sources, a line each."""
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tpuh264_torch", "csrc")
+    lines = {f: ptxas_lines(os.path.join(csrc, f))
+             for f in {f for f, _, _ in I44_INSTANCES}}
+    for f, mangled, name in I44_INSTANCES:
+        got, on = [], False
+        for ln in lines[f]:
+            if "entry function" in ln:
+                on = mangled in ln
+            elif on:
+                got.append(ln.replace("ptxas info    : ", ""))
+        if not got:
+            fail(f"ptxas printed nothing of {name} ({f})")
+        print(f"phase 2: ptxas, {name}: {'; '.join(got)}")
 
 
 def k7_bytes(planes) -> int:
@@ -2987,7 +3073,7 @@ def d2_i44_rows(dev, torch, np, card):
     """K5's Intra_4x4 route (`i44`) against its plain version: a 1920x1080
     (1088) x 4 IDR whose MBs are all Intra_4x4 (`d2_i44_case`, the row of
     the kernel table), the IDR of phase 11's session (the decoders' own
-    inputs, `session_idr_i44`), and every D2_I44 case."""
+    inputs, `session_idr_i44`), every D2_I44 case and D2_I44_LEVEL_CASE."""
     kw = d2_args(torch, d2_i44_case(np, (4, 68, 120), "i44", 30), dev)
     err, ms, plain = d2_timed(kw, torch, "1080p x 4 IDR, every MB "
                               "Intra_4x4 (the i44 route)", card)
@@ -3009,6 +3095,16 @@ def d2_i44_rows(dev, torch, np, card):
           f"columns, beside `other` too, modes outside 0..8, levels outside "
           f"cbp_luma, QPs {sorted(set(D2_I44_QPS))}, lanes past the ring): "
           f"equal to plain")
+    case = d2_i44_case(np, *D2_I44_LEVEL_CASE)
+    err = d2_equal(d2_args(torch, case, dev), torch,
+                   f"i44 level case {D2_I44_LEVEL_CASE}")
+    m = case[0]["i4modes"]
+    differ = sum(int((m[..., a] != m[..., b]).sum())
+                 for a, b in I44_LEVEL_PAIRS)
+    print(f"phase 2: K5's Intra_4x4 route, level case {D2_I44_LEVEL_CASE}: "
+          f"the two blocks of a two-block level of different modes in "
+          f"{differ} of {len(I44_LEVEL_PAIRS) * m[..., 0].size} (MB, level) "
+          f"pairs: equal to plain (max_abs_err {err})")
     return row
 
 

@@ -35,9 +35,10 @@ host, `__shfl_up_sync` an exchange like `__shfl_sync`, `__popc` the
 builtin. __shared__ arrays are statics, int2 / int4 / uint2 / uint4
 plain structs, __grid_constant__ nothing; __vsadu4 is computed byte by
 byte, __clz by the compiler's builtin; `__byte_perm`, `__funnelshift_r`,
-the DPX `__vimin_s16x2_relu` and the bit casts are their definitions in
-plain C++, `__fmaf_rd` the double sum rounded down to a float, `__fmul_rn`
-/ `__fadd_rn` / `__fsub_rn` and the int / float conversions the host's
+the DPX `__vimin_s16x2_relu` and `__vimin3_u16x2` and the bit casts are
+their definitions in plain C++, `__fmaf_rd` the double sum rounded down
+to a float, `__fmul_rn` / `__fadd_rn` / `__fsub_rn` and the int / float
+conversions the host's
 float32 operations (sinf / cosf are the host's: within an ulp of the
 card's, not equal). A harness
 includes the kernel's source after this header (as cuda_runtime.h); the
@@ -373,6 +374,14 @@ inline uint32_t __vimin_s16x2_relu(uint32_t a, uint32_t b) {
     const int x = (int16_t)(a >> i), y = (int16_t)(b >> i);
     r |= (uint32_t)(uint16_t)std::max(std::min(x, y), 0) << i;
   }
+  return r;
+}
+// DPX: per 16-bit half, the least of three unsigned halves
+inline uint32_t __vimin3_u16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r = 0;
+  for (int i = 0; i < 32; i += 16)
+    r |= std::min({(a >> i) & 0xffffu, (b >> i) & 0xffffu,
+                   (c >> i) & 0xffffu}) << i;
   return r;
 }
 // IEEE float32 operations, each rounded once (never contracted: g++

@@ -444,12 +444,14 @@ def test_intra_recon_kernel_matches_plain_edge_cases(dev, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", chip_smoke.D2_I44_CASES
-                         + chip_smoke.D2_I44_RING_CASES, ids=str)
+                         + chip_smoke.D2_I44_RING_CASES
+                         + [chip_smoke.D2_I44_LEVEL_CASE], ids=str)
 def test_intra_recon_i44_route_matches_plain(dev, case):
     """The Intra_4x4 route (`i44`) on every `d2_i44_case`: all-Intra_4x4
     and mixed columns, beside `other` too, modes outside 0..8, levels
-    outside cbp_luma, QPs 0, 12, 32 and 51, lanes past the ring; one
-    launch each, counted as the route's."""
+    outside cbp_luma, QPs 0, 12, 32 and 51, lanes past the ring, the two
+    blocks of every two-block level of different modes; one launch each,
+    counted as the route's."""
     before = IF._intra_recon_scan.i44_launches
     _intra_both(chip_smoke.d2_args(torch, chip_smoke.d2_i44_case(np, *case),
                                    dev))
@@ -654,11 +656,13 @@ def test_intra16_kernel_matches_plain_d4_cases(dev, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", chip_smoke.D3_I44_CASES)
+@pytest.mark.parametrize("case", chip_smoke.D3_I44_CASES
+                         + [chip_smoke.D3_I44_LEVEL_CASE])
 def test_intra16_i44_route_matches_plain_cases(dev, case):
     """D3's Intra_4x4 route on chip_smoke phase 2's seeded frames (C = 1,
-    2, 3 and 61; stripes, flat, noise, 0 / 255; QPs 0, 12, 28, 51), uint8
-    and int32."""
+    2, 3 and 61; stripes, flat, noise, 0 / 255; QPs 0, 12, 28, 51; and
+    stripes of four directions a MB, where the two blocks of a two-block
+    level mostly take different modes), uint8 and int32."""
     y, u, v, qp = chip_smoke.d3_i44_case(np, *case)
     planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
     _i16_both(planes, qp, True)

@@ -19,6 +19,7 @@ import torch
 
 import chip_smoke
 import cuda_threads
+import test_torch_intra_recon as K5T
 from tpuh264.kernels import iframe as jif
 from tpuh264.kernels import pframe as jpf
 from tpuh264_torch.kernels import cuda_lib
@@ -496,9 +497,9 @@ def test_intra44_calls_reach_the_kernel(monkeypatch):
 
 # -- the Intra_4x4 route (`intra44`, the kI44 instance) ----------------------
 
-# each D3_I44 case from uint8 and from int32 planes
+# each D3_I44 case and the level case from uint8 and from int32 planes
 I44_RUNS = [(case, dt) for case in chip_smoke.D3_I44_CASES
-            for dt in ("uint8", "int32")]
+            + [chip_smoke.D3_I44_LEVEL_CASE] for dt in ("uint8", "int32")]
 _PLAIN44 = {}
 
 
@@ -527,12 +528,14 @@ def _equal44(got, case):
 
 @pytest.mark.parametrize("case,dtype", I44_RUNS, ids=str)
 def test_i44_source_on_cpu_threads_matches_plain(cpu_kernel, case, dtype):
-    """The Intra_4x4 route's source on CPU threads (the trial warp's 16
-    block steps a column: neighbours from the MB's samples in shared
-    memory, DC and the tap words' predictions two modes a pass, packed SAD
-    reductions, the first least available mode, the transforms by
-    shuffles; the luma warp's Intra_16x16 candidate with its SSD and rate,
-    the named barrier, the choice and the stores) equals
+    """The Intra_4x4 route's source on CPU threads (the two trial warps'
+    10 dependency levels a column, a warp a block, meeting at a named
+    barrier after a level: neighbours from the MB's samples in shared
+    memory, DC and the predictions from the packed ring of neighbours
+    two modes a pass, packed SAD reductions, the first least available
+    mode, the transforms by shuffles; the luma warp's Intra_16x16
+    candidate with its SSD and rate, the named barrier, the choice and
+    the stores) equals
     `_encode_iframe_scan_plain(intra44=True)` on every field and plane."""
     planes, qp = _i44_planes(case, dtype)
     got = _run(cpu_kernel, planes, qp, i44=True)
@@ -617,10 +620,28 @@ def test_i44_cases_cover_what_they_claim():
     assert _j_ties(chip_smoke.D3_I44_CASES[0]) > 0
 
 
-# mutants of the Intra_4x4 route, each a replacement in a source: J's
-# strict comparison (Intra_16x16 wins a tie) made <=; the last of tied
-# modes winning; TR real where `_static_tr_kind` repeats T3; i4modes
-# stored in raster order; slot 0 of an Intra_4x4 block's levels zeroed
+def test_i44_level_case_covers_what_it_claims():
+    """D3_I44_LEVEL_CASE: Intra_4x4 wins a share of the MBs, and in at
+    least 8 of them the two blocks of every two-block level take different
+    modes (each level's in at least 80% of them)."""
+    sym, _ = _plain44(chip_smoke.D3_I44_LEVEL_CASE)
+    i4 = sym.mode == 4
+    m = sym.i4modes[i4]
+    differ = torch.stack([m[:, a] != m[:, b]
+                          for a, b in chip_smoke.I44_LEVEL_PAIRS], -1)
+    assert 0 < i4.float().mean() < 1
+    assert int(differ.all(-1).sum()) >= 8
+    assert (differ.float().mean(0) >= 0.8).all()
+
+
+# mutants of the Intra_4x4 route, each a replacement in a source (or a
+# tuple of them, test_torch_intra_recon.edit): J's strict comparison
+# (Intra_16x16 wins a tie) made <=; the last of tied modes winning; TR
+# real where `_static_tr_kind` repeats T3; i4modes stored in raster
+# order; slot 0 of an Intra_4x4 block's levels zeroed; block 4 one level
+# early, beside block 1 (the table's static_assert taken out, which would
+# refuse it); no hand-off between levels (the two trial warps' named
+# barrier a warp barrier)
 I44_MUTANTS = {
     "J tie to Intra_4x4": (
         "intra16_enc.cu",
@@ -628,16 +649,12 @@ I44_MUTANTS = {
         "8 * tr.ssd + a.lam8 * tr.rate <= 8 * ssd16 + a.lam8 * r16"),
     "last tied mode": (
         "intra44_common.cuh",
-        "0xffffu) * 16 + m\n"
-        "                 : 0x7fffffff;\n"
-        "  const int a = min(min(key[0], key[1]), min(key[2], key[3]));\n"
-        "  const int b = min(min(key[4], key[5]), min(key[6], key[7]));\n"
-        "  return min(min(a, b), key[8]) & 15;",
-        "0xffffu) * 16 + 8 - m\n"
-        "                 : 0x7fffffff;\n"
-        "  const int a = min(min(key[0], key[1]), min(key[2], key[3]));\n"
-        "  const int b = min(min(key[4], key[5]), min(key[6], key[7]));\n"
-        "  return 8 - (min(min(a, b), key[8]) & 15);"),
+        ("(s.w[j] << 4) | (unsigned)(2 * j) |",
+         "? (unsigned)(2 * j + 1) << 16",
+         "return (int)min(m & 0xffffu, m >> 16) & 15;"),
+        ("(s.w[j] << 4) | (unsigned)(8 - 2 * j) |",
+         "? (unsigned)(7 - 2 * j) << 16",
+         "return 8 - ((int)min(m & 0xffffu, m >> 16) & 15);")),
     "TR real where repeated": (
         "intra44_common.cuh",
         "  return blk_y(bi) > 0 && blk_x(bi) < 3 &&\n"
@@ -649,6 +666,13 @@ I44_MUTANTS = {
     "slot 0 zeroed": (
         "intra16_enc.cu", "tr.coef[4 * by + bx][ln.slot] = (int16_t)z;",
         "tr.coef[4 * by + bx][ln.slot] = (int16_t)(ln.slot ? z : 0);"),
+    "block 4 beside block 1": (
+        "intra44_common.cuh",
+        (K5T.LEVEL_TABLE_EDIT[0], "static_assert(i44_levels_hold(),"),
+        (K5T.LEVEL_TABLE_EDIT[1], "static_assert(true || i44_levels_hold(),")),
+    "no hand-off between levels": (
+        "intra16_enc.cu", "void level_sync() { bar_wait(2, 64); }",
+        "void level_sync() { __syncwarp(); }"),
 }
 
 
@@ -665,8 +689,7 @@ def i44_mutants(tmp_path_factory):
             with open(os.path.join(csrc, f)) as fh:
                 text = fh.read()
             if f == src:
-                assert text.count(old) == 1, name
-                text = text.replace(old, new)
+                text = K5T.edit(text, old, new)
             (d / f).write_text(text)
         jobs.append((name, tmp_path_factory.mktemp("k6_i44_mutant"), str(d)))
 

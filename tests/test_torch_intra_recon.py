@@ -364,14 +364,17 @@ def _i44_args(case):
     return chip_smoke.d2_args(torch, _i44_case(case), "cpu")
 
 
-@pytest.mark.parametrize("case", chip_smoke.D2_I44_CASES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.D2_I44_CASES
+                         + [chip_smoke.D2_I44_LEVEL_CASE], ids=str)
 def test_i44_source_on_cpu_threads_matches_plain(cpu_kernel, case):
     """The Intra_4x4 route's source on CPU threads (every luma level of a
     mode-4 MB loaded whatever its cbps, the block modes clamped, the 16
-    blocks walked in z-scan order through shared memory, their neighbours,
-    taps and DC by shuffles) equals `_intra_recon_scan_plain` with `i44`:
-    every MB of mode 4, Intra_16x16 and Intra_4x4 mixed, both beside
-    `other`, at QPs 0, 12, 32 and 51."""
+    blocks walked by their dependency levels through shared memory, a
+    half-warp a block, their neighbours and taps by shuffles within the
+    half) equals `_intra_recon_scan_plain` with `i44`: every MB of mode 4,
+    Intra_16x16 and Intra_4x4 mixed, both beside `other`, at QPs 0, 12,
+    32 and 51, and the level case (the two blocks of every two-block
+    level of different modes)."""
     _source_equals_plain(cpu_kernel, _i44_args(case), str(case))
 
 
@@ -463,6 +466,20 @@ def test_i44_cases_cover_what_they_claim():
     assert {0, 12, 51} <= qps and clipped == {0, 255}
 
 
+def test_i44_level_case_covers_what_it_claims():
+    """D2_I44_LEVEL_CASE: every MB of mode 4, block modes in 0..8, and the
+    two blocks of each two-block level of the header's table
+    (I44_LEVEL_PAIRS, held to it in the header test) of different modes
+    in every MB, DC beside a directional mode among them."""
+    sym, other, _, _ = _i44_case(chip_smoke.D2_I44_LEVEL_CASE)
+    m = sym["i4modes"]
+    assert other is None and (sym["mode"] == 4).all()
+    assert set(np.unique(m)) == set(range(9))
+    for a, b in chip_smoke.I44_LEVEL_PAIRS:
+        assert (m[..., a] != m[..., b]).all()
+        assert ((m[..., a] == 2) != (m[..., b] == 2)).any()
+
+
 def test_tap_words_are_the_tables():
     """The tap words the kernel takes as its operand (`intra44.tap_words`)
     decode to the port's own W, R and S of the eight directional modes
@@ -476,21 +493,113 @@ def test_tap_words_are_the_tables():
     np.testing.assert_array_equal((w >> 18) & 3, I44._R_NP)
     np.testing.assert_array_equal((w >> 20) & 3, I44._S_NP)
     assert not w[2].any() and not (w >> 22).any()
+    # the kernels tell DC by its word of 0: every other word has a tap
+    assert np.delete(w, 2, 0).all()
+
+
+FORM_HARNESS = r"""
+#include <cuda_runtime.h>
+#include <cstdio>
+#include "intra44_common.cuh"
+int main() {
+  for (int k = 0; k < 13; ++k)
+    printf("%d %d\n", i44_ring_prev(k), i44_ring_next(k));
+  unsigned w;
+  while (scanf("%u", &w) == 1) printf("%u\n", i44_form(w));
+}
+"""
+
+
+def test_tap_word_forms_are_the_tables(tmp_path):
+    """The encoder's trial takes each directional prediction as one byte
+    of a neighbour's packed word (intra44_common.cuh `i44_form`,
+    `i44_filtered`): the neighbour itself, its 2-tap mean with its ring
+    successor or its 3-tap filter, along the ring L3 .. L0, X, T0 .. TR3
+    (an end its own neighbour).  The header's ring is that one, and the
+    form of every directional tap word gives the tap formula's value (the
+    port's W, R and S) on random 0..255 neighbours."""
+    exe = cuda_threads.build(tmp_path, FORM_HARNESS, CSRC, "i44_forms")
+    words = I44.tap_words().astype(np.int64)
+    out = subprocess.run([exe], input=" ".join(map(str, words)),
+                         capture_output=True, check=True, text=True).stdout
+    rows = out.split("\n")
+    prev, nxt = zip(*(map(int, r.split()) for r in rows[:13]))
+    ring = [3, 2, 1, 0] + list(range(4, 13))
+    for i, k in enumerate(ring):
+        assert prev[k] == ring[max(i - 1, 0)] and nxt[k] == ring[min(i + 1,
+                                                                    12)]
+    form = np.array(list(map(int, rows[13:13 + 144])), np.int64)
+    assert ((form & 0xfff0) == 0x4440).all() and (form & 0xf).max() <= 2
+    n = np.random.default_rng(29).integers(0, 256, (500, 13))
+    pv, nx = n[:, list(prev)], n[:, list(nxt)]
+    packed = np.stack([n, (n + nx + 1) >> 1, (pv + 2 * n + nx + 2) >> 2], 1)
+    for m in (0, 1, 3, 4, 5, 6, 7, 8):
+        for p in range(16):
+            x = int(words[16 * m + p])
+            want = (sum(n[:, (x >> 4 * j) & 15] * ((x >> 12 + 2 * j) & 3)
+                        for j in range(3)) + ((x >> 18) & 3)) >> (
+                            (x >> 20) & 3)
+            f = int(form[16 * m + p])
+            np.testing.assert_array_equal(packed[:, f & 3, f >> 16], want,
+                                          err_msg=f"mode {m} pixel {p}")
+
+
+def edit(text, old, new):
+    """`text` with the replacement old -> new, each exactly once where
+    old and new are tuples of replacements."""
+    olds, news = ((old,), (new,)) if isinstance(old, str) else (old, new)
+    for o, n in zip(olds, news):
+        assert text.count(o) == 1, o
+        text = text.replace(o, n)
+    return text
+
+
+# the level table of intra44_common.cuh with block 4 one level early,
+# beside block 1 (block 2 then alone on level 2): the second blocks'
+# nibbles
+LEVEL_TABLE_EDIT = ("0xfedc985410ull", "0xfedc985240ull")
+
+
+def _levels_of_scan():
+    """The dependency levels of the 16 blocks, derived from the port's
+    z-scan order (BLK_SCAN) and `_static_tr_kind`: a block one level above
+    the highest block it reads (L, T, X and TR where "real", inside the
+    MB).  Returns (each block's level, each block's blocks read)."""
+    at = {xy: bi for bi, xy in enumerate(I44.BLK_SCAN)}
+    level, reads = [], []
+    for bi, (bx, by) in enumerate(I44.BLK_SCAN):
+        nb = [(bx - 1, by), (bx, by - 1), (bx - 1, by - 1)]
+        if I44._static_tr_kind(bi) == "real":
+            nb.append((bx + 1, by - 1))
+        reads.append([at[xy] for xy in nb if xy in at])
+        assert all(b < bi for b in reads[-1])  # decoded before it
+        level.append(1 + max((level[b] for b in reads[-1]), default=-1))
+    return level, reads
+
+
+LEVEL_HARNESS = (
+    "#include <cuda_runtime.h>\n#include <cstdio>\n"
+    '#include "intra44_common.cuh"\n'
+    "int main() {\n  for (int bi = 0; bi < 16; ++bi) {\n"
+    '    printf("%d %d %d", blk_x(bi), blk_y(bi), (int)tr_real(bi));\n'
+    '    for (int k = 0; k < 13; ++k) printf(" %d", i44_neighbour(bi, k));\n'
+    '    printf("\\n");\n  }\n'
+    '  printf("%d %d\\n", kI44Levels, (int)i44_levels_hold());\n'
+    "  for (int l = 0; l < kI44Levels; ++l)\n"
+    '    printf("%d %d\\n", i44_level_block(l, 0), i44_level_block(l, 1));\n'
+    "}\n")
 
 
 def test_header_block_rules_are_the_plain_versions(tmp_path):
     """intra44_common.cuh's z-scan position, top-right kind and neighbour
     samples of every block, compiled by g++ against the shims, are
     BLK_SCAN, `_static_tr_kind` and the samples `_gather_neighbors`
-    reads (L, X, T, TR; row -1 the zeros above the slice)."""
-    harness = (
-        "#include <cuda_runtime.h>\n#include <cstdio>\n"
-        '#include "intra44_common.cuh"\n'
-        "int main() {\n  for (int bi = 0; bi < 16; ++bi) {\n"
-        '    printf("%d %d %d", blk_x(bi), blk_y(bi), (int)tr_real(bi));\n'
-        '    for (int k = 0; k < 13; ++k) printf(" %d", i44_neighbour(bi, k));\n'
-        '    printf("\\n");\n  }\n}\n')
-    exe = cuda_threads.build(tmp_path, harness, CSRC, "i44_rules")
+    reads (L, X, T, TR; row -1 the zeros above the slice); and its level
+    table, which the kernels walk, is the dependency levels of that scan
+    order and those TR rules: 10 levels of at most two blocks, every block
+    a block reads on a lower level.  A table that moves a block one level
+    early does not compile (its static_assert)."""
+    exe = cuda_threads.build(tmp_path, LEVEL_HARNESS, CSRC, "i44_rules")
     rows = subprocess.run([exe], capture_output=True, check=True,
                           text=True).stdout.split("\n")
     at = lambda x, y: (y + 1) * 20 + x + 4
@@ -502,12 +611,33 @@ def test_header_block_rules_are_the_plain_versions(tmp_path):
                 + [at(x0 - 1, y0 - 1)] + [at(x0 + k, y0 - 1) for k in range(4)]
                 + [at(x0 + (4 + k if real else 3), y0 - 1) for k in range(4)])
         assert list(map(int, rows[bi].split())) == want, bi
+    level, reads = _levels_of_scan()
+    assert max(level) + 1 == 10
+    assert all(level[b] < level[bi] for bi in range(16) for b in reads[bi])
+    groups = [[bi for bi in range(16) if level[bi] == lv] for lv in range(10)]
+    assert max(map(len, groups)) == 2
+    assert rows[16].split() == ["10", "1"]
+    table = [list(map(int, r.split())) for r in rows[17:27]]
+    assert [sorted(set(t)) for t in table] == groups
+    assert tuple(tuple(g) for g in groups if len(g) == 2) == (
+        chip_smoke.I44_LEVEL_PAIRS)
+    # the static_assert refuses a table with block 4 beside block 1
+    bad = tmp_path / "bad"
+    bad.mkdir()
+    with open(os.path.join(CSRC, "intra44_common.cuh")) as fh:
+        (bad / "intra44_common.cuh").write_text(edit(fh.read(),
+                                                     *LEVEL_TABLE_EDIT))
+    with pytest.raises(subprocess.CalledProcessError):
+        cuda_threads.build(bad, LEVEL_HARNESS, str(bad), "i44_bad")
 
 
-# mutants of the Intra_4x4 route, each a replacement in a source: TR
-# real where `_static_tr_kind` repeats T3; DC of 128 where only T is
-# available; the blocks walked in raster order, not z-scan; the 4-bit
-# cbp_luma masking a mode-4 MB's levels
+# mutants of the Intra_4x4 route, each a replacement in a source (or a
+# tuple of them): TR real where `_static_tr_kind` repeats T3; DC of 128
+# where only T is available; the blocks walked in raster order, not
+# z-scan; the 4-bit cbp_luma masking a mode-4 MB's levels; block 4 one
+# level early, beside block 1 (the table's static_assert taken out, which
+# would refuse it); no hand-off between levels (the warp barrier after a
+# level's stores)
 I44_MUTANTS = {
     "TR real where repeated": (
         "intra44_common.cuh",
@@ -515,8 +645,9 @@ I44_MUTANTS = {
         "         blk_z(blk_x(bi) + 1, blk_y(bi) - 1) < bi;",
         "  return blk_y(bi) > 0 && blk_x(bi) < 3;"),
     "DC 128 with T alone": (
-        "intra44_common.cuh", "if (l_ok || t_ok) return (int)(s + 2u) >> 2;",
-        "if (l_ok) return (int)(s + 2u) >> 2;"),
+        "intra44_common.cuh",
+        "if (l_ok || t_ok) return (int)((l_ok ? sl : st) + 2u) >> 2;",
+        "if (l_ok) return (int)(sl + 2u) >> 2;"),
     "raster order": (
         "intra44_common.cuh",
         "  return (bi & 1) | ((bi >> 1) & 2);\n}\n"
@@ -529,6 +660,12 @@ I44_MUTANTS = {
         "intra_recon.cu", "i4 ? ld16(a.ac44 + m * a.sac44 + 8 * t)",
         "i4 ? (((a.cbp_l[m * a.scl] >> (((t >> 4) << 1) | ((t >> 2) & 1)))"
         " & 1) ? ld16(a.ac44 + m * a.sac44 + 8 * t) : z)"),
+    "block 4 beside block 1": (
+        "intra44_common.cuh",
+        (LEVEL_TABLE_EDIT[0], "static_assert(i44_levels_hold(),"),
+        (LEVEL_TABLE_EDIT[1], "static_assert(true || i44_levels_hold(),")),
+    "no hand-off between levels": (
+        "intra_recon.cu", "    __syncwarp();  // the level is written\n", ""),
 }
 
 
@@ -544,8 +681,7 @@ def i44_mutants(tmp_path_factory):
             with open(os.path.join(CSRC, f)) as fh:
                 text = fh.read()
             if f == src:
-                assert text.count(old) == 1, name
-                text = text.replace(old, new)
+                text = edit(text, old, new)
             (d / f).write_text(text)
         jobs.append((name, tmp_path_factory.mktemp("i44_mutant"), str(d)))
 

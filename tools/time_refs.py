@@ -241,8 +241,8 @@ def k5_variant(spec: str):
     """K5's source built alone into the build directory, `spec` "[SRC:]
     NAME=V,...": this checkout's csrc/intra_recon.cu, or SRC (another
     version of it, its headers beside it), with those macros (e.g.
-    K5_WORKERS, K5_RING).  K5's route through that build's
-    entry, fn(**router kwargs)."""
+    K5_WORKERS, K5_RING).  K5's route (its Intra_4x4 route where the call
+    has `i44`) through that build's entry, fn(**router kwargs)."""
     import ctypes
     import subprocess
 
@@ -265,7 +265,7 @@ def k5_variant(spec: str):
     def scan(mode, cmode, levels, qp, qpc, other=None, is_intra=None,
              i44=None):
         ins, outs, ints = iframe._k5_operands(mode, cmode, levels, qp, qpc,
-                                              other, is_intra)
+                                              other, is_intra, i44)
         err = entry(cuda_lib.pointers(ins + outs), cuda_lib.ints(ints),
                     cuda_lib.stream(mode.device))
         if err:
@@ -341,7 +341,8 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--k5-variant", action="append", default=[],
                     help="K5 built with these macros, e.g. "
-                    "K5_WORKERS=6,K5_RING=16 (timed as one more way)")
+                    "K5_WORKERS=6,K5_RING=16, or SRC:[MACROS] another "
+                    "source (timed as one more way, K5 and K5-i44)")
     ap.add_argument("--k12-blocks", action="append", type=int, default=[],
                     help="K12 at this many blocks an SM (one more way)")
     ap.add_argument("--only", default="K1,K5,K5-i44,D-i44,K9,K10,K11,K12",
@@ -367,7 +368,8 @@ def main() -> None:
             root, f"tree{i}_tpuh264_torch"))))
     this = ways[0][1]
     for d in a.k5_variant:
-        ways.append((f"K5 {d}", dict(this, K5=k5_variant(d))))
+        v = k5_variant(d)
+        ways.append((f"K5 {d}", dict(this, **{"K5": v, "K5-i44": v})))
     for n in a.k12_blocks:
         ways.append((f"K12 {n} blocks an SM", dict(this, **k12_blocks(n))))
     cases = [c for c in inputs(dev, torch) if c[0] in a.only.split(",")]

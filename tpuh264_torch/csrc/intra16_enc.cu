@@ -114,30 +114,42 @@
 // Intra_16x16, 96 + the levels' for Intra_4x4; Intra_16x16 on a tie), and
 // its luma right column is the next MB's left.  Chroma does not depend on
 // the choice.  The next left now needs the whole candidate (its SSD and
-// rate) and the trial's 16 dependent block steps, so D3's split of the
-// luma chain does not carry over: the instance re-schedules the luma
-// roles, at step k column k - 1:
-//  * warp 0 walks the trial through the MB's samples in shared memory
-//    (intra44_common.cuh's layout, the left column beside them): a block
-//    step reads the 13 neighbours and DC's samples, the other modes two a
-//    pass from their tap words (lanes 0-15 modes 0, 2, 4, 6, 8, lanes
-//    16-31 1, 3, 5, 7), the passes' SADs two a word by one redux each, the
-//    first least available mode from keys in registers, forward4x4,
-//    quant, dequant and inverse4x4 by shuffles along rows and columns;
-//    lanes 0-15 store the samples and levels.  Then its SSD, rate and
-//    cbp, and bar.arrive on named barrier 1.
+// rate) and the trial's dependent block steps, so D3's split of the luma
+// chain does not carry over: the instance re-schedules the luma roles, at
+// step k column k - 1:
+//  * warps 0 and 5 walk the trial through the MB's samples in shared
+//    memory (intra44_common.cuh's layout, the left column beside them) by
+//    the blocks' 10 dependency levels (intra44_common.cuh: no block reads
+//    another of its level), warp 0 each level's first block and warp 5
+//    the second of the six levels that have two, meeting at named barrier
+//    2 after each of levels 1-7.  A block step (`trial_block`) reads the
+//    13 neighbours and DC's samples, packs each neighbour's 2-tap mean and
+//    3-tap filter beside it, takes the other modes two a pass, each by
+//    one shuffle of those packed words (`i44_form` of its tap word: lanes
+//    0-15 modes 0, 2, 4, 6, 8, lanes 16-31 1, 3, 5, 7), the passes' SADs
+//    two a word by one redux each, the first least
+//    available mode from keys in registers, forward4x4, quant, dequant and
+//    inverse4x4 by shuffles along rows and columns; lanes 0-15 store the
+//    samples and levels.  Warp 5 leaves its part of the SSD, rate and cbp
+//    in shared memory and, while warp 0 walks the last two levels alone,
+//    runs the chroma finish of column k - 2 (its role in D3); warp 0 sums
+//    the SSD, rate and cbp and arrives at named barrier 1.
 //  * warp 4 meanwhile runs the chain's Intra_16x16 choice and finish's
 //    levels and reconstruction of the same column, with its SSD and rate;
 //    then bar.sync on barrier 1, the choice, every luma store of the
 //    winner, and the next column's left.
-//  * prep (warps 2, 3), the chroma chain (warp 1) and the chroma finish
-//    (warp 5) are D3's.
-// It is bound by the trial warp's instruction stream: a block step is some
-// 300 dependent instructions of one warp (~1,100 cycles on the H100); the
-// block's other warps wait on it.  Its 16 steps are unrolled: ptxas keeps
-// the instance at 96 registers for three blocks an SM, and a loop of one
-// step a pass, or SADs summed by xor shuffles, ran 1.5-2x longer.  Every
-// J stays within int32 (luma44_column).
+//  * prep (warps 2, 3) and the chroma chain (warp 1) are D3's.
+// It is bound by the trial's chain, 10 levels of a block step each, and
+// by the issue its warps share with the other lanes' on an SM: a block
+// step alone took ~1,100 cycles on the H100 (16 in z-scan order a MB),
+// two at once ~1,500, and ~1,200 with the predictions taken from the
+// packed ring (some 60 instructions fewer a step; PERF.md).  The block's
+// other warps wait on it.  The 10 levels are unrolled: ptxas keeps the
+// instance at 96 registers for three blocks an SM.  (A seventh warp for
+// the second blocks held ptxas to 80 registers, with spills; one warp
+// walking both blocks of a level, a half-warp each with nine modes a
+// lane, ran slower than the z-scan walk.)  Every J stays within int32
+// (luma44_column).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -951,13 +963,20 @@ __device__ void finish_loop(const Args& a, Slot* ring, size_t lane, int t,
 // them (intra44_common.cuh's layout: row -1 and the corner stay zero,
 // column -1 the left column), and the trial's results: its
 // levels (raster block 4 by + bx x zigzag slot), its block modes (z-scan),
-// SSD, rate (96 + the levels' `rate_bits`) and 4-bit cbp.
+// SSD, rate (96 + the levels' `rate_bits`) and 4-bit cbp; and the second
+// trial warp's part of the SSD, rate and cbp.
 struct Trial {
   __align__(16) int pix[kI44Pix];
   __align__(16) int16_t coef[16][16];
   __align__(16) int16_t modes[16];
   int ssd, rate, cbp;
+  int ssd_b, rate_b, cbp_b;
 };
+
+// The hand-off between the two trial warps after a level (named barrier
+// 2): each one's blocks of the level are written before either reads
+// them.
+__device__ __forceinline__ void level_sync() { bar_wait(2, 64); }
 
 // forward4x4's weights, row i of its matrix ((1, 1, 1, 1), (2, 1, -1, -2),
 // (1, -1, -1, 1), (1, -2, 2, -1))
@@ -983,8 +1002,8 @@ __device__ __forceinline__ int inv_out(int d0, int d1, int d2, int d3,
 // slot; its neighbour's offset from a block's first sample (the block's
 // sample (0, 0)) where the block's TR is real and where it is T3 repeated
 // (`i44_neighbour` of blocks 6 and 3: the rule moves with the block but
-// for TR); the tap words of its pixel by its five modes, 2j + (t >> 4)
-// (mode 8 twice on lanes 16-31; DC's word is 0).
+// for TR); the forms (`i44_form`) of its pixel's tap words by its five
+// modes, 2j + (t >> 4) (mode 8 twice on lanes 16-31; DC's unused).
 struct Lane44 {
   int row, colm;
   int4 wx, wy;
@@ -1004,7 +1023,7 @@ __device__ __forceinline__ Lane44 lane44(const Args& a, int t,
             i44_neighbour(3, t) - i44_at(4, 4), {}};
 #pragma unroll
   for (int j = 0; j < 5; ++j)
-    ln.tw[j] = a.taps[16 * min(2 * j + (t >> 4), 8) + p];
+    ln.tw[j] = i44_form(a.taps[16 * min(2 * j + (t >> 4), 8) + p]);
   return ln;
 }
 
@@ -1031,79 +1050,125 @@ __device__ __forceinline__ int inv_pass(int v, int first, int stride,
   return inv_out(g.x, g.y, g.z, g.w, i);
 }
 
-// The Intra_4x4 trial of column col (warp 0; kernels/intra44.py
-// `encode_mb`): the MB's 16 blocks in z-scan order through the samples in
-// shared memory.  A block step: lanes 0-12 read the 13 neighbours, every
-// lane the block's L and T samples for DC; five passes of two modes
-// (lanes 0-15 modes 0, 2, 4, 6, 8, lanes 16-31 1, 3, 5, 7), each
-// prediction by its tap word (kept in registers); the passes' SADs two a
+// One block step of the Intra_4x4 trial (kernels/intra44.py `encode_mb`):
+// block bi of the MB in `tr`.  Lanes 0-12 read the 13 neighbours and
+// pack each one's 2-tap mean and 3-tap filter beside it, every lane the
+// block's L and T samples for DC; five passes of two modes (lanes 0-15
+// modes 0, 2, 4, 6, 8, lanes 16-31 1, 3, 5, 7), each prediction one
+// shuffle of a packed word by its tap word's form (kept in registers:
+// every directional prediction is a neighbour, a mean or a filter of
+// the ring of neighbours, `i44_form`); the passes' SADs two a
 // word by one redux each; the first least available mode from keys in
 // registers; its prediction from the lane (or the lane 16 above) that
 // made it; the residual's forward4x4 by shuffles (rows, then columns),
 // quant4x4 (intra), dequant, inverse4x4 (rows, then columns), clip; lanes
-// 0-15 store the samples and levels.  Then the SSD, rate and cbp, and the
-// hand-over to warp 4.
+// 0-15 store the samples and levels, lane 0 the mode.  It adds the
+// block's SSD and rate to the lane's, its cbp bit to `cbp`.
+__device__ __forceinline__ void trial_block(const Slot& s, Trial& tr,
+                                            int bi, bool l_mb, int t,
+                                            const Quant& q, const Lane44& ln,
+                                            int& ssd, int& rate, int& cbp) {
+  const int p = t & 15, x = p & 3, y = p >> 2;
+  const bool hi = t >= 16;
+  const int bx = blk_x(bi), by = blk_y(bi);
+  const int* pb = tr.pix + i44_at(4 * bx, 4 * by);
+  const int nv = pb[tr_real(bi) ? ln.nb_real : ln.nb_repl];
+  const int src = (s.ys[(4 * by + y) * 4 + bx] >> (8 * x)) & 255;
+  const bool l_ok = bx > 0 || l_mb, t_ok = by > 0;
+  const int dc = i44_dc_at(pb, l_ok, t_ok);
+  const uint32_t fw = i44_filtered(nv, p);
+  int pr[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    const int tap = i44_pick(ln.tw[j], fw);  // every lane shuffles
+    pr[j] = j == 1 && !hi ? dc : tap;        // mode 2: DC
+  }
+  const int best = i44_best(i44_sads(src, pr, t), l_ok, t_ok);
+  int mine = pr[0];
+#pragma unroll
+  for (int j = 1; j < 5; ++j) mine = (best >> 1) == j ? pr[j] : mine;
+  const int pred = __shfl_sync(0xffffffffu, mine, p + 16 * (best & 1));
+  // forward4x4 of the residual, quant, dequant, inverse4x4, clip
+  int w = fwd_pass(src - pred, ln.row, 1, ln.wx);
+  w = fwd_pass(w, ln.colm, 4, ln.wy);
+  const int z = quant(w, ln.mf, q.fq, q.qbits);
+  int d = inv_pass(z * ln.vs, ln.row, 1, x);
+  d = inv_pass(d, ln.colm, 4, y);
+  const int rec = clip255(pred + ((d + 32) >> 6));
+  if (t < 16) {
+    tr.pix[i44_at(4 * bx + x, 4 * by + y)] = rec;
+    tr.coef[4 * by + bx][ln.slot] = (int16_t)z;
+  }
+  if (t == 0) tr.modes[bi] = (int16_t)best;
+  ssd += (rec - src) * (rec - src);
+  rate += rate_bits(z);
+  cbp |= __ballot_sync(0xffffffffu, z != 0) ? 1 << (bi >> 2) : 0;
+}
+
+// The Intra_4x4 trial of column col by trial warp kHalf (0: warp 0, 1:
+// warp 5): the MB's 16 blocks by their 10 dependency levels
+// (intra44_common.cuh) through the samples in shared memory, warp 0 each
+// level's first block and warp 5 its second (where the level has
+// two), a block step a level each.  After each level from 1 to 7 the two
+// warps meet at named barrier 2 (`level_sync`: a block of levels 2-9
+// reads blocks of the level before it, which the other warp may have
+// made; warp 5's last block is on level 7).  Then the SSD, rate and
+// cbp (warp 5's part through `Trial`, before its last hand-off),
+// and warp 0 hands over to warp 4.
+template <int kHalf>
 __device__ __forceinline__ void trial_column(const Slot& s, Trial& tr,
                                              int col, int t, const Quant& q,
                                              const Lane44& ln) {
-  const int p = t & 15, x = p & 3, y = p >> 2;
-  const bool hi = t >= 16, l_mb = col > 0;
-  if (t < 16) tr.pix[i44_at(-1, t)] = s.lft[t];  // zeros in column 0
+  const bool hi = t >= 16;
+  if (kHalf == 0 && t < 16) tr.pix[i44_at(-1, t)] = s.lft[t];  // zeros in
+                                                                // column 0
   int ssd = 0, rate = 0, cbp = 0;
   __syncwarp();
-  // all 16 steps unrolled: constant neighbour offsets, and one step's
-  // loads overlap the last one's chain (1.48 -> 1.07 ms, 1080p x 4, H100)
+  // all 10 levels unrolled: constant neighbour offsets, and one level's
+  // loads overlap the last one's chain
 #pragma unroll
-  for (int bi = 0; bi < 16; ++bi) {
-    const int bx = blk_x(bi), by = blk_y(bi);
-    const int* pb = tr.pix + i44_at(4 * bx, 4 * by);
-    const int nv = pb[tr_real(bi) ? ln.nb_real : ln.nb_repl];
-    const int src = (s.ys[(4 * by + y) * 4 + bx] >> (8 * x)) & 255;
-    const bool l_ok = bx > 0 || l_mb, t_ok = by > 0;
-    const int dc = i44_dc_at(pb, l_ok, t_ok);
-    int pr[5];
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      const int tap = i44_tap(ln.tw[j], nv);  // every lane shuffles
-      pr[j] = j == 1 && !hi ? dc : tap;       // mode 2: DC
+  for (int l = 0; l < kI44Levels; ++l) {
+    const int bi = i44_level_block(l, kHalf);
+    if (kHalf == 0 || bi != i44_level_block(l, 0))
+      trial_block(s, tr, bi, col > 0, t, q, ln, ssd, rate, cbp);
+    if (kHalf == 1 && l == 7) {  // its part, before its last hand-off
+      ssd = (int)warp_sum(hi ? 0u : (unsigned)ssd);
+      rate = (int)warp_sum(hi ? 0u : (unsigned)rate);
+      if (t == 0) tr.ssd_b = ssd, tr.rate_b = rate, tr.cbp_b = cbp;
     }
-    const int best = i44_best(i44_sads(src, pr, t), l_ok, t_ok);
-    int mine = pr[0];
-#pragma unroll
-    for (int j = 1; j < 5; ++j) mine = (best >> 1) == j ? pr[j] : mine;
-    const int pred = __shfl_sync(0xffffffffu, mine, p + 16 * (best & 1));
-    // forward4x4 of the residual, quant, dequant, inverse4x4, clip
-    int w = fwd_pass(src - pred, ln.row, 1, ln.wx);
-    w = fwd_pass(w, ln.colm, 4, ln.wy);
-    const int z = quant(w, ln.mf, q.fq, q.qbits);
-    int d = inv_pass(z * ln.vs, ln.row, 1, x);
-    d = inv_pass(d, ln.colm, 4, y);
-    const int rec = clip255(pred + ((d + 32) >> 6));
-    if (t < 16) {
-      tr.pix[i44_at(4 * bx + x, 4 * by + y)] = rec;
-      tr.coef[4 * by + bx][ln.slot] = (int16_t)z;
-    }
-    if (t == 0) tr.modes[bi] = (int16_t)best;
-    ssd += (rec - src) * (rec - src);
-    rate += rate_bits(z);
-    cbp |= __ballot_sync(0xffffffffu, z != 0) ? 1 << (bi >> 2) : 0;
-    __syncwarp();  // the block's samples are written
+    if (l >= 1 && l <= 7)
+      level_sync();  // the level's blocks are written
+    else
+      __syncwarp();  // the level's samples are written
   }
+  if (kHalf == 1) return;
   // at most 256 * 255^2 and 96 + 256 * 33: no int32 sum wraps
   ssd = (int)warp_sum(hi ? 0u : (unsigned)ssd);
   rate = (int)warp_sum(hi ? 0u : (unsigned)rate);
-  if (t == 0) tr.ssd = ssd, tr.rate = 96 + rate, tr.cbp = cbp;
+  if (t == 0)
+    tr.ssd = ssd + tr.ssd_b, tr.rate = 96 + rate + tr.rate_b,
+    tr.cbp = cbp | tr.cbp_b;
   bar_arrive(1, 64);  // to warp 4: the trial of this column is done
 }
 
-// The trial's loop (warp 0 of the kI44 instance): at step c, column c - 1.
-__device__ void trial_loop(const Args& a, Slot* ring, Trial& tr, int t) {
-  const Quant q = quantiser(a.qp);
+// The trial's loops of the kI44 instance: warp 0 (kHalf 0) and warp 5
+// (kHalf 1), at step c column c - 1; warp 5 then runs the chroma finish
+// of column c - 2 (D3's, warp 5's role in the instance without kI44),
+// while warp 0 walks the last two levels alone.
+template <int kHalf>
+__device__ void trial_loop(const Args& a, Slot* ring, Trial& tr,
+                           size_t lane, int t) {
+  const Quant q = quantiser(a.qp), qc = quantiser(a.qpc);
   const Lane44 ln = lane44(a, t, q);
-  for (int i = t; i < kI44Pix; i += 32) tr.pix[i] = 0;
+  const Block k = block_of(false, t);
+  if (kHalf == 0)
+    for (int i = t; i < kI44Pix; i += 32) tr.pix[i] = 0;
   __syncwarp();
   for (int c = 0, i = kSlots - 1; c < a.C + 2; ++c, i = next_slot(i)) {
-    if (c >= 1 && c <= a.C) trial_column(ring[i], tr, c - 1, t, q, ln);
+    if (c >= 1 && c <= a.C)
+      trial_column<kHalf>(ring[i], tr, c - 1, t, q, ln);
+    if (kHalf == 1 && c >= 2)
+      finish_chroma(a, ring[prev_slot(i)], k, lane, c - 2, t, qc, false);
     step_end();
   }
 }
@@ -1192,10 +1257,11 @@ __device__ void luma44_loop(const Args& a, Slot* ring, const Trial& tr,
 
 // Block b is lane b: its six warps walk the C columns in C + 2 steps.
 // At 96 registers (ptxas) three blocks fit an SM: 272 lanes at 1080p x 4
-// on 132 SMs run in one wave.  kI44 (the Intra_4x4 route): warp 0 runs
-// the trial and warp 4 the luma of the same column (see the note above);
-// its launch bounds ask for three blocks an SM too (two were slower,
-// 1.66 against 1.07 ms, 1080p x 4, H100).
+// on 132 SMs run in one wave.  kI44 (the Intra_4x4 route): warps 0 and 5
+// run the trial, warp 4 the luma of the same column, warp 5 then the
+// chroma finish (see the note above); its launch bounds ask for three
+// blocks an SM too (two were slower, 1.66 against 1.07 ms for the
+// z-scan walk, 1080p x 4, H100).
 template <bool kI44>
 __global__ void __launch_bounds__(kThreads, kI44 ? 3 : 2)
     intra16_enc_kernel(Args a) {
@@ -1206,12 +1272,12 @@ __global__ void __launch_bounds__(kThreads, kI44 ? 3 : 2)
   if constexpr (kI44) {
     __shared__ Trial tr;
     switch (warp) {
-      case kLuma: trial_loop(a, ring, tr, t); break;
+      case kLuma: trial_loop<0>(a, ring, tr, lane, t); break;
       case kChroma: chroma_chain(a, ring, lane, t, false); break;
       case kPrepY: prep_loop(a, ring, stage, lane, t, true); break;
       case kPrepC: prep_loop(a, ring, stage, lane, t, false); break;
       case kFinY: luma44_loop(a, ring, tr, lane, t); break;
-      default: finish_loop(a, ring, lane, t, false, false);
+      default: trial_loop<1>(a, ring, tr, lane, t);  // kFinC
     }
   } else {
     const bool d4 = a.inter_sad != nullptr;

@@ -92,12 +92,18 @@
 //    residuals as ever (`block_residual44`: every position dequantised as
 //    AC at the i44 QP) and leaves the modes, clamped to 0..8 as `_select`
 //    clamps them, beside the slot.  The prediction warp walks the 16
-//    blocks in z-scan order through the MB's samples in shared memory
-//    (intra44_common.cuh): lanes 0-12 read the 13 neighbours, every lane
-//    its pixel's taps by shuffles (DC by redux.sync), lanes 0-15 add the
-//    residual, clip and store; then each thread reads its two luma chunks
-//    back.  Chroma is as for any intra MB.  The chain is 16 dependent
-//    steps an MB, not bytes.
+//    blocks by their 10 dependency levels through the MB's samples in
+//    shared memory (intra44_common.cuh), two blocks at once on the six
+//    levels that have two: each half-warp one block, lanes 0-12 of it
+//    reading its 13 neighbours, every lane its pixel's taps by shuffles
+//    within its half and its block's DC from the samples, adding the
+//    residual, clipping and storing (lanes 16-31 store nothing on a level
+//    of one block); then each thread reads its two luma chunks back.
+//    Chroma is as for any intra MB.  What holds the route is the chain of
+//    10 dependent steps an MB and the issue that the prediction warp
+//    shares with the workers, not bytes (three workers were 3% faster
+//    than four on an all-Intra_4x4 IDR, four the fastest on the
+//    Intra_16x16 one: PERF.md).
 //  * A thread owns three 16-byte chunks of every MB: luma chunks t and
 //    t + 32 and chunk t & 15 of chroma plane t >> 4, in the residuals'
 //    4x4-block order (by, bx, y, x).  A chunk is the 4 samples of one
@@ -433,9 +439,11 @@ __device__ void work(const Args& a, Mem<kI44>& sm, size_t mb0, int w,
 }
 
 // The Intra_4x4 luma of the MB in `slot` (kernels/intra44.py
-// `decode_mb`): its 16 blocks in z-scan order through the MB's samples in
-// shared memory, then the thread's chunks A and B.  la / lb: the left
-// samples of the thread's rows; col > 0: the left MB is available.
+// `decode_mb`): its 16 blocks by their 10 dependency levels
+// (intra44_common.cuh) through the MB's samples in shared memory, lanes
+// 0-15 a level's first block and lanes 16-31 its second, then the
+// thread's chunks A and B.  la / lb: the left samples of the thread's
+// rows; l_mb: the left MB is available (col > 0).
 __device__ __forceinline__ void walk44(Mem<true>& sm, const Slot& s,
                                        unsigned slot, int la, int lb,
                                        bool l_mb, int t, int4& oa,
@@ -443,24 +451,31 @@ __device__ __forceinline__ void walk44(Mem<true>& sm, const Slot& s,
   int* pix = sm.pix;
   const int row = 4 * (t >> 4) + (t & 3), bx = (t >> 2) & 3;
   if (bx == 0) pix[i44_at(-1, row)] = la, pix[i44_at(-1, row + 8)] = lb;
-  // lane p < 16: pixel (p & 3, p >> 2) of every block; its residuals
-  const int p = t & 15;
+  // lane t: pixel p = t & 15, (p & 3, p >> 2), of its half-warp's block
+  // of every level; that pixel's residual and its tap word by the block's
+  // mode (0 for DC), both off the chain
+  const int p = t & 15, h = t >> 4;
   const int* res = reinterpret_cast<const int*>(s.r.ry);
-  int r[16];
+  int r[kI44Levels];
+  uint32_t w[kI44Levels];
 #pragma unroll
-  for (int bi = 0; bi < 16; ++bi)
-    r[bi] = res[4 * (16 * blk_y(bi) + 4 * blk_x(bi) + (p >> 2)) + (p & 3)];
+  for (int l = 0; l < kI44Levels; ++l) {
+    const int bi = h ? i44_level_block(l, 1) : i44_level_block(l, 0);
+    r[l] = res[4 * (16 * blk_y(bi) + 4 * blk_x(bi) + (p >> 2)) + (p & 3)];
+    w[l] = sm.taps[16 * sm.m4[slot][bi] + p];
+  }
   __syncwarp();  // the left column is written
 #pragma unroll
-  for (int bi = 0; bi < 16; ++bi) {
-    const int x0 = 4 * blk_x(bi), y0 = 4 * blk_y(bi);
-    const int nv = pix[i44_neighbour(bi, t)];
-    const int pred = i44_predict(sm.taps, sm.m4[slot][bi], nv, t,
-                                 x0 > 0 || l_mb, y0 > 0);
-    if (t < 16)
-      pix[i44_at(x0 + (p & 3), y0 + (p >> 2))] =
-          clip255((int)((unsigned)pred + (unsigned)r[bi]));
-    __syncwarp();  // the block is written
+  for (int l = 0; l < kI44Levels; ++l) {
+    const int b0 = i44_level_block(l, 0), b1 = i44_level_block(l, 1);
+    const int x0 = 4 * blk_x(h ? b1 : b0), y0 = 4 * blk_y(h ? b1 : b0);
+    const int nv = pix[h ? i44_neighbour(b1, p) : i44_neighbour(b0, p)];
+    const int dc = i44_dc_at(pix + i44_at(x0, y0), x0 > 0 || l_mb, y0 > 0);
+    const int tap = i44_tap(w[l], nv, t & 16);  // every lane shuffles
+    if (t < 16 || b1 != b0)
+      pix[i44_at(x0 + (p & 3), y0 + (p >> 2))] = clip255(
+          (int)((unsigned)(w[l] ? tap : dc) + (unsigned)r[l]));
+    __syncwarp();  // the level is written
   }
   oa = ld4(pix + i44_at(4 * bx, row));
   ob = ld4(pix + i44_at(4 * bx, row + 8));
