@@ -83,10 +83,12 @@ tpuh264_torch/csrc, then:
      K10's t8 routes (the 8x8 transform's choice and decode, config 3's)
      on config 3's 1920x1080 x 1 P frame with two references (their rows
      of the kernel table, "K9-t8" and "K10-t8"), on part B's 854x480 x 8
-     with two references, and on seeded cases (`K9_T8_CASES`,
+     with two references, both also timed without t8, with each route's
+     resident warps an SM, and on seeded cases (`K9_T8_CASES`,
      `K10_T8_CASES`: QPs 0, 5, 6, 11, 12 .. 51, J ties, an 8x8 coding
      of no level, t8 on skip and intra MBs and levels outside
-     cbp_luma); K11 / K12 on
+     cbp_luma; 1-4 references, windows past the planes' pads and at
+     them, a later reference chosen); K11 / K12 on
      that P frame's encode (and K11 its decode) and the 480p frame's two
      references, and on seeded cases (`k11_case`: S 1 / 3, one MB, a
      row, a column, 97 columns, N 1 / 2 / 4, halo on and off, uint8 and
@@ -2009,6 +2011,21 @@ K9_T8_CASES += [((1, 2, 3), 2, 0, "motion", 0, "stageA", True, False),
                 ((2, 2, 3), 2, 1, "motion", 28, "stageA", False, True),
                 ((1, 3, 5), 1, 0, "noise", 51, "edge", False, False),
                 ((3, 1, 2), 2, 0, "saturate", 12, "stageA", True, False)]
+# and the corners of the t8 route's windows (both references' copied in
+# at the warp's start, a later one's after a search, luma and chroma):
+# two references whose first's windows lie past the planes' border at the
+# frame's edge ("subpel"), and "far" winners, 14-16 pels out of the frame
+# at its border MBs, so that the luma and the chroma windows of every
+# reference there lie past the pads (the clamp), the chroma ones 14 pels
+# up exactly at them; 1, 2, 3 and 4 references; and three references
+# whose last, copied in after the first two's searches, is the source's
+# ("subpel_last": "subpel" on the last reference, which most MBs choose)
+K9_T8_CASES += [((1, 3, 5), 2, 0, "smooth", 20, "subpel", False, False),
+                ((2, 2, 3), 3, 0, "motion", 28, "far", False, False),
+                ((1, 3, 5), 2, 1, "noise", 40, "far", True, False),
+                ((1, 1, 2), 4, 0, "motion", 12, "far", False, True),
+                ((1, 2, 4), 1, 0, "sparse", 6, "far", False, False),
+                ((1, 3, 5), 3, 0, "smooth", 28, "subpel_last", False, False)]
 # K10's: symbols whose t8 is 1 on MBs of every kind (skip and intra MBs
 # too: the plain version reconstructs every t8 MB through the 8x8
 # transform, whatever its kind and cbp_luma), levels outside cbp_luma
@@ -2053,12 +2070,14 @@ def k9_case(np, shape, n_refs, ref_base, content, qp, winners, iip, halo):
     rng = np.random.default_rng([s, r, c, n_refs, ref_base,
                                  (*P_CONTENT, "smooth", "sparse").index(
                                      content), qp,
-                                 ("stageA", "edge", "subpel").index(winners),
+                                 ("stageA", "edge", "subpel", "far",
+                                  "subpel_last").index(winners),
                                  iip, halo])
     h, w = 16 * r, 16 * c
     ey, ec = (pframe.HALO_Y, pframe.HALO_C) if halo else (0, 0)
-    if winners == "subpel":
-        return _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo)
+    if winners in ("subpel", "subpel_last"):
+        return _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo,
+                            n_refs - 1 if winners == "subpel_last" else 0)
     if content == "sparse":
         src = [_sparse_frame(np, rng, s, h, w),
                _sparse_frame(np, rng, s, h // 2, w // 2),
@@ -2072,13 +2091,19 @@ def k9_case(np, shape, n_refs, ref_base, content, qp, winners, iip, halo):
             _p_frames(np, rng, n_refs, s, h // 2, w // 2, kind, ec),
             _p_frames(np, rng, n_refs, s, h // 2, w // 2, kind, ec)]
     win = None
-    if winners == "edge":
+    if winners in ("edge", "far"):
         mb = (n_refs, s, r, c)
         pick = lambda: np.where(rng.random(mb) < 0.6,
                                 rng.choice([-8, 8], mb),
                                 rng.integers(-8, 9, mb)).astype(np.int32)
         win = (pick(), pick(), rng.integers(-8, 9, (n_refs, s)).astype(
             np.int32), rng.integers(-8, 9, (n_refs, s)).astype(np.int32))
+    if winners == "far":  # the border MBs' 14-16 pels out of the frame
+        out = lambda n, i: np.where(i == 0, -1, np.where(i == n - 1, 1, 0))
+        for k, o in ((0, out(r, np.arange(r))[:, None]),
+                     (1, out(c, np.arange(c))[None, :])):
+            far = o * rng.integers(14, 17, mb)
+            win[k][...] = np.where(o != 0, far, win[k])
     return dict(y=src[0], u=src[1], v=src[2], refs_y=refs[0],
                 refs_u=refs[1], refs_v=refs[2], winners=win, qp=qp,
                 ref_base=ref_base, intra_in_p=iip, halo=halo)
@@ -2103,11 +2128,12 @@ def _sparse_frame(np, rng, s, h, w):
     return np.clip(128 + x + row.reshape(s, h, w), 0, 255).astype(np.uint8)
 
 
-def _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo):
+def _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo, k=0):
     """`k9_case`'s "subpel" inputs (see K9_CASES): smooth references, the
-    source reference 0's motion-compensated prediction at the vectors
+    source reference k's motion-compensated prediction at the vectors
     4 (iy0 + sy) + 3 sy, 4 (ix0 + sx) + 3 sx, with the winners and zero
-    global vectors of reference 0 given (the others' at random)."""
+    global vectors of reference k given (the others' at random): k is 0,
+    or the last reference ("subpel_last")."""
     import torch
 
     from tpuh264_torch.kernels import pframe
@@ -2140,18 +2166,18 @@ def _subpel_case(np, rng, shape, n_refs, ref_base, qp, iip, halo):
     sy = np.where(out_y != 0, out_y, sy)
     sx = np.where(out_x != 0, out_x, sx)
     win = [rng.integers(-8, 9, mb).astype(np.int32) for _ in range(2)]
-    win[0][0], win[1][0] = iy, ix
+    win[0][k], win[1][k] = iy, ix
     g = [rng.integers(-2, 3, (n_refs, s)).astype(np.int32) for _ in range(2)]
-    g[0][0] = g[1][0] = 0
+    g[0][k] = g[1][k] = 0
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
     planes_l, refs_up, refs_vp = pframe._references(
         *(t(x) for x in refs), halo)
     mvy = t((4 * (iy + sy) + 3 * sy).astype(np.int32))
     mvx = t((4 * (ix + sx) + 3 * sx).astype(np.int32))
     src = [pframe._mbs_to_plane(x.to(torch.uint8)).numpy() for x in (
-        pframe._mc_luma(planes_l[0], mvx, mvy),
-        pframe._mc_chroma(refs_up[0], mvx, mvy),
-        pframe._mc_chroma(refs_vp[0], mvx, mvy))]
+        pframe._mc_luma(planes_l[k], mvx, mvy),
+        pframe._mc_chroma(refs_up[k], mvx, mvy),
+        pframe._mc_chroma(refs_vp[k], mvx, mvy))]
     return dict(y=src[0], u=src[1], v=src[2], refs_y=refs[0],
                 refs_u=refs[1], refs_v=refs[2],
                 winners=(win[0], win[1], g[0], g[1]), qp=qp,
@@ -3850,6 +3876,12 @@ def t8_rows(dev, torch, np, card):
     route adds."""
     from tpuh264_torch.kernels import pframe
 
+    res = pframe.resident_warps()
+    mbs = 8160, 8 * 30 * 54  # config 3's frame, part B's (480 rows: 30)
+    print(f"phase 2: K9 / K10 resident warps an SM (a MB each): " + ", ".join(
+        f"{k} {n} ({mbs[0] / (132 * n):.2f} / {mbs[1] / (132 * n):.2f} waves "
+        f"of config 3's / part B's frame)" for k, n in res.items())
+        + f" [{card}]")
     enc, dec, kinds, n8 = pframe_config3(dev, torch)
     if not n8:
         fail("config 3's P frame coded no MB with the 8x8 transform")
@@ -3875,8 +3907,13 @@ def t8_rows(dev, torch, np, card):
     del enc, dec
     enc, dec, kinds = pframe_480p_2ref(dev, torch, t8=True)
     for key, kw in (("K9", enc), ("K10", dec)):
-        p_timed(key, kw, torch, f"config 3 part B 854x480 x 8 P frame, two "
-                f"references, t8 (MB kinds skip/inter/intra {kinds})", card)
+        _, ms, _, _ = p_timed(key, kw, torch, f"config 3 part B 854x480 x 8 "
+                              f"P frame, two references, t8 (MB kinds "
+                              f"skip/inter/intra {kinds})", card)
+        fn = pframe._inter_encode if key == "K9" else pframe._inter_decode
+        ms0 = timed(lambda: fn(**dict(kw, t8=False)), 20)
+        print(f"phase 2: {key} on part B's frame without t8: {ms0:.4f} ms, "
+              f"against {ms:.4f} ms with it [{card}]")
     del enc, dec
     n_out = 0
     for case in K9_T8_CASES:

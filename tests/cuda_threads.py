@@ -30,7 +30,10 @@ so a thread may write the next while a slower one still reads the last;
 every thread of the warp must reach each exchange, as the kernels' warp-
 uniform code does. `__reduce_add_sync` (redux.sync) sums such an
 exchange, and `__reduce_min_sync` / `__reduce_max_sync` take its least /
-greatest; `atomicAdd` (int and 64-bit) and `atomicOr` are atomics on the
+greatest; `cp_async4` / `cp_async16` (cp.async) queue a thread's copies,
+`cp_async_commit` closes a group and `cp_async_wait<N>` lands all but
+the newest N groups, so that a read before its wait finds the old bytes;
+`atomicAdd` (int and 64-bit) and `atomicOr` are atomics on the
 host, `__shfl_up_sync` an exchange like `__shfl_sync`, `__popc` the
 builtin. __shared__ arrays are statics, int2 / int4 / uint2 / uint4
 plain structs, __grid_constant__ nothing; __vsadu4 is computed byte by
@@ -101,7 +104,20 @@ struct FiberBar {
   int expected = 0, count = 0;
   unsigned gen = 0;
 };
+// cp.async (cp_async4 / cp_async16, cp_async_commit, cp_async_wait<N>):
+// a thread's copies wait in its queue, and land only when a wait reaches
+// their group, so that a read before its wait finds what was there before
+struct CpCopy {
+  void* dst;
+  const void* src;
+  int n;
+};
+struct CpQueue {
+  std::vector<CpCopy> open;                // since the last commit
+  std::vector<std::vector<CpCopy>> groups;  // committed, oldest first
+};
 struct Fiber {
+  CpQueue cpq;     // its cp.async copies
   ucontext_t ctx;  // its first entry
   jmp_buf jb;      // where it left off since
   bool started = false;
@@ -193,6 +209,27 @@ inline void cta_release(unsigned* p, unsigned v) { cl_release(p, v); }
 inline void cl_pause() {
   g_fiber->bar = nullptr;
   to_sched();
+}
+inline thread_local CpQueue t_cpq;
+inline CpQueue& cp_queue() { return g_fibers ? g_fiber->cpq : t_cpq; }
+inline void cp_async4(void* dst, const void* src) {
+  cp_queue().open.push_back({dst, src, 4});
+}
+inline void cp_async16(void* dst, const void* src) {
+  cp_queue().open.push_back({dst, src, 16});
+}
+inline void cp_async_commit() {
+  CpQueue& q = cp_queue();
+  q.groups.push_back(std::move(q.open));
+  q.open.clear();
+}
+template <int N>
+inline void cp_async_wait() {
+  CpQueue& q = cp_queue();
+  while ((int)q.groups.size() > N) {
+    for (const CpCopy& c : q.groups.front()) std::memcpy(c.dst, c.src, c.n);
+    q.groups.erase(q.groups.begin());
+  }
 }
 inline uint32_t g_xchg[kMaxCta][32][2][32];
 inline thread_local unsigned g_xcount;

@@ -11,6 +11,7 @@ versions with on the card (`K9_CASES`, `K10_CASES`, and for t8
 """
 
 import concurrent.futures
+import functools
 import os
 
 import numpy as np
@@ -27,12 +28,12 @@ from tpuh264_torch.kernels import transform8 as T8
 CSRC = os.path.join(os.path.dirname(cuda_lib.__file__), os.pardir, "csrc")
 
 GRID = ("(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps")
-KERNELS = {  # each route is a template instance of its kernel
+KERNELS = {  # K9's routes are template instances, K10's kernels apart
     "k9": ("pframe_enc.cu", "enc_args", "pframe_encode_kernel<false>", *GRID),
     "k9t8": ("pframe_enc.cu", "enc_args", "pframe_encode_kernel<true>", *GRID),
-    "k10": ("pframe_dec.cu", "dec_args", "pframe_decode_kernel<false>",
+    "k10": ("pframe_dec.cu", "dec_args", "pframe_decode_kernel",
             *GRID),
-    "k10t8": ("pframe_dec.cu", "dec_args", "pframe_decode_kernel<true>",
+    "k10t8": ("pframe_dec.cu", "dec_args", "pframe_decode_t8_kernel",
               *GRID),
 }
 
@@ -40,20 +41,47 @@ KERNELS = {  # each route is a template instance of its kernel
 # that route: a J tie taking the 8x8 transform; the 8x8 transform taken
 # where it codes no level; K9 storing an 8x8 MB's levels, and K10 loading
 # them, as the 4x4 layout would (4x4 block 4 by + bx's 16 in row 4 by +
-# bx), not block k // 4's 16 consecutive zigzag levels in row k
+# bx), not block k // 4's 16 consecutive zigzag levels in row k.  And the
+# hand-offs of the copies in flight: K9 searching reference 0, 1 or a
+# later one before its windows' copies land, reference 1's windows copied
+# into reference 0's slot, MC's chroma read from the window's first byte
+# and not the row's offset in its first word; K10 taking the t8 flag of
+# the MB before and reading the levels before their copies land.
 MUTANTS = {
+    "K9 reference 0 before its copies": (
+        "k9t8", "        cp_async_wait<1>();\n", "        cp_async_wait<2>();\n"),
+    "K9 reference 1 before its copies": (
+        "k9t8", "else\n          cp_async_wait<0>();\n",
+        "else\n          cp_async_wait<1>();\n"),
+    "K9 a later reference before its copies": (
+        "k9t8", "        cp_async_commit();\n        cp_async_wait<0>();\n",
+        "        cp_async_commit();\n"),
+    "K9 reference 1 in reference 0's slot": (
+        "k9t8", "fetch_windows(w.win[n], a, n,", "fetch_windows(w.win[0], a, n,"),
+    "K9 chroma window offset dropped": (
+        "k9t8", "(mvx >> 3) - cx + ((8 * c + cx + a.cp) & 3),",
+        "(mvx >> 3) - cx,"),
+    "K10 t8 flag of the MB before": (
+        "k10t8", "a.t8[m * a.st8] == 1;", "a.t8[(m - (m > 0)) * a.st8] == 1;"),
+    "K10 levels before their copies": (
+        "k10t8", "  cp_async_wait<0>();\n  __syncwarp();",
+        "  __syncwarp();"),
     "j8 <= j4": ("k9t8", "use8 = t.j8 < j4 && t.cbp8 > 0;",
                  "use8 = t.j8 <= j4 && t.cbp8 > 0;"),
     "cbp8 > 0 dropped": ("k9t8", "use8 = t.j8 < j4 && t.cbp8 > 0;",
                          "use8 = t.j8 < j4;"),
     "K9 4x4 level layout": (
-        "k9t8", "const int blk = lane >> 3, z0 = 8 * (lane & 7);",
-        "const int blk = ((lane >> 4) << 1) | ((lane >> 2) & 1), z0 = 16 * "
-        "(((lane >> 3) & 1) * 2 + ((lane >> 1) & 1)) + 8 * (lane & 1);"),
+        "k9t8", "const int blk = lane >> 3;\n"
+        "      const uint64_t zr = kZz8Row[lane & 7];",
+        "const int blk = ((lane >> 4) << 1) | ((lane >> 2) & 1);\n"
+        "      const uint64_t zr = kZz8Row[2 * (((lane >> 3) & 1) * 2 + "
+        "((lane >> 1) & 1)) + (lane & 1)];"),
     "K10 4x4 level layout": (
-        "k10t8", "a.luma_ac + m * a.sla + 64 * b + z0);",
-        "a.luma_ac + m * a.sla + 16 * (4 * (2 * (b >> 1) + (i >> 2)) + 2 * "
-        "(b & 1) + ((i >> 1) & 1)) + 8 * (i & 1));"),
+        "k10t8",
+        "x[u] = dq8(lev[64 * b + (int)((zc >> (8 * u)) & 63)], sc[u & 3], a.qp);",
+        "{ const int L = (int)((zc >> (8 * u)) & 63), q = L >> 3; x[u] = "
+        "dq8(lev[16 * (4 * (2 * (b >> 1) + (q >> 2)) + 2 * (b & 1) + ((q >> "
+        "1) & 1)) + 8 * (q & 1) + (L & 7)], sc[u & 3], a.qp); }"),
 }
 
 
@@ -120,21 +148,34 @@ def test_k9_source_on_cpu_threads_matches_plain(cpu_kernels, case):
         _eq(got, w, f"rec {i}")
 
 
+@functools.lru_cache(maxsize=None)
+def _k9_t8_plain(case):
+    """A K9_T8_CASES case's arguments, its plain version's output and the
+    corners of the 8x8 choice that run met (`_t8_corners`): once a case,
+    for every test that reads it."""
+    kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu",
+                            t8=True)
+    return (kw, *_t8_corners(kw))
+
+
 def _k9_t8(exe, case):
     """K9's t8 route (`exe`) and its plain version on a K9_T8_CASES case:
     (the kernel's InterEnc fields, t8 and recon; the plain version's)."""
-    kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu",
-                            t8=True)
-    want = tpf._inter_encode_plain(**kw)
+    kw, want, _ = _k9_t8_plain(case)
     outs = cuda_threads.run_entry(exe, *tpf._k9_operands(**kw))
     return [*outs[:11], outs[18], *outs[11:14]], [*want[:12], *want.rec]
 
 
-def _k10_t8(exe, case):
+def _k10_t8(exe, case, views=False):
     """K10's t8 route (`exe`) and its plain version on a K10_T8_CASES
-    case: (the kernel's recon and motion; the plain version's)."""
+    case (with `views`, the symbols as the GOP decode's record views, t8
+    beside them): (the kernel's recon and motion; the plain version's)."""
     kw = chip_smoke.k10_args(torch, chip_smoke.k10_case(np, *case, t8=True),
                              "cpu", t8=True)
+    if views:
+        sym = kw["symbols"]
+        kw["symbols"] = chip_smoke.record_views(sym, torch)._replace(
+            t8=sym.t8)
     rec, mv = tpf._inter_decode_plain(**kw)
     outs = cuda_threads.run_entry(exe, *tpf._k10_operands(**kw))
     return outs, [*rec, *mv]
@@ -153,12 +194,12 @@ def test_k9_t8_source_on_cpu_threads_matches_plain(cpu_kernels, case):
         _eq(g, w.to(g.dtype) if name == "t8" else w, name)
 
 
-def _t8_corners(kw) -> dict:
-    """The corners of the 8x8 choice that `_inter_encode_plain` (t8) meets
-    on `k9_args(..., t8=True)`: counts of the MBs where J8 == J4 with a
-    coded 8x8 level ("tie", 4x4 kept), J8 < J4 with none ("cbp8 0", 4x4
-    kept), and the 8x8 chosen where the 4x4 coding codes nothing ("8x8
-    only"), from `_t8_choice`'s own inputs."""
+def _t8_corners(kw):
+    """`_inter_encode_plain` (t8) on `k9_args(..., t8=True)`, and the
+    corners of the 8x8 choice it meets there: counts of the MBs where J8
+    == J4 with a coded 8x8 level ("tie", 4x4 kept), J8 < J4 with none
+    ("cbp8 0", 4x4 kept), and the 8x8 chosen where the 4x4 coding codes
+    nothing ("8x8 only"), from `_t8_choice`'s own inputs."""
     got = {}
     choice = tpf._t8_choice
 
@@ -179,10 +220,10 @@ def _t8_corners(kw) -> dict:
 
     tpf._t8_choice = spy
     try:
-        tpf._inter_encode_plain(**kw)
+        out = tpf._inter_encode_plain(**kw)
     finally:
         tpf._t8_choice = choice
-    return got
+    return out, got
 
 
 def test_k9_t8_cases_meet_the_corners():
@@ -193,14 +234,49 @@ def test_k9_t8_cases_meet_the_corners():
     intra-in-P, at QPs on both sides of dequant8x8's branch."""
     seen, chose = {}, set()
     for case in chip_smoke.K9_T8_CASES:
-        kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu",
-                                t8=True)
-        for k, n in _t8_corners(kw).items():
+        _, out, corners = _k9_t8_plain(case)
+        for k, n in corners.items():
             seen[k] = seen.get(k, 0) + n
-        if tpf._inter_encode_plain(**kw).t8.any():
+        if out.t8.any():
             chose.add((case[4] >= 12, case[6]))
     assert all(seen[k] for k in ("tie", "cbp8 0", "8x8 only")), seen
     assert chose == {(a, b) for a in (False, True) for b in (False, True)}
+
+
+def test_k9_t8_cases_reach_the_window_corners():
+    """K9_T8_CASES meet the corners of the t8 route's windows: 1, 2, 3 and
+    4 references; references 1 and 2 chosen (the second one's copies in
+    flight during the first's search; a later one copied in after them);
+    each of the references copied in at the warp's start (0 and 1) with
+    luma windows past the planes' border (the clamp) at some MBs and
+    inside at others; chroma windows past the pads, and inside but
+    exactly at them."""
+    ns, chosen, luma = set(), set(), set()
+    chroma_out = chroma_edge = False
+    for case in chip_smoke.K9_T8_CASES:
+        kw, out, _ = _k9_t8_plain(case)
+        n = len(kw["planes_l"])
+        ns.add(n)
+        chosen |= set(out.refsel.unique().tolist())
+        _, r, c = case[0]
+        hp, wp = kw["planes_l"][0].shape[-2:]
+        hc, wc = kw["refs_up"][0].shape[-2:]
+        rows, cols = torch.arange(r)[:, None], torch.arange(c)[None, :]
+        for k in range(n):
+            iy0, ix0 = kw["iy0"][k], kw["ix0"][k]
+            y0 = 16 * rows + iy0 - 2 + tpf._PE
+            x0 = 16 * cols + ix0 - 2 + tpf._PE
+            out = (y0 < 0) | (y0 + 20 > hp) | (x0 < 0) | (x0 + 20 > wp)
+            if out.any() and (~out).any():
+                luma.add(k)
+            cy = 8 * rows + ((4 * iy0 - 7) >> 3) + tpf._CP
+            cx = 8 * cols + ((4 * ix0 - 7) >> 3) + tpf._CP
+            cout = (cy < 0) | (cy + 11 > hc) | (cx < 0) | (cx + 11 > wc)
+            edge = (cy == 0) | (cy + 11 == hc) | (cx == 0) | (cx + 11 == wc)
+            chroma_out |= bool(cout.any())
+            chroma_edge |= bool((edge & ~cout).any())
+    assert {1, 2, 3, 4} <= ns and {1, 2} <= chosen, (ns, chosen)
+    assert {0, 1} <= luma and chroma_out and chroma_edge
 
 
 @pytest.mark.parametrize("case", chip_smoke.K10_T8_CASES, ids=str)
@@ -210,6 +286,16 @@ def test_k10_t8_source_on_cpu_threads_matches_plain(cpu_kernels, case):
     others as the route without t8) equals the plain version on the
     case: the recon and the motion."""
     got, want = _k10_t8(cpu_kernels["k10t8"], case)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _eq(g, w, f"output {i}")
+
+
+@pytest.mark.parametrize("case", chip_smoke.K10_T8_CASES[::3], ids=str)
+def test_k10_t8_record_views_on_cpu_threads_match_plain(cpu_kernels, case):
+    """K10's t8 route copies each MB's levels in by 16-byte copies from
+    where they lie: from the record views' 800-byte slots too, equal to
+    the plain version."""
+    got, want = _k10_t8(cpu_kernels["k10t8"], case, views=True)
     for i, (g, w) in enumerate(zip(got, want)):
         _eq(g, w, f"output {i}")
 
@@ -242,6 +328,30 @@ def test_t8_mutants_fail(mutants, name):
         if any(not torch.equal(g, w.to(g.dtype)) for g, w in zip(got, want)):
             return
     pytest.fail(f"mutant {name!r} passed every case")
+
+
+def test_time_pframe_edits_apply():
+    """tools/time_pframe.py's builds of the sources with clock reads
+    (`PHASE_EDITS`) and with one part of the design undone (`VARIANTS`)
+    still find every text they edit, each once edited."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "tools",
+                        "time_pframe.py")
+    spec = importlib.util.spec_from_file_location("time_pframe", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = {}
+    for f in tool.SOURCES:
+        with open(os.path.join(CSRC, f)) as fh:
+            src[f] = fh.read()
+    for f, edits in tool.PHASE_EDITS.items():
+        out = tool.edited(src[f], edits)
+        assert out.count("tick(") >= len(tool.PHASES[f]), f
+    for name, (_, f, _, edits) in tool.VARIANTS.items():
+        assert tool.edited(src[f], edits) != src[f], name
+    with pytest.raises(ValueError):
+        tool.edited(src["pframe_enc.cu"], [("no such text", "")])
 
 
 @pytest.mark.parametrize("case", [c for c in chip_smoke.K9_CASES

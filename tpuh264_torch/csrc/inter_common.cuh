@@ -23,6 +23,38 @@
 
 #include "intra16_common.cuh"
 
+#ifdef __CUDACC__
+namespace {
+// cp.async: 4 or 16 bytes from global to shared memory with no register
+// held while they fly (the t8 routes' windows and levels), the thread's
+// copies since the last commit made one group, and a wait until all but
+// the newest N groups have landed.  A wait orders only the thread's own
+// copies: a __syncwarp after it gives the warp's.  (On the CPU threads
+// of the tests, tests/cuda_threads.py queues each thread's copies and
+// lands them at the wait, so a read before its wait finds what was there
+// before.)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+}  // namespace
+#endif
+
 namespace {
 
 // The quantiser of an inter block: the rounding offset is 2^qbits / 6
@@ -102,6 +134,15 @@ __constant__ int kQpel[16][2] = {{0, 0}, {0, 1}, {1, 1}, {1, 4},
                                  {2, 2}, {2, 3}, {3, 3}, {3, 7},
                                  {2, 5}, {2, 6}, {3, 6}, {7, 6}};
 
+// The t8 routes' kQpel through kCompPl / kCompDy / kCompDx: fraction f's
+// two components as byte f of two immediates (bits 0-1 the first's
+// plane, 2 its dy, 3 its dx, 4-7 the second's likewise), not four
+// constant-memory loads a component at a run-time index
+__device__ __forceinline__ unsigned qpel_pair(int f) {
+  const uint64_t pk = f >> 3 ? 0x5a535242a3333222ull : 0xa131212081111000ull;
+  return (unsigned)(pk >> (8 * (f & 7))) & 255u;
+}
+
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
@@ -126,6 +167,21 @@ __device__ __forceinline__ uint32_t pack_bytes(int a, int b, int c, int d) {
 // inside it (no byte borrows: (a | b) >= (a ^ b) / 2)
 __device__ __forceinline__ uint32_t avg4(uint32_t a, uint32_t b) {
   return (a | b) - (((a ^ b) >> 1) & 0x7f7f7f7fu);
+}
+
+// The eighth-pel bilinear (8.4.2.2.2) of four chroma samples from the
+// 2 x 5 integer samples t around them, fractions (xf, yf), as the bytes
+// of a word.
+__device__ __forceinline__ uint32_t bilin4(const int (&t)[2][5], int xf,
+                                           int yf) {
+  const int w00 = (8 - xf) * (8 - yf), w01 = xf * (8 - yf);
+  const int w10 = (8 - xf) * yf, w11 = xf * yf;
+  uint32_t out = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    out |= (uint32_t)((w00 * t[0][j] + w01 * t[0][j + 1] + w10 * t[1][j] +
+                       w11 * t[1][j + 1] + 32) >> 6) << (8 * j);
+  return out;
 }
 
 // Four eighth-pel bilinear chroma samples (8.4.2.2.2), row yy and
@@ -157,14 +213,28 @@ __device__ __forceinline__ uint32_t mc_chroma4(const uint8_t* c, int hc,
         t[i][j] = at(c, y0 + yy + i, x0 + xx + j, hc, wc, pitch);
     }
   }
-  const int w00 = (8 - xf) * (8 - yf), w01 = xf * (8 - yf);
-  const int w10 = (8 - xf) * yf, w11 = xf * yf;
-  uint32_t out = 0;
+  return bilin4(t, xf, yf);
+}
+
+// `mc_chroma4` from a chroma window in shared memory (K9's t8 route):
+// its rows kRow words apart, sample (y, x) of the window at byte x of row
+// y; (y0, x0) the MC origin in it.
+template <int kRow>
+__device__ __forceinline__ uint32_t mc_chroma4_win(const uint32_t* win,
+                                                   int y0, int x0, int xf,
+                                                   int yf, int yy, int xx) {
+  int t[2][5];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    out |= (uint32_t)((w00 * t[0][j] + w01 * t[0][j + 1] + w10 * t[1][j] +
-                       w11 * t[1][j + 1] + 32) >> 6) << (8 * j);
-  return out;
+  for (int i = 0; i < 2; ++i) {
+    const int x = x0 + xx, off = x & 3;
+    const uint32_t* p = win + (y0 + yy + i) * kRow + (x >> 2);
+    const uint32_t w0 = p[0], w1 = p[1];
+    const uint32_t lo = __funnelshift_r(w0, w1, 8 * off);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[i][j] = byte_of(lo, j);
+    t[i][4] = byte_of(w1, off);
+  }
+  return bilin4(t, xf, yf);
 }
 
 // kernels/pframe.py `_rate_q` of one component: 2 * n - 1, n the count of
@@ -207,8 +277,28 @@ __constant__ int kZz8[64] = {
     28, 21, 14, 7,  15, 22, 29, 36, 43, 50, 57, 58, 51, 44, 37, 30,
     23, 31, 38, 45, 52, 59, 60, 53, 46, 39, 47, 54, 61, 62, 55, 63};
 
+// The t8 routes' zigzag of one lane's eight coefficients at once (one
+// constant load a lane, not one a coefficient, where lanes index apart):
+// kZz8Row[r] byte k is kZz8[8 r + k]; kZz8Col[v] byte u is the level
+// index of coefficient [u][v] (kZz8's inverse).
+__constant__ uint64_t kZz8Row[8] = {
+    0x1118100902010800ull, 0x282019120b04030aull, 0x140d06050c131a21ull,
+    0x232a31383029221bull, 0x241d160f070e151cull, 0x1e252c333a39322bull,
+    0x353c3b342d261f17ull, 0x3f373e3d362f272eull};
+__constant__ uint64_t kZz8Col[8] = {
+    0x1c1b0f0e06050100ull, 0x2a1d1a100d070402ull, 0x2b291e19110c0803ull,
+    0x352c281f18120b09ull, 0x36342d272017130aull, 0x3c37332e26211614ull,
+    0x3d3b38322f252215ull, 0x3f3e3a3931302423ull};
+
 __device__ __forceinline__ int cls8(int u, int v) {
   return kCls8[(u & 3) * 4 + (v & 3)];
+}
+
+// cls8(u, v) for every v & 3 at once, as the nibbles v & 3 of an
+// immediate (kCls8 is symmetric: also cls8(u, v) for every u & 3 at
+// v's nibble u & 3)
+__device__ __forceinline__ unsigned cls8_row(int u) {
+  return (unsigned)(0x1513525415133430ull >> (16 * (u & 3))) & 0xffffu;
 }
 
 // one forward 1-D pass (transform8.py `_fwd_stage`), in place

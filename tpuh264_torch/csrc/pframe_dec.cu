@@ -23,14 +23,14 @@
 //    6, added to the prediction and clipped; chroma: the DC levels through
 //    the 2x2 Hadamard and dequant where cbp_chroma >= 1, the AC levels
 //    where it is 2 (0 for a skip), the inverse transform likewise;
-//  * the t8 route (the template's kT8; config 3's CABAC + 8x8 sessions):
-//    where symbols.t8 is 1, the luma is idct8_add(pred,
+//  * the t8 route (`pframe_decode_t8_kernel`; config 3's CABAC + 8x8
+//    sessions): where symbols.t8 is 1, the luma is idct8_add(pred,
 //    dequant8x8(inverse_zigzag8(levels))) of the four 8x8 blocks, block k
 //    / 4's 64 zigzag levels in rows k of the [16, 16] levels, without the
 //    cbp mask and whatever the MB's kind, as the plain version does; all
-//    32 lanes take it (`luma8`: lane l a row, then a column, of block l
-//    >> 3, through the staging in shared memory), and the chroma lanes
-//    go on as without t8.
+//    32 lanes take it (`luma8`: lane l a coefficient column, then a
+//    column of samples, of block l >> 3, one transpose through shared
+//    memory), and the chroma lanes go on as without t8.
 // Every MB is reconstructed so, intra MBs too (their motion is 0): K5
 // (`_intra_recon_scan`) takes this int32 [S,R,C,16,16], [S,R,C,8,8] x 2
 // as `other` and replaces the intra MBs.  It writes (mvx, mvy) [S,R,C],
@@ -66,6 +66,22 @@
 //    16-byte loads, lanes 16-23 a chroma block each, the chroma AC
 //    levels staged through shared memory by 16-byte loads; the int32
 //    reconstruction leaves as 16-byte stores, a block row each.
+//  * The t8 route is a kernel of its own, so that the route without t8
+//    keeps its code, registers and occupancy.  Its MB's loads that need
+//    no vector go out at once when the warp starts: its luma, chroma AC
+//    and DC levels by cp.async straight into shared memory (48 16-byte
+//    copies, no register held while they fly), its fields and t8 flag,
+//    and the look-back's kinds and mvds together (the route without t8
+//    reads the mvds after the ballot); so the MB waits on two rounds of
+//    loads, these and MC's, not on five in a chain (look-back kinds,
+//    mvds, fields, MC, then the flag and the 8x8 levels after MC).  Held
+//    to 32 registers (__launch_bounds__(256, 8)), 64 warps an SM: config
+//    3's 8,160 MBs in one wave, as the route without t8 (the first t8
+//    route, 40 registers and 48 warps, took 1.29 waves).  `luma8` takes
+//    each lane's eight levels straight from shared memory by an index
+//    word (kZz8Col) and its scales by class (`cls8_row`): a constant
+//    load at a lane's own index is serialised across the warp's
+//    addresses, and the first route made three a coefficient.
 // Where trouble is likely: negative shifts and masks (mv >> 2, & 3, >> 3,
 // & 7) stay int arithmetic, as torch's; the planes are uint8 with rows
 // 16-byte aligned, `lp` / `cpitch` bytes apart (the wrapper raises on
@@ -78,8 +94,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "inter_common.cuh"  // dequant, inverse transforms, MC
 
@@ -137,14 +151,20 @@ inline DecArgs dec_args(void* const* p, const int* n) {
 }
 
 // A warp's shared memory: its MB's prediction as bytes (luma 4 words a
-// row, chroma 2) and its chroma AC levels; with the t8 route also the 8x8
-// blocks' staging (the dequantised coefficients, the transposes, then
-// the recon).
+// row, chroma 2) and its chroma AC levels.
 struct WarpMem {
   uint32_t pred[64], pu[16], pv[16];
   alignas(16) int16_t cac[120];
 };
-struct WarpMem8 : WarpMem {
+// The t8 route's: the prediction, the MB's levels as they lie in the
+// symbols (luma [16, 16], chroma DC [2, 4], AC [2, 4, 15]), copied in by
+// cp.async, and the 8x8 blocks' staging (the dequantised coefficients,
+// the transposes, then the recon).
+struct WarpMemT8 {
+  uint32_t pred[64], pu[16], pv[16];
+  alignas(16) int16_t lev[256];
+  alignas(16) int16_t cdc[8];
+  alignas(16) int16_t cac[120];
   alignas(16) int st[256];
 };
 
@@ -162,6 +182,29 @@ __device__ __forceinline__ int2 mv_lookback(const DecArgs& a, size_t row0,
     const bool run = lane > last;  // after it: the run that reaches c
     vx += (int)__reduce_add_sync(kFull, run ? (unsigned)a.mvdx[(row0 + cc) * a.smx] : 0u);
     vy += (int)__reduce_add_sync(kFull, run ? (unsigned)a.mvdy[(row0 + cc) * a.smy] : 0u);
+    if (resets) return make_int2(vx, vy);
+  }
+}
+
+// `mv_lookback` with the kinds and the mvds of the 32 columns loaded
+// together, before the ballot (the t8 route's: no load waits on another)
+__device__ __forceinline__ int2 mv_lookback_ahead(const DecArgs& a,
+                                                  size_t row0, int c,
+                                                  int lane) {
+  int vx = 0, vy = 0;
+  for (int end = c;; end -= 32) {
+    const int cc = end - 31 + lane;
+    int kind = -1, dx = 0, dy = 0;
+    if (cc >= 0) {
+      const size_t mb = row0 + cc;
+      kind = a.kind[mb * a.sk], dx = a.mvdx[mb * a.smx];
+      dy = a.mvdy[mb * a.smy];
+    }
+    const unsigned resets = __ballot_sync(kFull, kind != 1);
+    const int last = resets ? 31 - __clz((int)resets) : -1;  // the last reset
+    const bool run = lane > last;  // after it: the run that reaches c
+    vx += (int)__reduce_add_sync(kFull, run ? (unsigned)dx : 0u);
+    vy += (int)__reduce_add_sync(kFull, run ? (unsigned)dy : 0u);
     if (resets) return make_int2(vx, vy);
   }
 }
@@ -207,34 +250,30 @@ __device__ __forceinline__ uint2 mc_luma8(const uint8_t* g, size_t lstride,
 
 // The luma of a t8 MB (the plain version's rec8: idct8_add(pred,
 // dequant8x8(inverse_zigzag8(levels))) of the four 8x8 blocks, no cbp
-// mask), all 32 lanes: lane l loads zigzag levels 8 (l & 7) .. of 8x8
-// block b = l >> 3 (16 bytes: the block's 64 levels lie in rows 4 b ..
-// 4 b + 3 of the [16, 16] levels), puts them dequantised at their
-// coefficient [u][v] in `st`, then inverts along u (lane: column v) and
-// along v (lane: column x of the block), adds the prediction and clips;
-// the MB's recon leaves through `st` as 16-byte stores.
+// mask), all 32 lanes: lane l takes coefficient column v = l & 7 of 8x8
+// block b = l >> 3, its eight levels gathered from `lev` (the MB's
+// [16, 16] levels in shared memory: block b's 64 zigzag levels in rows 4 b
+// .. 4 b + 3; kZz8Col gives their indices) and dequantised, inverts it
+// along u (lane: column v), then through `st` along v (lane: column x of
+// the block), adds the prediction and clips; the MB's recon leaves
+// through `st` as 16-byte stores.
 __device__ __forceinline__ void luma8(const DecArgs& a, const uint32_t* pred,
-                                      int* st, size_t m, int lane) {
+                                      const int16_t* lev, int* st, size_t m,
+                                      int lane) {
   const int b = lane >> 3, i = lane & 7, y8 = 8 * (b >> 1), xw = 2 * (b & 1);
   int* const sb = st + 64 * b;
   const int m6 = a.qp % 6;
+  int x[8];  // coefficients [u][v = i]
   {
-    const int z0 = 8 * i;  // block b's levels z0 .. z0 + 7
-    const int4 h = *reinterpret_cast<const int4*>(
-        a.luma_ac + m * a.sla + 64 * b + z0);
-    const int words[4] = {h.x, h.y, h.z, h.w};
+    const uint64_t zc = kZz8Col[i];
+    const unsigned cw = cls8_row(i);  // cls8(u, i) at nibble u & 3
+    int sc[4];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int lv = (int)(int16_t)(words[k >> 1] >> (16 * (k & 1)));
-      const int p = kZz8[z0 + k];
-      sb[p] = dq8(lv, kV8[m6][cls8(p >> 3, p & 7)], a.qp);
-    }
+    for (int j = 0; j < 4; ++j) sc[j] = kV8[m6][(cw >> (4 * j)) & 15];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      x[u] = dq8(lev[64 * b + (int)((zc >> (8 * u)) & 63)], sc[u & 3], a.qp);
   }
-  __syncwarp();
-  int x[8];
-#pragma unroll
-  for (int u = 0; u < 8; ++u) x[u] = sb[8 * u + i];
-  __syncwarp();
   inv8(x);  // [v = i][x]
 #pragma unroll
   for (int k = 0; k < 8; ++k) sb[8 * i + k] = x[k];
@@ -255,18 +294,15 @@ __device__ __forceinline__ void luma8(const DecArgs& a, const uint32_t* pred,
   out[lane + 32] = reinterpret_cast<const int4*>(st)[lane + 32];
 }
 
-// kT8: the t8 route (config 3's CABAC + 8x8 sessions), where a MB whose
-// t8 is 1 takes `luma8`; without it the kernel is the other routes' own.
-template <bool kT8 = false>
+// The routes without t8 (RTC, the default config).
 __global__ void __launch_bounds__(32 * kWarps)
     pframe_decode_kernel(const __grid_constant__ DecArgs a) {
-  using Mem = typename std::conditional<kT8, WarpMem8, WarpMem>::type;
-  __shared__ Mem smem[kWarps];
+  __shared__ WarpMem smem[kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rc = a.R * a.C, mbs = a.S * rc;
   const int mi = blockIdx.x * kWarps + warp;
   if (mi >= mbs) return;  // the whole warp: no block barrier follows
-  Mem& w = smem[warp];
+  WarpMem& w = smem[warp];
   const size_t m = mi;
   const int s = mi / rc, r = (mi % rc) / a.C, c = mi % a.C;
   const int2 mv = mv_lookback(a, m - c, c, lane);
@@ -300,12 +336,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
   __syncwarp();
 
-  bool t8mb = false;  // the MB's luma through the 8x8 transform
-  if constexpr (kT8) {
-    t8mb = a.t8[m * a.st8] == 1;
-    if (t8mb) luma8(a, w.pred, w.st, m, lane);
-  }
-  const bool luma = lane < 16 && !t8mb, chroma = lane >= 16 && lane < 24;
+  const bool luma = lane < 16, chroma = lane >= 16 && lane < 24;
   if (!luma && !chroma) return;
   const int cl = lane - 16, cpl = cl >> 2, cb = cl & 3;
   const int by = luma ? lane >> 2 : cb >> 1, bx = luma ? lane & 3 : cb & 1;
@@ -347,6 +378,100 @@ __global__ void __launch_bounds__(32 * kWarps)
         make_int4(d[4 * i], d[4 * i + 1], d[4 * i + 2], d[4 * i + 3]);
 }
 
+// The t8 route (config 3's CABAC + 8x8 sessions): the route above, with
+// a MB whose t8 is 1 through `luma8`, and every load that needs no
+// vector issued when the warp starts (the note at the top).
+__global__ void __launch_bounds__(32 * kWarps, 8)
+    pframe_decode_t8_kernel(const __grid_constant__ DecArgs a) {
+  __shared__ WarpMemT8 smem[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rc = a.R * a.C, mbs = a.S * rc;
+  const int mi = blockIdx.x * kWarps + warp;
+  if (mi >= mbs) return;  // the whole warp: no block barrier follows
+  WarpMemT8& w = smem[warp];
+  const size_t m = mi;
+  const int s = mi / rc, r = (mi % rc) / a.C, c = mi % a.C;
+  // the levels into shared memory, a 16-byte copy a lane: luma (32),
+  // chroma AC (15), chroma DC (1)
+  cp_async16(reinterpret_cast<int4*>(w.lev) + lane,
+             reinterpret_cast<const int4*>(a.luma_ac + m * a.sla) + lane);
+  if (lane < 15)
+    cp_async16(reinterpret_cast<int4*>(w.cac) + lane,
+               reinterpret_cast<const int4*>(a.chroma_ac + m * a.sca) + lane);
+  else if (lane == 15)
+    cp_async16(w.cdc, a.chroma_dc + m * a.scd);
+  cp_async_commit();
+  const int kind = a.kind[m * a.sk], ri = a.refidx[m * a.sri];
+  const bool t8mb = a.t8[m * a.st8] == 1;  // its luma through the 8x8 inverse
+  const int cbp_l0 = a.cbp_l[m * a.scl], cbp_c0 = a.cbp_c[m * a.scc];
+  const int2 mv = mv_lookback_ahead(a, m - c, c, lane);
+  const int mvx = mv.x, mvy = mv.y;
+  if (lane == 0) a.mvx[m] = mvx, a.mvy[m] = mvy;
+  const int ref = ri >= 1 && ri < a.N ? ri : 0;
+  {
+    const int row = lane >> 1, col = (lane & 1) * 8;
+    const int y0 = 16 * r + (mvy >> 2) + a.pe, x0 = 16 * c + (mvx >> 2) + a.pe;
+    const bool inside = y0 >= 0 && x0 >= 0 && y0 + 17 <= a.Hp && x0 + 17 <= a.Wp;
+    const uint2 p = mc_luma8(a.pl[ref] + (size_t)s * a.Hp * a.lp,
+                             (size_t)a.S * a.Hp * a.lp, a.Hp, a.Wp, a.lp, y0,
+                             x0, (mvy & 3) * 4 + (mvx & 3), row, col, inside);
+    w.pred[2 * lane] = p.x, w.pred[2 * lane + 1] = p.y;
+    const int y8 = 8 * r + (mvy >> 3) + a.cp, x8 = 8 * c + (mvx >> 3) + a.cp;
+    const bool cin = y8 >= 0 && x8 >= 0 && y8 + 9 <= a.Hcp && x8 + 9 <= a.Wcp;
+    const uint8_t* cref =
+        (lane >> 4 ? a.pv : a.pu)[ref] + (size_t)s * a.Hcp * a.cpitch;
+    (lane >> 4 ? w.pv : w.pu)[lane & 15] =
+        mc_chroma4(cref, a.Hcp, a.Wcp, a.cpitch, y8, x8, mvx & 7, mvy & 7,
+                   (lane & 15) >> 1, (lane & 1) * 4, cin);
+  }
+  cp_async_wait<0>();
+  __syncwarp();  // the prediction and every lane's levels
+
+  if (t8mb) luma8(a, w.pred, w.lev, w.st, m, lane);
+  const bool luma = lane < 16 && !t8mb, chroma = lane >= 16 && lane < 24;
+  if (!luma && !chroma) return;
+  const bool skip = kind == 0;
+  const int cbp_l = skip ? 0 : cbp_l0, cbp_c = skip ? 0 : cbp_c0;
+  const int cl = lane - 16, cpl = cl >> 2, cb = cl & 3;
+  const int by = luma ? lane >> 2 : cb >> 1, bx = luma ? lane & 3 : cb & 1;
+  const int n = luma ? 16 : 8;
+  const Quant Q = quantiser_inter(luma ? a.qp : a.qpc);
+  int d[16];
+  if (luma) {
+    const bool coded = (cbp_l >> (((by >> 1) << 1) | (bx >> 1))) & 1;
+    const int4* lp = reinterpret_cast<const int4*>(w.lev + 16 * lane);
+    const int4 h0 = lp[0], h1 = lp[1];
+    const int words[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int lv = (int)(int16_t)(words[k >> 1] >> (16 * (k & 1)));
+      const int i = zz(k);
+      d[i] = coded ? dq_ac(Q, lv, pos_class(i)) : 0;
+    }
+  } else {
+    const int16_t* dc = w.cdc + 4 * cpl;
+    const int lvl[4] = {dc[0], dc[1], dc[2], dc[3]};
+    d[0] = cbp_c >= 1 ? dq_cdc(Q, had2(lvl, cb)) : 0;
+    const int16_t* lv = w.cac + 60 * cpl + 15 * cb;
+#pragma unroll
+    for (int k = 1; k < 16; ++k) {
+      const int i = zz(k);
+      d[i] = cbp_c == 2 ? dq_ac(Q, lv[k - 1], pos_class(i)) : 0;
+    }
+  }
+  const uint32_t* pp = luma ? w.pred : cpl ? w.pv : w.pu;
+  const int wpr = luma ? 4 : 2;  // prediction words a row
+  uint32_t pw[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pw[i] = pp[(4 * by + i) * wpr + bx];
+  inv4_add(d, pw);
+  int32_t* o = (luma ? a.ry : cpl ? a.rv : a.ru) + m * n * n + 4 * bx;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<int4*>(o + (4 * by + i) * n) =
+        make_int4(d[4 * i], d[4 * i + 1], d[4 * i + 2], d[4 * i + 3]);
+}
+
 }  // namespace
 
 #ifdef __CUDACC__  // the entry; tests/test_torch_pframe_kernel.py runs the
@@ -361,12 +486,25 @@ extern "C" int th264_pframe_decode(void* const* p, const int* n,
   const int mbs = a.S * a.R * a.C;
   const int blocks = (mbs + kWarps - 1) / kWarps;
   if (a.t8)
-    pframe_decode_kernel<true>
-        <<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(a);
+    pframe_decode_t8_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+        a);
   else
-    pframe_decode_kernel<false>
-        <<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(a);
+    pframe_decode_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The warps an SM of each route that can be resident at once, out[0]
+// without t8, out[1] the t8 route (the runtime's occupancy of their
+// launches); returns the CUDA error.
+extern "C" int th264_pframe_decode_resident(int* out) {
+  int b[2];
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &b[0], pframe_decode_kernel, 32 * kWarps, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b[1], pframe_decode_t8_kernel, 32 * kWarps, 0);
+  out[0] = b[0] * kWarps, out[1] = b[1] * kWarps;
+  return (int)e;
 }
 
 #endif  // __CUDACC__

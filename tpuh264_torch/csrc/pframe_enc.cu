@@ -125,6 +125,30 @@
 //    leave as 16 bytes a lane.  The route is a template instance of its
 //    own, so the routes without it keep their code, registers and
 //    occupancy.
+//  * The t8 route's search (config 3's sessions search two references):
+//    references 0 and 1's stage-A winners are read when the warp starts,
+//    and their windows, luma and chroma, go in flight at once by
+//    cp.async, 4 bytes a copy, into two slots of shared memory
+//    (WarpMemT8), before the source is read.  The second reference's
+//    land during the first's search, and MC's chroma comes from the
+//    chosen reference's 11x11 chroma windows, so a MB waits on one round
+//    of copies, not on three in a chain (a reference's windows, the
+//    next's after its search, chroma's after the choice: a third of a
+//    warp's cycles by the phase clocks of tools/time_pframe.py --phases).
+//    A window row is kept as the aligned words that hold it (no shift at
+//    the copy: `win8` reads from the row's byte offset); a reference
+//    after the second (up to 16) is copied in after the searches before
+//    it, into the slot the best so far is not in.  Other warps hide the
+//    second reference's copies as well (waiting for them before the first
+//    search costs nothing measurable), so the route is held by its
+//    instructions, and its tables come from immediates: a sub-pel
+//    candidate's two components (`qpel_pair`; stage D's by the half-pel
+//    winner's parity), the trial's scales by its row (`cls8_row`) and
+//    zigzag by its lane (kZz8Row), where a constant load at a lane's or
+//    a candidate's own index is serialised across the warp's addresses.
+//    72 registers, 25,856 B of shared memory a block: 28 warps an SM
+//    (held to 64 registers for 32 warps it ran 9-10% slower, 2-3% with
+//    6-word rows that leave L1 more of the SM).
 // Where trouble is likely, and what is done about it:
 //  * tie order: every selection is the plain version's sequential strict
 //    < in its own order (stage B raster, half then quarter, references by
@@ -148,6 +172,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "inter_common.cuh"  // inter quantiser, transforms, MC, rate
 
@@ -235,6 +261,32 @@ struct WarpMem {
   alignas(16) int16_t cac[120];
 };
 
+// The t8 route's shared memory a warp (6,464 bytes): WarpMem's with two
+// slots, each a reference's windows as the aligned words that hold them,
+// luma and chroma, copied in by cp.async.  A luma window row (20 bytes
+// from x0) is the 6 words from x0 & ~3 (its byte 0 at byte x0 & 3 of the
+// first), rows kRowW words apart (the seventh word unused: a lane's row
+// of the SADs then falls on its own banks); a plane's window kWin rows.
+// The chroma windows (11 x 11, `kCWin`: every sample MC can read from a
+// vector within the refinement's reach of the stage-A winner) follow,
+// 4 words a row, rows kCRowW apart.
+constexpr int kRowW = 7, kCWin = 11, kCRowW = 5;
+constexpr int kChromaW = 4 * kWin * kRowW;  // the chroma windows' word
+constexpr int kSlotW = kChromaW + 2 * kCWin * kCRowW;
+struct WarpMemT8 {
+  uint32_t win[2][kSlotW];
+  int ref01[2][4];  // references 0 and 1's iy0, ix0 and 4 gy, 4 gx
+  uint32_t src[64], su[16], sv[16];
+  uint32_t pred[64], pu[16], pv[16];
+  int cdc[2][4], cdq[2][4];
+  alignas(16) int16_t cac[120];
+};
+// a refined vector lies within kRefine pels and 3 quarter-pels of its
+// stage-A winner: (4 iy0 + 7) >> 3 - (4 iy0 - 7) >> 3 <= 2 chroma rows
+// past the window's first, and 9 rows from there
+static_assert(kCWin == 2 + 9 && 4 * (kRefine + 1) - 1 == 7,
+              "the chroma window holds every sample MC can read");
+
 // A window row's five words from the chunks c[0..11] that hold it: the
 // row starts at byte 4Q + sh / 8 of c (Q the word, sh its bit offset).
 template <int Q>
@@ -293,11 +345,13 @@ __device__ __forceinline__ void load_windows(uint32_t* win, const uint8_t* g,
   }
 }
 
-// the 8 bytes of plane p's window row y from column x: the row's words
-// from x / 4 shifted to the byte offset
+// the 8 bytes of plane p's window row y from byte x of the row (rows
+// kRow words apart, planes kWin rows): the row's words from x / 4 shifted
+// to the byte offset
+template <int kRow = kWinWords>
 __device__ __forceinline__ uint2 win8(const uint32_t* win, int p, int y,
                                       int x) {
-  const uint32_t* w = win + p * kPlaneWords + y * kWinWords + (x >> 2);
+  const uint32_t* w = win + p * (kWin * kRow) + y * kRow + (x >> 2);
   const int s = 8 * (x & 3);
   const uint64_t lo = ((uint64_t)w[1] << 32) | w[0];
   const uint64_t hi = ((uint64_t)w[2] << 32) | w[1];
@@ -319,6 +373,20 @@ __device__ __forceinline__ uint2 qpel8(const uint32_t* win, int oy, int ox,
   return make_uint2(avg4(a.x, b.x), avg4(a.y, b.y));
 }
 
+// `qpel8` on the t8 route's windows (WarpMemT8), the fraction's
+// components e from `qpel_pair`
+__device__ __forceinline__ uint2 qpel8p(const uint32_t* win, int oy, int ox,
+                                        int py, int px, unsigned e, int row,
+                                        int col) {
+  const int y = oy + (py >> 2) + row, x = ox + (px >> 2) + col;
+  const uint2 a =
+      win8<kRowW>(win, e & 3, y + ((e >> 2) & 1), x + ((e >> 3) & 1));
+  if ((e & 15) == (e >> 4)) return a;
+  const uint2 b = win8<kRowW>(win, (e >> 4) & 3, y + ((e >> 6) & 1),
+                              x + ((e >> 7) & 1));
+  return make_uint2(avg4(a.x, b.x), avg4(a.y, b.y));
+}
+
 __device__ __forceinline__ unsigned sad8(uint2 s, uint2 p) {
   return __vsadu4(s.x, p.x) + __vsadu4(s.y, p.y);
 }
@@ -327,11 +395,155 @@ __device__ __forceinline__ unsigned sad8(uint2 s, uint2 p) {
 // left out
 __device__ __forceinline__ int ring(int k) { return k + (k >= 4); }
 
+// Reference n's windows for the MB (s, r, c) whose stage-A winner is
+// (iy0, ix0), into `sl`, a slot of WarpMemT8::win: its four 20x20 luma
+// windows at plane-space (y0, x0) and its two 11x11 chroma windows at
+// (cy, cx).  A window inside its planes goes by cp.async, 4 bytes a
+// copy, in the group the caller commits: lane l < 30 takes word l % 6 of
+// rows l / 6, l / 6 + 5, .. of the 80 (the sixth word only where x0 & 3
+// is not 0: its first byte is then a sample, so it ends inside the row's
+// pitch), and in chroma word l & 3 of rows l >> 2, + 8, + 16 of the 22
+// (the fourth only where (cx & 3) >= 2, likewise).  One that touches the
+// border clamps every index and is stored byte by byte.
+__device__ __forceinline__ void fetch_windows(uint32_t* sl, const EncArgs& a,
+                                              int n, int s, int r, int c,
+                                              int iy0, int ix0, int lane) {
+  const int hp = a.Hp, wp = a.Wp, lp = a.lp, hc = a.Hcp, wc = a.Wcp;
+  const int cpitch = a.cpitch;
+  const size_t lstride = (size_t)a.S * hp * lp, cso = (size_t)s * hc * cpitch;
+  const uint8_t* g = a.pl[n] + (size_t)s * hp * lp;  // its G plane
+  const uint8_t *cu = a.pu[n] + cso, *cv = a.pv[n] + cso;
+  const int y0 = 16 * r + iy0 - 2 + a.pe, x0 = 16 * c + ix0 - 2 + a.pe;
+  const int cy = 8 * r + ((4 * iy0 - 7) >> 3) + a.cp;
+  const int cx = 8 * c + ((4 * ix0 - 7) >> 3) + a.cp;
+  const int xa = x0 & ~3;
+  if (y0 >= 0 && x0 >= 0 && y0 + kWin <= hp && x0 + kWin <= wp) {
+    const int wd = lane % 6, r0 = lane / 6;
+    if (lane < 30 && (wd < 5 || (x0 & 3))) {
+      const uint8_t* src = g + (size_t)(y0 + r0) * lp + xa + 4 * wd;
+      uint32_t* dst = sl + r0 * kRowW + wd;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int p = k >> 2, dy = 5 * (k & 3);
+        cp_async4(dst + (p * kWin + dy) * kRowW,
+                  src + p * lstride + (size_t)dy * lp);
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int j = lane; j < 4 * kWin * 6; j += 32) {
+      const int p = j / (6 * kWin), y = (j - 6 * kWin * p) / 6;
+      const int x = xa + 4 * (j % 6);
+      const uint8_t* pg = g + p * lstride;
+      sl[(p * kWin + y) * kRowW + j % 6] =
+          pack_bytes(at(pg, y0 + y, x, hp, wp, lp),
+                     at(pg, y0 + y, x + 1, hp, wp, lp),
+                     at(pg, y0 + y, x + 2, hp, wp, lp),
+                     at(pg, y0 + y, x + 3, hp, wp, lp));
+    }
+  }
+  uint32_t* const cw = sl + kChromaW;
+  const int xca = cx & ~3;
+  if (cy >= 0 && cx >= 0 && cy + kCWin <= hc && cx + kCWin <= wc) {
+    const int wd = lane & 3;
+    if (wd < 3 || (cx & 3) >= 2) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int rr = (lane >> 2) + 8 * k;  // row rr of the two planes' 22
+        if (rr < 2 * kCWin) {
+          const int p = rr >= kCWin, y = rr - kCWin * p;
+          cp_async4(cw + rr * kCRowW + wd,
+                    (p ? cv : cu) + (size_t)(cy + y) * cpitch + xca + 4 * wd);
+        }
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int j = lane; j < 2 * kCWin * 4; j += 32) {
+      const int rr = j >> 2, p = rr >= kCWin, y = rr - kCWin * p;
+      const int x = xca + 4 * (j & 3);
+      const uint8_t* pc = p ? cv : cu;
+      cw[rr * kCRowW + (j & 3)] = pack_bytes(
+          at(pc, cy + y, x, hc, wc, cpitch), at(pc, cy + y, x + 1, hc, wc, cpitch),
+          at(pc, cy + y, x + 2, hc, wc, cpitch),
+          at(pc, cy + y, x + 3, hc, wc, cpitch));
+    }
+  }
+}
+
+// The t8 route's stages B-D of one reference, the same on every lane (the
+// route without t8 runs them inline, from its windows' layout), from its
+// windows `win` (a WarpMemT8 slot, the window's column 0 at byte `off` of
+// a row) around its stage-A winner (iy0, ix0): the cost (SAD + lam rate
+// against the global vector (gqy, gqx), in quarter-pels), the refined
+// vector and its SAD.
+struct Refined {
+  int cost, mvy, mvx, sad;
+};
+
+__device__ __forceinline__ Refined refine(const uint32_t* win, int off,
+                                          uint2 src, int iy0, int ix0,
+                                          int gqy, int gqx, int lam, int row,
+                                          int col) {
+  // stage B: 3x3 full-pel refine on G, raster order, strict <
+  int sad[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    sad[k] = (int)sad8(
+        src, win8<kRowW>(win, 0, 1 + k / 3 + row, 1 + k % 3 + col + off));
+#pragma unroll
+  for (int k = 0; k < 9; ++k) sad[k] = (int)__reduce_add_sync(kFull, sad[k]);
+  int cost = 0, iy = 0, ix = 0, bsad = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int my = iy0 - kRefine + k / 3, mx = ix0 - kRefine + k % 3;
+    const int cand = sad[k] + lam * rate_q(4 * mx - gqx, 4 * my - gqy);
+    if (k == 0 || cand < cost) cost = cand, iy = my, ix = mx, bsad = sad[k];
+  }
+
+  // stage C: the half-pel positions around (iy, ix), OFFSETS_HALF
+  // order; the centre is stage B's winner.  Stage D: the quarter-pel
+  // positions around the half-pel winner, OFFSETS_QUARTER order.
+  const int oy = 2 + iy - iy0, ox = 2 + ix - ix0 + off;  // (iy, ix) in win
+  int by = 0, bx = 0;
+#pragma unroll
+  for (int half = 1; half >= 0; --half) {
+    const int step = half ? 2 : 1, base_y = by, base_x = bx;
+    // stage D's fractions depend only on whether the half-pel winner's
+    // components are odd half-pels: candidate k's components, byte k of
+    // one of four immediates (`qpel_pair` of each fraction)
+    const int odd = ((by & 2) >> 1) | (bx & 2);
+    const uint64_t eq = odd == 0   ? 0x2120a1108152425aull
+                        : odd == 1 ? 0x52425a32a32120a1ull
+                        : odd == 2 ? 0xa1312181105a5352ull
+                                   : 0x5a5352a332a13121ull;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int py = base_y + step * (ring(k) / 3 - 1);
+      const int px = base_x + step * (ring(k) % 3 - 1);
+      const unsigned e = half ? qpel_pair((py & 3) * 4 + (px & 3))
+                              : (unsigned)(eq >> (8 * k)) & 255u;
+      sad[k] = (int)sad8(src, qpel8p(win, oy, ox, py, px, e, row, col));
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sad[k] = (int)__reduce_add_sync(kFull, sad[k]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int py = base_y + step * (ring(k) / 3 - 1);
+      const int px = base_x + step * (ring(k) % 3 - 1);
+      const int cand =
+          sad[k] + lam * rate_q(4 * ix + px - gqx, 4 * iy + py - gqy);
+      if (cand < cost) cost = cand, by = py, bx = px, bsad = sad[k];
+    }
+  }
+  return Refined{cost, 4 * iy + by, 4 * ix + bx, bsad};
+}
+
 // the t8 trial's staging, ints of the window buffers (free once MC is
 // done): the transposes, the levels ([block][8 u + v]) and the recon (MB
 // raster)
 constexpr int kT8St = 0, kT8Lev = 256, kT8Rec = 512;
-static_assert(sizeof(WarpMem::win) >= 768 * sizeof(int),
+static_assert(sizeof(WarpMemT8::win) >= 768 * sizeof(int),
               "the t8 trial's staging fits the window buffers");
 
 struct Trial8 {
@@ -347,7 +559,7 @@ struct Trial8 {
 // dequantised, inverse along u (lane: column v), inverse along v (lane:
 // column x of the block), added to the prediction and clipped (the recon
 // to t + kT8Rec).  J8 and cbp8 come back the same on every lane.
-__device__ __forceinline__ Trial8 trial8(const WarpMem& w, int* t, int qp,
+__device__ __forceinline__ Trial8 trial8(const WarpMemT8& w, int* t, int qp,
                                          int lam8, int lane) {
   const int b = lane >> 3, i = lane & 7, y8 = 8 * (b >> 1), xw = 2 * (b & 1);
   int* const st = t + kT8St + 64 * b;
@@ -368,16 +580,22 @@ __device__ __forceinline__ Trial8 trial8(const WarpMem& w, int* t, int qp,
   __syncwarp();
   fwd8(x);  // coefficients [u = i][v]
   const int qbits = 16 + qp / 6, f = (1 << qbits) / 6, m6 = qp % 6;
+  int mf[4], sc[4];  // row i's multipliers and scales, by v & 3
+  const unsigned cw = cls8_row(i);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int cl = (cw >> (4 * j)) & 15;
+    mf[j] = kMF8[m6][cl], sc[j] = kV8[m6][cl];
+  }
   int rate = 0;
   bool nz = false;
 #pragma unroll
   for (int v = 0; v < 8; ++v) {
-    const int cl = cls8(i, v);
-    const int lv = q8(x[v], kMF8[m6][cl], f, qbits);
+    const int lv = q8(x[v], mf[v & 3], f, qbits);
     nz |= lv != 0;
     rate += rate_bits(lv);
     t[kT8Lev + 64 * b + 8 * i + v] = lv;
-    st[8 * i + v] = dq8(lv, kV8[m6][cl], qp);
+    st[8 * i + v] = dq8(lv, sc[v & 3], qp);
   }
   __syncwarp();
 #pragma unroll
@@ -412,12 +630,13 @@ __device__ __forceinline__ Trial8 trial8(const WarpMem& w, int* t, int qp,
 template <bool kT8 = false>
 __global__ void __launch_bounds__(32 * kWarps)
     pframe_encode_kernel(const __grid_constant__ EncArgs a) {
-  __shared__ WarpMem smem[kWarps];
+  using Mem = typename std::conditional<kT8, WarpMemT8, WarpMem>::type;
+  __shared__ Mem smem[kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rc = a.R * a.C, mbs = a.S * rc;
   const int m = blockIdx.x * kWarps + warp;
   if (m >= mbs) return;  // the whole warp: no block barrier follows
-  WarpMem& w = smem[warp];
+  Mem& w = smem[warp];
   const int s = m / rc, r = (m % rc) / a.C, c = m % a.C;
   const int H = 16 * a.R, W = 16 * a.C, Hc = H / 2, Wc = W / 2;
   const size_t lstride = (size_t)a.S * a.Hp * a.lp;
@@ -425,6 +644,27 @@ __global__ void __launch_bounds__(32 * kWarps)
   const size_t cso = (size_t)s * a.Hcp * a.cpitch;
   const int row = lane >> 1, col = (lane & 1) * 8;  // the lane's 8 samples
   const int crow = (lane & 15) >> 1, ccol = (lane & 1) * 4;  // its chroma 4
+
+  // the t8 route: references 0 and 1's windows, luma and chroma, in
+  // flight at once (slots 0 and 1, a cp.async group each) from the
+  // warp's start, so that the source's loads and the second reference's
+  // copies land during the first's search; a later reference's go, one
+  // at a time, to the slot the best so far is not in
+  // (their winners and global vectors kept in shared memory, not in
+  // registers through the first search)
+  if constexpr (kT8) {
+    for (int n = 0; n < 2; ++n) {
+      if (n < a.N) {
+        const size_t am = (size_t)n * mbs + m;
+        const int iy0 = a.iy0[am], ix0 = a.ix0[am];
+        w.ref01[n][0] = iy0, w.ref01[n][1] = ix0;
+        w.ref01[n][2] = 4 * a.gy[n * a.S + s];
+        w.ref01[n][3] = 4 * a.gx[n * a.S + s];
+        fetch_windows(w.win[n], a, n, s, r, c, iy0, ix0, lane);
+      }
+      cp_async_commit();
+    }
+  }
 
   // the source as bytes: the lane's luma 8 in registers and shared
   // memory, its chroma 4 of plane lane / 16 in shared memory
@@ -441,70 +681,115 @@ __global__ void __launch_bounds__(32 * kWarps)
 
   int best_cost = 0, best_mvx = 0, best_mvy = 0, best_sad = 0, best_ref = 0;
   int best_iy0 = 0, best_ix0 = 0, best_buf = 0;
-  for (int n = 0, cur = 0; n < a.N; ++n, cur = best_buf ^ 1) {
-    // reference n's windows go to the buffer the best so far is not in
-    const size_t am = (size_t)n * mbs + m;
-    const int iy0 = a.iy0[am], ix0 = a.ix0[am];
-    const int gqy = 4 * a.gy[n * a.S + s], gqx = 4 * a.gx[n * a.S + s];
-    const uint32_t* win = w.win[cur];
-    __syncwarp();  // the reads of the windows there are done
-    load_windows(w.win[cur], a.pl[n] + lso, lstride, 16 * r + iy0 - 2 + a.pe,
-                 16 * c + ix0 - 2 + a.pe, a.Hp, a.Wp, a.lp, lane);
-    __syncwarp();
-
-    // stage B: 3x3 full-pel refine on G, raster order, strict <
-    int sad[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k)
-      sad[k] = (int)sad8(src, win8(win, 0, 1 + k / 3 + row, 1 + k % 3 + col));
-#pragma unroll
-    for (int k = 0; k < 9; ++k) sad[k] = (int)__reduce_add_sync(kFull, sad[k]);
-    int cost = 0, iy = 0, ix = 0, bsad = 0;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const int my = iy0 - kRefine + k / 3, mx = ix0 - kRefine + k % 3;
-      const int cand = sad[k] + a.lam * rate_q(4 * mx - gqx, 4 * my - gqy);
-      if (k == 0 || cand < cost) cost = cand, iy = my, ix = mx, bsad = sad[k];
-    }
-
-    // stage C: the half-pel positions around (iy, ix), OFFSETS_HALF
-    // order; the centre is stage B's winner.  Stage D: the quarter-pel
-    // positions around the half-pel winner, OFFSETS_QUARTER order.
-    const int oy = 2 + iy - iy0, ox = 2 + ix - ix0;  // (iy, ix) in the window
-    int by = 0, bx = 0;
-#pragma unroll
-    for (int half = 1; half >= 0; --half) {
-      const int step = half ? 2 : 1, base_y = by, base_x = bx;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        sad[k] = (int)sad8(src, qpel8(win, oy, ox,
-                                      base_y + step * (ring(k) / 3 - 1),
-                                      base_x + step * (ring(k) % 3 - 1), row,
-                                      col));
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        sad[k] = (int)__reduce_add_sync(kFull, sad[k]);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int py = base_y + step * (ring(k) / 3 - 1);
-        const int px = base_x + step * (ring(k) % 3 - 1);
-        const int cand =
-            sad[k] + a.lam * rate_q(4 * ix + px - gqx, 4 * iy + py - gqy);
-        if (cand < cost) cost = cand, by = py, bx = px, bsad = sad[k];
+  if constexpr (kT8) {
+    for (int n = 0, cur = 0; n < a.N; ++n, cur = best_buf ^ 1) {
+      int iy0, ix0, gqy, gqx;
+      if (n < 2) {  // in flight in slot n since the warp's start
+        iy0 = w.ref01[n][0], ix0 = w.ref01[n][1];
+        gqy = w.ref01[n][2], gqx = w.ref01[n][3];
+        if (n == 0)
+          cp_async_wait<1>();
+        else
+          cp_async_wait<0>();
+      } else {
+        // reference n's windows go to the slot the best so far is not in
+        const size_t am = (size_t)n * mbs + m;
+        iy0 = a.iy0[am], ix0 = a.ix0[am];
+        gqy = 4 * a.gy[n * a.S + s], gqx = 4 * a.gx[n * a.S + s];
+        __syncwarp();  // the reads of the windows there are done
+        fetch_windows(w.win[cur], a, n, s, r, c, iy0, ix0, lane);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncwarp();  // every lane's copies and stores of the slot
+      const Refined b =
+          refine(w.win[cur], (16 * c + ix0 - 2 + a.pe) & 3, src, iy0, ix0,
+                 gqy, gqx, a.lam, row, col);
+      const int cost = b.cost + a.ref_cost[n];
+      if (n == 0 || cost < best_cost) {
+        best_cost = cost, best_mvx = b.mvx, best_mvy = b.mvy;
+        best_sad = b.sad, best_ref = n, best_iy0 = iy0, best_ix0 = ix0;
+        best_buf = cur;
       }
     }
-    cost += a.ref_cost[n];
-    if (n == 0 || cost < best_cost) {
-      best_cost = cost, best_mvx = 4 * ix + bx, best_mvy = 4 * iy + by;
-      best_sad = bsad, best_ref = n, best_iy0 = iy0, best_ix0 = ix0;
-      best_buf = cur;
+  } else {
+    for (int n = 0, cur = 0; n < a.N; ++n, cur = best_buf ^ 1) {
+      // reference n's windows go to the buffer the best so far is not in
+      const size_t am = (size_t)n * mbs + m;
+      const int iy0 = a.iy0[am], ix0 = a.ix0[am];
+      const int gqy = 4 * a.gy[n * a.S + s], gqx = 4 * a.gx[n * a.S + s];
+      const uint32_t* win = w.win[cur];
+      __syncwarp();  // the reads of the windows there are done
+      load_windows(w.win[cur], a.pl[n] + lso, lstride, 16 * r + iy0 - 2 + a.pe,
+                   16 * c + ix0 - 2 + a.pe, a.Hp, a.Wp, a.lp, lane);
+      __syncwarp();
+
+      // stage B: 3x3 full-pel refine on G, raster order, strict <
+      int sad[9];
+  #pragma unroll
+      for (int k = 0; k < 9; ++k)
+        sad[k] = (int)sad8(src, win8(win, 0, 1 + k / 3 + row, 1 + k % 3 + col));
+  #pragma unroll
+      for (int k = 0; k < 9; ++k) sad[k] = (int)__reduce_add_sync(kFull, sad[k]);
+      int cost = 0, iy = 0, ix = 0, bsad = 0;
+  #pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int my = iy0 - kRefine + k / 3, mx = ix0 - kRefine + k % 3;
+        const int cand = sad[k] + a.lam * rate_q(4 * mx - gqx, 4 * my - gqy);
+        if (k == 0 || cand < cost) cost = cand, iy = my, ix = mx, bsad = sad[k];
+      }
+
+      // stage C: the half-pel positions around (iy, ix), OFFSETS_HALF
+      // order; the centre is stage B's winner.  Stage D: the quarter-pel
+      // positions around the half-pel winner, OFFSETS_QUARTER order.
+      const int oy = 2 + iy - iy0, ox = 2 + ix - ix0;  // (iy, ix) in the window
+      int by = 0, bx = 0;
+  #pragma unroll
+      for (int half = 1; half >= 0; --half) {
+        const int step = half ? 2 : 1, base_y = by, base_x = bx;
+  #pragma unroll
+        for (int k = 0; k < 8; ++k)
+          sad[k] = (int)sad8(src, qpel8(win, oy, ox,
+                                        base_y + step * (ring(k) / 3 - 1),
+                                        base_x + step * (ring(k) % 3 - 1), row,
+                                        col));
+  #pragma unroll
+        for (int k = 0; k < 8; ++k)
+          sad[k] = (int)__reduce_add_sync(kFull, sad[k]);
+  #pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int py = base_y + step * (ring(k) / 3 - 1);
+          const int px = base_x + step * (ring(k) % 3 - 1);
+          const int cand =
+              sad[k] + a.lam * rate_q(4 * ix + px - gqx, 4 * iy + py - gqy);
+          if (cand < cost) cost = cand, by = py, bx = px, bsad = sad[k];
+        }
+      }
+      cost += a.ref_cost[n];
+      if (n == 0 || cost < best_cost) {
+        best_cost = cost, best_mvx = 4 * ix + bx, best_mvy = 4 * iy + by;
+        best_sad = bsad, best_ref = n, best_iy0 = iy0, best_ix0 = ix0;
+        best_buf = cur;
+      }
     }
   }
 
   // motion compensation from the chosen reference: luma from its
-  // windows, chroma four samples a lane from plane lane / 16
+  // windows, chroma four samples a lane from plane lane / 16 (the t8
+  // route: from its windows too)
   const int mvx = best_mvx, mvy = best_mvy;
-  {
+  if constexpr (kT8) {
+    const uint32_t* sl = w.win[best_buf];
+    const uint2 p = qpel8p(
+        sl, 2 - best_iy0, 2 - best_ix0 + ((16 * c + best_ix0 - 2 + a.pe) & 3),
+        mvy, mvx, qpel_pair((mvy & 3) * 4 + (mvx & 3)), row, col);
+    w.pred[2 * lane] = p.x, w.pred[2 * lane + 1] = p.y;
+    const int cy = (4 * best_iy0 - 7) >> 3, cx = (4 * best_ix0 - 7) >> 3;
+    (lane >> 4 ? w.pv : w.pu)[lane & 15] = mc_chroma4_win<kCRowW>(
+        sl + kChromaW + (lane >> 4) * kCWin * kCRowW, (mvy >> 3) - cy,
+        (mvx >> 3) - cx + ((8 * c + cx + a.cp) & 3), mvx & 7, mvy & 7, crow,
+        ccol);
+  } else {
     const uint2 p = qpel8(w.win[best_buf], 2 - best_iy0, 2 - best_ix0, mvy,
                           mvx, row, col);
     w.pred[2 * lane] = p.x, w.pred[2 * lane + 1] = p.y;
@@ -636,12 +921,14 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
       // the levels' row lane / 2 of [16, 16], half lane & 1: block blk's
       // 64 zigzag levels in raster block order (zz8.reshape(4, 64))
-      const int blk = lane >> 3, z0 = 8 * (lane & 7);
+      const int blk = lane >> 3;
+      const uint64_t zr = kZz8Row[lane & 7];  // levels 8 (lane & 7) ..
       const int* zb = t8m + kT8Lev + 64 * blk;
       uint32_t lw[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        lw[j] = pack16(zb[kZz8[z0 + 2 * j]], zb[kZz8[z0 + 2 * j + 1]]);
+        lw[j] = pack16(zb[(zr >> (16 * j)) & 63],
+                       zb[(zr >> (16 * j + 8)) & 63]);
       reinterpret_cast<int4*>(a.luma_ac + (size_t)m * 256)[lane] =
           make_int4((int)lw[0], (int)lw[1], (int)lw[2], (int)lw[3]);
     } else if (luma) {
@@ -724,6 +1011,20 @@ extern "C" int th264_pframe_encode(void* const* p, const int* n,
     pframe_mvd_kernel<<<(mbs + kMvdThreads - 1) / kMvdThreads, kMvdThreads,
                         0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The warps an SM of each route that can be resident at once, out[0]
+// without t8, out[1] the t8 route (the runtime's occupancy of their
+// launches); returns the CUDA error.
+extern "C" int th264_pframe_encode_resident(int* out) {
+  int b[2];
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &b[0], pframe_encode_kernel<false>, 32 * kWarps, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b[1], pframe_encode_kernel<true>, 32 * kWarps, 0);
+  out[0] = b[0] * kWarps, out[1] = b[1] * kWarps;
+  return (int)e;
 }
 
 #endif  // __CUDACC__

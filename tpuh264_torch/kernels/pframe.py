@@ -67,6 +67,7 @@ result equals the rows of the unsharded encode.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
@@ -938,6 +939,19 @@ def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
     return InterEnc(*outs[:11],
                     torch.zeros_like(outs[0]) if outs[18] is None
                     else outs[18], tuple(outs[11:14]))
+
+
+def resident_warps() -> dict:
+    """The warps an SM of K9's and K10's routes that can be resident at
+    once on the card (the runtime's occupancy of their launches): {"K9",
+    "K9-t8", "K10", "K10-t8": warps}."""
+    lib, out = cuda_lib.load(), {}
+    for key, fn in (("K9", lib.th264_pframe_encode_resident),
+                    ("K10", lib.th264_pframe_decode_resident)):
+        got = (ctypes.c_int * 2)()
+        cuda_lib.check(fn(got), fn.__name__)
+        out[key], out[f"{key}-t8"] = got[0], got[1]
+    return out
 
 
 def empty_symbols(lead, r: int, c: int, device) -> MBSymbolsP:
