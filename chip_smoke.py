@@ -362,7 +362,8 @@ class Launches:
     `_plane_copy` (the deblock's eager coded-count grid and plane cast,
     which K4's ring entry replaced): none may run on a path.  K9's and
     K10's launches of their t8 routes (the CABAC + 8x8 session path's)
-    are also counted apart (`t8_total`, keys "K9-t8" and "K10-t8").  P1
+    are also counted apart (`t8_total`, keys "K9-t8" and "K10-t8"), and
+    so are K3's slice entry's (`slices_total`, key "K3-slices").  P1
     and P2 run on the probe's path alone: any other path that launches
     one fails."""
 
@@ -394,14 +395,17 @@ class Launches:
         self.t8_total = [0, 0]  # K9's and K10's t8 routes
         self.i44_total = 0  # K5's Intra_4x4 route
         self.k6_i44_total = 0  # K6's
+        self.slices_total = 0  # K3's slice entry
 
     def by_key(self) -> dict:
         """The launch totals by kernel key ("K1" .. "K15", "P1", "P2", and
-        "K9-t8", "K10-t8", "K5-i44", "K6-i44": K9's and K10's t8 routes and
-        K5's and K6's Intra_4x4 routes, also in theirs)."""
+        "K9-t8", "K10-t8", "K5-i44", "K6-i44", "K3-slices": K9's and
+        K10's t8 routes, K5's and K6's Intra_4x4 routes and K3's slice
+        entry, also in theirs)."""
         return dict(zip(self.KEYS, self.total), **{
             "K9-t8": self.t8_total[0], "K10-t8": self.t8_total[1],
-            "K5-i44": self.i44_total, "K6-i44": self.k6_i44_total})
+            "K5-i44": self.i44_total, "K6-i44": self.k6_i44_total,
+            "K3-slices": self.slices_total})
 
     def path(self, name, fn, needs=NEEDS, i44=False):
         """Drive `fn()` with the counts zeroed and read after; fails unless
@@ -462,6 +466,7 @@ class Launches:
         self.i44_total += n_i44
         k6_i44 = iframe.encode_iframe_scan.i44_launches
         self.k6_i44_total += k6_i44
+        self.slices_total += cavlc_cuda.merge_slices.launches
         k4_rows = deblock.deblock_frame_rows.launches
         plain = [len(c) for c in calls]
         print(f"launches [{name}]: K1 {counts[0]}, K2 {counts[1]}, "
@@ -525,6 +530,8 @@ NO_LIBRARY = {
           "289 candidate patches of every MB unfolded, and that is the work",
     "K2": "no PyTorch call encodes CAVLC",
     "K3": "no PyTorch call concatenates variable-length bit strings",
+    "K3-slices": "no PyTorch call concatenates variable-length bit "
+                 "strings",
     "K4": "no PyTorch call runs the H.264 deblocking filter",
     "K5": "no PyTorch call runs H.264 intra prediction",
     "K5-i44": "no PyTorch call runs H.264 Intra_4x4 prediction",
@@ -693,7 +700,7 @@ def k23_rows(sym, torch, what):
     (the main path's; its block entry on the same chunks a line), K3 at
     the MB level (its slice entry a line, and its generic slice-level
     merge on the joined strings a line), then the stage fenced.  Returns
-    ([K2, K3], K13) rows."""
+    ([K2, K3, K3's slice entry], K13) rows."""
     from tpuh264_torch.core.params import PPS, SPS
     from tpuh264_torch.core.sliceheader import SLICE_P
     from tpuh264_torch.entropy.device_pack import slice_headers_device
@@ -715,6 +722,7 @@ def k23_rows(sym, torch, what):
                  f"version ({what})")
         errs.append(max_abs_err(g, w))
     meta, hl, hv, tail, cw, cb, mw, mb = want[:8]
+    used = float(((want[9].float() + 3) // 4).mean())  # a slice's words
     k13 = kernel_row(
         "K13", "cavlc_prologue (nC, header slots, chunk flags, trailing "
         "skip_run)", "tpuh264_torch/csrc/cavlc_prologue.cu",
@@ -743,16 +751,22 @@ def k23_rows(sym, torch, what):
         k3_bytes(mb4, 20, 128))
     del cw, cb, mw4, mb4
     n_out = entropy_gpu.SLICE_W
-    ms = timed(lambda: cavlc_cuda.merge_slices(*hdr, mw, mb, tail, n_out,
-                                               ovf), 20)
-    plain = timed(lambda: cavlc_cuda._merge_slices_plain(
-        *hdr, mw, mb, tail, n_out, ovf), 2)
-    bound = bound_ms(k3s_bytes(hdr[1], mb, 128, n_out, tail))
+    k3s = kernel_row(
+        "K3-slices", "merge_slices (K3's slice entry: header, MB strings, "
+        "skip-run tail and rbsp trailer -> the slice's row)",
+        "tpuh264_torch/csrc/cavlc_merge.cu",
+        "tpuh264/kernels/cavlc_pallas.py:486", max(errs[8:]),
+        timed(lambda: cavlc_cuda.merge_slices(*hdr, mw, mb, tail, n_out,
+                                              ovf), 20),
+        timed(lambda: cavlc_cuda._merge_slices_plain(
+            *hdr, mw, mb, tail, n_out, ovf), 2),
+        k3s_bytes(hdr[1], mb, 128, n_out, tail))
     print(f"phase 2: K3 slice entry (merge_slices), {what}: {s * r} slices "
-          f"of {c} MBs -> {n_out} words: equal to plain (max_abs_err "
-          f"{max(errs[8:])}); kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-          f"bound {bound:.4f} ms (bytes): {100 * bound / ms:.1f}% of the "
-          f"bound")
+          f"of {c} MBs -> {n_out} words ({used:.1f} used a slice): equal "
+          f"to plain (max_abs_err {k3s['max_abs_err']}); kernel "
+          f"{k3s['ms']:.4f} ms, plain {k3s['plain_ms']:.3f} ms, bound "
+          f"{k3s['bound_ms']:.4f} ms (bytes): "
+          f"{100 * k3s['bound_ms'] / k3s['ms']:.1f}% of the bound")
     del mw, mb
 
     # K2's block entry on the same chunks (the host-pack and session
@@ -786,7 +800,60 @@ def k23_rows(sym, torch, what):
     enc = [round(fenced_ms(lambda: entropy_gpu.encode_bits_pframe(
         sym, 30, *hdr)), 3) for _ in range(3)]
     print(f"phase 2: encode_bits_pframe, {what}, one call fenced: {enc} ms")
-    return [k2, k3], k13
+    return [k2, k3, k3s], k13
+
+
+def k3s_islices(sym_i, torch, card):
+    """K3's slice entry on the I slices of the GOP start's I frame `sym_i`
+    (no tail): the stage run by the kernels and by the plain versions,
+    each step equal, and the entry timed beside its plain version."""
+    from tpuh264_torch.core.params import PPS, SPS
+    from tpuh264_torch.entropy.device_pack import slice_headers_device
+    from tpuh264_torch.kernels import cavlc_cuda
+
+    dev = sym_i.mode.device
+    s, r, c = sym_i.mode.shape
+    hdr = slice_headers_device(SPS.for_size(16 * c, 16 * r), PPS(), 30, 0,
+                               True, s, deblock_idc=2, device=dev)
+    got = entropy_stage(sym_i, hdr, torch, 1, False, False)
+    want = entropy_stage(sym_i, hdr, torch, 1, False, True)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None) or (g is not None
+                                          and not torch.equal(g, w)):
+            fail(f"the I slice stage's step {i} differs from its plain "
+                 f"version")
+    mw, mb, ovf = want[6], want[7], torch.zeros_like(want[10])
+    ms = timed(lambda: cavlc_cuda.merge_slices(*hdr, mw, mb, None, 8192,
+                                               ovf), 20)
+    plain = timed(lambda: cavlc_cuda._merge_slices_plain(
+        *hdr, mw, mb, None, 8192, ovf), 2)
+    bound = bound_ms(k3s_bytes(hdr[1], mb, 128, 8192, None))
+    used = float(((want[9].float() + 3) // 4).mean())
+    err = max_abs_err(got[8], want[8])
+    print(f"phase 2: K3 slice entry (merge_slices), 1080p x 4 GOP start's I "
+          f"slices: {s * r} slices of {c} MBs -> 8192 words ({used:.1f} "
+          f"used a slice): equal to plain (max_abs_err {err}); kernel "
+          f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms "
+          f"(bytes): {100 * bound / ms:.1f}% of the bound [{card}]")
+
+
+def k3s_layout(card) -> None:
+    """ptxas's registers and shared memory of K3's source, and its slice
+    entry's resident blocks an SM and waves for a 1080p x 4 P dispatch's
+    1,088 slices."""
+    from tpuh264_torch.kernels import cavlc_cuda
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "tpuh264_torch", "csrc", "cavlc_merge.cu")
+    for ln in ptxas_lines(src):
+        print(f"phase 2: cavlc_merge.cu ptxas: {ln}")
+    n, threads = cavlc_cuda.merge_slices_resident()
+    if threads != K3S_THREADS:
+        fail(f"K3 slice entry: {threads} threads a block, not "
+             f"{K3S_THREADS}")
+    print(f"phase 2: K3 slice entry: {n} blocks of {threads} threads an "
+          f"SM, {1088 / (132 * n):.2f} waves for 1,088 slices [{card}]")
 
 
 def k14_library(dec, src):
@@ -1108,6 +1175,76 @@ def k3_case(rng, np, n, k, w):
     return words.astype(np.uint32).view(np.int32), bits.astype(np.int32)
 
 
+# K3's slice entry on seeded edge cases (`k3s_case`): bodies that end
+# exactly on a word boundary (and bodies whose trailer does), slices of
+# empty MB strings (P and I), many MB strings shorter than 32 bits inside
+# one word (rows of 8191 words, so no row starts on a 16-byte boundary),
+# bodies at the overflow limit 32 * 8192 - 64 bits, and one bit past it,
+# past the row and with an MB past its words (the flag raised), and 1,024
+# strings a slice.
+K3S_CASES = ("aligned", "empty", "empty-i", "short", "limit", "overflow",
+             "k1024")
+K3S_THREADS = 256  # cavlc_merge.cu kBlockThreads: a slice's block
+
+
+def k3s_case(np, name, seed=0):
+    """Seeded inputs of K3's slice entry for the K3S_CASES case `name`, as
+    numpy arrays: (hdr_hw [L, 4], hdr_len [L], mb_hw [L, C, 128], mb_bits
+    [L, C], tail [L, 2] (word, bits) or None, n_out).  Every string is
+    MSB-first and zero past its bit length."""
+    rng = np.random.default_rng(4100 + 17 * K3S_CASES.index(name) + seed)
+    lanes, c, n_out = {"aligned": (32, 20, 8192), "empty": (8, 120, 8192),
+                       "empty-i": (8, 120, 8192), "short": (16, 120, 8191),
+                       "limit": (2, 120, 8192), "overflow": (3, 120, 8192),
+                       "k1024": (2, 1021, 8192)}[name]
+    hdr = rng.integers(20, 121, lanes)
+    tail = None if name == "empty-i" else rng.integers(1, 32, lanes)
+    t_bits = 0 if tail is None else tail
+    if name in ("aligned", "k1024"):
+        mb = rng.integers(0, 200 if name == "aligned" else 300, (lanes, c))
+        mb[rng.random(mb.shape) < 0.2] = 0
+    elif name.startswith("empty"):
+        mb = np.zeros((lanes, c), np.int64)
+    elif name == "short":
+        mb = rng.integers(1, 8, (lanes, c))
+        mb[rng.random(mb.shape) < 0.3] = 0
+    else:  # the bodies' totals set below
+        mb = np.zeros((lanes, c), np.int64)
+    if name == "aligned":  # even lanes: the body ends on a word boundary;
+        # odd lanes: its 8-bit trailer does
+        body = hdr + mb.sum(-1) + t_bits
+        mb[:, -1] += (np.where(np.arange(lanes) % 2, 24, 0) - body) % 32
+    if name in ("limit", "overflow"):
+        limit = 32 * n_out - 64
+        want = (np.full(lanes, limit) if name == "limit"
+                else np.array([limit + 1, 32 * n_out + 8000, 9000]))
+        rest = want - hdr - t_bits
+        mb += rest[:, None] // c
+        mb[:, :1] += rest[:, None] % c
+        h = (c - 1) // 2
+        jitter = rng.integers(-100, 101, (lanes, h))
+        mb[:, 1:1 + h] += jitter
+        mb[:, 1 + h:1 + 2 * h] -= jitter
+        if name == "overflow":
+            mb[2] = 0
+            mb[2, 5] = 32 * 128 + 4  # an MB past its 128 words
+            mb[2, 6:] = rng.integers(0, 200, c - 6)
+
+    def strings(bits, w):
+        keep = np.clip(bits[..., None] - 32 * np.arange(w), 0, 32)
+        raw = rng.integers(0, 1 << 32, keep.shape, dtype=np.uint64)
+        low = (np.uint64(1) << (32 - keep).astype(np.uint64)) - np.uint64(1)
+        return (raw & (np.uint64(0xFFFFFFFF) ^ low)).astype(
+            np.uint32).view(np.int32)
+
+    i32 = lambda x: np.asarray(x, np.int32)
+    tail_w = None
+    if tail is not None:
+        tail_w = np.stack([strings(tail, 1)[:, 0], i32(tail)], -1)
+    return (strings(hdr, 4), i32(hdr), strings(np.minimum(mb, 32 * 128), 128),
+            i32(mb), tail_w, n_out)
+
+
 # (S, H, W): C = 1; odd S, R, C; a long lane of an even C = 16
 D1_SHAPES = ((1, 16, 16), (3, 80, 112), (2, 32, 16), (2, 48, 256))
 D1_VARIANTS = ("inter", "t8", "intra")
@@ -1285,6 +1422,32 @@ def k3_edges(dev, torch, np):
           f"1/16/128/8192, {K3_LANES} lanes each (all-ones strings of 0, 1, "
           f"31, 32, 33 and 32*W bits, empty lanes): equal to plain; {trunc} "
           f"lanes truncated at n_out words")
+
+
+def k3s_edges(dev, torch, np):
+    """K3's slice entry on every K3S_CASES case: words, bytes and the
+    overflow flag equal to its plain version's."""
+    from tpuh264_torch.kernels import cavlc_cuda
+
+    flags = []
+    for name in K3S_CASES:
+        *parts, n_out = k3s_case(np, name)
+        parts = [None if x is None else torch.from_numpy(x) for x in parts]
+        want_ovf = torch.zeros(1, dtype=torch.int32)
+        want = cavlc_cuda._merge_slices_plain(*parts, n_out, want_ovf)
+        ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = cavlc_cuda.merge_slices(
+            *[None if x is None else x.to(dev) for x in parts], n_out, ovf)
+        for what, g, w in zip(("words", "bytes", "overflow flag"),
+                              (*got, ovf), (*want, want_ovf)):
+            if not torch.equal(g.cpu(), w):
+                fail(f"K3's slice entry: {what} differ from its plain "
+                     f"version on edge case {name!r}")
+        flags.append(int(want_ovf))
+    print(f"phase 2: K3's slice entry equal to plain on {len(K3S_CASES)} "
+          f"edge cases {K3S_CASES} (bodies ending on word boundaries, empty "
+          f"and sub-word MB strings, the overflow limit and past it, 1,024 "
+          f"strings; overflow flags {flags})")
 
 
 def d1_args(torch, rec, qp, sym=None, motion=None, t8=False):
@@ -1978,8 +2141,8 @@ K9_CASES.append(((1, 2, 3), 6, 0, "motion", 28, "stageA", True, False))
 K9_CASES += [((2, 2, 3), 1, 0, "smooth", 12, "subpel", False, False),
              ((1, 3, 5), 2, 0, "smooth", 20, "subpel", True, False),
              ((1, 3, 5), 1, 1, "smooth", 28, "subpel", False, True)]
-# and a row of 121 MBs (the mvd pass over four 32-column spans and one
-# more)
+# and a row of 121 MBs (31 blocks of K9 on one row, the mvds handed
+# across 30 block borders)
 K9_CASES.append(((1, 1, 121), 1, 0, "motion", 28, "stageA", False, False))
 K10_MIX = ("mixed", "inter", "skip", "intra")
 K10_CASES = [(shape, 1 + (i + j) % 4, mix, P_QPS[(i + 2 * j) % 3],
@@ -3531,16 +3694,16 @@ def record_views(sym, torch):
     return devpipe.record_symbols(m, cf)
 
 
-def k9_out_equal(kw, torch, what) -> int:
-    """K9 writing the symbols into `empty_symbols` buffers (with its mvd
-    pass) against the fields its plain version gives (t8 too: 0 but on
-    the t8 route), the mvds those of its vectors against the left MB's,
-    and mode, cmode, luma_dc 0."""
+def k9_out_equal(kw, torch, what, fn=None) -> int:
+    """K9 (`fn`, by default `_inter_encode`) writing the symbols into
+    `empty_symbols` buffers (the mvds by pairs) against the fields its
+    plain version gives (t8 too: 0 but on the t8 route), the mvds those
+    of its vectors against the left MB's, and mode, cmode, luma_dc 0."""
     from tpuh264_torch.kernels import pframe
 
     s, r, c = kw["iy0"].shape[1:]
     buf = pframe.empty_symbols((s,), r, c, kw["iy0"].device)
-    pframe._inter_encode(**dict(kw, out=buf))
+    (fn or pframe._inter_encode)(**dict(kw, out=buf))
     p = pframe._inter_encode_plain(**plain_args(kw))
     left = lambda mv: torch.nn.functional.pad(mv, (1, 0))[..., :-1]
     zero = torch.zeros_like(p.kind)
@@ -3555,12 +3718,38 @@ def k9_out_equal(kw, torch, what) -> int:
                       f"K9's symbols ({what})")
 
 
+def device_events(fn, torch) -> list:
+    """The names of the device's events (kernels, copies, memsets) of one
+    call of `fn()`, under torch.profiler, in their order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [n for _, n in sorted({(e.time_range.start, e.name)
+                                  for e in prof.events()
+                                  if e.device_type == DeviceType.CUDA})]
+
+
+def mvd_bytes(mvx) -> int:
+    """The mvds of K9's symbols, as a function of their own: two int32
+    vector components in and two mvd components out a MB (the left MB's
+    vector is its neighbour's, read once)."""
+    return 16 * mvx.numel()
+
+
 def k9_symbols_check(y, u, v, sym, torch, card):
     """K9 writing the frame's symbols itself (the main path's route: the
-    fields into `empty_symbols` buffers, the mvd pass, the zero fields)
-    equal, field for field, to the symbols assembled around K9's plain
-    outputs (`sym`, the same frame's encode without them), and the
-    launch timed both ways."""
+    fields into `empty_symbols` buffers, the mvds by pairs, the zero
+    fields) equal, field for field, to the symbols assembled around K9's
+    plain outputs (`sym`, the same frame's encode without them); the
+    launch timed both ways, the device events of one call (one kernel),
+    and the mvds as a function of their own: K9's mvds equal to torch.diff
+    of its own vectors, and their bound, their plain version and torch.diff
+    timed on those vectors."""
     from tpuh264_torch.kernels import pframe
 
     s, r, c = sym.kind.shape
@@ -3573,11 +3762,32 @@ def k9_symbols_check(y, u, v, sym, torch, card):
     err = _all_equal(list(buf), list(sym), torch,
                      "K9's symbols (empty_symbols) vs the assembled ones")
     kw = kws[0]
+    events = device_events(lambda: pframe._inter_encode(**kw), torch)
+    k9 = [e for e in events if "pframe_" in e]
+    if len(k9) != 1 or "pframe_encode_kernel" not in k9[0]:
+        fail(f"K9 writing the symbols launched {k9} on the card, not its "
+             f"one kernel")
     ms = timed(lambda: pframe._inter_encode(**kw), 20)
     ms0 = timed(lambda: pframe._inter_encode(**dict(kw, out=None)), 20)
     print(f"phase 2: K9 writing the 1080p x 4 P frame's symbols (13 fields, "
-          f"the mvd pass): equal to the assembled symbols (max_abs_err "
-          f"{err}); K9 {ms:.4f} ms with them, {ms0:.4f} ms without [{card}]")
+          f"the mvds by pairs): equal to the assembled symbols (max_abs_err "
+          f"{err}); its entry launches one kernel ({len(events) - 1} other "
+          f"device events a call: the router's casts of the chroma to "
+          f"int32); K9 {ms:.4f} ms with them, {ms0:.4f} ms without "
+          f"[{card}]")
+    res = pframe._inter_encode(**kw)
+    mv = torch.stack([res.mvx, res.mvy])
+    zero = torch.zeros_like(mv[..., :1])
+    plain = timed(lambda: mv - torch.nn.functional.pad(mv, (1, 0))[..., :-1],
+                  20)
+    lib = timed(lambda: torch.diff(mv, dim=-1, prepend=zero), 20)
+    if not torch.equal(torch.diff(mv, dim=-1, prepend=zero),
+                       torch.stack([buf.mvdx, buf.mvdy])):
+        fail("torch.diff of K9's vectors differs from the mvds it wrote")
+    print(f"phase 2: the mvds as a function of their own (K9's former "
+          f"second launch), 1080p x 4 P frame: bound "
+          f"{bound_ms(mvd_bytes(buf.mvdx)):.5f} ms (bytes), plain "
+          f"{plain:.4f} ms, torch.diff {lib:.4f} ms [{card}]")
 
 
 def k10_copy_check(kw, torch, card):
@@ -3976,11 +4186,13 @@ def phase_kernels(dev, torch, np, card):
     # P dispatch's 16 frame-streams: 3.5 M blocks, 130,560 MBs)
     sym4 = pframe.MBSymbolsP(*[None if f is None else torch.cat([f] * 4)
                                for f in sym])
+    k3s_layout(card)
     k23, k13 = k23_rows(sym4, torch, "1080p x 4 P symbols x 4 frames")
     rows += k23
     # K4 (D1): an encoded I frame and P frame at 1080p x 4, the P frame's
     # row in the kernel table, with its cycles a MB column
     sym_i, rec_i = iframe.encode_iframe_rows(y[0], u[0], v[0], 30)
+    k3s_islices(sym_i, torch, card)
     d1_equal(*d1_args(torch, rec_i, 30), torch, "1080p x 4 I frame")
     k4_ring_equal(*ring_call_args(rec_i, 30), torch,
                   "1080p x 4 I frame, as deblock_i")
@@ -4063,6 +4275,7 @@ def phase_kernels(dev, torch, np, card):
     k13_edges(dev, torch, np)
     k2_edges(dev, torch, np)
     k3_edges(dev, torch, np)
+    k3s_edges(dev, torch, np)
     d1_edges(dev, torch, np)
     d1_ring_edges(dev, torch, np, card)
     d1_t8_480p(dev, torch, mhz, card)

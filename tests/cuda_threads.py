@@ -33,9 +33,12 @@ exchange, and `__reduce_min_sync` / `__reduce_max_sync` take its least /
 greatest; `cp_async4` / `cp_async16` (cp.async) queue a thread's copies,
 `cp_async_commit` closes a group and `cp_async_wait<N>` lands all but
 the newest N groups, so that a read before its wait finds the old bytes;
-`atomicAdd` (int and 64-bit) and `atomicOr` are atomics on the
-host, `__shfl_up_sync` an exchange like `__shfl_sync`, `__popc` the
-builtin. __shared__ arrays are statics, int2 / int4 / uint2 / uint4
+`atomicAdd` (int and 64-bit), `atomicExch` (64-bit) and `atomicOr`
+are atomics on the host, `__shfl_up_sync` an exchange like
+`__shfl_sync`, `__popc` the builtin. `CT_REVERSE` in the environment of
+an ENTRY_HARNESS run starts its blocks last first and resumes a block's
+fibers last first, so that what two warps or blocks do in either order
+is met. __shared__ arrays are statics, int2 / int4 / uint2 / uint4
 plain structs, __grid_constant__ nothing; __vsadu4 is computed byte by
 byte, __clz by the compiler's builtin; `__byte_perm`, `__funnelshift_r`,
 the DPX `__vimin_s16x2_relu` and `__vimin3_u16x2` and the bit casts are
@@ -128,6 +131,7 @@ struct Fiber {
   bool done = false;
 };
 inline bool g_fibers = false;
+inline bool g_reverse = false;  // resume fibers last first (CT_REVERSE)
 inline FiberBar g_fwarp[kMaxCta][32], g_fblock[kMaxCta], g_fcluster;
 inline Fiber* g_fiber;  // the running one
 inline int g_cta = 0;   // its CTA in the cluster (0 outside fiber mode)
@@ -282,6 +286,10 @@ inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
+inline unsigned long long atomicExch(unsigned long long* p,
+                                     unsigned long long v) {
+  return __atomic_exchange_n(p, v, __ATOMIC_RELAXED);
+}
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
 }
@@ -339,8 +347,8 @@ inline void run_cluster_fibers(int n, int ctas, int first_block, size_t smem,
   }
   for (int live = total, idle = 0; live;) {
     const unsigned long before = g_progress;
-    for (int i = 0; i < total; ++i) {
-      Fiber& f = fs[i];
+    for (int ii = 0; ii < total; ++ii) {
+      Fiber& f = fs[g_reverse ? total - 1 - ii : ii];
       if (f.done || (f.bar && f.bar->gen == f.gen)) continue;
       f.bar = nullptr;
       threadIdx.x = f.tid;
@@ -553,8 +561,11 @@ int main() {
   }
   const auto a = ARGS(p.data(), n.data());
   const int blocks = BLOCKS;
-  for (int b = 0; b < blocks; ++b)
+  g_reverse = getenv("CT_REVERSE") != nullptr;
+  for (int k = 0; k < blocks; ++k) {
+    const int b = g_reverse ? blocks - 1 - k : k;
     run_block_fibers(THREADS, b, [&] { KERNEL(a); });
+  }
   for (int i = 0; i < k; ++i)
     if (kind[i] == 0 || kind[i] == 2) fwrite(p[i], 1, size[i], stdout);
   return 0;
@@ -582,13 +593,14 @@ def _span(t: torch.Tensor) -> bytes:
     return t.as_strided((n,), (1,)).contiguous().numpy().tobytes()
 
 
-def run_entry(exe: str, ins, outs, ints, inout=()):
+def run_entry(exe: str, ins, outs, ints, inout=(), reverse=False):
     """A kernel source built by `build_entry`, on CPU threads, over an
     entry's operands: input tensors `ins` (a strided view as the memory it
     spans; None as a null pointer), output
     tensors `outs` (contiguous, filled in place; those whose index is in
     `inout` sent first as inputs too; None a null pointer) and `ints`.
-    Returns `outs`."""
+    With `reverse` the blocks run last first, and so do a block's fibers
+    at each pass of the scheduler.  Returns `outs`."""
     body = [struct.pack("<i", len(ints)),
             np.asarray(ints, np.int32).tobytes(),
             struct.pack("<i", len(ins) + len(outs))]
@@ -608,8 +620,9 @@ def run_entry(exe: str, ins, outs, ints, inout=()):
                      .tobytes()]
         else:
             body.append(struct.pack("<qi", nb, 0))
+    env = dict(os.environ, CT_REVERSE="1") if reverse else None
     raw = subprocess.run([exe], input=b"".join(body), capture_output=True,
-                         check=True).stdout
+                         check=True, env=env).stdout
     off = 0
     for t in outs:
         if t is None:

@@ -126,6 +126,57 @@ def test_k2_symbols_and_k3_slices_on_cpu_threads_match_plain(cpu_kernels,
     assert int(go) == int(o_plain)
 
 
+def _k3s(name):
+    """A K3S_CASES case as K3's slice entry's arguments (CPU tensors) and
+    its n_out."""
+    *parts, n_out = chip_smoke.k3s_case(np, name)
+    return [None if x is None else torch.from_numpy(x) for x in parts], n_out
+
+
+def _k3s_on_threads(exe, parts, n_out):
+    """K3's slice entry (`exe`) and its plain version on one input: their
+    (words, bytes, overflow flag)."""
+    want_ovf = _zero()
+    want = cavlc_cuda._merge_slices_plain(*parts, n_out, want_ovf)
+    ins, outs, ints = cavlc_cuda._k3_slice_operands(*parts, n_out, _zero())
+    got = cuda_threads.run_entry(exe, ins, outs, ints, inout=(2,))
+    return got, [*want, want_ovf]
+
+
+@pytest.mark.parametrize("name", chip_smoke.K3S_CASES)
+def test_k3_slice_edges_on_cpu_threads_match_plain(cpu_kernels, name):
+    """K3's slice entry equals its plain version on the edge case: every
+    word of every row (the zero tail included), the byte counts and the
+    flag."""
+    got, want = _k3s_on_threads(cpu_kernels["k3"], *_k3s(name))
+    for what, g, w in zip(("words", "bytes", "overflow flag"), got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=what)
+
+
+def test_k3_slice_edges_meet_their_corners():
+    """The edge cases are what they claim: bodies that end on a word
+    boundary and bodies whose trailer does, empty MB strings, words that
+    hold many strings, bodies exactly at 32 * 8192 - 64 bits (no flag),
+    one past it and past the row (the flag), an MB past its 128 words,
+    1,024 strings a slice, and rows that start off a 16-byte boundary."""
+    body = {}
+    for name in chip_smoke.K3S_CASES:
+        (_, hl, _, mb, t), n_out = _k3s(name)
+        body[name] = (hl + mb.sum(-1) + (0 if t is None else t[:, 1]), mb,
+                      t, n_out)
+    b = body["aligned"][0]
+    assert ((b % 32) == 0).any() and (((b + 8) % 32) == 0).any()
+    assert not body["empty"][1].any() and body["empty-i"][2] is None
+    mb = body["short"][1]
+    assert (mb > 0).all(-1).any() or ((mb > 0) & (mb < 8)).sum() > 1000
+    assert body["short"][3] % 4
+    limit = 32 * 8192 - 64
+    assert (body["limit"][0] == limit).all()
+    b, mb = body["overflow"][:2]
+    assert b[0] == limit + 1 and b[1] > 32 * 8192 and (mb > 32 * 128).any()
+    assert body["k1024"][1].shape[-1] + 3 == 1024
+
+
 @pytest.mark.parametrize("case", chip_smoke.K13_CASES, ids=str)
 def test_plain_stage_equals_the_code_it_replaces(case):
     """The stage on the symbols (K13's, K2's and K3's new plain versions)
@@ -233,6 +284,39 @@ def test_a_broken_k13_fails_a_case(tmp_path, name):
     pytest.fail(f"no case caught the mutation {name!r}")
 
 
+# K3's slice entry with its search off by one word: a used word that is
+# a string's first is taken as a word past the end of the string before.
+K3_SEARCH_OFF_BY_ONE = (
+    "  const int n_used = used[K];\n"
+    "  for (int j = tid; j < n_used; j += kBlockThreads) {\n"
+    "    int lo = 0, hi = K - 1;  // the last string k with used[k] <= j\n"
+    "    while (lo < hi) {\n"
+    "      const int mid = (lo + hi + 1) >> 1;\n"
+    "      if (used[mid] <= j) {\n",
+    "  const int n_used = used[K];\n"
+    "  for (int j = tid; j < n_used; j += kBlockThreads) {\n"
+    "    int lo = 0, hi = K - 1;  // the last string k with used[k] <= j\n"
+    "    while (lo < hi) {\n"
+    "      const int mid = (lo + hi + 1) >> 1;\n"
+    "      if (used[mid] < j) {\n")
+
+
+def test_a_broken_k3_search_fails_a_case(tmp_path):
+    """K3's slice entry with its search off by one word (built from a copy
+    in a temporary directory) differs from the plain version on an edge
+    case."""
+    old, new = K3_SEARCH_OFF_BY_ONE
+    src = open(os.path.join(CSRC, "cavlc_merge.cu")).read()
+    assert src.count(old) == 1
+    (tmp_path / "cavlc_merge.cu").write_text(src.replace(old, new))
+    exe = _build(tmp_path, "k3", csrc=str(tmp_path))
+    for name in chip_smoke.K3S_CASES:
+        got, want = _k3s_on_threads(exe, *_k3s(name))
+        if not torch.equal(got[0], want[0]):
+            return
+    pytest.fail("no edge case caught the search's off-by-one")
+
+
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     """On CPU tensors the three routers take their plain versions and
     never load the library; a tensor on another device raises rather
@@ -251,3 +335,20 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     with pytest.raises((ValueError, TypeError, RuntimeError,
                         NotImplementedError)):
         entropy_gpu.cavlc_prologue(meta, _zero().to("meta"), 2)
+
+
+def test_time_entropy_names_its_source():
+    """tools/time_entropy.py builds the source that holds K3's slice
+    entry and calls the entries it names there."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "tools",
+                        "time_entropy.py")
+    spec = importlib.util.spec_from_file_location("time_entropy", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(os.path.join(CSRC, tool.SOURCE)) as f:
+        src = f.read()
+    for entry in (tool.ENTRY, tool.RESIDENT):
+        assert f'extern "C" int {entry}(' in src, entry
+    assert "merge_slices_kernel" in src

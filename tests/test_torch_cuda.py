@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, K2, K3, the deblock D1 and its ring entry,
-the intra reconstruction D2, the Intra_16x16 encode scans D3 / D4, the
+"""The port's CUDA kernels (K1, K2, K3 and its slice entry, the deblock
+D1 and its ring entry, the intra reconstruction D2, the Intra_16x16
+encode scans D3 / D4, the
 single-slice wavefront's encode K7 and decode K8, the P encode after
 stage A K9 and the P decode's inter part K10 (each also on its t8
 route, the 8x8 transform's), the reference build K11, the
@@ -210,6 +211,23 @@ def test_merge_tree_edge_cases_on_card(dev, k, n_out):
         po, pbits = cavlc_cuda.tree_merge(wd, bd, n_out)
         torch.cuda.synchronize()
         assert torch.equal(kbits, pbits) and torch.equal(ko, po), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.K3S_CASES)
+def test_merge_slices_edge_cases_on_card(dev, name):
+    """K3's slice entry == its plain version on chip_smoke.K3S_CASES:
+    words, bytes and the overflow flag."""
+    *parts, n_out = chip_smoke.k3s_case(np, name)
+    parts = [None if x is None else torch.from_numpy(x) for x in parts]
+    want_ovf = torch.zeros(1, dtype=torch.int32)
+    want = cavlc_cuda._merge_slices_plain(*parts, n_out, want_ovf)
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = cavlc_cuda.merge_slices(
+        *[None if x is None else x.to(dev) for x in parts], n_out, ovf)
+    torch.cuda.synchronize()
+    for g, w in zip((*got, ovf), (*want, want_ovf)):
+        assert torch.equal(g.cpu(), w), name
 
 
 def test_merge_tree_edge_inputs_on_cpu():
@@ -1081,6 +1099,15 @@ def _p_both(kw, enc: bool):
 def test_pframe_encode_kernel_matches_plain_cases(dev, case):
     _p_both(chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), dev),
             True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.K9_CASES, ids=str)
+def test_pframe_encode_writes_the_symbols_cases(dev, case):
+    """K9 writing the symbols into `empty_symbols` buffers, the mvds by
+    its warps' pairs in one launch, == the plain version's fields."""
+    chip_smoke.k9_out_equal(chip_smoke.k9_args(
+        torch, chip_smoke.k9_case(np, *case), dev), torch, f"case {case}")
 
 
 @pytest.mark.cuda

@@ -4,8 +4,8 @@ K10 reading the record views in place.
 The rings' helpers (`devpipe.dpb_refs` / `dpb_advance` / `dpb_fill`) against
 the stacks the pipeline pushed before (newest first, `torch.cat`), the
 state hand-over into the rings, the plane getters' copies; K9's source on
-CPU threads writing MBSymbolsP's fields into `empty_symbols` views and
-its mvd pass, and K10's source on the GOP decode's strided record views,
+CPU threads writing MBSymbolsP's fields into `empty_symbols` views, the
+mvds included, and K10's source on the GOP decode's strided record views,
 each against its plain version.  Exact comparisons throughout.
 """
 
@@ -114,9 +114,6 @@ def test_state_hand_over_fills_the_rings_and_checks_the_range():
 KERNELS = {
     "k9": ("pframe_enc.cu", "enc_args", "pframe_encode_kernel",
            "(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps"),
-    "mvd": ("pframe_enc.cu", "enc_args", "pframe_mvd_kernel",
-            "(a.S * a.R * a.C + kMvdThreads - 1) / kMvdThreads",
-            "kMvdThreads"),
     "k10": ("pframe_dec.cu", "dec_args", "pframe_decode_kernel",
             "(a.S * a.R * a.C + kWarps - 1) / kWarps", "32 * kWarps"),
 }
@@ -124,7 +121,7 @@ KERNELS = {
 
 @pytest.fixture(scope="module")
 def cpu_kernels(tmp_path_factory):
-    """K9's two kernels and K10's, built with g++ against the shims."""
+    """K9's kernel and K10's, built with g++ against the shims."""
     return {key: cuda_threads.build_entry(
         tmp_path_factory.mktemp(f"{key}_cpu"), CSRC, *spec)
         for key, spec in KERNELS.items()}
@@ -138,9 +135,9 @@ K9_SYMBOL_CASES = [c for c in chip_smoke.K9_CASES if not c[6]][::2]
 def test_k9_writes_the_symbols(cpu_kernels, case):
     """K9 given `empty_symbols` views (offset into a two-frame buffer, as
     a dispatch's) writes kind, refidx, both cbps and the levels there,
-    and mode, cmode, t8 and luma_dc 0; its mvd pass then the mvds against
-    the left MB's vector, zero left of column 0: together the symbols
-    the plain path assembles."""
+    mode, cmode, t8 and luma_dc 0, and the mvds against the left MB's
+    vector (the vector itself at column 0), its pair slots left empty:
+    together the symbols the plain path assembles."""
     kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu")
     want = tpf._inter_encode_plain(**kw)
     s, r, c = want.kind.shape
@@ -149,8 +146,10 @@ def test_k9_writes_the_symbols(cpu_kernels, case):
         x.fill_(-7)  # what the kernel must overwrite
     out = tpf.MBSymbolsP(*(x[s:] for x in buf))
     args = {k: v for k, v in kw.items() if k != "t8"}
-    ins, outs, ints = tpf._k9_operands(**args, out=out)
-    cuda_threads.run_entry(cpu_kernels["k9"], ins, outs, ints)
+    pairs = torch.zeros(s * r * c, dtype=torch.int64)
+    ins, outs, ints = tpf._k9_operands(**args, out=out, pairs=pairs)
+    cuda_threads.run_entry(cpu_kernels["k9"], ins, outs, ints,
+                           inout=(len(outs) - 1,))
     for f in ("kind", "refidx", "cbp_luma", "cbp_chroma", "luma_ac",
               "chroma_dc", "chroma_ac"):
         np.testing.assert_array_equal(getattr(out, f).numpy(),
@@ -158,15 +157,10 @@ def test_k9_writes_the_symbols(cpu_kernels, case):
     for f in ("mode", "cmode", "t8", "luma_dc"):
         assert not getattr(out, f).any(), f
     assert (buf.kind[:s] == -7).all()  # the other frame's views untouched
-    # the mvd pass reads the vectors the first kernel wrote
-    ins, outs, ints = tpf._k9_operands(**args, out=out)
-    outs[0].copy_(want.mvx)
-    outs[1].copy_(want.mvy)
-    cuda_threads.run_entry(cpu_kernels["mvd"], ins, outs, ints,
-                           inout=(0, 1))
     for mv, mvd in ((want.mvx, out.mvdx), (want.mvy, out.mvdy)):
         left = torch.nn.functional.pad(mv, (1, 0))[..., :-1]
         np.testing.assert_array_equal(mvd.numpy(), (mv - left).numpy())
+    assert not pairs.any()
 
 
 @pytest.mark.parametrize("case", chip_smoke.K10_CASES[::3], ids=str)

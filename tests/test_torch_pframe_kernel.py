@@ -85,6 +85,24 @@ MUTANTS = {
 }
 
 
+# mutants of K9's mvd hand-off (`mvd_pair`), each built as the route
+# without t8: {name: (old text, new text, the arrival orders -- False
+# forward, True reverse -- in which a case must catch it)}.  The first to
+# arrive at a pair subtracts (its partner's vector not yet stored); the
+# right MB, arriving second, subtracts the wrong way; the left MB,
+# arriving second, does.  The last two show that each order is met.
+MVD_MUTANTS = {
+    "mvd by the first arriver": (
+        "  if (!got) return;", "  if (got) return;", (False, True)),
+    "mvd of a right MB arriving second": (
+        "a.mvdx[m] = right ? mx - ox : ox - mx;",
+        "a.mvdx[m] = right ? ox - mx : ox - mx;", (False,)),
+    "mvd of a left MB arriving second": (
+        "a.mvdx[m] = right ? mx - ox : ox - mx;",
+        "a.mvdx[m] = right ? mx - ox : mx - ox;", (True,)),
+}
+
+
 def _build(tmp_path_factory, jobs):
     """{name: executable} of (name, key, csrc) jobs, KERNELS[key] built from
     the sources in csrc, all at once (the build directories made first:
@@ -110,9 +128,12 @@ def cpu_kernels(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def mutants(tmp_path_factory):
-    """The t8 routes' MUTANTS, each source a copy with its replacement."""
+    """The t8 routes' MUTANTS and K9's MVD_MUTANTS, each source a copy
+    with its replacement."""
     jobs = []
-    for name, (key, old, new) in MUTANTS.items():
+    edits = {**MUTANTS, **{name: ("k9", old, new) for name, (old, new, _)
+                           in MVD_MUTANTS.items()}}
+    for name, (key, old, new) in edits.items():
         d = tmp_path_factory.mktemp("t8_mutant_src")
         for f in os.listdir(CSRC):
             with open(os.path.join(CSRC, f)) as src:
@@ -328,6 +349,67 @@ def test_t8_mutants_fail(mutants, name):
         if any(not torch.equal(g, w.to(g.dtype)) for g, w in zip(got, want)):
             return
     pytest.fail(f"mutant {name!r} passed every case")
+
+
+# K9 writing the symbols, the mvds by pairs: cases whose rows span
+# several blocks (4 MBs each) with moving content, a row of 121 MBs, and
+# the t8 route
+MVD_CASES = [("k9", chip_smoke.K9_CASES[i]) for i in (26, 32, 44)] + [
+    ("k9t8", chip_smoke.K9_T8_CASES[11])]
+
+
+def _k9_mvds(exe, key, case, reverse):
+    """K9 (`exe`, the route `key`) writing the symbols of a MVD_CASES case
+    into `empty_symbols`, its blocks and each block's warps forward or
+    last first (`reverse`), its pair slots from zero: (its mvdx, mvdy,
+    whether the slots are empty after; the plain version's mvds, its
+    vectors less the left MB's)."""
+    t8 = key == "k9t8"
+    kw = chip_smoke.k9_args(torch, chip_smoke.k9_case(np, *case), "cpu",
+                            t8=t8)
+    want = tpf._inter_encode_plain(**kw)
+    out = tpf.empty_symbols(want.kind.shape[:1], *want.kind.shape[1:],
+                            "cpu")
+    pairs = torch.zeros(want.kind.numel(), dtype=torch.int64)
+    args = kw if t8 else {k: v for k, v in kw.items() if k != "t8"}
+    ins, outs, ints = tpf._k9_operands(**args, out=out, pairs=pairs)
+    cuda_threads.run_entry(exe, ins, outs, ints, inout=(len(outs) - 1,),
+                           reverse=reverse)
+    left = lambda mv: torch.nn.functional.pad(mv, (1, 0))[..., :-1]
+    return ((out.mvdx, out.mvdy, not pairs.any()),
+            (want.mvx - left(want.mvx), want.mvy - left(want.mvy)))
+
+
+@pytest.mark.parametrize("reverse", (False, True), ids=("forward",
+                                                        "reverse"))
+@pytest.mark.parametrize("key,case", MVD_CASES, ids=str)
+def test_k9_mvds_in_both_arrival_orders(cpu_kernels, key, case, reverse):
+    """K9 writes each MB's mvd itself (column 0 its vector, the others by
+    the second warp of each pair to exchange its vector), with its blocks
+    and warps run forward (a pair's left MB mostly first) and last first
+    (its right MB first): the mvds equal the plain version's and every
+    pair's slot is empty again."""
+    (mvdx, mvdy, empty), want = _k9_mvds(cpu_kernels[key], key, case,
+                                         reverse)
+    _eq(mvdx, want[0], "mvdx")
+    _eq(mvdy, want[1], "mvdy")
+    assert want[0].any() and empty
+
+
+@pytest.mark.parametrize("name", MVD_MUTANTS)
+def test_k9_mvd_mutants_fail(mutants, name):
+    """Each mutant of K9's mvd hand-off differs from the plain version on
+    some case without t8, in each arrival order it names."""
+    for reverse in MVD_MUTANTS[name][2]:
+        for key, case in MVD_CASES[:-1]:
+            (mvdx, mvdy, _), want = _k9_mvds(mutants[name], key, case,
+                                             reverse)
+            if (not torch.equal(mvdx, want[0])
+                    or not torch.equal(mvdy, want[1])):
+                break
+        else:
+            pytest.fail(f"mutant {name!r} passed every case "
+                        f"({'reverse' if reverse else 'forward'})")
 
 
 def test_time_pframe_edits_apply():

@@ -30,8 +30,12 @@ versions on every input. Each round times the others, this, this, the
 others (CUDA events behind a device sleep, 20 calls: chip_smoke.timed)
 and prints each reading's ms and its share of the bytes bound
 (chip_smoke.k9_bytes / k10_bytes) beside the card's name and power
-limit; then ptxas's registers, stack, spills and shared memory of each
-build. --phases first prints a warp's cycles a MB by phase, K9's on
+limit, K9 also writing the frame's symbols into `empty_symbols` buffers
+(the main path's route, mvds included; held equal to the plain version
+first), and the mvd pass alone of each --other build that has one
+(`pframe_mvd_kernel`, launched by an entry appended to a copy of its
+source, MVD_ENTRY); then ptxas's registers, stack, spills and shared
+memory of each build. --phases first prints a warp's cycles a MB by phase, K9's on
 every input (its 8x8 trial a phase of its own) and K10's t8 route's: a
 build with clock64() read at each phase's end (PHASE_EDITS), the cycles
 written in place of output fields, the mean over the MBs; the SM clock
@@ -128,6 +132,17 @@ VARIANTS = {
         [("      const unsigned e = half ? qpel_pair((py & 3) * 4 + (px & 3))\n"
           "                              : (unsigned)(eq >> (8 * k)) & 255u;\n",
           "      const unsigned e = qpel_pair((py & 3) * 4 + (px & 3)) + 0 * eq;\n")]),
+    "k9-mvds-at-end": (
+        "K9: the mvds' exchanges made at the warp's end, not as soon as its "
+        "vector is final (their round trips then wait at the end)",
+        "pframe_enc.cu", True,
+        [("  if (a.mvdx && lane == 0) {\n    const unsigned long long word",
+          "  if (false) {\n    const unsigned long long word"),
+         ("      mvd_finish(a, m, got_l, mvx, mvy, true);\n",
+          "      if (c > 0) got_l = atomicExch(a.pairs + m, mvd_word(mvx, mvy));"
+          "\n      if (c + 1 < a.C)\n"
+          "        got_r = atomicExch(a.pairs + m + 1, mvd_word(mvx, mvy));\n"
+          "      mvd_finish(a, m, got_l, mvx, mvy, true);\n")]),
     "k10-40-registers": (
         "K10-t8: not held to 32 registers (the compiler's own count; fewer "
         "warps an SM)", "pframe_dec.cu", True,
@@ -267,18 +282,44 @@ def _through(lib, fn):
     return call
 
 
+# An entry that launches a build's mvd pass alone (the second kernel of
+# K9's entry in builds before the mvds were folded into K9), appended to
+# a copy of that build's pframe_enc.cu.
+MVD_ENTRY = """
+#ifdef __CUDACC__
+extern "C" int th264_pframe_mvd_only(void* const* p, const int* n,
+                                     void* stream) {
+  const EncArgs a = enc_args(p, n);
+  const int mbs = a.S * a.R * a.C;
+  pframe_mvd_kernel<<<(mbs + kMvdThreads - 1) / kMvdThreads, kMvdThreads,
+                      0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+#endif
+"""
+
+
 def build_other(src_dir: str, tag: str):
     """The K9 / K10 sources of `src_dir` built into tpuh264_torch/build/
     as a library of their own: (encode, decode) calls of this checkout's
-    routers with that library's entries."""
+    routers with that library's entries, and a call of its mvd pass alone
+    on `_inter_encode`'s keyword arguments (with `out`), or None where the
+    build has no mvd pass."""
     from tpuh264_torch.kernels import cuda_lib, pframe
 
     os.makedirs(cuda_lib.BUILD, exist_ok=True)
+    srcs = [os.path.join(src_dir, s) for s in SOURCES]
+    with open(srcs[0]) as f:
+        enc_src = f.read()
+    has_pass = "pframe_mvd_kernel" in enc_src
+    if has_pass:
+        srcs[0] = os.path.join(cuda_lib.BUILD, f"pframe_enc_{tag}.cu")
+        with open(srcs[0], "w") as f:
+            f.write(enc_src + MVD_ENTRY)
     out = os.path.join(cuda_lib.BUILD, f"libpframe_{tag}.so")
     res = subprocess.run([cuda_lib._nvcc(), "-gencode", cuda_lib.ARCH,
                           "-std=c++17", "-O3", "-shared", "-Xcompiler",
-                          "-fPIC", "-I", src_dir, "-o", out,
-                          *(os.path.join(src_dir, s) for s in SOURCES)],
+                          "-fPIC", "-I", src_dir, "-o", out, *srcs],
                          capture_output=True, text=True)
     if res.returncode != 0:
         cs.fail(f"nvcc {src_dir}: {res.stdout}{res.stderr}")
@@ -290,8 +331,26 @@ def build_other(src_dir: str, tag: str):
         fn.restype = ctypes.c_int
         fns.append(fn)
     lib = _OtherLib(real, *fns)
+    mvd = None
+    if has_pass:
+        only = so.th264_pframe_mvd_only
+        only.argtypes = real.th264_pframe_encode.argtypes
+        only.restype = ctypes.c_int
+
+        def mvd(**kw):
+            """The pass on the operands of one K9 call with `out` (made
+            once: the pass reads the vectors that call's buffers hold)."""
+            ops = pframe._k9_operands(**kw)
+            p, n = cuda_lib.pointers(ops[0] + ops[1]), cuda_lib.ints(ops[2])
+            dev = kw["y32"].device
+
+            def call():
+                cuda_lib.check(only(p, n, cuda_lib.stream(dev)),
+                               "th264_pframe_mvd_only")
+                return ops
+            return call
     return (_through(lib, pframe._inter_encode),
-            _through(lib, pframe._inter_decode))
+            _through(lib, pframe._inter_decode), mvd)
 
 
 def sass_without_t8(src: str) -> dict:
@@ -346,7 +405,7 @@ def variant_dir(name: str, edits) -> str:
 def phases(cases, torch, card) -> None:
     """The --phases mode: K9's and K10's warp cycles a MB by phase
     (PHASE_EDITS), the mean over the MBs, at each input."""
-    enc, dec = build_other(variant_dir("phases", PHASE_EDITS), "phases")
+    enc, dec, _ = build_other(variant_dir("phases", PHASE_EDITS), "phases")
     mhz = cs.busy_sm_clock()
     for what, ekw, dkw in cases:
         for key, fn, kw in (("K9", enc, ekw), ("K10", dec, dkw)):
@@ -400,7 +459,7 @@ def inputs(dev, torch, t8: bool):
 
 def check(enc, dec, cases, torch, name) -> None:
     """The build's K9 and K10 (where not None) equal the plain versions
-    on every input."""
+    on every input, K9 also writing the symbols."""
     from tpuh264_torch.kernels import pframe
 
     for what, ekw, dkw in cases:
@@ -410,6 +469,9 @@ def check(enc, dec, cases, torch, name) -> None:
                           flat(pframe._inter_encode_plain(
                               **cs.plain_args(ekw))), torch,
                           f"{name}: K9 ({what})")
+            cs.k9_out_equal(cs.plain_args(ekw), torch,
+                            f"{name}: K9 writing the symbols ({what})",
+                            fn=enc)
         if dec is not None:
             cs._all_equal([*sum(dec(**dkw), ())],
                           [*sum(pframe._inter_decode_plain(**dkw), ())],
@@ -446,13 +508,17 @@ def main() -> None:
     # (name, K9 call or None, K10 call or None, source dir, exact)
     builds = [("this checkout", pframe._inter_encode, pframe._inter_decode,
                CSRC, True)]
+    passes = []  # (name, the mvd pass alone on K9's arguments)
     for i, d in enumerate(a.other):
-        builds.append((d, *build_other(d, f"other{i}"), d, True))
+        enc, dec, mvd = build_other(d, f"other{i}")
+        builds.append((d, enc, dec, d, True))
+        if mvd is not None:
+            passes.append((d, mvd))
     names = [n for n in a.variants.split(",") if n]
     for name in names:
         _, src, exact, edits = VARIANTS[name]
         d = variant_dir(name, {src: edits})
-        enc, dec = build_other(d, name)
+        enc, dec, _ = build_other(d, name)
         builds.append((f"variant {name}", *((enc, None) if src == SOURCES[0]
                                             else (None, dec)), d, exact))
     for d in a.other if a.sass else ():
@@ -475,9 +541,15 @@ def main() -> None:
     order = builds[:0:-1] + builds[:1] * 2 + builds[1:]
     for rnd in range(a.rounds):
         for what, ekw, dkw in cases:
+            s, r, c = ekw["iy0"].shape[1:]
+            okw = dict(cs.plain_args(ekw), out=pframe.empty_symbols(
+                (s,), r, c, dev))
             kb = cs.bound_ms(cs.k9_bytes(ekw))
+            ob = cs.bound_ms(cs.k9_bytes(okw))
             db = cs.bound_ms(cs.k10_bytes(dkw, pframe._inter_decode(**dkw)[1]))
-            for key, idx, kw, bound in (("K9", 1, ekw, kb), ("K10", 2, dkw, db)):
+            for key, idx, kw, bound in (("K9", 1, ekw, kb),
+                                        ("K9 writing the symbols", 1, okw,
+                                         ob), ("K10", 2, dkw, db)):
                 for b in order:
                     if b[idx] is None:
                         continue
@@ -485,6 +557,12 @@ def main() -> None:
                     print(f"round {rnd}: {key} {what}: {b[0]}: {ms:.4f} ms, "
                           f"{100 * bound / ms:.1f}% of the bytes bound "
                           f"{bound:.4f} ms [{card}]")
+            mb = cs.bound_ms(cs.mvd_bytes(ekw["iy0"][0]))
+            for name, mvd in passes:
+                ms = cs.timed(mvd(**okw), 20)
+                print(f"round {rnd}: the mvd pass alone {what}: {name}: "
+                      f"{ms:.5f} ms, {100 * mb / ms:.1f}% of the bytes bound "
+                      f"{mb:.5f} ms [{card}]")
     for name, _, _, d, _ in builds:
         for src in SOURCES:
             for ln in cs.ptxas_lines(os.path.join(d, src)):

@@ -421,4 +421,13 @@ extern "C" int th264_merge_slices(void* const* p, const int* n,
   return (int)cudaGetLastError();
 }
 
+// The slice entry's blocks an SM that can be resident at once, out[0],
+// and its threads a block, out[1] (the runtime's occupancy of its
+// launch); returns the CUDA error.
+extern "C" int th264_merge_slices_resident(int* out) {
+  out[1] = kBlockThreads;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], merge_slices_kernel, kBlockThreads, 0);
+}
+
 #endif  // __CUDACC__

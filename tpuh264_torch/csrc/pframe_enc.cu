@@ -61,11 +61,15 @@
 // planes [S,H,W], [S,H/2,W/2] x 2; t8 where its pointer is given.  Given
 // the pointers (the GOP pipeline's route, `out` views of a dispatch's [P *
 // S, R, C] symbol buffers), lane 0 also writes mode and cmode 0 and lanes
-// 0-1 the zero luma_dc, and a second kernel of the same entry, `pframe_mvd_kernel`
-// (a thread an MB), the mvds against the left MB's vector, zero at column
-// 0: the left vector is another warp's, known once every MB's search is
-// done.  No MB of this route is intra (intra-in-P overlays its symbols
-// after K9, in PyTorch).
+// 0-1 the zero luma_dc, and lane 0 the mvd against the left MB's vector
+// (the vector itself at column 0).  The left vector is another warp's,
+// often another block's, known only once its search is done, so each
+// pair of neighbours exchanges its vectors through a slot of its own
+// (`pairs`, zeroed once where it is allocated and left zero by every
+// launch): the second warp to arrive subtracts (`mvd_finish`).  No warp
+// waits on another, no launch follows, and no launch needs a memset.  No
+// MB of this route is intra (intra-in-P overlays its symbols after K9, in
+// PyTorch).
 //
 // What bounds it on the H100: bytes.  Every MB searches every reference,
 // and its windows of the four half-pel planes tile each plane, so at
@@ -201,16 +205,19 @@ struct EncArgs {
   int16_t *luma_ac, *chroma_dc, *chroma_ac;
   void *ry, *ru, *rv;                  // int32 MBs (mb_out) or uint8 planes
   // the rest of MBSymbolsP, written where non-null: the mvds against the
-  // left MB's vector (the second pass), and mode, cmode, t8 and luma_dc 0
+  // left MB's vector, and mode, cmode, t8 and luma_dc 0
   int32_t *mvdx, *mvdy, *mode, *cmode, *t8;
   int16_t *luma_dc;
   int S, R, C, N, Hp, Wp, Hcp, Wcp, pe, cp, qp, qpc, lam, ref_base, mb_out;
   int lp, cpitch;                      // the planes' row pitches, bytes
   int ref_cost[kMaxRefs];              // lam * ref_idx_bits of reference n
   int t8on, lam8;  // the 8x8 trial (the launch's template), its lambda
+  // with mvdx: a slot a MB for the vectors of its pair (it and its left
+  // MB), zero between launches
+  unsigned long long* pairs;
 };
 
-constexpr int kPtrs = 3 + 4 + 3 * kMaxRefs + 8 + 3 + 3 + 6;  // 75
+constexpr int kPtrs = 3 + 4 + 3 * kMaxRefs + 8 + 3 + 3 + 6 + 1;  // 76
 constexpr int kInts = 17 + kMaxRefs + 2;                  // 35
 
 // The arguments from the entry's pointer and int arrays, in the order
@@ -242,9 +249,10 @@ inline EncArgs enc_args(void* const* p, const int* n) {
   a.lp = n[15], a.cpitch = n[16];
   for (int k = 0; k < kMaxRefs; ++k) a.ref_cost[k] = n[17 + k];
   a.t8on = n[17 + kMaxRefs], a.lam8 = n[18 + kMaxRefs];
+  a.pairs = static_cast<unsigned long long*>(p[o + 20]);
   return a;
 }
-static_assert(7 + 3 * kMaxRefs + 20 == kPtrs, "pointer count");
+static_assert(7 + 3 * kMaxRefs + 21 == kPtrs, "pointer count");
 
 // A warp's shared memory (4,288 bytes), every sample a byte: two
 // references' four windows, the best so far and the one searched (word i
@@ -625,6 +633,35 @@ __device__ __forceinline__ Trial8 trial8(const WarpMemT8& w, int* t, int qp,
               ((nzb & 0xff0000u) ? 4 : 0) | ((nzb & 0xff000000u) ? 8 : 0)};
 }
 
+// The mvds by pairs: MB m - 1 and MB m (one row) each exchange their
+// final vector, as one word with a flag (`mvd_word`), into the pair's slot
+// pairs[m], zero between launches.  The one that finds the other's word
+// there arrived second: it writes MB m's mvd and empties the slot
+// (`mvd_finish`).  The vector travels in the atomic itself, so nothing
+// else is ordered: no fence.  A component fits 21 bits (a vector is within
+// a few dozen quarter-pels of zero).
+__device__ __forceinline__ unsigned long long mvd_word(int mx, int my) {
+  return 1ull << 42 | (unsigned long long)(mx & 0x1fffff) << 21 |
+         (unsigned long long)(my & 0x1fffff);
+}
+
+__device__ __forceinline__ int sext21(unsigned long long x) {
+  return (int)((uint32_t)(x & 0x1fffff) << 11) >> 11;
+}
+
+// MB m's mvd from `got`, what the caller's exchange on pairs[m] returned
+// (0 where it arrived first), and its own vector (mx, my); `right`: the
+// caller is MB m.
+__device__ __forceinline__ void mvd_finish(const EncArgs& a, int m,
+                                           unsigned long long got, int mx,
+                                           int my, bool right) {
+  if (!got) return;  // the first to arrive: the other writes the mvd
+  const int ox = sext21(got >> 21), oy = sext21(got);
+  a.mvdx[m] = right ? mx - ox : ox - mx;
+  a.mvdy[m] = right ? my - oy : oy - my;
+  a.pairs[m] = 0;
+}
+
 // kT8: the 8x8 transform's trial (the t8 route, config 3's CABAC + 8x8
 // sessions); without it the kernel is the RTC and default routes' own.
 template <bool kT8 = false>
@@ -778,6 +815,15 @@ __global__ void __launch_bounds__(32 * kWarps)
   // windows, chroma four samples a lane from plane lane / 16 (the t8
   // route: from its windows too)
   const int mvx = best_mvx, mvy = best_mvy;
+  // the mvds' hand-off: lane 0 exchanges the final vector into its two
+  // pairs' slots now, so that the round trips pass during MC and the
+  // transforms; what it found is used at the end
+  unsigned long long got_l = 0, got_r = 0;
+  if (a.mvdx && lane == 0) {
+    const unsigned long long word = mvd_word(mvx, mvy);
+    if (c > 0) got_l = atomicExch(a.pairs + m, word);
+    if (c + 1 < a.C) got_r = atomicExch(a.pairs + m + 1, word);
+  }
   if constexpr (kT8) {
     const uint32_t* sl = w.win[best_buf];
     const uint2 p = qpel8p(
@@ -968,24 +1014,15 @@ __global__ void __launch_bounds__(32 * kWarps)
     a.cbp_l[m] = cbp_l, a.cbp_c[m] = cbp_c;
     if (a.mode) a.mode[m] = 0, a.cmode[m] = 0;
     if (a.t8) a.t8[m] = skip ? 0 : use8;
+    if (a.mvdx) {  // column 0's mvd is its vector; the others' by pairs
+      if (c == 0) a.mvdx[m] = mvx, a.mvdy[m] = mvy;
+      mvd_finish(a, m, got_l, mvx, mvy, true);
+      mvd_finish(a, m + 1, got_r, mvx, mvy, false);
+    }
   }
   if (a.luma_dc && lane < 2)
     reinterpret_cast<int4*>(a.luma_dc + (size_t)m * 16)[lane] =
         make_int4(0, 0, 0, 0);
-}
-
-constexpr int kMvdThreads = 256;
-
-// The symbols' second pass: each MB's mvd against its left MB's vector
-// (zero left of column 0), a thread an MB, once every vector is known.
-// No MB of this route is intra, so none zeroes its mvd.
-__global__ void __launch_bounds__(kMvdThreads)
-    pframe_mvd_kernel(const __grid_constant__ EncArgs a) {
-  const int m = blockIdx.x * kMvdThreads + threadIdx.x;
-  if (m >= a.S * a.R * a.C) return;
-  const bool col0 = m % a.C == 0;
-  a.mvdx[m] = a.mvx[m] - (col0 ? 0 : a.mvx[m - 1]);
-  a.mvdy[m] = a.mvy[m] - (col0 ? 0 : a.mvy[m - 1]);
 }
 
 }  // namespace
@@ -1007,9 +1044,6 @@ extern "C" int th264_pframe_encode(void* const* p, const int* n,
   else
     pframe_encode_kernel<false>
         <<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(a);
-  if (a.mvdx)
-    pframe_mvd_kernel<<<(mbs + kMvdThreads - 1) / kMvdThreads, kMvdThreads,
-                        0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

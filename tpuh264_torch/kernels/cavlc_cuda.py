@@ -553,3 +553,16 @@ def merge_slices(hdr_hw: torch.Tensor, hdr_len: torch.Tensor,
 
 
 merge_slices.launches = 0  # launches of K3's slice entry
+
+
+def merge_slices_resident(lib=None) -> Tuple[int, int]:
+    """K3's slice entry's blocks an SM that can be resident at once on the
+    card, and its threads a block (the runtime's occupancy of its launch),
+    from the kernel library `lib` (the port's where None)."""
+    import ctypes
+
+    lib = cuda_lib.load() if lib is None else lib
+    got = (ctypes.c_int * 2)()
+    cuda_lib.check(lib.th264_merge_slices_resident(got),
+                   "th264_merge_slices_resident")
+    return got[0], got[1]

@@ -128,6 +128,7 @@ def load() -> ctypes.CDLL:
         lib.th264_wavefront_plan.argtypes = [i, i, p]
         lib.th264_pframe_encode_resident.argtypes = [p]
         lib.th264_pframe_decode_resident.argtypes = [p]
+        lib.th264_merge_slices_resident.argtypes = [p]
         # K1, K5, K9-K15, K4's ring entry, the K2 / K3 entries on the
         # symbols and the probe's P1 / P2: a host array of device pointers,
         # one of ints, the stream
@@ -147,7 +148,8 @@ def load() -> ctypes.CDLL:
                    lib.th264_wavefront_encode,
                    lib.th264_wavefront_decode, lib.th264_wavefront_plan,
                    lib.th264_pframe_encode_resident,
-                   lib.th264_pframe_decode_resident, *arrays):
+                   lib.th264_pframe_decode_resident,
+                   lib.th264_merge_slices_resident, *arrays):
             fn.restype = ctypes.c_int
         lib.th264_cuda_error_string.argtypes = [ctypes.c_int]
         lib.th264_cuda_error_string.restype = ctypes.c_char_p

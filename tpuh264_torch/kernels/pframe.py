@@ -866,13 +866,16 @@ def _check_refs(name, dev, planes_l, refs_up, refs_vp, s, h: int, w: int):
 
 def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
                  qp: int, ref_base: int, intra_in_p: bool,
-                 out: Optional[MBSymbolsP] = None, t8: bool = False):
+                 out: Optional[MBSymbolsP] = None, t8: bool = False,
+                 pairs: Optional[torch.Tensor] = None):
     """K9's operands in its entry's order (csrc/pframe_enc.cu `enc_args`):
     (input tensors, output tensors, ints); the outputs freshly allocated
     on the inputs' device, or, with `out`, the symbol fields out's
     tensors (then also its mvdx, mvdy, mode, cmode, t8 and luma_dc; else
     those six are None, null pointers, but t8, which the t8 route writes
-    into a tensor of its own).  `t8` and lam8 are the last two ints."""
+    into a tensor of its own), and last the mvds' pair slots: `pairs`
+    (int64, one a MB, zero) or `_mvd_pairs`' (None without `out`).  `t8`
+    and lam8 are the last two ints."""
     s, h, w = y32.shape
     r, c = h // 16, w // 16
     n = len(planes_l)
@@ -903,8 +906,26 @@ def _k9_operands(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
     outs += ([None] * 4 + [i32(*mb) if t8 else None, None] if out is None
              else [out.mvdx, out.mvdy, out.mode, out.cmode, out.t8,
                    out.luma_dc])
+    if out is not None and pairs is None:
+        pairs = _mvd_pairs(dev, s * r * c)
+    outs.append(None if out is None else pairs)
     ints += [int(t8), _LAMBDA8[min(max(qp, 0), 51)]]
     return ins, outs, ints
+
+
+_PAIRS = {}  # (device, stream) -> K9's mvd pair slots
+
+
+def _mvd_pairs(dev: torch.device, mbs: int) -> torch.Tensor:
+    """K9's pair slots for `mbs` MBs on `dev`'s current stream: one int64
+    a MB, allocated zeroed once per device and stream (again only for a
+    larger frame).  Every launch leaves them zero, so the launches of a
+    stream, which run in order, share them."""
+    key = (dev, cuda_lib.stream(dev).value if dev.type == "cuda" else None)
+    buf = _PAIRS.get(key)
+    if buf is None or buf.numel() < mbs:
+        buf = _PAIRS[key] = torch.zeros(mbs, dtype=torch.int64, device=dev)
+    return buf[:mbs]
 
 
 def _k9_launch(y32, u, v, planes_l, refs_up, refs_vp, iy0, ix0, gy, gx,
